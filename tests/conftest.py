@@ -52,6 +52,7 @@ def pytest_configure(config):
         "slow: >5s perf/timing tests excluded from the tier-1 "
         "`-m 'not slow'` lane (run explicitly with `-m slow`)",
     )
+    config.addinivalue_line("markers", "gpu: needs a CUDA device; skips without one")
 
 
 # Measured call time > ~4s on the round-3 CI box (--durations) — excluded
