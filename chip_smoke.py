@@ -1,24 +1,38 @@
-"""Card check of the PyTorch port: builds its CUDA kernel, holds it against
-its plain version, and drives GPT-2 125M inference at full width.
+"""Card check of the PyTorch port: builds its CUDA kernels, holds each
+against its plain version, and drives GPT-2 125M inference and training at
+full width.
 
     python3 chip_smoke.py
 
-Needs one CUDA device (exits non-zero without one) and ``nvcc`` (the kernel
-is built from ``tpu_parallel_torch/csrc`` at first use).  Phases, in order;
-any failure raises:
+Needs one CUDA device (exits non-zero without one) and ``nvcc`` (the kernels
+are built from ``tpu_parallel_torch/csrc`` at first use, one ``nvcc`` per
+source, all started together).  Phases, in order; any failure raises:
 
-1. setup: card name and power limit, versions, kernel build and ``ptxas``;
-2. ``flash_fwd`` kernel against ``flash_fwd_reference`` at shapes (a)-(g),
-   with the kernel's, the plain version's and SDPA's times and the bound;
+1. setup: card name and power limit, versions, kernel builds and ``ptxas``;
+2. ``flash_fwd`` kernel against ``flash_fwd_reference`` at shapes (a)-(g)
+   and the training pass's shape, with the kernel's, the plain version's
+   and SDPA's times and the bound;
+2b. ``flash_bwd_dq`` and ``flash_bwd_dkv`` against ``flash_bwd_reference``
+   at shapes (a)-(g) and the training pass's shape, row by row, with each
+   kernel's, the plain version's and SDPA's backward times and the bounds;
+   at (a), two planted faults that the row check must reject;
 3. forward: ``gpt2_125m(attn_impl="flash")`` on tokens [8, 1024], seeded
    weights, against the same weights under ``attn_impl="xla"``;
 4. generate: greedy on 4 ragged prompts, then a top-p sampled call;
-5. profile: device time by kernel and the device's idle share over one
-   forward and over 8 decode steps (``torch.profiler``).
+5. profile: device time by kernel and kind and the device's idle share
+   over one forward and over 8 decode steps (``torch.profiler``); the
+   profile of one training step runs at the end of phase 6, after its
+   counted steps;
+6. training: the ``Trainer`` at ``bench.py``'s shape (GPT-2 125M, flash,
+   "proj_attn" remat, global batch 256 in 16 minibatches of [16, 1024]):
+   3 warm-up and 12 timed steps, launches per step, step time, tokens/s,
+   MFU and peak memory; one minibatch's loss and gradients against the
+   xla path; a profile of one step.
 
-Weights and inputs are made from ``SEED``.  The kernel launch counter is set
-to 0 before phases 3-4 (the main path) and read after them.  The last two lines are the ``kernels`` JSON object and the
-``{"ok": true, ...}`` line.
+Weights and inputs are made from ``SEED``.  The kernel launch counters are
+set to 0 before each main path (phases 3-4: inference; phase 6's steps:
+training) and read after it.  The last two lines are the ``kernels`` JSON
+object and the ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
@@ -38,11 +52,42 @@ PEAK_BYTES_PER_S = 3.35e12
 # another order (out); lse is fp32 throughout
 OUT_TOL = 2e-2
 LSE_TOL = 1e-3
+# backward kernels vs plain version, row by row (one query's dq, one key's dk
+# or dv, over D): ||got - plain|| <= GRAD_RTOL * ||plain row|| + GRAD_ATOL *
+# (rms row norm of the tensor).  A row's error comes from the bf16 rounding of
+# its own elements (rms 2^-9 / sqrt(3) = 1.1e-3 relative), ds and p rounded to
+# bf16 where the kernel's fp32 scores differ in their last bits, and sums in
+# another order: a few 1e-3 of the row's norm, so GRAD_RTOL = 2e-2 leaves 4x
+# and more.  GRAD_ATOL covers rows that are rounding noise in both, such as
+# the dq of a query that sees one key (ds = p * (dp - delta) cancels).  Each
+# row is held to its own norm, so a kernel that drops the contributions to
+# the late keys (whose rows are small under a causal mask) fails; phase 2b
+# plants two such faults and checks that this rule rejects them.
+GRAD_RTOL = 2e-2
+GRAD_ATOL = 1e-3
 # flash vs xla path of the full model, bf16 (the xla path rounds its scores
 # to bf16 before the softmax, the kernel keeps them in fp32)
 LOSS_TOL = 1e-2
 LOGITS_TOL = 0.1
+# flash vs xla gradients of one training minibatch, relative L2 error per
+# weight: bf16 activations and gradients through 12 layers, and the xla
+# path's bf16 scores; the key slice of the qkv bias is left out (its
+# gradient is zero in exact arithmetic, so both paths give rounding noise)
+TRAIN_GRAD_TOL = 5e-2
 SEED = 0
+# name: (B, H, H_KV, S, D, kwargs, packed segments, timing iterations)
+SHAPES = {
+    "a_main": (8, 12, 12, 1024, 64, dict(causal=True), False, 50),
+    "b_gqa_d128": (2, 16, 4, 2048, 128, dict(causal=True), False, 20),
+    "c_window256": (8, 12, 12, 1024, 64, dict(causal=True, window=256), False, 50),
+    "d_packed": (8, 12, 12, 1024, 64, dict(causal=True), True, 50),
+    "e_offset_plus512": (4, 12, 12, 1024, 64, dict(causal=False, q_offset=512, window=384), False, 50),
+    "e_offset_minus512": (4, 12, 12, 1024, 64, dict(causal=False, q_offset=-512, window=384), False, 50),
+    "f_stream_8192": (1, 12, 12, 8192, 64, dict(causal=True), False, 10),
+    "g_ragged_1000": (8, 12, 12, 1000, 64, dict(causal=True), False, 50),
+}
+# the shape the training pass gives the kernels: [16, 1024] per minibatch
+TRAIN_SHAPE = (16, 12, 12, 1024, 64, dict(causal=True), False, 20)
 
 
 def log(*parts):
@@ -111,6 +156,56 @@ def visible_pairs(b, h, s, s_kv, causal, window, q_offset, seg, device):
     return int((mask[None] & same).sum()) * h
 
 
+def _packed(b, s, gen):
+    dev = gen.device
+    cuts = torch.sort(torch.randint(1, s - 1, (b, 2), device=dev, generator=gen), dim=1).values
+    pos = torch.arange(s, device=dev)[None, :]
+    return ((pos >= cuts[:, :1]).int() + (pos >= cuts[:, 1:]).int()).to(torch.int32)
+
+
+def _inputs(shape, gen, with_do=False):
+    """bf16 q, k, v (and do) and the segment ids (or None) of one shape."""
+    b, h, h_kv, s, d, _, pack, _ = shape
+    dev = gen.device
+    q = torch.randn(b, h, s, d, device=dev, generator=gen).to(torch.bfloat16)
+    k = torch.randn(b, h_kv, s, d, device=dev, generator=gen).to(torch.bfloat16)
+    v = torch.randn(b, h_kv, s, d, device=dev, generator=gen).to(torch.bfloat16)
+    seg = _packed(b, s, gen) if pack else None
+    if not with_do:
+        return q, k, v, seg
+    do = torch.randn(b, h, s, d, device=dev, generator=gen).to(torch.bfloat16)
+    return q, k, v, seg, do
+
+
+def _sdpa_mask(kw, s, seg, dev):
+    """The boolean mask SDPA needs for a shape (None: plain causal)."""
+    from tpu_parallel_torch.ops import flash_attention as fa
+
+    if not (kw.get("window") or seg is not None or not kw["causal"]):
+        return None
+    mask = fa._band_mask(0, 0, (s, s), s, s, kw["causal"], kw.get("window", 0),
+                         kw.get("q_offset", 0), device=dev)[None, None]
+    if seg is not None:
+        mask = mask & (seg[:, :, None] == seg[:, None, :])[:, None]
+    return mask
+
+
+def grad_error_ratio(got, want):
+    """Worst row of ``got`` against ``want``: its L2 error over its limit,
+    GRAD_RTOL * ||row|| + GRAD_ATOL * rms row norm; at most 1 passes."""
+    g, w = got.float().flatten(0, -2), want.float().flatten(0, -2)
+    err = (g - w).norm(dim=-1)
+    ref = w.norm(dim=-1)
+    limit = GRAD_RTOL * ref + GRAD_ATOL * ref.square().mean().sqrt()
+    return (err / limit.clamp(min=1e-30)).max().item()
+
+
+def _bound(flops, nbytes):
+    ops_ms = flops / PEAK_BF16_FLOPS * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms > bytes_ms else "bytes"
+
+
 def kernel_phase(seed):
     """Phase 2: the kernel against its plain version at shapes (a)-(g)."""
     import torch.nn.functional as F
@@ -118,29 +213,10 @@ def kernel_phase(seed):
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
-
-    def packed(b, s):
-        cuts = torch.sort(torch.randint(1, s - 1, (b, 2), device=dev, generator=gen), dim=1).values
-        pos = torch.arange(s, device=dev)[None, :]
-        return ((pos >= cuts[:, :1]).int() + (pos >= cuts[:, 1:]).int()).to(torch.int32)
-
-    # name: (B, H, H_KV, S, D, kwargs, packed segments, timing iterations)
-    shapes = {
-        "a_main": (8, 12, 12, 1024, 64, dict(causal=True), False, 50),
-        "b_gqa_d128": (2, 16, 4, 2048, 128, dict(causal=True), False, 20),
-        "c_window256": (8, 12, 12, 1024, 64, dict(causal=True, window=256), False, 50),
-        "d_packed": (8, 12, 12, 1024, 64, dict(causal=True), True, 50),
-        "e_offset_plus512": (4, 12, 12, 1024, 64, dict(causal=False, q_offset=512, window=384), False, 50),
-        "e_offset_minus512": (4, 12, 12, 1024, 64, dict(causal=False, q_offset=-512, window=384), False, 50),
-        "f_stream_8192": (1, 12, 12, 8192, 64, dict(causal=True), False, 10),
-        "g_ragged_1000": (8, 12, 12, 1000, 64, dict(causal=True), False, 50),
-    }
     rows = {}
-    for name, (b, h, h_kv, s, d, kw, pack, iters) in shapes.items():
-        q = torch.randn(b, h, s, d, device=dev, generator=gen).to(torch.bfloat16)
-        k = torch.randn(b, h_kv, s, d, device=dev, generator=gen).to(torch.bfloat16)
-        v = torch.randn(b, h_kv, s, d, device=dev, generator=gen).to(torch.bfloat16)
-        seg = packed(b, s) if pack else None
+    for name, shape in {**SHAPES, "t_train_pass": TRAIN_SHAPE}.items():
+        b, h, h_kv, s, d, kw, pack, iters = shape
+        q, k, v, seg = _inputs(shape, gen)
         with torch.inference_mode():
             out, lse = fa._flash_fwd(q, k, v, seg, seg, **kw)
             ref_out, ref_lse = fa.flash_fwd_reference(q, k, v, seg, seg, **kw)
@@ -157,16 +233,9 @@ def kernel_phase(seed):
             plain_ms = cuda_ms(
                 lambda: fa.flash_fwd_reference(q, k, v, seg, seg, **kw), max(2, iters // 10), 1
             )
-            if kw.get("window") or pack or not kw["causal"]:
-                mask = fa._band_mask(0, 0, (s, s), s, s, kw["causal"], kw.get("window", 0),
-                                     kw.get("q_offset", 0), device=dev)[None, None]
-                if pack:
-                    mask = mask & (seg[:, :, None] == seg[:, None, :])[:, None]
-                lib = lambda: F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=mask, enable_gqa=h != h_kv)
-            else:
-                lib = lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True, enable_gqa=h != h_kv)
+            mask = _sdpa_mask(kw, s, seg, dev)
+            lib = lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, is_causal=mask is None, enable_gqa=h != h_kv)
             library_ms = cuda_ms(lib, iters)
         pairs = visible_pairs(b, h, s, s, kw["causal"], kw.get("window", 0),
                               kw.get("q_offset", 0), seg, dev)
@@ -174,14 +243,12 @@ def kernel_phase(seed):
         nbytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel()) + 4 * lse.numel()
         if seg is not None:
             nbytes += 2 * 4 * seg.numel()
-        ops_ms = flops / PEAK_BF16_FLOPS * 1e3
-        bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-        bound_ms = max(ops_ms, bytes_ms)
+        bound_ms, bound_by = _bound(flops, nbytes)
         row = dict(
             shape=f"B={b} H={h} Hkv={h_kv} S={s} D={d} {kw} packed={pack}",
             max_abs_err=out_err, lse_max_abs_err=lse_err, empty_rows=empty_rows,
             ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-            bound_by="operations" if ops_ms > bytes_ms else "bytes",
+            bound_by=bound_by,
             gflop=flops / 1e9, mbytes=nbytes / 1e6, share_of_bound=bound_ms / ms,
             tflops=flops / ms / 1e9,
         )
@@ -196,6 +263,130 @@ def kernel_phase(seed):
         del q, k, v, out, lse, ref_out, ref_lse
         torch.cuda.empty_cache()
     return rows
+
+
+def backward_kernel_phase(seed):
+    """Phase 2b: the dq and dk/dv kernels against their plain version at
+    shapes (a)-(g) and the training pass's shape."""
+    import torch.nn.functional as F
+    from tpu_parallel_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 10)
+    ops = torch.ops.tpu_parallel_torch
+    rows = {}
+    for name, shape in {**SHAPES, "t_train_pass": TRAIN_SHAPE}.items():
+        b, h, h_kv, s, d, kw, pack, iters = shape
+        q, k, v, seg, do = _inputs(shape, gen, with_do=True)
+        causal, window, q_offset = kw["causal"], kw.get("window", 0), kw.get("q_offset", 0)
+        with torch.inference_mode():
+            out, lse = fa._flash_fwd(q, k, v, seg, seg, **kw)
+            got = fa._flash_bwd(q, k, v, seg, seg, out, lse, do, **kw)
+            want = fa.flash_bwd_reference(q, k, v, seg, seg, out, lse, do, **kw)
+            torch.cuda.synchronize()
+            errs, scales, ratios = {}, {}, {}
+            for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+                errs[gname] = (g.float() - w.float()).abs().max().item()
+                scales[gname] = w.float().abs().max().item()
+                ratios[gname] = grad_error_ratio(g, w)
+                if ratios[gname] > 1:
+                    raise AssertionError(
+                        f"{name}: a row of {gname} is {ratios[gname]:.2f}x its limit "
+                        f"({GRAD_RTOL} * ||row|| + {GRAD_ATOL} * rms row norm)")
+            empty = lse <= fa.NEG_INF / 2
+            empty_rows = int(empty.sum())
+            if empty_rows and not (got[0][empty] == 0).all():
+                raise AssertionError(f"{name}: dq is not 0 on the {empty_rows} empty rows")
+            delta = fa._delta(out, do).contiguous()
+            args = (q, k, v, do, lse, delta, seg, seg, causal, window, q_offset)
+            planted = planted_faults(args, want) if name == "a_main" else None
+            del got, want
+            dq_ms = cuda_ms(lambda: ops.flash_bwd_dq(*args), iters)
+            dkv_ms = cuda_ms(lambda: ops.flash_bwd_dkv(*args), iters)
+            plain_dq_ms = cuda_ms(lambda: fa._reference_dq(*args), max(2, iters // 10), 1)
+            plain_dkv_ms = cuda_ms(lambda: fa._reference_dkv(*args), max(2, iters // 10), 1)
+        # SDPA's backward alone, on a retained graph
+        mask = _sdpa_mask(kw, s, seg, dev)
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask, is_causal=mask is None,
+                                                  enable_gqa=h != h_kv)
+        library_ms = cuda_ms(
+            lambda: torch.autograd.grad(sdpa_out, leaves, do, retain_graph=True), iters)
+        del sdpa_out, leaves
+        pairs = visible_pairs(b, h, s, s, causal, window, q_offset, seg, dev)
+        common = 2 * (q.numel() + k.numel() + v.numel() + do.numel()) + 4 * 2 * lse.numel()
+        if seg is not None:
+            common += 2 * 4 * seg.numel()
+        row = dict(shape=f"B={b} H={h} Hkv={h_kv} S={s} D={d} {kw} packed={pack}",
+                   empty_rows=empty_rows, library_ms=library_ms,
+                   dq_max_abs_err=errs["dq"], dkv_max_abs_err=max(errs["dk"], errs["dv"]),
+                   errs=errs, max_abs_plain=scales, worst_row_ratio=ratios)
+        if planted:
+            row["planted_faults"] = planted
+        for kname, ms, plain_ms, flops, nbytes in (
+            ("dq", dq_ms, plain_dq_ms, 6 * d * pairs, common + 2 * q.numel()),
+            ("dkv", dkv_ms, plain_dkv_ms, 8 * d * pairs, common + 2 * (k.numel() + v.numel())),
+        ):
+            bound_ms, bound_by = _bound(flops, nbytes)
+            row.update({f"{kname}_ms": ms, f"{kname}_plain_ms": plain_ms,
+                        f"{kname}_bound_ms": bound_ms,
+                        f"{kname}_bound_by": bound_by, f"{kname}_gflop": flops / 1e9,
+                        f"{kname}_mbytes": nbytes / 1e6, f"{kname}_share_of_bound": bound_ms / ms})
+        rows[name] = row
+        log(f"[bwd kernels {name}] {row['shape']}")
+        log("  worst row over its limit " + ", ".join(f"{g} {ratios[g]:.3f}" for g in ratios)
+            + f" (limit {GRAD_RTOL} * ||row|| + {GRAD_ATOL} * rms row norm; passes <= 1); "
+            + "max abs err " + ", ".join(f"{g} {errs[g]:.3e} (max |plain| {scales[g]:.3e})"
+                                         for g in errs)
+            + f"; empty rows {empty_rows}")
+        if planted:
+            log("  planted faults, worst row over its limit (and max abs err over max |plain|): "
+                + ", ".join(f"{f} {r['worst_row_ratio']:.2f} ({r['max_abs_over_max']:.3e})"
+                            for f, r in planted.items()))
+        log(f"  dq {dq_ms:.4f} ms (bound {row['dq_bound_ms']:.4f} by {row['dq_bound_by']}, "
+            f"{row['dq_gflop']:.2f} GFLOP, {row['dq_mbytes']:.1f} MB, share "
+            f"{row['dq_share_of_bound']:.3f}); dkv {dkv_ms:.4f} ms (bound "
+            f"{row['dkv_bound_ms']:.4f} by {row['dkv_bound_by']}, {row['dkv_gflop']:.2f} GFLOP, "
+            f"{row['dkv_mbytes']:.1f} MB, share {row['dkv_share_of_bound']:.3f}); "
+            f"plain dq {plain_dq_ms:.4f} ms, dkv {plain_dkv_ms:.4f} ms; SDPA backward "
+            f"(dq, dk and dv together) {library_ms:.4f} ms against dq + dkv "
+            f"{dq_ms + dkv_ms:.4f} ms")
+        del q, k, v, do, out, lse, delta
+        torch.cuda.empty_cache()
+    return rows
+
+
+def planted_faults(args, want):
+    """Kernel faults the backward check must reject, made with the real
+    kernels by hiding keys or queries through the segment ids while lse and
+    delta stay those of the whole input: dq without the last 64-key tile,
+    dk/dv without the last 64-query tile, and dk/dv that leave out every key
+    of the second half (rows that are small under a causal mask).  Raises if
+    a fault's worst row is within its limit; returns each fault's worst-row
+    ratio and its max abs error over max |plain|."""
+    q, k, v, do, lse, delta, _, _, causal, window, q_offset = args
+    ops = torch.ops.tpu_parallel_torch
+    s = q.shape[2]
+    none = torch.zeros(q.shape[0], s, dtype=torch.int32, device=q.device)
+    last_tile, second_half = none.clone(), none.clone()
+    last_tile[:, -64:] = 1
+    second_half[:, s // 2:] = 1
+    opts = (causal, window, q_offset)
+    dq = ops.flash_bwd_dq(q, k, v, do, lse, delta, none, last_tile, *opts)
+    dkv_tile = ops.flash_bwd_dkv(q, k, v, do, lse, delta, last_tile, none, *opts)
+    dkv_half = ops.flash_bwd_dkv(q, k, v, do, lse, delta, none, second_half, *opts)
+    faults = {}
+    for fault, got, w in (("dq_without_last_key_tile", dq, want[0]),
+                          ("dk_without_last_query_tile", dkv_tile[0], want[1]),
+                          ("dv_without_last_query_tile", dkv_tile[1], want[2]),
+                          ("dk_without_second_half_keys", dkv_half[0], want[1]),
+                          ("dv_without_second_half_keys", dkv_half[1], want[2])):
+        w = w.float()
+        faults[fault] = dict(worst_row_ratio=grad_error_ratio(got, w),
+                             max_abs_over_max=((got.float() - w).abs().max() / w.abs().max()).item())
+        if faults[fault]["worst_row_ratio"] <= 1:
+            raise AssertionError(f"the backward check passes a planted fault: {fault} {faults[fault]}")
+    return faults
 
 
 def forward_phase(seed):
@@ -288,38 +479,161 @@ def generate_phase(model, seed):
                 decode_step_ms=(total_ms - prefill_ms) / new)
 
 
-def profile_phase(model, seed):
-    """Device time by kernel and the device's busy share over one forward
-    [8, 1024] and over 8 decode steps at batch 4 (``torch.profiler``)."""
+# kinds of device kernels in a profile, by a substring of their names
+PROFILE_GROUPS = (
+    ("flash kernels", ("flash_fwd_kernel", "flash_bwd_")),
+    ("GEMM", ("nvjet", "gemm", "cutlass", "xmma")),
+    ("softmax/CE", ("SoftMax", "softmax", "nll_loss")),
+    ("LayerNorm", ("layer_norm", "GammaBeta")),
+    ("copies/casts", ("copy", "Memcpy", "Memset")),
+)
+
+
+def _profile(name, fn, grad=False):
+    """Device time by kernel and the device's idle share over one call of
+    ``fn`` after a warm-up call (``torch.profiler``)."""
+    import contextlib
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    with contextlib.nullcontext() if grad else torch.inference_mode():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - start) * 1e6
+    # device-side entries only: an aten op's entry repeats its kernels' time
+    events = [(e.key, e.count, e.self_device_time_total) for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    busy_us = sum(t for _, _, t in events)
+    log(f"[profile {name}] wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
+        f"(idle share {1 - busy_us / wall_us:.3f})")
+    groups = {}
+    for key, _, t in events:
+        group = next((g for g, marks in PROFILE_GROUPS if any(m in key for m in marks)), "other")
+        groups[group] = groups.get(group, 0.0) + t
+    log("  by kind: " + ", ".join(f"{g} {t / 1e3:.3f} ms ({100 * t / busy_us:.1f}%)"
+                                  for g, t in sorted(groups.items(), key=lambda e: -e[1])))
+    for key, count, t in sorted(events, key=lambda e: -e[2])[:12]:
+        log(f"  {t / 1e3:9.3f} ms {100 * t / busy_us:5.1f}% x{count:<5d} {key[:90]}")
+
+
+def profile_phase(model, seed):
+    """Phase 5: one forward [8, 1024] and 8 decode steps at batch 4."""
     from tpu_parallel_torch.models.generate import generate
 
     gen = torch.Generator().manual_seed(seed + 2)
     tokens = torch.randint(0, model.config.vocab_size, (8, 1024), generator=gen).cuda()
     prompt = tokens[:4, :128].contiguous()
-    runs = {
-        "forward [8, 1024]": lambda: model(tokens),
-        "generate [4, 128] + 8 new": lambda: generate(model, prompt, max_new_tokens=8),
-    }
-    for name, fn in runs.items():
-        with torch.inference_mode():
-            fn()
+    _profile("forward [8, 1024]", lambda: model(tokens))
+    _profile("generate [4, 128] + 8 new", lambda: generate(model, prompt, max_new_tokens=8))
+
+
+LAUNCH_COUNTERS = ("flash_fwd_launches", "flash_bwd_dq_launches", "flash_bwd_dkv_launches")
+
+
+def train_phase(seed, card_name):
+    """Phase 6: bench.py's training loop on the port's Trainer, launches per
+    step, throughput and memory; flash against xla gradients on one
+    minibatch; a profile of one step.  Returns the main path's launches."""
+    import dataclasses
+    import math
+
+    from tpu_parallel_torch.core.metrics import compute
+    from tpu_parallel_torch.models import GPTLM
+    from tpu_parallel_torch.models.gpt import make_gpt_loss
+    from tpu_parallel_torch.ops import flash_attention as fa
+    from tpu_parallel_torch.train_lib import Trainer, TrainerConfig
+    from tpu_parallel_torch.utils.profiling import peak_flops, transformer_flops_per_token
+
+    warmup, timed = 3, 12
+    config = TrainerConfig(
+        model="gpt2_125m", global_batch_size=256, num_minibatches=16, steps=warmup + timed,
+        seed=seed, model_overrides=dict(dropout_rate=0.0, remat=True, remat_policy="proj_attn",
+                                        attn_impl="flash", scan_layers=False),
+    )
+    start = time.perf_counter()
+    trainer = Trainer(config, device="cuda")
+    state = trainer.init()
+    batch = trainer.example_batch
+    cfg = trainer.model_config
+    log(f"[train] GPT-2 125M trainer (fp32 masters, AdamW) built in "
+        f"{time.perf_counter() - start:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    for name in LAUNCH_COUNTERS:  # the training main path starts here
+        setattr(fa, name, 0)
+    per_step, step_metrics = [], []
+    t0 = None
+    for i in range(warmup + timed):
+        if i == warmup:
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                start = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                wall_us = (time.perf_counter() - start) * 1e6
-        # device-side entries only: an aten op's entry repeats its kernels' time
-        events = [(e.key, e.count, e.self_device_time_total) for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA]
-        busy_us = sum(t for _, _, t in events)
-        log(f"[profile {name}] wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
-            f"(idle share {1 - busy_us / wall_us:.3f})")
-        for key, count, t in sorted(events, key=lambda e: -e[2])[:10]:
-            log(f"  {t / 1e3:9.3f} ms {100 * t / busy_us:5.1f}% x{count:<5d} {key[:90]}")
+            t0 = time.perf_counter()
+        before = [getattr(fa, name) for name in LAUNCH_COUNTERS]
+        state, metrics = trainer.step_fn(state, None, batch)
+        per_step.append([getattr(fa, name) - n for name, n in zip(LAUNCH_COUNTERS, before)])
+        step_metrics.append(metrics)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {name: getattr(fa, name) for name in LAUNCH_COUNTERS}
+    peak_mem = torch.cuda.max_memory_allocated()
+    losses = [compute(m)["loss"] for m in step_metrics]
+    want = cfg.n_layers * config.num_minibatches
+    if any(n != [want] * 3 for n in per_step):
+        raise AssertionError(f"launches per step (fwd, dq, dkv) {per_step}, want {want} each")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training loss not finite and falling: {losses}")
+    tokens = config.global_batch_size * cfg.seq_len
+    step_ms = dt / timed * 1e3
+    tokens_per_s = tokens * timed / dt
+    peak = peak_flops(card_name)
+    mfu = tokens_per_s * transformer_flops_per_token(cfg) / peak if peak else None
+    log(f"[train] losses by step {[round(x, 5) for x in losses]}")
+    log(f"[train] launches per step (flash_fwd, flash_bwd_dq, flash_bwd_dkv) {per_step[-1]} "
+        f"in every step, {launches} over {warmup + timed} steps")
+    log(f"[train] {step_ms:.2f} ms per step of {tokens} tokens ({config.num_minibatches} "
+        f"minibatches of [16, 1024]), {tokens_per_s:.0f} tokens/s, MFU {mfu} against "
+        f"{peak} FLOP/s ({card_name}); max memory allocated {peak_mem / 2**30:.2f} GiB")
+
+    # one minibatch's loss and gradients, flash against xla on the same weights
+    mb = batch.rows(0, config.global_batch_size // config.num_minibatches)
+    ref = GPTLM(dataclasses.replace(cfg, attn_impl="xla"), device="cuda", seed=seed)
+    ref.load_state_dict(trainer.model.state_dict())
+    results = {}
+    for name, model in (("flash", trainer.model), ("xla", ref)):
+        loss, _ = make_gpt_loss(model.config)(model, mb)
+        loss.backward()
+        results[name] = (loss.item(), {n: p.grad.float() for n, p in model.named_parameters()})
+        model.zero_grad(set_to_none=True)
+    del ref
+    dh = cfg.head_dim
+    not_key = (torch.arange(3 * cfg.d_model, device="cuda") % (3 * dh)) // dh != 1
+    rel = {}
+    for n, g_x in results["xla"][1].items():
+        g_f = results["flash"][1][n]
+        if n.endswith("attn.qkv.bias"):
+            g_f, g_x = g_f[not_key], g_x[not_key]
+        rel[n] = ((g_f - g_x).norm() / g_x.norm().clamp(min=1e-30)).item()
+    worst = max(rel, key=rel.get)
+    loss_diff = abs(results["flash"][0] - results["xla"][0])
+    log(f"[train] minibatch loss flash {results['flash'][0]:.6f} xla {results['xla'][0]:.6f} "
+        f"(|diff| {loss_diff:.2e}, tol {LOSS_TOL}); gradient relative L2 error median "
+        f"{sorted(rel.values())[len(rel) // 2]:.3e}, max {rel[worst]:.3e} ({worst}), tol "
+        f"{TRAIN_GRAD_TOL}")
+    if loss_diff > LOSS_TOL or rel[worst] > TRAIN_GRAD_TOL:
+        raise AssertionError("flash training gradients disagree with the xla path")
+    del results
+    torch.cuda.empty_cache()
+
+    _profile("train step [256, 1024] in 16 minibatches",
+             lambda: trainer.step_fn(trainer.state, None, batch), grad=True)
+    return launches, dict(
+        losses=losses, step_ms=step_ms, tokens_per_s=tokens_per_s, mfu=mfu, peak_flops=peak,
+        max_memory_allocated=peak_mem, launches_per_step=per_step[-1],
+        flash_xla_loss=(loss_diff, LOSS_TOL), flash_xla_grad_rel_l2_max=(rel[worst], worst),
+    )
 
 
 def main():
@@ -330,25 +644,50 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     smi = setup()
     kernel_rows = kernel_phase(SEED)
+    bwd_rows = backward_kernel_phase(SEED)
 
     from tpu_parallel_torch.ops import flash_attention as fa
 
-    fa.flash_fwd_launches = 0  # the main path starts here
+    for name in LAUNCH_COUNTERS:  # the inference main path starts here
+        setattr(fa, name, 0)
     model, fwd = forward_phase(SEED)
     gen = generate_phase(model, SEED)
-    launches = fa.flash_fwd_launches
-    if launches == 0:
-        raise AssertionError("the main path never launched flash_fwd")
+    inference_launches = fa.flash_fwd_launches
+    if inference_launches == 0:
+        raise AssertionError("the inference path never launched flash_fwd")
+    log(f"[inference] flash_fwd launches over phases 3-4: {inference_launches}")
     profile_phase(model, SEED)
-    main_row = kernel_rows["a_main"]
-    kernels = {"kernels": [dict(
-        name="flash_fwd", route="cuda", source="tpu_parallel_torch/csrc/flash_fwd.cu",
-        replaces="tpu_parallel/ops/flash_attention.py:240", launches=launches,
-        max_abs_err=main_row["max_abs_err"], ms=main_row["ms"], plain_ms=main_row["plain_ms"],
-        bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
-        library_ms=main_row["library_ms"],
-    )]}
-    summary = dict(card=smi, forward=fwd, generate=gen, kernel_shapes=kernel_rows)
+    del model
+    torch.cuda.empty_cache()
+    launches, train = train_phase(SEED, smi.split(",")[0].strip())
+    if not all(launches.values()):
+        raise AssertionError(f"the training path left a kernel unlaunched: {launches}")
+
+    # one row per kernel and main path, each at the shape that path gives it:
+    # the forward at (a) for inference (PR 1's row) and at the training pass
+    train_row = bwd_rows["t_train_pass"]
+    kernels = {"kernels": [
+        dict(name="flash_fwd", route="cuda", source="tpu_parallel_torch/csrc/flash_fwd.cu",
+             replaces="tpu_parallel/ops/flash_attention.py:240", path=path,
+             shape=kernel_rows[shape]["shape"], launches=n,
+             max_abs_err=kernel_rows[shape]["max_abs_err"], ms=kernel_rows[shape]["ms"],
+             plain_ms=kernel_rows[shape]["plain_ms"], bound_ms=kernel_rows[shape]["bound_ms"],
+             bound_by=kernel_rows[shape]["bound_by"], library_ms=kernel_rows[shape]["library_ms"])
+        for path, shape, n in (("inference", "a_main", inference_launches),
+                               ("training", "t_train_pass", launches["flash_fwd_launches"]))
+    ] + [
+        dict(name=f"flash_bwd_{k}", route="cuda", source="tpu_parallel_torch/csrc/flash_bwd.cu",
+             replaces=f"tpu_parallel/ops/flash_attention.py:{line}", path="training",
+             shape=train_row["shape"], launches=launches[f"flash_bwd_{k}_launches"],
+             max_abs_err=train_row[f"{k}_max_abs_err"], ms=train_row[f"{k}_ms"],
+             plain_ms=train_row[f"{k}_plain_ms"], bound_ms=train_row[f"{k}_bound_ms"],
+             bound_by=train_row[f"{k}_bound_by"], library_ms=train_row["library_ms"],
+             library_covers="dq+dk+dv", kernels_ms_dq_plus_dkv=train_row["dq_ms"] + train_row["dkv_ms"])
+        for k, line in (("dq", 464), ("dkv", 563))
+    ]}
+    summary = dict(card=smi, forward=fwd, generate=gen, train=train,
+                   inference_flash_fwd_launches=inference_launches,
+                   kernel_shapes=kernel_rows, bwd_kernel_shapes=bwd_rows)
     log("[summary] " + json.dumps(summary, sort_keys=True))
     log(f"card: {smi}")
     print(json.dumps(kernels), flush=True)

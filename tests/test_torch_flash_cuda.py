@@ -1,11 +1,17 @@
-"""The port's CUDA flash-attention forward against its plain version, on the
-card.  Marked ``gpu``; every test skips without a CUDA device.  Imports no
+"""The port's CUDA flash-attention kernels (forward, dq, dk/dv) against their
+plain versions, on the card.  Marked ``gpu``; every test skips without a CUDA device.  Imports no
 JAX, so on the card's machine it runs without the repo's conftest:
 
     python -m pytest --noconftest -m gpu tests/test_torch_flash_cuda.py
 
 Tolerance: out atol = rtol = 2e-2 (P is rounded to bf16 before P.V and sums
-run in another order), lse atol 1e-3 (fp32 throughout).
+run in another order), lse atol 1e-3 (fp32 throughout).  Gradients, row by
+row (one query's dq, one key's dk or dv): ||got - plain|| <= 2e-2 * ||plain
+row|| + 1e-3 * (rms row norm of the tensor).  bf16 outputs carry a relative
+rounding of up to 2^-9 on each element, ds and p are rounded to bf16 before
+their products and thousands of terms are summed in another order: a few
+1e-3 of a row's norm.  The 1e-3 term covers rows that are rounding noise in
+both, such as the dq of a query that sees a single key.
 """
 
 import importlib
@@ -57,6 +63,113 @@ def test_kernel_refuses_what_it_cannot_take(cuda):
     q16 = torch.zeros(1, 2, 64, 32, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
         tfa._flash_fwd(q16, q16, q16)
-    g = torch.zeros(1, 2, 64, 64, device=cuda, dtype=torch.bfloat16, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tfa._flash_fwd(g, g, g)
+    with pytest.raises(TypeError, match="bf16"):
+        tfa._flash_bwd(q, q, q, None, None, q, q[..., 0], q)
+
+
+def _grad_inputs(cuda, b, h, h_kv, s, d, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(b, h, s, d, device=cuda, generator=gen).to(torch.bfloat16)
+    k = torch.randn(b, h_kv, s, d, device=cuda, generator=gen).to(torch.bfloat16)
+    v = torch.randn(b, h_kv, s, d, device=cuda, generator=gen).to(torch.bfloat16)
+    do = torch.randn(b, h, s, d, device=cuda, generator=gen).to(torch.bfloat16)
+    return q, k, v, do
+
+
+def _worst_row_ratio(got, want):
+    """Largest row L2 error over its limit 2e-2 * ||row|| + 1e-3 * rms row norm."""
+    g, w = got.float().flatten(0, -2), want.float().flatten(0, -2)
+    ref = w.norm(dim=-1)
+    limit = 2e-2 * ref + 1e-3 * ref.square().mean().sqrt()
+    return ((g - w).norm(dim=-1) / limit.clamp(min=1e-30)).max().item()
+
+
+def _assert_grads_close(got, want):
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        ratio = _worst_row_ratio(g, w)
+        assert ratio <= 1, (name, ratio)
+
+
+# name: (B, H, H_KV, S, D, kwargs) — gradient shapes of the card check
+GRAD_SHAPES = {
+    "a_gpt2_train_pass": (4, 12, 12, 1024, 64, dict(causal=True)),
+    "b_gqa_d128": (1, 16, 4, 1024, 128, dict(causal=True)),
+    "c_window": (2, 4, 4, 1000, 64, dict(causal=True, window=256)),
+    "e_chunk_ahead": (2, 4, 4, 1024, 64, dict(causal=False, q_offset=512, window=384)),
+    "e_chunk_behind_empty_rows": (2, 4, 4, 1024, 64, dict(causal=False, q_offset=-512, window=384)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(GRAD_SHAPES))
+def test_backward_kernels_match_plain_version(cuda, name):
+    b, h, h_kv, s, d, kw = GRAD_SHAPES[name]
+    q, k, v, do = _grad_inputs(cuda, b, h, h_kv, s, d)
+    with torch.inference_mode():
+        out, lse = tfa._flash_fwd(q, k, v, **kw)
+        before = (tfa.flash_bwd_dq_launches, tfa.flash_bwd_dkv_launches)
+        got = tfa._flash_bwd(q, k, v, None, None, out, lse, do, **kw)
+        want = tfa.flash_bwd_reference(q, k, v, None, None, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert (tfa.flash_bwd_dq_launches, tfa.flash_bwd_dkv_launches) == (before[0] + 1, before[1] + 1)
+    _assert_grads_close(got, want)
+    empty = lse <= tfa.NEG_INF / 2
+    if "empty" in name:
+        assert empty.any()
+        assert (got[0][empty] == 0).all()
+
+
+def test_packed_backward_and_dlse(cuda):
+    """Packed segments, GQA and a nonzero lse cotangent together."""
+    q, k, v, do = _grad_inputs(cuda, 2, 8, 2, 512, 64, seed=1)
+    pos = torch.arange(512, device=cuda)
+    seg = ((pos >= 100).int() + (pos >= 333).int()).expand(2, 512).contiguous()
+    dlse = torch.randn(2, 8, 512, device=cuda, generator=torch.Generator(device=cuda).manual_seed(2))
+    with torch.inference_mode():
+        out, lse = tfa._flash_fwd(q, k, v, seg, seg)
+        got = tfa._flash_bwd(q, k, v, seg, seg, out, lse, do, dlse=dlse)
+        want = tfa.flash_bwd_reference(q, k, v, seg, seg, out, lse, do, dlse=dlse)
+    _assert_grads_close(got, want)
+
+
+def test_flash_attention_gradients_use_three_launches(cuda):
+    """Forward, dq and dk/dv: one launch each per fwd+bwd, gradients within
+    tolerance of autograd through the plain forward."""
+    q, k, v, do = _grad_inputs(cuda, 2, 4, 4, 256, 64, seed=3)
+    leaves = [x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v)]
+    counts = (tfa.flash_fwd_launches, tfa.flash_bwd_dq_launches, tfa.flash_bwd_dkv_launches)
+    out = tfa.flash_attention(*leaves)
+    out.backward(do.transpose(1, 2))
+    assert (tfa.flash_fwd_launches, tfa.flash_bwd_dq_launches, tfa.flash_bwd_dkv_launches) == tuple(
+        c + 1 for c in counts)
+    with torch.inference_mode():
+        o, lse = tfa._flash_fwd(q, k, v)
+        want = tfa.flash_bwd_reference(q, k, v, None, None, o, lse, do)
+    _assert_grads_close([x.grad.transpose(1, 2) for x in leaves], want)
+
+
+def test_gradient_check_rejects_dropped_work(cuda):
+    """The row check catches kernels that drop part of their work: dq without
+    the last 64-key tile, dk/dv without the last 64-query tile, and dk/dv
+    without the keys of the second half (small rows under a causal mask).
+    The faults are made with the real kernels by hiding keys or queries
+    through the segment ids while lse and delta stay those of the whole
+    input."""
+    b, h, s, d = 2, 4, 1024, 64
+    q, k, v, do = _grad_inputs(cuda, b, h, h, s, d, seed=4)
+    none = torch.zeros(b, s, dtype=torch.int32, device=cuda)
+    last_tile, second_half = none.clone(), none.clone()
+    last_tile[:, -64:] = 1
+    second_half[:, s // 2:] = 1
+    with torch.inference_mode():
+        out, lse = tfa._flash_fwd(q, k, v)
+        want = tfa.flash_bwd_reference(q, k, v, None, None, out, lse, do)
+        delta = tfa._delta(out, do).contiguous()
+        ops = torch.ops.tpu_parallel_torch
+        faults = {
+            "dq": [ops.flash_bwd_dq(q, k, v, do, lse, delta, none, last_tile, True, 0, 0)],
+            "dkv_tile": ops.flash_bwd_dkv(q, k, v, do, lse, delta, last_tile, none, True, 0, 0),
+            "dkv_half": ops.flash_bwd_dkv(q, k, v, do, lse, delta, none, second_half, True, 0, 0),
+        }
+    for name, got in faults.items():
+        for g, w in zip(got, want if name == "dq" else want[1:]):
+            assert _worst_row_ratio(g, w) > 1, name

@@ -43,7 +43,10 @@ def test_import_pulls_in_no_jax():
         "import sys; before = set(sys.modules)\n"
         "import tpu_parallel_torch, tpu_parallel_torch.models.generate, "
         "tpu_parallel_torch.models.convert, tpu_parallel_torch.core.losses, "
-        "tpu_parallel_torch.utils.profiling\n"
+        "tpu_parallel_torch.utils.profiling, tpu_parallel_torch.train_lib, "
+        "tpu_parallel_torch.core.accumulate, tpu_parallel_torch.core.optim, "
+        "tpu_parallel_torch.core.metrics, tpu_parallel_torch.core.state, "
+        "tpu_parallel_torch.data.synthetic\n"
         "new = {m.split('.')[0] for m in set(sys.modules) - before}\n"
         f"print(sorted(new & {FORBIDDEN!r}))\n"
     )

@@ -25,7 +25,9 @@
 // row stay in registers (a row's 64 columns are spread over the 4 lanes of a
 // quad, reduced with two shuffles).  The score accumulator's layout is the
 // A-fragment layout of P, so P never leaves registers.  Causal q tiles are
-// launched heaviest first.  No cp.async pipelining, TMA or wgmma yet.
+// launched heaviest first.  No cp.async pipelining, TMA or wgmma yet.  The
+// band geometry, masks and tile loads are flash_common.cuh's, shared with
+// the backward kernels (flash_bwd.cu).
 //
 // Bound at the slice's main shape (GPT-2 125M: B=8, H=12, S=1024, D=64,
 // causal), per launch on an H100 SXM:
@@ -37,58 +39,15 @@
 // wide, so each q tile re-reads its K/V band from L2: the design does nothing
 // yet to keep that out of device memory beyond the 50 MB L2 itself.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
+
+using namespace flash;
 
 constexpr int kBlockQ = 64;   // query rows per block (16 per warp)
 constexpr int kBlockK = 64;   // keys per K/V tile
 constexpr int kThreads = 128; // 4 warps
-constexpr int kPad = 8;       // bf16 padding per shared row: conflict-free fragment reads
-constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16_pair(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-// c += a (16x16, row) * b (16x8, col), bf16 in, fp32 accumulate.
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ int floor_div(int a, int b) {
-  return a >= 0 ? a / b : -((-a + b - 1) / b);
-}
-
-// Copy rows [row0, row0 + 64) of a [rows, D] bf16 matrix into shared memory
-// (row stride D + kPad), zero-filling rows at or past `rows`.
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          int row0, int rows) {
-  constexpr int kChunksPerRow = D / 8;  // 16-byte chunks
-  for (int c = threadIdx.x; c < kBlockK * kChunksPerRow; c += kThreads) {
-    const int r = c / kChunksPerRow;
-    const int col = (c % kChunksPerRow) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < rows) {
-      val = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(row0 + r) * D + col);
-    }
-    *reinterpret_cast<uint4*>(dst + r * (D + kPad) + col) = val;
-  }
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
@@ -121,7 +80,7 @@ __global__ void __launch_bounds__(kThreads)
   const __nv_bfloat16* v_bh = v + static_cast<size_t>(bh_kv) * Skv * D;
 
   // Q tile -> registers, through k_s, scaled in bf16 like the JAX kernel.
-  load_tile<D>(k_s, q_bh, q0, S);
+  load_tile<D, kBlockQ, kThreads>(k_s, q_bh, q0, S);
   __syncthreads();
   const float sc = __bfloat162float(__float2bfloat16(scale));
   const int r0 = warp * 16 + g;  // tile rows of this thread: r0 and r0 + 8
@@ -151,20 +110,15 @@ __global__ void __launch_bounds__(kThreads)
   for (int nt = 0; nt < kOutTiles; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
 
   // K-tile range of this q tile: _stream_k_range with 64x64 tiles.
-  const int num_kt = (Skv + kBlockK - 1) / kBlockK;
-  int last = num_kt - 1;
-  if (causal) {
-    last = min(last, ((qt + 1) * kBlockQ - 1) / kBlockK);
-  } else if (window) {
-    last = min(last, floor_div(q_offset + (qt + 1) * kBlockQ - 1 + window - 1, kBlockK));
-  }
-  const int first = window ? max(0, q_offset + q0 - window + 1) / kBlockK : 0;
+  int first, last;
+  k_tile_range(qt, kBlockQ, kBlockK, (Skv + kBlockK - 1) / kBlockK, causal, window, q_offset,
+               first, last);
 
   for (int kt = first; kt <= last; ++kt) {
     const int k0 = kt * kBlockK;
     __syncthreads();  // every warp is done with the previous tile (or with Q)
-    load_tile<D>(k_s, k_bh, k0, Skv);
-    load_tile<D>(v_s, v_bh, k0, Skv);
+    load_tile<D, kBlockK, kThreads>(k_s, k_bh, k0, Skv);
+    load_tile<D, kBlockK, kThreads>(v_s, v_bh, k0, Skv);
     if (has_seg && threadIdx.x < kBlockK) {
       segk_s[threadIdx.x] = k0 + threadIdx.x < Skv ? seg_k[b * Skv + k0 + threadIdx.x] : 0;
     }
@@ -184,24 +138,14 @@ __global__ void __launch_bounds__(kThreads)
     }
 
     // Mask unless the whole 64x64 tile is visible to every row.
-    const int qlo = q_offset + q0;
-    const bool full = !has_seg && k0 + kBlockK <= Skv &&
-                      (!causal || qlo >= k0 + kBlockK - 1) &&
-                      (!window || (qlo + kBlockQ - 1 - k0 < window &&
-                                   (causal || k0 + kBlockK - 1 - qlo < window)));
-    if (!full) {
+    if (!tile_all_visible(q0, kBlockQ, k0, kBlockK, S, Skv, causal, window, q_offset, has_seg)) {
 #pragma unroll
       for (int nt = 0; nt < kScoreTiles; ++nt) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int h = i >> 1;
           const int kcol = k0 + nt * 8 + tig * 2 + (i & 1);
-          bool vis = kcol < Skv;
-          if (causal) vis = vis && qpos[h] >= kcol;
-          if (window) {
-            vis = vis && qpos[h] - kcol < window;
-            if (!causal) vis = vis && kcol - qpos[h] < window;
-          }
+          bool vis = in_band(qpos[h], kcol, Skv, causal, window);
           if (has_seg) vis = vis && segk_s[kcol - k0] == segq[h];
           if (!vis) s[nt][i] = -INFINITY;
         }

@@ -97,13 +97,15 @@ def _flatten(tree: Mapping, prefix: str = "") -> Iterator[Tuple[str, object]]:
             yield path, value
 
 
-def params_from_jax(tree: Mapping, config) -> Dict[str, torch.Tensor]:
+def params_from_jax(tree: Mapping, config, dtype=None) -> Dict[str, torch.Tensor]:
     """The port's state dict from a JAX ``GPTLM`` parameter tree.
 
     Works for both layer layouts of the JAX package.  Each tensor comes back
     on the CPU in the dtype of the port's module (``config.dtype`` for
     matmul weights, biases and embeddings; fp32 for LayerNorm), ready for
-    ``GPTLM.load_state_dict``.
+    ``GPTLM.load_state_dict``, or in ``dtype`` when given:
+    ``dtype=torch.float32`` keeps the tree's own fp32 values, the master
+    weights of training (``TrainState.create``).
     """
     flat = dict(_flatten(tree))
     scanned = any(p.startswith(_SCANNED) for p in flat)
@@ -140,20 +142,22 @@ def params_from_jax(tree: Mapping, config) -> Dict[str, torch.Tensor]:
             arr = arr[layer]
         if transpose:
             arr = arr.T
-        shape, dtype = shapes[key]
+        shape, module_dtype = shapes[key]
         if arr.shape != shape:
             raise ValueError(f"{path}: shape {arr.shape} does not fit {key} {shape}")
-        state[key] = torch.tensor(arr, dtype=dtype)
+        state[key] = torch.tensor(arr, dtype=dtype or module_dtype)
     return state
 
 
-def init_params(model: torch.nn.Module, seed: int = 0) -> None:
+def init_params(model: torch.nn.Module, seed: int = 0) -> Dict[str, torch.Tensor]:
     """Fill ``model``'s weights in place from ``seed``, with flax's defaults:
     Dense kernels lecun-normal (truncated normal, std sqrt(1/fan_in) / .8796,
     cut at two std), biases 0, embeddings normal with std sqrt(1/d_model),
     LayerNorm scale 1 and bias 0.  Drawn in fp32 on the CPU in parameter
-    order, so a seed gives the same weights on every device."""
+    order, so a seed gives the same weights on every device.  Returns the
+    fp32 draws by parameter name (the master weights of training)."""
     gen = torch.Generator(device="cpu").manual_seed(seed)
+    draws = {}
     with torch.no_grad():
         for name, param in model.named_parameters():
             value = torch.empty(param.shape, dtype=torch.float32)
@@ -167,3 +171,5 @@ def init_params(model: torch.nn.Module, seed: int = 0) -> None:
                 std = math.sqrt(1.0 / param.shape[1]) / 0.87962566103423978
                 torch.nn.init.trunc_normal_(value, 0.0, std, -2 * std, 2 * std, generator=gen)
             param.copy_(value)
+            draws[name] = value
+    return draws

@@ -4,6 +4,7 @@ Single device.  ``GPTLM`` holds its weights (made from a seed, or loaded
 from a JAX parameter tree through ``models/convert.py``) and keeps the
 JAX call's keywords: ``positions``, ``segment_ids``, ``decode`` (with a per-layer
 list of :class:`KVCache`, updated in place) and ``hidden_only``.
+:func:`make_gpt_loss` is the training loss, with the lm_head applied in it.
 """
 
 from __future__ import annotations
@@ -12,8 +13,10 @@ import dataclasses
 from typing import List, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from tpu_parallel_torch.core.losses import token_cross_entropy
 from tpu_parallel_torch.models.convert import init_params
 from tpu_parallel_torch.models.layers import (
     BlockStack,
@@ -124,3 +127,48 @@ def tiny_test(**overrides) -> GPTConfig:
                dtype=torch.float32, num_microbatches=2),
         **overrides,
     })
+
+
+def _lm_head_params(config: GPTConfig, model: GPTLM) -> torch.Tensor:
+    """The lm_head weight the loss applies.  The JAX version gathers it once
+    when FSDP-sharded; on one device it is the weight itself."""
+    del config
+    return model.lm_head.weight
+
+
+def make_ce_fn():
+    """``(lm_weight, hidden, targets, mask) -> (loss_sum, correct_sum)``:
+    lm_head, fp32 cross-entropy and accuracy on full logits (the JAX
+    ``make_ce_fn`` off the mesh).  ``loss_chunk`` raises at the config."""
+
+    def ce_block(lm_weight, h, targets, mask):
+        logits = F.linear(h, lm_weight)
+        ce = token_cross_entropy(logits, targets)
+        loss_sum = (ce * mask).sum()
+        correct = ((logits.argmax(-1) == targets) * mask).sum()
+        return loss_sum, correct
+
+    return ce_block
+
+
+def make_gpt_loss(config: GPTConfig):
+    """Next-token CE in the ``accumulate_gradients`` loss shape:
+    ``loss_fn(model, batch, rng) -> (loss, metrics)``.
+
+    The model runs with ``hidden_only=True`` and the lm_head is applied here,
+    as in the JAX package.  ``rng`` is unused: the port has no dropout.
+    Pipeline, tensor parallelism, MoE and ``loss_chunk`` raise at the config.
+    """
+    ce_fn = make_ce_fn()
+
+    def loss_fn(model, batch, rng=None):
+        hidden = model(batch.tokens, positions=batch.positions,
+                       segment_ids=batch.segment_ids, hidden_only=True)
+        mask = (batch.loss_mask if batch.loss_mask is not None
+                else torch.ones(batch.targets.shape, device=hidden.device))
+        n_tok = mask.sum()
+        loss_sum, correct = ce_fn(_lm_head_params(config, model), hidden, batch.targets, mask)
+        metrics = {"loss": (loss_sum, n_tok), "accuracy": (correct.float(), n_tok)}
+        return loss_sum / n_tok.clamp(min=1.0), metrics
+
+    return loss_fn

@@ -6,19 +6,30 @@ flax modules cast their fp32 params to at every use), LayerNorm computes and
 holds its params in fp32, softmax runs in fp32.  Tensor, pipeline and
 sequence parallelism are not in this slice.  Linear weights are PyTorch's
 ``[out, in]``; ``models/convert.py`` transposes flax's ``[in, out]`` kernels.
+
+Activation checkpointing (``remat``/``remat_policy``) wraps each block in
+``torch.utils.checkpoint``; the save policies keep the values the JAX layers
+name with ``checkpoint_name`` (:func:`checkpoint_name` here).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import threading
 from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
-from tpu_parallel_torch.ops.flash_attention import flash_attention
+from tpu_parallel_torch.ops.flash_attention import FLASH_FWD_OP, flash_attention
 
 # (field, default, what setting it would need) — fields this slice does not
 # implement; a config that sets one raises instead of silently ignoring it
@@ -38,6 +49,9 @@ _UNSUPPORTED = (
 )
 _MLPS = ("gelu", "gelu_exact", "relu")
 _ATTN_IMPLS = ("xla", "flash")
+# remat_policy -> the checkpoint names whose values the backward keeps
+# ("full": none, so every block recomputes its whole forward)
+_REMAT_SAVES = {"full": (), "proj": ("proj",), "proj_attn": ("proj", "attn")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,11 +59,17 @@ class TransformerConfig:
     """Architecture knobs, field for field as in the JAX package.
 
     ``dtype`` is a torch dtype.  Fields this slice does not implement raise
-    when set to anything but their default.  ``remat``/``remat_policy``,
-    ``scan_*``, the mesh-axis names and ``num_microbatches`` are training or
-    compile knobs of the JAX package; they change nothing here.
+    when set to anything but their default.  ``remat`` checkpoints each block
+    when gradients are taken; ``remat_policy`` chooses what the backward
+    keeps: ``"full"`` nothing (the block's forward is recomputed), ``"proj"``
+    the qkv/out/up/down projection outputs, ``"proj_attn"`` those and the
+    attention output (the flash kernel's out and lse, or the xla path's
+    context), so the backward never re-runs attention's forward.  ``"dots"``
+    is not ported and raises when a checkpointed forward runs.  ``scan_*``,
+    the mesh-axis names and ``num_microbatches`` are compile or
+    parallelism knobs of the JAX package; they change nothing here.
     ``flash_block_q``/``flash_block_k`` stay for API parity: the CUDA
-    kernel's tiles are its own constants.
+    kernels' tiles are their own constants.
     """
 
     vocab_size: int = 50304
@@ -141,6 +161,60 @@ def make_norm(config: TransformerConfig, device=None) -> LayerNorm:
     )
 
 
+class _ActiveName(threading.local):
+    """The checkpoint name in force in this thread (None outside a scope)."""
+
+    name: Optional[str] = None
+
+
+_active = _ActiveName()
+
+
+@contextlib.contextmanager
+def checkpoint_name(name: str):
+    """Tag the ops run inside with ``name`` for the remat policies: the
+    counterpart of ``jax.ad_checkpoint.checkpoint_name``, as a scope around
+    the op that computes the value instead of a mark on the value."""
+    outer, _active.name = _active.name, name
+    try:
+        yield
+    finally:
+        _active.name = outer
+
+
+def _save_only_these_names(*names: str):
+    """Selective-checkpoint policy: keep the outputs of the ops tagged with
+    one of ``names`` (views excepted; the flash forward kernel counts as
+    "attn"), recompute every other op."""
+
+    def policy(ctx, op, *args, **kwargs):
+        if op is FLASH_FWD_OP:
+            name = "attn"
+        else:
+            name = None if op.is_view else _active.name
+        return CheckpointPolicy.MUST_SAVE if name in names else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return policy
+
+
+def remat_kwargs_for(config: TransformerConfig) -> dict:
+    """``torch.utils.checkpoint`` kwargs for a block under
+    ``config.remat_policy``."""
+    policy = config.remat_policy
+    if policy == "dots":
+        raise NotImplementedError(
+            "remat_policy='dots' (save every matmul output) is not in the port yet"
+        )
+    if policy not in _REMAT_SAVES:
+        raise ValueError(f"remat_policy={policy!r}: expected one of {sorted(_REMAT_SAVES)}")
+    kwargs = dict(use_reentrant=False)
+    if _REMAT_SAVES[policy]:
+        kwargs["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_only_these_names(*_REMAT_SAVES[policy])
+        )
+    return kwargs
+
+
 @functools.lru_cache(maxsize=None)
 def _inv_sqrt_head_dim(head_dim: int, dtype: torch.dtype) -> float:
     """1 / sqrt(head_dim) rounded through ``dtype`` as the JAX layers compute
@@ -171,7 +245,9 @@ def causal_attention(q, k, v, *, segment_ids=None, window: int = 0,
     if mask is not None:
         scores = scores.masked_fill(~mask, torch.finfo(torch.float32).min)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    # the "proj_attn" policy keeps this context (an O(seq) residual)
+    with checkpoint_name("attn"):
+        return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
 def decode_attention(q, k_all, v_all, positions, window: int = 0,
@@ -254,12 +330,12 @@ class Attention(nn.Module):
         cfg = self.config
         b, t = x.shape[:2]
         dh = cfg.head_dim
-        if self.n_kv == cfg.n_heads:
-            qkv = self.qkv(x).view(b, t, cfg.n_heads, 3 * dh)
-            q, k, v = qkv.split(dh, dim=-1)
-        else:
-            q = self.q(x).view(b, t, cfg.n_heads, dh)
-            k, v = self.kv(x).view(b, t, self.n_kv, 2 * dh).split(dh, dim=-1)
+        with checkpoint_name("proj"):
+            if self.n_kv == cfg.n_heads:
+                q, k, v = self.qkv(x).view(b, t, cfg.n_heads, 3 * dh).split(dh, dim=-1)
+            else:
+                q = self.q(x).view(b, t, cfg.n_heads, dh)
+                k, v = self.kv(x).view(b, t, self.n_kv, 2 * dh).split(dh, dim=-1)
         if decode:
             if segment_ids is not None:
                 raise NotImplementedError(
@@ -284,7 +360,8 @@ class Attention(nn.Module):
             )
         else:
             out = self._attend(q, k, v, segment_ids)
-        return self.out(out.reshape(b, t, cfg.n_heads * dh))
+        with checkpoint_name("proj"):
+            return self.out(out.reshape(b, t, cfg.n_heads * dh))
 
     def _attend(self, q, k, v, segment_ids):
         cfg = self.config
@@ -313,12 +390,14 @@ class MLP(nn.Module):
                               dtype=config.dtype, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.up(x)
+        with checkpoint_name("proj"):
+            h = self.up(x)
         if self.config.mlp == "relu":
             h = F.relu(h)
         else:
             h = F.gelu(h, approximate="tanh" if self.config.mlp == "gelu" else "none")
-        return self.down(h)
+        with checkpoint_name("proj"):
+            return self.down(h)
 
 
 class Block(nn.Module):
@@ -342,19 +421,28 @@ class Block(nn.Module):
 
 
 class BlockStack(nn.Module):
-    """``n_layers`` blocks named ``layer_{i}``, run in a plain loop."""
+    """``n_layers`` blocks named ``layer_{i}``, run in a plain loop; each
+    block is checkpointed under ``config.remat`` when gradients are taken
+    (never when decoding), as the JAX stack wraps it in ``nn.remat``."""
 
     def __init__(self, config: TransformerConfig, n_layers: int, device=None):
         super().__init__()
+        self.config = config
         self.n_layers = n_layers
         for i in range(n_layers):
             self.add_module(f"layer_{i}", Block(config, device))
 
     def forward(self, x, positions=None, segment_ids=None, decode: bool = False,
                 caches: Optional[List[KVCache]] = None) -> torch.Tensor:
+        remat = self.config.remat and not decode and torch.is_grad_enabled()
+        kwargs = remat_kwargs_for(self.config) if remat else None
         for i in range(self.n_layers):
-            cache = caches[i] if caches is not None else None
-            x = getattr(self, f"layer_{i}")(x, positions, segment_ids, decode, cache)
+            layer = getattr(self, f"layer_{i}")
+            if remat:
+                x = checkpoint(layer, x, positions, segment_ids, **kwargs)
+            else:
+                cache = caches[i] if caches is not None else None
+                x = layer(x, positions, segment_ids, decode, cache)
         return x
 
 

@@ -1,28 +1,31 @@
-"""Flash-attention forward: band geometry, plain PyTorch version, and the
-wrapper of the Hopper kernel (``csrc/flash_fwd.cu``).
+"""Flash attention: band geometry, plain PyTorch versions, and the wrappers
+of the Hopper kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``).
 
 Counterpart of ``tpu_parallel/ops/flash_attention.py``.  The TPU package has
-a resident and a streamed forward kernel (a VMEM artifact); here one CUDA
-kernel streams K/V tiles through shared memory at every length, so
-``stream=`` is kept for API parity and gives the same result either way.
-The kernel masks the ragged sequence edge itself: no shape falls back to
-the O(seq^2) path.  The backward kernels (dq, dk/dv) come with the training
-slice; until then a CUDA input that needs a gradient raises.
+a resident and a streamed form of each kernel (a VMEM artifact); here one
+CUDA kernel per function (forward, dq, dk/dv) streams its tiles through
+shared memory at every length, so ``stream=`` is kept for API parity and
+gives the same result either way.  The kernels mask the ragged sequence
+edge themselves: no shape falls back to the O(seq^2) path.
 
 Layouts as in the JAX package: [batch, heads, seq, head_dim] for
-:func:`_flash_fwd` and :func:`flash_fwd_reference`, [batch, seq, heads,
-head_dim] at the public :func:`flash_attention`.  K/V may carry fewer heads
-than Q (grouped-query attention); they are never expanded.
+:func:`_flash_fwd`, :func:`_flash_bwd` and the plain versions, [batch, seq,
+heads, head_dim] at the public :func:`flash_attention`.  K/V may carry fewer
+heads than Q (grouped-query attention); they are never expanded.
 
-On a CPU tensor the wrappers take the plain version; on a CUDA tensor they
-launch the kernel or raise.  ``flash_fwd_launches`` counts kernel launches.
+Gradients follow the JAX ``_flash_finalize`` pattern: the forward kernel
+runs on detached inputs and :class:`_FlashFinalize`, an identity on its
+output, attaches the dq and dk/dv kernels.  On a CPU tensor the wrappers
+take the plain versions; on a CUDA tensor they launch the kernels or raise.
+``flash_fwd_launches``, ``flash_bwd_dq_launches`` and
+``flash_bwd_dkv_launches`` count kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -33,8 +36,10 @@ DEFAULT_BLOCK_K = 128
 NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (64, 128)
 
-# kernel launches in this process; a caller may reset it to 0
+# kernel launches in this process; a caller may reset them to 0
 flash_fwd_launches = 0
+flash_bwd_dq_launches = 0
+flash_bwd_dkv_launches = 0
 
 
 def reference_attention(q, k, v, segment_ids=None):
@@ -113,6 +118,19 @@ def _finalize_rows(acc, m, l):
     return out, lse[..., 0]
 
 
+def _visible(q, k, seg_q, seg_k, causal, window, q_offset):
+    """Bool mask [B or 1, 1, 1, S, S_KV] of the (query, key) pairs that may
+    attend, in the grouped layout of the plain versions."""
+    mask = _band_mask(0, 0, (q.shape[2], k.shape[2]), q.shape[2], k.shape[2], causal,
+                      window, q_offset, device=q.device)
+    if mask is None:
+        mask = torch.ones(q.shape[2], k.shape[2], dtype=torch.bool, device=q.device)
+    mask = mask[None, None, None]
+    if seg_q is not None:
+        mask = mask & (seg_q[:, :, None] == seg_k[:, None, :])[:, None, None]
+    return mask
+
+
 def flash_fwd_reference(q, k, v, seg_q=None, seg_k=None, *, causal=True,
                         window=0, q_offset=0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the forward kernel, same contract.
@@ -130,12 +148,8 @@ def flash_fwd_reference(q, k, v, seg_q=None, seg_k=None, *, causal=True,
     scale = torch.tensor(1.0 / d**0.5, dtype=q.dtype)
     qs = (q * scale).to(q.dtype).reshape(b, h_kv, group, s, d)
     scores = torch.einsum("bngqd,bnkd->bngqk", qs.float(), k.float())
-    mask = _band_mask(0, 0, (s, s_kv), s, s_kv, causal, window, q_offset, device=q.device)
-    if seg_q is not None:
-        same = (seg_q[:, :, None] == seg_k[:, None, :])[:, None, None]
-        mask = same if mask is None else mask & same
-    if mask is not None:
-        scores = scores.masked_fill(~mask, float("-inf"))
+    scores = scores.masked_fill(~_visible(q, k, seg_q, seg_k, causal, window, q_offset),
+                                float("-inf"))
     # rows with no visible key keep m = NEG_INF, so exp(-inf - m) = 0 and l = 0
     m = scores.amax(dim=-1, keepdim=True).clamp(min=NEG_INF)
     p = torch.exp(scores - m)
@@ -143,6 +157,64 @@ def flash_fwd_reference(q, k, v, seg_q=None, seg_k=None, *, causal=True,
     acc = torch.einsum("bngqk,bnkd->bngqd", p.to(q.dtype).float(), v.float())
     out, lse = _finalize_rows(acc, m, l)
     return out.to(q.dtype).reshape(b, h, s, d), lse.reshape(b, h, s)
+
+
+def _bwd_terms(q, k, v, seg_q, seg_k, lse, do, delta, causal, window, q_offset):
+    """``(qs, p, ds)`` of the plain backward, grouped [B, H_KV, group, ...]:
+    the pre-scaled q, the probabilities (0 on masked pairs and on rows with
+    lse <= NEG_INF / 2) and ds = p * (dp - delta) in the input dtype."""
+    b, h, s, d = q.shape
+    h_kv = k.shape[1]
+    group = h // h_kv
+    grouped = lambda x: x.reshape(b, h_kv, group, s, *x.shape[3:])
+    scale = torch.tensor(1.0 / d**0.5, dtype=q.dtype)
+    qs = grouped((q * scale).to(q.dtype))
+    scores = torch.einsum("bngqd,bnkd->bngqk", qs.float(), k.float())
+    lse_g = grouped(lse)[..., None]
+    mask = _visible(q, k, seg_q, seg_k, causal, window, q_offset) & (lse_g > NEG_INF / 2)
+    p = torch.where(mask, torch.exp(scores - lse_g), torch.zeros((), device=q.device))
+    dp = torch.einsum("bngqd,bnkd->bngqk", grouped(do).float(), v.float())
+    ds = (p * (dp - grouped(delta)[..., None])).to(q.dtype)
+    return qs, p, ds
+
+
+def _reference_dq(q, k, v, do, lse, delta, seg_q, seg_k, causal, window, q_offset):
+    b, h, s, d = q.shape
+    _, _, ds = _bwd_terms(q, k, v, seg_q, seg_k, lse, do, delta, causal, window, q_offset)
+    dq = torch.einsum("bngqk,bnkd->bngqd", ds.float(), k.float()) * (1.0 / d**0.5)
+    return dq.to(q.dtype).reshape(b, h, s, d)
+
+
+def _reference_dkv(q, k, v, do, lse, delta, seg_q, seg_k, causal, window, q_offset):
+    b, h, s, d = q.shape
+    qs, p, ds = _bwd_terms(q, k, v, seg_q, seg_k, lse, do, delta, causal, window, q_offset)
+    do_g = do.reshape(qs.shape)
+    dk = torch.einsum("bngqk,bngqd->bnkd", ds.float(), qs.float())
+    dv = torch.einsum("bngqk,bngqd->bnkd", p.to(q.dtype).float(), do_g.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _delta(out, do, dlse=None):
+    """rowsum(out * do) in fp32, minus the lse cotangent when there is one:
+    the per-row correction of ds = p * (dp - delta) (``_flash_bwd``)."""
+    delta = (out.float() * do.float()).sum(-1)
+    return delta if dlse is None else delta - dlse
+
+
+def flash_bwd_reference(q, k, v, seg_q, seg_k, out, lse, do, *, causal=True, window=0,
+                        q_offset=0, dlse=None):
+    """Plain PyTorch version of the backward kernels, same contract.
+
+    Layouts as :func:`flash_fwd_reference`; ``out``/``lse`` are the forward's,
+    ``do`` [B, H, S, D] the cotangent of ``out`` and ``dlse`` [B, H, S] that of
+    ``lse`` (or None).  Returns ``(dq, dk, dv)`` in the input dtype: p is
+    recomputed as exp(s - lse) from the pre-scaled q, ds = p * (dp - delta)
+    is rounded to the input dtype, p is rounded before p^T.do, and sums run
+    in fp32; dk, dv sum each K/V head's query group.
+    """
+    delta = _delta(out, do, dlse)
+    args = (q, k, v, do, lse, delta, seg_q, seg_k, causal, window, q_offset)
+    return (_reference_dq(*args), *_reference_dkv(*args))
 
 
 def _check_args(q, k, v, seg_q, seg_k, causal, window, q_offset):
@@ -166,56 +238,128 @@ def _check_args(q, k, v, seg_q, seg_k, causal, window, q_offset):
         raise ValueError("q_offset applies to causal=False chunks only")
     if window < 0:
         raise ValueError(f"window must be >= 0 (0 = no window), got {window}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash attention runs on cuda or cpu tensors, got {q.device}")
 
 
-def _launch(q, k, v, seg_q, seg_k, causal, window, q_offset):
-    global flash_fwd_launches
-    for name, t in zip("qkv", (q, k, v)):
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"flash_fwd kernel takes bf16, got {name} {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"flash_fwd kernel needs contiguous {name}")
-        if t.data_ptr() % 16:
-            raise ValueError(f"flash_fwd kernel needs 16-byte aligned {name}")
-    b, h, s, d = q.shape
-    h_kv, s_kv = k.shape[1], k.shape[2]
+_DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
+
+
+def _kernel_operands(kernel, bf16, fp32, seg_q, seg_k, device):
+    """Check what a kernel reads and return its segment ids as int32 (or
+    None): bf16 / fp32 map names to tensors that must be contiguous,
+    16-byte aligned and on ``device``."""
+    for dtype, tensors in (("bf16", bf16), ("fp32", fp32)):
+        for name, t in tensors.items():
+            if t.device != device:
+                raise ValueError(f"{name} is on {t.device}, q on {device}")
+            if t.dtype != _DTYPES[dtype]:
+                raise TypeError(f"{kernel} kernel takes {dtype} {name}, got {t.dtype}")
+            if not t.is_contiguous():
+                raise ValueError(f"{kernel} kernel needs contiguous {name}")
+            if t.data_ptr() % 16:
+                raise ValueError(f"{kernel} kernel needs 16-byte aligned {name}")
+    b, h, _, d = bf16["q"].shape
     if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_fwd kernel takes head_dim in {KERNEL_HEAD_DIMS}, got {d}")
+        raise ValueError(f"{kernel} kernel takes head_dim in {KERNEL_HEAD_DIMS}, got {d}")
     if b * h > 65535:
-        raise ValueError(f"flash_fwd kernel takes batch*heads <= 65535, got {b * h}")
-    if seg_q is not None:
-        if seg_q.device != q.device or seg_k.device != q.device:
-            raise ValueError("segment ids must be on q's device")
-        seg_q = seg_q.to(torch.int32).contiguous()
-        seg_k = seg_k.to(torch.int32).contiguous()
-    out = torch.empty_like(q)
-    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    lib = load_library("flash_fwd")
+        raise ValueError(f"{kernel} kernel takes batch*heads <= 65535, got {b * h}")
+    if seg_q is None:
+        return None, None
+    if seg_q.device != device or seg_k.device != device:
+        raise ValueError("segment ids must be on q's device")
+    return seg_q.to(torch.int32).contiguous(), seg_k.to(torch.int32).contiguous()
+
+
+def _launch(kernel, source, bf16, fp32, outs, seg_q, seg_k, causal, window, q_offset):
+    """Launch C entry point ``kernel`` of ``csrc/<source>.cu``: its pointer
+    arguments are the bf16 inputs, the fp32 inputs, the segment ids and the
+    outputs, in that order, then the shapes, the options, the scale and the
+    current stream.  Raises if the launch fails."""
+    q, k = bf16["q"], bf16["k"]
+    seg_q, seg_k = _kernel_operands(kernel, bf16, fp32, seg_q, seg_k, q.device)
+    b, h, s, d = q.shape
+    pointers = [*bf16.values(), *fp32.values(), seg_q, seg_k, *outs]
+    lib = load_library(source)
     with torch.cuda.device(q.device):
-        code = lib.flash_fwd(
-            ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
-            ctypes.c_void_p(v.data_ptr()),
-            ctypes.c_void_p(seg_q.data_ptr() if seg_q is not None else None),
-            ctypes.c_void_p(seg_k.data_ptr() if seg_k is not None else None),
-            ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(lse.data_ptr()),
-            ctypes.c_int(b), ctypes.c_int(h), ctypes.c_int(h_kv), ctypes.c_int(s),
-            ctypes.c_int(s_kv), ctypes.c_int(d), ctypes.c_int(int(causal)),
-            ctypes.c_int(window), ctypes.c_int(q_offset),
-            ctypes.c_float(1.0 / d**0.5),
+        code = getattr(lib, kernel)(
+            *(ctypes.c_void_p(t.data_ptr() if t is not None else None) for t in pointers),
+            ctypes.c_int(b), ctypes.c_int(h), ctypes.c_int(k.shape[1]), ctypes.c_int(s),
+            ctypes.c_int(k.shape[2]), ctypes.c_int(d), ctypes.c_int(int(causal)),
+            ctypes.c_int(window), ctypes.c_int(q_offset), ctypes.c_float(1.0 / d**0.5),
             ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
         )
-    check(lib, code, "flash_fwd")
+    check(lib, code, kernel)
+
+
+# The kernels are custom operators, so that autograd and the selective
+# checkpoint policies of models/layers.py see each launch as one op: the
+# "proj_attn" policy keeps the forward's (out, lse) and the backward never
+# re-runs it.  The CUDA implementation launches the kernel; the CPU one is
+# the plain version.
+
+
+@torch.library.custom_op("tpu_parallel_torch::flash_fwd", mutates_args=(), device_types="cuda")
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  seg_q: Optional[torch.Tensor], seg_k: Optional[torch.Tensor], causal: bool,
+                  window: int, q_offset: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    global flash_fwd_launches
+    out = torch.empty_like(q)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    _launch("flash_fwd", "flash_fwd", dict(q=q, k=k, v=v), {}, (out, lse), seg_q, seg_k,
+            causal, window, q_offset)
     flash_fwd_launches += 1
     return out, lse
+
+
+@_flash_fwd_op.register_kernel("cpu")
+def _flash_fwd_cpu(q, k, v, seg_q, seg_k, causal, window, q_offset):
+    return flash_fwd_reference(q, k, v, seg_q, seg_k, causal=causal, window=window,
+                               q_offset=q_offset)
+
+
+@torch.library.custom_op("tpu_parallel_torch::flash_bwd_dq", mutates_args=(),
+                         device_types="cuda")
+def _flash_bwd_dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+                     lse: torch.Tensor, delta: torch.Tensor, seg_q: Optional[torch.Tensor],
+                     seg_k: Optional[torch.Tensor], causal: bool, window: int,
+                     q_offset: int) -> torch.Tensor:
+    global flash_bwd_dq_launches
+    dq = torch.empty_like(q)
+    _launch("flash_bwd_dq", "flash_bwd", dict(q=q, k=k, v=v, do=do), dict(lse=lse, delta=delta),
+            (dq,), seg_q, seg_k, causal, window, q_offset)
+    flash_bwd_dq_launches += 1
+    return dq
+
+
+_flash_bwd_dq_op.register_kernel("cpu")(_reference_dq)
+
+
+@torch.library.custom_op("tpu_parallel_torch::flash_bwd_dkv", mutates_args=(),
+                         device_types="cuda")
+def _flash_bwd_dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+                      lse: torch.Tensor, delta: torch.Tensor, seg_q: Optional[torch.Tensor],
+                      seg_k: Optional[torch.Tensor], causal: bool, window: int,
+                      q_offset: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    global flash_bwd_dkv_launches
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch("flash_bwd_dkv", "flash_bwd", dict(q=q, k=k, v=v, do=do),
+            dict(lse=lse, delta=delta), (dk, dv), seg_q, seg_k, causal, window, q_offset)
+    flash_bwd_dkv_launches += 1
+    return dk, dv
+
+
+_flash_bwd_dkv_op.register_kernel("cpu")(_reference_dkv)
+
+FLASH_FWD_OP = torch.ops.tpu_parallel_torch.flash_fwd.default
 
 
 def _flash_fwd(q, k, v, seg_q=None, seg_k=None, *, causal=True, window=0,
                stream=None, q_offset=0, block_q=DEFAULT_BLOCK_Q,
                block_k=DEFAULT_BLOCK_K):
     """Forward kernel on [B, H, S, D] inputs -> ``(out, lse)``: the kernel
-    on a CUDA tensor, :func:`flash_fwd_reference` on a CPU tensor.
+    on a CUDA tensor, :func:`flash_fwd_reference` on a CPU tensor.  No
+    gradient flows through it (see :func:`_flash_attention_bhsd`).
 
     ``block_q``/``block_k`` and ``stream`` exist for parity with the JAX
     signature: the CUDA kernel's 64x64 tiles are its own constants and
@@ -223,19 +367,62 @@ def _flash_fwd(q, k, v, seg_q=None, seg_k=None, *, causal=True, window=0,
     """
     del block_q, block_k, stream
     _check_args(q, k, v, seg_q, seg_k, causal, window, q_offset)
-    if q.device.type == "cpu":
-        return flash_fwd_reference(
-            q, k, v, seg_q, seg_k, causal=causal, window=window, q_offset=q_offset
+    return torch.ops.tpu_parallel_torch.flash_fwd(q, k, v, seg_q, seg_k, causal, window,
+                                                  q_offset)
+
+
+def _flash_bwd(q, k, v, seg_q, seg_k, out, lse, do, *, causal=True, window=0, dlse=None,
+               stream=None, q_offset=0, block_q=DEFAULT_BLOCK_Q, block_k=DEFAULT_BLOCK_K):
+    """Backward kernels -> ``(dq, dk, dv)``: ``flash_bwd_dq`` then
+    ``flash_bwd_dkv`` on a CUDA tensor, the plain version on a CPU tensor.
+
+    ``delta = rowsum(out * do) - dlse`` is computed here, outside the
+    kernels, as the JAX ``_flash_bwd`` does in XLA.  ``stream``/``block_*``
+    as in :func:`_flash_fwd`.
+    """
+    del block_q, block_k, stream
+    _check_args(q, k, v, seg_q, seg_k, causal, window, q_offset)
+    if out.shape != q.shape or do.shape != q.shape or lse.shape != q.shape[:3]:
+        raise ValueError(
+            f"out {tuple(out.shape)} / do {tuple(do.shape)} / lse {tuple(lse.shape)} do not "
+            f"match q {tuple(q.shape)}"
         )
-    if q.device.type != "cuda":
-        raise ValueError(f"flash attention runs on cuda or cpu tensors, got {q.device}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash attention on CUDA is forward-only: its backward kernels (dq, "
-            "dk/dv) come with the training slice; run under torch.no_grad() or "
-            "torch.inference_mode()"
-        )
-    return _launch(q, k, v, seg_q, seg_k, causal, window, q_offset)
+    delta = _delta(out, do, dlse).contiguous()
+    do = do.contiguous()
+    lse = lse.contiguous()
+    args = (q, k, v, do, lse, delta, seg_q, seg_k, causal, window, q_offset)
+    dq = torch.ops.tpu_parallel_torch.flash_bwd_dq(*args)
+    dk, dv = torch.ops.tpu_parallel_torch.flash_bwd_dkv(*args)
+    return dq, dk, dv
+
+
+class _FlashFinalize(torch.autograd.Function):
+    """Identity on ``out`` that attaches the backward kernels (the JAX
+    ``_flash_finalize``).  The forward kernel runs OUTSIDE this function on
+    detached inputs, so its (out, lse) are ordinary op outputs that a remat
+    policy can keep; the backward launches dq and dk/dv and never re-runs
+    the forward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seg, out, lse, window):
+        ctx.save_for_backward(q, k, v, seg, out, lse)
+        ctx.window = window
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, seg, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, seg, seg, out, lse, do, window=ctx.window)
+        return dq, dk, dv, None, None, None, None
+
+
+def _flash_attention_bhsd(q, k, v, seg, window=0, stream=None):
+    """Causal flash attention on [B, H, S, D], differentiable in q, k, v."""
+    out, lse = _flash_fwd(q.detach(), k.detach(), v.detach(), seg, seg, window=window,
+                          stream=stream)
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))):
+        return out
+    return _FlashFinalize.apply(q, k, v, seg, out, lse, window)
 
 
 def flash_attention(q, k, v, *, segment_ids=None, block_q=DEFAULT_BLOCK_Q,
@@ -245,15 +432,14 @@ def flash_attention(q, k, v, *, segment_ids=None, block_q=DEFAULT_BLOCK_Q,
     ``k``/``v`` may carry fewer heads than ``q`` (``n_heads % n_kv_heads ==
     0``).  ``window > 0`` limits query t to keys in (t - window, t]; key
     tiles outside the band are skipped.  ``segment_ids`` [batch, seq] masks
-    attention to the same packed segment.  Forward only; see the module
-    docstring for the device rule.
+    attention to the same packed segment.  Differentiable in q, k and v
+    through the backward kernels; see the module docstring for the device
+    rule.
     """
+    del block_q, block_k
     h, h_kv = q.shape[2], k.shape[2]
     if h % h_kv != 0:
         raise ValueError(f"q heads {h} not a multiple of k/v heads {h_kv}")
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    out, _ = _flash_fwd(
-        qt, kt, vt, segment_ids, segment_ids, causal=True, window=window,
-        stream=stream, block_q=block_q, block_k=block_k,
-    )
+    out = _flash_attention_bhsd(qt, kt, vt, segment_ids, window, stream)
     return out.transpose(1, 2)
