@@ -12,10 +12,13 @@ source, all started together).  Phases, in order; any failure raises:
 2. ``flash_fwd`` kernel against ``flash_fwd_reference`` at shapes (a)-(g)
    and the training pass's shape, with the kernel's, the plain version's
    and SDPA's times and the bound;
-2b. ``flash_bwd_dq`` and ``flash_bwd_dkv`` against ``flash_bwd_reference``
-   at shapes (a)-(g) and the training pass's shape, row by row, with each
-   kernel's, the plain version's and SDPA's backward times and the bounds;
-   at (a), two planted faults that the row check must reject;
+2b. ``flash_bwd`` (one pass for dq, dk and dv) against
+   ``flash_bwd_reference`` at shapes (a)-(g) and the training pass's shape,
+   row by row, dq exactly 0 on empty rows; the kernel's time and SDPA's
+   backward time taken in turns (kernel, SDPA, SDPA, kernel; medians), the
+   plain version's time and the one-pass bound; at (a), planted faults that
+   the row check must reject; at the training pass, two runs: dk and dv
+   bitwise equal, dq's largest difference printed;
 3. forward: ``gpt2_125m(attn_impl="flash")`` on tokens [8, 1024], seeded
    weights, against the same weights under ``attn_impl="xla"``;
 4. generate: greedy on 4 ragged prompts, then a top-p sampled call;
@@ -266,22 +269,25 @@ def kernel_phase(seed):
 
 
 def backward_kernel_phase(seed):
-    """Phase 2b: the dq and dk/dv kernels against their plain version at
-    shapes (a)-(g) and the training pass's shape."""
+    """Phase 2b: the backward kernel against its plain version at shapes
+    (a)-(g) and the training pass's shape."""
+    import statistics
+
     import torch.nn.functional as F
     from tpu_parallel_torch.ops import flash_attention as fa
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed + 10)
-    ops = torch.ops.tpu_parallel_torch
     rows = {}
     for name, shape in {**SHAPES, "t_train_pass": TRAIN_SHAPE}.items():
         b, h, h_kv, s, d, kw, pack, iters = shape
         q, k, v, seg, do = _inputs(shape, gen, with_do=True)
         causal, window, q_offset = kw["causal"], kw.get("window", 0), kw.get("q_offset", 0)
+        kernel = lambda: fa._flash_bwd(q, k, v, seg, seg, out, lse, do, **kw)
+        row = dict(shape=f"B={b} H={h} Hkv={h_kv} S={s} D={d} {kw} packed={pack}")
         with torch.inference_mode():
             out, lse = fa._flash_fwd(q, k, v, seg, seg, **kw)
-            got = fa._flash_bwd(q, k, v, seg, seg, out, lse, do, **kw)
+            got = kernel()
             want = fa.flash_bwd_reference(q, k, v, seg, seg, out, lse, do, **kw)
             torch.cuda.synchronize()
             errs, scales, ratios = {}, {}, {}
@@ -294,91 +300,99 @@ def backward_kernel_phase(seed):
                         f"{name}: a row of {gname} is {ratios[gname]:.2f}x its limit "
                         f"({GRAD_RTOL} * ||row|| + {GRAD_ATOL} * rms row norm)")
             empty = lse <= fa.NEG_INF / 2
-            empty_rows = int(empty.sum())
-            if empty_rows and not (got[0][empty] == 0).all():
-                raise AssertionError(f"{name}: dq is not 0 on the {empty_rows} empty rows")
-            delta = fa._delta(out, do).contiguous()
-            args = (q, k, v, do, lse, delta, seg, seg, causal, window, q_offset)
-            planted = planted_faults(args, want) if name == "a_main" else None
+            row["empty_rows"] = int(empty.sum())
+            if row["empty_rows"] and not (got[0][empty] == 0).all():
+                raise AssertionError(f"{name}: dq is not 0 on the {row['empty_rows']} empty rows")
+            if name == "a_main":
+                row["planted_faults"] = planted_faults((q, k, v, out, do, lse), kw, want)
+            if name == "t_train_pass":
+                again = kernel()
+                torch.cuda.synchronize()
+                if not (torch.equal(again[1], got[1]) and torch.equal(again[2], got[2])):
+                    raise AssertionError("dk / dv differ between two runs on the same inputs")
+                row["dkv_bitwise_equal_across_runs"] = True
+                row["dq_run_to_run_max_abs"] = (again[0].float() - got[0].float()).abs().max().item()
+                row["dq_run_to_run_worst_row_ratio"] = grad_error_ratio(again[0], got[0])
+                del again
             del got, want
-            dq_ms = cuda_ms(lambda: ops.flash_bwd_dq(*args), iters)
-            dkv_ms = cuda_ms(lambda: ops.flash_bwd_dkv(*args), iters)
-            plain_dq_ms = cuda_ms(lambda: fa._reference_dq(*args), max(2, iters // 10), 1)
-            plain_dkv_ms = cuda_ms(lambda: fa._reference_dkv(*args), max(2, iters // 10), 1)
-        # SDPA's backward alone, on a retained graph
+            plain_ms = cuda_ms(
+                lambda: fa.flash_bwd_reference(q, k, v, seg, seg, out, lse, do, **kw),
+                max(2, iters // 10), 1)
+        # SDPA's backward alone, on a retained graph, timed in turns with the kernel
         mask = _sdpa_mask(kw, s, seg, dev)
         leaves = [x.detach().requires_grad_() for x in (q, k, v)]
         sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask, is_causal=mask is None,
                                                   enable_gqa=h != h_kv)
-        library_ms = cuda_ms(
-            lambda: torch.autograd.grad(sdpa_out, leaves, do, retain_graph=True), iters)
+        sdpa = lambda: torch.autograd.grad(sdpa_out, leaves, do, retain_graph=True)
+        turns = {"kernel": [], "sdpa": []}
+        for who in ("kernel", "sdpa", "sdpa", "kernel"):
+            with torch.inference_mode(who == "kernel"):
+                turns[who].append(cuda_ms(kernel if who == "kernel" else sdpa, iters))
         del sdpa_out, leaves
+        ms, library_ms = statistics.median(turns["kernel"]), statistics.median(turns["sdpa"])
         pairs = visible_pairs(b, h, s, s, causal, window, q_offset, seg, dev)
-        common = 2 * (q.numel() + k.numel() + v.numel() + do.numel()) + 4 * 2 * lse.numel()
+        flops = 10 * d * pairs  # S, dP, dV, dK and dQ, 2*D each per visible pair
+        # inputs read once (q, k, v, out, do, lse, segment ids), outputs written once
+        nbytes = 2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + 2 * do.numel()) + 4 * lse.numel()
         if seg is not None:
-            common += 2 * 4 * seg.numel()
-        row = dict(shape=f"B={b} H={h} Hkv={h_kv} S={s} D={d} {kw} packed={pack}",
-                   empty_rows=empty_rows, library_ms=library_ms,
-                   dq_max_abs_err=errs["dq"], dkv_max_abs_err=max(errs["dk"], errs["dv"]),
-                   errs=errs, max_abs_plain=scales, worst_row_ratio=ratios)
-        if planted:
-            row["planted_faults"] = planted
-        for kname, ms, plain_ms, flops, nbytes in (
-            ("dq", dq_ms, plain_dq_ms, 6 * d * pairs, common + 2 * q.numel()),
-            ("dkv", dkv_ms, plain_dkv_ms, 8 * d * pairs, common + 2 * (k.numel() + v.numel())),
-        ):
-            bound_ms, bound_by = _bound(flops, nbytes)
-            row.update({f"{kname}_ms": ms, f"{kname}_plain_ms": plain_ms,
-                        f"{kname}_bound_ms": bound_ms,
-                        f"{kname}_bound_by": bound_by, f"{kname}_gflop": flops / 1e9,
-                        f"{kname}_mbytes": nbytes / 1e6, f"{kname}_share_of_bound": bound_ms / ms})
+            nbytes += 2 * 4 * seg.numel()
+        bound_ms, bound_by = _bound(flops, nbytes)
+        row.update(
+            max_abs_err=max(errs.values()), errs=errs, max_abs_plain=scales,
+            worst_row_ratio=ratios, ms=ms, kernel_turns_ms=turns["kernel"], plain_ms=plain_ms,
+            library_ms=library_ms, sdpa_turns_ms=turns["sdpa"], bound_ms=bound_ms,
+            bound_by=bound_by, gflop=flops / 1e9, mbytes=nbytes / 1e6,
+            share_of_bound=bound_ms / ms, tflops=flops / ms / 1e9,
+        )
         rows[name] = row
-        log(f"[bwd kernels {name}] {row['shape']}")
+        log(f"[bwd kernel {name}] {row['shape']}")
         log("  worst row over its limit " + ", ".join(f"{g} {ratios[g]:.3f}" for g in ratios)
             + f" (limit {GRAD_RTOL} * ||row|| + {GRAD_ATOL} * rms row norm; passes <= 1); "
             + "max abs err " + ", ".join(f"{g} {errs[g]:.3e} (max |plain| {scales[g]:.3e})"
                                          for g in errs)
-            + f"; empty rows {empty_rows}")
-        if planted:
+            + f"; empty rows {row['empty_rows']} (dq 0 there)")
+        if "planted_faults" in row:
             log("  planted faults, worst row over its limit (and max abs err over max |plain|): "
                 + ", ".join(f"{f} {r['worst_row_ratio']:.2f} ({r['max_abs_over_max']:.3e})"
-                            for f, r in planted.items()))
-        log(f"  dq {dq_ms:.4f} ms (bound {row['dq_bound_ms']:.4f} by {row['dq_bound_by']}, "
-            f"{row['dq_gflop']:.2f} GFLOP, {row['dq_mbytes']:.1f} MB, share "
-            f"{row['dq_share_of_bound']:.3f}); dkv {dkv_ms:.4f} ms (bound "
-            f"{row['dkv_bound_ms']:.4f} by {row['dkv_bound_by']}, {row['dkv_gflop']:.2f} GFLOP, "
-            f"{row['dkv_mbytes']:.1f} MB, share {row['dkv_share_of_bound']:.3f}); "
-            f"plain dq {plain_dq_ms:.4f} ms, dkv {plain_dkv_ms:.4f} ms; SDPA backward "
-            f"(dq, dk and dv together) {library_ms:.4f} ms against dq + dkv "
-            f"{dq_ms + dkv_ms:.4f} ms")
-        del q, k, v, do, out, lse, delta
+                            for f, r in row["planted_faults"].items()))
+        if "dq_run_to_run_max_abs" in row:
+            log(f"  two runs: dk, dv bitwise equal; dq max |run 1 - run 2| "
+                f"{row['dq_run_to_run_max_abs']:.3e} (worst row {row['dq_run_to_run_worst_row_ratio']:.3f}"
+                f" of its limit; fp32 atomics sum dq in a varying order)")
+        log(f"  kernel {ms:.4f} ms (turns {', '.join(f'{x:.4f}' for x in turns['kernel'])}), "
+            f"SDPA backward (dq, dk, dv) {library_ms:.4f} ms (turns "
+            f"{', '.join(f'{x:.4f}' for x in turns['sdpa'])}), plain {plain_ms:.4f} ms; one-pass "
+            f"bound {bound_ms:.4f} ms by {bound_by} ({row['gflop']:.2f} GFLOP, "
+            f"{row['mbytes']:.1f} MB), share of bound {row['share_of_bound']:.3f}, "
+            f"{row['tflops']:.1f} TFLOP/s")
+        del q, k, v, do, out, lse
         torch.cuda.empty_cache()
     return rows
 
 
-def planted_faults(args, want):
+def planted_faults(tensors, kw, want):
     """Kernel faults the backward check must reject, made with the real
-    kernels by hiding keys or queries through the segment ids while lse and
-    delta stay those of the whole input: dq without the last 64-key tile,
-    dk/dv without the last 64-query tile, and dk/dv that leave out every key
-    of the second half (rows that are small under a causal mask).  Raises if
-    a fault's worst row is within its limit; returns each fault's worst-row
+    kernel by hiding keys or queries through the segment ids while lse and
+    delta stay those of the whole input: dq without the last 64 keys, dk/dv
+    without the last 64 queries, and dk/dv that leave out every key of the
+    second half (rows that are small under a causal mask).  Raises if a
+    fault's worst row is within its limit; returns each fault's worst-row
     ratio and its max abs error over max |plain|."""
-    q, k, v, do, lse, delta, _, _, causal, window, q_offset = args
-    ops = torch.ops.tpu_parallel_torch
+    q, k, v, out, do, lse = tensors
+    bwd = torch.ops.tpu_parallel_torch.flash_bwd
     s = q.shape[2]
     none = torch.zeros(q.shape[0], s, dtype=torch.int32, device=q.device)
     last_tile, second_half = none.clone(), none.clone()
     last_tile[:, -64:] = 1
     second_half[:, s // 2:] = 1
-    opts = (causal, window, q_offset)
-    dq = ops.flash_bwd_dq(q, k, v, do, lse, delta, none, last_tile, *opts)
-    dkv_tile = ops.flash_bwd_dkv(q, k, v, do, lse, delta, last_tile, none, *opts)
-    dkv_half = ops.flash_bwd_dkv(q, k, v, do, lse, delta, none, second_half, *opts)
+    opts = (kw["causal"], kw.get("window", 0), kw.get("q_offset", 0))
+    dq = bwd(q, k, v, out, do, lse, None, none, last_tile, *opts)[0]
+    dkv_tile = bwd(q, k, v, out, do, lse, None, last_tile, none, *opts)[1:]
+    dkv_half = bwd(q, k, v, out, do, lse, None, none, second_half, *opts)[1:]
     faults = {}
-    for fault, got, w in (("dq_without_last_key_tile", dq, want[0]),
-                          ("dk_without_last_query_tile", dkv_tile[0], want[1]),
-                          ("dv_without_last_query_tile", dkv_tile[1], want[2]),
+    for fault, got, w in (("dq_without_last_64_keys", dq, want[0]),
+                          ("dk_without_last_64_queries", dkv_tile[0], want[1]),
+                          ("dv_without_last_64_queries", dkv_tile[1], want[2]),
                           ("dk_without_second_half_keys", dkv_half[0], want[1]),
                           ("dv_without_second_half_keys", dkv_half[1], want[2])):
         w = w.float()
@@ -517,6 +531,11 @@ def _profile(name, fn, grad=False):
         groups[group] = groups.get(group, 0.0) + t
     log("  by kind: " + ", ".join(f"{g} {t / 1e3:.3f} ms ({100 * t / busy_us:.1f}%)"
                                   for g, t in sorted(groups.items(), key=lambda e: -e[1])))
+    for label, mark in (("forward", "flash_fwd_"), ("backward", "flash_bwd_")):
+        picked = [(c, t) for key, c, t in events if mark in key]
+        if picked:
+            log(f"  flash {label} kernels: {sum(t for _, t in picked) / 1e3:.3f} ms in "
+                f"{sum(c for c, _ in picked)} launches")
     for key, count, t in sorted(events, key=lambda e: -e[2])[:12]:
         log(f"  {t / 1e3:9.3f} ms {100 * t / busy_us:5.1f}% x{count:<5d} {key[:90]}")
 
@@ -532,7 +551,7 @@ def profile_phase(model, seed):
     _profile("generate [4, 128] + 8 new", lambda: generate(model, prompt, max_new_tokens=8))
 
 
-LAUNCH_COUNTERS = ("flash_fwd_launches", "flash_bwd_dq_launches", "flash_bwd_dkv_launches")
+LAUNCH_COUNTERS = ("flash_fwd_launches", "flash_bwd_launches")
 
 
 def train_phase(seed, card_name):
@@ -581,8 +600,8 @@ def train_phase(seed, card_name):
     peak_mem = torch.cuda.max_memory_allocated()
     losses = [compute(m)["loss"] for m in step_metrics]
     want = cfg.n_layers * config.num_minibatches
-    if any(n != [want] * 3 for n in per_step):
-        raise AssertionError(f"launches per step (fwd, dq, dkv) {per_step}, want {want} each")
+    if any(n != [want] * len(LAUNCH_COUNTERS) for n in per_step):
+        raise AssertionError(f"launches per step (fwd, bwd) {per_step}, want {want} each")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"training loss not finite and falling: {losses}")
     tokens = config.global_batch_size * cfg.seq_len
@@ -591,7 +610,7 @@ def train_phase(seed, card_name):
     peak = peak_flops(card_name)
     mfu = tokens_per_s * transformer_flops_per_token(cfg) / peak if peak else None
     log(f"[train] losses by step {[round(x, 5) for x in losses]}")
-    log(f"[train] launches per step (flash_fwd, flash_bwd_dq, flash_bwd_dkv) {per_step[-1]} "
+    log(f"[train] launches per step (flash_fwd, flash_bwd) {per_step[-1]} "
         f"in every step, {launches} over {warmup + timed} steps")
     log(f"[train] {step_ms:.2f} ms per step of {tokens} tokens ({config.num_minibatches} "
         f"minibatches of [16, 1024]), {tokens_per_s:.0f} tokens/s, MFU {mfu} against "
@@ -664,7 +683,8 @@ def main():
         raise AssertionError(f"the training path left a kernel unlaunched: {launches}")
 
     # one row per kernel and main path, each at the shape that path gives it:
-    # the forward at (a) for inference (PR 1's row) and at the training pass
+    # the forward at (a) for inference and at the training pass;
+    # the backward, one pass for dq, dk and dv, at the training pass
     train_row = bwd_rows["t_train_pass"]
     kernels = {"kernels": [
         dict(name="flash_fwd", route="cuda", source="tpu_parallel_torch/csrc/flash_fwd.cu",
@@ -676,14 +696,13 @@ def main():
         for path, shape, n in (("inference", "a_main", inference_launches),
                                ("training", "t_train_pass", launches["flash_fwd_launches"]))
     ] + [
-        dict(name=f"flash_bwd_{k}", route="cuda", source="tpu_parallel_torch/csrc/flash_bwd.cu",
-             replaces=f"tpu_parallel/ops/flash_attention.py:{line}", path="training",
-             shape=train_row["shape"], launches=launches[f"flash_bwd_{k}_launches"],
-             max_abs_err=train_row[f"{k}_max_abs_err"], ms=train_row[f"{k}_ms"],
-             plain_ms=train_row[f"{k}_plain_ms"], bound_ms=train_row[f"{k}_bound_ms"],
-             bound_by=train_row[f"{k}_bound_by"], library_ms=train_row["library_ms"],
-             library_covers="dq+dk+dv", kernels_ms_dq_plus_dkv=train_row["dq_ms"] + train_row["dkv_ms"])
-        for k, line in (("dq", 464), ("dkv", 563))
+        dict(name="flash_bwd", route="cuda", source="tpu_parallel_torch/csrc/flash_bwd.cu",
+             replaces="tpu_parallel/ops/flash_attention.py:464,563", path="training",
+             shape=train_row["shape"], launches=launches["flash_bwd_launches"],
+             max_abs_err=train_row["max_abs_err"], ms=train_row["ms"],
+             plain_ms=train_row["plain_ms"], bound_ms=train_row["bound_ms"],
+             bound_by=train_row["bound_by"], library_ms=train_row["library_ms"],
+             library_covers="dq+dk+dv")
     ]}
     summary = dict(card=smi, forward=fwd, generate=gen, train=train,
                    inference_flash_fwd_launches=inference_launches,

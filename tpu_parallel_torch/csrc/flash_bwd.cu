@@ -1,441 +1,558 @@
-// Flash-attention backward for Hopper (sm_90a): two kernels, dq and dk/dv,
-// bf16 operands with fp32 accumulators, one of each for every sequence length.
+// Flash-attention backward for Hopper (sm_90a): ONE pass that computes dk,
+// dv and dq together, on wgmma, with the query-side operands streamed
+// through a two-stage cp.async ring.
 //
 // Replaces the Pallas TPU kernels of tpu_parallel/ops/flash_attention.py:
-//   flash_bwd_dq_kernel  <- `_bwd_dq_kernel` (:464) and `_bwd_dq_kernel_stream` (:512)
-//   flash_bwd_dkv_kernel <- `_bwd_dkv_kernel` (:563) and `_bwd_dkv_kernel_stream` (:635)
-// As with the forward, resident and streamed differ on the TPU only in where
-// the operands live (VMEM residency vs a grid axis with scratch carried
-// across grid steps); here every tile streams through shared memory and the
-// sum stays in registers, so one kernel per gradient covers both forms.
+//   `_bwd_dq_kernel` (:464), `_bwd_dq_kernel_stream` (:512),
+//   `_bwd_dkv_kernel` (:563), `_bwd_dkv_kernel_stream` (:635).
+// The TPU runs dq and dk/dv as two kernels that each recompute S = q.k^T
+// and dP = do.v^T (a core carries a sum across its sequential grid, not
+// across cores).  Here blocks run in parallel and dq is summed across them
+// with atomics, so S and dP are formed once per visible (q tile, key tile):
+// 10 * D products per visible pair instead of 14 * D.
 //
-// What they compute (the JAX contract), with delta = rowsum(out * do) - dlse
-// computed by the caller:
+// What it computes (the JAX contract):
 //   q is pre-scaled by 1/sqrt(D) in bf16, s = q.k^T in fp32, masked as in the
 //   forward; p = exp(s - lse), and p = 0 on masked pairs and on rows with
 //   lse <= -1e30 / 2 (rows that see no key); dp = do.v^T in fp32;
-//   ds = p * (dp - delta) rounded to bf16;
-//   dq = scale * sum_k ds.k                  (bf16 out)
-//   dv = sum_q bf16(p)^T . do,  dk = sum_q ds^T . q_scaled   (bf16 out; dk
-//   carries the scale through the pre-scaled q).
-// GQA is index math, as in the forward: dq reads the K/V head of its query
-// head; dk/dv sums the whole query group of its K/V head inside one block
-// (`_bwd_dkv_kernel` unrolls the group the same way), so there are no
-// atomics and no expanded K/V.
+//   delta = rowsum(out * do) - dlse; ds = p * (dp - delta) rounded to bf16;
+//   dq = scale * sum_k ds.k                  (bf16 out; exactly 0 on empty rows)
+//   dv = sum_q bf16(p)^T . do,  dk = sum_q ds^T . q_scaled   (bf16 out).
+// GQA is index math: a key block walks its K/V head's whole query group, so
+// every dk/dv row has one writer (deterministic, no atomics) and K/V are
+// never expanded.
 //
-// Design (a first, simple version, the forward's):
-//   dq:  one block of 4 warps per (b*h, 64-row q tile).  Each warp keeps its
-//        16 rows of scaled q and of do in registers as m16n8k16 A fragments;
-//        64-key K and V tiles stream through shared memory over the key range
-//        of `k_tile_range`.  S and dP accumulate in registers, dS is formed
-//        in place and fed back as the A operand of dS.K (the accumulator
-//        layout is the A-fragment layout), dq accumulates in fp32 registers.
-//   dkv: one block of 4 warps per (b*h_kv, 64-key tile).  Each warp keeps its
-//        16 keys of K and V in registers as A fragments and walks the query
-//        group and the q tiles of `q_tile_range`; q (scaled on load) and do
-//        tiles, with their lse and delta, stream through shared memory.  The
-//        block computes S^T = K.q^T and dP^T = V.do^T, so P^T and dS^T come
-//        out in A-fragment layout for dv += P^T.do and dk += dS^T.q.
-//        The q tile is 64 rows at D=64 and 32 rows at D=128, which keeps the
-//        four fp32 fragment sets (K, V, dk, dv) within the register file.
-//   No cp.async pipelining, TMA or wgmma yet.
+// Three launches on the caller's stream, from one entry point:
+//   1. prep:   delta = rowsum(out * do) - dlse and dq_acc = 0, one read of
+//              out and do (D/8 threads per row, 16-byte loads).
+//   2. main:   one block of kWG warpgroups per (b * h_kv, block of 64 * kWG
+//              keys); warpgroup w owns keys [64w, 64w + 64) of the block.  K
+//              and V stay in shared memory; the q tiles (64 * kWG rows) of
+//              `q_tile_range`, for every query head of the group, stream
+//              through a two-stage ring (q, do, lse, delta, segment ids by
+//              cp.async; tile i + 1 loads while tile i computes).  Per tile,
+//              with each warpgroup's 64 keys as wgmma's M:
+//                S^T  = K . q^T,  dP^T = V . do^T         (A, B from shared)
+//                P^T, dS^T in the accumulator layout, which is the A-fragment
+//                layout: dv += P^T . do, dk += dS^T . q   (A from registers,
+//                q and do read MN-major from the same tiles)
+//                dS^T -> shared once; warpgroup w: dQ rows [64w, 64w + 64) =
+//                dS . K over all the block's keys         (A and B MN-major)
+//              dQ's fp32 rows are added into dq_acc with 16-byte atomics
+//              (red.global.add.v4.f32).  dk, dv accumulate in fp32 registers
+//              and are written once, in bf16.
+//   3. finish: dq = bf16(dq_acc * scale).
+// Why 2 warpgroups (128 keys, 128-row q tiles) at D = 64: the q/do tiles a
+// block reads and the dq atomics it sends both scale with (key blocks) x
+// (query rows), so 128 keys per block halve them; on an H100 this was
+// faster than one warpgroup at S = 1024 and more so at S = 8192.  At D = 128
+// the two warpgroups' accumulators (S^T and dP^T over 128 queries, dk and dv
+// over 128 columns) exceed the register file, so a block is one warpgroup.
+// Block order: key blocks of a chunk of heads at a time, heaviest causal
+// key blocks first within the chunk; a chunk holds about one wave of
+// resident blocks, so the dq_acc rows being summed stay in L2.
+// The probabilities are formed without branches per element (the
+// exponential is taken everywhere and selected away), and tiles inside the
+// band take a loop with no mask at all.
+// q's pre-scaling: when bf16(1/sqrt(D)) is a power of two (D = 64), scaling
+// commutes with rounding, so S and dk take the scale in fp32 and q is used as
+// loaded; otherwise (D = 128) each thread rescales, in shared memory, the q
+// chunks it loaded, before the tile is read.
 //
-// Bound at the slice's main shape (GPT-2 125M training pass: B=16, H=12,
-// S=1024, D=64, causal; visible pairs P = B*H*S*(S+1)/2), per launch on an
-// H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s):
-//   dq:  operations 6*D*P (S, dP, dS.K) = 38.7 GFLOP -> 39.1 us;
-//        bytes q, k, v, do, dq in bf16 + lse, delta in fp32 = 127.4 MB -> 38.0 us.
-//   dkv: operations 8*D*P (S, dP, P.do, dS.q) = 51.6 GFLOP -> 52.2 us;
-//        bytes q, k, v, do, dk, dv + lse, delta = 152.6 MB -> 45.6 us.
-// Both sit near the ridge, bound by operations by a few percent.  Each q tile
-// re-reads its K/V band (dq) and each key tile its q/do band (dkv) from L2.
+// Bound at GPT-2 125M's training pass (B=16, H=12, S=1024, D=64, causal;
+// visible pairs P = B*H*S*(S+1)/2 = 100.76M) on an H100 SXM (989 TFLOP/s
+// bf16 dense, 3.35 TB/s): operations 10*D*P = 64.49 GFLOP -> 65.2 us; bytes
+// q, k, v, out, do, dq, dk, dv in bf16 + lse in fp32 = 202.1 MB -> 60.3 us.
+// Bound by operations.  The dq_acc round trip (zero, atomics in L2, read)
+// adds 100 MB of memory traffic and 215 MB of L2 atomics that the bound does
+// not count.
+
+#include <algorithm>
+#include <cmath>
+#include <type_traits>
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace flash;
+using namespace hopper;
 
-constexpr int kBlockQ = 64;    // dq: query rows per block (16 per warp)
-constexpr int kBlockK = 64;    // keys per K/V tile; dkv: keys per block (16 per warp)
-constexpr int kThreads = 128;  // 4 warps
+constexpr int kStages = 2;
+constexpr float kLog2e = 1.4426950408889634f;
 
+// 2^x, one MUFU.EX2 (flushes denormal results to 0, as __expf does).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Block shape: kWG warpgroups, 64 * kWG keys, q tiles of 64 * kWG rows.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        const int* __restrict__ seg_q, const int* __restrict__ seg_k,
-                        __nv_bfloat16* __restrict__ dq, int H, int Hkv, int S, int Skv,
-                        int causal, int window, int q_offset, float scale) {
-  constexpr int kLd = D + kPad;
-  constexpr int kSteps = D / 16;            // k-steps of the D contractions
-  constexpr int kOutTiles = D / 8;          // n-tiles of dq
-  constexpr int kScoreTiles = kBlockK / 8;  // n-tiles of S and dP
-  __shared__ __align__(16) __nv_bfloat16 k_s[kBlockK * kLd];
-  __shared__ __align__(16) __nv_bfloat16 v_s[kBlockK * kLd];
-  __shared__ int segk_s[kBlockK];
+constexpr int kWarpgroups = D == 64 ? 2 : 1;
 
-  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int bh_kv = b * Hkv + (bh % H) / (H / Hkv);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;   // row within the 8-row half of an m16 fragment
-  const int tig = lane & 3;  // lane within the quad
-  const int q0 = qt * kBlockQ;
-  const bool has_seg = seg_q != nullptr;
+// Dynamic shared memory of the main kernel, in bytes from a 1024-aligned
+// base: K, V, the q/do ring, dS^T, then lse, delta and segment ids per stage.
+template <int D>
+struct Layout {
+  static constexpr int kWG = kWarpgroups<D>;
+  static constexpr int kRows = 64 * kWG;       // keys per block = q rows per tile
+  static constexpr int kThreads = 128 * kWG;
+  static constexpr int kPanel = kRows * 128;   // one [kRows, 64] bf16 panel
+  static constexpr int kTile = kRows * D * 2;  // one [kRows, D] bf16 tile
+  static constexpr int kK = 0;
+  static constexpr int kV = kTile;
+  static constexpr int kRing = 2 * kTile;  // stage s: q at kRing + 2*s*kTile, do after it
+  static constexpr int kDs = kRing + kStages * 2 * kTile;  // dS^T: kWG panels [keys, 64 q]
+  static constexpr int kLse = kDs + kWG * kPanel;          // float [kStages][kRows]
+  static constexpr int kDelta = kLse + kStages * kRows * 4;
+  static constexpr int kSegq = kDelta + kStages * kRows * 4;  // int [kStages][kRows]
+  static constexpr int kBytes = kSegq + kStages * kRows * 4 + 1024;  // + alignment slack
+};
 
-  const size_t row_base = static_cast<size_t>(bh) * S;
-  const __nv_bfloat16* k_bh = k + static_cast<size_t>(bh_kv) * Skv * D;
-  const __nv_bfloat16* v_bh = v + static_cast<size_t>(bh_kv) * Skv * D;
-
-  // scaled q and do -> A fragments, through k_s and v_s
-  load_tile<D, kBlockQ, kThreads>(k_s, q + row_base * D, q0, S,
-                                  __bfloat162float(__float2bfloat16(scale)));
-  load_tile<D, kBlockQ, kThreads>(v_s, dout + row_base * D, q0, S);
-  __syncthreads();
-  const int r0 = warp * 16 + g;  // tile rows of this thread: r0 and r0 + 8
-  uint32_t qa[kSteps][4], da[kSteps][4];
+// Rows [row0, row0 + kRows) of a [rows, D] bf16 matrix -> swizzled tile at
+// `dst`, zero-filling rows at or past `rows`.
+template <int D>
+__device__ __forceinline__ void load_tile_async(uint32_t dst, const __nv_bfloat16* src, int row0,
+                                                int rows) {
+  using L = Layout<D>;
+  constexpr int kChunks = D / 8;
 #pragma unroll
-  for (int ks = 0; ks < kSteps; ++ks) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int off = (r0 + (i & 1) * 8) * kLd + ks * 16 + tig * 2 + (i >> 1) * 8;
-      qa[ks][i] = *reinterpret_cast<const uint32_t*>(&k_s[off]);
-      da[ks][i] = *reinterpret_cast<const uint32_t*>(&v_s[off]);
-    }
+  for (int i = 0; i < L::kRows * kChunks / L::kThreads; ++i) {
+    const int c = threadIdx.x + i * L::kThreads;
+    const int r = c / kChunks;
+    const int ch = c % kChunks;
+    const bool ok = row0 + r < rows;
+    cp_async_16(dst + sw128_offset<L::kRows>(r, ch),
+                src + static_cast<size_t>(ok ? row0 + r : 0) * D + ch * 8, ok);
   }
+}
 
-  const int qrow[2] = {q0 + r0, q0 + r0 + 8};
-  const int qpos[2] = {q_offset + qrow[0], q_offset + qrow[1]};
-  int segq[2] = {0, 0};
-  float row_lse[2] = {kNegInf, kNegInf};
-  float row_delta[2] = {0.f, 0.f};
+// The q chunks this thread loaded with load_tile_async, times bf16 `scale`,
+// rounded to bf16 (the JAX kernels' pre-scaled q).
+template <int D>
+__device__ __forceinline__ void rescale_tile(uint8_t* tile, float scale) {
+  using L = Layout<D>;
+  constexpr int kChunks = D / 8;
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (qrow[h] < S) {
-      row_lse[h] = lse[row_base + qrow[h]];
-      row_delta[h] = delta[row_base + qrow[h]];
-      if (has_seg) segq[h] = seg_q[b * S + qrow[h]];
+  for (int i = 0; i < L::kRows * kChunks / L::kThreads; ++i) {
+    const int c = threadIdx.x + i * L::kThreads;
+    uint4* w = reinterpret_cast<uint4*>(tile + sw128_offset<L::kRows>(c / kChunks, c % kChunks));
+    uint4 val = *w;
+    uint32_t* x = reinterpret_cast<uint32_t*>(&val);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const __nv_bfloat162 y = *reinterpret_cast<const __nv_bfloat162*>(&x[j]);
+      x[j] = pack_bf16x2(__bfloat162float(y.x) * scale, __bfloat162float(y.y) * scale);
     }
-  }
-  // rows that see no key (and rows past S) contribute nothing
-  const bool live[2] = {row_lse[0] > kNegInf / 2, row_lse[1] > kNegInf / 2};
-  float acc[kOutTiles][4];
-#pragma unroll
-  for (int nt = 0; nt < kOutTiles; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-
-  int first, last;
-  k_tile_range(qt, kBlockQ, kBlockK, (Skv + kBlockK - 1) / kBlockK, causal, window, q_offset,
-               first, last);
-
-  for (int kt = first; kt <= last; ++kt) {
-    const int k0 = kt * kBlockK;
-    __syncthreads();  // every warp is done with the previous tile (or with q, do)
-    load_tile<D, kBlockK, kThreads>(k_s, k_bh, k0, Skv);
-    load_tile<D, kBlockK, kThreads>(v_s, v_bh, k0, Skv);
-    if (has_seg && threadIdx.x < kBlockK) {
-      segk_s[threadIdx.x] = k0 + threadIdx.x < Skv ? seg_k[b * Skv + k0 + threadIdx.x] : 0;
-    }
-    __syncthreads();
-
-    float s[kScoreTiles][4], dp[kScoreTiles][4];
-#pragma unroll
-    for (int nt = 0; nt < kScoreTiles; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[nt][i] = dp[nt][i] = 0.f;
-    }
-#pragma unroll
-    for (int ks = 0; ks < kSteps; ++ks) {
-#pragma unroll
-      for (int nt = 0; nt < kScoreTiles; ++nt) {
-        const int off = (nt * 8 + g) * kLd + ks * 16 + tig * 2;
-        mma_bf16(s[nt], qa[ks], *reinterpret_cast<const uint32_t*>(&k_s[off]),
-                 *reinterpret_cast<const uint32_t*>(&k_s[off + 8]));
-        mma_bf16(dp[nt], da[ks], *reinterpret_cast<const uint32_t*>(&v_s[off]),
-                 *reinterpret_cast<const uint32_t*>(&v_s[off + 8]));
-      }
-    }
-
-    // dS = P * (dP - delta), written over S
-    const bool full =
-        tile_all_visible(q0, kBlockQ, k0, kBlockK, S, Skv, causal, window, q_offset, has_seg);
-#pragma unroll
-    for (int nt = 0; nt < kScoreTiles; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int h = i >> 1;
-        const int kcol = k0 + nt * 8 + tig * 2 + (i & 1);
-        bool vis = live[h];
-        if (!full) {
-          vis = vis && in_band(qpos[h], kcol, Skv, causal, window);
-          if (has_seg) vis = vis && segk_s[kcol - k0] == segq[h];
-        }
-        const float p = vis ? __expf(s[nt][i] - row_lse[h]) : 0.f;
-        s[nt][i] = p * (dp[nt][i] - row_delta[h]);
-      }
-    }
-
-    // dq += dS.K: dS's accumulators are its A fragments; K rows are B's k axis
-#pragma unroll
-    for (int ks = 0; ks < kBlockK / 16; ++ks) {
-      const uint32_t pa[4] = {
-          pack_bf16x2(s[2 * ks][0], s[2 * ks][1]), pack_bf16x2(s[2 * ks][2], s[2 * ks][3]),
-          pack_bf16x2(s[2 * ks + 1][0], s[2 * ks + 1][1]),
-          pack_bf16x2(s[2 * ks + 1][2], s[2 * ks + 1][3])};
-#pragma unroll
-      for (int nt = 0; nt < kOutTiles; ++nt) {
-        const __nv_bfloat16* kp = &k_s[(ks * 16 + tig * 2) * kLd + nt * 8 + g];
-        mma_bf16(acc[nt], pa, pack_bf16_pair(kp[0], kp[kLd]),
-                 pack_bf16_pair(kp[8 * kLd], kp[9 * kLd]));
-      }
-    }
-  }
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (qrow[h] >= S) continue;
-    __nv_bfloat16* row = dq + (row_base + qrow[h]) * D;
-#pragma unroll
-    for (int nt = 0; nt < kOutTiles; ++nt) {
-      *reinterpret_cast<uint32_t*>(&row[nt * 8 + tig * 2]) =
-          pack_bf16x2(acc[nt][2 * h] * scale, acc[nt][2 * h + 1] * scale);
-    }
+    *w = val;
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-                         const float* __restrict__ delta, const int* __restrict__ seg_q,
-                         const int* __restrict__ seg_k, __nv_bfloat16* __restrict__ dk,
-                         __nv_bfloat16* __restrict__ dv, int H, int Hkv, int S, int Skv,
-                         int causal, int window, int q_offset, float scale) {
-  constexpr int kBQ = D == 64 ? 64 : 32;  // query rows per streamed q tile
-  constexpr int kLd = D + kPad;
-  constexpr int kSteps = D / 16;        // k-steps of the D contractions
-  constexpr int kOutTiles = D / 8;      // n-tiles of dk, dv
-  constexpr int kQTiles = kBQ / 8;      // n-tiles of S^T and dP^T
-  __shared__ __align__(16) __nv_bfloat16 q_s[kBQ * kLd];
-  __shared__ __align__(16) __nv_bfloat16 do_s[kBQ * kLd];
-  __shared__ float lse_s[kBQ];
-  __shared__ float delta_s[kBQ];
-  __shared__ int segq_s[kBQ];
+__global__ void __launch_bounds__(Layout<D>::kThreads, 1)
+    flash_bwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     const int* __restrict__ seg_q, const int* __restrict__ seg_k,
+                     float* __restrict__ dq_acc, __nv_bfloat16* __restrict__ dk,
+                     __nv_bfloat16* __restrict__ dv, int H, int Hkv, int S, int Skv, int causal,
+                     int window, int q_offset, float scale, int fold, int chunk) {
+  using L = Layout<D>;
+  constexpr int kRows = L::kRows;
+  constexpr int kN = kRows;           // S^T / dP^T columns (queries) per warpgroup
+  constexpr int kSteps = kRows / 16;  // k-steps over queries (dv, dk) and keys (dQ)
+  constexpr int kPanels = D / 64;
+  extern __shared__ uint8_t smem_raw[];
+  // align by offsetting the shared array itself: the compiler keeps
+  // addressing it as shared memory (LDS/STS, not generic loads)
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t base = smem_u32(smem);
+  float* lse_s = reinterpret_cast<float*>(smem + L::kLse);
+  float* delta_s = reinterpret_cast<float*>(smem + L::kDelta);
+  int* segq_s = reinterpret_cast<int*>(smem + L::kSegq);
 
-  const int kt = blockIdx.x;  // low key tiles see the most causal q tiles: first
-  const int bkv = blockIdx.y;
+  // block -> (K/V head, key block): chunks of `chunk` heads, key blocks in
+  // order within a chunk (the low ones see the most causal q tiles)
+  const int nkb = (Skv + kRows - 1) / kRows;
+  const int heads = static_cast<int>(gridDim.x) / nkb;
+  const int c0 = blockIdx.x / (chunk * nkb) * chunk;
+  const int in_chunk = min(chunk, heads - c0);
+  const int rem = blockIdx.x - c0 * nkb;
+  const int kb = rem / in_chunk;
+  const int bkv = c0 + rem % in_chunk;
+
   const int b = bkv / Hkv;
   const int group = H / Hkv;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int tig = lane & 3;
-  const int k0 = kt * kBlockK;
+  const int h0 = (bkv % Hkv) * group;  // first query head of this K/V head's group
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int g = (tid & 31) >> 2;
+  const int t = tid & 3;
+  const int r0 = (tid >> 5) * 16 + g;  // block rows of this thread: r0 and r0 + 8
+  const int k0 = kb * kRows;
   const bool has_seg = seg_q != nullptr;
   const float qscale = __bfloat162float(__float2bfloat16(scale));
+  const float sscale = fold ? qscale : 1.f;  // S = sscale * (K . q^T)
+  const float sl2 = sscale * kLog2e;            // p = 2^(S^T * sl2 - lse * log2 e)
+  const size_t kv_base = static_cast<size_t>(bkv) * Skv;
 
-  // this warp's 16 keys of K and V -> A fragments, straight from memory
-  const __nv_bfloat16* k_bkv = k + static_cast<size_t>(bkv) * Skv * D;
-  const __nv_bfloat16* v_bkv = v + static_cast<size_t>(bkv) * Skv * D;
-  const int r0 = warp * 16 + g;
-  uint32_t ka[kSteps][4], va[kSteps][4];
+  int first, last;
+  q_tile_range(kb, kRows, kRows, (S + kRows - 1) / kRows, causal, window, q_offset, first, last);
+  const int nq = max(0, last - first + 1);
+  const int n = group * nq;  // (query head, q tile) pairs of this block
+
+  if (n == 0) {  // no query sees these keys
 #pragma unroll
-  for (int ks = 0; ks < kSteps; ++ks) {
+    for (int h = 0; h < 2; ++h) {
+      const int kr = k0 + r0 + 8 * h;
+      if (kr >= Skv) continue;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = k0 + r0 + (i & 1) * 8;
-      const size_t off = static_cast<size_t>(row) * D + ks * 16 + tig * 2 + (i >> 1) * 8;
-      ka[ks][i] = row < Skv ? *reinterpret_cast<const uint32_t*>(&k_bkv[off]) : 0u;
-      va[ks][i] = row < Skv ? *reinterpret_cast<const uint32_t*>(&v_bkv[off]) : 0u;
+      for (int c = 0; c < D; c += 8) {
+        *reinterpret_cast<uint32_t*>(&dk[(kv_base + kr) * D + c + 2 * t]) = 0u;
+        *reinterpret_cast<uint32_t*>(&dv[(kv_base + kr) * D + c + 2 * t]) = 0u;
+      }
     }
+    return;
   }
-  const int krow[2] = {k0 + r0, k0 + r0 + 8};
+
+  auto load_q_tile = [&](int it, int stage) {
+    const int q0 = (first + it % nq) * kRows;
+    const size_t row_base = static_cast<size_t>(b * H + h0 + it / nq) * S;
+    const uint32_t q_st = base + L::kRing + stage * 2 * L::kTile;
+    load_tile_async<D>(q_st, q + row_base * D, q0, S);
+    load_tile_async<D>(q_st + L::kTile, dout + row_base * D, q0, S);
+    const int i = tid % kRows;
+    const int row = q0 + i;
+    const bool ok = row < S;
+    if (tid < kRows) {
+      cp_async_4(smem_u32(&lse_s[stage * kRows + i]), lse + row_base + (ok ? row : 0), ok);
+      if (has_seg) {
+        cp_async_4(smem_u32(&segq_s[stage * kRows + i]), seg_q + b * S + (ok ? row : 0), ok);
+      }
+    } else {
+      cp_async_4(smem_u32(&delta_s[stage * kRows + i]), delta + row_base + (ok ? row : 0), ok);
+    }
+  };
+
+  load_tile_async<D>(base + L::kK, k + kv_base * D, k0, Skv);
+  load_tile_async<D>(base + L::kV, v + kv_base * D, k0, Skv);
+  load_q_tile(0, 0);
+  cp_async_commit();
+
   int segk[2] = {0, 0};
   if (has_seg) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) segk[h] = krow[h] < Skv ? seg_k[b * Skv + krow[h]] : 0;
+    for (int h = 0; h < 2; ++h) {
+      const int kr = k0 + r0 + 8 * h;
+      segk[h] = kr < Skv ? seg_k[b * Skv + kr] : 0;
+    }
   }
 
-  float dk_acc[kOutTiles][4], dv_acc[kOutTiles][4];
+  float dk_acc[kPanels][32], dv_acc[kPanels][32];
 #pragma unroll
-  for (int nt = 0; nt < kOutTiles; ++nt) {
+  for (int p = 0; p < kPanels; ++p) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) dk_acc[nt][i] = dv_acc[nt][i] = 0.f;
+    for (int i = 0; i < 32; ++i) dk_acc[p][i] = dv_acc[p][i] = 0.f;
   }
+  // this warpgroup's 64 rows of K and V (A operands of S^T and dP^T)
+  const uint32_t k_wg = base + L::kK + wg * 64 * 128;
+  const uint32_t v_wg = base + L::kV + wg * 64 * 128;
 
-  int first, last;
-  q_tile_range(kt, kBQ, kBlockK, (S + kBQ - 1) / kBQ, causal, window, q_offset, first, last);
+  for (int it = 0; it < n; ++it) {
+    const int stage = it & 1;
+    const uint32_t q_st = base + L::kRing + stage * 2 * L::kTile;
+    const uint32_t do_st = q_st + L::kTile;
+    cp_async_wait_all();  // tile `it` (and, at it = 0, K and V) landed
+    if (!fold) rescale_tile<D>(smem + L::kRing + stage * 2 * L::kTile, qscale);
+    fence_proxy_async();
+    __syncthreads();  // tile `it` visible to every warp; tile it - 1's reads all done
+    if (it + 1 < n) {
+      load_q_tile(it + 1, stage ^ 1);
+      cp_async_commit();
+    }
 
-  for (int gi = 0; gi < group; ++gi) {
-    // query head gi of this K/V head's group: row (b, (bkv % Hkv) * group + gi)
-    const size_t row_base = static_cast<size_t>(b * H + (bkv % Hkv) * group + gi) * S;
-    for (int qt = first; qt <= last; ++qt) {
-      const int q0 = qt * kBQ;
-      __syncthreads();  // every warp is done with the previous q tile
-      load_tile<D, kBQ, kThreads>(q_s, q + row_base * D, q0, S, qscale);
-      load_tile<D, kBQ, kThreads>(do_s, dout + row_base * D, q0, S);
-      if (threadIdx.x < kBQ) {
-        const int row = q0 + threadIdx.x;
-        lse_s[threadIdx.x] = row < S ? lse[row_base + row] : kNegInf;
-        delta_s[threadIdx.x] = row < S ? delta[row_base + row] : 0.f;
-        if (has_seg) segq_s[threadIdx.x] = row < S ? seg_q[b * S + row] : 0;
-      }
-      __syncthreads();
+    const int q0 = (first + it % nq) * kRows;
+    const size_t row_base = static_cast<size_t>(b * H + h0 + it / nq) * S;
 
-      float st[kQTiles][4], dpt[kQTiles][4];
+    // S^T = K . q^T and dP^T = V . do^T: this warpgroup's 64 keys x kN queries
+    float st[kN / 2], dpt[kN / 2];
+    wgmma_fence();
 #pragma unroll
-      for (int nt = 0; nt < kQTiles; ++nt) {
+    for (int ks = 0; ks < D / 16; ++ks) {
+      const uint32_t off = (ks >> 2) * L::kPanel + (ks & 3) * 32;
+      wgmma_ss<kN, 0, 0>(st, desc_k_major(k_wg + off), desc_k_major(q_st + off), ks > 0);
+    }
 #pragma unroll
-        for (int i = 0; i < 4; ++i) st[nt][i] = dpt[nt][i] = 0.f;
-      }
-#pragma unroll
-      for (int ks = 0; ks < kSteps; ++ks) {
-#pragma unroll
-        for (int nt = 0; nt < kQTiles; ++nt) {
-          const int off = (nt * 8 + g) * kLd + ks * 16 + tig * 2;
-          mma_bf16(st[nt], ka[ks], *reinterpret_cast<const uint32_t*>(&q_s[off]),
-                   *reinterpret_cast<const uint32_t*>(&q_s[off + 8]));
-          mma_bf16(dpt[nt], va[ks], *reinterpret_cast<const uint32_t*>(&do_s[off]),
-                   *reinterpret_cast<const uint32_t*>(&do_s[off + 8]));
-        }
-      }
+    for (int ks = 0; ks < D / 16; ++ks) {
+      const uint32_t off = (ks >> 2) * L::kPanel + (ks & 3) * 32;
+      wgmma_ss<kN, 0, 0>(dpt, desc_k_major(v_wg + off), desc_k_major(do_st + off), ks > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(st);
+    fence_operands(dpt);
 
-      // P^T over S^T and dS^T over dP^T; columns are query rows
-      const bool full =
-          tile_all_visible(q0, kBQ, k0, kBlockK, S, Skv, causal, window, q_offset, has_seg);
+    // P^T over S^T and dS^T over dP^T; columns are query rows
+    const float* lse_t = lse_s + stage * kRows;
+    const float* delta_t = delta_s + stage * kRows;
+    const int* segq_t = segq_s + stage * kRows;
+    auto probabilities = [&](auto masked) {
 #pragma unroll
-      for (int nt = 0; nt < kQTiles; ++nt) {
+      for (int nt = 0; nt < kN / 8; ++nt) {
+        const int qc0 = nt * 8 + 2 * t;
+        const float2 lse2 = *reinterpret_cast<const float2*>(lse_t + qc0);
+        const float2 delta2 = *reinterpret_cast<const float2*>(delta_t + qc0);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const int h = i >> 1;
-          const int qc = nt * 8 + tig * 2 + (i & 1);
-          const float row_lse = lse_s[qc];
-          bool vis = row_lse > kNegInf / 2;
-          if (!full) {
-            vis = vis && q0 + qc < S && in_band(q_offset + q0 + qc, krow[h], Skv, causal, window);
-            if (has_seg) vis = vis && segq_s[qc] == segk[h];
+          const int qc = qc0 + (i & 1);
+          const float l = (i & 1) ? lse2.y : lse2.x;
+          bool vis = l > kNegInf / 2;
+          if constexpr (decltype(masked)::value) {
+            vis = vis & (q0 + qc < S) &
+                  in_band(q_offset + q0 + qc, k0 + r0 + 8 * (i >> 1), Skv, causal, window) &
+                  ((!has_seg) | (segq_t[qc] == segk[i >> 1]));
           }
-          const float p = vis ? __expf(st[nt][i] - row_lse) : 0.f;
-          st[nt][i] = p;
-          dpt[nt][i] = p * (dpt[nt][i] - delta_s[qc]);
+          const float e = exp2_approx(st[nt * 4 + i] * sl2 - l * kLog2e);
+          const float p = vis ? e : 0.f;
+          st[nt * 4 + i] = p;
+          dpt[nt * 4 + i] = p * (dpt[nt * 4 + i] - ((i & 1) ? delta2.y : delta2.x));
         }
       }
+    };
+    if (tile_all_visible(q0, kRows, k0 + wg * 64, 64, S, Skv, causal, window, q_offset,
+                         has_seg)) {
+      probabilities(std::false_type{});
+    } else {
+      probabilities(std::true_type{});
+    }
 
-      // dv += P^T.do and dk += dS^T.q: the q tile's rows are B's k axis
+    // bf16 A fragments of P^T and dS^T for k-steps of 16 queries; dS^T also
+    // goes to shared memory (panel = 64 queries; row = key, 128 B, swizzled)
+    uint32_t pa[kSteps][4], sa[kSteps][4];
+    uint8_t* ds_s = smem + L::kDs;
 #pragma unroll
-      for (int ks = 0; ks < kBQ / 16; ++ks) {
-        const uint32_t pa[4] = {
-            pack_bf16x2(st[2 * ks][0], st[2 * ks][1]), pack_bf16x2(st[2 * ks][2], st[2 * ks][3]),
-            pack_bf16x2(st[2 * ks + 1][0], st[2 * ks + 1][1]),
-            pack_bf16x2(st[2 * ks + 1][2], st[2 * ks + 1][3])};
-        const uint32_t sa[4] = {
-            pack_bf16x2(dpt[2 * ks][0], dpt[2 * ks][1]),
-            pack_bf16x2(dpt[2 * ks][2], dpt[2 * ks][3]),
-            pack_bf16x2(dpt[2 * ks + 1][0], dpt[2 * ks + 1][1]),
-            pack_bf16x2(dpt[2 * ks + 1][2], dpt[2 * ks + 1][3])};
+    for (int kk = 0; kk < kSteps; ++kk) {
 #pragma unroll
-        for (int nt = 0; nt < kOutTiles; ++nt) {
-          const int off = (ks * 16 + tig * 2) * kLd + nt * 8 + g;
-          mma_bf16(dv_acc[nt], pa, pack_bf16_pair(do_s[off], do_s[off + kLd]),
-                   pack_bf16_pair(do_s[off + 8 * kLd], do_s[off + 9 * kLd]));
-          mma_bf16(dk_acc[nt], sa, pack_bf16_pair(q_s[off], q_s[off + kLd]),
-                   pack_bf16_pair(q_s[off + 8 * kLd], q_s[off + 9 * kLd]));
+      for (int j = 0; j < 4; ++j) {
+        const int e = 8 * kk + 2 * j;  // j: (row g, nt 2kk), (g + 8, 2kk), (g, 2kk + 1), (g + 8, 2kk + 1)
+        pa[kk][j] = pack_bf16x2(st[e], st[e + 1]);
+        sa[kk][j] = pack_bf16x2(dpt[e], dpt[e + 1]);
+        const int kr = r0 + 8 * (j & 1);
+        const int nt = 2 * kk + (j >> 1);
+        *reinterpret_cast<uint32_t*>(ds_s + (nt >> 3) * L::kPanel + kr * 128 +
+                                     (((nt & 7) ^ (kr & 7)) << 4) + 4 * t) = sa[kk][j];
+      }
+    }
+
+    // dv += P^T . do, dk += dS^T . q: q and do read MN-major (rows are K)
+    wgmma_fence();
+#pragma unroll
+    for (int p = 0; p < kPanels; ++p) {
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk) {
+        wgmma_rs<1>(dv_acc[p], pa[kk], desc_mn_major(do_st + p * L::kPanel + kk * 2048));
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < kPanels; ++p) {
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk) {
+        wgmma_rs<1>(dk_acc[p], sa[kk], desc_mn_major(q_st + p * L::kPanel + kk * 2048));
+      }
+    }
+    wgmma_commit();
+    fence_proxy_async();
+    __syncthreads();  // dS^T of every warpgroup complete in shared memory
+
+    // dQ rows [64 wg, 64 wg + 64) of the tile = dS . K over the block's keys,
+    // 64 columns of D per panel, added into dq_acc
+#pragma unroll
+    for (int p = 0; p < kPanels; ++p) {
+      float dqa[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk) {
+        wgmma_ss<64, 1, 1>(dqa, desc_mn_major(base + L::kDs + wg * L::kPanel + kk * 2048),
+                           desc_mn_major(base + L::kK + p * L::kPanel + kk * 2048), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(dqa);
+      // 16-byte atomics: lanes t and t ^ 1 swap halves so that even t holds
+      // row g, columns 2t .. 2t + 3 and odd t row g + 8, columns 2t - 2 .. 2t + 1
+      const bool even = (t & 1) == 0;
+      const int row = q0 + (r0 & 63) + wg * 64 + (even ? 0 : 8);
+      float* dst = dq_acc + (row_base + row) * D + p * 64 + 2 * (t & ~1);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const float a0 = dqa[nt * 4], a1 = dqa[nt * 4 + 1];
+        const float b0 = dqa[nt * 4 + 2], b1 = dqa[nt * 4 + 3];
+        const float x0 = __shfl_xor_sync(0xffffffffu, even ? b0 : a0, 1);
+        const float x1 = __shfl_xor_sync(0xffffffffu, even ? b1 : a1, 1);
+        if (row < S) {
+          atomicAdd(reinterpret_cast<float4*>(dst + nt * 8),
+                    even ? make_float4(a0, a1, x0, x1) : make_float4(x0, x1, b0, b1));
         }
       }
     }
   }
 
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (krow[h] >= Skv) continue;
-    const size_t off = (static_cast<size_t>(bkv) * Skv + krow[h]) * D;
+  for (int p = 0; p < kPanels; ++p) {
+    fence_operands(dk_acc[p]);
+    fence_operands(dv_acc[p]);
+  }
+  const float dk_scale = fold ? qscale : 1.f;
 #pragma unroll
-    for (int nt = 0; nt < kOutTiles; ++nt) {
-      *reinterpret_cast<uint32_t*>(&dk[off + nt * 8 + tig * 2]) =
-          pack_bf16x2(dk_acc[nt][2 * h], dk_acc[nt][2 * h + 1]);
-      *reinterpret_cast<uint32_t*>(&dv[off + nt * 8 + tig * 2]) =
-          pack_bf16x2(dv_acc[nt][2 * h], dv_acc[nt][2 * h + 1]);
+  for (int h = 0; h < 2; ++h) {
+    const int kr = k0 + r0 + 8 * h;
+    if (kr >= Skv) continue;
+    const size_t row = (kv_base + kr) * D;
+#pragma unroll
+    for (int p = 0; p < kPanels; ++p) {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const size_t off = row + p * 64 + nt * 8 + 2 * t;
+        *reinterpret_cast<uint32_t*>(&dk[off]) = pack_bf16x2(
+            dk_acc[p][nt * 4 + 2 * h] * dk_scale, dk_acc[p][nt * 4 + 2 * h + 1] * dk_scale);
+        *reinterpret_cast<uint32_t*>(&dv[off]) =
+            pack_bf16x2(dv_acc[p][nt * 4 + 2 * h], dv_acc[p][nt * 4 + 2 * h + 1]);
+      }
     }
+  }
+}
+
+constexpr int kPrepThreads = 256;
+
+// delta = rowsum(out * do) - dlse and dq_acc = 0, D / 8 threads per row.
+template <int D>
+__global__ void __launch_bounds__(kPrepThreads)
+    flash_bwd_prep_kernel(const __nv_bfloat16* __restrict__ out,
+                          const __nv_bfloat16* __restrict__ dout, const float* __restrict__ dlse,
+                          float* __restrict__ delta, float* __restrict__ dq_acc, long rows) {
+  constexpr int kLanes = D / 8;
+  const long idx = static_cast<long>(blockIdx.x) * kPrepThreads + threadIdx.x;
+  const long row = idx / kLanes;
+  const int lane = idx % kLanes;
+  float sum = 0.f;
+  if (row < rows) {
+    const uint4 o = *reinterpret_cast<const uint4*>(out + row * D + lane * 8);
+    const uint4 d = *reinterpret_cast<const uint4*>(dout + row * D + lane * 8);
+    const __nv_bfloat162* op = reinterpret_cast<const __nv_bfloat162*>(&o);
+    const __nv_bfloat162* dp = reinterpret_cast<const __nv_bfloat162*>(&d);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      sum += __bfloat162float(op[j].x) * __bfloat162float(dp[j].x);
+      sum += __bfloat162float(op[j].y) * __bfloat162float(dp[j].y);
+    }
+    float4* acc = reinterpret_cast<float4*>(dq_acc + row * D + lane * 8);
+    acc[0] = make_float4(0.f, 0.f, 0.f, 0.f);
+    acc[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+#pragma unroll
+  for (int m = kLanes / 2; m > 0; m >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, m);
+  if (row < rows && lane == 0) delta[row] = dlse != nullptr ? sum - dlse[row] : sum;
+}
+
+// dq = bf16(dq_acc * scale), 8 elements per thread.
+__global__ void __launch_bounds__(kPrepThreads)
+    flash_bwd_finish_kernel(const float* __restrict__ acc, __nv_bfloat16* __restrict__ dq,
+                            long n8, float scale) {
+  for (long i = static_cast<long>(blockIdx.x) * kPrepThreads + threadIdx.x; i < n8;
+       i += static_cast<long>(gridDim.x) * kPrepThreads) {
+    const float4 a = reinterpret_cast<const float4*>(acc)[2 * i];
+    const float4 c = reinterpret_cast<const float4*>(acc)[2 * i + 1];
+    reinterpret_cast<uint4*>(dq)[i] =
+        make_uint4(pack_bf16x2(a.x * scale, a.y * scale), pack_bf16x2(a.z * scale, a.w * scale),
+                   pack_bf16x2(c.x * scale, c.y * scale), pack_bf16x2(c.z * scale, c.w * scale));
   }
 }
 
 struct Args {
-  const void *q, *k, *v, *dout, *lse, *delta, *seg_q, *seg_k;
+  const void *q, *k, *v, *out, *dout, *lse, *dlse, *seg_q, *seg_k;
+  void *delta, *dq_acc, *dq, *dk, *dv;
   int B, H, Hkv, S, Skv, causal, window, q_offset;
   float scale;
   cudaStream_t stream;
 };
 
 template <int D>
-cudaError_t launch_dq(const Args& a, void* dq) {
-  const dim3 grid((a.S + kBlockQ - 1) / kBlockQ, a.B * a.H);
-  flash_bwd_dq_kernel<D><<<grid, kThreads, 0, a.stream>>>(
+cudaError_t launch(const Args& a) {
+  using L = Layout<D>;
+  const long rows = static_cast<long>(a.B) * a.H * a.S;
+  const long prep_threads = rows * (D / 8);
+  flash_bwd_prep_kernel<D><<<(prep_threads + kPrepThreads - 1) / kPrepThreads, kPrepThreads, 0,
+                             a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.out), static_cast<const __nv_bfloat16*>(a.dout),
+      static_cast<const float*>(a.dlse), static_cast<float*>(a.delta),
+      static_cast<float*>(a.dq_acc), rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  err = cudaFuncSetAttribute(flash_bwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             L::kBytes);
+  if (err != cudaSuccess) return err;
+  int device, sms, per_sm;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
+          cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, flash_bwd_kernel<D>,
+                                                           L::kThreads, L::kBytes)) !=
+          cudaSuccess) {
+    return err;
+  }
+  const int heads = a.B * a.Hkv;
+  const int nkb = (a.Skv + L::kRows - 1) / L::kRows;
+  // heads per chunk: about one wave of resident blocks
+  const int chunk = std::min(heads, std::max(1, sms * std::max(per_sm, 1) / nkb));
+  // q's scale folds into fp32 when bf16(scale) is a power of two
+  int exponent;
+  const int fold =
+      std::frexp(__bfloat162float(__float2bfloat16(a.scale)), &exponent) == 0.5f ? 1 : 0;
+  flash_bwd_kernel<D><<<heads * nkb, L::kThreads, L::kBytes, a.stream>>>(
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
       static_cast<const __nv_bfloat16*>(a.v), static_cast<const __nv_bfloat16*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
       static_cast<const int*>(a.seg_q), static_cast<const int*>(a.seg_k),
-      static_cast<__nv_bfloat16*>(dq), a.H, a.Hkv, a.S, a.Skv, a.causal, a.window, a.q_offset,
-      a.scale);
-  return cudaGetLastError();
-}
+      static_cast<float*>(a.dq_acc), static_cast<__nv_bfloat16*>(a.dk),
+      static_cast<__nv_bfloat16*>(a.dv), a.H, a.Hkv, a.S, a.Skv, a.causal, a.window, a.q_offset,
+      a.scale, fold, chunk);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
 
-template <int D>
-cudaError_t launch_dkv(const Args& a, void* dk, void* dv) {
-  const dim3 grid((a.Skv + kBlockK - 1) / kBlockK, a.B * a.Hkv);
-  flash_bwd_dkv_kernel<D><<<grid, kThreads, 0, a.stream>>>(
-      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
-      static_cast<const __nv_bfloat16*>(a.v), static_cast<const __nv_bfloat16*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<const int*>(a.seg_q), static_cast<const int*>(a.seg_k),
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), a.H, a.Hkv, a.S, a.Skv,
-      a.causal, a.window, a.q_offset, a.scale);
+  const long n8 = rows * D / 8;
+  const long blocks = std::min<long>((n8 + kPrepThreads - 1) / kPrepThreads, 132L * 16);
+  flash_bwd_finish_kernel<<<blocks, kPrepThreads, 0, a.stream>>>(
+      static_cast<const float*>(a.dq_acc), static_cast<__nv_bfloat16*>(a.dq), n8, a.scale);
   return cudaGetLastError();
-}
-
-bool bad_shape(const Args& a) {
-  return a.B <= 0 || a.H <= 0 || a.Hkv <= 0 || a.H % a.Hkv != 0 || a.S <= 0 || a.Skv <= 0 ||
-         a.B * a.H > 65535;
 }
 
 }  // namespace
 
-// Common arguments of both entry points: q, do [B*H, S, D] and k, v
-// [B*Hkv, Skv, D] bf16 contiguous; lse, delta [B*H, S] fp32; seg_q [B, S] and
-// seg_k [B, Skv] int32, or both null.  Each launches on `stream` and returns
-// cudaGetLastError() of the launch.
-
-// dq [B*H, S, D] bf16.
-extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-                            const void* lse, const void* delta, const void* seg_q,
-                            const void* seg_k, void* dq, int B, int H, int Hkv, int S, int Skv,
-                            int D, int causal, int window, int q_offset, float scale,
-                            void* stream) {
-  const Args a{q, k, v, dout, lse, delta, seg_q, seg_k, B, H, Hkv, S, Skv, causal, window,
-               q_offset, scale, static_cast<cudaStream_t>(stream)};
-  if (bad_shape(a)) return static_cast<int>(cudaErrorInvalidValue);
-  switch (D) {
-    case 64: return static_cast<int>(launch_dq<64>(a, dq));
-    case 128: return static_cast<int>(launch_dq<128>(a, dq));
-    default: return static_cast<int>(cudaErrorInvalidValue);
+// q, out, do [B*H, S, D] and k, v [B*Hkv, Skv, D] bf16 contiguous; lse and
+// dlse (or null) [B*H, S] fp32; seg_q [B, S] and seg_k [B, Skv] int32, or
+// both null.  Scratch the caller allocates: delta [B*H, S] and dq_acc
+// [B*H, S, D] fp32.  Outputs dq [B*H, S, D] and dk, dv [B*Hkv, Skv, D] bf16.
+// Launches prep, main and finish on `stream`; returns the first
+// cudaGetLastError() that is not cudaSuccess.
+extern "C" int flash_bwd(const void* q, const void* k, const void* v, const void* out,
+                         const void* dout, const void* lse, const void* dlse, const void* seg_q,
+                         const void* seg_k, void* delta, void* dq_acc, void* dq, void* dk,
+                         void* dv, int B, int H, int Hkv, int S, int Skv, int D, int causal,
+                         int window, int q_offset, float scale, void* stream) {
+  const Args a{q, k, v, out, dout, lse, dlse, seg_q, seg_k, delta, dq_acc, dq, dk, dv,
+               B, H, Hkv, S, Skv, causal, window, q_offset, scale,
+               static_cast<cudaStream_t>(stream)};
+  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || S <= 0 || Skv <= 0 ||
+      static_cast<long>(B) * Hkv * ((Skv + 63) / 64) > 0x7fffffffL) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-// dk, dv [B*Hkv, Skv, D] bf16.
-extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
-                             const void* lse, const void* delta, const void* seg_q,
-                             const void* seg_k, void* dk, void* dv, int B, int H, int Hkv, int S,
-                             int Skv, int D, int causal, int window, int q_offset, float scale,
-                             void* stream) {
-  const Args a{q, k, v, dout, lse, delta, seg_q, seg_k, B, H, Hkv, S, Skv, causal, window,
-               q_offset, scale, static_cast<cudaStream_t>(stream)};
-  if (bad_shape(a)) return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
-    case 64: return static_cast<int>(launch_dkv<64>(a, dk, dv));
-    case 128: return static_cast<int>(launch_dkv<128>(a, dk, dv));
+    case 64: return static_cast<int>(launch<64>(a));
+    case 128: return static_cast<int>(launch<128>(a));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,6 +1,7 @@
-// Helpers shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu):
-// bf16 packing, the m16n8k16 tensor-core product, tile loads, and the band
-// geometry.  The geometry is ONE definition for forward and backward, as
+// Helpers of the flash-attention kernels: bf16 packing and the band geometry
+// (flash_fwd.cu and flash_bwd.cu), the m16n8k16 tensor-core product and
+// tile loads (flash_fwd.cu).  The geometry is ONE definition for forward and
+// backward, as
 // `_band_mask`, `_stream_k_range` and `_stream_q_range` are in
 // tpu_parallel/ops/flash_attention.py (:113, :142, :166): a forward and a
 // backward that disagreed on which (query, key) pairs are visible would give

@@ -98,8 +98,10 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
     for n, (tmp, start, proc) in procs.items():
         output, _ = proc.communicate()
         build_seconds[n] = time.perf_counter() - start
+        # ptxas -v: registers, shared memory, and the stack/spill line that
+        # follows each kernel's "Function properties" line
         build_reports[n] = "\n".join(
-            line for line in output.splitlines() if "ptxas" in line
+            line for line in output.splitlines() if "ptxas" in line or "spill" in line
         )
         if proc.returncode != 0:
             failures.append(f"--- nvcc {srcs[n].name} (exit {proc.returncode})\n{output}")

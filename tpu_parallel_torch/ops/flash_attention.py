@@ -3,9 +3,9 @@ of the Hopper kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``).
 
 Counterpart of ``tpu_parallel/ops/flash_attention.py``.  The TPU package has
 a resident and a streamed form of each kernel (a VMEM artifact); here one
-CUDA kernel per function (forward, dq, dk/dv) streams its tiles through
-shared memory at every length, so ``stream=`` is kept for API parity and
-gives the same result either way.  The kernels mask the ragged sequence
+CUDA kernel per direction (forward; backward for dq, dk and dv) streams its
+tiles through shared memory at every length, so ``stream=`` is kept for API
+parity and gives the same result either way.  The kernels mask the ragged sequence
 edge themselves: no shape falls back to the O(seq^2) path.
 
 Layouts as in the JAX package: [batch, heads, seq, head_dim] for
@@ -15,10 +15,10 @@ heads than Q (grouped-query attention); they are never expanded.
 
 Gradients follow the JAX ``_flash_finalize`` pattern: the forward kernel
 runs on detached inputs and :class:`_FlashFinalize`, an identity on its
-output, attaches the dq and dk/dv kernels.  On a CPU tensor the wrappers
-take the plain versions; on a CUDA tensor they launch the kernels or raise.
-``flash_fwd_launches``, ``flash_bwd_dq_launches`` and
-``flash_bwd_dkv_launches`` count kernel launches.
+output, attaches the backward kernel, one pass that computes dq, dk and dv
+together.  On a CPU tensor the wrappers take the plain versions; on a CUDA
+tensor they launch the kernels or raise.  ``flash_fwd_launches`` and
+``flash_bwd_launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -38,8 +38,7 @@ KERNEL_HEAD_DIMS = (64, 128)
 
 # kernel launches in this process; a caller may reset them to 0
 flash_fwd_launches = 0
-flash_bwd_dq_launches = 0
-flash_bwd_dkv_launches = 0
+flash_bwd_launches = 0
 
 
 def reference_attention(q, k, v, segment_ids=None):
@@ -178,11 +177,18 @@ def _bwd_terms(q, k, v, seg_q, seg_k, lse, do, delta, causal, window, q_offset):
     return qs, p, ds
 
 
+def _finish_dq(acc, dtype):
+    """dq = acc * (1/sqrt(D)) rounded to ``dtype``, from the fp32 sum
+    acc = sum_k ds.k: the kernel's finishing pass (``_bwd_dq_kernel``'s
+    last line)."""
+    return (acc * (1.0 / acc.shape[-1] ** 0.5)).to(dtype)
+
+
 def _reference_dq(q, k, v, do, lse, delta, seg_q, seg_k, causal, window, q_offset):
     b, h, s, d = q.shape
     _, _, ds = _bwd_terms(q, k, v, seg_q, seg_k, lse, do, delta, causal, window, q_offset)
-    dq = torch.einsum("bngqk,bnkd->bngqd", ds.float(), k.float()) * (1.0 / d**0.5)
-    return dq.to(q.dtype).reshape(b, h, s, d)
+    acc = torch.einsum("bngqk,bnkd->bngqd", ds.float(), k.float())
+    return _finish_dq(acc, q.dtype).reshape(b, h, s, d)
 
 
 def _reference_dkv(q, k, v, do, lse, delta, seg_q, seg_k, causal, window, q_offset):
@@ -196,14 +202,15 @@ def _reference_dkv(q, k, v, do, lse, delta, seg_q, seg_k, causal, window, q_offs
 
 def _delta(out, do, dlse=None):
     """rowsum(out * do) in fp32, minus the lse cotangent when there is one:
-    the per-row correction of ds = p * (dp - delta) (``_flash_bwd``)."""
+    the per-row correction of ds = p * (dp - delta) (``_flash_bwd``), which
+    the kernel's first pass computes."""
     delta = (out.float() * do.float()).sum(-1)
     return delta if dlse is None else delta - dlse
 
 
 def flash_bwd_reference(q, k, v, seg_q, seg_k, out, lse, do, *, causal=True, window=0,
                         q_offset=0, dlse=None):
-    """Plain PyTorch version of the backward kernels, same contract.
+    """Plain PyTorch version of the backward kernel, same contract.
 
     Layouts as :func:`flash_fwd_reference`; ``out``/``lse`` are the forward's,
     ``do`` [B, H, S, D] the cotangent of ``out`` and ``dlse`` [B, H, S] that of
@@ -248,9 +255,11 @@ _DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 def _kernel_operands(kernel, bf16, fp32, seg_q, seg_k, device):
     """Check what a kernel reads and return its segment ids as int32 (or
     None): bf16 / fp32 map names to tensors that must be contiguous,
-    16-byte aligned and on ``device``."""
+    16-byte aligned and on ``device`` (an optional one may be None)."""
     for dtype, tensors in (("bf16", bf16), ("fp32", fp32)):
         for name, t in tensors.items():
+            if t is None:
+                continue
             if t.device != device:
                 raise ValueError(f"{name} is on {t.device}, q on {device}")
             if t.dtype != _DTYPES[dtype]:
@@ -274,8 +283,9 @@ def _kernel_operands(kernel, bf16, fp32, seg_q, seg_k, device):
 def _launch(kernel, source, bf16, fp32, outs, seg_q, seg_k, causal, window, q_offset):
     """Launch C entry point ``kernel`` of ``csrc/<source>.cu``: its pointer
     arguments are the bf16 inputs, the fp32 inputs, the segment ids and the
-    outputs, in that order, then the shapes, the options, the scale and the
-    current stream.  Raises if the launch fails."""
+    outputs (scratch first, where the kernel takes any), in that order, then
+    the shapes, the options, the scale and the current stream.  Raises if
+    the launch fails."""
     q, k = bf16["q"], bf16["k"]
     seg_q, seg_k = _kernel_operands(kernel, bf16, fp32, seg_q, seg_k, q.device)
     b, h, s, d = q.shape
@@ -318,38 +328,28 @@ def _flash_fwd_cpu(q, k, v, seg_q, seg_k, causal, window, q_offset):
                                q_offset=q_offset)
 
 
-@torch.library.custom_op("tpu_parallel_torch::flash_bwd_dq", mutates_args=(),
-                         device_types="cuda")
-def _flash_bwd_dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
-                     lse: torch.Tensor, delta: torch.Tensor, seg_q: Optional[torch.Tensor],
-                     seg_k: Optional[torch.Tensor], causal: bool, window: int,
-                     q_offset: int) -> torch.Tensor:
-    global flash_bwd_dq_launches
-    dq = torch.empty_like(q)
-    _launch("flash_bwd_dq", "flash_bwd", dict(q=q, k=k, v=v, do=do), dict(lse=lse, delta=delta),
-            (dq,), seg_q, seg_k, causal, window, q_offset)
-    flash_bwd_dq_launches += 1
-    return dq
+@torch.library.custom_op("tpu_parallel_torch::flash_bwd", mutates_args=(), device_types="cuda")
+def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                  do: torch.Tensor, lse: torch.Tensor, dlse: Optional[torch.Tensor],
+                  seg_q: Optional[torch.Tensor], seg_k: Optional[torch.Tensor], causal: bool,
+                  window: int, q_offset: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    global flash_bwd_launches
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    # scratch: delta = rowsum(out * do) - dlse, and the fp32 dq the key blocks add into
+    delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    dq_acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    _launch("flash_bwd", "flash_bwd", dict(q=q, k=k, v=v, out=out, do=do),
+            dict(lse=lse, dlse=dlse), (delta, dq_acc, dq, dk, dv), seg_q, seg_k, causal, window,
+            q_offset)
+    flash_bwd_launches += 1
+    return dq, dk, dv
 
 
-_flash_bwd_dq_op.register_kernel("cpu")(_reference_dq)
+@_flash_bwd_op.register_kernel("cpu")
+def _flash_bwd_cpu(q, k, v, out, do, lse, dlse, seg_q, seg_k, causal, window, q_offset):
+    return flash_bwd_reference(q, k, v, seg_q, seg_k, out, lse, do, causal=causal,
+                               window=window, q_offset=q_offset, dlse=dlse)
 
-
-@torch.library.custom_op("tpu_parallel_torch::flash_bwd_dkv", mutates_args=(),
-                         device_types="cuda")
-def _flash_bwd_dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
-                      lse: torch.Tensor, delta: torch.Tensor, seg_q: Optional[torch.Tensor],
-                      seg_k: Optional[torch.Tensor], causal: bool, window: int,
-                      q_offset: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    global flash_bwd_dkv_launches
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("flash_bwd_dkv", "flash_bwd", dict(q=q, k=k, v=v, do=do),
-            dict(lse=lse, delta=delta), (dk, dv), seg_q, seg_k, causal, window, q_offset)
-    flash_bwd_dkv_launches += 1
-    return dk, dv
-
-
-_flash_bwd_dkv_op.register_kernel("cpu")(_reference_dkv)
 
 FLASH_FWD_OP = torch.ops.tpu_parallel_torch.flash_fwd.default
 
@@ -373,35 +373,34 @@ def _flash_fwd(q, k, v, seg_q=None, seg_k=None, *, causal=True, window=0,
 
 def _flash_bwd(q, k, v, seg_q, seg_k, out, lse, do, *, causal=True, window=0, dlse=None,
                stream=None, q_offset=0, block_q=DEFAULT_BLOCK_Q, block_k=DEFAULT_BLOCK_K):
-    """Backward kernels -> ``(dq, dk, dv)``: ``flash_bwd_dq`` then
-    ``flash_bwd_dkv`` on a CUDA tensor, the plain version on a CPU tensor.
+    """Backward -> ``(dq, dk, dv)``: one ``flash_bwd`` op call on a CUDA
+    tensor (the kernel's prep, main and finish passes, counted as one
+    launch), :func:`flash_bwd_reference` on a CPU tensor.
 
-    ``delta = rowsum(out * do) - dlse`` is computed here, outside the
-    kernels, as the JAX ``_flash_bwd`` does in XLA.  ``stream``/``block_*``
+    ``delta = rowsum(out * do) - dlse`` (the JAX ``_flash_bwd`` computes it
+    in XLA) is computed by the kernel's prep pass.  ``stream``/``block_*``
     as in :func:`_flash_fwd`.
     """
     del block_q, block_k, stream
     _check_args(q, k, v, seg_q, seg_k, causal, window, q_offset)
-    if out.shape != q.shape or do.shape != q.shape or lse.shape != q.shape[:3]:
+    if out.shape != q.shape or do.shape != q.shape or lse.shape != q.shape[:3] or (
+        dlse is not None and dlse.shape != lse.shape
+    ):
         raise ValueError(
-            f"out {tuple(out.shape)} / do {tuple(do.shape)} / lse {tuple(lse.shape)} do not "
-            f"match q {tuple(q.shape)}"
+            f"out {tuple(out.shape)} / do {tuple(do.shape)} / lse {tuple(lse.shape)} / dlse "
+            f"{None if dlse is None else tuple(dlse.shape)} do not match q {tuple(q.shape)}"
         )
-    delta = _delta(out, do, dlse).contiguous()
-    do = do.contiguous()
-    lse = lse.contiguous()
-    args = (q, k, v, do, lse, delta, seg_q, seg_k, causal, window, q_offset)
-    dq = torch.ops.tpu_parallel_torch.flash_bwd_dq(*args)
-    dk, dv = torch.ops.tpu_parallel_torch.flash_bwd_dkv(*args)
-    return dq, dk, dv
+    return torch.ops.tpu_parallel_torch.flash_bwd(
+        q, k, v, out.contiguous(), do.contiguous(), lse.contiguous(),
+        None if dlse is None else dlse.contiguous(), seg_q, seg_k, causal, window, q_offset)
 
 
 class _FlashFinalize(torch.autograd.Function):
-    """Identity on ``out`` that attaches the backward kernels (the JAX
+    """Identity on ``out`` that attaches the backward kernel (the JAX
     ``_flash_finalize``).  The forward kernel runs OUTSIDE this function on
     detached inputs, so its (out, lse) are ordinary op outputs that a remat
-    policy can keep; the backward launches dq and dk/dv and never re-runs
-    the forward."""
+    policy can keep; the backward launches ``flash_bwd`` once and never
+    re-runs the forward."""
 
     @staticmethod
     def forward(ctx, q, k, v, seg, out, lse, window):
@@ -433,7 +432,7 @@ def flash_attention(q, k, v, *, segment_ids=None, block_q=DEFAULT_BLOCK_Q,
     0``).  ``window > 0`` limits query t to keys in (t - window, t]; key
     tiles outside the band are skipped.  ``segment_ids`` [batch, seq] masks
     attention to the same packed segment.  Differentiable in q, k and v
-    through the backward kernels; see the module docstring for the device
+    through the backward kernel; see the module docstring for the device
     rule.
     """
     del block_q, block_k
