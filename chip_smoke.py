@@ -10,22 +10,30 @@ source, all started together).  Phases, in order; any failure raises:
 
 1. setup: card name and power limit, versions, kernel builds and ``ptxas``;
 2. ``flash_fwd`` kernel against ``flash_fwd_reference`` at shapes (a)-(g)
-   and the training pass's shape, with the kernel's, the plain version's
-   and SDPA's times and the bound;
+   and the training pass's shape, in both layouts: the main path's (q, k, v
+   views of a fused [B, S, H, 3D] qkv buffer, or q and views of a
+   [B, S, H_KV, 2D] kv buffer under GQA; out written [B, S, H, D]) and the
+   JAX layout [B, H, S, D], whose outputs must be bitwise equal; the
+   kernel's time on the main path's layout and SDPA's on the same inputs in
+   turns (kernel, SDPA, SDPA, kernel; medians), the [B, H, S, D] layout's
+   and the plain version's times, and the bound;
 2b. ``flash_bwd`` (one pass for dq, dk and dv) against
    ``flash_bwd_reference`` at shapes (a)-(g) and the training pass's shape,
    row by row, dq exactly 0 on empty rows; the kernel's time and SDPA's
    backward time taken in turns (kernel, SDPA, SDPA, kernel; medians), the
    plain version's time and the one-pass bound; at (a), planted faults that
    the row check must reject; at the training pass, two runs: dk and dv
-   bitwise equal, dq's largest difference printed;
+   bitwise equal, dq's largest difference printed; and the same pass on the
+   main path's layout (strided q, k, v, out, do; dq, dk, dv written
+   [B, S, H, D]): within the row rule, dk and dv bitwise equal to the
+   [B, H, S, D] run's, and its time;
 3. forward: ``gpt2_125m(attn_impl="flash")`` on tokens [8, 1024], seeded
    weights, against the same weights under ``attn_impl="xla"``;
 4. generate: greedy on 4 ragged prompts, then a top-p sampled call;
-5. profile: device time by kernel and kind and the device's idle share
-   over one forward and over 8 decode steps (``torch.profiler``); the
-   profile of one training step runs at the end of phase 6, after its
-   counted steps;
+5. profile: device time by kernel and kind, the copy kernels by name with
+   their counts, and the device's idle share over one forward and over 8
+   decode steps (``torch.profiler``); the profile of one training step runs
+   at the end of phase 6, after its counted steps;
 6. training: the ``Trainer`` at ``bench.py``'s shape (GPT-2 125M, flash,
    "proj_attn" remat, global batch 256 in 16 minibatches of [16, 1024]):
    3 warm-up and 12 timed steps, launches per step, step time, tokens/s,
@@ -78,6 +86,9 @@ LOGITS_TOL = 0.1
 # gradient is zero in exact arithmetic, so both paths give rounding noise)
 TRAIN_GRAD_TOL = 5e-2
 SEED = 0
+# cycles of the spin kernel `cuda_ms` queues per timed run: about 0.2 ms at
+# the H100's clock, more than the host takes to launch one of the timed calls
+SPIN_CYCLES_PER_RUN = 400_000
 # name: (B, H, H_KV, S, D, kwargs, packed segments, timing iterations)
 SHAPES = {
     "a_main": (8, 12, 12, 1024, 64, dict(causal=True), False, 50),
@@ -98,12 +109,16 @@ def log(*parts):
 
 
 def cuda_ms(fn, iters, warmup=2):
-    """Mean device time of ``fn`` in ms from CUDA events over ``iters`` runs."""
+    """Mean device time of ``fn`` in ms from CUDA events over ``iters`` runs.
+    A spin kernel queued first keeps the card busy while the host enqueues
+    the runs, so a call whose kernels are shorter than the host's work to
+    launch them is timed on the device and not at the host's launch rate."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES_PER_RUN * iters)
     start.record()
     for _ in range(iters):
         fn()
@@ -209,8 +224,37 @@ def _bound(flops, nbytes):
     return max(ops_ms, bytes_ms), "operations" if ops_ms > bytes_ms else "bytes"
 
 
+def main_path_layout(*tensors):
+    """The same values as [B, H, S, D]-shaped views in the layout the model
+    hands the kernels: q, k, v as views of one fused [B, S, H, 3D] buffer
+    when the heads match, as ``Attention.qkv`` makes
+    them; under GQA q contiguous in [B, S, H, D] and k, v views of a fused
+    [B, S, H_KV, 2D] buffer, as ``Attention.q`` and ``.kv`` do.  Further
+    tensors (do) come back contiguous in [B, S, H, D], as the gradient of
+    the model's output projection arrives."""
+    q, k = tensors[:2]
+    d = q.shape[3]
+    bshd = [x.transpose(1, 2) for x in tensors]
+    fused = 3 if q.shape[1] == k.shape[1] else 2  # q, k, v or k, v share a buffer
+    views = [x.transpose(1, 2) for x in torch.cat(bshd[3 - fused:3], dim=-1).split(d, dim=-1)]
+    rest = [x.contiguous().transpose(1, 2) for x in bshd[3:]]
+    return [x.contiguous().transpose(1, 2) for x in bshd[:3 - fused]] + views + rest
+
+
+def in_turns(fns, iters):
+    """Medians of ``cuda_ms`` of each of two callables timed in turns (a,
+    b, b, a), with the list of each one's times."""
+    import statistics
+
+    turns = ([], [])
+    for i in (0, 1, 1, 0):
+        turns[i].append(cuda_ms(fns[i], iters))
+    return [statistics.median(t) for t in turns], turns
+
+
 def kernel_phase(seed):
-    """Phase 2: the kernel against its plain version at shapes (a)-(g)."""
+    """Phase 2: the kernel against its plain version at shapes (a)-(g), in
+    the main path's layout and in [B, H, S, D]."""
     import torch.nn.functional as F
     from tpu_parallel_torch.ops import flash_attention as fa
 
@@ -220,10 +264,16 @@ def kernel_phase(seed):
     for name, shape in {**SHAPES, "t_train_pass": TRAIN_SHAPE}.items():
         b, h, h_kv, s, d, kw, pack, iters = shape
         q, k, v, seg = _inputs(shape, gen)
+        qm, km, vm = main_path_layout(q, k, v)
         with torch.inference_mode():
-            out, lse = fa._flash_fwd(q, k, v, seg, seg, **kw)
+            out, lse = fa._flash_fwd(qm, km, vm, seg, seg, **kw)
+            out_bhsd, lse_bhsd = fa._flash_fwd(q, k, v, seg, seg, **kw)
             ref_out, ref_lse = fa.flash_fwd_reference(q, k, v, seg, seg, **kw)
             torch.cuda.synchronize()
+            if not out.transpose(1, 2).is_contiguous():
+                raise AssertionError(f"{name}: out is not [B, S, H, D] in memory")
+            if not (torch.equal(out, out_bhsd) and torch.equal(lse, lse_bhsd)):
+                raise AssertionError(f"{name}: out/lse differ between the two layouts")
             out_err = (out.float() - ref_out.float()).abs().max().item()
             lse_err = (lse - ref_lse).abs().max().item()
             empty_rows = int((ref_lse <= fa.NEG_INF / 2).sum())
@@ -232,14 +282,17 @@ def kernel_phase(seed):
             if empty_rows:
                 assert (out.float()[ref_lse <= fa.NEG_INF / 2] == 0).all()
 
-            ms = cuda_ms(lambda: fa._flash_fwd(q, k, v, seg, seg, **kw), iters)
+            mask = _sdpa_mask(kw, s, seg, dev)
+            (ms, library_ms), turns = in_turns((
+                lambda: fa._flash_fwd(qm, km, vm, seg, seg, **kw),
+                lambda: F.scaled_dot_product_attention(qm, km, vm, attn_mask=mask,
+                                                       is_causal=mask is None,
+                                                       enable_gqa=h != h_kv),
+            ), iters)
+            ms_bhsd = cuda_ms(lambda: fa._flash_fwd(q, k, v, seg, seg, **kw), iters)
             plain_ms = cuda_ms(
                 lambda: fa.flash_fwd_reference(q, k, v, seg, seg, **kw), max(2, iters // 10), 1
             )
-            mask = _sdpa_mask(kw, s, seg, dev)
-            lib = lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask, is_causal=mask is None, enable_gqa=h != h_kv)
-            library_ms = cuda_ms(lib, iters)
         pairs = visible_pairs(b, h, s, s, kw["causal"], kw.get("window", 0),
                               kw.get("q_offset", 0), seg, dev)
         flops = 4 * d * pairs  # Q.K^T and P.V, 2*D each per visible pair
@@ -249,21 +302,25 @@ def kernel_phase(seed):
         bound_ms, bound_by = _bound(flops, nbytes)
         row = dict(
             shape=f"B={b} H={h} Hkv={h_kv} S={s} D={d} {kw} packed={pack}",
+            layout="views of fused [B, S, H, 3D] qkv" if h == h_kv
+            else "q [B, S, H, D], k/v views of fused [B, S, Hkv, 2D] kv",
             max_abs_err=out_err, lse_max_abs_err=lse_err, empty_rows=empty_rows,
-            ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-            bound_by=bound_by,
-            gflop=flops / 1e9, mbytes=nbytes / 1e6, share_of_bound=bound_ms / ms,
-            tflops=flops / ms / 1e9,
+            bitwise_equal_across_layouts=True, ms=ms, kernel_turns_ms=turns[0], ms_bhsd=ms_bhsd,
+            plain_ms=plain_ms, library_ms=library_ms, sdpa_turns_ms=turns[1], bound_ms=bound_ms,
+            bound_by=bound_by, gflop=flops / 1e9, mbytes=nbytes / 1e6,
+            share_of_bound=bound_ms / ms, tflops=flops / ms / 1e9,
         )
         rows[name] = row
-        log(f"[kernel {name}] {row['shape']}")
+        log(f"[kernel {name}] {row['shape']}; main-path layout: {row['layout']}")
         log(f"  out max abs err {out_err:.3e} (atol=rtol={OUT_TOL}), lse max abs err "
-            f"{lse_err:.3e} (atol {LSE_TOL}), empty rows {empty_rows}")
-        log(f"  kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms by {row['bound_by']} ({row['gflop']:.2f} GFLOP, "
-            f"{row['mbytes']:.1f} MB), share of bound {row['share_of_bound']:.3f}, "
-            f"{row['tflops']:.1f} TFLOP/s")
-        del q, k, v, out, lse, ref_out, ref_lse
+            f"{lse_err:.3e} (atol {LSE_TOL}), empty rows {empty_rows}; out and lse bitwise "
+            f"equal in [B, H, S, D]")
+        log(f"  kernel {ms:.4f} ms (turns {', '.join(f'{x:.4f}' for x in turns[0])}), SDPA "
+            f"{library_ms:.4f} ms (turns {', '.join(f'{x:.4f}' for x in turns[1])}), kernel on "
+            f"[B, H, S, D] {ms_bhsd:.4f} ms, plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms by "
+            f"{row['bound_by']} ({row['gflop']:.2f} GFLOP, {row['mbytes']:.1f} MB), share of "
+            f"bound {row['share_of_bound']:.3f}, {row['tflops']:.1f} TFLOP/s")
+        del q, k, v, qm, km, vm, out, lse, out_bhsd, lse_bhsd, ref_out, ref_lse
         torch.cuda.empty_cache()
     return rows
 
@@ -314,6 +371,24 @@ def backward_kernel_phase(seed):
                 row["dq_run_to_run_max_abs"] = (again[0].float() - got[0].float()).abs().max().item()
                 row["dq_run_to_run_worst_row_ratio"] = grad_error_ratio(again[0], got[0])
                 del again
+                # the main path's layout: q, k, v views of the fused qkv buffer,
+                # out and do [B, S, H, D] in memory; dq, dk, dv written so
+                qm, km, vm, om, dom = main_path_layout(q, k, v, out, do)
+                strided = lambda: fa._flash_bwd(qm, km, vm, seg, seg, om, lse, dom, **kw)
+                got_m = strided()
+                torch.cuda.synchronize()
+                if not all(g.transpose(1, 2).is_contiguous() for g in got_m):
+                    raise AssertionError("dq, dk, dv are not [B, S, H, D] in memory")
+                ratios_m = {g: grad_error_ratio(x, w)
+                            for g, x, w in zip(("dq", "dk", "dv"), got_m, want)}
+                if max(ratios_m.values()) > 1:
+                    raise AssertionError(f"strided backward: worst rows {ratios_m} over limit")
+                if not (torch.equal(got_m[1], got[1]) and torch.equal(got_m[2], got[2])):
+                    raise AssertionError("strided dk / dv differ from the [B, H, S, D] run's")
+                row["main_path_layout"] = dict(
+                    worst_row_ratio=ratios_m, dkv_bitwise_equal_to_bhsd=True,
+                    ms=cuda_ms(strided, iters))
+                del got_m
             del got, want
             plain_ms = cuda_ms(
                 lambda: fa.flash_bwd_reference(q, k, v, seg, seg, out, lse, do, **kw),
@@ -359,6 +434,12 @@ def backward_kernel_phase(seed):
             log(f"  two runs: dk, dv bitwise equal; dq max |run 1 - run 2| "
                 f"{row['dq_run_to_run_max_abs']:.3e} (worst row {row['dq_run_to_run_worst_row_ratio']:.3f}"
                 f" of its limit; fp32 atomics sum dq in a varying order)")
+        if "main_path_layout" in row:
+            m = row["main_path_layout"]
+            log("  main-path layout (q, k, v views of fused qkv; out, do, dq, dk, dv "
+                "[B, S, H, D]): worst row over its limit "
+                + ", ".join(f"{g} {r:.3f}" for g, r in m["worst_row_ratio"].items())
+                + f"; dk, dv bitwise equal to the [B, H, S, D] run's; {m['ms']:.4f} ms")
         log(f"  kernel {ms:.4f} ms (turns {', '.join(f'{x:.4f}' for x in turns['kernel'])}), "
             f"SDPA backward (dq, dk, dv) {library_ms:.4f} ms (turns "
             f"{', '.join(f'{x:.4f}' for x in turns['sdpa'])}), plain {plain_ms:.4f} ms; one-pass "
@@ -536,6 +617,13 @@ def _profile(name, fn, grad=False):
         if picked:
             log(f"  flash {label} kernels: {sum(t for _, t in picked) / 1e3:.3f} ms in "
                 f"{sum(c for c, _ in picked)} launches")
+    # copy kernels by name: layout copies, dtype casts and concatenations all
+    # run through PyTorch's copy kernels
+    copies = [e for e in events if "copy" in e[0].lower()]
+    log(f"  copy kernels: {sum(c for _, c, _ in copies)} launches, "
+        f"{sum(t for _, _, t in copies) / 1e3:.3f} ms")
+    for key, count, t in sorted(copies, key=lambda e: -e[2]):
+        log(f"    {t / 1e3:9.3f} ms x{count:<5d} {key[:150]}")
     for key, count, t in sorted(events, key=lambda e: -e[2])[:12]:
         log(f"  {t / 1e3:9.3f} ms {100 * t / busy_us:5.1f}% x{count:<5d} {key[:90]}")
 
@@ -689,7 +777,7 @@ def main():
     kernels = {"kernels": [
         dict(name="flash_fwd", route="cuda", source="tpu_parallel_torch/csrc/flash_fwd.cu",
              replaces="tpu_parallel/ops/flash_attention.py:240", path=path,
-             shape=kernel_rows[shape]["shape"], launches=n,
+             shape=kernel_rows[shape]["shape"], layout=kernel_rows[shape]["layout"], launches=n,
              max_abs_err=kernel_rows[shape]["max_abs_err"], ms=kernel_rows[shape]["ms"],
              plain_ms=kernel_rows[shape]["plain_ms"], bound_ms=kernel_rows[shape]["bound_ms"],
              bound_by=kernel_rows[shape]["bound_by"], library_ms=kernel_rows[shape]["library_ms"])
@@ -702,7 +790,7 @@ def main():
              max_abs_err=train_row["max_abs_err"], ms=train_row["ms"],
              plain_ms=train_row["plain_ms"], bound_ms=train_row["bound_ms"],
              bound_by=train_row["bound_by"], library_ms=train_row["library_ms"],
-             library_covers="dq+dk+dv")
+             library_covers="dq+dk+dv", ms_main_path_layout=train_row["main_path_layout"]["ms"])
     ]}
     summary = dict(card=smi, forward=fwd, generate=gen, train=train,
                    inference_flash_fwd_launches=inference_launches,

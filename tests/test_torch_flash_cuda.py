@@ -15,6 +15,11 @@ both, such as the dq of a query that sees a single key.  dq is summed across
 key blocks with fp32 atomics, whose order changes from run to run, so two
 runs' dq are held to the same row rule; dk and dv have one writer per row
 and must be bitwise equal.
+
+The kernels address their bf16 operands by row: the model hands them views
+of its fused projections ([B, S, H, D] in memory) and they write out, dq,
+dk, dv in that order; the same values in [B, H, S, D] give bitwise the same
+forward.
 """
 
 import importlib
@@ -194,3 +199,93 @@ def test_backward_is_reproducible(cuda):
     empty = lse <= tfa.NEG_INF / 2
     assert empty.any()
     assert (first[0][empty] == 0).all() and (second[0][empty] == 0).all()
+
+
+def _fused_views(q, k, v, *rest):
+    """The model's layout of the same values: q, k, v views of one fused
+    [B, S, H, 3D] buffer (MHA), or q contiguous [B, S, H, D] and k, v views
+    of a fused [B, S, H_KV, 2D] buffer (GQA); ``rest`` (do) contiguous
+    [B, S, H, D].  All returned [B, H, S, D]-shaped."""
+    d = q.shape[3]
+    bshd = [x.transpose(1, 2) for x in (q, k, v, *rest)]
+    n_fused = 3 if q.shape[1] == k.shape[1] else 2
+    fused = torch.cat(bshd[3 - n_fused:3], dim=-1).split(d, dim=-1)
+    alone = [x.contiguous() for x in bshd[:3 - n_fused]] + [x.contiguous() for x in bshd[3:]]
+    views = alone[:3 - n_fused] + list(fused) + alone[3 - n_fused:]
+    return [x.transpose(1, 2) for x in views]
+
+
+# name: (B, H, H_KV, S, D) — shapes (a) and (b) of the card check, causal
+FUSED_SHAPES = {
+    "a_gpt2_main_path": (8, 12, 12, 1024, 64),
+    "b_gqa_d128": (2, 16, 4, 2048, 128),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FUSED_SHAPES))
+def test_kernels_on_views_of_fused_buffers(cuda, name):
+    """Forward and backward on the model's layout, against the plain
+    versions on [B, H, S, D] copies of the same values; out, dq, dk, dv come
+    back [B, S, H, D] in memory."""
+    q, k, v, do = _grad_inputs(cuda, *FUSED_SHAPES[name])
+    qm, km, vm, dom = _fused_views(q, k, v, do)
+    assert not km.is_contiguous() and not vm.is_contiguous()
+    with torch.inference_mode():
+        out, lse = tfa._flash_fwd(qm, km, vm)
+        want_out, want_lse = tfa.flash_fwd_reference(q, k, v)
+        got = tfa._flash_bwd(qm, km, vm, None, None, out, lse, dom)
+        want = tfa.flash_bwd_reference(q, k, v, None, None, out, lse, do)
+    torch.cuda.synchronize()
+    assert all(x.transpose(1, 2).is_contiguous() for x in (out, *got))
+    torch.testing.assert_close(out.float(), want_out.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=0)
+    _assert_grads_close(got, want)
+
+
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_forward_is_bitwise_equal_across_layouts(cuda, name):
+    b, h, h_kv, s, d, kw = SHAPES[name]
+    q, k, v, _ = _grad_inputs(cuda, b, h, h_kv, s, d, seed=6)
+    with torch.inference_mode():
+        out, lse = tfa._flash_fwd(q, k, v, **kw)
+        out_m, lse_m = tfa._flash_fwd(*_fused_views(q, k, v), **kw)
+    assert torch.equal(out, out_m) and torch.equal(lse, lse_m)
+
+
+# name: (B, H, H_KV, S, D, kwargs) — chunks ahead of and behind their keys
+# (rows that see no key), and a sequence length that no tile divides
+EDGE_SHAPES = {
+    "e_chunk_ahead": (2, 4, 4, 1024, 64, dict(causal=False, q_offset=512, window=384)),
+    "e_chunk_behind": (2, 4, 4, 1024, 64, dict(causal=False, q_offset=-512, window=384)),
+    "g_ragged_1000": (2, 4, 4, 1000, 64, dict(causal=True)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(EDGE_SHAPES))
+def test_empty_rows_and_ragged_edge(cuda, name):
+    """Rows with no visible key give out exactly 0 and lse exactly -1e30 in
+    both layouts; the rest match the plain version."""
+    b, h, h_kv, s, d, kw = EDGE_SHAPES[name]
+    q, k, v, _ = _grad_inputs(cuda, b, h, h_kv, s, d, seed=7)
+    with torch.inference_mode():
+        want_out, want_lse = tfa.flash_fwd_reference(q, k, v, **kw)
+        empty = want_lse <= tfa.NEG_INF / 2
+        for layout in (q, k, v), _fused_views(q, k, v):
+            out, lse = tfa._flash_fwd(*layout, **kw)
+            torch.testing.assert_close(out.float(), want_out.float(), atol=2e-2, rtol=2e-2)
+            torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=0)
+            assert (out[empty] == 0).all() and (lse[empty] == tfa.NEG_INF).all()
+    assert empty.any() == name.startswith("e_")
+
+
+def test_expanded_cotangent(cuda):
+    """``out.sum().backward()`` hands the backward a cotangent with stride 0,
+    which the kernel cannot address by row: the autograd function makes it
+    readable, and the gradients match the plain backward's."""
+    q, k, v, _ = _grad_inputs(cuda, 2, 4, 4, 256, 64, seed=8)
+    leaves = [x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v)]
+    tfa.flash_attention(*leaves).sum().backward()
+    with torch.inference_mode():
+        o, lse = tfa._flash_fwd(q, k, v)
+        want = tfa.flash_bwd_reference(q, k, v, None, None, o, lse, torch.ones_like(q))
+    _assert_grads_close([x.grad.transpose(1, 2) for x in leaves], want)

@@ -21,6 +21,10 @@
 // GQA is index math: a key block walks its K/V head's whole query group, so
 // every dk/dv row has one writer (deterministic, no atomics) and K/V are
 // never expanded.
+// The bf16 operands (q, k, v, out, do, dq, dk, dv) are addressed by row,
+// through their strides of batch, head and sequence, so the model's
+// [B, S, H, D] views are read and written in place; lse, delta and the dq
+// scratch are contiguous [B, H, S(, D)].
 //
 // Three launches on the caller's stream, from one entry point:
 //   1. prep:   delta = rowsum(out * do) - dlse and dq_acc = 0, one read of
@@ -80,14 +84,6 @@ using namespace flash;
 using namespace hopper;
 
 constexpr int kStages = 2;
-constexpr float kLog2e = 1.4426950408889634f;
-
-// 2^x, one MUFU.EX2 (flushes denormal results to 0, as __expf does).
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // Block shape: kWG warpgroups, 64 * kWG keys, q tiles of 64 * kWG rows.
 template <int D>
@@ -112,44 +108,10 @@ struct Layout {
   static constexpr int kBytes = kSegq + kStages * kRows * 4 + 1024;  // + alignment slack
 };
 
-// Rows [row0, row0 + kRows) of a [rows, D] bf16 matrix -> swizzled tile at
-// `dst`, zero-filling rows at or past `rows`.
-template <int D>
-__device__ __forceinline__ void load_tile_async(uint32_t dst, const __nv_bfloat16* src, int row0,
-                                                int rows) {
-  using L = Layout<D>;
-  constexpr int kChunks = D / 8;
-#pragma unroll
-  for (int i = 0; i < L::kRows * kChunks / L::kThreads; ++i) {
-    const int c = threadIdx.x + i * L::kThreads;
-    const int r = c / kChunks;
-    const int ch = c % kChunks;
-    const bool ok = row0 + r < rows;
-    cp_async_16(dst + sw128_offset<L::kRows>(r, ch),
-                src + static_cast<size_t>(ok ? row0 + r : 0) * D + ch * 8, ok);
-  }
-}
-
-// The q chunks this thread loaded with load_tile_async, times bf16 `scale`,
-// rounded to bf16 (the JAX kernels' pre-scaled q).
-template <int D>
-__device__ __forceinline__ void rescale_tile(uint8_t* tile, float scale) {
-  using L = Layout<D>;
-  constexpr int kChunks = D / 8;
-#pragma unroll
-  for (int i = 0; i < L::kRows * kChunks / L::kThreads; ++i) {
-    const int c = threadIdx.x + i * L::kThreads;
-    uint4* w = reinterpret_cast<uint4*>(tile + sw128_offset<L::kRows>(c / kChunks, c % kChunks));
-    uint4 val = *w;
-    uint32_t* x = reinterpret_cast<uint32_t*>(&val);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const __nv_bfloat162 y = *reinterpret_cast<const __nv_bfloat162*>(&x[j]);
-      x[j] = pack_bf16x2(__bfloat162float(y.x) * scale, __bfloat162float(y.y) * scale);
-    }
-    *w = val;
-  }
-}
+// Row strides of what the main kernel reads (q, k, v, do) and writes (dk, dv).
+struct MainStrides {
+  RowStrides q, k, v, dout, dk, dv;
+};
 
 template <int D>
 __global__ void __launch_bounds__(Layout<D>::kThreads, 1)
@@ -158,8 +120,9 @@ __global__ void __launch_bounds__(Layout<D>::kThreads, 1)
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      const int* __restrict__ seg_q, const int* __restrict__ seg_k,
                      float* __restrict__ dq_acc, __nv_bfloat16* __restrict__ dk,
-                     __nv_bfloat16* __restrict__ dv, int H, int Hkv, int S, int Skv, int causal,
-                     int window, int q_offset, float scale, int fold, int chunk) {
+                     __nv_bfloat16* __restrict__ dv, const MainStrides rs, int H, int Hkv, int S,
+                     int Skv, int causal, int window, int q_offset, float scale, int fold,
+                     int chunk) {
   using L = Layout<D>;
   constexpr int kRows = L::kRows;
   constexpr int kN = kRows;           // S^T / dP^T columns (queries) per warpgroup
@@ -197,7 +160,7 @@ __global__ void __launch_bounds__(Layout<D>::kThreads, 1)
   const float qscale = __bfloat162float(__float2bfloat16(scale));
   const float sscale = fold ? qscale : 1.f;  // S = sscale * (K . q^T)
   const float sl2 = sscale * kLog2e;            // p = 2^(S^T * sl2 - lse * log2 e)
-  const size_t kv_base = static_cast<size_t>(bkv) * Skv;
+  const int hkv = bkv % Hkv;
 
   int first, last;
   q_tile_range(kb, kRows, kRows, (S + kRows - 1) / kRows, causal, window, q_offset, first, last);
@@ -205,14 +168,16 @@ __global__ void __launch_bounds__(Layout<D>::kThreads, 1)
   const int n = group * nq;  // (query head, q tile) pairs of this block
 
   if (n == 0) {  // no query sees these keys
+    __nv_bfloat16* dk_bh = dk + b * rs.dk.b + hkv * rs.dk.h;
+    __nv_bfloat16* dv_bh = dv + b * rs.dv.b + hkv * rs.dv.h;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int kr = k0 + r0 + 8 * h;
       if (kr >= Skv) continue;
 #pragma unroll
       for (int c = 0; c < D; c += 8) {
-        *reinterpret_cast<uint32_t*>(&dk[(kv_base + kr) * D + c + 2 * t]) = 0u;
-        *reinterpret_cast<uint32_t*>(&dv[(kv_base + kr) * D + c + 2 * t]) = 0u;
+        *reinterpret_cast<uint32_t*>(&dk_bh[kr * rs.dk.s + c + 2 * t]) = 0u;
+        *reinterpret_cast<uint32_t*>(&dv_bh[kr * rs.dv.s + c + 2 * t]) = 0u;
       }
     }
     return;
@@ -220,10 +185,12 @@ __global__ void __launch_bounds__(Layout<D>::kThreads, 1)
 
   auto load_q_tile = [&](int it, int stage) {
     const int q0 = (first + it % nq) * kRows;
-    const size_t row_base = static_cast<size_t>(b * H + h0 + it / nq) * S;
+    const int hq = h0 + it / nq;
+    const size_t row_base = static_cast<size_t>(b * H + hq) * S;
     const uint32_t q_st = base + L::kRing + stage * 2 * L::kTile;
-    load_tile_async<D>(q_st, q + row_base * D, q0, S);
-    load_tile_async<D>(q_st + L::kTile, dout + row_base * D, q0, S);
+    load_tile_async<kRows, D, L::kThreads>(q_st, q + b * rs.q.b + hq * rs.q.h, rs.q.s, q0, S);
+    load_tile_async<kRows, D, L::kThreads>(q_st + L::kTile, dout + b * rs.dout.b + hq * rs.dout.h,
+                                           rs.dout.s, q0, S);
     const int i = tid % kRows;
     const int row = q0 + i;
     const bool ok = row < S;
@@ -237,8 +204,10 @@ __global__ void __launch_bounds__(Layout<D>::kThreads, 1)
     }
   };
 
-  load_tile_async<D>(base + L::kK, k + kv_base * D, k0, Skv);
-  load_tile_async<D>(base + L::kV, v + kv_base * D, k0, Skv);
+  load_tile_async<kRows, D, L::kThreads>(base + L::kK, k + b * rs.k.b + hkv * rs.k.h, rs.k.s, k0,
+                                         Skv);
+  load_tile_async<kRows, D, L::kThreads>(base + L::kV, v + b * rs.v.b + hkv * rs.v.h, rs.v.s, k0,
+                                         Skv);
   load_q_tile(0, 0);
   cp_async_commit();
 
@@ -266,7 +235,7 @@ __global__ void __launch_bounds__(Layout<D>::kThreads, 1)
     const uint32_t q_st = base + L::kRing + stage * 2 * L::kTile;
     const uint32_t do_st = q_st + L::kTile;
     cp_async_wait_all();  // tile `it` (and, at it = 0, K and V) landed
-    if (!fold) rescale_tile<D>(smem + L::kRing + stage * 2 * L::kTile, qscale);
+    if (!fold) rescale_tile<kRows, D, L::kThreads>(smem + L::kRing + stage * 2 * L::kTile, qscale);
     fence_proxy_async();
     __syncthreads();  // tile `it` visible to every warp; tile it - 1's reads all done
     if (it + 1 < n) {
@@ -410,15 +379,16 @@ __global__ void __launch_bounds__(Layout<D>::kThreads, 1)
   for (int h = 0; h < 2; ++h) {
     const int kr = k0 + r0 + 8 * h;
     if (kr >= Skv) continue;
-    const size_t row = (kv_base + kr) * D;
+    __nv_bfloat16* dk_row = dk + b * rs.dk.b + hkv * rs.dk.h + kr * rs.dk.s;
+    __nv_bfloat16* dv_row = dv + b * rs.dv.b + hkv * rs.dv.h + kr * rs.dv.s;
 #pragma unroll
     for (int p = 0; p < kPanels; ++p) {
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
-        const size_t off = row + p * 64 + nt * 8 + 2 * t;
-        *reinterpret_cast<uint32_t*>(&dk[off]) = pack_bf16x2(
+        const int off = p * 64 + nt * 8 + 2 * t;
+        *reinterpret_cast<uint32_t*>(&dk_row[off]) = pack_bf16x2(
             dk_acc[p][nt * 4 + 2 * h] * dk_scale, dk_acc[p][nt * 4 + 2 * h + 1] * dk_scale);
-        *reinterpret_cast<uint32_t*>(&dv[off]) =
+        *reinterpret_cast<uint32_t*>(&dv_row[off]) =
             pack_bf16x2(dv_acc[p][nt * 4 + 2 * h], dv_acc[p][nt * 4 + 2 * h + 1]);
       }
     }
@@ -427,20 +397,28 @@ __global__ void __launch_bounds__(Layout<D>::kThreads, 1)
 
 constexpr int kPrepThreads = 256;
 
+// Element offset of row `row` = (b * H + h) * S + s of a strided [B, H, S, D]
+// operand.
+__device__ __forceinline__ long long row_offset(long row, int H, int S, const RowStrides& st) {
+  const long bh = row / S;
+  return (bh / H) * st.b + (bh % H) * st.h + (row % S) * st.s;
+}
+
 // delta = rowsum(out * do) - dlse and dq_acc = 0, D / 8 threads per row.
 template <int D>
 __global__ void __launch_bounds__(kPrepThreads)
     flash_bwd_prep_kernel(const __nv_bfloat16* __restrict__ out,
                           const __nv_bfloat16* __restrict__ dout, const float* __restrict__ dlse,
-                          float* __restrict__ delta, float* __restrict__ dq_acc, long rows) {
+                          float* __restrict__ delta, float* __restrict__ dq_acc, long rows, int H,
+                          int S, const RowStrides so, const RowStrides sdo) {
   constexpr int kLanes = D / 8;
   const long idx = static_cast<long>(blockIdx.x) * kPrepThreads + threadIdx.x;
   const long row = idx / kLanes;
   const int lane = idx % kLanes;
   float sum = 0.f;
   if (row < rows) {
-    const uint4 o = *reinterpret_cast<const uint4*>(out + row * D + lane * 8);
-    const uint4 d = *reinterpret_cast<const uint4*>(dout + row * D + lane * 8);
+    const uint4 o = *reinterpret_cast<const uint4*>(out + row_offset(row, H, S, so) + lane * 8);
+    const uint4 d = *reinterpret_cast<const uint4*>(dout + row_offset(row, H, S, sdo) + lane * 8);
     const __nv_bfloat162* op = reinterpret_cast<const __nv_bfloat162*>(&o);
     const __nv_bfloat162* dp = reinterpret_cast<const __nv_bfloat162*>(&d);
 #pragma unroll
@@ -458,14 +436,16 @@ __global__ void __launch_bounds__(kPrepThreads)
 }
 
 // dq = bf16(dq_acc * scale), 8 elements per thread.
+template <int D>
 __global__ void __launch_bounds__(kPrepThreads)
     flash_bwd_finish_kernel(const float* __restrict__ acc, __nv_bfloat16* __restrict__ dq,
-                            long n8, float scale) {
+                            long n8, float scale, int H, int S, const RowStrides sdq) {
+  constexpr int kLanes = D / 8;
   for (long i = static_cast<long>(blockIdx.x) * kPrepThreads + threadIdx.x; i < n8;
        i += static_cast<long>(gridDim.x) * kPrepThreads) {
     const float4 a = reinterpret_cast<const float4*>(acc)[2 * i];
     const float4 c = reinterpret_cast<const float4*>(acc)[2 * i + 1];
-    reinterpret_cast<uint4*>(dq)[i] =
+    *reinterpret_cast<uint4*>(dq + row_offset(i / kLanes, H, S, sdq) + (i % kLanes) * 8) =
         make_uint4(pack_bf16x2(a.x * scale, a.y * scale), pack_bf16x2(a.z * scale, a.w * scale),
                    pack_bf16x2(c.x * scale, c.y * scale), pack_bf16x2(c.z * scale, c.w * scale));
   }
@@ -474,6 +454,7 @@ __global__ void __launch_bounds__(kPrepThreads)
 struct Args {
   const void *q, *k, *v, *out, *dout, *lse, *dlse, *seg_q, *seg_k;
   void *delta, *dq_acc, *dq, *dk, *dv;
+  RowStrides sq, sk, sv, so, sdo, sdq, sdk, sdv;
   int B, H, Hkv, S, Skv, causal, window, q_offset;
   float scale;
   cudaStream_t stream;
@@ -488,62 +469,59 @@ cudaError_t launch(const Args& a) {
                              a.stream>>>(
       static_cast<const __nv_bfloat16*>(a.out), static_cast<const __nv_bfloat16*>(a.dout),
       static_cast<const float*>(a.dlse), static_cast<float*>(a.delta),
-      static_cast<float*>(a.dq_acc), rows);
+      static_cast<float*>(a.dq_acc), rows, a.H, a.S, a.so, a.sdo);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  err = cudaFuncSetAttribute(flash_bwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             L::kBytes);
+  int sms, per_sm;
+  err = launch_limits<flash_bwd_kernel<D>>(L::kThreads, L::kBytes, sms, per_sm);
   if (err != cudaSuccess) return err;
-  int device, sms, per_sm;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
-          cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, flash_bwd_kernel<D>,
-                                                           L::kThreads, L::kBytes)) !=
-          cudaSuccess) {
-    return err;
-  }
   const int heads = a.B * a.Hkv;
   const int nkb = (a.Skv + L::kRows - 1) / L::kRows;
   // heads per chunk: about one wave of resident blocks
   const int chunk = std::min(heads, std::max(1, sms * std::max(per_sm, 1) / nkb));
   // q's scale folds into fp32 when bf16(scale) is a power of two
-  int exponent;
-  const int fold =
-      std::frexp(__bfloat162float(__float2bfloat16(a.scale)), &exponent) == 0.5f ? 1 : 0;
+  const int fold = scale_folds(a.scale) ? 1 : 0;
   flash_bwd_kernel<D><<<heads * nkb, L::kThreads, L::kBytes, a.stream>>>(
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
       static_cast<const __nv_bfloat16*>(a.v), static_cast<const __nv_bfloat16*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
       static_cast<const int*>(a.seg_q), static_cast<const int*>(a.seg_k),
       static_cast<float*>(a.dq_acc), static_cast<__nv_bfloat16*>(a.dk),
-      static_cast<__nv_bfloat16*>(a.dv), a.H, a.Hkv, a.S, a.Skv, a.causal, a.window, a.q_offset,
-      a.scale, fold, chunk);
+      static_cast<__nv_bfloat16*>(a.dv), MainStrides{a.sq, a.sk, a.sv, a.sdo, a.sdk, a.sdv}, a.H,
+      a.Hkv, a.S, a.Skv, a.causal, a.window, a.q_offset, a.scale, fold, chunk);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   const long n8 = rows * D / 8;
   const long blocks = std::min<long>((n8 + kPrepThreads - 1) / kPrepThreads, 132L * 16);
-  flash_bwd_finish_kernel<<<blocks, kPrepThreads, 0, a.stream>>>(
-      static_cast<const float*>(a.dq_acc), static_cast<__nv_bfloat16*>(a.dq), n8, a.scale);
+  flash_bwd_finish_kernel<D><<<blocks, kPrepThreads, 0, a.stream>>>(
+      static_cast<const float*>(a.dq_acc), static_cast<__nv_bfloat16*>(a.dq), n8, a.scale, a.H,
+      a.S, a.sdq);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q, out, do [B*H, S, D] and k, v [B*Hkv, Skv, D] bf16 contiguous; lse and
-// dlse (or null) [B*H, S] fp32; seg_q [B, S] and seg_k [B, Skv] int32, or
-// both null.  Scratch the caller allocates: delta [B*H, S] and dq_acc
-// [B*H, S, D] fp32.  Outputs dq [B*H, S, D] and dk, dv [B*Hkv, Skv, D] bf16.
-// Launches prep, main and finish on `stream`; returns the first
+// q, out, do, dq [B, H, S, D] and k, v, dk, dv [B, Hkv, Skv, D] bf16,
+// addressed through `strides`: (batch, head, seq) element strides of q, k,
+// v, out, do, dq, dk and dv in that order (24 values; head_dim has stride 1,
+// rows 16-byte aligned).  lse and dlse (or null) [B, H, S] fp32 contiguous;
+// seg_q [B, S] and seg_k [B, Skv] int32 contiguous, or both null.  Scratch
+// the caller allocates: delta [B, H, S] and dq_acc [B, H, S, D] fp32
+// contiguous.  Launches prep, main and finish on `stream`; returns the first
 // cudaGetLastError() that is not cudaSuccess.
 extern "C" int flash_bwd(const void* q, const void* k, const void* v, const void* out,
                          const void* dout, const void* lse, const void* dlse, const void* seg_q,
                          const void* seg_k, void* delta, void* dq_acc, void* dq, void* dk,
-                         void* dv, int B, int H, int Hkv, int S, int Skv, int D, int causal,
-                         int window, int q_offset, float scale, void* stream) {
+                         void* dv, const long long* strides, int B, int H, int Hkv, int S,
+                         int Skv, int D, int causal, int window, int q_offset, float scale,
+                         void* stream) {
+  auto rows = [&](int i) {
+    return RowStrides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  };
   const Args a{q, k, v, out, dout, lse, dlse, seg_q, seg_k, delta, dq_acc, dq, dk, dv,
+               rows(0), rows(1), rows(2), rows(3), rows(4), rows(5), rows(6), rows(7),
                B, H, Hkv, S, Skv, causal, window, q_offset, scale,
                static_cast<cudaStream_t>(stream)};
   if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || S <= 0 || Skv <= 0 ||

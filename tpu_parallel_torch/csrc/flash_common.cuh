@@ -1,11 +1,10 @@
-// Helpers of the flash-attention kernels: bf16 packing and the band geometry
-// (flash_fwd.cu and flash_bwd.cu), the m16n8k16 tensor-core product and
-// tile loads (flash_fwd.cu).  The geometry is ONE definition for forward and
-// backward, as
-// `_band_mask`, `_stream_k_range` and `_stream_q_range` are in
-// tpu_parallel/ops/flash_attention.py (:113, :142, :166): a forward and a
-// backward that disagreed on which (query, key) pairs are visible would give
-// gradients of another function.
+// Helpers of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu): bf16
+// packing, the base-2 exponential, the row addressing of strided operands,
+// swizzled tile loads, and the band geometry.  The geometry is ONE
+// definition for forward and backward, as `_band_mask`, `_stream_k_range`
+// and `_stream_q_range` are in tpu_parallel/ops/flash_attention.py (:113,
+// :142, :166): a forward and a backward that disagreed on which (query, key)
+// pairs are visible would give gradients of another function.
 
 #pragma once
 
@@ -13,29 +12,70 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cmath>
+
+#include "hopper.cuh"
+
 namespace flash {
 
-constexpr int kPad = 8;  // bf16 padding per shared row: conflict-free fragment reads
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// Element strides of batch, head and sequence of a [B, H, S, D] bf16 operand
+// whose head_dim has stride 1 ([B, H, S, D] or [B, S, H, D] in memory, or a
+// view of a fused projection); every row starts on a 16-byte boundary.
+struct RowStrides {
+  long long b, h, s;
+};
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16_pair(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+// 2^x, one MUFU.EX2 (flushes denormal results to 0, as __expf does).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// c += a (16x16, row) * b (16x8, col), bf16 in, fp32 accumulate.
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// Whether bf16(scale) is a power of two: q's pre-scaling by it then commutes
+// with rounding, so a kernel may apply it to fp32 products instead of to q.
+inline bool scale_folds(float scale) {
+  int exponent;
+  return std::frexp(__bfloat162float(__float2bfloat16(scale)), &exponent) == 0.5f;
+}
+
+// Allows kernel `kKernel` `bytes` of dynamic shared memory and reads the
+// SM count and how many blocks of `threads` fit on an SM, once per device:
+// these host calls take microseconds, which every launch would otherwise pay.
+template <auto kKernel>
+cudaError_t launch_limits(int threads, int bytes, int& sms, int& per_sm) {
+  constexpr int kDevices = 64;
+  static int cache[kDevices][2];  // (SMs, blocks per SM) by device; 0 = not read yet
+  int device;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < kDevices && cache[device][0] > 0) {
+    sms = cache[device][0];
+    per_sm = cache[device][1];
+    return cudaSuccess;
+  }
+  if ((err = cudaFuncSetAttribute(kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  bytes)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
+          cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kKernel, threads, bytes)) !=
+          cudaSuccess) {
+    return err;
+  }
+  if (device < kDevices) {
+    cache[device][1] = per_sm;
+    cache[device][0] = sms;
+  }
+  return cudaSuccess;
 }
 
 __device__ __forceinline__ int floor_div(int a, int b) {
@@ -44,30 +84,45 @@ __device__ __forceinline__ int floor_div(int a, int b) {
 
 __device__ __forceinline__ int ceil_div(int a, int b) { return -floor_div(-a, b); }
 
-// Copy rows [row0, row0 + kRows) of a [rows, D] bf16 matrix into shared
-// memory (row stride D + kPad), zero-filling rows at or past `rows`.  Each
-// element is multiplied by `scale` and rounded to bf16 when `scale` != 1
-// (the pre-scaled q of the JAX kernels: bf16 * bf16 rounded once).
-template <int D, int kRows, int kThreads>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          int row0, int rows, float scale = 1.f) {
-  constexpr int kChunksPerRow = D / 8;  // 16-byte chunks
-  for (int c = threadIdx.x; c < kRows * kChunksPerRow; c += kThreads) {
-    const int r = c / kChunksPerRow;
-    const int col = (c % kChunksPerRow) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < rows) {
-      val = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(row0 + r) * D + col);
-      if (scale != 1.f) {
-        uint32_t* w = reinterpret_cast<uint32_t*>(&val);
+// Rows [row0, row0 + kRows) of a bf16 matrix with D contiguous columns and
+// `row_stride` elements between rows -> swizzled [kRows, D] tile at shared
+// address `dst` (hopper.cuh's layout), by cp.async, zero-filling rows at or
+// past `rows`.  Thread i copies chunks i, i + kThreads, ...
+template <int kRows, int D, int kThreads>
+__device__ __forceinline__ void load_tile_async(uint32_t dst, const __nv_bfloat16* src,
+                                                long long row_stride, int row0, int rows) {
+  constexpr int kChunks = D / 8;
+  static_assert(kRows * kChunks % kThreads == 0, "load_tile_async: chunks per thread");
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(&w[j]);
-          w[j] = pack_bf16x2(__bfloat162float(x.x) * scale, __bfloat162float(x.y) * scale);
-        }
-      }
+  for (int i = 0; i < kRows * kChunks / kThreads; ++i) {
+    const int c = threadIdx.x + i * kThreads;
+    const int r = c / kChunks;
+    const int ch = c % kChunks;
+    const bool ok = row0 + r < rows;
+    hopper::cp_async_16(dst + hopper::sw128_offset<kRows>(r, ch),
+                        src + (ok ? row0 + r : 0) * row_stride + ch * 8, ok);
+  }
+}
+
+// The chunks this thread copied with load_tile_async (same kRows, D,
+// kThreads), times bf16 `scale`, rounded to bf16 (the JAX kernels'
+// pre-scaled q).
+template <int kRows, int D, int kThreads>
+__device__ __forceinline__ void rescale_tile(uint8_t* tile, float scale) {
+  constexpr int kChunks = D / 8;
+#pragma unroll
+  for (int i = 0; i < kRows * kChunks / kThreads; ++i) {
+    const int c = threadIdx.x + i * kThreads;
+    uint4* w =
+        reinterpret_cast<uint4*>(tile + hopper::sw128_offset<kRows>(c / kChunks, c % kChunks));
+    uint4 val = *w;
+    uint32_t* x = reinterpret_cast<uint32_t*>(&val);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const __nv_bfloat162 y = *reinterpret_cast<const __nv_bfloat162*>(&x[j]);
+      x[j] = pack_bf16x2(__bfloat162float(y.x) * scale, __bfloat162float(y.y) * scale);
     }
-    *reinterpret_cast<uint4*>(dst + r * (D + kPad) + col) = val;
+    *w = val;
   }
 }
 

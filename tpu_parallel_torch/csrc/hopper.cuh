@@ -59,6 +59,13 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+// Waits until at most kPending of this thread's committed cp.async groups
+// are still in flight (groups complete in commit order).
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
 // Makes this thread's generic-proxy writes to shared memory (st.shared,
 // cp.async) visible to the async proxy that wgmma reads through; a barrier
 // must follow before another thread's wgmma reads them.

@@ -8,10 +8,17 @@ tiles through shared memory at every length, so ``stream=`` is kept for API
 parity and gives the same result either way.  The kernels mask the ragged sequence
 edge themselves: no shape falls back to the O(seq^2) path.
 
-Layouts as in the JAX package: [batch, heads, seq, head_dim] for
-:func:`_flash_fwd`, :func:`_flash_bwd` and the plain versions, [batch, seq,
-heads, head_dim] at the public :func:`flash_attention`.  K/V may carry fewer
-heads than Q (grouped-query attention); they are never expanded.
+Shapes as in the JAX package: [batch, heads, seq, head_dim] for
+:func:`_flash_fwd`, :func:`_flash_bwd`, the ops and the plain versions,
+[batch, seq, heads, head_dim] at the public :func:`flash_attention`.  The
+kernels address every bf16 operand by row, through its strides of batch,
+head and sequence (head_dim has stride 1), so a [B, H, S, D]-shaped tensor
+may lie in memory as [B, H, S, D], as [B, S, H, D] or as a view of a fused
+projection: :func:`flash_attention` hands the model's [B, S, H, D] views of
+its qkv projection to the kernels as they are, and the ops allocate each
+output in its input's memory order (:func:`_empty_like_rows`), so nothing
+is copied around the kernels.  K/V may carry fewer heads than Q
+(grouped-query attention); they are never expanded.
 
 Gradients follow the JAX ``_flash_finalize`` pattern: the forward kernel
 runs on detached inputs and :class:`_FlashFinalize`, an identity on its
@@ -252,10 +259,57 @@ def _check_args(q, k, v, seg_q, seg_k, causal, window, q_offset):
 _DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 
 
+def _rows_readable(t) -> Optional[str]:
+    """Why the kernels cannot address ``t`` [B, H, S, D] by row, or None
+    when they can: head_dim must have stride 1 and every row (its data
+    pointer and its batch, head and sequence strides) must sit on a 16-byte
+    boundary.  A stride of a dimension of size 1 is never used."""
+    if t.stride(3) != 1:
+        return f"head_dim stride 1, got strides {tuple(t.stride())}"
+    size = t.element_size()
+    if t.data_ptr() % 16 or any(
+        n > 1 and st * size % 16 for n, st in zip(t.shape[:3], t.stride()[:3])
+    ):
+        return (f"16-byte aligned rows, got strides {tuple(t.stride())} at byte offset "
+                f"{t.data_ptr() % 16}")
+    return None
+
+
+def kernel_row_strides(kernel, tensors) -> list:
+    """The (batch, head, seq) element strides of each [B, H, S, D] tensor
+    in ``tensors`` (a name -> tensor dict, in the kernel's order), flattened,
+    as the C entry points take them.  Raises ``ValueError`` when the kernel
+    cannot read a tensor in place (see :func:`_rows_readable`); never
+    copies."""
+    strides = []
+    for name, t in tensors.items():
+        if t.dim() != 4:
+            raise ValueError(f"{kernel} kernel takes [B, H, S, D] {name}, got {tuple(t.shape)}")
+        why = _rows_readable(t)
+        if why is not None:
+            raise ValueError(f"{kernel} kernel needs {why} for {name}")
+        strides += [st if n > 1 else 0 for n, st in zip(t.shape[:3], t.stride()[:3])]
+    return strides
+
+
+def _empty_like_rows(x):
+    """An uninitialised tensor of ``x``'s [B, H, S, D] shape and dtype in
+    ``x``'s memory order: [B, S, H, D] in memory (returned as its [B, H, S,
+    D] view) when ``x``'s seq stride exceeds its head stride, as for the
+    model's views of its projections; [B, H, S, D] otherwise."""
+    b, h, s, d = x.shape
+    if x.stride(2) > x.stride(1):
+        return torch.empty(b, s, h, d, dtype=x.dtype, device=x.device).transpose(1, 2)
+    return torch.empty(b, h, s, d, dtype=x.dtype, device=x.device)
+
+
 def _kernel_operands(kernel, bf16, fp32, seg_q, seg_k, device):
-    """Check what a kernel reads and return its segment ids as int32 (or
-    None): bf16 / fp32 map names to tensors that must be contiguous,
-    16-byte aligned and on ``device`` (an optional one may be None)."""
+    """Check what a kernel reads and writes; return the row strides of the
+    bf16 tensors (:func:`kernel_row_strides`) and the segment ids as int32
+    (or None).  ``bf16`` maps names to [B, H, S, D] tensors the kernel
+    addresses by row, ``fp32`` to tensors it reads contiguous (an optional
+    one may be None); all must be on ``device``.  Raises, never copies a
+    bf16 tensor."""
     for dtype, tensors in (("bf16", bf16), ("fp32", fp32)):
         for name, t in tensors.items():
             if t is None:
@@ -264,36 +318,36 @@ def _kernel_operands(kernel, bf16, fp32, seg_q, seg_k, device):
                 raise ValueError(f"{name} is on {t.device}, q on {device}")
             if t.dtype != _DTYPES[dtype]:
                 raise TypeError(f"{kernel} kernel takes {dtype} {name}, got {t.dtype}")
-            if not t.is_contiguous():
+            if dtype == "fp32" and not t.is_contiguous():
                 raise ValueError(f"{kernel} kernel needs contiguous {name}")
-            if t.data_ptr() % 16:
-                raise ValueError(f"{kernel} kernel needs 16-byte aligned {name}")
-    b, h, _, d = bf16["q"].shape
+    d = bf16["q"].shape[3]
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"{kernel} kernel takes head_dim in {KERNEL_HEAD_DIMS}, got {d}")
-    if b * h > 65535:
-        raise ValueError(f"{kernel} kernel takes batch*heads <= 65535, got {b * h}")
+    strides = kernel_row_strides(kernel, bf16)
     if seg_q is None:
-        return None, None
+        return strides, None, None
     if seg_q.device != device or seg_k.device != device:
         raise ValueError("segment ids must be on q's device")
-    return seg_q.to(torch.int32).contiguous(), seg_k.to(torch.int32).contiguous()
+    return strides, seg_q.to(torch.int32).contiguous(), seg_k.to(torch.int32).contiguous()
 
 
 def _launch(kernel, source, bf16, fp32, outs, seg_q, seg_k, causal, window, q_offset):
-    """Launch C entry point ``kernel`` of ``csrc/<source>.cu``: its pointer
+    """Launch C entry point ``kernel`` of ``csrc/<source>.cu``.  Its pointer
     arguments are the bf16 inputs, the fp32 inputs, the segment ids and the
-    outputs (scratch first, where the kernel takes any), in that order, then
-    the shapes, the options, the scale and the current stream.  Raises if
-    the launch fails."""
+    outputs (scratch first, where the kernel takes any), in that order, each
+    a name -> tensor dict; then the row strides of the bf16 inputs and
+    outputs in the same order, the shapes, the options, the scale and the
+    current stream.  Raises if the launch fails."""
     q, k = bf16["q"], bf16["k"]
-    seg_q, seg_k = _kernel_operands(kernel, bf16, fp32, seg_q, seg_k, q.device)
+    strided = {**bf16, **{n: t for n, t in outs.items() if t.dtype == torch.bfloat16}}
+    strides, seg_q, seg_k = _kernel_operands(kernel, strided, fp32, seg_q, seg_k, q.device)
     b, h, s, d = q.shape
-    pointers = [*bf16.values(), *fp32.values(), seg_q, seg_k, *outs]
+    pointers = [*bf16.values(), *fp32.values(), seg_q, seg_k, *outs.values()]
     lib = load_library(source)
     with torch.cuda.device(q.device):
         code = getattr(lib, kernel)(
             *(ctypes.c_void_p(t.data_ptr() if t is not None else None) for t in pointers),
+            (ctypes.c_longlong * len(strides))(*strides),
             ctypes.c_int(b), ctypes.c_int(h), ctypes.c_int(k.shape[1]), ctypes.c_int(s),
             ctypes.c_int(k.shape[2]), ctypes.c_int(d), ctypes.c_int(int(causal)),
             ctypes.c_int(window), ctypes.c_int(q_offset), ctypes.c_float(1.0 / d**0.5),
@@ -306,7 +360,8 @@ def _launch(kernel, source, bf16, fp32, outs, seg_q, seg_k, causal, window, q_of
 # checkpoint policies of models/layers.py see each launch as one op: the
 # "proj_attn" policy keeps the forward's (out, lse) and the backward never
 # re-runs it.  The CUDA implementation launches the kernel; the CPU one is
-# the plain version.
+# the plain version.  Both return each bf16 output in the memory order of
+# the input it belongs to (out and dq like q, dk like k, dv like v).
 
 
 @torch.library.custom_op("tpu_parallel_torch::flash_fwd", mutates_args=(), device_types="cuda")
@@ -314,18 +369,19 @@ def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   seg_q: Optional[torch.Tensor], seg_k: Optional[torch.Tensor], causal: bool,
                   window: int, q_offset: int) -> Tuple[torch.Tensor, torch.Tensor]:
     global flash_fwd_launches
-    out = torch.empty_like(q)
+    out = _empty_like_rows(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    _launch("flash_fwd", "flash_fwd", dict(q=q, k=k, v=v), {}, (out, lse), seg_q, seg_k,
-            causal, window, q_offset)
+    _launch("flash_fwd", "flash_fwd", dict(q=q, k=k, v=v), {}, dict(out=out, lse=lse), seg_q,
+            seg_k, causal, window, q_offset)
     flash_fwd_launches += 1
     return out, lse
 
 
 @_flash_fwd_op.register_kernel("cpu")
 def _flash_fwd_cpu(q, k, v, seg_q, seg_k, causal, window, q_offset):
-    return flash_fwd_reference(q, k, v, seg_q, seg_k, causal=causal, window=window,
-                               q_offset=q_offset)
+    out, lse = flash_fwd_reference(q, k, v, seg_q, seg_k, causal=causal, window=window,
+                                   q_offset=q_offset)
+    return _empty_like_rows(q).copy_(out), lse
 
 
 @torch.library.custom_op("tpu_parallel_torch::flash_bwd", mutates_args=(), device_types="cuda")
@@ -334,21 +390,22 @@ def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.
                   seg_q: Optional[torch.Tensor], seg_k: Optional[torch.Tensor], causal: bool,
                   window: int, q_offset: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     global flash_bwd_launches
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dq, dk, dv = (_empty_like_rows(x) for x in (q, k, v))
     # scratch: delta = rowsum(out * do) - dlse, and the fp32 dq the key blocks add into
     delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     dq_acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     _launch("flash_bwd", "flash_bwd", dict(q=q, k=k, v=v, out=out, do=do),
-            dict(lse=lse, dlse=dlse), (delta, dq_acc, dq, dk, dv), seg_q, seg_k, causal, window,
-            q_offset)
+            dict(lse=lse, dlse=dlse), dict(delta=delta, dq_acc=dq_acc, dq=dq, dk=dk, dv=dv),
+            seg_q, seg_k, causal, window, q_offset)
     flash_bwd_launches += 1
     return dq, dk, dv
 
 
 @_flash_bwd_op.register_kernel("cpu")
 def _flash_bwd_cpu(q, k, v, out, do, lse, dlse, seg_q, seg_k, causal, window, q_offset):
-    return flash_bwd_reference(q, k, v, seg_q, seg_k, out, lse, do, causal=causal,
-                               window=window, q_offset=q_offset, dlse=dlse)
+    grads = flash_bwd_reference(q, k, v, seg_q, seg_k, out, lse, do, causal=causal,
+                                window=window, q_offset=q_offset, dlse=dlse)
+    return tuple(_empty_like_rows(x).copy_(g) for x, g in zip((q, k, v), grads))
 
 
 FLASH_FWD_OP = torch.ops.tpu_parallel_torch.flash_fwd.default
@@ -357,13 +414,14 @@ FLASH_FWD_OP = torch.ops.tpu_parallel_torch.flash_fwd.default
 def _flash_fwd(q, k, v, seg_q=None, seg_k=None, *, causal=True, window=0,
                stream=None, q_offset=0, block_q=DEFAULT_BLOCK_Q,
                block_k=DEFAULT_BLOCK_K):
-    """Forward kernel on [B, H, S, D] inputs -> ``(out, lse)``: the kernel
-    on a CUDA tensor, :func:`flash_fwd_reference` on a CPU tensor.  No
-    gradient flows through it (see :func:`_flash_attention_bhsd`).
+    """Forward kernel on [B, H, S, D]-shaped inputs of any row strides ->
+    ``(out, lse)``, ``out`` in ``q``'s memory order: the kernel on a CUDA
+    tensor, :func:`flash_fwd_reference` on a CPU tensor.  No gradient flows
+    through it (see :func:`_flash_attention_bhsd`).
 
     ``block_q``/``block_k`` and ``stream`` exist for parity with the JAX
-    signature: the CUDA kernel's 64x64 tiles are its own constants and
-    one kernel serves every sequence length.
+    signature: the CUDA kernel's tiles (128 query rows by 64 keys) are its
+    own constants and one kernel serves every sequence length.
     """
     del block_q, block_k, stream
     _check_args(q, k, v, seg_q, seg_k, causal, window, q_offset)
@@ -378,8 +436,11 @@ def _flash_bwd(q, k, v, seg_q, seg_k, out, lse, do, *, causal=True, window=0, dl
     launch), :func:`flash_bwd_reference` on a CPU tensor.
 
     ``delta = rowsum(out * do) - dlse`` (the JAX ``_flash_bwd`` computes it
-    in XLA) is computed by the kernel's prep pass.  ``stream``/``block_*``
-    as in :func:`_flash_fwd`.
+    in XLA) is computed by the kernel's prep pass.  ``q``, ``k``, ``v``,
+    ``out`` and ``do`` may have any row strides the kernel can read
+    (:func:`kernel_row_strides`); ``dq``, ``dk``, ``dv`` come back in the
+    memory order of ``q``, ``k``, ``v``.  ``stream``/``block_*`` as in
+    :func:`_flash_fwd`.
     """
     del block_q, block_k, stream
     _check_args(q, k, v, seg_q, seg_k, causal, window, q_offset)
@@ -391,7 +452,7 @@ def _flash_bwd(q, k, v, seg_q, seg_k, out, lse, do, *, causal=True, window=0, dl
             f"{None if dlse is None else tuple(dlse.shape)} do not match q {tuple(q.shape)}"
         )
     return torch.ops.tpu_parallel_torch.flash_bwd(
-        q, k, v, out.contiguous(), do.contiguous(), lse.contiguous(),
+        q, k, v, out, do, lse.contiguous(),
         None if dlse is None else dlse.contiguous(), seg_q, seg_k, causal, window, q_offset)
 
 
@@ -411,6 +472,10 @@ class _FlashFinalize(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, seg, out, lse = ctx.saved_tensors
+        if _rows_readable(do) is not None:
+            # an expanded or otherwise unaddressable cotangent (out.sum()
+            # gives stride 0); the model's arrives as a view the kernel reads
+            do = do.contiguous()
         dq, dk, dv = _flash_bwd(q, k, v, seg, seg, out, lse, do, window=ctx.window)
         return dq, dk, dv, None, None, None, None
 
@@ -433,12 +498,16 @@ def flash_attention(q, k, v, *, segment_ids=None, block_q=DEFAULT_BLOCK_Q,
     tiles outside the band are skipped.  ``segment_ids`` [batch, seq] masks
     attention to the same packed segment.  Differentiable in q, k and v
     through the backward kernel; see the module docstring for the device
-    rule.
+    rule.  The kernels read q, k and v where they lie (any row strides with
+    head_dim stride 1, such as views of a fused qkv projection) and the
+    result is a [batch, seq, heads, head_dim] tensor contiguous in memory
+    when q's seq stride exceeds its head stride; nothing is copied in the
+    forward or the backward.
     """
     del block_q, block_k
     h, h_kv = q.shape[2], k.shape[2]
     if h % h_kv != 0:
         raise ValueError(f"q heads {h} not a multiple of k/v heads {h_kv}")
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    out = _flash_attention_bhsd(qt, kt, vt, segment_ids, window, stream)
+    out = _flash_attention_bhsd(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                segment_ids, window, stream)
     return out.transpose(1, 2)
