@@ -1,6 +1,6 @@
 """Card check of the PyTorch port: builds its CUDA kernels, holds each
-against its plain version, and drives GPT-2 125M inference and training at
-full width.
+against its plain version, and drives GPT-2 125M inference, training and
+continuous-batching serving at full width.
 
     python3 chip_smoke.py
 
@@ -38,11 +38,28 @@ source, all started together).  Phases, in order; any failure raises:
    "proj_attn" remat, global batch 256 in 16 minibatches of [16, 1024]):
    3 warm-up and 12 timed steps, launches per step, step time, tokens/s,
    MFU and peak memory; one minibatch's loss and gradients against the
-   xla path; a profile of one step.
+   xla path; a profile of one step;
+7. serve: the continuous-batching ``ServingEngine`` on GPT-2 125M (bf16,
+   16 slots, auto buckets, prefill batch 4, chunks of 256, a prefix cache
+   of 4) over 48 requests (prompts of 16-768 tokens, 8 behind one shared
+   128-token prefix, 32-128 new tokens, 8 of them sampled; 16 arrive at
+   tick 0, then 4 per tick), run four times: per-step ticks, fused T=8
+   ticks run eagerly, fused T=8 ticks replaying one CUDA graph, and the
+   same under ``run(overlap=True)``.  Greedy tokens must be bitwise equal
+   across the four, each captured run must capture one graph, the overlap
+   run must launch ticks ahead, and no flash kernel may
+   launch (the engine reads its cache through ``decode_attention``, as the
+   JAX engine does).  Per run: wall seconds, tokens, TTFT and ITL p50/p95,
+   host ms per tick, host dispatches per token, peak memory, and a
+   16-slot pure-decode stretch ticked the same way: decode tokens/s,
+   device idle share, kernel launches per token and the longest kernels
+   (``torch.profiler``).  Then the weights
+   in fp32 (TF32 off): 8 greedy requests against static ``generate()`` at
+   batch 1, a differing token allowed only on a top-2 logit gap < 1e-4.
 
 Weights and inputs are made from ``SEED``.  The kernel launch counters are
 set to 0 before each main path (phases 3-4: inference; phase 6's steps:
-training) and read after it.  The last two lines are the ``kernels`` JSON
+training; phase 7: serving, which must leave them at 0) and read after it.  The last two lines are the ``kernels`` JSON
 object and the ``{"ok": true, ...}`` line.
 """
 
@@ -743,6 +760,254 @@ def train_phase(seed, card_name):
     )
 
 
+# phase 7: the serving engine's workload (GPT-2 125M, seeded weights)
+SERVE_SLOTS = 16
+SERVE_REQUESTS = 48
+SERVE_SAMPLED = 8
+SERVE_SHARED_PREFIX = (8, 128)  # 8 prompts share a 128-token prefix
+SERVE_FIRST_TICK, SERVE_PER_TICK = 16, 4
+SERVE_FP32_REQUESTS = 8
+# the four runs: (name, decode steps per tick, fused body eager, overlap)
+RUNS = (("per_step", 1, False, False), ("fused_eager", 8, True, False),
+        ("fused_graph", 8, False, False), ("fused_graph_overlap", 8, False, True))
+# an fp32 engine token that differs from static generate() must sit on a
+# near-tie of the reference: its top-2 logit gap below this
+FP32_TIE_GAP = 1e-4
+
+
+def serve_workload(seed, vocab):
+    """48 requests from ``seed`` with numpy: prompt lengths 16-768 (8 of
+    them behind one shared 128-token prefix), 32-128 new tokens, 40
+    greedy and 8 sampled (temperature 0.8, top_p 0.9), in arrival order.
+    Returns (prompt, max_new_tokens, sampled) triples."""
+    import numpy as np
+
+    rs = np.random.default_rng(seed)
+    n_shared, prefix_len = SERVE_SHARED_PREFIX
+    prefix = rs.integers(0, vocab, prefix_len).tolist()
+    lengths = rs.integers(16, 769, SERVE_REQUESTS)
+    budgets = rs.integers(32, 129, SERVE_REQUESTS)
+    shared = set(rs.choice(SERVE_REQUESTS, n_shared, replace=False).tolist())
+    sampled = set(rs.choice(SERVE_REQUESTS, SERVE_SAMPLED, replace=False).tolist())
+    out = []
+    for i in range(SERVE_REQUESTS):
+        if i in shared:
+            tail = rs.integers(0, vocab, max(1, int(lengths[i]) - prefix_len)).tolist()
+            prompt = prefix + tail
+        else:
+            prompt = rs.integers(0, vocab, int(lengths[i])).tolist()
+        out.append((prompt, int(budgets[i]), i in sampled))
+    return out
+
+
+def serve_engine(model, steps, seed, eager=False):
+    from tpu_parallel_torch.serving import SchedulerConfig, ServingEngine
+
+    eng = ServingEngine(
+        model, n_slots=SERVE_SLOTS, scheduler=SchedulerConfig(max_prefills_per_tick=4),
+        rng=torch.Generator(device=model.device).manual_seed(seed), prefill_buckets="auto",
+        prefill_batch=4, prefill_chunk_tokens=256, prefix_cache_size=4,
+        decode_steps_per_tick=steps,
+    )
+    if eager:
+        eng._run_fused_eagerly()
+    return eng
+
+
+def serve_run(model, workload, steps, seed, eager=False, overlap=False):
+    """One run of the workload: 16 requests at tick 0, then 4 per tick,
+    then ``run(overlap=overlap)`` to idle.  Returns (engine, outputs, wall
+    seconds, peak memory)."""
+    from tpu_parallel_torch.serving import Request, SamplingParams
+
+    eng = serve_engine(model, steps, seed, eager)
+    requests = [
+        Request(prompt=p, max_new_tokens=n, request_id=f"r{i}",
+                sampling=SamplingParams(temperature=0.8, top_p=0.9) if hot else SamplingParams())
+        for i, (p, n, hot) in enumerate(workload)
+    ]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    outs = [eng.add_request(r) for r in requests[:SERVE_FIRST_TICK]]
+    while len(outs) < len(requests):
+        eng.step()
+        outs += [eng.add_request(r) for r in requests[len(outs):len(outs) + SERVE_PER_TICK]]
+    eng.run(overlap=overlap)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    return eng, outs, wall, torch.cuda.max_memory_allocated()
+
+
+def decode_stretch(model, steps, seed, ticks, eager=False, overlap=False):
+    """A profiled stretch of pure-decode ticks: 16 slots decoding (prompts
+    of 64 tokens, 512 new each), no admission or prefill inside it, ticked
+    as the run of the same name ticks (``run(overlap=...)``).  Returns
+    decode tokens/s unprofiled, and the device idle share, kernel launches
+    per token and the ten longest kernels of the profiled ticks."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_parallel_torch.serving import Request
+
+    gen = torch.Generator().manual_seed(seed)
+    eng = serve_engine(model, steps, seed, eager)
+    for i in range(SERVE_SLOTS):
+        prompt = torch.randint(0, model.config.vocab_size, (64,), generator=gen).tolist()
+        eng.add_request(Request(prompt=prompt, max_new_tokens=512, request_id=f"d{i}"))
+    while eng.scheduler.depth or eng.in_flight < SERVE_SLOTS:
+        eng.step()
+    eng.step()  # the first fused tick captures its graph
+    torch.cuda.synchronize()
+    before = eng.metrics.tokens_out
+    start = time.perf_counter()
+    eng.run(max_ticks=ticks, overlap=overlap)
+    torch.cuda.synchronize()
+    tps = (eng.metrics.tokens_out - before) / (time.perf_counter() - start)
+    before = eng.metrics.tokens_out
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        eng.run(max_ticks=ticks, overlap=overlap)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - start) * 1e6
+    tokens = eng.metrics.tokens_out - before
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in events)
+    launches = sum(e.count for e in events)
+    top = [(e.key[:100], e.count, e.self_device_time_total / 1e3)
+           for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]]
+    return dict(decode_tokens_per_s=tps, idle_share=1 - busy_us / wall_us,
+                device_busy_ms=busy_us / 1e3, profiled_wall_ms=wall_us / 1e3,
+                kernel_launches_per_token=launches / max(tokens, 1), profiled_tokens=tokens,
+                top_kernels_ms=top)
+
+
+def fp32_check(seed, workload):
+    """The same weights in fp32 (TF32 off): 8 greedy requests through the
+    fused, captured engine against static ``generate()`` at batch 1, token
+    for token.  A differing token passes only on a near-tie: the
+    reference's top-2 logit gap at that step below FP32_TIE_GAP."""
+    from tpu_parallel_torch.models import GPTLM, gpt2_125m
+    from tpu_parallel_torch.models.generate import generate
+    from tpu_parallel_torch.serving import Request
+
+    model = GPTLM(gpt2_125m(dtype=torch.float32), device="cuda", seed=seed).eval()
+    picked = [(i, p, n) for i, (p, n, hot) in enumerate(workload) if not hot][:SERVE_FP32_REQUESTS]
+    eng = serve_engine(model, 8, seed)
+    outs = [eng.add_request(Request(prompt=p, max_new_tokens=n, request_id=f"r{i}"))
+            for i, p, n in picked]
+    eng.run()
+    report = []
+    with torch.inference_mode():
+        for (i, p, n), out in zip(picked, outs):
+            want = generate(model, torch.tensor([p], device="cuda"), max_new_tokens=n)[0].tolist()
+            if out.tokens == want:
+                report.append(dict(request=i, tokens=n, equal=True))
+                continue
+            step = next(j for j, (a, b) in enumerate(zip(out.tokens, want)) if a != b)
+            ctx = torch.tensor([p + want[:step]], device="cuda")
+            top2 = model(ctx)[0, -1].float().topk(2).values
+            gap = (top2[0] - top2[1]).item()
+            report.append(dict(request=i, tokens=n, equal=False, first_diff=step, top2_gap=gap))
+            if gap >= FP32_TIE_GAP:
+                raise AssertionError(f"fp32 engine request r{i} differs from generate() at "
+                                     f"token {step} with top-2 gap {gap:.3e} >= {FP32_TIE_GAP}")
+    del model, eng
+    torch.cuda.empty_cache()
+    return report
+
+
+def serve_phase(seed, smi):
+    """Phase 7: the continuous-batching engine on GPT-2 125M (bf16, seeded
+    weights) in four runs of one 48-request workload: (i) per-step ticks,
+    (ii) fused T=8 ticks with the body run eagerly, (iii) fused T=8 ticks
+    replaying one CUDA graph, (iv) as (iii) under ``run(overlap=True)``.
+    Greedy tokens bitwise equal across the four, sampled tokens in the
+    vocabulary, one graph capture per captured run, no flash launch; then
+    the fp32 check against static generate()."""
+    from tpu_parallel_torch.models import GPTLM, gpt2_125m
+    from tpu_parallel_torch.ops import flash_attention as fa
+
+    cfg = gpt2_125m()
+    model = GPTLM(cfg, device="cuda", seed=seed).eval()
+    workload = serve_workload(seed, cfg.vocab_size)
+    flash_before = [getattr(fa, name) for name in LAUNCH_COUNTERS]
+    runs = {}
+    for name, steps, eager, overlap in RUNS:
+        eng, outs, wall, peak = serve_run(model, workload, steps, seed, eager, overlap)
+        s = eng.metrics.summary()
+        bad = [o.request.request_id for o in outs if o.status != "finished"
+               or len(o.tokens) != o.request.max_new_tokens]
+        if bad:
+            raise AssertionError(f"[serve {name}] requests not finished at their budget: {bad}")
+        for o in outs:
+            if min(o.tokens) < 0 or max(o.tokens) >= cfg.vocab_size:
+                raise AssertionError(f"[serve {name}] {o.request.request_id} tokens out of range")
+        runs[name] = dict(
+            tokens={o.request.request_id: o.tokens for o in outs},
+            wall_s=wall, tokens_out=s["tokens_out"], tokens_per_s=s["tokens_out"] / wall,
+            ttft_ms_p50=s["ttft_ms_p50"], ttft_ms_p95=s["ttft_ms_p95"],
+            itl_ms_p50=s["itl_ms_p50"], itl_ms_p95=s["itl_ms_p95"],
+            host_ms_per_tick_p50=s["host_ms_per_tick_p50"],
+            host_ms_per_tick_p95=s["host_ms_per_tick_p95"], ticks=s["ticks"],
+            host_dispatches_per_token=s["host_dispatches"] / s["tokens_out"],
+            prefix_hits=s["prefix_hits"], prefix_misses=s["prefix_misses"],
+            prefill_calls=s["prefill_calls"], prefill_chunks=s["prefill_chunks"],
+            peak_memory_gib=peak / 2**30, graph_captures=eng.graph_captures,
+            host_overlap_ratio=s["host_overlap_ratio"],
+        )
+        del eng
+    captures = {name: r["graph_captures"] for name, r in runs.items()}
+    if captures != dict(per_step=0, fused_eager=0, fused_graph=1, fused_graph_overlap=1):
+        raise AssertionError(f"graph captures by run: {captures}")
+    if not runs["fused_graph_overlap"]["host_overlap_ratio"] > 0:
+        raise AssertionError("run(overlap=True) never launched a tick ahead")
+    greedy = [f"r{i}" for i, (_, _, hot) in enumerate(workload) if not hot]
+    for name in ("fused_eager", "fused_graph", "fused_graph_overlap"):
+        differ = [r for r in greedy if runs[name]["tokens"][r] != runs["per_step"]["tokens"][r]]
+        if differ:
+            r = differ[0]
+            a, b = runs["per_step"]["tokens"][r], runs[name]["tokens"][r]
+            step = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+            raise AssertionError(f"[serve] greedy tokens of {len(differ)} requests differ between "
+                                 f"per_step and {name} (first: {r} at token {step})")
+    moved = [getattr(fa, name) - n for name, n in zip(LAUNCH_COUNTERS, flash_before)]
+    if any(moved):
+        raise AssertionError(f"the serving path launched flash kernels: {moved}")
+    for name, steps, eager, overlap in RUNS:
+        runs[name]["decode_stretch"] = decode_stretch(model, steps, seed, 64 // steps, eager,
+                                                      overlap)
+    del model
+    torch.cuda.empty_cache()
+    fp32 = fp32_check(seed, workload)
+    for name, r in runs.items():
+        d = r["decode_stretch"]
+        log(f"[serve {name}] {r['wall_s']:.3f} s wall, {r['tokens_out']} tokens out "
+            f"({r['tokens_per_s']:.1f} tokens/s over the run), {r['ticks']} ticks; TTFT p50 "
+            f"{r['ttft_ms_p50']} ms p95 {r['ttft_ms_p95']} ms; ITL p50 {r['itl_ms_p50']} ms p95 "
+            f"{r['itl_ms_p95']} ms; host ms per tick p50 {r['host_ms_per_tick_p50']} p95 "
+            f"{r['host_ms_per_tick_p95']}; host dispatches per token "
+            f"{r['host_dispatches_per_token']:.4f}; prefix hits {r['prefix_hits']} misses "
+            f"{r['prefix_misses']}; prefill calls {r['prefill_calls']} (chunks "
+            f"{r['prefill_chunks']}); peak memory {r['peak_memory_gib']:.2f} GiB; graph "
+            f"captures {r['graph_captures']}; host overlap ratio {r['host_overlap_ratio']}")
+        log(f"  pure decode, 16 slots: {d['decode_tokens_per_s']:.1f} decode tokens/s; "
+            f"profiled {d['profiled_tokens']} tokens: device busy {d['device_busy_ms']:.3f} ms "
+            f"of {d['profiled_wall_ms']:.3f} ms (idle share {d['idle_share']:.3f}), "
+            f"{d['kernel_launches_per_token']:.2f} kernel launches per token")
+        for key, count, ms in d["top_kernels_ms"]:
+            log(f"    {ms:9.3f} ms {100 * ms / d['device_busy_ms']:5.1f}% x{count:<5d} {key}")
+    log(f"[serve] greedy tokens of {len(greedy)} requests bitwise equal across per_step, "
+        f"fused_eager, fused_graph and fused_graph_overlap; {SERVE_SAMPLED} sampled requests "
+        f"in vocabulary; "
+        f"no flash launch; fp32 engine vs generate(): "
+        f"{sum(r['equal'] for r in fp32)}/{len(fp32)} equal {fp32}")
+    log(f"card: {smi}")
+    for r in runs.values():
+        del r["tokens"]
+    return dict(runs=runs, fp32=fp32)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -769,6 +1034,12 @@ def main():
     launches, train = train_phase(SEED, smi.split(",")[0].strip())
     if not all(launches.values()):
         raise AssertionError(f"the training path left a kernel unlaunched: {launches}")
+    for name in LAUNCH_COUNTERS:  # the serving main path starts here
+        setattr(fa, name, 0)
+    serve = serve_phase(SEED, smi)
+    serve_launches = {name: getattr(fa, name) for name in LAUNCH_COUNTERS}
+    if any(serve_launches.values()):
+        raise AssertionError(f"the serving path launched flash kernels: {serve_launches}")
 
     # one row per kernel and main path, each at the shape that path gives it:
     # the forward at (a) for inference and at the training pass;
@@ -792,7 +1063,7 @@ def main():
              bound_by=train_row["bound_by"], library_ms=train_row["library_ms"],
              library_covers="dq+dk+dv", ms_main_path_layout=train_row["main_path_layout"]["ms"])
     ]}
-    summary = dict(card=smi, forward=fwd, generate=gen, train=train,
+    summary = dict(card=smi, forward=fwd, generate=gen, train=train, serve=serve,
                    inference_flash_fwd_launches=inference_launches,
                    kernel_shapes=kernel_rows, bwd_kernel_shapes=bwd_rows)
     log("[summary] " + json.dumps(summary, sort_keys=True))

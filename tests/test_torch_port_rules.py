@@ -13,6 +13,7 @@ import torch
 from tpu_parallel_torch.models import GPTLM, tiny_test
 from tpu_parallel_torch.ops import build
 from tpu_parallel_torch.runtime import resolve_device
+from tpu_parallel_torch.serving import ServingEngine
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "tpu_parallel"}
@@ -46,7 +47,13 @@ def test_import_pulls_in_no_jax():
         "tpu_parallel_torch.utils.profiling, tpu_parallel_torch.train_lib, "
         "tpu_parallel_torch.core.accumulate, tpu_parallel_torch.core.optim, "
         "tpu_parallel_torch.core.metrics, tpu_parallel_torch.core.state, "
-        "tpu_parallel_torch.data.synthetic\n"
+        "tpu_parallel_torch.data.synthetic, tpu_parallel_torch.serving, "
+        "tpu_parallel_torch.serving.engine, tpu_parallel_torch.serving.cache_pool, "
+        "tpu_parallel_torch.serving.metrics, tpu_parallel_torch.serving.prefix_cache, "
+        "tpu_parallel_torch.serving.request, tpu_parallel_torch.serving.sampling, "
+        "tpu_parallel_torch.serving.scheduler, tpu_parallel_torch.obs, "
+        "tpu_parallel_torch.obs.registry, tpu_parallel_torch.obs.tracer, "
+        "tpu_parallel_torch.utils.logging_utils\n"
         "new = {m.split('.')[0] for m in set(sys.modules) - before}\n"
         f"print(sorted(new & {FORBIDDEN!r}))\n"
     )
@@ -61,12 +68,16 @@ def test_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         assert GPTLM(tiny_test()).device.type == "cuda"
         assert resolve_device().type == "cuda"
+        assert ServingEngine(GPTLM(tiny_test()), n_slots=2).device.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="cuda"):
             GPTLM(tiny_test())
         with pytest.raises(RuntimeError, match="cuda"):
             resolve_device()
+        with pytest.raises(RuntimeError, match="cuda"):
+            ServingEngine(GPTLM(tiny_test()), n_slots=2)
     assert GPTLM(tiny_test(), device="cpu").device.type == "cpu"
+    assert ServingEngine(GPTLM(tiny_test(), device="cpu"), n_slots=2).device.type == "cpu"
 
 
 def test_failed_kernel_build_raises(tmp_path, monkeypatch):

@@ -46,12 +46,15 @@ def _sample(logits, generator: Optional[torch.Generator], temperature: float,
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 
-def decode_step(model: GPTLM, cache: List[KVCache], tok, positions):
+def decode_step(model: GPTLM, cache: List[KVCache], tok, positions, write_index=None):
     """One single-token decode tick.  ``tok``/``positions``: [batch] current
-    tokens and their global positions.  Returns ``(hidden [batch, 1,
+    tokens and their global positions.  ``write_index`` [batch] (the serving
+    engine's slot pool) writes row r's K/V at its own column
+    ``write_index[r]`` (out-of-range columns are dropped); without it the
+    step writes at the cache's scalar index.  Returns ``(hidden [batch, 1,
     d_model], cache)``; the cache is the same object, updated in place."""
     hidden = model(tok[:, None], positions=positions[:, None], decode=True,
-                   hidden_only=True, cache=cache)
+                   hidden_only=True, cache=cache, write_index=write_index)
     return hidden, cache
 
 
@@ -71,6 +74,20 @@ def prefill_step(model: GPTLM, tokens, positions) -> Tuple[torch.Tensor, List[KV
     Returns ``(hidden [b, P, d_model], cache)``."""
     cache = model.init_cache(tokens.shape[0])
     hidden = model(tokens, positions=positions, decode=True, hidden_only=True, cache=cache)
+    return hidden, cache
+
+
+def prefill_extend_step(model: GPTLM, cache: List[KVCache], tokens, positions,
+                        write_start) -> Tuple[torch.Tensor, List[KVCache]]:
+    """Continue a prefill INTO an existing cache: ``tokens`` [b, T] at
+    global ``positions`` [b, T] (pads -1), K/V written at columns
+    ``write_start + [0..T)`` per row.  Each chunk attends the cached prefix
+    and itself through the stored positions, so chunks give the same
+    values as one monolithic prefill.  The chunked-prefill and prefix-reuse
+    core of the serving engine.  Returns ``(hidden [b, T, d_model],
+    cache)``, the cache updated in place."""
+    hidden = model(tokens, positions=positions, decode=True, hidden_only=True,
+                   cache=cache, write_index=write_start)
     return hidden, cache
 
 

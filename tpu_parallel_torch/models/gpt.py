@@ -86,15 +86,19 @@ class GPTLM(nn.Module):
                 write_index=None, block_table=None) -> torch.Tensor:
         """``decode=True`` appends to ``cache`` (from :meth:`init_cache`) and
         attends the cached prefix; without ``positions`` it continues from
-        the cache's write index.  ``write_index``/``block_table`` (the
-        serving engine's slot-indexed and paged writes) are not in the port
-        yet and raise."""
+        the cache's write index.  ``write_index`` [batch] (the serving
+        engine's slot-indexed writes) puts row r's tokens at cache columns
+        ``write_index[r] + [0..T)``, dropping targets outside the cache.
+        ``block_table`` (the paged cache) is not in the port yet and
+        raises."""
         cfg = self.config
-        if write_index is not None or block_table is not None:
+        if block_table is not None:
             raise NotImplementedError(
-                "slot-indexed (write_index) and paged (block_table) cache writes "
-                "come with the serving-engine slice of the port"
+                "paged (block_table) cache writes come with the paged KV pool, "
+                "which the PyTorch port does not have yet"
             )
+        if write_index is not None and not decode:
+            raise ValueError("write_index needs decode=True")
         if decode:
             if cache is None:
                 raise ValueError("decode=True needs a cache (GPTLM.init_cache)")
@@ -106,7 +110,8 @@ class GPTLM(nn.Module):
         elif tokens.shape[1] > cfg.seq_len:
             raise ValueError(f"{tokens.shape[1]} tokens exceed seq_len {cfg.seq_len}")
         x = self.embed(tokens, positions)
-        x = self.blocks(x, positions, segment_ids, decode, cache if decode else None)
+        x = self.blocks(x, positions, segment_ids, decode, cache if decode else None,
+                        write_index)
         x = self.norm_final(x).to(cfg.dtype)
         if hidden_only:
             return x

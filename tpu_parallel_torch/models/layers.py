@@ -279,27 +279,69 @@ def decode_attention(q, k_all, v_all, positions, window: int = 0,
     return out.reshape(b, nq, h, head_dim)
 
 
-@dataclasses.dataclass
 class KVCache:
     """One attention layer's contiguous decode cache (the JAX ``cache``
     collection's ``cached_key``/``cached_value``/``cached_pos``/
-    ``cache_index``).  :class:`Attention` updates it IN PLACE: each decode
-    call writes its K/V and positions at slot ``index`` and advances it."""
+    ``cache_index``).  :class:`Attention` updates it IN PLACE, either at
+    the scalar slot ``index`` (which it then advances) or, under
+    ``write_index``, at each row's own column.
 
-    key: torch.Tensor  # [batch, seq_len, kv_heads, head_dim], config.dtype
-    value: torch.Tensor
-    pos: torch.Tensor  # [batch, seq_len] int32; -1 = empty slot
-    index: int = 0
+    Each buffer holds ``seq_len + 1`` columns.  The last one is a scratch
+    column that no read sees: ``key``, ``value`` and ``pos`` are views of
+    the first ``seq_len``.  A ``write_index`` target outside
+    ``[0, seq_len)`` is redirected there, which is how the port drops it
+    (JAX's scatter drops out-of-range targets; an out-of-range
+    ``index_put_`` would raise, and clamping would overwrite a valid
+    boundary column).  Buffers never move, so a captured CUDA graph can
+    write them.
+    """
+
+    def __init__(self, key_buf: torch.Tensor, value_buf: torch.Tensor,
+                 pos_buf: torch.Tensor, index: int = 0):
+        self.key_buf = key_buf  # [batch, seq_len + 1, kv_heads, head_dim]
+        self.value_buf = value_buf
+        self.pos_buf = pos_buf  # [batch, seq_len + 1] int32; -1 = empty slot
+        self.index = index
+
+    @property
+    def seq_len(self) -> int:
+        return self.pos_buf.shape[1] - 1
+
+    @property
+    def key(self) -> torch.Tensor:
+        return self.key_buf[:, :-1]
+
+    @property
+    def value(self) -> torch.Tensor:
+        return self.value_buf[:, :-1]
+
+    @property
+    def pos(self) -> torch.Tensor:
+        return self.pos_buf[:, :-1]
 
     @classmethod
     def empty(cls, config: TransformerConfig, batch: int, device) -> "KVCache":
         n_kv = config.n_kv_heads or config.n_heads
-        shape = (batch, config.seq_len, n_kv, config.head_dim)
+        shape = (batch, config.seq_len + 1, n_kv, config.head_dim)
         return cls(
-            key=torch.zeros(shape, dtype=config.dtype, device=device),
-            value=torch.zeros(shape, dtype=config.dtype, device=device),
-            pos=torch.full((batch, config.seq_len), -1, dtype=torch.int32, device=device),
+            key_buf=torch.zeros(shape, dtype=config.dtype, device=device),
+            value_buf=torch.zeros(shape, dtype=config.dtype, device=device),
+            pos_buf=torch.full((batch, config.seq_len + 1), -1, dtype=torch.int32,
+                               device=device),
         )
+
+    def write_rows(self, write_index, k, v, positions) -> None:
+        """Row ``r``'s ``t`` new entries land at columns ``write_index[r] +
+        [0..t)``; targets outside ``[0, seq_len)`` go to the scratch
+        column (dropped)."""
+        b, t = positions.shape
+        seq_len = self.seq_len
+        cols = write_index.to(torch.long)[:, None] + torch.arange(t, device=k.device)[None, :]
+        cols = cols.masked_fill((cols < 0) | (cols >= seq_len), seq_len)
+        rows = torch.arange(b, device=k.device)[:, None].expand(b, t)
+        self.key_buf.index_put_((rows, cols), k.to(self.key_buf.dtype))
+        self.value_buf.index_put_((rows, cols), v.to(self.value_buf.dtype))
+        self.pos_buf.index_put_((rows, cols), positions.to(torch.int32))
 
 
 class Attention(nn.Module):
@@ -326,7 +368,7 @@ class Attention(nn.Module):
         self.out = linear(cfg.n_heads * cfg.head_dim, cfg.d_model)
 
     def forward(self, x, positions=None, segment_ids=None, decode: bool = False,
-                cache: Optional[KVCache] = None) -> torch.Tensor:
+                cache: Optional[KVCache] = None, write_index=None) -> torch.Tensor:
         cfg = self.config
         b, t = x.shape[:2]
         dh = cfg.head_dim
@@ -344,15 +386,21 @@ class Attention(nn.Module):
             if cache is None:
                 raise ValueError("decode=True needs this layer's KVCache")
             idx = cache.index
-            if idx + t > cfg.seq_len:
-                raise ValueError(
-                    f"cache overflow: writing {t} tokens at slot {idx} of {cfg.seq_len}"
-                )
             if positions is None:
                 positions = (idx + torch.arange(t, device=x.device)).expand(b, t)
-            cache.key[:, idx:idx + t] = k
-            cache.value[:, idx:idx + t] = v
-            cache.pos[:, idx:idx + t] = positions
+            if write_index is not None:
+                # per-row slot writes (continuous batching): row r's tokens
+                # land at write_index[r] + [0..t); out-of-range targets (a
+                # pool's parked slots, a padded chunk's tail) are dropped
+                cache.write_rows(write_index, k, v, positions)
+            else:
+                if idx + t > cfg.seq_len:
+                    raise ValueError(
+                        f"cache overflow: writing {t} tokens at slot {idx} of {cfg.seq_len}"
+                    )
+                cache.key[:, idx:idx + t] = k
+                cache.value[:, idx:idx + t] = v
+                cache.pos[:, idx:idx + t] = positions
             cache.index = idx + t
             out = decode_attention(
                 q, cache.key, cache.value, positions, window=cfg.attn_window,
@@ -412,10 +460,10 @@ class Block(nn.Module):
         self.mlp = MLP(config, device)
 
     def forward(self, x, positions=None, segment_ids=None, decode: bool = False,
-                cache: Optional[KVCache] = None) -> torch.Tensor:
+                cache: Optional[KVCache] = None, write_index=None) -> torch.Tensor:
         dtype = self.config.dtype
         h = self.norm_attn(x).to(dtype)
-        x = x + self.attn(h, positions, segment_ids, decode, cache)
+        x = x + self.attn(h, positions, segment_ids, decode, cache, write_index)
         h = self.norm_mlp(x).to(dtype)
         return x + self.mlp(h)
 
@@ -433,7 +481,7 @@ class BlockStack(nn.Module):
             self.add_module(f"layer_{i}", Block(config, device))
 
     def forward(self, x, positions=None, segment_ids=None, decode: bool = False,
-                caches: Optional[List[KVCache]] = None) -> torch.Tensor:
+                caches: Optional[List[KVCache]] = None, write_index=None) -> torch.Tensor:
         remat = self.config.remat and not decode and torch.is_grad_enabled()
         kwargs = remat_kwargs_for(self.config) if remat else None
         for i in range(self.n_layers):
@@ -442,7 +490,7 @@ class BlockStack(nn.Module):
                 x = checkpoint(layer, x, positions, segment_ids, **kwargs)
             else:
                 cache = caches[i] if caches is not None else None
-                x = layer(x, positions, segment_ids, decode, cache)
+                x = layer(x, positions, segment_ids, decode, cache, write_index)
         return x
 
 

@@ -1,0 +1,1246 @@
+"""Continuous-batching inference engine: the port of
+``tpu_parallel/serving/engine.py`` (fixed slot pool, FIFO scheduler,
+bucketed / exact / chunked prefill, aligned-LRU prefix reuse, per-step
+and fused ticks).
+
+The engine decodes the SLOT POOL: every tick runs one decode step (or,
+by default, a FUSED tick of ``decode_steps_per_tick`` = 8 masked steps)
+over all ``n_slots`` rows, and requests join (prefill into a freed slot)
+and leave (EOS / length) between ticks.
+
+- Rows sit at different depths of their generations, so each decode
+  step writes row r's K/V at its own column ``write_index[r]`` (the
+  ``write_index`` path of ``models/layers.py``); the attention mask keys
+  off stored positions.  Free and mid-chunked-prefill rows aim their
+  writes at column ``seq_len``, which the cache drops.
+- Sampling knobs are per-request tensors (:func:`sample_tokens`), so
+  requests with different knobs share a tick.
+- Prefill: prompts pad RIGHT to a geometric bucket and same-bucket
+  admissions run as one batched call padded to ``prefill_batch`` rows
+  (dummy rows are dropped); prompts above ``prefill_chunk_tokens`` split
+  into chunks, one per tick, extending the slot's row through
+  ``prefill_extend_step``; ``prefix_cache_size`` keeps bucket-aligned
+  prompt prefixes whose K/V rows are copied into a fresh slot on a hit.
+  All of it is exact: greedy tokens equal an exact-length prefill's.
+- The fused tick keeps the per-slot state (token, position, write index,
+  live mask, remaining budget) in device tensors between ticks; the host
+  rewrites them in place only after admissions and releases.  On a CUDA
+  device the T-step body is captured ONCE as a CUDA graph (the
+  counterpart of JAX's donated ``lax.scan`` dispatch) and every tick is
+  one replay plus one device-to-host copy of the token block; the slot
+  state, knobs, outputs and cache pool keep fixed addresses for that.
+  On the CPU the same body runs eagerly.  A capture that fails raises.
+- ``launch`` / ``collect`` split a tick at its one sync, and
+  ``run(overlap=True)`` launches the next pure-decode tick before
+  collecting the previous one.
+
+Not in the port yet (each knob raises ``NotImplementedError``): the
+paged pool, the unified ragged tick, the radix / host / disk KV tiers,
+speculative decoding, mesh serving, the int8 cache, prefix export and
+import.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from tpu_parallel_torch.models.generate import (
+    decode_step,
+    padded_prefill_inputs,
+    prefill_extend_step,
+    prefill_step,
+)
+from tpu_parallel_torch.obs.registry import MetricRegistry
+from tpu_parallel_torch.obs.tracer import NULL_TRACER, Tracer
+from tpu_parallel_torch.serving.cache_pool import CachePool, default_row_fns
+from tpu_parallel_torch.serving.metrics import (
+    STALL_NONE,
+    STALL_PREFILL,
+    STALL_QUEUE_EMPTY,
+    ServingMetrics,
+)
+from tpu_parallel_torch.serving.prefix_cache import PrefixCache
+from tpu_parallel_torch.serving.request import (
+    CANCELLED,
+    FAIL_INTEGRITY,
+    FAILED,
+    FINISHED,
+    REJECT_CAPACITY,
+    REJECTED,
+    RUNNING,
+    Request,
+    RequestOutput,
+    StreamEvent,
+)
+from tpu_parallel_torch.serving.sampling import filter_logits
+from tpu_parallel_torch.serving.scheduler import FIFOScheduler, SchedulerConfig
+
+# device-side integrity sentinel: a sampled "token" of this value means the
+# row's logits held NaN/Inf; the host fails the request typed
+# (FAIL_INTEGRITY) instead of streaming garbage.  -2 never collides with a
+# real id (>= 0) or the parked/pad value (-1).
+NON_FINITE_TOKEN = -2
+
+# the later slices of the port that bring each refused engine knob
+_LATER = {
+    "paged": "the paged KV pool (BlockAllocator / PagedCachePool)",
+    "unified": "the unified ragged tick",
+    "hierarchy": "the radix and host KV tiers (kv_hierarchy)",
+    "spec": "speculative decoding (spec_decode)",
+    "disk": "the wire format and disk KV tier (kv_wire / kv_disk)",
+    "mesh": "tensor-parallel serving over a device mesh",
+    "int8": "the int8 KV cache",
+}
+
+
+def _not_ported(what: str, later: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not in the PyTorch port yet; it comes with {_LATER[later]}, "
+        "a later slice of the port"
+    )
+
+
+def sample_tokens(logits, generator: Optional[torch.Generator], temperature, top_k,
+                  top_p) -> torch.Tensor:
+    """Per-ROW sampling from [batch, vocab] logits with per-row knob tensors
+    [batch]; returns int64 [batch].
+
+    ``temperature == 0`` is the argmax (the first maximum); otherwise a
+    Gumbel-max draw (``argmax(x - log E)``, E ~ Exp(1) from ``generator``)
+    over :func:`~tpu_parallel_torch.serving.sampling.filter_logits` — a
+    sample from the filtered softmax with no host sync, so it runs inside a
+    CUDA graph.  A row whose logits hold any non-finite value returns
+    :data:`NON_FINITE_TOKEN` instead of a token."""
+    lf = logits.float()
+    greedy = lf.argmax(dim=-1)
+    x = filter_logits(lf, temperature, top_k, top_p)
+    noise = torch.empty_like(x).exponential_(generator=generator)
+    sampled = (x - noise.log()).argmax(dim=-1)
+    out = torch.where(temperature > 0.0, sampled, greedy)
+    finite = torch.isfinite(lf).all(dim=-1)
+    return torch.where(finite, out, torch.full_like(out, NON_FINITE_TOKEN))
+
+
+def _full_last_logits(model, hidden, last_idx=None) -> torch.Tensor:
+    """The lm_head over ONE position per row: ``last_idx`` [batch] (each
+    row's last real token in a right-padded prefill) or, when None, the
+    final position.  Returns [batch, vocab] in the model's dtype."""
+    if last_idx is None:
+        h = hidden[:, -1]
+    else:
+        rows = torch.arange(hidden.shape[0], device=hidden.device)
+        h = hidden[rows, last_idx.to(torch.long)]
+    return model.lm_head(h)
+
+
+def _prefill_core(model, prompt, positions, last_idx):
+    """Batch-N pad-aware prefill into a fresh cache; returns each row's last
+    REAL position's logits and the cache."""
+    hidden, cache = prefill_step(model, prompt, positions)
+    return _full_last_logits(model, hidden, last_idx), cache
+
+
+def _extend_core(model, tokens, positions, last_idx, write_start, cache):
+    """Continue a prefill into existing cache rows (chunked prefill, prefix
+    remainder): tokens at global ``positions`` (pads -1) write at columns
+    ``write_start + [0..T)``.  Returns the chunk's last real logits."""
+    hidden, cache = prefill_extend_step(model, cache, tokens, positions, write_start)
+    return _full_last_logits(model, hidden, last_idx), cache
+
+
+def _decode_core(model, tok, pos, widx, temperature, top_k, top_p, cache, generator):
+    """One engine tick over the slot pool: slot-indexed cache writes,
+    per-slot sampling.  Returns the next tokens [n_slots]."""
+    # a parked row may hold the sentinel (-2): clamp so its (unread) lookup
+    # stays in the embedding table
+    hidden, _ = decode_step(model, cache, tok.clamp(min=0), pos, write_index=widx)
+    logits = _full_last_logits(model, hidden)
+    return sample_tokens(logits, generator, temperature, top_k, top_p)
+
+
+def _fused_decode_core(model, steps, tok, pos, widx, live, budget, eos, temp, topk, topp,
+                       cache, generator):
+    """``steps`` masked single-token decode steps: the fused tick's device
+    body, with no host sync, so a CUDA graph can capture it.
+
+    Each step is one :func:`_decode_core` tick on the same inputs (greedy
+    tokens are bitwise equal to the per-step engine's).  A slot that
+    finishes mid-tick (EOS, budget at zero, or the non-finite sentinel)
+    drops out of ``live``: later steps park its writes at column
+    ``seq_len``, its state stops and it emits -1.  ``eos`` is -1 for
+    requests without an EOS id.
+
+    Returns ``(block [steps, n_slots], counts [n_slots], (tok, pos, widx,
+    live, budget))``: ``block`` holds each step's emitted token per slot,
+    ``counts`` each slot's progress (live steps form a prefix, so the host
+    delivers ``block[:counts[s], s]``)."""
+    seq_len = model.config.seq_len
+    emitted_steps = []
+    for _ in range(steps):
+        widx_eff = torch.where(live, widx, torch.full_like(widx, seq_len))
+        nxt = _decode_core(model, tok, pos, widx_eff, temp, topk, topp, cache, generator)
+        emitted = torch.where(live, nxt, torch.full_like(nxt, -1))
+        budget = budget - live.to(budget.dtype)
+        done = live & ((nxt == eos) | (budget <= 0) | (nxt == NON_FINITE_TOKEN))
+        adv = live.to(pos.dtype)
+        pos = pos + adv
+        widx = widx + adv
+        tok = torch.where(live, nxt, tok)
+        live = live & ~done
+        emitted_steps.append(emitted)
+    block = torch.stack(emitted_steps)
+    # the sentinel counts as progress (the host fails the request typed)
+    counts = (block != -1).sum(dim=0)
+    return block, counts, (tok, pos, widx, live, budget)
+
+
+def default_prefill_buckets(seq_len: int, start: int = 32) -> Tuple[int, ...]:
+    """Geometric bucket set ``(32, 64, ..., seq_len)``; ``seq_len`` is always
+    the last bucket so every admissible prompt fits one."""
+    buckets, b = [], min(start, seq_len)
+    while b < seq_len:
+        buckets.append(b)
+        b *= 2
+    buckets.append(seq_len)
+    return tuple(buckets)
+
+
+class _ChunkState:
+    """An in-flight chunked prefill: the request owns its slot, the prompt
+    extends one chunk per tick, activation happens on the final chunk."""
+
+    __slots__ = ("out", "offset")
+
+    def __init__(self, out: RequestOutput, offset: int):
+        self.out = out
+        self.offset = offset
+
+
+class _PendingTick:
+    """One tick between :meth:`ServingEngine.launch` and
+    :meth:`ServingEngine.collect`: the launched work's unsynced result
+    (``payload``) and the host bookkeeping collect needs."""
+
+    __slots__ = (
+        "kind", "start", "t0", "tick_span", "events", "admitted",
+        "chunks_advanced", "entering", "payload", "overlapped",
+    )
+
+    def __init__(self, start: float):
+        self.kind = "idle"
+        self.start = start
+        self.t0 = 0.0
+        self.tick_span = None
+        self.events: List[StreamEvent] = []
+        self.admitted: List[RequestOutput] = []
+        self.chunks_advanced = 0
+        self.entering: Tuple[int, ...] = ()
+        self.payload = None
+        self.overlapped = False
+
+
+class ServingEngine:
+    """In-process continuous-batching engine over one ``GPTLM``, which
+    holds the weights and sets the device (``"cuda"`` unless the model was
+    built with ``device="cpu"``).
+
+    ``step()`` runs one scheduling + decode tick and returns its
+    :class:`StreamEvent`s; ``run()`` ticks until idle.  ``add_request`` is
+    non-blocking: the returned :class:`RequestOutput` fills in as ticks
+    run.  ``n_slots`` fixes the pool (``n_slots x seq_len`` K/V per
+    layer); ``scheduler`` takes a :class:`SchedulerConfig` or a ready
+    :class:`FIFOScheduler`; ``clock`` is injectable; ``rng`` is a
+    ``torch.Generator`` on the model's device (default: seeded with 0).
+
+    Prefill knobs: ``prefill_buckets`` (``"auto"`` = 32, 64, ..., seq_len;
+    a tuple; or None for batch-1 exact-length prefill), ``prefill_batch``
+    (rows every batched prefill pads to; default the scheduler's
+    ``max_prefills_per_tick``), ``prefill_chunk_tokens`` (chunk size for
+    longer prompts; None = monolithic), ``prefix_cache_size`` (LRU entries
+    of bucket-aligned prefix rows; 0 = off; needs buckets).
+
+    ``decode_steps_per_tick``: T > 1 (``"auto"`` = 8) runs T masked decode
+    steps per tick with the slot state on the device, one device-to-host
+    sync per T tokens; 1 is the per-step engine.  ``unified_tick="auto"``
+    resolves to off in the port (the per-phase tick; JAX pins the two
+    bitwise equal for greedy output).  ``graph_captures`` counts the
+    fused tick's CUDA graph captures (one per engine on a CUDA device).
+
+    Telemetry: ``tracer`` (default the no-op ``NULL_TRACER``) records
+    request lifecycle spans; ``metrics`` / ``registry`` back the
+    counters, gauges and histograms (:class:`ServingMetrics`).
+    """
+
+    def __init__(
+        self,
+        model,
+        n_slots: int = 8,
+        scheduler: Union[SchedulerConfig, FIFOScheduler, None] = None,
+        mesh=None,
+        param_specs=None,
+        rng: Optional[torch.Generator] = None,
+        metrics: Optional[ServingMetrics] = None,
+        tracer: Optional[Tracer] = None,
+        registry: Optional[MetricRegistry] = None,
+        clock: Callable[[], float] = time.monotonic,
+        prefill_buckets: Union[str, Sequence[int], None] = "auto",
+        prefill_batch: Optional[int] = None,
+        prefill_chunk_tokens: Optional[int] = None,
+        prefix_cache_size: int = 0,
+        kv_block_tokens: Union[int, str, None] = None,
+        kv_pool_blocks: Optional[int] = None,
+        kv_radix_cache: bool = False,
+        kv_host_blocks: int = 0,
+        kv_disk_dir: Optional[str] = None,
+        kv_disk_blocks: int = 0,
+        decode_steps_per_tick: Union[int, str] = "auto",
+        unified_tick: Union[str, bool] = "auto",
+        draft_tokens: int = 0,
+        drafter=None,
+        spec_adaptive: bool = True,
+        spec_check_invariants: bool = False,
+    ):
+        cfg = model.config
+        if mesh is not None or param_specs is not None:
+            raise _not_ported("serving over a mesh", "mesh")
+        if getattr(cfg, "kv_cache_dtype", "bf16") == "int8":
+            raise _not_ported('kv_cache_dtype="int8"', "int8")
+        if kv_block_tokens not in (None, 0) or kv_pool_blocks is not None:
+            raise _not_ported("kv_block_tokens / kv_pool_blocks", "paged")
+        if kv_radix_cache or kv_host_blocks:
+            raise _not_ported("kv_radix_cache / kv_host_blocks", "hierarchy")
+        if kv_disk_dir is not None or kv_disk_blocks:
+            raise _not_ported("kv_disk_dir / kv_disk_blocks", "disk")
+        if draft_tokens or drafter is not None or spec_check_invariants:
+            raise _not_ported("draft_tokens / drafter / spec_check_invariants", "spec")
+        if unified_tick not in ("auto", True, False):
+            raise ValueError(f"unified_tick={unified_tick!r}")
+        if unified_tick is True:
+            raise _not_ported("unified_tick=True", "unified")
+        del spec_adaptive  # a knob of speculative decoding
+        self.model = model
+        self.device = model.device
+        self.weights_version = "initial"
+        self.clock = clock
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.metrics = metrics if metrics is not None else ServingMetrics(registry=registry)
+        self.registry = self.metrics.registry
+        self.integrity_trips = 0
+        if isinstance(scheduler, FIFOScheduler):
+            self.scheduler = scheduler
+            if self.scheduler.registry is None:
+                self.scheduler.registry = self.registry
+        else:
+            self.scheduler = FIFOScheduler(scheduler, clock=clock, registry=self.registry)
+        self._queue_spans: Dict[str, object] = {}
+        if rng is None:
+            rng = torch.Generator(device=self.device).manual_seed(0)
+        elif rng.device.type != self.device.type or rng.device.index not in (
+                None, self.device.index):
+            raise ValueError(f"rng is on {rng.device}, the model on {self.device}")
+        self._gen = rng
+
+        if prefill_buckets == "auto":
+            self._buckets: Optional[Tuple[int, ...]] = default_prefill_buckets(cfg.seq_len)
+        elif prefill_buckets:
+            bs = tuple(sorted(int(b) for b in prefill_buckets))
+            if bs[0] < 1 or bs[-1] > cfg.seq_len:
+                raise ValueError(f"prefill_buckets={bs} outside [1, seq_len={cfg.seq_len}]")
+            if bs[-1] < cfg.seq_len:
+                bs = bs + (cfg.seq_len,)  # every admissible prompt must fit
+            self._buckets = bs
+        else:
+            self._buckets = None
+        if prefill_chunk_tokens is not None and prefill_chunk_tokens < 1:
+            raise ValueError(f"prefill_chunk_tokens={prefill_chunk_tokens} < 1")
+        self._chunk_tokens = prefill_chunk_tokens
+        if prefix_cache_size > 0 and self._buckets is None:
+            raise ValueError(
+                "prefix_cache_size > 0 requires prefill bucketing (prefix keys are "
+                "bucket-aligned)"
+            )
+        self._prefix = PrefixCache(prefix_cache_size) if prefix_cache_size > 0 else None
+        self._prefill_batch = (
+            prefill_batch if prefill_batch is not None
+            else self.scheduler.config.max_prefills_per_tick
+        )
+        if self._prefill_batch < 1:
+            raise ValueError(f"prefill_batch={self._prefill_batch} < 1")
+        self._chunking: Dict[int, _ChunkState] = {}
+        self._prefill_shapes: set = set()
+
+        if decode_steps_per_tick == "auto":
+            fused = 8
+        else:
+            fused = int(decode_steps_per_tick)
+            if fused < 1:
+                raise ValueError(f"decode_steps_per_tick={decode_steps_per_tick} < 1")
+        self._fused_steps = fused
+        self.pool = CachePool(model, n_slots, row_fns=default_row_fns())
+
+        n = n_slots
+        self._tok = np.zeros(n, np.int64)
+        self._pos = np.zeros(n, np.int64)
+        # inactive rows aim their decode writes at column seq_len, which the
+        # cache drops, so a free or mid-chunked-prefill row is never touched
+        self._widx = np.full(n, cfg.seq_len, np.int64)
+        self._temp = np.zeros(n, np.float32)
+        self._topk = np.zeros(n, np.int64)
+        self._topp = np.zeros(n, np.float32)
+        self._active = np.zeros(n, bool)
+        self._slot_out: List[Optional[RequestOutput]] = [None] * n
+
+        # the fused tick's device-resident slot state and knobs, at fixed
+        # addresses: (tok, pos, widx, live, budget) and (eos, temp, topk,
+        # topp); the host rewrites them in place after admissions/releases
+        self._state_dirty = True
+        self._graph = None
+        self._capture = self.device.type == "cuda"
+        self.graph_captures = 0
+        if fused > 1:
+            dev = self.device
+            zeros = lambda dtype: torch.zeros(n, dtype=dtype, device=dev)
+            self._dev_state = (zeros(torch.long), zeros(torch.long), zeros(torch.long),
+                               zeros(torch.bool), zeros(torch.long))
+            self._dev_knobs = (zeros(torch.long), zeros(torch.float32), zeros(torch.long),
+                               zeros(torch.float32))
+            # block [T, n] and counts [n] of the last tick, and two host
+            # buffers they are copied to (a launch-ahead must not overwrite
+            # the tick still waiting for its collect)
+            self._dev_out = torch.zeros(fused + 1, n, dtype=torch.long, device=dev)
+            pin = dev.type == "cuda"
+            self._host_out = [torch.zeros(fused + 1, n, dtype=torch.long, pin_memory=pin)
+                              for _ in range(2)]
+            self._host_turn = 0
+
+    # -- submission --------------------------------------------------------
+
+    def add_request(self, request: Request, requeue: bool = False,
+                    arrival_time: Optional[float] = None) -> RequestOutput:
+        """Submit; returns the live output record (status REJECTED with a
+        typed ``finish_reason``, ``capacity`` / ``queue_full`` /
+        ``draining``, when the prompt cannot fit or admission refuses).
+        ``requeue=True`` bypasses the drain gate (relocated work);
+        ``arrival_time`` keeps an original arrival across retries."""
+        out = RequestOutput(
+            request, arrival_time=arrival_time if arrival_time is not None else self.clock()
+        )
+        seq_len = self.model.config.seq_len
+        total = len(request.prompt) + request.max_new_tokens
+        if total > seq_len:
+            out.status = REJECTED
+            out.finish_reason = REJECT_CAPACITY
+            out.detail = (
+                f"prompt ({len(request.prompt)}) + max_new_tokens "
+                f"({request.max_new_tokens}) exceeds seq_len ({seq_len})"
+            )
+            self.metrics.record_rejected()
+            return out
+        verdict = self.scheduler.submit(out, requeue=requeue)
+        if not verdict:
+            out.status = REJECTED
+            out.finish_reason = verdict.reason
+            self.metrics.record_rejected()
+            return out
+        if self.tracer.enabled:
+            rid = request.request_id
+            self._queue_spans[rid] = self.tracer.start_async(
+                "queue", track="scheduler", async_id=rid, request_id=rid
+            )
+        return out
+
+    # -- lifecycle control (cancellation / drain) --------------------------
+
+    def cancel(self, request_id: str, reason: str = "cancelled") -> bool:
+        """Cancel a request wherever it is: queued (pulled from the
+        scheduler) or in a slot (released, mid-chunked-prefill included).
+        Sends a terminal tokenless StreamEvent; False when the request is
+        unknown or already terminal."""
+        out = self.scheduler.remove(request_id)
+        slot: Optional[int] = None
+        if out is None:
+            for i, candidate in enumerate(self._slot_out):
+                if candidate is not None and candidate.request.request_id == request_id:
+                    slot, out = i, candidate
+                    break
+            if out is None:
+                return False
+            self.release_slot(slot)
+        now = self.clock()
+        span = self._queue_spans.pop(request_id, None)
+        if span is not None:
+            span.finish(cancelled=True)
+        out.status = CANCELLED
+        out.finish_reason = reason
+        out.finish_time = now
+        self.metrics.record_cancelled()
+        if self.tracer.enabled:
+            track = "scheduler" if slot is None else f"slot {slot}"
+            self.tracer.instant("cancel", track=track, request_id=request_id, reason=reason)
+        event = StreamEvent(request_id=request_id, token=-1, index=-1, finished=True,
+                            finish_reason=reason)
+        if out.request.on_token is not None:
+            out.request.on_token(event)
+        return True
+
+    def release_slot(self, slot: int) -> None:
+        """Free ``slot`` without delivering anything: drop any in-flight
+        chunked prefill, park the row's writes at column seq_len, return the
+        slot to the pool.  The retirement and cancellation path."""
+        self._chunking.pop(slot, None)
+        self._active[slot] = False
+        self._slot_out[slot] = None
+        self._widx[slot] = self.model.config.seq_len
+        self._state_dirty = True
+        self.pool.release(slot)
+
+    def begin_drain(self) -> None:
+        """Graceful-drain gate: new submissions reject with ``draining``;
+        queued and in-flight work runs to completion."""
+        self.scheduler.begin_drain()
+
+    @property
+    def draining(self) -> bool:
+        return self.scheduler.draining
+
+    @property
+    def in_flight(self) -> int:
+        """Requests holding a slot: decoding plus mid-chunked-prefill."""
+        return int(self._active.sum()) + len(self._chunking)
+
+    @property
+    def pending_prefill_tokens(self) -> int:
+        """Prompt tokens still to prefill: queued prompts plus the unwritten
+        remainders of in-flight chunked prefills."""
+        chunk_rest = sum(len(st.out.request.prompt) - st.offset
+                         for st in self._chunking.values())
+        return self.scheduler.pending_prefill_tokens + chunk_rest
+
+    # -- the tick ----------------------------------------------------------
+
+    def step(self) -> List[StreamEvent]:
+        """One engine tick: expire stale queue entries, advance in-flight
+        chunked prefills (one chunk each), admit into free slots (one
+        same-bucket group, one batched prefill), one decode tick over the
+        pool (T fused steps or one step), retire finished slots.
+        ``collect(launch())``; returns this tick's events."""
+        return self.collect(self.launch())
+
+    @torch.no_grad()
+    def launch(self, ahead: bool = False) -> _PendingTick:
+        """The tick's host-to-device half: expire, advance chunks, admit, and
+        launch the decode work WITHOUT syncing on its result.  ``ahead``
+        marks a launch made while the previous tick is still uncollected
+        (only on a pure-decode fused tick, :meth:`_can_launch_ahead`)."""
+        now = self.clock()
+        p = _PendingTick(now)
+        p.overlapped = ahead
+        if self.tracer.enabled:
+            p.tick_span = self.tracer.span("tick", track="scheduler", tick=self.metrics.ticks)
+        self._expire_queue(now, p.events)
+        # chunked prefills first, one extend per slot: a chunk finishing
+        # this tick decodes this tick
+        p.chunks_advanced = len(self._chunking)
+        for slot in sorted(self._chunking):
+            p.events.extend(self._advance_chunk(slot))
+        bucket_key = (
+            self._admission_key
+            if (self._buckets is not None or self._chunk_tokens is not None)
+            else None
+        )
+        p.admitted = self.scheduler.schedule(self.pool.n_free, now, bucket_key=bucket_key)
+        p.events.extend(self._admit_batch(p.admitted))
+        self._launch_decode(p)
+        return p
+
+    def _expire_queue(self, now: float, events: List[StreamEvent]) -> None:
+        for out in self.scheduler.expire(now):
+            # a terminal tokenless event: expiry is asynchronous, so stream
+            # consumers need it or they wait forever
+            out.finish_reason = "max_wait"
+            out.finish_time = now
+            rid = out.request.request_id
+            span = self._queue_spans.pop(rid, None)
+            if span is not None:
+                span.finish(expired=True)
+            event = StreamEvent(request_id=rid, token=-1, index=-1, finished=True,
+                                finish_reason="max_wait")
+            if out.request.on_token is not None:
+                out.request.on_token(event)
+            events.append(event)
+            self.metrics.record_expired()
+
+    def _launch_decode(self, p: _PendingTick) -> None:
+        if not self._active.any():
+            return
+        p.t0 = self.tracer.now()
+        p.entering = tuple(int(s) for s in np.nonzero(self._active)[0])
+        if self._fused_steps > 1:
+            self._launch_fused(p)
+        else:
+            self._launch_per_step(p)
+
+    @torch.no_grad()
+    def collect(self, p: _PendingTick) -> List[StreamEvent]:
+        """The tick's device-to-host half: ONE sync on the launched result,
+        then delivery, retirement, metrics and the tick record."""
+        events = p.events
+        if p.kind == "fused":
+            events.extend(self._collect_fused(p))
+        elif p.kind == "step":
+            events.extend(self._collect_per_step(p))
+        decoded = p.kind != "idle"
+        if self._prefix is not None:
+            self.metrics.sync_prefix_cache(self._prefix)
+        if p.admitted or p.chunks_advanced:
+            stall = STALL_PREFILL
+        elif not decoded:
+            stall = STALL_QUEUE_EMPTY
+        else:
+            stall = STALL_NONE
+        end = self.clock()
+        self.metrics.record_tick(
+            now=end,
+            queue_depth=self.scheduler.depth,
+            occupancy=self.pool.occupancy,
+            new_tokens=sum(1 for ev in events if ev.token >= 0),
+            prefills=len(p.admitted),
+            decoded=decoded,
+            stall=stall,
+            host_ms=(end - p.start) * 1000.0,
+        )
+        if p.overlapped:
+            self.metrics.record_overlap()
+        if p.tick_span is not None:
+            p.tick_span.finish(stall=stall, queue_depth=self.scheduler.depth,
+                               admitted=len(p.admitted), decoded=decoded)
+        return events
+
+    def has_work(self) -> bool:
+        return self.scheduler.depth > 0 or bool(self._active.any()) or bool(self._chunking)
+
+    def _can_launch_ahead(self) -> bool:
+        """True when the next tick may launch before the pending one
+        collects: a pure-decode fused tick that reads no host-side state
+        (device state current, queue empty, no chunk work)."""
+        return (
+            self._fused_steps > 1
+            and not self._state_dirty
+            and not self._chunking
+            and self.scheduler.depth == 0
+            and bool(self._active.any())
+        )
+
+    def run(self, max_ticks: Optional[int] = None, overlap: bool = False) -> List[StreamEvent]:
+        """Tick until idle (or ``max_ticks``); returns all events.
+
+        ``overlap=True`` runs a one-tick-deep pipeline: on pure-decode
+        stretches tick N+1 launches before tick N's results are collected,
+        so tick N's sync and delivery overlap tick N+1's device work.  The
+        output is bitwise equal to the sequential loop: a slot finishing in
+        tick N is already dead in the device live mask tick N+1 carries."""
+        events: List[StreamEvent] = []
+        ticks = 0
+        if not overlap:
+            while self.has_work() and (max_ticks is None or ticks < max_ticks):
+                events.extend(self.step())
+                ticks += 1
+            return events
+        pending: Optional[_PendingTick] = None
+        while True:
+            if pending is not None:
+                if self._can_launch_ahead() and (max_ticks is None or ticks < max_ticks):
+                    nxt = self.launch(ahead=True)
+                    ticks += 1
+                    events.extend(self.collect(pending))
+                    pending = nxt
+                else:
+                    events.extend(self.collect(pending))
+                    pending = None
+                continue
+            if not self.has_work() or (max_ticks is not None and ticks >= max_ticks):
+                break
+            pending = self.launch()
+            ticks += 1
+        return events
+
+    def reset_metrics(self, metrics: Optional[ServingMetrics] = None) -> ServingMetrics:
+        """Swap in a fresh metrics record (new registry unless ``metrics``
+        brings one) and rewire the scheduler to it; returns it."""
+        if metrics is None:
+            metrics = ServingMetrics(logger=self.metrics.logger, log_every=self.metrics.log_every)
+        self.metrics = metrics
+        self.registry = self.metrics.registry
+        self.scheduler.registry = self.registry
+        return self.metrics
+
+    @torch.no_grad()
+    def rebind_params(self, state_dict, version: Optional[str] = None) -> None:
+        """Swap the served weights IN PLACE: ``copy_`` each tensor of
+        ``state_dict`` into the model's parameter of the same name, so every
+        address (and a captured CUDA graph) stays valid.  Names, shapes and
+        dtypes must match the model's exactly (``ValueError`` names the
+        first mismatch); work in flight raises ``RuntimeError``."""
+        if self.has_work():
+            raise RuntimeError(
+                f"rebind_params with work in flight ({self.in_flight} slots, "
+                f"{self.scheduler.depth} queued) — drain or relocate before swapping weights"
+            )
+        current = self.model.state_dict()
+        if set(current) != set(state_dict):
+            missing = sorted(set(current) ^ set(state_dict))
+            raise ValueError(f"rebind_params: names differ ({missing[:3]}) — same-shape swaps only")
+        for name, old in current.items():
+            new = state_dict[name]
+            if tuple(new.shape) != tuple(old.shape) or new.dtype != old.dtype:
+                raise ValueError(
+                    f"rebind_params: {name}: {tuple(new.shape)}/{new.dtype} != served "
+                    f"{tuple(old.shape)}/{old.dtype} — same-shape swaps only"
+                )
+        for name, old in current.items():
+            old.copy_(state_dict[name])
+        if version is not None:
+            self.weights_version = version
+
+    def export_prefix(self, request_id: str):
+        raise _not_ported("export_prefix", "paged")
+
+    def import_prefix(self, export):
+        raise _not_ported("import_prefix", "paged")
+
+    @property
+    def decode_steps_per_tick(self) -> int:
+        """Decode steps per fused tick (1 = the per-step engine)."""
+        return self._fused_steps
+
+    @property
+    def unified_tick(self) -> bool:
+        """Always False: the port's ticks are per-phase."""
+        return False
+
+    @property
+    def prefill_buckets(self) -> Optional[Tuple[int, ...]]:
+        return self._buckets
+
+    @property
+    def prefill_compiles(self) -> int:
+        """Distinct prefill/extend call shapes this engine has issued (the
+        JAX engine's compile count; shapes matter here for kernel choice)."""
+        return len(self._prefill_shapes)
+
+    # -- admission ---------------------------------------------------------
+
+    def _bucket_for(self, length: int) -> int:
+        for b in self._buckets:
+            if b >= length:
+                return b
+        raise AssertionError(f"no bucket >= {length} (buckets {self._buckets})")
+
+    def _admission_key(self, out: RequestOutput):
+        """Scheduler grouping key: same-bucket requests batch into one
+        prefill; a chunked prompt gets a key of its own (it admits alone)."""
+        length = len(out.request.prompt)
+        if self._chunk_tokens is not None and length > self._chunk_tokens:
+            return ("chunk", id(out))
+        if self._buckets is None:
+            return ("exact",)
+        return ("bucket", self._bucket_for(length))
+
+    def _admit_batch(self, admitted: List[RequestOutput]) -> List[StreamEvent]:
+        """Route one tick's admissions: chunked prompts start their slot,
+        prefix hits run as batched remainder extends (grouped by prefix
+        length and remainder bucket), the rest as one padded batched
+        prefill (or batch-1 exact calls without buckets)."""
+        events: List[StreamEvent] = []
+        batch: List[RequestOutput] = []
+        hit_groups: Dict[Tuple[int, int], list] = {}
+        if self.tracer.enabled:
+            for out in admitted:
+                span = self._queue_spans.pop(out.request.request_id, None)
+                if span is not None:
+                    span.finish()
+        for out in admitted:
+            length = len(out.request.prompt)
+            if self._chunk_tokens is not None and length > self._chunk_tokens:
+                events.extend(self._start_chunked(out))
+                continue
+            if self._prefix is not None:
+                hit = self._prefix.lookup(out.request.prompt, self._buckets)
+                if hit is not None:
+                    row, plen = hit
+                    key = (plen, self._bucket_for(length - plen))
+                    hit_groups.setdefault(key, []).append((out, row))
+                    continue
+            batch.append(out)
+        for (plen, width), group in hit_groups.items():
+            events.extend(self._admit_prefix_batch(group, plen, width))
+        if not batch:
+            return events
+        if self._buckets is None:
+            for out in batch:
+                events.append(self._admit_exact(out))
+            return events
+        events.extend(self._admit_bucketed(batch))
+        return events
+
+    def _as_device(self, array, dtype=torch.long) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(array), dtype=dtype).to(self.device)
+
+    def _admit_exact(self, out: RequestOutput) -> StreamEvent:
+        req = out.request
+        slot = self.pool.acquire()
+        assert slot is not None, "scheduler admitted beyond free slots"
+        t0 = self.tracer.now()
+        length = len(req.prompt)
+        prompt = self._as_device([list(req.prompt)])
+        positions = torch.arange(length, device=self.device).expand(1, length)
+        logits, fresh = _prefill_core(self.model, prompt, positions,
+                                      self._as_device([length - 1]))
+        self._prefill_shapes.add(("prefill", 1, length))
+        self.metrics.record_prefill_call()
+        self.pool.insert(fresh, slot)
+        tok0 = self._sample_first(logits, [out])[0]
+        if self.tracer.enabled:
+            self.tracer.record("prefill", f"slot {slot}", t0, self.tracer.now(),
+                               request_id=req.request_id, slot=slot, bucket=length,
+                               cache_hit=False)
+        return self._activate(slot, out, tok0, length)
+
+    def _admit_bucketed(self, outs: List[RequestOutput]) -> List[StreamEvent]:
+        """ONE padded batched prefill for a same-bucket admission group: rows
+        pad right to the bucket width, the batch pads to ``prefill_batch``
+        dummy rows (dropped at the scatter), and the real rows land in their
+        slots in one in-place scatter."""
+        t0 = self.tracer.now()
+        width = self._bucket_for(max(len(o.request.prompt) for o in outs))
+        nb = max(self._prefill_batch, len(outs))
+        tokens = np.zeros((nb, width), np.int64)
+        lengths = np.ones(nb, np.int64)  # dummy rows: 1 real token
+        slots = np.full(nb, self.pool.n_slots, np.int64)  # dummies drop
+        for i, out in enumerate(outs):
+            prompt = out.request.prompt
+            tokens[i, : len(prompt)] = prompt
+            lengths[i] = len(prompt)
+            slot = self.pool.acquire()
+            assert slot is not None, "scheduler admitted beyond free slots"
+            slots[i] = slot
+        positions, last_idx = padded_prefill_inputs(lengths, width, device=self.device)
+        logits, fresh = _prefill_core(self.model, self._as_device(tokens), positions, last_idx)
+        self._prefill_shapes.add(("prefill", nb, width))
+        self.metrics.record_prefill_call()
+        self.pool.scatter(fresh, slots)
+        firsts = self._sample_first(logits, outs)
+        if self.tracer.enabled:
+            t1 = self.tracer.now()
+            self.tracer.record("prefill_batch", "scheduler", t0, t1, bucket=width, rows=nb,
+                               requests=len(outs))
+            for i, out in enumerate(outs):
+                self.tracer.record("prefill", f"slot {int(slots[i])}", t0, t1,
+                                   request_id=out.request.request_id, slot=int(slots[i]),
+                                   bucket=width, cache_hit=False)
+        events = []
+        for i, out in enumerate(outs):
+            self._maybe_store_prefix(out, int(slots[i]))
+            events.append(self._activate(int(slots[i]), out, firsts[i], int(lengths[i])))
+        return events
+
+    def _admit_prefix_batch(self, group: List[tuple], prefix_len: int,
+                            width: int) -> List[StreamEvent]:
+        """Prefix-cache hits sharing (prefix length, remainder bucket): stack
+        the stored rows into one batch-N cache trimmed to the prefix, run
+        every remainder as one padded extend, scatter the rows into their
+        slots."""
+        t0 = self.tracer.now()
+        nb = max(self._prefill_batch, len(group))
+        rows = [row for (_, row) in group]
+        rows += [rows[0]] * (nb - len(rows))  # dummy rows: dropped slots
+        stacked = self.pool.stack_prefix(rows, prefix_len)
+        tokens = np.zeros((nb, width), np.int64)
+        rems = np.ones(nb, np.int64)
+        slots = np.full(nb, self.pool.n_slots, np.int64)
+        for i, (out, _) in enumerate(group):
+            rem = out.request.prompt[prefix_len:]
+            tokens[i, : len(rem)] = rem
+            rems[i] = len(rem)
+            slot = self.pool.acquire()
+            assert slot is not None, "scheduler admitted beyond free slots"
+            slots[i] = slot
+        base, last_idx = padded_prefill_inputs(rems, width, device=self.device)
+        positions = torch.where(base >= 0, base + prefix_len, torch.full_like(base, -1))
+        logits, ext = _extend_core(
+            self.model, self._as_device(tokens), positions, last_idx,
+            torch.full((nb,), prefix_len, dtype=torch.long, device=self.device), stacked,
+        )
+        self._prefill_shapes.add(("extend", nb, width))
+        self.metrics.record_prefill_call()
+        self.pool.scatter(ext, slots)
+        outs = [out for (out, _) in group]
+        firsts = self._sample_first(logits, outs)
+        if self.tracer.enabled:
+            t1 = self.tracer.now()
+            self.tracer.record("prefill_batch", "scheduler", t0, t1, bucket=width, rows=nb,
+                               requests=len(outs), prefix_len=prefix_len)
+            for i, out in enumerate(outs):
+                self.tracer.record("prefill", f"slot {int(slots[i])}", t0, t1,
+                                   request_id=out.request.request_id, slot=int(slots[i]),
+                                   bucket=width, cache_hit=True, prefix_len=prefix_len)
+        events = []
+        for i, out in enumerate(outs):
+            # a hit on a SHORT prefix may re-seed a longer evicted one
+            self._maybe_store_prefix(out, int(slots[i]))
+            events.append(self._activate(int(slots[i]), out, firsts[i],
+                                         len(out.request.prompt)))
+        return events
+
+    def _extend_slot(self, slot: int, tokens_seq, offset: int, width: int) -> torch.Tensor:
+        """Extract the slot's row, extend it with ``tokens_seq`` (padded right
+        to ``width``) at columns ``offset + [0..)``, write it back; returns
+        the extension's last real logits."""
+        take = len(tokens_seq)
+        tokens = np.zeros((1, width), np.int64)
+        tokens[0, :take] = tokens_seq
+        base, last_idx = padded_prefill_inputs([take], width, device=self.device)
+        positions = torch.where(base >= 0, base + offset, torch.full_like(base, -1))
+        row = self.pool.extract(slot)
+        logits, row = _extend_core(self.model, self._as_device(tokens), positions, last_idx,
+                                   self._as_device([offset]), row)
+        self._prefill_shapes.add(("extend", 1, width))
+        self.pool.insert(row, slot)
+        return logits
+
+    def _start_chunked(self, out: RequestOutput) -> List[StreamEvent]:
+        """Claim a slot for a long prompt and run its first chunk (the rest
+        advance one per tick).  A prefix hit seeds the slot and chunking
+        starts at the prefix boundary."""
+        slot = self.pool.acquire()
+        assert slot is not None, "scheduler admitted beyond free slots"
+        offset = 0
+        if self._prefix is not None:
+            hit = self._prefix.lookup(out.request.prompt, self._buckets)
+            if hit is not None:
+                row, offset = hit
+                self.pool.copy_prefix(row, slot, offset)
+        if offset == 0:
+            # incremental writes from here on: invalidate the previous
+            # occupant now (a whole-row insert never happens)
+            self.pool.clear(slot)
+        out.status = RUNNING
+        self._slot_out[slot] = out
+        self._chunking[slot] = _ChunkState(out, offset)
+        return self._advance_chunk(slot)
+
+    def _advance_chunk(self, slot: int) -> List[StreamEvent]:
+        """Run ONE chunk of the slot's prefill; on the final chunk sample the
+        first token and activate the slot for decode."""
+        st = self._chunking[slot]
+        prompt = st.out.request.prompt
+        take = min(self._chunk_tokens, len(prompt) - st.offset)
+        t0 = self.tracer.now()
+        chunk_index = st.offset // self._chunk_tokens
+        logits = self._extend_slot(slot, prompt[st.offset: st.offset + take],
+                                   offset=st.offset, width=self._chunk_tokens)
+        st.offset += take
+        self.metrics.record_prefill_call(chunks=1)
+        if self.tracer.enabled:
+            self.tracer.record("prefill_chunk", f"slot {slot}", t0, self.tracer.now(),
+                               request_id=st.out.request.request_id, slot=slot,
+                               chunk=chunk_index, offset=st.offset,
+                               final=st.offset >= len(prompt))
+        if st.offset < len(prompt):
+            return []
+        del self._chunking[slot]
+        tok0 = self._sample_first(logits, [st.out])[0]
+        self._maybe_store_prefix(st.out, slot)
+        return [self._activate(slot, st.out, tok0, len(prompt))]
+
+    def _maybe_store_prefix(self, out: RequestOutput, slot: int) -> None:
+        """Seed the prefix cache from a freshly prefilled slot row (every
+        bucket-aligned proper prefix of the prompt, first writer wins); the
+        row is copied only when some key would be new."""
+        if self._prefix is None:
+            return
+        prompt = tuple(int(t) for t in out.request.prompt)
+        if all(b >= len(prompt) or prompt[:b] in self._prefix for b in self._buckets):
+            return
+        self._prefix.store(prompt, self._buckets, self.pool.extract(slot))
+
+    def _sample_first(self, logits, outs: List[RequestOutput]) -> List[int]:
+        """Sample each admitted request's first token from its prefill
+        logits (rows beyond ``outs`` are a padded batch's dummies, sampled
+        greedily and discarded)."""
+        nb = logits.shape[0]
+        temp = np.zeros(nb, np.float32)
+        topk = np.zeros(nb, np.int64)
+        topp = np.zeros(nb, np.float32)
+        for i, out in enumerate(outs):
+            sp = out.request.sampling
+            temp[i], topk[i], topp[i] = sp.temperature, sp.top_k, sp.top_p
+        first = sample_tokens(logits, self._gen, self._as_device(temp, torch.float32),
+                              self._as_device(topk), self._as_device(topp, torch.float32))
+        first = first.cpu().numpy()
+        return [int(first[i]) for i in range(len(outs))]
+
+    def _activate(self, slot: int, out: RequestOutput, tok0: int, prompt_len: int) -> StreamEvent:
+        """Commit an admitted request to its slot: decode state, knobs,
+        first-token delivery."""
+        sp = out.request.sampling
+        self._tok[slot] = tok0
+        self._pos[slot] = prompt_len
+        self._widx[slot] = prompt_len
+        self._temp[slot] = sp.temperature
+        self._topk[slot] = sp.top_k
+        self._topp[slot] = sp.top_p
+        self._active[slot] = True
+        self._slot_out[slot] = out
+        self._state_dirty = True
+        out.status = RUNNING
+        out.first_token_time = self.clock()
+        return self._deliver(slot, tok0)
+
+    # -- per-step tick -----------------------------------------------------
+
+    def _launch_per_step(self, p: _PendingTick) -> None:
+        nxt = _decode_core(
+            self.model, self._as_device(self._tok), self._as_device(self._pos),
+            self._as_device(self._widx), self._as_device(self._temp, torch.float32),
+            self._as_device(self._topk), self._as_device(self._topp, torch.float32),
+            self.pool.cache, self._gen,
+        )
+        p.kind = "step"
+        p.payload = nxt
+
+    def _collect_per_step(self, p: _PendingTick) -> List[StreamEvent]:
+        nxt = p.payload.cpu().numpy()  # ONE sync
+        events = []
+        trace = self.tracer.enabled
+        t1 = self.tracer.now()
+        if trace:
+            self.tracer.record("decode_tick", "scheduler", p.t0, t1)
+        # every entering slot's current token was just written; advance
+        # even the slots that retire on this token's delivery
+        for slot in p.entering:
+            if not self._active[slot]:
+                continue  # an earlier slot's on_token callback cancelled it
+            if trace:
+                out = self._slot_out[slot]
+                self.tracer.record("decode", f"slot {slot}", p.t0, t1,
+                                   request_id=out.request.request_id, slot=slot,
+                                   token_index=len(out.tokens))
+            self._pos[slot] += 1
+            self._widx[slot] += 1
+            self._tok[slot] = int(nxt[slot])
+            events.append(self._deliver(slot, int(nxt[slot])))
+        self.metrics.record_dispatch(tokens=len(events))
+        return events
+
+    # -- fused tick --------------------------------------------------------
+
+    def _upload_slot_state(self) -> None:
+        """Rewrite the device slot state and knobs in place from the host
+        mirrors; runs only after a host-side change (admission, release,
+        cancel).  Budget is each live request's remaining new tokens; EOS
+        is -1 for requests without one."""
+        n = self.pool.n_slots
+        budget = np.zeros(n, np.int64)
+        eos = np.full(n, -1, np.int64)
+        for slot in np.nonzero(self._active)[0]:
+            out = self._slot_out[slot]
+            budget[slot] = out.request.max_new_tokens - len(out.tokens)
+            if out.request.eos_token_id is not None:
+                eos[slot] = int(out.request.eos_token_id)
+        host = (self._tok, self._pos, self._widx, self._active, budget,
+                eos, self._temp, self._topk, self._topp)
+        for dst, src in zip(self._dev_state + self._dev_knobs, host):
+            dst.copy_(torch.from_numpy(np.ascontiguousarray(src)))
+        self._state_dirty = False
+
+    def _fused_body(self) -> None:
+        """One fused tick on the device tensors, in place: the T-step body,
+        the new slot state written back, block and counts into the output
+        buffer.  What the CUDA graph captures."""
+        block, counts, state = _fused_decode_core(
+            self.model, self._fused_steps, *self._dev_state, *self._dev_knobs,
+            self.pool.cache, self._gen,
+        )
+        for dst, src in zip(self._dev_state, state):
+            dst.copy_(src)
+        self._dev_out[:-1].copy_(block)
+        self._dev_out[-1].copy_(counts)
+
+    def _capture_fused(self) -> None:
+        """Capture :meth:`_fused_body` as a CUDA graph, once per engine.
+
+        A warm-up run on a side stream first (PyTorch's graph rules); the
+        slot state and the generator are then put back as they were, so
+        the warm-up changes no result.  Its cache writes land at columns
+        the next replay rewrites before reading, or beyond every slot's
+        frontier where the position mask hides them.  The engine's
+        generator is registered with the graph so each replay draws new
+        noise.  Any failure raises."""
+        saved = [t.clone() for t in self._dev_state]
+        gen_state = self._gen.get_state()
+        side = torch.cuda.Stream(device=self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self._fused_body()
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        for dst, src in zip(self._dev_state, saved):
+            dst.copy_(src)
+        self._gen.set_state(gen_state)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self._gen)
+        with torch.cuda.graph(graph):
+            self._fused_body()
+        self._graph = graph
+        self.graph_captures += 1
+
+    def _run_fused_eagerly(self) -> None:
+        """Run the fused tick's body eagerly on a CUDA device instead of
+        replaying its graph: the reference the captured tick is held
+        against (the same body, kernel for kernel)."""
+        self._capture = False
+
+    def _launch_fused(self, p: _PendingTick) -> None:
+        """Launch one fused tick: T masked decode steps (one graph replay on
+        a CUDA device), then an asynchronous copy of block and counts to a
+        host buffer that :meth:`_collect_fused` syncs on."""
+        if self._state_dirty:
+            self._upload_slot_state()
+        if self._capture:
+            if self._graph is None:
+                self._capture_fused()
+            self._graph.replay()
+        else:
+            self._fused_body()
+        host = self._host_out[self._host_turn]
+        self._host_turn ^= 1
+        host.copy_(self._dev_out, non_blocking=True)
+        done = None
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record()
+        p.kind = "fused"
+        p.payload = (host, done)
+
+    def _check_progress(self, p: _PendingTick, counts) -> None:
+        """A slot decode-live at launch enters the tick live with budget >= 1,
+        so zero progress means the device state desynced from the host
+        mirrors: fail loudly instead of spinning forever."""
+        stuck = [s for s in p.entering if counts[s] == 0 and self._active[s]]
+        if stuck:
+            raise RuntimeError(
+                f"fused tick made no progress on active slots {stuck} (device "
+                f"live={self._dev_state[3].cpu().tolist()}, budget="
+                f"{self._dev_state[4].cpu().tolist()}) — slot state desynced from host mirrors"
+            )
+
+    def _deliver_block(self, p: _PendingTick, block, counts, t1) -> List[StreamEvent]:
+        """Deliver a fused tick's [T, n_slots] token block through the
+        per-token delivery path."""
+        events: List[StreamEvent] = []
+        trace = self.tracer.enabled
+        for slot in np.nonzero(self._active)[0]:
+            slot = int(slot)
+            c = int(counts[slot])
+            # re-check: a stream callback may have cancelled this slot
+            if c == 0 or not self._active[slot]:
+                continue
+            if trace:
+                out = self._slot_out[slot]
+                self.tracer.record("decode", f"slot {slot}", p.t0, t1,
+                                   request_id=out.request.request_id, slot=slot,
+                                   token_index=len(out.tokens), tokens=c)
+            # mirrors advance by the full progress BEFORE delivery (which may
+            # release the slot and park the mirror again)
+            self._pos[slot] += c
+            self._widx[slot] += c
+            self._tok[slot] = int(block[c - 1, slot])
+            for t in range(c):
+                event = self._deliver(slot, int(block[t, slot]))
+                events.append(event)
+                if event.finish_reason == FAIL_INTEGRITY:
+                    break  # everything after non-finite logits is garbage
+                if event.finished and t != c - 1:
+                    raise AssertionError(
+                        f"slot {slot}: host finished at token {t + 1} of a {c}-token "
+                        "device block"
+                    )
+                if not self._active[slot]:
+                    break  # finished, or cancelled by the on_token callback
+        return events
+
+    def _collect_fused(self, p: _PendingTick) -> List[StreamEvent]:
+        """Collect one fused tick: ONE sync per T decode steps, then the
+        per-token delivery path (greedy output bitwise equal to the
+        per-step tick's; streaming granularity becomes per tick)."""
+        host, done = p.payload
+        if done is not None:
+            done.synchronize()
+        out = host.numpy()
+        block, counts = out[:-1], out[-1]
+        self._check_progress(p, counts)
+        t1 = self.tracer.now()
+        if self.tracer.enabled:
+            self.tracer.record("decode_tick", "scheduler", p.t0, t1, steps=self._fused_steps,
+                               tokens=int(counts.sum()))
+        events = self._deliver_block(p, block, counts, t1)
+        self.metrics.record_dispatch(tokens=len(events))
+        return events
+
+    # -- delivery ----------------------------------------------------------
+
+    def _fail_integrity(self, slot: int) -> StreamEvent:
+        """The device sampled the NaN/Inf sentinel for this slot: fail the
+        request typed (``FAIL_INTEGRITY``) and release the slot without
+        delivering a token."""
+        out = self._slot_out[slot]
+        req = out.request
+        self.release_slot(slot)
+        out.status = FAILED
+        out.finish_reason = FAIL_INTEGRITY
+        out.detail = "non-finite logits (NaN/Inf) at sampling — refusing to stream garbage tokens"
+        out.finish_time = self.clock()
+        self.integrity_trips += 1
+        self.metrics.record_integrity_trip()
+        if self.tracer.enabled:
+            self.tracer.instant("integrity_trip", track=f"slot {slot}", request_id=req.request_id)
+        event = StreamEvent(request_id=req.request_id, token=-1, index=-1, finished=True,
+                            finish_reason=FAIL_INTEGRITY)
+        if req.on_token is not None:
+            req.on_token(event)
+        return event
+
+    def _deliver(self, slot: int, token: int) -> StreamEvent:
+        """Record one generated token for the request in ``slot``; retire the
+        slot when it finishes the request (EOS or length).  The sentinel
+        never counts as a token: it fails the request typed."""
+        if token == NON_FINITE_TOKEN:
+            return self._fail_integrity(slot)
+        out = self._slot_out[slot]
+        req = out.request
+        now = self.clock()
+        out.tokens.append(token)
+        out.token_times.append(now)
+        finish_reason = None
+        if req.eos_token_id is not None and token == req.eos_token_id:
+            finish_reason = "eos"
+        elif len(out.tokens) >= req.max_new_tokens:
+            finish_reason = "length"
+        event = StreamEvent(request_id=req.request_id, token=token, index=len(out.tokens) - 1,
+                            finished=finish_reason is not None, finish_reason=finish_reason)
+        if finish_reason is not None:
+            if self.tracer.enabled:
+                self.tracer.instant("finish", track=f"slot {slot}", request_id=req.request_id,
+                                    reason=finish_reason, tokens=len(out.tokens))
+            out.status = FINISHED
+            out.finish_reason = finish_reason
+            out.finish_time = now
+            self.release_slot(slot)
+            self.metrics.record_finished(out)
+        if req.on_token is not None:
+            req.on_token(event)
+        return event
