@@ -43,19 +43,30 @@ source, all started together).  Phases, in order; any failure raises:
    16 slots, auto buckets, prefill batch 4, chunks of 256, a prefix cache
    of 4) over 48 requests (prompts of 16-768 tokens, 8 behind one shared
    128-token prefix, 32-128 new tokens, 8 of them sampled; 16 arrive at
-   tick 0, then 4 per tick), run four times: per-step ticks, fused T=8
+   tick 0, then 4 per tick), run seven times: per-step ticks, fused T=8
    ticks run eagerly, fused T=8 ticks replaying one CUDA graph, and the
-   same under ``run(overlap=True)``.  Greedy tokens must be bitwise equal
-   across the four, each captured run must capture one graph, the overlap
-   run must launch ticks ahead, and no flash kernel may
-   launch (the engine reads its cache through ``decode_attention``, as the
-   JAX engine does).  Per run: wall seconds, tokens, TTFT and ITL p50/p95,
-   host ms per tick, host dispatches per token, peak memory, and a
-   16-slot pure-decode stretch ticked the same way: decode tokens/s,
-   device idle share, kernel launches per token and the longest kernels
-   (``torch.profiler``).  Then the weights
-   in fp32 (TF32 off): 8 greedy requests against static ``generate()`` at
-   batch 1, a differing token allowed only on a top-2 logit gap < 1e-4.
+   same under ``run(overlap=True)`` (these four pinned to the per-phase
+   tick); then the unified ragged tick (chunked prefills folded into the
+   fused tick, two CUDA graphs: fused and unified) over the contiguous
+   pool, over the paged pool (``kv_block_tokens="auto"``: 512 blocks of
+   32 tokens), and over the same 512 blocks with 32 slots.  Greedy tokens
+   must be bitwise equal across all but the 32-slot run (whose GEMM batch
+   differs; there every request must finish at its budget), each captured
+   run must capture its pinned number of graphs, the overlap run must
+   launch ticks ahead, the paged runs must return every block, and no
+   flash kernel may launch (the engine reads its cache through
+   ``decode_attention``, as the JAX engine does).  Per run: wall seconds,
+   tokens, TTFT and ITL p50/p95, host ms per tick, host dispatches per
+   token, prefill chunks carried by unified ticks, peak memory (paged:
+   peak blocks in use, copy-on-write copies, block-gate holds), and for
+   five runs a 16-slot pure-decode stretch ticked the same way: decode
+   tokens/s, device idle share, device ms per decode step, kernel
+   launches per token, ``direct_copy`` and gather launches per step and
+   the longest kernels (``torch.profiler``).  One decode step per layout
+   must make no cache-sized copy (contiguous) and exactly one gather per
+   payload per layer (paged).  Then the weights in fp32 (TF32 off): 8
+   greedy requests against static ``generate()`` at batch 1, a differing
+   token allowed only on a top-2 logit gap < 1e-4.
 
 Weights and inputs are made from ``SEED``.  The kernel launch counters are
 set to 0 before each main path (phases 3-4: inference; phase 6's steps:
@@ -65,6 +76,7 @@ object and the ``{"ok": true, ...}`` line.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -767,9 +779,31 @@ SERVE_SAMPLED = 8
 SERVE_SHARED_PREFIX = (8, 128)  # 8 prompts share a 128-token prefix
 SERVE_FIRST_TICK, SERVE_PER_TICK = 16, 4
 SERVE_FP32_REQUESTS = 8
-# the four runs: (name, decode steps per tick, fused body eager, overlap)
-RUNS = (("per_step", 1, False, False), ("fused_eager", 8, True, False),
-        ("fused_graph", 8, False, False), ("fused_graph_overlap", 8, False, True))
+# the runs: (name, decode steps per tick, bodies eager, overlap, engine
+# kwargs).  The first four are pinned to the per-phase tick, so they stay
+# comparable with earlier runs; the unified ones fold chunked prefills into
+# the tick, over the contiguous pool, the paged pool (32-token blocks,
+# 16 x 32 = 512 of them), and the same 512 blocks (the contiguous pool's
+# KV memory) under 32 slots
+PER_PHASE = dict(unified_tick=False)
+PAGED = dict(kv_block_tokens="auto")
+RUNS = (("per_step", 1, False, False, PER_PHASE), ("fused_eager", 8, True, False, PER_PHASE),
+        ("fused_graph", 8, False, False, PER_PHASE),
+        ("fused_graph_overlap", 8, False, True, PER_PHASE),
+        ("unified_graph", 8, False, False, {}),
+        ("paged_unified_graph", 8, False, False, PAGED),
+        ("paged_unified_graph_32slots", 8, False, False,
+         dict(PAGED, n_slots=2 * SERVE_SLOTS, kv_pool_blocks=512)))
+# graph captures each run must make (the 32-slot run is not pinned)
+CAPTURES = dict(per_step=0, fused_eager=0, fused_graph=1, fused_graph_overlap=1,
+                unified_graph=2, paged_unified_graph=2)
+# runs whose greedy tokens must equal per_step's bitwise (the 32-slot run
+# decodes at another GEMM batch, so its bits may differ)
+BITWISE_RUNS = ("fused_eager", "fused_graph", "fused_graph_overlap", "unified_graph",
+                "paged_unified_graph")
+# runs with a pure-decode stretch
+STRETCH_RUNS = ("per_step", "fused_eager", "fused_graph", "fused_graph_overlap",
+                "paged_unified_graph")
 # an fp32 engine token that differs from static generate() must sit on a
 # near-tie of the reference: its top-2 logit gap below this
 FP32_TIE_GAP = 1e-4
@@ -800,11 +834,12 @@ def serve_workload(seed, vocab):
     return out
 
 
-def serve_engine(model, steps, seed, eager=False):
+def serve_engine(model, steps, seed, eager=False, **kwargs):
     from tpu_parallel_torch.serving import SchedulerConfig, ServingEngine
 
     eng = ServingEngine(
-        model, n_slots=SERVE_SLOTS, scheduler=SchedulerConfig(max_prefills_per_tick=4),
+        model, **{"n_slots": SERVE_SLOTS, **kwargs},
+        scheduler=SchedulerConfig(max_prefills_per_tick=4),
         rng=torch.Generator(device=model.device).manual_seed(seed), prefill_buckets="auto",
         prefill_batch=4, prefill_chunk_tokens=256, prefix_cache_size=4,
         decode_steps_per_tick=steps,
@@ -814,13 +849,48 @@ def serve_engine(model, steps, seed, eager=False):
     return eng
 
 
-def serve_run(model, workload, steps, seed, eager=False, overlap=False):
+def _watch_blocks(eng):
+    """Paged engines: count the block gate's holds and the allocator's peak
+    of blocks in use over a run.  Returns a dict the run fills in."""
+    seen = dict(peak_blocks_in_use=0, block_gate_holds=0)
+    allocator, make_gate = eng.pool.allocator, eng._block_gate
+    alloc = allocator.alloc
+
+    def counted_alloc():
+        block = alloc()
+        seen["peak_blocks_in_use"] = max(seen["peak_blocks_in_use"], allocator.in_use)
+        return block
+
+    def counted_gate():
+        gate = make_gate()
+
+        def check(out):
+            admit = gate(out)
+            seen["block_gate_holds"] += not admit
+            return admit
+        return check
+
+    allocator.alloc, eng._block_gate = counted_alloc, counted_gate
+    return seen
+
+
+def serve_run(model, workload, steps, seed, eager=False, overlap=False, **kwargs):
     """One run of the workload: 16 requests at tick 0, then 4 per tick,
     then ``run(overlap=overlap)`` to idle.  Returns (engine, outputs, wall
-    seconds, peak memory)."""
+    seconds, peak memory, block counts of a paged engine)."""
     from tpu_parallel_torch.serving import Request, SamplingParams
 
-    eng = serve_engine(model, steps, seed, eager)
+    eng = serve_engine(model, steps, seed, eager, **kwargs)
+    blocks = _watch_blocks(eng) if "kv_block_tokens" in kwargs else None
+    capture, captured_s = eng._capture_graph, [0.0]
+
+    def timed_capture(body):  # warm-up + capture, inside the run's wall time
+        t0 = time.perf_counter()
+        graph = capture(body)
+        captured_s[0] += time.perf_counter() - t0
+        return graph
+
+    eng._capture_graph = timed_capture
     requests = [
         Request(prompt=p, max_new_tokens=n, request_id=f"r{i}",
                 sampling=SamplingParams(temperature=0.8, top_p=0.9) if hot else SamplingParams())
@@ -836,22 +906,37 @@ def serve_run(model, workload, steps, seed, eager=False, overlap=False):
     eng.run(overlap=overlap)
     torch.cuda.synchronize()
     wall = time.perf_counter() - start
-    return eng, outs, wall, torch.cuda.max_memory_allocated()
+    eng.capture_s = captured_s[0]
+    return eng, outs, wall, torch.cuda.max_memory_allocated(), blocks
 
 
-def decode_stretch(model, steps, seed, ticks, eager=False, overlap=False):
+def _check_blocks_returned(name, eng):
+    """A paged run's end: the allocator audit passes and, once the prefix
+    cache's entries are released, every block is free."""
+    pool = eng.pool
+    pool.allocator.check()
+    for blocks, _ in list(eng._prefix.values()):
+        pool.free_stored(blocks)
+    pool.allocator.check()
+    if pool.blocks_in_use or (pool.block_table >= 0).any():
+        raise AssertionError(f"[serve {name}] {pool.blocks_in_use} blocks still in use")
+
+
+def decode_stretch(model, steps, seed, ticks, eager=False, overlap=False, **kwargs):
     """A profiled stretch of pure-decode ticks: 16 slots decoding (prompts
     of 64 tokens, 512 new each), no admission or prefill inside it, ticked
     as the run of the same name ticks (``run(overlap=...)``).  Returns
     decode tokens/s unprofiled, and the device idle share, kernel launches
-    per token and the ten longest kernels of the profiled ticks."""
+    per token, device ms per decode step, the copy and gather kernels
+    (``direct_copy``, ``index_select``, ``gather``) per step by name, and
+    the ten longest kernels of the profiled ticks."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from tpu_parallel_torch.serving import Request
 
     gen = torch.Generator().manual_seed(seed)
-    eng = serve_engine(model, steps, seed, eager)
+    eng = serve_engine(model, steps, seed, eager, **kwargs)
     for i in range(SERVE_SLOTS):
         prompt = torch.randint(0, model.config.vocab_size, (64,), generator=gen).tolist()
         eng.add_request(Request(prompt=prompt, max_new_tokens=512, request_id=f"d{i}"))
@@ -874,12 +959,21 @@ def decode_stretch(model, steps, seed, ticks, eager=False, overlap=False):
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in events)
     launches = sum(e.count for e in events)
+    decode_steps = ticks * steps
     top = [(e.key[:100], e.count, e.self_device_time_total / 1e3)
            for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]]
+    # copy and gather kernels, one entry per kernel (template) name: a
+    # cache-sized one moves 25 MB per launch, tens of us
+    kinds = [dict(kernel=e.key[:90], launches_per_step=e.count / decode_steps,
+                  ms_per_step=e.self_device_time_total / 1e3 / decode_steps,
+                  us_per_launch=e.self_device_time_total / e.count)
+             for e in sorted(events, key=lambda e: -e.self_device_time_total)
+             if any(m in e.key for m in ("direct_copy", "indexSelect", "scatter_gather"))]
     return dict(decode_tokens_per_s=tps, idle_share=1 - busy_us / wall_us,
                 device_busy_ms=busy_us / 1e3, profiled_wall_ms=wall_us / 1e3,
+                device_ms_per_step=busy_us / 1e3 / decode_steps, decode_steps=decode_steps,
                 kernel_launches_per_token=launches / max(tokens, 1), profiled_tokens=tokens,
-                top_kernels_ms=top)
+                copies_per_step=kinds, top_kernels_ms=top)
 
 
 def fp32_check(seed, workload):
@@ -917,14 +1011,67 @@ def fp32_check(seed, workload):
     return report
 
 
+def cache_sized_copies(model, seed):
+    """Copies of at least one layer's cache payload that one eager decode
+    step at 16 slots dispatches, per layout, by op name (a
+    ``TorchDispatchMode`` over ``decode_step``; the captured ticks replay
+    these same ops)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from tpu_parallel_torch.models.generate import decode_step
+    from tpu_parallel_torch.serving import PagedCachePool
+
+    cfg = model.config
+    n = SERVE_SLOTS
+    cache_numel = cfg.n_heads * n * cfg.seq_len * cfg.head_dim
+    gen = torch.Generator().manual_seed(seed)
+    tok = torch.randint(0, cfg.vocab_size, (n,), generator=gen).cuda()
+    pos = torch.randint(0, cfg.seq_len, (n,), generator=gen).cuda()
+    names = ("copy_", "clone", "_to_copy", "index_select", "contiguous", "cat", "index",
+             "gather", "_reshape_copy")
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__
+            if name in names and isinstance(out, torch.Tensor) and out.numel() >= cache_numel:
+                self.seen[name] = self.seen.get(name, 0) + 1
+            return out
+
+    paged = PagedCachePool(model, n, block_tokens=32, n_blocks=n * cfg.seq_len // 32)
+    for slot in range(n):
+        paged.acquire()
+        paged.ensure_writable(slot, 0, cfg.seq_len)
+    table = torch.from_numpy(paged.block_table).long().cuda()
+    out = {}
+    with torch.inference_mode():
+        for name, cache, kw in (("contiguous", model.init_cache(n), {}),
+                                ("paged", paged.cache, dict(block_table=table))):
+            counter = Count()
+            with counter:
+                decode_step(model, cache, tok, pos, write_index=pos, **kw)
+            out[name] = counter.seen
+    del paged
+    torch.cuda.empty_cache()
+    return out
+
+
 def serve_phase(seed, smi):
     """Phase 7: the continuous-batching engine on GPT-2 125M (bf16, seeded
-    weights) in four runs of one 48-request workload: (i) per-step ticks,
-    (ii) fused T=8 ticks with the body run eagerly, (iii) fused T=8 ticks
-    replaying one CUDA graph, (iv) as (iii) under ``run(overlap=True)``.
-    Greedy tokens bitwise equal across the four, sampled tokens in the
-    vocabulary, one graph capture per captured run, no flash launch; then
-    the fp32 check against static generate()."""
+    weights) over one 48-request workload, run as ``RUNS`` lists: the
+    four per-phase runs ((i) per-step ticks, (ii) fused T=8 ticks with the
+    body run eagerly, (iii) fused T=8 ticks replaying one CUDA graph, (iv)
+    as (iii) under ``run(overlap=True)``), then the unified ragged tick
+    over the contiguous pool, over the paged pool, and over the same 512
+    blocks with 32 slots.  Greedy tokens bitwise equal across all but the
+    32-slot run, sampled tokens in the vocabulary, the pinned graph
+    captures, no flash launch, every block returned by the paged runs;
+    pure-decode stretches, the cache-sized copies of one decode step per
+    layout, then the fp32 check against static generate()."""
     from tpu_parallel_torch.models import GPTLM, gpt2_125m
     from tpu_parallel_torch.ops import flash_attention as fa
 
@@ -933,8 +1080,9 @@ def serve_phase(seed, smi):
     workload = serve_workload(seed, cfg.vocab_size)
     flash_before = [getattr(fa, name) for name in LAUNCH_COUNTERS]
     runs = {}
-    for name, steps, eager, overlap in RUNS:
-        eng, outs, wall, peak = serve_run(model, workload, steps, seed, eager, overlap)
+    for name, steps, eager, overlap, kwargs in RUNS:
+        eng, outs, wall, peak, blocks = serve_run(model, workload, steps, seed, eager, overlap,
+                                                  **kwargs)
         s = eng.metrics.summary()
         bad = [o.request.request_id for o in outs if o.status != "finished"
                or len(o.tokens) != o.request.max_new_tokens]
@@ -943,27 +1091,40 @@ def serve_phase(seed, smi):
         for o in outs:
             if min(o.tokens) < 0 or max(o.tokens) >= cfg.vocab_size:
                 raise AssertionError(f"[serve {name}] {o.request.request_id} tokens out of range")
+        hists = {row["name"]: row for row in eng.registry.snapshot()["histograms"]}
+        unified_ticks = hists.get("serving_unified_tick_tokens", {}).get("count", 0)
         runs[name] = dict(
             tokens={o.request.request_id: o.tokens for o in outs},
             wall_s=wall, tokens_out=s["tokens_out"], tokens_per_s=s["tokens_out"] / wall,
             ttft_ms_p50=s["ttft_ms_p50"], ttft_ms_p95=s["ttft_ms_p95"],
             itl_ms_p50=s["itl_ms_p50"], itl_ms_p95=s["itl_ms_p95"],
             host_ms_per_tick_p50=s["host_ms_per_tick_p50"],
-            host_ms_per_tick_p95=s["host_ms_per_tick_p95"], ticks=s["ticks"],
+            host_ms_per_tick_p95=s["host_ms_per_tick_p95"],
+            host_ms_per_tick_max=hists["serving_host_ms_per_tick"]["max"],
+            graph_capture_s=eng.capture_s, ticks=s["ticks"],
             host_dispatches_per_token=s["host_dispatches"] / s["tokens_out"],
             prefix_hits=s["prefix_hits"], prefix_misses=s["prefix_misses"],
             prefill_calls=s["prefill_calls"], prefill_chunks=s["prefill_chunks"],
-            peak_memory_gib=peak / 2**30, graph_captures=eng.graph_captures,
+            unified_ticks=unified_ticks, unified_chunks=s["prefill_chunks"] if eng.unified_tick
+            else 0, peak_memory_gib=peak / 2**30, graph_captures=eng.graph_captures,
             host_overlap_ratio=s["host_overlap_ratio"],
         )
+        if blocks is not None:
+            runs[name].update(blocks, cow_copies=eng.pool.cow_copies, n_blocks=eng.pool.n_blocks,
+                              block_tokens=eng.pool.block_tokens, slots=eng.pool.n_slots)
+            _check_blocks_returned(name, eng)
+        # the measuring wrappers tie the engine into reference cycles: free
+        # its pool now, so the next run's peak memory is its own
         del eng
-    captures = {name: r["graph_captures"] for name, r in runs.items()}
-    if captures != dict(per_step=0, fused_eager=0, fused_graph=1, fused_graph_overlap=1):
-        raise AssertionError(f"graph captures by run: {captures}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    captures = {name: r["graph_captures"] for name, r in runs.items() if name in CAPTURES}
+    if captures != CAPTURES:
+        raise AssertionError(f"graph captures by run: {captures}, want {CAPTURES}")
     if not runs["fused_graph_overlap"]["host_overlap_ratio"] > 0:
         raise AssertionError("run(overlap=True) never launched a tick ahead")
     greedy = [f"r{i}" for i, (_, _, hot) in enumerate(workload) if not hot]
-    for name in ("fused_eager", "fused_graph", "fused_graph_overlap"):
+    for name in BITWISE_RUNS:
         differ = [r for r in greedy if runs[name]["tokens"][r] != runs["per_step"]["tokens"][r]]
         if differ:
             r = differ[0]
@@ -971,41 +1132,63 @@ def serve_phase(seed, smi):
             step = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
             raise AssertionError(f"[serve] greedy tokens of {len(differ)} requests differ between "
                                  f"per_step and {name} (first: {r} at token {step})")
+    same_32 = sum(runs["paged_unified_graph_32slots"]["tokens"][r] == runs["per_step"]["tokens"][r]
+                  for r in greedy)
     moved = [getattr(fa, name) - n for name, n in zip(LAUNCH_COUNTERS, flash_before)]
     if any(moved):
         raise AssertionError(f"the serving path launched flash kernels: {moved}")
-    for name, steps, eager, overlap in RUNS:
-        runs[name]["decode_stretch"] = decode_stretch(model, steps, seed, 64 // steps, eager,
-                                                      overlap)
+    for name, steps, eager, overlap, kwargs in RUNS:
+        if name in STRETCH_RUNS:
+            runs[name]["decode_stretch"] = decode_stretch(model, steps, seed, 64 // steps, eager,
+                                                          overlap, **kwargs)
+    copies = cache_sized_copies(model, seed)
+    if copies["contiguous"] or copies["paged"] != {"index_select": 2 * cfg.n_layers}:
+        raise AssertionError(f"cache-sized copies of one decode step: {copies}, want none "
+                             f"contiguous and {2 * cfg.n_layers} gathers paged")
     del model
     torch.cuda.empty_cache()
     fp32 = fp32_check(seed, workload)
     for name, r in runs.items():
-        d = r["decode_stretch"]
         log(f"[serve {name}] {r['wall_s']:.3f} s wall, {r['tokens_out']} tokens out "
             f"({r['tokens_per_s']:.1f} tokens/s over the run), {r['ticks']} ticks; TTFT p50 "
             f"{r['ttft_ms_p50']} ms p95 {r['ttft_ms_p95']} ms; ITL p50 {r['itl_ms_p50']} ms p95 "
             f"{r['itl_ms_p95']} ms; host ms per tick p50 {r['host_ms_per_tick_p50']} p95 "
-            f"{r['host_ms_per_tick_p95']}; host dispatches per token "
+            f"{r['host_ms_per_tick_p95']} max {r['host_ms_per_tick_max']:.3f} (graph warm-up "
+            f"and capture {r['graph_capture_s']:.3f} s); host dispatches per token "
             f"{r['host_dispatches_per_token']:.4f}; prefix hits {r['prefix_hits']} misses "
             f"{r['prefix_misses']}; prefill calls {r['prefill_calls']} (chunks "
-            f"{r['prefill_chunks']}); peak memory {r['peak_memory_gib']:.2f} GiB; graph "
-            f"captures {r['graph_captures']}; host overlap ratio {r['host_overlap_ratio']}")
+            f"{r['prefill_chunks']}); unified ticks {r['unified_ticks']} carrying "
+            f"{r['unified_chunks']} prefill chunks; peak memory {r['peak_memory_gib']:.2f} GiB; "
+            f"graph captures {r['graph_captures']}; host overlap ratio {r['host_overlap_ratio']}")
+        if "peak_blocks_in_use" in r:
+            log(f"  paged: {r['slots']} slots over {r['n_blocks']} blocks of "
+                f"{r['block_tokens']} tokens; peak blocks in use {r['peak_blocks_in_use']}; "
+                f"copy-on-write copies {r['cow_copies']}; block-gate holds "
+                f"{r['block_gate_holds']}; every block free at the end")
+        d = r.get("decode_stretch")
+        if d is None:
+            continue
         log(f"  pure decode, 16 slots: {d['decode_tokens_per_s']:.1f} decode tokens/s; "
             f"profiled {d['profiled_tokens']} tokens: device busy {d['device_busy_ms']:.3f} ms "
             f"of {d['profiled_wall_ms']:.3f} ms (idle share {d['idle_share']:.3f}), "
+            f"{d['device_ms_per_step']:.4f} device ms per decode step, "
             f"{d['kernel_launches_per_token']:.2f} kernel launches per token")
+        for c in d["copies_per_step"]:
+            log(f"    copy/gather per decode step: {c['launches_per_step']:6.2f} launches, "
+                f"{c['ms_per_step']:.4f} ms, {c['us_per_launch']:7.2f} us each: {c['kernel']}")
         for key, count, ms in d["top_kernels_ms"]:
             log(f"    {ms:9.3f} ms {100 * ms / d['device_busy_ms']:5.1f}% x{count:<5d} {key}")
+    log(f"[serve] cache-sized copies in one decode step at 16 slots: contiguous "
+        f"{copies['contiguous']}, paged {copies['paged']}")
     log(f"[serve] greedy tokens of {len(greedy)} requests bitwise equal across per_step, "
-        f"fused_eager, fused_graph and fused_graph_overlap; {SERVE_SAMPLED} sampled requests "
-        f"in vocabulary; "
-        f"no flash launch; fp32 engine vs generate(): "
+        f"{', '.join(BITWISE_RUNS)}; paged_unified_graph_32slots: every request at its budget, "
+        f"{same_32}/{len(greedy)} greedy requests equal per_step's; {SERVE_SAMPLED} sampled "
+        f"requests in vocabulary; no flash launch; fp32 engine vs generate(): "
         f"{sum(r['equal'] for r in fp32)}/{len(fp32)} equal {fp32}")
     log(f"card: {smi}")
     for r in runs.values():
         del r["tokens"]
-    return dict(runs=runs, fp32=fp32)
+    return dict(runs=runs, fp32=fp32, cache_sized_copies=copies)
 
 
 def main():

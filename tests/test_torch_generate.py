@@ -192,7 +192,7 @@ def test_model_refuses_unported_cache_modes_and_overlong_input():
     _, _, model = _pair()
     tokens = torch.zeros(1, 4, dtype=torch.long)
     cache = model.init_cache(1)
-    with pytest.raises(NotImplementedError, match="block_table"):
+    with pytest.raises(ValueError, match="block_table needs the paged KV cache"):
         model(tokens, decode=True, cache=cache, write_index=torch.zeros(1, dtype=torch.long),
               block_table=torch.zeros(1, 4, dtype=torch.long))
     with pytest.raises(ValueError, match="needs a cache"):

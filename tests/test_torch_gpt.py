@@ -129,7 +129,7 @@ def test_seeded_init_is_deterministic_and_flax_like():
 
 @pytest.mark.parametrize("field,value", [
     ("positional", "rope"), ("norm", "rmsnorm"), ("prenorm", False),
-    ("kv_cache_dtype", "int8"), ("kv_block_tokens", 4), ("beam_width", 2),
+    ("kv_cache_dtype", "int8"), ("beam_width", 2),
     ("bidirectional", True), ("moe_experts", 4), ("mlp", "swiglu"),
     ("attn_impl", "ring"), ("pipe_size", 2),
 ])

@@ -7,9 +7,9 @@ case drives both engines through the same script (same requests, ids,
 arrival ticks and an injected clock) and holds the port to the JAX engine
 exactly: every request's status, ``finish_reason`` and tokens, and the
 sequence of ``StreamEvent``s (request id, token, index, finished,
-reason).  The JAX engine runs with ``unified_tick=False``: the port's
-``"auto"`` resolves to the per-phase tick, which JAX pins bitwise equal
-to the unified one for greedy output.  Sampled tokens are not compared
+reason).  Both engines run at their defaults (``unified_tick="auto"``:
+the unified ragged tick whenever the fused tick is on); the
+``*_per_phase`` cases pin both to ``unified_tick=False``.  Sampled tokens are not compared
 across the two (a ``torch.Generator`` does not give JAX's random bits);
 the port-only cases check them.
 
@@ -67,28 +67,43 @@ def pair():
     from tpu_parallel_torch.models.convert import params_from_jax
     from tpu_parallel_torch import serving as tserving
 
-    jm = JaxGPTLM(jax_tiny_test(dtype=jnp.float32, remat=False))
-    params = jm.init({"params": jax.random.PRNGKey(1)}, jnp.zeros((1, 5), jnp.int32),
-                     train=False)["params"]
-    cfg = tiny_test()
-    model = GPTLM(cfg, device="cpu")
-    model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params), cfg))
-    model.eval()
-    jax_side = types.SimpleNamespace(
-        api=jserving, make=lambda m=None, **kw: jserving.ServingEngine(
-            jm, params if m is None else m, unified_tick=False, **_with_clock(kw)),
-        poisoned=jax.tree_util.tree_map(
-            lambda x: jnp.full_like(x, jnp.nan) if jnp.issubdtype(x.dtype, jnp.floating) else x,
-            params),
-        own_weights=lambda: params,
-    )
-    port_side = types.SimpleNamespace(
-        api=tserving, make=lambda m=None, **kw: tserving.ServingEngine(
-            model if m is None else m, **_with_clock(kw)),
-        poisoned=_poisoned(model),
-        own_weights=lambda: copy.deepcopy(model),
-    )
-    return jax_side, port_side, model
+    built = {}
+
+    def bridged(overrides):
+        """(JAX model, params, port model) of tiny_test(**overrides), one
+        flax init bridged into the port, built once per config."""
+        key = tuple(sorted(overrides.items()))
+        if key not in built:
+            jm = JaxGPTLM(jax_tiny_test(dtype=jnp.float32, remat=False, **overrides))
+            params = jm.init({"params": jax.random.PRNGKey(1)}, jnp.zeros((1, 5), jnp.int32),
+                             train=False)["params"]
+            cfg = tiny_test(**overrides)
+            model = GPTLM(cfg, device="cpu")
+            model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params), cfg))
+            built[key] = (jm, params, model.eval())
+        return built[key]
+
+    def sides(**overrides):
+        jm, params, model = bridged(overrides)
+        jax_side = types.SimpleNamespace(
+            api=jserving, make=lambda m=None, **kw: jserving.ServingEngine(
+                jm, params if m is None else m, **_with_clock(kw)),
+            poisoned=jax.tree_util.tree_map(
+                lambda x: jnp.full_like(x, jnp.nan) if jnp.issubdtype(x.dtype, jnp.floating)
+                else x, params),
+            own_weights=lambda: params,
+            variant=lambda **o: sides(**o)[0],
+        )
+        port_side = types.SimpleNamespace(
+            api=tserving, make=lambda m=None, **kw: tserving.ServingEngine(
+                model if m is None else m, **_with_clock(kw)),
+            poisoned=_poisoned(model),
+            own_weights=lambda: copy.deepcopy(model),
+            variant=lambda **o: sides(**o)[1],
+        )
+        return jax_side, port_side, model
+
+    return sides()
 
 
 def _with_clock(kw):
@@ -116,6 +131,49 @@ def _record(outs, events):
 
 def _req(side, prompt, n, rid, **kw):
     return side.api.Request(prompt=prompt, max_new_tokens=n, request_id=rid, **kw)
+
+
+def _mixed_on(**overrides):
+    """A mixed script on a variant config: staggered arrivals, chunked
+    prefill folded into the fused tick, prompts across the window."""
+    def case(side):
+        return _staggered(side.variant(**overrides), _prompts(15, [3, 14, 9, 11, 6]),
+                          [10, 8, 12, 6, 9], n_slots=2, prefill_buckets=(4, 8, 16),
+                          prefill_chunk_tokens=5)
+    return case
+
+
+def case_seq_len_prompts_chunked_paged(side):
+    """Prompts whose prompt + budget fill seq_len exactly (the last
+    logical block and column), chunked, over the paged pool."""
+    prompts = _prompts(16, [31, 29, 24, 17])
+    eng = side.make(n_slots=2, scheduler=side.api.SchedulerConfig(max_prefills_per_tick=2),
+                    prefill_buckets=(8, 16, 32), prefill_chunk_tokens=6,
+                    kv_block_tokens="auto")
+    outs = [eng.add_request(_req(side, p, 32 - len(p), f"r{i}")) for i, p in enumerate(prompts)]
+    return outs, eng.run()
+
+
+def case_top_k_1_beside_greedy(side):
+    """Temperature-1 requests with top_k=1 (their filter leaves the argmax)
+    share fused ticks with greedy ones: deterministic on both sides."""
+    prompts = _prompts(17, [4, 7, 5, 9])
+    eng = side.make(n_slots=4, scheduler=side.api.SchedulerConfig(max_prefills_per_tick=4),
+                    decode_steps_per_tick=4)
+    knobs = [dict(), dict(temperature=1.0, top_k=1)]
+    outs = [eng.add_request(_req(side, p, 10, f"r{i}",
+                                 sampling=side.api.SamplingParams(**knobs[i % 2])))
+            for i, p in enumerate(prompts)]
+    return outs, eng.run()
+
+
+def _per_phase(case):
+    """``case`` with both engines pinned to the per-phase tick."""
+    def pinned(side):
+        make = side.make
+        return case(types.SimpleNamespace(
+            **{**vars(side), "make": lambda m=None, **kw: make(m, unified_tick=False, **kw)}))
+    return pinned
 
 
 # -- the cases: each drives one engine through a script and returns
@@ -330,6 +388,12 @@ CASES = {
     "nan_sentinel_mid_fused_tick": case_nan_sentinel_mid_fused_tick,
     "sequential_run": _overlap(False),
     "overlap_run": _overlap(True),
+    "attn_window": _mixed_on(attn_window=6),
+    "gqa_window": _mixed_on(n_kv_heads=2, attn_window=6),
+    "seq_len_prompts_chunked_paged": case_seq_len_prompts_chunked_paged,
+    "top_k_1_beside_greedy": case_top_k_1_beside_greedy,
+    "chunked_3_per_phase": _per_phase(_chunked(3)),
+    "fused_chunked_interleave_per_phase": _per_phase(case_fused_chunked_interleave),
 }
 
 # what each case must show on the port's side besides agreeing with JAX
@@ -337,6 +401,10 @@ EXPECT = {
     "simultaneous": dict(statuses={FINISHED}),
     "bucketed_staggered": dict(statuses={FINISHED}),
     "prefix_reuse": dict(statuses={FINISHED}),
+    "attn_window": dict(statuses={FINISHED}),
+    "gqa_window": dict(statuses={FINISHED}),
+    "seq_len_prompts_chunked_paged": dict(statuses={FINISHED}),
+    "top_k_1_beside_greedy": dict(statuses={FINISHED}),
     "fused_t8_eos_mid_block": dict(reasons={"eos", "length"}),
     "cancel_from_stream_callback": dict(statuses={FINISHED, CANCELLED}),
     "queue_timeout": dict(statuses={FINISHED, EXPIRED}),
@@ -426,14 +494,12 @@ def test_same_seed_same_sampled_stream(model, steps):
 
 
 REFUSED = {
-    "kv_block_tokens": dict(kv_block_tokens=8),
-    "kv_block_tokens_auto": dict(kv_block_tokens="auto"),
     "kv_radix_cache": dict(kv_radix_cache=True),
     "kv_host_blocks": dict(kv_host_blocks=4),
     "kv_disk": dict(kv_disk_dir="kv", kv_disk_blocks=4),
     "draft_tokens": dict(draft_tokens=2),
+    "draft_tokens_paged": dict(draft_tokens=2, kv_block_tokens=8),
     "drafter": dict(drafter=object()),
-    "unified_tick": dict(unified_tick=True),
     "mesh": dict(mesh=object()),
 }
 
@@ -452,7 +518,7 @@ def test_refused_int8_cache_and_prefix_export(model):
         eng.export_prefix("r0")
     with pytest.raises(NotImplementedError, match="later slice of the port"):
         eng.import_prefix(None)
-    assert eng.decode_steps_per_tick == 8 and eng.unified_tick is False
+    assert eng.decode_steps_per_tick == 8 and eng.unified_tick is True
     assert eng.graph_captures == 0  # the CPU runs the fused body eagerly
 
 
@@ -596,7 +662,7 @@ def test_captured_fused_tick_equals_eager(cuda):
         eng, outs = _card_engine(model, eager)
         for _ in range(3):
             eng.step()
-        results.append(([o.tokens for o in outs], [c.key_buf.clone() for c in eng.pool.cache],
+        results.append(([o.tokens for o in outs], [c.key.clone() for c in eng.pool.cache],
                         eng.graph_captures))
     (eager_toks, eager_cache, n0), (graph_toks, graph_cache, n1) = results
     assert (n0, n1) == (0, 1)
@@ -617,7 +683,7 @@ def test_graph_replays_draw_new_noise_and_seed_repeats(cuda):
     for _ in range(2):
         for dst, src in zip(eng._dev_state, saved):
             dst.copy_(src)
-        eng._graph.replay()
+        eng._graphs["fused"].replay()
         blocks.append(eng._dev_out.clone())
     assert not torch.equal(blocks[0], blocks[1])
     runs = []

@@ -133,14 +133,14 @@ def test_parked_and_out_of_range_writes_leave_cache_unchanged(pair, start, t):
     _, _, model = pair
     _, cache = _prefilled(pair, [6, 2])
     before = [(c.key.clone(), c.value.clone(), c.pos.clone()) for c in cache]
-    ptrs = [c.key_buf.data_ptr() for c in cache]
+    ptrs = [c.key_store.data_ptr() for c in cache]
     tokens = torch.from_numpy(_tokens(3, (2, t))).long()
     positions = torch.arange(t).expand(2, t) + 10  # a parked row's stale, valid positions
     with torch.no_grad():
         tgen.prefill_extend_step(model, cache, tokens, positions, torch.tensor([start, start]))
     in_range = [col for col in range(start, start + t) if col < SEQ]
     for c, (k, v, p), ptr in zip(cache, before, ptrs):
-        assert c.key_buf.data_ptr() == ptr
+        assert c.key_store.data_ptr() == ptr
         keep = [col for col in range(SEQ) if col not in in_range]
         assert torch.equal(c.key[:, keep], k[:, keep])
         assert torch.equal(c.value[:, keep], v[:, keep])
@@ -319,30 +319,30 @@ def _pool_and_fresh(pair, n_slots=3):
 
 def test_scatter_drops_dummy_rows_in_place(pair):
     pool, fresh = _pool_and_fresh(pair)
-    ptrs = [(c.key_buf.data_ptr(), c.pos_buf.data_ptr()) for c in pool]
-    before = [c.pos_buf.clone() for c in pool]
+    ptrs = [(c.key_store.data_ptr(), c.pos_store.data_ptr()) for c in pool]
+    before = [c.pos.clone() for c in pool]
     cache_pool.scatter_rows(pool, fresh, [2, 3, 0, 7])  # rows 1 and 3: out of range
     for c, f, b, ptr in zip(pool, fresh, before, ptrs):
-        assert (c.key_buf.data_ptr(), c.pos_buf.data_ptr()) == ptr
-        assert torch.equal(c.key_buf[2], f.key_buf[0]) and torch.equal(c.pos_buf[0], f.pos_buf[2])
-        assert torch.equal(c.pos_buf[1], b[1])
+        assert (c.key_store.data_ptr(), c.pos_store.data_ptr()) == ptr
+        assert torch.equal(c.key[2], f.key[0]) and torch.equal(c.pos[0], f.pos[2])
+        assert torch.equal(c.pos[1], b[1])
 
 
 def test_copy_stack_clear_and_extract(pair):
     pool, fresh = _pool_and_fresh(pair)
     cache_pool.insert_rows(pool, fresh, 1)
     row = cache_pool.extract_rows(pool, 1)
-    assert row[0].key_buf.data_ptr() != pool[0].key_buf.data_ptr()
-    assert torch.equal(row[0].pos_buf[0], fresh[0].pos_buf[0])
+    assert row[0].key_store.data_ptr() != pool[0].key_store.data_ptr()
+    assert torch.equal(row[0].pos[0], fresh[0].pos[0])
     cache_pool.copy_prefix_rows(pool, row, 2, 3)
     for c in pool:
         assert c.pos[2, :3].tolist() == [0, 1, 2] and (c.pos[2, 3:] == -1).all()
-        assert torch.equal(c.key_buf[2], c.key_buf[1])
+        assert torch.equal(c.key[2], c.key[1])
     stacked = cache_pool.stack_prefix_rows([row, row], 4)
     assert stacked[0].pos.shape == (2, SEQ)
     assert stacked[0].pos[:, :4].tolist() == [[0, 1, 2, 3]] * 2 and (stacked[0].pos[:, 4:] == -1).all()
     cache_pool.clear_rows(pool, 1)
-    assert all((c.pos_buf[1] == -1).all() for c in pool)
+    assert all((c.pos[1] == -1).all() for c in pool)
     pool_obj = cache_pool.CachePool(pair[2], 2)
     assert [pool_obj.acquire(), pool_obj.acquire(), pool_obj.acquire()] == [0, 1, None]
     pool_obj.release(1)

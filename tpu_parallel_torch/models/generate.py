@@ -46,15 +46,19 @@ def _sample(logits, generator: Optional[torch.Generator], temperature: float,
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 
-def decode_step(model: GPTLM, cache: List[KVCache], tok, positions, write_index=None):
+def decode_step(model: GPTLM, cache: List[KVCache], tok, positions, write_index=None,
+                block_table=None):
     """One single-token decode tick.  ``tok``/``positions``: [batch] current
     tokens and their global positions.  ``write_index`` [batch] (the serving
     engine's slot pool) writes row r's K/V at its own column
     ``write_index[r]`` (out-of-range columns are dropped); without it the
-    step writes at the cache's scalar index.  Returns ``(hidden [batch, 1,
-    d_model], cache)``; the cache is the same object, updated in place."""
+    step writes at the cache's scalar index.  ``block_table`` routes the
+    reads and writes through a paged pool (:class:`PagedKVCache`).  Returns
+    ``(hidden [batch, 1, d_model], cache)``; the cache is the same object,
+    updated in place."""
     hidden = model(tok[:, None], positions=positions[:, None], decode=True,
-                   hidden_only=True, cache=cache, write_index=write_index)
+                   hidden_only=True, cache=cache, write_index=write_index,
+                   block_table=block_table)
     return hidden, cache
 
 
@@ -78,16 +82,19 @@ def prefill_step(model: GPTLM, tokens, positions) -> Tuple[torch.Tensor, List[KV
 
 
 def prefill_extend_step(model: GPTLM, cache: List[KVCache], tokens, positions,
-                        write_start) -> Tuple[torch.Tensor, List[KVCache]]:
+                        write_start, block_table=None) -> Tuple[torch.Tensor, List[KVCache]]:
     """Continue a prefill INTO an existing cache: ``tokens`` [b, T] at
     global ``positions`` [b, T] (pads -1), K/V written at columns
     ``write_start + [0..T)`` per row.  Each chunk attends the cached prefix
     and itself through the stored positions, so chunks give the same
     values as one monolithic prefill.  The chunked-prefill and prefix-reuse
-    core of the serving engine.  Returns ``(hidden [b, T, d_model],
-    cache)``, the cache updated in place."""
+    core of the serving engine; with ``block_table`` the writes land in a
+    paged pool through each row's table (the paged admission and the
+    unified tick's chunk phase, where rows that are not prefilling ride
+    along all-pad with ``write_start`` at ``seq_len``).  Returns
+    ``(hidden [b, T, d_model], cache)``, the cache updated in place."""
     hidden = model(tokens, positions=positions, decode=True, hidden_only=True,
-                   cache=cache, write_index=write_start)
+                   cache=cache, write_index=write_start, block_table=block_table)
     return hidden, cache
 
 

@@ -22,6 +22,7 @@ from tpu_parallel_torch.models.layers import (
     BlockStack,
     Embedding,
     KVCache,
+    PagedKVCache,
     TransformerConfig,
     make_norm,
 )
@@ -78,8 +79,13 @@ class GPTLM(nn.Module):
 
     def init_cache(self, batch: int) -> List[KVCache]:
         """An empty decode cache, one :class:`KVCache` of ``seq_len`` slots
-        per layer, for ``batch`` rows."""
-        return [KVCache.empty(self.config, batch, self.device) for _ in range(self.config.n_layers)]
+        per layer, for ``batch`` rows; under ``kv_block_tokens`` > 0 one
+        :class:`PagedKVCache` pool per layer instead (row-count free, as
+        JAX's paged cache: rows address it through block tables)."""
+        cfg = self.config
+        if cfg.kv_block_tokens:
+            return [PagedKVCache.empty(cfg, self.device) for _ in range(cfg.n_layers)]
+        return [KVCache.empty(cfg, batch, self.device) for _ in range(cfg.n_layers)]
 
     def forward(self, tokens, positions=None, segment_ids=None, decode: bool = False,
                 hidden_only: bool = False, cache: Optional[List[KVCache]] = None,
@@ -89,14 +95,12 @@ class GPTLM(nn.Module):
         the cache's write index.  ``write_index`` [batch] (the serving
         engine's slot-indexed writes) puts row r's tokens at cache columns
         ``write_index[r] + [0..T)``, dropping targets outside the cache.
-        ``block_table`` (the paged cache) is not in the port yet and
-        raises."""
+        ``block_table`` [batch, seq_len // block_tokens] addresses a
+        :class:`PagedKVCache` pool (-1 = unmapped: reads masked out, writes
+        dropped); it needs ``write_index``."""
         cfg = self.config
-        if block_table is not None:
-            raise NotImplementedError(
-                "paged (block_table) cache writes come with the paged KV pool, "
-                "which the PyTorch port does not have yet"
-            )
+        if block_table is not None and not decode:
+            raise ValueError("block_table needs decode=True")
         if write_index is not None and not decode:
             raise ValueError("write_index needs decode=True")
         if decode:
@@ -111,7 +115,7 @@ class GPTLM(nn.Module):
             raise ValueError(f"{tokens.shape[1]} tokens exceed seq_len {cfg.seq_len}")
         x = self.embed(tokens, positions)
         x = self.blocks(x, positions, segment_ids, decode, cache if decode else None,
-                        write_index)
+                        write_index, block_table)
         x = self.norm_final(x).to(cfg.dtype)
         if hidden_only:
             return x

@@ -39,8 +39,6 @@ _UNSUPPORTED = (
     ("prenorm", True, "post-norm blocks"),
     ("embed_norm", False, "an embedding LayerNorm"),
     ("kv_cache_dtype", "bf16", "the int8 KV cache"),
-    ("kv_block_tokens", 0, "the paged KV cache"),
-    ("kv_pool_blocks", 0, "the paged KV cache"),
     ("beam_width", 0, "lazy beam search"),
     ("bidirectional", False, "bidirectional attention"),
     ("moe_experts", 0, "mixture of experts"),
@@ -69,7 +67,11 @@ class TransformerConfig:
     the mesh-axis names and ``num_microbatches`` are compile or
     parallelism knobs of the JAX package; they change nothing here.
     ``flash_block_q``/``flash_block_k`` stay for API parity: the CUDA
-    kernels' tiles are their own constants.
+    kernels' tiles are their own constants.  ``kv_block_tokens`` > 0
+    makes :meth:`GPTLM.init_cache` return the block-paged cache
+    (:class:`PagedKVCache`, ``kv_pool_blocks`` blocks of
+    ``kv_block_tokens`` positions per layer) that the serving engine
+    addresses through block tables.
     """
 
     vocab_size: int = 50304
@@ -138,6 +140,17 @@ class TransformerConfig:
             raise ValueError(f"n_kv_heads={n_kv} must divide n_heads={self.n_heads}")
         if self.d_model % self.n_heads != 0:
             raise ValueError(f"n_heads={self.n_heads} must divide d_model={self.d_model}")
+        if self.kv_block_tokens < 0:
+            raise ValueError(f"kv_block_tokens={self.kv_block_tokens} < 0")
+        if self.kv_block_tokens and self.seq_len % self.kv_block_tokens:
+            raise ValueError(
+                f"kv_block_tokens={self.kv_block_tokens} must divide seq_len={self.seq_len}"
+            )
+        if self.kv_block_tokens and self.kv_pool_blocks < 1:
+            raise ValueError(
+                f"kv_block_tokens={self.kv_block_tokens} needs kv_pool_blocks >= 1 "
+                f"(got {self.kv_pool_blocks})"
+            )
 
     @property
     def head_dim(self) -> int:
@@ -250,33 +263,43 @@ def causal_attention(q, k, v, *, segment_ids=None, window: int = 0,
         return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def decode_attention(q, k_all, v_all, positions, window: int = 0,
+def decode_attention(q, k_heads, v_heads, positions, window: int = 0,
                      k_positions=None) -> torch.Tensor:
     """New queries against a whole KV cache, GQA-native.
 
     ``q`` [batch, new_len, heads, head_dim] at global ``positions``
-    [batch, new_len]; ``k_all``/``v_all`` [batch, cache_len, kv_heads,
-    head_dim].  ``k_positions`` [batch, cache_len] is the global position each
-    slot holds (-1: empty, never attended); None means slot j holds position
-    j.  A slot is visible when ``0 <= kp <= qp`` (and ``qp - kp < window``).
+    [batch, new_len]; ``k_heads``/``v_heads`` [kv_heads, batch, cache_len,
+    head_dim], contiguous: the caches' read layout, in which kv_heads and
+    batch collapse into the one batch dimension of both batched products,
+    so the cache is read as it lies (no relayout copy).  ``k_positions``
+    [batch, cache_len] is the global position each slot holds (-1: empty,
+    never attended); None means slot j holds position j.  A slot is
+    visible when ``0 <= kp <= qp`` (and ``qp - kp < window``).  The math
+    is JAX's ``decode_attention``: scaled q in its dtype, fp32 scores and
+    softmax, probabilities back in q's dtype.
     """
     b, nq, h, head_dim = q.shape
-    h_kv = k_all.shape[2]
+    h_kv, _, cache_len, _ = k_heads.shape
     group = h // h_kv
     scale = _inv_sqrt_head_dim(head_dim, q.dtype)
-    qg = (q * scale).reshape(b, nq, h_kv, group, head_dim)
-    scores = torch.einsum("bqngd,bknd->bngqk", qg, k_all).float()
+    # queries as [kv_heads, batch, group, new_len, head_dim]: q-sized
+    qh = (q.reshape(b, nq, h_kv, group, head_dim).permute(2, 0, 3, 1, 4) * scale).reshape(
+        h_kv * b, group * nq, head_dim)
+    k = k_heads.view(h_kv * b, cache_len, head_dim)
+    v = v_heads.view(h_kv * b, cache_len, head_dim)
+    scores = torch.bmm(qh, k.transpose(1, 2)).float().view(h_kv, b, group, nq, cache_len)
     if k_positions is None:
-        k_positions = torch.arange(k_all.shape[1], device=q.device).expand(b, -1)
-    kp = k_positions[:, None, None, None, :]
-    qp = positions[:, None, None, :, None]
+        k_positions = torch.arange(cache_len, device=q.device).expand(b, -1)
+    kp = k_positions[None, :, None, None, :]
+    qp = positions[None, :, None, :, None]
     mask = (kp >= 0) & (kp <= qp)
     if window:
         mask = mask & (qp - kp < window)
     scores = scores.masked_fill(~mask, torch.finfo(torch.float32).min)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = torch.einsum("bngqk,bknd->bqngd", probs, v_all)
-    return out.reshape(b, nq, h, head_dim)
+    out = torch.bmm(probs.view(h_kv * b, group * nq, cache_len), v)
+    return out.view(h_kv, b, group, nq, head_dim).permute(1, 3, 0, 2, 4).reshape(
+        b, nq, h, head_dim)
 
 
 class KVCache:
@@ -286,62 +309,193 @@ class KVCache:
     the scalar slot ``index`` (which it then advances) or, under
     ``write_index``, at each row's own column.
 
-    Each buffer holds ``seq_len + 1`` columns.  The last one is a scratch
-    column that no read sees: ``key``, ``value`` and ``pos`` are views of
-    the first ``seq_len``.  A ``write_index`` target outside
-    ``[0, seq_len)`` is redirected there, which is how the port drops it
-    (JAX's scatter drops out-of-range targets; an out-of-range
-    ``index_put_`` would raise, and clamping would overwrite a valid
-    boundary column).  Buffers never move, so a captured CUDA graph can
-    write them.
+    Storage is head-major: ``key_store``/``value_store`` hold
+    ``[kv_heads, batch, seq_len, head_dim]`` flattened to rows of
+    ``head_dim``, plus one scratch row at the end; ``pos_store`` holds
+    ``[batch, seq_len]`` flattened, plus one scratch entry.
+    :attr:`key_heads`/:attr:`value_heads` are the contiguous
+    ``[kv_heads, batch, seq_len, head_dim]`` views :func:`decode_attention`
+    reads as they lie; :attr:`key`, :attr:`value` ([batch, seq_len,
+    kv_heads, head_dim]) and :attr:`pos` ([batch, seq_len]) are the
+    logical views (JAX's layout) the row ops and tests index.  A
+    ``write_index`` target outside ``[0, seq_len)`` is redirected to the
+    scratch row, which is how the port drops it (JAX's scatter drops
+    out-of-range targets; an out-of-range ``index_put_`` would raise, and
+    clamping would overwrite a valid boundary column).  Storage never
+    moves, so a captured CUDA graph can write it.
     """
 
-    def __init__(self, key_buf: torch.Tensor, value_buf: torch.Tensor,
-                 pos_buf: torch.Tensor, index: int = 0):
-        self.key_buf = key_buf  # [batch, seq_len + 1, kv_heads, head_dim]
-        self.value_buf = value_buf
-        self.pos_buf = pos_buf  # [batch, seq_len + 1] int32; -1 = empty slot
+    def __init__(self, key_store: torch.Tensor, value_store: torch.Tensor,
+                 pos_store: torch.Tensor, batch: int, index: int = 0):
+        self.key_store = key_store  # [kv_heads * batch * seq_len + 1, head_dim]
+        self.value_store = value_store
+        self.pos_store = pos_store  # [batch * seq_len + 1] int32; -1 = empty slot
+        self.batch = batch
         self.index = index
-
-    @property
-    def seq_len(self) -> int:
-        return self.pos_buf.shape[1] - 1
-
-    @property
-    def key(self) -> torch.Tensor:
-        return self.key_buf[:, :-1]
-
-    @property
-    def value(self) -> torch.Tensor:
-        return self.value_buf[:, :-1]
-
-    @property
-    def pos(self) -> torch.Tensor:
-        return self.pos_buf[:, :-1]
 
     @classmethod
     def empty(cls, config: TransformerConfig, batch: int, device) -> "KVCache":
         n_kv = config.n_kv_heads or config.n_heads
-        shape = (batch, config.seq_len + 1, n_kv, config.head_dim)
+        rows = n_kv * batch * config.seq_len + 1
         return cls(
-            key_buf=torch.zeros(shape, dtype=config.dtype, device=device),
-            value_buf=torch.zeros(shape, dtype=config.dtype, device=device),
-            pos_buf=torch.full((batch, config.seq_len + 1), -1, dtype=torch.int32,
-                               device=device),
+            key_store=torch.zeros(rows, config.head_dim, dtype=config.dtype, device=device),
+            value_store=torch.zeros(rows, config.head_dim, dtype=config.dtype, device=device),
+            pos_store=torch.full((batch * config.seq_len + 1,), -1, dtype=torch.int32,
+                                 device=device),
+            batch=batch,
         )
+
+    @classmethod
+    def from_heads(cls, key_heads, value_heads, pos) -> "KVCache":
+        """A new cache holding copies of ``key_heads``/``value_heads``
+        [kv_heads, batch, seq_len, head_dim] and ``pos`` [batch, seq_len]."""
+        n_kv, batch, seq_len, head_dim = key_heads.shape
+        cache = cls(
+            key_store=key_heads.new_zeros(n_kv * batch * seq_len + 1, head_dim),
+            value_store=value_heads.new_zeros(n_kv * batch * seq_len + 1, head_dim),
+            pos_store=pos.new_full((batch * seq_len + 1,), -1), batch=batch,
+        )
+        cache.key_heads.copy_(key_heads)
+        cache.value_heads.copy_(value_heads)
+        cache.pos.copy_(pos)
+        return cache
+
+    @property
+    def seq_len(self) -> int:
+        return (self.pos_store.shape[0] - 1) // self.batch
+
+    def _heads(self, store: torch.Tensor) -> torch.Tensor:
+        return store[:-1].view(-1, self.batch, self.seq_len, store.shape[-1])
+
+    @property
+    def key_heads(self) -> torch.Tensor:
+        return self._heads(self.key_store)
+
+    @property
+    def value_heads(self) -> torch.Tensor:
+        return self._heads(self.value_store)
+
+    @property
+    def key(self) -> torch.Tensor:
+        return self.key_heads.permute(1, 2, 0, 3)
+
+    @property
+    def value(self) -> torch.Tensor:
+        return self.value_heads.permute(1, 2, 0, 3)
+
+    @property
+    def pos(self) -> torch.Tensor:
+        return self.pos_store[:-1].view(self.batch, self.seq_len)
 
     def write_rows(self, write_index, k, v, positions) -> None:
         """Row ``r``'s ``t`` new entries land at columns ``write_index[r] +
-        [0..t)``; targets outside ``[0, seq_len)`` go to the scratch
-        column (dropped)."""
+        [0..t)``; targets outside ``[0, seq_len)`` go to the scratch row
+        (dropped)."""
         b, t = positions.shape
         seq_len = self.seq_len
+        n_kv = k.shape[2]
         cols = write_index.to(torch.long)[:, None] + torch.arange(t, device=k.device)[None, :]
-        cols = cols.masked_fill((cols < 0) | (cols >= seq_len), seq_len)
-        rows = torch.arange(b, device=k.device)[:, None].expand(b, t)
-        self.key_buf.index_put_((rows, cols), k.to(self.key_buf.dtype))
-        self.value_buf.index_put_((rows, cols), v.to(self.value_buf.dtype))
-        self.pos_buf.index_put_((rows, cols), positions.to(torch.int32))
+        slots = torch.arange(b, device=k.device)[:, None] * seq_len + cols  # [b, t]
+        slots = slots.masked_fill((cols < 0) | (cols >= seq_len), b * seq_len)
+        self.pos_store.index_put_((slots,), positions.to(torch.int32))
+        heads = torch.arange(n_kv, device=k.device)[:, None, None] * (b * seq_len)
+        rows = (heads + slots).masked_fill(slots == b * seq_len, n_kv * b * seq_len)  # [h, b, t]
+        self.key_store.index_put_((rows,), k.permute(2, 0, 1, 3).to(self.key_store.dtype))
+        self.value_store.index_put_((rows,), v.permute(2, 0, 1, 3).to(self.value_store.dtype))
+
+    def read(self, block_table=None):
+        """(key_heads, value_heads, pos): what :func:`decode_attention`
+        reads, views of the storage (no copy)."""
+        return self.key_heads, self.value_heads, self.pos
+
+
+class PagedKVCache:
+    """One attention layer's block-paged decode cache (JAX's paged
+    ``cached_key``/``cached_value``/``cached_pos`` of
+    ``[kv_pool_blocks, kv_block_tokens, ...]``): a pool of fixed-size
+    blocks that rows address through a block table ``[batch,
+    seq_len // kv_block_tokens]`` (-1 = unmapped).
+
+    Storage is head-major: ``key_store``/``value_store``
+    ``[kv_heads, n_blocks + 1, block_tokens, head_dim]``, ``pos_store``
+    ``[n_blocks + 1, block_tokens]``.  Block ``n_blocks`` is scratch: a
+    write through an unmapped entry, or at a column beyond the table, lands
+    there (JAX drops it out of range).  :meth:`read` gathers each row's
+    blocks along the block axis into a contiguous ``[kv_heads, batch,
+    seq_len, head_dim]`` (one copy per payload, the gather itself) — the
+    same layout the contiguous cache's read views have, so both layouts
+    run the same batched products on the same strides.  :attr:`key`,
+    :attr:`value` ([n_blocks, block_tokens, kv_heads, head_dim]) and
+    :attr:`pos` are logical views without the scratch block.
+    """
+
+    def __init__(self, key_store: torch.Tensor, value_store: torch.Tensor,
+                 pos_store: torch.Tensor, index: int = 0):
+        self.key_store = key_store
+        self.value_store = value_store
+        self.pos_store = pos_store
+        self.index = index
+
+    @classmethod
+    def empty(cls, config: TransformerConfig, device) -> "PagedKVCache":
+        n_kv = config.n_kv_heads or config.n_heads
+        shape = (n_kv, config.kv_pool_blocks + 1, config.kv_block_tokens, config.head_dim)
+        return cls(
+            key_store=torch.zeros(shape, dtype=config.dtype, device=device),
+            value_store=torch.zeros(shape, dtype=config.dtype, device=device),
+            pos_store=torch.full(shape[1:3], -1, dtype=torch.int32, device=device),
+        )
+
+    @property
+    def n_blocks(self) -> int:
+        return self.pos_store.shape[0] - 1
+
+    @property
+    def block_tokens(self) -> int:
+        return self.pos_store.shape[1]
+
+    @property
+    def key(self) -> torch.Tensor:
+        return self.key_store[:, :-1].permute(1, 2, 0, 3)
+
+    @property
+    def value(self) -> torch.Tensor:
+        return self.value_store[:, :-1].permute(1, 2, 0, 3)
+
+    @property
+    def pos(self) -> torch.Tensor:
+        return self.pos_store[:-1]
+
+    def write_rows(self, block_table, write_index, k, v, positions) -> None:
+        """Row ``r``'s ``t`` new entries land at logical columns
+        ``write_index[r] + [0..t)``, physically at ``table[r, col // bt] *
+        bt + col % bt``; unmapped entries and columns beyond the table go
+        to the scratch block (dropped)."""
+        t = positions.shape[1]
+        bt = self.block_tokens
+        cols = write_index.to(torch.long)[:, None] + torch.arange(t, device=k.device)[None, :]
+        lblk = cols // bt
+        ok = (cols >= 0) & (lblk < block_table.shape[1])
+        phys = block_table.to(torch.long).gather(1, lblk.masked_fill(~ok, 0))
+        phys = phys.masked_fill(~ok | (phys < 0), self.n_blocks)
+        off = cols % bt
+        self.pos_store[phys, off] = positions.to(torch.int32)
+        self.key_store[:, phys, off] = k.permute(2, 0, 1, 3).to(self.key_store.dtype)
+        self.value_store[:, phys, off] = v.permute(2, 0, 1, 3).to(self.value_store.dtype)
+
+    def read(self, block_table):
+        """(key_heads, value_heads, pos) of each row's logical view: one
+        gather per payload along the block axis by the flattened table
+        (unmapped entries gather block 0 and read position -1)."""
+        b, width = block_table.shape
+        bt = self.block_tokens
+        flat = block_table.to(torch.long).clamp(min=0).reshape(-1)
+        n_kv, head_dim = self.key_store.shape[0], self.key_store.shape[-1]
+        k = self.key_store.index_select(1, flat).view(n_kv, b, width * bt, head_dim)
+        v = self.value_store.index_select(1, flat).view(n_kv, b, width * bt, head_dim)
+        pos = self.pos_store.index_select(0, flat).view(b, width * bt)
+        mapped = (block_table >= 0)[:, :, None].expand(b, width, bt).reshape(b, width * bt)
+        return k, v, pos.masked_fill(~mapped, -1)
 
 
 class Attention(nn.Module):
@@ -349,7 +503,8 @@ class Attention(nn.Module):
     holds ``[q | k | v]`` per head; GQA uses separate ``q`` and ``kv``
     projections.  The non-decode forward runs ``flash_attention`` or
     ``causal_attention`` by ``attn_impl``; ``decode=True`` writes K/V into
-    the layer's :class:`KVCache` and reads the whole cache through
+    the layer's :class:`KVCache` (or, with ``block_table``, its
+    :class:`PagedKVCache`) and reads the whole cache through
     ``decode_attention``."""
 
     def __init__(self, config: TransformerConfig, device=None):
@@ -368,7 +523,7 @@ class Attention(nn.Module):
         self.out = linear(cfg.n_heads * cfg.head_dim, cfg.d_model)
 
     def forward(self, x, positions=None, segment_ids=None, decode: bool = False,
-                cache: Optional[KVCache] = None, write_index=None) -> torch.Tensor:
+                cache=None, write_index=None, block_table=None) -> torch.Tensor:
         cfg = self.config
         b, t = x.shape[:2]
         dh = cfg.head_dim
@@ -388,7 +543,19 @@ class Attention(nn.Module):
             idx = cache.index
             if positions is None:
                 positions = (idx + torch.arange(t, device=x.device)).expand(b, t)
-            if write_index is not None:
+            if isinstance(cache, PagedKVCache):
+                if block_table is None or write_index is None:
+                    raise ValueError(
+                        "the paged KV cache needs block_table AND write_index (the "
+                        "serving engine's block-allocator path is the only caller)"
+                    )
+                # logical column -> (physical block, offset) through the
+                # row's table; unmapped entries and columns beyond the
+                # table land in the scratch block
+                cache.write_rows(block_table, write_index, k, v, positions)
+            elif block_table is not None:
+                raise ValueError("block_table needs the paged KV cache (PagedKVCache)")
+            elif write_index is not None:
                 # per-row slot writes (continuous batching): row r's tokens
                 # land at write_index[r] + [0..t); out-of-range targets (a
                 # pool's parked slots, a padded chunk's tail) are dropped
@@ -402,9 +569,12 @@ class Attention(nn.Module):
                 cache.value[:, idx:idx + t] = v
                 cache.pos[:, idx:idx + t] = positions
             cache.index = idx + t
+            # both layouts hand decode_attention a contiguous
+            # [kv_heads, batch, seq_len, head_dim]: the contiguous cache's
+            # views, or the paged cache's one gather per payload
+            k_heads, v_heads, k_pos = cache.read(block_table)
             out = decode_attention(
-                q, cache.key, cache.value, positions, window=cfg.attn_window,
-                k_positions=cache.pos,
+                q, k_heads, v_heads, positions, window=cfg.attn_window, k_positions=k_pos,
             )
         else:
             out = self._attend(q, k, v, segment_ids)
@@ -460,10 +630,10 @@ class Block(nn.Module):
         self.mlp = MLP(config, device)
 
     def forward(self, x, positions=None, segment_ids=None, decode: bool = False,
-                cache: Optional[KVCache] = None, write_index=None) -> torch.Tensor:
+                cache=None, write_index=None, block_table=None) -> torch.Tensor:
         dtype = self.config.dtype
         h = self.norm_attn(x).to(dtype)
-        x = x + self.attn(h, positions, segment_ids, decode, cache, write_index)
+        x = x + self.attn(h, positions, segment_ids, decode, cache, write_index, block_table)
         h = self.norm_mlp(x).to(dtype)
         return x + self.mlp(h)
 
@@ -481,7 +651,8 @@ class BlockStack(nn.Module):
             self.add_module(f"layer_{i}", Block(config, device))
 
     def forward(self, x, positions=None, segment_ids=None, decode: bool = False,
-                caches: Optional[List[KVCache]] = None, write_index=None) -> torch.Tensor:
+                caches: Optional[List[KVCache]] = None, write_index=None,
+                block_table=None) -> torch.Tensor:
         remat = self.config.remat and not decode and torch.is_grad_enabled()
         kwargs = remat_kwargs_for(self.config) if remat else None
         for i in range(self.n_layers):
@@ -490,7 +661,7 @@ class BlockStack(nn.Module):
                 x = checkpoint(layer, x, positions, segment_ids, **kwargs)
             else:
                 cache = caches[i] if caches is not None else None
-                x = layer(x, positions, segment_ids, decode, cache, write_index)
+                x = layer(x, positions, segment_ids, decode, cache, write_index, block_table)
         return x
 
 

@@ -1,13 +1,16 @@
 """Continuous-batching serving: the port of ``tpu_parallel/serving``.
 
-Iteration-level scheduling over a fixed slot pool of KV caches, with the
-bucketed / batched / chunked prefill, prefix reuse, and per-step and
-fused ticks (one CUDA graph replay per fused tick on the card).  The
-paged pool, the KV tiers and speculative decoding are not ported yet.
+Iteration-level scheduling over a fixed-slot or block-paged pool of KV
+caches, with the bucketed / batched / chunked prefill, prefix reuse, and
+per-step, fused and unified ragged ticks (one CUDA graph replay per tick
+on the card).  The radix / host / disk KV tiers and speculative decoding
+are not ported yet.
 """
 
 from tpu_parallel_torch.serving.cache_pool import (
+    BlockAllocator,
     CachePool,
+    PagedCachePool,
     clear_rows,
     copy_prefix_rows,
     extract_rows,
@@ -49,7 +52,9 @@ from tpu_parallel_torch.serving.scheduler import (
 )
 
 __all__ = [
+    "BlockAllocator",
     "CachePool",
+    "PagedCachePool",
     "NON_FINITE_TOKEN",
     "FAIL_INTEGRITY",
     "insert_rows",

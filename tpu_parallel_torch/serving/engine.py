@@ -1,7 +1,7 @@
 """Continuous-batching inference engine: the port of
-``tpu_parallel/serving/engine.py`` (fixed slot pool, FIFO scheduler,
-bucketed / exact / chunked prefill, aligned-LRU prefix reuse, per-step
-and fused ticks).
+``tpu_parallel/serving/engine.py`` (fixed-slot or block-paged pool, FIFO
+scheduler, bucketed / exact / chunked prefill, aligned-LRU prefix reuse,
+per-step, fused and unified ragged ticks).
 
 The engine decodes the SLOT POOL: every tick runs one decode step (or,
 by default, a FUSED tick of ``decode_steps_per_tick`` = 8 masked steps)
@@ -13,6 +13,12 @@ and leave (EOS / length) between ticks.
   ``write_index`` path of ``models/layers.py``); the attention mask keys
   off stored positions.  Free and mid-chunked-prefill rows aim their
   writes at column ``seq_len``, which the cache drops.
+- ``kv_block_tokens`` > 0 (or ``"auto"``) swaps the fixed ``n_slots x
+  seq_len`` pool for a pool of blocks addressed through per-slot block
+  tables (:class:`PagedCachePool`): slot count decouples from
+  ``seq_len``, admission reserves blocks (a block gate that holds the
+  queue head), prefix hits are refcounted table writes, and a write into
+  a shared block copies that one block first.
 - Sampling knobs are per-request tensors (:func:`sample_tokens`), so
   requests with different knobs share a tick.
 - Prefill: prompts pad RIGHT to a geometric bucket and same-bucket
@@ -20,28 +26,33 @@ and leave (EOS / length) between ticks.
   (dummy rows are dropped); prompts above ``prefill_chunk_tokens`` split
   into chunks, one per tick, extending the slot's row through
   ``prefill_extend_step``; ``prefix_cache_size`` keeps bucket-aligned
-  prompt prefixes whose K/V rows are copied into a fresh slot on a hit.
-  All of it is exact: greedy tokens equal an exact-length prefill's.
+  prompt prefixes that seed a fresh slot on a hit.  All of it is exact:
+  greedy tokens equal an exact-length prefill's.
 - The fused tick keeps the per-slot state (token, position, write index,
   live mask, remaining budget) in device tensors between ticks; the host
-  rewrites them in place only after admissions and releases.  On a CUDA
-  device the T-step body is captured ONCE as a CUDA graph (the
-  counterpart of JAX's donated ``lax.scan`` dispatch) and every tick is
-  one replay plus one device-to-host copy of the token block; the slot
-  state, knobs, outputs and cache pool keep fixed addresses for that.
-  On the CPU the same body runs eagerly.  A capture that fails raises.
+  rewrites them in place only after admissions and releases.  The
+  UNIFIED ragged tick (the default with a fused tick and chunked
+  prefill) folds every in-flight chunk into the same tick: one
+  ``[n_slots, chunk]`` extend over the pool, in-device activation of the
+  slots whose prompt completes, then the T decode steps.  On a CUDA
+  device each body is captured ONCE as a CUDA graph (the counterpart of
+  JAX's donated dispatch): the fused one, and the unified one beside it,
+  and every tick is one replay plus one device-to-host copy of the token
+  block; slot state, knobs, chunk operands, outputs, the block table and
+  the cache pool keep fixed addresses for that.  On the CPU the same
+  bodies run eagerly.  A capture that fails raises.
 - ``launch`` / ``collect`` split a tick at its one sync, and
   ``run(overlap=True)`` launches the next pure-decode tick before
   collecting the previous one.
 
 Not in the port yet (each knob raises ``NotImplementedError``): the
-paged pool, the unified ragged tick, the radix / host / disk KV tiers,
-speculative decoding, mesh serving, the int8 cache, prefix export and
-import.
+radix / host / disk KV tiers, speculative decoding, mesh serving, the
+int8 cache, prefix export and import.
 """
 
 from __future__ import annotations
 
+import math
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -56,7 +67,7 @@ from tpu_parallel_torch.models.generate import (
 )
 from tpu_parallel_torch.obs.registry import MetricRegistry
 from tpu_parallel_torch.obs.tracer import NULL_TRACER, Tracer
-from tpu_parallel_torch.serving.cache_pool import CachePool, default_row_fns
+from tpu_parallel_torch.serving.cache_pool import CachePool, PagedCachePool, default_row_fns
 from tpu_parallel_torch.serving.metrics import (
     STALL_NONE,
     STALL_PREFILL,
@@ -87,8 +98,6 @@ NON_FINITE_TOKEN = -2
 
 # the later slices of the port that bring each refused engine knob
 _LATER = {
-    "paged": "the paged KV pool (BlockAllocator / PagedCachePool)",
-    "unified": "the unified ragged tick",
     "hierarchy": "the radix and host KV tiers (kv_hierarchy)",
     "spec": "speculative decoding (spec_decode)",
     "disk": "the wire format and disk KV tier (kv_wire / kv_disk)",
@@ -144,26 +153,34 @@ def _prefill_core(model, prompt, positions, last_idx):
     return _full_last_logits(model, hidden, last_idx), cache
 
 
-def _extend_core(model, tokens, positions, last_idx, write_start, cache):
+def _extend_core(model, tokens, positions, last_idx, write_start, cache, table=None):
     """Continue a prefill into existing cache rows (chunked prefill, prefix
-    remainder): tokens at global ``positions`` (pads -1) write at columns
-    ``write_start + [0..T)``.  Returns the chunk's last real logits."""
-    hidden, cache = prefill_extend_step(model, cache, tokens, positions, write_start)
+    remainder; with ``table``, any paged admission): tokens at global
+    ``positions`` (pads -1) write at columns ``write_start + [0..T)``
+    (through each row's block table when paged: the K/V land directly in
+    the pool, and a row with an all -1 table drops every write).  Returns
+    the chunk's last real logits."""
+    hidden, cache = prefill_extend_step(model, cache, tokens, positions, write_start,
+                                        block_table=table)
     return _full_last_logits(model, hidden, last_idx), cache
 
 
-def _decode_core(model, tok, pos, widx, temperature, top_k, top_p, cache, generator):
-    """One engine tick over the slot pool: slot-indexed cache writes,
-    per-slot sampling.  Returns the next tokens [n_slots]."""
+def _decode_core(model, tok, pos, widx, temperature, top_k, top_p, cache, generator,
+                 table=None):
+    """One engine tick over the slot pool: slot-indexed cache writes (and
+    reads, through ``table`` when paged: the same math, so greedy output
+    is bitwise equal across the layouts), per-slot sampling.  Returns the
+    next tokens [n_slots]."""
     # a parked row may hold the sentinel (-2): clamp so its (unread) lookup
     # stays in the embedding table
-    hidden, _ = decode_step(model, cache, tok.clamp(min=0), pos, write_index=widx)
+    hidden, _ = decode_step(model, cache, tok.clamp(min=0), pos, write_index=widx,
+                            block_table=table)
     logits = _full_last_logits(model, hidden)
     return sample_tokens(logits, generator, temperature, top_k, top_p)
 
 
 def _fused_decode_core(model, steps, tok, pos, widx, live, budget, eos, temp, topk, topp,
-                       cache, generator):
+                       cache, generator, table=None):
     """``steps`` masked single-token decode steps: the fused tick's device
     body, with no host sync, so a CUDA graph can capture it.
 
@@ -172,7 +189,7 @@ def _fused_decode_core(model, steps, tok, pos, widx, live, budget, eos, temp, to
     finishes mid-tick (EOS, budget at zero, or the non-finite sentinel)
     drops out of ``live``: later steps park its writes at column
     ``seq_len``, its state stops and it emits -1.  ``eos`` is -1 for
-    requests without an EOS id.
+    requests without an EOS id.  ``table`` (paged) is loop-invariant.
 
     Returns ``(block [steps, n_slots], counts [n_slots], (tok, pos, widx,
     live, budget))``: ``block`` holds each step's emitted token per slot,
@@ -182,7 +199,7 @@ def _fused_decode_core(model, steps, tok, pos, widx, live, budget, eos, temp, to
     emitted_steps = []
     for _ in range(steps):
         widx_eff = torch.where(live, widx, torch.full_like(widx, seq_len))
-        nxt = _decode_core(model, tok, pos, widx_eff, temp, topk, topp, cache, generator)
+        nxt = _decode_core(model, tok, pos, widx_eff, temp, topk, topp, cache, generator, table)
         emitted = torch.where(live, nxt, torch.full_like(nxt, -1))
         budget = budget - live.to(budget.dtype)
         done = live & ((nxt == eos) | (budget <= 0) | (nxt == NON_FINITE_TOKEN))
@@ -196,6 +213,61 @@ def _fused_decode_core(model, steps, tok, pos, widx, live, budget, eos, temp, to
     # the sentinel counts as progress (the host fails the request typed)
     counts = (block != -1).sum(dim=0)
     return block, counts, (tok, pos, widx, live, budget)
+
+
+def _ragged_chunk_phase(model, tok, pos, widx, live, budget, eos, temp, topk, topp, ctoks,
+                        clen, cstart, cfinal, cbudget, cache, generator, table=None):
+    """The unified tick's PREFILL PHASE: one multi-token extend over the
+    fixed ``[n_slots, chunk]`` block advances every mid-chunked-prefill
+    slot by its next prompt chunk while every other row rides along as
+    padding (positions -1, writes parked at column ``seq_len``).  Rows
+    whose chunk COMPLETES their prompt (``cfinal``) activate in the same
+    body: their first token samples from the chunk's last real position
+    with the slot's own knobs and the slot state turns decode-live.
+
+    ``ctoks`` [n, C] right-padded chunk tokens, ``clen`` [n] real tokens
+    this tick (0 = row not prefilling), ``cstart`` [n] the slot's prefill
+    depth (write offset), ``cfinal`` [n] whether this chunk ends the
+    prompt, ``cbudget`` [n] ``max_new_tokens`` of activating rows.
+    Returns ``(act_emit [n], (tok, pos, widx, live, budget))``;
+    ``act_emit`` holds each activating row's first token, -1 elsewhere."""
+    seq_len = model.config.seq_len
+    iota = torch.arange(ctoks.shape[1], device=ctoks.device)[None, :]
+    positions = torch.where(iota < clen[:, None], cstart[:, None] + iota,
+                            torch.full_like(iota, -1))
+    wstart = torch.where(clen > 0, cstart, torch.full_like(cstart, seq_len))
+    logits, _ = _extend_core(model, ctoks, positions, (clen - 1).clamp(min=0), wstart, cache,
+                             table)
+    tok0 = sample_tokens(logits, generator, temp, topk, topp)
+    act = cfinal & (clen > 0)
+    nb = cbudget - 1
+    done0 = (tok0 == eos) | (nb <= 0)
+    new_pos = cstart + clen
+    tok = torch.where(act, tok0, tok)
+    pos = torch.where(act, new_pos, pos)
+    widx = torch.where(act, new_pos, widx)
+    budget = torch.where(act, nb, budget)
+    live = torch.where(act, ~done0, live)
+    act_emit = torch.where(act, tok0, torch.full_like(tok0, -1))
+    return act_emit, (tok, pos, widx, live, budget)
+
+
+def _unified_tick_core(model, steps, tok, pos, widx, live, budget, eos, temp, topk, topp,
+                       ctoks, clen, cstart, cfinal, cbudget, cache, generator, table=None):
+    """THE unified ragged tick: prefill-chunk slots consume their next
+    chunk (with in-body final-chunk activation, :func:`_ragged_chunk_phase`)
+    and decode slots run ``steps`` masked decode steps
+    (:func:`_fused_decode_core`) in one body, so a tick that cost one
+    extend per chunk slot plus the decode costs one replay.  Greedy output
+    equals the per-phase engine's: every op is row- and position-parallel,
+    so batch composition is invisible to each row.  Returns ``(act_emit
+    [n], block [steps, n], counts [n], state)``."""
+    act_emit, state = _ragged_chunk_phase(
+        model, tok, pos, widx, live, budget, eos, temp, topk, topp, ctoks, clen, cstart,
+        cfinal, cbudget, cache, generator, table)
+    block, counts, state = _fused_decode_core(model, steps, *state, eos, temp, topk, topp,
+                                              cache, generator, table)
+    return act_emit, block, counts, state
 
 
 def default_prefill_buckets(seq_len: int, start: int = 32) -> Tuple[int, ...]:
@@ -227,7 +299,8 @@ class _PendingTick:
 
     __slots__ = (
         "kind", "start", "t0", "tick_span", "events", "admitted",
-        "chunks_advanced", "entering", "payload", "overlapped",
+        "chunks_advanced", "chunk_tokens", "chunk_spans", "active_tokens",
+        "entering", "finals", "payload", "overlapped",
     )
 
     def __init__(self, start: float):
@@ -238,7 +311,13 @@ class _PendingTick:
         self.events: List[StreamEvent] = []
         self.admitted: List[RequestOutput] = []
         self.chunks_advanced = 0
+        self.chunk_tokens = 0
+        self.chunk_spans: List[tuple] = []
+        self.active_tokens = 0
         self.entering: Tuple[int, ...] = ()
+        # (slot, output, prompt length) of chunks that complete their
+        # prompt inside this unified tick
+        self.finals: List[tuple] = []
         self.payload = None
         self.overlapped = False
 
@@ -251,24 +330,31 @@ class ServingEngine:
     ``step()`` runs one scheduling + decode tick and returns its
     :class:`StreamEvent`s; ``run()`` ticks until idle.  ``add_request`` is
     non-blocking: the returned :class:`RequestOutput` fills in as ticks
-    run.  ``n_slots`` fixes the pool (``n_slots x seq_len`` K/V per
-    layer); ``scheduler`` takes a :class:`SchedulerConfig` or a ready
-    :class:`FIFOScheduler`; ``clock`` is injectable; ``rng`` is a
-    ``torch.Generator`` on the model's device (default: seeded with 0).
+    run.  ``n_slots`` fixes the slot count; ``scheduler`` takes a
+    :class:`SchedulerConfig` or a ready :class:`FIFOScheduler`; ``clock``
+    is injectable; ``rng`` is a ``torch.Generator`` on the model's device
+    (default: seeded with 0).
 
     Prefill knobs: ``prefill_buckets`` (``"auto"`` = 32, 64, ..., seq_len;
     a tuple; or None for batch-1 exact-length prefill), ``prefill_batch``
     (rows every batched prefill pads to; default the scheduler's
     ``max_prefills_per_tick``), ``prefill_chunk_tokens`` (chunk size for
     longer prompts; None = monolithic), ``prefix_cache_size`` (LRU entries
-    of bucket-aligned prefix rows; 0 = off; needs buckets).
+    of bucket-aligned prefixes; 0 = off; needs buckets).
+
+    KV layout: ``kv_block_tokens`` None/0 keeps the fixed ``n_slots x
+    seq_len`` pool; an int (dividing ``seq_len``) or ``"auto"`` (the gcd
+    of ``seq_len``, 32 and every bucket, so bucket-aligned prefixes end on
+    block boundaries) pages it into ``kv_pool_blocks`` blocks (default
+    ``n_slots * seq_len / kv_block_tokens``, the fixed pool's size).
 
     ``decode_steps_per_tick``: T > 1 (``"auto"`` = 8) runs T masked decode
     steps per tick with the slot state on the device, one device-to-host
-    sync per T tokens; 1 is the per-step engine.  ``unified_tick="auto"``
-    resolves to off in the port (the per-phase tick; JAX pins the two
-    bitwise equal for greedy output).  ``graph_captures`` counts the
-    fused tick's CUDA graph captures (one per engine on a CUDA device).
+    sync per T tokens; 1 is the per-step engine.  ``unified_tick``
+    (``"auto"`` = on whenever T > 1, as in JAX; False keeps the
+    per-phase advance-then-decode tick, the parity baseline; True needs
+    T > 1) folds chunked prefills into the tick.  ``graph_captures``
+    counts CUDA graph captures (one per tick body on a CUDA device).
 
     Telemetry: ``tracer`` (default the no-op ``NULL_TRACER``) records
     request lifecycle spans; ``metrics`` / ``registry`` back the
@@ -309,8 +395,6 @@ class ServingEngine:
             raise _not_ported("serving over a mesh", "mesh")
         if getattr(cfg, "kv_cache_dtype", "bf16") == "int8":
             raise _not_ported('kv_cache_dtype="int8"', "int8")
-        if kv_block_tokens not in (None, 0) or kv_pool_blocks is not None:
-            raise _not_ported("kv_block_tokens / kv_pool_blocks", "paged")
         if kv_radix_cache or kv_host_blocks:
             raise _not_ported("kv_radix_cache / kv_host_blocks", "hierarchy")
         if kv_disk_dir is not None or kv_disk_blocks:
@@ -319,8 +403,6 @@ class ServingEngine:
             raise _not_ported("draft_tokens / drafter / spec_check_invariants", "spec")
         if unified_tick not in ("auto", True, False):
             raise ValueError(f"unified_tick={unified_tick!r}")
-        if unified_tick is True:
-            raise _not_ported("unified_tick=True", "unified")
         del spec_adaptive  # a knob of speculative decoding
         self.model = model
         self.device = model.device
@@ -355,6 +437,29 @@ class ServingEngine:
             self._buckets = bs
         else:
             self._buckets = None
+        # block-paged KV cache: kv_block_tokens > 0 (or "auto") swaps the
+        # fixed n_slots x seq_len pool for a pool of kv_pool_blocks blocks
+        # addressed through per-slot block tables
+        self._paged = kv_block_tokens not in (None, 0)
+        if self._paged:
+            if kv_block_tokens == "auto":
+                # the bucket quantum: bucket-aligned prefix keys always
+                # land on block boundaries, so shared blocks need no trim
+                bt = math.gcd(cfg.seq_len, 32)
+                for b in self._buckets or ():
+                    bt = math.gcd(bt, int(b))
+            else:
+                bt = int(kv_block_tokens)
+                if bt < 1:
+                    raise ValueError(f"kv_block_tokens={bt} < 1")
+                if cfg.seq_len % bt != 0:
+                    raise ValueError(f"kv_block_tokens={bt} must divide seq_len={cfg.seq_len}")
+            n_blocks = (int(kv_pool_blocks) if kv_pool_blocks is not None
+                        else n_slots * (cfg.seq_len // bt))
+            if n_blocks < 1:
+                raise ValueError(f"kv_pool_blocks={n_blocks} < 1")
+        elif kv_pool_blocks is not None:
+            raise ValueError("kv_pool_blocks needs kv_block_tokens")
         if prefill_chunk_tokens is not None and prefill_chunk_tokens < 1:
             raise ValueError(f"prefill_chunk_tokens={prefill_chunk_tokens} < 1")
         self._chunk_tokens = prefill_chunk_tokens
@@ -363,7 +468,23 @@ class ServingEngine:
                 "prefix_cache_size > 0 requires prefill bucketing (prefix keys are "
                 "bucket-aligned)"
             )
-        self._prefix = PrefixCache(prefix_cache_size) if prefix_cache_size > 0 else None
+        self._prefix = (
+            PrefixCache(prefix_cache_size,
+                        # paged entries hold refcounted block ids: eviction
+                        # hands the references back to the allocator
+                        on_evict=self._release_prefix_entry if self._paged else None)
+            if prefix_cache_size > 0 else None
+        )
+        # copy-on-write admission headroom: with buckets NOT aligned to
+        # the block size, stored prefixes end mid-block and sharers'
+        # writes copy-on-write, each claiming a block the plain
+        # ceil(total / bt) estimate cannot see.  One block per non-aligned
+        # bucket plus one for a mid-block hit tail bounds one slot's COW
+        # events (zero under the "auto" quantum).
+        self._cow_reserve = 0
+        if self._paged and self._prefix is not None:
+            unaligned = sum(1 for b in self._buckets if b % bt != 0)
+            self._cow_reserve = (1 + unaligned) if unaligned else 0
         self._prefill_batch = (
             prefill_batch if prefill_batch is not None
             else self.scheduler.config.max_prefills_per_tick
@@ -379,8 +500,18 @@ class ServingEngine:
             fused = int(decode_steps_per_tick)
             if fused < 1:
                 raise ValueError(f"decode_steps_per_tick={decode_steps_per_tick} < 1")
+        if unified_tick is True and fused < 2:
+            raise ValueError(
+                "unified_tick=True needs decode_steps_per_tick > 1 (the unified tick IS "
+                "the fused tick with the ragged chunk phase folded in)"
+            )
         self._fused_steps = fused
-        self.pool = CachePool(model, n_slots, row_fns=default_row_fns())
+        self._unified = fused > 1 if unified_tick == "auto" else bool(unified_tick)
+        if self._paged:
+            self.pool: Union[CachePool, PagedCachePool] = PagedCachePool(
+                model, n_slots, block_tokens=bt, n_blocks=n_blocks)
+        else:
+            self.pool = CachePool(model, n_slots, row_fns=default_row_fns())
 
         n = n_slots
         self._tok = np.zeros(n, np.int64)
@@ -394,28 +525,43 @@ class ServingEngine:
         self._active = np.zeros(n, bool)
         self._slot_out: List[Optional[RequestOutput]] = [None] * n
 
+        dev = self.device
+        # the device copy of the pool's block table, at a fixed address the
+        # captured graphs read; rewritten in place when table_version moves
+        self._dev_table = None
+        self._table_version = -1
+        if self._paged:
+            self._dev_table = torch.full((n, self.pool.max_blocks), -1, dtype=torch.long,
+                                         device=dev)
         # the fused tick's device-resident slot state and knobs, at fixed
         # addresses: (tok, pos, widx, live, budget) and (eos, temp, topk,
         # topp); the host rewrites them in place after admissions/releases
         self._state_dirty = True
-        self._graph = None
-        self._capture = self.device.type == "cuda"
+        # the captured tick bodies by kind ("fused", "unified")
+        self._graphs: Dict[str, "torch.cuda.CUDAGraph"] = {}
+        self._use_graphs = dev.type == "cuda"
         self.graph_captures = 0
         if fused > 1:
-            dev = self.device
             zeros = lambda dtype: torch.zeros(n, dtype=dtype, device=dev)
             self._dev_state = (zeros(torch.long), zeros(torch.long), zeros(torch.long),
                                zeros(torch.bool), zeros(torch.long))
             self._dev_knobs = (zeros(torch.long), zeros(torch.float32), zeros(torch.long),
                                zeros(torch.float32))
-            # block [T, n] and counts [n] of the last tick, and two host
-            # buffers they are copied to (a launch-ahead must not overwrite
-            # the tick still waiting for its collect)
-            self._dev_out = torch.zeros(fused + 1, n, dtype=torch.long, device=dev)
+            # rows [0, T): the tick's token block; row T: counts; row T + 1:
+            # the unified tick's activation tokens.  Two host buffers they
+            # are copied to (a launch-ahead must not overwrite the tick
+            # still waiting for its collect)
+            self._dev_out = torch.zeros(fused + 2, n, dtype=torch.long, device=dev)
             pin = dev.type == "cuda"
-            self._host_out = [torch.zeros(fused + 1, n, dtype=torch.long, pin_memory=pin)
+            self._host_out = [torch.zeros(fused + 2, n, dtype=torch.long, pin_memory=pin)
                               for _ in range(2)]
             self._host_turn = 0
+            if self._unified and self._chunk_tokens is not None:
+                # the unified tick's chunk operands (ctoks, clen, cstart,
+                # cfinal, cbudget), filled in place every chunk tick
+                self._dev_chunk = (
+                    torch.zeros(n, self._chunk_tokens, dtype=torch.long, device=dev),
+                    zeros(torch.long), zeros(torch.long), zeros(torch.bool), zeros(torch.long))
 
     # -- submission --------------------------------------------------------
 
@@ -440,6 +586,23 @@ class ServingEngine:
             )
             self.metrics.record_rejected()
             return out
+        if self._paged:
+            # a pool smaller than one request's worst case could never
+            # admit it: a typed reject (transient exhaustion instead
+            # queues, the block gate holding the head until blocks free)
+            need = self.pool.blocks_needed(total) + self._cow_reserve
+            if need > self.pool.n_blocks:
+                out.status = REJECTED
+                out.finish_reason = REJECT_CAPACITY
+                out.detail = (
+                    f"request needs {need} KV blocks ({total} tokens at "
+                    f"{self.pool.block_tokens}/block"
+                    + (f" + {self._cow_reserve} copy-on-write reserve" if self._cow_reserve
+                       else "")
+                    + f") but the pool holds {self.pool.n_blocks}"
+                )
+                self.metrics.record_rejected()
+                return out
         verdict = self.scheduler.submit(out, requeue=requeue)
         if not verdict:
             out.status = REJECTED
@@ -524,10 +687,11 @@ class ServingEngine:
 
     def step(self) -> List[StreamEvent]:
         """One engine tick: expire stale queue entries, advance in-flight
-        chunked prefills (one chunk each), admit into free slots (one
-        same-bucket group, one batched prefill), one decode tick over the
-        pool (T fused steps or one step), retire finished slots.
-        ``collect(launch())``; returns this tick's events."""
+        chunked prefills (one chunk each: inside the tick's body under the
+        unified tick, else one extend per slot first), admit into free
+        slots (one same-bucket group, one batched prefill), one decode
+        tick over the pool (T fused steps or one step), retire finished
+        slots.  ``collect(launch())``; returns this tick's events."""
         return self.collect(self.launch())
 
     @torch.no_grad()
@@ -535,26 +699,41 @@ class ServingEngine:
         """The tick's host-to-device half: expire, advance chunks, admit, and
         launch the decode work WITHOUT syncing on its result.  ``ahead``
         marks a launch made while the previous tick is still uncollected
-        (only on a pure-decode fused tick, :meth:`_can_launch_ahead`)."""
+        (only on a pure-decode fused tick, :meth:`_can_launch_ahead`); the
+        paged write window then covers two ticks, since the host mirrors
+        lag the device by one."""
         now = self.clock()
         p = _PendingTick(now)
         p.overlapped = ahead
         if self.tracer.enabled:
             p.tick_span = self.tracer.span("tick", track="scheduler", tick=self.metrics.ticks)
         self._expire_queue(now, p.events)
-        # chunked prefills first, one extend per slot: a chunk finishing
-        # this tick decodes this tick
-        p.chunks_advanced = len(self._chunking)
-        for slot in sorted(self._chunking):
-            p.events.extend(self._advance_chunk(slot))
+        unified = self.unified_tick
+        if not unified:
+            # per-phase: chunked prefills first, one extend per slot; a
+            # chunk finishing this tick decodes this tick
+            p.chunks_advanced = len(self._chunking)
+            for slot in sorted(self._chunking):
+                p.events.extend(self._advance_chunk(slot))
         bucket_key = (
             self._admission_key
             if (self._buckets is not None or self._chunk_tokens is not None)
             else None
         )
-        p.admitted = self.scheduler.schedule(self.pool.n_free, now, bucket_key=bucket_key)
+        p.admitted = self.scheduler.schedule(
+            self.pool.n_free, now, bucket_key=bucket_key,
+            can_admit=self._block_gate() if self._paged else None)
         p.events.extend(self._admit_batch(p.admitted))
+        if unified:
+            # chunk slots (newly started ones included) ride THIS tick's
+            # body: the per-phase engine's chunk-per-tick cadence
+            p.chunks_advanced = len(self._chunking)
         self._launch_decode(p)
+        # tokens resident during this tick's decode (the denominator of
+        # kv_bytes_per_active_token), taken before delivery retires slots
+        p.active_tokens = int(self._pos[self._active].sum()) + sum(
+            st.offset for st in self._chunking.values()
+        ) + sum(plen for (_, _, plen) in p.finals)
         return p
 
     def _expire_queue(self, now: float, events: List[StreamEvent]) -> None:
@@ -575,11 +754,14 @@ class ServingEngine:
             self.metrics.record_expired()
 
     def _launch_decode(self, p: _PendingTick) -> None:
-        if not self._active.any():
+        unified_chunks = bool(self.unified_tick and self._chunking)
+        if not self._active.any() and not unified_chunks:
             return
         p.t0 = self.tracer.now()
         p.entering = tuple(int(s) for s in np.nonzero(self._active)[0])
-        if self._fused_steps > 1:
+        if unified_chunks:
+            self._launch_unified(p)
+        elif self._fused_steps > 1:
             self._launch_fused(p)
         else:
             self._launch_per_step(p)
@@ -591,11 +773,19 @@ class ServingEngine:
         events = p.events
         if p.kind == "fused":
             events.extend(self._collect_fused(p))
+        elif p.kind == "unified":
+            events.extend(self._collect_unified(p))
         elif p.kind == "step":
             events.extend(self._collect_per_step(p))
         decoded = p.kind != "idle"
         if self._prefix is not None:
-            self.metrics.sync_prefix_cache(self._prefix)
+            entry_bytes = None
+            if self._paged:
+                entry_bytes = self.pool.bytes_per_block * sum(
+                    len(blocks) for blocks, _ in self._prefix.values())
+            self.metrics.sync_prefix_cache(self._prefix, entry_bytes=entry_bytes)
+        if self._paged:
+            self.metrics.sync_block_pool(self.pool, active_tokens=p.active_tokens)
         if p.admitted or p.chunks_advanced:
             stall = STALL_PREFILL
         elif not decoded:
@@ -676,6 +866,10 @@ class ServingEngine:
         self.metrics = metrics
         self.registry = self.metrics.registry
         self.scheduler.registry = self.registry
+        if self._paged:
+            # the pool's COW/share tallies are cumulative: watermark them so
+            # the fresh record's counters start at zero
+            self.metrics.seed_block_pool(self.pool)
         return self.metrics
 
     @torch.no_grad()
@@ -707,10 +901,10 @@ class ServingEngine:
             self.weights_version = version
 
     def export_prefix(self, request_id: str):
-        raise _not_ported("export_prefix", "paged")
+        raise _not_ported("export_prefix", "disk")
 
     def import_prefix(self, export):
-        raise _not_ported("import_prefix", "paged")
+        raise _not_ported("import_prefix", "disk")
 
     @property
     def decode_steps_per_tick(self) -> int:
@@ -719,8 +913,9 @@ class ServingEngine:
 
     @property
     def unified_tick(self) -> bool:
-        """Always False: the port's ticks are per-phase."""
-        return False
+        """True when chunked-prefill and decode slots advance in ONE tick
+        body ("auto" = on whenever the fused tick is)."""
+        return self._unified and self._fused_steps > 1
 
     @property
     def prefill_buckets(self) -> Optional[Tuple[int, ...]]:
@@ -740,11 +935,67 @@ class ServingEngine:
                 return b
         raise AssertionError(f"no bucket >= {length} (buckets {self._buckets})")
 
+    def _device_table(self) -> torch.Tensor:
+        """The device copy of the pool's host-authoritative block table, at
+        a fixed address (the captured graphs read it), rewritten in place
+        only when the allocator moved a mapping (``table_version``).  The
+        upload is stream-ordered after any tick still running."""
+        if self._table_version != self.pool.table_version:
+            self._dev_table.copy_(self._staged(self.pool.block_table.astype(np.int64)),
+                                  non_blocking=True)
+            self._table_version = self.pool.table_version
+        return self._dev_table
+
+    def _staged(self, array) -> torch.Tensor:
+        """A host copy of ``array`` an asynchronous host-to-device copy may
+        read (pinned on a CUDA device: the caching host allocator keeps it
+        alive until the copy has run)."""
+        host = torch.from_numpy(np.array(array))
+        return host.pin_memory() if self.device.type == "cuda" else host
+
+    def _block_gate(self) -> Callable[[RequestOutput], bool]:
+        """Admission gate for ONE scheduling pass: a candidate must fit its
+        WORST-CASE block footprint (``ceil((prompt + max_new_tokens) /
+        block_tokens)`` plus the copy-on-write reserve) inside the free
+        blocks not already owed to in-flight slots; the closure keeps its
+        own running reservation so one tick's admissions cannot jointly
+        overcommit.  A refused candidate first evicts least-recently-used
+        prefix entries (they hold refcounted blocks indefinitely); only
+        then does it wait (head-of-line) for running requests to retire."""
+        pool = self.pool
+        reserved = 0
+
+        def gate(out: RequestOutput) -> bool:
+            nonlocal reserved
+            need = (pool.blocks_needed(len(out.request.prompt) + out.request.max_new_tokens)
+                    + self._cow_reserve)
+            avail = pool.blocks_available() - reserved
+            while need > avail and self._prefix is not None and self._prefix.pop_lru():
+                # an evicted entry frees its blocks only if no live slot
+                # still maps them: recompute rather than assume
+                avail = pool.blocks_available() - reserved
+            if need > avail:
+                return False
+            reserved += need
+            return True
+
+        return gate
+
+    def _release_prefix_entry(self, entry) -> None:
+        """Prefix-cache eviction hook (paged): hand the evicted entry's
+        block references back to the allocator."""
+        blocks, _length = entry
+        self.pool.free_stored(blocks)
+
     def _admission_key(self, out: RequestOutput):
         """Scheduler grouping key: same-bucket requests batch into one
-        prefill; a chunked prompt gets a key of its own (it admits alone)."""
+        prefill; a chunked prompt gets a key of its own (it admits alone),
+        except under the unified tick, where every chunk start shares one
+        key and rides the same fixed-shape chunk phase."""
         length = len(out.request.prompt)
         if self._chunk_tokens is not None and length > self._chunk_tokens:
+            if self.unified_tick:
+                return ("chunk",)
             return ("chunk", id(out))
         if self._buckets is None:
             return ("exact",)
@@ -763,6 +1014,8 @@ class ServingEngine:
                 span = self._queue_spans.pop(out.request.request_id, None)
                 if span is not None:
                     span.finish()
+        if self._paged:
+            return self._admit_batch_paged(admitted)
         for out in admitted:
             length = len(out.request.prompt)
             if self._chunk_tokens is not None and length > self._chunk_tokens:
@@ -896,6 +1149,91 @@ class ServingEngine:
                                          len(out.request.prompt)))
         return events
 
+    def _admit_batch_paged(self, admitted: List[RequestOutput]) -> List[StreamEvent]:
+        """Paged admission routing: there is no whole-row prefill.  Every
+        prompt (cold or prefix hit) lands DIRECTLY in the block pool
+        through one batched extend per (prefix length, remainder width)
+        group; a prefix hit costs a table write plus a refcount bump per
+        shared block, and no K/V copy."""
+        events: List[StreamEvent] = []
+        groups: Dict[Tuple[int, int], list] = {}
+        for out in admitted:
+            length = len(out.request.prompt)
+            if self._chunk_tokens is not None and length > self._chunk_tokens:
+                events.extend(self._start_chunked(out))
+                continue
+            plen, blocks = 0, None
+            if self._prefix is not None:
+                hit = self._prefix.lookup(out.request.prompt, self._buckets)
+                if hit is not None:
+                    blocks, plen = hit
+                    # pin: an earlier group's prefix store can LRU-evict
+                    # this entry before OUR group maps it; the pin drops
+                    # right after map_prefix
+                    self.pool.pin_blocks(blocks)
+            width = (self._bucket_for(length - plen) if self._buckets is not None
+                     else length - plen)
+            groups.setdefault((plen, width), []).append((out, blocks))
+        for (plen, width), group in groups.items():
+            events.extend(self._admit_extend_paged(group, plen, width))
+        return events
+
+    def _admit_extend_paged(self, group: List[tuple], plen: int,
+                            width: int) -> List[StreamEvent]:
+        """ONE batched extend for a same-(prefix, width) paged admission
+        group: each row maps its shared prefix blocks (refcount bumps),
+        allocates writable blocks for its remainder and writes its K/V
+        straight into the pool through its table row.  Dummy batch rows
+        pass an all -1 table, so every write of theirs is dropped."""
+        t0 = self.tracer.now()
+        nb = max(self._prefill_batch, len(group))
+        tokens = np.zeros((nb, width), np.int64)
+        rems = np.ones(nb, np.int64)
+        table = np.full((nb, self.pool.max_blocks), -1, np.int64)
+        slots: List[int] = []
+        for i, (out, blocks) in enumerate(group):
+            req = out.request
+            rem = req.prompt[plen:]
+            tokens[i, : len(rem)] = rem
+            rems[i] = len(rem)
+            slot = self.pool.acquire()
+            assert slot is not None, "scheduler admitted beyond free slots"
+            slots.append(slot)
+            self.pool.begin_slot(slot, len(req.prompt) + req.max_new_tokens,
+                                 cow_reserve=self._cow_reserve)
+            if blocks is not None:
+                self.pool.map_prefix(slot, blocks, plen)
+                self.pool.free_stored(blocks)  # drop the admission pin
+            self.pool.ensure_writable(slot, plen, len(req.prompt))
+            table[i] = self.pool.block_table[slot]
+        base, last_idx = padded_prefill_inputs(rems, width, device=self.device)
+        positions = torch.where(base >= 0, base + plen, torch.full_like(base, -1))
+        logits, _ = _extend_core(
+            self.model, self._as_device(tokens), positions, last_idx,
+            torch.full((nb,), plen, dtype=torch.long, device=self.device), self.pool.cache,
+            self._as_device(table),
+        )
+        self._prefill_shapes.add(("extend", nb, width))
+        self.metrics.record_prefill_call()
+        outs = [out for (out, _) in group]
+        firsts = self._sample_first(logits, outs)
+        if self.tracer.enabled:
+            t1 = self.tracer.now()
+            self.tracer.record("prefill_batch", "scheduler", t0, t1, bucket=width, rows=nb,
+                               requests=len(outs), prefix_len=plen)
+            for i, out in enumerate(outs):
+                self.tracer.record("prefill", f"slot {slots[i]}", t0, t1,
+                                   request_id=out.request.request_id, slot=slots[i],
+                                   bucket=width, cache_hit=plen > 0, prefix_len=plen)
+        events = []
+        for i, out in enumerate(outs):
+            # store BEFORE activating: a request finishing on its first
+            # token releases its slot inside _activate, wiping the table
+            # the snapshot needs
+            self._maybe_store_prefix(out, slots[i])
+            events.append(self._activate(slots[i], out, firsts[i], len(out.request.prompt)))
+        return events
+
     def _extend_slot(self, slot: int, tokens_seq, offset: int, width: int) -> torch.Tensor:
         """Extract the slot's row, extend it with ``tokens_seq`` (padded right
         to ``width``) at columns ``offset + [0..)``, write it back; returns
@@ -905,6 +1243,15 @@ class ServingEngine:
         tokens[0, :take] = tokens_seq
         base, last_idx = padded_prefill_inputs([take], width, device=self.device)
         positions = torch.where(base >= 0, base + offset, torch.full_like(base, -1))
+        if self._paged:
+            # the chunk writes straight into the pool through the slot's
+            # table row: no extract/insert round trip exists
+            self.pool.ensure_writable(slot, offset, offset + take)
+            logits, _ = _extend_core(self.model, self._as_device(tokens), positions, last_idx,
+                                     self._as_device([offset]), self.pool.cache,
+                                     self._as_device(self.pool.block_table[slot:slot + 1]))
+            self._prefill_shapes.add(("extend", 1, width))
+            return logits
         row = self.pool.extract(slot)
         logits, row = _extend_core(self.model, self._as_device(tokens), positions, last_idx,
                                    self._as_device([offset]), row)
@@ -914,23 +1261,42 @@ class ServingEngine:
 
     def _start_chunked(self, out: RequestOutput) -> List[StreamEvent]:
         """Claim a slot for a long prompt and run its first chunk (the rest
-        advance one per tick).  A prefix hit seeds the slot and chunking
+        advance one per tick; under the unified tick the first one too,
+        inside this tick's body).  A prefix hit seeds the slot and chunking
         starts at the prefix boundary."""
+        req = out.request
         slot = self.pool.acquire()
         assert slot is not None, "scheduler admitted beyond free slots"
         offset = 0
+        if self._paged:
+            self.pool.begin_slot(slot, len(req.prompt) + req.max_new_tokens,
+                                 cow_reserve=self._cow_reserve)
         if self._prefix is not None:
-            hit = self._prefix.lookup(out.request.prompt, self._buckets)
+            hit = self._prefix.lookup(req.prompt, self._buckets)
             if hit is not None:
                 row, offset = hit
-                self.pool.copy_prefix(row, slot, offset)
-        if offset == 0:
+                if self._paged:
+                    # table writes; the first chunk's writes into a shared
+                    # tail block copy-on-write through ensure_writable
+                    self.pool.map_prefix(slot, row, offset)
+                else:
+                    self.pool.copy_prefix(row, slot, offset)
+        if offset == 0 and not self._paged:
             # incremental writes from here on: invalidate the previous
-            # occupant now (a whole-row insert never happens)
+            # occupant now (a whole-row insert never happens; a paged slot
+            # needs none, release() invalidated its freed blocks)
             self.pool.clear(slot)
         out.status = RUNNING
         self._slot_out[slot] = out
         self._chunking[slot] = _ChunkState(out, offset)
+        if self.unified_tick:
+            # activation may happen inside the body: the slot's knobs must
+            # reach the device state before then
+            sp = req.sampling
+            self._temp[slot], self._topk[slot], self._topp[slot] = (
+                sp.temperature, sp.top_k, sp.top_p)
+            self._state_dirty = True
+            return []
         return self._advance_chunk(slot)
 
     def _advance_chunk(self, slot: int) -> List[StreamEvent]:
@@ -960,11 +1326,23 @@ class ServingEngine:
     def _maybe_store_prefix(self, out: RequestOutput, slot: int) -> None:
         """Seed the prefix cache from a freshly prefilled slot row (every
         bucket-aligned proper prefix of the prompt, first writer wins); the
-        row is copied only when some key would be new."""
+        row is copied (paged: its blocks shared) only when some key would
+        be new."""
         if self._prefix is None:
             return
         prompt = tuple(int(t) for t in out.request.prompt)
         if all(b >= len(prompt) or prompt[:b] in self._prefix for b in self._buckets):
+            return
+        if self._paged:
+            # per-key refcounted block snapshots, NO K/V copies: the
+            # owner's next write into a snapshotted block copy-on-writes
+            # away, so a stored prefix is immutable from this moment
+            for b in self._buckets:
+                if b >= len(prompt) or prompt[:b] in self._prefix:
+                    continue
+                blocks = self.pool.snapshot_blocks(slot, b)
+                if not self._prefix.store_one(prompt[:b], b, blocks):
+                    self.pool.free_stored(blocks)  # lost the store race
             return
         self._prefix.store(prompt, self._buckets, self.pool.extract(slot))
 
@@ -1004,11 +1382,19 @@ class ServingEngine:
     # -- per-step tick -----------------------------------------------------
 
     def _launch_per_step(self, p: _PendingTick) -> None:
+        table = None
+        if self._paged:
+            seq_len = self.model.config.seq_len
+            for slot in p.entering:
+                w = int(self._widx[slot])
+                if w < seq_len:
+                    self.pool.ensure_writable(slot, w, w + 1)
+            table = self._device_table()
         nxt = _decode_core(
             self.model, self._as_device(self._tok), self._as_device(self._pos),
             self._as_device(self._widx), self._as_device(self._temp, torch.float32),
             self._as_device(self._topk), self._as_device(self._topp, torch.float32),
-            self.pool.cache, self._gen,
+            self.pool.cache, self._gen, table,
         )
         p.kind = "step"
         p.payload = nxt
@@ -1043,7 +1429,9 @@ class ServingEngine:
         """Rewrite the device slot state and knobs in place from the host
         mirrors; runs only after a host-side change (admission, release,
         cancel).  Budget is each live request's remaining new tokens; EOS
-        is -1 for requests without one."""
+        is -1 for requests without one, and mid-chunked-prefill slots give
+        theirs too (the unified tick's activation checks it before the
+        host sees the first token)."""
         n = self.pool.n_slots
         budget = np.zeros(n, np.int64)
         eos = np.full(n, -1, np.int64)
@@ -1052,6 +1440,9 @@ class ServingEngine:
             budget[slot] = out.request.max_new_tokens - len(out.tokens)
             if out.request.eos_token_id is not None:
                 eos[slot] = int(out.request.eos_token_id)
+        for slot, st in self._chunking.items():
+            if st.out.request.eos_token_id is not None:
+                eos[slot] = int(st.out.request.eos_token_id)
         host = (self._tok, self._pos, self._widx, self._active, budget,
                 eos, self._temp, self._topk, self._topp)
         for dst, src in zip(self._dev_state + self._dev_knobs, host):
@@ -1061,32 +1452,47 @@ class ServingEngine:
     def _fused_body(self) -> None:
         """One fused tick on the device tensors, in place: the T-step body,
         the new slot state written back, block and counts into the output
-        buffer.  What the CUDA graph captures."""
+        buffer.  What the fused CUDA graph captures."""
         block, counts, state = _fused_decode_core(
             self.model, self._fused_steps, *self._dev_state, *self._dev_knobs,
-            self.pool.cache, self._gen,
+            self.pool.cache, self._gen, self._dev_table,
         )
         for dst, src in zip(self._dev_state, state):
             dst.copy_(src)
-        self._dev_out[:-1].copy_(block)
-        self._dev_out[-1].copy_(counts)
+        self._dev_out[:-2].copy_(block)
+        self._dev_out[-2].copy_(counts)
 
-    def _capture_fused(self) -> None:
-        """Capture :meth:`_fused_body` as a CUDA graph, once per engine.
+    def _unified_body(self) -> None:
+        """One unified ragged tick on the device tensors, in place: the
+        chunk phase over ``_dev_chunk``, then the T-step body; state, block,
+        counts and the activation tokens written back.  What the unified
+        CUDA graph captures."""
+        act_emit, block, counts, state = _unified_tick_core(
+            self.model, self._fused_steps, *self._dev_state, *self._dev_knobs,
+            *self._dev_chunk, self.pool.cache, self._gen, self._dev_table,
+        )
+        for dst, src in zip(self._dev_state, state):
+            dst.copy_(src)
+        self._dev_out[:-2].copy_(block)
+        self._dev_out[-2].copy_(counts)
+        self._dev_out[-1].copy_(act_emit)
+
+    def _capture_graph(self, body: Callable[[], None]) -> "torch.cuda.CUDAGraph":
+        """Capture ``body`` as a CUDA graph, once per tick kind per engine.
 
         A warm-up run on a side stream first (PyTorch's graph rules); the
         slot state and the generator are then put back as they were, so
         the warm-up changes no result.  Its cache writes land at columns
-        the next replay rewrites before reading, or beyond every slot's
-        frontier where the position mask hides them.  The engine's
-        generator is registered with the graph so each replay draws new
-        noise.  Any failure raises."""
+        the next replay rewrites with the same values before reading, or
+        beyond every slot's frontier where the position mask hides them.
+        The engine's generator is registered with the graph so each replay
+        draws new noise.  Any failure raises."""
         saved = [t.clone() for t in self._dev_state]
         gen_state = self._gen.get_state()
         side = torch.cuda.Stream(device=self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
-            self._fused_body()
+            body()
         torch.cuda.current_stream(self.device).wait_stream(side)
         for dst, src in zip(self._dev_state, saved):
             dst.copy_(src)
@@ -1094,15 +1500,48 @@ class ServingEngine:
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self._gen)
         with torch.cuda.graph(graph):
-            self._fused_body()
-        self._graph = graph
+            body()
         self.graph_captures += 1
+        return graph
 
     def _run_fused_eagerly(self) -> None:
-        """Run the fused tick's body eagerly on a CUDA device instead of
-        replaying its graph: the reference the captured tick is held
-        against (the same body, kernel for kernel)."""
-        self._capture = False
+        """Run the fused and unified bodies eagerly on a CUDA device instead
+        of replaying their graphs: the reference the captured ticks are
+        held against (the same bodies, kernel for kernel)."""
+        self._use_graphs = False
+
+    def _replay(self, kind: str, body: Callable[[], None]) -> None:
+        """Run one tick body: a replay of its graph (captured on first use)
+        on a CUDA device, else eagerly."""
+        if not self._use_graphs:
+            body()
+            return
+        if kind not in self._graphs:
+            self._graphs[kind] = self._capture_graph(body)
+        self._graphs[kind].replay()
+
+    def _ensure_decode_writable(self, p: _PendingTick, width: int) -> None:
+        """Paged launches: make every column this tick CAN write writable up
+        front (budget-clamped, so a finishing slot never draws blocks beyond
+        its entitlement); the table then stays loop-invariant through the
+        body.  ``width`` is the tick's per-slot column advance; a
+        launch-ahead doubles it, since the host mirrors lag the in-flight
+        tick by up to one width."""
+        seq_len = self.model.config.seq_len
+        if p.overlapped:
+            width *= 2
+        for slot in p.entering:
+            out = self._slot_out[slot]
+            if out is None:
+                continue
+            w = int(self._widx[slot])
+            rem = out.request.max_new_tokens - len(out.tokens)
+            self.pool.ensure_writable(slot, w, min(w + min(width, max(rem, 0)), seq_len))
+        for slot, out, plen in p.finals:
+            # a chunk completing this tick activates in the body and
+            # decodes from its prompt length at once
+            self.pool.ensure_writable(
+                slot, plen, min(plen + min(width, out.request.max_new_tokens), seq_len))
 
     def _launch_fused(self, p: _PendingTick) -> None:
         """Launch one fused tick: T masked decode steps (one graph replay on
@@ -1110,12 +1549,16 @@ class ServingEngine:
         host buffer that :meth:`_collect_fused` syncs on."""
         if self._state_dirty:
             self._upload_slot_state()
-        if self._capture:
-            if self._graph is None:
-                self._capture_fused()
-            self._graph.replay()
-        else:
-            self._fused_body()
+        if self._paged:
+            self._ensure_decode_writable(p, self._fused_steps)
+            self._device_table()
+        self._replay("fused", self._fused_body)
+        p.kind = "fused"
+        p.payload = self._copy_out()
+
+    def _copy_out(self):
+        """Copy the output buffer to the next host buffer, asynchronously;
+        returns (host buffer, event recorded after the copy, or None)."""
         host = self._host_out[self._host_turn]
         self._host_turn ^= 1
         host.copy_(self._dev_out, non_blocking=True)
@@ -1123,8 +1566,57 @@ class ServingEngine:
         if self.device.type == "cuda":
             done = torch.cuda.Event()
             done.record()
-        p.kind = "fused"
-        p.payload = (host, done)
+        return host, done
+
+    def _build_chunk_block(self, p: _PendingTick) -> None:
+        """Fold every in-flight chunked prefill into this tick's unified
+        body: fill the fixed ``[n_slots, chunk]`` right-padded chunk block
+        in place, advance each slot's offset, and mark the slots whose
+        chunk COMPLETES the prompt (they activate in the body; the host
+        finishes their bookkeeping at collect).  Paged slots make their
+        chunk's columns writable here, before the launch."""
+        cfg = self.model.config
+        n, width = self.pool.n_slots, self._chunk_tokens
+        ctoks = np.zeros((n, width), np.int64)
+        clen = np.zeros(n, np.int64)
+        cstart = np.full(n, cfg.seq_len, np.int64)
+        cfinal = np.zeros(n, bool)
+        cbudget = np.ones(n, np.int64)
+        for slot in sorted(self._chunking):
+            st = self._chunking[slot]
+            prompt = st.out.request.prompt
+            take = min(width, len(prompt) - st.offset)
+            ctoks[slot, :take] = prompt[st.offset: st.offset + take]
+            clen[slot] = take
+            cstart[slot] = st.offset
+            if self._paged:
+                self.pool.ensure_writable(slot, st.offset, st.offset + take)
+            p.chunk_spans.append((slot, st.out.request.request_id, st.offset // width,
+                                  st.offset + take, st.offset + take >= len(prompt)))
+            st.offset += take
+            p.chunk_tokens += take
+            if st.offset >= len(prompt):
+                cfinal[slot] = True
+                cbudget[slot] = st.out.request.max_new_tokens
+                p.finals.append((slot, st.out, len(prompt)))
+        for slot, _, _ in p.finals:
+            del self._chunking[slot]
+        for dst, src in zip(self._dev_chunk, (ctoks, clen, cstart, cfinal, cbudget)):
+            dst.copy_(self._staged(src), non_blocking=True)
+
+    def _launch_unified(self, p: _PendingTick) -> None:
+        """Launch one unified ragged tick: the chunk phase (every mid-prefill
+        slot's next chunk, in-body final-chunk activation) plus the T
+        decode steps, as one body (one graph replay on a CUDA device)."""
+        if self._state_dirty:
+            self._upload_slot_state()
+        self._build_chunk_block(p)
+        if self._paged:
+            self._ensure_decode_writable(p, self._fused_steps)
+            self._device_table()
+        self._replay("unified", self._unified_body)
+        p.kind = "unified"
+        p.payload = self._copy_out()
 
     def _check_progress(self, p: _PendingTick, counts) -> None:
         """A slot decode-live at launch enters the tick live with budget >= 1,
@@ -1173,15 +1665,21 @@ class ServingEngine:
                     break  # finished, or cancelled by the on_token callback
         return events
 
-    def _collect_fused(self, p: _PendingTick) -> List[StreamEvent]:
-        """Collect one fused tick: ONE sync per T decode steps, then the
-        per-token delivery path (greedy output bitwise equal to the
-        per-step tick's; streaming granularity becomes per tick)."""
+    @staticmethod
+    def _sync_out(p: _PendingTick):
+        """ONE sync on a fused or unified tick's output copy; returns (block
+        [T, n], counts [n], activation tokens [n]) as numpy."""
         host, done = p.payload
         if done is not None:
             done.synchronize()
         out = host.numpy()
-        block, counts = out[:-1], out[-1]
+        return out[:-2], out[-2], out[-1]
+
+    def _collect_fused(self, p: _PendingTick) -> List[StreamEvent]:
+        """Collect one fused tick: ONE sync per T decode steps, then the
+        per-token delivery path (greedy output bitwise equal to the
+        per-step tick's; streaming granularity becomes per tick)."""
+        block, counts, _ = self._sync_out(p)
         self._check_progress(p, counts)
         t1 = self.tracer.now()
         if self.tracer.enabled:
@@ -1189,6 +1687,45 @@ class ServingEngine:
                                tokens=int(counts.sum()))
         events = self._deliver_block(p, block, counts, t1)
         self.metrics.record_dispatch(tokens=len(events))
+        return events
+
+    def _activate_from_device(self, slot: int, out: RequestOutput, tok0: int,
+                              prompt_len: int) -> StreamEvent:
+        """Finish an in-body activation on the host: the device already
+        sampled the first token, turned the slot live and advanced its
+        state; mirror that WITHOUT dirtying the upload flag (the device
+        state is the fresher one), then deliver the first token."""
+        self._tok[slot] = tok0
+        self._pos[slot] = prompt_len
+        self._widx[slot] = prompt_len
+        self._active[slot] = True
+        self._slot_out[slot] = out
+        out.status = RUNNING
+        out.first_token_time = self.clock()
+        return self._deliver(slot, tok0)
+
+    def _collect_unified(self, p: _PendingTick) -> List[StreamEvent]:
+        """Collect one unified tick: ONE sync for the activation row and the
+        decode block together; activations are delivered first (the
+        per-phase engine's advance-then-decode order), then the block."""
+        block, counts, act_emit = self._sync_out(p)
+        t1 = self.tracer.now()
+        if self.tracer.enabled:
+            for slot, rid, idx, offset, final in p.chunk_spans:
+                self.tracer.record("prefill_chunk", f"slot {slot}", p.t0, t1, request_id=rid,
+                                   slot=slot, chunk=idx, offset=offset, final=final)
+        self.metrics.record_chunks(len(p.chunk_spans))
+        events = [self._activate_from_device(slot, out, int(act_emit[slot]), plen)
+                  for slot, out, plen in p.finals]
+        self._check_progress(p, counts)
+        if self.tracer.enabled:
+            self.tracer.record("decode_tick", "scheduler", p.t0, t1, steps=self._fused_steps,
+                               tokens=int(counts.sum()), chunk_tokens=p.chunk_tokens)
+        events.extend(self._deliver_block(p, block, counts, t1))
+        delivered = sum(1 for ev in events if ev.token >= 0)
+        self.metrics.record_dispatch(tokens=delivered)
+        # prompt tokens consumed + tokens this one body delivered
+        self.metrics.record_unified_tick(p.chunk_tokens + delivered)
         return events
 
     # -- delivery ----------------------------------------------------------
