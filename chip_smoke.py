@@ -1,6 +1,6 @@
 """Card check of the PyTorch port: builds its CUDA kernels, holds each
 against its plain version, and drives GPT-2 125M inference, training and
-continuous-batching serving at full width.
+continuous-batching serving, with its hierarchical KV memory, at full width.
 
     python3 chip_smoke.py
 
@@ -66,12 +66,35 @@ source, all started together).  Phases, in order; any failure raises:
    must make no cache-sized copy (contiguous) and exactly one gather per
    payload per layer (paged).  Then the weights in fp32 (TF32 off): 8
    greedy requests against static ``generate()`` at batch 1, a differing
-   token allowed only on a top-2 logit gap < 1e-4.
+   token allowed only on a top-2 logit gap < 1e-4;
+8. kv: the hierarchical KV memory on GPT-2 125M (bf16, 16 slots over 512
+   blocks of 32 tokens, monolithic prefill, fused T=8 ticks replaying one
+   CUDA graph) over 192 requests that visit 64 distinct 512-token system
+   prompts (1024 blocks, twice the pool) three times each, plus a
+   16-64-token suffix and 32-64 new tokens, 16 of them sampled; 16 arrive
+   at tick 0, then 4 per tick.  Four runs: ``paged_lru`` (phase 7's
+   aligned-LRU prefix cache of 4 entries), ``radix`` (a 192-block radix
+   tree), ``radix_host`` (plus 1024 host blocks) and ``radix_host_disk``
+   (256 host blocks over 1024 disk blocks in a temporary directory).  Per
+   run: wall, tokens/s, TTFT p50/p95, ITL p95, prefix hit rate, prompt
+   tokens prefilled, offloads, restored blocks, disk spills and restores,
+   peak memory, graph captures, and the rates of ``export_blocks``
+   (device to host) and of ``import_stored``'s copy (host to device) beside
+   a 256 MB pinned ``copy_`` each way.  Every request must finish at its
+   budget with no restore or integrity failure and every block back; then
+   a fresh engine boots on the disk run's directory and replays 16
+   requests, whose first tick must hit from disk; one flipped byte in a
+   spilled host payload must be refused typed and the request recomputed
+   to its cold tokens; an fp32 leg (TF32 off) of 8 greedy requests through
+   a hierarchy that spills and restores must equal the same engine without
+   it (top-2 rule as in phase 7); and an export -> wire -> import between
+   two engines must continue as the exporter does.  No flash launch.
 
 Weights and inputs are made from ``SEED``.  The kernel launch counters are
 set to 0 before each main path (phases 3-4: inference; phase 6's steps:
-training; phase 7: serving, which must leave them at 0) and read after it.  The last two lines are the ``kernels`` JSON
-object and the ``{"ok": true, ...}`` line.
+training; phases 7-8: serving, which must leave them at 0) and read after
+it.  The last two lines are the ``kernels`` JSON object and the
+``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
@@ -1191,6 +1214,456 @@ def serve_phase(seed, smi):
     return dict(runs=runs, fp32=fp32, cache_sized_copies=copies)
 
 
+
+# phase 8: the hierarchical KV memory (GPT-2 125M, bf16, the seed of phase 7)
+HIER_PROMPTS, HIER_PROMPT_LEN = 64, 512  # 16 blocks each: 1024 blocks, twice the pool
+HIER_VISITS = 3
+HIER_GROUP = 8  # prompts per group: first visits, then second visits (hits while resident)
+HIER_LAG = 4  # third visits trail their group by 4 groups (512 blocks of other prompts)
+HIER_SAMPLED = 16
+HIER_BLOCK_TOKENS, HIER_POOL_BLOCKS = 32, 512
+HIER_TREE_BLOCKS = 192  # the radix tree's device budget: 16 slots x 20 blocks + 192 = 512
+HIER_REPLAY = 16
+HIER_FP32_REQUESTS = 8
+PINNED_PEAK_BYTES = 256 * 2**20
+# the four runs: (name, engine kwargs); the disk run's directory is added
+HIER_RUNS = (("paged_lru", dict(prefix_cache_size=4)),
+             ("radix", dict(prefix_cache_size=HIER_TREE_BLOCKS, kv_radix_cache=True)),
+             ("radix_host", dict(prefix_cache_size=HIER_TREE_BLOCKS, kv_host_blocks=1024)),
+             ("radix_host_disk", dict(prefix_cache_size=HIER_TREE_BLOCKS, kv_host_blocks=256,
+                                      kv_disk_blocks=1024)))
+
+
+def hier_workload(seed, vocab):
+    """192 requests from ``seed`` with numpy: 64 distinct 512-token system
+    prompts, each visited three times, every visit the prompt plus a
+    16-64-token suffix and 32-64 new tokens; 16 sampled (temperature 0.8,
+    top_p 0.9), the rest greedy.  Order, by groups of 8 prompts: the group's
+    first visits, its second visits (hits while resident), then the third
+    visits of the group 4 back (after 32 other prompts, 512 blocks: evicted
+    from the device), then the last groups' third visits.  Returns (prompt
+    index, prompt, max_new_tokens, sampled) in arrival order."""
+    import numpy as np
+
+    rs = np.random.default_rng(seed)
+    prompts = rs.integers(0, vocab, (HIER_PROMPTS, HIER_PROMPT_LEN)).tolist()
+    groups = [list(range(g, g + HIER_GROUP)) for g in range(0, HIER_PROMPTS, HIER_GROUP)]
+    order = []
+    for g, members in enumerate(groups):
+        order += members + members
+        if g >= HIER_LAG:
+            order += groups[g - HIER_LAG]
+    for members in groups[len(groups) - HIER_LAG:]:
+        order += members
+    assert len(order) == HIER_PROMPTS * HIER_VISITS
+    sampled = set(rs.choice(len(order), HIER_SAMPLED, replace=False).tolist())
+    out = []
+    for i, k in enumerate(order):
+        suffix = rs.integers(0, vocab, int(rs.integers(16, 65))).tolist()
+        out.append((k, prompts[k] + suffix, int(rs.integers(32, 65)), i in sampled))
+    return out
+
+
+def hier_engine(model, seed, **kwargs):
+    """Phase 8's engine: phase 7's settings (16 slots, auto buckets, prefill
+    batch 4, fused T=8 ticks replaying a CUDA graph) over 512 blocks of 32
+    tokens, with monolithic prefill: under the unified tick a chunked
+    prompt's prefix is never stored, in either package, so chunks would
+    leave every prefix cache empty."""
+    from tpu_parallel_torch.serving import SchedulerConfig, ServingEngine
+
+    return ServingEngine(
+        model, n_slots=SERVE_SLOTS, scheduler=SchedulerConfig(max_prefills_per_tick=4),
+        rng=torch.Generator(device=model.device).manual_seed(seed), prefill_buckets="auto",
+        prefill_batch=4, prefill_chunk_tokens=None, kv_block_tokens=HIER_BLOCK_TOKENS,
+        kv_pool_blocks=HIER_POOL_BLOCKS, decode_steps_per_tick=8, **kwargs)
+
+
+def _watch_exchange(eng):
+    """Time the pool's exchange calls of a run: ``export_blocks`` (gathers,
+    one device-to-host copy, the copy-out to numpy) and the device half of
+    ``import_stored`` (packing into a pinned buffer, one host-to-device copy,
+    the scatter), each between two synchronizes; the host seconds spent
+    inside the radix tree's entry points (lookup with its restores, insert
+    and the gate's evictions with their spills, checksums included); and
+    the prompt tokens every lookup matched.  Returns a dict the run fills
+    in."""
+    seen = dict(export_bytes=0, export_s=0.0, export_calls=0, import_bytes=0, import_s=0.0,
+                import_calls=0, matched_tokens=0, hierarchy_s=0.0)
+    pool, lookup = eng.pool, eng._lookup_prefix
+    export, write = pool.export_blocks, pool._write_blocks
+
+    def timed_export(blocks):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = export(blocks)
+        seen["export_s"] += time.perf_counter() - t0
+        seen["export_bytes"] += sum(r.nbytes for r in rows)
+        seen["export_calls"] += 1
+        return rows
+
+    def timed_write(rows, blocks):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        write(rows, blocks)
+        torch.cuda.synchronize()
+        seen["import_s"] += time.perf_counter() - t0
+        seen["import_bytes"] += len(blocks) * pool.bytes_per_block
+        seen["import_calls"] += 1
+
+    def counted_lookup(prompt, reserve=0):
+        hit = lookup(prompt, reserve=reserve)
+        if hit is not None:
+            seen["matched_tokens"] += hit[1]
+        return hit
+
+    def timed(fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                seen["hierarchy_s"] += time.perf_counter() - t0
+        return call
+
+    pool.export_blocks, pool._write_blocks, eng._lookup_prefix = (
+        timed_export, timed_write, counted_lookup)
+    radix = eng._radix
+    if radix is not None:
+        radix.lookup, radix.insert, radix.pop_lru = (
+            timed(radix.lookup), timed(radix.insert), timed(radix.pop_lru))
+    return seen
+
+
+def _hier_requests(workload):
+    from tpu_parallel_torch.serving import Request, SamplingParams
+
+    return [Request(prompt=p, max_new_tokens=n, request_id=f"h{i}",
+                    sampling=SamplingParams(temperature=0.8, top_p=0.9) if hot
+                    else SamplingParams())
+            for i, (_, p, n, hot) in enumerate(workload)]
+
+
+def hier_run(model, workload, seed, **kwargs):
+    """One run of phase 8's workload: 16 requests at tick 0, then 4 per tick,
+    then ``run()`` to idle.  Returns (engine, outputs, wall seconds, peak
+    memory, exchange counts)."""
+    eng = hier_engine(model, seed, **kwargs)
+    seen = _watch_exchange(eng)
+    requests = _hier_requests(workload)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    outs = [eng.add_request(r) for r in requests[:SERVE_FIRST_TICK]]
+    while len(outs) < len(requests):
+        eng.step()
+        outs += [eng.add_request(r) for r in requests[len(outs):len(outs) + SERVE_PER_TICK]]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    return eng, outs, wall, torch.cuda.max_memory_allocated(), seen
+
+
+def _drain_blocks(name, eng):
+    """A run's end: the allocator audit passes, and once the prefix cache
+    lets go of its entries (aligned LRU: released; radix: evicted dry)
+    every block is free."""
+    pool = eng.pool
+    pool.allocator.check()
+    if eng._radix is not None:
+        while eng._radix.pop_lru():
+            pass
+    else:
+        for blocks, _ in list(eng._prefix.values()):
+            pool.free_stored(blocks)
+    pool.allocator.check()
+    if pool.blocks_in_use or (pool.block_table >= 0).any():
+        raise AssertionError(f"[kv {name}] {pool.blocks_in_use} blocks still in use")
+
+
+def pinned_copy_peak():
+    """Device-to-host and host-to-device rates of one 256 MB ``copy_``
+    between a pinned host buffer and the device (CUDA events, mean of 5
+    after a warm-up): the bound of the exchange copies."""
+    dev = torch.empty(PINNED_PEAK_BYTES, dtype=torch.uint8, device="cuda")
+    host = torch.empty(PINNED_PEAK_BYTES, dtype=torch.uint8, pin_memory=True)
+    rates = {}
+    for name, fn in (("d2h", lambda: host.copy_(dev, non_blocking=True)),
+                     ("h2d", lambda: dev.copy_(host, non_blocking=True))):
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(5):
+            fn()
+        end.record()
+        end.synchronize()
+        rates[name] = PINNED_PEAK_BYTES * 5 / (start.elapsed_time(end) / 1e3) / 1e9
+    del dev, host
+    return rates
+
+
+def _single(eng, request):
+    out = eng.add_request(request)
+    eng.run()
+    if out.status != "finished":
+        raise AssertionError(f"[kv] {request.request_id} ended {out.status}")
+    return out.tokens
+
+
+def planted_fault(model, workload, seed):
+    """Flip one byte of one host payload: the first block of a warm prompt
+    spilled to the host tier.  Its revisit must refuse the restore typed
+    (one integrity failure, no block restored), recompute, and give exactly
+    the tokens its cold first visit gave."""
+    from tpu_parallel_torch.serving import Request
+
+    eng = hier_engine(model, seed, prefix_cache_size=HIER_TREE_BLOCKS, kv_host_blocks=256)
+    _, prompt, n, _ = next(w for w in workload if not w[3])
+    want = _single(eng, Request(prompt=prompt, max_new_tokens=n, request_id="f0"))
+    _single(eng, Request(prompt=prompt, max_new_tokens=4, request_id="f1"))  # a hit: warm
+    radix = eng._radix
+    node = radix._root.children.get(tuple(prompt[:HIER_BLOCK_TOKENS]))
+    while node.block is not None and radix.pop_lru():  # the warm chain spills, deepest first
+        pass
+    if node.host is None:
+        raise AssertionError("[kv fault] the prompt's first block was not spilled to host")
+    node.host[0].view("u1").flat[7] ^= 0x10
+    restored = radix.restored_blocks
+    got = _single(eng, Request(prompt=prompt, max_new_tokens=n, request_id="f2"))
+    if radix.integrity_failures != 1 or radix.restored_blocks != restored:
+        raise AssertionError(f"[kv fault] integrity failures {radix.integrity_failures}, "
+                             f"restored {radix.restored_blocks - restored} blocks; want 1 and 0")
+    if got != want:
+        raise AssertionError("[kv fault] the recomputed request's tokens differ from its cold run")
+    _drain_blocks("fault", eng)
+    return dict(integrity_failures=radix.integrity_failures,
+                restore_failures=radix.restore_failures, tokens=len(got), equal=True)
+
+
+def hier_fp32_leg(seed, workload):
+    """The weights in fp32 (TF32 off): 8 greedy requests over three prompts
+    (a, a, b, b, c, c, a, b), one at a time through a tight hierarchy (a
+    2-prompt device budget over a host tier) that must spill warm blocks
+    and restore them, against the same engine without the hierarchy.  A differing token passes only
+    on a near-tie: the reference's top-2 logit gap there below
+    FP32_TIE_GAP."""
+    from tpu_parallel_torch.models import GPTLM, gpt2_125m
+    from tpu_parallel_torch.serving import Request
+
+    model = GPTLM(gpt2_125m(dtype=torch.float32), device="cuda", seed=seed).eval()
+    seen, picked = set(), []
+    for k, p, n, hot in workload:
+        if not hot and k not in seen and len(seen) < 3:
+            seen.add(k)
+            picked.append((k, p, n))
+    a, b, c = picked
+    order = [a, a, b, b, c, c, a, b]
+    assert len(order) == HIER_FP32_REQUESTS
+    budget = 2 * HIER_PROMPT_LEN // HIER_BLOCK_TOKENS
+    with_tiers = hier_engine(model, seed, prefix_cache_size=budget, kv_host_blocks=256)
+    plain = hier_engine(model, seed, prefix_cache_size=4)
+    report = []
+    for i, (k, p, n) in enumerate(order):
+        got = _single(with_tiers, Request(prompt=p, max_new_tokens=n, request_id=f"t{i}"))
+        want = _single(plain, Request(prompt=p, max_new_tokens=n, request_id=f"p{i}"))
+        if got == want:
+            report.append(dict(request=i, prompt=k, equal=True))
+            continue
+        step = next(j for j, (x, y) in enumerate(zip(got, want)) if x != y)
+        with torch.inference_mode():
+            top2 = model(torch.tensor([p + want[:step]], device="cuda"))[0, -1].float().topk(2)
+        gap = (top2.values[0] - top2.values[1]).item()
+        report.append(dict(request=i, prompt=k, equal=False, first_diff=step, top2_gap=gap))
+        if gap >= FP32_TIE_GAP:
+            raise AssertionError(f"[kv fp32] request {i} differs from the engine without the "
+                                 f"hierarchy at token {step}, top-2 gap {gap:.3e}")
+    radix = with_tiers._radix
+    if radix.offloads == 0 or radix.restored_blocks == 0:
+        raise AssertionError(f"[kv fp32] no spill and restore: offloads {radix.offloads}, "
+                             f"restored {radix.restored_blocks}")
+    counts = dict(offloads=radix.offloads, restored_blocks=radix.restored_blocks,
+                  hits=radix.hits)
+    del model, with_tiers, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report, counts
+
+
+def export_across_engines(model, workload, seed):
+    """Export -> wire -> import between two engines on the card.  Engine A
+    serves a request; after its first tick A exports its written full
+    blocks (the prompt's), the export goes through ``encode_export`` /
+    ``decode_export`` and engine B imports it (``"imported"``).  Then the
+    forced-prefix continuation (prompt + delivered tokens) runs on B, which
+    hits the imported blocks, and on A, which hits its own: B's
+    continuation must equal A's."""
+    from tpu_parallel_torch.serving import Request, decode_export, encode_export
+
+    kw = dict(prefix_cache_size=HIER_TREE_BLOCKS, kv_radix_cache=True)
+    a, b = hier_engine(model, seed, **kw), hier_engine(model, seed, **kw)
+    k, prompt, n, _ = next(w for w in workload if not w[3])
+    prompt = prompt[:HIER_PROMPT_LEN + 16]  # + 8 tokens of the first tick stay in block 16
+    out = a.add_request(Request(prompt=prompt, max_new_tokens=n, request_id="x"))
+    a.step()
+    export = a.export_prefix("x")
+    if export is None or export.n_blocks != HIER_PROMPT_LEN // HIER_BLOCK_TOKENS:
+        raise AssertionError(f"[kv export] export of {export and export.n_blocks} blocks")
+    frame = encode_export(export)
+    verdict = b.import_prefix(decode_export(frame))
+    if verdict != "imported":
+        raise AssertionError(f"[kv export] import verdict {verdict}")
+    delivered = list(out.tokens)
+    a.run()
+    cont = dict(prompt=prompt + delivered, max_new_tokens=n - len(delivered))
+    hits_b = b._radix.hits
+    got = _single(b, Request(request_id="cb", **cont))
+    want = _single(a, Request(request_id="ca", **cont))
+    if b._radix.hits != hits_b + 1 or got != want:
+        raise AssertionError(f"[kv export] engine B's continuation (hit {b._radix.hits - hits_b}) "
+                             "differs from engine A's")
+    return dict(blocks=export.n_blocks, frame_bytes=len(frame), delivered=len(delivered),
+                continuation_tokens=len(got), equal=True,
+                equal_to_uninterrupted=delivered + got == out.tokens)
+
+
+def hier_phase(seed, smi):
+    """Phase 8: the hierarchical KV memory on GPT-2 125M (bf16, seeded
+    weights, 16 slots over 512 blocks of 32 tokens) over 192 requests that
+    revisit 64 distinct 512-token system prompts, run four times
+    (``HIER_RUNS``), then a warm restart on the disk run's directory, a
+    planted integrity fault, an fp32 leg and an export -> wire -> import
+    between two engines.  Every request finishes at its budget, no restore
+    or integrity failure, every block returned, no flash launch."""
+    import tempfile
+
+    from tpu_parallel_torch.models import GPTLM, gpt2_125m
+    from tpu_parallel_torch.ops import flash_attention as fa
+
+    gc.collect()  # garbage of earlier phases would count in the first run's peak
+    torch.cuda.empty_cache()
+    cfg = gpt2_125m()
+    model = GPTLM(cfg, device="cuda", seed=seed).eval()
+    workload = hier_workload(seed, cfg.vocab_size)
+    flash_before = [getattr(fa, name) for name in LAUNCH_COUNTERS]
+    peak = pinned_copy_peak()
+    disk_dir = tempfile.mkdtemp(prefix="kv_disk_")
+    runs, tokens = {}, {}
+    try:
+        for name, kwargs in HIER_RUNS:
+            if "kv_disk_blocks" in kwargs:
+                kwargs = dict(kwargs, kv_disk_dir=disk_dir)
+            eng, outs, wall, mem, seen = hier_run(model, workload, seed, **kwargs)
+            s = eng.metrics.summary()
+            bad = [o.request.request_id for o in outs if o.status != "finished"
+                   or len(o.tokens) != o.request.max_new_tokens]
+            if bad:
+                raise AssertionError(f"[kv {name}] requests not finished at their budget: {bad}")
+            radix = eng._radix
+            counts = {c: getattr(radix, c, 0) if radix is not None else 0 for c in (
+                "offloads", "restored_blocks", "host_evictions", "restore_failures",
+                "integrity_failures", "disk_spills", "disk_restores", "disk_restore_failures")}
+            if counts["restore_failures"] or counts["integrity_failures"] or counts[
+                    "disk_restore_failures"]:
+                raise AssertionError(f"[kv {name}] restore or integrity failures: {counts}")
+            prompt_tokens = sum(len(o.request.prompt) for o in outs)
+            runs[name] = dict(
+                wall_s=wall, tokens_out=s["tokens_out"], tokens_per_s=s["tokens_out"] / wall,
+                ttft_ms_p50=s["ttft_ms_p50"], ttft_ms_p95=s["ttft_ms_p95"],
+                itl_ms_p95=s["itl_ms_p95"], prefix_hit_rate=s["prefix_hit_rate"],
+                ticks=s["ticks"], prefill_calls=s["prefill_calls"], prompt_tokens=prompt_tokens,
+                prompt_tokens_prefilled=prompt_tokens - seen["matched_tokens"],
+                peak_memory_gib=mem / 2**30, graph_captures=eng.graph_captures, **counts,
+                export_calls=seen["export_calls"], import_calls=seen["import_calls"],
+                export_gb_per_s=(seen["export_bytes"] / seen["export_s"] / 1e9
+                                 if seen["export_calls"] else None),
+                import_gb_per_s=(seen["import_bytes"] / seen["import_s"] / 1e9
+                                 if seen["import_calls"] else None),
+                export_bytes=seen["export_bytes"], import_bytes=seen["import_bytes"],
+                export_s=seen["export_s"], import_s=seen["import_s"],
+                hierarchy_host_s=seen["hierarchy_s"])
+            tokens[name] = {o.request.request_id: o.tokens for o in outs}
+            _drain_blocks(name, eng)
+            if radix is not None and radix.disk is not None:
+                radix.disk.close()  # the restart below reopens the directory
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        # a fresh engine boots warm on the disk run's directory and replays
+        # the third visits of the 16 prompts whose chains sit deepest on disk
+        restart = hier_engine(model, seed, **dict(HIER_RUNS[3][1], kv_disk_dir=disk_dir))
+        radix = restart._radix
+        if radix.disk_seeded_blocks == 0:
+            raise AssertionError("[kv restart] the manifest seeded no block")
+        on_disk = {tuple(n.run) for n in radix._root.children.values() if n.disk is not None}
+        replay = [(i, w) for i, w in enumerate(workload)
+                  if tuple(w[1][:HIER_BLOCK_TOKENS]) in on_disk and not w[3]][-HIER_REPLAY:]
+        requests = _hier_requests(workload)
+        outs = [restart.add_request(requests[i]) for i, _ in replay]
+        restart.step()
+        first_hits, first_disk = radix.hits, radix.disk_restores
+        restart.run()
+        if not first_hits or not first_disk:
+            raise AssertionError(f"[kv restart] first lookups: {first_hits} hits, {first_disk} "
+                                 "disk restores")
+        if any(o.status != "finished" for o in outs) or radix.disk_restore_failures:
+            raise AssertionError("[kv restart] replay failed")
+        restart_report = dict(
+            seeded_blocks=radix.disk_seeded_blocks, seeded_chains=radix.disk_seeded_chains,
+            replayed=len(outs), first_tick_hits=first_hits, first_tick_disk_restores=first_disk,
+            hits=radix.hits, disk_restores=radix.disk_restores,
+            equal_to_disk_run=sum(o.tokens == tokens["radix_host_disk"][o.request.request_id]
+                                  for o in outs))
+        radix.disk.close()
+        _drain_blocks("restart", restart)
+        del restart
+    finally:
+        import shutil
+
+        shutil.rmtree(disk_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fault = planted_fault(model, workload, seed)
+    exchange = export_across_engines(model, workload, seed)
+    moved = [getattr(fa, name) - n for name, n in zip(LAUNCH_COUNTERS, flash_before)]
+    if any(moved):
+        raise AssertionError(f"the hierarchy path launched flash kernels: {moved}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    fp32, fp32_counts = hier_fp32_leg(seed, workload)
+    greedy = [f"h{i}" for i, w in enumerate(workload) if not w[3]]
+    for name, r in runs.items():
+        r["greedy_equal_to_paged_lru"] = sum(tokens[name][g] == tokens["paged_lru"][g]
+                                             for g in greedy)
+        log(f"[kv {name}] {r['wall_s']:.3f} s wall, {r['tokens_out']} tokens out "
+            f"({r['tokens_per_s']:.1f} tokens/s); TTFT p50 {r['ttft_ms_p50']} ms p95 "
+            f"{r['ttft_ms_p95']} ms; ITL p95 {r['itl_ms_p95']} ms; {r['ticks']} ticks, "
+            f"{r['prefill_calls']} prefill calls; prefix hit rate {r['prefix_hit_rate']:.4f}; "
+            f"prompt tokens prefilled {r['prompt_tokens_prefilled']} of {r['prompt_tokens']}; offloads {r['offloads']}, restored blocks "
+            f"{r['restored_blocks']}, host evictions {r['host_evictions']}, disk spills "
+            f"{r['disk_spills']}, disk restores {r['disk_restores']}; peak memory "
+            f"{r['peak_memory_gib']:.2f} GiB; graph captures {r['graph_captures']}; "
+            f"greedy requests equal to paged_lru's {r['greedy_equal_to_paged_lru']}/{len(greedy)}; "
+            f"host s inside the radix tree {r['hierarchy_host_s']:.3f} (export_blocks "
+            f"{r['export_s']:.3f}, import_stored's copy {r['import_s']:.3f})")
+        if r["export_calls"] or r["import_calls"]:
+            fmt = lambda x: "n/a" if x is None else f"{x:.3f}"  # noqa: E731
+            log(f"  export_blocks: {r['export_calls']} calls, {r['export_bytes'] / 1e9:.3f} GB, "
+                f"{fmt(r['export_gb_per_s'])} GB/s device-to-host (pinned copy_ peak "
+                f"{peak['d2h']:.3f} GB/s); import_stored: {r['import_calls']} calls, "
+                f"{r['import_bytes'] / 1e9:.3f} GB, {fmt(r['import_gb_per_s'])} GB/s "
+                f"host-to-device (pinned copy_ peak {peak['h2d']:.3f} GB/s)")
+    log(f"[kv restart] {restart_report}")
+    log(f"[kv fault] one flipped byte in a host payload: {fault}")
+    log(f"[kv export] engine A -> wire -> engine B: {exchange}")
+    log(f"[kv fp32] hierarchy vs none, 8 greedy requests: "
+        f"{sum(r['equal'] for r in fp32)}/{len(fp32)} equal; {fp32_counts}; {fp32}")
+    log(f"[kv] pinned copy_ of 256 MB: {peak}; card: {smi}")
+    return dict(runs=runs, restart=restart_report, fault=fault, export=exchange, fp32=fp32,
+                fp32_counts=fp32_counts, pinned_copy_gb_per_s=peak)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1220,6 +1693,7 @@ def main():
     for name in LAUNCH_COUNTERS:  # the serving main path starts here
         setattr(fa, name, 0)
     serve = serve_phase(SEED, smi)
+    kv = hier_phase(SEED, smi)
     serve_launches = {name: getattr(fa, name) for name in LAUNCH_COUNTERS}
     if any(serve_launches.values()):
         raise AssertionError(f"the serving path launched flash kernels: {serve_launches}")
@@ -1246,7 +1720,7 @@ def main():
              bound_by=train_row["bound_by"], library_ms=train_row["library_ms"],
              library_covers="dq+dk+dv", ms_main_path_layout=train_row["main_path_layout"]["ms"])
     ]}
-    summary = dict(card=smi, forward=fwd, generate=gen, train=train, serve=serve,
+    summary = dict(card=smi, forward=fwd, generate=gen, train=train, serve=serve, kv=kv,
                    inference_flash_fwd_launches=inference_launches,
                    kernel_shapes=kernel_rows, bwd_kernel_shapes=bwd_rows)
     log("[summary] " + json.dumps(summary, sort_keys=True))

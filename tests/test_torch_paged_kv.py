@@ -206,9 +206,11 @@ def test_paged_config_and_init_cache():
 
 def test_block_helpers_in_place(model):
     """copy_block copies one block in every layer; free_block_pos sets its
-    positions to -1 and leaves the payloads; gather then scatter of block
-    rows round-trips (out-of-range blocks dropped); storage never moves."""
-    cache = [PagedKVCache.empty(_paged_model_cfg(), "cpu") for _ in range(2)]
+    positions to -1 and leaves the payloads; the pool's export of block
+    rows and their import into blocks round-trips, positions included;
+    storage never moves."""
+    pool = PagedCachePool(model, 2, block_tokens=BT, n_blocks=8)
+    cache = pool.cache
     gen = torch.Generator().manual_seed(0)
     for c in cache:
         c.key_store.copy_(torch.randn(c.key_store.shape, generator=gen))
@@ -216,7 +218,7 @@ def test_block_helpers_in_place(model):
         c.pos_store.copy_(torch.arange(c.pos_store.numel(), dtype=torch.int32).view_as(
             c.pos_store))
     ptrs = [(c.key_store.data_ptr(), c.pos_store.data_ptr()) for c in cache]
-    rows = cache_pool.gather_block_rows(cache, [2, 5])
+    rows = pool.export_blocks([2, 5])
     cache_pool.copy_block(cache, 2, 6)
     for c in cache:
         assert torch.equal(c.key_store[:, 6], c.key_store[:, 2])
@@ -226,11 +228,13 @@ def test_block_helpers_in_place(model):
     for c, k in zip(cache, before):
         assert (c.pos[[2, 6]] == -1).all() and (c.pos[3] >= 0).all()
         assert torch.equal(c.key_store, k)
-    cache_pool.scatter_block_rows(cache, rows, [2, 99])  # 99: dropped
+    pool._write_blocks(rows, [2, 7])  # block 5's rows land in block 7
     for c, k in zip(cache, before):
         assert torch.equal(c.pos[2], torch.arange(2 * BT, 3 * BT, dtype=torch.int32))
         assert torch.equal(c.key_store[:, 2], k[:, 2]) and (c.pos[6] == -1).all()
-    assert rows[0].shape == (2, 4, BT, 8) and rows[2].shape == (2, BT)
+        assert torch.equal(c.key_store[:, 7], k[:, 5]) and torch.equal(c.pos[7], c.pos[5])
+    # the JAX layout, scanned: [k, layers, block_tokens, kv_heads, head_dim], [k, layers, bt]
+    assert rows[0].shape == (2, 4, BT, 4, 8) and rows[1].shape == (2, 4, BT)
     assert [(c.key_store.data_ptr(), c.pos_store.data_ptr()) for c in cache] == ptrs
 
 

@@ -1,5 +1,6 @@
-"""Rules of the PyTorch port: it never imports JAX or the JAX package, and
-its entry points default to the card, raising where there is none."""
+"""Rules of the PyTorch port: it never imports JAX, the JAX package or
+``ml_dtypes`` (the card's machine has none of them), and its entry points
+default to the card, raising where there is none."""
 
 import ast
 import os
@@ -16,7 +17,7 @@ from tpu_parallel_torch.runtime import resolve_device
 from tpu_parallel_torch.serving import ServingEngine
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "tpu_parallel"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "tpu_parallel", "ml_dtypes"}
 PORT_FILES = sorted((REPO / "tpu_parallel_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
@@ -39,6 +40,16 @@ def test_port_never_imports_jax(path):
     assert not FORBIDDEN & set(_imported_roots(path))
 
 
+def test_scan_covers_every_subpackage():
+    """Every package directory of the port (``daemon/`` included) has its
+    modules in the scan above."""
+    packages = {p.parent for p in (REPO / "tpu_parallel_torch").rglob("__init__.py")}
+    scanned = {p.parent for p in PORT_FILES}
+    assert REPO / "tpu_parallel_torch" / "daemon" in packages
+    assert packages <= scanned
+    assert all(p in PORT_FILES for pkg in packages for p in pkg.glob("*.py"))
+
+
 def test_import_pulls_in_no_jax():
     code = (
         "import sys; before = set(sys.modules)\n"
@@ -53,7 +64,10 @@ def test_import_pulls_in_no_jax():
         "tpu_parallel_torch.serving.request, tpu_parallel_torch.serving.sampling, "
         "tpu_parallel_torch.serving.scheduler, tpu_parallel_torch.obs, "
         "tpu_parallel_torch.obs.registry, tpu_parallel_torch.obs.tracer, "
-        "tpu_parallel_torch.utils.logging_utils\n"
+        "tpu_parallel_torch.utils.logging_utils, tpu_parallel_torch.daemon, "
+        "tpu_parallel_torch.daemon.iofaults, tpu_parallel_torch.daemon.journal, "
+        "tpu_parallel_torch.serving.kv_hierarchy, tpu_parallel_torch.serving.kv_wire, "
+        "tpu_parallel_torch.serving.kv_disk\n"
         "new = {m.split('.')[0] for m in set(sys.modules) - before}\n"
         f"print(sorted(new & {FORBIDDEN!r}))\n"
     )

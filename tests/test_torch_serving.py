@@ -494,30 +494,50 @@ def test_same_seed_same_sampled_stream(model, steps):
 
 
 REFUSED = {
-    "kv_radix_cache": dict(kv_radix_cache=True),
-    "kv_host_blocks": dict(kv_host_blocks=4),
-    "kv_disk": dict(kv_disk_dir="kv", kv_disk_blocks=4),
     "draft_tokens": dict(draft_tokens=2),
     "draft_tokens_paged": dict(draft_tokens=2, kv_block_tokens=8),
     "drafter": dict(drafter=object()),
     "mesh": dict(mesh=object()),
 }
+# knobs the port has: each raises the JAX engine's ValueError when its
+# prerequisite is missing (the hierarchy indexes physical blocks, the disk
+# tier sits under a host tier) and builds its tier when configured
+PORTED = {
+    "kv_radix_cache": (dict(kv_radix_cache=True), dict(kv_block_tokens=8, prefix_cache_size=4)),
+    "kv_host_blocks": (dict(kv_host_blocks=4), dict(kv_block_tokens=8, prefix_cache_size=4)),
+    "kv_disk": (dict(kv_disk_dir="kv", kv_disk_blocks=4),
+                dict(kv_block_tokens=8, prefix_cache_size=4, kv_host_blocks=4)),
+}
 
 
-@pytest.mark.parametrize("knob", sorted(REFUSED))
-def test_refused_knob_raises(model, knob):
-    with pytest.raises(NotImplementedError, match="later slice of the port"):
-        ServingEngine(model, n_slots=2, **REFUSED[knob])
+@pytest.mark.parametrize("knob", sorted(REFUSED) + sorted(PORTED))
+def test_refused_knob_raises(model, knob, tmp_path):
+    if knob in REFUSED:
+        with pytest.raises(NotImplementedError, match="later slice of the port"):
+            ServingEngine(model, n_slots=2, **REFUSED[knob])
+        return
+    knobs, prerequisites = PORTED[knob]
+    if knob == "kv_disk":
+        knobs = dict(knobs, kv_disk_dir=str(tmp_path / "kv"))
+    with pytest.raises(ValueError, match="kv_"):
+        ServingEngine(model, n_slots=2, **knobs)
+    eng = ServingEngine(model, n_slots=2, **knobs, **prerequisites)
+    assert eng._radix is not None and eng._prefix is eng._radix
+    assert eng._radix.host_capacity == knobs.get("kv_host_blocks", prerequisites.get(
+        "kv_host_blocks", 0))
+    assert (eng._radix.disk is not None) == (knob == "kv_disk")
 
 
 def test_refused_int8_cache_and_prefix_export(model):
+    """int8 stays refused; prefix export and import exist and answer a
+    fixed-slot engine as the JAX engine does (nothing to export, a typed
+    ``not_paged`` verdict)."""
     with pytest.raises(NotImplementedError, match="int8"):
         tiny_test(kv_cache_dtype="int8")
     eng = ServingEngine(model, n_slots=2)
-    with pytest.raises(NotImplementedError, match="later slice of the port"):
-        eng.export_prefix("r0")
-    with pytest.raises(NotImplementedError, match="later slice of the port"):
-        eng.import_prefix(None)
+    assert eng.export_prefix("r0") is None
+    assert eng.import_prefix(None) == "not_paged"
+    assert eng.export_hot_prefixes() == []
     assert eng.decode_steps_per_tick == 8 and eng.unified_tick is True
     assert eng.graph_captures == 0  # the CPU runs the fused body eagerly
 

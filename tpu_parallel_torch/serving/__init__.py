@@ -3,14 +3,17 @@
 Iteration-level scheduling over a fixed-slot or block-paged pool of KV
 caches, with the bucketed / batched / chunked prefill, prefix reuse, and
 per-step, fused and unified ragged ticks (one CUDA graph replay per tick
-on the card).  The radix / host / disk KV tiers and speculative decoding
-are not ported yet.
+on the card); the hierarchical KV memory (radix prefix tree, host and disk
+tiers) and prefix export / import through the ``KVW1`` wire format, whose
+bytes match the JAX package's.  Speculative decoding is not ported yet.
 """
 
 from tpu_parallel_torch.serving.cache_pool import (
     BlockAllocator,
     CachePool,
+    KVIntegrityError,
     PagedCachePool,
+    block_checksums,
     clear_rows,
     copy_prefix_rows,
     extract_rows,
@@ -22,6 +25,21 @@ from tpu_parallel_torch.serving.engine import (
     ServingEngine,
     default_prefill_buckets,
     sample_tokens,
+)
+from tpu_parallel_torch.serving.kv_hierarchy import (
+    MIGRATION_STATUSES,
+    KVPrefixExport,
+    RadixPrefixCache,
+)
+from tpu_parallel_torch.serving.kv_wire import (
+    WIRE_REASONS,
+    WireFormatError,
+    decode_export,
+    decode_exports,
+    encode_export,
+    encode_exports,
+    read_export_file,
+    write_export_file,
 )
 from tpu_parallel_torch.serving.metrics import ServingMetrics, percentile
 from tpu_parallel_torch.serving.prefix_cache import PrefixCache
@@ -54,9 +72,11 @@ from tpu_parallel_torch.serving.scheduler import (
 __all__ = [
     "BlockAllocator",
     "CachePool",
-    "PagedCachePool",
+    "KVIntegrityError",
     "NON_FINITE_TOKEN",
     "FAIL_INTEGRITY",
+    "PagedCachePool",
+    "block_checksums",
     "insert_rows",
     "scatter_rows",
     "extract_rows",
@@ -68,6 +88,17 @@ __all__ = [
     "ServingMetrics",
     "percentile",
     "PrefixCache",
+    "RadixPrefixCache",
+    "KVPrefixExport",
+    "MIGRATION_STATUSES",
+    "WireFormatError",
+    "WIRE_REASONS",
+    "encode_export",
+    "decode_export",
+    "encode_exports",
+    "decode_exports",
+    "write_export_file",
+    "read_export_file",
     "Request",
     "RequestOutput",
     "SamplingParams",

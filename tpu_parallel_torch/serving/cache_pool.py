@@ -26,26 +26,75 @@ helpers) and every engine tick writes INTO the one preallocated set of
 per-layer buffers with ``copy_`` / ``index_copy_`` / ``index_put_``.  The
 pool is never reallocated or rebound, so its addresses stay fixed and a
 captured CUDA graph of a tick keeps writing the live pool.  Read-side ops
-(``extract``, ``stack_prefix``, :func:`gather_block_rows`) return copies
-that may be held.
+(``extract``, ``stack_prefix``, ``PagedCachePool.export_blocks``) return
+copies that may be held.
 
 The block table is host-authoritative (``PagedCachePool.block_table``, a
 numpy array with ``table_version`` bumped on every change); the engine
-mirrors it into a fixed-address device tensor.  Block export / import
-(``export_meta``, ``export_blocks``, ``import_stored``,
-``block_checksums``) is not in the port yet.
+mirrors it into a fixed-address device tensor.
+
+Block export / import (``export_meta``, ``export_blocks``,
+``import_stored``, ``block_checksums``) exchanges blocks as host numpy
+arrays in the JAX package's layout, not the port's: one array per JAX
+cache leaf in flax's flatten order, block dim first (scanned configs:
+``cached_key [k, n_layers, block_tokens, kv_heads, head_dim]``,
+``cached_pos [k, n_layers, block_tokens]``, ``cached_value``; unrolled:
+the three per layer, layers in the order their names ``layer_<i>`` sort).
+So checksums, wire frames and disk blobs are byte-identical across the two
+packages.  A bf16 leaf travels as its raw bits (:data:`BFLOAT16_BITS`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import heapq
+import zlib
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from tpu_parallel_torch.models.layers import KVCache, PagedKVCache
+
+
+# numpy has no bfloat16 type of its own: a bf16 leaf travels as its raw
+# bits, uint16 tagged "bfloat16" so the wire header and the disk blobs name
+# the dtype as the JAX package writes it (``leaf_dtype_name``)
+BFLOAT16_BITS = np.dtype(np.uint16, metadata={"dtype": "bfloat16"})
+
+
+def leaf_dtype_name(leaf: np.ndarray) -> str:
+    """The dtype name a host leaf is exported under: ``"bfloat16"`` for the
+    raw bits of a bf16 leaf (:data:`BFLOAT16_BITS`), else numpy's name."""
+    tag = (leaf.dtype.metadata or {}).get("dtype")
+    return tag if tag is not None else str(leaf.dtype)
+
+
+class KVIntegrityError(ValueError):
+    """Exported KV block bytes failed their checksum — the payload was
+    corrupted somewhere between ``export_blocks`` and the import (host
+    RAM rot, a truncated spill, a mangled wire transfer).  Serving such
+    blocks would be silently wrong attention for EVERY request sharing
+    the prefix; callers catch this, count a typed refusal, and fall
+    back to the bitwise recompute path."""
+
+
+def block_checksums(rows, count: int):
+    """Per-block CRC32 over exported host rows (the
+    :meth:`PagedCachePool.export_blocks` layout: one array per
+    block-axis leaf, block dim at axis 0).  Block ``b``'s checksum
+    chains every leaf's row bytes in flatten order, so any flipped bit
+    in any payload or position table changes it.  Computed at EXPORT
+    time (spill / migration capture) and verified at IMPORT time
+    (:meth:`PagedCachePool.import_stored`).  Over the same values it
+    equals the JAX package's (a bf16 leaf's raw bits are its bytes)."""
+    out = []
+    for b in range(count):
+        crc = 0
+        for leaf in rows:
+            crc = zlib.crc32(np.ascontiguousarray(leaf[b]).tobytes(), crc)
+        out.append(crc)
+    return tuple(out)
 
 
 def _valid_prefix(pos: torch.Tensor, length: int) -> torch.Tensor:
@@ -257,46 +306,10 @@ def copy_block(pool_cache: List[PagedKVCache], src: int, dst: int) -> None:
         c.pos_store[dst].copy_(c.pos_store[src])
 
 
-def gather_block_rows(pool_cache: List[PagedKVCache], blocks: Sequence[int]) -> List[torch.Tensor]:
-    """Copies of physical ``blocks`` out of every layer, block dim first:
-    per layer ``key [k, kv_heads, block_tokens, head_dim]``, ``value``
-    (the same) and ``pos [k, block_tokens]``, in that order.  A READ op
-    (the device half of a block export); the layout is the port's own
-    head-major one, not JAX's ``[k, block_tokens, kv_heads, head_dim]``."""
-    idx = _block_index(pool_cache, blocks)
-    out = []
-    for c in pool_cache:
-        out.append(c.key_store.index_select(1, idx).transpose(0, 1).contiguous())
-        out.append(c.value_store.index_select(1, idx).transpose(0, 1).contiguous())
-        out.append(c.pos_store.index_select(0, idx))
-    return out
-
-
-def scatter_block_rows(pool_cache: List[PagedKVCache], rows: Sequence[torch.Tensor],
-                       blocks: Sequence[int]) -> None:
-    """Write gathered block rows (the :func:`gather_block_rows` layout)
-    into physical ``blocks`` in every layer, in place.  Blocks outside
-    ``[0, n_blocks)`` are dropped, as JAX's scatter drops them.  Positions
-    copy verbatim: rows always land at the LOGICAL index they were
-    gathered from."""
-    keep = [i for i, b in enumerate(blocks) if 0 <= int(b) < pool_cache[0].n_blocks]
-    if not keep:
-        return
-    idx = _block_index(pool_cache, [blocks[i] for i in keep])
-    sel = torch.as_tensor(keep, device=idx.device)
-    it = iter(rows)
-    for c in pool_cache:
-        for store in (c.key_store, c.value_store):
-            store.index_copy_(1, idx, next(it).to(idx.device).index_select(0, sel)
-                              .transpose(0, 1).to(store.dtype))
-        c.pos_store.index_copy_(0, idx, next(it).to(idx.device).index_select(0, sel))
-
-
 def default_block_fns():
-    """(free_block_pos, copy_block, gather_block_rows, scatter_block_rows):
-    the in-place block ops above (JAX jits them, the write ops donating
-    the pool)."""
-    return (free_block_pos, copy_block, gather_block_rows, scatter_block_rows)
+    """(free_block_pos, copy_block): the in-place block ops above (JAX jits
+    them with the pool donated)."""
+    return (free_block_pos, copy_block)
 
 
 class BlockAllocator:
@@ -406,6 +419,7 @@ class PagedCachePool:
         if n_slots < 1:
             raise ValueError(f"n_slots={n_slots} < 1")
         cfg = dataclasses.replace(cfg, kv_block_tokens=bt, kv_pool_blocks=n_blocks)
+        self._scanned = bool(cfg.scan_layers)  # the exported leaves' layout
         self.n_slots = n_slots
         self.block_tokens = bt
         self.max_blocks = cfg.seq_len // bt
@@ -423,8 +437,7 @@ class PagedCachePool:
         self.shared_block_maps = 0
         if block_fns is None:
             block_fns = default_block_fns()
-        (self._free_pos, self._copy_block, self._gather_rows,
-         self._scatter_rows) = block_fns
+        self._free_pos, self._copy_block = block_fns
         # bytes of ONE block across every layer's payloads and positions:
         # the capacity denominator behind kv_bytes_per_active_token
         c = self.cache[0]
@@ -578,17 +591,168 @@ class PagedCachePool:
         freed = [int(b) for b in blocks if self.allocator.free(int(b))]
         self._free_pos(self.cache, freed)
 
-    # -- block export / import ---------------------------------------------
+    # -- block export / import (host offload tier + cross-replica migration)
 
     @property
     def export_meta(self):
-        raise _not_ported("PagedCachePool.export_meta")
+        """Shape signature of one exported block: ``(leaf name, per-block
+        shape, dtype)`` per JAX cache leaf in flatten order, equal to the
+        JAX pool's for the same config (what :meth:`import_stored` callers
+        compare before landing foreign payloads: a different model config
+        must refuse, not scribble)."""
+        c = self.cache[0]
+        kv_heads, _, bt, head_dim = c.key_store.shape
+        kv_dtype = str(c.key_store.dtype).removeprefix("torch.")
+        payload, pos = (bt, kv_heads, head_dim), (bt,)
+        groups = 1
+        if self._scanned:
+            payload, pos = (len(self.cache),) + payload, (len(self.cache),) + pos
+        else:
+            groups = len(self.cache)
+        leaves = (("cached_key", payload, kv_dtype), ("cached_pos", pos, "int32"),
+                  ("cached_value", payload, kv_dtype))
+        return leaves * groups
+
+    def _exchange_layout(self, k: int):
+        """Where the exported leaves of ``k`` blocks lie in one flat byte
+        buffer: ``(offset, nbytes, dtype, shape)`` per leaf (block dim
+        first, flatten order, 16-byte aligned offsets) and the buffer's
+        size."""
+        layout, off = [], 0
+        for name, shape, _ in self.export_meta:
+            dtype = torch.int32 if name == "cached_pos" else self.cache[0].key_store.dtype
+            nbytes = k * int(np.prod(shape)) * dtype.itemsize
+            layout.append((off, nbytes, dtype, (k,) + shape))
+            off += -(-nbytes // 16) * 16
+        return layout, off
+
+    def _exchange_views(self, buf: torch.Tensor, k: int) -> List[torch.Tensor]:
+        """Typed views of the flat byte buffer ``buf`` as the exported
+        leaves of ``k`` blocks (:meth:`_exchange_layout`)."""
+        return [buf[off:off + n].view(dtype).view(shape)
+                for off, n, dtype, shape in self._exchange_layout(k)[0]]
+
+    def _layer_order(self) -> List[int]:
+        """Layers in the order the exported leaves hold them: the JAX
+        package's unrolled leaves sort by name (``layer_10`` before
+        ``layer_2``); a scanned leaf stacks every layer in order."""
+        n = len(self.cache)
+        return list(range(n)) if self._scanned else sorted(range(n), key=lambda i: f"layer_{i}")
+
+    def _leaf_layer_views(self, views: List[torch.Tensor]):
+        """(layer, key, pos, value) per layer: each layer's slice of the
+        exported leaves, ``[k, block_tokens, kv_heads, head_dim]`` and
+        ``[k, block_tokens]``."""
+        if self._scanned:
+            key, pos, value = views
+            return [(i, key[:, i], pos[:, i], value[:, i]) for i in range(len(self.cache))]
+        return [(layer, *views[3 * j:3 * j + 3]) for j, layer in enumerate(self._layer_order())]
 
     def export_blocks(self, blocks):
-        raise _not_ported("PagedCachePool.export_blocks")
+        """Copy physical ``blocks``' K/V and positions to HOST memory in the
+        JAX package's exported layout: per chunk of at most ``max_blocks``
+        blocks, one gather per payload and layer into a device staging
+        buffer laid out as the export, then ONE device-to-host copy through
+        a pinned buffer.  Returns one numpy array per leaf (flatten order,
+        block dim at axis 0, length ``len(blocks)``; bf16 leaves as
+        :data:`BFLOAT16_BITS`) — the exchange payload the host offload tier
+        spills and migration ships.  A read op: the blocks stay live under
+        their references (refcounted immutability: any sharer's write
+        copies away first), and the gathers are stream-ordered after any
+        tick still writing the pool."""
+        if not blocks:
+            return []
+        n = len(blocks)
+        dev = self.cache[0].pos_store.device
+        cuda = dev.type == "cuda"
+        out = []
+        for start in range(0, n, self.max_blocks):
+            chunk = [int(b) for b in blocks[start:start + self.max_blocks]]
+            k = len(chunk)
+            idx = torch.as_tensor(chunk, dtype=torch.long, device=dev)
+            staging = torch.empty(self._exchange_layout(k)[1], dtype=torch.uint8, device=dev)
+            views = self._exchange_views(staging, k)
+            for layer, key, pos, value in self._leaf_layer_views(views):
+                c = self.cache[layer]
+                key.copy_(c.key_store.index_select(1, idx).permute(1, 2, 0, 3))
+                value.copy_(c.value_store.index_select(1, idx).permute(1, 2, 0, 3))
+                pos.copy_(c.pos_store.index_select(0, idx))
+            host = staging
+            if cuda:
+                host = torch.empty(staging.shape, dtype=torch.uint8, pin_memory=True)
+                host.copy_(staging, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+                done.synchronize()  # host-sync: offload/migration cold path, one per chunk
+            for i, view in enumerate(self._exchange_views(host, k)):
+                if start == 0:
+                    out.append(np.empty((n,) + tuple(view.shape[1:]), _numpy_dtype(view.dtype)))
+                out[i][start:start + k] = _host_numpy(view)
+        return out
+
+    def _write_blocks(self, rows, blocks) -> None:
+        """Land host block rows (the :meth:`export_blocks` layout) in
+        physical ``blocks``, in place: the rows packed into one pinned
+        buffer, ONE host-to-device copy, then one ``index_copy_`` per
+        payload and layer into the pool.  The pool keeps its addresses
+        (the captured ticks read it), positions included, so a restored
+        block reads its true positions.  The pinned buffer comes from
+        PyTorch's caching host allocator, which reuses it only after the
+        asynchronous copy has run."""
+        k = len(blocks)
+        meta = self.export_meta
+        if len(rows) != len(meta):
+            raise ValueError(f"{len(rows)} leaves for an export of {len(meta)}")
+        dev = self.cache[0].pos_store.device
+        cuda = dev.type == "cuda"
+        host = torch.empty(self._exchange_layout(k)[1], dtype=torch.uint8, pin_memory=cuda)
+        for view, row, (name, shape, _) in zip(self._exchange_views(host, k), rows, meta):
+            row = np.asarray(row)
+            if row.shape[1:] != shape or row.shape[0] < k or row.dtype.itemsize != view.element_size():
+                raise ValueError(f"leaf {name} of shape {row.shape} / {row.dtype} does not fit "
+                                 f"{k} blocks of {shape}")
+            _host_numpy(view)[...] = row[:k].view(_numpy_dtype(view.dtype))
+        staging = host.to(dev, non_blocking=True) if cuda else host
+        idx = torch.as_tensor([int(b) for b in blocks], dtype=torch.long, device=dev)
+        for layer, key, pos, value in self._leaf_layer_views(self._exchange_views(staging, k)):
+            c = self.cache[layer]
+            c.key_store.index_copy_(1, idx, key.permute(2, 0, 1, 3))
+            c.value_store.index_copy_(1, idx, value.permute(2, 0, 1, 3))
+            c.pos_store.index_copy_(0, idx, pos)
 
     def import_stored(self, rows, count: int, checksums=None):
-        raise _not_ported("PagedCachePool.import_stored")
+        """Allocate ``count`` fresh blocks — each with refcount 1, the
+        STORE's reference, exactly like :meth:`snapshot_blocks`'s bumps —
+        and land exported host rows in them (:meth:`_write_blocks`).
+        Returns the block-id tuple, or None when fewer than ``count``
+        blocks are available beyond in-flight slots' entitlements (the
+        caller counts a typed restore/migration fallback instead of
+        stealing blocks admission already promised).
+
+        ``checksums`` (per-block CRC32s recorded at export time,
+        :func:`block_checksums`) are verified BEFORE any allocation or
+        device write: a mismatch raises :class:`KVIntegrityError` —
+        never lands unverified bytes — and the caller counts a typed
+        ``restore_failure``/``integrity`` refusal and recomputes.  The
+        imported entry participates in normal sharing from here:
+        ``map_prefix`` bumps it per hit, ``free_stored`` releases it."""
+        if count < 1:
+            return ()
+        if checksums is not None:
+            got = block_checksums(rows, count)
+            want = tuple(int(c) for c in checksums[:count])
+            if len(want) < count or got != want:
+                bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w] or list(
+                    range(len(want), count))
+                raise KVIntegrityError(
+                    f"KV import refused: block(s) {bad} of {count} fail their export "
+                    "checksum — corrupted bytes must recompute, never serve"
+                )
+        if self.blocks_available() < count:
+            return None
+        blocks = tuple(self.allocator.alloc() for _ in range(count))
+        self._write_blocks(rows, blocks)
+        return blocks
 
     # -- invariants --------------------------------------------------------
 
@@ -609,8 +773,16 @@ class PagedCachePool:
             )
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not in the PyTorch port yet; it comes with the wire format and "
-        "disk KV tier (kv_wire / kv_disk), a later slice of the port"
-    )
+def _numpy_dtype(dtype: torch.dtype) -> np.dtype:
+    """The numpy dtype a host leaf of ``dtype`` is held in (bf16: its raw
+    bits, :data:`BFLOAT16_BITS`)."""
+    if dtype == torch.bfloat16:
+        return BFLOAT16_BITS
+    return torch.empty((), dtype=dtype).numpy().dtype
+
+
+def _host_numpy(t: torch.Tensor) -> np.ndarray:
+    """A numpy view of a CPU tensor, a bf16 one through its raw bits."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(BFLOAT16_BITS)
+    return t.numpy()

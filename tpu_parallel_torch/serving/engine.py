@@ -44,10 +44,21 @@ and leave (EOS / length) between ticks.
 - ``launch`` / ``collect`` split a tick at its one sync, and
   ``run(overlap=True)`` launches the next pure-decode tick before
   collecting the previous one.
+- Hierarchical KV memory (paged only, :mod:`~tpu_parallel_torch.serving.
+  kv_hierarchy`): ``kv_radix_cache`` swaps the aligned-LRU prefix cache for
+  a token-level radix tree over the block pool (any shared prefix hits at
+  block granularity, frequency-aware eviction); ``kv_host_blocks`` adds a
+  host-RAM tier below it (evicted-but-warm blocks spill through one gather
+  and device-to-host copy and restore through one host-to-device copy and
+  scatter instead of a re-prefill); ``kv_disk_dir`` / ``kv_disk_blocks``
+  add a disk tier below that, which a restarted engine boots warm from.
+  ``export_prefix`` / ``export_hot_prefixes`` / ``import_prefix`` move a
+  KV prefix between engines, of either package, as self-checking bytes
+  (:mod:`~tpu_parallel_torch.serving.kv_wire`).  All of it runs at
+  admission, on the host side of the tick, never inside a captured body.
 
-Not in the port yet (each knob raises ``NotImplementedError``): the
-radix / host / disk KV tiers, speculative decoding, mesh serving, the
-int8 cache, prefix export and import.
+Not in the port yet (each knob raises ``NotImplementedError``):
+speculative decoding, mesh serving and the int8 cache.
 """
 
 from __future__ import annotations
@@ -67,7 +78,27 @@ from tpu_parallel_torch.models.generate import (
 )
 from tpu_parallel_torch.obs.registry import MetricRegistry
 from tpu_parallel_torch.obs.tracer import NULL_TRACER, Tracer
-from tpu_parallel_torch.serving.cache_pool import CachePool, PagedCachePool, default_row_fns
+from tpu_parallel_torch.serving.cache_pool import (
+    CachePool,
+    KVIntegrityError,
+    PagedCachePool,
+    block_checksums,
+    default_row_fns,
+)
+from tpu_parallel_torch.serving.kv_disk import KVDiskStore
+from tpu_parallel_torch.serving.kv_hierarchy import (
+    MIGRATE_ALREADY_CACHED,
+    MIGRATE_IMPORTED,
+    MIGRATE_INCOMPATIBLE,
+    MIGRATE_INTEGRITY,
+    MIGRATE_NO_BLOCKS,
+    MIGRATE_NO_KEY,
+    MIGRATE_NO_PREFIX_CACHE,
+    MIGRATE_NOT_PAGED,
+    MIGRATE_WEIGHTS_VERSION,
+    KVPrefixExport,
+    RadixPrefixCache,
+)
 from tpu_parallel_torch.serving.metrics import (
     STALL_NONE,
     STALL_PREFILL,
@@ -98,9 +129,7 @@ NON_FINITE_TOKEN = -2
 
 # the later slices of the port that bring each refused engine knob
 _LATER = {
-    "hierarchy": "the radix and host KV tiers (kv_hierarchy)",
     "spec": "speculative decoding (spec_decode)",
-    "disk": "the wire format and disk KV tier (kv_wire / kv_disk)",
     "mesh": "tensor-parallel serving over a device mesh",
     "int8": "the int8 KV cache",
 }
@@ -348,6 +377,14 @@ class ServingEngine:
     block boundaries) pages it into ``kv_pool_blocks`` blocks (default
     ``n_slots * seq_len / kv_block_tokens``, the fixed pool's size).
 
+    KV hierarchy (paged only): ``kv_radix_cache`` replaces the aligned-LRU
+    prefix cache with the radix tree, ``prefix_cache_size`` then bounding
+    the device blocks it holds (hits are whole blocks, so the
+    copy-on-write reserve drops to zero); ``kv_host_blocks`` (implies
+    ``kv_radix_cache``) is the host-RAM tier's capacity in blocks;
+    ``kv_disk_dir`` with ``kv_disk_blocks`` (together, and only over a
+    host tier) is the disk tier under it.
+
     ``decode_steps_per_tick``: T > 1 (``"auto"`` = 8) runs T masked decode
     steps per tick with the slot state on the device, one device-to-host
     sync per T tokens; 1 is the per-step engine.  ``unified_tick``
@@ -395,10 +432,6 @@ class ServingEngine:
             raise _not_ported("serving over a mesh", "mesh")
         if getattr(cfg, "kv_cache_dtype", "bf16") == "int8":
             raise _not_ported('kv_cache_dtype="int8"', "int8")
-        if kv_radix_cache or kv_host_blocks:
-            raise _not_ported("kv_radix_cache / kv_host_blocks", "hierarchy")
-        if kv_disk_dir is not None or kv_disk_blocks:
-            raise _not_ported("kv_disk_dir / kv_disk_blocks", "disk")
         if draft_tokens or drafter is not None or spec_check_invariants:
             raise _not_ported("draft_tokens / drafter / spec_check_invariants", "spec")
         if unified_tick not in ("auto", True, False):
@@ -468,19 +501,56 @@ class ServingEngine:
                 "prefix_cache_size > 0 requires prefill bucketing (prefix keys are "
                 "bucket-aligned)"
             )
+        # radix hierarchy (kv_hierarchy.py): swaps the aligned-LRU cache for
+        # the token-level radix tree (+ host and disk tiers) on the paged
+        # path; built after the pool (it holds pool references), so only
+        # validated here
+        if kv_host_blocks < 0:
+            raise ValueError(f"kv_host_blocks={kv_host_blocks} < 0")
+        # the disk tier sits UNDER the host tier: both knobs travel
+        # together, and the host tier must exist (disk spills are cold host
+        # evictions, so a disk tier without one would never fill)
+        if kv_disk_blocks < 0:
+            raise ValueError(f"kv_disk_blocks={kv_disk_blocks} < 0")
+        if (kv_disk_dir is None) != (kv_disk_blocks == 0):
+            raise ValueError("kv_disk_dir and kv_disk_blocks > 0 travel together")
+        if kv_disk_dir is not None and kv_host_blocks < 1:
+            raise ValueError(
+                "kv_disk_dir needs kv_host_blocks > 0 (the disk tier sits UNDER the host "
+                "offload tier)"
+            )
+        self._kv_disk_dir = kv_disk_dir
+        self._kv_disk_blocks = int(kv_disk_blocks)
+        self._radix_requested = bool(kv_radix_cache) or kv_host_blocks > 0
+        self._kv_host_blocks = int(kv_host_blocks)
+        self._radix: Optional[RadixPrefixCache] = None
+        if self._radix_requested:
+            if not self._paged:
+                raise ValueError(
+                    "kv_radix_cache / kv_host_blocks need the block-paged pool "
+                    "(kv_block_tokens > 0): the radix tree indexes physical blocks"
+                )
+            if prefix_cache_size < 1:
+                raise ValueError(
+                    "kv_radix_cache needs prefix_cache_size > 0 (the radix tree's resident "
+                    "device-block budget)"
+                )
+        # the aligned-LRU cache; the radix tree takes its place once the pool
+        # exists
         self._prefix = (
             PrefixCache(prefix_cache_size,
                         # paged entries hold refcounted block ids: eviction
                         # hands the references back to the allocator
                         on_evict=self._release_prefix_entry if self._paged else None)
-            if prefix_cache_size > 0 else None
+            if prefix_cache_size > 0 and not self._radix_requested else None
         )
         # copy-on-write admission headroom: with buckets NOT aligned to
         # the block size, stored prefixes end mid-block and sharers'
         # writes copy-on-write, each claiming a block the plain
         # ceil(total / bt) estimate cannot see.  One block per non-aligned
         # bucket plus one for a mid-block hit tail bounds one slot's COW
-        # events (zero under the "auto" quantum).
+        # events (zero under the "auto" quantum, and under the radix tree,
+        # whose matches and stores are whole blocks).
         self._cow_reserve = 0
         if self._paged and self._prefix is not None:
             unaligned = sum(1 for b in self._buckets if b % bt != 0)
@@ -510,6 +580,21 @@ class ServingEngine:
         if self._paged:
             self.pool: Union[CachePool, PagedCachePool] = PagedCachePool(
                 model, n_slots, block_tokens=bt, n_blocks=n_blocks)
+            if self._radix_requested:
+                # the radix hierarchy takes the aligned-LRU cache's place:
+                # the same lookup / store / evict / counter surface, so
+                # admission, the block-pressure valve and the metrics are
+                # layout-blind
+                disk_store = None
+                if self._kv_disk_dir is not None:
+                    disk_store = KVDiskStore(self._kv_disk_dir, self.clock,
+                                             capacity_blocks=self._kv_disk_blocks)
+                self._radix = RadixPrefixCache(
+                    self.pool, max_device_blocks=prefix_cache_size,
+                    host_capacity_blocks=self._kv_host_blocks, disk_store=disk_store,
+                    weights_version=self.weights_version,
+                )
+                self._prefix = self._radix
         else:
             self.pool = CachePool(model, n_slots, row_fns=default_row_fns())
 
@@ -780,10 +865,16 @@ class ServingEngine:
         decoded = p.kind != "idle"
         if self._prefix is not None:
             entry_bytes = None
-            if self._paged:
+            if self._radix is not None:
+                entry_bytes = self._radix.device_bytes
+            elif self._paged:
                 entry_bytes = self.pool.bytes_per_block * sum(
                     len(blocks) for blocks, _ in self._prefix.values())
             self.metrics.sync_prefix_cache(self._prefix, entry_bytes=entry_bytes)
+            if self._radix is not None:
+                self.metrics.sync_host_tier(self._radix)
+                if self._radix.disk is not None:
+                    self.metrics.sync_disk_tier(self._radix)
         if self._paged:
             self.metrics.sync_block_pool(self.pool, active_tokens=p.active_tokens)
         if p.admitted or p.chunks_advanced:
@@ -899,12 +990,116 @@ class ServingEngine:
             old.copy_(state_dict[name])
         if version is not None:
             self.weights_version = version
+            if self._radix is not None:
+                # future disk spills stamp the new version; chains persisted
+                # under the old weights refuse typed at hydrate
+                self._radix.weights_version = version
 
-    def export_prefix(self, request_id: str):
-        raise _not_ported("export_prefix", "disk")
+    # -- KV block export / import (cross-replica migration) ----------------
 
-    def import_prefix(self, export):
-        raise _not_ported("import_prefix", "disk")
+    def export_prefix(self, request_id: str) -> Optional[KVPrefixExport]:
+        """Export a live request's written KV prefix as host bytes: the
+        source half of migration.  Covers the FULL blocks of the columns
+        written so far (a decoding slot has written ``prompt +
+        delivered[:-1]``, a mid-chunked-prefill slot its chunk offset), so
+        the import is always a usable lookup key for the forced-prefix
+        replay.  None when nothing is exportable (fixed-slot engine,
+        unknown request, less than one full block written)."""
+        if not self._paged:
+            return None
+        slot = next((i for i, out in enumerate(self._slot_out)
+                     if out is not None and out.request.request_id == request_id), None)
+        if slot is None:
+            return None
+        out = self._slot_out[slot]
+        if slot in self._chunking:
+            written = self._chunking[slot].offset
+            ctx = tuple(int(t) for t in out.request.prompt)
+        elif self._active[slot]:
+            written = int(self._pos[slot])
+            ctx = tuple(int(t) for t in out.request.prompt) + tuple(int(t) for t in out.tokens)
+        else:
+            return None
+        bt = self.pool.block_tokens
+        n = min(written, len(ctx)) // bt
+        if n <= 0:
+            return None
+        blocks = [int(self.pool.block_table[slot, j]) for j in range(n)]
+        if any(b < 0 for b in blocks):
+            return None  # belt and braces: written columns are mapped
+        return self._export(ctx[:n * bt], blocks)
+
+    def _export(self, tokens, blocks) -> KVPrefixExport:
+        leaves = tuple(self.pool.export_blocks(list(blocks)))
+        return KVPrefixExport(
+            tokens=tuple(tokens), length=len(tokens), block_tokens=self.pool.block_tokens,
+            weights_version=self.weights_version, meta=self.pool.export_meta, leaves=leaves,
+            checksums=block_checksums(list(leaves), len(blocks)),
+        )
+
+    def export_hot_prefixes(self, max_blocks: int = 16) -> List[KVPrefixExport]:
+        """Export the radix tree's hottest resident chains (up to
+        ``max_blocks`` distinct blocks): the donor half of a scale-up warm
+        start.  Empty without a radix cache."""
+        if self._radix is None:
+            return []
+        return [self._export(tokens, blocks)
+                for tokens, blocks in self._radix.hottest_chains(max_blocks)]
+
+    def import_prefix(self, export: KVPrefixExport) -> str:
+        """Land an exported KV prefix (from either package) in THIS
+        engine's prefix cache, so the next admission of a matching prompt
+        HITS instead of re-prefilling.  Returns a typed verdict
+        (``kv_hierarchy.MIGRATION_STATUSES``): everything except
+        ``imported`` / ``already_cached`` is a counted fallback and the
+        caller recomputes.  Refuses typed on a block-size or shape
+        mismatch and on a ``weights_version`` mismatch (cached K/V is a
+        function of the weights)."""
+        if not self._paged:
+            return MIGRATE_NOT_PAGED
+        if self._prefix is None:
+            return MIGRATE_NO_PREFIX_CACHE
+        if export.weights_version != self.weights_version:
+            return MIGRATE_WEIGHTS_VERSION
+        if export.block_tokens != self.pool.block_tokens or export.meta != self.pool.export_meta:
+            return MIGRATE_INCOMPATIBLE
+        tokens = tuple(int(t) for t in export.tokens)
+        if self._radix is not None:
+            if self._radix.covers(tokens, export.length):
+                return MIGRATE_ALREADY_CACHED
+            try:
+                blocks = self.pool.import_stored(list(export.leaves), export.n_blocks,
+                                                 checksums=export.checksums or None)
+            except KVIntegrityError:
+                # bytes rotted in transit or at rest: the replay recomputes
+                return MIGRATE_INTEGRITY
+            if blocks is None:
+                return MIGRATE_NO_BLOCKS
+            dupes = self._radix.insert(tokens, blocks)
+            if dupes:
+                self.pool.free_stored(dupes)
+            return MIGRATE_IMPORTED
+        # aligned-LRU target: store under the largest bucket key the export
+        # covers (lookups probe bucket-aligned keys only)
+        width = max((b for b in self._buckets or () if b <= export.length), default=0)
+        if width <= 0:
+            return MIGRATE_NO_KEY
+        key = tokens[:width]
+        if key in self._prefix:
+            return MIGRATE_ALREADY_CACHED
+        need = self.pool.blocks_needed(width)
+        try:
+            blocks = self.pool.import_stored(
+                [leaf[:need] for leaf in export.leaves], need,
+                checksums=export.checksums[:need] if export.checksums else None)
+        except KVIntegrityError:
+            return MIGRATE_INTEGRITY
+        if blocks is None:
+            return MIGRATE_NO_BLOCKS
+        if not self._prefix.store_one(key, width, blocks):
+            self.pool.free_stored(blocks)  # lost the store race
+            return MIGRATE_ALREADY_CACHED
+        return MIGRATE_IMPORTED
 
     @property
     def decode_steps_per_tick(self) -> int:
@@ -1157,14 +1352,26 @@ class ServingEngine:
         shared block, and no K/V copy."""
         events: List[StreamEvent] = []
         groups: Dict[Tuple[int, int], list] = {}
+        # free blocks this tick's admissions are owed (worst case plus the
+        # copy-on-write reserve, what the block gate reserved): a radix
+        # lookup restoring warm host blocks must leave this much headroom.
+        # It shrinks as requests are seated (begin_slot moves their need
+        # into the pool's own entitlements, which blocks_available()
+        # already subtracts)
+        def need(o):
+            return (self.pool.blocks_needed(len(o.request.prompt) + o.request.max_new_tokens)
+                    + self._cow_reserve)
+
+        reserve = sum(need(o) for o in admitted)
         for out in admitted:
             length = len(out.request.prompt)
             if self._chunk_tokens is not None and length > self._chunk_tokens:
-                events.extend(self._start_chunked(out))
+                events.extend(self._start_chunked(out, reserve=reserve))
+                reserve -= need(out)  # seated inside _start_chunked
                 continue
             plen, blocks = 0, None
             if self._prefix is not None:
-                hit = self._prefix.lookup(out.request.prompt, self._buckets)
+                hit = self._lookup_prefix(out.request.prompt, reserve=reserve)
                 if hit is not None:
                     blocks, plen = hit
                     # pin: an earlier group's prefix store can LRU-evict
@@ -1259,11 +1466,22 @@ class ServingEngine:
         self.pool.insert(row, slot)
         return logits
 
-    def _start_chunked(self, out: RequestOutput) -> List[StreamEvent]:
+    def _lookup_prefix(self, prompt, reserve: int = 0):
+        """Hierarchy-aware prefix probe: the radix tree matches at block
+        granularity (restoring warm host- or disk-tier blocks only within
+        the ``reserve`` headroom the admission gate has not promised away);
+        the aligned-LRU cache probes its bucket keys.  One counted hit or
+        miss either way."""
+        if self._radix is not None:
+            return self._radix.lookup(prompt, reserve=reserve)
+        return self._prefix.lookup(prompt, self._buckets)
+
+    def _start_chunked(self, out: RequestOutput, reserve: int = 0) -> List[StreamEvent]:
         """Claim a slot for a long prompt and run its first chunk (the rest
         advance one per tick; under the unified tick the first one too,
         inside this tick's body).  A prefix hit seeds the slot and chunking
-        starts at the prefix boundary."""
+        starts at the prefix boundary.  ``reserve``: see
+        :meth:`_lookup_prefix`."""
         req = out.request
         slot = self.pool.acquire()
         assert slot is not None, "scheduler admitted beyond free slots"
@@ -1271,8 +1489,13 @@ class ServingEngine:
         if self._paged:
             self.pool.begin_slot(slot, len(req.prompt) + req.max_new_tokens,
                                  cow_reserve=self._cow_reserve)
+            # begin_slot just moved this request's need into the pool's
+            # entitlements: drop it from the restore headroom
+            reserve = max(0, reserve - self.pool.blocks_needed(len(req.prompt)
+                                                               + req.max_new_tokens)
+                          - self._cow_reserve)
         if self._prefix is not None:
-            hit = self._prefix.lookup(req.prompt, self._buckets)
+            hit = self._lookup_prefix(req.prompt, reserve=reserve)
             if hit is not None:
                 row, offset = hit
                 if self._paged:
@@ -1331,6 +1554,19 @@ class ServingEngine:
         if self._prefix is None:
             return
         prompt = tuple(int(t) for t in out.request.prompt)
+        if self._radix is not None:
+            # radix store: index the prompt's FULL blocks, so every block
+            # boundary is a match point and sharers never write into a
+            # shared block.  snapshot_blocks hands one reference per block;
+            # the tree keeps those of new nodes and returns the duplicates
+            bt = self.pool.block_tokens
+            full = (len(prompt) // bt) * bt
+            if full <= 0 or self._radix.covers(prompt, full):
+                return
+            dupes = self._radix.insert(prompt[:full], self.pool.snapshot_blocks(slot, full))
+            if dupes:
+                self.pool.free_stored(dupes)
+            return
         if all(b >= len(prompt) or prompt[:b] in self._prefix for b in self._buckets):
             return
         if self._paged:
