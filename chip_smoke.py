@@ -1,6 +1,7 @@
 """Card check of the PyTorch port: builds its CUDA kernels, holds each
 against its plain version, and drives GPT-2 125M inference, training and
-continuous-batching serving, with its hierarchical KV memory, at full width.
+continuous-batching serving, with its hierarchical KV memory and speculative
+decoding, at full width.
 
     python3 chip_smoke.py
 
@@ -89,10 +90,31 @@ source, all started together).  Phases, in order; any failure raises:
    a hierarchy that spills and restores must equal the same engine without
    it (top-2 rule as in phase 7); and an export -> wire -> import between
    two engines must continue as the exporter does.  No flash launch.
+9. spec: speculative decoding on GPT-2 125M (bf16, 16 slots, auto
+   buckets, prefill batch 4, 4 draft tokens: verify blocks of [16, 5])
+   over 32 requests (prompts of 64-512 tokens, half a 32-token motif
+   repeated, 64-128 new tokens, 4 sampled; 16 at tick 0, then 4 per tick),
+   run seven times: (a) the non-spec engine at its defaults; (b) per-step
+   verify ticks with the host n-gram drafter; (c) fused ticks of 4 verify
+   blocks drafting on the device (one CUDA graph per variant, greedy and
+   sampled); (d) the same over 512 blocks of 32 tokens; (e) the same with
+   chunks of 256 (the unified spec graph); (f) an oracle and (g) an
+   anti-oracle drafter (no adaptation), per-step, keyed on (b)'s greedy
+   tokens.  Every request finishes at its budget; greedy tokens bitwise
+   equal across (b)-(g) (one verify width; (a)'s bits are printed, not
+   held); (g) accepts nothing; (f) takes fewer decode ticks than (b); each
+   run replays its graph kinds, each captured once; every block returns;
+   no flash launch.  Per run: wall, tokens/s, TTFT and ITL p50/p95, decode
+   ticks, acceptance, tokens per verify, wasted verify positions, host
+   dispatches per token, peak memory.  Pure-decode stretches at 16 slots
+   (profiled): device ms per decode step [16, 1] and per verify step
+   [16, 5], idle share, launches per token.  Then fp32 (TF32 off): 8
+   greedy requests through (c) against the non-spec engine (top-2 rule as
+   in phase 7).
 
 Weights and inputs are made from ``SEED``.  The kernel launch counters are
 set to 0 before each main path (phases 3-4: inference; phase 6's steps:
-training; phases 7-8: serving, which must leave them at 0) and read after
+training; phases 7-9: serving, which must leave them at 0) and read after
 it.  The last two lines are the ``kernels`` JSON object and the
 ``{"ok": true, ...}`` line.
 """
@@ -1664,6 +1686,382 @@ def hier_phase(seed, smi):
                 fp32_counts=fp32_counts, pinned_copy_gb_per_s=peak)
 
 
+# phase 9: speculative decoding (GPT-2 125M, bf16, the seed of phase 7)
+SPEC_REQUESTS, SPEC_SAMPLED, SPEC_MOTIF = 32, 4, 32
+SPEC_DRAFT = 4  # draft tokens: verify blocks of [16 slots, 5]
+SPEC_FUSED_STEPS = 4
+SPEC_BLOCK_TOKENS, SPEC_POOL_BLOCKS = 32, 512
+SPEC_FP32_REQUESTS = 8
+SPEC_STRETCH_STEPS = 32  # decode (verify) steps per measured and per profiled window
+
+
+class OracleDrafter:
+    """Drafts the true greedy continuation (a copy of the test suite's
+    oracle): maximal acceptance."""
+
+    def __init__(self, refs):
+        self.refs = refs
+
+    def draft(self, context, k):
+        for prompt, ref in self.refs.items():
+            if tuple(context[: len(prompt)]) == prompt:
+                idx = len(context) - len(prompt)
+                return [int(t) for t in ref[idx: idx + k]]
+        return []
+
+
+class AntiOracleDrafter:
+    """Drafts something other than the true greedy next token (a copy of
+    the test suite's anti-oracle): acceptance exactly 0, output unchanged."""
+
+    def __init__(self, refs, vocab):
+        self.refs = refs
+        self.vocab = vocab
+
+    def draft(self, context, k):
+        for prompt, ref in self.refs.items():
+            if tuple(context[: len(prompt)]) == prompt:
+                idx = len(context) - len(prompt)
+                truth = ref[idx] if idx < len(ref) else 0
+                return [(int(truth) + 1) % self.vocab] * k
+        return [0] * k
+
+
+# the runs: (name, engine kwargs, drafter).  (a) the non-spec engine at its
+# defaults; (b) per-step ticks with the host n-gram drafter; (c) fused ticks
+# of 4 verify blocks drafting on the device, one CUDA graph per variant;
+# (d) the same over 512 blocks of 32 tokens; (e) the same with chunks of 256
+# folded in (the unified spec graph); (f) and (g) per-step with the oracle
+# and the anti-oracle (no adaptation) keyed on (b)'s greedy tokens
+SPEC = dict(draft_tokens=SPEC_DRAFT)
+SPEC_FUSED = dict(SPEC, decode_steps_per_tick=SPEC_FUSED_STEPS)
+SPEC_RUNS = (
+    ("plain", {}, None),
+    ("spec_step_ngram", SPEC, None),
+    ("spec_fused_ngram", SPEC_FUSED, None),
+    ("spec_fused_paged", dict(SPEC_FUSED, kv_block_tokens=SPEC_BLOCK_TOKENS,
+                              kv_pool_blocks=SPEC_POOL_BLOCKS), None),
+    ("spec_unified_chunked", dict(SPEC_FUSED, prefill_chunk_tokens=256), None),
+    ("spec_step_oracle", SPEC, "oracle"),
+    ("spec_step_anti", dict(SPEC, spec_adaptive=False), "anti"),
+)
+# the graph kinds each run must replay (each captured once); the rest none
+SPEC_GRAPH_KINDS = dict(plain=("fused",), spec_fused_ngram=("spec_fused",),
+                        spec_fused_paged=("spec_fused",),
+                        spec_unified_chunked=("spec_fused", "spec_unified"))
+
+
+def spec_workload(seed, vocab):
+    """32 requests from ``seed`` with numpy: prompts of 64-512 tokens, half
+    of them a 32-token motif of their own repeated (the traffic of code
+    edits and of answers that quote their prompt, where the n-gram drafter
+    finds matches), 64-128 new tokens, 28 greedy and 4 sampled
+    (temperature 0.8, top_p 0.9).  Returns (prompt, max_new_tokens, sampled)
+    triples in arrival order."""
+    import numpy as np
+
+    rs = np.random.default_rng(seed + 9)
+    lengths = rs.integers(64, 513, SPEC_REQUESTS)
+    budgets = rs.integers(64, 129, SPEC_REQUESTS)
+    motif = set(rs.choice(SPEC_REQUESTS, SPEC_REQUESTS // 2, replace=False).tolist())
+    sampled = set(rs.choice(SPEC_REQUESTS, SPEC_SAMPLED, replace=False).tolist())
+    out = []
+    for i in range(SPEC_REQUESTS):
+        n = int(lengths[i])
+        if i in motif:
+            m = rs.integers(0, vocab, SPEC_MOTIF).tolist()
+            prompt = (m * (n // SPEC_MOTIF + 1))[:n]
+        else:
+            prompt = rs.integers(0, vocab, n).tolist()
+        out.append((prompt, int(budgets[i]), i in sampled))
+    return out
+
+
+def spec_engine(model, seed, drafter=None, **kwargs):
+    from tpu_parallel_torch.serving import SchedulerConfig, ServingEngine
+
+    kwargs = {"n_slots": SERVE_SLOTS, **kwargs}
+    return ServingEngine(
+        model, scheduler=SchedulerConfig(max_prefills_per_tick=4),
+        rng=torch.Generator(device=model.device).manual_seed(seed), prefill_buckets="auto",
+        prefill_batch=4, drafter=drafter, **kwargs)
+
+
+def _watch_kinds(eng):
+    """Record the kinds of tick body an engine runs through ``_replay``."""
+    kinds, replay = set(), eng._replay
+
+    def counted(kind, body):
+        kinds.add(kind)
+        return replay(kind, body)
+
+    eng._replay = counted
+    return kinds
+
+
+def spec_run(model, workload, seed, drafter=None, **kwargs):
+    """One run of phase 9's workload: 16 requests at tick 0, then 4 per
+    tick, then ``run()`` to idle.  Returns (engine, outputs, wall seconds,
+    peak memory, tick kinds replayed)."""
+    from tpu_parallel_torch.serving import Request, SamplingParams
+
+    eng = spec_engine(model, seed, drafter, **kwargs)
+    kinds = _watch_kinds(eng)
+    requests = [
+        Request(prompt=p, max_new_tokens=n, request_id=f"s{i}",
+                sampling=SamplingParams(temperature=0.8, top_p=0.9) if hot else SamplingParams())
+        for i, (p, n, hot) in enumerate(workload)
+    ]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    outs = [eng.add_request(r) for r in requests[:SERVE_FIRST_TICK]]
+    while len(outs) < len(requests):
+        eng.step()
+        outs += [eng.add_request(r) for r in requests[len(outs):len(outs) + SERVE_PER_TICK]]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    return eng, outs, wall, torch.cuda.max_memory_allocated(), kinds
+
+
+def spec_stretch(model, seed, steps, name, refs=None, drafter=None, **kwargs):
+    """A profiled stretch of pure-decode ticks at 16 slots (prompts of 64
+    random tokens, 400 new each): one warm tick, a timed window and a
+    profiled window of SPEC_STRETCH_STEPS decode (or verify) steps each.
+    Returns tokens/s, device ms per step, tokens per step per slot, device
+    ms per token, the idle share and kernel launches per token; with
+    ``refs`` (a dict) the engine then runs to idle and leaves each prompt's
+    greedy tokens in it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_parallel_torch.serving import Request
+
+    gen = torch.Generator().manual_seed(seed)
+    prompts = [torch.randint(0, model.config.vocab_size, (64,), generator=gen).tolist()
+               for _ in range(SERVE_SLOTS)]
+    if drafter == "oracle":
+        drafter = OracleDrafter(refs)
+    eng = spec_engine(model, seed, drafter, decode_steps_per_tick=steps, **kwargs)
+    outs = [eng.add_request(Request(prompt=p, max_new_tokens=400, request_id=f"d{i}"))
+            for i, p in enumerate(prompts)]
+    while eng.scheduler.depth or eng.in_flight < SERVE_SLOTS:
+        eng.step()
+    eng.step()  # a fused tick captures its graph
+    ticks = SPEC_STRETCH_STEPS // steps
+    torch.cuda.synchronize()
+    before = eng.metrics.tokens_out
+    start = time.perf_counter()
+    eng.run(max_ticks=ticks)
+    torch.cuda.synchronize()
+    tps = (eng.metrics.tokens_out - before) / (time.perf_counter() - start)
+    before = eng.metrics.tokens_out
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        eng.run(max_ticks=ticks)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - start) * 1e6
+    tokens = eng.metrics.tokens_out - before
+    if eng.in_flight != SERVE_SLOTS:
+        raise AssertionError(f"[spec stretch {name}] a slot finished inside the stretch")
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in events)
+    n_steps = ticks * steps
+    top = [(e.key[:100], e.count, e.self_device_time_total / 1e3)
+           for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]]
+    if refs is not None:
+        eng.run()
+        refs.update({tuple(p): o.tokens for p, o in zip(prompts, outs)})
+    return dict(tokens_per_s=tps, device_ms_per_step=busy_us / 1e3 / n_steps,
+                tokens_per_step_per_slot=tokens / (n_steps * SERVE_SLOTS),
+                device_ms_per_token=busy_us / 1e3 / max(tokens, 1),
+                idle_share=1 - busy_us / wall_us, kernel_launches_per_token=sum(
+                    e.count for e in events) / max(tokens, 1), profiled_tokens=tokens,
+                steps=n_steps, top_kernels_ms=top)
+
+
+def spec_fp32_leg(seed, workload):
+    """The weights in fp32 (TF32 off): 8 greedy requests through the fused
+    spec engine (run (c): 4 verify blocks per tick, one graph per variant)
+    against the non-spec engine at its defaults.  A differing token passes
+    only on a near-tie: the reference's top-2 logit gap there below
+    FP32_TIE_GAP."""
+    from tpu_parallel_torch.models import GPTLM, gpt2_125m
+    from tpu_parallel_torch.serving import Request
+
+    model = GPTLM(gpt2_125m(dtype=torch.float32), device="cuda", seed=seed).eval()
+    picked = [(i, p, n) for i, (p, n, hot) in enumerate(workload) if not hot][:SPEC_FP32_REQUESTS]
+    results = []
+    for kwargs in (SPEC_FUSED, {}):
+        eng = spec_engine(model, seed, **kwargs)
+        outs = [eng.add_request(Request(prompt=p, max_new_tokens=n, request_id=f"f{i}"))
+                for i, p, n in picked]
+        eng.run()
+        results.append([o.tokens for o in outs])
+        if kwargs:
+            accepted = eng.metrics.tokens_accepted
+        del eng
+    report = []
+    for (i, p, n), got, want in zip(picked, *results):
+        if got == want:
+            report.append(dict(request=i, tokens=n, equal=True))
+            continue
+        step = next(j for j, (a, b) in enumerate(zip(got, want)) if a != b)
+        with torch.inference_mode():
+            top2 = model(torch.tensor([p + want[:step]], device="cuda"))[0, -1].float().topk(2)
+        gap = (top2.values[0] - top2.values[1]).item()
+        report.append(dict(request=i, tokens=n, equal=False, first_diff=step, top2_gap=gap))
+        if gap >= FP32_TIE_GAP:
+            raise AssertionError(f"[spec fp32] request s{i} differs from the non-spec engine at "
+                                 f"token {step} with top-2 gap {gap:.3e} >= {FP32_TIE_GAP}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report, accepted
+
+
+def spec_phase(seed, smi):
+    """Phase 9: speculative decoding on GPT-2 125M (bf16, seeded weights,
+    16 slots, auto buckets, prefill batch 4, 4 draft tokens) over one
+    32-request workload, run as ``SPEC_RUNS`` lists.  Every request
+    finishes at its budget; greedy tokens bitwise equal across the six spec
+    runs (one verify width); the anti-oracle accepts nothing; the oracle
+    takes fewer decode ticks than the n-gram run; each run replays its
+    graph kinds, each captured once; every paged block returns; no flash
+    launch.  Then pure-decode stretches and the fp32 leg."""
+    from tpu_parallel_torch.models import GPTLM, gpt2_125m
+    from tpu_parallel_torch.ops import flash_attention as fa
+
+    cfg = gpt2_125m()
+    model = GPTLM(cfg, device="cuda", seed=seed).eval()
+    workload = spec_workload(seed, cfg.vocab_size)
+    greedy = [f"s{i}" for i, (_, _, hot) in enumerate(workload) if not hot]
+    flash_before = [getattr(fa, name) for name in LAUNCH_COUNTERS]
+    runs, refs = {}, {}
+    for name, kwargs, drafter in SPEC_RUNS:
+        if drafter == "oracle":
+            drafter = OracleDrafter(refs)
+        elif drafter == "anti":
+            drafter = AntiOracleDrafter(refs, cfg.vocab_size)
+        eng, outs, wall, peak, kinds = spec_run(model, workload, seed, drafter, **kwargs)
+        s = eng.metrics.summary()
+        bad = [o.request.request_id for o in outs if o.status != "finished"
+               or len(o.tokens) != o.request.max_new_tokens]
+        if bad:
+            raise AssertionError(f"[spec {name}] requests not finished at their budget: {bad}")
+        for o in outs:
+            if min(o.tokens) < 0 or max(o.tokens) >= cfg.vocab_size:
+                raise AssertionError(f"[spec {name}] {o.request.request_id} tokens out of range")
+        want_kinds = SPEC_GRAPH_KINDS.get(name, ())
+        if {k.replace("_sampled", "") for k in kinds} != set(want_kinds):
+            raise AssertionError(f"[spec {name}] replayed tick kinds {sorted(kinds)}, want the "
+                                 f"families {want_kinds}")
+        if eng.graph_captures != (len(kinds) if want_kinds else 0):
+            raise AssertionError(f"[spec {name}] {eng.graph_captures} graph captures for the "
+                                 f"kinds {sorted(kinds)}")
+        if eng._paged:
+            pool = eng.pool
+            pool.allocator.check()
+            if pool.blocks_in_use or (pool.block_table >= 0).any():
+                raise AssertionError(f"[spec {name}] {pool.blocks_in_use} blocks still in use")
+        if name == "spec_step_ngram":
+            refs.update({tuple(o.request.prompt): list(o.tokens) for o in outs
+                         if o.request.request_id in greedy})
+        verify_blocks = eng.metrics.spec_slot_ticks
+        runs[name] = dict(
+            tokens={o.request.request_id: o.tokens for o in outs},
+            wall_s=wall, tokens_out=s["tokens_out"], tokens_per_s=s["tokens_out"] / wall,
+            ttft_ms_p50=s["ttft_ms_p50"], ttft_ms_p95=s["ttft_ms_p95"],
+            itl_ms_p50=s["itl_ms_p50"], itl_ms_p95=s["itl_ms_p95"],
+            decode_ticks=s["decode_ticks"], ticks=s["ticks"],
+            tokens_drafted=s["tokens_drafted"], tokens_accepted=s["tokens_accepted"],
+            acceptance_rate=s["spec_acceptance_rate"],
+            tokens_per_verify=((s["tokens_out"] - len(outs)) / verify_blocks if verify_blocks
+                               else None),
+            wasted_verify_positions=s["spec_wasted_positions"],
+            host_dispatches_per_token=s["host_dispatches"] / s["tokens_out"],
+            peak_memory_gib=peak / 2**30, graph_captures=eng.graph_captures,
+            kinds=sorted(kinds),
+        )
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    spec_names = [name for name, _, _ in SPEC_RUNS if name != "plain"]
+    base = runs["spec_step_ngram"]["tokens"]
+    for name in spec_names:
+        differ = [r for r in greedy if runs[name]["tokens"][r] != base[r]]
+        if differ:
+            r = differ[0]
+            step = next(j for j, (x, y) in enumerate(zip(base[r], runs[name]["tokens"][r]))
+                        if x != y)
+            raise AssertionError(f"[spec] greedy tokens of {len(differ)} requests differ between "
+                                 f"spec_step_ngram and {name} (first: {r} at token {step})")
+        runs[name]["greedy_equal_to_plain"] = sum(
+            runs[name]["tokens"][r] == runs["plain"]["tokens"][r] for r in greedy)
+    anti, oracle = runs["spec_step_anti"], runs["spec_step_oracle"]
+    if anti["tokens_accepted"] != 0 or anti["tokens_drafted"] == 0:
+        raise AssertionError(f"[spec] the anti-oracle accepted {anti['tokens_accepted']} of "
+                             f"{anti['tokens_drafted']} drafts, want 0 of > 0")
+    if not oracle["decode_ticks"] < runs["spec_step_ngram"]["decode_ticks"]:
+        raise AssertionError(f"[spec] the oracle took {oracle['decode_ticks']} decode ticks, the "
+                             f"n-gram run {runs['spec_step_ngram']['decode_ticks']}")
+    moved = [getattr(fa, name) - n for name, n in zip(LAUNCH_COUNTERS, flash_before)]
+    if any(moved):
+        raise AssertionError(f"the spec path launched flash kernels: {moved}")
+    # pure decode at 16 slots: [16, 1] decode steps against [16, 5] verify
+    # steps; the plain fused stretch's greedy tokens key the oracle's
+    stretch_refs = {}
+    stretches = {
+        "decode_step": spec_stretch(model, seed, 1, "decode_step"),
+        "plain_fused_graph": spec_stretch(model, seed, 8, "plain_fused_graph",
+                                          refs=stretch_refs),
+        "verify_step_ngram": spec_stretch(model, seed, 1, "verify_step_ngram", **SPEC),
+        "verify_fused_ngram_graph": spec_stretch(model, seed, SPEC_FUSED_STEPS,
+                                                 "verify_fused_ngram_graph", **SPEC),
+    }
+    stretches["verify_step_oracle"] = spec_stretch(model, seed, 1, "verify_step_oracle",
+                                                   refs=stretch_refs, drafter="oracle", **SPEC)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    fp32, fp32_accepted = spec_fp32_leg(seed, workload)
+    for name, r in runs.items():
+        tpv = r["tokens_per_verify"]
+        log(f"[spec {name}] {r['wall_s']:.3f} s wall, {r['tokens_out']} tokens out "
+            f"({r['tokens_per_s']:.1f} tokens/s); TTFT p50 {r['ttft_ms_p50']} ms p95 "
+            f"{r['ttft_ms_p95']} ms; ITL p50 {r['itl_ms_p50']} ms p95 {r['itl_ms_p95']} ms; "
+            f"{r['decode_ticks']} decode ticks of {r['ticks']}; drafted {r['tokens_drafted']}, "
+            f"accepted {r['tokens_accepted']} (rate {r['acceptance_rate']}); tokens per verify "
+            f"{'n/a' if tpv is None else f'{tpv:.3f}'}; wasted verify positions "
+            f"{r['wasted_verify_positions']}; host dispatches per token "
+            f"{r['host_dispatches_per_token']:.4f}; peak memory {r['peak_memory_gib']:.2f} GiB; "
+            f"graph captures {r['graph_captures']} {r['kinds']}; greedy requests equal to plain: "
+            f"{r.get('greedy_equal_to_plain', len(greedy))}/{len(greedy)}")
+    for name, d in stretches.items():
+        log(f"[spec stretch {name}] 16 slots: {d['tokens_per_s']:.1f} tokens/s; "
+            f"{d['device_ms_per_step']:.4f} device ms per step, "
+            f"{d['tokens_per_step_per_slot']:.3f} tokens per step per slot, "
+            f"{d['device_ms_per_token']:.4f} device ms per token; idle share "
+            f"{d['idle_share']:.3f}; {d['kernel_launches_per_token']:.2f} kernel launches per "
+            f"token ({d['profiled_tokens']} tokens over {d['steps']} steps)")
+        for key, count, ms in d["top_kernels_ms"]:
+            log(f"    {ms:9.3f} ms x{count:<5d} {key}")
+    ratio = (stretches["verify_step_ngram"]["device_ms_per_step"]
+             / stretches["decode_step"]["device_ms_per_step"])
+    log(f"[spec] device ms per verify step [16, {SPEC_DRAFT + 1}] / per decode step [16, 1]: "
+        f"{ratio:.3f}")
+    log(f"[spec] greedy tokens of {len(greedy)} requests bitwise equal across "
+        f"{', '.join(spec_names)}; anti-oracle acceptance 0; oracle {oracle['decode_ticks']} "
+        f"decode ticks against the n-gram run's {runs['spec_step_ngram']['decode_ticks']}; no "
+        f"flash launch; fp32 spec vs non-spec engine: {sum(r['equal'] for r in fp32)}/"
+        f"{len(fp32)} equal ({fp32_accepted} drafts accepted) {fp32}")
+    log(f"card: {smi}")
+    for r in runs.values():
+        del r["tokens"]
+    return dict(runs=runs, stretches=stretches, verify_over_decode_device_ms=ratio, fp32=fp32)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1694,6 +2092,7 @@ def main():
         setattr(fa, name, 0)
     serve = serve_phase(SEED, smi)
     kv = hier_phase(SEED, smi)
+    spec = spec_phase(SEED, smi)
     serve_launches = {name: getattr(fa, name) for name in LAUNCH_COUNTERS}
     if any(serve_launches.values()):
         raise AssertionError(f"the serving path launched flash kernels: {serve_launches}")
@@ -1721,7 +2120,7 @@ def main():
              library_covers="dq+dk+dv", ms_main_path_layout=train_row["main_path_layout"]["ms"])
     ]}
     summary = dict(card=smi, forward=fwd, generate=gen, train=train, serve=serve, kv=kv,
-                   inference_flash_fwd_launches=inference_launches,
+                   spec=spec, inference_flash_fwd_launches=inference_launches,
                    kernel_shapes=kernel_rows, bwd_kernel_shapes=bwd_rows)
     log("[summary] " + json.dumps(summary, sort_keys=True))
     log(f"card: {smi}")

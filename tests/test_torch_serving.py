@@ -494,10 +494,27 @@ def test_same_seed_same_sampled_stream(model, steps):
 
 
 REFUSED = {
-    "draft_tokens": dict(draft_tokens=2),
-    "draft_tokens_paged": dict(draft_tokens=2, kv_block_tokens=8),
-    "drafter": dict(drafter=object()),
     "mesh": dict(mesh=object()),
+}
+
+
+class _EchoDrafter:
+    """A custom drafter: proposes the context's last token."""
+
+    def draft(self, context, k):
+        return list(context[-1:]) * k
+
+
+# the speculative knobs (ported): each raises what the JAX engine raises on
+# a misuse (a negative draft_tokens; a custom drafter under an explicit
+# T > 1, which fuses on the device) and builds otherwise
+SPEC_KNOBS = {
+    "draft_tokens": (dict(draft_tokens=-1), ValueError, "draft_tokens", dict(draft_tokens=2)),
+    "draft_tokens_paged": (dict(draft_tokens=-2, kv_block_tokens=8), ValueError, "draft_tokens",
+                           dict(draft_tokens=2, kv_block_tokens=8)),
+    "drafter": (dict(drafter=_EchoDrafter(), draft_tokens=2, decode_steps_per_tick=4),
+                NotImplementedError, "drafter _EchoDrafter",
+                dict(drafter=_EchoDrafter(), draft_tokens=2)),
 }
 # knobs the port has: each raises the JAX engine's ValueError when its
 # prerequisite is missing (the hierarchy indexes physical blocks, the disk
@@ -510,11 +527,21 @@ PORTED = {
 }
 
 
-@pytest.mark.parametrize("knob", sorted(REFUSED) + sorted(PORTED))
+@pytest.mark.parametrize("knob", sorted(REFUSED) + sorted(PORTED) + sorted(SPEC_KNOBS))
 def test_refused_knob_raises(model, knob, tmp_path):
     if knob in REFUSED:
         with pytest.raises(NotImplementedError, match="later slice of the port"):
             ServingEngine(model, n_slots=2, **REFUSED[knob])
+        return
+    if knob in SPEC_KNOBS:
+        bad, error, match, good = SPEC_KNOBS[knob]
+        with pytest.raises(error, match=match):
+            ServingEngine(model, n_slots=2, **bad)
+        eng = ServingEngine(model, n_slots=2, **good)
+        assert eng._spec_width == 2 and eng.decode_steps_per_tick == 1
+        out = eng.add_request(Request(prompt=[5, 6, 5, 6, 5], max_new_tokens=6))
+        eng.run()
+        assert out.status == FINISHED and eng.metrics.spec_slot_ticks > 0  # verify ticks ran
         return
     knobs, prerequisites = PORTED[knob]
     if knob == "kv_disk":

@@ -98,6 +98,27 @@ def prefill_extend_step(model: GPTLM, cache: List[KVCache], tokens, positions,
     return hidden, cache
 
 
+def verify_step(model: GPTLM, cache: List[KVCache], tokens, positions, write_index,
+                block_table=None) -> Tuple[torch.Tensor, List[KVCache]]:
+    """Score T tokens per row in ONE forward: the speculative-decoding
+    verify core.  ``tokens`` [b, T] is each row's current token followed by
+    its draft tokens, at global ``positions`` [b, T] (pads -1); K/V land at
+    columns ``write_index + [0..T)`` per row (through each row's table with
+    ``block_table``), the multi-token write path chunked prefill uses.
+
+    Each token's attention reads the post-write cache and masks by STORED
+    positions, so position ``p + i`` attends the prefix plus the drafts
+    before it: the returned ``hidden`` [b, T, d_model] gives the next-token
+    distribution of every draft offset in one pass, as ``i`` sequential
+    :func:`decode_step` calls would.  Rejected drafts need no rollback:
+    their columns lie beyond the accepted frontier, at positions greater
+    than any query's until a later verify overwrites them, and pad offsets
+    write -1 (never attended).  The cache is updated in place."""
+    hidden = model(tokens, positions=positions, decode=True, hidden_only=True,
+                   cache=cache, write_index=write_index, block_table=block_table)
+    return hidden, cache
+
+
 def _generate_core(model: GPTLM, prompt, generator, max_new_tokens: int,
                    temperature: float, top_k: int, top_p: float = 0.0,
                    prompt_mask=None) -> torch.Tensor:

@@ -5,7 +5,8 @@ caches, with the bucketed / batched / chunked prefill, prefix reuse, and
 per-step, fused and unified ragged ticks (one CUDA graph replay per tick
 on the card); the hierarchical KV memory (radix prefix tree, host and disk
 tiers) and prefix export / import through the ``KVW1`` wire format, whose
-bytes match the JAX package's.  Speculative decoding is not ported yet.
+bytes match the JAX package's; and exact speculative (draft-verify)
+decoding with host or on-device n-gram drafting.
 """
 
 from tpu_parallel_torch.serving.cache_pool import (
@@ -68,6 +69,15 @@ from tpu_parallel_torch.serving.scheduler import (
     SchedulerConfig,
     SubmitResult,
 )
+from tpu_parallel_torch.serving.spec_decode import (
+    Drafter,
+    NGramDrafter,
+    adapt_draft_len,
+    generate_speculative,
+    greedy_verify,
+    rejection_verify,
+    verify_tokens,
+)
 
 __all__ = [
     "BlockAllocator",
@@ -119,4 +129,11 @@ __all__ = [
     "FIFOScheduler",
     "SchedulerConfig",
     "SubmitResult",
+    "Drafter",
+    "NGramDrafter",
+    "adapt_draft_len",
+    "generate_speculative",
+    "greedy_verify",
+    "rejection_verify",
+    "verify_tokens",
 ]

@@ -56,9 +56,18 @@ and leave (EOS / length) between ticks.
   KV prefix between engines, of either package, as self-checking bytes
   (:mod:`~tpu_parallel_torch.serving.kv_wire`).  All of it runs at
   admission, on the host side of the tick, never inside a captured body.
+- Speculative decoding (``draft_tokens`` > 0, :mod:`~tpu_parallel_torch.
+  serving.spec_decode`): each decode tick becomes a draft-verify block of
+  width ``draft_tokens + 1`` per slot, one multi-token forward that emits
+  the accepted drafts plus a bonus token, greedy tokens unchanged.
+  Per-step ticks draft on the host (any :class:`Drafter`); fused ticks
+  (``decode_steps_per_tick`` > 1) run T blocks in one body, drafting on
+  the device from a fixed-address token history with the n-gram drafter's
+  tensor twin, and under the unified tick the chunk phase rides in front.
+  On a CUDA device each spec body is captured once, like the others.
 
-Not in the port yet (each knob raises ``NotImplementedError``):
-speculative decoding, mesh serving and the int8 cache.
+Not in the port yet (each knob raises ``NotImplementedError``): mesh
+serving and the int8 cache.
 """
 
 from __future__ import annotations
@@ -75,6 +84,7 @@ from tpu_parallel_torch.models.generate import (
     padded_prefill_inputs,
     prefill_extend_step,
     prefill_step,
+    verify_step,
 )
 from tpu_parallel_torch.obs.registry import MetricRegistry
 from tpu_parallel_torch.obs.tracer import NULL_TRACER, Tracer
@@ -103,6 +113,7 @@ from tpu_parallel_torch.serving.metrics import (
     STALL_NONE,
     STALL_PREFILL,
     STALL_QUEUE_EMPTY,
+    STALL_SPEC_VERIFY,
     ServingMetrics,
 )
 from tpu_parallel_torch.serving.prefix_cache import PrefixCache
@@ -120,6 +131,15 @@ from tpu_parallel_torch.serving.request import (
 )
 from tpu_parallel_torch.serving.sampling import filter_logits
 from tpu_parallel_torch.serving.scheduler import FIFOScheduler, SchedulerConfig
+from tpu_parallel_torch.serving.spec_decode import (
+    Drafter,
+    NGramDrafter,
+    adapt_draft_len,
+    adapt_draft_len_traced,
+    draft_for_row,
+    ngram_draft_tokens,
+    verify_tokens,
+)
 
 # device-side integrity sentinel: a sampled "token" of this value means the
 # row's logits held NaN/Inf; the host fails the request typed
@@ -129,7 +149,6 @@ NON_FINITE_TOKEN = -2
 
 # the later slices of the port that bring each refused engine knob
 _LATER = {
-    "spec": "speculative decoding (spec_decode)",
     "mesh": "tensor-parallel serving over a device mesh",
     "int8": "the int8 KV cache",
 }
@@ -299,6 +318,138 @@ def _unified_tick_core(model, steps, tok, pos, widx, live, budget, eos, temp, to
     return act_emit, block, counts, state
 
 
+def _verify_core(model, tok, drafts, draft_len, pos, widx, temperature, top_k, top_p, cache,
+                 generator, table=None, sampled: Optional[bool] = None):
+    """One SPECULATIVE tick over the slot pool: each row feeds its current
+    token plus its (padded) draft block through one multi-token forward
+    (:func:`~tpu_parallel_torch.models.generate.verify_step`), scores every
+    offset, and the per-row acceptance rule
+    (:func:`~tpu_parallel_torch.serving.spec_decode.verify_tokens`) keeps
+    the longest exact prefix + one bonus token.
+
+    Offsets beyond a row's ``draft_len`` carry position -1 (their columns
+    are invalidated, never attended) and their logits are unreachable
+    (``accepted <= draft_len``).  Parked rows (``widx == seq_len``) drop
+    every write, as on the plain decode tick.  ``sampled``: whether any row
+    samples (:func:`verify_tokens`).  Returns ``(tokens [n, K+1], accepted
+    [n])``; a row whose reachable logits hold a non-finite value emits
+    :data:`NON_FINITE_TOKEN` at every offset."""
+    k = drafts.shape[1]
+    tokens = torch.cat([tok[:, None], drafts], dim=1)
+    offs = torch.arange(k + 1, device=tok.device)[None, :]
+    reach = offs <= draft_len[:, None]
+    positions = torch.where(reach, pos[:, None] + offs, torch.full_like(offs, -1))
+    # a parked row may hold the sentinel (-2), a drafter any id: clamp the
+    # lookups into the embedding table (JAX clamps its gathers)
+    hidden, _ = verify_step(model, cache, tokens.clamp(0, model.config.vocab_size - 1),
+                            positions, widx, block_table=table)
+    logits = model.lm_head(hidden)
+    out_tokens, accepted = verify_tokens(drafts, draft_len, logits, generator, temperature,
+                                         top_k, top_p, sampled=sampled)
+    # argmax over NaN logits returns a valid-looking token: screen every
+    # offset the acceptance rule can reach (pad offsets carry garbage by
+    # design and must not trip it)
+    finite = (torch.isfinite(logits).all(dim=-1) | ~reach).all(dim=1)
+    out_tokens = torch.where(finite[:, None], out_tokens,
+                             torch.full_like(out_tokens, NON_FINITE_TOKEN))
+    return out_tokens, accepted
+
+
+def _fused_spec_core(model, steps, k, max_ngram, min_ngram, adaptive, sampled, tok, pos, widx,
+                     live, budget, keff, hist, eos, temp, topk, topp, kmax, cache, generator,
+                     table=None):
+    """``steps`` speculative draft-verify-accept blocks in one body, with no
+    host sync: the fused spec tick.  Each block is the per-step
+    :func:`_verify_core` tick on the same inputs, with the two host jobs
+    done on the device:
+
+    - drafting: block ``t+1``'s context holds block ``t``'s accepted
+      tokens, so the body drafts from the per-slot token history ``hist``
+      [n, seq_len + 1] (column ``seq_len`` is scratch) with
+      :func:`~tpu_parallel_torch.serving.spec_decode.ngram_draft_tokens`,
+      the n-gram drafter's tensor twin (so the tokens equal the per-step
+      engine's; the engine refuses to fuse any other drafter).
+    - adaptation: ``keff`` grows and shrinks per block by the shared law
+      (``adaptive``).
+
+    A block delivers ``accepted + 1`` tokens cut at the first EOS; a slot
+    that finishes drops out of ``live`` (writes parked at ``seq_len``).
+    ``hist`` is updated in place.  Returns ``(blocks [steps, n, K+1],
+    counts [steps, n], drafted [steps, n], accepted [steps, n], (tok, pos,
+    widx, live, budget, keff))``; ``counts`` is each block's DELIVERED
+    token count per slot (0 = slot not live that block)."""
+    seq_len = model.config.seq_len
+    dev = tok.device
+    offs = torch.arange(k + 1, device=dev)[None, :]
+    rows = torch.arange(tok.shape[0], device=dev)
+    parked = torch.full_like(pos, seq_len)
+    zero = torch.zeros_like(pos)
+    outs = []
+    for _ in range(steps):
+        cap = torch.minimum(torch.minimum(keff, seq_len - 1 - widx), budget - 1)
+        cap = torch.where(live, cap.clamp(min=0), zero)
+        drafts, dlen = ngram_draft_tokens(hist[:, :seq_len], pos + 1, cap, k, max_ngram,
+                                          min_ngram)
+        dlen = torch.where(live, dlen, zero)
+        widx_eff = torch.where(live, widx, parked)
+        out_tokens, accepted = _verify_core(model, tok, drafts, dlen, pos, widx_eff, temp, topk,
+                                            topp, cache, generator, table, sampled)
+        finite = out_tokens[:, 0] != NON_FINITE_TOKEN
+        # delivery, the per-step host loop's law: accepted + 1 tokens, cut
+        # at the first EOS; a length finish only lands on the block's last
+        # token (the draft cap keeps blocks inside the budget)
+        is_eos = (out_tokens == eos[:, None]) & (offs <= accepted[:, None])
+        any_eos = is_eos.any(dim=1)
+        eos_at = torch.where(any_eos, is_eos.to(torch.uint8).argmax(dim=1),
+                             torch.full_like(accepted, k + 1))
+        e = torch.where(live, torch.minimum(accepted + 1, eos_at + 1), zero)
+        emitted = torch.where(offs < e[:, None], out_tokens, torch.full_like(out_tokens, -1))
+        new_budget = budget - e
+        done = live & (any_eos | (new_budget <= 0) | ~finite)
+        # the history gains the block's accepted + bonus tokens at columns
+        # pos + 1 + j (dead rows' targets go to the scratch column)
+        for j in range(k + 1):
+            col = torch.where(live & (accepted >= j), pos + 1 + j, parked)
+            hist.index_put_((rows, col), out_tokens[:, j])
+        adv = torch.where(live, accepted + 1, zero)
+        pos = pos + adv
+        widx = widx + adv
+        tok = torch.where(live, out_tokens.gather(1, accepted[:, None])[:, 0], tok)
+        budget = torch.where(live, new_budget, budget)
+        new_live = live & ~done
+        if adaptive:
+            keff = torch.where(new_live & (kmax > 0),
+                               adapt_draft_len_traced(keff, dlen, accepted, kmax), keff)
+        live = new_live
+        outs.append((emitted, e, dlen, accepted))
+    blocks, counts, drafted, accepts = (torch.stack(x) for x in zip(*outs))
+    return blocks, counts, drafted, accepts, (tok, pos, widx, live, budget, keff)
+
+
+def _unified_spec_core(model, steps, k, max_ngram, min_ngram, adaptive, sampled, tok, pos, widx,
+                       live, budget, keff, hist, eos, temp, topk, topp, kmax, ctoks, clen,
+                       cstart, cfinal, cbudget, cache, generator, table=None):
+    """The unified tick's speculative form: the chunk phase of
+    :func:`_unified_tick_core` in front (an activating row's first token
+    lands in ``hist`` so its first block can draft from it, and its draft
+    length starts at its cap), then ``steps`` fused draft-verify blocks
+    (:func:`_fused_spec_core`).  Returns ``(act_emit [n], blocks, counts,
+    drafted, accepted, state)``."""
+    seq_len = model.config.seq_len
+    act_emit, (tok, pos, widx, live, budget) = _ragged_chunk_phase(
+        model, tok, pos, widx, live, budget, eos, temp, topk, topp, ctoks, clen, cstart, cfinal,
+        cbudget, cache, generator, table)
+    act = act_emit >= 0
+    rows = torch.arange(tok.shape[0], device=tok.device)
+    col = torch.where(act, cstart + clen, torch.full_like(cstart, seq_len))
+    hist.index_put_((rows, col), act_emit.clamp(min=0))
+    keff = torch.where(act, kmax, keff)
+    blocks, counts, drafted, accepted, state = _fused_spec_core(
+        model, steps, k, max_ngram, min_ngram, adaptive, sampled, tok, pos, widx, live, budget,
+        keff, hist, eos, temp, topk, topp, kmax, cache, generator, table)
+    return act_emit, blocks, counts, drafted, accepted, state
+
+
 def default_prefill_buckets(seq_len: int, start: int = 32) -> Tuple[int, ...]:
     """Geometric bucket set ``(32, 64, ..., seq_len)``; ``seq_len`` is always
     the last bucket so every admissible prompt fits one."""
@@ -393,6 +544,15 @@ class ServingEngine:
     T > 1) folds chunked prefills into the tick.  ``graph_captures``
     counts CUDA graph captures (one per tick body on a CUDA device).
 
+    Speculative decoding: ``draft_tokens`` K > 0 verifies up to K drafted
+    tokens per slot per step (a request's own ``draft_tokens`` may lower
+    its cap); ``drafter`` (default :class:`NGramDrafter`) proposes them;
+    ``spec_adaptive`` grows and shrinks each slot's draft length with its
+    acceptance; ``spec_check_invariants`` asserts the aligned cache layout
+    after every block (a debug aid, one device-to-host copy).  With drafts,
+    ``decode_steps_per_tick="auto"`` is 1 (host drafting, any drafter); an
+    explicit T > 1 fuses T blocks per tick with the n-gram drafter only.
+
     Telemetry: ``tracer`` (default the no-op ``NULL_TRACER``) records
     request lifecycle spans; ``metrics`` / ``registry`` back the
     counters, gauges and histograms (:class:`ServingMetrics`).
@@ -432,11 +592,8 @@ class ServingEngine:
             raise _not_ported("serving over a mesh", "mesh")
         if getattr(cfg, "kv_cache_dtype", "bf16") == "int8":
             raise _not_ported('kv_cache_dtype="int8"', "int8")
-        if draft_tokens or drafter is not None or spec_check_invariants:
-            raise _not_ported("draft_tokens / drafter / spec_check_invariants", "spec")
         if unified_tick not in ("auto", True, False):
             raise ValueError(f"unified_tick={unified_tick!r}")
-        del spec_adaptive  # a knob of speculative decoding
         self.model = model
         self.device = model.device
         self.weights_version = "initial"
@@ -564,18 +721,40 @@ class ServingEngine:
         self._chunking: Dict[int, _ChunkState] = {}
         self._prefill_shapes: set = set()
 
+        # speculative decode: draft_tokens > 0 turns the decode tick into
+        # draft-verify blocks of width draft_tokens + 1 (per-slot draft
+        # lengths vary underneath through -1-position padding; the verify
+        # shape never changes)
+        if draft_tokens < 0:
+            raise ValueError(f"draft_tokens={draft_tokens} < 0")
+        self._spec_width = int(draft_tokens)
+        self._drafter: Drafter = drafter if drafter is not None else NGramDrafter()
+        self._spec_adaptive = bool(spec_adaptive)
+        self._spec_check = bool(spec_check_invariants)
+        # "auto" = 8 steps plain, 1 speculative; an explicit T > 1 with
+        # drafts fuses T draft-verify blocks per tick, drafting on the
+        # device with the n-gram drafter's twin: a custom drafter's host
+        # state is invisible there, so it refuses
         if decode_steps_per_tick == "auto":
-            fused = 8
+            fused = 1 if draft_tokens > 0 else 8
         else:
             fused = int(decode_steps_per_tick)
             if fused < 1:
                 raise ValueError(f"decode_steps_per_tick={decode_steps_per_tick} < 1")
+            if fused > 1 and draft_tokens > 0 and type(self._drafter) is not NGramDrafter:
+                raise NotImplementedError(
+                    f"decode_steps_per_tick={fused} with draft_tokens > 0 fuses the draft-verify "
+                    "blocks of a tick, drafting on the device with the n-gram drafter's tensor "
+                    f"twin; the drafter {type(self._drafter).__name__} keeps host state that "
+                    "cannot run there: keep decode_steps_per_tick=1 for it"
+                )
         if unified_tick is True and fused < 2:
             raise ValueError(
                 "unified_tick=True needs decode_steps_per_tick > 1 (the unified tick IS "
                 "the fused tick with the ragged chunk phase folded in)"
             )
         self._fused_steps = fused
+        self._spec_fused = fused > 1 and draft_tokens > 0
         self._unified = fused > 1 if unified_tick == "auto" else bool(unified_tick)
         if self._paged:
             self.pool: Union[CachePool, PagedCachePool] = PagedCachePool(
@@ -609,6 +788,10 @@ class ServingEngine:
         self._topp = np.zeros(n, np.float32)
         self._active = np.zeros(n, bool)
         self._slot_out: List[Optional[RequestOutput]] = [None] * n
+        # per-slot speculative state: the request's draft cap and the
+        # acceptance-adaptive draft length (<= cap)
+        self._spec_max = np.zeros(n, np.int64)
+        self._spec_k = np.zeros(n, np.int64)
 
         dev = self.device
         # the device copy of the pool's block table, at a fixed address the
@@ -622,7 +805,8 @@ class ServingEngine:
         # addresses: (tok, pos, widx, live, budget) and (eos, temp, topk,
         # topp); the host rewrites them in place after admissions/releases
         self._state_dirty = True
-        # the captured tick bodies by kind ("fused", "unified")
+        # the captured tick bodies by kind ("fused", "unified", and the spec
+        # bodies "spec_fused", "spec_unified", each with a "_sampled" twin)
         self._graphs: Dict[str, "torch.cuda.CUDAGraph"] = {}
         self._use_graphs = dev.type == "cuda"
         self.graph_captures = 0
@@ -633,12 +817,24 @@ class ServingEngine:
             self._dev_knobs = (zeros(torch.long), zeros(torch.float32), zeros(torch.long),
                                zeros(torch.float32))
             # rows [0, T): the tick's token block; row T: counts; row T + 1:
-            # the unified tick's activation tokens.  Two host buffers they
-            # are copied to (a launch-ahead must not overwrite the tick
-            # still waiting for its collect)
-            self._dev_out = torch.zeros(fused + 2, n, dtype=torch.long, device=dev)
+            # the unified tick's activation tokens
+            out_shape = (fused + 2, n)
+            if self._spec_fused:
+                # + the adaptive draft length and the token history (column
+                # seq_len is scratch), rewritten only at admission; knobs +
+                # each slot's draft cap.  Output [T + 1, n, K + 4]: per
+                # block the K + 1 emitted tokens, the delivered count, the
+                # drafted and the accepted count; row T, entry 0: the
+                # activation tokens
+                self._dev_state += (zeros(torch.long), torch.zeros(
+                    n, cfg.seq_len + 1, dtype=torch.long, device=dev))
+                self._dev_knobs += (zeros(torch.long),)
+                out_shape = (fused + 1, n, self._spec_width + 4)
+            # two host buffers the output is copied to (a launch-ahead must
+            # not overwrite the tick still waiting for its collect)
+            self._dev_out = torch.zeros(out_shape, dtype=torch.long, device=dev)
             pin = dev.type == "cuda"
-            self._host_out = [torch.zeros(fused + 2, n, dtype=torch.long, pin_memory=pin)
+            self._host_out = [torch.zeros(out_shape, dtype=torch.long, pin_memory=pin)
                               for _ in range(2)]
             self._host_turn = 0
             if self._unified and self._chunk_tokens is not None:
@@ -844,7 +1040,11 @@ class ServingEngine:
             return
         p.t0 = self.tracer.now()
         p.entering = tuple(int(s) for s in np.nonzero(self._active)[0])
-        if unified_chunks:
+        if self._spec_fused:
+            self._launch_spec_fused(p, unified_chunks)
+        elif self._spec_width > 0:
+            self._launch_spec_step(p)
+        elif unified_chunks:
             self._launch_unified(p)
         elif self._fused_steps > 1:
             self._launch_fused(p)
@@ -860,6 +1060,10 @@ class ServingEngine:
             events.extend(self._collect_fused(p))
         elif p.kind == "unified":
             events.extend(self._collect_unified(p))
+        elif p.kind == "spec_fused":
+            events.extend(self._collect_spec_fused(p))
+        elif p.kind == "spec":
+            events.extend(self._collect_spec_step(p))
         elif p.kind == "step":
             events.extend(self._collect_per_step(p))
         decoded = p.kind != "idle"
@@ -879,6 +1083,8 @@ class ServingEngine:
             self.metrics.sync_block_pool(self.pool, active_tokens=p.active_tokens)
         if p.admitted or p.chunks_advanced:
             stall = STALL_PREFILL
+        elif decoded and self._spec_width > 0:
+            stall = STALL_SPEC_VERIFY  # the decode slot went to verifying drafts
         elif not decoded:
             stall = STALL_QUEUE_EMPTY
         else:
@@ -1103,7 +1309,8 @@ class ServingEngine:
 
     @property
     def decode_steps_per_tick(self) -> int:
-        """Decode steps per fused tick (1 = the per-step engine)."""
+        """Decode steps (spec: draft-verify blocks) per fused tick (1 = the
+        per-step engine)."""
         return self._fused_steps
 
     @property
@@ -1518,6 +1725,7 @@ class ServingEngine:
             sp = req.sampling
             self._temp[slot], self._topk[slot], self._topp[slot] = (
                 sp.temperature, sp.top_k, sp.top_p)
+            self._set_spec_cap(slot, req)
             self._state_dirty = True
             return []
         return self._advance_chunk(slot)
@@ -1608,12 +1816,22 @@ class ServingEngine:
         self._temp[slot] = sp.temperature
         self._topk[slot] = sp.top_k
         self._topp[slot] = sp.top_p
+        self._set_spec_cap(slot, out.request)
         self._active[slot] = True
         self._slot_out[slot] = out
         self._state_dirty = True
         out.status = RUNNING
         out.first_token_time = self.clock()
         return self._deliver(slot, tok0)
+
+    def _set_spec_cap(self, slot: int, request: Request) -> None:
+        """The slot's speculative draft cap: the request's ``draft_tokens``
+        (None inherits the engine's; a larger ask clamps to the engine's
+        verify width), which the adaptive length starts at."""
+        req_k = request.draft_tokens
+        cap = self._spec_width if req_k is None else min(req_k, self._spec_width)
+        self._spec_max[slot] = cap
+        self._spec_k[slot] = cap
 
     # -- per-step tick -----------------------------------------------------
 
@@ -1679,9 +1897,28 @@ class ServingEngine:
         for slot, st in self._chunking.items():
             if st.out.request.eos_token_id is not None:
                 eos[slot] = int(st.out.request.eos_token_id)
-        host = (self._tok, self._pos, self._widx, self._active, budget,
-                eos, self._temp, self._topk, self._topp)
-        for dst, src in zip(self._dev_state + self._dev_knobs, host):
+        host = [self._tok, self._pos, self._widx, self._active, budget]
+        knobs = [eos, self._temp, self._topk, self._topp]
+        if self._spec_fused:
+            # the in-body drafter's context per slot: prompt + delivered
+            # tokens (a chunking slot: its prompt; the body adds its first
+            # token at activation).  The fixed-address buffer is rewritten
+            # here only, through a pinned copy the caching host allocator
+            # keeps alive until it has run
+            seq_len = self.model.config.seq_len
+            hist = np.zeros((n, seq_len + 1), np.int64)
+            for slot, out in enumerate(self._slot_out):
+                if out is None:
+                    continue
+                ctx = list(out.request.prompt)
+                if self._active[slot]:
+                    ctx += out.tokens
+                ctx = ctx[:seq_len]
+                hist[slot, :len(ctx)] = ctx
+            self._dev_state[-1].copy_(self._staged(hist), non_blocking=True)
+            host.append(self._spec_k)
+            knobs.append(self._spec_max)
+        for dst, src in zip(self._dev_state[:len(host)] + self._dev_knobs, host + knobs):
             dst.copy_(torch.from_numpy(np.ascontiguousarray(src)))
         self._state_dirty = False
 
@@ -1936,6 +2173,8 @@ class ServingEngine:
         self._widx[slot] = prompt_len
         self._active[slot] = True
         self._slot_out[slot] = out
+        # the device started the slot's adaptive draft length at its cap
+        self._spec_k[slot] = self._spec_max[slot]
         out.status = RUNNING
         out.first_token_time = self.clock()
         return self._deliver(slot, tok0)
@@ -1946,11 +2185,7 @@ class ServingEngine:
         per-phase engine's advance-then-decode order), then the block."""
         block, counts, act_emit = self._sync_out(p)
         t1 = self.tracer.now()
-        if self.tracer.enabled:
-            for slot, rid, idx, offset, final in p.chunk_spans:
-                self.tracer.record("prefill_chunk", f"slot {slot}", p.t0, t1, request_id=rid,
-                                   slot=slot, chunk=idx, offset=offset, final=final)
-        self.metrics.record_chunks(len(p.chunk_spans))
+        self._collect_chunks(p, t1)
         events = [self._activate_from_device(slot, out, int(act_emit[slot]), plen)
                   for slot, out, plen in p.finals]
         self._check_progress(p, counts)
@@ -1962,6 +2197,220 @@ class ServingEngine:
         self.metrics.record_dispatch(tokens=delivered)
         # prompt tokens consumed + tokens this one body delivered
         self.metrics.record_unified_tick(p.chunk_tokens + delivered)
+        return events
+
+    def _collect_chunks(self, p: _PendingTick, t1: float) -> None:
+        """Collect-side bookkeeping of the chunks folded into a unified
+        tick (plain or spec): their spans and the chunk tally."""
+        if self.tracer.enabled:
+            for slot, rid, idx, offset, final in p.chunk_spans:
+                self.tracer.record("prefill_chunk", f"slot {slot}", p.t0, t1, request_id=rid,
+                                   slot=slot, chunk=idx, offset=offset, final=final)
+        if p.chunk_spans:
+            self.metrics.record_chunks(len(p.chunk_spans))
+
+    # -- speculative ticks -------------------------------------------------
+
+    def _any_sampled(self, slots) -> bool:
+        """Whether any of ``slots`` samples: picks the verify variant (and
+        its graph) that runs the rejection rule's sorts."""
+        return any(self._temp[s] > 0.0 for s in slots)
+
+    def _launch_spec_step(self, p: _PendingTick) -> None:
+        """Launch one speculative verify tick: draft per active slot on the
+        host (capped by the adaptive length, the slot's remaining budget and
+        seq_len), then ONE multi-token verify forward over every slot.
+
+        Short drafts pad with -1 positions; free and mid-chunked-prefill
+        slots park their whole block at column seq_len.  A request whose
+        budget or EOS lands mid-block stops delivery there: the surplus K/V
+        beyond the finish lies in a slot that is being released."""
+        cfg = self.model.config
+        k, n = self._spec_width, self.pool.n_slots
+        drafts = np.zeros((n, k), np.int64)
+        dlen = np.zeros(n, np.int64)
+        for slot in p.entering:
+            out = self._slot_out[slot]
+            d = draft_for_row(self._drafter, list(out.request.prompt) + out.tokens,
+                              int(self._spec_k[slot]), int(self._widx[slot]), cfg.seq_len,
+                              out.request.max_new_tokens - len(out.tokens))
+            dlen[slot] = len(d)
+            drafts[slot, :len(d)] = d
+        table = None
+        if self._paged:
+            # the verify writes the current token + dlen draft columns,
+            # inside the budget (draft_for_row's cap), so never beyond the
+            # slot's block entitlement
+            for slot in p.entering:
+                w = int(self._widx[slot])
+                self.pool.ensure_writable(slot, w, min(w + int(dlen[slot]) + 1, cfg.seq_len))
+            table = self._device_table()
+        block, accepted = _verify_core(
+            self.model, self._as_device(self._tok), self._as_device(drafts),
+            self._as_device(dlen), self._as_device(self._pos), self._as_device(self._widx),
+            self._as_device(self._temp, torch.float32), self._as_device(self._topk),
+            self._as_device(self._topp, torch.float32), self.pool.cache, self._gen, table,
+            sampled=self._any_sampled(p.entering),
+        )
+        p.kind = "spec"
+        p.payload = (block, accepted, dlen)
+
+    def _collect_spec_step(self, p: _PendingTick) -> List[StreamEvent]:
+        """Collect one speculative verify tick: one sync, then deliver each
+        slot's accepted prefix + bonus token (cut at a mid-block EOS or
+        length finish)."""
+        k = self._spec_width
+        block, accepted, dlen = p.payload
+        block, accepted = block.cpu().numpy(), accepted.cpu().numpy()  # ONE sync
+        events: List[StreamEvent] = []
+        trace = self.tracer.enabled
+        t1 = self.tracer.now()
+        if trace:
+            self.tracer.record("verify_tick", "scheduler", p.t0, t1, width=k)
+        for slot in p.entering:
+            if not self._active[slot]:
+                continue  # an earlier slot's on_token callback cancelled it
+            a, drafted = int(accepted[slot]), int(dlen[slot])
+            if trace:
+                out = self._slot_out[slot]
+                self.tracer.record("verify", f"slot {slot}", p.t0, t1,
+                                   request_id=out.request.request_id, slot=slot,
+                                   draft_k=drafted, accepted=a, token_index=len(out.tokens))
+            # the current token + a accepted drafts entered the cache; the
+            # bonus (block[a]) is the new current token, written next tick
+            self._pos[slot] += a + 1
+            self._widx[slot] += a + 1
+            self._tok[slot] = int(block[slot, a])
+            delivered = 0
+            for tok in block[slot, :a + 1]:
+                event = self._deliver(slot, int(tok))
+                events.append(event)
+                delivered += 1
+                if event.finished:
+                    break  # EOS or length mid-block: drop the surplus
+            self._after_spec_block(slot, drafted, a, delivered)
+        self.metrics.record_dispatch(tokens=len(events))
+        return events
+
+    def _after_spec_block(self, slot: int, drafted: int, accepted: int, delivered: int) -> None:
+        """One slot's share of a verify block: the spec counters, the
+        adaptive draft length (the law the fused body applies, replayed on
+        the host mirror) and the optional alignment check."""
+        self.metrics.record_spec(drafted=drafted, accepted=accepted,
+                                 wasted=(self._spec_width + 1) - delivered)
+        if self._spec_adaptive and self._active[slot] and self._spec_max[slot] > 0:
+            self._spec_k[slot] = adapt_draft_len(int(self._spec_k[slot]), drafted, accepted,
+                                                 int(self._spec_max[slot]))
+        if self._spec_check:
+            self.pool.assert_slot_aligned(slot)
+
+    def _spec_body(self, unified: bool, sampled: bool) -> None:
+        """One fused (or, with ``unified``, unified) spec tick on the device
+        tensors, in place: state written back, blocks, counts, drafted and
+        accepted counts (and activation tokens) into the output buffer.
+        What the spec CUDA graphs capture, one per (kind, ``sampled``)."""
+        spec = (self.model, self._fused_steps, self._spec_width, self._drafter.max_ngram,
+                self._drafter.min_ngram, self._spec_adaptive, sampled)
+        if unified:
+            act_emit, blocks, counts, drafted, accepted, state = _unified_spec_core(
+                *spec, *self._dev_state, *self._dev_knobs, *self._dev_chunk, self.pool.cache,
+                self._gen, self._dev_table)
+            self._dev_out[-1, :, 0].copy_(act_emit)
+        else:
+            blocks, counts, drafted, accepted, state = _fused_spec_core(
+                *spec, *self._dev_state, *self._dev_knobs, self.pool.cache, self._gen,
+                self._dev_table)
+        for dst, src in zip(self._dev_state, state):  # the history was updated in place
+            dst.copy_(src)
+        k1 = self._spec_width + 1
+        out = self._dev_out[:-1]
+        out[..., :k1].copy_(blocks)
+        out[..., k1].copy_(counts)
+        out[..., k1 + 1].copy_(drafted)
+        out[..., k1 + 2].copy_(accepted)
+
+    def _launch_spec_fused(self, p: _PendingTick, unified_chunks: bool) -> None:
+        """Launch one FUSED speculative tick: T draft-verify-accept blocks
+        drafting from the device-resident history (one graph replay on a
+        CUDA device); with chunk work this tick, the unified chunk phase in
+        front.  Each kind has a greedy and a sampled variant, chosen here
+        from the host's per-slot temperatures."""
+        if self._state_dirty:
+            self._upload_slot_state()
+        if unified_chunks:
+            self._build_chunk_block(p)
+        if self._paged:
+            self._ensure_decode_writable(p, self._fused_steps * (self._spec_width + 1))
+            self._device_table()
+        slots = list(p.entering) + list(self._chunking) + [s for s, _, _ in p.finals]
+        sampled = self._any_sampled(slots)
+        kind = ("spec_unified" if unified_chunks else "spec_fused") + (
+            "_sampled" if sampled else "")
+        self._replay(kind, lambda: self._spec_body(unified_chunks, sampled))
+        p.kind = "spec_fused"
+        p.payload = (self._copy_out(), unified_chunks)
+
+    def _collect_spec_fused(self, p: _PendingTick) -> List[StreamEvent]:
+        """Collect one fused speculative tick: ONE sync per T verify blocks,
+        then per-block delivery: each block's accepted prefix + bonus, cut
+        at a mid-block finish, with the host replaying the adaptation law
+        the body applied so the ``_spec_k`` mirror stays exact."""
+        (host, done), unified = p.payload
+        if done is not None:
+            done.synchronize()
+        buf = host.numpy()
+        k1 = self._spec_width + 1
+        blocks, counts = buf[:-1, :, :k1], buf[:-1, :, k1]
+        drafted, accepted = buf[:-1, :, k1 + 1], buf[:-1, :, k1 + 2]
+        events: List[StreamEvent] = []
+        trace = self.tracer.enabled
+        t1 = self.tracer.now()
+        self._collect_chunks(p, t1)
+        for slot, out, plen in p.finals:
+            events.append(self._activate_from_device(slot, out, int(buf[-1, slot, 0]), plen))
+        # the per-slot DELIVERED totals play the fused tick's counts role
+        self._check_progress(p, counts.sum(axis=0))
+        if trace:
+            self.tracer.record("verify_tick", "scheduler", p.t0, t1, width=k1 - 1,
+                               steps=self._fused_steps, tokens=int(counts.sum()),
+                               chunk_tokens=p.chunk_tokens)
+        for t in range(blocks.shape[0]):
+            for slot in range(self.pool.n_slots):
+                e = int(counts[t, slot])
+                if e == 0 or not self._active[slot]:
+                    continue
+                a, d = int(accepted[t, slot]), int(drafted[t, slot])
+                if trace:
+                    out = self._slot_out[slot]
+                    self.tracer.record("verify", f"slot {slot}", p.t0, t1,
+                                       request_id=out.request.request_id, slot=slot,
+                                       draft_k=d, accepted=a, token_index=len(out.tokens))
+                self._pos[slot] += a + 1
+                self._widx[slot] += a + 1
+                self._tok[slot] = int(blocks[t, slot, a])
+                delivered = 0
+                for tok in blocks[t, slot, :e]:
+                    event = self._deliver(slot, int(tok))
+                    events.append(event)
+                    delivered += 1
+                    if event.finish_reason == FAIL_INTEGRITY:
+                        break  # everything after non-finite logits is garbage
+                    if event.finished:
+                        if delivered != e:
+                            # the body cut AT the finish: its EOS / budget law
+                            # and _deliver's must agree token for token
+                            raise AssertionError(
+                                f"slot {slot}: host finished at token {delivered} of a "
+                                f"{e}-token spec block")
+                        break
+                    if not self._active[slot]:
+                        break  # cancelled mid-block by a stream callback
+                self._after_spec_block(slot, d, a, delivered)
+        delivered = sum(1 for ev in events if ev.token >= 0)
+        self.metrics.record_dispatch(tokens=delivered)
+        if unified:
+            # a unified spec tick: prompt tokens consumed + tokens delivered
+            self.metrics.record_unified_tick(p.chunk_tokens + delivered)
         return events
 
     # -- delivery ----------------------------------------------------------

@@ -2,8 +2,9 @@
 ``tpu_parallel/serving/spec_decode.py``.
 
 :func:`~tpu_parallel_torch.serving.engine.sample_tokens` draws from this
-filtered distribution, so that speculative decoding, when it is ported,
-verifies against the same target distribution the sampler draws from.
+filtered distribution, and speculative decoding's rejection rule
+(:func:`~tpu_parallel_torch.serving.spec_decode.target_probs`) verifies
+against the same one.
 """
 
 from __future__ import annotations
