@@ -1,7 +1,8 @@
 """Card check of the PyTorch port: builds its CUDA kernels, holds each
 against its plain version, and drives GPT-2 125M inference, training and
-continuous-batching serving, with its hierarchical KV memory and speculative
-decoding, at full width.
+continuous-batching serving, with its hierarchical KV memory, speculative
+decoding, the int8 KV cache, beam search and int8 weight export, at full
+width.
 
     python3 chip_smoke.py
 
@@ -110,11 +111,31 @@ source, all started together).  Phases, in order; any failure raises:
    (profiled): device ms per decode step [16, 1] and per verify step
    [16, 5], idle share, launches per token.  Then fp32 (TF32 off): 8
    greedy requests through (c) against the non-spec engine (top-2 rule as
-   in phase 7).
+   in phase 7);
+10. decode extras: phase 7's engine and workload at
+   ``kv_cache_dtype="int8"`` in three runs (fused T=8 graph, contiguous;
+   unified over 512 blocks of 32; unified over 960 blocks of 32 under 32
+   slots, the bf16 pool's KV bytes): every request at its budget, the
+   pinned captures, every block back; the pools' KV bytes beside bf16's
+   and the greedy tokens' agreement with phase 7's bf16 runs printed.
+   Profiled pure-decode stretches, int8 and bf16, per layout (device ms
+   per step, tokens/s, idle share, launches per token, the copy, cast and
+   gather kernels by name).  Phase 9's run (c) at int8, greedy tokens
+   bitwise equal to a per-step int8 spec run.  ``generate_beam`` on 4
+   prompts of 256 tokens, 4 beams, 128 new, lazy and eager (tokens/s,
+   device ms per beam step, the eager reorder's bytes), the int8 lazy beam,
+   and fp32 lazy tokens equal to eager with scores within 1e-4.  The seeded
+   weight tree quantized to int8 (bytes against fp32 and bf16, held under
+   0.35x fp32), its ``.npz`` round trip (held bitwise), the dequantized
+   model's logits and greedy tokens against the original's (printed).
+   Then fp32 (TF32 off): 8 greedy int8 requests through the engine against
+   static int8 ``generate()``; a differing token passes only where the
+   reference's top-2 gap is below INT8_TIE_GAP or twice what the GEMMs'
+   batch shape alone moves those logits by.  No flash launch.
 
 Weights and inputs are made from ``SEED``.  The kernel launch counters are
 set to 0 before each main path (phases 3-4: inference; phase 6's steps:
-training; phases 7-9: serving, which must leave them at 0) and read after
+training; phases 7-10: serving, which must leave them at 0) and read after
 it.  The last two lines are the ``kernels`` JSON object and the
 ``{"ok": true, ...}`` line.
 """
@@ -1021,16 +1042,18 @@ def decode_stretch(model, steps, seed, ticks, eager=False, overlap=False, **kwar
                 copies_per_step=kinds, top_kernels_ms=top)
 
 
-def fp32_check(seed, workload):
+def fp32_check(seed, workload, tie_gap=FP32_TIE_GAP, **overrides):
     """The same weights in fp32 (TF32 off): 8 greedy requests through the
     fused, captured engine against static ``generate()`` at batch 1, token
     for token.  A differing token passes only on a near-tie: the
-    reference's top-2 logit gap at that step below FP32_TIE_GAP."""
+    reference's top-2 logit gap at that step below ``tie_gap`` (with
+    config ``overrides``, such as the int8 cache, the gap is read through
+    that cache: a prefill of the context with ``decode=True``)."""
     from tpu_parallel_torch.models import GPTLM, gpt2_125m
     from tpu_parallel_torch.models.generate import generate
     from tpu_parallel_torch.serving import Request
 
-    model = GPTLM(gpt2_125m(dtype=torch.float32), device="cuda", seed=seed).eval()
+    model = GPTLM(gpt2_125m(dtype=torch.float32, **overrides), device="cuda", seed=seed).eval()
     picked = [(i, p, n) for i, (p, n, hot) in enumerate(workload) if not hot][:SERVE_FP32_REQUESTS]
     eng = serve_engine(model, 8, seed)
     outs = [eng.add_request(Request(prompt=p, max_new_tokens=n, request_id=f"r{i}"))
@@ -1045,15 +1068,49 @@ def fp32_check(seed, workload):
                 continue
             step = next(j for j, (a, b) in enumerate(zip(out.tokens, want)) if a != b)
             ctx = torch.tensor([p + want[:step]], device="cuda")
-            top2 = model(ctx)[0, -1].float().topk(2).values
+            cached = dict(decode=True, cache=model.init_cache(1)) if overrides else {}
+            logits = model(ctx, **cached)[0, -1].float()
+            top2 = logits.topk(2).values
             gap = (top2[0] - top2[1]).item()
             report.append(dict(request=i, tokens=n, equal=False, first_diff=step, top2_gap=gap))
-            if gap >= FP32_TIE_GAP:
+            limit = tie_gap
+            if overrides.get("kv_cache_dtype") == "int8":
+                report[-1].update(_int8_shape_noise(model, ctx, cached["cache"], logits))
+                # a token may flip where the two top logits lie closer than
+                # the batch shape alone moves them (each by up to the noise)
+                limit = max(tie_gap, 2 * report[-1]["shape_noise"])
+            if gap >= limit:
                 raise AssertionError(f"fp32 engine request r{i} differs from generate() at "
-                                     f"token {step} with top-2 gap {gap:.3e} >= {FP32_TIE_GAP}")
+                                     f"token {step} with top-2 gap {gap:.3e} >= {limit:.3e}: "
+                                     f"{report[-1]}")
     del model, eng
     torch.cuda.empty_cache()
     return report
+
+
+def _int8_shape_noise(model, ctx, cache, logits):
+    """What the GEMMs' shape alone does to an int8 decode: the context
+    prefilled at batch 1 (``cache``, last-position ``logits``) against row
+    0 of the same context at batch 16.  Returns the largest logit
+    difference, and the int8 payload elements that differ, per layer.  In
+    layer 0 (whose K and V come from the embedding through one GEMM) an
+    element may move by one step only, across a .5 boundary of its grid
+    (held); deeper layers read earlier layers' caches, so a flip there
+    moves their inputs and the steps compound."""
+    many = model.init_cache(SERVE_SLOTS)
+    wide = model(ctx.expand(SERVE_SLOTS, -1), decode=True, cache=many)[0, -1].float()
+    flips, steps = [], []
+    for one, row in zip(cache, many):
+        k, v = one.read()[:2]
+        k2, v2 = row.read()[:2]
+        d = torch.cat([(k.int() - k2[:, :1].int()).abs().flatten(),
+                       (v.int() - v2[:, :1].int()).abs().flatten()])
+        flips.append(int((d > 0).sum()))
+        steps.append(int(d.max()))
+    if steps[0] > 1:
+        raise AssertionError(f"layer 0's int8 payloads at batch 1 and 16 differ by {steps[0]} steps")
+    return dict(shape_noise=(logits - wide).abs().max().item(), int8_flips_by_layer=flips,
+                int8_max_step_by_layer=steps)
 
 
 def cache_sized_copies(model, seed):
@@ -1231,9 +1288,13 @@ def serve_phase(seed, smi):
         f"requests in vocabulary; no flash launch; fp32 engine vs generate(): "
         f"{sum(r['equal'] for r in fp32)}/{len(fp32)} equal {fp32}")
     log(f"card: {smi}")
+    # phase 10 compares its int8 runs' greedy tokens with these runs'
+    greedy_tokens = {name: {r: runs[name]["tokens"][r] for r in greedy}
+                     for name in ("fused_graph", "paged_unified_graph",
+                                  "paged_unified_graph_32slots")}
     for r in runs.values():
         del r["tokens"]
-    return dict(runs=runs, fp32=fp32, cache_sized_copies=copies)
+    return dict(runs=runs, fp32=fp32, cache_sized_copies=copies), greedy_tokens
 
 
 
@@ -2057,9 +2118,413 @@ def spec_phase(seed, smi):
         f"flash launch; fp32 spec vs non-spec engine: {sum(r['equal'] for r in fp32)}/"
         f"{len(fp32)} equal ({fp32_accepted} drafts accepted) {fp32}")
     log(f"card: {smi}")
+    # phase 10 compares its int8 spec run's greedy tokens with run (c)'s
+    greedy_tokens = {r: runs["spec_fused_ngram"]["tokens"][r] for r in greedy}
     for r in runs.values():
         del r["tokens"]
-    return dict(runs=runs, stretches=stretches, verify_over_decode_device_ms=ratio, fp32=fp32)
+    return (dict(runs=runs, stretches=stretches, verify_over_decode_device_ms=ratio, fp32=fp32),
+            greedy_tokens)
+
+
+# phase 10: decode extras on GPT-2 125M (the seed of phase 7): the int8 KV
+# cache through the engine and speculative decoding, beam search, and
+# weight-only int8 export
+INT8 = dict(kv_cache_dtype="int8")
+# the int8 engine's runs over phase 7's workload: (name, decode steps per
+# tick, engine kwargs, the phase 7 run whose greedy tokens it is printed
+# beside).  The last is the paged pool in the bf16 pool's KV bytes: 960
+# int8 blocks of 32 tokens take what 512 bf16 ones do, under 32 slots
+INT8_RUNS = (
+    ("int8_fused_graph", 8, PER_PHASE, "fused_graph"),
+    ("int8_paged_unified_graph", 8, PAGED, "paged_unified_graph"),
+    ("int8_paged_unified_graph_32slots", 8,
+     dict(PAGED, n_slots=2 * SERVE_SLOTS, kv_pool_blocks=960), "paged_unified_graph_32slots"),
+)
+INT8_CAPTURES = dict(int8_fused_graph=1, int8_paged_unified_graph=2)
+# the int8 fp32 leg's near-tie.  The engine's GEMMs (16 slots) and static
+# generate()'s (batch 1) round fp32 K and V differently in the last bit;
+# an element on a .5 boundary of its int8 grid then moves by one step
+# (max|k| / 127, about 0.02, in one element of one head: about 1e-3 in
+# the logits), and deeper layers, which read the moved cache, compound it.
+# A differing token passes below ten such steps, or below twice what
+# prefilling the context at batch 16 instead of 1 moves its logits by
+# (``_int8_shape_noise``), whichever is larger.
+INT8_TIE_GAP = 1e-2
+BEAM_PROMPTS, BEAM_PROMPT_LEN, BEAM_WIDTH, BEAM_NEW = 4, 256, 4, 128
+BEAM_PROFILED_NEW = 18  # profiled calls of 18 and 2 new tokens: 16 steps apart
+BEAM_FP32_NEW = 16
+EXTRAS_STRETCH_TICKS = 4  # fused T=8 ticks per timed and per profiled window
+WEIGHT_TOKENS, WEIGHT_GREEDY = (4, 256), 32
+
+
+def pool_kv_bytes(cache):
+    """Bytes of a pool's KV storage (payloads, int8 scales, positions) and
+    what the same slots or blocks take as a bf16 pool (2 bytes per payload
+    element, no scales)."""
+    total = sum(s.nbytes for c in cache for s in c.stores + [c.pos_store])
+    bf16 = sum(2 * c.key_store.numel() + 2 * c.value_store.numel() + c.pos_store.nbytes
+               for c in cache)
+    return total, bf16
+
+
+def tokens_of(outs, keys):
+    return {o.request.request_id: o.tokens for o in outs if o.request.request_id in keys}
+
+
+def int8_engine_leg(seed, workload, bf16_tokens):
+    """Phase 7's engine at ``kv_cache_dtype="int8"`` over phase 7's
+    workload, as INT8_RUNS lists; every request at its budget, the pinned
+    captures, every block back; the greedy tokens' agreement with phase
+    7's bf16 runs and the pools' KV bytes printed."""
+    from tpu_parallel_torch.models import GPTLM, gpt2_125m
+
+    cfg = gpt2_125m(**INT8)
+    model = GPTLM(cfg, device="cuda", seed=seed).eval()
+    runs = {}
+    for name, steps, kwargs, bf16_run in INT8_RUNS:
+        eng, outs, wall, peak, blocks = serve_run(model, workload, steps, seed, **kwargs)
+        s = eng.metrics.summary()
+        bad = [o.request.request_id for o in outs if o.status != "finished"
+               or len(o.tokens) != o.request.max_new_tokens]
+        if bad:
+            raise AssertionError(f"[extras {name}] requests not finished at their budget: {bad}")
+        if any(min(o.tokens) < 0 or max(o.tokens) >= cfg.vocab_size for o in outs):
+            raise AssertionError(f"[extras {name}] tokens out of range")
+        if eng.pool.cache[0].key_store.dtype != torch.int8:
+            raise AssertionError(f"[extras {name}] the pool is not int8")
+        want = bf16_tokens[bf16_run]
+        kv_bytes, bf16_bytes = pool_kv_bytes(eng.pool.cache)
+        runs[name] = dict(
+            wall_s=wall, tokens_out=s["tokens_out"], tokens_per_s=s["tokens_out"] / wall,
+            ttft_ms_p50=s["ttft_ms_p50"], ttft_ms_p95=s["ttft_ms_p95"],
+            itl_ms_p50=s["itl_ms_p50"], itl_ms_p95=s["itl_ms_p95"], ticks=s["ticks"],
+            peak_memory_gib=peak / 2**30, graph_captures=eng.graph_captures,
+            slots=eng.pool.n_slots, kv_bytes=kv_bytes, kv_bytes_as_bf16=bf16_bytes,
+            greedy_equal_to_bf16=sum(o.tokens == want[o.request.request_id] for o in outs
+                                     if o.request.request_id in want),
+            greedy_requests=len(want), greedy=tokens_of(outs, want),
+        )
+        if blocks is not None:
+            runs[name].update(blocks, n_blocks=eng.pool.n_blocks,
+                              block_tokens=eng.pool.block_tokens)
+            _check_blocks_returned(name, eng)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    captures = {n: r["graph_captures"] for n, r in runs.items() if n in INT8_CAPTURES}
+    if captures != INT8_CAPTURES:
+        raise AssertionError(f"int8 graph captures by run: {captures}, want {INT8_CAPTURES}")
+    return model, runs
+
+
+def int8_spec_leg(model, seed, bf16_spec_tokens):
+    """Phase 9's run (c) (fused ticks of 4 verify blocks drafting on the
+    device, one graph per variant) at int8, against a per-step int8 spec
+    run: every request at its budget, greedy tokens bitwise equal."""
+    workload = spec_workload(seed, model.config.vocab_size)
+    greedy = [f"s{i}" for i, (_, _, hot) in enumerate(workload) if not hot]
+    runs = {}
+    for name, kwargs in (("int8_spec_step_ngram", SPEC), ("int8_spec_fused_ngram", SPEC_FUSED)):
+        eng, outs, wall, peak, kinds = spec_run(model, workload, seed, **kwargs)
+        s = eng.metrics.summary()
+        bad = [o.request.request_id for o in outs if o.status != "finished"
+               or len(o.tokens) != o.request.max_new_tokens]
+        if bad:
+            raise AssertionError(f"[extras {name}] requests not finished at their budget: {bad}")
+        want_kinds = {"spec_fused"} if kwargs is SPEC_FUSED else set()
+        if {k.replace("_sampled", "") for k in kinds} != want_kinds:
+            raise AssertionError(f"[extras {name}] replayed tick kinds {sorted(kinds)}")
+        runs[name] = dict(wall_s=wall, tokens_out=s["tokens_out"],
+                          tokens_per_s=s["tokens_out"] / wall, decode_ticks=s["decode_ticks"],
+                          acceptance_rate=s["spec_acceptance_rate"],
+                          peak_memory_gib=peak / 2**30, graph_captures=eng.graph_captures,
+                          tokens=tokens_of(outs, greedy))
+        del eng
+        gc.collect()
+    step, fused = runs["int8_spec_step_ngram"]["tokens"], runs["int8_spec_fused_ngram"]["tokens"]
+    differ = [r for r in greedy if step[r] != fused[r]]
+    if differ:
+        raise AssertionError(f"[extras int8 spec] greedy tokens of {len(differ)} requests differ "
+                             f"between the per-step and the fused int8 spec runs")
+    for r in runs.values():
+        r["greedy_equal_to_bf16_c"] = sum(r["tokens"][k] == bf16_spec_tokens[k] for k in greedy)
+        r["greedy_requests"] = len(greedy)
+        del r["tokens"]
+    torch.cuda.empty_cache()
+    return runs
+
+
+def _device_ms(fn):
+    """(result, device busy ms, kernel launches, copy, index and gather
+    kernels by name: (launches, ms)) of one call under ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    copies = {e.key[:90]: (e.count, e.self_device_time_total / 1e3) for e in events
+              if any(m in e.key for m in ("copy", "index", "gather"))}
+    return (out, sum(e.self_device_time_total for e in events) / 1e3,
+            sum(e.count for e in events), copies)
+
+
+def beam_leg(model, model8, seed):
+    """``generate_beam`` on GPT-2 125M: 4 prompts of 256 tokens, 4 beams,
+    128 new tokens, lazy and eager, timed; device ms per beam step from
+    two profiled calls (18 and 2 new tokens: the difference over 16
+    steps, so the prefill drops out); the eager form's reorder copies per
+    step.  Then the int8 cache's lazy beam (``model8``), and an fp32 leg
+    (TF32 off): lazy tokens equal to eager, scores within 1e-4."""
+    from tpu_parallel_torch.models import GPTLM, gpt2_125m
+    from tpu_parallel_torch.models.generate import generate_beam
+
+    cfg = model.config
+    gen = torch.Generator().manual_seed(seed + 10)
+    prompt = torch.randint(0, cfg.vocab_size, (BEAM_PROMPTS, BEAM_PROMPT_LEN),
+                           generator=gen).cuda()
+    kw = dict(num_beams=BEAM_WIDTH)
+    out = {}
+    with torch.inference_mode():
+        for lazy in (True, False):
+            name = "lazy" if lazy else "eager"
+            generate_beam(model, prompt, max_new_tokens=2, lazy=lazy, **kw)  # warm
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            toks, scores = generate_beam(model, prompt, max_new_tokens=BEAM_NEW, lazy=lazy, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - start
+            _, long_ms, long_n, copies = _device_ms(lambda: generate_beam(
+                model, prompt, max_new_tokens=BEAM_PROFILED_NEW, lazy=lazy, **kw))
+            _, short_ms, short_n, short_copies = _device_ms(
+                lambda: generate_beam(model, prompt, max_new_tokens=2, lazy=lazy, **kw))
+            steps = BEAM_PROFILED_NEW - 2
+            if not torch.isfinite(scores).all() or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+                raise AssertionError(f"[extras beam {name}] bad tokens or scores")
+            copy_ms = sum(ms for _, ms in copies.values()) - sum(
+                ms for _, ms in short_copies.values())
+            out[name] = dict(wall_s=wall, tokens_per_s=BEAM_PROMPTS * BEAM_NEW / wall,
+                             device_ms_per_step=(long_ms - short_ms) / steps,
+                             launches_per_step=(long_n - short_n) / steps,
+                             copy_ms_per_step=copy_ms / steps, copies=copies,
+                             tokens=toks.cpu(), scores=scores.cpu().tolist())
+        # the eager reorder reads and writes every row of every store of
+        # the [16 rows, seq_len] cache, positions included, each step
+        rows, n_kv = BEAM_PROMPTS * BEAM_WIDTH, cfg.n_kv_heads or cfg.n_heads
+        per_layer = (2 * n_kv * rows * cfg.seq_len * cfg.head_dim * cfg.dtype.itemsize
+                     + rows * cfg.seq_len * 4)
+        out["eager"]["reorder_bytes_per_step"] = 2 * cfg.n_layers * per_layer
+        out["lazy_equal_eager_bf16"] = int(
+            (out["lazy"]["tokens"] == out["eager"]["tokens"]).all(dim=1).sum())
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        toks8, scores8 = generate_beam(model8, prompt, max_new_tokens=BEAM_NEW, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        out["int8_lazy"] = dict(wall_s=wall, tokens_per_s=BEAM_PROMPTS * BEAM_NEW / wall,
+                                rows_equal_to_bf16_lazy=int(
+                                    (toks8.cpu() == out["lazy"]["tokens"]).all(dim=1).sum()))
+        if not torch.isfinite(scores8).all():
+            raise AssertionError("[extras beam int8] non-finite scores")
+        model32 = GPTLM(gpt2_125m(dtype=torch.float32), device="cuda", seed=seed).eval()
+        lazy = generate_beam(model32, prompt, max_new_tokens=BEAM_FP32_NEW, lazy=True, **kw)
+        eager = generate_beam(model32, prompt, max_new_tokens=BEAM_FP32_NEW, lazy=False, **kw)
+        del model32
+    torch.cuda.empty_cache()
+    if not torch.equal(lazy[0], eager[0]):
+        raise AssertionError("[extras beam fp32] lazy and eager tokens differ")
+    score_diff = (lazy[1] - eager[1]).abs().max().item()
+    if score_diff > 1e-4:
+        raise AssertionError(f"[extras beam fp32] lazy and eager scores differ by {score_diff}")
+    out["fp32_score_max_abs_diff"] = score_diff
+    for name in ("lazy", "eager"):
+        del out[name]["tokens"]
+    return out
+
+
+def weights_leg(model, seed):
+    """Weight-only int8 export of the seeded GPT-2 125M tree (the fp32
+    draws, through ``params_to_jax``): ``quantized_nbytes`` against the fp32
+    and bf16 trees (held under 0.35x fp32), the ``save_int8_npz`` ->
+    ``load_int8_npz`` round trip (held bitwise), and the dequantized
+    model's logits against the original's on [4, 256] tokens and its
+    greedy agreement over 32 tokens (printed)."""
+    import tempfile
+
+    from tpu_parallel_torch.models import GPTLM
+    from tpu_parallel_torch.models.convert import init_params, params_from_jax, params_to_jax
+    from tpu_parallel_torch.models.generate import generate
+    from tpu_parallel_torch.models.quantize import (
+        QuantizedTensor, dequantize_params, load_int8_npz, quantize_params, quantized_nbytes,
+        save_int8_npz)
+
+    cfg = model.config
+    # the seed's fp32 draws (init_params refills the model with the same values)
+    tree = params_to_jax(init_params(model, seed), cfg)
+    start = time.perf_counter()
+    qtree = quantize_params(tree)
+    quantize_s = time.perf_counter() - start
+    fp32_bytes = quantized_nbytes(tree)
+    q_bytes = quantized_nbytes(qtree)
+    if not q_bytes < 0.35 * fp32_bytes:
+        raise AssertionError(f"[extras weights] int8 tree {q_bytes} B, fp32 {fp32_bytes} B")
+    with tempfile.TemporaryDirectory(prefix="int8_npz_") as tmp:
+        path = f"{tmp}/gpt2_125m_int8.npz"
+        save_int8_npz(path, qtree)
+        file_bytes = Path(path).stat().st_size
+        loaded = load_int8_npz(path)
+
+    def leaves(t, prefix=""):
+        for k, v in t.items():
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}{k}/")
+            else:
+                yield f"{prefix}{k}", v
+
+    got, want = dict(leaves(loaded)), dict(leaves(qtree))
+    for key, w in want.items():
+        g = got[key]
+        same = (isinstance(g, QuantizedTensor) and torch.equal(g.q, w.q)
+                and torch.equal(g.scale, w.scale)) if isinstance(w, QuantizedTensor) else (
+            torch.equal(g, w))
+        if not same or sorted(got) != sorted(want):
+            raise AssertionError(f"[extras weights] npz round trip changed {key}")
+    restored = GPTLM(cfg, device="cuda", seed=seed).eval()
+    restored.load_state_dict(params_from_jax(dequantize_params(loaded, cfg.dtype), cfg))
+    gen = torch.Generator().manual_seed(seed + 11)
+    tokens = torch.randint(0, cfg.vocab_size, WEIGHT_TOKENS, generator=gen).cuda()
+    with torch.inference_mode():
+        ref, got_logits = model(tokens).float(), restored(tokens).float()
+        if not torch.isfinite(got_logits).all():
+            raise AssertionError("[extras weights] non-finite logits")
+        a = generate(model, tokens[:, :64], max_new_tokens=WEIGHT_GREEDY)
+        b = generate(restored, tokens[:, :64], max_new_tokens=WEIGHT_GREEDY)
+    del restored
+    torch.cuda.empty_cache()
+    return dict(fp32_tree_bytes=fp32_bytes, bf16_tree_bytes=fp32_bytes // 2, int8_tree_bytes=q_bytes,
+                npz_file_bytes=file_bytes, quantize_s=quantize_s,
+                logits_max_abs_diff=(got_logits - ref).abs().max().item(),
+                logits_ref_max_abs=ref.abs().max().item(),
+                greedy_tokens_equal=int((a == b).sum()), greedy_tokens=int(a.numel()),
+                argmax_agreement=float((got_logits.argmax(-1) == ref.argmax(-1)).float().mean()),
+                quantized_leaves=sum(isinstance(v, QuantizedTensor) for v in want.values()),
+                leaves=len(want))
+
+
+def extras_phase(seed, smi, bf16_tokens, bf16_spec_tokens):
+    """Phase 10: decode extras on GPT-2 125M.  The int8 KV cache through
+    phase 7's engine (three runs) with a profiled pure-decode stretch per
+    layout beside the same stretch at bf16 and an fp32 leg against static
+    int8 ``generate()``; phase 9's run (c) at int8 against a per-step int8
+    spec run; beam search, lazy and eager; weight-only int8 export.  No
+    flash launch.  Each leg prints its lines as it ends."""
+    from tpu_parallel_torch.models import GPTLM, gpt2_125m
+    from tpu_parallel_torch.ops import flash_attention as fa
+
+    start = time.perf_counter()
+    legs_s = {}
+
+    def lap(name):
+        legs_s[name] = time.perf_counter() - start - sum(legs_s.values())
+
+    flash_before = [getattr(fa, name) for name in LAUNCH_COUNTERS]
+    workload = serve_workload(seed, gpt2_125m().vocab_size)
+    model8, runs = int8_engine_leg(seed, workload, bf16_tokens)
+    lap("int8_engine")
+    for name, r in runs.items():
+        log(f"[extras {name}] {r['wall_s']:.3f} s wall, {r['tokens_out']} tokens out "
+            f"({r['tokens_per_s']:.1f} tokens/s), {r['ticks']} ticks; TTFT p50 "
+            f"{r['ttft_ms_p50']} ms p95 {r['ttft_ms_p95']} ms; ITL p50 {r['itl_ms_p50']} ms p95 "
+            f"{r['itl_ms_p95']} ms; peak memory {r['peak_memory_gib']:.2f} GiB; graph captures "
+            f"{r['graph_captures']}; {r['slots']} slots, KV bytes {r['kv_bytes']} int8 against "
+            f"{r['kv_bytes_as_bf16']} as bf16 ({r['kv_bytes'] / r['kv_bytes_as_bf16']:.4f}); "
+            f"greedy requests equal to phase 7's bf16 run: {r['greedy_equal_to_bf16']}/"
+            f"{r['greedy_requests']}")
+        if "peak_blocks_in_use" in r:
+            log(f"  paged: {r['n_blocks']} blocks of {r['block_tokens']} tokens; peak blocks in "
+                f"use {r['peak_blocks_in_use']}; block-gate holds {r['block_gate_holds']}; every "
+                f"block free at the end")
+        del r["greedy"]
+    stretches = {}
+    for layout, kwargs in (("contiguous", PER_PHASE), ("paged", PAGED)):
+        stretches[f"int8_{layout}"] = decode_stretch(model8, 8, seed, EXTRAS_STRETCH_TICKS,
+                                                     **kwargs)
+    lap("int8_stretches")
+    spec = int8_spec_leg(model8, seed, bf16_spec_tokens)
+    lap("int8_spec")
+    for name, r in spec.items():
+        log(f"[extras {name}] {r['wall_s']:.3f} s wall, {r['tokens_out']} tokens out "
+            f"({r['tokens_per_s']:.1f} tokens/s); {r['decode_ticks']} decode ticks; acceptance "
+            f"{r['acceptance_rate']}; peak memory {r['peak_memory_gib']:.2f} GiB; graph captures "
+            f"{r['graph_captures']}; greedy requests equal to phase 9 (c) bf16: "
+            f"{r['greedy_equal_to_bf16_c']}/{r['greedy_requests']}")
+    model = GPTLM(gpt2_125m(), device="cuda", seed=seed).eval()
+    for layout, kwargs in (("contiguous", PER_PHASE), ("paged", PAGED)):
+        stretches[f"bf16_{layout}"] = decode_stretch(model, 8, seed, EXTRAS_STRETCH_TICKS,
+                                                     **kwargs)
+    lap("bf16_stretches")
+    for name, d in stretches.items():
+        log(f"[extras stretch {name}] 16 slots: {d['decode_tokens_per_s']:.1f} decode tokens/s; "
+            f"{d['device_ms_per_step']:.4f} device ms per decode step; idle share "
+            f"{d['idle_share']:.3f}; {d['kernel_launches_per_token']:.2f} kernel launches per "
+            f"token")
+        for c in d["copies_per_step"]:
+            log(f"    copy/cast/gather per decode step: {c['launches_per_step']:6.2f} launches, "
+                f"{c['ms_per_step']:.4f} ms, {c['us_per_launch']:7.2f} us each: {c['kernel']}")
+        for key, count, ms in d["top_kernels_ms"][:6]:
+            log(f"    {ms:9.3f} ms {100 * ms / d['device_busy_ms']:5.1f}% x{count:<5d} {key}")
+    for layout in ("contiguous", "paged"):
+        a, b = stretches[f"int8_{layout}"], stretches[f"bf16_{layout}"]
+        log(f"[extras] int8 / bf16 device ms per decode step, {layout}: "
+            f"{a['device_ms_per_step']:.4f} / {b['device_ms_per_step']:.4f} = "
+            f"{a['device_ms_per_step'] / b['device_ms_per_step']:.3f}")
+    beam = beam_leg(model, model8, seed)
+    lap("beam")
+    del model8
+    for name in ("lazy", "eager"):
+        r = beam[name]
+        log(f"[extras beam {name}] [{BEAM_PROMPTS}, {BEAM_PROMPT_LEN}] x {BEAM_WIDTH} beams, "
+            f"{BEAM_NEW} new: {r['wall_s']:.3f} s wall, {r['tokens_per_s']:.1f} tokens/s; "
+            f"{r['device_ms_per_step']:.4f} device ms per beam step, "
+            f"{r['launches_per_step']:.1f} launches per step; copy/gather "
+            f"{r['copy_ms_per_step']:.4f} ms per step")
+        for key, (count, ms) in sorted(r["copies"].items(), key=lambda kv: -kv[1][1])[:4]:
+            log(f"    {ms:9.3f} ms x{count:<6d} {key}")
+    e = beam["eager"]
+    log(f"[extras beam] eager reorder: {e['reorder_bytes_per_step']} bytes read and written "
+        f"per step ({e['reorder_bytes_per_step'] / 1e6:.1f} MB); lazy rows equal to eager in "
+        f"bf16: {beam['lazy_equal_eager_bf16']}/{BEAM_PROMPTS}; int8 lazy "
+        f"{beam['int8_lazy']['tokens_per_s']:.1f} tokens/s, rows equal to bf16 lazy "
+        f"{beam['int8_lazy']['rows_equal_to_bf16_lazy']}/{BEAM_PROMPTS}; fp32 lazy = eager, "
+        f"scores within {beam['fp32_score_max_abs_diff']:.2e}")
+    weights = weights_leg(model, seed)
+    lap("weights")
+    w = weights
+    log(f"[extras weights] GPT-2 125M tree: fp32 {w['fp32_tree_bytes']} B, bf16 "
+        f"{w['bf16_tree_bytes']} B, int8 {w['int8_tree_bytes']} B "
+        f"({w['int8_tree_bytes'] / w['fp32_tree_bytes']:.4f}x fp32, "
+        f"{w['int8_tree_bytes'] / w['bf16_tree_bytes']:.4f}x bf16; {w['quantized_leaves']} of "
+        f"{w['leaves']} leaves quantized in {w['quantize_s']:.2f} s); .npz {w['npz_file_bytes']} "
+        f"B, round trip bitwise; dequantized logits max abs diff {w['logits_max_abs_diff']:.4f} "
+        f"(logits up to {w['logits_ref_max_abs']:.3f}), argmax agreement "
+        f"{w['argmax_agreement']:.4f}; greedy tokens equal {w['greedy_tokens_equal']}/"
+        f"{w['greedy_tokens']}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    fp32 = fp32_check(seed, workload, tie_gap=INT8_TIE_GAP, **INT8)
+    lap("fp32")
+    moved = [getattr(fa, name) - n for name, n in zip(LAUNCH_COUNTERS, flash_before)]
+    if any(moved):
+        raise AssertionError(f"the decode-extras path launched flash kernels: {moved}")
+    phase_s = time.perf_counter() - start
+    log(f"[extras] fp32 int8 engine vs static int8 generate(): {sum(r['equal'] for r in fp32)}/"
+        f"{len(fp32)} equal {fp32}; no flash launch; phase 10 took {phase_s:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in legs_s.items()) + ")")
+    log(f"card: {smi}")
+    return dict(int8_runs=runs, stretches=stretches, int8_spec=spec, beam=beam, weights=weights,
+                fp32=fp32, phase_s=phase_s, legs_s=legs_s)
 
 
 def main():
@@ -2090,9 +2555,10 @@ def main():
         raise AssertionError(f"the training path left a kernel unlaunched: {launches}")
     for name in LAUNCH_COUNTERS:  # the serving main path starts here
         setattr(fa, name, 0)
-    serve = serve_phase(SEED, smi)
+    serve, serve_tokens = serve_phase(SEED, smi)
     kv = hier_phase(SEED, smi)
-    spec = spec_phase(SEED, smi)
+    spec, spec_tokens = spec_phase(SEED, smi)
+    extras = extras_phase(SEED, smi, serve_tokens, spec_tokens)
     serve_launches = {name: getattr(fa, name) for name in LAUNCH_COUNTERS}
     if any(serve_launches.values()):
         raise AssertionError(f"the serving path launched flash kernels: {serve_launches}")
@@ -2120,7 +2586,7 @@ def main():
              library_covers="dq+dk+dv", ms_main_path_layout=train_row["main_path_layout"]["ms"])
     ]}
     summary = dict(card=smi, forward=fwd, generate=gen, train=train, serve=serve, kv=kv,
-                   spec=spec, inference_flash_fwd_launches=inference_launches,
+                   spec=spec, decode_extras=extras, inference_flash_fwd_launches=inference_launches,
                    kernel_shapes=kernel_rows, bwd_kernel_shapes=bwd_rows)
     log("[summary] " + json.dumps(summary, sort_keys=True))
     log(f"card: {smi}")

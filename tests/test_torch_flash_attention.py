@@ -14,6 +14,11 @@ import numpy as np
 import pytest
 import torch
 
+# one torch intra-op thread per test process: under pytest-xdist several
+# processes share the cores, and torch's default (a thread per core in each)
+# oversubscribes them
+torch.set_num_threads(1)
+
 # the package re-exports a function of the same name: import the module itself
 jfa = importlib.import_module("tpu_parallel.ops.flash_attention")
 tfa = importlib.import_module("tpu_parallel_torch.ops.flash_attention")

@@ -25,6 +25,11 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from test_torch_flash_attention import CASES, _bhsd_inputs
 from tpu_parallel_torch.models import GPTLM, tiny_test
 
+# one torch intra-op thread per test process: under pytest-xdist several
+# processes share the cores, and torch's default (a thread per core in each)
+# oversubscribes them
+torch.set_num_threads(1)
+
 jfa = importlib.import_module("tpu_parallel.ops.flash_attention")
 tfa = importlib.import_module("tpu_parallel_torch.ops.flash_attention")
 

@@ -27,6 +27,11 @@ import importlib
 import pytest
 import torch
 
+# one torch intra-op thread per test process: under pytest-xdist several
+# processes share the cores, and torch's default (a thread per core in each)
+# oversubscribes them
+torch.set_num_threads(1)
+
 tfa = importlib.import_module("tpu_parallel_torch.ops.flash_attention")
 
 pytestmark = pytest.mark.gpu

@@ -31,6 +31,11 @@ from test_torch_flash_attention import TOL, _segments
 from tpu_parallel_torch.models import tiny_test
 from tpu_parallel_torch.models.layers import Attention, remat_kwargs_for
 
+# one torch intra-op thread per test process: under pytest-xdist several
+# processes share the cores, and torch's default (a thread per core in each)
+# oversubscribes them
+torch.set_num_threads(1)
+
 jfa = importlib.import_module("tpu_parallel.ops.flash_attention")
 tfa = importlib.import_module("tpu_parallel_torch.ops.flash_attention")
 

@@ -18,6 +18,11 @@ from tpu_parallel_torch.models import GPTLM, tiny_test
 from tpu_parallel_torch.models import generate as tgen
 from tpu_parallel_torch.models.convert import params_from_jax
 
+# one torch intra-op thread per test process: under pytest-xdist several
+# processes share the cores, and torch's default (a thread per core in each)
+# oversubscribes them
+torch.set_num_threads(1)
+
 TOL = dict(atol=1e-4, rtol=1e-4)
 VARIANTS = {
     "aligned": dict(),

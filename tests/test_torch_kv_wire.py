@@ -52,6 +52,11 @@ from tpu_parallel_torch.serving.kv_wire import (
     write_export_file,
 )
 
+# one torch intra-op thread per test process: under pytest-xdist several
+# processes share the cores, and torch's default (a thread per core in each)
+# oversubscribes them
+torch.set_num_threads(1)
+
 
 def _bf16_bits(x):
     """float values rounded to bf16 (round to nearest even), as raw bits."""

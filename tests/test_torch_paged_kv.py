@@ -38,6 +38,11 @@ from tpu_parallel_torch.serving import (
 )
 from tpu_parallel_torch.serving import cache_pool
 
+# one torch intra-op thread per test process: under pytest-xdist several
+# processes share the cores, and torch's default (a thread per core in each)
+# oversubscribes them
+torch.set_num_threads(1)
+
 BT = 8  # block tokens used throughout (divides tiny_test's seq_len 32)
 SEQ = 32
 VOCAB = 256

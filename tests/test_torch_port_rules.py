@@ -16,6 +16,11 @@ from tpu_parallel_torch.ops import build
 from tpu_parallel_torch.runtime import resolve_device
 from tpu_parallel_torch.serving import ServingEngine
 
+# one torch intra-op thread per test process: under pytest-xdist several
+# processes share the cores, and torch's default (a thread per core in each)
+# oversubscribes them
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "tpu_parallel", "ml_dtypes"}
 PORT_FILES = sorted((REPO / "tpu_parallel_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]

@@ -40,6 +40,11 @@ from tpu_parallel_torch.serving import (
     ServingEngine,
 )
 
+# one torch intra-op thread per test process: under pytest-xdist several
+# processes share the cores, and torch's default (a thread per core in each)
+# oversubscribes them
+torch.set_num_threads(1)
+
 VOCAB = 256
 
 
@@ -556,11 +561,15 @@ def test_refused_knob_raises(model, knob, tmp_path):
 
 
 def test_refused_int8_cache_and_prefix_export(model):
-    """int8 stays refused; prefix export and import exist and answer a
-    fixed-slot engine as the JAX engine does (nothing to export, a typed
-    ``not_paged`` verdict)."""
-    with pytest.raises(NotImplementedError, match="int8"):
-        tiny_test(kv_cache_dtype="int8")
+    """The int8 cache serves (its parity cases are in
+    ``tests/test_torch_int8_kv.py``); a cache dtype that is neither bf16
+    nor int8 is refused, as the JAX layer refuses it.  Prefix export and
+    import exist and answer a fixed-slot engine as the JAX engine does
+    (nothing to export, a typed ``not_paged`` verdict)."""
+    with pytest.raises(ValueError, match="kv_cache_dtype"):
+        tiny_test(kv_cache_dtype="fp8")
+    int8 = ServingEngine(GPTLM(tiny_test(kv_cache_dtype="int8"), device="cpu"), n_slots=2)
+    assert int8.pool.cache[0].key_store.dtype == torch.int8
     eng = ServingEngine(model, n_slots=2)
     assert eng.export_prefix("r0") is None
     assert eng.import_prefix(None) == "not_paged"

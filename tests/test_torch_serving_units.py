@@ -40,6 +40,11 @@ from tpu_parallel_torch.serving import (
 from tpu_parallel_torch.serving import cache_pool
 from tpu_parallel_torch.serving.sampling import filter_logits
 
+# one torch intra-op thread per test process: under pytest-xdist several
+# processes share the cores, and torch's default (a thread per core in each)
+# oversubscribes them
+torch.set_num_threads(1)
+
 TOL = dict(atol=1e-5, rtol=1e-5)
 SEQ = 32
 

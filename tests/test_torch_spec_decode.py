@@ -1,7 +1,8 @@
 """Port parity for speculative decoding's units
 (``serving/spec_decode.py``, ``models/generate.py:verify_step``): the cases
-of ``tests/test_spec_decode.py`` re-run against the port (all but the int8
-cache's, which waits for the int8 slice), and the cross-package contract.
+of ``tests/test_spec_decode.py`` re-run against the port (the int8
+cache's is in ``tests/test_torch_int8_kv.py``), and the cross-package
+contract.
 
 - The drafter, acceptance and adaptation units run as in JAX: the same
   arrays, the same asserted values.  ``rejection_verify`` draws from a
@@ -40,6 +41,11 @@ from tpu_parallel_torch.serving.spec_decode import (
     rejection_verify,
     verify_tokens,
 )
+
+# one torch intra-op thread per test process: under pytest-xdist several
+# processes share the cores, and torch's default (a thread per core in each)
+# oversubscribes them
+torch.set_num_threads(1)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 VOCAB = 256

@@ -1,8 +1,8 @@
 """Port parity for the speculative serving engine (``ServingEngine`` with
 ``draft_tokens`` > 0): the spec cases of ``tests/test_serving.py`` and the
 ``spec`` mode of ``tests/test_paged_kv.py:test_paged_greedy_parity``
-re-run against the port (all but the int8 cache's), and the cross-package
-contract.
+re-run against the port (the int8 cache's are in
+``tests/test_torch_int8_kv.py``), and the cross-package contract.
 
 - Cross-package: the same script through the JAX spec engine and the
   port's, per-step, fused, unified-chunked, paged and ``run(overlap=True)``,
@@ -39,6 +39,11 @@ from tpu_parallel_torch.serving import (
     SchedulerConfig,
     ServingEngine,
 )
+
+# one torch intra-op thread per test process: under pytest-xdist several
+# processes share the cores, and torch's default (a thread per core in each)
+# oversubscribes them
+torch.set_num_threads(1)
 
 VOCAB = 256
 
@@ -146,9 +151,23 @@ def _spec_counters(eng):
                 wasted=m.spec_wasted_positions, decode_ticks=m.decode_ticks)
 
 
+@pytest.fixture(scope="module")
+def plain_tokens(bridged):
+    """config name -> the port's non-spec engine's tokens on the script:
+    the same run for every mode, made once per config."""
+    made = {}
+
+    def get(config):
+        if config not in made:
+            made[config] = [o.tokens for o in _script(bridged(config)[1])[0]]
+        return made[config]
+
+    return get
+
+
 @pytest.mark.parametrize("config", sorted(CONFIGS))
 @pytest.mark.parametrize("mode", sorted(MODES))
-def test_spec_engine_matches_jax(bridged, mode, config):
+def test_spec_engine_matches_jax(bridged, plain_tokens, mode, config):
     jax_side, port_side = bridged(config)
     overlap = mode == "overlap"
     j_outs, j_events, jeng = _script(jax_side, overlap, **MODES[mode])
@@ -157,8 +176,7 @@ def test_spec_engine_matches_jax(bridged, mode, config):
     assert _spec_counters(eng) == _spec_counters(jeng)
     assert eng.metrics.tokens_drafted > 0 and eng.metrics.tokens_accepted > 0
     assert {o.status for o in outs} == {FINISHED}
-    plain, _, _ = _script(port_side)
-    assert [o.tokens for o in plain] == [o.tokens for o in outs]
+    assert plain_tokens(config) == [o.tokens for o in outs]
     if overlap:
         assert eng.metrics.summary()["overlapped_dispatches"] > 0
     if mode == "paged":

@@ -46,6 +46,11 @@ from tpu_parallel_torch.models.gpt import make_gpt_loss
 from tpu_parallel_torch.train_lib import Trainer, TrainerConfig, make_lr_schedule, make_optimizer
 from tpu_parallel_torch.utils.profiling import mfu, peak_flops
 
+# one torch intra-op thread per test process: under pytest-xdist several
+# processes share the cores, and torch's default (a thread per core in each)
+# oversubscribes them
+torch.set_num_threads(1)
+
 TOL = 1e-5
 
 

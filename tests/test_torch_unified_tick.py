@@ -27,6 +27,11 @@ from tpu_parallel_torch.models import GPTLM, tiny_test
 from tpu_parallel_torch.models.generate import generate
 from tpu_parallel_torch.serving import FINISHED, Request, SchedulerConfig, ServingEngine
 
+# one torch intra-op thread per test process: under pytest-xdist several
+# processes share the cores, and torch's default (a thread per core in each)
+# oversubscribes them
+torch.set_num_threads(1)
+
 VOCAB = 256
 
 

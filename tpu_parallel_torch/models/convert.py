@@ -6,7 +6,10 @@ with a leading ``[n_layers]`` axis, or unrolled ``blocks/layer_{i}``) into
 the port's state dict.  Flax kernels are ``[in, out]``; PyTorch ``Linear``
 weights are ``[out, in]``.  It raises on a missing leaf, an extra leaf or a
 shape that does not match.  Nothing here imports JAX: leaves are read with
-``numpy.asarray``.
+``numpy.asarray`` (torch leaves, bf16 ones too, through fp32).
+:func:`params_to_jax` is its exact inverse, so the port builds the JAX
+layout's tree (for ``models/quantize.py`` and its ``.npz`` files) without
+JAX.
 
 :func:`init_params` draws the port's own weights from a seed, with flax's
 default distributions, so the model runs realistic activations without JAX.
@@ -97,6 +100,12 @@ def _flatten(tree: Mapping, prefix: str = "") -> Iterator[Tuple[str, object]]:
             yield path, value
 
 
+def _as_float32(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().float().numpy()
+    return np.asarray(leaf, dtype=np.float32)
+
+
 def params_from_jax(tree: Mapping, config, dtype=None) -> Dict[str, torch.Tensor]:
     """The port's state dict from a JAX ``GPTLM`` parameter tree.
 
@@ -132,7 +141,7 @@ def params_from_jax(tree: Mapping, config, dtype=None) -> Dict[str, torch.Tensor
     shapes = state_shapes(config)
     state = {}
     for path, key, transpose, layer in wanted:
-        arr = np.asarray(flat[path], dtype=np.float32)
+        arr = _as_float32(flat[path])
         if layer is not None:
             if arr.ndim == 0 or arr.shape[0] != config.n_layers:
                 raise ValueError(
@@ -147,6 +156,36 @@ def params_from_jax(tree: Mapping, config, dtype=None) -> Dict[str, torch.Tensor
             raise ValueError(f"{path}: shape {arr.shape} does not fit {key} {shape}")
         state[key] = torch.tensor(arr, dtype=dtype or module_dtype)
     return state
+
+
+def params_to_jax(state_dict: Mapping[str, torch.Tensor], config) -> Dict:
+    """The JAX ``GPTLM`` parameter tree of a port state dict: the exact
+    inverse of :func:`params_from_jax`.  ``Linear`` weights go back to
+    flax's ``[in, out]``; ``config.scan_layers`` stacks every block leaf
+    under ``blocks/layers/block`` with a leading ``[n_layers]`` axis, else
+    each layer sits under ``blocks/layer_{i}``.  Leaves are new contiguous
+    CPU tensors in the state dict's dtypes."""
+    tree: Dict = {}
+
+    def put(path: str, value: torch.Tensor, transpose: bool):
+        value = value.detach().cpu()
+        value = (value.transpose(-1, -2) if transpose else value).contiguous()
+        node = tree
+        *parents, leaf = path.split("/")
+        for name in parents:
+            node = node.setdefault(name, {})
+        node[leaf] = value
+
+    for path, key, t in _TOP:
+        put(path, state_dict[key], t)
+    for path, key, t in _block_leaves(config):
+        layers = [state_dict[f"blocks.layer_{i}.{key}"] for i in range(config.n_layers)]
+        if config.scan_layers:
+            put(_SCANNED + path, torch.stack(layers), t)
+        else:
+            for i, value in enumerate(layers):
+                put(f"blocks/layer_{i}/{path}", value, t)
+    return tree
 
 
 def init_params(model: torch.nn.Module, seed: int = 0) -> Dict[str, torch.Tensor]:

@@ -5,7 +5,10 @@ A prefill over the prompt fills every layer's cache, then a Python loop of
 single-token decode steps appends to it and attends the cached prefix.  The
 cache is updated in place.  Sampling draws from an explicit
 ``torch.Generator`` (it will not give the JAX package's random bits: only
-greedy decoding is comparable token for token).
+greedy decoding is comparable token for token).  :func:`generate_beam` is
+beam search, lazy (per-slot source-row tables) or eager (the cache
+reordered every step).  Every entry point takes either cache dtype
+(``kv_cache_dtype`` "bf16" or "int8").
 """
 
 from __future__ import annotations
@@ -178,3 +181,136 @@ def generate(model: GPTLM, prompt, generator: Optional[torch.Generator] = None, 
         model, prompt, generator, max_new_tokens, temperature, top_k, top_p,
         prompt_mask=prompt_mask,
     )
+
+
+# --- beam search --------------------------------------------------------------
+#
+# The JAX package locates each cache leaf's batch axis by name
+# (``beam_cache_batch_axis``) to reorder a flax cache collection; the port's
+# counterpart is :meth:`KVCache.take_rows`, which gathers every payload,
+# scale and position store of a layer's cache along its batch axis.
+
+
+def beam_expand_cache(cache: List[KVCache], k: int) -> List[KVCache]:
+    """Replicate every batch row ``k`` ways (beam j of row i = row i*k+j):
+    new caches, the scalar index kept."""
+    rows = torch.arange(cache[0].batch, device=cache[0].pos_store.device).repeat_interleave(k)
+    return [c.take_rows(rows) for c in cache]
+
+
+def beam_seed_src(cache: List[KVCache], num_beams: int) -> List[KVCache]:
+    """Give every layer's cache an identity ``beam_src`` table (lazy beam
+    search): ``beam_src[row, slot]`` names the row whose cache physically
+    holds that slot of this row's beam history.  Identity is right after
+    the prefill: every beam of a prompt holds the same replicated slots."""
+    for c in cache:
+        c.seed_beam_src(num_beams)
+    return cache
+
+
+def beam_advance_src(cache: List[KVCache], row_idx) -> List[KVCache]:
+    """Lazy-beam step update: row-gather every ``beam_src`` table by the
+    winning beams' parent rows (``new[r'] = old[parent(r')]``).  The K/V
+    stores are NOT touched; the slot written this step already maps to the
+    writing row (the layer keeps that invariant), so the gather alone keeps
+    the table exact."""
+    for c in cache:
+        c.beam_src = c.beam_src.index_select(0, row_idx)
+    return cache
+
+
+def beam_reorder_cache(cache: List[KVCache], row_idx) -> List[KVCache]:
+    """The eager form: new caches whose rows follow their winning beams,
+    one ``index_select`` of every payload, scale and position store along
+    the batch axis (the whole cache read and written per step)."""
+    return [c.take_rows(row_idx) for c in cache]
+
+
+def beam_backtrack(first, toks, src_beams, scores) -> torch.Tensor:
+    """Follow each row's best final beam back through the per-step
+    (token, source-beam) records ``toks``/``src_beams`` [T-1, batch, k]
+    (``first`` [batch, k]: the first step's tokens); returns [batch, T]
+    token ids."""
+    beam = scores.argmax(dim=-1)[:, None]
+    rev = []
+    for t in range(toks.shape[0] - 1, -1, -1):
+        rev.append(toks[t].gather(1, beam)[:, 0])
+        beam = src_beams[t].gather(1, beam)
+    return torch.stack([first.gather(1, beam)[:, 0]] + rev[::-1], dim=1)
+
+
+def _top_k(x, k: int):
+    """The ``k`` largest entries along the last axis, in descending order
+    with the lower index first among equal values (``lax.top_k``'s order;
+    ``torch.topk`` does not promise one): a stable descending sort."""
+    values, index = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], index[..., :k]
+
+
+@torch.inference_mode()
+def generate_beam(model: GPTLM, prompt, *, max_new_tokens: int = 32, num_beams: int = 4,
+                  length_penalty: float = 0.0, lazy: bool = True):
+    """Beam-search decoding: the highest-scoring continuation per prompt row.
+
+    Returns ``(tokens [batch, max_new_tokens], scores [batch])``, ``scores``
+    the winning beam's total log-probability divided by
+    ``max_new_tokens ** length_penalty`` (0: pure log-prob, 1: per-token
+    mean).  The prefill runs once per prompt row on the plain model; its
+    cache is then replicated ``num_beams`` ways (beam j of prompt i is row
+    ``i * num_beams + j``) and each step takes the top ``num_beams`` of the
+    ``num_beams * vocab`` joint continuations per prompt.  ``lazy=True``
+    follows beam ancestry through per-slot source-row tables and
+    :func:`~tpu_parallel_torch.models.layers.beam_decode_attention` (the
+    cache is never re-gathered); ``lazy=False`` reorders every layer's
+    cache rows each step.  Fixed-length decoding, no EOS handling, as
+    :func:`generate`.  ``prompt`` must be on the model's device.
+    """
+    cfg = model.config
+    if prompt.device != model.device:
+        raise ValueError(f"prompt is on {prompt.device}, the model on {model.device}")
+    b, prompt_len = prompt.shape
+    if prompt_len + max_new_tokens > cfg.seq_len:
+        raise ValueError(
+            f"prompt ({prompt_len}) + max_new_tokens ({max_new_tokens}) "
+            f"exceeds seq_len ({cfg.seq_len})"
+        )
+    k = num_beams
+    vocab = cfg.vocab_size
+    dev = prompt.device
+    positions = torch.arange(prompt_len, device=dev).expand(b, prompt_len)
+    cache = model.init_cache(b, beam_width=0)
+    hidden = model(prompt, positions=positions, decode=True, hidden_only=True, cache=cache)
+    first_logp = torch.log_softmax(model.lm_head(hidden[:, -1]).float(), dim=-1)
+    scores, first = _top_k(first_logp, k)  # [b, k] each
+    cache = beam_expand_cache(cache, k)
+    if lazy:
+        beam_seed_src(cache, k)
+    tok = first.reshape(b * k)
+    offsets = torch.arange(b, device=dev)[:, None] * k
+    toks, srcs = [], []
+    for step in range(max_new_tokens - 1):
+        pos = torch.full((b * k,), prompt_len + step, device=dev)
+        hidden, cache = decode_step(model, cache, tok, pos)
+        logp = torch.log_softmax(model.lm_head(hidden[:, -1]).float(), dim=-1)
+        # joint scores over (beam, next token) per prompt row
+        joint = scores[:, :, None] + logp.view(b, k, vocab)
+        scores, flat = _top_k(joint.view(b, k * vocab), k)
+        src_beam = flat // vocab  # [b, k] originating beam per winner
+        next_tok = flat % vocab
+        row_idx = (src_beam + offsets).reshape(b * k)
+        if lazy:
+            cache = beam_advance_src(cache, row_idx)
+        else:
+            cache = beam_reorder_cache(cache, row_idx)
+        tok = next_tok.reshape(b * k)
+        toks.append(next_tok)
+        srcs.append(src_beam)
+    if toks:
+        toks, srcs = torch.stack(toks), torch.stack(srcs)
+    else:
+        toks = srcs = first.new_zeros((0, b, k))
+    out = beam_backtrack(first, toks, srcs, scores)
+    best = scores.max(dim=-1).values
+    if length_penalty:
+        best = best / torch.tensor(float(max_new_tokens), device=dev) ** length_penalty
+    return out, best

@@ -77,15 +77,34 @@ class GPTLM(nn.Module):
     def device(self) -> torch.device:
         return self.lm_head.weight.device
 
-    def init_cache(self, batch: int) -> List[KVCache]:
+    def init_cache(self, batch: int, beam_width: Optional[int] = None) -> List[KVCache]:
         """An empty decode cache, one :class:`KVCache` of ``seq_len`` slots
         per layer, for ``batch`` rows; under ``kv_block_tokens`` > 0 one
         :class:`PagedKVCache` pool per layer instead (row-count free, as
-        JAX's paged cache: rows address it through block tables)."""
+        JAX's paged cache: rows address it through block tables).  Under
+        ``kv_cache_dtype="int8"`` either layout holds int8 payloads and
+        fp32 scale stores.
+
+        ``beam_width`` (default ``config.beam_width``) > 1 gives each
+        layer's cache its own ``beam_src`` table, the identity ([batch,
+        seq_len], row r's slots all held by row r), as JAX keeps one per
+        layer; every layer's table is equal by construction.  Decode steps
+        then read through lazy beam attention, ``batch`` rows being
+        ``batch // beam_width`` prompts of ``beam_width`` beams each."""
         cfg = self.config
+        beam_width = cfg.beam_width if beam_width is None else beam_width
         if cfg.kv_block_tokens:
+            if beam_width > 1:
+                raise NotImplementedError(
+                    "paged KV cache under lazy beam search (the beam_src bookkeeping "
+                    "assumes contiguous per-row caches)"
+                )
             return [PagedKVCache.empty(cfg, self.device) for _ in range(cfg.n_layers)]
-        return [KVCache.empty(cfg, batch, self.device) for _ in range(cfg.n_layers)]
+        caches = [KVCache.empty(cfg, batch, self.device) for _ in range(cfg.n_layers)]
+        if beam_width > 1:
+            for c in caches:
+                c.seed_beam_src(beam_width)
+        return caches
 
     def forward(self, tokens, positions=None, segment_ids=None, decode: bool = False,
                 hidden_only: bool = False, cache: Optional[List[KVCache]] = None,

@@ -18,7 +18,7 @@ import contextlib
 import dataclasses
 import functools
 import threading
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -29,6 +29,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from tpu_parallel_torch.models.quantize import absmax_int8
 from tpu_parallel_torch.ops.flash_attention import FLASH_FWD_OP, flash_attention
 
 # (field, default, what setting it would need) — fields this slice does not
@@ -38,14 +39,13 @@ _UNSUPPORTED = (
     ("norm", "layernorm", "RMSNorm"),
     ("prenorm", True, "post-norm blocks"),
     ("embed_norm", False, "an embedding LayerNorm"),
-    ("kv_cache_dtype", "bf16", "the int8 KV cache"),
-    ("beam_width", 0, "lazy beam search"),
     ("bidirectional", False, "bidirectional attention"),
     ("moe_experts", 0, "mixture of experts"),
     ("dropout_rate", 0.0, "dropout (training)"),
     ("fsdp", False, "FSDP"),
 )
 _MLPS = ("gelu", "gelu_exact", "relu")
+_KV_CACHE_DTYPES = ("bf16", "int8")
 _ATTN_IMPLS = ("xla", "flash")
 # remat_policy -> the checkpoint names whose values the backward keeps
 # ("full": none, so every block recomputes its whole forward)
@@ -71,7 +71,12 @@ class TransformerConfig:
     makes :meth:`GPTLM.init_cache` return the block-paged cache
     (:class:`PagedKVCache`, ``kv_pool_blocks`` blocks of
     ``kv_block_tokens`` positions per layer) that the serving engine
-    addresses through block tables.
+    addresses through block tables.  ``kv_cache_dtype="int8"`` stores the
+    cache's K/V as int8 with one fp32 scale per (position, kv-head)
+    (``"bf16"``, the default, stores them in ``dtype``).  ``beam_width`` > 1
+    makes :meth:`GPTLM.init_cache` give each layer's cache a ``beam_src``
+    table, so decoding reads it through :func:`beam_decode_attention`
+    (lazy beam search; ``models/generate.py:generate_beam``).
     """
 
     vocab_size: int = 50304
@@ -129,6 +134,8 @@ class TransformerConfig:
                     f"{field}={getattr(self, field)!r} needs {needs}, which the "
                     "PyTorch port does not have yet"
                 )
+        if self.kv_cache_dtype not in _KV_CACHE_DTYPES:
+            raise ValueError(f"kv_cache_dtype={self.kv_cache_dtype!r} (bf16 | int8)")
         if self.mlp not in _MLPS:
             raise NotImplementedError(f"mlp={self.mlp!r}: the port has {_MLPS}")
         if self.attn_impl not in _ATTN_IMPLS:
@@ -264,7 +271,7 @@ def causal_attention(q, k, v, *, segment_ids=None, window: int = 0,
 
 
 def decode_attention(q, k_heads, v_heads, positions, window: int = 0,
-                     k_positions=None) -> torch.Tensor:
+                     k_positions=None, k_scale=None, v_scale=None) -> torch.Tensor:
     """New queries against a whole KV cache, GQA-native.
 
     ``q`` [batch, new_len, heads, head_dim] at global ``positions``
@@ -277,6 +284,15 @@ def decode_attention(q, k_heads, v_heads, positions, window: int = 0,
     visible when ``0 <= kp <= qp`` (and ``qp - kp < window``).  The math
     is JAX's ``decode_attention``: scaled q in its dtype, fp32 scores and
     softmax, probabilities back in q's dtype.
+
+    ``k_scale``/``v_scale`` [kv_heads, batch, cache_len, 1] switch to the
+    int8-native read: ``k_heads``/``v_heads`` are the raw int8 payloads and
+    the per-(position, kv-head) scales fold into the surrounding products,
+    in JAX's order: the K scales multiply the fp32 scores after the q.k
+    product, the V scales the fp32 probabilities before one rounding to q's
+    dtype.  ``torch.bmm`` takes no int8 operand, so each payload is cast to
+    q's dtype first (exact: |int8| <= 127 fits bf16's significand), a
+    transient cache-sized copy per payload that XLA fuses into the product.
     """
     b, nq, h, head_dim = q.shape
     h_kv, _, cache_len, _ = k_heads.shape
@@ -287,7 +303,11 @@ def decode_attention(q, k_heads, v_heads, positions, window: int = 0,
         h_kv * b, group * nq, head_dim)
     k = k_heads.view(h_kv * b, cache_len, head_dim)
     v = v_heads.view(h_kv * b, cache_len, head_dim)
+    if k_scale is not None:
+        k = k.to(q.dtype)
     scores = torch.bmm(qh, k.transpose(1, 2)).float().view(h_kv, b, group, nq, cache_len)
+    if k_scale is not None:
+        scores = scores * k_scale.view(h_kv, b, 1, 1, cache_len)
     if k_positions is None:
         k_positions = torch.arange(cache_len, device=q.device).expand(b, -1)
     kp = k_positions[None, :, None, None, :]
@@ -297,22 +317,121 @@ def decode_attention(q, k_heads, v_heads, positions, window: int = 0,
         mask = mask & (qp - kp < window)
     scores = scores.masked_fill(~mask, torch.finfo(torch.float32).min)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    if v_scale is not None:
+        # fp32 multiply, one rounding back to q's dtype, as JAX folds them
+        probs = (probs.float() * v_scale.view(h_kv, b, 1, 1, cache_len)).to(q.dtype)
+        v = v.to(q.dtype)
     out = torch.bmm(probs.view(h_kv * b, group * nq, cache_len), v)
     return out.view(h_kv, b, group, nq, head_dim).permute(1, 3, 0, 2, 4).reshape(
         b, nq, h, head_dim)
 
 
-class KVCache:
+def beam_decode_attention(q, k_heads, v_heads, positions, beam_src, num_beams: int,
+                          window: int = 0, k_positions=None) -> torch.Tensor:
+    """Decode attention against an UN-reordered beam-search KV cache.
+
+    Rows are beam-major: beam j of prompt i is row ``i * num_beams + j``.
+    ``beam_src`` [rows, cache_len] names, per row and cache slot, the row
+    (within the same prompt's beam group) whose cache physically holds that
+    slot of this beam's history.  Scores are computed all-pairs over the
+    group's ``num_beams`` rows and the right pair is selected per slot; on
+    the value side each row's probabilities are bucketed by source beam
+    (a one-hot over it) and contracted all-pairs.  The cache is read once
+    and never gathered.  Shapes as :func:`decode_attention` (``k_heads``/
+    ``v_heads`` [kv_heads, rows, cache_len, head_dim]); the math is JAX's
+    ``beam_decode_attention``.
+    """
+    rows, nq, h, head_dim = q.shape
+    kb = num_beams
+    b = rows // kb
+    if b * kb != rows:
+        raise ValueError(f"rows={rows} not divisible by num_beams={kb}")
+    h_kv, _, cache_len, _ = k_heads.shape
+    group = h // h_kv
+    scale = _inv_sqrt_head_dim(head_dim, q.dtype)
+    # queries as [kv_heads, prompt, (beam, group, new_len), head_dim] against
+    # each prompt's whole beam group of keys [(beam', slot)]
+    qh = (q.reshape(b, kb, nq, h_kv, group, head_dim).permute(3, 0, 1, 4, 2, 5)
+          * scale).reshape(h_kv * b, kb * group * nq, head_dim)
+    k = k_heads.reshape(h_kv * b, kb * cache_len, head_dim)
+    # all-pairs scores [kv_heads, b, j, group, q, j', slot]
+    scores = torch.bmm(qh, k.transpose(1, 2)).float().view(
+        h_kv, b, kb, group, nq, kb, cache_len)
+    src = (beam_src.reshape(b, kb, cache_len) % kb).long()  # [b, j, slot]
+    idx = src[None, :, :, None, None, None, :].expand(h_kv, b, kb, group, nq, 1, cache_len)
+    sel = scores.gather(5, idx).squeeze(5)  # [kv_heads, b, j, group, q, slot]
+    if k_positions is None:
+        k_positions = torch.arange(cache_len, device=q.device).expand(rows, -1)
+    kp = k_positions.reshape(b, kb, cache_len)[None, :, :, None, None, :]
+    qp = positions.reshape(b, kb, nq)[None, :, :, None, :, None]
+    mask = (kp >= 0) & (kp <= qp)
+    if window:
+        mask = mask & (qp - kp < window)
+    sel = sel.masked_fill(~mask, torch.finfo(torch.float32).min)
+    probs = torch.softmax(sel, dim=-1).to(q.dtype)
+    onehot = F.one_hot(src, kb).to(q.dtype).permute(0, 1, 3, 2)  # [b, j, j', slot]
+    pm = probs[:, :, :, :, :, None, :] * onehot[None, :, :, None, None, :, :]
+    out = torch.bmm(pm.reshape(h_kv * b, kb * group * nq, kb * cache_len),
+                    v_heads.reshape(h_kv * b, kb * cache_len, head_dim))
+    return out.view(h_kv, b, kb, group, nq, head_dim).permute(1, 2, 4, 0, 3, 5).reshape(
+        rows, nq, h, head_dim)
+
+
+def _kv_entries(quantized: bool, k, v):
+    """What one write stores, in :attr:`KVCache.stores` order: ``[k, v]``,
+    or under the int8 cache ``[k_q, v_q, k_scale, v_scale]``
+    (:func:`absmax_int8` over head_dim: one fp32 scale per (position,
+    kv-head)).  Each [batch, t, kv_heads, head_dim or 1]."""
+    if not quantized:
+        return [k, v]
+    kq, ks = absmax_int8(k, axis=-1)
+    vq, vs = absmax_int8(v, axis=-1)
+    return [kq, vq, ks, vs]
+
+
+# the int8 stores' keyword names, in ``stores`` order
+_SCALE_FIELDS = ("key_scale_store", "value_scale_store")
+
+
+class _KVStores:
+    """What both cache layouts share: the payload stores and, under the
+    int8 cache, their scale stores."""
+
+    key_store: torch.Tensor
+    value_store: torch.Tensor
+    key_scale_store: Optional[torch.Tensor]
+    value_scale_store: Optional[torch.Tensor]
+    beam_src: Optional[torch.Tensor] = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.key_scale_store is not None
+
+    @property
+    def stores(self) -> List[torch.Tensor]:
+        """Every head-major store: K, V, then the int8 cache's K and V
+        scales."""
+        out = [self.key_store, self.value_store]
+        if self.quantized:
+            out += [self.key_scale_store, self.value_scale_store]
+        return out
+
+
+class KVCache(_KVStores):
     """One attention layer's contiguous decode cache (the JAX ``cache``
     collection's ``cached_key``/``cached_value``/``cached_pos``/
-    ``cache_index``).  :class:`Attention` updates it IN PLACE, either at
-    the scalar slot ``index`` (which it then advances) or, under
+    ``cache_index``, and under the int8 cache ``cached_key_scale``/
+    ``cached_value_scale``).  :class:`Attention` updates it IN PLACE,
+    either at the scalar slot ``index`` (which it then advances) or, under
     ``write_index``, at each row's own column.
 
     Storage is head-major: ``key_store``/``value_store`` hold
     ``[kv_heads, batch, seq_len, head_dim]`` flattened to rows of
     ``head_dim``, plus one scratch row at the end; ``pos_store`` holds
-    ``[batch, seq_len]`` flattened, plus one scratch entry.
+    ``[batch, seq_len]`` flattened, plus one scratch entry.  The int8 cache
+    keeps int8 payloads and ``key_scale_store``/``value_scale_store``, fp32
+    rows of width 1 laid out as the payloads (None for the bf16 cache);
+    :attr:`stores` lists every head-major store, payloads first.
     :attr:`key_heads`/:attr:`value_heads` are the contiguous
     ``[kv_heads, batch, seq_len, head_dim]`` views :func:`decode_attention`
     reads as they lie; :attr:`key`, :attr:`value` ([batch, seq_len,
@@ -323,40 +442,62 @@ class KVCache:
     out-of-range targets; an out-of-range ``index_put_`` would raise, and
     clamping would overwrite a valid boundary column).  Storage never
     moves, so a captured CUDA graph can write it.
+
+    Lazy beam search gives the cache ``beam_src`` [batch, seq_len] int32
+    and ``num_beams``: the row whose cache holds each slot of each row's
+    beam history (JAX keeps the same table per layer).  Attention then
+    reads through :func:`beam_decode_attention`.
     """
 
     def __init__(self, key_store: torch.Tensor, value_store: torch.Tensor,
-                 pos_store: torch.Tensor, batch: int, index: int = 0):
+                 pos_store: torch.Tensor, batch: int, index: int = 0,
+                 key_scale_store: Optional[torch.Tensor] = None,
+                 value_scale_store: Optional[torch.Tensor] = None):
         self.key_store = key_store  # [kv_heads * batch * seq_len + 1, head_dim]
         self.value_store = value_store
+        self.key_scale_store = key_scale_store  # [kv_heads * batch * seq_len + 1, 1] fp32
+        self.value_scale_store = value_scale_store
         self.pos_store = pos_store  # [batch * seq_len + 1] int32; -1 = empty slot
         self.batch = batch
         self.index = index
+        self.beam_src: Optional[torch.Tensor] = None
+        self.num_beams = 0
 
     @classmethod
     def empty(cls, config: TransformerConfig, batch: int, device) -> "KVCache":
         n_kv = config.n_kv_heads or config.n_heads
         rows = n_kv * batch * config.seq_len + 1
+        int8 = config.kv_cache_dtype == "int8"
+        payload = torch.int8 if int8 else config.dtype
+        scales = {f: torch.zeros(rows, 1, dtype=torch.float32, device=device)
+                  for f in _SCALE_FIELDS} if int8 else {}
         return cls(
-            key_store=torch.zeros(rows, config.head_dim, dtype=config.dtype, device=device),
-            value_store=torch.zeros(rows, config.head_dim, dtype=config.dtype, device=device),
+            key_store=torch.zeros(rows, config.head_dim, dtype=payload, device=device),
+            value_store=torch.zeros(rows, config.head_dim, dtype=payload, device=device),
             pos_store=torch.full((batch * config.seq_len + 1,), -1, dtype=torch.int32,
                                  device=device),
-            batch=batch,
+            batch=batch, **scales,
         )
 
     @classmethod
-    def from_heads(cls, key_heads, value_heads, pos) -> "KVCache":
-        """A new cache holding copies of ``key_heads``/``value_heads``
-        [kv_heads, batch, seq_len, head_dim] and ``pos`` [batch, seq_len]."""
-        n_kv, batch, seq_len, head_dim = key_heads.shape
-        cache = cls(
-            key_store=key_heads.new_zeros(n_kv * batch * seq_len + 1, head_dim),
-            value_store=value_heads.new_zeros(n_kv * batch * seq_len + 1, head_dim),
-            pos_store=pos.new_full((batch * seq_len + 1,), -1), batch=batch,
-        )
-        cache.key_heads.copy_(key_heads)
-        cache.value_heads.copy_(value_heads)
+    def _allocate(cls, like: Sequence[torch.Tensor], n_kv: int, batch: int, seq_len: int,
+                  pos_like: torch.Tensor, index: int = 0) -> "KVCache":
+        """A zeroed cache of ``batch`` rows (positions -1) whose stores take
+        the widths, dtypes and device of ``like`` (K, V, then any scales)."""
+        stores = [s.new_zeros(n_kv * batch * seq_len + 1, s.shape[-1]) for s in like]
+        return cls(*stores[:2], pos_store=pos_like.new_full((batch * seq_len + 1,), -1),
+                   batch=batch, index=index, **dict(zip(_SCALE_FIELDS, stores[2:])))
+
+    @classmethod
+    def from_heads(cls, heads: Sequence[torch.Tensor], pos, index: int = 0) -> "KVCache":
+        """A new cache holding copies of ``heads`` (the :attr:`stores`'
+        head-major views, each [kv_heads, batch, seq_len, width]: K and V,
+        then the int8 cache's K and V scales) and ``pos`` [batch,
+        seq_len]."""
+        n_kv, batch, seq_len, _ = heads[0].shape
+        cache = cls._allocate(heads, n_kv, batch, seq_len, pos, index)
+        for dst, src in zip(cache.heads(), heads):
+            dst.copy_(src)
         cache.pos.copy_(pos)
         return cache
 
@@ -366,6 +507,10 @@ class KVCache:
 
     def _heads(self, store: torch.Tensor) -> torch.Tensor:
         return store[:-1].view(-1, self.batch, self.seq_len, store.shape[-1])
+
+    def heads(self) -> List[torch.Tensor]:
+        """The [kv_heads, batch, seq_len, width] views of :attr:`stores`."""
+        return [self._heads(s) for s in self.stores]
 
     @property
     def key_heads(self) -> torch.Tensor:
@@ -387,10 +532,30 @@ class KVCache:
     def pos(self) -> torch.Tensor:
         return self.pos_store[:-1].view(self.batch, self.seq_len)
 
+    def take_rows(self, rows: torch.Tensor) -> "KVCache":
+        """A new cache of ``len(rows)`` rows: row i is a copy of this
+        cache's row ``rows[i]`` in every store and the position table (one
+        ``index_select`` each, straight into the new storage); the scalar
+        index is kept, a ``beam_src`` table is not."""
+        new = self._allocate(self.stores, self.key_heads.shape[0], rows.shape[0], self.seq_len,
+                             self.pos_store, self.index)
+        for dst, src in zip(new.heads(), self.heads()):
+            torch.index_select(src, 1, rows, out=dst)
+        torch.index_select(self.pos, 0, rows, out=new.pos)
+        return new
+
+    def seed_beam_src(self, num_beams: int) -> None:
+        """Give the cache an identity ``beam_src`` table (every row holds
+        its own slots: right after a prefill replicated to each beam) for
+        lazy beam search over ``num_beams`` beams per prompt."""
+        rows = torch.arange(self.batch, dtype=torch.int32, device=self.pos_store.device)
+        self.beam_src = rows[:, None].repeat(1, self.seq_len)
+        self.num_beams = num_beams
+
     def write_rows(self, write_index, k, v, positions) -> None:
         """Row ``r``'s ``t`` new entries land at columns ``write_index[r] +
-        [0..t)``; targets outside ``[0, seq_len)`` go to the scratch row
-        (dropped)."""
+        [0..t)`` (quantized first under the int8 cache); targets outside
+        ``[0, seq_len)`` go to the scratch row (dropped)."""
         b, t = positions.shape
         seq_len = self.seq_len
         n_kv = k.shape[2]
@@ -400,39 +565,57 @@ class KVCache:
         self.pos_store.index_put_((slots,), positions.to(torch.int32))
         heads = torch.arange(n_kv, device=k.device)[:, None, None] * (b * seq_len)
         rows = (heads + slots).masked_fill(slots == b * seq_len, n_kv * b * seq_len)  # [h, b, t]
-        self.key_store.index_put_((rows,), k.permute(2, 0, 1, 3).to(self.key_store.dtype))
-        self.value_store.index_put_((rows,), v.permute(2, 0, 1, 3).to(self.value_store.dtype))
+        for store, new in zip(self.stores, _kv_entries(self.quantized, k, v)):
+            store.index_put_((rows,), new.permute(2, 0, 1, 3).to(store.dtype))
+
+    def write_at(self, index: int, k, v, positions) -> None:
+        """Every row's ``t`` new entries at columns ``index + [0..t)`` (the
+        scalar-index write of a plain decode loop; the caller checks the
+        range)."""
+        t = positions.shape[1]
+        for view, new in zip(self.heads(), _kv_entries(self.quantized, k, v)):
+            view[:, :, index:index + t] = new.permute(2, 0, 1, 3)
+        self.pos[:, index:index + t] = positions
 
     def read(self, block_table=None):
-        """(key_heads, value_heads, pos): what :func:`decode_attention`
-        reads, views of the storage (no copy)."""
-        return self.key_heads, self.value_heads, self.pos
+        """(key_heads, value_heads, pos, key_scale, value_scale): what
+        :func:`decode_attention` reads, views of the storage (no copy);
+        the scales are None for the bf16 cache."""
+        k, v, *scales = self.heads()
+        return (k, v, self.pos, *(scales or (None, None)))
 
 
-class PagedKVCache:
+class PagedKVCache(_KVStores):
     """One attention layer's block-paged decode cache (JAX's paged
     ``cached_key``/``cached_value``/``cached_pos`` of
-    ``[kv_pool_blocks, kv_block_tokens, ...]``): a pool of fixed-size
+    ``[kv_pool_blocks, kv_block_tokens, ...]``, and the int8 cache's
+    ``cached_key_scale``/``cached_value_scale``): a pool of fixed-size
     blocks that rows address through a block table ``[batch,
     seq_len // kv_block_tokens]`` (-1 = unmapped).
 
     Storage is head-major: ``key_store``/``value_store``
-    ``[kv_heads, n_blocks + 1, block_tokens, head_dim]``, ``pos_store``
-    ``[n_blocks + 1, block_tokens]``.  Block ``n_blocks`` is scratch: a
-    write through an unmapped entry, or at a column beyond the table, lands
-    there (JAX drops it out of range).  :meth:`read` gathers each row's
-    blocks along the block axis into a contiguous ``[kv_heads, batch,
-    seq_len, head_dim]`` (one copy per payload, the gather itself) — the
-    same layout the contiguous cache's read views have, so both layouts
-    run the same batched products on the same strides.  :attr:`key`,
-    :attr:`value` ([n_blocks, block_tokens, kv_heads, head_dim]) and
-    :attr:`pos` are logical views without the scratch block.
+    ``[kv_heads, n_blocks + 1, block_tokens, head_dim]`` (int8 under the
+    int8 cache, with fp32 ``key_scale_store``/``value_scale_store`` of
+    width 1 beside them), ``pos_store`` ``[n_blocks + 1, block_tokens]``.
+    Block ``n_blocks`` is scratch: a write through an unmapped entry, or
+    at a column beyond the table, lands there (JAX drops it out of range).
+    :meth:`read` gathers each row's blocks along the block axis into a
+    contiguous ``[kv_heads, batch, seq_len, width]`` (one copy per store,
+    the gather itself) — the same layout the contiguous cache's read views
+    have, so both layouts run the same batched products on the same
+    strides.  :attr:`key`, :attr:`value` ([n_blocks, block_tokens,
+    kv_heads, head_dim]) and :attr:`pos` are logical views without the
+    scratch block.
     """
 
     def __init__(self, key_store: torch.Tensor, value_store: torch.Tensor,
-                 pos_store: torch.Tensor, index: int = 0):
+                 pos_store: torch.Tensor, index: int = 0,
+                 key_scale_store: Optional[torch.Tensor] = None,
+                 value_scale_store: Optional[torch.Tensor] = None):
         self.key_store = key_store
         self.value_store = value_store
+        self.key_scale_store = key_scale_store
+        self.value_scale_store = value_scale_store
         self.pos_store = pos_store
         self.index = index
 
@@ -440,10 +623,15 @@ class PagedKVCache:
     def empty(cls, config: TransformerConfig, device) -> "PagedKVCache":
         n_kv = config.n_kv_heads or config.n_heads
         shape = (n_kv, config.kv_pool_blocks + 1, config.kv_block_tokens, config.head_dim)
+        int8 = config.kv_cache_dtype == "int8"
+        payload = torch.int8 if int8 else config.dtype
+        scales = {f: torch.zeros(shape[:3] + (1,), dtype=torch.float32, device=device)
+                  for f in _SCALE_FIELDS} if int8 else {}
         return cls(
-            key_store=torch.zeros(shape, dtype=config.dtype, device=device),
-            value_store=torch.zeros(shape, dtype=config.dtype, device=device),
+            key_store=torch.zeros(shape, dtype=payload, device=device),
+            value_store=torch.zeros(shape, dtype=payload, device=device),
             pos_store=torch.full(shape[1:3], -1, dtype=torch.int32, device=device),
+            **scales,
         )
 
     @property
@@ -469,8 +657,9 @@ class PagedKVCache:
     def write_rows(self, block_table, write_index, k, v, positions) -> None:
         """Row ``r``'s ``t`` new entries land at logical columns
         ``write_index[r] + [0..t)``, physically at ``table[r, col // bt] *
-        bt + col % bt``; unmapped entries and columns beyond the table go
-        to the scratch block (dropped)."""
+        bt + col % bt`` (quantized first under the int8 cache); unmapped
+        entries and columns beyond the table go to the scratch block
+        (dropped)."""
         t = positions.shape[1]
         bt = self.block_tokens
         cols = write_index.to(torch.long)[:, None] + torch.arange(t, device=k.device)[None, :]
@@ -480,22 +669,23 @@ class PagedKVCache:
         phys = phys.masked_fill(~ok | (phys < 0), self.n_blocks)
         off = cols % bt
         self.pos_store[phys, off] = positions.to(torch.int32)
-        self.key_store[:, phys, off] = k.permute(2, 0, 1, 3).to(self.key_store.dtype)
-        self.value_store[:, phys, off] = v.permute(2, 0, 1, 3).to(self.value_store.dtype)
+        for store, new in zip(self.stores, _kv_entries(self.quantized, k, v)):
+            store[:, phys, off] = new.permute(2, 0, 1, 3).to(store.dtype)
 
     def read(self, block_table):
-        """(key_heads, value_heads, pos) of each row's logical view: one
-        gather per payload along the block axis by the flattened table
-        (unmapped entries gather block 0 and read position -1)."""
+        """(key_heads, value_heads, pos, key_scale, value_scale) of each
+        row's logical view: one gather per store along the block axis by
+        the flattened table (unmapped entries gather block 0 and read
+        position -1); the scales are None for the bf16 cache."""
         b, width = block_table.shape
         bt = self.block_tokens
         flat = block_table.to(torch.long).clamp(min=0).reshape(-1)
-        n_kv, head_dim = self.key_store.shape[0], self.key_store.shape[-1]
-        k = self.key_store.index_select(1, flat).view(n_kv, b, width * bt, head_dim)
-        v = self.value_store.index_select(1, flat).view(n_kv, b, width * bt, head_dim)
+        n_kv = self.key_store.shape[0]
+        k, v, *scales = [s.index_select(1, flat).view(n_kv, b, width * bt, s.shape[-1])
+                         for s in self.stores]
         pos = self.pos_store.index_select(0, flat).view(b, width * bt)
         mapped = (block_table >= 0)[:, :, None].expand(b, width, bt).reshape(b, width * bt)
-        return k, v, pos.masked_fill(~mapped, -1)
+        return (k, v, pos.masked_fill(~mapped, -1), *(scales or (None, None)))
 
 
 class Attention(nn.Module):
@@ -543,6 +733,12 @@ class Attention(nn.Module):
             idx = cache.index
             if positions is None:
                 positions = (idx + torch.arange(t, device=x.device)).expand(b, t)
+            if cache.beam_src is not None and (write_index is not None
+                                               or block_table is not None):
+                raise NotImplementedError(
+                    "lazy beam search writes at the shared scalar cache index of a "
+                    "contiguous cache (no write_index, no paged cache)"
+                )
             if isinstance(cache, PagedKVCache):
                 if block_table is None or write_index is None:
                     raise ValueError(
@@ -565,17 +761,32 @@ class Attention(nn.Module):
                     raise ValueError(
                         f"cache overflow: writing {t} tokens at slot {idx} of {cfg.seq_len}"
                     )
-                cache.key[:, idx:idx + t] = k
-                cache.value[:, idx:idx + t] = v
-                cache.pos[:, idx:idx + t] = positions
+                cache.write_at(idx, k, v, positions)
             cache.index = idx + t
             # both layouts hand decode_attention a contiguous
             # [kv_heads, batch, seq_len, head_dim]: the contiguous cache's
-            # views, or the paged cache's one gather per payload
-            k_heads, v_heads, k_pos = cache.read(block_table)
-            out = decode_attention(
-                q, k_heads, v_heads, positions, window=cfg.attn_window, k_positions=k_pos,
-            )
+            # views, or the paged cache's one gather per store
+            k_heads, v_heads, k_pos, k_scale, v_scale = cache.read(block_table)
+            if cache.beam_src is not None:
+                # lazy beam search: every slot this step writes maps to the
+                # writing row (the beam loop row-gathers the table by the
+                # winners' parents after each top-k)
+                cache.beam_src[:, idx:idx + t] = torch.arange(
+                    b, dtype=cache.beam_src.dtype, device=x.device)[:, None]
+                if k_scale is not None:
+                    # the cross-beam read has no scale fold: a transient
+                    # dequantized copy, as JAX keeps on this path
+                    k_heads = (k_heads.float() * k_scale).to(cfg.dtype)
+                    v_heads = (v_heads.float() * v_scale).to(cfg.dtype)
+                out = beam_decode_attention(
+                    q, k_heads, v_heads, positions, cache.beam_src, cache.num_beams,
+                    window=cfg.attn_window, k_positions=k_pos,
+                )
+            else:
+                out = decode_attention(
+                    q, k_heads, v_heads, positions, window=cfg.attn_window, k_positions=k_pos,
+                    k_scale=k_scale, v_scale=v_scale,
+                )
         else:
             out = self._attend(q, k, v, segment_ids)
         with checkpoint_name("proj"):

@@ -39,9 +39,12 @@ arrays in the JAX package's layout, not the port's: one array per JAX
 cache leaf in flax's flatten order, block dim first (scanned configs:
 ``cached_key [k, n_layers, block_tokens, kv_heads, head_dim]``,
 ``cached_pos [k, n_layers, block_tokens]``, ``cached_value``; unrolled:
-the three per layer, layers in the order their names ``layer_<i>`` sort).
-So checksums, wire frames and disk blobs are byte-identical across the two
-packages.  A bf16 leaf travels as its raw bits (:data:`BFLOAT16_BITS`).
+the three per layer, layers in the order their names ``layer_<i>`` sort;
+the int8 cache adds ``cached_key_scale`` after ``cached_key`` and
+``cached_value_scale`` after ``cached_value``, ``[..., kv_heads, 1]``
+fp32).  So checksums, wire frames and disk blobs are byte-identical across
+the two packages.  A bf16 leaf travels as its raw bits
+(:data:`BFLOAT16_BITS`).
 """
 
 from __future__ import annotations
@@ -108,8 +111,8 @@ def insert_rows(pool_cache: List[KVCache], fresh_cache: List[KVCache], slot: int
     place.  The scalar ``index`` keeps the pool's value: the engine drives
     decode with explicit positions and ``write_index``."""
     for pool, fresh in zip(pool_cache, fresh_cache):
-        pool.key_heads[:, slot].copy_(fresh.key_heads[:, 0])
-        pool.value_heads[:, slot].copy_(fresh.value_heads[:, 0])
+        for dst, src in zip(pool.heads(), fresh.heads()):
+            dst[:, slot].copy_(src[:, 0])
         pool.pos[slot].copy_(fresh.pos[0])
 
 
@@ -128,8 +131,8 @@ def scatter_rows(pool_cache: List[KVCache], fresh_cache: List[KVCache],
     rows = torch.tensor([i for i, _ in keep], dtype=torch.long, device=device)
     dst = torch.tensor([s for _, s in keep], dtype=torch.long, device=device)
     for pool, fresh in zip(pool_cache, fresh_cache):
-        pool.key_heads.index_copy_(1, dst, fresh.key_heads.index_select(1, rows))
-        pool.value_heads.index_copy_(1, dst, fresh.value_heads.index_select(1, rows))
+        for to, src in zip(pool.heads(), fresh.heads()):
+            to.index_copy_(1, dst, src.index_select(1, rows))
         pool.pos.index_copy_(0, dst, fresh.pos.index_select(0, rows))
 
 
@@ -138,8 +141,7 @@ def extract_rows(pool_cache: List[KVCache], slot: int, n: int = 1) -> List[KVCac
     cache in the model's own layout (the prefix cache's capture path and
     the chunked prefill's read side)."""
     return [
-        KVCache.from_heads(c.key_heads[:, slot:slot + n], c.value_heads[:, slot:slot + n],
-                           c.pos[slot:slot + n])
+        KVCache.from_heads([h[:, slot:slot + n] for h in c.heads()], c.pos[slot:slot + n])
         for c in pool_cache
     ]
 
@@ -161,8 +163,8 @@ def copy_prefix_rows(pool_cache: List[KVCache], prefix_cache: List[KVCache], slo
     the slot's previous occupant.  Cached K/V is a function of (token,
     position, weights) only, so the copy equals recomputing the prefix."""
     for pool, prefix in zip(pool_cache, prefix_cache):
-        pool.key_heads[:, slot].copy_(prefix.key_heads[:, 0])
-        pool.value_heads[:, slot].copy_(prefix.value_heads[:, 0])
+        for dst, src in zip(pool.heads(), prefix.heads()):
+            dst[:, slot].copy_(src[:, 0])
         pool.pos[slot].copy_(_valid_prefix(prefix.pos[0], length))
 
 
@@ -173,8 +175,7 @@ def stack_prefix_rows(rows: Sequence[List[KVCache]], length: int) -> List[KVCach
     padded model call."""
     return [
         KVCache.from_heads(
-            torch.cat([c.key_heads for c in layer], dim=1),
-            torch.cat([c.value_heads for c in layer], dim=1),
+            [torch.cat(heads, dim=1) for heads in zip(*(c.heads() for c in layer))],
             _valid_prefix(torch.cat([c.pos for c in layer]), length),
         )
         for layer in zip(*rows)
@@ -301,8 +302,8 @@ def copy_block(pool_cache: List[PagedKVCache], src: int, dst: int) -> None:
     the same LOGICAL block index into every sharer's table, so the stored
     global positions are already right for the copy."""
     for c in pool_cache:
-        c.key_store[:, dst].copy_(c.key_store[:, src])
-        c.value_store[:, dst].copy_(c.value_store[:, src])
+        for store in c.stores:
+            store[:, dst].copy_(store[:, src])
         c.pos_store[dst].copy_(c.pos_store[src])
 
 
@@ -438,11 +439,11 @@ class PagedCachePool:
         if block_fns is None:
             block_fns = default_block_fns()
         self._free_pos, self._copy_block = block_fns
-        # bytes of ONE block across every layer's payloads and positions:
-        # the capacity denominator behind kv_bytes_per_active_token
+        # bytes of ONE block across every layer's stores (payloads, int8
+        # scales) and positions: the capacity denominator behind
+        # kv_bytes_per_active_token
         c = self.cache[0]
-        per_block = (c.key_store[:, 0].nbytes + c.value_store[:, 0].nbytes
-                     + c.pos_store[0].nbytes)
+        per_block = sum(s[:, 0].nbytes for s in c.stores) + c.pos_store[0].nbytes
         self.bytes_per_block = per_block * cfg.n_layers
 
     # -- slot lifecycle ----------------------------------------------------
@@ -593,6 +594,15 @@ class PagedCachePool:
 
     # -- block export / import (host offload tier + cross-replica migration)
 
+    def _leaf_names(self):
+        """The JAX cache leaves of one layer, in flax's flatten order (sorted
+        names): the int8 cache adds ``cached_key_scale`` and
+        ``cached_value_scale``."""
+        if self.cache[0].quantized:
+            return ("cached_key", "cached_key_scale", "cached_pos", "cached_value",
+                    "cached_value_scale")
+        return ("cached_key", "cached_pos", "cached_value")
+
     @property
     def export_meta(self):
         """Shape signature of one exported block: ``(leaf name, per-block
@@ -601,17 +611,15 @@ class PagedCachePool:
         compare before landing foreign payloads: a different model config
         must refuse, not scribble)."""
         c = self.cache[0]
-        kv_heads, _, bt, head_dim = c.key_store.shape
-        kv_dtype = str(c.key_store.dtype).removeprefix("torch.")
-        payload, pos = (bt, kv_heads, head_dim), (bt,)
-        groups = 1
-        if self._scanned:
-            payload, pos = (len(self.cache),) + payload, (len(self.cache),) + pos
-        else:
-            groups = len(self.cache)
-        leaves = (("cached_key", payload, kv_dtype), ("cached_pos", pos, "int32"),
-                  ("cached_value", payload, kv_dtype))
-        return leaves * groups
+        kv_heads, _, bt = c.key_store.shape[:3]
+        leaves = []
+        for name in self._leaf_names():
+            store = getattr(c, _LEAF_STORES[name])
+            shape = (bt,) if name == "cached_pos" else (bt, kv_heads, store.shape[-1])
+            if self._scanned:
+                shape = (len(self.cache),) + shape
+            leaves.append((name, shape, str(store.dtype).removeprefix("torch.")))
+        return tuple(leaves) * (1 if self._scanned else len(self.cache))
 
     def _exchange_layout(self, k: int):
         """Where the exported leaves of ``k`` blocks lie in one flat byte
@@ -620,7 +628,7 @@ class PagedCachePool:
         size."""
         layout, off = [], 0
         for name, shape, _ in self.export_meta:
-            dtype = torch.int32 if name == "cached_pos" else self.cache[0].key_store.dtype
+            dtype = getattr(self.cache[0], _LEAF_STORES[name]).dtype
             nbytes = k * int(np.prod(shape)) * dtype.itemsize
             layout.append((off, nbytes, dtype, (k,) + shape))
             off += -(-nbytes // 16) * 16
@@ -640,13 +648,20 @@ class PagedCachePool:
         return list(range(n)) if self._scanned else sorted(range(n), key=lambda i: f"layer_{i}")
 
     def _leaf_layer_views(self, views: List[torch.Tensor]):
-        """(layer, key, pos, value) per layer: each layer's slice of the
-        exported leaves, ``[k, block_tokens, kv_heads, head_dim]`` and
-        ``[k, block_tokens]``."""
-        if self._scanned:
-            key, pos, value = views
-            return [(i, key[:, i], pos[:, i], value[:, i]) for i in range(len(self.cache))]
-        return [(layer, *views[3 * j:3 * j + 3]) for j, layer in enumerate(self._layer_order())]
+        """``(layer store, leaf view)`` pairs: each layer's slice of each
+        exported leaf (``[k, block_tokens, kv_heads, width]``, positions
+        ``[k, block_tokens]``) beside the pool store it mirrors."""
+        names = self._leaf_names()
+        pairs = []
+        for j, layer in enumerate(self._layer_order()):
+            c = self.cache[layer]
+            if self._scanned:
+                leaf_views = [v[:, layer] for v in views]
+            else:
+                leaf_views = views[len(names) * j:len(names) * (j + 1)]
+            pairs += [(getattr(c, _LEAF_STORES[name]), view)
+                      for name, view in zip(names, leaf_views)]
+        return pairs
 
     def export_blocks(self, blocks):
         """Copy physical ``blocks``' K/V and positions to HOST memory in the
@@ -672,11 +687,11 @@ class PagedCachePool:
             idx = torch.as_tensor(chunk, dtype=torch.long, device=dev)
             staging = torch.empty(self._exchange_layout(k)[1], dtype=torch.uint8, device=dev)
             views = self._exchange_views(staging, k)
-            for layer, key, pos, value in self._leaf_layer_views(views):
-                c = self.cache[layer]
-                key.copy_(c.key_store.index_select(1, idx).permute(1, 2, 0, 3))
-                value.copy_(c.value_store.index_select(1, idx).permute(1, 2, 0, 3))
-                pos.copy_(c.pos_store.index_select(0, idx))
+            for store, view in self._leaf_layer_views(views):
+                if view.dim() == 2:  # positions: [k, block_tokens]
+                    view.copy_(store.index_select(0, idx))
+                else:
+                    view.copy_(store.index_select(1, idx).permute(1, 2, 0, 3))
             host = staging
             if cuda:
                 host = torch.empty(staging.shape, dtype=torch.uint8, pin_memory=True)
@@ -714,11 +729,11 @@ class PagedCachePool:
             _host_numpy(view)[...] = row[:k].view(_numpy_dtype(view.dtype))
         staging = host.to(dev, non_blocking=True) if cuda else host
         idx = torch.as_tensor([int(b) for b in blocks], dtype=torch.long, device=dev)
-        for layer, key, pos, value in self._leaf_layer_views(self._exchange_views(staging, k)):
-            c = self.cache[layer]
-            c.key_store.index_copy_(1, idx, key.permute(2, 0, 1, 3))
-            c.value_store.index_copy_(1, idx, value.permute(2, 0, 1, 3))
-            c.pos_store.index_copy_(0, idx, pos)
+        for store, view in self._leaf_layer_views(self._exchange_views(staging, k)):
+            if view.dim() == 2:  # positions
+                store.index_copy_(0, idx, view)
+            else:
+                store.index_copy_(1, idx, view.permute(2, 0, 1, 3))
 
     def import_stored(self, rows, count: int, checksums=None):
         """Allocate ``count`` fresh blocks — each with refcount 1, the
@@ -771,6 +786,14 @@ class PagedCachePool:
                 f"slot {slot} paged position table misaligned in layer {layer} at columns "
                 f"{np.nonzero(bad)[0][:4].tolist()}: stale columns would enter attention"
             )
+
+
+# JAX cache leaf -> the PagedKVCache store that holds it
+_LEAF_STORES = {
+    "cached_key": "key_store", "cached_key_scale": "key_scale_store",
+    "cached_pos": "pos_store", "cached_value": "value_store",
+    "cached_value_scale": "value_scale_store",
+}
 
 
 def _numpy_dtype(dtype: torch.dtype) -> np.dtype:

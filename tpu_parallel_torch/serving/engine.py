@@ -66,8 +66,13 @@ and leave (EOS / length) between ticks.
   tensor twin, and under the unified tick the chunk phase rides in front.
   On a CUDA device each spec body is captured once, like the others.
 
-Not in the port yet (each knob raises ``NotImplementedError``): mesh
-serving and the int8 cache.
+Every tick runs over either cache dtype: under ``kv_cache_dtype="int8"``
+the pool's int8 payloads and fp32 scale stores are fixed-address like the
+bf16 ones, and the transient casts of the int8 read live in each graph's
+private pool.
+
+Not in the port yet (the knob raises ``NotImplementedError``): mesh
+serving.
 """
 
 from __future__ import annotations
@@ -150,7 +155,6 @@ NON_FINITE_TOKEN = -2
 # the later slices of the port that bring each refused engine knob
 _LATER = {
     "mesh": "tensor-parallel serving over a device mesh",
-    "int8": "the int8 KV cache",
 }
 
 
@@ -590,8 +594,6 @@ class ServingEngine:
         cfg = model.config
         if mesh is not None or param_specs is not None:
             raise _not_ported("serving over a mesh", "mesh")
-        if getattr(cfg, "kv_cache_dtype", "bf16") == "int8":
-            raise _not_ported('kv_cache_dtype="int8"', "int8")
         if unified_tick not in ("auto", True, False):
             raise ValueError(f"unified_tick={unified_tick!r}")
         self.model = model
