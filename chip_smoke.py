@@ -1,8 +1,8 @@
 """Card check of the PyTorch port: builds its CUDA kernels, holds each
 against its plain version, and drives GPT-2 125M inference, training and
 continuous-batching serving, with its hierarchical KV memory, speculative
-decoding, the int8 KV cache, beam search and int8 weight export, at full
-width.
+decoding, the int8 KV cache, beam search and int8 weight export, and the
+trainer shell (data loading, checkpointed fit, 8k context), at full width.
 
     python3 chip_smoke.py
 
@@ -133,10 +133,37 @@ source, all started together).  Phases, in order; any failure raises:
    reference's top-2 gap is below INT8_TIE_GAP or twice what the GEMMs'
    batch shape alone moves those logits by.  No flash launch.
 
+11. trainer shell: a byte-level corpus built on the card (the repo's
+   ``*.py``/``*.md`` and the standard library's ``*.py`` in sorted path
+   order, EOS 50256 after each file, at most 16M tokens), packed at 1024.
+   Both kernels at the packed training pass [16, 1024] with the segment ids
+   of the fit's first minibatch, and at the 8k pass [2, 8192], against the
+   plain versions under phase 2's and 2b's rules.  ``Trainer.fit`` on
+   ``gpt2_125m_corpus`` over packed rows (12 steps; checkpoints and
+   held-out evaluation every 4; the best snapshot): 24 ``flash_fwd`` and 24
+   ``flash_bwd`` launches per step, forwards only in evaluation, a falling
+   loss, ``best/`` with ``best_loss.json``; a new Trainer resumes at 12
+   (state restored bitwise) and runs to 16; a third fails once through the
+   step seam at step 14 of a run to 18, rolls back, replays ``batch_at(14)``
+   and ends at 18; save (blocking snapshot, background write), restore and
+   eval times; packed against flat step time and the kernels' share of a
+   step.  ``gpt2_125m_long`` (16 rows of 8192 in 8 minibatches,
+   ``loss_chunk=1024``): 96 launches of each kernel per step, step time,
+   tokens/s, MFU, peak memory, and one minibatch's chunked loss and
+   gradients against the full logits'.  lion and sgd; an EMA shadow whose
+   evaluation equals a plain forward on its weights and leaves the module's
+   bitwise; dropout 0.1 (evaluation deterministic; under remat the same
+   generator state gives the gradients of remat off) and "dots" against
+   "proj_attn", each policy's peak memory and ms.  The final masters as a
+   serving weight set (verified; a flipped byte refused) served through
+   ``rebind_params`` against static ``generate()`` on the trainer's module.
+   ``python -m tpu_parallel_torch.train`` in a subprocess (exit 0, its
+   trace's spans, its metrics' ``train_loss``).
+
 Weights and inputs are made from ``SEED``.  The kernel launch counters are
 set to 0 before each main path (phases 3-4: inference; phase 6's steps:
-training; phases 7-10: serving, which must leave them at 0) and read after
-it.  The last two lines are the ``kernels`` JSON object and the
+training; phases 7-10: serving, which must leave them at 0; phase 11's
+packed fit and its 8k steps) and read after it.  The last two lines are the ``kernels`` JSON object and the
 ``{"ok": true, ...}`` line.
 """
 
@@ -276,14 +303,16 @@ def _packed(b, s, gen):
     return ((pos >= cuts[:, :1]).int() + (pos >= cuts[:, 1:]).int()).to(torch.int32)
 
 
-def _inputs(shape, gen, with_do=False):
-    """bf16 q, k, v (and do) and the segment ids (or None) of one shape."""
+def _inputs(shape, gen, with_do=False, seg=None):
+    """bf16 q, k, v (and do) and the segment ids (or None) of one shape;
+    ``seg`` gives the segment ids (a packed batch's real ones)."""
     b, h, h_kv, s, d, _, pack, _ = shape
     dev = gen.device
     q = torch.randn(b, h, s, d, device=dev, generator=gen).to(torch.bfloat16)
     k = torch.randn(b, h_kv, s, d, device=dev, generator=gen).to(torch.bfloat16)
     v = torch.randn(b, h_kv, s, d, device=dev, generator=gen).to(torch.bfloat16)
-    seg = _packed(b, s, gen) if pack else None
+    if seg is None and pack:
+        seg = _packed(b, s, gen)
     if not with_do:
         return q, k, v, seg
     do = torch.randn(b, h, s, d, device=dev, generator=gen).to(torch.bfloat16)
@@ -350,200 +379,214 @@ def in_turns(fns, iters):
 def kernel_phase(seed):
     """Phase 2: the kernel against its plain version at shapes (a)-(g), in
     the main path's layout and in [B, H, S, D]."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return {name: fwd_kernel_row(name, shape, gen)
+            for name, shape in {**SHAPES, "t_train_pass": TRAIN_SHAPE}.items()}
+
+
+def fwd_kernel_row(name, shape, gen, seg=None):
+    """One shape of phase 2 (and of phase 11's training shapes): the
+    forward kernel against its plain version in both layouts, its time and
+    SDPA's in turns, the plain version's time and the bound."""
     import torch.nn.functional as F
     from tpu_parallel_torch.ops import flash_attention as fa
 
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    rows = {}
-    for name, shape in {**SHAPES, "t_train_pass": TRAIN_SHAPE}.items():
-        b, h, h_kv, s, d, kw, pack, iters = shape
-        q, k, v, seg = _inputs(shape, gen)
-        qm, km, vm = main_path_layout(q, k, v)
-        with torch.inference_mode():
-            out, lse = fa._flash_fwd(qm, km, vm, seg, seg, **kw)
-            out_bhsd, lse_bhsd = fa._flash_fwd(q, k, v, seg, seg, **kw)
-            ref_out, ref_lse = fa.flash_fwd_reference(q, k, v, seg, seg, **kw)
-            torch.cuda.synchronize()
-            if not out.transpose(1, 2).is_contiguous():
-                raise AssertionError(f"{name}: out is not [B, S, H, D] in memory")
-            if not (torch.equal(out, out_bhsd) and torch.equal(lse, lse_bhsd)):
-                raise AssertionError(f"{name}: out/lse differ between the two layouts")
-            out_err = (out.float() - ref_out.float()).abs().max().item()
-            lse_err = (lse - ref_lse).abs().max().item()
-            empty_rows = int((ref_lse <= fa.NEG_INF / 2).sum())
-            torch.testing.assert_close(out.float(), ref_out.float(), atol=OUT_TOL, rtol=OUT_TOL)
-            torch.testing.assert_close(lse, ref_lse, atol=LSE_TOL, rtol=0)
-            if empty_rows:
-                assert (out.float()[ref_lse <= fa.NEG_INF / 2] == 0).all()
+    b, h, h_kv, s, d, kw, pack, iters = shape
+    q, k, v, seg = _inputs(shape, gen, seg=seg)
+    qm, km, vm = main_path_layout(q, k, v)
+    with torch.inference_mode():
+        out, lse = fa._flash_fwd(qm, km, vm, seg, seg, **kw)
+        out_bhsd, lse_bhsd = fa._flash_fwd(q, k, v, seg, seg, **kw)
+        ref_out, ref_lse = fa.flash_fwd_reference(q, k, v, seg, seg, **kw)
+        torch.cuda.synchronize()
+        if not out.transpose(1, 2).is_contiguous():
+            raise AssertionError(f"{name}: out is not [B, S, H, D] in memory")
+        if not (torch.equal(out, out_bhsd) and torch.equal(lse, lse_bhsd)):
+            raise AssertionError(f"{name}: out/lse differ between the two layouts")
+        out_err = (out.float() - ref_out.float()).abs().max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        empty_rows = int((ref_lse <= fa.NEG_INF / 2).sum())
+        torch.testing.assert_close(out.float(), ref_out.float(), atol=OUT_TOL, rtol=OUT_TOL)
+        torch.testing.assert_close(lse, ref_lse, atol=LSE_TOL, rtol=0)
+        if empty_rows:
+            assert (out.float()[ref_lse <= fa.NEG_INF / 2] == 0).all()
 
-            mask = _sdpa_mask(kw, s, seg, dev)
-            (ms, library_ms), turns = in_turns((
-                lambda: fa._flash_fwd(qm, km, vm, seg, seg, **kw),
-                lambda: F.scaled_dot_product_attention(qm, km, vm, attn_mask=mask,
-                                                       is_causal=mask is None,
-                                                       enable_gqa=h != h_kv),
-            ), iters)
-            ms_bhsd = cuda_ms(lambda: fa._flash_fwd(q, k, v, seg, seg, **kw), iters)
-            plain_ms = cuda_ms(
-                lambda: fa.flash_fwd_reference(q, k, v, seg, seg, **kw), max(2, iters // 10), 1
-            )
-        pairs = visible_pairs(b, h, s, s, kw["causal"], kw.get("window", 0),
-                              kw.get("q_offset", 0), seg, dev)
-        flops = 4 * d * pairs  # Q.K^T and P.V, 2*D each per visible pair
-        nbytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel()) + 4 * lse.numel()
-        if seg is not None:
-            nbytes += 2 * 4 * seg.numel()
-        bound_ms, bound_by = _bound(flops, nbytes)
-        row = dict(
-            shape=f"B={b} H={h} Hkv={h_kv} S={s} D={d} {kw} packed={pack}",
-            layout="views of fused [B, S, H, 3D] qkv" if h == h_kv
-            else "q [B, S, H, D], k/v views of fused [B, S, Hkv, 2D] kv",
-            max_abs_err=out_err, lse_max_abs_err=lse_err, empty_rows=empty_rows,
-            bitwise_equal_across_layouts=True, ms=ms, kernel_turns_ms=turns[0], ms_bhsd=ms_bhsd,
-            plain_ms=plain_ms, library_ms=library_ms, sdpa_turns_ms=turns[1], bound_ms=bound_ms,
-            bound_by=bound_by, gflop=flops / 1e9, mbytes=nbytes / 1e6,
-            share_of_bound=bound_ms / ms, tflops=flops / ms / 1e9,
+        mask = _sdpa_mask(kw, s, seg, dev)
+        (ms, library_ms), turns = in_turns((
+            lambda: fa._flash_fwd(qm, km, vm, seg, seg, **kw),
+            lambda: F.scaled_dot_product_attention(qm, km, vm, attn_mask=mask,
+                                                   is_causal=mask is None,
+                                                   enable_gqa=h != h_kv),
+        ), iters)
+        ms_bhsd = cuda_ms(lambda: fa._flash_fwd(q, k, v, seg, seg, **kw), iters)
+        plain_ms = cuda_ms(
+            lambda: fa.flash_fwd_reference(q, k, v, seg, seg, **kw), max(2, iters // 10), 1
         )
-        rows[name] = row
-        log(f"[kernel {name}] {row['shape']}; main-path layout: {row['layout']}")
-        log(f"  out max abs err {out_err:.3e} (atol=rtol={OUT_TOL}), lse max abs err "
-            f"{lse_err:.3e} (atol {LSE_TOL}), empty rows {empty_rows}; out and lse bitwise "
-            f"equal in [B, H, S, D]")
-        log(f"  kernel {ms:.4f} ms (turns {', '.join(f'{x:.4f}' for x in turns[0])}), SDPA "
-            f"{library_ms:.4f} ms (turns {', '.join(f'{x:.4f}' for x in turns[1])}), kernel on "
-            f"[B, H, S, D] {ms_bhsd:.4f} ms, plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms by "
-            f"{row['bound_by']} ({row['gflop']:.2f} GFLOP, {row['mbytes']:.1f} MB), share of "
-            f"bound {row['share_of_bound']:.3f}, {row['tflops']:.1f} TFLOP/s")
-        del q, k, v, qm, km, vm, out, lse, out_bhsd, lse_bhsd, ref_out, ref_lse
-        torch.cuda.empty_cache()
-    return rows
+    pairs = visible_pairs(b, h, s, s, kw["causal"], kw.get("window", 0),
+                          kw.get("q_offset", 0), seg, dev)
+    flops = 4 * d * pairs  # Q.K^T and P.V, 2*D each per visible pair
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel()) + 4 * lse.numel()
+    if seg is not None:
+        nbytes += 2 * 4 * seg.numel()
+    bound_ms, bound_by = _bound(flops, nbytes)
+    row = dict(
+        shape=f"B={b} H={h} Hkv={h_kv} S={s} D={d} {kw} packed={pack}",
+        layout="views of fused [B, S, H, 3D] qkv" if h == h_kv
+        else "q [B, S, H, D], k/v views of fused [B, S, Hkv, 2D] kv",
+        max_abs_err=out_err, lse_max_abs_err=lse_err, empty_rows=empty_rows,
+        bitwise_equal_across_layouts=True, ms=ms, kernel_turns_ms=turns[0], ms_bhsd=ms_bhsd,
+        plain_ms=plain_ms, library_ms=library_ms, sdpa_turns_ms=turns[1], bound_ms=bound_ms,
+        bound_by=bound_by, gflop=flops / 1e9, mbytes=nbytes / 1e6,
+        share_of_bound=bound_ms / ms, tflops=flops / ms / 1e9,
+    )
+    log(f"[kernel {name}] {row['shape']}; main-path layout: {row['layout']}")
+    log(f"  out max abs err {out_err:.3e} (atol=rtol={OUT_TOL}), lse max abs err "
+        f"{lse_err:.3e} (atol {LSE_TOL}), empty rows {empty_rows}; out and lse bitwise "
+        f"equal in [B, H, S, D]")
+    log(f"  kernel {ms:.4f} ms (turns {', '.join(f'{x:.4f}' for x in turns[0])}), SDPA "
+        f"{library_ms:.4f} ms (turns {', '.join(f'{x:.4f}' for x in turns[1])}), kernel on "
+        f"[B, H, S, D] {ms_bhsd:.4f} ms, plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms by "
+        f"{row['bound_by']} ({row['gflop']:.2f} GFLOP, {row['mbytes']:.1f} MB), share of "
+        f"bound {row['share_of_bound']:.3f}, {row['tflops']:.1f} TFLOP/s")
+    del q, k, v, qm, km, vm, out, lse, out_bhsd, lse_bhsd, ref_out, ref_lse
+    torch.cuda.empty_cache()
+    return row
 
 
 def backward_kernel_phase(seed):
     """Phase 2b: the backward kernel against its plain version at shapes
     (a)-(g) and the training pass's shape."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 10)
+    return {name: bwd_kernel_row(name, shape, gen)
+            for name, shape in {**SHAPES, "t_train_pass": TRAIN_SHAPE}.items()}
+
+
+def bwd_kernel_row(name, shape, gen, seg=None, main_path=None):
+    """One shape of phase 2b (and of phase 11's training shapes): the
+    backward kernel against its plain version row by row, its time and
+    SDPA's backward in turns, the plain version's time and the one-pass
+    bound; at the training shapes (``main_path``, default: the training
+    pass) also two runs and the main path's layout."""
     import statistics
 
     import torch.nn.functional as F
     from tpu_parallel_torch.ops import flash_attention as fa
 
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(seed + 10)
-    rows = {}
-    for name, shape in {**SHAPES, "t_train_pass": TRAIN_SHAPE}.items():
-        b, h, h_kv, s, d, kw, pack, iters = shape
-        q, k, v, seg, do = _inputs(shape, gen, with_do=True)
-        causal, window, q_offset = kw["causal"], kw.get("window", 0), kw.get("q_offset", 0)
-        kernel = lambda: fa._flash_bwd(q, k, v, seg, seg, out, lse, do, **kw)
-        row = dict(shape=f"B={b} H={h} Hkv={h_kv} S={s} D={d} {kw} packed={pack}")
-        with torch.inference_mode():
-            out, lse = fa._flash_fwd(q, k, v, seg, seg, **kw)
-            got = kernel()
-            want = fa.flash_bwd_reference(q, k, v, seg, seg, out, lse, do, **kw)
+    if main_path is None:
+        main_path = name == "t_train_pass"
+    b, h, h_kv, s, d, kw, pack, iters = shape
+    q, k, v, seg, do = _inputs(shape, gen, with_do=True, seg=seg)
+    causal, window, q_offset = kw["causal"], kw.get("window", 0), kw.get("q_offset", 0)
+    kernel = lambda: fa._flash_bwd(q, k, v, seg, seg, out, lse, do, **kw)
+    row = dict(shape=f"B={b} H={h} Hkv={h_kv} S={s} D={d} {kw} packed={pack}")
+    with torch.inference_mode():
+        out, lse = fa._flash_fwd(q, k, v, seg, seg, **kw)
+        got = kernel()
+        want = fa.flash_bwd_reference(q, k, v, seg, seg, out, lse, do, **kw)
+        torch.cuda.synchronize()
+        errs, scales, ratios = {}, {}, {}
+        for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+            errs[gname] = (g.float() - w.float()).abs().max().item()
+            scales[gname] = w.float().abs().max().item()
+            ratios[gname] = grad_error_ratio(g, w)
+            if ratios[gname] > 1:
+                raise AssertionError(
+                    f"{name}: a row of {gname} is {ratios[gname]:.2f}x its limit "
+                    f"({GRAD_RTOL} * ||row|| + {GRAD_ATOL} * rms row norm)")
+        empty = lse <= fa.NEG_INF / 2
+        row["empty_rows"] = int(empty.sum())
+        if row["empty_rows"] and not (got[0][empty] == 0).all():
+            raise AssertionError(f"{name}: dq is not 0 on the {row['empty_rows']} empty rows")
+        if name == "a_main":
+            row["planted_faults"] = planted_faults((q, k, v, out, do, lse), kw, want)
+        if main_path:
+            again = kernel()
             torch.cuda.synchronize()
-            errs, scales, ratios = {}, {}, {}
-            for gname, g, w in zip(("dq", "dk", "dv"), got, want):
-                errs[gname] = (g.float() - w.float()).abs().max().item()
-                scales[gname] = w.float().abs().max().item()
-                ratios[gname] = grad_error_ratio(g, w)
-                if ratios[gname] > 1:
-                    raise AssertionError(
-                        f"{name}: a row of {gname} is {ratios[gname]:.2f}x its limit "
-                        f"({GRAD_RTOL} * ||row|| + {GRAD_ATOL} * rms row norm)")
-            empty = lse <= fa.NEG_INF / 2
-            row["empty_rows"] = int(empty.sum())
-            if row["empty_rows"] and not (got[0][empty] == 0).all():
-                raise AssertionError(f"{name}: dq is not 0 on the {row['empty_rows']} empty rows")
-            if name == "a_main":
-                row["planted_faults"] = planted_faults((q, k, v, out, do, lse), kw, want)
-            if name == "t_train_pass":
-                again = kernel()
-                torch.cuda.synchronize()
-                if not (torch.equal(again[1], got[1]) and torch.equal(again[2], got[2])):
-                    raise AssertionError("dk / dv differ between two runs on the same inputs")
-                row["dkv_bitwise_equal_across_runs"] = True
-                row["dq_run_to_run_max_abs"] = (again[0].float() - got[0].float()).abs().max().item()
-                row["dq_run_to_run_worst_row_ratio"] = grad_error_ratio(again[0], got[0])
-                del again
-                # the main path's layout: q, k, v views of the fused qkv buffer,
-                # out and do [B, S, H, D] in memory; dq, dk, dv written so
-                qm, km, vm, om, dom = main_path_layout(q, k, v, out, do)
-                strided = lambda: fa._flash_bwd(qm, km, vm, seg, seg, om, lse, dom, **kw)
-                got_m = strided()
-                torch.cuda.synchronize()
-                if not all(g.transpose(1, 2).is_contiguous() for g in got_m):
-                    raise AssertionError("dq, dk, dv are not [B, S, H, D] in memory")
-                ratios_m = {g: grad_error_ratio(x, w)
-                            for g, x, w in zip(("dq", "dk", "dv"), got_m, want)}
-                if max(ratios_m.values()) > 1:
-                    raise AssertionError(f"strided backward: worst rows {ratios_m} over limit")
-                if not (torch.equal(got_m[1], got[1]) and torch.equal(got_m[2], got[2])):
-                    raise AssertionError("strided dk / dv differ from the [B, H, S, D] run's")
-                row["main_path_layout"] = dict(
-                    worst_row_ratio=ratios_m, dkv_bitwise_equal_to_bhsd=True,
-                    ms=cuda_ms(strided, iters))
-                del got_m
-            del got, want
-            plain_ms = cuda_ms(
-                lambda: fa.flash_bwd_reference(q, k, v, seg, seg, out, lse, do, **kw),
-                max(2, iters // 10), 1)
-        # SDPA's backward alone, on a retained graph, timed in turns with the kernel
-        mask = _sdpa_mask(kw, s, seg, dev)
-        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-        sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask, is_causal=mask is None,
-                                                  enable_gqa=h != h_kv)
-        sdpa = lambda: torch.autograd.grad(sdpa_out, leaves, do, retain_graph=True)
-        turns = {"kernel": [], "sdpa": []}
-        for who in ("kernel", "sdpa", "sdpa", "kernel"):
-            with torch.inference_mode(who == "kernel"):
-                turns[who].append(cuda_ms(kernel if who == "kernel" else sdpa, iters))
-        del sdpa_out, leaves
-        ms, library_ms = statistics.median(turns["kernel"]), statistics.median(turns["sdpa"])
-        pairs = visible_pairs(b, h, s, s, causal, window, q_offset, seg, dev)
-        flops = 10 * d * pairs  # S, dP, dV, dK and dQ, 2*D each per visible pair
-        # inputs read once (q, k, v, out, do, lse, segment ids), outputs written once
-        nbytes = 2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + 2 * do.numel()) + 4 * lse.numel()
-        if seg is not None:
-            nbytes += 2 * 4 * seg.numel()
-        bound_ms, bound_by = _bound(flops, nbytes)
-        row.update(
-            max_abs_err=max(errs.values()), errs=errs, max_abs_plain=scales,
-            worst_row_ratio=ratios, ms=ms, kernel_turns_ms=turns["kernel"], plain_ms=plain_ms,
-            library_ms=library_ms, sdpa_turns_ms=turns["sdpa"], bound_ms=bound_ms,
-            bound_by=bound_by, gflop=flops / 1e9, mbytes=nbytes / 1e6,
-            share_of_bound=bound_ms / ms, tflops=flops / ms / 1e9,
-        )
-        rows[name] = row
-        log(f"[bwd kernel {name}] {row['shape']}")
-        log("  worst row over its limit " + ", ".join(f"{g} {ratios[g]:.3f}" for g in ratios)
-            + f" (limit {GRAD_RTOL} * ||row|| + {GRAD_ATOL} * rms row norm; passes <= 1); "
-            + "max abs err " + ", ".join(f"{g} {errs[g]:.3e} (max |plain| {scales[g]:.3e})"
-                                         for g in errs)
-            + f"; empty rows {row['empty_rows']} (dq 0 there)")
-        if "planted_faults" in row:
-            log("  planted faults, worst row over its limit (and max abs err over max |plain|): "
-                + ", ".join(f"{f} {r['worst_row_ratio']:.2f} ({r['max_abs_over_max']:.3e})"
-                            for f, r in row["planted_faults"].items()))
-        if "dq_run_to_run_max_abs" in row:
-            log(f"  two runs: dk, dv bitwise equal; dq max |run 1 - run 2| "
-                f"{row['dq_run_to_run_max_abs']:.3e} (worst row {row['dq_run_to_run_worst_row_ratio']:.3f}"
-                f" of its limit; fp32 atomics sum dq in a varying order)")
-        if "main_path_layout" in row:
-            m = row["main_path_layout"]
-            log("  main-path layout (q, k, v views of fused qkv; out, do, dq, dk, dv "
-                "[B, S, H, D]): worst row over its limit "
-                + ", ".join(f"{g} {r:.3f}" for g, r in m["worst_row_ratio"].items())
-                + f"; dk, dv bitwise equal to the [B, H, S, D] run's; {m['ms']:.4f} ms")
-        log(f"  kernel {ms:.4f} ms (turns {', '.join(f'{x:.4f}' for x in turns['kernel'])}), "
-            f"SDPA backward (dq, dk, dv) {library_ms:.4f} ms (turns "
-            f"{', '.join(f'{x:.4f}' for x in turns['sdpa'])}), plain {plain_ms:.4f} ms; one-pass "
-            f"bound {bound_ms:.4f} ms by {bound_by} ({row['gflop']:.2f} GFLOP, "
-            f"{row['mbytes']:.1f} MB), share of bound {row['share_of_bound']:.3f}, "
-            f"{row['tflops']:.1f} TFLOP/s")
-        del q, k, v, do, out, lse
-        torch.cuda.empty_cache()
-    return rows
+            if not (torch.equal(again[1], got[1]) and torch.equal(again[2], got[2])):
+                raise AssertionError("dk / dv differ between two runs on the same inputs")
+            row["dkv_bitwise_equal_across_runs"] = True
+            row["dq_run_to_run_max_abs"] = (again[0].float() - got[0].float()).abs().max().item()
+            row["dq_run_to_run_worst_row_ratio"] = grad_error_ratio(again[0], got[0])
+            del again
+            # the main path's layout: q, k, v views of the fused qkv buffer,
+            # out and do [B, S, H, D] in memory; dq, dk, dv written so
+            qm, km, vm, om, dom = main_path_layout(q, k, v, out, do)
+            strided = lambda: fa._flash_bwd(qm, km, vm, seg, seg, om, lse, dom, **kw)
+            got_m = strided()
+            torch.cuda.synchronize()
+            if not all(g.transpose(1, 2).is_contiguous() for g in got_m):
+                raise AssertionError("dq, dk, dv are not [B, S, H, D] in memory")
+            ratios_m = {g: grad_error_ratio(x, w)
+                        for g, x, w in zip(("dq", "dk", "dv"), got_m, want)}
+            if max(ratios_m.values()) > 1:
+                raise AssertionError(f"strided backward: worst rows {ratios_m} over limit")
+            if not (torch.equal(got_m[1], got[1]) and torch.equal(got_m[2], got[2])):
+                raise AssertionError("strided dk / dv differ from the [B, H, S, D] run's")
+            row["main_path_layout"] = dict(
+                worst_row_ratio=ratios_m, dkv_bitwise_equal_to_bhsd=True,
+                ms=cuda_ms(strided, iters))
+            del got_m
+        del got, want
+        plain_ms = cuda_ms(
+            lambda: fa.flash_bwd_reference(q, k, v, seg, seg, out, lse, do, **kw),
+            max(2, iters // 10), 1)
+    # SDPA's backward alone, on a retained graph, timed in turns with the kernel
+    mask = _sdpa_mask(kw, s, seg, dev)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask, is_causal=mask is None,
+                                              enable_gqa=h != h_kv)
+    sdpa = lambda: torch.autograd.grad(sdpa_out, leaves, do, retain_graph=True)
+    turns = {"kernel": [], "sdpa": []}
+    for who in ("kernel", "sdpa", "sdpa", "kernel"):
+        with torch.inference_mode(who == "kernel"):
+            turns[who].append(cuda_ms(kernel if who == "kernel" else sdpa, iters))
+    del sdpa_out, leaves
+    ms, library_ms = statistics.median(turns["kernel"]), statistics.median(turns["sdpa"])
+    pairs = visible_pairs(b, h, s, s, causal, window, q_offset, seg, dev)
+    flops = 10 * d * pairs  # S, dP, dV, dK and dQ, 2*D each per visible pair
+    # inputs read once (q, k, v, out, do, lse, segment ids), outputs written once
+    nbytes = 2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + 2 * do.numel()) + 4 * lse.numel()
+    if seg is not None:
+        nbytes += 2 * 4 * seg.numel()
+    bound_ms, bound_by = _bound(flops, nbytes)
+    row.update(
+        max_abs_err=max(errs.values()), errs=errs, max_abs_plain=scales,
+        worst_row_ratio=ratios, ms=ms, kernel_turns_ms=turns["kernel"], plain_ms=plain_ms,
+        library_ms=library_ms, sdpa_turns_ms=turns["sdpa"], bound_ms=bound_ms,
+        bound_by=bound_by, gflop=flops / 1e9, mbytes=nbytes / 1e6,
+        share_of_bound=bound_ms / ms, tflops=flops / ms / 1e9,
+    )
+    log(f"[bwd kernel {name}] {row['shape']}")
+    log("  worst row over its limit " + ", ".join(f"{g} {ratios[g]:.3f}" for g in ratios)
+        + f" (limit {GRAD_RTOL} * ||row|| + {GRAD_ATOL} * rms row norm; passes <= 1); "
+        + "max abs err " + ", ".join(f"{g} {errs[g]:.3e} (max |plain| {scales[g]:.3e})"
+                                     for g in errs)
+        + f"; empty rows {row['empty_rows']} (dq 0 there)")
+    if "planted_faults" in row:
+        log("  planted faults, worst row over its limit (and max abs err over max |plain|): "
+            + ", ".join(f"{f} {r['worst_row_ratio']:.2f} ({r['max_abs_over_max']:.3e})"
+                        for f, r in row["planted_faults"].items()))
+    if "dq_run_to_run_max_abs" in row:
+        log(f"  two runs: dk, dv bitwise equal; dq max |run 1 - run 2| "
+            f"{row['dq_run_to_run_max_abs']:.3e} (worst row {row['dq_run_to_run_worst_row_ratio']:.3f}"
+            f" of its limit; fp32 atomics sum dq in a varying order)")
+    if "main_path_layout" in row:
+        m = row["main_path_layout"]
+        log("  main-path layout (q, k, v views of fused qkv; out, do, dq, dk, dv "
+            "[B, S, H, D]): worst row over its limit "
+            + ", ".join(f"{g} {r:.3f}" for g, r in m["worst_row_ratio"].items())
+            + f"; dk, dv bitwise equal to the [B, H, S, D] run's; {m['ms']:.4f} ms")
+    log(f"  kernel {ms:.4f} ms (turns {', '.join(f'{x:.4f}' for x in turns['kernel'])}), "
+        f"SDPA backward (dq, dk, dv) {library_ms:.4f} ms (turns "
+        f"{', '.join(f'{x:.4f}' for x in turns['sdpa'])}), plain {plain_ms:.4f} ms; one-pass "
+        f"bound {bound_ms:.4f} ms by {bound_by} ({row['gflop']:.2f} GFLOP, "
+        f"{row['mbytes']:.1f} MB), share of bound {row['share_of_bound']:.3f}, "
+        f"{row['tflops']:.1f} TFLOP/s")
+    del q, k, v, do, out, lse
+    torch.cuda.empty_cache()
+    return row
 
 
 def planted_faults(tensors, kw, want):
@@ -2527,6 +2570,772 @@ def extras_phase(seed, smi, bf16_tokens, bf16_spec_tokens):
                 fp32=fp32, phase_s=phase_s, legs_s=legs_s)
 
 
+# phase 11: the trainer shell (GPT-2 125M, seeded weights, a byte-level
+# corpus made on the card from the repo's and the standard library's sources)
+CORPUS_CAP = 16 * 2**20  # tokens
+EOS_ID = 50256  # GPT-2's <|endoftext|>
+FIT_STEPS, RESUME_STEPS, ROLLBACK_STEPS, FAIL_AT = 12, 16, 18, 14
+FIT_EVERY = 4  # checkpoint_every and eval_every of the packed fit
+SHELL_WARMUP = 2  # warmup_steps of phase 11's short runs (the configs' own are 10-100)
+SHELL_STEPS = 4  # steps of the optimizer, EMA and dropout legs
+TIMED_STEPS = 4  # timed steps, packed against flat and at 8k
+# lion's and sgd's learning rates on the corpus config: lion's sign steps
+# move every weight by the whole rate (its authors take 3-10x below AdamW's;
+# at the config's 3e-4 the loss rose at the third step), and sgd's steps
+# at 3e-4 fall below the bf16 weights' rounding, so the module would not move
+LION_LR, SGD_LR = 3e-5, 0.1
+PACKED_SHAPE = (16, 12, 12, 1024, 64, dict(causal=True), True, 20)
+LONG_SHAPE = (2, 12, 12, 8192, 64, dict(causal=True), False, 10)
+SERVE_PROMPTS, SERVE_PROMPT_LEN, SERVE_NEW = 4, 64, 32
+SHELL_SEQ = 1024  # gpt2_125m's seq_len: the packed rows and flat windows of the corpus
+
+
+def build_corpus(directory):
+    """Byte-level tokens of the repo's ``*.py``/``*.md`` files and the
+    standard library's ``*.py`` (its third-party packages left out), in
+    sorted path order, EOS after each file, capped at CORPUS_CAP tokens;
+    written with ``TokenDataset.write_bin``.  Returns (path, tokens,
+    documents)."""
+    import sysconfig
+
+    import numpy as np
+    from tpu_parallel_torch.data import TokenDataset
+
+    here = Path(__file__).resolve().parent
+    stdlib = Path(sysconfig.get_paths()["stdlib"])
+    # the directories git leaves out of a checkout, and third-party packages
+    ignored = (here / ".gitignore").read_text().splitlines()
+    skip = {"site-packages", "dist-packages"} | {
+        line.strip().rstrip("/").split("/")[-1] for line in ignored if line.strip().endswith("/")}
+    # directories are judged below each root, whatever lies above it
+    paths = [p for root, files in ((here, [*here.rglob("*.py"), *here.rglob("*.md")]),
+                                   (stdlib, stdlib.rglob("*.py")))
+             for p in files if p.is_file() and not any(
+                 part in skip or part.startswith(".") for part in p.relative_to(root).parts[:-1])]
+    chunks, total, docs = [], 0, 0
+    for path in sorted(set(paths)):
+        data = np.frombuffer(path.read_bytes(), dtype=np.uint8).astype(np.uint16)
+        doc = np.append(data, np.uint16(EOS_ID))[:CORPUS_CAP - total]
+        chunks.append(doc)
+        total += len(doc)
+        docs += 1
+        if total >= CORPUS_CAP:
+            break
+    tokens = np.concatenate(chunks)
+    path = str(Path(directory) / "corpus.bin")
+    TokenDataset.write_bin(path, tokens)
+    return path, len(tokens), docs
+
+
+def _shell_config(name, **changes):
+    """A config of ``tpu_parallel_torch/configs`` as a ``TrainerConfig``
+    and its plumbing keys (model overrides in ``changes["model_overrides"]``
+    merge into the config's)."""
+    from tpu_parallel_torch.configs import get_config
+    from tpu_parallel_torch.train_lib import TrainerConfig
+
+    cd = get_config(name)
+    plumbing = {k: cd.pop(k) for k in ("checkpoint_dir", "checkpoint_every", "data_path",
+                                        "data_format", "eos_id", "eval_steps", "eval_every",
+                                        "keep_best", "eval_fraction") if k in cd}
+    cd["model_overrides"].update(changes.pop("model_overrides", {}))
+    cd.update(changes)
+    return TrainerConfig.from_config_dict(cd), plumbing
+
+
+def _launch_counts():
+    from tpu_parallel_torch.ops import flash_attention as fa
+
+    return [getattr(fa, name) for name in LAUNCH_COUNTERS]
+
+
+def _reset_launches():
+    from tpu_parallel_torch.ops import flash_attention as fa
+
+    for name in LAUNCH_COUNTERS:
+        setattr(fa, name, 0)
+
+
+def _counting_step(trainer, per_step, losses):
+    """Replace ``trainer.step_fn`` (the fit's seam) by one that records each
+    step's (fwd, bwd) launches and its own loss."""
+    from tpu_parallel_torch.core.metrics import accumulate_metrics, compute
+
+    real = trainer.step_fn
+
+    def step(state, metrics, batch):
+        before = _launch_counts()
+        state, step_metrics = real(state, None, batch)
+        per_step.append([a - b for a, b in zip(_launch_counts(), before)])
+        losses.append(compute(step_metrics)["loss"])
+        return state, accumulate_metrics(metrics, step_metrics)
+
+    trainer.step_fn = step
+
+
+def _state_tensors(sd, prefix=""):
+    if isinstance(sd, torch.Tensor):
+        return {prefix: sd}
+    if not isinstance(sd, (dict, list, tuple)):
+        return {}
+    items = sd.items() if isinstance(sd, dict) else enumerate(sd)
+    out = {}
+    for k, v in items:
+        out.update(_state_tensors(v, f"{prefix}/{k}"))
+    return out
+
+
+def _falls(name, losses):
+    import math
+
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{name}: loss not finite and falling: {losses}")
+
+
+def _timed_steps(trainer, batches):
+    """Host ms per step over ``batches`` after one warm-up step, each run
+    ended by a synchronize."""
+    trainer.step_fn(trainer.state, None, batches[0])
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for batch in batches:
+        trainer.step_fn(trainer.state, None, batch)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - start) * 1e3 / len(batches)
+
+
+def _step_profile(fn):
+    """Device busy ms, flash forward and backward ms and wall ms of one
+    call of ``fn`` (``torch.profiler``), after a warm-up call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - start) * 1e3
+    events = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    busy = sum(t for _, t in events) / 1e3
+    fwd = sum(t for k, t in events if "flash_fwd_" in k) / 1e3
+    bwd = sum(t for k, t in events if "flash_bwd_" in k) / 1e3
+    return dict(wall_ms=wall, busy_ms=busy, flash_fwd_ms=fwd, flash_bwd_ms=bwd,
+                kernel_share=(fwd + bwd) / busy if busy else None)
+
+
+def _grad_rel(model_a, model_b, loss_a, loss_b, batch, gen_a=None, gen_b=None):
+    """Loss difference and the worst per-weight relative L2 gradient error
+    of two models (the same weights) on one minibatch; the key slice of the
+    qkv bias left out (zero in exact arithmetic)."""
+    grads = []
+    for model, loss_fn, gen in ((model_a, loss_a, gen_a), (model_b, loss_b, gen_b)):
+        loss, _ = loss_fn(model, batch, gen)
+        loss.backward()
+        grads.append((loss.item(), {n: p.grad.float() for n, p in model.named_parameters()}))
+        model.zero_grad(set_to_none=True)
+    cfg = model_a.config
+    dh = cfg.head_dim
+    not_key = (torch.arange(3 * cfg.d_model, device="cuda") % (3 * dh)) // dh != 1
+    rel = {}
+    for n, g_b in grads[1][1].items():
+        g_a = grads[0][1][n]
+        if n.endswith("attn.qkv.bias"):
+            g_a, g_b = g_a[not_key], g_b[not_key]
+        rel[n] = ((g_a - g_b).norm() / g_b.norm().clamp(min=1e-30)).item()
+    worst = max(rel, key=rel.get)
+    return abs(grads[0][0] - grads[1][0]), rel[worst], worst
+
+
+def _same_weights(model, config):
+    """A second ``GPTLM`` of ``config`` holding ``model``'s weights."""
+    from tpu_parallel_torch.models import GPTLM
+
+    other = GPTLM(config, device="cuda")
+    other.load_state_dict(model.state_dict())
+    return other
+
+
+def packed_fit_leg(seed, work, corpus):
+    """(b): the packed fit with checkpoints, held-out evaluation and the
+    best snapshot; a resume in a new Trainer; a rollback after a failure
+    injected through the step seam; packed against flat step time and
+    kernel share; save, restore and eval timings.  Returns the leg's
+    report and the launches of the packed fit (the main path)."""
+    import os
+    import shutil
+
+    import numpy as np
+    from tpu_parallel_torch.checkpoint import Checkpointer
+    from tpu_parallel_torch.data import DataLoader, PackedDataset, TokenDataset
+    from tpu_parallel_torch.train_lib import Trainer
+
+    report = {}
+    config, plumbing = _shell_config("gpt2_125m_corpus", steps=FIT_STEPS, seed=seed,
+                                     warmup_steps=SHELL_WARMUP)
+    packed = PackedDataset(corpus, SHELL_SEQ, eos_id=EOS_ID)
+    loader = DataLoader(packed, config.global_batch_size, seed=seed,
+                        holdout_fraction=plumbing["eval_fraction"], device="cuda")
+    run = os.path.join(work, "run")
+    fit_kw = dict(checkpoint_every=FIT_EVERY, eval_every=FIT_EVERY, eval_steps=2,
+                  keep_best=True, max_to_keep=2)
+    t1 = Trainer(config, device="cuda")
+    per_step, losses, evals = [], [], []
+    _counting_step(t1, per_step, losses)
+    real_eval = t1.evaluate
+
+    def counting_eval(*args, **kwargs):
+        before = _launch_counts()
+        out = real_eval(*args, **kwargs)
+        evals.append([a - b for a, b in zip(_launch_counts(), before)])
+        return out
+
+    t1.evaluate = counting_eval
+    logged = []
+    _reset_launches()  # the packed training main path starts here
+    start = time.perf_counter()
+    t1.fit(run, data_loader=loader, log_fn=lambda s, m: logged.append((s, m)), **fit_kw)
+    torch.cuda.synchronize()
+    report["fit_s"] = time.perf_counter() - start
+    launches = dict(zip(LAUNCH_COUNTERS, _launch_counts()))
+    want = t1.model_config.n_layers * config.num_minibatches
+    if any(n != [want, want] for n in per_step) or len(per_step) != FIT_STEPS:
+        raise AssertionError(f"packed fit: launches per step (fwd, bwd) {per_step}, want "
+                             f"{want} each over {FIT_STEPS} steps")
+    if any(e[1] != 0 or e[0] != t1.model_config.n_layers * fit_kw["eval_steps"] for e in evals):
+        raise AssertionError(f"evaluation launched {evals} (want 12 forwards per batch, "
+                             "no backward)")
+    _falls("packed fit", losses)
+    best = os.path.join(run, "best")
+    best_loss = json.loads(Path(best, "best_loss.json").read_text())
+    if Checkpointer(best).latest_step != best_loss["step"]:
+        raise AssertionError(f"best/ holds {Checkpointer(best).latest_step}, best_loss.json "
+                             f"{best_loss}")
+    report.update(losses=losses, launches_per_step=per_step[-1], eval_launches=evals,
+                  evals=[(s, m) for s, m in logged if "eval_loss" in m], best=best_loss,
+                  launches=launches)
+
+    # resume: a new Trainer on the same directory, restored bitwise, to 16
+    ckpt = Checkpointer(run)
+    saved = ckpt.load(FIT_STEPS)
+    report["checkpoint_bytes"] = ckpt.bytes_on_disk(FIT_STEPS)
+    del t1
+    gc.collect()
+    t2 = Trainer(_shell_config("gpt2_125m_corpus", steps=RESUME_STEPS, seed=seed,
+                               warmup_steps=SHELL_WARMUP)[0], device="cuda")
+    t2.init()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    t2.restore_checkpoint(run)
+    torch.cuda.synchronize()
+    report["restore_ms"] = (time.perf_counter() - start) * 1e3
+    got = _state_tensors(t2.state.state_dict())
+    want_tensors = _state_tensors(saved)
+    if set(got) != set(want_tensors) or not all(torch.equal(got[k].cpu(), want_tensors[k])
+                                                for k in want_tensors):
+        raise AssertionError("the restored state differs from the checkpoint")
+    if t2.state.step != FIT_STEPS or t2.state.ema_params is not None:
+        raise AssertionError(f"restored step {t2.state.step}, ema {t2.state.ema_params}")
+    report["restored_bitwise"] = dict(tensors=len(got), step=t2.state.step, ema=None)
+    del saved, got, want_tensors
+    resume_losses = []
+    _counting_step(t2, [], resume_losses)
+    t2.fit(run, data_loader=loader, **fit_kw)
+    if t2.state.step != RESUME_STEPS or len(resume_losses) != RESUME_STEPS - FIT_STEPS:
+        raise AssertionError(f"resume ran {len(resume_losses)} steps to {t2.state.step}")
+    report["resume_losses"] = resume_losses
+    del t2
+    gc.collect()
+
+    # rollback: checkpoint 12 in a directory of its own; the step seam
+    # fails once at step 14 of a run to 18
+    run3 = os.path.join(work, "rollback")
+    os.makedirs(run3)
+    shutil.copytree(os.path.join(run, str(FIT_STEPS)), os.path.join(run3, str(FIT_STEPS)))
+    t3 = Trainer(_shell_config("gpt2_125m_corpus", steps=ROLLBACK_STEPS, seed=seed,
+                               warmup_steps=SHELL_WARMUP)[0], device="cuda")
+    fed = []
+    real_batch_at = loader.batch_at
+    recording = DataLoader(packed, config.global_batch_size, seed=seed,
+                           holdout_fraction=plumbing["eval_fraction"], device="cuda")
+    recording.batch_at = lambda step: fed.append(step) or real_batch_at(step)
+    real_step = t3.step_fn
+    boom = {"done": False}
+
+    def flaky_step(state, metrics, batch):
+        if state.step == FAIL_AT and not boom["done"]:
+            boom["done"] = True
+            raise RuntimeError("injected failure at step 14")
+        return real_step(state, metrics, batch)
+
+    t3.step_fn = flaky_step
+    t3.fit(run3, data_loader=recording, checkpoint_every=FIT_EVERY, max_to_keep=2)
+    if not boom["done"] or t3.state.step != ROLLBACK_STEPS or fed.count(FAIL_AT) != 2:
+        raise AssertionError(f"rollback: failed {boom['done']}, ended at {t3.state.step}, "
+                             f"batches requested {fed}")
+    report["rollback"] = dict(batches_requested=fed, ended_at=t3.state.step)
+    t3.step_fn = real_step
+
+    # save: the blocking snapshot and the background write to done
+    extra = Checkpointer(os.path.join(work, "save_timing"))
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    extra.save(t3.state.step, t3.state)
+    returned = time.perf_counter()
+    torch.cuda.synchronize()
+    copied = time.perf_counter()
+    extra.wait()
+    done = time.perf_counter()
+    report["save"] = dict(blocking_ms=(returned - start) * 1e3,
+                          snapshot_copied_ms=(copied - start) * 1e3,
+                          write_to_done_ms=(done - returned) * 1e3,
+                          bytes=extra.bytes_on_disk(t3.state.step))
+    shutil.rmtree(os.path.join(work, "save_timing"))
+
+    # eval ms per batch; packed against flat windows at the same config
+    eval_iter = iter(loader.eval_view())
+    t3.evaluate(batch_iter=eval_iter, steps=1)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    t3.evaluate(batch_iter=eval_iter, steps=4)
+    torch.cuda.synchronize()
+    report["eval_ms_per_batch"] = (time.perf_counter() - start) * 1e3 / 4
+    flat = DataLoader(TokenDataset(corpus, SHELL_SEQ), config.global_batch_size, seed=seed,
+                      device="cuda")
+    batches = {"packed": [loader.batch_at(i) for i in range(TIMED_STEPS)],
+               "flat": [flat.batch_at(i) for i in range(TIMED_STEPS)]}
+    report["step_ms"], report["step_profile"] = {}, {}
+    for kind in ("packed", "flat", "flat", "packed"):
+        report["step_ms"].setdefault(kind, []).append(_timed_steps(t3, batches[kind]))
+    for kind in ("packed", "flat"):
+        report["step_profile"][kind] = _step_profile(
+            lambda: t3.step_fn(t3.state, None, batches[kind][0]))
+    report["segments_per_row"] = float(np.mean(
+        [int(r.max()) for r in batches["packed"][0].segment_ids.cpu()]))
+    masters, module = t3.state.params, t3.model.eval()
+    del t3, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report, launches, (masters, module)
+
+
+def long_leg(seed, corpus):
+    """(d): ``gpt2_125m_long`` over flat 8k windows, 2 warm-up and 4 timed
+    steps; one minibatch with the chunked loss against the full logits."""
+    import dataclasses
+
+    from tpu_parallel_torch.data import DataLoader, TokenDataset
+    from tpu_parallel_torch.models.gpt import make_gpt_loss
+    from tpu_parallel_torch.train_lib import Trainer
+    from tpu_parallel_torch.utils.profiling import peak_flops, transformer_flops_per_token
+
+    config, _ = _shell_config("gpt2_125m_long", steps=2 + TIMED_STEPS, seed=seed,
+                              warmup_steps=SHELL_WARMUP)
+    trainer = Trainer(config, device="cuda")
+    trainer.init()
+    cfg = trainer.model_config
+    loader = DataLoader(TokenDataset(corpus, cfg.seq_len), config.global_batch_size, seed=seed,
+                        device="cuda")
+    per_step, losses = [], []
+    _counting_step(trainer, per_step, losses)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()  # the long-context training main path starts here
+    for i in range(2 + TIMED_STEPS):
+        if i == 2:
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+        trainer.step_fn(trainer.state, None, loader.batch_at(i))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - start) * 1e3 / TIMED_STEPS
+    launches = dict(zip(LAUNCH_COUNTERS, _launch_counts()))
+    peak_mem = torch.cuda.max_memory_allocated()
+    want = cfg.n_layers * config.num_minibatches
+    if any(n != [want, want] for n in per_step):
+        raise AssertionError(f"8k: launches per step (fwd, bwd) {per_step}, want {want} each")
+    _falls("8k training", losses)
+    tokens = config.global_batch_size * cfg.seq_len
+    card = torch.cuda.get_device_name(0)
+    peak = peak_flops(card)
+    tokens_per_s = tokens / step_ms * 1e3
+    report = dict(losses=losses, launches_per_step=per_step[-1], launches=launches,
+                  step_ms=step_ms, tokens_per_s=tokens_per_s,
+                  mfu=tokens_per_s * transformer_flops_per_token(cfg) / peak if peak else None,
+                  max_memory_allocated=peak_mem)
+    # one minibatch [2, 8192]: loss_chunk=1024 against the full logits
+    mb = loader.batch_at(0).rows(0, config.global_batch_size // config.num_minibatches)
+    model = trainer.model
+    full_cfg = dataclasses.replace(cfg, loss_chunk=0)
+    mems = {}
+    for name, c in (("chunked", cfg), ("full", full_cfg)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss, _ = make_gpt_loss(c)(model, mb)
+        loss.backward()
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        mems[name] = torch.cuda.max_memory_allocated()
+    loss_diff, worst, worst_name = _grad_rel(model, model, make_gpt_loss(cfg),
+                                             make_gpt_loss(full_cfg), mb)
+    if loss_diff > LOSS_TOL or worst > TRAIN_GRAD_TOL:
+        raise AssertionError(f"8k chunked loss: |loss diff| {loss_diff}, worst gradient "
+                             f"{worst} ({worst_name})")
+    report.update(chunk_vs_full=dict(loss_diff=loss_diff, worst_grad_rel=worst,
+                                     worst_weight=worst_name, peak_memory=mems))
+    del trainer, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report, launches
+
+
+def optimizer_leg(seed, batch, eval_batches):
+    """(e) and (f): lion, sgd, an EMA shadow and dropout, 4 steps each on
+    one packed batch; EMA evaluation against a plain forward on the EMA
+    weights; dropout's mask reproduced under remat and "dots" against
+    "proj_attn", with each policy's peak memory and ms."""
+    import dataclasses
+
+    from tpu_parallel_torch.core.metrics import accumulate_metrics, compute
+    from tpu_parallel_torch.models.gpt import make_gpt_loss
+    from tpu_parallel_torch.train_lib import Trainer
+
+    report = {}
+
+    def run(**changes):
+        config, _ = _shell_config("gpt2_125m_corpus", steps=SHELL_STEPS, seed=seed,
+                                  warmup_steps=SHELL_WARMUP, **changes)
+        trainer = Trainer(config, device="cuda")
+        trainer.init()
+        losses = []
+        _counting_step(trainer, [], losses)
+        for _ in range(SHELL_STEPS):
+            trainer.step_fn(trainer.state, None, batch)
+        return trainer, losses
+
+    for name, changes in (("lion", dict(optimizer="lion", learning_rate=LION_LR)),
+                          ("sgd", dict(optimizer="sgd", learning_rate=SGD_LR))):
+        trainer, losses = run(**changes)
+        _falls(name, losses)
+        report[name] = dict(losses=losses, **changes)
+        del trainer
+
+    trainer, losses = run(ema_decay=0.99)
+    _falls("ema", losses)
+    state = trainer.state
+    drift = max((state.ema_params[n] - p).abs().max().item() for n, p in state.params.items())
+    if drift == 0:
+        raise AssertionError("the EMA shadow equals the masters after 4 steps")
+    before = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
+    got = trainer.evaluate(batch_iter=iter(eval_batches), steps=len(eval_batches))
+    if not all(torch.equal(p, before[n]) for n, p in trainer.model.named_parameters()):
+        raise AssertionError("evaluate changed the module's weights")
+    ema_model = _same_weights(trainer.model, trainer.model_config)
+    with torch.no_grad():
+        for n, p in ema_model.named_parameters():
+            p.copy_(state.ema_params[n])
+        metrics = None
+        for b in eval_batches:
+            metrics = accumulate_metrics(
+                metrics, make_gpt_loss(ema_model.config, train=False)(ema_model, b)[1])
+    want = compute(metrics)
+    ema_rel = max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-30) for k in want)
+    if ema_rel > 1e-6:
+        raise AssertionError(f"evaluate {got} != a plain forward on the EMA weights {want}")
+    report["ema"] = dict(losses=losses, shadow_max_abs_from_masters=drift, evaluate=got,
+                         plain_forward=want, max_rel_diff=ema_rel,
+                         bitwise=got == want)
+    del trainer, ema_model, before
+    gc.collect()
+
+    trainer, losses = run(model_overrides=dict(dropout_rate=0.1))
+    _falls("dropout", losses)
+    e1 = trainer.evaluate(batch_iter=iter(eval_batches), steps=len(eval_batches))
+    e2 = trainer.evaluate(batch_iter=iter(eval_batches), steps=len(eval_batches))
+    if e1 != e2:
+        raise AssertionError(f"two evaluations of the dropout model differ: {e1} {e2}")
+    mb = batch.rows(0, batch.size // trainer.config.num_minibatches)
+    cfg = trainer.model_config
+    plain = _same_weights(trainer.model, dataclasses.replace(cfg, remat=False))
+    gen = lambda s: torch.Generator().manual_seed(s)
+    same = _grad_rel(trainer.model, plain, make_gpt_loss(cfg), make_gpt_loss(plain.config), mb,
+                     gen(7), gen(7))
+    other = _grad_rel(trainer.model, plain, make_gpt_loss(cfg), make_gpt_loss(plain.config), mb,
+                      gen(7), gen(8))
+    if same[0] > LOSS_TOL or same[1] > TRAIN_GRAD_TOL or other[1] <= TRAIN_GRAD_TOL:
+        raise AssertionError(f"dropout under remat: same generator state {same}, another "
+                             f"{other}")
+    report["dropout"] = dict(losses=losses, evaluate=e1, proj_attn_vs_no_remat=same,
+                             another_generator_state=other)
+    del plain
+    nodrop = dataclasses.replace(cfg, dropout_rate=0.0)
+    models = {p: _same_weights(trainer.model, dataclasses.replace(nodrop, remat=p != "none",
+                                                                  remat_policy=p if p != "none"
+                                                                  else "full"))
+              for p in ("proj_attn", "dots", "full", "none")}
+    del trainer
+    gc.collect()
+    dots = _grad_rel(models["dots"], models["proj_attn"], make_gpt_loss(models["dots"].config),
+                     make_gpt_loss(models["proj_attn"].config), mb)
+    if dots[0] > LOSS_TOL or dots[1] > TRAIN_GRAD_TOL:
+        raise AssertionError(f"'dots' against 'proj_attn': {dots}")
+    policies = {}
+    for name, model in models.items():
+        loss_fn = make_gpt_loss(model.config)
+
+        def fwd_bwd():
+            loss, _ = loss_fn(model, mb)
+            loss.backward()
+            model.zero_grad(set_to_none=True)
+
+        fwd_bwd()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        start = time.perf_counter()
+        for _ in range(3):
+            fwd_bwd()
+        torch.cuda.synchronize()
+        policies[name] = dict(ms=(time.perf_counter() - start) * 1e3 / 3,
+                              peak_gib=(torch.cuda.max_memory_allocated() - base) / 2**30)
+    report["dots_vs_proj_attn"] = dots
+    report["policies"] = policies
+    del models
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report
+
+
+def serve_weights_leg(seed, work, trained, prompts):
+    """(g): the packed fit's final masters as a serving weight set, loaded
+    and verified, a flipped byte refused, then served through a
+    ``ServingEngine`` by ``rebind_params`` against static ``generate()`` on
+    the trainer's module."""
+    import dataclasses
+    import os
+
+    from tpu_parallel_torch.checkpoint import (WeightsCorrupt, load_serving_weights,
+                                               params_fingerprint, save_serving_weights)
+    from tpu_parallel_torch.models import GPTLM
+    from tpu_parallel_torch.models.convert import params_from_jax, params_to_jax
+    from tpu_parallel_torch.models.generate import generate
+    from tpu_parallel_torch.serving import Request
+
+    masters, trained = trained
+    # the served model: the trained GPT-2 125M's shapes on the engine's
+    # attention path (its caches are read by decode_attention either way)
+    cfg = dataclasses.replace(trained.config, attn_impl="xla", remat=False)
+    directory = os.path.join(work, "weights")
+    start = time.perf_counter()
+    manifest = save_serving_weights(directory, ROLLBACK_STEPS, params_to_jax(masters, cfg))
+    save_s = time.perf_counter() - start
+    tree, loaded = load_serving_weights(directory)
+    if loaded != manifest or params_fingerprint(tree) != manifest.fingerprint:
+        raise AssertionError(f"weights manifest {loaded} != {manifest}")
+    payload = Path(directory, f"weights_{ROLLBACK_STEPS}", "params.pt")
+    raw = bytearray(payload.read_bytes())
+    raw[len(raw) // 2] ^= 0x01
+    payload.write_bytes(bytes(raw))
+    try:
+        load_serving_weights(directory)
+    except WeightsCorrupt as exc:
+        refused = str(exc)[:120]
+    else:
+        raise AssertionError("a flipped byte in the weights loaded without WeightsCorrupt")
+    served = params_from_jax(tree, cfg)
+    model = GPTLM(cfg, device="cuda", seed=seed + 1).eval()
+    eng = serve_engine(model, 8, seed)
+    eng.rebind_params({n: t.cuda() for n, t in served.items()}, version=manifest.version)
+    outs = [eng.add_request(Request(prompt=p, max_new_tokens=SERVE_NEW, request_id=f"w{i}"))
+            for i, p in enumerate(prompts)]
+    eng.run()
+    results = []
+    with torch.inference_mode():
+        for i, (p, out) in enumerate(zip(prompts, outs)):
+            want = generate(trained, torch.tensor([p], device="cuda"),
+                            max_new_tokens=SERVE_NEW)[0].tolist()
+            if out.tokens == want:
+                results.append(dict(request=i, equal=True))
+                continue
+            step = next(j for j, (a, b) in enumerate(zip(out.tokens, want)) if a != b)
+            ctx = torch.tensor([p + want[:step]], device="cuda")
+            logits = trained(ctx, decode=True, cache=trained.init_cache(1))[0, -1].float()
+            wide = trained(ctx.expand(SERVE_SLOTS, -1), decode=True,
+                           cache=trained.init_cache(SERVE_SLOTS))[0, -1].float()
+            top2 = logits.topk(2).values
+            gap, noise = (top2[0] - top2[1]).item(), (logits - wide).abs().max().item()
+            results.append(dict(request=i, equal=False, first_diff=step, top2_gap=gap,
+                                shape_noise=noise))
+            # phase 7's rule: a token may differ only on a near-tie, here
+            # below twice what the GEMMs' batch shape moves the bf16 logits
+            if gap >= max(FP32_TIE_GAP, 2 * noise):
+                raise AssertionError(f"served request w{i} differs from generate() at token "
+                                     f"{step}: {results[-1]}")
+    del model, eng, trained
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(manifest=dataclasses.asdict(manifest), save_s=save_s, refused=refused,
+                requests=results)
+
+
+def cli_leg(work, corpus):
+    """(h): ``python -m tpu_parallel_torch.train`` in a subprocess on the
+    packed corpus with a checkpoint directory, a trace and metrics."""
+    import os
+
+    here = Path(__file__).resolve().parent
+    trace, metrics = Path(work, "trace.json"), Path(work, "metrics.prom")
+    cmd = [sys.executable, "-m", "tpu_parallel_torch.train", "--config=gpt2_125m_corpus",
+           "--config.steps=3", f"--config.data_path={corpus}", "--config.data_format=packed",
+           f"--config.checkpoint_dir={Path(work, 'cli_ckpt')}", f"--trace-out={trace}",
+           f"--metrics-out={metrics}"]
+    env = dict(os.environ, PYTHONPATH=str(here))
+    start = time.perf_counter()
+    out = subprocess.run(cmd, cwd=here, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - start
+    if out.returncode != 0:
+        raise AssertionError(f"the CLI exited {out.returncode}: {out.stderr[-2000:]}")
+    names = {e["name"] for e in json.loads(trace.read_text())["traceEvents"]}
+    if not {"data_wait", "compute"} <= names or "train_loss" not in metrics.read_text():
+        raise AssertionError(f"CLI trace spans {names} or metrics without train_loss")
+    return dict(wall_s=wall, stdout_tail=out.stdout.strip().splitlines()[-3:])
+
+
+def trainer_phase(seed, smi):
+    """Phase 11: the trainer shell on GPT-2 125M (see the module
+    docstring).  Returns the phase's report and the kernels' rows and
+    launches on the packed and the long training paths."""
+    import shutil
+    import tempfile
+
+    from tpu_parallel_torch.data import PackedDataset
+
+    start = time.perf_counter()
+    legs_s = {}
+
+    def lap(name):
+        legs_s[name] = time.perf_counter() - start - sum(legs_s.values())
+
+    work = tempfile.mkdtemp(prefix="trainer_shell_")
+    try:
+        corpus, n_tokens, n_docs = build_corpus(work)
+        packed = PackedDataset(corpus, SHELL_SEQ, eos_id=EOS_ID)
+        lengths = packed._chunk_ends - packed._chunk_starts
+        corpus_report = dict(tokens=n_tokens, documents=n_docs, packed_rows=packed.num_windows,
+                             documents_per_row=len(lengths) / packed.num_windows,
+                             padding_share=1 - lengths.sum() / (packed.num_windows * SHELL_SEQ))
+        log(f"[trainer corpus] {n_tokens} byte-level tokens in {n_docs} documents (the repo's "
+            f".py/.md and the standard library's .py, EOS {EOS_ID} after each); packed at {SHELL_SEQ}: "
+            f"{packed.num_windows} rows, {corpus_report['documents_per_row']:.3f} documents "
+            f"(or pieces) per row, padding share {corpus_report['padding_share']:.4f}")
+        lap("corpus")
+
+        # (c) the kernels at the packed pass, with the segment ids of the
+        # fit's first minibatch, and at the 8k pass
+        import numpy as np
+
+        from tpu_parallel_torch.data import DataLoader
+
+        fit_config, plumbing = _shell_config("gpt2_125m_corpus")
+        loader = DataLoader(packed, fit_config.global_batch_size, seed=seed,
+                            holdout_fraction=plumbing["eval_fraction"], device="cuda")
+        batch = loader.batch_at(0)
+        seg = batch.segment_ids[:PACKED_SHAPE[0]]
+        gen = torch.Generator(device="cuda").manual_seed(seed + 20)
+        rows = dict(packed_fwd=fwd_kernel_row("t_packed_pass", PACKED_SHAPE, gen, seg=seg),
+                    packed_bwd=bwd_kernel_row("t_packed_pass", PACKED_SHAPE, gen, seg=seg,
+                                              main_path=True),
+                    long_fwd=fwd_kernel_row("t_long_pass", LONG_SHAPE, gen),
+                    long_bwd=bwd_kernel_row("t_long_pass", LONG_SHAPE, gen, main_path=True))
+        lap("kernels")
+
+        fit, packed_launches, trained = packed_fit_leg(seed, work, corpus)
+        lap("packed_fit")
+        log(f"[trainer fit] gpt2_125m_corpus packed, {FIT_STEPS} steps of [32, 1024] in 2 "
+            f"minibatches: losses {[round(x, 4) for x in fit['losses']]}; launches per step "
+            f"(flash_fwd, flash_bwd) {fit['launches_per_step']} in every step; evaluation "
+            f"launches per call {fit['eval_launches']}; evals "
+            f"{[(s, round(m['eval_loss'], 4)) for s, m in fit['evals']]}; best {fit['best']}; "
+            f"main-path launches {fit['launches']}; fit {fit['fit_s']:.1f} s")
+        log(f"[trainer resume] restored step {FIT_STEPS} bitwise ({fit['restored_bitwise']}) "
+            f"in {fit['restore_ms']:.1f} ms from {fit['checkpoint_bytes']} bytes on disk; "
+            f"resumed losses {[round(x, 4) for x in fit['resume_losses']]}")
+        log(f"[trainer rollback] failure injected at step {FAIL_AT}: batches requested "
+            f"{fit['rollback']['batches_requested']}, ended at {fit['rollback']['ended_at']}")
+        sv = fit["save"]
+        log(f"[trainer save] {sv['bytes']} bytes: blocking snapshot {sv['blocking_ms']:.1f} ms "
+            f"(copies done {sv['snapshot_copied_ms']:.1f} ms), background write to done "
+            f"{sv['write_to_done_ms']:.1f} ms; eval {fit['eval_ms_per_batch']:.2f} ms per "
+            f"batch of [32, 1024]")
+        for kind in ("packed", "flat"):
+            p = fit["step_profile"][kind]
+            log(f"[trainer step {kind}] {fit['step_ms'][kind]} ms per step (two windows of "
+                f"{TIMED_STEPS}); profile: wall {p['wall_ms']:.1f} ms, device busy "
+                f"{p['busy_ms']:.1f} ms, flash fwd {p['flash_fwd_ms']:.2f} ms, flash bwd "
+                f"{p['flash_bwd_ms']:.2f} ms, kernels' share {p['kernel_share']}")
+        log(f"  packed rows carry {fit['segments_per_row']:.2f} segments on average")
+
+        long, long_launches = long_leg(seed, corpus)
+        lap("long")
+        c = long["chunk_vs_full"]
+        log(f"[trainer 8k] gpt2_125m_long, {2 + TIMED_STEPS} steps of [16, 8192] in 8 "
+            f"minibatches: losses {[round(x, 4) for x in long['losses']]}; launches per step "
+            f"{long['launches_per_step']}; {long['step_ms']:.1f} ms per step, "
+            f"{long['tokens_per_s']:.0f} tokens/s, MFU {long['mfu']}; max memory allocated "
+            f"{long['max_memory_allocated'] / 2**30:.2f} GiB")
+        log(f"  one minibatch [2, 8192], loss_chunk=1024 against 0: |loss diff| "
+            f"{c['loss_diff']:.2e} (tol {LOSS_TOL}), worst gradient {c['worst_grad_rel']:.3e} "
+            f"({c['worst_weight']}, tol {TRAIN_GRAD_TOL}); peak memory chunked "
+            f"{c['peak_memory']['chunked'] / 2**30:.2f} GiB, full "
+            f"{c['peak_memory']['full'] / 2**30:.2f} GiB")
+
+        eval_batches = [loader.eval_view().batch_at(i) for i in range(2)]
+        opt = optimizer_leg(seed, batch, eval_batches)
+        lap("optimizers_dropout")
+        for name in ("lion", "sgd"):
+            log(f"[trainer {name}] losses {[round(x, 4) for x in opt[name]['losses']]} "
+                f"({ {k: v for k, v in opt[name].items() if k != 'losses'} })")
+        e = opt["ema"]
+        log(f"[trainer ema 0.99] losses {[round(x, 4) for x in e['losses']]}; shadow max |ema - "
+            f"master| {e['shadow_max_abs_from_masters']:.3e}; evaluate {e['evaluate']} against "
+            f"a plain forward on the EMA weights {e['plain_forward']} (bitwise {e['bitwise']}); "
+            f"module weights bitwise unchanged")
+        d = opt["dropout"]
+        log(f"[trainer dropout 0.1] losses {[round(x, 4) for x in d['losses']]}; two evaluations "
+            f"bitwise equal {d['evaluate']}; proj_attn against remat off, same generator state: "
+            f"|loss diff| {d['proj_attn_vs_no_remat'][0]:.2e}, worst gradient "
+            f"{d['proj_attn_vs_no_remat'][1]:.3e}; another generator state "
+            f"{d['another_generator_state'][1]:.3e} (tol {TRAIN_GRAD_TOL})")
+        log(f"[trainer dots] against proj_attn: |loss diff| {opt['dots_vs_proj_attn'][0]:.2e}, "
+            f"worst gradient {opt['dots_vs_proj_attn'][1]:.3e}; one minibatch [16, 1024] "
+            f"fwd+bwd: " + ", ".join(f"{k} {v['ms']:.1f} ms peak +{v['peak_gib']:.2f} GiB"
+                                     for k, v in opt["policies"].items()))
+
+        tokens = np.memmap(corpus, dtype=np.uint16, mode="r")
+        prompts = [[int(t) for t in tokens[o:o + SERVE_PROMPT_LEN]]
+                   for o in np.linspace(0, n_tokens // 2, SERVE_PROMPTS, dtype=np.int64)]
+        serve = serve_weights_leg(seed, work, trained, prompts)
+        del trained
+        lap("serve_weights")
+        log(f"[trainer weights] manifest {serve['manifest']} saved in {serve['save_s']:.1f} s "
+            f"and verified; a flipped byte refused: {serve['refused']}; served through "
+            f"rebind_params: {serve['requests']}")
+
+        cli = cli_leg(work, corpus)
+        lap("cli")
+        log(f"[trainer cli] python -m tpu_parallel_torch.train exited 0 in {cli['wall_s']:.1f} s; "
+            f"trace has data_wait and compute spans, metrics train_loss; {cli['stdout_tail']}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    phase_s = time.perf_counter() - start
+    log(f"[trainer] phase 11 took {phase_s:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in legs_s.items()) + ")")
+    log(f"card: {smi}")
+    report = dict(corpus=corpus_report, fit=fit, long=long, optimizers=opt, serve=serve, cli=cli,
+                  phase_s=phase_s, legs_s=legs_s)
+    return report, rows, dict(training_packed=packed_launches, training_long=long_launches)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2562,6 +3371,12 @@ def main():
     serve_launches = {name: getattr(fa, name) for name in LAUNCH_COUNTERS}
     if any(serve_launches.values()):
         raise AssertionError(f"the serving path launched flash kernels: {serve_launches}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    shell, shell_rows, shell_launches = trainer_phase(SEED, smi)
+    for path, counts in shell_launches.items():
+        if not all(counts.values()):
+            raise AssertionError(f"the {path} path left a kernel unlaunched: {counts}")
 
     # one row per kernel and main path, each at the shape that path gives it:
     # the forward at (a) for inference and at the training pass;
@@ -2584,10 +3399,27 @@ def main():
              plain_ms=train_row["plain_ms"], bound_ms=train_row["bound_ms"],
              bound_by=train_row["bound_by"], library_ms=train_row["library_ms"],
              library_covers="dq+dk+dv", ms_main_path_layout=train_row["main_path_layout"]["ms"])
+    ] + [
+        dict(name=f"flash_{kind}", route="cuda", source=f"tpu_parallel_torch/csrc/flash_{kind}.cu",
+             replaces=replaces, path=path, shape=row["shape"],
+             launches=shell_launches[path][f"flash_{kind}_launches"],
+             max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
+             bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"])
+        for path, kind, row, replaces in (
+            ("training_packed", "fwd", shell_rows["packed_fwd"],
+             "tpu_parallel/ops/flash_attention.py:240"),
+            ("training_packed", "bwd", shell_rows["packed_bwd"],
+             "tpu_parallel/ops/flash_attention.py:464,563"),
+            ("training_long", "fwd", shell_rows["long_fwd"],
+             "tpu_parallel/ops/flash_attention.py:296"),
+            ("training_long", "bwd", shell_rows["long_bwd"],
+             "tpu_parallel/ops/flash_attention.py:512,635"))
     ]}
     summary = dict(card=smi, forward=fwd, generate=gen, train=train, serve=serve, kv=kv,
-                   spec=spec, decode_extras=extras, inference_flash_fwd_launches=inference_launches,
-                   kernel_shapes=kernel_rows, bwd_kernel_shapes=bwd_rows)
+                   spec=spec, decode_extras=extras, trainer_shell=shell,
+                   inference_flash_fwd_launches=inference_launches,
+                   kernel_shapes=kernel_rows, bwd_kernel_shapes=bwd_rows,
+                   trainer_shell_kernel_shapes=shell_rows)
     log("[summary] " + json.dumps(summary, sort_keys=True))
     log(f"card: {smi}")
     print(json.dumps(kernels), flush=True)

@@ -1,6 +1,7 @@
-"""Rules of the PyTorch port: it never imports JAX, the JAX package or
-``ml_dtypes`` (the card's machine has none of them), and its entry points
-default to the card, raising where there is none."""
+"""Rules of the PyTorch port: it never imports JAX, the JAX package,
+``ml_dtypes``, orbax, ``ml_collections`` or absl (the card's machine has
+none of them), and its entry points default to the card, raising where
+there is none."""
 
 import ast
 import os
@@ -22,7 +23,8 @@ from tpu_parallel_torch.serving import ServingEngine
 torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "tpu_parallel", "ml_dtypes"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "tpu_parallel", "ml_dtypes", "orbax",
+             "ml_collections", "absl"}
 PORT_FILES = sorted((REPO / "tpu_parallel_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
@@ -51,6 +53,9 @@ def test_scan_covers_every_subpackage():
     packages = {p.parent for p in (REPO / "tpu_parallel_torch").rglob("__init__.py")}
     scanned = {p.parent for p in PORT_FILES}
     assert REPO / "tpu_parallel_torch" / "daemon" in packages
+    for sub in ("checkpoint", "configs", "data"):
+        assert REPO / "tpu_parallel_torch" / sub in packages
+    assert REPO / "tpu_parallel_torch" / "train.py" in PORT_FILES
     assert packages <= scanned
     assert all(p in PORT_FILES for pkg in packages for p in pkg.glob("*.py"))
 
@@ -72,7 +77,12 @@ def test_import_pulls_in_no_jax():
         "tpu_parallel_torch.utils.logging_utils, tpu_parallel_torch.daemon, "
         "tpu_parallel_torch.daemon.iofaults, tpu_parallel_torch.daemon.journal, "
         "tpu_parallel_torch.serving.kv_hierarchy, tpu_parallel_torch.serving.kv_wire, "
-        "tpu_parallel_torch.serving.kv_disk\n"
+        "tpu_parallel_torch.serving.kv_disk, tpu_parallel_torch.checkpoint, "
+        "tpu_parallel_torch.checkpoint.io, tpu_parallel_torch.data.loader, "
+        "tpu_parallel_torch.data.packed, tpu_parallel_torch.obs.exporters, "
+        "tpu_parallel_torch.train, tpu_parallel_torch.configs, "
+        "tpu_parallel_torch.configs.common, tpu_parallel_torch.configs.gpt2_125m_dp, "
+        "tpu_parallel_torch.configs.gpt2_125m_corpus, tpu_parallel_torch.configs.gpt2_125m_long\n"
         "new = {m.split('.')[0] for m in set(sys.modules) - before}\n"
         f"print(sorted(new & {FORBIDDEN!r}))\n"
     )
@@ -83,11 +93,20 @@ def test_import_pulls_in_no_jax():
 
 
 def test_entry_points_default_to_cuda():
-    """Without a GPU the default device raises; with one it is used."""
+    """Without a GPU the default device raises; with one it is used.  The
+    same for the trainer, the data loader's device moves and the CLI."""
+    import numpy as np
+
+    from tpu_parallel_torch.data import DataLoader, TokenDataset
+    from tpu_parallel_torch.train_lib import Trainer, TrainerConfig
+
+    ds = TokenDataset(np.arange(400, dtype=np.uint16), 16)
     if torch.cuda.is_available():
         assert GPTLM(tiny_test()).device.type == "cuda"
         assert resolve_device().type == "cuda"
         assert ServingEngine(GPTLM(tiny_test()), n_slots=2).device.type == "cuda"
+        assert Trainer(TrainerConfig(model="tiny")).device.type == "cuda"
+        assert DataLoader(ds, 4).batch_at(0).tokens.device.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="cuda"):
             GPTLM(tiny_test())
@@ -95,8 +114,19 @@ def test_entry_points_default_to_cuda():
             resolve_device()
         with pytest.raises(RuntimeError, match="cuda"):
             ServingEngine(GPTLM(tiny_test()), n_slots=2)
+        with pytest.raises(RuntimeError, match="cuda"):
+            Trainer(TrainerConfig(model="tiny"))
+        with pytest.raises(RuntimeError, match="cuda"):
+            DataLoader(ds, 4)
+        env = dict(os.environ, PYTHONPATH=str(REPO))
+        out = subprocess.run([sys.executable, "-m", "tpu_parallel_torch.train",
+                              "--config=gpt2_125m_dp", "--config.model=tiny"], cwd=REPO,
+                             env=env, capture_output=True, text=True, timeout=120)
+        assert out.returncode != 0 and "torch.cuda.is_available() is False" in out.stderr
     assert GPTLM(tiny_test(), device="cpu").device.type == "cpu"
     assert ServingEngine(GPTLM(tiny_test(), device="cpu"), n_slots=2).device.type == "cpu"
+    assert Trainer(TrainerConfig(model="tiny"), device="cpu").device.type == "cpu"
+    assert DataLoader(ds, 4, device="cpu").batch_at(0).tokens.device.type == "cpu"
 
 
 def test_failed_kernel_build_raises(tmp_path, monkeypatch):

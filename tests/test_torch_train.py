@@ -1,9 +1,10 @@
 """Port parity: the training step of the PyTorch port against the JAX package.
 
 ``make_gpt_loss`` loss and gradients (xla and flash attention, each remat
-policy), gradient accumulation, the learning-rate schedules and a short
-trajectory of the whole ``Trainer`` step, on bridged ``tiny_test`` weights
-and numpy batches made from a seed.  fp32 on the CPU.
+policy, the chunked loss), gradient accumulation, the learning-rate
+schedules, dropout, and short trajectories of the whole ``Trainer`` step
+(adamw, lion, sgd, adamw with an EMA shadow) with ``evaluate``, on bridged
+``tiny_test`` weights and numpy batches made from a seed.  fp32 on the CPU.
 
 Tolerances: loss and gradients atol = rtol = 1e-5 over the max |reference|
 of each leaf (fp32 sums in another order through 4 layers); schedules
@@ -36,6 +37,7 @@ from tpu_parallel.runtime import MeshConfig, make_mesh
 from tpu_parallel.train_lib import Trainer as JTrainer
 from tpu_parallel.train_lib import TrainerConfig as JTrainerConfig
 from tpu_parallel.train_lib import make_lr_schedule as jax_schedule
+from tpu_parallel.train_lib import make_optimizer as jax_make_optimizer
 from tpu_parallel_torch.core.accumulate import accumulate_gradients
 from tpu_parallel_torch.core.losses import make_lm_loss
 from tpu_parallel_torch.core.metrics import accumulate_metrics, compute, metric
@@ -101,7 +103,7 @@ def _port_model(params, impl, **overrides):
     return model, cfg
 
 
-@pytest.mark.parametrize("remat", ["none", "full", "proj_attn"])
+@pytest.mark.parametrize("remat", ["none", "full", "proj", "proj_attn", "dots"])
 @pytest.mark.parametrize("impl", ["xla", "flash"])
 def test_gpt_loss_and_grads_match_jax(impl, remat):
     nb, params, want_loss, want_metrics, want_grads = _jax_loss_and_grads(impl)
@@ -178,8 +180,11 @@ def test_lr_schedule_matches_optax(kind, warmup, steps):
         assert got(0) == 0.0
 
 
-def _jax_trajectory(steps):
-    config = JTrainerConfig(model="tiny", steps=steps, warmup_steps=2, num_minibatches=2)
+@functools.lru_cache(maxsize=None)
+def _jax_trajectory(steps, **kw):
+    """The JAX Trainer's losses, final masters (and EMA shadow) and
+    ``eval_fn`` metrics on its example batch, from its init."""
+    config = JTrainerConfig(model="tiny", steps=steps, warmup_steps=2, num_minibatches=2, **kw)
     trainer = JTrainer(config, mesh=make_mesh(MeshConfig(data=1), devices=jax.devices()[:1]))
     state = trainer.init()
     to_np = lambda params: jax.tree.map(np.asarray, export_single_device_params(params))
@@ -189,16 +194,48 @@ def _jax_trajectory(steps):
     for _ in range(steps):
         state, metrics = trainer.funcs.step_fn(state, None, trainer.example_batch)
         losses.append(jax_compute(metrics)["loss"])
-    return params0, batch, losses, to_np(state.params)
+    ema = None if state.ema_params is None else to_np(state.ema_params)
+    evaluated = jax_compute(trainer.funcs.eval_fn(state, None, trainer.example_batch))
+    return params0, batch, losses, to_np(state.params), ema, evaluated
+
+
+def _assert_weights_close(got_params, want_tree, cfg):
+    """Each weight within a relative L2 error of 3e-5 of the JAX one, the
+    key slice of the qkv bias left out (see the module docstring)."""
+    want = params_from_jax(want_tree, cfg, dtype=torch.float32)
+    # [q | k | v] per head: drop the k slice of each head from the qkv bias
+    dh = cfg.head_dim
+    not_key = (torch.arange(3 * cfg.d_model) % (3 * dh)) // dh != 1
+    for name, w in want.items():
+        got = got_params[name]
+        if name.endswith("attn.qkv.bias"):
+            got, w = got[not_key], w[not_key]
+        rel = float((got - w).norm() / w.norm().clamp(min=1e-30))
+        assert rel <= 3e-5, (name, rel)
 
 
 def test_trainer_trajectory_matches_jax():
     """Six steps of the JAX Trainer (tiny, warmup 2, 2 minibatches, one
-    device) against the port's Trainer from the same init and batch."""
+    device, AdamW) against the port's Trainer from the same init and batch:
+    losses, masters, and ``evaluate`` against the JAX ``eval_fn``."""
+    _check_trajectory()
+
+
+@pytest.mark.parametrize("kw", [dict(optimizer="lion"), dict(optimizer="sgd"),
+                                dict(ema_decay=0.9)], ids=["lion", "sgd", "adamw_ema"])
+def test_trainer_trajectory_optimizers_match_jax(kw):
+    """As above for lion, sgd (after decayed weights, momentum 0.9) and
+    AdamW with an EMA shadow (compared too; the JAX ``eval_fn`` and the
+    port's ``evaluate`` both read it)."""
+    _check_trajectory(**kw)
+
+
+def _check_trajectory(**kw):
     steps = 6
-    params0, jbatch, want_losses, want_params = _jax_trajectory(steps)
+    params0, jbatch, want_losses, want_params, want_ema, want_eval = _jax_trajectory(
+        steps, **kw)
     trainer = Trainer(TrainerConfig(model="tiny", steps=steps, warmup_steps=2,
-                                    num_minibatches=2), device="cpu")
+                                    num_minibatches=2, **kw), device="cpu")
     cfg = trainer.model_config
     state = trainer.init(params_from_jax(params0, cfg, dtype=torch.float32))
     batch = TextBatch(tokens=torch.from_numpy(jbatch.tokens).long(),
@@ -211,16 +248,53 @@ def test_trainer_trajectory_matches_jax():
         losses.append(compute(metrics)["loss"])
     np.testing.assert_allclose(losses, want_losses, rtol=TOL)
     assert losses[-1] < losses[0]
-    want = params_from_jax(want_params, cfg, dtype=torch.float32)
-    # [q | k | v] per head: drop the k slice of each head from the qkv bias
-    dh = cfg.head_dim
-    not_key = (torch.arange(3 * cfg.d_model) % (3 * dh)) // dh != 1
-    for name, w in want.items():
-        got = state.params[name]
-        if name.endswith("attn.qkv.bias"):
-            got, w = got[not_key], w[not_key]
-        rel = float((got - w).norm() / w.norm().clamp(min=1e-30))
-        assert rel <= 3e-5, (name, rel)
+    _assert_weights_close(state.params, want_params, cfg)
+    assert (state.ema_params is None) == (want_ema is None)
+    if want_ema is not None:
+        _assert_weights_close(state.ema_params, want_ema, cfg)
+        assert not torch.equal(state.ema_params["lm_head.weight"], state.params["lm_head.weight"])
+    before = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
+    got_eval = trainer.evaluate(batch_iter=iter([batch]), steps=1)
+    for key, value in want_eval.items():
+        np.testing.assert_allclose(got_eval[key], value, rtol=TOL)
+    assert all(torch.equal(p, before[n]) for n, p in trainer.model.named_parameters())
+
+
+def test_optimizer_refusals_match_jax():
+    """Unknown optimizers and adafactor raise ``ValueError``, as the JAX
+    ``make_optimizer`` does."""
+    for name in ("adafactor", "adam"):
+        with pytest.raises(ValueError, match=name):
+            jax_make_optimizer(JTrainerConfig(optimizer=name))
+        with pytest.raises(ValueError, match=name):
+            make_optimizer(TrainerConfig(optimizer=name))
+
+
+@pytest.mark.parametrize("impl", ["xla", "flash"])
+def test_chunked_loss_matches_jax_and_unchunked(impl):
+    """``loss_chunk=8`` (4 chunks of the 32 positions): loss and gradients
+    equal JAX's chunked loss and the port's unchunked one; a chunk that
+    does not divide the sequence raises, as in JAX."""
+    nb, params, want_loss, want_metrics, want_grads = _jax_loss_and_grads(impl)
+    jcfg = jgpt.tiny_test(remat=False, attn_impl=impl, loss_chunk=8)
+    jm = jgpt.GPTLM(jcfg)
+    (jloss, _), jgrads = jax.value_and_grad(jgpt.make_gpt_loss(jcfg), has_aux=True)(
+        jax.tree.map(jnp.asarray, params), jm.apply, _jax_batch(nb), jax.random.PRNGKey(0))
+    np.testing.assert_allclose(float(jloss), want_loss, rtol=TOL)
+    model, cfg = _port_model(params, impl, remat=False, loss_chunk=8)
+    loss, metrics = make_gpt_loss(cfg)(model, _torch_batch(nb))
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=TOL)
+    got_metrics = compute({k: (s.detach(), c) for k, (s, c) in metrics.items()})
+    for key, value in want_metrics.items():
+        np.testing.assert_allclose(got_metrics[key], value, rtol=TOL)
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    _assert_leaves_close(grads, params_from_jax(jax.tree.map(np.asarray, jgrads), cfg,
+                                                dtype=torch.float32))
+    _assert_leaves_close(grads, params_from_jax(want_grads, cfg, dtype=torch.float32))
+    bad, bad_cfg = _port_model(params, impl, remat=False, loss_chunk=5)
+    with pytest.raises(ValueError, match="not divisible by loss_chunk=5"):
+        make_gpt_loss(bad_cfg)(bad, _torch_batch(nb))
 
 
 def test_trainer_train_reports_throughput_and_masters():
@@ -248,10 +322,78 @@ def test_trainer_train_reports_throughput_and_masters():
 
 
 def test_trainer_refuses_what_it_does_not_port():
-    with pytest.raises(NotImplementedError, match="lion"):
-        make_optimizer(TrainerConfig(optimizer="lion"))
-    with pytest.raises(NotImplementedError, match="ema"):
-        Trainer(TrainerConfig(model="tiny", ema_decay=0.99), device="cpu")
-    with pytest.raises(NotImplementedError, match="dots"):
-        model = GPTLM(tiny_test(remat=True, remat_policy="dots"), device="cpu")
-        model(torch.zeros(1, 8, dtype=torch.long))
+    """The MLM objective (item 6), a mesh of several devices (item 5) and a
+    config the port cannot run yet raise; a one-device mesh is accepted."""
+    from tpu_parallel_torch.configs import get_config
+
+    with pytest.raises(NotImplementedError, match="mlm.*item 6"):
+        Trainer(TrainerConfig(model="tiny", objective="mlm"), device="cpu")
+    for mesh in (dict(data=2), dict(data=-1, model=2), dict(pipe=4)):
+        with pytest.raises(NotImplementedError, match="item 5"):
+            Trainer(TrainerConfig(model="tiny", mesh=mesh), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 5"):
+        get_config("gpt2_125m_tp")
+    Trainer(TrainerConfig(model="tiny", mesh=dict(data=-1, model=1, pipe=1, seq=1)),
+            device="cpu")
+    Trainer(TrainerConfig(model="tiny", mesh=MeshConfig(data=1)), device="cpu")
+
+
+def _dropout_grads(remat, rate=0.1, seed=7):
+    """Loss and gradients of the tiny model with dropout, from a generator
+    seeded ``seed``."""
+    nb, params, _, _, _ = _jax_loss_and_grads("xla")
+    overrides = dict(remat=False) if remat == "none" else dict(remat=True, remat_policy=remat)
+    model, cfg = _port_model(params, "xla", dropout_rate=rate, **overrides)
+    loss, _ = make_gpt_loss(cfg)(model, _torch_batch(nb), torch.Generator().manual_seed(seed))
+    loss.backward()
+    return loss.item(), {n: p.grad for n, p in model.named_parameters()}
+
+
+@pytest.mark.parametrize("remat", ["full", "proj", "proj_attn", "dots"])
+def test_dropout_gradients_equal_under_remat(remat):
+    """The recompute under remat redraws the forward's masks: gradients
+    with dropout and remat equal those without remat from one generator
+    state (and differ from another state's)."""
+    want_loss, want = _dropout_grads("none")
+    loss, got = _dropout_grads(remat)
+    np.testing.assert_allclose(loss, want_loss, rtol=TOL)
+    _assert_leaves_close(got, want)
+    other_loss, _ = _dropout_grads(remat, seed=8)
+    assert other_loss != loss
+
+
+def test_dropout_rate_zero_and_eval_are_the_plain_path():
+    """Rate 0 in training, and any rate out of training, are bitwise the
+    forward without dropout; a training forward at rate 0.3 differs."""
+    nb, params, _, _, _ = _jax_loss_and_grads("xla")
+    tokens = torch.from_numpy(nb["tokens"]).long()
+    plain, _ = _port_model(params, "xla", remat=False)
+    with torch.no_grad():
+        want = plain(tokens)
+        zero, _ = _port_model(params, "xla", remat=False, dropout_rate=0.0)
+        assert torch.equal(zero(tokens, train=True, rng=torch.Generator()), want)
+        drop, _ = _port_model(params, "xla", remat=False, dropout_rate=0.3)
+        assert torch.equal(drop(tokens), want)
+        assert torch.equal(drop(tokens, train=False, rng=torch.Generator()), want)
+        assert not torch.equal(drop(tokens, train=True, rng=torch.Generator()), want)
+    with pytest.raises(ValueError, match="rng"):
+        drop(tokens, train=True)
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_dropout_keeps_its_share_and_scales(rate):
+    """In training, the kept share is within 3 sigma of 1 - rate and every
+    kept value is x / (1 - rate) in x's dtype; the rest are 0."""
+    from tpu_parallel_torch.models.layers import dropout
+
+    n = 1 << 16
+    x = torch.randn(n, generator=torch.Generator().manual_seed(0)) + 4.0
+    for dtype in (torch.float32, torch.bfloat16):
+        xd = x.to(dtype)
+        out = dropout(xd, rate, torch.Generator().manual_seed(1))
+        kept = out != 0
+        share = kept.float().mean().item()
+        sigma = ((1 - rate) * rate / n) ** 0.5
+        assert abs(share - (1 - rate)) <= 3 * sigma, (share, sigma)
+        assert torch.equal(out[kept], xd[kept] / (1 - rate))
+        assert out.dtype == dtype

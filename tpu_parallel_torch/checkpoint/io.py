@@ -1,0 +1,346 @@
+"""Checkpoints and serving weight sets: the port of
+``tpu_parallel/checkpoint/io.py``.
+
+The JAX package saves with orbax; the card has no orbax, so the port writes
+its own format: one ``torch.save`` file per step directory, read back with
+``torch.load(weights_only=True)``.  State crosses the two packages through
+``models/convert.py`` (``params_from_jax`` / ``params_to_jax``), and the
+serving weight set's fingerprint is the JAX package's digest of the same
+weights.
+
+An orbax save is safe to run behind the next step because JAX arrays are
+immutable.  The port's state is updated in place, so a save first enqueues
+a snapshot of every tensor into pinned host memory on the current stream,
+before ``save`` returns; the next step's in-place updates queue behind it on
+that stream.  Only the file write runs in a background thread.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import json
+import os
+import shutil
+import threading
+import warnings
+from typing import Any, Dict, Mapping, Optional
+
+import numpy as np
+import torch
+
+from tpu_parallel_torch.core.state import map_tensors
+
+_STATE_FILE = "state.pt"
+_PARAMS_FILE = "params.pt"
+
+
+def _open_file(path, mode="r", **kwargs):
+    """Manifest reads/writes go through the injectable IO fault shim, as in
+    the JAX package (the fingerprint check is only as strong as the IO it
+    reads through)."""
+    from tpu_parallel_torch.daemon.iofaults import open_file
+
+    return open_file(path, mode, **kwargs)
+
+
+def snapshot_to_host(tree):
+    """Host copies of every tensor of ``tree``: a CUDA tensor is copied into
+    pinned memory with ``non_blocking=True`` on the current stream (the
+    copy is enqueued, not finished, when this returns); a CPU tensor is
+    cloned.  Returns ``(snapshot, event)``, the event recorded after the
+    copies (None when nothing is on a CUDA device)."""
+    on_cuda = []
+
+    def copy(t: torch.Tensor) -> torch.Tensor:
+        t = t.detach()
+        if t.device.type != "cuda":
+            return t.clone()
+        on_cuda.append(t)
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        return host
+
+    snapshot = map_tensors(copy, tree)
+    event = None
+    if on_cuda:
+        event = torch.cuda.Event()
+        event.record()
+    return snapshot, event
+
+
+def _step_dirs(directory: str) -> Dict[int, str]:
+    """Complete step directories (``<step>/``; a ``<step>.tmp/`` is a write
+    in progress or one a crash cut short)."""
+    if not os.path.isdir(directory):
+        return {}
+    return {int(name): os.path.join(directory, name) for name in os.listdir(directory)
+            if name.isdigit() and os.path.isfile(os.path.join(directory, name, _STATE_FILE))}
+
+
+class Checkpointer:
+    """Train-state checkpoints in one run directory, one subdirectory per
+    step, at most ``max_to_keep`` of them (the oldest pruned).
+
+    ``save`` snapshots the state on its stream and returns; a background
+    thread writes ``<step>.tmp/state.pt`` and renames it to ``<step>/``, so
+    :attr:`latest_step` sees only complete saves.  One write is in flight at
+    a time: a save first waits for the previous one.  A write's error is
+    raised by the next :meth:`wait`, :meth:`save` or :meth:`close`.
+    """
+
+    def __init__(self, directory: str, max_to_keep: int = 3):
+        self.directory = os.path.abspath(directory)
+        self.max_to_keep = max_to_keep
+        os.makedirs(self.directory, exist_ok=True)
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def save(self, step: int, state, *, wait: bool = False) -> None:
+        """Checkpoint ``state`` (a ``TrainState`` or its ``state_dict()``)
+        as step ``step``."""
+        self.wait()
+        payload = state.state_dict() if hasattr(state, "state_dict") else state
+        snapshot, event = snapshot_to_host(payload)
+        self._thread = threading.Thread(target=self._write, args=(step, snapshot, event),
+                                        name=f"checkpoint-{step}", daemon=True)
+        self._thread.start()
+        if wait:
+            self.wait()
+
+    def _write(self, step: int, snapshot, event) -> None:
+        try:
+            if event is not None:
+                event.synchronize()
+            final = os.path.join(self.directory, str(step))
+            tmp = final + ".tmp"
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+            path = os.path.join(tmp, _STATE_FILE)
+            with open(path, "wb") as fh:
+                torch.save(snapshot, fh)
+                fh.flush()
+                os.fsync(fh.fileno())
+            if os.path.exists(final):
+                shutil.rmtree(final)
+            os.rename(tmp, final)
+            steps = sorted(_step_dirs(self.directory))
+            for old in steps[:max(0, len(steps) - self.max_to_keep)]:
+                shutil.rmtree(os.path.join(self.directory, str(old)), ignore_errors=True)
+        except BaseException as exc:  # noqa: BLE001 — re-raised by wait()
+            self._error = exc
+
+    def wait(self) -> None:
+        """Block until the write in flight is on disk; raise its error."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            error, self._error = self._error, None
+            raise error
+
+    @property
+    def latest_step(self) -> Optional[int]:
+        steps = _step_dirs(self.directory)
+        return max(steps) if steps else None
+
+    def bytes_on_disk(self, step: int) -> int:
+        return os.path.getsize(os.path.join(self.directory, str(step), _STATE_FILE))
+
+    def load(self, step: Optional[int] = None) -> Dict[str, Any]:
+        """The saved ``state_dict`` of ``step`` (default: the latest) on the
+        CPU; ``FileNotFoundError`` when there is none."""
+        step = step if step is not None else self.latest_step
+        path = _step_dirs(self.directory).get(step) if step is not None else None
+        if path is None:
+            raise FileNotFoundError(f"no checkpoint found in {self.directory}"
+                                    + ("" if step is None else f" for step {step}"))
+        return torch.load(os.path.join(path, _STATE_FILE), map_location="cpu",
+                          weights_only=True)
+
+    def restore(self, state, step: Optional[int] = None):
+        """Load step ``step`` (default: the latest) into ``state``, a
+        ``TrainState``, in place; returns it.
+
+        Structure drift in the optional EMA shadow is absorbed, with a
+        warning: a checkpoint written with EMA restores into a state
+        without it (the shadow is dropped), and one written without EMA
+        restores into a state with it as ``ema_params = None`` (the trainer
+        reseeds it from the restored masters).  Any other mismatch raises.
+        """
+        payload = self.load(step)
+        step = int(payload["step"])
+        if payload.get("ema_params") is not None and state.ema_params is None:
+            warnings.warn(f"checkpoint at step {step} keeps 'ema_params' that this state "
+                          "does not; dropping it", stacklevel=2)
+            payload["ema_params"] = None
+        elif payload.get("ema_params") is None and state.ema_params is not None:
+            warnings.warn(f"checkpoint at step {step} has no usable 'ema_params'; "
+                          "restoring it as None", stacklevel=2)
+            state.ema_params = None
+        state.load(payload)
+        return state
+
+    def close(self) -> None:
+        self.wait()
+
+
+# -- serving weight sets (the hot-swap unit) --------------------------------
+#
+# A serving weight set is the JAX-layout parameter tree (nested dicts, as
+# ``convert.params_to_jax`` builds it) plus a JSON manifest with a version
+# and a content fingerprint, so a corrupted or mixed-up file set is refused
+# before a replica serves it.
+
+
+class WeightsCorrupt(ValueError):
+    """Loaded weights do not match their manifest fingerprint — the file
+    set was truncated, tampered with, or mixed from two saves.  Serving
+    such weights would be silent garbage; refuse loudly instead."""
+
+
+@dataclasses.dataclass(frozen=True)
+class WeightManifest:
+    """Sidecar identity record of one saved serving weight set."""
+
+    version: str
+    step: int
+    fingerprint: str
+    n_leaves: int
+    n_params: int
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
+
+    @classmethod
+    def from_json(cls, text: str) -> "WeightManifest":
+        return cls(**json.loads(text))
+
+
+def _leaves_with_paths(tree: Mapping, prefix: str = ""):
+    """``(path, leaf)`` in JAX's flatten order for a tree of dicts (keys
+    sorted), the path spelled as ``jax.tree_util.keystr`` spells it."""
+    for key in sorted(tree):
+        path = f"{prefix}[{key!r}]"
+        value = tree[key]
+        if isinstance(value, Mapping):
+            yield from _leaves_with_paths(value, path)
+        else:
+            yield path, value
+
+
+def _leaf_bytes(leaf):
+    """``(shape, dtype name, raw bytes)`` of one leaf as numpy would give
+    them; a bf16 tensor is named ``"bfloat16"`` and hashed as its raw bits."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            return tuple(t.shape), "bfloat16", t.view(torch.uint16).numpy().tobytes()
+        arr = t.numpy()
+    else:
+        arr = np.asarray(leaf)
+    name = (arr.dtype.metadata or {}).get("dtype", str(arr.dtype))
+    return tuple(arr.shape), name, np.ascontiguousarray(arr).tobytes()
+
+
+def params_fingerprint(params: Mapping) -> str:
+    """Deterministic content hash of a JAX-layout parameter tree: sha256
+    over every leaf's path, shape, dtype name and raw bytes, in JAX's
+    flatten order, so the JAX package's ``params_fingerprint`` gives the
+    same digest for the same weights."""
+    h = hashlib.sha256()
+    for path, leaf in _leaves_with_paths(params):
+        shape, dtype, raw = _leaf_bytes(leaf)
+        h.update(path.encode())
+        h.update(str(shape).encode())
+        h.update(dtype.encode())
+        h.update(raw)
+    return h.hexdigest()
+
+
+def _manifest_path(directory: str, step: int) -> str:
+    return os.path.join(os.path.abspath(directory), f"weights_manifest_{step}.json")
+
+
+def _weights_dir(directory: str, step: int) -> str:
+    return os.path.join(os.path.abspath(directory), f"weights_{step}")
+
+
+def save_serving_weights(directory: str, step: int, params: Mapping,
+                         version: Optional[str] = None) -> WeightManifest:
+    """Write a hot-swappable weight set: the JAX-layout parameter tree
+    (``weights_<step>/params.pt``) plus its :class:`WeightManifest`.
+    ``version`` defaults to ``"step-<step>"``."""
+    host = map_tensors(lambda t: t.detach().cpu(), params)
+    leaves = [leaf for _, leaf in _leaves_with_paths(host)]
+    manifest = WeightManifest(
+        version=version if version is not None else f"step-{step}",
+        step=step,
+        fingerprint=params_fingerprint(host),
+        n_leaves=len(leaves),
+        n_params=int(sum(leaf.numel() for leaf in leaves)),
+    )
+    path = _weights_dir(directory, step)
+    os.makedirs(path, exist_ok=True)
+    torch.save(host, os.path.join(path, _PARAMS_FILE))
+    with _open_file(_manifest_path(directory, step), "w") as fh:
+        fh.write(manifest.to_json())
+        fh.write("\n")
+    return manifest
+
+
+def latest_weights_step(directory: str) -> Optional[int]:
+    """Largest step with a manifest in ``directory`` (None when empty)."""
+    steps = []
+    if os.path.isdir(directory):
+        for name in os.listdir(directory):
+            if name.startswith("weights_manifest_") and name.endswith(".json"):
+                steps.append(int(name[len("weights_manifest_"):-len(".json")]))
+    return max(steps) if steps else None
+
+
+def load_serving_weights(directory: str, step: Optional[int] = None,
+                         like: Optional[Mapping] = None) -> tuple:
+    """Restore a weight set saved by :func:`save_serving_weights` and VERIFY
+    it against its manifest.  ``like`` (a tree of the same structure) casts
+    each leaf to its template's dtype and device.  Returns ``(params,
+    manifest)``; raises ``FileNotFoundError`` when nothing is saved and
+    :class:`WeightsCorrupt` when the content hash disagrees with the
+    manifest (or the payload does not load)."""
+    if step is None:
+        step = latest_weights_step(directory)
+        if step is None:
+            raise FileNotFoundError(f"no serving weights saved under {directory}")
+    mpath = _manifest_path(directory, step)
+    if not os.path.exists(mpath):
+        raise FileNotFoundError(f"no weight manifest at {mpath}")
+    with _open_file(mpath) as fh:
+        manifest = WeightManifest.from_json(fh.read())
+    path = _weights_dir(directory, step)
+    try:
+        restored = torch.load(os.path.join(path, _PARAMS_FILE), map_location="cpu",
+                              weights_only=True)
+    except (RuntimeError, ValueError, EOFError) as exc:
+        raise WeightsCorrupt(f"weights at {path} do not load ({exc}); refusing to serve "
+                             f"version {manifest.version!r}") from exc
+    if like is not None:
+        restored = _like(restored, like)
+    digest = params_fingerprint(restored)
+    if digest != manifest.fingerprint:
+        raise WeightsCorrupt(
+            f"weights at {path} hash {digest[:12]}… but the manifest "
+            f"records {manifest.fingerprint[:12]}… (version "
+            f"{manifest.version!r}, step {step}) — refusing to serve a "
+            "corrupted or mismatched weight set"
+        )
+    return restored, manifest
+
+
+def _like(tree: Mapping, like: Mapping) -> Dict:
+    out = {}
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            out[key] = _like(value, like[key])
+        else:
+            out[key] = value.to(device=like[key].device, dtype=like[key].dtype)
+    return out

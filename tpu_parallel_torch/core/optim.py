@@ -1,5 +1,6 @@
 """Optimizer transformations: the port of ``tpu_parallel/core/optim.py``
-and of the optax pieces the trainer chains.
+and of the optax pieces the trainer chains (``adamw``, ``lion``,
+``add_decayed_weights`` and ``sgd`` with momentum).
 
 Each transformation works on dicts of fp32 tensors keyed by parameter name,
 as optax's do on pytrees: ``init(params) -> state`` and ``update(updates,
@@ -75,6 +76,76 @@ class AdamW:
         for n, s in zip(names, step):
             updates[n] = s
         return updates, dict(count=count, mu=state["mu"], nu=state["nu"])
+
+
+class Lion:
+    """``optax.lion(schedule, b1, b2, weight_decay=...)``: the update is
+    sign((1 - b1) * g + b1 * mu) (sign(0) = 0), then mu = (1 - b2) * g + b2 *
+    mu, then ``+ wd * p`` and ``* -lr(count)``, the schedule read at the
+    count before the step."""
+
+    def __init__(self, schedule: Callable[[int], float], b1: float = 0.9, b2: float = 0.99,
+                 weight_decay: float = 1e-3):
+        self.schedule, self.b1, self.b2 = schedule, b1, b2
+        self.weight_decay = weight_decay
+
+    def init(self, params: Tree):
+        return dict(count=0, mu={k: torch.zeros_like(p) for k, p in params.items()})
+
+    def update(self, updates: Tree, state, params: Tree):
+        names = list(updates)
+        g = [updates[n] for n in names]
+        mu = [state["mu"][n] for n in names]
+        step = torch._foreach_mul(g, 1 - self.b1)
+        torch._foreach_add_(step, torch._foreach_mul(mu, self.b1))
+        torch._foreach_sign_(step)
+        torch._foreach_mul_(mu, self.b2)
+        torch._foreach_add_(mu, torch._foreach_mul(g, 1 - self.b2))
+        if self.weight_decay:
+            torch._foreach_add_(step, [params[n] for n in names], alpha=self.weight_decay)
+        torch._foreach_mul_(step, -self.schedule(state["count"]))
+        torch._foreach_copy_(g, step)
+        return updates, dict(count=state["count"] + 1, mu=state["mu"])
+
+
+class AddDecayedWeights:
+    """``optax.add_decayed_weights(wd)``: u = g + wd * p."""
+
+    def __init__(self, weight_decay: float):
+        self.weight_decay = weight_decay
+
+    def init(self, params: Tree):
+        return None
+
+    def update(self, updates: Tree, state, params: Tree):
+        names = list(updates)
+        torch._foreach_add_([updates[n] for n in names], [params[n] for n in names],
+                            alpha=self.weight_decay)
+        return updates, state
+
+
+class SGD:
+    """``optax.sgd(schedule, momentum)``: optax's ``trace`` (t = g +
+    momentum * t) then ``* -lr(count)``, the schedule read at the count
+    before the step."""
+
+    def __init__(self, schedule: Callable[[int], float], momentum: float = 0.9):
+        self.schedule, self.momentum = schedule, momentum
+
+    def init(self, params: Tree):
+        return dict(count=0, trace={k: torch.zeros_like(p) for k, p in params.items()})
+
+    def update(self, updates: Tree, state, params: Tree):
+        names = list(updates)
+        g = [updates[n] for n in names]
+        trace = [state["trace"][n] for n in names]
+        torch._foreach_mul_(trace, self.momentum)
+        torch._foreach_add_(trace, g)
+        # the updates are the trainer's gradient accumulators: write the
+        # step into them, never alias the trace
+        torch._foreach_copy_(g, trace)
+        torch._foreach_mul_(g, -self.schedule(state["count"]))
+        return updates, dict(count=state["count"] + 1, trace=state["trace"])
 
 
 class Chain:

@@ -1,18 +1,64 @@
 """Train state and batch container: the port of ``tpu_parallel/core/state.py``.
 
 The JAX ``TrainState`` is an immutable pytree of fp32 params, optimizer
-state and a PRNG key.  Here it is a mutable object updated in place, which
-keeps one copy of each buffer: the module (weights in ``config.dtype``, what
-the forward reads), fp32 master weights and fp32 gradient accumulators.
+state, a PRNG key and an optional EMA shadow.  Here it is a mutable object
+updated in place, which keeps one copy of each buffer: the module (weights
+in ``config.dtype``, what the forward reads), fp32 master weights, fp32
+gradient accumulators and the fp32 EMA shadow.  :meth:`TrainState.state_dict`
+is the checkpoint's view of it and :meth:`TrainState.load` writes one back
+in place, so every buffer keeps its address.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 from torch import nn
+
+
+def map_tensors(fn: Callable[[torch.Tensor], Any], tree):
+    """``tree`` (dicts, lists and tuples of tensors and plain values) with
+    ``fn`` applied to every tensor; other leaves are kept as they are."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: map_tensors(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_tensors(fn, v) for v in tree)
+    return tree
+
+
+def _load_tree(dst, src, path: str):
+    """Copy ``src``'s tensors into ``dst``'s in place (same structure,
+    shapes and dtypes, else ``ValueError`` naming the path); returns what
+    takes ``dst``'s place (``dst`` itself for tensors and containers)."""
+    if isinstance(dst, torch.Tensor):
+        if not isinstance(src, torch.Tensor) or src.shape != dst.shape or src.dtype != dst.dtype:
+            got = (tuple(src.shape), src.dtype) if isinstance(src, torch.Tensor) else type(src)
+            raise ValueError(f"{path}: checkpoint has {got}, the state {tuple(dst.shape)} "
+                             f"{dst.dtype}")
+        dst.copy_(src)
+        return dst
+    if isinstance(dst, dict):
+        if not isinstance(src, dict) or set(src) != set(dst):
+            raise ValueError(f"{path}: checkpoint keys differ from the state's")
+        for k in dst:
+            dst[k] = _load_tree(dst[k], src[k], f"{path}.{k}")
+        return dst
+    if isinstance(dst, (list, tuple)):
+        if not isinstance(src, (list, tuple)) or len(src) != len(dst):
+            raise ValueError(f"{path}: checkpoint structure differs from the state's")
+        items = [_load_tree(d, s, f"{path}[{i}]") for i, (d, s) in enumerate(zip(dst, src))]
+        if isinstance(dst, list):
+            dst[:] = items
+            return dst
+        return tuple(items)
+    if type(src) is not type(dst):
+        raise ValueError(f"{path}: checkpoint has {type(src).__name__}, the state "
+                         f"{type(dst).__name__}")
+    return src
 
 
 @dataclasses.dataclass
@@ -48,7 +94,9 @@ def get_num_params(state_or_model: Any) -> int:
 @dataclasses.dataclass
 class TrainState:
     """A module, its fp32 master weights and gradient accumulators, the
-    optimizer and its state, and an explicit ``torch.Generator``.
+    optimizer and its state, an explicit ``torch.Generator`` and, when EMA is
+    on, the fp32 shadow of the masters (``ema_params``, by name; None when
+    off; evaluation prefers it).
 
     flax keeps fp32 params and casts them to ``config.dtype`` at each use;
     its gradient is the ``config.dtype`` cotangent cast back to fp32.  Here
@@ -66,6 +114,7 @@ class TrainState:
     opt_state: Any
     rng: torch.Generator
     step: int = 0
+    ema_params: Optional[Dict[str, torch.Tensor]] = None
 
     @classmethod
     def create(cls, model: nn.Module, tx, rng: torch.Generator,
@@ -109,8 +158,57 @@ class TrainState:
         updates, self.opt_state = self.tx.update(grads, self.opt_state, self.params)
         names = list(self.params)
         torch._foreach_add_([self.params[n] for n in names], [updates[n] for n in names])
+        self._masters_to_module()
+        self.step += 1
+
+    @torch.no_grad()
+    def _masters_to_module(self) -> None:
+        """Write the masters into the module's non-fp32 weights, rounded."""
         module = dict(self.model.named_parameters())
-        cast = [n for n in names if module[n].dtype != torch.float32]
+        cast = [n for n in self.params if module[n].dtype != torch.float32]
         if cast:
             torch._foreach_copy_([module[n].data for n in cast], [self.params[n] for n in cast])
-        self.step += 1
+
+    @torch.no_grad()
+    def seed_ema(self) -> None:
+        """Start the EMA shadow as a copy of the masters."""
+        self.ema_params = {n: p.clone() for n, p in self.params.items()}
+
+    @torch.no_grad()
+    def update_ema(self, decay: float) -> None:
+        """e = e * decay + p * (1 - decay) over the masters, in JAX's order
+        (``tpu_parallel/parallel/spmd.py``'s ``ema_update``)."""
+        names = list(self.ema_params)
+        ema = [self.ema_params[n] for n in names]
+        torch._foreach_mul_(ema, decay)
+        torch._foreach_add_(ema, torch._foreach_mul([self.params[n] for n in names], 1 - decay))
+
+    def state_dict(self) -> Dict[str, Any]:
+        """The checkpoint's view: the masters, the optimizer state, the step,
+        the generator's ``get_state()`` and the EMA shadow (None when off).
+        Tensors are the state's own (no copy)."""
+        return dict(step=self.step, params=self.params, opt_state=self.opt_state,
+                    rng=self.rng.get_state(), ema_params=self.ema_params)
+
+    @torch.no_grad()
+    def load(self, state: Dict[str, Any]) -> None:
+        """Write a :meth:`state_dict` back IN PLACE: every tensor is copied
+        into the buffer it came from (so addresses hold), the generator's
+        state is set, the module's weights are rewritten from the masters,
+        and a half-done step's gradients (accumulators and ``.grad``) are
+        cleared.  The structure must match, EMA included (``ValueError``);
+        ``checkpoint.Checkpointer.restore`` absorbs an EMA turned on or off."""
+        if set(state) != {"step", "params", "opt_state", "rng", "ema_params"}:
+            raise ValueError(f"not a TrainState.state_dict: keys {sorted(state)}")
+        if (state["ema_params"] is None) != (self.ema_params is None):
+            raise ValueError("the checkpoint's ema_params and the state's differ in presence")
+        _load_tree(self.params, state["params"], "params")
+        self.opt_state = _load_tree(self.opt_state, state["opt_state"], "opt_state")
+        if self.ema_params is not None:
+            _load_tree(self.ema_params, state["ema_params"], "ema_params")
+        self.step = int(state["step"])
+        self.rng.set_state(state["rng"])
+        self._masters_to_module()
+        self.zero_grads()
+        for p in self.model.parameters():
+            p.grad = None

@@ -2,9 +2,11 @@
 
 Single device.  ``GPTLM`` holds its weights (made from a seed, or loaded
 from a JAX parameter tree through ``models/convert.py``) and keeps the
-JAX call's keywords: ``positions``, ``segment_ids``, ``decode`` (with a per-layer
-list of :class:`KVCache`, updated in place) and ``hidden_only``.
-:func:`make_gpt_loss` is the training loss, with the lm_head applied in it.
+JAX call's keywords: ``positions``, ``segment_ids``, ``train`` (dropout,
+drawn from ``rng``), ``decode`` (with a per-layer list of :class:`KVCache`,
+updated in place) and ``hidden_only``.  :func:`make_gpt_loss` is the
+training loss, with the lm_head applied in it, ``loss_chunk`` positions at
+a time when that is set.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import List, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from tpu_parallel_torch.core.losses import token_cross_entropy
 from tpu_parallel_torch.models.convert import init_params
@@ -30,14 +33,16 @@ from tpu_parallel_torch.runtime import resolve_device
 
 _PIPELINE_DEFAULTS = (
     ("pipe_size", 1), ("pipe_interleave", 1), ("pipe_schedule", "gpipe"),
-    ("loss_chunk", 0),
 )
 
 
 @dataclasses.dataclass(frozen=True)
 class GPTConfig(TransformerConfig):
-    """TransformerConfig plus the JAX package's pipeline and chunked-loss
-    knobs, which this slice does not implement (setting one raises)."""
+    """TransformerConfig plus the JAX package's pipeline knobs, which the
+    port does not implement yet (setting one raises, ROADMAP queue A item
+    5), and ``loss_chunk``: > 0 runs the lm_head and cross-entropy
+    ``loss_chunk`` sequence positions at a time, each chunk checkpointed,
+    so the logits exist only as [batch, loss_chunk, vocab]."""
 
     pipe_size: int = 1
     pipe_interleave: int = 1
@@ -49,9 +54,11 @@ class GPTConfig(TransformerConfig):
         for field, default in _PIPELINE_DEFAULTS:
             if getattr(self, field) != default:
                 raise NotImplementedError(
-                    f"{field}={getattr(self, field)!r}: pipeline parallelism and "
-                    "the chunked loss are not in the PyTorch port yet"
+                    f"{field}={getattr(self, field)!r}: pipeline parallelism is not in "
+                    "the PyTorch port yet (ROADMAP queue A item 5)"
                 )
+        if self.loss_chunk < 0:
+            raise ValueError(f"loss_chunk={self.loss_chunk} < 0")
 
 
 class GPTLM(nn.Module):
@@ -108,8 +115,10 @@ class GPTLM(nn.Module):
 
     def forward(self, tokens, positions=None, segment_ids=None, decode: bool = False,
                 hidden_only: bool = False, cache: Optional[List[KVCache]] = None,
-                write_index=None, block_table=None) -> torch.Tensor:
-        """``decode=True`` appends to ``cache`` (from :meth:`init_cache`) and
+                write_index=None, block_table=None, train: bool = False,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``train=True`` runs dropout when ``dropout_rate`` > 0, with one
+        seed per layer drawn from ``rng`` (a CPU generator).  ``decode=True`` appends to ``cache`` (from :meth:`init_cache`) and
         attends the cached prefix; without ``positions`` it continues from
         the cache's write index.  ``write_index`` [batch] (the serving
         engine's slot-indexed writes) puts row r's tokens at cache columns
@@ -132,9 +141,15 @@ class GPTLM(nn.Module):
                 )
         elif tokens.shape[1] > cfg.seq_len:
             raise ValueError(f"{tokens.shape[1]} tokens exceed seq_len {cfg.seq_len}")
+        dropout_rng = None
+        if train and cfg.dropout_rate > 0.0:
+            if rng is None:
+                raise ValueError("train=True with dropout_rate > 0 needs an rng (a CPU "
+                                 "torch.Generator)")
+            dropout_rng = rng
         x = self.embed(tokens, positions)
         x = self.blocks(x, positions, segment_ids, decode, cache if decode else None,
-                        write_index, block_table)
+                        write_index, block_table, dropout_rng)
         x = self.norm_final(x).to(cfg.dtype)
         if hidden_only:
             return x
@@ -164,10 +179,14 @@ def _lm_head_params(config: GPTConfig, model: GPTLM) -> torch.Tensor:
     return model.lm_head.weight
 
 
-def make_ce_fn():
+def make_ce_fn(config: GPTConfig):
     """``(lm_weight, hidden, targets, mask) -> (loss_sum, correct_sum)``:
-    lm_head, fp32 cross-entropy and accuracy on full logits (the JAX
-    ``make_ce_fn`` off the mesh).  ``loss_chunk`` raises at the config."""
+    lm_head, fp32 cross-entropy and accuracy (the JAX ``make_ce_fn`` off the
+    mesh), on full logits or, under ``config.loss_chunk``, one checkpointed
+    chunk of ``loss_chunk`` positions at a time (the JAX scan of
+    ``jax.checkpoint(body)``): the backward recomputes each chunk's logits,
+    so none outlives its chunk."""
+    chunk = config.loss_chunk
 
     def ce_block(lm_weight, h, targets, mask):
         logits = F.linear(h, lm_weight)
@@ -176,22 +195,35 @@ def make_ce_fn():
         correct = ((logits.argmax(-1) == targets) * mask).sum()
         return loss_sum, correct
 
-    return ce_block
+    def chunked_ce(lm_weight, h, targets, mask):
+        s = targets.shape[1]
+        if s % chunk != 0:
+            raise ValueError(f"seq_len={s} not divisible by loss_chunk={chunk}")
+        loss_sum = correct = 0.0
+        for i in range(0, s, chunk):
+            part = checkpoint(ce_block, lm_weight, h[:, i:i + chunk], targets[:, i:i + chunk],
+                              mask[:, i:i + chunk], use_reentrant=False)
+            loss_sum = loss_sum + part[0]
+            correct = correct + part[1]
+        return loss_sum, correct
+
+    return chunked_ce if chunk else ce_block
 
 
-def make_gpt_loss(config: GPTConfig):
+def make_gpt_loss(config: GPTConfig, train: bool = True):
     """Next-token CE in the ``accumulate_gradients`` loss shape:
     ``loss_fn(model, batch, rng) -> (loss, metrics)``.
 
     The model runs with ``hidden_only=True`` and the lm_head is applied here,
-    as in the JAX package.  ``rng`` is unused: the port has no dropout.
-    Pipeline, tensor parallelism, MoE and ``loss_chunk`` raise at the config.
+    as in the JAX package.  ``rng`` (a CPU generator) seeds dropout when
+    ``train``; ``train=False`` builds the evaluation variant (dropout off).
+    Pipeline, tensor parallelism and MoE raise at the config.
     """
-    ce_fn = make_ce_fn()
+    ce_fn = make_ce_fn(config)
 
     def loss_fn(model, batch, rng=None):
         hidden = model(batch.tokens, positions=batch.positions,
-                       segment_ids=batch.segment_ids, hidden_only=True)
+                       segment_ids=batch.segment_ids, hidden_only=True, train=train, rng=rng)
         mask = (batch.loss_mask if batch.loss_mask is not None
                 else torch.ones(batch.targets.shape, device=hidden.device))
         n_tok = mask.sum()

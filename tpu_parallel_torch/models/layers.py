@@ -9,7 +9,14 @@ sequence parallelism are not in this slice.  Linear weights are PyTorch's
 
 Activation checkpointing (``remat``/``remat_policy``) wraps each block in
 ``torch.utils.checkpoint``; the save policies keep the values the JAX layers
-name with ``checkpoint_name`` (:func:`checkpoint_name` here).
+name with ``checkpoint_name`` (:func:`checkpoint_name` here), or every 2-D
+product's output under ``"dots"``.
+
+Dropout sits where flax puts it (after the attention output projection and
+after the MLP down projection) and runs only when training.  Its masks come
+from one seed per layer that :class:`BlockStack` draws from the caller's
+generator OUTSIDE the checkpointed call: the layer seeds a fresh generator
+from it, so a recompute in the backward redraws the same masks.
 """
 
 from __future__ import annotations
@@ -41,15 +48,18 @@ _UNSUPPORTED = (
     ("embed_norm", False, "an embedding LayerNorm"),
     ("bidirectional", False, "bidirectional attention"),
     ("moe_experts", 0, "mixture of experts"),
-    ("dropout_rate", 0.0, "dropout (training)"),
     ("fsdp", False, "FSDP"),
 )
 _MLPS = ("gelu", "gelu_exact", "relu")
 _KV_CACHE_DTYPES = ("bf16", "int8")
 _ATTN_IMPLS = ("xla", "flash")
 # remat_policy -> the checkpoint names whose values the backward keeps
-# ("full": none, so every block recomputes its whole forward)
-_REMAT_SAVES = {"full": (), "proj": ("proj",), "proj_attn": ("proj", "attn")}
+# ("full": none, so every block recomputes its whole forward; "dots" keeps
+# products by op, not by name)
+_REMAT_SAVES = {"full": (), "proj": ("proj",), "proj_attn": ("proj", "attn"), "dots": ()}
+# the 2-D products without batch dims: what a Linear runs
+# (jax.checkpoint_policies.dots_with_no_batch_dims_saveable)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,8 +72,11 @@ class TransformerConfig:
     keeps: ``"full"`` nothing (the block's forward is recomputed), ``"proj"``
     the qkv/out/up/down projection outputs, ``"proj_attn"`` those and the
     attention output (the flash kernel's out and lse, or the xla path's
-    context), so the backward never re-runs attention's forward.  ``"dots"``
-    is not ported and raises when a checkpointed forward runs.  ``scan_*``,
+    context), so the backward never re-runs attention's forward, and
+    ``"dots"`` the output of every 2-D product (the linear layers), while
+    attention's batched products and the flash kernel are recomputed.
+    ``dropout_rate`` > 0 drops activations when the model runs with
+    ``train=True``.  ``scan_*``,
     the mesh-axis names and ``num_microbatches`` are compile or
     parallelism knobs of the JAX package; they change nothing here.
     ``flash_block_q``/``flash_block_k`` stay for API parity: the CUDA
@@ -217,22 +230,35 @@ def _save_only_these_names(*names: str):
     return policy
 
 
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy: keep every 2-D product's output."""
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def remat_kwargs_for(config: TransformerConfig) -> dict:
     """``torch.utils.checkpoint`` kwargs for a block under
     ``config.remat_policy``."""
     policy = config.remat_policy
-    if policy == "dots":
-        raise NotImplementedError(
-            "remat_policy='dots' (save every matmul output) is not in the port yet"
-        )
     if policy not in _REMAT_SAVES:
         raise ValueError(f"remat_policy={policy!r}: expected one of {sorted(_REMAT_SAVES)}")
     kwargs = dict(use_reentrant=False)
-    if _REMAT_SAVES[policy]:
-        kwargs["context_fn"] = functools.partial(
-            create_selective_checkpoint_contexts, _save_only_these_names(*_REMAT_SAVES[policy])
-        )
+    if policy == "dots":
+        save = _save_dots
+    elif _REMAT_SAVES[policy]:
+        save = _save_only_these_names(*_REMAT_SAVES[policy])
+    else:
+        return kwargs
+    kwargs["context_fn"] = functools.partial(create_selective_checkpoint_contexts, save)
     return kwargs
+
+
+def dropout(x: torch.Tensor, rate: float, gen: torch.Generator) -> torch.Tensor:
+    """flax's ``nn.Dropout`` in training: keep each element with
+    probability 1 - rate (one fp32 uniform draw per element from ``gen``)
+    and scale the kept ones by 1 / (1 - rate), in ``x``'s dtype."""
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=gen, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 @functools.lru_cache(maxsize=None)
@@ -713,7 +739,8 @@ class Attention(nn.Module):
         self.out = linear(cfg.n_heads * cfg.head_dim, cfg.d_model)
 
     def forward(self, x, positions=None, segment_ids=None, decode: bool = False,
-                cache=None, write_index=None, block_table=None) -> torch.Tensor:
+                cache=None, write_index=None, block_table=None,
+                dropout_gen: Optional[torch.Generator] = None) -> torch.Tensor:
         cfg = self.config
         b, t = x.shape[:2]
         dh = cfg.head_dim
@@ -790,7 +817,10 @@ class Attention(nn.Module):
         else:
             out = self._attend(q, k, v, segment_ids)
         with checkpoint_name("proj"):
-            return self.out(out.reshape(b, t, cfg.n_heads * dh))
+            out = self.out(out.reshape(b, t, cfg.n_heads * dh))
+        if dropout_gen is not None:
+            out = dropout(out, cfg.dropout_rate, dropout_gen)
+        return out
 
     def _attend(self, q, k, v, segment_ids):
         cfg = self.config
@@ -818,7 +848,8 @@ class MLP(nn.Module):
         self.down = nn.Linear(hidden, config.d_model, bias=config.dense_bias,
                               dtype=config.dtype, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                dropout_gen: Optional[torch.Generator] = None) -> torch.Tensor:
         with checkpoint_name("proj"):
             h = self.up(x)
         if self.config.mlp == "relu":
@@ -826,11 +857,16 @@ class MLP(nn.Module):
         else:
             h = F.gelu(h, approximate="tanh" if self.config.mlp == "gelu" else "none")
         with checkpoint_name("proj"):
-            return self.down(h)
+            y = self.down(h)
+        if dropout_gen is not None:
+            y = dropout(y, self.config.dropout_rate, dropout_gen)
+        return y
 
 
 class Block(nn.Module):
-    """Pre-norm block: x + attn(norm(x)); x + mlp(norm(x))."""
+    """Pre-norm block: x + attn(norm(x)); x + mlp(norm(x)).  With a
+    ``dropout_seed``, dropout runs after both sublayers, its masks drawn in
+    that order from a generator on ``x``'s device seeded with it."""
 
     def __init__(self, config: TransformerConfig, device=None):
         super().__init__()
@@ -841,18 +877,25 @@ class Block(nn.Module):
         self.mlp = MLP(config, device)
 
     def forward(self, x, positions=None, segment_ids=None, decode: bool = False,
-                cache=None, write_index=None, block_table=None) -> torch.Tensor:
+                cache=None, write_index=None, block_table=None,
+                dropout_seed: Optional[int] = None) -> torch.Tensor:
         dtype = self.config.dtype
+        gen = None
+        if dropout_seed is not None:
+            gen = torch.Generator(device=x.device).manual_seed(dropout_seed)
         h = self.norm_attn(x).to(dtype)
-        x = x + self.attn(h, positions, segment_ids, decode, cache, write_index, block_table)
+        x = x + self.attn(h, positions, segment_ids, decode, cache, write_index, block_table,
+                          dropout_gen=gen)
         h = self.norm_mlp(x).to(dtype)
-        return x + self.mlp(h)
+        return x + self.mlp(h, dropout_gen=gen)
 
 
 class BlockStack(nn.Module):
     """``n_layers`` blocks named ``layer_{i}``, run in a plain loop; each
     block is checkpointed under ``config.remat`` when gradients are taken
-    (never when decoding), as the JAX stack wraps it in ``nn.remat``."""
+    (never when decoding), as the JAX stack wraps it in ``nn.remat``.
+    ``dropout_rng`` (a CPU generator; training only) gives each layer one
+    dropout seed per call, drawn before any layer runs."""
 
     def __init__(self, config: TransformerConfig, n_layers: int, device=None):
         super().__init__()
@@ -863,16 +906,21 @@ class BlockStack(nn.Module):
 
     def forward(self, x, positions=None, segment_ids=None, decode: bool = False,
                 caches: Optional[List[KVCache]] = None, write_index=None,
-                block_table=None) -> torch.Tensor:
+                block_table=None, dropout_rng: Optional[torch.Generator] = None) -> torch.Tensor:
         remat = self.config.remat and not decode and torch.is_grad_enabled()
         kwargs = remat_kwargs_for(self.config) if remat else None
+        seeds = [None] * self.n_layers
+        if dropout_rng is not None:
+            seeds = torch.randint(0, 2**62, (self.n_layers,), generator=dropout_rng).tolist()
         for i in range(self.n_layers):
             layer = getattr(self, f"layer_{i}")
             if remat:
-                x = checkpoint(layer, x, positions, segment_ids, **kwargs)
+                x = checkpoint(layer, x, positions, segment_ids, False, None, None, None,
+                               seeds[i], **kwargs)
             else:
                 cache = caches[i] if caches is not None else None
-                x = layer(x, positions, segment_ids, decode, cache, write_index, block_table)
+                x = layer(x, positions, segment_ids, decode, cache, write_index, block_table,
+                          dropout_seed=seeds[i])
         return x
 
 

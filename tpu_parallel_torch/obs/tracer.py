@@ -2,7 +2,7 @@
 
 Records WHAT happened WHEN as named spans on named tracks: the serving
 engine opens one track per cache slot plus a ``scheduler`` track, the
-trainer a ``trainer`` track, and the JAX package's ``obs/exporters.py`` (not ported yet) lays
+trainer a ``trainer`` track, and ``obs/exporters.py`` lays
 the spans out as a Chrome trace-event file Perfetto opens directly — one
 request's life reads left to right as
 ``queue -> prefill[chunk i] -> decode/verify... -> finish``.

@@ -3,19 +3,23 @@
 Config -> model -> loss, optimizer and step -> loop, as the JAX ``Trainer``
 does on a mesh, here on one device.  The step mirrors the JAX
 ``build_train_functions`` step: accumulate gradients over minibatches,
-clip them by their global norm, apply AdamW to fp32 master weights, and add
-the step's ``(sum, count)`` metrics to the running ones.
+clip them by their global norm, apply the optimizer (adamw, lion or sgd) to
+fp32 master weights, update the EMA shadow when one is kept, and add the
+step's ``(sum, count)`` metrics to the running ones.  :meth:`Trainer.fit`
+adds checkpoints, resume, rollback-and-retry and periodic held-out
+evaluation.
 
-Not in the port yet, each raising when asked for: the ``lion`` and ``sgd``
-optimizers, the MLM and seq2seq objectives, an EMA of the weights,
-``evaluate`` and ``fit``; meshes (the JAX config's ``mesh``), dropout and
-``loss_chunk`` raise at the model config.
+Not in the port yet, each raising when asked for: the MLM objective (and
+the seq2seq family; ROADMAP queue A item 6) and a mesh of more than one
+device (item 5).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
+import os
 import time
 from typing import Any, Callable, Dict, Optional
 
@@ -24,11 +28,13 @@ import torch
 from tpu_parallel_torch.core.accumulate import accumulate_gradients
 from tpu_parallel_torch.core.metrics import Metrics, accumulate_metrics
 from tpu_parallel_torch.core.metrics import compute as compute_metrics
-from tpu_parallel_torch.core.optim import AdamW, Chain, ClipByGlobalNorm
-from tpu_parallel_torch.core.state import TextBatch, TrainState
+from tpu_parallel_torch.core.optim import SGD, AddDecayedWeights, AdamW, Chain, ClipByGlobalNorm, Lion
+from tpu_parallel_torch.core.state import TextBatch, TrainState, get_num_params
 from tpu_parallel_torch.data import lm_batch
 from tpu_parallel_torch.models.convert import init_params
 from tpu_parallel_torch.models.gpt import GPTConfig, GPTLM, gpt2_125m, make_gpt_loss, tiny_test
+from tpu_parallel_torch.obs.registry import MetricRegistry
+from tpu_parallel_torch.obs.tracer import NULL_TRACER, Tracer
 from tpu_parallel_torch.runtime import resolve_device
 from tpu_parallel_torch.utils.profiling import mfu
 
@@ -37,29 +43,63 @@ MODEL_REGISTRY: Dict[str, Callable[..., GPTConfig]] = {
     "tiny": tiny_test,
 }
 
+MESH_AXES = ("data", "model", "pipe", "seq")
+
+
+def _mesh_sizes(mesh) -> Dict[str, int]:
+    """``{axis: size}`` of a mesh given as a dict or an object with the JAX
+    ``MeshConfig``'s fields; a size of -1 means "all remaining devices"."""
+    get = mesh.get if isinstance(mesh, dict) else lambda k, d: getattr(mesh, k, d)
+    sizes = {axis: int(get(axis, 1)) for axis in MESH_AXES}
+    extra = set(mesh) - set(MESH_AXES) if isinstance(mesh, dict) else set()
+    if extra:
+        raise ValueError(f"mesh axes {sorted(extra)}: the mesh has {MESH_AXES}")
+    return sizes
+
 
 @dataclasses.dataclass
 class TrainerConfig:
-    """The JAX ``TrainerConfig``'s fields that apply on one device, with its
-    defaults."""
+    """The JAX ``TrainerConfig``, field for field, with its defaults.
+
+    ``mesh`` is accepted when it resolves to one device (every axis 1, or
+    -1 for "all of them"); more devices raise (ROADMAP queue A item 5).
+    ``donate`` is accepted and changes nothing: the port's step already
+    updates its buffers in place.  ``mlm_mask_rate`` belongs to the MLM
+    objective, which raises (item 6).
+    """
 
     model: str = "gpt2_125m"
     model_overrides: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    mesh: Any = dataclasses.field(
+        default_factory=lambda: dict(data=-1, model=1, pipe=1, seq=1))
     global_batch_size: int = 32
     num_minibatches: int = 1
     steps: int = 20
+    # "adamw" | "lion" | "sgd"
     optimizer: str = "adamw"
+    # "causal" (next-token LM); "mlm" is refused (item 6)
     objective: str = "causal"
+    mlm_mask_rate: float = 0.15
     # "cosine" (decay to 10% of peak) | "linear" (decay to 0) | "constant";
     # all include the linear warmup over warmup_steps
     lr_schedule: str = "cosine"
     learning_rate: float = 3e-4
+    # > 0 keeps an EMA (Polyak) shadow of the masters, updated every step
+    # and preferred by evaluation; 0 = off
     ema_decay: float = 0.0
     warmup_steps: int = 10
     weight_decay: float = 0.1
     grad_clip: float = 1.0
     seed: int = 0
     log_every: int = 10
+    donate: bool = True
+
+    @classmethod
+    def from_config_dict(cls, cd) -> "TrainerConfig":
+        """Build from a config dict (``tpu_parallel_torch.configs``)."""
+        d = dict(cd)
+        overrides = dict(d.pop("model_overrides", {}))
+        return cls(model_overrides=overrides, **d)
 
 
 def _linear(init: float, end: float, steps: int, count: int) -> float:
@@ -106,14 +146,27 @@ def make_lr_schedule(config: TrainerConfig) -> Callable[[int], float]:
 
 
 def make_optimizer(config: TrainerConfig) -> Chain:
-    """Global-norm clip then ``config.optimizer`` with the schedule; adamw
-    is ``optax.adamw(schedule, weight_decay=config.weight_decay)``."""
-    if config.optimizer != "adamw":
-        if config.optimizer in ("lion", "sgd"):
-            raise NotImplementedError(f"optimizer={config.optimizer!r} is not in the port yet")
+    """Global-norm clip then ``config.optimizer`` with the schedule, as the
+    JAX ``make_optimizer``: ``optax.adamw(schedule, weight_decay=wd)``,
+    ``optax.lion(schedule, weight_decay=wd)``, or
+    ``add_decayed_weights(wd)`` then ``optax.sgd(schedule, momentum=0.9)``."""
+    schedule = make_lr_schedule(config)
+    if config.optimizer == "adamw":
+        tx = AdamW(schedule, weight_decay=config.weight_decay)
+    elif config.optimizer == "lion":
+        tx = Lion(schedule, weight_decay=config.weight_decay)
+    elif config.optimizer == "sgd":
+        # configs advertise weight_decay for every optimizer family; honor it
+        return Chain(ClipByGlobalNorm(config.grad_clip), AddDecayedWeights(config.weight_decay),
+                     SGD(schedule, momentum=0.9))
+    elif config.optimizer == "adafactor":
+        raise ValueError(
+            "adafactor is not supported (the JAX package refuses it too: its "
+            "factored state breaks sharding spec discovery); use adamw | lion | sgd"
+        )
+    else:
         raise ValueError(f"unknown optimizer {config.optimizer!r} (expected adamw | lion | sgd)")
-    adamw = AdamW(make_lr_schedule(config), weight_decay=config.weight_decay)
-    return Chain(ClipByGlobalNorm(config.grad_clip), adamw)
+    return Chain(ClipByGlobalNorm(config.grad_clip), tx)
 
 
 def _sync(device: torch.device) -> None:
@@ -127,16 +180,40 @@ class Trainer:
     ``device`` defaults to ``"cuda"`` and raises without a GPU.  The model
     is drawn from ``config.seed``; :meth:`init` builds the state, from those
     draws or from given fp32 weights (e.g. ``params_from_jax(tree, cfg,
-    dtype=torch.float32)``).
+    dtype=torch.float32)``).  The state's generator is a CPU
+    ``torch.Generator`` seeded with ``config.seed``: dropout draws one seed
+    per layer and minibatch from it (the masks are drawn on the device).
+
+    ``step_fn`` is an attribute a caller may replace (the counterpart of the
+    JAX ``t.funcs.step_fn``): :meth:`fit` calls every step through it.
+
+    Telemetry as in the JAX package: ``tracer`` records ``data_wait`` and
+    ``compute`` spans on the ``trainer`` track (the compute span ends at a
+    device synchronize, so it is the step's device time), and ``registry``
+    receives ``train_*`` gauges at every log point.
     """
 
-    def __init__(self, config: TrainerConfig, *, device="cuda"):
+    def __init__(self, config: TrainerConfig, *, device="cuda",
+                 tracer: Optional[Tracer] = None, registry: Optional[MetricRegistry] = None):
+        if config.objective == "mlm":
+            raise NotImplementedError(
+                "objective='mlm' (the masked-LM loss of encoder configs) is not in the port "
+                "yet (ROADMAP queue A item 6)"
+            )
         if config.objective != "causal":
-            raise NotImplementedError(f"objective={config.objective!r}: the port trains 'causal'")
-        if config.ema_decay:
-            raise NotImplementedError("ema_decay > 0 (an EMA of the weights) is not in the port yet")
+            raise ValueError(f"objective={config.objective!r} (causal | mlm)")
+        sizes = _mesh_sizes(config.mesh)
+        if any(size not in (1, -1) for size in sizes.values()) or list(sizes.values()).count(-1) > 1:
+            raise NotImplementedError(
+                f"mesh {sizes}: the port trains on one device; meshes of several need "
+                "torch.distributed (ROADMAP queue A item 5)"
+            )
+        if config.ema_decay and not 0.0 < config.ema_decay < 1.0:
+            raise ValueError(f"ema_decay={config.ema_decay} must be in (0, 1)")
         if config.model not in MODEL_REGISTRY:
             raise KeyError(f"model {config.model!r}: the port has {sorted(MODEL_REGISTRY)}")
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.registry = registry if registry is not None else MetricRegistry()
         self.config = config
         self.device = resolve_device(device)
         overrides = {k: v for k, v in config.model_overrides.items() if v is not None}
@@ -144,6 +221,7 @@ class Trainer:
         self.model = GPTLM(self.model_config, device=self.device, seed=config.seed)
         self.tx = make_optimizer(config)
         self.loss_fn = make_gpt_loss(self.model_config)
+        self.eval_loss_fn = make_gpt_loss(self.model_config, train=False)
         self.example_batch: TextBatch = lm_batch(
             torch.Generator().manual_seed(0), config.global_batch_size,
             self.model_config.seq_len, self.model_config.vocab_size, device=self.device,
@@ -152,11 +230,14 @@ class Trainer:
 
     def init(self, params: Optional[Dict[str, torch.Tensor]] = None) -> TrainState:
         """A fresh state: masters from ``params`` (fp32 by parameter name)
-        or from the seeded draws."""
+        or from the seeded draws; the EMA shadow, when kept, starts at the
+        masters."""
         if params is None:
             params = init_params(self.model, self.config.seed)
-        rng = torch.Generator(device=self.device).manual_seed(self.config.seed)
+        rng = torch.Generator().manual_seed(self.config.seed)
         self.state = TrainState.create(self.model, self.tx, rng, params)
+        if self.config.ema_decay:
+            self.state.seed_ema()
         return self.state
 
     def step_fn(self, state: TrainState, metrics: Optional[Metrics],
@@ -167,7 +248,19 @@ class Trainer:
             state, batch, state.rng, self.config.num_minibatches, self.loss_fn
         )
         state.apply_gradients(grads)
+        if self.config.ema_decay:
+            state.update_ema(self.config.ema_decay)
         return state, accumulate_metrics(metrics, step_metrics)
+
+    def _publish_gauges(self, metrics: Dict[str, float]) -> None:
+        """Mirror one log point's metrics into the registry as ``train_*``
+        gauges."""
+        for key, value in metrics.items():
+            if isinstance(value, (int, float)):
+                self.registry.gauge(f"train_{key}").set(value)
+
+    def _next_batch(self, batch_iter) -> TextBatch:
+        return next(batch_iter) if batch_iter is not None else self.example_batch
 
     def train(self, batch_iter=None, steps: Optional[int] = None,
               log_fn: Callable[[int, Dict[str, float]], None] = None) -> Dict[str, float]:
@@ -183,9 +276,18 @@ class Trainer:
         last: Dict[str, float] = {}
         t_start = t0 = time.perf_counter()
         timed_from = 0
+        tr = self.tracer
         for step in range(1, steps + 1):
-            batch = next(batch_iter) if batch_iter is not None else self.example_batch
-            state, metrics = self.step_fn(state, metrics, batch)
+            if tr.enabled:
+                with tr.span("data_wait", track="trainer", step=step):
+                    batch = self._next_batch(batch_iter)
+                # the synchronize pins the span to the step's device time
+                with tr.span("compute", track="trainer", step=step):
+                    state, metrics = self.step_fn(state, metrics, batch)
+                    _sync(self.device)
+            else:
+                batch = self._next_batch(batch_iter)
+                state, metrics = self.step_fn(state, metrics, batch)
             if step == 1:
                 _sync(self.device)
                 t0 = time.perf_counter()
@@ -203,13 +305,201 @@ class Trainer:
                 util = mfu(last["tokens_per_sec"], self.model_config, self.device)
                 if util is not None:
                     last["mfu"] = util
+                self._publish_gauges(last)
                 if log_fn is not None:
                     log_fn(step, last)
         self.state = state
         return last
 
-    def evaluate(self, *args, **kwargs):
-        raise NotImplementedError("Trainer.evaluate is not in the port yet")
+    def _restore_into_state(self, ckpt, step: Optional[int] = None) -> None:
+        if self.state is None:
+            self.init()
+        ckpt.restore(self.state, step)
+        if self.config.ema_decay and self.state.ema_params is None:
+            # EMA turned on mid-run (the checkpoint predates it): seed the
+            # shadow from the restored masters, as init would
+            self.state.seed_ema()
 
-    def fit(self, *args, **kwargs):
-        raise NotImplementedError("Trainer.fit (checkpointed training) is not in the port yet")
+    def fit(self, checkpoint_dir: str, *, data_loader=None, batch_iter=None,
+            steps: Optional[int] = None, checkpoint_every: int = 100, max_failures: int = 3,
+            max_to_keep: int = 3, log_fn: Callable[[int, Dict[str, float]], None] = None,
+            eval_every: int = 0, eval_steps: int = 10, keep_best: bool = False) -> Dict[str, float]:
+        """Fault-tolerant training: auto-resume, periodic async checkpoints,
+        rollback-and-retry, as the JAX ``Trainer.fit``.
+
+        On start, restores the latest checkpoint in ``checkpoint_dir`` if
+        one exists; saves every ``checkpoint_every`` steps (and at the last)
+        while the next steps run; on a step failure, rolls back to the last
+        checkpoint (every buffer rewritten in place, the half-done step's
+        gradients and the running metrics cleared) and retries, up to
+        ``max_failures`` times.  ``eval_every > 0`` runs :meth:`evaluate` on
+        the held-out split of ``data_loader`` (``eval_view()``) every that
+        many steps and logs ``eval_*`` metrics; ``keep_best=True`` then
+        also saves the lowest-eval-loss state under ``{checkpoint_dir}/best``
+        with ``best_loss.json`` beside it, which a resumed run reads.
+
+        ``data_loader`` (anything with ``batch_at(step)``) gives exact resume
+        and rollback: step ``s`` always trains on batch ``s``.  A plain
+        ``batch_iter`` cannot be rewound.
+        """
+        from tpu_parallel_torch.checkpoint import Checkpointer
+        from tpu_parallel_torch.utils.logging_utils import print_exception
+
+        steps = steps if steps is not None else self.config.steps
+        if keep_best and not eval_every:
+            raise ValueError("keep_best=True requires eval_every > 0")
+        eval_iter_fn = None
+        if eval_every:
+            if data_loader is None or not hasattr(data_loader, "eval_view"):
+                raise ValueError(
+                    "eval_every > 0 needs a data_loader with eval_view() "
+                    "(a held-out split); evaluating the training stream or "
+                    "a synthetic batch would make the numbers meaningless"
+                )
+            eval_loader = data_loader.eval_view()
+            eval_iter_fn = lambda: iter(eval_loader)
+        ckpt = Checkpointer(checkpoint_dir, max_to_keep=max_to_keep)
+        best_ckpt = None
+        best_loss = float("inf")
+        best_loss_path = os.path.join(checkpoint_dir, "best", "best_loss.json")
+        if keep_best:
+            best_ckpt = Checkpointer(os.path.join(checkpoint_dir, "best"), max_to_keep=1)
+            if os.path.exists(best_loss_path):
+                # resumed run: never let a worse post-resume eval overwrite
+                # the surviving best snapshot
+                with open(best_loss_path) as fh:
+                    best_loss = json.load(fh)["loss"]
+
+        def restore_latest():
+            # drain the write in flight first: the latest step may still be
+            # writing when a failure triggers rollback
+            ckpt.wait()
+            self._restore_into_state(ckpt)
+
+        try:
+            if ckpt.latest_step is not None:
+                restore_latest()
+            elif self.state is None:
+                self.init()
+
+            failures = 0
+            metrics = None
+            last: Dict[str, float] = {}
+            step = self.state.step
+
+            def rollback_or_reraise(exc):
+                nonlocal failures, metrics
+                print_exception(exc)
+                failures += 1
+                if failures > max_failures or ckpt.latest_step is None:
+                    raise exc
+                restore_latest()
+                metrics = None
+                return self.state.step
+
+            tr = self.tracer
+            while step < steps:
+                data_span = (tr.span("data_wait", track="trainer", step=step + 1)
+                             if tr.enabled else None)
+                if data_loader is not None:
+                    batch = data_loader.batch_at(step)
+                else:
+                    batch = self._next_batch(batch_iter)
+                if data_span is not None:
+                    data_span.finish()
+                step_span = (tr.span("compute", track="trainer", step=step + 1)
+                             if tr.enabled else None)
+                try:
+                    self.state, metrics = self.step_fn(self.state, metrics, batch)
+                    # the rollback contract fences every step (a device
+                    # fault surfaces here, not inside a later step)
+                    _sync(self.device)
+                except Exception as exc:  # noqa: BLE001 — device/transport failure
+                    if step_span is not None:
+                        step_span.finish(failed=True)
+                    step = rollback_or_reraise(exc)
+                    continue
+                if step_span is not None:
+                    step_span.finish()
+                step += 1
+                if step % checkpoint_every == 0 or step == steps:
+                    ckpt.save(step, self.state, wait=False)
+                if eval_every and (step % eval_every == 0 or step == steps):
+                    try:
+                        ev = self.evaluate(batch_iter=eval_iter_fn(), steps=eval_steps)
+                    except Exception as exc:  # noqa: BLE001 — same contract as the step
+                        step = rollback_or_reraise(exc)
+                        continue
+                    if log_fn is not None:
+                        log_fn(step, {f"eval_{k}": v for k, v in ev.items()})
+                    if best_ckpt is not None and ev["loss"] < best_loss:
+                        best_loss = ev["loss"]
+                        # wait=True: the loss marker must never outlive its
+                        # snapshot
+                        best_ckpt.save(step, self.state, wait=True)
+                        with open(best_loss_path, "w") as fh:
+                            json.dump({"loss": best_loss, "step": step}, fh)
+                if step % self.config.log_every == 0 or step == steps:
+                    last = compute_metrics(metrics)
+                    self._publish_gauges(last)
+                    if log_fn is not None:
+                        log_fn(step, last)
+            ckpt.wait()
+            if best_ckpt is not None:
+                best_ckpt.wait()
+            return last
+        finally:
+            ckpt.close()
+            if best_ckpt is not None:
+                best_ckpt.close()
+
+    @torch.no_grad()
+    def evaluate(self, batch_iter=None, steps: int = 10) -> Dict[str, float]:
+        """Mean metrics over ``steps`` eval batches: dropout off, no update,
+        the EMA shadow's weights when one is kept.  The module's weights are
+        left bitwise as they were."""
+        if self.state is None:
+            self.init()
+        saved = None
+        if self.state.ema_params is not None:
+            params = dict(self.model.named_parameters())
+            saved = {n: p.detach().clone() for n, p in params.items()}
+            torch._foreach_copy_([params[n].data for n in self.state.ema_params],
+                                 list(self.state.ema_params.values()))
+        try:
+            metrics = None
+            for _ in range(steps):
+                batch = self._next_batch(batch_iter)
+                _, step_metrics = self.eval_loss_fn(self.model, batch, self.state.rng)
+                metrics = accumulate_metrics(metrics, step_metrics)
+        finally:
+            if saved is not None:
+                params = dict(self.model.named_parameters())
+                torch._foreach_copy_([params[n].data for n in saved], list(saved.values()))
+        return compute_metrics(metrics)
+
+    def save_checkpoint(self, directory: str, step: int, *, wait: bool = True) -> None:
+        from tpu_parallel_torch.checkpoint import Checkpointer
+
+        ckpt = Checkpointer(directory)
+        try:
+            ckpt.save(step, self.state, wait=wait)
+        finally:
+            ckpt.close()
+
+    def restore_checkpoint(self, directory: str, step: Optional[int] = None) -> TrainState:
+        """Restore ``step`` (default: the latest) of ``directory`` into this
+        trainer's state, in place (a fresh state first when there is none)."""
+        from tpu_parallel_torch.checkpoint import Checkpointer
+
+        ckpt = Checkpointer(directory)
+        try:
+            self._restore_into_state(ckpt, step)
+        finally:
+            ckpt.close()
+        return self.state
+
+    @property
+    def num_params(self) -> int:
+        """Parameter count (logging and MFU)."""
+        return get_num_params(self.model)

@@ -1,5 +1,6 @@
 """Metric logging: stdout + JSONL file sink, the port of
-``tpu_parallel/utils/logging_utils.py``'s :class:`MetricLogger`.
+``tpu_parallel/utils/logging_utils.py``'s :class:`MetricLogger` and
+:func:`print_exception`.
 
 The port runs one process, so it is always the main one (rank 0 in the
 JAX package's ``jax.process_index() == 0`` gate).
@@ -11,6 +12,23 @@ import json
 import os
 import time
 from typing import Dict, Optional
+
+
+def print_exception(exc: BaseException, *, width: int = 100) -> str:
+    """Compact one-glance rendering of an exception: its type (red on a
+    terminal) and its wrapped message, printed to stderr and returned;
+    ``Trainer.fit`` calls this on step failures before deciding whether to
+    roll back."""
+    import sys
+    import textwrap
+
+    name = type(exc).__name__
+    use_color = hasattr(sys.stderr, "isatty") and sys.stderr.isatty()
+    title = f"\033[91m{name}\033[0m" if use_color else name
+    body = textwrap.fill(str(exc), width=width) or "(no message)"
+    rendered = f"{title}\n{body}"
+    print(rendered, file=sys.stderr, flush=True)
+    return rendered
 
 
 def _to_scalar(value):
