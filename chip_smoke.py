@@ -1,8 +1,9 @@
 """Card check of the PyTorch port: builds its CUDA kernels, holds each
 against its plain version, and drives GPT-2 125M inference, training and
 continuous-batching serving, with its hierarchical KV memory, speculative
-decoding, the int8 KV cache, beam search and int8 weight export, and the
-trainer shell (data loading, checkpointed fit, 8k context), at full width.
+decoding, the int8 KV cache, beam search and int8 weight export, the
+trainer shell (data loading, checkpointed fit, 8k context), and data
+parallelism (a process group, a mesh, synced gradients), at full width.
 
     python3 chip_smoke.py
 
@@ -159,11 +160,32 @@ source, all started together).  Phases, in order; any failure raises:
    ``rebind_params`` against static ``generate()`` on the trainer's module.
    ``python -m tpu_parallel_torch.train`` in a subprocess (exit 0, its
    trace's spans, its metrics' ``train_loss``).
+12. data parallelism on ``gpt2_125m_dp`` ([64, 1024] in one minibatch):
+   both kernels at that shape [64, 12, 1024, 64] against the plain
+   versions; then three legs, each a subprocess of this script (``--leg``)
+   printing one JSON line.  (a) An NCCL group of one from torchrun's
+   environment: ``Trainer`` over ``make_mesh(MeshConfig(data=-1))``, 3
+   steps on a seeded batch with 12 ``flash_fwd``, 12 ``flash_bwd`` and one
+   ``dp_allreduce_launches`` per step and a falling loss; step host and
+   device ms with the group and without one, the all-reduce of the flat
+   fp32 gradient buffer alone, peak memory.  (b) Two gloo ranks on the one
+   card (gloo takes the CUDA tensors, or the leg stages them through
+   pinned host copies, and says which), each on rows ``r::2`` of 2 global
+   batches: masters and AdamW moments bitwise equal across the ranks after
+   every step; against one process on the same rows (a third subprocess),
+   losses within ``LOSS_TOL``, step-1 gradients within ``TRAIN_GRAD_TOL``
+   per weight, and the final masters' loss on a third batch within
+   ``LOSS_TOL``; each rank's all-reduce ms and peak memory.  (c)
+   ``python -m torch.distributed.run --standalone --nproc_per_node=1 -m
+   tpu_parallel_torch.train --config=gpt2_125m_dp`` for 3 steps: exit 0,
+   a topology line with one process and NCCL, ``train_loss`` in its
+   metrics.
 
 Weights and inputs are made from ``SEED``.  The kernel launch counters are
 set to 0 before each main path (phases 3-4: inference; phase 6's steps:
 training; phases 7-10: serving, which must leave them at 0; phase 11's
-packed fit and its 8k steps) and read after it.  The last two lines are the ``kernels`` JSON object and the
+packed fit and its 8k steps; phase 12's leg (a), in its subprocess) and
+read after it.  The last two lines are the ``kernels`` JSON object and the
 ``{"ok": true, ...}`` line.
 """
 
@@ -3336,6 +3358,451 @@ def trainer_phase(seed, smi):
     return report, rows, dict(training_packed=packed_launches, training_long=long_launches)
 
 
+# phase 12: data parallelism on the card (GPT-2 125M, ``gpt2_125m_dp``).  One
+# H100, and NCCL puts no two ranks on one GPU: (a) runs the DP step at full
+# width in an NCCL group of one, (b) two gloo ranks on the one card, (c) the
+# CLI under torchrun.  Each leg is a subprocess of this script printing one
+# JSON line, so no process group outlives its leg.
+DP_STEPS = 3  # leg (a)'s counted steps
+DP_TIMED = 3  # leg (a)'s timed steps, with and without the group
+DP_SHAPE = (64, 12, 12, 1024, 64, dict(causal=True), False, 10)  # the kernels' shape in leg (a)
+# leg (b): each rank's 32 rows of a [64, 1024] batch in two minibatches, so
+# the two processes and the reference fit on the one card together
+DP_PAIR_BATCHES, DP_PAIR_MINIBATCHES = 2, 2
+DP_LEG_TIMEOUT = 600
+DP_RESULT = "dp-leg-result: "
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _dp_config(**changes):
+    config, _ = _shell_config("gpt2_125m_dp", seed=SEED, **changes)
+    return config
+
+
+def _dp_batches(n, vocab, device):
+    """``n`` seeded global batches of [64, 1024]."""
+    from tpu_parallel_torch.data import lm_batch
+
+    return [lm_batch(torch.Generator().manual_seed(SEED + 40 + i), 64, SHELL_SEQ, vocab,
+                     device=device) for i in range(n)]
+
+
+def _every_other(batch, rank, world):
+    """Rows ``rank::world`` of every field, the DataLoader's per-rank rows."""
+    import dataclasses
+
+    return type(batch)(**{f.name: None if getattr(batch, f.name) is None
+                          else getattr(batch, f.name)[rank::world].contiguous()
+                          for f in dataclasses.fields(batch)})
+
+
+def _digest(state):
+    """sha256 of the masters and AdamW's two moments, bytes in name order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    opt = state.opt_state[-1]
+    for tree in (state.params, opt["mu"], opt["nu"]):
+        for name in sorted(tree):
+            h.update(tree[name].detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _timed_dp_steps(trainer, batch, n):
+    """Host ms (each step ended by a synchronize) and CUDA-event device ms
+    per step over ``n`` steps."""
+    host, device = [], []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        trainer.step_fn(trainer.state, None, batch)
+        end.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        device.append(start.elapsed_time(end))
+    return host, device
+
+
+def dp_nccl_leg():
+    """Leg (a), in its own process under torchrun's environment for one
+    rank: ``initialize()``, ``Trainer(gpt2_125m_dp)`` over
+    ``make_mesh(MeshConfig(data=-1))``, DP_STEPS counted steps on a fixed
+    seeded batch, then the timed steps, the all-reduce alone on the flat
+    fp32 gradient buffer, and the same steps with no group."""
+    import torch.distributed as dist
+
+    from tpu_parallel_torch.core.metrics import compute
+    from tpu_parallel_torch.ops import flash_attention as fa
+    from tpu_parallel_torch.parallel import dp
+    from tpu_parallel_torch.runtime import MeshConfig, initialize, make_mesh, process_info
+    from tpu_parallel_torch.train_lib import Trainer
+
+    initialize()
+    info = process_info()
+    if info["backend"] != "nccl" or info["process_count"] != 1:
+        raise AssertionError(f"leg (a) wants an NCCL group of one: {info}")
+    config = _dp_config()
+    mesh = make_mesh(MeshConfig(data=-1))
+    trainer = Trainer(config, mesh, device="cuda")
+    state = trainer.init()
+    batch = trainer.example_batch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()  # the main path starts here
+    dp.dp_allreduce_launches = 0
+    per_step, losses = [], []
+    for _ in range(DP_STEPS):
+        before = _launch_counts()
+        state, metrics = trainer.step_fn(state, None, batch)
+        per_step.append([a - b for a, b in zip(_launch_counts(), before)])
+        losses.append(compute(metrics)["loss"])
+    torch.cuda.synchronize()
+    launches = dict(zip(LAUNCH_COUNTERS, _launch_counts()))
+    allreduces = dp.dp_allreduce_launches
+    peak = torch.cuda.max_memory_allocated()
+    want = trainer.model_config.n_layers * config.num_minibatches
+    if allreduces != DP_STEPS:
+        raise AssertionError(f"dp_allreduce_launches {allreduces} over {DP_STEPS} steps")
+    if any(n != [want, want] for n in per_step):
+        raise AssertionError(f"launches per step (fwd, bwd) {per_step}, want {want} each")
+    _falls("leg (a)", losses)
+    host, device = _timed_dp_steps(trainer, batch, DP_TIMED)
+    group = mesh.get_group("data")
+    flat = state.flat_grads
+    allreduce_ms = cuda_ms(lambda: dist.all_reduce(flat, group=group), 10)
+    result = dict(process_info=info, losses=losses, launches_per_step=per_step,
+                  launches=launches, dp_allreduce_launches=allreduces,
+                  flat_grad_bytes=flat.numel() * flat.element_size(),
+                  allreduce_ms=allreduce_ms, step_host_ms=host, step_device_ms=device,
+                  max_memory_allocated=peak, mesh_shape=list(mesh.shape),
+                  device=str(trainer.device))
+    del trainer, state, flat, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    alone = Trainer(config, device="cuda")
+    if alone.mesh is not None:
+        raise AssertionError("a Trainer without a group has a mesh")
+    alone.init()
+    alone.step_fn(alone.state, None, alone.example_batch)
+    host, device = _timed_dp_steps(alone, alone.example_batch, DP_TIMED)
+    result.update(no_group_step_host_ms=host, no_group_step_device_ms=device)
+    return result
+
+
+def _stage_gloo_through_host():
+    """Probe whether this build's gloo takes CUDA tensors; where it does
+    not, wrap ``all_reduce`` and ``broadcast`` so that a CUDA tensor goes
+    through a pinned host copy (this leg's own staging, not a path of the
+    port).  Returns True when gloo took the CUDA tensor itself."""
+    import torch.distributed as dist
+
+    try:
+        probe = torch.ones(1, device="cuda:0")
+        dist.all_reduce(probe)
+        torch.cuda.synchronize()
+        if probe.item() != dist.get_world_size():
+            raise RuntimeError(f"gloo all_reduce of a CUDA tensor gave {probe.item()}")
+        return True
+    except RuntimeError:
+        pass
+    plain = {name: getattr(dist, name) for name in ("all_reduce", "broadcast")}
+
+    def staged(name):
+        def collective(tensor, *args, **kwargs):
+            if not tensor.is_cuda:
+                return plain[name](tensor, *args, **kwargs)
+            host = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
+            host.copy_(tensor)
+            plain[name](host, *args, **kwargs)
+            tensor.copy_(host)
+        return collective
+
+    for name in plain:
+        setattr(dist, name, staged(name))
+    return False
+
+
+def dp_pair_leg(rank, rendezvous, workdir):
+    """Leg (b), one of two ranks on the one card: a gloo group over CUDA
+    tensors on ``cuda:0``.  Each rank steps on rows ``rank::2`` of the same
+    DP_PAIR_BATCHES global batches; it reports a digest of its masters and
+    moments after every step, its all-reduce time and its peak memory, and
+    rank 0 saves the step-1 gradients, the losses and the final masters
+    for the reference run."""
+    import torch.distributed as dist
+
+    from tpu_parallel_torch.core.metrics import compute
+    from tpu_parallel_torch.runtime import MeshConfig, initialize, make_mesh, process_info
+    from tpu_parallel_torch.train_lib import Trainer
+
+    initialize(rendezvous, 2, rank, backend="gloo", device="cuda:0")
+    info = process_info()
+    gloo_cuda = _stage_gloo_through_host()
+    config = _dp_config(num_minibatches=DP_PAIR_MINIBATCHES)
+    trainer = Trainer(config, make_mesh(MeshConfig(data=2)), device="cuda:0")
+    state = trainer.init()
+    batches = _dp_batches(DP_PAIR_BATCHES, trainer.model_config.vocab_size, "cuda:0")
+    torch.cuda.reset_peak_memory_stats()
+    digests, losses, grads = [], [], None
+    for batch in batches:
+        state, metrics = trainer.step_fn(state, None, _every_other(batch, rank, 2))
+        losses.append(compute(metrics)["loss"])
+        digests.append(_digest(state))
+        if grads is None:
+            grads = state.flat_grads.to("cpu", copy=True)
+    peak = torch.cuda.max_memory_allocated()
+    flat = state.flat_grads
+    dist.barrier()
+    host = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(flat)
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+    if rank == 0:
+        torch.save(dict(grads=grads, losses=losses,
+                        masters={n: p.cpu() for n, p in state.params.items()}),
+                   Path(workdir, "pair.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+    return dict(rank=rank, process_info=info, gloo_takes_cuda=gloo_cuda, losses=losses,
+                digests=digests,
+                allreduce_host_ms=host, flat_grad_bytes=flat.numel() * flat.element_size(),
+                max_memory_allocated=peak)
+
+
+def dp_pair_reference_leg(workdir):
+    """Leg (b)'s reference: one process, no group, the same init and global
+    batches (all 64 rows, DP_PAIR_MINIBATCHES minibatches), against what
+    rank 0 saved: the losses within LOSS_TOL, the step-1 gradients per
+    weight within TRAIN_GRAD_TOL (relative L2, the qkv bias's key slice
+    left out), and the final masters by the loss they give on a third
+    batch (within LOSS_TOL), with their update's relative error printed."""
+    from tpu_parallel_torch.core.metrics import compute
+    from tpu_parallel_torch.models import GPTLM
+    from tpu_parallel_torch.models.gpt import make_gpt_loss
+    from tpu_parallel_torch.train_lib import Trainer
+
+    pair = torch.load(Path(workdir, "pair.pt"), weights_only=True)
+    config = _dp_config(num_minibatches=DP_PAIR_MINIBATCHES)
+    trainer = Trainer(config, device="cuda")
+    state = trainer.init()
+    cfg = trainer.model_config
+    start = {n: p.detach().clone() for n, p in state.params.items()}
+    batches = _dp_batches(DP_PAIR_BATCHES + 1, cfg.vocab_size, "cuda")
+    losses, grads = [], None
+    for batch in batches[:-1]:
+        state, metrics = trainer.step_fn(state, None, batch)
+        losses.append(compute(metrics)["loss"])
+        if grads is None:
+            grads = {n: g.detach().clone() for n, g in state.grads.items()}
+    dh = cfg.head_dim
+    not_key = (torch.arange(3 * cfg.d_model, device="cuda") % (3 * dh)) // dh != 1
+    offsets, grad_rel, update_rel = 0, {}, {}
+    pair_grads = pair["grads"].cuda()
+    for name, g in grads.items():
+        got = pair_grads[offsets:offsets + g.numel()].view_as(g)
+        offsets += g.numel()
+        upd_got = pair["masters"][name].cuda() - start[name]
+        upd_want = state.params[name] - start[name]
+        if name.endswith("attn.qkv.bias"):
+            got, g = got[not_key], g[not_key]
+            upd_got, upd_want = upd_got[not_key], upd_want[not_key]
+        grad_rel[name] = ((got - g).norm() / g.norm().clamp(min=1e-30)).item()
+        update_rel[name] = ((upd_got - upd_want).norm() / upd_want.norm().clamp(min=1e-30)).item()
+    loss_fn = make_gpt_loss(cfg, train=False)
+    dp_model = GPTLM(cfg, device="cuda")
+    dp_model.load_state_dict({n: p.cuda() for n, p in pair["masters"].items()})
+    with torch.no_grad():
+        eval_dp = loss_fn(dp_model, batches[-1])[0].item()
+        eval_ref = loss_fn(trainer.model, batches[-1])[0].item()
+    worst = max(grad_rel, key=grad_rel.get)
+    result = dict(losses=losses, pair_losses=pair["losses"],
+                  loss_diffs=[abs(a - b) for a, b in zip(losses, pair["losses"])],
+                  step1_grad_rel_max=(grad_rel[worst], worst),
+                  step1_grad_rel_median=sorted(grad_rel.values())[len(grad_rel) // 2],
+                  update_rel_max=max(update_rel.values()),
+                  update_rel_median=sorted(update_rel.values())[len(update_rel) // 2],
+                  eval_loss_dp=eval_dp, eval_loss_ref=eval_ref)
+    if max(result["loss_diffs"]) > LOSS_TOL or grad_rel[worst] > TRAIN_GRAD_TOL \
+            or abs(eval_dp - eval_ref) > LOSS_TOL:
+        raise AssertionError(f"two ranks disagree with one: {result}")
+    return result
+
+
+def _run_leg(args, env=None, timeout=DP_LEG_TIMEOUT):
+    """Run ``chip_smoke.py --leg ...`` and return its JSON result; a
+    non-zero exit raises with the leg's output."""
+    import os
+
+    here = Path(__file__).resolve().parent
+    out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--leg", *args],
+                         cwd=here, env=dict(os.environ, PYTHONPATH=str(here), **(env or {})),
+                         capture_output=True, text=True, timeout=timeout)
+    if out.returncode != 0:
+        raise AssertionError(f"leg {args} exited {out.returncode}: "
+                             f"{out.stdout[-3000:]}\n{out.stderr[-5000:]}")
+    lines = [line for line in out.stdout.splitlines() if line.startswith(DP_RESULT)]
+    return json.loads(lines[-1][len(DP_RESULT):])
+
+
+def dp_cli_leg(work):
+    """Leg (c): ``python -m torch.distributed.run --standalone
+    --nproc_per_node=1 -m tpu_parallel_torch.train --config=gpt2_125m_dp``
+    for DP_STEPS steps: exit 0, a topology line with one process and NCCL,
+    ``train_loss`` in its metrics."""
+    import os
+
+    here = Path(__file__).resolve().parent
+    metrics = Path(work, "dp_metrics.prom")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=1",
+           "-m", "tpu_parallel_torch.train", "--config=gpt2_125m_dp",
+           f"--config.steps={DP_STEPS}", f"--metrics-out={metrics}"]
+    start = time.perf_counter()
+    out = subprocess.run(cmd, cwd=here, env=dict(os.environ, PYTHONPATH=str(here)),
+                         capture_output=True, text=True, timeout=DP_LEG_TIMEOUT)
+    wall = time.perf_counter() - start
+    if out.returncode != 0:
+        raise AssertionError(f"torchrun exited {out.returncode}: {out.stderr[-3000:]}")
+    topology = [json.loads(line[len("topology: "):]) for line in out.stdout.splitlines()
+                if line.startswith("topology: ")]
+    if len(topology) != 1 or topology[0]["process_count"] != 1 \
+            or topology[0]["backend"] != "nccl":
+        raise AssertionError(f"CLI topology lines {topology}")
+    if "train_loss" not in metrics.read_text():
+        raise AssertionError("CLI metrics without train_loss")
+    return dict(wall_s=wall, topology=topology[0],
+                stdout_tail=out.stdout.strip().splitlines()[-2:])
+
+
+def dp_phase(smi):
+    """Phase 12: the kernels at the DP step's shape against their plain
+    versions, then legs (a), (b) and (c).  Returns the report and the
+    kernels' rows with leg (a)'s launches."""
+    import shutil
+    import tempfile
+
+    start = time.perf_counter()
+    legs_s = {}
+
+    def lap(name):
+        legs_s[name] = time.perf_counter() - start - sum(legs_s.values())
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    rows = dict(fwd=fwd_kernel_row("t_dp_pass", DP_SHAPE, gen),
+                bwd=bwd_kernel_row("t_dp_pass", DP_SHAPE, gen, main_path=True))
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("kernels")
+    env = dict(WORLD_SIZE="1", RANK="0", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(_free_port()))
+    nccl = _run_leg(["dp_nccl"], env=env)
+    lap("nccl")
+    log(f"[dp nccl] {nccl['process_info']}; mesh {nccl['mesh_shape']} on {nccl['device']}; "
+        f"gpt2_125m_dp [64, 1024] in 1 minibatch, losses "
+        f"{[round(x, 5) for x in nccl['losses']]}; launches per step (flash_fwd, flash_bwd) "
+        f"{nccl['launches_per_step']}; dp_allreduce_launches {nccl['dp_allreduce_launches']} "
+        f"over {DP_STEPS} steps")
+    log(f"  step with the group: host ms {[round(x, 2) for x in nccl['step_host_ms']]}, device "
+        f"ms {[round(x, 2) for x in nccl['step_device_ms']]}; without a group: host ms "
+        f"{[round(x, 2) for x in nccl['no_group_step_host_ms']]}, device ms "
+        f"{[round(x, 2) for x in nccl['no_group_step_device_ms']]}; all-reduce of the flat "
+        f"fp32 buffer ({nccl['flat_grad_bytes']} bytes) alone {nccl['allreduce_ms']:.4f} device "
+        f"ms; max memory allocated {nccl['max_memory_allocated'] / 2**30:.2f} GiB")
+    work = tempfile.mkdtemp(prefix="dp_legs_")
+    try:
+        rendezvous = f"file://{Path(work, 'rendezvous')}"
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--leg", "dp_pair", str(r),
+             rendezvous, work], cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for r in range(2)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=DP_LEG_TIMEOUT))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(p.returncode != 0 for p in procs):
+            raise AssertionError("leg (b) ranks failed: " + "\n".join(
+                f"rank {r} exit {p.returncode}: {o[1][-4000:]}"
+                for r, (p, o) in enumerate(zip(procs, outs))))
+        pair = [json.loads([line for line in o[0].splitlines()
+                            if line.startswith(DP_RESULT)][-1][len(DP_RESULT):]) for o in outs]
+        if pair[0]["digests"] != pair[1]["digests"]:
+            raise AssertionError(f"leg (b) replicas differ: {pair[0]['digests']} against "
+                                 f"{pair[1]['digests']}")
+        if pair[0]["losses"] != pair[1]["losses"]:
+            raise AssertionError(f"leg (b) ranks' synced losses differ: {pair}")
+        lap("pair")
+        ref = _run_leg(["dp_pair_ref", work])
+        lap("pair_reference")
+        how = ("gloo over CUDA tensors" if pair[0]["gloo_takes_cuda"]
+               else "gloo staged through pinned host copies (it refused CUDA tensors)")
+        log(f"[dp two ranks] {how}, two processes on cuda:0 "
+            f"({pair[0]['process_info']}); rows r::2 of {DP_PAIR_BATCHES} batches of [64, 1024], "
+            f"{DP_PAIR_MINIBATCHES} minibatches per rank: masters and moments bitwise equal "
+            f"after every step ({[d[:12] for d in pair[0]['digests']]}); losses "
+            f"{[round(x, 5) for x in pair[0]['losses']]} against one process's "
+            f"{[round(x, 5) for x in ref['losses']]} (|diff| {ref['loss_diffs']}, tol "
+            f"{LOSS_TOL})")
+        log(f"  step-1 gradients against one process: relative L2 per weight median "
+            f"{ref['step1_grad_rel_median']:.3e}, max {ref['step1_grad_rel_max'][0]:.3e} "
+            f"({ref['step1_grad_rel_max'][1]}), tol {TRAIN_GRAD_TOL}; final masters' update "
+            f"relative error median {ref['update_rel_median']:.3e}, max "
+            f"{ref['update_rel_max']:.3e}; their loss on a third batch {ref['eval_loss_dp']:.6f} "
+            f"against {ref['eval_loss_ref']:.6f} (tol {LOSS_TOL})")
+        log("  all-reduce of the flat fp32 buffer through gloo (host ms per call): "
+            + "; ".join(f"rank {p['rank']} {[round(x, 1) for x in p['allreduce_host_ms']]}"
+                        for p in pair)
+            + "; max memory allocated "
+            + ", ".join(f"{p['max_memory_allocated'] / 2**30:.2f} GiB" for p in pair))
+        cli = dp_cli_leg(work)
+        lap("cli")
+        log(f"[dp cli] torchrun --standalone --nproc_per_node=1 -m tpu_parallel_torch.train "
+            f"--config=gpt2_125m_dp --config.steps={DP_STEPS}: exit 0 in {cli['wall_s']:.1f} s; "
+            f"topology {cli['topology']}; metrics have train_loss; {cli['stdout_tail']}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    phase_s = time.perf_counter() - start
+    log(f"[dp] phase 12 took {phase_s:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in legs_s.items()) + ")")
+    log(f"card: {smi}")
+    return dict(nccl=nccl, pair=pair, pair_reference=ref, cli=cli, phase_s=phase_s,
+                legs_s=legs_s), rows, nccl["launches"]
+
+
+def leg_main(argv):
+    """``chip_smoke.py --leg <name> ...``: one leg of phase 12 in this
+    process; prints its result as one ``dp-leg-result:`` JSON line."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    name, rest = argv[0], argv[1:]
+    if name == "dp_nccl":
+        result = dp_nccl_leg()
+    elif name == "dp_pair":
+        result = dp_pair_leg(int(rest[0]), rest[1], rest[2])
+    elif name == "dp_pair_ref":
+        result = dp_pair_reference_leg(rest[0])
+    else:
+        raise SystemExit(f"unknown leg {name!r}")
+    print(DP_RESULT + json.dumps(result), flush=True)
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -3377,6 +3844,11 @@ def main():
     for path, counts in shell_launches.items():
         if not all(counts.values()):
             raise AssertionError(f"the {path} path left a kernel unlaunched: {counts}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    dp_report, dp_rows, dp_launches = dp_phase(smi)
+    if not all(dp_launches.values()):
+        raise AssertionError(f"the training_dp path left a kernel unlaunched: {dp_launches}")
 
     # one row per kernel and main path, each at the shape that path gives it:
     # the forward at (a) for inference and at the training pass;
@@ -3414,12 +3886,21 @@ def main():
              "tpu_parallel/ops/flash_attention.py:296"),
             ("training_long", "bwd", shell_rows["long_bwd"],
              "tpu_parallel/ops/flash_attention.py:512,635"))
+    ] + [
+        dict(name=f"flash_{kind}", route="cuda", source=f"tpu_parallel_torch/csrc/flash_{kind}.cu",
+             replaces=replaces, path="training_dp", shape=row["shape"],
+             launches=dp_launches[f"flash_{kind}_launches"], max_abs_err=row["max_abs_err"],
+             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+             bound_by=row["bound_by"], library_ms=row["library_ms"])
+        for kind, row, replaces in (
+            ("fwd", dp_rows["fwd"], "tpu_parallel/ops/flash_attention.py:240"),
+            ("bwd", dp_rows["bwd"], "tpu_parallel/ops/flash_attention.py:464,563"))
     ]}
     summary = dict(card=smi, forward=fwd, generate=gen, train=train, serve=serve, kv=kv,
-                   spec=spec, decode_extras=extras, trainer_shell=shell,
+                   spec=spec, decode_extras=extras, trainer_shell=shell, data_parallel=dp_report,
                    inference_flash_fwd_launches=inference_launches,
                    kernel_shapes=kernel_rows, bwd_kernel_shapes=bwd_rows,
-                   trainer_shell_kernel_shapes=shell_rows)
+                   trainer_shell_kernel_shapes=shell_rows, data_parallel_kernel_shapes=dp_rows)
     log("[summary] " + json.dumps(summary, sort_keys=True))
     log(f"card: {smi}")
     print(json.dumps(kernels), flush=True)
@@ -3431,4 +3912,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--leg"]:
+        sys.exit(leg_main(sys.argv[2:]))
     sys.exit(main())

@@ -177,16 +177,25 @@ def test_holdout_split_disjoint_and_exhaustive(token_file):
 
 
 def test_loader_contract(token_file):
-    """The refusals (no holdout, a split smaller than a batch, several
-    processes), ``batch_at`` purity, and prefetch equal to sequential."""
+    """The refusals (no holdout, a split smaller than a batch, a global
+    batch the processes do not divide, as JAX's), process ``p`` of ``P``
+    taking rows ``p::P`` of the one-process batch, ``batch_at`` purity, and
+    prefetch equal to sequential."""
     path, _ = token_file
     ds = TokenDataset(path, seq_len=16)
     with pytest.raises(ValueError, match="holdout_fraction"):
         DataLoader(ds, 8, device="cpu").eval_view()
     with pytest.raises(ValueError, match="fewer than one global batch"):
         DataLoader(ds, ds.num_windows + 1, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        DataLoader(ds, 8, device="cpu", process_count=2)
+    with pytest.raises(ValueError, match="global batch 8 not divisible by process count 3"):
+        DataLoader(ds, 8, device="cpu", process_count=3, process_index=0)
+    whole = DataLoader(ds, 8, seed=5, device="cpu")
+    assert (whole.process_count, whole.process_index, whole.local_batch_size) == (1, 0, 8)
+    for p in range(2):
+        part = DataLoader(ds, 8, seed=5, device="cpu", process_count=2, process_index=p)
+        assert part.local_batch_size == 4
+        for step in (0, 3, part.batches_per_epoch):
+            assert torch.equal(part.batch_at(step).tokens, whole.batch_at(step).tokens[p::2])
     a = DataLoader(ds, 8, seed=5, device="cpu")
     b = DataLoader(ds, 8, seed=5, device="cpu")
     assert torch.equal(a.batch_at(40).tokens, b.batch_at(40).tokens)

@@ -235,13 +235,18 @@ def _jax_config(name):
 @pytest.mark.parametrize("name", CONFIGS)
 def test_config_matches_jax_and_runs_one_step(name):
     """Every shared key equals the JAX config's value (the JAX-only
-    ``simulate_cpu_devices`` aside), and one step runs with the model swapped
-    for ``tiny`` (seq_len clamped to 128, a chunked loss kept at 64)."""
+    ``simulate_cpu_devices`` aside, where the port does not run it), and one
+    step runs in this process with the model swapped for ``tiny`` (seq_len
+    clamped to 128, a chunked loss kept at 64)."""
     ours, theirs = get_config(name), _jax_config(name)
-    assert set(theirs) - set(ours) == {"simulate_cpu_devices"} and set(ours) <= set(theirs)
+    # the port declares simulate_cpu_devices where its CLI runs the ranks
+    jax_only = set() if "simulate_cpu_devices" in ours else {"simulate_cpu_devices"}
+    assert set(theirs) - set(ours) == jax_only and set(ours) <= set(theirs)
     for key, value in ours.items():
         assert value == theirs[key], key
-    d = {k: v for k, v in ours.items() if k not in PLUMBING}
+    d = {k: v for k, v in ours.items() if k not in PLUMBING + ("simulate_cpu_devices",)}
+    if ours.get("simulate_cpu_devices"):
+        d["mesh"] = dict(data=-1)  # one process here; tests/test_torch_dp.py runs its ranks
     overrides = dict(d.pop("model_overrides"))
     if overrides.get("seq_len") and overrides["seq_len"] > 128:
         overrides["seq_len"] = 128

@@ -1,7 +1,7 @@
 """Rules of the PyTorch port: it never imports JAX, the JAX package,
 ``ml_dtypes``, orbax, ``ml_collections`` or absl (the card's machine has
-none of them), and its entry points default to the card, raising where
-there is none."""
+none of them), nor does the worker its multi-rank tests run in; and its
+entry points default to the card, raising where there is none."""
 
 import ast
 import os
@@ -25,7 +25,8 @@ torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "tpu_parallel", "ml_dtypes", "orbax",
              "ml_collections", "absl"}
-PORT_FILES = sorted((REPO / "tpu_parallel_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+PORT_FILES = sorted((REPO / "tpu_parallel_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py", REPO / "tests" / "torch_dp_worker.py"]
 
 
 def _imported_roots(path):
@@ -53,9 +54,11 @@ def test_scan_covers_every_subpackage():
     packages = {p.parent for p in (REPO / "tpu_parallel_torch").rglob("__init__.py")}
     scanned = {p.parent for p in PORT_FILES}
     assert REPO / "tpu_parallel_torch" / "daemon" in packages
-    for sub in ("checkpoint", "configs", "data"):
+    for sub in ("checkpoint", "configs", "data", "runtime", "parallel"):
         assert REPO / "tpu_parallel_torch" / sub in packages
     assert REPO / "tpu_parallel_torch" / "train.py" in PORT_FILES
+    assert REPO / "tpu_parallel_torch" / "models" / "mlp.py" in PORT_FILES
+    assert (REPO / "tests" / "torch_dp_worker.py").is_file()
     assert packages <= scanned
     assert all(p in PORT_FILES for pkg in packages for p in pkg.glob("*.py"))
 
@@ -82,7 +85,13 @@ def test_import_pulls_in_no_jax():
         "tpu_parallel_torch.data.packed, tpu_parallel_torch.obs.exporters, "
         "tpu_parallel_torch.train, tpu_parallel_torch.configs, "
         "tpu_parallel_torch.configs.common, tpu_parallel_torch.configs.gpt2_125m_dp, "
-        "tpu_parallel_torch.configs.gpt2_125m_corpus, tpu_parallel_torch.configs.gpt2_125m_long\n"
+        "tpu_parallel_torch.configs.gpt2_125m_corpus, tpu_parallel_torch.configs.gpt2_125m_long, "
+        "tpu_parallel_torch.configs.mlp_dp_cpu, tpu_parallel_torch.runtime, "
+        "tpu_parallel_torch.runtime.bootstrap, tpu_parallel_torch.runtime.device, "
+        "tpu_parallel_torch.runtime.mesh, tpu_parallel_torch.parallel, "
+        "tpu_parallel_torch.parallel.dp, tpu_parallel_torch.core.rng, "
+        "tpu_parallel_torch.models.mlp, tpu_parallel_torch.data.synthetic\n"
+        "sys.path.insert(0, 'tests'); import torch_dp_worker\n"
         "new = {m.split('.')[0] for m in set(sys.modules) - before}\n"
         f"print(sorted(new & {FORBIDDEN!r}))\n"
     )
@@ -94,10 +103,12 @@ def test_import_pulls_in_no_jax():
 
 def test_entry_points_default_to_cuda():
     """Without a GPU the default device raises; with one it is used.  The
-    same for the trainer, the data loader's device moves and the CLI."""
+    same for the trainer, the data loader's device moves, the MLP
+    classifier and the CLI."""
     import numpy as np
 
     from tpu_parallel_torch.data import DataLoader, TokenDataset
+    from tpu_parallel_torch.models.mlp import MLPClassifier, MLPConfig
     from tpu_parallel_torch.train_lib import Trainer, TrainerConfig
 
     ds = TokenDataset(np.arange(400, dtype=np.uint16), 16)
@@ -107,6 +118,7 @@ def test_entry_points_default_to_cuda():
         assert ServingEngine(GPTLM(tiny_test()), n_slots=2).device.type == "cuda"
         assert Trainer(TrainerConfig(model="tiny")).device.type == "cuda"
         assert DataLoader(ds, 4).batch_at(0).tokens.device.type == "cuda"
+        assert MLPClassifier(MLPConfig(), 8).head.weight.device.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="cuda"):
             GPTLM(tiny_test())
@@ -118,6 +130,8 @@ def test_entry_points_default_to_cuda():
             Trainer(TrainerConfig(model="tiny"))
         with pytest.raises(RuntimeError, match="cuda"):
             DataLoader(ds, 4)
+        with pytest.raises(RuntimeError, match="cuda"):
+            MLPClassifier(MLPConfig(), 8)
         env = dict(os.environ, PYTHONPATH=str(REPO))
         out = subprocess.run([sys.executable, "-m", "tpu_parallel_torch.train",
                               "--config=gpt2_125m_dp", "--config.model=tiny"], cwd=REPO,
@@ -127,6 +141,7 @@ def test_entry_points_default_to_cuda():
     assert ServingEngine(GPTLM(tiny_test(), device="cpu"), n_slots=2).device.type == "cpu"
     assert Trainer(TrainerConfig(model="tiny"), device="cpu").device.type == "cpu"
     assert DataLoader(ds, 4, device="cpu").batch_at(0).tokens.device.type == "cpu"
+    assert MLPClassifier(MLPConfig(), 8, device="cpu").head.weight.device.type == "cpu"
 
 
 def test_failed_kernel_build_raises(tmp_path, monkeypatch):

@@ -1,0 +1,399 @@
+"""Worker ranks for the port's multi-rank tests: the counterpart of
+``tests/multihost_worker.py``.
+
+    python tests/torch_dp_worker.py <suite> <outdir> <num_ranks>
+
+Starts ``num_ranks`` gloo CPU processes through
+``tpu_parallel_torch.runtime.spawn_cpu_ranks`` and runs every case of
+``suite`` (``runtime`` or ``dp``) in that one group.  Each rank reads the
+inputs the test wrote to ``<outdir>/inputs.npz`` and writes its results to
+``<outdir>/<suite>_rank<r>.npz``; the test compares them with the JAX
+package in its own process.  Imports torch, numpy and the port only.
+
+:func:`run_once` is the tests' side: it writes the inputs and runs the
+group once per pytest run, even when pytest-xdist spreads a module's
+tests over several workers.
+"""
+
+from __future__ import annotations
+
+import fcntl
+import json
+import math
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+NUM_RANKS = 4
+
+
+def flat_tree(prefix, tree):
+    """``{prefix/path: array}`` of a nested dict of arrays."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_tree(f"{prefix}/{k}", v))
+        else:
+            out[f"{prefix}/{k}"] = np.asarray(v)
+    return out
+
+
+def nested_tree(prefix, flat):
+    """The inverse of :func:`flat_tree` for the keys under ``prefix/``."""
+    tree = {}
+    for key, value in flat.items():
+        if not key.startswith(prefix + "/"):
+            continue
+        node = tree
+        *parents, leaf = key[len(prefix) + 1:].split("/")
+        for name in parents:
+            node = node.setdefault(name, {})
+        node[leaf] = value
+    return tree
+
+
+def run_once(suite, tmp_path_factory, make_inputs):
+    """Run ``suite`` once per pytest run and return its ranks' outputs
+    (a list of dicts, one per rank).  ``make_inputs(outdir)`` returns the
+    arrays of ``inputs.npz`` (it may write other files into ``outdir``).
+    Under pytest-xdist the workers share one directory and a file lock, so
+    the first worker runs the group and the others read its files."""
+    base = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        base = base.parent  # the run's directory, shared by its workers
+    outdir = base / f"torch_ranks_{suite}"
+    outdir.mkdir(exist_ok=True)
+    with open(outdir / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            done = outdir / "done.json"
+            if not done.exists():
+                np.savez(outdir / "inputs.npz", **make_inputs(outdir))
+                env = dict(os.environ, PYTHONPATH=REPO)
+                proc = subprocess.run(
+                    [sys.executable, os.path.abspath(__file__), suite, str(outdir),
+                     str(NUM_RANKS)], cwd=REPO, env=env, capture_output=True, text=True,
+                    timeout=600)
+                done.write_text(json.dumps(dict(returncode=proc.returncode,
+                                                log=(proc.stdout + proc.stderr)[-20000:])))
+            status = json.loads(done.read_text())
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    assert status["returncode"] == 0, status["log"]
+    return [dict(np.load(outdir / f"{suite}_rank{r}.npz")) for r in range(NUM_RANKS)]
+
+
+# -- the ranks' side ----------------------------------------------------------
+
+
+def _runtime_cases(inputs, outdir, out):
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from tpu_parallel_torch.core.metrics import compute, metric, sync_metrics
+    from tpu_parallel_torch.core.optim import ClipByGlobalNormSharded, global_norm_sharded
+    from tpu_parallel_torch.core.rng import fold_rng_over_axis
+    from tpu_parallel_torch.runtime import (MeshConfig, initialize, is_simulated, make_mesh,
+                                            mesh_from_sizes, process_info)
+
+    rank = dist.get_rank()
+    # (1) meshes
+    mesh = make_mesh(MeshConfig(data=4))
+    out["mesh_shape"] = np.array(mesh.shape)
+    out["mesh_names"] = np.array(mesh.mesh_dim_names)
+    out["mesh_data_ranks"] = np.array(dist.get_process_group_ranks(mesh.get_group("data")))
+    out["mesh_data_coord"] = np.array(mesh.get_local_rank("data"))
+    out["mesh_wild_shape"] = np.array(mesh_from_sizes(data=-1).shape)
+    mesh22 = make_mesh(MeshConfig(data=2, model=2))
+    out["mesh22_shape"] = np.array(mesh22.shape)
+    for axis in ("data", "model"):
+        out[f"mesh22_{axis}_ranks"] = np.array(
+            dist.get_process_group_ranks(mesh22.get_group(axis)))
+    for name, cfg in (("cover", MeshConfig(data=3)), ("wild", MeshConfig(data=-1, model=3)),
+                      ("two_wild", MeshConfig(data=-1, model=-1))):
+        try:
+            make_mesh(cfg)
+            out[f"mesh_error_{name}"] = np.array("")
+        except ValueError as exc:
+            out[f"mesh_error_{name}"] = np.array(str(exc))
+    # (2) initialize() without torchrun's environment is a no-op in a group
+    initialize()
+    out["info"] = np.array(json.dumps(process_info()))
+    out["simulated"] = np.array(is_simulated())
+    # (3) per-rank generators
+    gen = torch.Generator().manual_seed(0)
+    out["fold_draw"] = torch.randn(4, generator=fold_rng_over_axis(gen, "data", mesh)).numpy()
+    again = fold_rng_over_axis(torch.Generator().manual_seed(0), "data", mesh)
+    out["fold_draw_again"] = torch.randn(4, generator=again).numpy()
+    out["fold_replicated_next"] = torch.randn(2, generator=gen).numpy()
+    out["fold_unbound_is_identity"] = np.array(
+        fold_rng_over_axis(gen, "nope", mesh) is gen and fold_rng_over_axis(gen, "data") is gen)
+    both = fold_rng_over_axis(torch.Generator().manual_seed(0), ("data", "model"), mesh22)
+    out["fold_draw_22"] = torch.randn(4, generator=both).numpy()
+    # (4) metrics: arange(16) over 4 ranks; a mean axis; a replicated metric
+    x = torch.arange(16.0)[4 * rank:4 * rank + 4]
+    synced = sync_metrics({"loss": metric(x.sum(), 4), "rep": metric(2.0, 1)}, "data",
+                          mesh=mesh)
+    out["sync_loss"] = np.array(compute(synced)["loss"])
+    out["sync_rep"] = np.array([float(t) for t in synced["rep"]])
+    meaned = sync_metrics({"acc": metric(float(rank), 1)}, (), mean_axes="data", mesh=mesh)
+    out["sync_mean"] = np.array([float(t) for t in meaned["acc"]])
+    out["sync_unbound_is_identity"] = np.array(
+        sync_metrics(synced, "data") is synced and sync_metrics(synced, "nope", mesh=mesh)
+        is synced)
+    # (4b) gradient sync: separate tensors (through a flattened copy) and
+    # views of one flat buffer (in place), one all-reduce each
+    from tpu_parallel_torch.parallel import dp
+
+    before = dp.dp_allreduce_launches
+    grads = {"a": torch.full((3,), float(rank)), "b": torch.full((2, 2), 2.0 * rank)}
+    dp.sync_gradients_dp(grads, "data", mesh)
+    flat = torch.full((7,), float(rank))
+    views = {"a": flat[:3], "b": flat[3:].view(2, 2)}
+    dp.sync_gradients_dp(views, "data", mesh)
+    out["sync_grads_separate"] = torch.cat([grads["a"], grads["b"].reshape(-1)]).numpy()
+    out["sync_grads_flat"] = flat.numpy()
+    out["sync_grads_launches"] = np.array(dp.dp_allreduce_launches - before)
+    # (5) the sharded norm and clip (tests/test_optim.py:13-58 on a data=4 mesh)
+    placements = [Shard(0) if n == "data" else Replicate() for n in mesh.mesh_dim_names]
+    grads = {"sharded": DTensor.from_local(torch.full((2,), float(rank)), mesh, placements),
+             "replicated": torch.ones(3)}
+    out["norm"] = global_norm_sharded(grads).numpy()
+    grads = {"sharded": DTensor.from_local(torch.full((4,), rank + 1.0), mesh, placements),
+             "replicated": torch.full((4,), 2.0)}
+    clipped, _ = ClipByGlobalNormSharded(1.0).update(grads, None)
+    out["clip_replicated"] = clipped["replicated"].numpy()
+    out["clip_sharded_full"] = clipped["sharded"].full_tensor().numpy()
+
+
+def _text_batch(inputs, prefix):
+    import torch
+
+    from tpu_parallel_torch.core.state import TextBatch
+
+    fields = {}
+    for name in ("tokens", "targets", "loss_mask", "segment_ids", "positions"):
+        key = f"{prefix}/{name}"
+        if key in inputs:
+            value = torch.from_numpy(inputs[key].copy())
+            fields[name] = value.int() if name == "segment_ids" else (
+                value if name == "loss_mask" else value.long())
+    return TextBatch(**fields)
+
+
+def _masters(out, prefix, state):
+    for name, value in state.params.items():
+        out[f"{prefix}/{name}"] = value.detach().numpy().copy()
+
+
+def _dp_cases(inputs, outdir, out):
+    import torch
+    import torch.distributed as dist
+
+    from tpu_parallel_torch.checkpoint import Checkpointer, params_fingerprint
+    from tpu_parallel_torch.core.losses import make_classification_loss
+    from tpu_parallel_torch.core.metrics import accumulate_metrics, compute
+    from tpu_parallel_torch.core.optim import AdamW
+    from tpu_parallel_torch.core.state import Batch, TrainState
+    from tpu_parallel_torch.data import DataLoader, TokenDataset, make_global_batch
+    from tpu_parallel_torch.models.convert import params_from_jax, params_to_jax
+    from tpu_parallel_torch.models.mlp import MLPClassifier, MLPConfig
+    from tpu_parallel_torch.parallel import dp
+    from tpu_parallel_torch.runtime import MeshConfig, make_mesh
+    from tpu_parallel_torch.train_lib import Trainer, TrainerConfig
+
+    rank = dist.get_rank()
+    mesh = make_mesh(MeshConfig(data=4))
+
+    # (6) the MLP DP step: 3 steps of AdamW(1e-3), 2 minibatches, from the
+    # bridged JAX init, on this rank's block of the global batch
+    cfg = MLPConfig(hidden_size=64, num_classes=10, dropout_rate=0.0, dtype=torch.float32)
+    tree = nested_tree("mlp", inputs)
+    inputs_all = torch.from_numpy(inputs["mlp_inputs"].copy())
+    labels_all = torch.from_numpy(inputs["mlp_labels"].copy()).long()
+    local = inputs_all.shape[0] // 4
+
+    def mlp_init():
+        model = MLPClassifier(cfg, inputs_all.shape[1], device="cpu", seed=rank)
+        return TrainState.create(model, AdamW(lambda count: 1e-3), torch.Generator().manual_seed(0),
+                                 params_from_jax(tree, cfg, dtype=torch.float32))
+
+    state = dp.make_init(mlp_init, mesh=mesh)()
+    step = dp.make_train_step(make_classification_loss("data", mesh), num_minibatches=2,
+                              mesh=mesh)
+    batch = Batch(inputs=inputs_all[rank * local:(rank + 1) * local],
+                  labels=labels_all[rank * local:(rank + 1) * local])
+    losses, launches = [], dp.dp_allreduce_launches
+    for _ in range(3):
+        state, metrics = step(state, None, batch)
+        losses.append(compute(metrics)["loss"])
+    out["mlp_losses"] = np.array(losses)
+    out["mlp_count"] = np.array(float(metrics["loss"][1]))
+    out["mlp_allreduces"] = np.array(dp.dp_allreduce_launches - launches)
+    _masters(out, "mlp_params", state)
+    for name, value in state.opt_state["mu"].items():
+        out[f"mlp_mu/{name}"] = value.numpy().copy()
+
+    # (7) the loader: rows p::P of each global batch, and the stitched view
+    ds = TokenDataset(os.path.join(outdir, "corpus.bin"), seq_len=16)
+    loader = DataLoader(ds, 8, seed=7, device="cpu")
+    out["loader_local"] = np.stack([loader.batch_at(s).tokens.numpy() for s in range(3)])
+    out["loader_global"] = np.stack([
+        make_global_batch(loader.batch_at(s), mesh).tokens.full_tensor().numpy()
+        for s in range(3)])
+    out["loader_local_batch_size"] = np.array(loader.local_batch_size)
+
+    # (8) the Trainer on tiny_test against JAX's on data=4: xla and flash,
+    # and one step on a packed batch whose ranks count different tokens
+    params0 = nested_tree("tparams", inputs)
+    example = _text_batch(inputs, "example")
+    packed = _text_batch(inputs, "packed")
+    for impl in ("xla", "flash"):
+        trainer = Trainer(TrainerConfig(model="tiny", global_batch_size=8, num_minibatches=2,
+                                        steps=3, warmup_steps=2,
+                                        model_overrides=dict(attn_impl=impl)),
+                          mesh=mesh, device="cpu")
+        tstate = trainer.init(params_from_jax(params0, trainer.model_config,
+                                              dtype=torch.float32))
+        local_batch = trainer.local_rows(example)
+        losses = []
+        for _ in range(3):
+            tstate, metrics = trainer.step_fn(tstate, None, local_batch)
+            losses.append(compute(metrics)["loss"])
+        out[f"trainer_{impl}_losses"] = np.array(losses)
+        _masters(out, f"trainer_{impl}", tstate)
+        if impl == "xla":
+            trainer.init(params_from_jax(params0, trainer.model_config, dtype=torch.float32))
+            local_packed = trainer.local_rows(packed)
+            out["packed_local_tokens"] = np.array(float(local_packed.loss_mask.sum()))
+            tstate, losses = trainer.state, []
+            for _ in range(2):
+                tstate, metrics = trainer.step_fn(tstate, None, local_packed)
+                losses.append(compute(metrics)["loss"])
+            out["packed_losses"] = np.array(losses)
+            _masters(out, "packed", tstate)
+
+    # (9) dropout 0.1: per-rank masks that repeat, a replicated generator
+    trainer = Trainer(TrainerConfig(model="tiny", global_batch_size=8, num_minibatches=2,
+                                    steps=2, warmup_steps=1,
+                                    model_overrides=dict(dropout_rate=0.1)),
+                      mesh=mesh, device="cpu")
+    trainer.init(params_from_jax(params0, trainer.model_config, dtype=torch.float32))
+    same_rows = example.rows(0, 2)
+    with torch.no_grad():
+        out["dropout_loss"] = np.array([
+            trainer.loss_fn(trainer.model, same_rows, torch.Generator().manual_seed(3))[0].item()
+            for _ in range(2)])
+    tstate = trainer.state
+    for _ in range(2):
+        tstate, _ = trainer.step_fn(tstate, None, trainer.local_rows(example))
+    out["dropout_rng_state"] = tstate.rng.get_state().numpy().copy()
+    _masters(out, "dropout", tstate)
+
+    # (10) fit with checkpoints and keep-best: one writer, every rank
+    # resumes, and a loss made non-finite on rank 1 alone rolls back every
+    # rank
+    writes = []
+    write = Checkpointer._write
+
+    def counting_write(self, step, snapshot, event):
+        writes.append(f"{os.path.basename(self.directory)}:{step}")
+        return write(self, step, snapshot, event)
+
+    Checkpointer._write = counting_write
+    ckpt_dir = os.path.join(outdir, "ckpt")
+    corpus = TokenDataset(os.path.join(outdir, "corpus.bin"), seq_len=32)
+    fit_config = dict(model="tiny", global_batch_size=8, num_minibatches=1, warmup_steps=1,
+                      steps=4)
+
+    def fit_trainer(steps):
+        t = Trainer(TrainerConfig(**{**fit_config, "steps": steps}), mesh=mesh, device="cpu")
+        seen = []
+        real = t.step_fn
+
+        def step_fn(state, metrics, batch):
+            seen.append(state.step)
+            return real(state, metrics, batch)
+
+        t.step_fn = step_fn
+        return t, seen
+
+    def fingerprint(t):
+        return params_fingerprint(params_to_jax(t.state.params, t.model_config))
+
+    def loader():
+        return DataLoader(corpus, 8, seed=1, holdout_fraction=0.2, device="cpu")
+
+    evals = []
+    t1, seen1 = fit_trainer(4)
+    t1.fit(ckpt_dir, data_loader=loader(), checkpoint_every=2, eval_every=2, eval_steps=2,
+           keep_best=True, log_fn=lambda step, m: evals.append(m.get("eval_loss", np.nan)))
+    out["fit_writes"] = np.array(writes)
+    out["fit_eval_losses"] = np.array([x for x in evals if not np.isnan(x)])
+    best = os.path.join(ckpt_dir, "best", "best_loss.json")
+    out["fit_best"] = np.array(open(best).read() if os.path.exists(best) else "")
+    out["fit_fingerprint"] = np.array(fingerprint(t1))
+    t2, seen2 = fit_trainer(6)
+    t2.fit(ckpt_dir, data_loader=loader(), checkpoint_every=2)
+    out["resume_steps_seen"] = np.array(seen2)
+    out["resume_fingerprint"] = np.array(fingerprint(t2))
+    t3, seen3 = fit_trainer(8)
+    real_loss, planted, raised = t3.loss_fn, [rank == 1], []
+
+    def poisoned_loss(model, batch, rng):
+        loss, metrics = real_loss(model, batch, rng)
+        if planted[0] and t3.state.step == 6:
+            planted[0] = False
+            nan = float("nan")
+            return loss * nan, {k: (s * nan, c) for k, (s, c) in metrics.items()}
+        return loss, metrics
+
+    t3.loss_fn = poisoned_loss
+    counted = t3.step_fn
+
+    def guarded_step(state, metrics, batch):
+        # the fit's seam: decide on the synced loss, the same on every rank
+        state, step_metrics = counted(state, None, batch)
+        if not math.isfinite(compute(step_metrics)["loss"]):
+            raised.append(state.step)
+            raise FloatingPointError(f"non-finite loss after step {state.step}")
+        return state, accumulate_metrics(metrics, step_metrics)
+
+    t3.step_fn = guarded_step
+    t3.fit(ckpt_dir, data_loader=loader(), checkpoint_every=2)
+    Checkpointer._write = write
+    out["rollback_raised"] = np.array(raised)
+    out["rollback_steps_seen"] = np.array(seen3)
+    out["rollback_final_step"] = np.array(t3.state.step)
+    out["rollback_finite"] = np.array(all(bool(torch.isfinite(p).all())
+                                          for p in t3.state.params.values()))
+    out["rollback_fingerprint"] = np.array(fingerprint(t3))
+    out["fit_writes_all"] = np.array(writes)
+
+
+SUITES = {"runtime": _runtime_cases, "dp": _dp_cases}
+
+
+def run_suite(suite, outdir):
+    """One rank's run of ``suite`` (called in every rank of the group)."""
+    import torch.distributed as dist
+
+    inputs = dict(np.load(os.path.join(outdir, "inputs.npz")))
+    out = {}
+    SUITES[suite](inputs, outdir, out)
+    np.savez(os.path.join(outdir, f"{suite}_rank{dist.get_rank()}.npz"), **out)
+
+
+def main(suite, outdir, num_ranks):
+    from tpu_parallel_torch.runtime import spawn_cpu_ranks
+
+    spawn_cpu_ranks(num_ranks, run_suite, suite, outdir)
+
+
+if __name__ == "__main__":
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    main(sys.argv[1], sys.argv[2], int(sys.argv[3]))

@@ -28,6 +28,7 @@ from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tpu_parallel_torch.core.state import map_tensors
 
@@ -87,11 +88,19 @@ class Checkpointer:
     :attr:`latest_step` sees only complete saves.  One write is in flight at
     a time: a save first waits for the previous one.  A write's error is
     raised by the next :meth:`wait`, :meth:`save` or :meth:`close`.
+
+    Under a process ``group`` (replicated state, the same on every rank)
+    rank 0 of the group writes and the others skip the write; every
+    :meth:`wait` ends at a barrier of the group, so after it every rank
+    sees the saves on disk.  Every rank of the group must then call
+    :meth:`save`, :meth:`wait` and :meth:`close` at the same points.
     """
 
-    def __init__(self, directory: str, max_to_keep: int = 3):
+    def __init__(self, directory: str, max_to_keep: int = 3, *, group=None):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
+        self.group = group
+        self.writer = group is None or dist.get_rank(group) == 0
         os.makedirs(self.directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
@@ -100,11 +109,12 @@ class Checkpointer:
         """Checkpoint ``state`` (a ``TrainState`` or its ``state_dict()``)
         as step ``step``."""
         self.wait()
-        payload = state.state_dict() if hasattr(state, "state_dict") else state
-        snapshot, event = snapshot_to_host(payload)
-        self._thread = threading.Thread(target=self._write, args=(step, snapshot, event),
-                                        name=f"checkpoint-{step}", daemon=True)
-        self._thread.start()
+        if self.writer:
+            payload = state.state_dict() if hasattr(state, "state_dict") else state
+            snapshot, event = snapshot_to_host(payload)
+            self._thread = threading.Thread(target=self._write, args=(step, snapshot, event),
+                                            name=f"checkpoint-{step}", daemon=True)
+            self._thread.start()
         if wait:
             self.wait()
 
@@ -131,10 +141,13 @@ class Checkpointer:
             self._error = exc
 
     def wait(self) -> None:
-        """Block until the write in flight is on disk; raise its error."""
+        """Block until the write in flight is on disk (under a group: on
+        every rank, at a barrier); raise its error."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self.group is not None:
+            dist.barrier(group=self.group)
         if self._error is not None:
             error, self._error = self._error, None
             raise error

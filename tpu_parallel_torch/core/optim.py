@@ -1,6 +1,7 @@
 """Optimizer transformations: the port of ``tpu_parallel/core/optim.py``
-and of the optax pieces the trainer chains (``adamw``, ``lion``,
-``add_decayed_weights`` and ``sgd`` with momentum).
+(the sharding-aware global-norm clip) and of the optax pieces the trainer
+chains (``adamw``, ``lion``, ``add_decayed_weights`` and ``sgd`` with
+momentum).
 
 Each transformation works on dicts of fp32 tensors keyed by parameter name,
 as optax's do on pytrees: ``init(params) -> state`` and ``update(updates,
@@ -13,20 +14,49 @@ from __future__ import annotations
 from typing import Callable, Dict
 
 import torch
+import torch.distributed as dist
 
 Tree = Dict[str, torch.Tensor]
 
 
-def global_norm(tree: Tree) -> torch.Tensor:
-    """L2 norm over every tensor of ``tree`` (fp32, on the tensors' device)."""
-    norms = torch._foreach_norm(list(tree.values()))
-    return torch.stack(norms).square().sum().sqrt()
+def _sharded_dims(leaf):
+    """The mesh dims a ``DTensor`` leaf is sharded over (() for a plain
+    tensor or a replicated ``DTensor``)."""
+    placements = getattr(leaf, "placements", None)
+    if placements is None:
+        return ()
+    return tuple(i for i, p in enumerate(placements) if p.is_shard())
 
 
-class ClipByGlobalNorm:
-    """``optax.clip_by_global_norm``: scale every update by
-    min(1, max_norm / max(norm, 1e-9)).  Not ``clip_grad_norm_``, which
-    divides by norm + 1e-6."""
+def _local(leaf) -> torch.Tensor:
+    return leaf.to_local() if hasattr(leaf, "to_local") else leaf
+
+
+def global_norm_sharded(tree: Tree) -> torch.Tensor:
+    """Global L2 norm (fp32, on the tensors' device) of a gradient tree
+    whose leaves may be ``DTensor`` shards: each sharded leaf's local sum
+    of squares is all-reduced over exactly the mesh dims it is sharded on
+    (one ``all_reduce`` per such set of dims and dim), and a plain or
+    replicated leaf counts once, so the total is bitwise equal on every
+    rank.  Without shards, no collective runs."""
+    by_dims: Dict[tuple, list] = {}
+    for leaf in tree.values():
+        by_dims.setdefault(_sharded_dims(leaf), []).append(leaf)
+    total = None
+    for dims, leaves in sorted(by_dims.items()):
+        sq = torch.stack(torch._foreach_norm([_local(g) for g in leaves])).square().sum()
+        for d in dims:
+            dist.all_reduce(sq, group=leaves[0].device_mesh.get_group(d))
+        total = sq if total is None else total + sq
+    return total.sqrt()
+
+
+class ClipByGlobalNormSharded:
+    """``clip_by_global_norm_sharded`` (optax's ``clip_by_global_norm`` on
+    sharded gradients): scale every update by min(1, max_norm / max(norm,
+    1e-9)) with the norm of :func:`global_norm_sharded`, so every rank
+    scales its shards by the same factor.  Not ``clip_grad_norm_``, which
+    divides by norm + 1e-6.  The trainer's clip (``make_optimizer``)."""
 
     def __init__(self, max_norm: float):
         self.max_norm = max_norm
@@ -35,9 +65,9 @@ class ClipByGlobalNorm:
         return None
 
     def update(self, updates: Tree, state, params: Tree = None):
-        norm = global_norm(updates)
+        norm = global_norm_sharded(updates)
         scale = torch.clamp(self.max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-        torch._foreach_mul_(list(updates.values()), scale)
+        torch._foreach_mul_([_local(g) for g in updates.values()], scale)
         return updates, state
 
 

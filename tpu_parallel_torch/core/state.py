@@ -1,4 +1,4 @@
-"""Train state and batch container: the port of ``tpu_parallel/core/state.py``.
+"""Train state and batch containers: the port of ``tpu_parallel/core/state.py``.
 
 The JAX ``TrainState`` is an immutable pytree of fp32 params, optimizer
 state, a PRNG key and an optional EMA shadow.  Here it is a mutable object
@@ -6,7 +6,9 @@ updated in place, which keeps one copy of each buffer: the module (weights
 in ``config.dtype``, what the forward reads), fp32 master weights, fp32
 gradient accumulators and the fp32 EMA shadow.  :meth:`TrainState.state_dict`
 is the checkpoint's view of it and :meth:`TrainState.load` writes one back
-in place, so every buffer keeps its address.
+in place, so every buffer keeps its address.  The gradient accumulators
+are views into one flat fp32 buffer (``flat_grads``), so a data-parallel
+step syncs them with one collective and no copy.
 """
 
 from __future__ import annotations
@@ -61,6 +63,31 @@ def _load_tree(dst, src, path: str):
     return src
 
 
+def _rows(batch, start: int, stop: int):
+    """Rows [start, stop) of every field of a batch dataclass (views)."""
+    return type(batch)(**{
+        f.name: None if getattr(batch, f.name) is None else getattr(batch, f.name)[start:stop]
+        for f in dataclasses.fields(batch)
+    })
+
+
+@dataclasses.dataclass
+class Batch:
+    """Generic supervised batch: ``inputs`` [batch, ...] and integer
+    ``labels`` [batch]."""
+
+    inputs: torch.Tensor
+    labels: torch.Tensor
+
+    @property
+    def size(self) -> int:
+        return self.inputs.shape[0]
+
+    def rows(self, start: int, stop: int) -> "Batch":
+        """Rows [start, stop) of both fields (views, no copy)."""
+        return _rows(self, start, stop)
+
+
 @dataclasses.dataclass
 class TextBatch:
     """Language-modeling batch: token ids plus next-token targets, all
@@ -79,10 +106,20 @@ class TextBatch:
 
     def rows(self, start: int, stop: int) -> "TextBatch":
         """Rows [start, stop) of every field (views, no copy)."""
-        return TextBatch(**{
-            f.name: None if getattr(self, f.name) is None else getattr(self, f.name)[start:stop]
-            for f in dataclasses.fields(self)
-        })
+        return _rows(self, start, stop)
+
+
+def _flat_views(tensors: Dict[str, torch.Tensor]):
+    """One zeroed fp32 buffer holding a tensor shaped like each of
+    ``tensors``, in order: ``(buffer, {name: view})``."""
+    first = next(iter(tensors.values()))
+    flat = torch.zeros(sum(t.numel() for t in tensors.values()), dtype=torch.float32,
+                       device=first.device)
+    views, offset = {}, 0
+    for name, t in tensors.items():
+        views[name] = flat[offset:offset + t.numel()].view(t.shape)
+        offset += t.numel()
+    return flat, views
 
 
 def get_num_params(state_or_model: Any) -> int:
@@ -105,6 +142,8 @@ class TrainState:
     clears it, and :meth:`apply_gradients` updates ``params`` and writes them
     back into the module rounded to its dtype.  fp32 module weights (the
     LayerNorms, or every weight of an fp32 config) are their own masters.
+    ``grads`` are views into ``flat_grads``, one fp32 buffer in parameter
+    order.
     """
 
     model: nn.Module
@@ -115,6 +154,7 @@ class TrainState:
     rng: torch.Generator
     step: int = 0
     ema_params: Optional[Dict[str, torch.Tensor]] = None
+    flat_grads: Optional[torch.Tensor] = None
 
     @classmethod
     def create(cls, model: nn.Module, tx, rng: torch.Generator,
@@ -122,7 +162,7 @@ class TrainState:
         """Masters from ``params`` (fp32 values by parameter name, e.g. the
         draws of ``init_params`` or ``params_from_jax(..., dtype=float32)``)
         or, without them, from the module's own values."""
-        masters, grads = {}, {}
+        masters = {}
         with torch.no_grad():
             for name, p in model.named_parameters():
                 if params is not None:
@@ -133,9 +173,9 @@ class TrainState:
                     master = (params[name] if params is not None else p).detach().to(
                         device=p.device, dtype=torch.float32, copy=True)
                 masters[name] = master
-                grads[name] = torch.zeros_like(master)
+        flat, grads = _flat_views(masters)
         return cls(model=model, tx=tx, params=masters, grads=grads,
-                   opt_state=tx.init(masters), rng=rng)
+                   opt_state=tx.init(masters), rng=rng, flat_grads=flat)
 
     def zero_grads(self) -> None:
         torch._foreach_zero_(list(self.grads.values()))
@@ -154,8 +194,10 @@ class TrainState:
     @torch.no_grad()
     def apply_gradients(self, grads: Dict[str, torch.Tensor]) -> None:
         """One optimizer step on the masters from ``grads`` (consumed in
-        place), then the masters into the module."""
-        updates, self.opt_state = self.tx.update(grads, self.opt_state, self.params)
+        place), then the masters into the module.  A transformation may
+        rebind entries of the dict it is given, never ``grads``'s own, so
+        the accumulators stay views of ``flat_grads``."""
+        updates, self.opt_state = self.tx.update(dict(grads), self.opt_state, self.params)
         names = list(self.params)
         torch._foreach_add_([self.params[n] for n in names], [updates[n] for n in names])
         self._masters_to_module()

@@ -2,23 +2,24 @@
 
 - :class:`TokenDataset` (copied; numpy) reads flat uint16 token files
   through ``np.memmap`` and cuts deterministic ``seq_len + 1`` windows.
-- :func:`to_device` is the port's ``make_global_batch``: one process feeds
-  one device, so lifting a host batch is a host-to-device move (pinned host
-  tensors, ``non_blocking=True``, int64 token ids).
-- :class:`DataLoader` composes the two into the iterator the ``Trainer``
-  consumes; ``batch_at(step)`` is a pure function of ``(seed, step)``.
-
-Several processes (the JAX package's multi-host feeding) need
-``torch.distributed`` and raise (ROADMAP queue A item 5).
+- :func:`to_device` lifts a host batch onto this process's device (pinned
+  host tensors, ``non_blocking=True``, int64 token ids): one process feeds
+  one device.
+- :func:`make_global_batch` is the global view of the ranks' local batches:
+  a ``DTensor`` sharded over the data axis, stitched with no gather.
+- :class:`DataLoader` composes them into the iterator the ``Trainer``
+  consumes; ``batch_at(step)`` is a pure function of ``(seed, step)``, and
+  process ``p`` of ``P`` takes rows ``p::P`` of every global batch.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Iterator
+from typing import Any, Iterator, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tpu_parallel_torch.core.state import TextBatch
 from tpu_parallel_torch.runtime import resolve_device
@@ -101,14 +102,36 @@ def to_device(batch: TextBatch, device) -> TextBatch:
     return TextBatch(**out)
 
 
+def make_global_batch(local_batch: TextBatch, mesh, batch_dim: str = "data") -> TextBatch:
+    """Lift each rank's local rows into one global batch: every field a
+    ``DTensor`` over ``mesh``, sharded on dim 0 along the ``batch_dim``
+    axis and replicated along the others (JAX's ``P("data")``), built with
+    ``DTensor.from_local`` (no gather).  Its global rows are the ranks'
+    local rows in coordinate order, rank 0's first, as JAX's device order.
+    Without a mesh the local batch is the global one."""
+    if mesh is None:
+        return local_batch
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    placements = [Shard(0) if name == batch_dim else Replicate() for name in mesh.mesh_dim_names]
+
+    def lift(x):
+        return None if x is None else DTensor.from_local(x, mesh, placements, run_check=False)
+
+    return type(local_batch)(**{f.name: lift(getattr(local_batch, f.name))
+                                for f in dataclasses.fields(local_batch)})
+
+
 @dataclasses.dataclass
 class DataLoader:
-    """Seeded iterator of device TextBatches.
+    """Seeded, rank-aware iterator of device TextBatches.
 
     Each epoch draws a fresh permutation of window indices from a ``numpy``
-    RNG seeded by ``(seed, epoch)``.  ``device`` defaults to ``"cuda"`` and
-    raises without a GPU.  ``process_count``/``process_index`` stay for the
-    JAX contract: one process only (more need ROADMAP item 5).
+    RNG seeded by ``(seed, epoch)``; process ``p`` of ``P`` takes rows
+    ``p::P`` of every global batch, disjoint coverage with no coordination.
+    ``process_count``/``process_index`` default to the process group's
+    world size and rank (1 and 0 without one).  ``device`` defaults to
+    ``"cuda"`` and raises without a GPU.
     """
 
     dataset: Any
@@ -122,17 +145,24 @@ class DataLoader:
     holdout_fraction: float = 0.0
     split: str = "train"
     device: Any = "cuda"
-    process_count: int = 1
-    process_index: int = 0
+    process_count: Optional[int] = None
+    process_index: Optional[int] = None
 
     def __post_init__(self):
-        if (self.process_count, self.process_index) != (1, 0):
-            raise NotImplementedError(
-                f"process {self.process_index} of {self.process_count}: feeding "
-                "several processes needs torch.distributed (ROADMAP queue A item 5)"
+        up = dist.is_initialized()
+        if self.process_count is None:
+            self.process_count = dist.get_world_size() if up else 1
+        if self.process_index is None:
+            self.process_index = dist.get_rank() if up else 0
+        if not 0 <= self.process_index < self.process_count:
+            raise ValueError(f"process {self.process_index} of {self.process_count}")
+        if self.global_batch_size % self.process_count:
+            raise ValueError(
+                f"global batch {self.global_batch_size} not divisible by "
+                f"process count {self.process_count}"
             )
         self.device = resolve_device(self.device)
-        self.local_batch_size = self.global_batch_size
+        self.local_batch_size = self.global_batch_size // self.process_count
         if not 0.0 <= self.holdout_fraction < 1.0:
             raise ValueError(f"holdout_fraction={self.holdout_fraction} not in [0, 1)")
         n_eval = int(round(self.dataset.num_windows * self.holdout_fraction))
@@ -180,7 +210,9 @@ class DataLoader:
         epoch, b = divmod(step, self.batches_per_epoch)
         order = self._epoch_order(epoch)
         rows = order[b * self.global_batch_size : (b + 1) * self.global_batch_size]
-        return to_device(self.dataset.batch(rows + self._window_offset), self.device)
+        rows = rows + self._window_offset
+        local = rows[self.process_index :: self.process_count]
+        return to_device(self.dataset.batch(local), self.device)
 
     def epoch(self, epoch: int) -> Iterator[TextBatch]:
         for b in range(self.batches_per_epoch):

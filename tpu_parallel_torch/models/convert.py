@@ -13,6 +13,9 @@ JAX.
 
 :func:`init_params` draws the port's own weights from a seed, with flax's
 default distributions, so the model runs realistic activations without JAX.
+
+Both bridges also take the MLP classifier's tree (``hidden_{i}/kernel|bias``
+and ``head/kernel|bias``) when ``config`` is an ``MLPConfig``.
 """
 
 from __future__ import annotations
@@ -106,8 +109,39 @@ def _as_float32(leaf) -> np.ndarray:
     return np.asarray(leaf, dtype=np.float32)
 
 
+def _is_mlp(config) -> bool:
+    return hasattr(config, "num_classes") and hasattr(config, "num_hidden_layers")
+
+
+def _mlp_from_jax(tree: Mapping, config, dtype=None) -> Dict[str, torch.Tensor]:
+    """The ``MLPClassifier`` state dict from a JAX ``MLPClassifier`` tree;
+    the input width is read from ``hidden_0/kernel`` (flax infers it)."""
+    flat = dict(_flatten(tree))
+    layers = [f"hidden_{i}" for i in range(config.num_hidden_layers)] + ["head"]
+    wanted = [f"{name}/{leaf}" for name in layers for leaf in ("kernel", "bias")]
+    missing = sorted(set(wanted) - set(flat))
+    if missing:
+        raise KeyError(f"JAX parameter tree lacks {missing}")
+    extra = sorted(set(flat) - set(wanted))
+    if extra:
+        raise ValueError(f"JAX parameter tree has leaves the port does not: {extra}")
+    width = _as_float32(flat[wanted[0]]).shape[0]
+    state = {}
+    for name in layers:
+        out = config.num_classes if name == "head" else config.hidden_size
+        kernel, bias = _as_float32(flat[f"{name}/kernel"]), _as_float32(flat[f"{name}/bias"])
+        if kernel.shape != (width, out) or bias.shape != (out,):
+            raise ValueError(f"{name}: kernel {kernel.shape} and bias {bias.shape} do not fit "
+                             f"[{width}, {out}] and [{out}]")
+        state[f"{name}.weight"] = torch.tensor(kernel.T, dtype=dtype or config.dtype)
+        state[f"{name}.bias"] = torch.tensor(bias, dtype=dtype or config.dtype)
+        width = out
+    return state
+
+
 def params_from_jax(tree: Mapping, config, dtype=None) -> Dict[str, torch.Tensor]:
-    """The port's state dict from a JAX ``GPTLM`` parameter tree.
+    """The port's state dict from a JAX ``GPTLM`` (or ``MLPClassifier``)
+    parameter tree.
 
     Works for both layer layouts of the JAX package.  Each tensor comes back
     on the CPU in the dtype of the port's module (``config.dtype`` for
@@ -116,6 +150,8 @@ def params_from_jax(tree: Mapping, config, dtype=None) -> Dict[str, torch.Tensor
     ``dtype=torch.float32`` keeps the tree's own fp32 values, the master
     weights of training (``TrainState.create``).
     """
+    if _is_mlp(config):
+        return _mlp_from_jax(tree, config, dtype)
     flat = dict(_flatten(tree))
     scanned = any(p.startswith(_SCANNED) for p in flat)
     unrolled = any(p.startswith("blocks/layer_") for p in flat)
@@ -164,8 +200,17 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor], config) -> Dict:
     flax's ``[in, out]``; ``config.scan_layers`` stacks every block leaf
     under ``blocks/layers/block`` with a leading ``[n_layers]`` axis, else
     each layer sits under ``blocks/layer_{i}``.  Leaves are new contiguous
-    CPU tensors in the state dict's dtypes."""
+    CPU tensors in the state dict's dtypes.  An ``MLPConfig`` gives the
+    MLP classifier's tree; its state dict must hold exactly its layers."""
     tree: Dict = {}
+    if _is_mlp(config):
+        layers = [f"hidden_{i}" for i in range(config.num_hidden_layers)] + ["head"]
+        wanted = {f"{name}.{leaf}" for name in layers for leaf in ("weight", "bias")}
+        if set(state_dict) != wanted:
+            raise KeyError(f"MLP state dict keys {sorted(state_dict)}, expected {sorted(wanted)}")
+        return {name: {"kernel": state_dict[f"{name}.weight"].detach().cpu().T.contiguous(),
+                       "bias": state_dict[f"{name}.bias"].detach().cpu().contiguous()}
+                for name in layers}
 
     def put(path: str, value: torch.Tensor, transpose: bool):
         value = value.detach().cpu()

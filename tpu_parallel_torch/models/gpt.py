@@ -20,6 +20,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from tpu_parallel_torch.core.losses import token_cross_entropy
+from tpu_parallel_torch.core.rng import fold_rng_over_axis
 from tpu_parallel_torch.models.convert import init_params
 from tpu_parallel_torch.models.layers import (
     BlockStack,
@@ -210,18 +211,24 @@ def make_ce_fn(config: GPTConfig):
     return chunked_ce if chunk else ce_block
 
 
-def make_gpt_loss(config: GPTConfig, train: bool = True):
+def make_gpt_loss(config: GPTConfig, train: bool = True, mesh=None):
     """Next-token CE in the ``accumulate_gradients`` loss shape:
     ``loss_fn(model, batch, rng) -> (loss, metrics)``.
 
     The model runs with ``hidden_only=True`` and the lm_head is applied here,
     as in the JAX package.  ``rng`` (a CPU generator) seeds dropout when
-    ``train``; ``train=False`` builds the evaluation variant (dropout off).
-    Pipeline, tensor parallelism and MoE raise at the config.
+    ``train``, folded over the config's data, model, pipe and seq axes of
+    ``mesh`` as JAX folds it (per-rank masks under data parallelism; no
+    mesh: ``rng`` itself); ``train=False`` builds the evaluation variant
+    (dropout off).  Pipeline, tensor parallelism and MoE raise at the
+    config.
     """
     ce_fn = make_ce_fn(config)
+    fold_axes = (config.data_axis, config.model_axis, config.pipe_axis, config.seq_axis)
 
     def loss_fn(model, batch, rng=None):
+        if train and config.dropout_rate > 0.0 and rng is not None:
+            rng = fold_rng_over_axis(rng, fold_axes, mesh)
         hidden = model(batch.tokens, positions=batch.positions,
                        segment_ids=batch.segment_ids, hidden_only=True, train=train, rng=rng)
         mask = (batch.loss_mask if batch.loss_mask is not None

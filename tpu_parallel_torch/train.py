@@ -12,6 +12,17 @@ trace-event JSON of per-step ``data_wait``/``compute`` spans (Perfetto);
 ``--metrics-out PATH`` a Prometheus text snapshot of the trainer's registry.
 ``--device`` defaults to ``cuda`` and raises without a GPU.
 
+Data parallelism runs under torchrun, one process per card:
+
+    python -m torch.distributed.run --standalone --nproc_per_node=8 \
+        -m tpu_parallel_torch.train --config=gpt2_125m_dp
+
+The script calls ``runtime.initialize()`` first (a no-op outside torchrun)
+and logs ``process_info()``; the config's mesh then spans the group.  A
+config with ``simulate_cpu_devices`` > 0 (``mlp_dp_cpu``) runs in that many
+gloo CPU processes started by ``runtime.spawn_cpu_ranks``, the
+counterpart of JAX's simulated CPU devices.  Rank 0 prints the logs.
+
 The flow is the JAX script's: flat or packed data (``data_format``) with a
 held-out split, ``Trainer.fit`` when ``checkpoint_dir`` is set (resume,
 periodic saves, rollback, evaluation) and ``Trainer.train`` over the
@@ -48,8 +59,42 @@ def parse_args(argv):
 
 def main(argv=None) -> int:
     config_dict, args = parse_args(sys.argv[1:] if argv is None else argv)
+    sim = config_dict.pop("simulate_cpu_devices", 0)
+    if sim:
+        from tpu_parallel_torch.runtime import spawn_cpu_ranks
+
+        args.device = "cpu"
+        spawn_cpu_ranks(sim, run, config_dict, args)
+        return 0
+    from tpu_parallel_torch.runtime import initialize
+
+    # the process group first: the trainer's mesh and device come from it
+    initialize(device=args.device)
+    try:
+        return run(config_dict, args)
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run(config_dict, args) -> int:
+    """Train ``config_dict`` in this process (a rank of the group when one
+    is up); every rank trains, rank 0 prints."""
+    import json
+
+    from tpu_parallel_torch.runtime import process_info
     from tpu_parallel_torch.train_lib import Trainer, TrainerConfig
 
+    topology = process_info()
+    lead = topology["process_index"] == 0
+
+    def say(text):
+        if lead:
+            print(text, flush=True)
+
+    say(f"topology: {json.dumps(topology)}")
     cd = dict(config_dict)
     checkpoint_dir = cd.pop("checkpoint_dir", "")
     checkpoint_every = cd.pop("checkpoint_every", 100)
@@ -70,8 +115,8 @@ def main(argv=None) -> int:
 
         tracer = Tracer()
     trainer = Trainer(config, device=args.device, tracer=tracer)
-    print(f"model={config.model} params={trainer.num_params / 1e6:.1f}M "
-          f"device={trainer.device}", flush=True)
+    say(f"model={config.model} params={trainer.num_params / 1e6:.1f}M "
+        f"device={trainer.device}")
 
     data_loader = None
     if data_path:
@@ -98,7 +143,7 @@ def main(argv=None) -> int:
 
     def log_fn(step, metrics):
         parts = " ".join(f"{k}={v:.4f}" for k, v in sorted(metrics.items()))
-        print(f"step {step}: {parts}", flush=True)
+        say(f"step {step}: {parts}")
 
     if (eval_every or keep_best) and not checkpoint_dir:
         raise ValueError(
@@ -120,19 +165,19 @@ def main(argv=None) -> int:
             batch_iter=data_loader.prefetch() if data_loader else None,
             log_fn=log_fn,
         )
-    print(f"final: {final}", flush=True)
+    say(f"final: {final}")
     if eval_steps:
         # held-out split: windows the train loader can never sample
         eval_iter = iter(data_loader.eval_view()) if data_loader else None
-        print(f"eval: {trainer.evaluate(batch_iter=eval_iter, steps=eval_steps)}", flush=True)
-    if tracer is not None:
+        say(f"eval: {trainer.evaluate(batch_iter=eval_iter, steps=eval_steps)}")
+    if tracer is not None and lead:
         from tpu_parallel_torch.obs import write_chrome_trace
 
-        print(f"trace: {write_chrome_trace(tracer, args.trace_out)}", flush=True)
-    if args.metrics_out:
+        say(f"trace: {write_chrome_trace(tracer, args.trace_out)}")
+    if args.metrics_out and lead:
         from tpu_parallel_torch.obs import write_prometheus
 
-        print(f"metrics: {write_prometheus(trainer.registry, args.metrics_out)}", flush=True)
+        say(f"metrics: {write_prometheus(trainer.registry, args.metrics_out)}")
     return 0
 
 

@@ -1,17 +1,26 @@
-"""Single-device trainer: the port of ``tpu_parallel/train_lib.py``.
+"""Trainer: the port of ``tpu_parallel/train_lib.py``.
 
-Config -> model -> loss, optimizer and step -> loop, as the JAX ``Trainer``
-does on a mesh, here on one device.  The step mirrors the JAX
-``build_train_functions`` step: accumulate gradients over minibatches,
-clip them by their global norm, apply the optimizer (adamw, lion or sgd) to
-fp32 master weights, update the EMA shadow when one is kept, and add the
-step's ``(sum, count)`` metrics to the running ones.  :meth:`Trainer.fit`
-adds checkpoints, resume, rollback-and-retry and periodic held-out
-evaluation.
+Config -> mesh -> model -> loss, optimizer and step -> loop, as the JAX
+``Trainer``.  The step mirrors the JAX ``build_train_functions`` step:
+accumulate this rank's gradients over minibatches, average them over the
+mesh's data axis, clip them by their global norm, apply the optimizer
+(adamw, lion or sgd) to fp32 master weights, update the EMA shadow when one
+is kept, and add the step's ``(sum, count)`` metrics, summed over the data
+axis, to the running ones.  :meth:`Trainer.fit` adds checkpoints, resume,
+rollback-and-retry and periodic held-out evaluation.
+
+The mesh is a ``DeviceMesh`` over the process group (``runtime.make_mesh``),
+one rank per device; without a group it is ``None``, one device, and no
+collective runs.  Each rank steps on its own rows of the global batch:
+:meth:`Trainer.local_rows` cuts them from a global batch (the contiguous
+block at the rank's data coordinate, as ``shard_map`` splits rows), and a
+``DataLoader`` yields them directly.  Metrics are synced inside the step,
+so every host decision (logging, rollback, keep-best) sees the same values
+on every rank.
 
 Not in the port yet, each raising when asked for: the MLM objective (and
-the seq2seq family; ROADMAP queue A item 6) and a mesh of more than one
-device (item 5).
+the seq2seq family; ROADMAP queue A item 6), and mesh axes other than data
+above 1 (tensor, pipeline and sequence parallelism, items 5.3-5.5).
 """
 
 from __future__ import annotations
@@ -24,18 +33,22 @@ import time
 from typing import Any, Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from tpu_parallel_torch.core.accumulate import accumulate_gradients
-from tpu_parallel_torch.core.metrics import Metrics, accumulate_metrics
+from tpu_parallel_torch.core.metrics import Metrics, accumulate_metrics, sync_metrics
 from tpu_parallel_torch.core.metrics import compute as compute_metrics
-from tpu_parallel_torch.core.optim import SGD, AddDecayedWeights, AdamW, Chain, ClipByGlobalNorm, Lion
+from tpu_parallel_torch.core.optim import (SGD, AddDecayedWeights, AdamW, Chain,
+                                           ClipByGlobalNormSharded, Lion)
 from tpu_parallel_torch.core.state import TextBatch, TrainState, get_num_params
 from tpu_parallel_torch.data import lm_batch
 from tpu_parallel_torch.models.convert import init_params
 from tpu_parallel_torch.models.gpt import GPTConfig, GPTLM, gpt2_125m, make_gpt_loss, tiny_test
 from tpu_parallel_torch.obs.registry import MetricRegistry
 from tpu_parallel_torch.obs.tracer import NULL_TRACER, Tracer
-from tpu_parallel_torch.runtime import resolve_device
+from tpu_parallel_torch.parallel.dp import broadcast_state, sync_gradients_dp
+from tpu_parallel_torch.runtime import MeshConfig, make_mesh, resolve_device
+from tpu_parallel_torch.runtime.mesh import DATA_AXIS, axis_group, mesh_sizes
 from tpu_parallel_torch.utils.profiling import mfu
 
 MODEL_REGISTRY: Dict[str, Callable[..., GPTConfig]] = {
@@ -44,6 +57,12 @@ MODEL_REGISTRY: Dict[str, Callable[..., GPTConfig]] = {
 }
 
 MESH_AXES = ("data", "model", "pipe", "seq")
+# mesh axes the port cannot shard over yet -> what brings them
+_LATER_AXES = {
+    "model": "tensor parallelism (ROADMAP queue A item 5.3)",
+    "pipe": "pipeline parallelism (ROADMAP queue A item 5.4)",
+    "seq": "sequence parallelism (ROADMAP queue A item 5.5)",
+}
 
 
 def _mesh_sizes(mesh) -> Dict[str, int]:
@@ -57,14 +76,21 @@ def _mesh_sizes(mesh) -> Dict[str, int]:
     return sizes
 
 
+def _refuse_later_axes(sizes: Dict[str, int]) -> None:
+    for axis, what in _LATER_AXES.items():
+        if sizes.get(axis, 1) > 1:
+            raise NotImplementedError(f"mesh {sizes}: a {axis} axis of {sizes[axis]} needs {what}")
+
+
 @dataclasses.dataclass
 class TrainerConfig:
     """The JAX ``TrainerConfig``, field for field, with its defaults.
 
-    ``mesh`` is accepted when it resolves to one device (every axis 1, or
-    -1 for "all of them"); more devices raise (ROADMAP queue A item 5).
-    ``donate`` is accepted and changes nothing: the port's step already
-    updates its buffers in place.  ``mlm_mask_rate`` belongs to the MLM
+    ``mesh`` (a dict or an object with the ``MeshConfig`` fields) resolves
+    against the process group's ranks (one device without a group); a
+    data axis above 1 trains data-parallel, the other axes above 1 raise
+    (ROADMAP queue A items 5.3-5.5).  ``donate`` is accepted and changes
+    nothing: the port's step already updates its buffers in place.  ``mlm_mask_rate`` belongs to the MLM
     objective, which raises (item 6).
     """
 
@@ -146,9 +172,9 @@ def make_lr_schedule(config: TrainerConfig) -> Callable[[int], float]:
 
 
 def make_optimizer(config: TrainerConfig) -> Chain:
-    """Global-norm clip then ``config.optimizer`` with the schedule, as the
-    JAX ``make_optimizer``: ``optax.adamw(schedule, weight_decay=wd)``,
-    ``optax.lion(schedule, weight_decay=wd)``, or
+    """The sharding-aware global-norm clip then ``config.optimizer`` with
+    the schedule, as the JAX ``make_optimizer``: ``optax.adamw(schedule,
+    weight_decay=wd)``, ``optax.lion(schedule, weight_decay=wd)``, or
     ``add_decayed_weights(wd)`` then ``optax.sgd(schedule, momentum=0.9)``."""
     schedule = make_lr_schedule(config)
     if config.optimizer == "adamw":
@@ -157,8 +183,8 @@ def make_optimizer(config: TrainerConfig) -> Chain:
         tx = Lion(schedule, weight_decay=config.weight_decay)
     elif config.optimizer == "sgd":
         # configs advertise weight_decay for every optimizer family; honor it
-        return Chain(ClipByGlobalNorm(config.grad_clip), AddDecayedWeights(config.weight_decay),
-                     SGD(schedule, momentum=0.9))
+        return Chain(ClipByGlobalNormSharded(config.grad_clip),
+                     AddDecayedWeights(config.weight_decay), SGD(schedule, momentum=0.9))
     elif config.optimizer == "adafactor":
         raise ValueError(
             "adafactor is not supported (the JAX package refuses it too: its "
@@ -166,7 +192,7 @@ def make_optimizer(config: TrainerConfig) -> Chain:
         )
     else:
         raise ValueError(f"unknown optimizer {config.optimizer!r} (expected adamw | lion | sgd)")
-    return Chain(ClipByGlobalNorm(config.grad_clip), tx)
+    return Chain(ClipByGlobalNormSharded(config.grad_clip), tx)
 
 
 def _sync(device: torch.device) -> None:
@@ -175,14 +201,18 @@ def _sync(device: torch.device) -> None:
 
 
 class Trainer:
-    """Owns the model, the optimizer and the train step, on one device.
+    """Owns the mesh, the model, the optimizer and the train step.
 
-    ``device`` defaults to ``"cuda"`` and raises without a GPU.  The model
-    is drawn from ``config.seed``; :meth:`init` builds the state, from those
-    draws or from given fp32 weights (e.g. ``params_from_jax(tree, cfg,
-    dtype=torch.float32)``).  The state's generator is a CPU
-    ``torch.Generator`` seeded with ``config.seed``: dropout draws one seed
-    per layer and minibatch from it (the masks are drawn on the device).
+    ``mesh`` defaults to ``make_mesh(config.mesh)``: ``None`` (one device)
+    without a process group.  ``device`` defaults to ``"cuda"`` (under a
+    group, this rank's card) and raises without a GPU.  The model is drawn
+    from ``config.seed``; :meth:`init` builds the state, from those draws or
+    from given fp32 weights (e.g. ``params_from_jax(tree, cfg,
+    dtype=torch.float32)``), and broadcasts data-rank 0's masters.  The
+    state's generator is a CPU ``torch.Generator`` seeded with
+    ``config.seed``, equal on every rank: dropout folds it over the mesh
+    (one draw per minibatch, the same on every rank) and draws one seed per
+    layer from the folded one (the masks are drawn on the device).
 
     ``step_fn`` is an attribute a caller may replace (the counterpart of the
     JAX ``t.funcs.step_fn``): :meth:`fit` calls every step through it.
@@ -193,7 +223,7 @@ class Trainer:
     receives ``train_*`` gauges at every log point.
     """
 
-    def __init__(self, config: TrainerConfig, *, device="cuda",
+    def __init__(self, config: TrainerConfig, mesh=None, *, device="cuda",
                  tracer: Optional[Tracer] = None, registry: Optional[MetricRegistry] = None):
         if config.objective == "mlm":
             raise NotImplementedError(
@@ -202,12 +232,11 @@ class Trainer:
             )
         if config.objective != "causal":
             raise ValueError(f"objective={config.objective!r} (causal | mlm)")
-        sizes = _mesh_sizes(config.mesh)
-        if any(size not in (1, -1) for size in sizes.values()) or list(sizes.values()).count(-1) > 1:
-            raise NotImplementedError(
-                f"mesh {sizes}: the port trains on one device; meshes of several need "
-                "torch.distributed (ROADMAP queue A item 5)"
-            )
+        if mesh is None:
+            sizes = _mesh_sizes(config.mesh)
+            _refuse_later_axes(sizes)
+            mesh = make_mesh(MeshConfig(**sizes))
+        _refuse_later_axes(mesh_sizes(mesh))
         if config.ema_decay and not 0.0 < config.ema_decay < 1.0:
             raise ValueError(f"ema_decay={config.ema_decay} must be in (0, 1)")
         if config.model not in MODEL_REGISTRY:
@@ -215,18 +244,43 @@ class Trainer:
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.registry = registry if registry is not None else MetricRegistry()
         self.config = config
+        self.mesh = mesh
         self.device = resolve_device(device)
         overrides = {k: v for k, v in config.model_overrides.items() if v is not None}
         self.model_config: GPTConfig = MODEL_REGISTRY[config.model](**overrides)
+        if mesh is not None:
+            # a typo'd axis name would otherwise fold dropout over nothing
+            # (fold_rng_over_axis skips unbound axes): validate it here, once
+            for field in ("data_axis", "model_axis", "pipe_axis", "seq_axis"):
+                ax = getattr(self.model_config, field)
+                if ax not in mesh.mesh_dim_names:
+                    raise ValueError(f"model config {field}={ax!r} is not a mesh axis "
+                                     f"(mesh has {tuple(mesh.mesh_dim_names)})")
+        data = mesh_sizes(mesh)[DATA_AXIS]
+        if config.global_batch_size % data != 0:
+            raise ValueError(f"global batch {config.global_batch_size} not divisible by "
+                             f"data axis {data}")
+        bound = axis_group(mesh, DATA_AXIS)
+        self.data_size, self.data_index = (1, 0) if bound is None else bound[1:]
+        # under a mesh, rank 0 of the group writes checkpoints and every
+        # rank waits for the write at a barrier
+        self._group = dist.group.WORLD if mesh is not None else None
         self.model = GPTLM(self.model_config, device=self.device, seed=config.seed)
         self.tx = make_optimizer(config)
-        self.loss_fn = make_gpt_loss(self.model_config)
+        self.loss_fn = make_gpt_loss(self.model_config, mesh=mesh)
         self.eval_loss_fn = make_gpt_loss(self.model_config, train=False)
-        self.example_batch: TextBatch = lm_batch(
+        self.example_batch: TextBatch = self.local_rows(lm_batch(
             torch.Generator().manual_seed(0), config.global_batch_size,
             self.model_config.seq_len, self.model_config.vocab_size, device=self.device,
-        )
+        ))
         self.state: Optional[TrainState] = None
+
+    def local_rows(self, batch):
+        """This rank's rows of a global batch: the contiguous block of
+        ``size / data`` rows at its data coordinate (the whole batch on one
+        device)."""
+        n = batch.size // self.data_size
+        return batch.rows(self.data_index * n, (self.data_index + 1) * n)
 
     def init(self, params: Optional[Dict[str, torch.Tensor]] = None) -> TrainState:
         """A fresh state: masters from ``params`` (fp32 by parameter name)
@@ -235,21 +289,25 @@ class Trainer:
         if params is None:
             params = init_params(self.model, self.config.seed)
         rng = torch.Generator().manual_seed(self.config.seed)
-        self.state = TrainState.create(self.model, self.tx, rng, params)
+        self.state = broadcast_state(TrainState.create(self.model, self.tx, rng, params),
+                                     mesh=self.mesh)
         if self.config.ema_decay:
             self.state.seed_ema()
         return self.state
 
     def step_fn(self, state: TrainState, metrics: Optional[Metrics],
                 batch: TextBatch) -> tuple:
-        """One optimizer step on ``batch`` -> ``(state, metrics)``, with the
-        step's metrics added to ``metrics``."""
+        """One optimizer step on this rank's rows ``batch`` -> ``(state,
+        metrics)``, with the step's metrics, summed over the data axis,
+        added to ``metrics``."""
         grads, step_metrics = accumulate_gradients(
             state, batch, state.rng, self.config.num_minibatches, self.loss_fn
         )
+        sync_gradients_dp(grads, DATA_AXIS, self.mesh)
         state.apply_gradients(grads)
         if self.config.ema_decay:
             state.update_ema(self.config.ema_decay)
+        step_metrics = sync_metrics(step_metrics, DATA_AXIS, mesh=self.mesh)
         return state, accumulate_metrics(metrics, step_metrics)
 
     def _publish_gauges(self, metrics: Dict[str, float]) -> None:
@@ -302,7 +360,9 @@ class Trainer:
                 else:
                     last["tokens_per_sec"] = tokens_per_step * step / max(
                         time.perf_counter() - t_start, 1e-9)
-                util = mfu(last["tokens_per_sec"], self.model_config, self.device)
+                # per device: tokens_per_step counts every rank's rows
+                util = mfu(last["tokens_per_sec"] / self.data_size, self.model_config,
+                           self.device)
                 if util is not None:
                     last["mfu"] = util
                 self._publish_gauges(last)
@@ -358,12 +418,13 @@ class Trainer:
                 )
             eval_loader = data_loader.eval_view()
             eval_iter_fn = lambda: iter(eval_loader)
-        ckpt = Checkpointer(checkpoint_dir, max_to_keep=max_to_keep)
+        ckpt = Checkpointer(checkpoint_dir, max_to_keep=max_to_keep, group=self._group)
         best_ckpt = None
         best_loss = float("inf")
         best_loss_path = os.path.join(checkpoint_dir, "best", "best_loss.json")
         if keep_best:
-            best_ckpt = Checkpointer(os.path.join(checkpoint_dir, "best"), max_to_keep=1)
+            best_ckpt = Checkpointer(os.path.join(checkpoint_dir, "best"), max_to_keep=1,
+                                     group=self._group)
             if os.path.exists(best_loss_path):
                 # resumed run: never let a worse post-resume eval overwrite
                 # the surviving best snapshot
@@ -391,6 +452,9 @@ class Trainer:
                 nonlocal failures, metrics
                 print_exception(exc)
                 failures += 1
+                # a save in flight lands (on every rank's view of the
+                # directory) before the check
+                ckpt.wait()
                 if failures > max_failures or ckpt.latest_step is None:
                     raise exc
                 restore_latest()
@@ -437,8 +501,9 @@ class Trainer:
                         # wait=True: the loss marker must never outlive its
                         # snapshot
                         best_ckpt.save(step, self.state, wait=True)
-                        with open(best_loss_path, "w") as fh:
-                            json.dump({"loss": best_loss, "step": step}, fh)
+                        if best_ckpt.writer:
+                            with open(best_loss_path, "w") as fh:
+                                json.dump({"loss": best_loss, "step": step}, fh)
                 if step % self.config.log_every == 0 or step == steps:
                     last = compute_metrics(metrics)
                     self._publish_gauges(last)
@@ -455,9 +520,10 @@ class Trainer:
 
     @torch.no_grad()
     def evaluate(self, batch_iter=None, steps: int = 10) -> Dict[str, float]:
-        """Mean metrics over ``steps`` eval batches: dropout off, no update,
-        the EMA shadow's weights when one is kept.  The module's weights are
-        left bitwise as they were."""
+        """Mean metrics over ``steps`` eval batches (this rank's rows, summed
+        over the data axis): dropout off, no update, the EMA shadow's
+        weights when one is kept.  The module's weights are left bitwise as
+        they were."""
         if self.state is None:
             self.init()
         saved = None
@@ -472,6 +538,7 @@ class Trainer:
                 batch = self._next_batch(batch_iter)
                 _, step_metrics = self.eval_loss_fn(self.model, batch, self.state.rng)
                 metrics = accumulate_metrics(metrics, step_metrics)
+            metrics = sync_metrics(metrics, DATA_AXIS, mesh=self.mesh)
         finally:
             if saved is not None:
                 params = dict(self.model.named_parameters())
@@ -481,7 +548,7 @@ class Trainer:
     def save_checkpoint(self, directory: str, step: int, *, wait: bool = True) -> None:
         from tpu_parallel_torch.checkpoint import Checkpointer
 
-        ckpt = Checkpointer(directory)
+        ckpt = Checkpointer(directory, group=self._group)
         try:
             ckpt.save(step, self.state, wait=wait)
         finally:
@@ -492,7 +559,7 @@ class Trainer:
         trainer's state, in place (a fresh state first when there is none)."""
         from tpu_parallel_torch.checkpoint import Checkpointer
 
-        ckpt = Checkpointer(directory)
+        ckpt = Checkpointer(directory, group=self._group)
         try:
             self._restore_into_state(ckpt, step)
         finally:
