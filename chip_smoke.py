@@ -2,8 +2,9 @@
 against its plain version, and drives GPT-2 125M inference, training and
 continuous-batching serving, with its hierarchical KV memory, speculative
 decoding, the int8 KV cache, beam search and int8 weight export, the
-trainer shell (data loading, checkpointed fit, 8k context), and data
-parallelism (a process group, a mesh, synced gradients), at full width.
+trainer shell (data loading, checkpointed fit, 8k context), data
+parallelism (a process group, a mesh, synced gradients) and FSDP (sharded
+parameters, state and checkpoints), at full width.
 
     python3 chip_smoke.py
 
@@ -180,12 +181,38 @@ source, all started together).  Phases, in order; any failure raises:
    tpu_parallel_torch.train --config=gpt2_125m_dp`` for 3 steps: exit 0,
    a topology line with one process and NCCL, ``train_loss`` in its
    metrics.
+13. FSDP: ``gpt2_125m_dp`` with ``model_overrides.fsdp=True`` (the blocks,
+   the embedding and the lm_head sharded over the data axis), the same
+   legs.  (a) An NCCL group of one: 3 steps with 12 ``flash_fwd`` and 12
+   ``flash_bwd`` launches, 26 gathers, 14 reduce-scatters and one
+   all-reduce per step, a falling loss within ``LOSS_TOL`` of phase 12
+   (a)'s; step ms beside phase 12 (a)'s, one block's, the embedding's and
+   the lm_head's gather and reduce-scatter alone, the state's bytes
+   (sharded and replicated), peak memory.  (b) Two gloo ranks on the card
+   on phase 12 (b)'s rows: replicated leaves bitwise equal across the
+   ranks after every step, the state's sharded bytes halved; against
+   phase 12 (b)'s DP pair, losses within ``LOSS_TOL``, step-1 gradients
+   within ``TRAIN_GRAD_TOL`` per weight, the gathered masters (of non-zero
+   init) after every step within ``FSDP_MASTER_TOL`` and every weight's
+   update within ``FSDP_UPDATE_MEDIAN_TOL`` (median) and
+   ``FSDP_UPDATE_MAX_TOL`` (max); gloo's ms per collective, the steps'
+   peak memory.  (c) In (b)'s ranks, the sharded checkpoint (every rank its
+   shards, ``torch.distributed.checkpoint``) saved twice, its snapshot on the
+   host (pinned where the card held it) and adding under ``FSDP_SAVE_DEVICE_BYTES`` to the
+   device's peak, the second save (pinned blocks cached) blocking under
+   ``FSDP_SAVE_BLOCKING_MS``, beside phase 11's save; restored bitwise into
+   a fresh Trainer, which takes one more step; save and restore ms and
+   bytes.  (d) ``export_single_device_params``: its
+   serving weight set's fingerprint equals that of the masters gathered
+   another way, and static ``generate()`` gives equal greedy tokens on
+   both.  (e) The CLI under torchrun with
+   ``--config.model_overrides.fsdp=True`` for 3 steps: exit 0.
 
 Weights and inputs are made from ``SEED``.  The kernel launch counters are
 set to 0 before each main path (phases 3-4: inference; phase 6's steps:
 training; phases 7-10: serving, which must leave them at 0; phase 11's
-packed fit and its 8k steps; phase 12's leg (a), in its subprocess) and
-read after it.  The last two lines are the ``kernels`` JSON object and the
+packed fit and its 8k steps; phase 12's and phase 13's legs (a), in their
+subprocesses) and read after it.  The last two lines are the ``kernels`` JSON object and the
 ``{"ok": true, ...}`` line.
 """
 
@@ -3553,13 +3580,15 @@ def dp_pair_leg(rank, rendezvous, workdir):
     state = trainer.init()
     batches = _dp_batches(DP_PAIR_BATCHES, trainer.model_config.vocab_size, "cuda:0")
     torch.cuda.reset_peak_memory_stats()
-    digests, losses, grads = [], [], None
+    digests, losses, grads, masters = [], [], None, []
     for batch in batches:
         state, metrics = trainer.step_fn(state, None, _every_other(batch, rank, 2))
         losses.append(compute(metrics)["loss"])
         digests.append(_digest(state))
         if grads is None:
             grads = state.flat_grads.to("cpu", copy=True)
+        if rank == 0:  # phase 13 (b) holds its FSDP pair to these
+            masters.append({n: p.to("cpu", copy=True) for n, p in state.params.items()})
     peak = torch.cuda.max_memory_allocated()
     flat = state.flat_grads
     dist.barrier()
@@ -3571,8 +3600,7 @@ def dp_pair_leg(rank, rendezvous, workdir):
         torch.cuda.synchronize()
         host.append((time.perf_counter() - t0) * 1e3)
     if rank == 0:
-        torch.save(dict(grads=grads, losses=losses,
-                        masters={n: p.cpu() for n, p in state.params.items()}),
+        torch.save(dict(grads=grads, losses=losses, masters=masters[-1], masters_by_step=masters),
                    Path(workdir, "pair.pt"))
     dist.barrier()
     dist.destroy_process_group()
@@ -3657,6 +3685,32 @@ def _run_leg(args, env=None, timeout=DP_LEG_TIMEOUT):
     return json.loads(lines[-1][len(DP_RESULT):])
 
 
+def _run_pair(leg, work):
+    """Run ``chip_smoke.py --leg <leg> <rank> <rendezvous> <work>`` as two
+    processes, ranks 0 and 1 (a file rendezvous in ``work``), and return
+    their JSON results; a rank's non-zero exit raises with its output."""
+    rendezvous = f"file://{Path(work, leg + '_rendezvous')}"
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--leg", leg, str(r), rendezvous, work],
+        cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DP_LEG_TIMEOUT))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError(f"{leg} ranks failed: " + "\n".join(
+            f"rank {r} exit {p.returncode}: {o[1][-4000:]}"
+            for r, (p, o) in enumerate(zip(procs, outs))))
+    return [json.loads([line for line in o[0].splitlines()
+                        if line.startswith(DP_RESULT)][-1][len(DP_RESULT):]) for o in outs]
+
+
 def dp_cli_leg(work):
     """Leg (c): ``python -m torch.distributed.run --standalone
     --nproc_per_node=1 -m tpu_parallel_torch.train --config=gpt2_125m_dp``
@@ -3686,13 +3740,11 @@ def dp_cli_leg(work):
                 stdout_tail=out.stdout.strip().splitlines()[-2:])
 
 
-def dp_phase(smi):
+def dp_phase(smi, work):
     """Phase 12: the kernels at the DP step's shape against their plain
-    versions, then legs (a), (b) and (c).  Returns the report and the
-    kernels' rows with leg (a)'s launches."""
-    import shutil
-    import tempfile
-
+    versions, then legs (a), (b) and (c), in the directory ``work`` (leg
+    (b)'s ``pair.pt`` stays there for phase 13).  Returns the report and
+    the kernels' rows with leg (a)'s launches."""
     start = time.perf_counter()
     legs_s = {}
 
@@ -3720,63 +3772,40 @@ def dp_phase(smi):
         f"{[round(x, 2) for x in nccl['no_group_step_device_ms']]}; all-reduce of the flat "
         f"fp32 buffer ({nccl['flat_grad_bytes']} bytes) alone {nccl['allreduce_ms']:.4f} device "
         f"ms; max memory allocated {nccl['max_memory_allocated'] / 2**30:.2f} GiB")
-    work = tempfile.mkdtemp(prefix="dp_legs_")
-    try:
-        rendezvous = f"file://{Path(work, 'rendezvous')}"
-        procs = [subprocess.Popen(
-            [sys.executable, str(Path(__file__).resolve()), "--leg", "dp_pair", str(r),
-             rendezvous, work], cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True) for r in range(2)]
-        outs = []
-        try:
-            for p in procs:
-                outs.append(p.communicate(timeout=DP_LEG_TIMEOUT))
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        if any(p.returncode != 0 for p in procs):
-            raise AssertionError("leg (b) ranks failed: " + "\n".join(
-                f"rank {r} exit {p.returncode}: {o[1][-4000:]}"
-                for r, (p, o) in enumerate(zip(procs, outs))))
-        pair = [json.loads([line for line in o[0].splitlines()
-                            if line.startswith(DP_RESULT)][-1][len(DP_RESULT):]) for o in outs]
-        if pair[0]["digests"] != pair[1]["digests"]:
-            raise AssertionError(f"leg (b) replicas differ: {pair[0]['digests']} against "
-                                 f"{pair[1]['digests']}")
-        if pair[0]["losses"] != pair[1]["losses"]:
-            raise AssertionError(f"leg (b) ranks' synced losses differ: {pair}")
-        lap("pair")
-        ref = _run_leg(["dp_pair_ref", work])
-        lap("pair_reference")
-        how = ("gloo over CUDA tensors" if pair[0]["gloo_takes_cuda"]
-               else "gloo staged through pinned host copies (it refused CUDA tensors)")
-        log(f"[dp two ranks] {how}, two processes on cuda:0 "
-            f"({pair[0]['process_info']}); rows r::2 of {DP_PAIR_BATCHES} batches of [64, 1024], "
-            f"{DP_PAIR_MINIBATCHES} minibatches per rank: masters and moments bitwise equal "
-            f"after every step ({[d[:12] for d in pair[0]['digests']]}); losses "
-            f"{[round(x, 5) for x in pair[0]['losses']]} against one process's "
-            f"{[round(x, 5) for x in ref['losses']]} (|diff| {ref['loss_diffs']}, tol "
-            f"{LOSS_TOL})")
-        log(f"  step-1 gradients against one process: relative L2 per weight median "
-            f"{ref['step1_grad_rel_median']:.3e}, max {ref['step1_grad_rel_max'][0]:.3e} "
-            f"({ref['step1_grad_rel_max'][1]}), tol {TRAIN_GRAD_TOL}; final masters' update "
-            f"relative error median {ref['update_rel_median']:.3e}, max "
-            f"{ref['update_rel_max']:.3e}; their loss on a third batch {ref['eval_loss_dp']:.6f} "
-            f"against {ref['eval_loss_ref']:.6f} (tol {LOSS_TOL})")
-        log("  all-reduce of the flat fp32 buffer through gloo (host ms per call): "
-            + "; ".join(f"rank {p['rank']} {[round(x, 1) for x in p['allreduce_host_ms']]}"
-                        for p in pair)
-            + "; max memory allocated "
-            + ", ".join(f"{p['max_memory_allocated'] / 2**30:.2f} GiB" for p in pair))
-        cli = dp_cli_leg(work)
-        lap("cli")
-        log(f"[dp cli] torchrun --standalone --nproc_per_node=1 -m tpu_parallel_torch.train "
-            f"--config=gpt2_125m_dp --config.steps={DP_STEPS}: exit 0 in {cli['wall_s']:.1f} s; "
-            f"topology {cli['topology']}; metrics have train_loss; {cli['stdout_tail']}")
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    pair = _run_pair("dp_pair", work)
+    if pair[0]["digests"] != pair[1]["digests"]:
+        raise AssertionError(f"leg (b) replicas differ: {pair[0]['digests']} against "
+                             f"{pair[1]['digests']}")
+    if pair[0]["losses"] != pair[1]["losses"]:
+        raise AssertionError(f"leg (b) ranks' synced losses differ: {pair}")
+    lap("pair")
+    ref = _run_leg(["dp_pair_ref", work])
+    lap("pair_reference")
+    how = ("gloo over CUDA tensors" if pair[0]["gloo_takes_cuda"]
+           else "gloo staged through pinned host copies (it refused CUDA tensors)")
+    log(f"[dp two ranks] {how}, two processes on cuda:0 "
+        f"({pair[0]['process_info']}); rows r::2 of {DP_PAIR_BATCHES} batches of [64, 1024], "
+        f"{DP_PAIR_MINIBATCHES} minibatches per rank: masters and moments bitwise equal "
+        f"after every step ({[d[:12] for d in pair[0]['digests']]}); losses "
+        f"{[round(x, 5) for x in pair[0]['losses']]} against one process's "
+        f"{[round(x, 5) for x in ref['losses']]} (|diff| {ref['loss_diffs']}, tol "
+        f"{LOSS_TOL})")
+    log(f"  step-1 gradients against one process: relative L2 per weight median "
+        f"{ref['step1_grad_rel_median']:.3e}, max {ref['step1_grad_rel_max'][0]:.3e} "
+        f"({ref['step1_grad_rel_max'][1]}), tol {TRAIN_GRAD_TOL}; final masters' update "
+        f"relative error median {ref['update_rel_median']:.3e}, max "
+        f"{ref['update_rel_max']:.3e}; their loss on a third batch {ref['eval_loss_dp']:.6f} "
+        f"against {ref['eval_loss_ref']:.6f} (tol {LOSS_TOL})")
+    log("  all-reduce of the flat fp32 buffer through gloo (host ms per call): "
+        + "; ".join(f"rank {p['rank']} {[round(x, 1) for x in p['allreduce_host_ms']]}"
+                    for p in pair)
+        + "; max memory allocated "
+        + ", ".join(f"{p['max_memory_allocated'] / 2**30:.2f} GiB" for p in pair))
+    cli = dp_cli_leg(work)
+    lap("cli")
+    log(f"[dp cli] torchrun --standalone --nproc_per_node=1 -m tpu_parallel_torch.train "
+        f"--config=gpt2_125m_dp --config.steps={DP_STEPS}: exit 0 in {cli['wall_s']:.1f} s; "
+        f"topology {cli['topology']}; metrics have train_loss; {cli['stdout_tail']}")
     phase_s = time.perf_counter() - start
     log(f"[dp] phase 12 took {phase_s:.1f} s ("
         + ", ".join(f"{k} {v:.1f}" for k, v in legs_s.items()) + ")")
@@ -3784,10 +3813,523 @@ def dp_phase(smi):
     return dict(nccl=nccl, pair=pair, pair_reference=ref, cli=cli, phase_s=phase_s,
                 legs_s=legs_s), rows, nccl["launches"]
 
+# phase 13: FSDP on the card (``gpt2_125m_dp`` with ``model_overrides.fsdp``:
+# ZeRO-3 over the data axis).  The same three-process layout as phase 12:
+# (a) an NCCL group of one, (b) two gloo ranks sharing the card, then (c)
+# a sharded checkpoint and (d) the export, in (b)'s ranks, and (e) the CLI
+# under torchrun.
+FSDP_STEPS = 3  # leg (a)'s counted steps
+FSDP_TIMED = 3  # leg (a)'s timed steps
+FSDP_PROMPTS = (4, 32, 16)  # leg (d): prompts, prompt tokens, new tokens
+# leg (b) against phase 12's DP pair, per weight, relative L2, set from
+# earlier readings on an H100 80GB HBM3 at 700 W (gathered masters of
+# non-zero init within 1.8e-5; their updates' error median 3.3e-3, max
+# 3.1e-2, flash dq's atomics through AdamW's first steps).  A state whose
+# shards never moved misses the update limits (an error of 1) and the
+# masters' (the update, about 1e-3 of a weight).
+FSDP_MASTER_TOL = 2e-4
+FSDP_UPDATE_MEDIAN_TOL = 1e-2
+FSDP_UPDATE_MAX_TOL = 1e-1
+# leg (c): device memory a sharded save may add (its snapshot is on the
+# host), and the blocking time of a save with the pinned blocks cached
+FSDP_SAVE_DEVICE_BYTES = 64 * 2**20
+FSDP_SAVE_BLOCKING_MS = 100.0
+
+
+def _fsdp_config(**changes):
+    overrides = dict(fsdp=True, **changes.pop("model_overrides", {}))
+    return _dp_config(model_overrides=overrides, **changes)
+
+
+def _named_trees(state):
+    """The state's dicts by parameter name: masters, accumulators, the
+    optimizer's moments, the EMA shadow and the module's weights."""
+    trees = [state.params, state.grads, dict(state.model.named_parameters())]
+    if state.ema_params is not None:
+        trees.append(state.ema_params)
+
+    def walk(node):
+        if isinstance(node, dict):
+            if node.keys() == state.params.keys():
+                trees.append(node)
+            else:
+                for v in node.values():
+                    walk(v)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                walk(v)
+
+    walk(state.opt_state)
+    return trees
+
+
+def _state_bytes(state):
+    """This rank's bytes of the state's tensors (:func:`_named_trees`),
+    split into FSDP-sharded leaves and replicated ones."""
+    out = dict(sharded=0, replicated=0)
+    for tree in _named_trees(state):
+        for name, t in tree.items():
+            out["sharded" if name in state.shards else "replicated"] += t.numel() * t.element_size()
+    return out
+
+
+def _replicated_digest(state):
+    """sha256 of the replicated leaves of every named tree, in name order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for tree in _named_trees(state):
+        for name in sorted(n for n in tree if n not in state.shards):
+            h.update(tree[name].detach().cpu().float().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _collective_counts():
+    from tpu_parallel_torch.parallel import dp, fsdp
+
+    return [fsdp.fsdp_allgather_launches, fsdp.fsdp_reducescatter_launches,
+            dp.dp_allreduce_launches]
+
+
+def _unit_collectives(unit, time_fn):
+    """Times of one FSDP unit's gather and of the reduce-scatter of its
+    packed fp32 gradient, by ``time_fn(fn)``, and their bytes per rank."""
+    from tpu_parallel_torch.parallel import fsdp
+
+    info = unit.entries[0][2]
+    numel = sum(torch.Size(i.full_shape).numel() for _, _, i in unit.entries)
+    full = torch.empty(numel, dtype=torch.float32, device="cuda")
+    out = torch.empty(numel // info.size, dtype=torch.float32, device="cuda")
+    dtype = unit.entries[0][0]._parameters[unit.entries[0][1]].dtype
+    with torch.no_grad():
+        gather = time_fn(unit.gather)
+        scatter = time_fn(lambda: fsdp._reduce_scatter(out, full, group=info.group))
+    return dict(gather=gather, reduce_scatter=scatter,
+                gather_bytes=numel * torch.empty((), dtype=dtype).element_size(),
+                reduce_scatter_bytes=numel * 4)
+
+
+def fsdp_nccl_leg():
+    """Leg (a), in its own process under torchrun's environment for one
+    rank: ``Trainer(gpt2_125m_dp, fsdp=True)`` over ``make_mesh(
+    MeshConfig(data=-1))``, FSDP_STEPS counted steps on the fixed seeded
+    batch of phase 12 (a), then the timed steps, one block's and the
+    lm_head's gather and reduce-scatter alone, the state's bytes."""
+    import torch.distributed as dist
+
+    from tpu_parallel_torch.core.metrics import compute
+    from tpu_parallel_torch.runtime import MeshConfig, initialize, make_mesh, process_info
+    from tpu_parallel_torch.train_lib import Trainer
+
+    initialize()
+    info = process_info()
+    if info["backend"] != "nccl" or info["process_count"] != 1:
+        raise AssertionError(f"leg (a) wants an NCCL group of one: {info}")
+    config = _fsdp_config()
+    mesh = make_mesh(MeshConfig(data=-1))
+    trainer = Trainer(config, mesh, device="cuda")
+    state = trainer.init()
+    if not state.shards:
+        raise AssertionError("fsdp=True over a data mesh sharded nothing")
+    batch = trainer.example_batch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()  # the main path starts here
+    per_step, coll, losses = [], [], []
+    for _ in range(FSDP_STEPS):
+        before, cbefore = _launch_counts(), _collective_counts()
+        state, metrics = trainer.step_fn(state, None, batch)
+        per_step.append([a - b for a, b in zip(_launch_counts(), before)])
+        coll.append([a - b for a, b in zip(_collective_counts(), cbefore)])
+        losses.append(compute(metrics)["loss"])
+    torch.cuda.synchronize()
+    launches = dict(zip(LAUNCH_COUNTERS, _launch_counts()))
+    peak = torch.cuda.max_memory_allocated()
+    layers, mb = trainer.model_config.n_layers, config.num_minibatches
+    want = [mb * layers, mb * layers]
+    want_coll = [mb * (2 * layers + 2), mb * (layers + 2), 1]
+    if any(n != want for n in per_step):
+        raise AssertionError(f"launches per step (fwd, bwd) {per_step}, want {want}")
+    if any(c != want_coll for c in coll):
+        raise AssertionError(f"(gathers, reduce-scatters, all-reduces) per step {coll}, "
+                             f"want {want_coll}")
+    _falls("leg (a)", losses)
+    host, device = _timed_dp_steps(trainer, batch, FSDP_TIMED)
+    block = _unit_collectives(trainer.model.blocks.layer_0._fsdp_unit,
+                              lambda fn: cuda_ms(fn, 10))
+    head = _unit_collectives(trainer.model.lm_head._fsdp_unit, lambda fn: cuda_ms(fn, 10))
+    embed = _unit_collectives(trainer.model.embed._fsdp_unit, lambda fn: cuda_ms(fn, 10))
+    per_step_ms = (mb * (2 * layers * block["gather"] + head["gather"] + embed["gather"])
+                   + mb * (layers * block["reduce_scatter"] + head["reduce_scatter"]
+                           + embed["reduce_scatter"]))
+    result = dict(process_info=info, losses=losses, launches_per_step=per_step,
+                  launches=launches, collectives_per_step=coll, block=block, lm_head=head,
+                  embed=embed, collective_device_ms_per_step=per_step_ms,
+                  state_bytes=_state_bytes(state), n_sharded=len(state.shards),
+                  n_replicated=len(state.params) - len(state.shards), step_host_ms=host,
+                  step_device_ms=device, max_memory_allocated=peak,
+                  mesh_shape=list(mesh.shape), device=str(trainer.device))
+    dist.destroy_process_group()
+    return result
+
+
+def fsdp_pair_leg(rank, rendezvous, workdir):
+    """Leg (b), one of two gloo ranks on the one card, each on rows
+    ``rank::2`` of phase 12 (b)'s global batches in two minibatches: after
+    every step a digest of the replicated leaves and (rank 0) the gathered
+    masters against phase 12 (b)'s DP masters (of non-zero init: a
+    zero-init leaf's master is its update) and every weight's update from
+    the initial masters against DP's; the step-1 gradients against DP's;
+    the steps' peak memory; one block's gloo
+    gather and reduce-scatter; then (c) a sharded checkpoint restored into
+    a fresh Trainer and (d) the export."""
+    import torch.distributed as dist
+
+    from tpu_parallel_torch.core.metrics import compute
+    from tpu_parallel_torch.parallel.tp import export_single_device_params
+    from tpu_parallel_torch.runtime import MeshConfig, initialize, make_mesh, process_info
+    from tpu_parallel_torch.train_lib import Trainer
+
+    initialize(rendezvous, 2, rank, backend="gloo", device="cuda:0")
+    info = process_info()
+    config = _fsdp_config(num_minibatches=DP_PAIR_MINIBATCHES)
+    mesh = make_mesh(MeshConfig(data=2))
+    trainer = Trainer(config, mesh, device="cuda:0")
+    state = trainer.init()
+    cfg = trainer.model_config
+    batches = _dp_batches(DP_PAIR_BATCHES, cfg.vocab_size, "cuda:0")
+    dp_pair = torch.load(Path(workdir, "pair.pt"), weights_only=True) if rank == 0 else None
+    # the initial masters, on the host: the comparisons' buffers stay out of
+    # the steps' peak memory
+    start = {n: p.to("cpu", copy=True) for n, p in export_single_device_params(
+        state.partitioned(state.params)).items()}
+    losses, digests, master_rel, update_rel, grad_rel, peak = [], [], [], [], None, 0
+    for i, batch in enumerate(batches):
+        torch.cuda.reset_peak_memory_stats()
+        state, metrics = trainer.step_fn(state, None, _every_other(batch, rank, 2))
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        losses.append(compute(metrics)["loss"])
+        digests.append(_replicated_digest(state))
+        full = export_single_device_params(state.partitioned(state.params))
+        grads = export_single_device_params(state.partitioned(state.grads)) if i == 0 else None
+        if rank == 0:
+            m_rel, u_rel, g_rel = _against_dp_pair(cfg, full, grads, start, dp_pair, i)
+            master_rel.append(m_rel)
+            update_rel.append(u_rel)
+            if i == 0:
+                grad_rel = g_rel
+        del full, grads
+    dist.barrier()
+    block = _unit_collectives(trainer.model.blocks.layer_0._fsdp_unit,
+                              lambda fn: host_ms(fn, 3))
+    result = dict(rank=rank, process_info=info, losses=losses, digests=digests,
+                  state_bytes=_state_bytes(state), block=block, max_memory_allocated=peak)
+    if rank == 0:
+        worst = lambda rel: max(rel.items(), key=lambda kv: kv[1])
+        result.update(
+            dp_losses=dp_pair["losses"],
+            master_rel_max=[worst(r) for r in master_rel],
+            update_rel_median=[sorted(r.values())[len(r) // 2] for r in update_rel],
+            update_rel_max=[worst(r) for r in update_rel],
+            step1_grad_rel_max=worst(grad_rel),
+            step1_grad_rel_median=sorted(grad_rel.values())[len(grad_rel) // 2])
+        del dp_pair
+    result.update(checkpoint=_fsdp_checkpoint(trainer, config, mesh, batches[0], rank, workdir))
+    result.update(export=_fsdp_export(trainer, rank, workdir))
+    dist.barrier()
+    dist.destroy_process_group()
+    return result
+
+
+def _against_dp_pair(cfg, full, grads, start, dp_pair, step):
+    """Per weight, relative L2 of the gathered masters after ``step``
+    against the DP pair's (leaves of non-zero init only: a zero-init
+    leaf's master is its update), of their updates from ``start``, and of
+    the step-1 gradients (when ``grads``); the qkv bias's key slice left
+    out."""
+    dh = cfg.head_dim
+    not_key = (torch.arange(3 * cfg.d_model, device="cuda:0") % (3 * dh)) // dh != 1
+    rel = lambda a, b: ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+    m_rel, u_rel, g_rel = {}, {}, {}
+    for name, got in full.items():
+        want, init = dp_pair["masters_by_step"][step][name].cuda(), start[name].cuda()
+        upd_got, upd_want = got - init, want - init
+        if name.endswith("attn.qkv.bias"):
+            got, want = got[not_key], want[not_key]
+            upd_got, upd_want = upd_got[not_key], upd_want[not_key]
+        if init.norm() > 0:
+            m_rel[name] = rel(got, want)
+        u_rel[name] = rel(upd_got, upd_want)
+    if grads is not None:
+        flat, offset = dp_pair["grads"].cuda(), 0
+        for name, g in grads.items():
+            want = flat[offset:offset + g.numel()].view_as(g)
+            offset += g.numel()
+            if name.endswith("attn.qkv.bias"):
+                g, want = g[not_key], want[not_key]
+            g_rel[name] = rel(g, want)
+    return m_rel, u_rel, g_rel
+
+
+def _local_leaves(sd):
+    return {k: (v.to_local() if hasattr(v, "to_local") else v)
+            for k, v in _state_tensors(sd).items()}
+
+
+def _fsdp_checkpoint(trainer, config, mesh, batch, rank, workdir):
+    """Leg (c): save the sharded state (every rank its shards) twice, the
+    second time with the pinned blocks cached: its snapshot's local
+    tensors on the host (pinned where the card held them), the saves adding under
+    FSDP_SAVE_DEVICE_BYTES to the device's peak, the second blocking under
+    FSDP_SAVE_BLOCKING_MS; restore it into a fresh Trainer, every local
+    tensor bitwise equal, then one more step there."""
+    import torch.distributed as dist
+
+    from tpu_parallel_torch.checkpoint import Checkpointer
+    from tpu_parallel_torch.checkpoint.io import snapshot_to_host
+    from tpu_parallel_torch.core.metrics import compute
+    from tpu_parallel_torch.train_lib import Trainer
+
+    directory = Path(workdir, "fsdp_ckpt")
+    ckpt = Checkpointer(str(directory), group=dist.group.WORLD)
+    step = trainer.state.step
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    blocking, done = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        ckpt.save(step, trainer.state, wait=False)
+        blocking.append((time.perf_counter() - t0) * 1e3)
+        ckpt.wait()
+        done.append((time.perf_counter() - t0) * 1e3)
+    added = torch.cuda.max_memory_allocated() - base
+    ckpt.close()
+    state_dict = trainer.state.state_dict()
+    snapshot, event = snapshot_to_host(state_dict)
+    event.synchronize()
+    sources = _local_leaves(state_dict)
+    off_host = [k for k, v in _local_leaves(snapshot).items()
+                if v.device.type != "cpu" or (sources[k].is_cuda and not v.is_pinned())]
+    del snapshot, state_dict, sources
+    if off_host or added > FSDP_SAVE_DEVICE_BYTES or blocking[1] > FSDP_SAVE_BLOCKING_MS:
+        raise AssertionError(f"rank {rank}: a sharded save put {added} bytes on the device "
+                             f"(limit {FSDP_SAVE_DEVICE_BYTES}), blocked {blocking} ms (limit "
+                             f"{FSDP_SAVE_BLOCKING_MS} for the second), snapshot tensors of "
+                             f"the card's not in pinned host memory: {off_host[:5]}")
+    nbytes = ckpt.bytes_on_disk(step)
+    files = sorted(p.name for p in Path(directory, str(step)).iterdir())
+    fresh = Trainer(config, mesh, device="cuda:0")
+    fresh.init()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fresh.restore_checkpoint(str(directory))
+    torch.cuda.synchronize()
+    restore = (time.perf_counter() - t0) * 1e3
+    want, got = _local_leaves(trainer.state.state_dict()), _local_leaves(fresh.state.state_dict())
+    module_equal = all(torch.equal(a, b) for a, b in zip(trainer.model.parameters(),
+                                                         fresh.model.parameters()))
+    if got.keys() != want.keys() or not all(torch.equal(got[k], want[k]) for k in want) \
+            or not module_equal or fresh.state.step != step:
+        raise AssertionError(f"rank {rank}: the restored shards differ from the saved ones")
+    _, metrics = fresh.step_fn(fresh.state, None, _every_other(batch, rank, 2))
+    loss = compute(metrics)["loss"]
+    if not loss == loss or fresh.state.step != step + 1:
+        raise AssertionError(f"rank {rank}: the restored state did not train: {loss}")
+    tensors = len(want)
+    del fresh
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(save_blocking_ms=blocking, save_done_ms=done, save_device_bytes=added,
+                restore_ms=restore, bytes_on_disk=nbytes, files=files, local_tensors=tensors,
+                next_loss=loss)
+
+
+def _fsdp_export(trainer, rank, workdir):
+    """Leg (d): ``export_single_device_params`` on the FSDP state, and the
+    masters gathered another way (every rank saves its slices, rank 0 joins
+    them along each ``ShardInfo``'s dim): the two serving weight sets'
+    fingerprints are equal, and static ``generate()`` gives the same
+    greedy tokens on both."""
+    import torch.distributed as dist
+
+    from tpu_parallel_torch.checkpoint import params_fingerprint, save_serving_weights
+    from tpu_parallel_torch.models import GPTLM
+    from tpu_parallel_torch.models.convert import params_to_jax
+    from tpu_parallel_torch.models.generate import export_single_device_params, generate
+
+    state, cfg = trainer.state, trainer.model_config
+    t0 = time.perf_counter()
+    exported = export_single_device_params(state.partitioned(state.params))
+    torch.cuda.synchronize()
+    export_ms = (time.perf_counter() - t0) * 1e3
+    torch.save({n: p.cpu() for n, p in state.params.items() if n in state.shards},
+               Path(workdir, f"fsdp_slices_{rank}.pt"))
+    dist.barrier()
+    if rank != 0:
+        return dict(export_ms=export_ms)
+    slices = [torch.load(Path(workdir, f"fsdp_slices_{r}.pt"), weights_only=True)
+              for r in range(2)]
+    gathered = {n: (torch.cat([s[n] for s in slices], dim=state.shards[n].dim)
+                    if n in state.shards else p.cpu()) for n, p in state.params.items()}
+    manifest = save_serving_weights(str(Path(workdir, "fsdp_serving")), state.step,
+                                    params_to_jax(exported, cfg), version="fsdp-export")
+    fingerprint = params_fingerprint(params_to_jax(gathered, cfg))
+    if manifest.fingerprint != fingerprint:
+        raise AssertionError("the export's serving weight set and the gathered masters' differ")
+    b, t, new = FSDP_PROMPTS
+    prompt = torch.randint(0, cfg.vocab_size, (b, t),
+                           generator=torch.Generator().manual_seed(SEED + 50)).cuda()
+    tokens = []
+    for weights in (exported, gathered):
+        model = GPTLM(cfg, device="cuda:0")  # no mesh: full weights
+        model.load_state_dict(weights)
+        with torch.no_grad():
+            tokens.append(generate(model, prompt, max_new_tokens=new).cpu())
+        del model
+    if not torch.equal(tokens[0], tokens[1]):
+        raise AssertionError("generate() differs on the exported and the gathered weights")
+    return dict(export_ms=export_ms, fingerprint=manifest.fingerprint, n_leaves=manifest.n_leaves,
+                n_params=manifest.n_params, tokens=tokens[0][0].tolist())
+
+
+def fsdp_cli_leg(work):
+    """Leg (e): the CLI under torchrun with ``--config.model_overrides.
+    fsdp=True`` for FSDP_STEPS steps: exit 0, one NCCL process,
+    ``train_loss`` in its metrics."""
+    import os
+
+    here = Path(__file__).resolve().parent
+    metrics = Path(work, "fsdp_metrics.prom")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=1",
+           "-m", "tpu_parallel_torch.train", "--config=gpt2_125m_dp",
+           "--config.model_overrides.fsdp=True", f"--config.steps={FSDP_STEPS}",
+           f"--metrics-out={metrics}"]
+    start = time.perf_counter()
+    out = subprocess.run(cmd, cwd=here, env=dict(os.environ, PYTHONPATH=str(here)),
+                         capture_output=True, text=True, timeout=DP_LEG_TIMEOUT)
+    wall = time.perf_counter() - start
+    if out.returncode != 0:
+        raise AssertionError(f"torchrun (fsdp) exited {out.returncode}: {out.stderr[-3000:]}")
+    topology = [json.loads(line[len("topology: "):]) for line in out.stdout.splitlines()
+                if line.startswith("topology: ")]
+    if len(topology) != 1 or topology[0]["backend"] != "nccl":
+        raise AssertionError(f"CLI topology lines {topology}")
+    if "train_loss" not in metrics.read_text():
+        raise AssertionError("CLI metrics without train_loss")
+    return dict(wall_s=wall, stdout_tail=out.stdout.strip().splitlines()[-2:])
+
+
+def fsdp_phase(smi, work, dp_report, dp_save):
+    """Phase 13: legs (a)-(e) of FSDP, against phase 12's DP legs in this
+    call (``dp_save``: phase 11's save timing, printed beside leg (c)'s).
+    Returns the report and leg (a)'s launches (its main path)."""
+    start = time.perf_counter()
+    legs_s = {}
+
+    def lap(name):
+        legs_s[name] = time.perf_counter() - start - sum(legs_s.values())
+
+    env = dict(WORLD_SIZE="1", RANK="0", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(_free_port()))
+    nccl = _run_leg(["fsdp_nccl"], env=env)
+    lap("nccl")
+    dp = dp_report["nccl"]
+    diffs = [abs(a - b) for a, b in zip(nccl["losses"], dp["losses"])]
+    if max(diffs) > LOSS_TOL:
+        raise AssertionError(f"leg (a): FSDP losses {nccl['losses']} against DP's "
+                             f"{dp['losses']}")
+    gib = lambda n: f"{n / 2**30:.3f} GiB"
+    log(f"[fsdp nccl] {nccl['process_info']}; mesh {nccl['mesh_shape']}; gpt2_125m_dp + "
+        f"fsdp=True [64, 1024] in 1 minibatch: {nccl['n_sharded']} sharded and "
+        f"{nccl['n_replicated']} replicated leaves; losses "
+        f"{[round(x, 5) for x in nccl['losses']]} against DP's "
+        f"{[round(x, 5) for x in dp['losses']]} (|diff| {diffs}, tol {LOSS_TOL}); launches per "
+        f"step (flash_fwd, flash_bwd) {nccl['launches_per_step']}; (gathers, reduce-scatters, "
+        f"all-reduces) per step {nccl['collectives_per_step']}")
+    log(f"  step device ms {[round(x, 2) for x in nccl['step_device_ms']]}, host ms "
+        f"{[round(x, 2) for x in nccl['step_host_ms']]}; DP's (phase 12 (a), this call) device "
+        f"ms {[round(x, 2) for x in dp['step_device_ms']]}, host ms "
+        f"{[round(x, 2) for x in dp['step_host_ms']]}; one block's gather "
+        f"({nccl['block']['gather_bytes']} bytes) {nccl['block']['gather']:.4f} device ms, its "
+        f"reduce-scatter ({nccl['block']['reduce_scatter_bytes']} bytes) "
+        f"{nccl['block']['reduce_scatter']:.4f}; lm_head {nccl['lm_head']['gather']:.4f} / "
+        f"{nccl['lm_head']['reduce_scatter']:.4f}; embedding {nccl['embed']['gather']:.4f} / "
+        f"{nccl['embed']['reduce_scatter']:.4f}; collectives per step "
+        f"{nccl['collective_device_ms_per_step']:.3f} device ms")
+    log(f"  state per rank: sharded {gib(nccl['state_bytes']['sharded'])}, replicated "
+        f"{gib(nccl['state_bytes']['replicated'])}; max memory allocated "
+        f"{gib(nccl['max_memory_allocated'])} (DP {gib(dp['max_memory_allocated'])})")
+    pair = _run_pair("fsdp_pair", work)
+    lap("pair")
+    r0 = pair[0]
+    if pair[0]["digests"] != pair[1]["digests"]:
+        raise AssertionError(f"leg (b): replicated leaves differ across ranks: {pair}")
+    if pair[0]["losses"] != pair[1]["losses"]:
+        raise AssertionError(f"leg (b) ranks' synced losses differ: {pair}")
+    loss_diffs = [abs(a - b) for a, b in zip(r0["losses"], r0["dp_losses"])]
+    worst_master = max(m for _, m in r0["master_rel_max"])
+    if max(loss_diffs) > LOSS_TOL or r0["step1_grad_rel_max"][1] > TRAIN_GRAD_TOL \
+            or worst_master > FSDP_MASTER_TOL \
+            or max(r0["update_rel_median"]) > FSDP_UPDATE_MEDIAN_TOL \
+            or max(m for _, m in r0["update_rel_max"]) > FSDP_UPDATE_MAX_TOL:
+        raise AssertionError(f"leg (b): FSDP disagrees with DP: {r0}")
+    want_bytes = dict(sharded=nccl["state_bytes"]["sharded"] // 2,
+                      replicated=nccl["state_bytes"]["replicated"])
+    if any(p["state_bytes"] != want_bytes for p in pair):
+        raise AssertionError(f"leg (b) state bytes {[p['state_bytes'] for p in pair]}, want "
+                             f"{want_bytes} (leg (a)'s sharded bytes halved)")
+    log(f"[fsdp two ranks] gloo over CUDA tensors, two processes on cuda:0, rows r::2 of "
+        f"{DP_PAIR_BATCHES} batches of [64, 1024] in {DP_PAIR_MINIBATCHES} minibatches: "
+        f"replicated leaves bitwise equal across the ranks after every step; losses "
+        f"{[round(x, 5) for x in r0['losses']]} against DP's "
+        f"{[round(x, 5) for x in r0['dp_losses']]} (|diff| {loss_diffs}, tol {LOSS_TOL})")
+    log(f"  against phase 12's DP pair: step-1 gradients relative L2 per weight median "
+        f"{r0['step1_grad_rel_median']:.3e}, max {r0['step1_grad_rel_max'][1]:.3e} "
+        f"({r0['step1_grad_rel_max'][0]}); gathered masters (of non-zero init) after each "
+        f"step, worst relative L2 {[(n, f'{m:.3e}') for n, m in r0['master_rel_max']]} (tol "
+        f"{FSDP_MASTER_TOL}); their update's relative error median "
+        f"{[f'{x:.3e}' for x in r0['update_rel_median']]} (tol {FSDP_UPDATE_MEDIAN_TOL}), "
+        f"max {[(n, f'{m:.3e}') for n, m in r0['update_rel_max']]} (tol {FSDP_UPDATE_MAX_TOL})")
+    log("  per rank: state " + "; ".join(
+        f"rank {p['rank']} sharded {gib(p['state_bytes']['sharded'])} + replicated "
+        f"{gib(p['state_bytes']['replicated'])}, max memory allocated in a step "
+        f"{gib(p['max_memory_allocated'])}, one block's gloo gather "
+        f"{p['block']['gather']:.1f} host ms, reduce-scatter {p['block']['reduce_scatter']:.1f}"
+        for p in pair))
+    ck = [p["checkpoint"] for p in pair]
+    log(f"[fsdp checkpoint] step {pair[0]['checkpoint']['files']}: "
+        f"{ck[0]['bytes_on_disk']} bytes on disk; per rank, a first save and a second (pinned "
+        f"blocks cached) block {[[round(x, 1) for x in c['save_blocking_ms']] for c in ck]} ms "
+        f"(the second's limit {FSDP_SAVE_BLOCKING_MS}; phase 11's one-device save of "
+        f"{dp_save['bytes']} bytes, this call: {dp_save['blocking_ms']:.1f}), done in "
+        f"{[[round(x, 1) for x in c['save_done_ms']] for c in ck]} ms, adding "
+        f"{[c['save_device_bytes'] for c in ck]} bytes to the device's peak (limit "
+        f"{FSDP_SAVE_DEVICE_BYTES}); restore "
+        f"{[round(c['restore_ms'], 1) for c in ck]} ms into a fresh Trainer: "
+        f"{ck[0]['local_tensors']} local tensors per rank bitwise equal; the next step's loss "
+        f"{ck[0]['next_loss']:.5f}")
+    ex = pair[0]["export"]
+    log(f"[fsdp export] export_single_device_params {[round(p['export']['export_ms'], 1) for p in pair]} "
+        f"ms; serving weight set fingerprint {ex['fingerprint'][:16]} ({ex['n_leaves']} leaves, "
+        f"{ex['n_params']} params) equal to the gathered masters'; greedy tokens of generate() "
+        f"equal on both ({FSDP_PROMPTS[0]} prompts of {FSDP_PROMPTS[1]}, {FSDP_PROMPTS[2]} new; "
+        f"row 0 {ex['tokens'][-FSDP_PROMPTS[2]:]})")
+    cli = fsdp_cli_leg(work)
+    lap("cli")
+    log(f"[fsdp cli] torchrun --standalone --nproc_per_node=1 -m tpu_parallel_torch.train "
+        f"--config=gpt2_125m_dp --config.model_overrides.fsdp=True --config.steps={FSDP_STEPS}: "
+        f"exit 0 in {cli['wall_s']:.1f} s; {cli['stdout_tail']}")
+    phase_s = time.perf_counter() - start
+    log(f"[fsdp] phase 13 took {phase_s:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in legs_s.items()) + ")")
+    log(f"card: {smi}")
+    return dict(nccl=nccl, pair=pair, cli=cli, phase_s=phase_s, legs_s=legs_s), nccl["launches"]
+
 
 def leg_main(argv):
-    """``chip_smoke.py --leg <name> ...``: one leg of phase 12 in this
-    process; prints its result as one ``dp-leg-result:`` JSON line."""
+    """``chip_smoke.py --leg <name> ...``: one leg of phase 12 or 13 in
+    this process; prints its result as one ``dp-leg-result:`` JSON line."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name, rest = argv[0], argv[1:]
@@ -3797,6 +4339,10 @@ def leg_main(argv):
         result = dp_pair_leg(int(rest[0]), rest[1], rest[2])
     elif name == "dp_pair_ref":
         result = dp_pair_reference_leg(rest[0])
+    elif name == "fsdp_nccl":
+        result = fsdp_nccl_leg()
+    elif name == "fsdp_pair":
+        result = fsdp_pair_leg(int(rest[0]), rest[1], rest[2])
     else:
         raise SystemExit(f"unknown leg {name!r}")
     print(DP_RESULT + json.dumps(result), flush=True)
@@ -3846,9 +4392,20 @@ def main():
             raise AssertionError(f"the {path} path left a kernel unlaunched: {counts}")
     gc.collect()
     torch.cuda.empty_cache()
-    dp_report, dp_rows, dp_launches = dp_phase(smi)
-    if not all(dp_launches.values()):
-        raise AssertionError(f"the training_dp path left a kernel unlaunched: {dp_launches}")
+    import shutil
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="dp_legs_")
+    try:
+        dp_report, dp_rows, dp_launches = dp_phase(smi, work)
+        if not all(dp_launches.values()):
+            raise AssertionError(f"the training_dp path left a kernel unlaunched: {dp_launches}")
+        fsdp_report, fsdp_launches = fsdp_phase(smi, work, dp_report, shell["fit"]["save"])
+        if not all(fsdp_launches.values()):
+            raise AssertionError(f"the training_fsdp path left a kernel unlaunched: "
+                                 f"{fsdp_launches}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     # one row per kernel and main path, each at the shape that path gives it:
     # the forward at (a) for inference and at the training pass;
@@ -3895,9 +4452,20 @@ def main():
         for kind, row, replaces in (
             ("fwd", dp_rows["fwd"], "tpu_parallel/ops/flash_attention.py:240"),
             ("bwd", dp_rows["bwd"], "tpu_parallel/ops/flash_attention.py:464,563"))
+    ] + [
+        # phase 13 (a)'s step gives the kernels phase 12 (a)'s shape: its row
+        dict(name=f"flash_{kind}", route="cuda", source=f"tpu_parallel_torch/csrc/flash_{kind}.cu",
+             replaces=replaces, path="training_fsdp", shape=row["shape"],
+             launches=fsdp_launches[f"flash_{kind}_launches"], max_abs_err=row["max_abs_err"],
+             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+             bound_by=row["bound_by"], library_ms=row["library_ms"])
+        for kind, row, replaces in (
+            ("fwd", dp_rows["fwd"], "tpu_parallel/ops/flash_attention.py:240"),
+            ("bwd", dp_rows["bwd"], "tpu_parallel/ops/flash_attention.py:464,563"))
     ]}
     summary = dict(card=smi, forward=fwd, generate=gen, train=train, serve=serve, kv=kv,
                    spec=spec, decode_extras=extras, trainer_shell=shell, data_parallel=dp_report,
+                   fsdp=fsdp_report,
                    inference_flash_fwd_launches=inference_launches,
                    kernel_shapes=kernel_rows, bwd_kernel_shapes=bwd_rows,
                    trainer_shell_kernel_shapes=shell_rows, data_parallel_kernel_shapes=dp_rows)

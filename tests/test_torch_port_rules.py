@@ -58,6 +58,8 @@ def test_scan_covers_every_subpackage():
         assert REPO / "tpu_parallel_torch" / sub in packages
     assert REPO / "tpu_parallel_torch" / "train.py" in PORT_FILES
     assert REPO / "tpu_parallel_torch" / "models" / "mlp.py" in PORT_FILES
+    for module in ("fsdp", "spmd", "tp"):
+        assert REPO / "tpu_parallel_torch" / "parallel" / f"{module}.py" in PORT_FILES
     assert (REPO / "tests" / "torch_dp_worker.py").is_file()
     assert packages <= scanned
     assert all(p in PORT_FILES for pkg in packages for p in pkg.glob("*.py"))
@@ -89,7 +91,9 @@ def test_import_pulls_in_no_jax():
         "tpu_parallel_torch.configs.mlp_dp_cpu, tpu_parallel_torch.runtime, "
         "tpu_parallel_torch.runtime.bootstrap, tpu_parallel_torch.runtime.device, "
         "tpu_parallel_torch.runtime.mesh, tpu_parallel_torch.parallel, "
-        "tpu_parallel_torch.parallel.dp, tpu_parallel_torch.core.rng, "
+        "tpu_parallel_torch.parallel.dp, tpu_parallel_torch.parallel.fsdp, "
+        "tpu_parallel_torch.parallel.spmd, tpu_parallel_torch.parallel.tp, "
+        "tpu_parallel_torch.core.rng, "
         "tpu_parallel_torch.models.mlp, tpu_parallel_torch.data.synthetic\n"
         "sys.path.insert(0, 'tests'); import torch_dp_worker\n"
         "new = {m.split('.')[0] for m in set(sys.modules) - before}\n"

@@ -5,7 +5,7 @@
 
 Starts ``num_ranks`` gloo CPU processes through
 ``tpu_parallel_torch.runtime.spawn_cpu_ranks`` and runs every case of
-``suite`` (``runtime`` or ``dp``) in that one group.  Each rank reads the
+``suite`` (``runtime``, ``dp`` or ``fsdp``) in that one group.  Each rank reads the
 inputs the test wrote to ``<outdir>/inputs.npz`` and writes its results to
 ``<outdir>/<suite>_rank<r>.npz``; the test compares them with the JAX
 package in its own process.  Imports torch, numpy and the port only.
@@ -375,7 +375,284 @@ def _dp_cases(inputs, outdir, out):
     out["fit_writes_all"] = np.array(writes)
 
 
-SUITES = {"runtime": _runtime_cases, "dp": _dp_cases}
+def _locals(out, prefix, tree):
+    """This rank's tensors of ``tree`` (a dict by parameter name)."""
+    for name, value in tree.items():
+        value = value.to_local() if hasattr(value, "to_local") else value
+        out[f"{prefix}/{name}"] = value.detach().numpy().copy()
+
+
+def _fsdp_cases(inputs, outdir, out):
+    import warnings
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from tpu_parallel_torch.checkpoint import params_fingerprint
+    from tpu_parallel_torch.core.accumulate import accumulate_gradients
+    from tpu_parallel_torch.core.losses import make_classification_loss
+    from tpu_parallel_torch.core.metrics import compute
+    from tpu_parallel_torch.core.optim import AdamW
+    from tpu_parallel_torch.core.state import Batch
+    from tpu_parallel_torch.models import GPTLM, tiny_test
+    from tpu_parallel_torch.models.convert import params_from_jax, params_to_jax
+    from tpu_parallel_torch.models.generate import export_single_device_params, generate
+    from tpu_parallel_torch.models.gpt import make_gpt_loss
+    from tpu_parallel_torch.models.mlp import MLPClassifier, MLPConfig
+    from tpu_parallel_torch.parallel import dp, fsdp
+    from tpu_parallel_torch.parallel.spmd import build_train_functions, make_model_init
+    from tpu_parallel_torch.runtime import MeshConfig, make_mesh
+    from tpu_parallel_torch.train_lib import Trainer, TrainerConfig
+
+    rank = dist.get_rank()
+    mesh = make_mesh(MeshConfig(data=4))
+
+    # (1) the MLP of tests/test_fsdp.py: every Dense FSDP-wrapped
+    cfg = MLPConfig(hidden_size=64, num_classes=10, dropout_rate=0.0, dtype=torch.float32)
+    tree = nested_tree("mlp", inputs)
+    x_all = torch.from_numpy(inputs["mlp_inputs"].copy())
+    y_all = torch.from_numpy(inputs["mlp_labels"].copy()).long()
+
+    def mlp_funcs(min_size=0, sharded=True, minibatches=1):
+        wrapper = (lambda cls: fsdp.shard_module_params(cls, "data", min_size, mesh=mesh)) \
+            if sharded else None
+        model = MLPClassifier(cfg, x_all.shape[1], dense_wrapper=wrapper, device="cpu")
+        return build_train_functions(make_model_init(model, AdamW(lambda count: 1e-3)),
+                                     make_classification_loss("data", mesh), mesh,
+                                     num_minibatches=minibatches)
+
+    def rows(n):
+        local = n // 4
+        return Batch(inputs=x_all[:n][rank * local:(rank + 1) * local],
+                     labels=y_all[:n][rank * local:(rank + 1) * local])
+
+    params0 = params_from_jax(tree, cfg, dtype=torch.float32)
+    funcs = mlp_funcs()
+    state = funcs.init_fn(torch.Generator().manual_seed(0), params0)
+    for name, p in state.model.named_parameters():
+        out[f"mlp_shape/{name}"] = np.array(p.shape)
+        out[f"mlp_mu_shape/{name}"] = np.array(state.opt_state["mu"][name].shape)
+        out[f"mlp_spec/{name}"] = np.array(json.dumps(funcs.state_specs[name]))
+    _locals(out, "mlp_init", state.params)
+    losses = []
+    for _ in range(3):
+        state, metrics = funcs.step_fn(state, None, rows(64))
+        losses.append(compute(metrics)["loss"])
+    out["mlp_fsdp_losses"] = np.array(losses)
+    for name, value in export_single_device_params(state.partitioned(state.params)).items():
+        out[f"mlp_fsdp/{name}"] = value.numpy().copy()
+    dstate = dp.make_init(lambda: mlp_funcs(sharded=False).init_fn(
+        torch.Generator().manual_seed(0), params0), mesh=mesh)()
+    step = dp.make_train_step(make_classification_loss("data", mesh), mesh=mesh)
+    losses = []
+    for _ in range(3):
+        dstate, metrics = step(dstate, None, rows(64))
+        losses.append(compute(metrics)["loss"])
+    out["mlp_dp_losses"] = np.array(losses)
+    _masters(out, "mlp_dp", dstate)
+    funcs = mlp_funcs(minibatches=4)
+    state = funcs.init_fn(torch.Generator().manual_seed(0), params0)
+    losses = []
+    for _ in range(16):
+        state, metrics = funcs.step_fn(state, None, rows(128))
+        losses.append(compute(metrics)["loss"])
+    out["mlp_decrease_losses"] = np.array(losses)
+    out["mlp_min_size_shards"] = np.array(len(
+        mlp_funcs(min_size=2**18).init_fn(torch.Generator(), params0).shards))
+
+    # (2) sync_gradients: a sharded leaf keeps its value, a replicated one
+    # takes the mean over the data axis
+    placements = [Shard(0) if n == "data" else Replicate() for n in mesh.mesh_dim_names]
+    grads = {"sharded": DTensor.from_local(torch.ones(1) * rank, mesh, placements),
+             "replicated": torch.ones(1) * rank}
+    synced = fsdp.sync_gradients(grads, ("data",), mesh=mesh)
+    out["sync_sharded"] = synced["sharded"].full_tensor().numpy()
+    out["sync_replicated"] = synced["replicated"].numpy()
+    mesh22 = make_mesh(MeshConfig(data=2, model=2))
+    data, model = mesh22.get_local_rank("data"), mesh22.get_local_rank("model")
+    on_model = [Shard(0) if n == "model" else Replicate() for n in mesh22.mesh_dim_names]
+    grads = {"replicated": torch.ones(1) * (1.0 + data + model),
+             "model_sharded": DTensor.from_local(torch.ones(1) * (1.0 + model), mesh22,
+                                                 on_model)}
+    fsdp.sync_gradients(grads, ("data", "model"), psum_axes=("model",), mesh=mesh22)
+    out["sync22_replicated"] = grads["replicated"].numpy()
+    out["sync22_model_sharded"] = grads["model_sharded"].to_local().numpy()
+    full = {"kernel": torch.arange(64 * 32, dtype=torch.float32).view(64, 32),
+            "bias": torch.arange(10, dtype=torch.float32)}
+    sharded = fsdp.shard_params(full, "data", 0, mesh=mesh, transposed=("kernel",))
+    out["shard_params_kernel"] = sharded["kernel"].to_local().numpy()
+    out["shard_params_bias_is_dtensor"] = np.array(hasattr(sharded["bias"], "to_local"))
+    back = fsdp.gather_params(sharded, "data")
+    out["gather_params_equal"] = np.array(all(torch.equal(back[k], full[k]) for k in full))
+
+    # (3) tiny GPT under build_train_functions (tests/test_gpt.py's _train):
+    # AdamW(3e-3), a batch of 16 (4 rows per rank), one minibatch
+    gparams = nested_tree("gparams", inputs)
+    gbatch = _text_batch(inputs, "gbatch")
+    local = gbatch.rows(4 * rank, 4 * rank + 4)
+
+    def gpt_run(name, steps, **overrides):
+        gcfg = tiny_test(**overrides)
+        model = GPTLM(gcfg, device="cpu", mesh=mesh)
+        funcs = build_train_functions(
+            make_model_init(model, AdamW(lambda count: 3e-3)), make_gpt_loss(gcfg, mesh=mesh),
+            mesh)
+        state = funcs.init_fn(None, params_from_jax(gparams, gcfg, dtype=torch.float32))
+        _locals(out, f"{name}_init", state.params)
+        losses = []
+        for _ in range(steps):
+            state, metrics = funcs.step_fn(state, None, local)
+            losses.append(compute(metrics)["loss"])
+        out[f"{name}_losses"] = np.array(losses)
+        out[f"{name}_specs"] = np.array(json.dumps(funcs.state_specs))
+        return state
+
+    gpt_run("gpt_dp", 4)
+    gpt_run("gpt_fsdp", 8, fsdp=True, fsdp_min_size=0)
+    # the gradients themselves (AdamW normalizes their scale away): one
+    # accumulation in 2 minibatches and the sync, gathered, against one
+    # process's gradient on the whole batch
+    gcfg = tiny_test(fsdp=True, fsdp_min_size=0)
+    model = GPTLM(gcfg, device="cpu", mesh=mesh)
+    loss_fn = make_gpt_loss(gcfg, mesh=mesh)
+    funcs = build_train_functions(make_model_init(model, AdamW(lambda count: 0.0)), loss_fn,
+                                  mesh)
+    state = funcs.init_fn(None, params_from_jax(gparams, gcfg, dtype=torch.float32))
+    grads, _ = accumulate_gradients(state, local, state.rng, 2, loss_fn)
+    fsdp.sync_gradients(state.partitioned(grads), ("data",), mesh=mesh)
+    for name, g in export_single_device_params(state.partitioned(grads)).items():
+        out[f"grad_fsdp/{name}"] = g.numpy().copy()
+    single = GPTLM(tiny_test(), device="cpu")
+    single.load_state_dict(params_from_jax(gparams, tiny_test(), dtype=torch.float32))
+    make_gpt_loss(tiny_test())(single, gbatch)[0].backward()
+    for name, p in single.named_parameters():
+        out[f"grad_single/{name}"] = p.grad.numpy().copy()
+    gpt_run("gpt_fsdp_chunk", 4, fsdp=True, fsdp_min_size=0, loss_chunk=16)
+
+    # (4) the Trainer over data=4 from JAX's init, as tests/test_torch_dp.py
+    # runs it, with fsdp: xla and flash; gathers and reduce-scatters per step
+    tparams = nested_tree("tparams", inputs)
+    example = _text_batch(inputs, "example")
+    fsdp_kw = dict(fsdp=True, fsdp_min_size=0)
+    for impl in ("xla", "flash"):
+        trainer = Trainer(TrainerConfig(model="tiny", global_batch_size=8, num_minibatches=2,
+                                        steps=4, warmup_steps=2,
+                                        model_overrides=dict(attn_impl=impl, **fsdp_kw)),
+                          mesh=mesh, device="cpu")
+        tstate = trainer.init(params_from_jax(tparams, trainer.model_config,
+                                              dtype=torch.float32))
+        batch = trainer.local_rows(example)
+        losses, counts = [], []
+        for _ in range(4):
+            before = (fsdp.fsdp_allgather_launches, fsdp.fsdp_reducescatter_launches,
+                      dp.dp_allreduce_launches)
+            tstate, metrics = trainer.step_fn(tstate, None, batch)
+            counts.append([fsdp.fsdp_allgather_launches - before[0],
+                           fsdp.fsdp_reducescatter_launches - before[1],
+                           dp.dp_allreduce_launches - before[2]])
+            losses.append(compute(metrics)["loss"])
+        out[f"trainer_{impl}_losses"] = np.array(losses)
+        out[f"trainer_{impl}_counts"] = np.array(counts)
+        full = export_single_device_params(tstate.partitioned(tstate.params))
+        for name, value in full.items():
+            out[f"trainer_{impl}/{name}"] = value.numpy().copy()
+        out[f"trainer_{impl}_replicated"] = np.array(sorted(
+            n for n in tstate.params if n not in tstate.shards))
+        for name in tstate.params:
+            if name not in tstate.shards:
+                out[f"trainer_{impl}_rep/{name}"] = tstate.params[name].numpy().copy()
+
+    # (5) export: the FSDP state's full weights serve plain generate(), the
+    # exported forward equals the mesh's, and a serving weight set's
+    # fingerprint equals a replicated state's with the same weights
+    ecfg = tiny_test(fsdp=True, fsdp_min_size=0)
+    model = GPTLM(ecfg, device="cpu", mesh=mesh)
+    funcs = build_train_functions(make_model_init(model, AdamW(lambda count: 1e-3)),
+                                  make_gpt_loss(ecfg, mesh=mesh), mesh)
+    estate = funcs.init_fn(None, params_from_jax(gparams, ecfg, dtype=torch.float32))
+    exported = export_single_device_params(estate.partitioned(estate.params))
+    single = GPTLM(ecfg, device="cpu")
+    single.load_state_dict(exported)
+    prompt = torch.zeros(1, 4, dtype=torch.long)
+    out["export_tokens"] = generate(single, prompt, max_new_tokens=4).numpy()
+    toks = torch.zeros(4, ecfg.seq_len, dtype=torch.long)
+    with torch.no_grad():
+        out["export_mesh_logits"] = model(toks[rank:rank + 1]).numpy()
+        out["export_single_logits"] = single(toks[rank:rank + 1]).numpy()
+    out["export_fingerprint"] = np.array(params_fingerprint(params_to_jax(exported, ecfg)))
+    out["export_dp_fingerprint"] = np.array(params_fingerprint(params_to_jax(
+        params_from_jax(gparams, ecfg, dtype=torch.float32), ecfg)))
+    mesh22 = make_mesh(MeshConfig(data=2, model=2))
+    split = [Shard(0) if n == "model" else Replicate() for n in mesh22.mesh_dim_names]
+    try:
+        export_single_device_params({"w": DTensor.from_local(torch.ones(2), mesh22, split)})
+        out["export_model_split_error"] = np.array("")
+    except NotImplementedError as exc:
+        out["export_model_split_error"] = np.array(str(exc))
+
+    # (6) sharded checkpoints: save after 3 steps, restore bitwise into a
+    # fresh Trainer, 2 more steps on both; max_to_keep; fit resumes
+    ckpt_config = TrainerConfig(model="tiny", global_batch_size=8, steps=3, log_every=10,
+                                model_overrides=dict(num_microbatches=2, **fsdp_kw))
+    t1 = Trainer(ckpt_config, mesh=mesh, device="cpu")
+    t1.init()
+    t1.train(steps=3)
+    ckpt_dir = os.path.join(outdir, "fsdp_ckpt")
+    t1.save_checkpoint(ckpt_dir, step=t1.state.step)
+    t2 = Trainer(ckpt_config, mesh=mesh, device="cpu")
+    restored = t2.restore_checkpoint(ckpt_dir)
+    out["ckpt_step"] = np.array(restored.step)
+    out["ckpt_files"] = np.array(sorted(os.listdir(os.path.join(ckpt_dir, "3"))))
+    same = [torch.equal(a, b) for a, b in zip(
+        _tensor_leaves(t1.state.state_dict()), _tensor_leaves(restored.state_dict()))]
+    out["ckpt_bitwise"] = np.array(all(same) and len(same) > 0)
+    out["ckpt_module_bitwise"] = np.array(all(
+        torch.equal(a, b) for a, b in zip(t1.model.parameters(), t2.model.parameters())))
+    r1, r2 = t1.train(steps=2), t2.train(steps=2)
+    out["ckpt_more_losses"] = np.array([r1["loss"], r2["loss"]])
+    t3 = Trainer(TrainerConfig(model="tiny", global_batch_size=8, steps=3, ema_decay=0.9,
+                               model_overrides=dict(num_microbatches=2, **fsdp_kw)),
+                 mesh=mesh, device="cpu")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t3.restore_checkpoint(ckpt_dir)
+    out["ckpt_ema_drift_warned"] = np.array(any("ema_params" in str(w.message) for w in caught))
+    out["ckpt_ema_seeded_local"] = np.array(all(
+        torch.equal(t3.state.ema_params[n], p) for n, p in t3.state.params.items()))
+    fit_dir = os.path.join(outdir, "fsdp_fit")
+    seen = []
+    for steps in (4, 6):
+        t = Trainer(TrainerConfig(model="tiny", global_batch_size=8, steps=steps, warmup_steps=1,
+                                  model_overrides=fsdp_kw), mesh=mesh, device="cpu")
+        real = t.step_fn
+        t.step_fn = lambda s, m, b, real=real: (seen.append(s.step), real(s, m, b))[1]
+        t.fit(fit_dir, checkpoint_every=1, max_to_keep=2)
+    out["fit_steps_seen"] = np.array(seen)
+    out["fit_dirs"] = np.array(sorted(os.listdir(fit_dir)))
+
+
+def _tensor_leaves(tree):
+    """The tensors of a state dict in a fixed order (local slices)."""
+    found = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k])
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                walk(v)
+        elif hasattr(node, "to_local"):
+            found.append(node.to_local())
+        elif hasattr(node, "shape"):
+            found.append(node)
+
+    walk(tree)
+    return found
+
+
+SUITES = {"runtime": _runtime_cases, "dp": _dp_cases, "fsdp": _fsdp_cases}
 
 
 def run_suite(suite, outdir):

@@ -13,6 +13,14 @@ immutable.  The port's state is updated in place, so a save first enqueues
 a snapshot of every tensor into pinned host memory on the current stream,
 before ``save`` returns; the next step's in-place updates queue behind it on
 that stream.  Only the file write runs in a background thread.
+
+A sharded state (FSDP: ``DTensor`` leaves in its ``state_dict``) is saved
+with ``torch.distributed.checkpoint``, which plays orbax's role: every rank
+writes its own shards into the step directory, and a restore reads into the
+layout of the state it is given (a fresh init's: JAX restores onto
+``abstract_state_of``, an abstract evaluation torch does not have), each
+rank its own slices, in place.  A shard's snapshot stays on the host as
+well: its ``DTensor`` view is placed on a CPU twin of the state's mesh.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ from tpu_parallel_torch.core.state import map_tensors
 
 _STATE_FILE = "state.pt"
 _PARAMS_FILE = "params.pt"
+_DCP_METADATA = ".metadata"  # torch.distributed.checkpoint's index of a sharded save
 
 
 def _open_file(path, mode="r", **kwargs):
@@ -54,6 +63,11 @@ def snapshot_to_host(tree):
     on_cuda = []
 
     def copy(t: torch.Tensor) -> torch.Tensor:
+        if hasattr(t, "to_local"):  # a DTensor shard: its local slice, same placement
+            from torch.distributed.tensor import DTensor
+
+            return DTensor.from_local(copy(t.to_local()), _host_mesh(t.device_mesh),
+                                      t.placements, run_check=False)
         t = t.detach()
         if t.device.type != "cuda":
             return t.clone()
@@ -70,13 +84,51 @@ def snapshot_to_host(tree):
     return snapshot, event
 
 
+# the CPU twin of each device mesh a snapshot was taken on
+_HOST_MESHES: Dict[Any, Any] = {}
+
+
+def _host_mesh(mesh):
+    """``mesh`` with device type ``"cpu"``: the same ranks, axis names and
+    process groups.  A host snapshot's ``DTensor`` is placed on it, since
+    ``DTensor.from_local`` moves its local tensor to the mesh's device type
+    (on a ``"cuda"`` mesh, back onto the card)."""
+    if mesh.device_type == "cpu":
+        return mesh
+    if mesh not in _HOST_MESHES:
+        from torch.distributed.device_mesh import DeviceMesh
+
+        _HOST_MESHES[mesh] = DeviceMesh.from_group(
+            [mesh.get_group(i) for i in range(mesh.ndim)], "cpu", mesh.mesh,
+            mesh_dim_names=mesh.mesh_dim_names)
+    return _HOST_MESHES[mesh]
+
+
 def _step_dirs(directory: str) -> Dict[int, str]:
     """Complete step directories (``<step>/``; a ``<step>.tmp/`` is a write
     in progress or one a crash cut short)."""
     if not os.path.isdir(directory):
         return {}
     return {int(name): os.path.join(directory, name) for name in os.listdir(directory)
-            if name.isdigit() and os.path.isfile(os.path.join(directory, name, _STATE_FILE))}
+            if name.isdigit() and any(os.path.isfile(os.path.join(directory, name, f))
+                                      for f in (_STATE_FILE, _DCP_METADATA))}
+
+
+def _is_sharded(tree) -> bool:
+    found = []
+    map_tensors(lambda t: found.append(hasattr(t, "to_local")), tree)
+    return any(found)
+
+
+# one gloo group per process group for checkpoint IO: a background write's
+# collectives must not interleave with the training step's on its groups
+_IO_GROUPS: Dict[Any, Any] = {}
+
+
+def _io_group(group):
+    if group not in _IO_GROUPS:
+        _IO_GROUPS[group] = dist.new_group(dist.get_process_group_ranks(group), backend="gloo")
+    return _IO_GROUPS[group]
 
 
 class Checkpointer:
@@ -89,11 +141,14 @@ class Checkpointer:
     a time: a save first waits for the previous one.  A write's error is
     raised by the next :meth:`wait`, :meth:`save` or :meth:`close`.
 
-    Under a process ``group`` (replicated state, the same on every rank)
-    rank 0 of the group writes and the others skip the write; every
-    :meth:`wait` ends at a barrier of the group, so after it every rank
-    sees the saves on disk.  Every rank of the group must then call
-    :meth:`save`, :meth:`wait` and :meth:`close` at the same points.
+    Under a process ``group`` with a replicated state (the same on every
+    rank) rank 0 of the group writes and the others skip the write; with a
+    sharded state every rank writes its shards (``torch.distributed.
+    checkpoint``, its collectives on a gloo group of the same ranks) and
+    rank 0 renames the directory.  Every :meth:`wait` ends at a barrier of
+    the group, so after it every rank sees the saves on disk.  Every rank
+    of the group must then call :meth:`save`, :meth:`wait`,
+    :meth:`restore` and :meth:`close` at the same points.
     """
 
     def __init__(self, directory: str, max_to_keep: int = 3, *, group=None):
@@ -104,14 +159,20 @@ class Checkpointer:
         os.makedirs(self.directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._io = None  # the gloo group of a sharded save in flight
 
     def save(self, step: int, state, *, wait: bool = False) -> None:
         """Checkpoint ``state`` (a ``TrainState`` or its ``state_dict()``)
         as step ``step``."""
         self.wait()
-        if self.writer:
-            payload = state.state_dict() if hasattr(state, "state_dict") else state
+        payload = state.state_dict() if hasattr(state, "state_dict") else state
+        sharded = _is_sharded(payload)
+        if sharded and self.group is None:
+            raise ValueError("a sharded state is saved by every rank: give the "
+                             "Checkpointer its process group")
+        if self.writer or sharded:
             snapshot, event = snapshot_to_host(payload)
+            self._io = _io_group(self.group) if sharded else None
             self._thread = threading.Thread(target=self._write, args=(step, snapshot, event),
                                             name=f"checkpoint-{step}", daemon=True)
             self._thread.start()
@@ -119,24 +180,39 @@ class Checkpointer:
             self.wait()
 
     def _write(self, step: int, snapshot, event) -> None:
+        """Write ``snapshot`` into ``<step>.tmp/``, rename it to ``<step>/``
+        and prune: one ``torch.save`` file, or for a sharded state (``_io``,
+        the save's gloo group) every rank's shards through
+        ``torch.distributed.checkpoint``, the directory made and renamed by
+        rank 0."""
+        io = self._io
         try:
             if event is not None:
                 event.synchronize()
             final = os.path.join(self.directory, str(step))
             tmp = final + ".tmp"
-            shutil.rmtree(tmp, ignore_errors=True)
-            os.makedirs(tmp)
-            path = os.path.join(tmp, _STATE_FILE)
-            with open(path, "wb") as fh:
-                torch.save(snapshot, fh)
-                fh.flush()
-                os.fsync(fh.fileno())
-            if os.path.exists(final):
-                shutil.rmtree(final)
-            os.rename(tmp, final)
-            steps = sorted(_step_dirs(self.directory))
-            for old in steps[:max(0, len(steps) - self.max_to_keep)]:
-                shutil.rmtree(os.path.join(self.directory, str(old)), ignore_errors=True)
+            if self.writer:
+                shutil.rmtree(tmp, ignore_errors=True)
+                os.makedirs(tmp)
+            if io is None:
+                with open(os.path.join(tmp, _STATE_FILE), "wb") as fh:
+                    torch.save(snapshot, fh)
+                    fh.flush()
+                    os.fsync(fh.fileno())
+            else:
+                import torch.distributed.checkpoint as dcp
+
+                dist.barrier(group=io)  # the directory exists
+                dcp.save(snapshot, storage_writer=dcp.FileSystemWriter(tmp, sync_files=True),
+                         process_group=io)
+                dist.barrier(group=io)  # every rank's shards are on disk
+            if self.writer:
+                if os.path.exists(final):
+                    shutil.rmtree(final)
+                os.rename(tmp, final)
+                steps = sorted(_step_dirs(self.directory))
+                for old in steps[:max(0, len(steps) - self.max_to_keep)]:
+                    shutil.rmtree(os.path.join(self.directory, str(old)), ignore_errors=True)
         except BaseException as exc:  # noqa: BLE001 — re-raised by wait()
             self._error = exc
 
@@ -158,16 +234,24 @@ class Checkpointer:
         return max(steps) if steps else None
 
     def bytes_on_disk(self, step: int) -> int:
-        return os.path.getsize(os.path.join(self.directory, str(step), _STATE_FILE))
+        path = os.path.join(self.directory, str(step))
+        return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
 
-    def load(self, step: Optional[int] = None) -> Dict[str, Any]:
-        """The saved ``state_dict`` of ``step`` (default: the latest) on the
-        CPU; ``FileNotFoundError`` when there is none."""
+    def _path(self, step: Optional[int]) -> str:
         step = step if step is not None else self.latest_step
         path = _step_dirs(self.directory).get(step) if step is not None else None
         if path is None:
             raise FileNotFoundError(f"no checkpoint found in {self.directory}"
                                     + ("" if step is None else f" for step {step}"))
+        return path
+
+    def load(self, step: Optional[int] = None) -> Dict[str, Any]:
+        """The saved ``state_dict`` of ``step`` (default: the latest) on the
+        CPU; ``FileNotFoundError`` when there is none.  A sharded save has no
+        single-process form: :meth:`restore` it into a state."""
+        path = self._path(step)
+        if not os.path.isfile(os.path.join(path, _STATE_FILE)):
+            raise ValueError(f"{path} is a sharded checkpoint: restore it into a state")
         return torch.load(os.path.join(path, _STATE_FILE), map_location="cpu",
                           weights_only=True)
 
@@ -180,7 +264,12 @@ class Checkpointer:
         without it (the shadow is dropped), and one written without EMA
         restores into a state with it as ``ema_params = None`` (the trainer
         reseeds it from the restored masters).  Any other mismatch raises.
+        A sharded save restores into a sharded state of the same layout,
+        each rank reading its slices straight into the state's buffers.
         """
+        path = self._path(step)
+        if os.path.isfile(os.path.join(path, _DCP_METADATA)):
+            return self._restore_sharded(state, path)
         payload = self.load(step)
         step = int(payload["step"])
         if payload.get("ema_params") is not None and state.ema_params is None:
@@ -192,6 +281,32 @@ class Checkpointer:
                           "restoring it as None", stacklevel=2)
             state.ema_params = None
         state.load(payload)
+        return state
+
+    def _restore_sharded(self, state, path: str):
+        import torch.distributed.checkpoint as dcp
+
+        if self.group is None:
+            raise ValueError("a sharded checkpoint is restored by every rank: give the "
+                             "Checkpointer its process group")
+        reader = dcp.FileSystemReader(path)
+        saved_ema = any(k.startswith("ema_params.")
+                        for k in reader.read_metadata().state_dict_metadata)
+        if saved_ema and state.ema_params is None:
+            warnings.warn(f"checkpoint {path} keeps 'ema_params' that this state does not; "
+                          "dropping it", stacklevel=3)
+        elif not saved_ema and state.ema_params is not None:
+            warnings.warn(f"checkpoint {path} has no usable 'ema_params'; restoring it as "
+                          "None", stacklevel=3)
+            state.ema_params = None
+        # the state's own buffers (sharded ones as DTensor views) are the
+        # target: every tensor is read in place
+        target = state.state_dict()
+        if saved_ema != (state.ema_params is not None):
+            del target["ema_params"]
+        dcp.load(target, storage_reader=reader, process_group=_io_group(self.group))
+        target.setdefault("ema_params", None)
+        state.load(target)
         return state
 
     def close(self) -> None:

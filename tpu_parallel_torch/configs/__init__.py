@@ -66,16 +66,26 @@ def _parse(text: str, kind: type, key: str):
     raise ValueError(f"--config.{key}: a {kind.__name__} field cannot be set from the CLI")
 
 
+# model overrides the port accepts beside each config's declared ones:
+# FSDP runs as an override of a data-parallel config
+FSDP_OVERRIDE_TYPES = dict(fsdp=bool, fsdp_min_size=int)
+
+
 def override(config: Dict[str, Any], dotted: str, text: str) -> None:
     """Set ``config[a][b]...`` for ``dotted = "a.b..."`` to ``text`` parsed
     as the declared value's type (a ``model_overrides`` placeholder by its
-    declared type).  An undeclared key raises ``KeyError``."""
+    declared type).  Under ``model_overrides``, ``fsdp`` and
+    ``fsdp_min_size`` may be set too (``fsdp=True`` on ``gpt2_125m_dp``).
+    An undeclared key raises ``KeyError``."""
     *parents, leaf = dotted.split(".")
     node = config
     for part in parents:
         if not isinstance(node.get(part), dict):
             raise KeyError(f"--config.{dotted}: {part!r} is not a declared group")
         node = node[part]
+    if leaf not in node and parents == ["model_overrides"] and leaf in FSDP_OVERRIDE_TYPES:
+        node[leaf] = _parse(text, FSDP_OVERRIDE_TYPES[leaf], dotted)
+        return
     if leaf not in node:
         raise KeyError(f"--config.{dotted}: not a declared field")
     current = node[leaf]

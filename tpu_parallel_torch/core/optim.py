@@ -6,7 +6,10 @@ momentum).
 Each transformation works on dicts of fp32 tensors keyed by parameter name,
 as optax's do on pytrees: ``init(params) -> state`` and ``update(updates,
 state, params) -> (updates, state)``.  ``update`` rewrites ``updates`` in
-place (multi-tensor ``torch._foreach_*`` ops) and returns it.
+place (multi-tensor ``torch._foreach_*`` ops) and returns it.  A leaf of
+``updates`` may be a ``DTensor`` shard (FSDP): the clip's norm reads its
+placement, and every transformation works on its local tensor, so the
+state it keeps holds each rank's slices.
 """
 
 from __future__ import annotations
@@ -88,7 +91,7 @@ class AdamW:
 
     def update(self, updates: Tree, state, params: Tree):
         names = list(updates)
-        g = [updates[n] for n in names]
+        g = [_local(updates[n]) for n in names]
         mu = [state["mu"][n] for n in names]
         nu = [state["nu"][n] for n in names]
         torch._foreach_mul_(mu, self.b1)
@@ -124,7 +127,7 @@ class Lion:
 
     def update(self, updates: Tree, state, params: Tree):
         names = list(updates)
-        g = [updates[n] for n in names]
+        g = [_local(updates[n]) for n in names]
         mu = [state["mu"][n] for n in names]
         step = torch._foreach_mul(g, 1 - self.b1)
         torch._foreach_add_(step, torch._foreach_mul(mu, self.b1))
@@ -149,7 +152,7 @@ class AddDecayedWeights:
 
     def update(self, updates: Tree, state, params: Tree):
         names = list(updates)
-        torch._foreach_add_([updates[n] for n in names], [params[n] for n in names],
+        torch._foreach_add_([_local(updates[n]) for n in names], [params[n] for n in names],
                             alpha=self.weight_decay)
         return updates, state
 
@@ -167,7 +170,7 @@ class SGD:
 
     def update(self, updates: Tree, state, params: Tree):
         names = list(updates)
-        g = [updates[n] for n in names]
+        g = [_local(updates[n]) for n in names]
         trace = [state["trace"][n] for n in names]
         torch._foreach_mul_(trace, self.momentum)
         torch._foreach_add_(trace, g)

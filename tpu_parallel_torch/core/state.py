@@ -7,14 +7,22 @@ in ``config.dtype``, what the forward reads), fp32 master weights, fp32
 gradient accumulators and the fp32 EMA shadow.  :meth:`TrainState.state_dict`
 is the checkpoint's view of it and :meth:`TrainState.load` writes one back
 in place, so every buffer keeps its address.  The gradient accumulators
-are views into one flat fp32 buffer (``flat_grads``), so a data-parallel
-step syncs them with one collective and no copy.
+of replicated parameters are views into one flat fp32 buffer
+(``flat_grads``), so a data-parallel step syncs them with one collective
+and no copy.
+
+Under FSDP (``parallel/fsdp.py``) a sharded module parameter is this rank's
+slice, and so are its master, accumulator, optimizer moments and EMA
+shadow: every such tensor of the state holds this rank's slice only, and
+:meth:`TrainState.partitioned` views them as ``DTensor`` shards.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Callable, Dict, Optional
+import math
+from typing import Any, Callable, Dict, Iterator, Optional
 
 import torch
 from torch import nn
@@ -32,11 +40,17 @@ def map_tensors(fn: Callable[[torch.Tensor], Any], tree):
     return tree
 
 
+def _local(t):
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
 def _load_tree(dst, src, path: str):
     """Copy ``src``'s tensors into ``dst``'s in place (same structure,
     shapes and dtypes, else ``ValueError`` naming the path); returns what
-    takes ``dst``'s place (``dst`` itself for tensors and containers)."""
+    takes ``dst``'s place (``dst`` itself for tensors and containers).
+    ``DTensor`` leaves on either side count as their local tensors."""
     if isinstance(dst, torch.Tensor):
+        dst, src = _local(dst), _local(src)
         if not isinstance(src, torch.Tensor) or src.shape != dst.shape or src.dtype != dst.dtype:
             got = (tuple(src.shape), src.dtype) if isinstance(src, torch.Tensor) else type(src)
             raise ValueError(f"{path}: checkpoint has {got}, the state {tuple(dst.shape)} "
@@ -109,12 +123,11 @@ class TextBatch:
         return _rows(self, start, stop)
 
 
-def _flat_views(tensors: Dict[str, torch.Tensor]):
+def _flat_views(tensors: Dict[str, torch.Tensor], device):
     """One zeroed fp32 buffer holding a tensor shaped like each of
     ``tensors``, in order: ``(buffer, {name: view})``."""
-    first = next(iter(tensors.values()))
     flat = torch.zeros(sum(t.numel() for t in tensors.values()), dtype=torch.float32,
-                       device=first.device)
+                       device=device)
     views, offset = {}, 0
     for name, t in tensors.items():
         views[name] = flat[offset:offset + t.numel()].view(t.shape)
@@ -123,9 +136,16 @@ def _flat_views(tensors: Dict[str, torch.Tensor]):
 
 
 def get_num_params(state_or_model: Any) -> int:
-    """Total parameter count of a module or a :class:`TrainState`."""
+    """Total parameter count of a module or a :class:`TrainState`, sharded
+    parameters at their full size."""
+    from tpu_parallel_torch.parallel.fsdp import shard_info
+
     model = getattr(state_or_model, "model", state_or_model)
-    return sum(p.numel() for p in model.parameters())
+    total = 0
+    for p in model.parameters():
+        info = shard_info(p)
+        total += p.numel() if info is None else math.prod(info.full_shape)
+    return total
 
 
 @dataclasses.dataclass
@@ -143,7 +163,14 @@ class TrainState:
     back into the module rounded to its dtype.  fp32 module weights (the
     LayerNorms, or every weight of an fp32 config) are their own masters.
     ``grads`` are views into ``flat_grads``, one fp32 buffer in parameter
-    order.
+    order, for the replicated parameters.
+
+    An FSDP-sharded module parameter (``shards`` maps its name to its
+    ``ShardInfo``) holds this rank's slice, and so do its master, its
+    accumulator and the optimizer's and EMA's tensors for it.  Its
+    accumulator is a view of a second fp32 buffer, set as the parameter's
+    ``main_grad``: the gather's backward adds the reduce-scattered fp32
+    gradient there, never rounded to the module's dtype.
     """
 
     model: nn.Module
@@ -155,27 +182,60 @@ class TrainState:
     step: int = 0
     ema_params: Optional[Dict[str, torch.Tensor]] = None
     flat_grads: Optional[torch.Tensor] = None
+    shards: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     @classmethod
     def create(cls, model: nn.Module, tx, rng: torch.Generator,
                params: Optional[Dict[str, torch.Tensor]] = None) -> "TrainState":
         """Masters from ``params`` (fp32 values by parameter name, e.g. the
-        draws of ``init_params`` or ``params_from_jax(..., dtype=float32)``)
-        or, without them, from the module's own values."""
-        masters = {}
+        draws of ``init_params`` or ``params_from_jax(..., dtype=float32)``;
+        full tensors, sliced here for sharded parameters) or, without them,
+        from the module's own values."""
+        from tpu_parallel_torch.parallel.fsdp import shard_info
+
+        masters, shards = {}, {}
+        module = dict(model.named_parameters())
         with torch.no_grad():
-            for name, p in model.named_parameters():
+            for name, p in module.items():
+                info = shard_info(p)
+                value = None
                 if params is not None:
-                    p.copy_(params[name])
+                    value = params[name] if info is None else info.local(params[name])
+                    p.copy_(value)
+                if info is not None:
+                    shards[name] = info
                 if p.dtype == torch.float32:
                     master = p.detach()
                 else:
-                    master = (params[name] if params is not None else p).detach().to(
+                    master = (value if value is not None else p).detach().to(
                         device=p.device, dtype=torch.float32, copy=True)
                 masters[name] = master
-        flat, grads = _flat_views(masters)
+        device = next(iter(module.values())).device
+        flat, grads = _flat_views({n: m for n, m in masters.items() if n not in shards}, device)
+        if shards:
+            _, sharded = _flat_views({n: masters[n] for n in shards}, device)
+            for name, acc in sharded.items():
+                module[name].main_grad = acc
+            grads = {n: grads[n] if n in grads else sharded[n] for n in masters}
         return cls(model=model, tx=tx, params=masters, grads=grads,
-                   opt_state=tx.init(masters), rng=rng, flat_grads=flat)
+                   opt_state=tx.init(masters), rng=rng, flat_grads=flat, shards=shards)
+
+    def partitioned(self, tree):
+        """``tree`` (a dict by parameter name, or a structure holding such
+        dicts, like the optimizer state) with each sharded parameter's
+        tensor viewed as a ``DTensor`` shard, the counterpart of
+        ``nn.Partitioned`` (no copy; other values as they are).  Without
+        shards, ``tree`` itself."""
+        if not self.shards:
+            return tree
+        if isinstance(tree, dict):
+            if tree.keys() == self.params.keys():
+                return {n: self.shards[n].dtensor(v) if n in self.shards else v
+                        for n, v in tree.items()}
+            return {k: self.partitioned(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(self.partitioned(v) for v in tree)
+        return tree
 
     def zero_grads(self) -> None:
         torch._foreach_zero_(list(self.grads.values()))
@@ -194,12 +254,15 @@ class TrainState:
     @torch.no_grad()
     def apply_gradients(self, grads: Dict[str, torch.Tensor]) -> None:
         """One optimizer step on the masters from ``grads`` (consumed in
-        place), then the masters into the module.  A transformation may
-        rebind entries of the dict it is given, never ``grads``'s own, so
-        the accumulators stay views of ``flat_grads``."""
-        updates, self.opt_state = self.tx.update(dict(grads), self.opt_state, self.params)
+        place), then the masters into the module.  The transformation gets
+        a new dict, the sharded gradients in it as ``DTensor`` views (the
+        clip's norm reads them); it may rebind its entries, never
+        ``grads``'s own, so the accumulators stay views of their buffers."""
+        updates, self.opt_state = self.tx.update(self.partitioned(dict(grads)), self.opt_state,
+                                                 self.params)
         names = list(self.params)
-        torch._foreach_add_([self.params[n] for n in names], [updates[n] for n in names])
+        torch._foreach_add_([self.params[n] for n in names],
+                            [_local(updates[n]) for n in names])
         self._masters_to_module()
         self.step += 1
 
@@ -216,6 +279,24 @@ class TrainState:
         """Start the EMA shadow as a copy of the masters."""
         self.ema_params = {n: p.clone() for n, p in self.params.items()}
 
+    @contextlib.contextmanager
+    def ema_weights(self) -> Iterator[None]:
+        """Inside, the module holds the EMA shadow's weights (when one is
+        kept; evaluation prefers it); after, bitwise its own again."""
+        if self.ema_params is None:
+            yield
+            return
+        params = dict(self.model.named_parameters())
+        saved = {n: p.detach().clone() for n, p in params.items()}
+        with torch.no_grad():
+            torch._foreach_copy_([params[n].data for n in self.ema_params],
+                                 list(self.ema_params.values()))
+        try:
+            yield
+        finally:
+            with torch.no_grad():
+                torch._foreach_copy_([params[n].data for n in saved], list(saved.values()))
+
     @torch.no_grad()
     def update_ema(self, decay: float) -> None:
         """e = e * decay + p * (1 - decay) over the masters, in JAX's order
@@ -228,9 +309,11 @@ class TrainState:
     def state_dict(self) -> Dict[str, Any]:
         """The checkpoint's view: the masters, the optimizer state, the step,
         the generator's ``get_state()`` and the EMA shadow (None when off).
-        Tensors are the state's own (no copy)."""
-        return dict(step=self.step, params=self.params, opt_state=self.opt_state,
-                    rng=self.rng.get_state(), ema_params=self.ema_params)
+        Tensors are the state's own (no copy); sharded ones are ``DTensor``
+        views (:meth:`partitioned`)."""
+        return dict(step=self.step, params=self.partitioned(self.params),
+                    opt_state=self.partitioned(self.opt_state), rng=self.rng.get_state(),
+                    ema_params=self.partitioned(self.ema_params))
 
     @torch.no_grad()
     def load(self, state: Dict[str, Any]) -> None:

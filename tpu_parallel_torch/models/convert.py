@@ -238,22 +238,29 @@ def init_params(model: torch.nn.Module, seed: int = 0) -> Dict[str, torch.Tensor
     Dense kernels lecun-normal (truncated normal, std sqrt(1/fan_in) / .8796,
     cut at two std), biases 0, embeddings normal with std sqrt(1/d_model),
     LayerNorm scale 1 and bias 0.  Drawn in fp32 on the CPU in parameter
-    order, so a seed gives the same weights on every device.  Returns the
-    fp32 draws by parameter name (the master weights of training)."""
+    order, so a seed gives the same weights on every device.  An
+    FSDP-sharded parameter is drawn at its full shape and takes this rank's
+    slice, so every rank draws the same full weights.  Returns the fp32
+    draws by parameter name, at full shape (the master weights of
+    training)."""
+    from tpu_parallel_torch.parallel.fsdp import shard_info
+
     gen = torch.Generator(device="cpu").manual_seed(seed)
     draws = {}
     with torch.no_grad():
         for name, param in model.named_parameters():
-            value = torch.empty(param.shape, dtype=torch.float32)
+            info = shard_info(param)
+            shape = param.shape if info is None else info.full_shape
+            value = torch.empty(shape, dtype=torch.float32)
             if name.endswith(".bias"):
                 value.zero_()
             elif ".norm_" in f".{name}":
                 value.fill_(1.0)
             elif name.startswith("embed."):
-                value.normal_(0.0, 1.0 / math.sqrt(param.shape[1]), generator=gen)
+                value.normal_(0.0, 1.0 / math.sqrt(shape[1]), generator=gen)
             else:
-                std = math.sqrt(1.0 / param.shape[1]) / 0.87962566103423978
+                std = math.sqrt(1.0 / shape[1]) / 0.87962566103423978
                 torch.nn.init.trunc_normal_(value, 0.0, std, -2 * std, 2 * std, generator=gen)
-            param.copy_(value)
+            param.copy_(value if info is None else info.local(value))
             draws[name] = value
     return draws

@@ -8,7 +8,8 @@ cache is updated in place.  Sampling draws from an explicit
 greedy decoding is comparable token for token).  :func:`generate_beam` is
 beam search, lazy (per-slot source-row tables) or eager (the cache
 reordered every step).  Every entry point takes either cache dtype
-(``kv_cache_dtype`` "bf16" or "int8").
+(``kv_cache_dtype`` "bf16" or "int8").  A mesh-trained state serves through
+``export_single_device_params`` (re-exported from ``parallel/tp.py``).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 
 from tpu_parallel_torch.models.gpt import GPTLM
 from tpu_parallel_torch.models.layers import KVCache
+from tpu_parallel_torch.parallel.tp import export_single_device_params  # noqa: F401  (re-export: mesh-trained state -> generate-able params)
 
 
 def _sample(logits, generator: Optional[torch.Generator], temperature: float,

@@ -1,12 +1,15 @@
 """Decoder-only transformer LM: the port of ``tpu_parallel/models/gpt.py``.
 
-Single device.  ``GPTLM`` holds its weights (made from a seed, or loaded
+``GPTLM`` holds its weights (made from a seed, or loaded
 from a JAX parameter tree through ``models/convert.py``) and keeps the
 JAX call's keywords: ``positions``, ``segment_ids``, ``train`` (dropout,
 drawn from ``rng``), ``decode`` (with a per-layer list of :class:`KVCache`,
 updated in place) and ``hidden_only``.  :func:`make_gpt_loss` is the
 training loss, with the lm_head applied in it, ``loss_chunk`` positions at
-a time when that is set.
+a time when that is set.  Under ``config.fsdp`` and a mesh, the blocks,
+the embedding and the lm_head are FSDP-sharded over the data axis
+(``parallel/fsdp.py``); the loss gathers the lm_head once for all its
+chunks.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from tpu_parallel_torch.models.layers import (
     TransformerConfig,
     make_norm,
 )
+from tpu_parallel_torch.parallel.fsdp import gather_module_params, maybe_shard
 from tpu_parallel_torch.runtime import resolve_device
 
 _PIPELINE_DEFAULTS = (
@@ -68,17 +72,20 @@ class GPTLM(nn.Module):
     ``device`` defaults to ``"cuda"`` and raises without a GPU; the weights
     are drawn from ``seed`` with a CPU ``torch.Generator`` (the same weights
     on every device).  The lm_head is untied from the token embedding.
+    ``mesh`` (``runtime.make_mesh``) binds the data axis that
+    ``config.fsdp`` shards over; without one an FSDP config holds full
+    weights, as JAX's wrap is the identity on an unbound axis.
     """
 
-    def __init__(self, config: GPTConfig, *, device="cuda", seed: int = 0):
+    def __init__(self, config: GPTConfig, *, device="cuda", seed: int = 0, mesh=None):
         super().__init__()
         dev = resolve_device(device)
         self.config = config
-        self.embed = Embedding(config, dev)
-        self.blocks = BlockStack(config, config.n_layers, dev)
+        self.embed = maybe_shard(Embedding(config, dev), config, mesh)
+        self.blocks = BlockStack(config, config.n_layers, dev, mesh)
         self.norm_final = make_norm(config, dev)
-        self.lm_head = nn.Linear(config.d_model, config.vocab_size, bias=False,
-                                 dtype=config.dtype, device=dev)
+        self.lm_head = maybe_shard(nn.Linear(config.d_model, config.vocab_size, bias=False,
+                                             dtype=config.dtype, device=dev), config, mesh)
         init_params(self, seed)
 
     @property
@@ -174,10 +181,11 @@ def tiny_test(**overrides) -> GPTConfig:
 
 
 def _lm_head_params(config: GPTConfig, model: GPTLM) -> torch.Tensor:
-    """The lm_head weight the loss applies.  The JAX version gathers it once
-    when FSDP-sharded; on one device it is the weight itself."""
+    """The lm_head weight the loss applies, gathered ONCE when FSDP-sharded
+    (every chunk of the chunked loss reuses it; its backward reduce-scatters
+    the gradient of all chunks at once); otherwise the weight itself."""
     del config
-    return model.lm_head.weight
+    return gather_module_params(model.lm_head)["weight"]
 
 
 def make_ce_fn(config: GPTConfig):

@@ -3,8 +3,9 @@
 Single-device PyTorch modules with the JAX package's names and math:
 matmul weights, biases and embeddings are held in ``config.dtype`` (what the
 flax modules cast their fp32 params to at every use), LayerNorm computes and
-holds its params in fp32, softmax runs in fp32.  Tensor, pipeline and
-sequence parallelism are not in this slice.  Linear weights are PyTorch's
+holds its params in fp32, softmax runs in fp32.  Under ``fsdp`` and a mesh,
+each block is FSDP-sharded over the data axis (``parallel/fsdp.py``).
+Tensor, pipeline and sequence parallelism are not in the port yet.  Linear weights are PyTorch's
 ``[out, in]``; ``models/convert.py`` transposes flax's ``[in, out]`` kernels.
 
 Activation checkpointing (``remat``/``remat_policy``) wraps each block in
@@ -38,6 +39,7 @@ from torch.utils.checkpoint import (
 
 from tpu_parallel_torch.models.quantize import absmax_int8
 from tpu_parallel_torch.ops.flash_attention import FLASH_FWD_OP, flash_attention
+from tpu_parallel_torch.parallel.fsdp import maybe_shard
 
 # (field, default, what setting it would need) — fields this slice does not
 # implement; a config that sets one raises instead of silently ignoring it
@@ -48,7 +50,6 @@ _UNSUPPORTED = (
     ("embed_norm", False, "an embedding LayerNorm"),
     ("bidirectional", False, "bidirectional attention"),
     ("moe_experts", 0, "mixture of experts"),
-    ("fsdp", False, "FSDP"),
 )
 _MLPS = ("gelu", "gelu_exact", "relu")
 _KV_CACHE_DTYPES = ("bf16", "int8")
@@ -76,7 +77,10 @@ class TransformerConfig:
     ``"dots"`` the output of every 2-D product (the linear layers), while
     attention's batched products and the flash kernel are recomputed.
     ``dropout_rate`` > 0 drops activations when the model runs with
-    ``train=True``.  ``scan_*``,
+    ``train=True``.  ``fsdp`` shards the blocks', the embedding's and the
+    lm_head's parameters of more than ``fsdp_min_size`` elements over
+    ``data_axis`` when the model is built on a mesh (identity without one).
+    ``scan_*``,
     the mesh-axis names and ``num_microbatches`` are compile or
     parallelism knobs of the JAX package; they change nothing here.
     ``flash_block_q``/``flash_block_k`` stay for API parity: the CUDA
@@ -895,14 +899,17 @@ class BlockStack(nn.Module):
     block is checkpointed under ``config.remat`` when gradients are taken
     (never when decoding), as the JAX stack wraps it in ``nn.remat``.
     ``dropout_rng`` (a CPU generator; training only) gives each layer one
-    dropout seed per call, drawn before any layer runs."""
+    dropout seed per call, drawn before any layer runs.  Under
+    ``config.fsdp`` each block is sharded over the data axis of ``mesh``;
+    its gather runs inside the checkpointed call, so the backward gathers
+    again and no gathered weight is saved."""
 
-    def __init__(self, config: TransformerConfig, n_layers: int, device=None):
+    def __init__(self, config: TransformerConfig, n_layers: int, device=None, mesh=None):
         super().__init__()
         self.config = config
         self.n_layers = n_layers
         for i in range(n_layers):
-            self.add_module(f"layer_{i}", Block(config, device))
+            self.add_module(f"layer_{i}", maybe_shard(Block(config, device), config, mesh))
 
     def forward(self, x, positions=None, segment_ids=None, decode: bool = False,
                 caches: Optional[List[KVCache]] = None, write_index=None,

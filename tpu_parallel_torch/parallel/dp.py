@@ -95,14 +95,15 @@ def make_train_step(loss_fn: LossFn, *, data_axis: str = "data", num_minibatches
 
 @torch.no_grad()
 def broadcast_state(state: TrainState, *, data_axis: str = "data", mesh=None) -> TrainState:
-    """Overwrite every rank's masters with those of coordinate 0 of
-    ``data_axis`` (one broadcast of the flattened masters), then the module
-    from the masters: replicas equal by construction."""
+    """Overwrite every rank's replicated masters with those of coordinate 0
+    of ``data_axis`` (one broadcast of the flattened masters), then the
+    module from the masters: replicas equal by construction.  FSDP shards
+    (``state.shards``) differ by rank and are left as they are."""
     bound = axis_group(mesh, data_axis)
-    if bound is None:
+    names = [n for n in state.params if n not in state.shards]
+    if bound is None or not names:
         return state
     group = bound[0]
-    names = list(state.params)
     flat = torch.cat([state.params[n].reshape(-1) for n in names])
     dist.broadcast(flat, src=dist.get_global_rank(group, 0), group=group)
     offset = 0

@@ -77,15 +77,22 @@ def make_mesh(config: MeshConfig = MeshConfig(), device_type: Optional[str] = No
     group's ranks (``init_device_mesh(device_type, shape,
     mesh_dim_names=AXIS_ORDER)``), the shape taken in ``AXIS_ORDER``.
 
-    ``device_type`` defaults to ``"cuda"`` under NCCL and ``"cpu"``
-    otherwise.  Without a process group the config must resolve to one
-    device, and the result is ``None`` (the single-device case)."""
+    ``device_type`` defaults to the type of the device
+    ``runtime.initialize`` bound this process to (gloo ranks on a card
+    make a ``"cuda"`` mesh: a ``DTensor`` over it keeps its CUDA local
+    tensor), else ``"cuda"`` under NCCL and ``"cpu"`` otherwise.  Without
+    a process group the config must resolve to one device, and the result
+    is ``None`` (the single-device case)."""
     if not dist.is_initialized():
         config.resolved(1)
         return None
     from torch.distributed.device_mesh import init_device_mesh
 
+    from tpu_parallel_torch.runtime import bootstrap
+
     sizes = config.resolved(dist.get_world_size()).axis_sizes()
+    if device_type is None and bootstrap._DEVICE is not None:
+        device_type = bootstrap._DEVICE.type
     if device_type is None:
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     return init_device_mesh(device_type, tuple(sizes[a] for a in AXIS_ORDER),

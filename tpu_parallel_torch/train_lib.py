@@ -18,6 +18,12 @@ block at the rank's data coordinate, as ``shard_map`` splits rows), and a
 so every host decision (logging, rollback, keep-best) sees the same values
 on every rank.
 
+The step, the init and the evaluation come from
+``parallel/spmd.py:build_train_functions``, as in JAX: one code path for
+data parallelism and FSDP (``model_overrides.fsdp``: the model's blocks,
+embedding and lm_head sharded over the data axis, the state's tensors for
+them this rank's slices).
+
 Not in the port yet, each raising when asked for: the MLM objective (and
 the seq2seq family; ROADMAP queue A item 6), and mesh axes other than data
 above 1 (tensor, pipeline and sequence parallelism, items 5.3-5.5).
@@ -35,8 +41,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 import torch.distributed as dist
 
-from tpu_parallel_torch.core.accumulate import accumulate_gradients
-from tpu_parallel_torch.core.metrics import Metrics, accumulate_metrics, sync_metrics
+from tpu_parallel_torch.core.metrics import Metrics
 from tpu_parallel_torch.core.metrics import compute as compute_metrics
 from tpu_parallel_torch.core.optim import (SGD, AddDecayedWeights, AdamW, Chain,
                                            ClipByGlobalNormSharded, Lion)
@@ -46,7 +51,8 @@ from tpu_parallel_torch.models.convert import init_params
 from tpu_parallel_torch.models.gpt import GPTConfig, GPTLM, gpt2_125m, make_gpt_loss, tiny_test
 from tpu_parallel_torch.obs.registry import MetricRegistry
 from tpu_parallel_torch.obs.tracer import NULL_TRACER, Tracer
-from tpu_parallel_torch.parallel.dp import broadcast_state, sync_gradients_dp
+from tpu_parallel_torch.parallel.spmd import (build_train_functions, make_model_init,
+                                              refuse_later_axes)
 from tpu_parallel_torch.runtime import MeshConfig, make_mesh, resolve_device
 from tpu_parallel_torch.runtime.mesh import DATA_AXIS, axis_group, mesh_sizes
 from tpu_parallel_torch.utils.profiling import mfu
@@ -57,12 +63,6 @@ MODEL_REGISTRY: Dict[str, Callable[..., GPTConfig]] = {
 }
 
 MESH_AXES = ("data", "model", "pipe", "seq")
-# mesh axes the port cannot shard over yet -> what brings them
-_LATER_AXES = {
-    "model": "tensor parallelism (ROADMAP queue A item 5.3)",
-    "pipe": "pipeline parallelism (ROADMAP queue A item 5.4)",
-    "seq": "sequence parallelism (ROADMAP queue A item 5.5)",
-}
 
 
 def _mesh_sizes(mesh) -> Dict[str, int]:
@@ -74,12 +74,6 @@ def _mesh_sizes(mesh) -> Dict[str, int]:
     if extra:
         raise ValueError(f"mesh axes {sorted(extra)}: the mesh has {MESH_AXES}")
     return sizes
-
-
-def _refuse_later_axes(sizes: Dict[str, int]) -> None:
-    for axis, what in _LATER_AXES.items():
-        if sizes.get(axis, 1) > 1:
-            raise NotImplementedError(f"mesh {sizes}: a {axis} axis of {sizes[axis]} needs {what}")
 
 
 @dataclasses.dataclass
@@ -234,9 +228,9 @@ class Trainer:
             raise ValueError(f"objective={config.objective!r} (causal | mlm)")
         if mesh is None:
             sizes = _mesh_sizes(config.mesh)
-            _refuse_later_axes(sizes)
+            refuse_later_axes(sizes)
             mesh = make_mesh(MeshConfig(**sizes))
-        _refuse_later_axes(mesh_sizes(mesh))
+        refuse_later_axes(mesh_sizes(mesh))
         if config.ema_decay and not 0.0 < config.ema_decay < 1.0:
             raise ValueError(f"ema_decay={config.ema_decay} must be in (0, 1)")
         if config.model not in MODEL_REGISTRY:
@@ -265,7 +259,7 @@ class Trainer:
         # under a mesh, rank 0 of the group writes checkpoints and every
         # rank waits for the write at a barrier
         self._group = dist.group.WORLD if mesh is not None else None
-        self.model = GPTLM(self.model_config, device=self.device, seed=config.seed)
+        self.model = GPTLM(self.model_config, device=self.device, seed=config.seed, mesh=mesh)
         self.tx = make_optimizer(config)
         self.loss_fn = make_gpt_loss(self.model_config, mesh=mesh)
         self.eval_loss_fn = make_gpt_loss(self.model_config, train=False)
@@ -273,6 +267,15 @@ class Trainer:
             torch.Generator().manual_seed(0), config.global_batch_size,
             self.model_config.seq_len, self.model_config.vocab_size, device=self.device,
         ))
+        # the losses are read at each call: a caller may replace them
+        self.funcs = build_train_functions(
+            make_model_init(self.model, self.tx),
+            lambda model, batch, rng: self.loss_fn(model, batch, rng),
+            mesh, grad_sync_axes=(DATA_AXIS,), metric_axes=(DATA_AXIS,),
+            num_minibatches=config.num_minibatches,
+            eval_loss_fn=lambda model, batch, rng: self.eval_loss_fn(model, batch, rng),
+            ema_decay=config.ema_decay,
+        )
         self.state: Optional[TrainState] = None
 
     def local_rows(self, batch):
@@ -289,26 +292,15 @@ class Trainer:
         if params is None:
             params = init_params(self.model, self.config.seed)
         rng = torch.Generator().manual_seed(self.config.seed)
-        self.state = broadcast_state(TrainState.create(self.model, self.tx, rng, params),
-                                     mesh=self.mesh)
-        if self.config.ema_decay:
-            self.state.seed_ema()
+        self.state = self.funcs.init_fn(rng, params)
         return self.state
 
     def step_fn(self, state: TrainState, metrics: Optional[Metrics],
                 batch: TextBatch) -> tuple:
         """One optimizer step on this rank's rows ``batch`` -> ``(state,
         metrics)``, with the step's metrics, summed over the data axis,
-        added to ``metrics``."""
-        grads, step_metrics = accumulate_gradients(
-            state, batch, state.rng, self.config.num_minibatches, self.loss_fn
-        )
-        sync_gradients_dp(grads, DATA_AXIS, self.mesh)
-        state.apply_gradients(grads)
-        if self.config.ema_decay:
-            state.update_ema(self.config.ema_decay)
-        step_metrics = sync_metrics(step_metrics, DATA_AXIS, mesh=self.mesh)
-        return state, accumulate_metrics(metrics, step_metrics)
+        added to ``metrics`` (``funcs.step_fn``)."""
+        return self.funcs.step_fn(state, metrics, batch)
 
     def _publish_gauges(self, metrics: Dict[str, float]) -> None:
         """Mirror one log point's metrics into the registry as ``train_*``
@@ -373,7 +365,9 @@ class Trainer:
 
     def _restore_into_state(self, ckpt, step: Optional[int] = None) -> None:
         if self.state is None:
-            self.init()
+            # the restore target: a fresh init, laid out (sharded) as this
+            # trainer's mesh lays the state out, filled in place
+            self.state = self.funcs.init_fn(torch.Generator().manual_seed(self.config.seed))
         ckpt.restore(self.state, step)
         if self.config.ema_decay and self.state.ema_params is None:
             # EMA turned on mid-run (the checkpoint predates it): seed the
@@ -526,23 +520,9 @@ class Trainer:
         they were."""
         if self.state is None:
             self.init()
-        saved = None
-        if self.state.ema_params is not None:
-            params = dict(self.model.named_parameters())
-            saved = {n: p.detach().clone() for n, p in params.items()}
-            torch._foreach_copy_([params[n].data for n in self.state.ema_params],
-                                 list(self.state.ema_params.values()))
-        try:
-            metrics = None
-            for _ in range(steps):
-                batch = self._next_batch(batch_iter)
-                _, step_metrics = self.eval_loss_fn(self.model, batch, self.state.rng)
-                metrics = accumulate_metrics(metrics, step_metrics)
-            metrics = sync_metrics(metrics, DATA_AXIS, mesh=self.mesh)
-        finally:
-            if saved is not None:
-                params = dict(self.model.named_parameters())
-                torch._foreach_copy_([params[n].data for n in saved], list(saved.values()))
+        metrics = None
+        for _ in range(steps):
+            metrics = self.funcs.eval_fn(self.state, metrics, self._next_batch(batch_iter))
         return compute_metrics(metrics)
 
     def save_checkpoint(self, directory: str, step: int, *, wait: bool = True) -> None:
