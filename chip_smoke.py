@@ -40,7 +40,7 @@ source, all started together).  Phases, in order; any failure raises:
    at the end of phase 6, after its counted steps;
 6. training: the ``Trainer`` at ``bench.py``'s shape (GPT-2 125M, flash,
    "proj_attn" remat, global batch 256 in 16 minibatches of [16, 1024]):
-   3 warm-up and 12 timed steps, launches per step, step time, tokens/s,
+   3 warm-up and 6 timed steps, launches per step, step time, tokens/s,
    MFU and peak memory; one minibatch's loss and gradients against the
    xla path; a profile of one step;
 7. serve: the continuous-batching ``ServingEngine`` on GPT-2 125M (bf16,
@@ -124,7 +124,7 @@ source, all started together).  Phases, in order; any failure raises:
    per step, tokens/s, idle share, launches per token, the copy, cast and
    gather kernels by name).  Phase 9's run (c) at int8, greedy tokens
    bitwise equal to a per-step int8 spec run.  ``generate_beam`` on 4
-   prompts of 256 tokens, 4 beams, 128 new, lazy and eager (tokens/s,
+   prompts of 256 tokens, 4 beams, 64 new, lazy and eager (tokens/s,
    device ms per beam step, the eager reorder's bytes), the int8 lazy beam,
    and fp32 lazy tokens equal to eager with scores within 1e-4.  The seeded
    weight tree quantized to int8 (bytes against fp32 and bf16, held under
@@ -178,9 +178,11 @@ source, all started together).  Phases, in order; any failure raises:
    per weight, and the final masters' loss on a third batch within
    ``LOSS_TOL``; each rank's all-reduce ms and peak memory.  (c)
    ``python -m torch.distributed.run --standalone --nproc_per_node=1 -m
-   tpu_parallel_torch.train --config=gpt2_125m_dp`` for 3 steps: exit 0,
-   a topology line with one process and NCCL, ``train_loss`` in its
-   metrics.
+   tpu_parallel_torch.train --config=gpt2_125m_dp`` for 3 steps on
+   ``CLI_ROWS`` rows: exit 0, a topology line with one process and NCCL,
+   ``train_loss`` in its metrics.  It runs beside phases 13 and 14's CLI
+   legs and (b)'s reference, which times nothing; all three are
+   collected before any later timed leg.
 13. FSDP: ``gpt2_125m_dp`` with ``model_overrides.fsdp=True`` (the blocks,
    the embedding and the lm_head sharded over the data axis), the same
    legs.  (a) An NCCL group of one: 3 steps with 12 ``flash_fwd`` and 12
@@ -206,13 +208,42 @@ source, all started together).  Phases, in order; any failure raises:
    serving weight set's fingerprint equals that of the masters gathered
    another way, and static ``generate()`` gives equal greedy tokens on
    both.  (e) The CLI under torchrun with
-   ``--config.model_overrides.fsdp=True`` for 3 steps: exit 0.
+   ``--config.model_overrides.fsdp=True`` for 3 steps on ``CLI_ROWS``
+   rows (started and collected in phase 12): exit 0.
+14. tensor parallelism on ``gpt2_125m_tp`` ([32, 1024] in one minibatch,
+   a ``model`` axis over the ranks): both kernels at one rank's shape
+   [32, 6, 1024, 64], q, k and v views of its [B, S, 6, 192] qkv buffer,
+   against the plain versions.  (a) ``python -m torch.distributed.run
+   --standalone --nproc_per_node=1`` over the CLI's ``main`` with
+   ``--config=gpt2_125m_tp`` on ``CLI_ROWS`` rows (a model axis of 1,
+   NCCL; started and collected in phase 12): exit 0, 12/12 launches per
+   step, a falling loss, ``train_loss`` in its metrics.  A
+   one-process reference (no group) on 3 seeded batches, then (b) two
+   gloo ranks sharing the card on a data=1 x model=2 mesh, each on all 32
+   rows: 12/12 launches, 55 model-axis all-reduces and one gradient
+   all-reduce per step, the replicated leaves bitwise equal across the
+   ranks after every step; against the reference, losses within
+   ``LOSS_TOL``, the step-1 synced gradients (assembled from the ranks'
+   slices) within ``TRAIN_GRAD_TOL`` per weight, the masters after every
+   step within ``TP_MASTER_TOL`` and their updates within
+   ``TP_UPDATE_MEDIAN_TOL`` / ``TP_UPDATE_MAX_TOL``, the fp32 synced
+   gradients of a 2-layer cut on 4 rows within ``TP_FP32_GRAD_TOL``; state bytes, peak
+   memory and gloo's ms per activation all-reduce.  (c) In (b)'s ranks
+   the model-sharded checkpoint restored bitwise into a fresh Trainer,
+   then one more step on both (equal losses).  (d) ``generate_sharded``
+   on 4 ragged prompts, 32 new tokens: fp32 greedy tokens equal to static
+   ``generate()`` on the assembled masters (top-2 rule) and on both
+   ranks; bf16 ms per token; top-k and top-p sampled tokens equal on both
+   ranks.  (e) ``ServingEngine(mesh=...)`` (fp32, per-step ticks) over 8
+   requests: every one at its budget, equal on both ranks, greedy tokens
+   equal to ``generate_sharded``'s (top-2 rule).
 
 Weights and inputs are made from ``SEED``.  The kernel launch counters are
 set to 0 before each main path (phases 3-4: inference; phase 6's steps:
 training; phases 7-10: serving, which must leave them at 0; phase 11's
 packed fit and its 8k steps; phase 12's and phase 13's legs (a), in their
-subprocesses) and read after it.  The last two lines are the ``kernels`` JSON object and the
+subprocesses; phase 14's CLI leg and its leg (b)'s steps) and read after
+it.  The last two lines are the ``kernels`` JSON object and the
 ``{"ok": true, ...}`` line.
 """
 
@@ -843,7 +874,8 @@ def train_phase(seed, card_name):
     from tpu_parallel_torch.train_lib import Trainer, TrainerConfig
     from tpu_parallel_torch.utils.profiling import peak_flops, transformer_flops_per_token
 
-    warmup, timed = 3, 12
+    # 6 timed steps (12 until the whole run neared its time limit)
+    warmup, timed = 3, 6
     config = TrainerConfig(
         model="gpt2_125m", global_batch_size=256, num_minibatches=16, steps=warmup + timed,
         seed=seed, model_overrides=dict(dropout_rate=0.0, remat=True, remat_policy="proj_attn",
@@ -2242,7 +2274,8 @@ INT8_CAPTURES = dict(int8_fused_graph=1, int8_paged_unified_graph=2)
 # prefilling the context at batch 16 instead of 1 moves its logits by
 # (``_int8_shape_noise``), whichever is larger.
 INT8_TIE_GAP = 1e-2
-BEAM_PROMPTS, BEAM_PROMPT_LEN, BEAM_WIDTH, BEAM_NEW = 4, 256, 4, 128
+# 64 new tokens (128 until the whole run neared its time limit)
+BEAM_PROMPTS, BEAM_PROMPT_LEN, BEAM_WIDTH, BEAM_NEW = 4, 256, 4, 64
 BEAM_PROFILED_NEW = 18  # profiled calls of 18 and 2 new tokens: 16 steps apart
 BEAM_FP32_NEW = 16
 EXTRAS_STRETCH_TICKS = 4  # fused T=8 ticks per timed and per profiled window
@@ -2364,7 +2397,7 @@ def _device_ms(fn):
 
 def beam_leg(model, model8, seed):
     """``generate_beam`` on GPT-2 125M: 4 prompts of 256 tokens, 4 beams,
-    128 new tokens, lazy and eager, timed; device ms per beam step from
+    64 new tokens, lazy and eager, timed; device ms per beam step from
     two profiled calls (18 and 2 new tokens: the difference over 16
     steps, so the prefill drops out); the eager form's reorder copies per
     step.  Then the int8 cache's lazy beam (``model8``), and an fp32 leg
@@ -2686,7 +2719,8 @@ def _shell_config(name, **changes):
     cd = get_config(name)
     plumbing = {k: cd.pop(k) for k in ("checkpoint_dir", "checkpoint_every", "data_path",
                                         "data_format", "eos_id", "eval_steps", "eval_every",
-                                        "keep_best", "eval_fraction") if k in cd}
+                                        "keep_best", "eval_fraction", "simulate_cpu_devices")
+                if k in cd}
     cd["model_overrides"].update(changes.pop("model_overrides", {}))
     cd.update(changes)
     return TrainerConfig.from_config_dict(cd), plumbing
@@ -3711,40 +3745,112 @@ def _run_pair(leg, work):
                         if line.startswith(DP_RESULT)][-1][len(DP_RESULT):]) for o in outs]
 
 
-def dp_cli_leg(work):
-    """Leg (c): ``python -m torch.distributed.run --standalone
-    --nproc_per_node=1 -m tpu_parallel_torch.train --config=gpt2_125m_dp``
-    for DP_STEPS steps: exit 0, a topology line with one process and NCCL,
-    ``train_loss`` in its metrics."""
+# the torchrun CLI legs of phases 12-14 each start a process, build GPT-2
+# and run 3 steps: they run together, at CLI_ROWS rows, while phase 12 (b)'s
+# reference (which times nothing) runs, and all three are collected before
+# any timed leg that follows
+CLI_ROWS = 8
+
+
+_LAUNCHED = []  # every _launch'ed process, killed by main's exit if still running
+
+
+def _launch(cmd):
+    """Start ``cmd`` from the script's directory (``PYTHONPATH`` there) in a
+    session of its own, its output into temporary files (a pipe nobody
+    reads until :func:`_finish` could fill and stall it)."""
     import os
+    import tempfile
 
     here = Path(__file__).resolve().parent
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen(cmd, cwd=here, env=dict(os.environ, PYTHONPATH=str(here)),
+                            stdout=out, stderr=err, text=True, start_new_session=True)
+    _LAUNCHED.append(proc)
+    return proc, out, err, time.perf_counter()
+
+
+def _kill_launched():
+    """Kill the session of every launched process still running."""
+    import os
+    import signal
+
+    for proc in _LAUNCHED:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+
+
+def _finish(launched, what):
+    """``(stdout, s from the launch to this collection)`` of a
+    :func:`_launch`ed command; a non-zero exit raises with its output, and
+    on the leg timeout its whole session is killed (torchrun's workers
+    too)."""
+    import os
+    import signal
+
+    proc, out_file, err_file, start = launched
+    try:
+        proc.wait(timeout=DP_LEG_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    out_file.seek(0)
+    err_file.seek(0)
+    out, err = out_file.read(), err_file.read()
+    out_file.close()
+    err_file.close()
+    if proc.returncode != 0:
+        raise AssertionError(f"{what} exited {proc.returncode}: {out[-2000:]}\n{err[-3000:]}")
+    return out, time.perf_counter() - start
+
+
+def _torchrun(*args):
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=1",
+            *args]
+
+
+def dp_cli_leg(work):
+    """Leg (c), launched: ``python -m torch.distributed.run --standalone
+    --nproc_per_node=1 -m tpu_parallel_torch.train --config=gpt2_125m_dp``
+    for DP_STEPS steps on CLI_ROWS rows; :func:`dp_cli_check` holds it."""
     metrics = Path(work, "dp_metrics.prom")
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=1",
-           "-m", "tpu_parallel_torch.train", "--config=gpt2_125m_dp",
-           f"--config.steps={DP_STEPS}", f"--metrics-out={metrics}"]
-    start = time.perf_counter()
-    out = subprocess.run(cmd, cwd=here, env=dict(os.environ, PYTHONPATH=str(here)),
-                         capture_output=True, text=True, timeout=DP_LEG_TIMEOUT)
-    wall = time.perf_counter() - start
-    if out.returncode != 0:
-        raise AssertionError(f"torchrun exited {out.returncode}: {out.stderr[-3000:]}")
-    topology = [json.loads(line[len("topology: "):]) for line in out.stdout.splitlines()
+    return _launch(_torchrun("-m", "tpu_parallel_torch.train", "--config=gpt2_125m_dp",
+                             f"--config.steps={DP_STEPS}",
+                             f"--config.global_batch_size={CLI_ROWS}",
+                             f"--metrics-out={metrics}")), metrics
+
+
+def _collect_clis(clis):
+    """Wait for every launched CLI leg (``{name: (launched, metrics)}``):
+    ``{name: ((stdout, s from its launch), metrics)}``, which each leg's
+    check then holds.  A non-zero exit raises here."""
+    return {name: (_finish(launched, f"torchrun ({name})"), metrics)
+            for name, (launched, metrics) in clis.items()}
+
+
+def dp_cli_check(collected):
+    """Leg (c): exit 0, a topology line with one process and NCCL,
+    ``train_loss`` in its metrics."""
+    (out, wall), metrics = collected
+    topology = [json.loads(line[len("topology: "):]) for line in out.splitlines()
                 if line.startswith("topology: ")]
     if len(topology) != 1 or topology[0]["process_count"] != 1 \
             or topology[0]["backend"] != "nccl":
         raise AssertionError(f"CLI topology lines {topology}")
     if "train_loss" not in metrics.read_text():
         raise AssertionError("CLI metrics without train_loss")
-    return dict(wall_s=wall, topology=topology[0],
-                stdout_tail=out.stdout.strip().splitlines()[-2:])
+    return dict(wall_s=wall, topology=topology[0], stdout_tail=out.strip().splitlines()[-2:])
 
 
 def dp_phase(smi, work):
     """Phase 12: the kernels at the DP step's shape against their plain
     versions, then legs (a), (b) and (c), in the directory ``work`` (leg
-    (b)'s ``pair.pt`` stays there for phase 13).  Returns the report and
-    the kernels' rows with leg (a)'s launches."""
+    (b)'s ``pair.pt`` stays there for phase 13).  Phases 13 and 14's CLI
+    legs start with leg (c), beside leg (b)'s reference.  Returns the
+    report, the kernels' rows, leg (a)'s launches and the two collected
+    CLI legs."""
     start = time.perf_counter()
     legs_s = {}
 
@@ -3779,8 +3885,13 @@ def dp_phase(smi, work):
     if pair[0]["losses"] != pair[1]["losses"]:
         raise AssertionError(f"leg (b) ranks' synced losses differ: {pair}")
     lap("pair")
+    # phases 12-14's CLI legs run together with the pair's reference and
+    # are all collected before the timed legs of phases 13 and 14
+    clis = dict(dp=dp_cli_leg(work), fsdp=fsdp_cli_leg(work), tp=tp_cli_leg(work))
     ref = _run_leg(["dp_pair_ref", work])
     lap("pair_reference")
+    clis = _collect_clis(clis)
+    lap("cli_collect")
     how = ("gloo over CUDA tensors" if pair[0]["gloo_takes_cuda"]
            else "gloo staged through pinned host copies (it refused CUDA tensors)")
     log(f"[dp two ranks] {how}, two processes on cuda:0 "
@@ -3801,17 +3912,18 @@ def dp_phase(smi, work):
                     for p in pair)
         + "; max memory allocated "
         + ", ".join(f"{p['max_memory_allocated'] / 2**30:.2f} GiB" for p in pair))
-    cli = dp_cli_leg(work)
-    lap("cli")
+    cli = dp_cli_check(clis.pop("dp"))
     log(f"[dp cli] torchrun --standalone --nproc_per_node=1 -m tpu_parallel_torch.train "
-        f"--config=gpt2_125m_dp --config.steps={DP_STEPS}: exit 0 in {cli['wall_s']:.1f} s; "
+        f"--config=gpt2_125m_dp --config.steps={DP_STEPS} --config.global_batch_size="
+        f"{CLI_ROWS} (beside phases 13 and 14's CLI legs and the pair's reference): exit 0, "
+        f"collected {cli['wall_s']:.1f} s after its launch; "
         f"topology {cli['topology']}; metrics have train_loss; {cli['stdout_tail']}")
     phase_s = time.perf_counter() - start
     log(f"[dp] phase 12 took {phase_s:.1f} s ("
         + ", ".join(f"{k} {v:.1f}" for k, v in legs_s.items()) + ")")
     log(f"card: {smi}")
     return dict(nccl=nccl, pair=pair, pair_reference=ref, cli=cli, phase_s=phase_s,
-                legs_s=legs_s), rows, nccl["launches"]
+                legs_s=legs_s), rows, nccl["launches"], clis
 
 # phase 13: FSDP on the card (``gpt2_125m_dp`` with ``model_overrides.fsdp``:
 # ZeRO-3 over the data axis).  The same three-process layout as phase 12:
@@ -4194,33 +4306,30 @@ def _fsdp_export(trainer, rank, workdir):
 
 
 def fsdp_cli_leg(work):
-    """Leg (e): the CLI under torchrun with ``--config.model_overrides.
-    fsdp=True`` for FSDP_STEPS steps: exit 0, one NCCL process,
-    ``train_loss`` in its metrics."""
-    import os
-
-    here = Path(__file__).resolve().parent
+    """Leg (e), launched: the CLI under torchrun with
+    ``--config.model_overrides.fsdp=True`` for FSDP_STEPS steps on
+    CLI_ROWS rows; :func:`fsdp_cli_check` holds it."""
     metrics = Path(work, "fsdp_metrics.prom")
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=1",
-           "-m", "tpu_parallel_torch.train", "--config=gpt2_125m_dp",
-           "--config.model_overrides.fsdp=True", f"--config.steps={FSDP_STEPS}",
-           f"--metrics-out={metrics}"]
-    start = time.perf_counter()
-    out = subprocess.run(cmd, cwd=here, env=dict(os.environ, PYTHONPATH=str(here)),
-                         capture_output=True, text=True, timeout=DP_LEG_TIMEOUT)
-    wall = time.perf_counter() - start
-    if out.returncode != 0:
-        raise AssertionError(f"torchrun (fsdp) exited {out.returncode}: {out.stderr[-3000:]}")
-    topology = [json.loads(line[len("topology: "):]) for line in out.stdout.splitlines()
+    return _launch(_torchrun("-m", "tpu_parallel_torch.train", "--config=gpt2_125m_dp",
+                             "--config.model_overrides.fsdp=True",
+                             f"--config.steps={FSDP_STEPS}",
+                             f"--config.global_batch_size={CLI_ROWS}",
+                             f"--metrics-out={metrics}")), metrics
+
+
+def fsdp_cli_check(collected):
+    """Leg (e): exit 0, one NCCL process, ``train_loss`` in its metrics."""
+    (out, wall), metrics = collected
+    topology = [json.loads(line[len("topology: "):]) for line in out.splitlines()
                 if line.startswith("topology: ")]
     if len(topology) != 1 or topology[0]["backend"] != "nccl":
         raise AssertionError(f"CLI topology lines {topology}")
     if "train_loss" not in metrics.read_text():
         raise AssertionError("CLI metrics without train_loss")
-    return dict(wall_s=wall, stdout_tail=out.stdout.strip().splitlines()[-2:])
+    return dict(wall_s=wall, stdout_tail=out.strip().splitlines()[-2:])
 
 
-def fsdp_phase(smi, work, dp_report, dp_save):
+def fsdp_phase(smi, work, dp_report, dp_save, cli_collected):
     """Phase 13: legs (a)-(e) of FSDP, against phase 12's DP legs in this
     call (``dp_save``: phase 11's save timing, printed beside leg (c)'s).
     Returns the report and leg (a)'s launches (its main path)."""
@@ -4315,11 +4424,11 @@ def fsdp_phase(smi, work, dp_report, dp_save):
         f"{ex['n_params']} params) equal to the gathered masters'; greedy tokens of generate() "
         f"equal on both ({FSDP_PROMPTS[0]} prompts of {FSDP_PROMPTS[1]}, {FSDP_PROMPTS[2]} new; "
         f"row 0 {ex['tokens'][-FSDP_PROMPTS[2]:]})")
-    cli = fsdp_cli_leg(work)
-    lap("cli")
+    cli = fsdp_cli_check(cli_collected)
     log(f"[fsdp cli] torchrun --standalone --nproc_per_node=1 -m tpu_parallel_torch.train "
-        f"--config=gpt2_125m_dp --config.model_overrides.fsdp=True --config.steps={FSDP_STEPS}: "
-        f"exit 0 in {cli['wall_s']:.1f} s; {cli['stdout_tail']}")
+        f"--config=gpt2_125m_dp --config.model_overrides.fsdp=True --config.steps={FSDP_STEPS} "
+        f"--config.global_batch_size={CLI_ROWS} (started and collected in phase 12): exit 0, "
+        f"collected {cli['wall_s']:.1f} s after its launch; {cli['stdout_tail']}")
     phase_s = time.perf_counter() - start
     log(f"[fsdp] phase 13 took {phase_s:.1f} s ("
         + ", ".join(f"{k} {v:.1f}" for k, v in legs_s.items()) + ")")
@@ -4327,8 +4436,585 @@ def fsdp_phase(smi, work, dp_report, dp_save):
     return dict(nccl=nccl, pair=pair, cli=cli, phase_s=phase_s, legs_s=legs_s), nccl["launches"]
 
 
+# phase 14: tensor parallelism on the card (``gpt2_125m_tp``: the blocks'
+# projections and the lm_head split over a model axis).  The kernels at a
+# rank's shape, then (a) the CLI under torchrun in an NCCL group of one,
+# a one-process reference, and two gloo ranks sharing the card on a
+# data=1 x model=2 mesh: (b) training, (c) a model-sharded checkpoint,
+# (d) ``generate_sharded`` and (e) the engine over the mesh.
+TP_STEPS = 3  # counted steps of legs (a) and (b)
+TP_SHAPE = (32, 6, 6, 1024, 64, dict(causal=True), False, 10)  # one rank's flash shape
+TP_PROMPT_LENS = (32, 20, 27, 12)  # leg (d)'s ragged prompts, left-padded to 32
+TP_NEW = 32  # new tokens per prompt in legs (d) and (e)
+TP_ENGINE_EXTRA = ((9, 16), (24, 24), (5, 8), (17, 32))  # leg (e)'s other (length, budget)
+TP_TIMED_GENERATE = 1  # timed bf16 generate_sharded calls
+# leg (b) against one process, per weight, relative L2 (the qkv bias's key
+# slice left out): the masters of non-zero init after each step, and each
+# step's update from the initial masters, median and max over the weights.
+# Set from the first reading on an H100 80GB HBM3 at 700 W (masters within
+# 1.09e-4; updates median 2.2e-2 and 1.6e-2, max 0.100, the token
+# embedding): in bf16 each rank's row partial is rounded before the
+# all-reduce sums it, so the step-1 gradients differ from one process's by
+# about 1e-2 per weight, which AdamW's first steps (m / sqrt(v) near
+# sign(g)) carry into the updates.  A step that leaves the shards where
+# they were misses the update limits (an error of 1); a wrong gradient
+# scale misses TRAIN_GRAD_TOL and the fp32 check below.
+TP_MASTER_TOL = 5e-4
+TP_UPDATE_MEDIAN_TOL = 5e-2
+TP_UPDATE_MAX_TOL = 3e-1
+# the synced gradients in fp32 (TF32 off, xla attention) of gpt2_125m_tp's
+# widths cut to TP_FP32_LAYERS layers, on TP_FP32_ROWS rows, where the split
+# changes only fp32 rounding: per weight within TP_FP32_GRAD_TOL of one
+# process's
+TP_FP32_ROWS, TP_FP32_LAYERS = 4, 2
+TP_FP32_GRAD_TOL = 1e-4
+
+
+def _tp_config(**changes):
+    config, _ = _shell_config("gpt2_125m_tp", seed=SEED, **changes)
+    return config
+
+
+def _tp_layers():
+    """``gpt2_125m_tp``'s layer count: the kernels' launches per step."""
+    from tpu_parallel_torch.train_lib import MODEL_REGISTRY
+
+    config = _tp_config()
+    return MODEL_REGISTRY[config.model](**{k: v for k, v in config.model_overrides.items()
+                                           if v is not None}).n_layers
+
+
+def _tp_batches(vocab, device):
+    """TP_STEPS seeded global batches of [32, 1024]: every rank of the model
+    axis steps on all 32 rows."""
+    from tpu_parallel_torch.data import lm_batch
+
+    return [lm_batch(torch.Generator().manual_seed(SEED + 60 + i), 32, SHELL_SEQ, vocab,
+                     device=device) for i in range(TP_STEPS)]
+
+
+def _tp_assembled(state, tree):
+    """The full fp32 tensors of ``tree`` (a dict by parameter name, this
+    rank's slices of the model-sharded ones), on the host: each slice
+    all-gathered over its axis (a collective: every rank calls it)."""
+    import torch.distributed as dist
+
+    out = {}
+    for name, value in tree.items():
+        value = value.detach()
+        info = state.shards.get(name)
+        if info is not None:
+            parts = [torch.empty_like(value) for _ in range(info.size)]
+            dist.all_gather(parts, value.contiguous(), group=info.group)
+            value = torch.cat(parts, dim=info.dim)
+        out[name] = value.to("cpu", torch.float32, copy=True)
+    return out
+
+
+def _tp_grads(trainer, state, batch, mesh):
+    """The step's synced gradients on ``batch`` (accumulated, then
+    ``fsdp.sync_gradients`` over the Trainer's axes on a mesh), without an
+    update; the accumulators are cleared after."""
+    from tpu_parallel_torch.core.accumulate import accumulate_gradients
+    from tpu_parallel_torch.parallel import fsdp
+
+    grads, _ = accumulate_gradients(state, batch, state.rng, 1, trainer.loss_fn)
+    if mesh is not None:
+        fsdp.sync_gradients(state.partitioned(grads), ("data", "model"), mesh=mesh)
+    return grads
+
+
+def _rel_by_weight(cfg, got, want, keep_zero_init=True, init=None):
+    """Relative L2 of ``got`` against ``want`` per weight, the qkv bias's
+    key slice left out; with ``init`` the updates from it are compared
+    instead, and ``keep_zero_init=False`` skips leaves whose init is 0."""
+    dh = cfg.head_dim
+    not_key = (torch.arange(3 * cfg.d_model) % (3 * dh)) // dh != 1
+    rel = {}
+    for name, g in got.items():
+        w = want[name]
+        if init is not None:
+            if not keep_zero_init and init[name].norm() == 0:
+                continue
+            g, w = g - init[name], w - init[name]
+        if name.endswith("attn.qkv.bias"):
+            g, w = g[not_key], w[not_key]
+        rel[name] = ((g - w).norm() / w.norm().clamp(min=1e-30)).item()
+    return rel
+
+
+def _tp_fp32_grads(mesh, device):
+    """The synced gradients of ``gpt2_125m_tp``'s model in fp32 (xla
+    attention) at TP_FP32_LAYERS layers on TP_FP32_ROWS seeded rows,
+    assembled on the host."""
+    from tpu_parallel_torch.data import lm_batch
+    from tpu_parallel_torch.train_lib import Trainer
+
+    config = _tp_config(global_batch_size=TP_FP32_ROWS,
+                        model_overrides=dict(dtype=torch.float32, attn_impl="xla",
+                                             n_layers=TP_FP32_LAYERS))
+    trainer = Trainer(config, mesh, device=device)
+    state = trainer.init()
+    batch = lm_batch(torch.Generator().manual_seed(SEED + 65), TP_FP32_ROWS, SHELL_SEQ,
+                     trainer.model_config.vocab_size, device=device)
+    grads = _tp_assembled(state, _tp_grads(trainer, state, batch, mesh))
+    del trainer, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return grads
+
+
+def tp_reference_leg(workdir):
+    """One process, no group: ``Trainer(gpt2_125m_tp)`` (one device), the
+    step-1 gradients, then TP_STEPS steps on the seeded batches; saves the
+    losses, the gradients, the masters after each step and the fp32
+    gradients for leg (b), with its step times and peak memory."""
+    from tpu_parallel_torch.core.metrics import compute
+    from tpu_parallel_torch.train_lib import Trainer
+
+    trainer = Trainer(_tp_config(), device="cuda")
+    if trainer.mesh is not None:
+        raise AssertionError("a Trainer without a group has a mesh")
+    state = trainer.init()
+    batches = _tp_batches(trainer.model_config.vocab_size, "cuda")
+    start = {n: p.detach().to("cpu", torch.float32, copy=True) for n, p in state.params.items()}
+    grads = {n: g.detach().to("cpu", torch.float32, copy=True)
+             for n, g in _tp_grads(trainer, state, batches[0], None).items()}
+    state.zero_grads()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, masters, step_ms = [], [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = trainer.step_fn(state, None, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(compute(metrics)["loss"])
+        masters.append({n: p.detach().to("cpu", torch.float32, copy=True)
+                        for n, p in state.params.items()})
+    peak = torch.cuda.max_memory_allocated()
+    state_bytes = _state_bytes(state)
+    del trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.save(dict(start=start, grads=grads, losses=losses, masters_by_step=masters,
+                    fp32_grads=_tp_fp32_grads(None, "cuda")), Path(workdir, "tp_ref.pt"))
+    return dict(losses=losses, step_host_ms=step_ms, max_memory_allocated=peak,
+                state_bytes=state_bytes)
+
+
+def _tp_counts():
+    from tpu_parallel_torch.parallel import dp, tp
+
+    return [tp.tp_allreduce_launches, tp.tp_allgather_launches, dp.dp_allreduce_launches]
+
+
+def tp_pair_leg(rank, rendezvous, workdir):
+    """Legs (b)-(e), one of two gloo ranks on the one card over a data=1 x
+    model=2 mesh: the step-1 synced gradients, then TP_STEPS counted steps
+    on all 32 rows of the seeded batches (rank 0 holds the gradients, the
+    losses, the masters and their updates to the reference's), a digest
+    of the replicated leaves after every step, the state's bytes and the
+    steps' peak memory, gloo's time per activation all-reduce, the fp32
+    synced gradients against one process's; then the checkpoint,
+    ``generate_sharded`` and the engine."""
+    import torch.distributed as dist
+
+    from tpu_parallel_torch.core.metrics import compute
+    from tpu_parallel_torch.parallel import tp
+    from tpu_parallel_torch.runtime import MeshConfig, initialize, make_mesh, process_info
+    from tpu_parallel_torch.train_lib import Trainer
+
+    initialize(rendezvous, 2, rank, backend="gloo", device="cuda:0")
+    info = process_info()
+    config = _tp_config()
+    mesh = make_mesh(MeshConfig(data=1, model=2))
+    trainer = Trainer(config, mesh, device="cuda:0")
+    state = trainer.init()
+    cfg = trainer.model_config
+    if len(state.shards) != 6 * cfg.n_layers + 1:
+        raise AssertionError(f"{len(state.shards)} model-sharded leaves")
+    batches = _tp_batches(cfg.vocab_size, "cuda:0")
+    ref = torch.load(Path(workdir, "tp_ref.pt"), weights_only=True) if rank == 0 else None
+    start = _tp_assembled(state, state.params)
+    grads = _tp_assembled(state, _tp_grads(trainer, state, batches[0], mesh))
+    state.zero_grads()
+    result = dict(rank=rank, process_info=info)
+    if rank == 0:
+        if any(not torch.equal(start[n], ref["start"][n]) for n in start):
+            raise AssertionError("leg (b): the assembled initial masters differ from one "
+                                 "process's")
+        grad_rel = _rel_by_weight(cfg, grads, ref["grads"])
+    del grads
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()  # the main path starts here
+    losses, digests, per_step, colls, step_ms, master_rel, update_rel = [], [], [], [], [], [], []
+    for i, batch in enumerate(batches):
+        before, cbefore = _launch_counts(), _tp_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = trainer.step_fn(state, None, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        per_step.append([a - b for a, b in zip(_launch_counts(), before)])
+        colls.append([a - b for a, b in zip(_tp_counts(), cbefore)])
+        losses.append(compute(metrics)["loss"])
+        digests.append(_replicated_digest(state))
+        full = _tp_assembled(state, state.params)
+        if rank == 0:
+            want = ref["masters_by_step"][i]
+            master_rel.append(_rel_by_weight(
+                cfg, {n: v for n, v in full.items() if start[n].norm() > 0}, want))
+            update_rel.append(_rel_by_weight(cfg, full, want, init=start))
+        del full
+    launches = dict(zip(LAUNCH_COUNTERS, _launch_counts()))
+    peak = torch.cuda.max_memory_allocated()
+    act = torch.randn(32, SHELL_SEQ, cfg.d_model, device="cuda:0").to(cfg.dtype)
+    dist.barrier()
+    act_ms = host_ms(lambda: tp.all_reduce(act, "model", mesh), 1)
+    del act
+    fp32_grads = _tp_fp32_grads(mesh, "cuda:0")
+    result.update(losses=losses, digests=digests, launches_per_step=per_step, launches=launches,
+                  collectives_per_step=colls, step_host_ms=step_ms, max_memory_allocated=peak,
+                  state_bytes=_state_bytes(state), activation_allreduce_host_ms=act_ms,
+                  activation_allreduce_bytes=32 * SHELL_SEQ * cfg.d_model * 2)
+    if rank == 0:
+        worst = lambda rel: max(rel.items(), key=lambda kv: kv[1])
+        result.update(
+            ref_losses=ref["losses"],
+            step1_grad_rel_max=worst(grad_rel),
+            step1_grad_rel_median=sorted(grad_rel.values())[len(grad_rel) // 2],
+            master_rel_max=[worst(r) for r in master_rel],
+            update_rel_median=[sorted(r.values())[len(r) // 2] for r in update_rel],
+            update_rel_max=[worst(r) for r in update_rel])
+        fp32_rel = _rel_by_weight(cfg, fp32_grads, ref["fp32_grads"])
+        result.update(fp32_grad_rel_max=worst(fp32_rel),
+                      fp32_grad_rel_median=sorted(fp32_rel.values())[len(fp32_rel) // 2])
+        loss_diffs = [abs(a - b) for a, b in zip(losses, ref["losses"])]
+        result.update(loss_diffs=loss_diffs)
+        del ref
+        if max(loss_diffs) > LOSS_TOL or result["step1_grad_rel_max"][1] > TRAIN_GRAD_TOL \
+                or max(m for _, m in result["master_rel_max"]) > TP_MASTER_TOL \
+                or max(result["update_rel_median"]) > TP_UPDATE_MEDIAN_TOL \
+                or max(m for _, m in result["update_rel_max"]) > TP_UPDATE_MAX_TOL \
+                or result["fp32_grad_rel_max"][1] > TP_FP32_GRAD_TOL:
+            raise AssertionError(f"leg (b): two TP ranks disagree with one process: {result}")
+    del fp32_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    result.update(checkpoint=_tp_checkpoint(trainer, config, mesh, batches[0], rank, workdir))
+    result.update(generate=_tp_generate(trainer, mesh, rank))
+    dist.barrier()
+    dist.destroy_process_group()
+    return result
+
+
+def _tp_checkpoint(trainer, config, mesh, batch, rank, workdir):
+    """Leg (c): the model-sharded state saved (every rank its slices,
+    ``torch.distributed.checkpoint``), restored into a fresh Trainer with
+    every local tensor bitwise equal, then one more step on both: the same
+    loss."""
+    from tpu_parallel_torch.core.metrics import compute
+    from tpu_parallel_torch.train_lib import Trainer
+
+    directory = str(Path(workdir, "tp_ckpt"))
+    step = trainer.state.step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.save_checkpoint(directory, step)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    fresh = Trainer(config, mesh, device="cuda:0")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fresh.restore_checkpoint(directory)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    want, got = _local_leaves(trainer.state.state_dict()), _local_leaves(fresh.state.state_dict())
+    module_equal = all(torch.equal(a, b) for a, b in zip(trainer.model.parameters(),
+                                                         fresh.model.parameters()))
+    if got.keys() != want.keys() or not all(torch.equal(got[k], want[k]) for k in want) \
+            or not module_equal or fresh.state.step != step:
+        raise AssertionError(f"rank {rank}: the restored slices differ from the saved ones")
+    losses = [compute(t.step_fn(t.state, None, batch)[1])["loss"] for t in (trainer, fresh)]
+    if losses[0] != losses[1] or fresh.state.step != step + 1:
+        raise AssertionError(f"rank {rank}: the restored state trains apart: {losses}")
+    tensors = len(want)
+    del fresh
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(save_ms=save_ms, restore_ms=restore_ms, local_tensors=tensors, next_loss=losses[0])
+
+
+def _tp_prompts(vocab):
+    """Leg (d)'s ragged prompts, left-padded to the longest: ``(prompt,
+    mask, rows)`` with the unpadded rows as lists."""
+    gen = torch.Generator().manual_seed(SEED + 70)
+    rows = [torch.randint(1, vocab, (n,), generator=gen).tolist() for n in TP_PROMPT_LENS]
+    width = max(TP_PROMPT_LENS)
+    prompt = torch.zeros(len(rows), width, dtype=torch.long)
+    mask = torch.zeros(len(rows), width, dtype=torch.bool)
+    for i, row in enumerate(rows):
+        prompt[i, width - len(row):] = torch.tensor(row)
+        mask[i, width - len(row):] = True
+    return prompt.cuda(), mask.cuda(), rows
+
+
+def _top2_held(dense, prompt, got, want, what):
+    """Greedy tokens ``got`` against the reference's ``want`` after the
+    unpadded ``prompt``: equal, or first differing where the reference's
+    top-2 logit gap is below FP32_TIE_GAP (raises otherwise)."""
+    if got == want:
+        return dict(equal=True)
+    step = next(j for j, (a, b) in enumerate(zip(got, want)) if a != b)
+    with torch.inference_mode():
+        top2 = dense(torch.tensor([prompt + want[:step]], device="cuda:0"))[0, -1].float().topk(2)
+    gap = (top2.values[0] - top2.values[1]).item()
+    if gap >= FP32_TIE_GAP:
+        raise AssertionError(f"{what} differs from the reference at token {step} with top-2 "
+                             f"gap {gap:.3e}")
+    return dict(equal=False, first_diff=step, top2_gap=gap)
+
+
+def _tp_generate(trainer, mesh, rank):
+    """Legs (d) and (e) on the trained weights.  fp32 (TF32 off): greedy
+    ``generate_sharded`` on the ragged prompts against static ``generate()``
+    on the assembled masters (the top-2 rule, rank 0); the engine over the
+    mesh (per-step ticks) on those prompts and 4 more, its greedy tokens
+    against ``generate_sharded``'s under the same rule, every request at
+    its budget.  bf16 (the trainer's module): ``generate_sharded``'s
+    tokens/s and ms per token, and a top-k and a top-p sampled call."""
+    import dataclasses
+
+    from tpu_parallel_torch.models import GPTLM
+    from tpu_parallel_torch.models.generate import generate, generate_sharded
+    from tpu_parallel_torch.serving import Request, ServingEngine
+
+    state, cfg = trainer.state, trainer.model_config
+    fp32_cfg = dataclasses.replace(cfg, dtype=torch.float32, remat=False)
+    sharded = GPTLM(fp32_cfg, device="cuda:0", mesh=mesh).eval()
+    sharded.load_state_dict({n: p.detach() for n, p in state.params.items()})
+    full = _tp_assembled(state, state.params)
+    dense = None
+    if rank == 0:
+        dense = GPTLM(fp32_cfg, device="cuda:0").eval()
+        dense.load_state_dict(full)
+    del full
+    prompt, mask, rows = _tp_prompts(cfg.vocab_size)
+    got = generate_sharded(sharded, prompt, max_new_tokens=TP_NEW, prompt_mask=mask).tolist()
+    report = dict(tokens=got)
+    if rank == 0:
+        with torch.inference_mode():
+            want = generate(dense, prompt, max_new_tokens=TP_NEW, prompt_mask=mask).tolist()
+        report["fp32_against_generate"] = [
+            _top2_held(dense, row, g, w, f"generate_sharded row {i}")
+            for i, (row, g, w) in enumerate(zip(rows, got, want))]
+    gen = torch.Generator().manual_seed(SEED + 71)
+    extra = [(torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist(), budget)
+             for n, budget in TP_ENGINE_EXTRA]
+    work = [(row, TP_NEW) for row in rows] + extra
+    eng = ServingEngine(sharded, n_slots=4, mesh=mesh)
+    if eng.decode_steps_per_tick != 1 or eng.unified_tick:
+        raise AssertionError("the engine over a mesh is not per-step")
+    outs = [eng.add_request(Request(prompt=p, max_new_tokens=n, request_id=f"r{i}"))
+            for i, (p, n) in enumerate(work)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize()
+    engine_s = time.perf_counter() - t0
+    if any(o.status != "finished" or len(o.tokens) != n for o, (_, n) in zip(outs, work)):
+        raise AssertionError(f"rank {rank}: engine requests not at their budgets: "
+                             f"{[(o.status, len(o.tokens), n) for o, (_, n) in zip(outs, work)]}")
+    if eng.graph_captures:
+        raise AssertionError("the engine over a mesh captured a graph")
+    report.update(engine_tokens=[o.tokens for o in outs], engine_s=engine_s,
+                  engine_tokens_out=sum(len(o.tokens) for o in outs),
+                  engine_ticks=eng.metrics.ticks)
+    if rank == 0:
+        report["engine_against_generate_sharded"] = [
+            _top2_held(dense, row, o.tokens, g, f"engine request r{i}")
+            for i, (row, o, g) in enumerate(zip(rows, outs, got))]
+    del eng, sharded, dense
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = trainer.model.eval()
+    generate_sharded(model, prompt, max_new_tokens=TP_NEW, prompt_mask=mask)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TP_TIMED_GENERATE):
+        generate_sharded(model, prompt, max_new_tokens=TP_NEW, prompt_mask=mask)
+    torch.cuda.synchronize()
+    call_s = (time.perf_counter() - t0) / TP_TIMED_GENERATE
+    report.update(bf16_ms_per_token=call_s / TP_NEW * 1e3,
+                  bf16_tokens_per_s=len(rows) * TP_NEW / call_s)
+    for name, kw in (("top_k", dict(temperature=0.8, top_k=40)),
+                     ("top_p", dict(temperature=0.8, top_p=0.9))):
+        report[name] = generate_sharded(model, prompt, rng=torch.Generator().manual_seed(SEED),
+                                        max_new_tokens=8, prompt_mask=mask, **kw).tolist()
+    model.train()
+    return report
+
+
+def tp_cli_rank_leg(metrics):
+    """Leg (a)'s rank, under torchrun: ``tpu_parallel_torch.train``'s
+    ``main`` on ``--config=gpt2_125m_tp`` for TP_STEPS steps with each
+    step's kernel launches and loss recorded at the Trainer's step."""
+    from tpu_parallel_torch import train
+    from tpu_parallel_torch.core.metrics import accumulate_metrics, compute
+    from tpu_parallel_torch.train_lib import Trainer
+
+    per_step, losses = [], []
+    real = Trainer.step_fn
+
+    def step(self, state, metrics, batch):
+        before = _launch_counts()
+        state, step_metrics = real(self, state, None, batch)
+        per_step.append([a - b for a, b in zip(_launch_counts(), before)])
+        losses.append(compute(step_metrics)["loss"])
+        return state, accumulate_metrics(metrics, step_metrics)
+
+    Trainer.step_fn = step
+    _reset_launches()  # the main path starts here
+    code = train.main(["--config=gpt2_125m_tp", f"--config.steps={TP_STEPS}",
+                       f"--config.global_batch_size={CLI_ROWS}", "--config.log_every=1",
+                       f"--metrics-out={metrics}"])
+    return dict(exit=code, launches_per_step=per_step, losses=losses,
+                launches=dict(zip(LAUNCH_COUNTERS, _launch_counts())))
+
+
+def tp_cli_leg(work):
+    """Leg (a), launched: ``python -m torch.distributed.run --standalone
+    --nproc_per_node=1`` over this script's ``tp_cli_rank`` leg on CLI_ROWS
+    rows; :func:`tp_cli_check` holds it."""
+    metrics = Path(work, "tp_metrics.prom")
+    return _launch(_torchrun(str(Path(__file__).resolve()), "--leg", "tp_cli_rank",
+                             str(metrics))), metrics
+
+
+def tp_cli_check(collected):
+    """Leg (a): exit 0, a topology line with one NCCL process, 12 launches
+    of each kernel per step, a falling loss, ``train_loss`` in the
+    metrics."""
+    (out, wall), metrics = collected
+    topology = [json.loads(line[len("topology: "):]) for line in out.splitlines()
+                if line.startswith("topology: ")]
+    if len(topology) != 1 or topology[0]["process_count"] != 1 \
+            or topology[0]["backend"] != "nccl":
+        raise AssertionError(f"CLI topology lines {topology}")
+    result = json.loads([line for line in out.splitlines()
+                         if line.startswith(DP_RESULT)][-1][len(DP_RESULT):])
+    layers = _tp_layers()
+    if result["exit"] != 0 or result["launches_per_step"] != [[layers, layers]] * TP_STEPS:
+        raise AssertionError(f"leg (a): exit {result['exit']}, launches per step "
+                             f"{result['launches_per_step']}, want {layers} of each")
+    _falls("leg (a)", result["losses"])
+    if "train_loss" not in metrics.read_text():
+        raise AssertionError("CLI metrics without train_loss")
+    result.update(wall_s=wall, topology=topology[0])
+    return result
+
+
+def tp_phase(smi, work, cli_collected):
+    """Phase 14: the kernels at one TP rank's shape against their plain
+    versions, then legs (a)-(e) in the directory ``work``.  Returns the
+    report, the kernels' rows and leg (b)'s launches (rank 0's main
+    path)."""
+    start = time.perf_counter()
+    legs_s = {}
+
+    def lap(name):
+        legs_s[name] = time.perf_counter() - start - sum(legs_s.values())
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
+    rows = dict(fwd=fwd_kernel_row("t_tp_pass", TP_SHAPE, gen),
+                bwd=bwd_kernel_row("t_tp_pass", TP_SHAPE, gen, main_path=True))
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("kernels")
+    cli = tp_cli_check(cli_collected)
+    log(f"[tp cli] torchrun --standalone --nproc_per_node=1 over -m tpu_parallel_torch.train's "
+        f"main --config=gpt2_125m_tp --config.steps={TP_STEPS} --config.global_batch_size="
+        f"{CLI_ROWS} (a model axis of 1; started and collected in phase 12): exit 0, "
+        f"collected {cli['wall_s']:.1f} s after its launch; topology {cli['topology']}; "
+        f"launches per step "
+        f"(flash_fwd, "
+        f"flash_bwd) {cli['launches_per_step']}; losses {[round(x, 5) for x in cli['losses']]}")
+    ref = _run_leg(["tp_ref", work])
+    lap("reference")
+    pair = _run_pair("tp_pair", work)
+    lap("pair")
+    r0 = pair[0]
+    layers, mb = _tp_layers(), _tp_config().num_minibatches
+    want_coll = [mb * (2 * layers + 5 + 2 * layers + 2), 0, 1]
+    for p in pair:
+        if p["launches_per_step"] != [[layers, layers]] * TP_STEPS:
+            raise AssertionError(f"leg (b) rank {p['rank']}: launches per step "
+                                 f"{p['launches_per_step']}")
+        if p["collectives_per_step"] != [want_coll] * TP_STEPS:
+            raise AssertionError(f"leg (b) rank {p['rank']}: (tp all-reduces, tp all-gathers, "
+                                 f"gradient all-reduces) per step {p['collectives_per_step']}, "
+                                 f"want {want_coll}")
+    if pair[0]["digests"] != pair[1]["digests"]:
+        raise AssertionError(f"leg (b): replicated leaves differ across ranks: {pair}")
+    if pair[0]["losses"] != pair[1]["losses"]:
+        raise AssertionError(f"leg (b) ranks' synced losses differ: {pair}")
+    g0, g1 = pair[0]["generate"], pair[1]["generate"]
+    for key in ("tokens", "engine_tokens", "top_k", "top_p"):
+        if g0[key] != g1[key]:
+            raise AssertionError(f"legs (d)-(e): the ranks' {key} differ")
+    gib = lambda n: f"{n / 2**30:.3f} GiB"
+    log(f"[tp two ranks] gloo over CUDA tensors, two processes on cuda:0 ({r0['process_info']}), "
+        f"mesh data=1 x model=2, gpt2_125m_tp [32, 1024] on both ranks: launches per step "
+        f"{r0['launches_per_step']}; (tp all-reduces, tp all-gathers, gradient all-reduces) per "
+        f"step {r0['collectives_per_step']}; replicated leaves bitwise equal across the ranks "
+        f"after every step; losses {[round(x, 5) for x in r0['losses']]} against one process's "
+        f"{[round(x, 5) for x in r0['ref_losses']]} (|diff| {r0['loss_diffs']}, tol {LOSS_TOL})")
+    log(f"  against one process: step-1 synced gradients relative L2 per weight median "
+        f"{r0['step1_grad_rel_median']:.3e}, max {r0['step1_grad_rel_max'][1]:.3e} "
+        f"({r0['step1_grad_rel_max'][0]}), tol {TRAIN_GRAD_TOL}; assembled masters after each "
+        f"step, worst {[(n, f'{m:.3e}') for n, m in r0['master_rel_max']]} (tol "
+        f"{TP_MASTER_TOL}); their update's relative error median "
+        f"{[f'{x:.3e}' for x in r0['update_rel_median']]} (tol {TP_UPDATE_MEDIAN_TOL}), max "
+        f"{[(n, f'{m:.3e}') for n, m in r0['update_rel_max']]} (tol {TP_UPDATE_MAX_TOL}); fp32 "
+        f"(TF32 off, xla, {TP_FP32_LAYERS} layers) synced gradients on {TP_FP32_ROWS} rows median "
+        f"{r0['fp32_grad_rel_median']:.3e}, max {r0['fp32_grad_rel_max'][1]:.3e} "
+        f"({r0['fp32_grad_rel_max'][0]}), tol {TP_FP32_GRAD_TOL}")
+    log(f"  step host ms per rank {[[round(x, 1) for x in p['step_host_ms']] for p in pair]} "
+        f"against one process's {[round(x, 1) for x in ref['step_host_ms']]}; gloo all-reduce "
+        f"of one [32, 1024, 768] bf16 activation ({r0['activation_allreduce_bytes']} bytes) "
+        f"{[round(p['activation_allreduce_host_ms'], 2) for p in pair]} host ms; state per rank "
+        + "; ".join(f"rank {p['rank']} sharded {gib(p['state_bytes']['sharded'])} + replicated "
+                    f"{gib(p['state_bytes']['replicated'])}, max memory allocated in a step "
+                    f"{gib(p['max_memory_allocated'])}" for p in pair)
+        + f"; one process: {gib(sum(ref['state_bytes'].values()))}, "
+        f"{gib(ref['max_memory_allocated'])}")
+    ck = [p["checkpoint"] for p in pair]
+    log(f"[tp checkpoint] save {[round(c['save_ms'], 1) for c in ck]} ms, restore "
+        f"{[round(c['restore_ms'], 1) for c in ck]} ms into a fresh Trainer: "
+        f"{ck[0]['local_tensors']} local tensors per rank bitwise equal; one more step on both: "
+        f"loss {ck[0]['next_loss']:.5f} equal")
+    log(f"[tp generate] fp32 (TF32 off) generate_sharded on {len(TP_PROMPT_LENS)} ragged prompts "
+        f"{TP_PROMPT_LENS}, {TP_NEW} new: greedy tokens equal on both ranks, against static "
+        f"generate() on the assembled masters {g0['fp32_against_generate']}; bf16 "
+        f"{g0['bf16_ms_per_token']:.2f} ms per token, {g0['bf16_tokens_per_s']:.1f} tokens/s "
+        f"(rank 1: {g1['bf16_ms_per_token']:.2f} ms); top-k and top-p sampled tokens equal on "
+        f"both ranks (row 0 {g0['top_k'][0]}, {g0['top_p'][0]})")
+    log(f"[tp engine] ServingEngine(mesh=...) fp32, 4 slots, {len(g0['engine_tokens'])} requests, "
+        f"per-step ticks: every request at its budget, tokens equal on both ranks, against "
+        f"generate_sharded {g0['engine_against_generate_sharded']}; {g0['engine_ticks']} ticks, "
+        f"{g0['engine_tokens_out']} tokens in {g0['engine_s']:.2f} s")
+    phase_s = time.perf_counter() - start
+    log(f"[tp] phase 14 took {phase_s:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in legs_s.items()) + ")")
+    log(f"card: {smi}")
+    return dict(cli=cli, reference=ref, pair=pair, phase_s=phase_s, legs_s=legs_s), rows, \
+        r0["launches"]
+
+
 def leg_main(argv):
-    """``chip_smoke.py --leg <name> ...``: one leg of phase 12 or 13 in
+    """``chip_smoke.py --leg <name> ...``: one leg of phase 12, 13 or 14 in
     this process; prints its result as one ``dp-leg-result:`` JSON line."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4343,6 +5029,12 @@ def leg_main(argv):
         result = fsdp_nccl_leg()
     elif name == "fsdp_pair":
         result = fsdp_pair_leg(int(rest[0]), rest[1], rest[2])
+    elif name == "tp_cli_rank":
+        result = tp_cli_rank_leg(rest[0])
+    elif name == "tp_ref":
+        result = tp_reference_leg(rest[0])
+    elif name == "tp_pair":
+        result = tp_pair_leg(int(rest[0]), rest[1], rest[2])
     else:
         raise SystemExit(f"unknown leg {name!r}")
     print(DP_RESULT + json.dumps(result), flush=True)
@@ -4397,14 +5089,19 @@ def main():
 
     work = tempfile.mkdtemp(prefix="dp_legs_")
     try:
-        dp_report, dp_rows, dp_launches = dp_phase(smi, work)
+        dp_report, dp_rows, dp_launches, clis = dp_phase(smi, work)
         if not all(dp_launches.values()):
             raise AssertionError(f"the training_dp path left a kernel unlaunched: {dp_launches}")
-        fsdp_report, fsdp_launches = fsdp_phase(smi, work, dp_report, shell["fit"]["save"])
+        fsdp_report, fsdp_launches = fsdp_phase(smi, work, dp_report, shell["fit"]["save"],
+                                                clis["fsdp"])
         if not all(fsdp_launches.values()):
             raise AssertionError(f"the training_fsdp path left a kernel unlaunched: "
                                  f"{fsdp_launches}")
+        tp_report, tp_rows, tp_launches = tp_phase(smi, work, clis["tp"])
+        if not all(tp_launches.values()):
+            raise AssertionError(f"the training_tp path left a kernel unlaunched: {tp_launches}")
     finally:
+        _kill_launched()
         shutil.rmtree(work, ignore_errors=True)
 
     # one row per kernel and main path, each at the shape that path gives it:
@@ -4462,10 +5159,22 @@ def main():
         for kind, row, replaces in (
             ("fwd", dp_rows["fwd"], "tpu_parallel/ops/flash_attention.py:240"),
             ("bwd", dp_rows["bwd"], "tpu_parallel/ops/flash_attention.py:464,563"))
+    ] + [
+        # phase 14 (b)'s step on one rank: 6 local heads, views of its
+        # [B, S, 6, 192] qkv buffer; launches are rank 0's
+        dict(name=f"flash_{kind}", route="cuda", source=f"tpu_parallel_torch/csrc/flash_{kind}.cu",
+             replaces=replaces, path="training_tp", shape=row["shape"],
+             launches=tp_launches[f"flash_{kind}_launches"], max_abs_err=row["max_abs_err"],
+             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+             bound_by=row["bound_by"], library_ms=row["library_ms"])
+        for kind, row, replaces in (
+            ("fwd", tp_rows["fwd"], "tpu_parallel/ops/flash_attention.py:240"),
+            ("bwd", tp_rows["bwd"], "tpu_parallel/ops/flash_attention.py:464,563"))
     ]}
     summary = dict(card=smi, forward=fwd, generate=gen, train=train, serve=serve, kv=kv,
                    spec=spec, decode_extras=extras, trainer_shell=shell, data_parallel=dp_report,
-                   fsdp=fsdp_report,
+                   fsdp=fsdp_report, tensor_parallel=tp_report,
+                   tensor_parallel_kernel_shapes=tp_rows,
                    inference_flash_fwd_launches=inference_launches,
                    kernel_shapes=kernel_rows, bwd_kernel_shapes=bwd_rows,
                    trainer_shell_kernel_shapes=shell_rows, data_parallel_kernel_shapes=dp_rows)

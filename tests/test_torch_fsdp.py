@@ -291,8 +291,9 @@ def test_fsdp_config_without_mesh_is_replicated():
 
 def test_spmd_refuses_what_it_does_not_port():
     """``build_train_functions`` refuses a schedule-owned ``grad_fn`` (the
-    1F1B pipeline, item 5.4) and a model, pipe or seq axis above 1 (items
-    5.3-5.5)."""
+    1F1B pipeline, item 5.4) and a pipe or seq axis above 1 (items
+    5.4-5.5); a model axis above 1 is tensor parallelism
+    (``tests/test_torch_tp.py``)."""
     from tpu_parallel_torch.core.optim import AdamW
     from tpu_parallel_torch.parallel.spmd import make_model_init
 
@@ -300,10 +301,10 @@ def test_spmd_refuses_what_it_does_not_port():
     init = make_model_init(model, AdamW(lambda count: 1e-3))
     with pytest.raises(NotImplementedError, match="item 5.4"):
         build_train_functions(init, None, None, grad_fn=lambda *a: None)
-    for sizes, item in ((dict(data=2, model=2), "5.3"), (dict(pipe=2), "5.4"),
-                        (dict(seq=2), "5.5")):
+    for sizes, item in ((dict(pipe=2), "5.4"), (dict(seq=2), "5.5")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             refuse_later_axes(sizes)
+    refuse_later_axes(dict(data=2, model=2))
     funcs = build_train_functions(init, None, None)
     assert funcs.state_specs["lm_head.weight"] == (None, None)
     assert funcs.state_shapes["lm_head.weight"] == (256, 32)
@@ -495,14 +496,15 @@ def test_export_fsdp_sharded_params_and_generate(ranks):
     init serves plain ``generate`` with JAX's greedy tokens, its logits
     equal the mesh model's on the same tokens, and its serving weight set's
     fingerprint equals that of the replicated weights.  A leaf split over
-    the model axis is refused, naming item 5.3."""
+    the model axis is refused with JAX's ``ValueError`` (serve it under the
+    mesh)."""
     tokens = _jax_export_tokens()
     for out in ranks:
         np.testing.assert_array_equal(out["export_tokens"], tokens)
         np.testing.assert_allclose(out["export_mesh_logits"], out["export_single_logits"],
                                    rtol=1e-5, atol=1e-5)
         assert str(out["export_fingerprint"]) == str(out["export_dp_fingerprint"])
-        assert "item 5.3" in str(out["export_model_split_error"])
+        assert "run inference under the mesh" in str(out["export_model_split_error"])
 
 
 def test_checkpoint_roundtrip_sharded(ranks):

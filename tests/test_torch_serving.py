@@ -498,9 +498,40 @@ def test_same_seed_same_sampled_stream(model, steps):
     assert _sampled_stream(model, 8, steps) != a
 
 
+# knobs that hold JAX's limits: under a mesh (a gloo world of one here; the
+# tensor-parallel runs are tests/test_torch_tp.py's) the paged pool and
+# decode_steps_per_tick > 1 raise the JAX engine's NotImplementedError, and
+# the engine decodes per-step with neither the unified tick nor a graph
 REFUSED = {
-    "mesh": dict(mesh=object()),
+    "mesh": (dict(kv_block_tokens=8), dict(decode_steps_per_tick=4)),
 }
+
+
+def _mesh_limits(plain, tmp_path):
+    import torch.distributed as dist
+
+    from tpu_parallel_torch.runtime import MeshConfig, make_mesh
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'rendezvous'}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(MeshConfig(data=1))
+        model = GPTLM(tiny_test(), device="cpu", seed=3, mesh=mesh).eval()
+        with pytest.raises(ValueError, match="the mesh the model was built on"):
+            ServingEngine(plain, n_slots=2, mesh=mesh)
+        for bad in REFUSED["mesh"]:
+            with pytest.raises(NotImplementedError, match="under a mesh"):
+                ServingEngine(model, n_slots=2, mesh=mesh, **bad)
+        eng = ServingEngine(model, n_slots=2, mesh=mesh)
+        assert eng.decode_steps_per_tick == 1 and not eng.unified_tick
+        ref = ServingEngine(plain, n_slots=2, decode_steps_per_tick=1)
+        prompt = _prompts(30, [5])[0]
+        outs = [e.add_request(Request(prompt=prompt, max_new_tokens=5)) for e in (eng, ref)]
+        eng.run()
+        ref.run()
+        assert outs[0].tokens == outs[1].tokens and eng.graph_captures == 0
+    finally:
+        dist.destroy_process_group()
 
 
 class _EchoDrafter:
@@ -535,8 +566,7 @@ PORTED = {
 @pytest.mark.parametrize("knob", sorted(REFUSED) + sorted(PORTED) + sorted(SPEC_KNOBS))
 def test_refused_knob_raises(model, knob, tmp_path):
     if knob in REFUSED:
-        with pytest.raises(NotImplementedError, match="later slice of the port"):
-            ServingEngine(model, n_slots=2, **REFUSED[knob])
+        _mesh_limits(model, tmp_path)
         return
     if knob in SPEC_KNOBS:
         bad, error, match, good = SPEC_KNOBS[knob]

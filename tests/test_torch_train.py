@@ -322,28 +322,28 @@ def test_trainer_train_reports_throughput_and_masters():
 
 
 def test_trainer_refuses_what_it_does_not_port():
-    """The MLM objective (item 6), model, pipe and seq axes above 1 (items
-    5.3-5.5) and a config the port cannot run yet raise; a data axis above
-    1 is data parallelism, which without a process group meets JAX's
-    error for a mesh the devices do not cover (the DP runs are
-    ``tests/test_torch_dp.py``'s); a one-device mesh is accepted."""
+    """The MLM objective (item 6), pipe and seq axes above 1 (items
+    5.4-5.5) and a config the port cannot run yet raise; a data axis above
+    1 is data parallelism and a model axis above 1 tensor parallelism,
+    which without a process group meet JAX's errors for a mesh the devices
+    do not cover (the DP and TP runs are ``tests/test_torch_dp.py``'s and
+    ``tests/test_torch_tp.py``'s); ``gpt2_125m_tp`` loads; a one-device
+    mesh is accepted."""
     from tpu_parallel_torch.configs import get_config
 
     with pytest.raises(NotImplementedError, match="mlm.*item 6"):
         Trainer(TrainerConfig(model="tiny", objective="mlm"), device="cpu")
-    for mesh, item in ((dict(data=-1, model=2), "5.3"), (dict(pipe=4), "5.4"),
-                       (dict(data=2, seq=2), "5.5")):
+    for mesh, item in ((dict(pipe=4), "5.4"), (dict(data=2, seq=2), "5.5")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             Trainer(TrainerConfig(model="tiny", mesh=mesh), device="cpu")
     jax_mesh = functools.partial(make_mesh, devices=jax.devices()[:1])
-    for data in (2, 4):
-        with pytest.raises(ValueError, match="does not cover 1 devices") as want:
-            jax_mesh(MeshConfig(data=data))
-        with pytest.raises(ValueError, match="does not cover 1 devices") as got:
-            Trainer(TrainerConfig(model="tiny", mesh=dict(data=data)), device="cpu")
+    for mesh in (dict(data=2), dict(data=4), dict(data=-1, model=2), dict(data=1, model=2)):
+        with pytest.raises(ValueError, match="1 devices") as want:
+            jax_mesh(MeshConfig(**mesh))
+        with pytest.raises(ValueError, match="1 devices") as got:
+            Trainer(TrainerConfig(model="tiny", mesh=mesh), device="cpu")
         assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        get_config("gpt2_125m_tp")
+    assert get_config("gpt2_125m_tp")["mesh"] == dict(data=1, model=-1, pipe=1, seq=1)
     Trainer(TrainerConfig(model="tiny", mesh=dict(data=-1, model=1, pipe=1, seq=1)),
             device="cpu")
     Trainer(TrainerConfig(model="tiny", mesh=MeshConfig(data=1)), device="cpu")

@@ -5,7 +5,7 @@
 
 Starts ``num_ranks`` gloo CPU processes through
 ``tpu_parallel_torch.runtime.spawn_cpu_ranks`` and runs every case of
-``suite`` (``runtime``, ``dp`` or ``fsdp``) in that one group.  Each rank reads the
+``suite`` (``runtime``, ``dp``, ``fsdp`` or ``tp``) in that one group.  Each rank reads the
 inputs the test wrote to ``<outdir>/inputs.npz`` and writes its results to
 ``<outdir>/<suite>_rank<r>.npz``; the test compares them with the JAX
 package in its own process.  Imports torch, numpy and the port only.
@@ -588,7 +588,7 @@ def _fsdp_cases(inputs, outdir, out):
     try:
         export_single_device_params({"w": DTensor.from_local(torch.ones(2), mesh22, split)})
         out["export_model_split_error"] = np.array("")
-    except NotImplementedError as exc:
+    except ValueError as exc:
         out["export_model_split_error"] = np.array(str(exc))
 
     # (6) sharded checkpoints: save after 3 steps, restore bitwise into a
@@ -652,7 +652,346 @@ def _tensor_leaves(tree):
     return found
 
 
-SUITES = {"runtime": _runtime_cases, "dp": _dp_cases, "fsdp": _fsdp_cases}
+def _assembled(out, prefix, tree, shards):
+    """The full tensors of ``tree`` (a dict by parameter name, this rank's
+    slices of the parameters in ``shards``), each slice all-gathered over
+    its axis."""
+    import torch
+    import torch.distributed as dist
+
+    for name, value in tree.items():
+        value = value.to_local() if hasattr(value, "to_local") else value
+        info = shards.get(name)
+        if info is not None:
+            parts = [torch.empty_like(value) for _ in range(info.size)]
+            dist.all_gather(parts, value.contiguous(), group=info.group)
+            value = torch.cat(parts, dim=info.dim)
+        out[f"{prefix}/{name}"] = value.detach().float().numpy().copy()
+
+
+def _tp_cases(inputs, outdir, out):
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from tpu_parallel_torch.core.accumulate import accumulate_gradients
+    from tpu_parallel_torch.core.losses import vocab_parallel_argmax, vocab_parallel_cross_entropy
+    from tpu_parallel_torch.core.metrics import compute
+    from tpu_parallel_torch.core.optim import AdamW, global_norm_sharded
+    from tpu_parallel_torch.models import GPTLM, tiny_test
+    from tpu_parallel_torch.models.convert import params_from_jax, params_to_jax
+    from tpu_parallel_torch.models.generate import (_sample_sharded, export_single_device_params,
+                                                    generate, generate_sharded)
+    from tpu_parallel_torch.models.gpt import make_gpt_loss
+    from tpu_parallel_torch.parallel import dp, fsdp, tp
+    from tpu_parallel_torch.parallel.spmd import build_train_functions, make_model_init
+    from tpu_parallel_torch.runtime import MeshConfig, make_mesh
+    from tpu_parallel_torch.serving import Request, SchedulerConfig, ServingEngine
+    from tpu_parallel_torch.serving.cache_pool import cache_partition_specs
+    from tpu_parallel_torch.train_lib import Trainer, TrainerConfig
+
+    mesh = make_mesh(MeshConfig(data=2, model=2))
+    data, model = mesh.get_local_rank("data"), mesh.get_local_rank("model")
+    out["coords"] = np.array([data, model])
+
+    # (1) tests/test_tp.py's layers against the dense math on the assembled
+    # weights (the inputs are replicated)
+    gen = lambda: torch.Generator().manual_seed(0)
+    x16 = torch.from_numpy(inputs["x16"].copy())
+    col = tp.TPDense(16, 8, style="column", gather_output=True, mesh=mesh, generator=gen())
+    row = tp.TPDense(16, 8, style="row", split_input=True, mesh=mesh, generator=gen())
+    mlp = tp.TPMLP(12, 16, 12, mesh=mesh, generator=gen())
+    with torch.no_grad():
+        out["col_out"] = col(x16).numpy()
+        out["row_out"] = row(x16).numpy()
+        out["mlp_out"] = mlp(x16[:, :12]).numpy()
+    for prefix, module in (("col", col), ("row", row), ("mlp", mlp)):
+        params = dict(module.named_parameters())
+        _assembled(out, f"{prefix}_w", params,
+                   {n: fsdp.shard_info(p) for n, p in params.items() if fsdp.shard_info(p)})
+        out[f"{prefix}_local_shape/weight"] = np.array(
+            (module.up if prefix == "mlp" else module).weight.shape)
+    # the gathered column's backward: (reduce-scatters, all-reduces,
+    # all-gathers) it launches, and the assembled gradients
+    counts = lambda: (tp.tp_reducescatter_launches, tp.tp_allreduce_launches,
+                      tp.tp_allgather_launches)
+    before = counts()
+    (col(x16) * torch.from_numpy(inputs["col_cot"].copy())).sum().backward()
+    out["col_gather_collectives"] = np.array([a - b for a, b in zip(counts(), before)])
+    _assembled(out, "col_g", {n: p.grad for n, p in col.named_parameters()},
+               {n: fsdp.shard_info(p) for n, p in col.named_parameters()})
+    once = tp.TPDense(8, 4, style="row", split_input=True, mesh=mesh)
+    with torch.no_grad():
+        once.weight.zero_()
+        once.bias.fill_(1.0)
+        out["row_bias_once"] = once(torch.zeros(2, 8)).numpy()
+    wide = tp.TPDense(256, 64, style="row", split_input=True, mesh=mesh, generator=gen())
+    dense = tp.TPDense(256, 64, style="row", generator=gen())
+    out["row_init_std"] = np.array([float(wide.weight.std()), float(dense.weight.std())])
+    try:
+        tp.split_over_axis(torch.zeros(2, 9), "model", mesh=mesh)
+        out["split_error"] = np.array("")
+    except ValueError as exc:
+        out["split_error"] = np.array(str(exc))
+
+    # (2) the vocab-parallel CE and argmax on this rank's columns of the
+    # replicated logits, loss and gradients
+    logits = torch.from_numpy(inputs["vp_logits"].copy()).requires_grad_(True)
+    targets = torch.from_numpy(inputs["vp_targets"].copy()).long()
+    ce, pred = vocab_parallel_cross_entropy(tp.split_over_axis(logits, "model", mesh=mesh),
+                                            targets, "model", mesh)
+    ce.sum().backward()
+    out["vp_ce"] = ce.detach().numpy()
+    out["vp_pred"] = pred.numpy()
+    # rank-local gradient: tp x this rank's columns of the exact one
+    out["vp_grad"] = logits.grad.numpy()
+    tied = torch.zeros(3, 8)
+    tied[:, [1, 6]] = 2.0
+    out["vp_tie"] = vocab_parallel_argmax(tp.split_over_axis(tied, "model", mesh=mesh),
+                                          "model", mesh).numpy()
+
+    # (3) tests/test_tp.py:212: synced gradients against dense, and the two
+    # planted faults (no division; a second division)
+    class Net(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.pre = torch.nn.Linear(16, 16)
+            self.up = tp.TPDense(16, 32, style="column", use_bias=False, mesh=mesh)
+            self.down = tp.TPDense(32, 16, style="row", use_bias=False, mesh=mesh)
+
+        def forward(self, x):
+            return self.down(F.gelu(self.up(self.pre(x))))
+
+    net = Net()
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            full = torch.from_numpy(inputs[f"net/{name}"].copy())
+            info = fsdp.shard_info(p)
+            p.copy_(full if info is None else info.local(full))
+    shards = {n: fsdp.shard_info(p) for n, p in net.named_parameters()
+              if fsdp.shard_info(p) is not None}
+    for variant, axes in (("good", ("model",)), ("no_div", ()), ("extra_div", ("model",))):
+        net.zero_grad()
+        (net(x16) ** 2).mean().backward()
+        grads = {n: p.grad for n, p in net.named_parameters()}
+        view = {n: shards[n].dtensor(g) if n in shards else g for n, g in grads.items()}
+        fsdp.sync_gradients(view, ("data", "model"), replicated_loss_axes=axes, mesh=mesh)
+        if variant == "extra_div":
+            for n in shards:
+                grads[n].div_(2.0)
+        _assembled(out, f"net_grad_{variant}", grads, shards)
+
+    # (4) tiny GPT: the synced gradients and the clip's norm against one
+    # process, and the metrics on the model axis
+    gparams = nested_tree("gparams", inputs)
+    gbatch = _text_batch(inputs, "gbatch")
+    local = gbatch.rows(4 * data, 4 * data + 4)
+    gcfg = tiny_test()
+    gmodel = GPTLM(gcfg, device="cpu", mesh=mesh)
+    loss_fn = make_gpt_loss(gcfg, mesh=mesh)
+    funcs = build_train_functions(make_model_init(gmodel, AdamW(lambda count: 0.0)), loss_fn,
+                                  mesh, grad_sync_axes=("data", "model"))
+    state = funcs.init_fn(None, params_from_jax(gparams, gcfg, dtype=torch.float32))
+    grads, _ = accumulate_gradients(state, local, state.rng, 2, loss_fn)
+    fsdp.sync_gradients(state.partitioned(grads), ("data", "model"), mesh=mesh)
+    _assembled(out, "gpt_grad", grads, state.shards)
+    out["gpt_grad_norm"] = np.array(float(global_norm_sharded(state.partitioned(grads))))
+    single = GPTLM(gcfg, device="cpu")
+    single.load_state_dict(params_from_jax(gparams, gcfg, dtype=torch.float32))
+    loss, single_metrics = make_gpt_loss(gcfg)(single, gbatch)
+    loss.backward()
+    out["gpt_metrics_single"] = np.array([float(single_metrics["loss"][0]),
+                                          float(single_metrics["loss"][1]),
+                                          float(single_metrics["accuracy"][0])])
+    for name, p in single.named_parameters():
+        out[f"gpt_grad_single/{name}"] = p.grad.numpy().copy()
+    state.zero_grads()
+    losses = []
+    for _ in range(2):
+        state, metrics = funcs.step_fn(state, None, local)
+        losses.append([float(metrics["loss"][0]), float(metrics["loss"][1]),
+                       float(metrics["accuracy"][0])])
+    out["gpt_metrics"] = np.array(losses)
+    out["gpt_specs"] = np.array(json.dumps(funcs.state_specs))
+    out["gpt_local_shapes"] = np.array(json.dumps(funcs.state_shapes))
+
+    # (5) the Trainer over data=2 x model=2 from JAX's TP init: MHA and GQA,
+    # xla and flash, 4 steps; per-step collectives; state slices
+    for name in ("mha_xla", "mha_flash", "gqa_xla", "gqa_flash"):
+        kind, impl = name.split("_")
+        overrides = dict(attn_impl=impl, **({"n_kv_heads": 2} if kind == "gqa" else {}))
+        trainer = Trainer(TrainerConfig(model="tiny", global_batch_size=8, num_minibatches=2,
+                                        steps=4, warmup_steps=2, ema_decay=0.9,
+                                        model_overrides=overrides),
+                          mesh=mesh, device="cpu")
+        tstate = trainer.init(params_from_jax(nested_tree(f"tparams_{name}", inputs),
+                                              trainer.model_config, dtype=torch.float32))
+        batch = trainer.local_rows(_text_batch(inputs, f"example_{name}"))
+        losses, counts = [], []
+        for _ in range(4):
+            before = (tp.tp_allreduce_launches, dp.dp_allreduce_launches)
+            tstate, metrics = trainer.step_fn(tstate, None, batch)
+            counts.append([tp.tp_allreduce_launches - before[0],
+                           dp.dp_allreduce_launches - before[1]])
+            losses.append(compute(metrics)["loss"])
+        out[f"trainer_{name}_losses"] = np.array(losses)
+        out[f"trainer_{name}_counts"] = np.array(counts)
+        _assembled(out, f"trainer_{name}", tstate.params, tstate.shards)
+        if name == "mha_xla":
+            shapes = {}
+            for n in tstate.shards:
+                mu = tstate.opt_state[1]["mu"][n]
+                shapes[n] = [list(tstate.params[n].shape), list(mu.shape),
+                             list(tstate.ema_params[n].shape), list(tstate.grads[n].shape),
+                             list(tstate.shards[n].full_shape), tstate.shards[n].dim]
+            out["trainer_shard_shapes"] = np.array(json.dumps(shapes))
+            out["trainer_replicated"] = np.array(sorted(
+                n for n in tstate.params if n not in tstate.shards))
+            for n in tstate.params:
+                if n not in tstate.shards:
+                    out[f"trainer_rep/{n}"] = tstate.params[n].numpy().copy()
+            try:
+                export_single_device_params(tstate.partitioned(tstate.params))
+                out["export_error"] = np.array("")
+            except ValueError as exc:
+                out["export_error"] = np.array(str(exc))
+            # the mesh layout back to JAX: every model rank's slices
+            local = {n: p.detach().float() for n, p in tstate.model.named_parameters()}
+            ranks = [None] * 2
+            for r in range(2):
+                ranks[r] = {n: torch.empty_like(v) for n, v in local.items()}
+            for n, v in local.items():
+                parts = [torch.empty_like(v) for _ in range(2)]
+                dist.all_gather(parts, v.contiguous(), group=mesh.get_group("model"))
+                for r in range(2):
+                    ranks[r][n] = parts[r]
+            out.update(flat_tree("to_jax", params_to_jax(ranks, trainer.model_config)))
+
+    # (6) remat policies: all-reduces per step over the model axis, and
+    # the forward's alone
+    for policy in ("full", "proj", "proj_attn", "dots"):
+        trainer = Trainer(TrainerConfig(model="tiny", global_batch_size=8, steps=1,
+                                        model_overrides=dict(remat_policy=policy)),
+                          mesh=mesh, device="cpu")
+        tstate = trainer.init(params_from_jax(nested_tree("tparams_mha_xla", inputs),
+                                              trainer.model_config, dtype=torch.float32))
+        batch = trainer.local_rows(_text_batch(inputs, "example_mha_xla"))
+        before = tp.tp_allreduce_launches
+        with torch.no_grad():
+            trainer.loss_fn(tstate.model, batch, tstate.rng)
+        fwd = tp.tp_allreduce_launches - before
+        before = tp.tp_allreduce_launches
+        tstate, metrics = trainer.step_fn(tstate, None, batch)
+        out[f"remat_{policy}"] = np.array([fwd, tp.tp_allreduce_launches - before,
+                                           compute(metrics)["loss"]])
+    chunk = Trainer(TrainerConfig(model="tiny", global_batch_size=8, steps=2,
+                                  model_overrides=dict(loss_chunk=8)), mesh=mesh, device="cpu")
+    cstate = chunk.init(params_from_jax(nested_tree("tparams_mha_xla", inputs),
+                                        chunk.model_config, dtype=torch.float32))
+    batch = chunk.local_rows(_text_batch(inputs, "example_mha_xla"))
+    out["chunk_losses"] = np.array([compute(chunk.step_fn(cstate, None, batch)[1])["loss"]
+                                    for _ in range(2)])
+    try:
+        GPTLM(tiny_test(fsdp=True, fsdp_min_size=0), device="cpu", mesh=mesh)
+        out["fsdp_tp_error"] = np.array("")
+    except NotImplementedError as exc:
+        out["fsdp_tp_error"] = np.array(str(exc))
+    for name, kw in (("heads", dict(n_heads=1, d_model=32)), ("kv", dict(n_kv_heads=1))):
+        try:
+            GPTLM(tiny_test(**kw), device="cpu", mesh=mesh)
+            out[f"divisible_error_{name}"] = np.array("")
+        except ValueError as exc:
+            out[f"divisible_error_{name}"] = np.array(str(exc))
+
+    # (7) generation under the mesh from JAX's TP init (fp32, no remat)
+    gcfg = tiny_test(remat=False)
+    sharded = GPTLM(gcfg, device="cpu", mesh=mesh)
+    sharded.load_state_dict(params_from_jax(nested_tree("tparams_mha_xla", inputs), gcfg,
+                                            model_rank=model))
+    prompt = torch.from_numpy(inputs["gen_prompt"].copy()).long()
+    mask = torch.from_numpy(inputs["gen_mask"].copy())
+    out["gen_tokens"] = generate_sharded(sharded, prompt, max_new_tokens=8,
+                                         prompt_mask=mask).numpy()
+    dense = GPTLM(gcfg, device="cpu")
+    dense.load_state_dict(params_from_jax(nested_tree("tparams_mha_xla", inputs), gcfg))
+    out["gen_dense_tokens"] = generate(dense, prompt, max_new_tokens=8, prompt_mask=mask).numpy()
+    for name, kw in (("topk", dict(top_k=5)), ("topp", dict(top_p=0.9)), ("temp", dict())):
+        out[f"gen_{name}"] = generate_sharded(sharded, prompt, rng=torch.Generator().manual_seed(7),
+                                              max_new_tokens=6, temperature=1.0, **kw).numpy()
+    with torch.no_grad():
+        out["gen_mesh_logits"] = sharded(prompt).numpy()
+        out["gen_dense_logits"] = dense(prompt).numpy()
+    # _sample_sharded on rows of one logit vector: greedy is the argmax,
+    # top-k stays in the global top-k, every rank draws the same tokens
+    row = torch.from_numpy(inputs["sample_logits"].copy())
+    rows = row.expand(512, -1).contiguous()
+    shard = tp.split_over_axis(rows, "model", mesh=mesh)
+    g = torch.Generator().manual_seed(11)
+    out["sample_greedy"] = _sample_sharded(shard, g, 0.0, 0, 0.0, "model", mesh).numpy()
+    for name, (t, k, pp) in (("topk", (1.0, 4, 0.0)), ("temp", (1.0, 0, 0.0)),
+                             ("topp", (1.0, 0, 0.8))):
+        out[f"sample_{name}"] = _sample_sharded(shard, g, t, k, pp, "model", mesh).numpy()
+
+    # (8) the engine over the mesh: greedy tokens against generate_sharded's
+    # on the same prompts (a batch of 2, which the data axis divides)
+    eprompt = torch.from_numpy(inputs["engine_prompt"].copy()).long()
+    want = generate_sharded(sharded, eprompt, max_new_tokens=6)
+    eng = ServingEngine(sharded, n_slots=2, mesh=mesh,
+                        scheduler=SchedulerConfig(max_prefills_per_tick=2))
+    outs = [eng.add_request(Request(prompt=eprompt[i].tolist(), max_new_tokens=6,
+                                    request_id=f"r{i}")) for i in range(2)]
+    eng.run()
+    out["engine_tokens"] = np.array([o.tokens for o in outs])
+    out["engine_want"] = want.numpy()
+    out["engine_status"] = np.array([o.status for o in outs])
+    out["engine_fused"] = np.array([eng.decode_steps_per_tick, int(eng.unified_tick),
+                                    eng.graph_captures])
+    out["engine_pool_heads"] = np.array(eng.pool.cache[0].key_heads.shape)
+    out["engine_cache_specs"] = np.array(json.dumps(cache_partition_specs(sharded, mesh)))
+    errors = []
+    for kw in (dict(kv_block_tokens=8), dict(decode_steps_per_tick=4)):
+        try:
+            ServingEngine(sharded, n_slots=2, mesh=mesh, **kw)
+            errors.append("")
+        except NotImplementedError as exc:
+            errors.append(str(exc))
+    out["engine_errors"] = np.array(errors)
+    # 8 requests of mixed lengths through 2 slots: each finishes at its budget
+    lens = [3, 5, 7, 4, 6, 2, 8, 5]
+    reqs = [eng.add_request(Request(prompt=[int(t) for t in eprompt[i % 2][:n]],
+                                    max_new_tokens=4 + i % 3, request_id=f"m{i}"))
+            for i, n in enumerate(lens)]
+    eng.run()
+    out["engine_mixed"] = np.array([[len(o.tokens), 4 + i % 3] for i, o in enumerate(reqs)])
+    single_engine = ServingEngine(dense, n_slots=2, scheduler=SchedulerConfig(
+        max_prefills_per_tick=2), decode_steps_per_tick=1)
+    douts = [single_engine.add_request(Request(prompt=eprompt[i].tolist(), max_new_tokens=6,
+                                               request_id=f"r{i}")) for i in range(2)]
+    single_engine.run()
+    out["engine_dense_tokens"] = np.array([o.tokens for o in douts])
+
+    # (9) a model-sharded checkpoint: saved after 2 steps, restored bitwise
+    # into a fresh Trainer, 2 more steps on both
+    ckpt_config = TrainerConfig(model="tiny", global_batch_size=8, steps=2, log_every=10)
+    t1 = Trainer(ckpt_config, mesh=mesh, device="cpu")
+    t1.init()
+    t1.train(steps=2)
+    ckpt_dir = os.path.join(outdir, "tp_ckpt")
+    t1.save_checkpoint(ckpt_dir, step=t1.state.step)
+    t2 = Trainer(ckpt_config, mesh=mesh, device="cpu")
+    restored = t2.restore_checkpoint(ckpt_dir)
+    out["ckpt_step"] = np.array(restored.step)
+    same = [torch.equal(a, b) for a, b in zip(
+        _tensor_leaves(t1.state.state_dict()), _tensor_leaves(restored.state_dict()))]
+    out["ckpt_bitwise"] = np.array(all(same) and len(same) > 0)
+    out["ckpt_module_bitwise"] = np.array(all(
+        torch.equal(a, b) for a, b in zip(t1.model.parameters(), t2.model.parameters())))
+    out["ckpt_sharded_leaves"] = np.array(len(t1.state.shards))
+    r1, r2 = t1.train(steps=2), t2.train(steps=2)
+    out["ckpt_more_losses"] = np.array([r1["loss"], r2["loss"]])
+
+
+SUITES = {"runtime": _runtime_cases, "dp": _dp_cases, "fsdp": _fsdp_cases, "tp": _tp_cases}
 
 
 def run_suite(suite, outdir):

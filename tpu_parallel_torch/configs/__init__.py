@@ -18,15 +18,15 @@ from typing import Any, Dict
 
 from tpu_parallel_torch.configs.common import PLACEHOLDER_TYPES
 
-CONFIGS = ("gpt2_125m_dp", "gpt2_125m_corpus", "gpt2_125m_long", "mlp_dp_cpu")
+CONFIGS = ("gpt2_125m_dp", "gpt2_125m_tp", "gpt2_125m_corpus", "gpt2_125m_long",
+           "mlp_dp_cpu")
 
 # the repo's other configs -> what the port lacks to run them
 UNPORTED = {
-    "gpt2_125m_tp": "tensor parallelism (ROADMAP queue A item 5.3)",
     "gpt2_350m_pp": "pipeline parallelism (ROADMAP queue A item 5.4)",
     "gpt2_moe_ep": "mixture of experts with expert parallelism (ROADMAP queue A item 5.6)",
-    "llama_1b_3d": "the Llama family (item 6) on a DP x TP x PP mesh (item 5.3, item 5.4)",
-    "tiny_3d_cpu": "a DP x TP x PP mesh (ROADMAP queue A item 5.3, item 5.4)",
+    "llama_1b_3d": "the Llama family and FSDP x TP (item 6) on a DP x TP x PP mesh (item 5.4)",
+    "tiny_3d_cpu": "a DP x TP x PP mesh (ROADMAP queue A item 5.4)",
     "bert_base_mlm": "the bidirectional encoder and the MLM objective (ROADMAP queue A item 6)",
     "t5_small_s2s": "the encoder-decoder family (ROADMAP queue A item 6)",
 }

@@ -39,14 +39,15 @@ def sync_metrics(metrics: Metrics, axis_names: Union[str, Sequence[str]],
     summed.  ``mean_axes``: axes whose ranks compute *replicated* metrics
     (the tensor-parallel axis) — averaged, so token counts stay exact.
     Every sum and count rides in one fp32 tensor: one ``all_reduce`` per
-    bound axis.  Unbound axes are skipped (no mesh: a no-op)."""
+    bound axis above size 1.  Unbound axes, and axes of size 1 (where the
+    sum and the mean are the identity), are skipped (no mesh: a no-op)."""
     if isinstance(axis_names, str):
         axis_names = (axis_names,)
     if isinstance(mean_axes, str):
         mean_axes = (mean_axes,)
     groups = [(axis_group(mesh, name), False) for name in axis_names]
     groups += [(axis_group(mesh, name), True) for name in mean_axes]
-    groups = [(bound, mean) for bound, mean in groups if bound is not None]
+    groups = [(bound, mean) for bound, mean in groups if bound is not None and bound[1] > 1]
     if not groups:
         return metrics
     keys = sorted(metrics)

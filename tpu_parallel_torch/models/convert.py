@@ -4,12 +4,18 @@
 ``GPTLM.init`` gives (nested dicts of arrays; scanned ``blocks/layers/block``
 with a leading ``[n_layers]`` axis, or unrolled ``blocks/layer_{i}``) into
 the port's state dict.  Flax kernels are ``[in, out]``; PyTorch ``Linear``
-weights are ``[out, in]``.  It raises on a missing leaf, an extra leaf or a
-shape that does not match.  Nothing here imports JAX: leaves are read with
+weights are ``[out, in]``.  A tree initialized under a mesh with a model
+axis holds each tensor-parallel leaf under ``.../shard/sharded/...``,
+stacked ``[tp, ...]`` (after the ``[n_layers]`` axis when scanned; the
+``nn.Partitioned`` boxes unwrapped to their global arrays): the function
+returns rank r's slice (``model_rank=r``) or the full weights.  It raises
+on a missing leaf, an extra leaf or a shape that does not match.
+Nothing here imports JAX: leaves are read with
 ``numpy.asarray`` (torch leaves, bf16 ones too, through fp32).
-:func:`params_to_jax` is its exact inverse, so the port builds the JAX
-layout's tree (for ``models/quantize.py`` and its ``.npz`` files) without
-JAX.
+:func:`params_to_jax` is its exact inverse (from one state dict, or from
+every model rank's for the stacked mesh layout), so the port builds the
+JAX layout's tree (for ``models/quantize.py`` and its ``.npz`` files)
+without JAX.
 
 :func:`init_params` draws the port's own weights from a seed, with flax's
 default distributions, so the model runs realistic activations without JAX.
@@ -21,7 +27,7 @@ and ``head/kernel|bias``) when ``config`` is an ``MLPConfig``.
 from __future__ import annotations
 
 import math
-from typing import Dict, Iterator, Mapping, Tuple
+from typing import Dict, Iterator, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -54,6 +60,11 @@ _TOP = (
     ("lm_head/shard/kernel", "lm_head.weight", True),
 )
 _SCANNED = "blocks/layers/block/"
+# ModuleShard's scope: a tensor-parallel leaf's per-rank stack
+_SHARD, _STACKED = "/shard/", "/shard/sharded/"
+# Linear weights split along their input (row-parallel); every other
+# stacked leaf splits its output
+_ROW = ("attn.out.weight", "mlp.down.weight")
 
 
 def _block_leaves(config) -> Tuple[Tuple[str, str, bool], ...]:
@@ -139,16 +150,26 @@ def _mlp_from_jax(tree: Mapping, config, dtype=None) -> Dict[str, torch.Tensor]:
     return state
 
 
-def params_from_jax(tree: Mapping, config, dtype=None) -> Dict[str, torch.Tensor]:
+def _tp_axis(key: str) -> int:
+    """The flax axis of a stacked leaf's per-rank slices: the kernel's
+    input (0) for a row-parallel weight, its output (-1) otherwise."""
+    return 0 if key.endswith(_ROW) else -1
+
+
+def params_from_jax(tree: Mapping, config, dtype=None, *,
+                    model_rank: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """The port's state dict from a JAX ``GPTLM`` (or ``MLPClassifier``)
     parameter tree.
 
-    Works for both layer layouts of the JAX package.  Each tensor comes back
-    on the CPU in the dtype of the port's module (``config.dtype`` for
-    matmul weights, biases and embeddings; fp32 for LayerNorm), ready for
-    ``GPTLM.load_state_dict``, or in ``dtype`` when given:
-    ``dtype=torch.float32`` keeps the tree's own fp32 values, the master
-    weights of training (``TrainState.create``).
+    Works for both layer layouts of the JAX package, initialized without a
+    mesh or under one.  Each tensor comes back on the CPU in the dtype of
+    the port's module (``config.dtype`` for matmul weights, biases and
+    embeddings; fp32 for LayerNorm), ready for ``GPTLM.load_state_dict``,
+    or in ``dtype`` when given: ``dtype=torch.float32`` keeps the tree's
+    own fp32 values, the master weights of training
+    (``TrainState.create``).  A tensor-parallel leaf (stacked under
+    ``shard/sharded``) gives rank ``model_rank``'s slice, or with
+    ``model_rank=None`` the full weight, its ranks' slices side by side.
     """
     if _is_mlp(config):
         return _mlp_from_jax(tree, config, dtype)
@@ -168,6 +189,9 @@ def params_from_jax(tree: Mapping, config, dtype=None) -> Dict[str, torch.Tensor
                 wanted.append((_SCANNED + path, port_key, t, i))
             else:
                 wanted.append((f"blocks/layer_{i}/{path}", port_key, t, None))
+    # a leaf of the mesh layout stands under ModuleShard's per-rank stack
+    wanted = [(p.replace(_SHARD, _STACKED) if p not in flat and p.replace(_SHARD, _STACKED)
+               in flat else p, k, t, i) for p, k, t, i in wanted]
     missing = sorted({p for p, _, _, _ in wanted if p not in flat})
     if missing:
         raise KeyError(f"JAX parameter tree lacks {missing}")
@@ -185,24 +209,46 @@ def params_from_jax(tree: Mapping, config, dtype=None) -> Dict[str, torch.Tensor
                     f"{config.n_layers}] axis"
                 )
             arr = arr[layer]
+        shape, module_dtype = shapes[key]
+        if _STACKED in path:
+            tp = arr.shape[0]
+            axis = _tp_axis(key)
+            full = np.concatenate(list(arr), axis=axis)
+            if (full.T if transpose else full).shape != shape:
+                raise ValueError(f"{path}: stacked shape {arr.shape} does not fit {key} {shape}")
+            if model_rank is not None:
+                if not 0 <= model_rank < tp:
+                    raise ValueError(f"model_rank={model_rank} of {tp} shards")
+                full = arr[model_rank]
+            arr = full
+            shape = (arr.T if transpose else arr).shape
         if transpose:
             arr = arr.T
-        shape, module_dtype = shapes[key]
         if arr.shape != shape:
             raise ValueError(f"{path}: shape {arr.shape} does not fit {key} {shape}")
         state[key] = torch.tensor(arr, dtype=dtype or module_dtype)
     return state
 
 
-def params_to_jax(state_dict: Mapping[str, torch.Tensor], config) -> Dict:
+def params_to_jax(state_dict: Union[Mapping[str, torch.Tensor],
+                                    Sequence[Mapping[str, torch.Tensor]]], config) -> Dict:
     """The JAX ``GPTLM`` parameter tree of a port state dict: the exact
     inverse of :func:`params_from_jax`.  ``Linear`` weights go back to
     flax's ``[in, out]``; ``config.scan_layers`` stacks every block leaf
     under ``blocks/layers/block`` with a leading ``[n_layers]`` axis, else
-    each layer sits under ``blocks/layer_{i}``.  Leaves are new contiguous
-    CPU tensors in the state dict's dtypes.  An ``MLPConfig`` gives the
-    MLP classifier's tree; its state dict must hold exactly its layers."""
+    each layer sits under ``blocks/layer_{i}``.  Given every model rank's
+    state dict (a list in axis order, each holding that rank's slices,
+    ``params_from_jax(..., model_rank=r)``'s inverse), the tree is the
+    mesh layout: each tensor-parallel leaf (one whose slices differ in
+    shape from the full weight) stacked ``[tp, ...]`` under
+    ``shard/sharded``.  Leaves are new contiguous CPU tensors in the state
+    dict's dtypes.  An ``MLPConfig`` gives the MLP classifier's tree; its
+    state dict must hold exactly its layers."""
     tree: Dict = {}
+    ranks = None
+    if not isinstance(state_dict, Mapping):
+        ranks = list(state_dict)
+        state_dict = ranks[0]
     if _is_mlp(config):
         layers = [f"hidden_{i}" for i in range(config.num_hidden_layers)] + ["head"]
         wanted = {f"{name}.{leaf}" for name in layers for leaf in ("weight", "bias")}
@@ -211,25 +257,37 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor], config) -> Dict:
         return {name: {"kernel": state_dict[f"{name}.weight"].detach().cpu().T.contiguous(),
                        "bias": state_dict[f"{name}.bias"].detach().cpu().contiguous()}
                 for name in layers}
+    shapes = state_shapes(config)
 
-    def put(path: str, value: torch.Tensor, transpose: bool):
-        value = value.detach().cpu()
-        value = (value.transpose(-1, -2) if transpose else value).contiguous()
+    def put(path: str, value: torch.Tensor):
         node = tree
         *parents, leaf = path.split("/")
         for name in parents:
             node = node.setdefault(name, {})
-        node[leaf] = value
+        node[leaf] = value.contiguous()
+
+    def leaf(key: str, transpose: bool):
+        """(value in flax's layout, stacked?) of one port key."""
+        def flax(v):
+            v = v.detach().cpu()
+            return v.transpose(-1, -2) if transpose else v
+        if ranks is not None and tuple(state_dict[key].shape) != shapes[key][0]:
+            return torch.stack([flax(r[key]) for r in ranks]), True
+        return flax(state_dict[key]), False
 
     for path, key, t in _TOP:
-        put(path, state_dict[key], t)
+        value, stacked = leaf(key, t)
+        put(path.replace(_SHARD, _STACKED) if stacked else path, value)
     for path, key, t in _block_leaves(config):
-        layers = [state_dict[f"blocks.layer_{i}.{key}"] for i in range(config.n_layers)]
+        values = [leaf(f"blocks.layer_{i}.{key}", t) for i in range(config.n_layers)]
+        stacked = values[0][1]
+        if stacked:
+            path = path.replace(_SHARD, _STACKED)
         if config.scan_layers:
-            put(_SCANNED + path, torch.stack(layers), t)
+            put(_SCANNED + path, torch.stack([v for v, _ in values]))
         else:
-            for i, value in enumerate(layers):
-                put(f"blocks/layer_{i}/{path}", value, t)
+            for i, (value, _) in enumerate(values):
+                put(f"blocks/layer_{i}/{path}", value)
     return tree
 
 

@@ -8,8 +8,19 @@ cache is updated in place.  Sampling draws from an explicit
 greedy decoding is comparable token for token).  :func:`generate_beam` is
 beam search, lazy (per-slot source-row tables) or eager (the cache
 reordered every step).  Every entry point takes either cache dtype
-(``kv_cache_dtype`` "bf16" or "int8").  A mesh-trained state serves through
-``export_single_device_params`` (re-exported from ``parallel/tp.py``).
+(``kv_cache_dtype`` "bf16" or "int8").  A state trained over a data mesh
+serves through ``export_single_device_params`` (re-exported from
+``parallel/tp.py``); one whose weights are split over a model axis serves
+under the mesh through :func:`generate_sharded`: the KV cache holds each
+rank's heads, the lm_head's logits stay vocab-sharded and sampling goes
+through :func:`_sample_sharded`'s collectives, so every rank of the axis
+returns the same tokens.  JAX caches the compiled sharded functions
+(``_HashableTree`` keys an ``lru_cache`` of ``_sharded_generate_fn``);
+the port runs eagerly and has nothing to cache.  Nor has it a
+``shard_map`` harness to build: what JAX's ``build_sharded_serving`` adds
+around a decode body (the RNG folded over the data axis) is done inline
+in :func:`generate_sharded`, its one caller here; the serving engine
+samples from its own generator, in the same state on every rank.
 """
 
 from __future__ import annotations
@@ -17,10 +28,16 @@ from __future__ import annotations
 from typing import List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+import torch.nn.functional as F
 
+from tpu_parallel_torch.core.losses import vocab_parallel_argmax
+from tpu_parallel_torch.core.rng import fold_rng_over_axis
 from tpu_parallel_torch.models.gpt import GPTLM
 from tpu_parallel_torch.models.layers import KVCache
+from tpu_parallel_torch.parallel import tp
 from tpu_parallel_torch.parallel.tp import export_single_device_params  # noqa: F401  (re-export: mesh-trained state -> generate-able params)
+from tpu_parallel_torch.runtime.mesh import axis_group
 
 
 def _sample(logits, generator: Optional[torch.Generator], temperature: float,
@@ -49,6 +66,58 @@ def _sample(logits, generator: Optional[torch.Generator], temperature: float,
         logits = logits.masked_fill(logits < cutoff, float("-inf"))
     probs = torch.softmax(logits, dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+def _sample_sharded(logits, generator: Optional[torch.Generator], temperature: float,
+                    top_k: int, top_p: float, axis_name: str, mesh) -> torch.Tensor:
+    """One token per row from vocab-SHARDED [batch, vocab/tp] logits (this
+    rank's shard of ``axis_name``), with no full-vocabulary gather except
+    under ``top_p``:
+
+    - greedy: the global argmax (:func:`vocab_parallel_argmax`, a MAX and
+      a MIN per row);
+    - temperature: Gumbel-max: each shard perturbs its slice with its own
+      Gumbel noise (a generator folded over the axis) and the global
+      argmax of ``logits / T + G`` is an exact softmax sample;
+    - top_k: each shard's local top-k holds the global top-k's members
+      from its slice; the ``tp * k`` candidates are all-gathered and the
+      sample is drawn among them;
+    - top_p: needs the whole sorted row, so the row is gathered and
+      :func:`_sample` draws from it.
+
+    Every rank returns the SAME token: the decisions go through
+    collectives, and the draws that are not folded come from ``generator``
+    in the same state on every rank (each rank draws from it alike)."""
+    bound = tp.model_axis(mesh, axis_name)
+    if bound is None:
+        return _sample(logits, generator, temperature, top_k, top_p)
+    if 0.0 < top_p < 1.0:
+        full = tp.all_gather(logits, axis_name, mesh)
+        return _sample(full, generator, temperature, top_k, top_p)
+    lf = logits.float()
+    if temperature == 0.0:
+        return vocab_parallel_argmax(lf, axis_name, mesh)
+    lf = lf / temperature
+    vs = lf.shape[-1]
+    offset = bound[2] * vs
+    if top_k > 0:
+        k = min(top_k, vs)
+        vals, idx = lf.topk(k, dim=-1)
+        cand_vals = tp.all_gather(vals, axis_name, mesh)
+        cand_ids = tp.all_gather(idx + offset, axis_name, mesh)
+        kth = cand_vals.topk(top_k, dim=-1).values[:, -1:]
+        masked = cand_vals.masked_fill(cand_vals < kth, float("-inf"))
+        choice = torch.multinomial(torch.softmax(masked, dim=-1), 1, generator=generator)
+        return cand_ids.gather(1, choice)[:, 0]
+    # Gumbel-max over the shards: one seed drawn alike on every rank, folded
+    # over the axis
+    seed = int(torch.randint(0, 2**62, (1,), generator=generator,
+                             device=generator.device if generator is not None else "cpu"))
+    folded = fold_rng_over_axis(torch.Generator().manual_seed(seed), axis_name, mesh)
+    gen = torch.Generator(device=lf.device).manual_seed(
+        int(torch.randint(0, 2**62, (1,), generator=folded)))
+    u = torch.rand(lf.shape, generator=gen, device=lf.device).clamp_(min=1e-20)
+    return vocab_parallel_argmax(lf - torch.log(-torch.log(u)), axis_name, mesh)
 
 
 def decode_step(model: GPTLM, cache: List[KVCache], tok, positions, write_index=None,
@@ -128,8 +197,10 @@ def _generate_core(model: GPTLM, prompt, generator, max_new_tokens: int,
                    temperature: float, top_k: int, top_p: float = 0.0,
                    prompt_mask=None) -> torch.Tensor:
     """Prefill then decode loop.  The lm_head reads only each step's last
-    position.  ``prompt_mask`` [b, P] serves RAGGED batches: rows LEFT-padded
-    (False at the left), each continuing from its own length."""
+    position; on the model's tensor-parallel axis its logits stay
+    vocab-sharded and :func:`_sample_sharded` picks the token.
+    ``prompt_mask`` [b, P] serves RAGGED batches: rows LEFT-padded (False
+    at the left), each continuing from its own length."""
     cfg = model.config
     b, prompt_len = prompt.shape
     if prompt_len + max_new_tokens > cfg.seq_len:
@@ -138,8 +209,15 @@ def _generate_core(model: GPTLM, prompt, generator, max_new_tokens: int,
             f"exceeds seq_len ({cfg.seq_len})"
         )
 
-    def next_token(hidden):
-        return _sample(model.lm_head(hidden[:, -1]), generator, temperature, top_k, top_p)
+    mesh = getattr(model, "mesh", None)
+    if tp.model_axis(mesh, cfg.model_axis) is not None:
+        def next_token(hidden):
+            logits = F.linear(hidden[:, -1], model.lm_head.weight)
+            return _sample_sharded(logits, generator, temperature, top_k, top_p,
+                                   cfg.model_axis, mesh)
+    else:
+        def next_token(hidden):
+            return _sample(model.lm_head(hidden[:, -1]), generator, temperature, top_k, top_p)
 
     if prompt_mask is None:
         positions = torch.arange(prompt_len, device=prompt.device).expand(b, prompt_len)
@@ -183,6 +261,56 @@ def generate(model: GPTLM, prompt, generator: Optional[torch.Generator] = None, 
         model, prompt, generator, max_new_tokens, temperature, top_k, top_p,
         prompt_mask=prompt_mask,
     )
+
+
+@torch.inference_mode()
+def generate_sharded(model: GPTLM, prompt, mesh=None, rng: Optional[torch.Generator] = None, *,
+                     max_new_tokens: int = 32, temperature: float = 0.0, top_k: int = 0,
+                     top_p: float = 0.0, prompt_mask=None) -> torch.Tensor:
+    """Generate under a mesh: tensor-parallel weights stay split, the batch
+    rows split over the data axis.  The serving path for a model whose
+    weights live on several ranks (``export_single_device_params`` refuses
+    a model split by design).
+
+    ``model`` is built on ``mesh`` (``GPTLM(config, mesh=mesh)``, default
+    its own); ``prompt`` [B, P] (and ``prompt_mask``) is the GLOBAL batch,
+    on every rank: each data rank decodes its contiguous block of
+    ``B / data`` rows, every model rank of it the same rows, with the KV
+    cache split over heads as the activations are and the tensor-parallel
+    collectives run per step.  Returns the global [B, max_new_tokens] on
+    every rank (one all-gather over the data axis).  ``rng`` (a CPU
+    generator, default seeded 0) is folded over the data axis only, so
+    data ranks draw independent noise and model ranks the same.  A
+    collective: every rank of the mesh calls it together."""
+    mesh = model.mesh if mesh is None else mesh
+    if mesh is not model.mesh:
+        raise ValueError("generate_sharded needs the mesh the model was built on")
+    if prompt.device != model.device:
+        raise ValueError(f"prompt is on {prompt.device}, the model on {model.device}")
+    if rng is None:
+        rng = torch.Generator().manual_seed(0)
+    data = axis_group(mesh, model.config.data_axis)
+    size, index = (1, 0) if data is None else data[1:]
+    b = prompt.shape[0]
+    if b % size:
+        raise ValueError(f"batch {b} not divisible by data axis {size}")
+    n = b // size
+    rows = slice(index * n, (index + 1) * n)
+    mask = None if prompt_mask is None else prompt_mask[rows]
+
+    # JAX's build_sharded_serving harness: fold over the data axis only
+    # (never the model axis, whose ranks must sample the same token) and
+    # seed a generator on the model's device
+    rng = fold_rng_over_axis(rng, (model.config.data_axis,), mesh)
+    seed = int(torch.randint(0, 2**62, (1,), generator=rng))
+    generator = torch.Generator(device=model.device).manual_seed(seed)
+    out = _generate_core(model, prompt[rows], generator, max_new_tokens, temperature, top_k,
+                         top_p, prompt_mask=mask)
+    if size == 1:
+        return out
+    full = out.new_empty(b, max_new_tokens)
+    dist.all_gather_into_tensor(full, out.contiguous(), group=data[0])
+    return full
 
 
 # --- beam search --------------------------------------------------------------

@@ -9,7 +9,10 @@ training loss, with the lm_head applied in it, ``loss_chunk`` positions at
 a time when that is set.  Under ``config.fsdp`` and a mesh, the blocks,
 the embedding and the lm_head are FSDP-sharded over the data axis
 (``parallel/fsdp.py``); the loss gathers the lm_head once for all its
-chunks.
+chunks.  On a mesh whose model axis is above 1 the blocks are
+tensor-parallel and the lm_head is column-parallel over the vocabulary
+(``parallel/tp.py``): ``GPTLM.forward`` gathers the logits, the loss
+does not (``core/losses.py:vocab_parallel_cross_entropy``).
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from tpu_parallel_torch.core.losses import token_cross_entropy
+from tpu_parallel_torch.core.losses import token_cross_entropy, vocab_parallel_cross_entropy
 from tpu_parallel_torch.core.rng import fold_rng_over_axis
 from tpu_parallel_torch.models.convert import init_params
 from tpu_parallel_torch.models.layers import (
@@ -34,6 +37,7 @@ from tpu_parallel_torch.models.layers import (
     make_norm,
 )
 from tpu_parallel_torch.parallel.fsdp import gather_module_params, maybe_shard
+from tpu_parallel_torch.parallel.tp import TPDense, model_axis
 from tpu_parallel_torch.runtime import resolve_device
 
 _PIPELINE_DEFAULTS = (
@@ -71,21 +75,38 @@ class GPTLM(nn.Module):
 
     ``device`` defaults to ``"cuda"`` and raises without a GPU; the weights
     are drawn from ``seed`` with a CPU ``torch.Generator`` (the same weights
-    on every device).  The lm_head is untied from the token embedding.
-    ``mesh`` (``runtime.make_mesh``) binds the data axis that
-    ``config.fsdp`` shards over; without one an FSDP config holds full
-    weights, as JAX's wrap is the identity on an unbound axis.
+    on every device, and every rank's slice of the same full weights).
+    The lm_head is untied from the token embedding.  ``mesh``
+    (``runtime.make_mesh``) binds the data axis that ``config.fsdp``
+    shards over and the model axis that tensor parallelism splits: there
+    the lm_head is column-parallel over the vocabulary and the forward
+    all-gathers its logits.  Without a mesh an FSDP config holds full
+    weights, as JAX's wrap is the identity on an unbound axis.  FSDP
+    together with a model axis above 1 (a leaf sharded over two axes,
+    ``llama_1b_3d``'s mesh) is refused.
     """
 
     def __init__(self, config: GPTConfig, *, device="cuda", seed: int = 0, mesh=None):
         super().__init__()
+        bound = model_axis(mesh, config.model_axis)
+        if config.fsdp and bound is not None:
+            raise NotImplementedError(
+                f"fsdp=True with a {config.model_axis} axis of {bound[1]} (FSDP x tensor "
+                "parallelism, a leaf sharded over two axes) is not in the PyTorch port yet; "
+                "it comes with llama_1b_3d's DP x TP x PP mesh (ROADMAP queue A item 6)")
         dev = resolve_device(device)
         self.config = config
+        self.mesh = mesh
         self.embed = maybe_shard(Embedding(config, dev), config, mesh)
         self.blocks = BlockStack(config, config.n_layers, dev, mesh)
         self.norm_final = make_norm(config, dev)
-        self.lm_head = maybe_shard(nn.Linear(config.d_model, config.vocab_size, bias=False,
-                                             dtype=config.dtype, device=dev), config, mesh)
+        self.lm_head = maybe_shard(
+            TPDense(config.d_model, config.vocab_size, style="column", axis_name=config.model_axis,
+                    use_bias=False, gather_output=True, dtype=config.dtype, device=dev, mesh=mesh),
+            config, mesh)
+        # the kv heads this rank's caches hold
+        self.local_kv_heads = (config.n_kv_heads or config.n_heads) // (
+            1 if bound is None else bound[1])
         init_params(self, seed)
 
     @property
@@ -94,7 +115,7 @@ class GPTLM(nn.Module):
 
     def init_cache(self, batch: int, beam_width: Optional[int] = None) -> List[KVCache]:
         """An empty decode cache, one :class:`KVCache` of ``seq_len`` slots
-        per layer, for ``batch`` rows; under ``kv_block_tokens`` > 0 one
+        per layer, for ``batch`` rows (this rank's kv heads); under ``kv_block_tokens`` > 0 one
         :class:`PagedKVCache` pool per layer instead (row-count free, as
         JAX's paged cache: rows address it through block tables).  Under
         ``kv_cache_dtype="int8"`` either layout holds int8 payloads and
@@ -114,8 +135,10 @@ class GPTLM(nn.Module):
                     "paged KV cache under lazy beam search (the beam_src bookkeeping "
                     "assumes contiguous per-row caches)"
                 )
-            return [PagedKVCache.empty(cfg, self.device) for _ in range(cfg.n_layers)]
-        caches = [KVCache.empty(cfg, batch, self.device) for _ in range(cfg.n_layers)]
+            return [PagedKVCache.empty(cfg, self.device, self.local_kv_heads)
+                    for _ in range(cfg.n_layers)]
+        caches = [KVCache.empty(cfg, batch, self.device, self.local_kv_heads)
+                  for _ in range(cfg.n_layers)]
         if beam_width > 1:
             for c in caches:
                 c.seed_beam_src(beam_width)
@@ -183,25 +206,32 @@ def tiny_test(**overrides) -> GPTConfig:
 def _lm_head_params(config: GPTConfig, model: GPTLM) -> torch.Tensor:
     """The lm_head weight the loss applies, gathered ONCE when FSDP-sharded
     (every chunk of the chunked loss reuses it; its backward reduce-scatters
-    the gradient of all chunks at once); otherwise the weight itself."""
+    the gradient of all chunks at once); otherwise the weight itself (under
+    tensor parallelism this rank's vocabulary rows)."""
     del config
     return gather_module_params(model.lm_head)["weight"]
 
 
-def make_ce_fn(config: GPTConfig):
+def make_ce_fn(config: GPTConfig, mesh=None):
     """``(lm_weight, hidden, targets, mask) -> (loss_sum, correct_sum)``:
-    lm_head, fp32 cross-entropy and accuracy (the JAX ``make_ce_fn`` off the
-    mesh), on full logits or, under ``config.loss_chunk``, one checkpointed
+    lm_head, fp32 cross-entropy and accuracy, as the JAX ``make_ce_fn``:
+    vocab-parallel (``vocab_parallel_cross_entropy`` on this rank's
+    vocabulary shard of the logits) when ``mesh``'s model axis is above 1,
+    on full logits otherwise; under ``config.loss_chunk`` one checkpointed
     chunk of ``loss_chunk`` positions at a time (the JAX scan of
     ``jax.checkpoint(body)``): the backward recomputes each chunk's logits,
     so none outlives its chunk."""
     chunk = config.loss_chunk
+    parallel = model_axis(mesh, config.model_axis) is not None
 
     def ce_block(lm_weight, h, targets, mask):
         logits = F.linear(h, lm_weight)
-        ce = token_cross_entropy(logits, targets)
+        if parallel:
+            ce, pred = vocab_parallel_cross_entropy(logits, targets, config.model_axis, mesh)
+        else:
+            ce, pred = token_cross_entropy(logits, targets), logits.argmax(-1)
         loss_sum = (ce * mask).sum()
-        correct = ((logits.argmax(-1) == targets) * mask).sum()
+        correct = ((pred == targets) * mask).sum()
         return loss_sum, correct
 
     def chunked_ce(lm_weight, h, targets, mask):
@@ -228,10 +258,13 @@ def make_gpt_loss(config: GPTConfig, train: bool = True, mesh=None):
     ``train``, folded over the config's data, model, pipe and seq axes of
     ``mesh`` as JAX folds it (per-rank masks under data parallelism; no
     mesh: ``rng`` itself); ``train=False`` builds the evaluation variant
-    (dropout off).  Pipeline, tensor parallelism and MoE raise at the
-    config.
+    (dropout off).  On ``mesh``'s model axis the cross-entropy runs
+    vocab-parallel and the full-vocabulary logits never exist; the
+    dropout fold over the model axis is JAX's (its ranks then drop
+    different elements of the replicated residual stream).  Pipeline and
+    MoE raise at the config.
     """
-    ce_fn = make_ce_fn(config)
+    ce_fn = make_ce_fn(config, mesh)
     fold_axes = (config.data_axis, config.model_axis, config.pipe_axis, config.seq_axis)
 
     def loss_fn(model, batch, rng=None):

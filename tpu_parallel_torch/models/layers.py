@@ -4,14 +4,22 @@ Single-device PyTorch modules with the JAX package's names and math:
 matmul weights, biases and embeddings are held in ``config.dtype`` (what the
 flax modules cast their fp32 params to at every use), LayerNorm computes and
 holds its params in fp32, softmax runs in fp32.  Under ``fsdp`` and a mesh,
-each block is FSDP-sharded over the data axis (``parallel/fsdp.py``).
-Tensor, pipeline and sequence parallelism are not in the port yet.  Linear weights are PyTorch's
-``[out, in]``; ``models/convert.py`` transposes flax's ``[in, out]`` kernels.
+each block is FSDP-sharded over the data axis (``parallel/fsdp.py``).  On a
+mesh whose model axis is above 1 the projections are tensor-parallel
+(``parallel/tp.py``): attention's ``qkv`` (or ``q`` and ``kv``) and the
+MLP's ``up`` are column-parallel over ``n_heads // tp`` local heads and
+``hidden // tp`` local units, ``out`` and ``down`` row-parallel, and the
+KV caches hold the local kv heads.  Pipeline and sequence parallelism are
+not in the port yet.  Linear weights are PyTorch's ``[out, in]``;
+``models/convert.py`` transposes flax's ``[in, out]`` kernels.
 
 Activation checkpointing (``remat``/``remat_policy``) wraps each block in
 ``torch.utils.checkpoint``; the save policies keep the values the JAX layers
 name with ``checkpoint_name`` (:func:`checkpoint_name` here), or every 2-D
-product's output under ``"dots"``.
+product's output under ``"dots"``.  A row layer's all-reduce runs inside
+the ``"proj"`` scope, so ``"proj"`` and ``"proj_attn"`` keep its output and
+the recompute launches no forward collective (JAX names ``"proj"`` after
+the ``psum``).
 
 Dropout sits where flax puts it (after the attention output projection and
 after the MLP down projection) and runs only when training.  Its masks come
@@ -40,6 +48,7 @@ from torch.utils.checkpoint import (
 from tpu_parallel_torch.models.quantize import absmax_int8
 from tpu_parallel_torch.ops.flash_attention import FLASH_FWD_OP, flash_attention
 from tpu_parallel_torch.parallel.fsdp import maybe_shard
+from tpu_parallel_torch.parallel.tp import TPDense, model_axis
 
 # (field, default, what setting it would need) — fields this slice does not
 # implement; a config that sets one raises instead of silently ignoring it
@@ -494,8 +503,12 @@ class KVCache(_KVStores):
         self.num_beams = 0
 
     @classmethod
-    def empty(cls, config: TransformerConfig, batch: int, device) -> "KVCache":
-        n_kv = config.n_kv_heads or config.n_heads
+    def empty(cls, config: TransformerConfig, batch: int, device,
+              kv_heads: Optional[int] = None) -> "KVCache":
+        """A zeroed cache of ``batch`` rows; ``kv_heads`` (default every kv
+        head) is the count this rank holds (the local heads under tensor
+        parallelism)."""
+        n_kv = kv_heads or config.n_kv_heads or config.n_heads
         rows = n_kv * batch * config.seq_len + 1
         int8 = config.kv_cache_dtype == "int8"
         payload = torch.int8 if int8 else config.dtype
@@ -650,8 +663,9 @@ class PagedKVCache(_KVStores):
         self.index = index
 
     @classmethod
-    def empty(cls, config: TransformerConfig, device) -> "PagedKVCache":
-        n_kv = config.n_kv_heads or config.n_heads
+    def empty(cls, config: TransformerConfig, device,
+              kv_heads: Optional[int] = None) -> "PagedKVCache":
+        n_kv = kv_heads or config.n_kv_heads or config.n_heads
         shape = (n_kv, config.kv_pool_blocks + 1, config.kv_block_tokens, config.head_dim)
         int8 = config.kv_cache_dtype == "int8"
         payload = torch.int8 if int8 else config.dtype
@@ -725,22 +739,41 @@ class Attention(nn.Module):
     ``causal_attention`` by ``attn_impl``; ``decode=True`` writes K/V into
     the layer's :class:`KVCache` (or, with ``block_table``, its
     :class:`PagedKVCache`) and reads the whole cache through
-    ``decode_attention``."""
+    ``decode_attention``.
 
-    def __init__(self, config: TransformerConfig, device=None):
+    On ``mesh``'s model axis (size tp > 1) the projections in are
+    column-parallel and ``out`` row-parallel: each rank runs
+    ``n_heads // tp`` local heads (and ``n_kv // tp`` kv heads), whose rows
+    of the dense weights are a contiguous block, the layout being per
+    head."""
+
+    def __init__(self, config: TransformerConfig, device=None, mesh=None):
         super().__init__()
         self.config = config
         cfg = config
+        bound = model_axis(mesh, cfg.model_axis)
+        tp = 1 if bound is None else bound[1]
         self.n_kv = cfg.n_kv_heads or cfg.n_heads
-        linear = lambda i, o: nn.Linear(
-            i, o, bias=cfg.dense_bias, dtype=cfg.dtype, device=device
-        )
+        if cfg.n_heads % tp != 0:
+            raise ValueError(f"n_heads={cfg.n_heads} not divisible by tp={tp}")
+        if self.n_kv % tp != 0 or cfg.n_heads % self.n_kv != 0:
+            raise ValueError(
+                f"n_kv_heads={self.n_kv} must divide n_heads={cfg.n_heads} and be "
+                f"divisible by tp={tp}"
+            )
+        self.local_heads = cfg.n_heads // tp
+        self.local_kv = self.n_kv // tp
+
+        def dense(i, o, style):
+            return TPDense(i, o, style=style, axis_name=cfg.model_axis, use_bias=cfg.dense_bias,
+                           dtype=cfg.dtype, device=device, mesh=mesh)
+
         if self.n_kv == cfg.n_heads:
-            self.qkv = linear(cfg.d_model, 3 * cfg.d_model)
+            self.qkv = dense(cfg.d_model, 3 * cfg.d_model, "column")
         else:
-            self.q = linear(cfg.d_model, cfg.n_heads * cfg.head_dim)
-            self.kv = linear(cfg.d_model, 2 * self.n_kv * cfg.head_dim)
-        self.out = linear(cfg.n_heads * cfg.head_dim, cfg.d_model)
+            self.q = dense(cfg.d_model, cfg.n_heads * cfg.head_dim, "column")
+            self.kv = dense(cfg.d_model, 2 * self.n_kv * cfg.head_dim, "column")
+        self.out = dense(cfg.n_heads * cfg.head_dim, cfg.d_model, "row")
 
     def forward(self, x, positions=None, segment_ids=None, decode: bool = False,
                 cache=None, write_index=None, block_table=None,
@@ -750,10 +783,10 @@ class Attention(nn.Module):
         dh = cfg.head_dim
         with checkpoint_name("proj"):
             if self.n_kv == cfg.n_heads:
-                q, k, v = self.qkv(x).view(b, t, cfg.n_heads, 3 * dh).split(dh, dim=-1)
+                q, k, v = self.qkv(x).view(b, t, self.local_heads, 3 * dh).split(dh, dim=-1)
             else:
-                q = self.q(x).view(b, t, cfg.n_heads, dh)
-                k, v = self.kv(x).view(b, t, self.n_kv, 2 * dh).split(dh, dim=-1)
+                q = self.q(x).view(b, t, self.local_heads, dh)
+                k, v = self.kv(x).view(b, t, self.local_kv, 2 * dh).split(dh, dim=-1)
         if decode:
             if segment_ids is not None:
                 raise NotImplementedError(
@@ -821,7 +854,7 @@ class Attention(nn.Module):
         else:
             out = self._attend(q, k, v, segment_ids)
         with checkpoint_name("proj"):
-            out = self.out(out.reshape(b, t, cfg.n_heads * dh))
+            out = self.out(out.reshape(b, t, self.local_heads * dh))
         if dropout_gen is not None:
             out = dropout(out, cfg.dropout_rate, dropout_gen)
         return out
@@ -841,16 +874,18 @@ class Attention(nn.Module):
 
 
 class MLP(nn.Module):
-    """``down(act(up(x)))`` with act gelu (tanh form), gelu_exact or relu."""
+    """``down(act(up(x)))`` with act gelu (tanh form), gelu_exact or relu;
+    on ``mesh``'s model axis a column ``up`` and a row ``down`` (one
+    forward all-reduce)."""
 
-    def __init__(self, config: TransformerConfig, device=None):
+    def __init__(self, config: TransformerConfig, device=None, mesh=None):
         super().__init__()
         self.config = config
         hidden = config.mlp_ratio * config.d_model
-        self.up = nn.Linear(config.d_model, hidden, bias=config.dense_bias,
-                            dtype=config.dtype, device=device)
-        self.down = nn.Linear(hidden, config.d_model, bias=config.dense_bias,
-                              dtype=config.dtype, device=device)
+        kw = dict(axis_name=config.model_axis, use_bias=config.dense_bias, dtype=config.dtype,
+                  device=device, mesh=mesh)
+        self.up = TPDense(config.d_model, hidden, style="column", **kw)
+        self.down = TPDense(hidden, config.d_model, style="row", **kw)
 
     def forward(self, x: torch.Tensor,
                 dropout_gen: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -872,13 +907,13 @@ class Block(nn.Module):
     ``dropout_seed``, dropout runs after both sublayers, its masks drawn in
     that order from a generator on ``x``'s device seeded with it."""
 
-    def __init__(self, config: TransformerConfig, device=None):
+    def __init__(self, config: TransformerConfig, device=None, mesh=None):
         super().__init__()
         self.config = config
         self.norm_attn = make_norm(config, device)
-        self.attn = Attention(config, device)
+        self.attn = Attention(config, device, mesh)
         self.norm_mlp = make_norm(config, device)
-        self.mlp = MLP(config, device)
+        self.mlp = MLP(config, device, mesh)
 
     def forward(self, x, positions=None, segment_ids=None, decode: bool = False,
                 cache=None, write_index=None, block_table=None,
@@ -899,7 +934,8 @@ class BlockStack(nn.Module):
     block is checkpointed under ``config.remat`` when gradients are taken
     (never when decoding), as the JAX stack wraps it in ``nn.remat``.
     ``dropout_rng`` (a CPU generator; training only) gives each layer one
-    dropout seed per call, drawn before any layer runs.  Under
+    dropout seed per call, drawn before any layer runs.  On ``mesh``'s
+    model axis each block is tensor-parallel.  Under
     ``config.fsdp`` each block is sharded over the data axis of ``mesh``;
     its gather runs inside the checkpointed call, so the backward gathers
     again and no gathered weight is saved."""
@@ -909,7 +945,7 @@ class BlockStack(nn.Module):
         self.config = config
         self.n_layers = n_layers
         for i in range(n_layers):
-            self.add_module(f"layer_{i}", maybe_shard(Block(config, device), config, mesh))
+            self.add_module(f"layer_{i}", maybe_shard(Block(config, device, mesh), config, mesh))
 
     def forward(self, x, positions=None, segment_ids=None, decode: bool = False,
                 caches: Optional[List[KVCache]] = None, write_index=None,

@@ -47,7 +47,9 @@ def sync_gradients_dp(grads: Dict[str, torch.Tensor],
                       axis_names: Union[str, Sequence[str]] = "data", mesh=None):
     """Average ``grads`` in place over the mesh axes ``axis_names``
     (``data_paral.py:210-212``'s ``pmean``) and return them.  One
-    ``all_reduce`` per bound axis on the flat buffer the gradients view
+    ``all_reduce`` per bound axis above size 1 (one on the first bound
+    axis when every bound axis has size 1, so a mesh run always syncs
+    through the collective path) on the flat buffer the gradients view
     (or on a flattened copy when they are separate tensors).  Unbound axes
     are skipped: without a mesh nothing happens."""
     global dp_allreduce_launches
@@ -56,6 +58,7 @@ def sync_gradients_dp(grads: Dict[str, torch.Tensor],
     bound = [b for b in (axis_group(mesh, name) for name in axis_names) if b is not None]
     if not bound:
         return grads
+    bound = [b for b in bound if b[1] > 1] or bound[:1]
     flat = _flat_base(grads)
     tensors = list(grads.values())
     staged = flat if flat is not None else torch.cat([t.reshape(-1) for t in tensors])
@@ -95,13 +98,16 @@ def make_train_step(loss_fn: LossFn, *, data_axis: str = "data", num_minibatches
 
 @torch.no_grad()
 def broadcast_state(state: TrainState, *, data_axis: str = "data", mesh=None) -> TrainState:
-    """Overwrite every rank's replicated masters with those of coordinate 0
-    of ``data_axis`` (one broadcast of the flattened masters), then the
-    module from the masters: replicas equal by construction.  FSDP shards
-    (``state.shards``) differ by rank and are left as they are."""
+    """Overwrite every rank's masters that are replicated over ``data_axis``
+    with those of its coordinate 0 (one broadcast of the flattened
+    masters), then the module from the masters: replicas equal by
+    construction.  Shards over ``data_axis`` itself (FSDP's, or
+    tensor-parallel ones when it is the model axis) differ by rank and are
+    left as they are.  Nothing to do on an axis of size 1."""
     bound = axis_group(mesh, data_axis)
-    names = [n for n in state.params if n not in state.shards]
-    if bound is None or not names:
+    names = [n for n in state.params
+             if n not in state.shards or state.shards[n].axis != data_axis]
+    if bound is None or bound[1] == 1 or not names:
         return state
     group = bound[0]
     flat = torch.cat([state.params[n].reshape(-1) for n in names])

@@ -363,7 +363,9 @@ def sync_gradients(grads: Dict[str, Any], axis_names: Union[str, Sequence[str]],
     divided); it is averaged and summed over the other axes only, and
     divided by the size of each axis of ``replicated_loss_axes`` that it is
     sharded on and that ``axis_names`` holds (every rank computed the same
-    loss there).  Leaves that take the same reductions take them together:
+    loss there, and the backward summed the ranks' copies of its
+    cotangent: tensor parallelism's model axis).  Leaves that take the
+    same reductions take them together:
     views of one flat buffer take one ``all_reduce`` per bound axis
     (``parallel/dp.py:sync_gradients_dp``).  Unbound axes are skipped."""
     from tpu_parallel_torch.parallel.dp import sync_gradients_dp
@@ -374,10 +376,13 @@ def sync_gradients(grads: Dict[str, Any], axis_names: Union[str, Sequence[str]],
         psum_axes = (psum_axes,)
     if isinstance(replicated_loss_axes, str):
         replicated_loss_axes = (replicated_loss_axes,)
+    sizes = {a: b[1] for a in axis_names if (b := axis_group(mesh, a)) is not None}
     plans: Dict[tuple, Dict[str, torch.Tensor]] = {}
     for name, g in grads.items():
         names = sharded_axes(g)
-        plan = (tuple(a for a in axis_names if a not in names),
+        # a shard's mean skips the size-1 axes: no collective is needed there
+        plan = (tuple(a for a in axis_names if a not in names
+                      and not (names and sizes.get(a) == 1)),
                 tuple(a for a in psum_axes if a not in names),
                 tuple(a for a in replicated_loss_axes if a in names and a in axis_names))
         plans.setdefault(plan, {})[name] = _local(g)

@@ -1,21 +1,27 @@
 """Generic SPMD train functions: the port of ``tpu_parallel/parallel/spmd.py``,
-for meshes whose only axis above 1 is data (DP and FSDP).
+for meshes whose axes above 1 are data and model (DP, FSDP and tensor
+parallelism).
 
 JAX traces ``model_init`` abstractly under ``shard_map`` to discover which
 parameters come out ``nn.Partitioned``, then lays out the real init and the
 step by those specs.  Here every rank runs its own program and the model is
-built sharded (``parallel/fsdp.py`` wraps its modules at construction), so
-the layout is known before the state exists: :func:`build_train_functions`
-reads ``state_specs`` and ``state_shapes`` off the model's parameters.  The
-step is JAX's: accumulate gradients over minibatches, sync each gradient
-over the axes its parameter is replicated on (``fsdp.sync_gradients``: one
-all-reduce for the replicated ones, nothing for FSDP shards, whose gather
-already reduce-scattered), apply the optimizer, update the EMA shadow, sync
-the metrics.
+built sharded (``parallel/fsdp.py`` wraps its modules at construction,
+``parallel/tp.py`` builds its tensor-parallel layers at their local
+widths), so the layout is known before the state exists:
+:func:`build_train_functions` reads ``state_specs`` and ``state_shapes``
+off the model's parameters.  The step is JAX's: accumulate gradients over
+minibatches, sync each gradient over the axes its parameter is replicated
+on (``fsdp.sync_gradients``: one all-reduce for the replicated ones,
+nothing over the data axis for FSDP shards, whose gather already
+reduce-scattered, and a division by the axis size for tensor-parallel
+shards, whose backward summed ``tp`` copies of the replicated loss's
+cotangent), apply the optimizer, update the EMA shadow, sync the metrics
+(summed over the axes whose ranks hold disjoint tokens, averaged over the
+replicated-loss axes).
 
-Not in the port yet, each raising ``NotImplementedError``: a bound model,
-pipe or seq axis above 1 (ROADMAP queue A items 5.3, 5.4, 5.5) and a
-schedule-owned ``grad_fn`` (the 1F1B pipeline, item 5.4).
+Not in the port yet, each raising ``NotImplementedError``: a bound pipe or
+seq axis above 1 (ROADMAP queue A items 5.4, 5.5) and a schedule-owned
+``grad_fn`` (the 1F1B pipeline, item 5.4).
 """
 
 from __future__ import annotations
@@ -34,7 +40,6 @@ from tpu_parallel_torch.runtime.mesh import mesh_sizes
 
 # mesh axes build_train_functions cannot partition over yet -> what brings them
 _LATER_AXES = {
-    "model": "tensor parallelism (ROADMAP queue A item 5.3)",
     "pipe": "pipeline parallelism (ROADMAP queue A item 5.4)",
     "seq": "sequence parallelism (ROADMAP queue A item 5.5)",
 }
@@ -80,8 +85,9 @@ def build_train_functions(
     mesh,
     *,
     grad_sync_axes: Union[str, Sequence[str]] = ("data",),
+    replicated_loss_axes: Union[str, Sequence[str]] = ("model",),
     metric_axes: Optional[Sequence[str]] = None,
-    metric_mean_axes: Sequence[str] = (),
+    metric_mean_axes: Optional[Sequence[str]] = None,
     num_minibatches: int = 1,
     eval_loss_fn: Optional[LossFn] = None,
     ema_decay: float = 0.0,
@@ -92,10 +98,15 @@ def build_train_functions(
 
     ``model_init`` is :func:`make_model_init`'s (it carries the model).
     ``grad_sync_axes``: axes over which replicated-parameter gradients are
-    averaged (``fsdp.sync_gradients``).  The step's metrics are summed over
-    ``metric_axes`` (default: every mesh axis) and averaged over
-    ``metric_mean_axes``.  The init broadcasts data-rank 0's replicated
-    masters over ``grad_sync_axes`` and seeds the EMA shadow when
+    averaged (``fsdp.sync_gradients``).  ``replicated_loss_axes``: axes on
+    which every rank computes the same loss on the same tokens (the
+    tensor-parallel axis): gradients partitioned over them are divided by
+    their size, and the metric defaults average over them.  The step's
+    metrics are summed over ``metric_axes`` (default: every mesh axis not
+    in ``replicated_loss_axes``) and averaged over ``metric_mean_axes``
+    (default: those in it), so a model axis never counts a token ``tp``
+    times.  The init broadcasts coordinate 0's masters over each axis of
+    ``grad_sync_axes`` that a leaf is replicated on and seeds the EMA shadow when
     ``ema_decay`` > 0.  ``loss_fn(model, minibatch, rng)`` gets the state's
     generator.  ``grad_fn`` (a schedule-owned gradient) is refused.
     """
@@ -106,8 +117,13 @@ def build_train_functions(
     refuse_later_axes(mesh_sizes(mesh))
     if isinstance(grad_sync_axes, str):
         grad_sync_axes = (grad_sync_axes,)
+    if isinstance(replicated_loss_axes, str):
+        replicated_loss_axes = (replicated_loss_axes,)
+    names = tuple(mesh.mesh_dim_names) if mesh is not None else ()
     if metric_axes is None:
-        metric_axes = tuple(mesh.mesh_dim_names) if mesh is not None else ()
+        metric_axes = tuple(n for n in names if n not in replicated_loss_axes)
+    if metric_mean_axes is None:
+        metric_mean_axes = tuple(n for n in names if n in replicated_loss_axes)
     if ema_decay and not 0.0 < ema_decay < 1.0:
         raise ValueError(f"ema_decay={ema_decay} must be in (0, 1)")
 
@@ -132,7 +148,8 @@ def build_train_functions(
     def step_fn(state: TrainState, metrics: Optional[Metrics], batch):
         grads, step_metrics = accumulate_gradients(state, batch, state.rng, num_minibatches,
                                                    loss_fn)
-        fsdp.sync_gradients(state.partitioned(grads), grad_sync_axes, mesh=mesh)
+        fsdp.sync_gradients(state.partitioned(grads), grad_sync_axes,
+                            replicated_loss_axes=replicated_loss_axes, mesh=mesh)
         state.apply_gradients(grads)
         if ema_decay:
             state.update_ema(ema_decay)

@@ -182,6 +182,32 @@ def stack_prefix_rows(rows: Sequence[List[KVCache]], length: int) -> List[KVCach
     ]
 
 
+def cache_partition_specs(model, mesh) -> dict:
+    """The partition spec of every fixed-slot pool leaf under ``mesh``, in
+    the JAX cache's logical layout and names (``layer_<i>/cached_key``
+    [n_slots, seq_len, kv_heads, head_dim], ``cached_value``, the int8
+    cache's ``cached_key_scale`` / ``cached_value_scale`` and
+    ``cached_pos`` [n_slots, seq_len]): the counterpart of JAX's
+    ``cache_partition_specs``.  K/V payloads and their scales split over
+    the model axis at the kv-head dim, as the activations do (each rank's
+    pool holds its local heads, ``GPTLM.init_cache``); positions are
+    replicated.  Slots are not split over the data axis: admission is a
+    host decision, so every data rank holds every slot.  Without a model
+    axis (or no mesh) every leaf is replicated."""
+    axis = model.config.model_axis
+    split = mesh is not None and axis in (mesh.mesh_dim_names or ())
+    payload = (None, None, axis if split else None, None)
+    names = ["cached_key", "cached_value"]
+    if model.config.kv_cache_dtype == "int8":
+        names += ["cached_key_scale", "cached_value_scale"]
+    specs = {}
+    for i in range(model.config.n_layers):
+        for name in names:
+            specs[f"layer_{i}/{name}"] = payload
+        specs[f"layer_{i}/cached_pos"] = (None, None)
+    return specs
+
+
 def empty_pool(model, n_slots: int) -> List[KVCache]:
     """The pool: the model's decode cache at batch ``n_slots``, K/V zero,
     every position -1 (no slot attends until a prefill lands in it)."""
@@ -425,7 +451,8 @@ class PagedCachePool:
         self.block_tokens = bt
         self.max_blocks = cfg.seq_len // bt
         self.n_blocks = n_blocks
-        self.cache = [PagedKVCache.empty(cfg, model.device) for _ in range(cfg.n_layers)]
+        self.cache = [PagedKVCache.empty(cfg, model.device, model.local_kv_heads)
+                      for _ in range(cfg.n_layers)]
         self.allocator = BlockAllocator(n_blocks)
         self.block_table = np.full((n_slots, self.max_blocks), -1, np.int32)
         self.table_version = 0

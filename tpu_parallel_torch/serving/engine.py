@@ -71,8 +71,21 @@ the pool's int8 payloads and fp32 scale stores are fixed-address like the
 bf16 ones, and the transient casts of the int8 read live in each graph's
 private pool.
 
-Not in the port yet (the knob raises ``NotImplementedError``): mesh
-serving.
+Mesh serving: pass ``mesh`` (the one the model was built on,
+``GPTLM(config, mesh=mesh)``) and the engine serves a tensor-parallel
+model: the fixed-slot pool holds each rank's kv heads (the model's
+``init_cache`` allocates them; their layout in JAX's names is
+:func:`~tpu_parallel_torch.serving.cache_pool.cache_partition_specs`),
+the lm_head's logits are all-gathered, and every rank of the mesh runs the
+same host loop over replicated slots, sampling from one generator in the
+same state (JAX's ``fold_axes=()``).  So that the ranks never decide
+alone (a rank that does deadlocks the next collective), the engine's
+clock under a mesh is the maximum of the ranks' clocks, one all-reduce per
+reading: admission, expiry and every deadline see the same time on every
+rank; the NaN sentinel reads the gathered logits, the same on every rank;
+and a caller cancels or submits on every rank alike.  JAX's mesh limits
+hold, with its words: no paged pool, ``decode_steps_per_tick`` 1 (so no
+unified tick and no CUDA graph).
 """
 
 from __future__ import annotations
@@ -83,6 +96,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tpu_parallel_torch.models.generate import (
     decode_step,
@@ -152,17 +166,27 @@ from tpu_parallel_torch.serving.spec_decode import (
 # real id (>= 0) or the parked/pad value (-1).
 NON_FINITE_TOKEN = -2
 
-# the later slices of the port that bring each refused engine knob
-_LATER = {
-    "mesh": "tensor-parallel serving over a device mesh",
-}
+
+def _synced_clock(clock: Callable[[], float], device) -> Callable[[], float]:
+    """``clock`` read on every rank of the process group, as the maximum of
+    the ranks' readings (one all-reduce per reading), so every rank's host
+    decisions see the same time."""
+
+    def now() -> float:
+        t = torch.tensor([clock()], dtype=torch.float64, device=device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return float(t.item())
+
+    return now
 
 
-def _not_ported(what: str, later: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not in the PyTorch port yet; it comes with {_LATER[later]}, "
-        "a later slice of the port"
-    )
+def _param_specs(model) -> Dict[str, Tuple[Optional[str], ...]]:
+    """Each parameter's partition spec in torch's dims (the axis name at the
+    dim its slices split, None elsewhere)."""
+    from tpu_parallel_torch.parallel.fsdp import shard_info
+
+    return {name: (shard_info(p).spec() if shard_info(p) is not None else (None,) * p.dim())
+            for name, p in model.named_parameters()}
 
 
 def sample_tokens(logits, generator: Optional[torch.Generator], temperature, top_k,
@@ -557,6 +581,11 @@ class ServingEngine:
     ``decode_steps_per_tick="auto"`` is 1 (host drafting, any drafter); an
     explicit T > 1 fuses T blocks per tick with the n-gram drafter only.
 
+    Mesh: ``mesh`` is the one the model was built on (see the module
+    docstring).  ``param_specs`` keeps JAX's signature: the layout comes
+    from the model's own parameters, so the engine only checks that a
+    given ``param_specs`` equals it and uses it for nothing else.
+
     Telemetry: ``tracer`` (default the no-op ``NULL_TRACER``) records
     request lifecycle spans; ``metrics`` / ``registry`` back the
     counters, gauges and histograms (:class:`ServingMetrics`).
@@ -592,13 +621,19 @@ class ServingEngine:
         spec_check_invariants: bool = False,
     ):
         cfg = model.config
-        if mesh is not None or param_specs is not None:
-            raise _not_ported("serving over a mesh", "mesh")
+        if mesh is not None and mesh is not getattr(model, "mesh", None):
+            raise ValueError("mesh serving needs the mesh the model was built on "
+                             "(GPTLM(config, mesh=mesh))")
+        if param_specs is not None and param_specs != _param_specs(model):
+            raise ValueError("param_specs differ from the model's own layout")
         if unified_tick not in ("auto", True, False):
             raise ValueError(f"unified_tick={unified_tick!r}")
         self.model = model
+        self.mesh = mesh
         self.device = model.device
         self.weights_version = "initial"
+        if mesh is not None:
+            clock = _synced_clock(clock, self.device)
         self.clock = clock
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.metrics = metrics if metrics is not None else ServingMetrics(registry=registry)
@@ -608,6 +643,8 @@ class ServingEngine:
             self.scheduler = scheduler
             if self.scheduler.registry is None:
                 self.scheduler.registry = self.registry
+            if mesh is not None:
+                self.scheduler.clock = clock
         else:
             self.scheduler = FIFOScheduler(scheduler, clock=clock, registry=self.registry)
         self._queue_spans: Dict[str, object] = {}
@@ -634,6 +671,11 @@ class ServingEngine:
         # addressed through per-slot block tables
         self._paged = kv_block_tokens not in (None, 0)
         if self._paged:
+            if mesh is not None:
+                raise NotImplementedError(
+                    "paged KV cache under a mesh (build_sharded_serving has no block-table "
+                    "plumbing) — mesh serving keeps the fixed-slot pool"
+                )
             if kv_block_tokens == "auto":
                 # the bucket quantum: bucket-aligned prefix keys always
                 # land on block boundaries, so shared blocks need no trim
@@ -738,11 +780,16 @@ class ServingEngine:
         # device with the n-gram drafter's twin: a custom drafter's host
         # state is invisible there, so it refuses
         if decode_steps_per_tick == "auto":
-            fused = 1 if draft_tokens > 0 else 8
+            fused = 1 if (draft_tokens > 0 or mesh is not None) else 8
         else:
             fused = int(decode_steps_per_tick)
             if fused < 1:
                 raise ValueError(f"decode_steps_per_tick={decode_steps_per_tick} < 1")
+            if fused > 1 and mesh is not None:
+                raise NotImplementedError(
+                    "decode_steps_per_tick > 1 under a mesh (build_sharded_serving exposes no "
+                    "buffer donation) — mesh serving decodes per-step"
+                )
             if fused > 1 and draft_tokens > 0 and type(self._drafter) is not NGramDrafter:
                 raise NotImplementedError(
                     f"decode_steps_per_tick={fused} with draft_tokens > 0 fuses the draft-verify "
@@ -757,7 +804,8 @@ class ServingEngine:
             )
         self._fused_steps = fused
         self._spec_fused = fused > 1 and draft_tokens > 0
-        self._unified = fused > 1 if unified_tick == "auto" else bool(unified_tick)
+        self._unified = (fused > 1 and mesh is None if unified_tick == "auto"
+                         else bool(unified_tick))
         if self._paged:
             self.pool: Union[CachePool, PagedCachePool] = PagedCachePool(
                 model, n_slots, block_tokens=bt, n_blocks=n_blocks)
@@ -778,7 +826,6 @@ class ServingEngine:
                 self._prefix = self._radix
         else:
             self.pool = CachePool(model, n_slots, row_fns=default_row_fns())
-
         n = n_slots
         self._tok = np.zeros(n, np.int64)
         self._pos = np.zeros(n, np.int64)

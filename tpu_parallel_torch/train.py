@@ -12,10 +12,12 @@ trace-event JSON of per-step ``data_wait``/``compute`` spans (Perfetto);
 ``--metrics-out PATH`` a Prometheus text snapshot of the trainer's registry.
 ``--device`` defaults to ``cuda`` and raises without a GPU.
 
-Data parallelism runs under torchrun, one process per card:
+Data and tensor parallelism run under torchrun, one process per card:
 
     python -m torch.distributed.run --standalone --nproc_per_node=8 \
         -m tpu_parallel_torch.train --config=gpt2_125m_dp
+    python -m torch.distributed.run --standalone --nproc_per_node=2 \
+        -m tpu_parallel_torch.train --config=gpt2_125m_tp
 
 The script calls ``runtime.initialize()`` first (a no-op outside torchrun)
 and logs ``process_info()``; the config's mesh then spans the group.  A
@@ -134,8 +136,11 @@ def run(config_dict, args) -> int:
             dataset = TokenDataset(paths, trainer.model_config.seq_len)
         else:
             raise ValueError(f"data_format={data_format!r} (flat | packed)")
+        # ranks that differ only along the model axis step on the same rows
         data_loader = DataLoader(dataset, config.global_batch_size, seed=config.seed,
-                                 holdout_fraction=eval_fraction, device=trainer.device)
+                                 holdout_fraction=eval_fraction, device=trainer.device,
+                                 process_count=trainer.data_size,
+                                 process_index=trainer.data_index)
         if eval_steps:
             # fail fast: an eval split smaller than one batch should abort
             # before training, not after it

@@ -20,13 +20,17 @@ on every rank.
 
 The step, the init and the evaluation come from
 ``parallel/spmd.py:build_train_functions``, as in JAX: one code path for
-data parallelism and FSDP (``model_overrides.fsdp``: the model's blocks,
+data parallelism, FSDP (``model_overrides.fsdp``: the model's blocks,
 embedding and lm_head sharded over the data axis, the state's tensors for
-them this rank's slices).
+them this rank's slices) and tensor parallelism (a model axis above 1: the
+blocks' projections and the lm_head split over it, their state this
+rank's slices, gradients synced over ``("data", "model")`` as JAX's
+Trainer syncs them, metrics averaged over the model axis).
 
 Not in the port yet, each raising when asked for: the MLM objective (and
-the seq2seq family; ROADMAP queue A item 6), and mesh axes other than data
-above 1 (tensor, pipeline and sequence parallelism, items 5.3-5.5).
+the seq2seq family; ROADMAP queue A item 6), pipe and seq axes above 1
+(pipeline and sequence parallelism, items 5.4-5.5), and FSDP together
+with a model axis above 1 (item 6, ``llama_1b_3d``).
 """
 
 from __future__ import annotations
@@ -54,7 +58,7 @@ from tpu_parallel_torch.obs.tracer import NULL_TRACER, Tracer
 from tpu_parallel_torch.parallel.spmd import (build_train_functions, make_model_init,
                                               refuse_later_axes)
 from tpu_parallel_torch.runtime import MeshConfig, make_mesh, resolve_device
-from tpu_parallel_torch.runtime.mesh import DATA_AXIS, axis_group, mesh_sizes
+from tpu_parallel_torch.runtime.mesh import DATA_AXIS, MODEL_AXIS, axis_group, mesh_sizes
 from tpu_parallel_torch.utils.profiling import mfu
 
 MODEL_REGISTRY: Dict[str, Callable[..., GPTConfig]] = {
@@ -82,8 +86,9 @@ class TrainerConfig:
 
     ``mesh`` (a dict or an object with the ``MeshConfig`` fields) resolves
     against the process group's ranks (one device without a group); a
-    data axis above 1 trains data-parallel, the other axes above 1 raise
-    (ROADMAP queue A items 5.3-5.5).  ``donate`` is accepted and changes
+    data axis above 1 trains data-parallel, a model axis above 1
+    tensor-parallel, the pipe and seq axes above 1 raise (ROADMAP queue A
+    items 5.4-5.5).  ``donate`` is accepted and changes
     nothing: the port's step already updates its buffers in place.  ``mlm_mask_rate`` belongs to the MLM
     objective, which raises (item 6).
     """
@@ -256,13 +261,14 @@ class Trainer:
                              f"data axis {data}")
         bound = axis_group(mesh, DATA_AXIS)
         self.data_size, self.data_index = (1, 0) if bound is None else bound[1:]
+        self.num_devices = 1 if mesh is None else mesh.size()
         # under a mesh, rank 0 of the group writes checkpoints and every
         # rank waits for the write at a barrier
         self._group = dist.group.WORLD if mesh is not None else None
         self.model = GPTLM(self.model_config, device=self.device, seed=config.seed, mesh=mesh)
         self.tx = make_optimizer(config)
         self.loss_fn = make_gpt_loss(self.model_config, mesh=mesh)
-        self.eval_loss_fn = make_gpt_loss(self.model_config, train=False)
+        self.eval_loss_fn = make_gpt_loss(self.model_config, train=False, mesh=mesh)
         self.example_batch: TextBatch = self.local_rows(lm_batch(
             torch.Generator().manual_seed(0), config.global_batch_size,
             self.model_config.seq_len, self.model_config.vocab_size, device=self.device,
@@ -271,7 +277,7 @@ class Trainer:
         self.funcs = build_train_functions(
             make_model_init(self.model, self.tx),
             lambda model, batch, rng: self.loss_fn(model, batch, rng),
-            mesh, grad_sync_axes=(DATA_AXIS,), metric_axes=(DATA_AXIS,),
+            mesh, grad_sync_axes=(DATA_AXIS, MODEL_AXIS),
             num_minibatches=config.num_minibatches,
             eval_loss_fn=lambda model, batch, rng: self.eval_loss_fn(model, batch, rng),
             ema_decay=config.ema_decay,
@@ -352,8 +358,9 @@ class Trainer:
                 else:
                     last["tokens_per_sec"] = tokens_per_step * step / max(
                         time.perf_counter() - t_start, 1e-9)
-                # per device: tokens_per_step counts every rank's rows
-                util = mfu(last["tokens_per_sec"] / self.data_size, self.model_config,
+                # per device: tokens_per_step counts every rank's rows,
+                # which the model axis splits again
+                util = mfu(last["tokens_per_sec"] / self.num_devices, self.model_config,
                            self.device)
                 if util is not None:
                     last["mfu"] = util
