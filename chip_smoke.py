@@ -3,8 +3,9 @@ against its plain version, and drives GPT-2 125M inference, training and
 continuous-batching serving, with its hierarchical KV memory, speculative
 decoding, the int8 KV cache, beam search and int8 weight export, the
 trainer shell (data loading, checkpointed fit, 8k context), data
-parallelism (a process group, a mesh, synced gradients) and FSDP (sharded
-parameters, state and checkpoints), at full width.
+parallelism (a process group, a mesh, synced gradients), FSDP (sharded
+parameters, state and checkpoints), tensor parallelism, and pipeline
+parallelism on GPT-2 350M, at full width.
 
     python3 chip_smoke.py
 
@@ -180,9 +181,9 @@ source, all started together).  Phases, in order; any failure raises:
    ``python -m torch.distributed.run --standalone --nproc_per_node=1 -m
    tpu_parallel_torch.train --config=gpt2_125m_dp`` for 3 steps on
    ``CLI_ROWS`` rows: exit 0, a topology line with one process and NCCL,
-   ``train_loss`` in its metrics.  It runs beside phases 13 and 14's CLI
-   legs and (b)'s reference, which times nothing; all three are
-   collected before any later timed leg.
+   ``train_loss`` in its metrics.  It runs beside phases 13-15's CLI
+   legs and (b)'s reference, which times nothing; all are collected
+   before any later timed leg.
 13. FSDP: ``gpt2_125m_dp`` with ``model_overrides.fsdp=True`` (the blocks,
    the embedding and the lm_head sharded over the data axis), the same
    legs.  (a) An NCCL group of one: 3 steps with 12 ``flash_fwd`` and 12
@@ -220,8 +221,9 @@ source, all started together).  Phases, in order; any failure raises:
    step, a falling loss, ``train_loss`` in its metrics.  A
    one-process reference (no group) on 3 seeded batches, then (b) two
    gloo ranks sharing the card on a data=1 x model=2 mesh, each on all 32
-   rows: 12/12 launches, 55 model-axis all-reduces and one gradient
-   all-reduce per step, the replicated leaves bitwise equal across the
+   rows, both at ``TP_PAIR_LAYERS`` of the 12 layers (legs (b)-(e); the
+   run's time limit): 6/6 launches, 31 model-axis all-reduces and one
+   gradient all-reduce per step, the replicated leaves bitwise equal across the
    ranks after every step; against the reference, losses within
    ``LOSS_TOL``, the step-1 synced gradients (assembled from the ranks'
    slices) within ``TRAIN_GRAD_TOL`` per weight, the masters after every
@@ -237,13 +239,43 @@ source, all started together).  Phases, in order; any failure raises:
    ranks.  (e) ``ServingEngine(mesh=...)`` (fp32, per-step ticks) over 8
    requests: every one at its budget, equal on both ranks, greedy tokens
    equal to ``generate_sharded``'s (top-2 rule).
+15. pipeline parallelism on ``gpt2_350m_pp`` (GPT-2 350M: 24 layers, 16
+   heads of 64; 8 microbatches, interleave 2, over a ``pipe`` axis of 4)
+   at ``PP_ROWS`` rows (the config's 64 do not fit four ranks on one card:
+   PERF.md): both kernels at the PP pass [PP_ROWS / 8, 1024] x 16 heads,
+   views of the [B, S, 16, 192] qkv buffer, against the plain versions.
+   (a) ``python -m torch.distributed.run --standalone --nproc_per_node=1``
+   over the CLI's ``main`` with ``--config=gpt2_350m_pp``, the mesh's pipe
+   and ``pipe_interleave`` set to 1 and ``pipe_schedule="1f1b"`` on
+   ``CLI_ROWS`` rows (NCCL; started and collected in phase 12): exit 0,
+   384/192 launches per step, a falling loss.  A one-process
+   reference (no group, the microbatches as minibatches) on 3 seeded
+   batches, then four gloo ranks sharing the card on a data=1 x pipe=4
+   mesh: (b) GPipe with interleave 2: 48/48 launches and the schedule's
+   point-to-point ops per step per rank (bubbles send nothing), the
+   replicated leaves bitwise equal across the ranks after every step;
+   against the reference, losses within ``LOSS_TOL``, each rank's step-1
+   synced gradients within ``TRAIN_GRAD_TOL`` per weight, the masters
+   after every step within ``PP_MASTER_TOL`` and their updates within
+   ``PP_UPDATE_MEDIAN_TOL`` / ``PP_UPDATE_MAX_TOL``; state bytes, peak
+   memory, host ms per hop, step wall against the reference's, the bubble
+   share the schedule implies.  (d) Its checkpoint (every rank its
+   stage's keys) restored bitwise into a fresh Trainer, one more step on
+   both (equal losses).  (c) 1F1B (interleave 1): step-1 gradients within
+   ``TRAIN_GRAD_TOL`` of the reference's, 96/48 launches per step, peak
+   memory beside (b)'s.  (e) ``generate_sharded`` on 4 ragged prompts, 32
+   new tokens: fp32 greedy on a 4-layer cut equal to static
+   ``generate()`` of one process (top-2 rule) and on every rank; bf16 at
+   full depth on (c)'s module, ms per token; a sampled call equal on
+   every rank.  Each multi-rank leg fails at once when a rank fails, and
+   on its timeout.
 
 Weights and inputs are made from ``SEED``.  The kernel launch counters are
 set to 0 before each main path (phases 3-4: inference; phase 6's steps:
 training; phases 7-10: serving, which must leave them at 0; phase 11's
 packed fit and its 8k steps; phase 12's and phase 13's legs (a), in their
-subprocesses; phase 14's CLI leg and its leg (b)'s steps) and read after
-it.  The last two lines are the ``kernels`` JSON object and the
+subprocesses; phase 14's CLI leg and its leg (b)'s steps; phase 15's CLI
+leg and its leg (b)'s steps) and read after it.  The last two lines are the ``kernels`` JSON object and the
 ``{"ok": true, ...}`` line.
 """
 
@@ -3607,6 +3639,7 @@ def dp_pair_leg(rank, rendezvous, workdir):
     from tpu_parallel_torch.train_lib import Trainer
 
     initialize(rendezvous, 2, rank, backend="gloo", device="cuda:0")
+    _share_cores(2)
     info = process_info()
     gloo_cuda = _stage_gloo_through_host()
     config = _dp_config(num_minibatches=DP_PAIR_MINIBATCHES)
@@ -3719,36 +3752,59 @@ def _run_leg(args, env=None, timeout=DP_LEG_TIMEOUT):
     return json.loads(lines[-1][len(DP_RESULT):])
 
 
-def _run_pair(leg, work):
-    """Run ``chip_smoke.py --leg <leg> <rank> <rendezvous> <work>`` as two
-    processes, ranks 0 and 1 (a file rendezvous in ``work``), and return
-    their JSON results; a rank's non-zero exit raises with its output."""
+def _run_ranks(leg, work, n, timeout):
+    """Run ``chip_smoke.py --leg <leg> <rank> <rendezvous> <work>`` as ``n``
+    processes (a file rendezvous in ``work``) and return their JSON
+    results.  A rank that exits non-zero fails the leg at once, every other
+    rank killed (its peers would wait on it forever), and so does the
+    timeout; the error holds the ranks' output."""
+    import tempfile
+
     rendezvous = f"file://{Path(work, leg + '_rendezvous')}"
+    files = [(tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")) for _ in range(n)]
     procs = [subprocess.Popen(
         [sys.executable, str(Path(__file__).resolve()), "--leg", leg, str(r), rendezvous, work],
-        cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True) for r in range(2)]
-    outs = []
+        cwd=Path(__file__).resolve().parent, stdout=out, stderr=err, text=True)
+        for r, (out, err) in enumerate(files)]
+    deadline = time.perf_counter() + timeout
     try:
-        for p in procs:
-            outs.append(p.communicate(timeout=DP_LEG_TIMEOUT))
+        while any(p.poll() is None for p in procs):
+            if any(p.returncode not in (None, 0) for p in procs) \
+                    or time.perf_counter() > deadline:
+                break
+            time.sleep(0.2)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
+    outs = []
+    for out, err in files:
+        out.seek(0)
+        err.seek(0)
+        outs.append((out.read(), err.read()))
+        out.close()
+        err.close()
     if any(p.returncode != 0 for p in procs):
-        raise AssertionError(f"{leg} ranks failed: " + "\n".join(
-            f"rank {r} exit {p.returncode}: {o[1][-4000:]}"
+        raise AssertionError(f"{leg} ranks failed (timeout {timeout} s): " + "\n".join(
+            f"rank {r} exit {p.returncode}: {o[0][-1500:]}\n{o[1][-4000:]}"
             for r, (p, o) in enumerate(zip(procs, outs))))
     return [json.loads([line for line in o[0].splitlines()
                         if line.startswith(DP_RESULT)][-1][len(DP_RESULT):]) for o in outs]
 
 
-# the torchrun CLI legs of phases 12-14 each start a process, build GPT-2
+def _share_cores(n):
+    """One of ``n`` ranks sharing the host: its share of the cores for
+    torch's intra-op threads (each rank taking all of them thrashes)."""
+    import os
+
+    torch.set_num_threads(max(1, (os.cpu_count() or n) // n))
+
+
+# the torchrun CLI legs of phases 12-15 each start a process, build GPT-2
 # and run 3 steps: they run together, at CLI_ROWS rows, while phase 12 (b)'s
-# reference (which times nothing) runs, and all three are collected before
-# any timed leg that follows
+# reference (which times nothing) runs, and all are collected before any
+# timed leg that follows
 CLI_ROWS = 8
 
 
@@ -3847,10 +3903,10 @@ def dp_cli_check(collected):
 def dp_phase(smi, work):
     """Phase 12: the kernels at the DP step's shape against their plain
     versions, then legs (a), (b) and (c), in the directory ``work`` (leg
-    (b)'s ``pair.pt`` stays there for phase 13).  Phases 13 and 14's CLI
+    (b)'s ``pair.pt`` stays there for phase 13).  Phases 13-15's CLI
     legs start with leg (c), beside leg (b)'s reference.  Returns the
-    report, the kernels' rows, leg (a)'s launches and the two collected
-    CLI legs."""
+    report, the kernels' rows, leg (a)'s launches and the collected CLI
+    legs of phases 13-15."""
     start = time.perf_counter()
     legs_s = {}
 
@@ -3878,16 +3934,17 @@ def dp_phase(smi, work):
         f"{[round(x, 2) for x in nccl['no_group_step_device_ms']]}; all-reduce of the flat "
         f"fp32 buffer ({nccl['flat_grad_bytes']} bytes) alone {nccl['allreduce_ms']:.4f} device "
         f"ms; max memory allocated {nccl['max_memory_allocated'] / 2**30:.2f} GiB")
-    pair = _run_pair("dp_pair", work)
+    pair = _run_ranks("dp_pair", work, 2, DP_LEG_TIMEOUT)
     if pair[0]["digests"] != pair[1]["digests"]:
         raise AssertionError(f"leg (b) replicas differ: {pair[0]['digests']} against "
                              f"{pair[1]['digests']}")
     if pair[0]["losses"] != pair[1]["losses"]:
         raise AssertionError(f"leg (b) ranks' synced losses differ: {pair}")
     lap("pair")
-    # phases 12-14's CLI legs run together with the pair's reference and
-    # are all collected before the timed legs of phases 13 and 14
-    clis = dict(dp=dp_cli_leg(work), fsdp=fsdp_cli_leg(work), tp=tp_cli_leg(work))
+    # phases 12-15's CLI legs run together with the pair's reference and
+    # are all collected before the timed legs of phases 13-15
+    clis = dict(dp=dp_cli_leg(work), fsdp=fsdp_cli_leg(work), tp=tp_cli_leg(work),
+                pp=pp_cli_leg(work))
     ref = _run_leg(["dp_pair_ref", work])
     lap("pair_reference")
     clis = _collect_clis(clis)
@@ -3915,7 +3972,7 @@ def dp_phase(smi, work):
     cli = dp_cli_check(clis.pop("dp"))
     log(f"[dp cli] torchrun --standalone --nproc_per_node=1 -m tpu_parallel_torch.train "
         f"--config=gpt2_125m_dp --config.steps={DP_STEPS} --config.global_batch_size="
-        f"{CLI_ROWS} (beside phases 13 and 14's CLI legs and the pair's reference): exit 0, "
+        f"{CLI_ROWS} (beside phases 13-15's CLI legs and the pair's reference): exit 0, "
         f"collected {cli['wall_s']:.1f} s after its launch; "
         f"topology {cli['topology']}; metrics have train_loss; {cli['stdout_tail']}")
     phase_s = time.perf_counter() - start
@@ -4103,6 +4160,7 @@ def fsdp_pair_leg(rank, rendezvous, workdir):
     from tpu_parallel_torch.train_lib import Trainer
 
     initialize(rendezvous, 2, rank, backend="gloo", device="cuda:0")
+    _share_cores(2)
     info = process_info()
     config = _fsdp_config(num_minibatches=DP_PAIR_MINIBATCHES)
     mesh = make_mesh(MeshConfig(data=2))
@@ -4369,7 +4427,7 @@ def fsdp_phase(smi, work, dp_report, dp_save, cli_collected):
     log(f"  state per rank: sharded {gib(nccl['state_bytes']['sharded'])}, replicated "
         f"{gib(nccl['state_bytes']['replicated'])}; max memory allocated "
         f"{gib(nccl['max_memory_allocated'])} (DP {gib(dp['max_memory_allocated'])})")
-    pair = _run_pair("fsdp_pair", work)
+    pair = _run_ranks("fsdp_pair", work, 2, DP_LEG_TIMEOUT)
     lap("pair")
     r0 = pair[0]
     if pair[0]["digests"] != pair[1]["digests"]:
@@ -4443,6 +4501,9 @@ def fsdp_phase(smi, work, dp_report, dp_save, cli_collected):
 # data=1 x model=2 mesh: (b) training, (c) a model-sharded checkpoint,
 # (d) ``generate_sharded`` and (e) the engine over the mesh.
 TP_STEPS = 3  # counted steps of legs (a) and (b)
+# legs (b)-(e) and their reference run gpt2_125m_tp at half its 12 layers:
+# the whole run stays inside its time limit with phase 15 (PERF.md)
+TP_PAIR_LAYERS = 6
 TP_SHAPE = (32, 6, 6, 1024, 64, dict(causal=True), False, 10)  # one rank's flash shape
 TP_PROMPT_LENS = (32, 20, 27, 12)  # leg (d)'s ragged prompts, left-padded to 32
 TP_NEW = 32  # new tokens per prompt in legs (d) and (e)
@@ -4565,14 +4626,14 @@ def _tp_fp32_grads(mesh, device):
 
 
 def tp_reference_leg(workdir):
-    """One process, no group: ``Trainer(gpt2_125m_tp)`` (one device), the
-    step-1 gradients, then TP_STEPS steps on the seeded batches; saves the
+    """One process, no group: ``Trainer(gpt2_125m_tp)`` at TP_PAIR_LAYERS
+    layers (one device), the step-1 gradients, then TP_STEPS steps on the seeded batches; saves the
     losses, the gradients, the masters after each step and the fp32
     gradients for leg (b), with its step times and peak memory."""
     from tpu_parallel_torch.core.metrics import compute
     from tpu_parallel_torch.train_lib import Trainer
 
-    trainer = Trainer(_tp_config(), device="cuda")
+    trainer = Trainer(_tp_config(model_overrides=dict(n_layers=TP_PAIR_LAYERS)), device="cuda")
     if trainer.mesh is not None:
         raise AssertionError("a Trainer without a group has a mesh")
     state = trainer.init()
@@ -4627,8 +4688,9 @@ def tp_pair_leg(rank, rendezvous, workdir):
     from tpu_parallel_torch.train_lib import Trainer
 
     initialize(rendezvous, 2, rank, backend="gloo", device="cuda:0")
+    _share_cores(2)
     info = process_info()
-    config = _tp_config()
+    config = _tp_config(model_overrides=dict(n_layers=TP_PAIR_LAYERS))
     mesh = make_mesh(MeshConfig(data=1, model=2))
     trainer = Trainer(config, mesh, device="cuda:0")
     state = trainer.init()
@@ -4943,10 +5005,10 @@ def tp_phase(smi, work, cli_collected):
         f"flash_bwd) {cli['launches_per_step']}; losses {[round(x, 5) for x in cli['losses']]}")
     ref = _run_leg(["tp_ref", work])
     lap("reference")
-    pair = _run_pair("tp_pair", work)
+    pair = _run_ranks("tp_pair", work, 2, DP_LEG_TIMEOUT)
     lap("pair")
     r0 = pair[0]
-    layers, mb = _tp_layers(), _tp_config().num_minibatches
+    layers, mb = TP_PAIR_LAYERS, _tp_config().num_minibatches
     want_coll = [mb * (2 * layers + 5 + 2 * layers + 2), 0, 1]
     for p in pair:
         if p["launches_per_step"] != [[layers, layers]] * TP_STEPS:
@@ -4966,7 +5028,8 @@ def tp_phase(smi, work, cli_collected):
             raise AssertionError(f"legs (d)-(e): the ranks' {key} differ")
     gib = lambda n: f"{n / 2**30:.3f} GiB"
     log(f"[tp two ranks] gloo over CUDA tensors, two processes on cuda:0 ({r0['process_info']}), "
-        f"mesh data=1 x model=2, gpt2_125m_tp [32, 1024] on both ranks: launches per step "
+        f"mesh data=1 x model=2, gpt2_125m_tp at {TP_PAIR_LAYERS} of its 12 layers, [32, 1024] "
+        f"on both ranks: launches per step "
         f"{r0['launches_per_step']}; (tp all-reduces, tp all-gathers, gradient all-reduces) per "
         f"step {r0['collectives_per_step']}; replicated leaves bitwise equal across the ranks "
         f"after every step; losses {[round(x, 5) for x in r0['losses']]} against one process's "
@@ -5012,9 +5075,628 @@ def tp_phase(smi, work, cli_collected):
     return dict(cli=cli, reference=ref, pair=pair, phase_s=phase_s, legs_s=legs_s), rows, \
         r0["launches"]
 
+# phase 15: pipeline parallelism on the card (``gpt2_350m_pp``: GPT-2 350M,
+# 24 layers over a pipe axis of 4 with 2 virtual stages per rank, flash
+# attention under the proj_attn policy, 8 microbatches).  The kernels at
+# the PP pass's shape; (a) the CLI under torchrun, a pipe axis of 1 with
+# 1F1B (NCCL, a group of one; started and collected in phase 12); a
+# one-process reference; then four gloo ranks sharing the card for (b)
+# GPipe with interleave 2, (c) 1F1B, (d) a checkpoint and (e)
+# ``generate_sharded``.
+PP_STEPS = 3  # counted steps of leg (b)
+PP_RANKS = 4
+PP_ROWS = 32  # global batch (the config has 64: see PERF.md): 8 microbatches of [4, 1024]
+PP_MICRO = 8  # the config's num_microbatches
+PP_SHAPE = (PP_ROWS // PP_MICRO, 16, 16, 1024, 64, dict(causal=True), False, 20)
+PP_PROMPT_LENS = (32, 20, 27, 12)  # leg (e)'s ragged prompts, left-padded to 32
+PP_NEW = 32  # new tokens per prompt in leg (e)
+PP_FP32_LAYERS = 4  # leg (e)'s fp32 cut: one layer per rank
+PP_LEG_TIMEOUT = 420
+# leg (b) against one process, per weight, relative L2 (the qkv bias's key
+# slice left out): the masters of non-zero init after each step, and each
+# step's update from the initial masters, median and max over the weights.
+# The one process runs the same 8 microbatches as 8 minibatches; the
+# pipelined step differs from it in the summation order of the lm_head's
+# and the embedding's gradients (one product over the 64 rows against 8
+# accumulated ones) and in bf16 rounding, as phase 14's split does.
+PP_MASTER_TOL = 5e-4
+PP_UPDATE_MEDIAN_TOL = 5e-2
+PP_UPDATE_MAX_TOL = 3e-1
+
+
+def _pp_config(**changes):
+    config, _ = _shell_config("gpt2_350m_pp", seed=SEED, global_batch_size=PP_ROWS, **changes)
+    return config
+
+
+def _pp_batches(vocab, device):
+    """PP_STEPS seeded global batches of [PP_ROWS, 1024]."""
+    from tpu_parallel_torch.data import lm_batch
+
+    return [lm_batch(torch.Generator().manual_seed(SEED + 80 + i), PP_ROWS, SHELL_SEQ, vocab,
+                     device=device) for i in range(PP_STEPS)]
+
+
+def _pp_counts():
+    from tpu_parallel_torch.parallel import pp
+
+    return [pp.pp_send_launches, pp.pp_recv_launches]
+
+
+def _pp_grads(trainer, state, batch, mesh):
+    """The step's synced gradients on ``batch`` without an update (the
+    Trainer's schedule and sync); the caller clears the accumulators."""
+    from tpu_parallel_torch.core.accumulate import accumulate_gradients
+    from tpu_parallel_torch.models.gpt import make_gpt_1f1b_grad_fn
+    from tpu_parallel_torch.parallel import fsdp
+
+    if trainer.model_config.pipe_schedule == "1f1b":
+        grads, _ = make_gpt_1f1b_grad_fn(trainer.model_config, mesh=mesh)(state, batch, None)
+    else:
+        grads, _ = accumulate_gradients(state, batch, state.rng, trainer.config.num_minibatches,
+                                        trainer.loss_fn)
+    if mesh is not None:
+        fsdp.sync_gradients(state.partitioned(grads), ("data", "model"), ("pipe",), mesh=mesh)
+    return grads
+
+
+def _host(tree):
+    return {n: v.detach().to("cpu", torch.float32, copy=True) for n, v in tree.items()}
+
+
+def pp_reference_leg(workdir):
+    """One process, no group: ``gpt2_350m_pp`` on one device (a pipe axis
+    of 1, its 8 microbatches as 8 minibatches), the step-1 gradients, then
+    PP_STEPS steps on the seeded batches; saves the initial masters, the
+    gradients and the masters after each step for leg (b), with its step
+    times, state bytes and peak memory."""
+    from tpu_parallel_torch.core.metrics import compute
+    from tpu_parallel_torch.train_lib import Trainer
+
+    config = _pp_config(num_minibatches=PP_MICRO, mesh=dict(data=1, model=1, pipe=1, seq=1),
+                        model_overrides=dict(pipe_interleave=1))
+    t0 = time.perf_counter()
+    trainer = Trainer(config, device="cuda")
+    if trainer.mesh is not None or trainer.model.pipe is not None:
+        raise AssertionError("the one-process reference runs on a mesh")
+    state = trainer.init()
+    init_s = time.perf_counter() - t0
+    batches = _pp_batches(trainer.model_config.vocab_size, "cuda")
+    start = _host(state.params)
+    grads = _host(_pp_grads(trainer, state, batches[0], None))
+    state.zero_grads()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, masters, step_ms = [], [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = trainer.step_fn(state, None, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(compute(metrics)["loss"])
+        masters.append(_host(state.params))
+    peak = torch.cuda.max_memory_allocated()
+    state_bytes = _state_bytes(state)
+    del trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    torch.save(dict(start=start, grads=grads, losses=losses, masters_by_step=masters),
+               Path(workdir, "pp_ref.pt"))
+    return dict(losses=losses, step_host_ms=step_ms, max_memory_allocated=peak,
+                state_bytes=state_bytes, init_s=init_s, save_s=time.perf_counter() - t0)
+
+
+def _pp_replicated_digest(state):
+    """sha256 of the masters and optimizer moments of the leaves replicated
+    over pipe (the embedding, positions, ``norm_final``, the lm_head), in
+    name order: what a step updates (the module's weights are the
+    masters' casts)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for tree in [state.params] + _named_trees(state)[3:]:
+        if tree is state.ema_params:
+            continue
+        for name in sorted(n for n in tree if n not in state.stages):
+            h.update(tree[name].detach().cpu().float().contiguous().numpy())
+    return h.hexdigest()
+
+
+def _pp_state_bytes(state):
+    out = dict(stage=0, replicated=0)
+    for tree in _named_trees(state):
+        for name, t in tree.items():
+            out["stage" if name in state.stages else "replicated"] += t.numel() * t.element_size()
+    return out
+
+
+def _pp_hop_ms(mesh, cfg):
+    """Host ms of one point-to-point hop: every rank sends a microbatch's
+    bf16 activation [8, 1024, d_model] to the next and receives one from
+    the previous, in one exchange (the ring's tick), averaged over 5."""
+    import torch.distributed as dist
+
+    from tpu_parallel_torch.parallel import pp
+
+    group, size, index = pp.pipe_axis(mesh)
+    act = torch.randn(PP_ROWS // PP_MICRO, SHELL_SEQ, cfg.d_model, device="cuda:0").to(cfg.dtype)
+    buf = torch.empty_like(act)
+    dist.barrier()
+    ring = lambda: pp._exchange(group, [(act, (index + 1) % size)], [(buf, (index - 1) % size)])
+    ring()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        ring()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / 5 * 1e3, act.numel() * act.element_size()
+
+
+def pp_rank_leg(rank, rendezvous, workdir):
+    """Legs (b)-(e), one of PP_RANKS gloo ranks on the one card over a
+    data=1 x pipe=4 mesh.  (b) ``gpt2_350m_pp`` (GPipe, interleave 2): the
+    step-1 synced gradients and PP_STEPS counted steps on the seeded
+    batches against the reference (this rank's stage leaves, and the
+    replicated ones), a digest of the replicated leaves after every step,
+    launches and point-to-point ops per step, state bytes and peak memory,
+    ms per hop.  (d) The checkpoint of (b) restored bitwise into a fresh
+    Trainer, one more step on both.  (c) 1F1B (interleave 1): the step-1
+    gradients against the reference, one counted step, peak memory.  (e)
+    ``generate_sharded``."""
+    import torch.distributed as dist
+
+    from tpu_parallel_torch.core.metrics import compute
+    from tpu_parallel_torch.runtime import MeshConfig, initialize, make_mesh, process_info
+    from tpu_parallel_torch.train_lib import Trainer
+
+    initialize(rendezvous, PP_RANKS, rank, backend="gloo", device="cuda:0")
+    _share_cores(PP_RANKS)
+    start_s, legs_s = time.perf_counter(), {}
+
+    def lap(name):
+        legs_s[name] = time.perf_counter() - start_s - sum(legs_s.values())
+
+    result = dict(rank=rank, process_info=process_info(), legs_s=legs_s,
+                  free_bytes_at_start=torch.cuda.mem_get_info()[0])
+    mesh = make_mesh(MeshConfig(data=1, pipe=PP_RANKS))
+    config = _pp_config()
+    t0 = time.perf_counter()
+    trainer = Trainer(config, mesh, device="cuda:0")
+    state = trainer.init()
+    result["init_s"] = time.perf_counter() - t0
+    cfg = trainer.model_config
+    if cfg.pipe_size != PP_RANKS or cfg.pipe_interleave != 2:
+        raise AssertionError(f"leg (b) pipe_size {cfg.pipe_size}, interleave "
+                             f"{cfg.pipe_interleave}")
+    ref = torch.load(Path(workdir, "pp_ref.pt"), weights_only=True, mmap=True)
+    keys = sorted(state.params)
+    result.update(layers=trainer.model.blocks.layer_ids, stage_leaves=len(state.stages))
+    start = _host(state.params)
+    if any(not torch.equal(start[n], ref["start"][n]) for n in keys):
+        raise AssertionError(f"rank {rank}: the initial masters differ from one process's")
+    batches = _pp_batches(cfg.vocab_size, "cuda:0")
+    lap("init")
+    grads = _pp_grads(trainer, state, batches[0], mesh)
+    torch.cuda.synchronize()
+    lap("step1_grads")
+    grads = _host(grads)
+    state.zero_grads()
+    grad_rel = _rel_by_weight(cfg, grads, {n: ref["grads"][n] for n in keys})
+    del grads
+    lap("step1_compare")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()  # the main path starts here
+    losses, digests, per_step, p2p, step_ms, master_rel, update_rel = [], [], [], [], [], [], []
+    for i, batch in enumerate(batches):
+        before, pbefore = _launch_counts(), _pp_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = trainer.step_fn(state, None, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        per_step.append([a - b for a, b in zip(_launch_counts(), before)])
+        p2p.append([a - b for a, b in zip(_pp_counts(), pbefore)])
+        losses.append(compute(metrics)["loss"])
+        lap(f"step{i + 1}")
+        digests.append(_pp_replicated_digest(state))
+        lap(f"step{i + 1}_digest")
+        full = _host(state.params)
+        want = ref["masters_by_step"][i]
+        master_rel.append(_rel_by_weight(cfg, {n: full[n] for n in keys if start[n].norm() > 0},
+                                         want))
+        update_rel.append(_rel_by_weight(cfg, {n: full[n] for n in keys}, want, init=start))
+        del full
+        lap(f"step{i + 1}_compare")
+    launches = dict(zip(LAUNCH_COUNTERS, _launch_counts()))
+    peak = torch.cuda.max_memory_allocated()
+    hop_ms, hop_bytes = _pp_hop_ms(mesh, cfg)
+    worst = lambda rel: max(rel.items(), key=lambda kv: kv[1])
+    loss_diffs = [abs(a - b) for a, b in zip(losses, ref["losses"])]
+    result.update(
+        losses=losses, ref_losses=ref["losses"], loss_diffs=loss_diffs, digests=digests,
+        launches_per_step=per_step, p2p_per_step=p2p, launches=launches, step_host_ms=step_ms,
+        max_memory_allocated=peak, state_bytes=_pp_state_bytes(state), hop_host_ms=hop_ms,
+        hop_bytes=hop_bytes, step1_grad_rel_max=worst(grad_rel),
+        step1_grad_rel_median=sorted(grad_rel.values())[len(grad_rel) // 2],
+        master_rel_max=[worst(r) for r in master_rel],
+        update_rel_median=[sorted(r.values())[len(r) // 2] for r in update_rel],
+        update_rel_max=[worst(r) for r in update_rel])
+    if max(loss_diffs) > LOSS_TOL or result["step1_grad_rel_max"][1] > TRAIN_GRAD_TOL \
+            or max(m for _, m in result["master_rel_max"]) > PP_MASTER_TOL \
+            or max(result["update_rel_median"]) > PP_UPDATE_MEDIAN_TOL \
+            or max(m for _, m in result["update_rel_max"]) > PP_UPDATE_MAX_TOL:
+        raise AssertionError(f"leg (b) rank {rank} disagrees with one process: "
+                             f"{ {k: v for k, v in result.items() if k != 'digests'} }")
+    gc.collect()
+    torch.cuda.empty_cache()
+    result.update(checkpoint=_pp_checkpoint(trainer, config, mesh, batches[0], rank, workdir))
+    lap("checkpoint")
+    del trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    result.update(one_f_one_b=_pp_1f1b(mesh, ref, batches, rank))
+    lap("one_f_one_b_and_generate")
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    dist.destroy_process_group()
+    return result
+
+
+def _pp_checkpoint(trainer, config, mesh, batch, rank, workdir):
+    """Leg (d): (b)'s state saved (every rank its stage's keys and the
+    replicated ones, ``torch.distributed.checkpoint``), restored into a
+    fresh Trainer with every tensor bitwise equal, then one more step on
+    both: the same loss."""
+    from tpu_parallel_torch.core.metrics import compute
+    from tpu_parallel_torch.train_lib import Trainer
+
+    directory = str(Path(workdir, "pp_ckpt"))
+    step = trainer.state.step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.save_checkpoint(directory, step)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    fresh = Trainer(config, mesh, device="cuda:0")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fresh.restore_checkpoint(directory)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    want, got = _local_leaves(trainer.state.state_dict()), _local_leaves(fresh.state.state_dict())
+    module_equal = all(torch.equal(a, b) for a, b in zip(trainer.model.parameters(),
+                                                         fresh.model.parameters()))
+    if got.keys() != want.keys() or not all(torch.equal(got[k], want[k]) for k in want) \
+            or not module_equal or fresh.state.step != step:
+        raise AssertionError(f"rank {rank}: the restored state differs from the saved one")
+    losses = []
+    for t in (trainer, fresh):
+        losses.append(compute(t.step_fn(t.state, None, batch)[1])["loss"])
+        gc.collect()
+        torch.cuda.empty_cache()
+    if losses[0] != losses[1] or fresh.state.step != step + 1:
+        raise AssertionError(f"rank {rank}: the restored state trains apart: {losses}")
+    tensors = len(want)
+    del fresh
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(save_ms=save_ms, restore_ms=restore_ms, local_tensors=tensors, next_loss=losses[0])
+
+
+def _pp_1f1b(mesh, ref, batches, rank):
+    """Leg (c): ``gpt2_350m_pp`` under ``pipe_schedule="1f1b"`` (interleave
+    1; JAX refuses 1F1B with interleave) from the same seeded init: the
+    step-1 synced gradients against the reference, then one counted step
+    (launches and point-to-point ops) and its peak memory; then leg (e)
+    on its trained module."""
+    from tpu_parallel_torch.core.metrics import compute
+    from tpu_parallel_torch.train_lib import Trainer
+
+    config = _pp_config(model_overrides=dict(pipe_interleave=1, pipe_schedule="1f1b"))
+    t0 = time.perf_counter()
+    trainer = Trainer(config, mesh, device="cuda:0")
+    state = trainer.init()
+    init_s = time.perf_counter() - t0
+    cfg = trainer.model_config
+    if any(not torch.equal(p.cpu(), ref["start"][n]) for n, p in state.params.items()):
+        raise AssertionError(f"rank {rank}: leg (c)'s initial masters differ from one process's")
+    grads = _host(_pp_grads(trainer, state, batches[0], mesh))
+    state.zero_grads()
+    rel = _rel_by_weight(cfg, grads, {n: ref["grads"][n] for n in grads})
+    del grads
+    worst = max(rel.items(), key=lambda kv: kv[1])
+    if worst[1] > TRAIN_GRAD_TOL:
+        raise AssertionError(f"leg (c) rank {rank}: 1F1B step-1 gradients against one "
+                             f"process's, worst {worst}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    before = _pp_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = trainer.step_fn(state, None, batches[0])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    out = dict(layers=trainer.model.blocks.layer_ids, step1_grad_rel_max=worst,
+               step1_grad_rel_median=sorted(rel.values())[len(rel) // 2],
+               launches_per_step=_launch_counts(),
+               p2p_per_step=[a - b for a, b in zip(_pp_counts(), before)],
+               loss=compute(metrics)["loss"], step_host_ms=step_ms,
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    t0 = time.perf_counter()
+    out.update(generate=_pp_generate(trainer, mesh, rank), init_s=init_s,
+               generate_s=time.perf_counter() - t0)
+    del trainer, state
+    return out
+
+
+def _pp_prompts(vocab):
+    gen = torch.Generator().manual_seed(SEED + 90)
+    rows = [torch.randint(1, vocab, (n,), generator=gen).tolist() for n in PP_PROMPT_LENS]
+    width = max(PP_PROMPT_LENS)
+    prompt = torch.zeros(len(rows), width, dtype=torch.long)
+    mask = torch.zeros(len(rows), width, dtype=torch.bool)
+    for i, row in enumerate(rows):
+        prompt[i, width - len(row):] = torch.tensor(row)
+        mask[i, width - len(row):] = True
+    return prompt.cuda(), mask.cuda(), rows
+
+
+def _pp_generate(trainer, mesh, rank):
+    """Leg (e).  fp32 (TF32 off) on a PP_FP32_LAYERS-layer cut of GPT-2
+    350M (seeded, one layer per rank): greedy ``generate_sharded`` on the
+    ragged prompts against static ``generate()`` of one process on the same
+    weights (top-2 rule, rank 0).  bf16 at full depth on (c)'s trained
+    module: ms per token and tokens/s, and a top-k sampled call."""
+    import dataclasses
+
+    from tpu_parallel_torch.models import GPTLM
+    from tpu_parallel_torch.models.generate import generate, generate_sharded
+
+    cfg = trainer.model_config
+    cut = dataclasses.replace(cfg, dtype=torch.float32, remat=False, n_layers=PP_FP32_LAYERS)
+    sharded = GPTLM(cut, device="cuda:0", seed=SEED, mesh=mesh).eval()
+    prompt, mask, rows = _pp_prompts(cfg.vocab_size)
+    got = generate_sharded(sharded, prompt, max_new_tokens=PP_NEW, prompt_mask=mask).tolist()
+    report = dict(tokens=got)
+    del sharded
+    if rank == 0:
+        dense = GPTLM(dataclasses.replace(cut, pipe_size=1), device="cuda:0", seed=SEED).eval()
+        with torch.inference_mode():
+            want = generate(dense, prompt, max_new_tokens=PP_NEW, prompt_mask=mask).tolist()
+        report["fp32_against_generate"] = [
+            _top2_held(dense, row, g, w, f"generate_sharded row {i}")
+            for i, (row, g, w) in enumerate(zip(rows, got, want))]
+        del dense
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = trainer.model.eval()
+    before = _pp_counts()
+    generate_sharded(model, prompt, max_new_tokens=PP_NEW, prompt_mask=mask)
+    hops = [a - b for a, b in zip(_pp_counts(), before)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    generate_sharded(model, prompt, max_new_tokens=PP_NEW, prompt_mask=mask)
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    report.update(bf16_ms_per_token=call_s / PP_NEW * 1e3,
+                  bf16_tokens_per_s=len(rows) * PP_NEW / call_s, p2p_per_call=hops,
+                  top_k=generate_sharded(model, prompt, rng=torch.Generator().manual_seed(SEED),
+                                         max_new_tokens=8, prompt_mask=mask, temperature=0.8,
+                                         top_k=40).tolist())
+    model.train()
+    return report
+
+
+def pp_cli_rank_leg(metrics):
+    """Leg (a)'s rank, under torchrun: ``tpu_parallel_torch.train``'s
+    ``main`` on ``--config=gpt2_350m_pp`` with the mesh's pipe axis and
+    ``pipe_interleave`` set to 1 and ``pipe_schedule="1f1b"`` (the config
+    declares no such field, so this leg adds it to the loaded config: the
+    pipe-1 1F1B JAX calls the legitimate degenerate) for PP_STEPS steps on
+    CLI_ROWS rows, with each step's kernel launches and loss."""
+    from tpu_parallel_torch import configs, train
+    from tpu_parallel_torch.core.metrics import accumulate_metrics, compute
+    from tpu_parallel_torch.train_lib import Trainer
+
+    per_step, losses = [], []
+    real_step, real_config = Trainer.step_fn, configs.get_config
+
+    def step(self, state, metrics, batch):
+        before = _launch_counts()
+        state, step_metrics = real_step(self, state, None, batch)
+        per_step.append([a - b for a, b in zip(_launch_counts(), before)])
+        losses.append(compute(step_metrics)["loss"])
+        return state, accumulate_metrics(metrics, step_metrics)
+
+    def get_config(name):
+        cd = real_config(name)
+        cd["model_overrides"]["pipe_schedule"] = "1f1b"
+        return cd
+
+    Trainer.step_fn = step
+    configs.get_config = get_config
+    _reset_launches()  # the main path starts here
+    code = train.main(["--config=gpt2_350m_pp", "--config.mesh.pipe=1",
+                       "--config.model_overrides.pipe_interleave=1",
+                       f"--config.steps={PP_STEPS}", f"--config.global_batch_size={CLI_ROWS}",
+                       "--config.log_every=1", f"--metrics-out={metrics}"])
+    return dict(exit=code, launches_per_step=per_step, losses=losses,
+                launches=dict(zip(LAUNCH_COUNTERS, _launch_counts())))
+
+
+def pp_cli_leg(work):
+    """Leg (a), launched: ``python -m torch.distributed.run --standalone
+    --nproc_per_node=1`` over this script's ``pp_cli_rank`` leg;
+    :func:`pp_cli_check` holds it."""
+    metrics = Path(work, "pp_metrics.prom")
+    return _launch(_torchrun(str(Path(__file__).resolve()), "--leg", "pp_cli_rank",
+                             str(metrics))), metrics
+
+
+def pp_cli_check(collected):
+    """Leg (a): exit 0, one NCCL process; per step and layer, each of the 8
+    microbatches launches the forward kernel twice (the forward and the
+    backward's recompute) and the backward kernel once; a falling loss;
+    ``train_loss`` in the metrics."""
+    (out, wall), metrics = collected
+    topology = [json.loads(line[len("topology: "):]) for line in out.splitlines()
+                if line.startswith("topology: ")]
+    if len(topology) != 1 or topology[0]["process_count"] != 1 \
+            or topology[0]["backend"] != "nccl":
+        raise AssertionError(f"CLI topology lines {topology}")
+    result = json.loads([line for line in out.splitlines()
+                         if line.startswith(DP_RESULT)][-1][len(DP_RESULT):])
+    want = [2 * PP_MICRO * 24, PP_MICRO * 24]
+    if result["exit"] != 0 or result["launches_per_step"] != [want] * PP_STEPS:
+        raise AssertionError(f"leg (a): exit {result['exit']}, launches per step "
+                             f"{result['launches_per_step']}, want {want}")
+    _falls("leg (a)", result["losses"])
+    if "train_loss" not in metrics.read_text():
+        raise AssertionError("CLI metrics without train_loss")
+    result.update(wall_s=wall, topology=topology[0])
+    return result
+
+
+def pp_phase(smi, work, cli_collected):
+    """Phase 15: the kernels at the PP pass's shape against their plain
+    versions, then legs (a)-(e) in the directory ``work``.  Returns the
+    report, the kernels' rows and leg (b)'s launches (rank 0's main
+    path)."""
+    start = time.perf_counter()
+    legs_s = {}
+
+    def lap(name):
+        legs_s[name] = time.perf_counter() - start - sum(legs_s.values())
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 85)
+    rows = dict(fwd=fwd_kernel_row("t_pp_pass", PP_SHAPE, gen),
+                bwd=bwd_kernel_row("t_pp_pass", PP_SHAPE, gen, main_path=True))
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("kernels")
+    cli = pp_cli_check(cli_collected)
+    log(f"[pp cli] torchrun --standalone --nproc_per_node=1 over -m tpu_parallel_torch.train's "
+        f"main --config=gpt2_350m_pp --config.mesh.pipe=1 --config.model_overrides."
+        f"pipe_interleave=1 (pipe_schedule='1f1b' added to the loaded config) --config.steps="
+        f"{PP_STEPS} --config.global_batch_size={CLI_ROWS} (NCCL, a group of one; started and "
+        f"collected in phase 12): exit 0, collected {cli['wall_s']:.1f} s after its launch; "
+        f"topology {cli['topology']}; launches per step (flash_fwd, flash_bwd) "
+        f"{cli['launches_per_step']}; losses {[round(x, 5) for x in cli['losses']]}")
+    ref = _run_leg(["pp_ref", work])
+    lap("reference")
+    ranks = _run_ranks("pp_rank", work, PP_RANKS, PP_LEG_TIMEOUT)
+    lap("ranks")
+    r0 = ranks[0]
+    n, v, m = PP_RANKS, 2, PP_MICRO
+    per_rank_layers = 24 // n
+    want_launches = [m * per_rank_layers, m * per_rank_layers]
+    for p in ranks:
+        r = p["rank"]
+        if p["launches_per_step"] != [want_launches] * PP_STEPS:
+            raise AssertionError(f"leg (b) rank {r}: launches per step {p['launches_per_step']}, "
+                                 f"want {want_launches}")
+        # each of the rank's m * v (microbatch, chunk) steps receives its
+        # input and sends its output, forward, and the reverse backward,
+        # except rank 0's first chunk (fed) and the last rank's last
+        # (collected): bubbles send nothing
+        ops = 2 * m * v - m * (r == 0) - m * (r == n - 1)
+        want_p2p = [ops, ops]
+        if p["p2p_per_step"] != [want_p2p] * PP_STEPS:
+            raise AssertionError(f"leg (b) rank {r}: (sends, receives) per step "
+                                 f"{p['p2p_per_step']}, want {want_p2p}")
+        f1 = p["one_f_one_b"]
+        if f1["launches_per_step"] != [2 * m * per_rank_layers, m * per_rank_layers]:
+            raise AssertionError(f"leg (c) rank {r}: launches {f1['launches_per_step']}")
+        ops = 2 * m - m * (r == 0) - m * (r == n - 1)
+        if f1["p2p_per_step"] != [ops, ops]:
+            raise AssertionError(f"leg (c) rank {r}: (sends, receives) {f1['p2p_per_step']}")
+    if any(p["digests"] != r0["digests"] for p in ranks):
+        raise AssertionError("leg (b): the replicated leaves differ across the ranks")
+    if any(p["losses"] != r0["losses"] for p in ranks):
+        raise AssertionError("leg (b): the ranks' synced losses differ")
+    gens = [p["one_f_one_b"]["generate"] for p in ranks]
+    for key in ("tokens", "top_k"):
+        if any(g[key] != gens[0][key] for g in gens):
+            raise AssertionError(f"leg (e): the ranks' {key} differ")
+    gib = lambda x: f"{x / 2**30:.3f} GiB"
+    bubble = (n - 1) / (m * v + n - 1)
+    log(f"[pp ranks] {PP_RANKS} gloo processes on cuda:0 ({r0['process_info']}), mesh data=1 x "
+        f"pipe={n}, gpt2_350m_pp ({m} microbatches of [{PP_ROWS // m}, 1024], interleave {v}: "
+        f"rank r holds layers {[p['layers'] for p in ranks]}); free at the start "
+        f"{gib(r0['free_bytes_at_start'])}; activations and gradients cross the ranks "
+        f"through host buffers (gloo's point-to-point takes no CUDA tensor)")
+    log(f"  launches per step per rank {[p['launches_per_step'][0] for p in ranks]}; (sends, "
+        f"receives) per step {[p['p2p_per_step'][0] for p in ranks]}; replicated leaves bitwise "
+        f"equal across the ranks after every step; losses {[round(x, 5) for x in r0['losses']]} "
+        f"against one process's {[round(x, 5) for x in r0['ref_losses']]} (|diff| "
+        f"{r0['loss_diffs']}, tol {LOSS_TOL})")
+    log("  against one process, per rank: step-1 synced gradients relative L2 per weight "
+        + "; ".join(f"rank {p['rank']} median {p['step1_grad_rel_median']:.3e} max "
+                    f"{p['step1_grad_rel_max'][1]:.3e} ({p['step1_grad_rel_max'][0]})"
+                    for p in ranks)
+        + f" (tol {TRAIN_GRAD_TOL}); masters after each step worst "
+        + str([[(n_, f'{x:.2e}') for n_, x in p["master_rel_max"]] for p in ranks])
+        + f" (tol {PP_MASTER_TOL}); updates median "
+        + str([[f'{x:.2e}' for x in p["update_rel_median"]] for p in ranks])
+        + f" (tol {PP_UPDATE_MEDIAN_TOL}), max "
+        + str([[(n_, f'{x:.2e}') for n_, x in p["update_rel_max"]] for p in ranks])
+        + f" (tol {PP_UPDATE_MAX_TOL})")
+    log(f"  step host ms per rank {[[round(x, 1) for x in p['step_host_ms']] for p in ranks]} "
+        f"against one process's {[round(x, 1) for x in ref['step_host_ms']]}; bubble share the "
+        f"schedule implies (n-1)/(m v + n - 1) = {bubble:.4f}; one hop (a [{PP_ROWS // m}, 1024, "
+        f"1024] bf16 activation, {r0['hop_bytes']} bytes, staged through the host) "
+        f"{[round(p['hop_host_ms'], 2) for p in ranks]} host ms; state per rank "
+        + "; ".join(f"rank {p['rank']} stage {gib(p['state_bytes']['stage'])} + replicated "
+                    f"{gib(p['state_bytes']['replicated'])}, max memory allocated in a step "
+                    f"{gib(p['max_memory_allocated'])}" for p in ranks)
+        + f"; one process: {gib(sum(ref['state_bytes'].values()))}, "
+        f"{gib(ref['max_memory_allocated'])} (8 minibatches)")
+    log(f"  rank legs' seconds {[{k: round(v, 1) for k, v in p['legs_s'].items()} for p in ranks]} "
+        f"(1F1B's init {[round(p['one_f_one_b']['init_s'], 1) for p in ranks]}, leg (e) "
+        f"{[round(p['one_f_one_b']['generate_s'], 1) for p in ranks]}); the reference's init "
+        f"{ref['init_s']:.1f} s, save {ref['save_s']:.1f} s")
+    f1s = [p["one_f_one_b"] for p in ranks]
+    log(f"[pp 1f1b] interleave 1 (rank r holds layers {[f['layers'] for f in f1s]}): step-1 "
+        f"synced gradients against one process's median "
+        f"{[round(f['step1_grad_rel_median'], 5) for f in f1s]}, max "
+        f"{[(f['step1_grad_rel_max'][0], round(f['step1_grad_rel_max'][1], 5)) for f in f1s]} "
+        f"(tol {TRAIN_GRAD_TOL}); launches per step {[f['launches_per_step'] for f in f1s]}; "
+        f"(sends, receives) {[f['p2p_per_step'] for f in f1s]}; step host ms "
+        f"{[round(f['step_host_ms'], 1) for f in f1s]}; max memory allocated in a step "
+        f"{[gib(f['max_memory_allocated']) for f in f1s]} against GPipe's (interleave 2) "
+        f"{[gib(p['max_memory_allocated']) for p in ranks]}")
+    ck = [p["checkpoint"] for p in ranks]
+    log(f"[pp checkpoint] save {[round(c['save_ms'], 1) for c in ck]} ms, restore "
+        f"{[round(c['restore_ms'], 1) for c in ck]} ms into a fresh Trainer: local tensors per "
+        f"rank {[c['local_tensors'] for c in ck]} bitwise equal; one more step on both: loss "
+        f"{ck[0]['next_loss']:.5f} equal")
+    g0 = gens[0]
+    log(f"[pp generate] fp32 (TF32 off, {PP_FP32_LAYERS} layers, seeded) generate_sharded on "
+        f"{len(PP_PROMPT_LENS)} ragged prompts {PP_PROMPT_LENS}, {PP_NEW} new: greedy tokens "
+        f"equal on every rank, against static generate() of one process on the same weights "
+        f"{g0['fp32_against_generate']}; bf16 full depth on leg (c)'s module "
+        f"{[round(g['bf16_ms_per_token'], 2) for g in gens]} ms per token, "
+        f"{g0['bf16_tokens_per_s']:.1f} tokens/s, (sends, receives) per call "
+        f"{[g['p2p_per_call'] for g in gens]}; top-k sampled tokens equal on every rank "
+        f"(row 0 {g0['top_k'][0]})")
+    phase_s = time.perf_counter() - start
+    log(f"[pp] phase 15 took {phase_s:.1f} s ("
+        + ", ".join(f"{k} {v_:.1f}" for k, v_ in legs_s.items()) + ")")
+    log(f"card: {smi}")
+    return dict(cli=cli, reference=ref, ranks=ranks, bubble_share=bubble,
+                phase_s=phase_s, legs_s=legs_s), rows, r0["launches"]
+
+
 
 def leg_main(argv):
-    """``chip_smoke.py --leg <name> ...``: one leg of phase 12, 13 or 14 in
+    """``chip_smoke.py --leg <name> ...``: one leg of phases 12-15 in
     this process; prints its result as one ``dp-leg-result:`` JSON line."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5035,6 +5717,12 @@ def leg_main(argv):
         result = tp_reference_leg(rest[0])
     elif name == "tp_pair":
         result = tp_pair_leg(int(rest[0]), rest[1], rest[2])
+    elif name == "pp_cli_rank":
+        result = pp_cli_rank_leg(rest[0])
+    elif name == "pp_ref":
+        result = pp_reference_leg(rest[0])
+    elif name == "pp_rank":
+        result = pp_rank_leg(int(rest[0]), rest[1], rest[2])
     else:
         raise SystemExit(f"unknown leg {name!r}")
     print(DP_RESULT + json.dumps(result), flush=True)
@@ -5100,6 +5788,11 @@ def main():
         tp_report, tp_rows, tp_launches = tp_phase(smi, work, clis["tp"])
         if not all(tp_launches.values()):
             raise AssertionError(f"the training_tp path left a kernel unlaunched: {tp_launches}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        pp_report, pp_rows, pp_launches = pp_phase(smi, work, clis["pp"])
+        if not all(pp_launches.values()):
+            raise AssertionError(f"the training_pp path left a kernel unlaunched: {pp_launches}")
     finally:
         _kill_launched()
         shutil.rmtree(work, ignore_errors=True)
@@ -5170,11 +5863,23 @@ def main():
         for kind, row, replaces in (
             ("fwd", tp_rows["fwd"], "tpu_parallel/ops/flash_attention.py:240"),
             ("bwd", tp_rows["bwd"], "tpu_parallel/ops/flash_attention.py:464,563"))
+    ] + [
+        # phase 15 (b)'s step on rank 0: GPT-2 350M's 16 heads of 64 on a
+        # microbatch, views of its [B, S, 16, 192] qkv buffer
+        dict(name=f"flash_{kind}", route="cuda", source=f"tpu_parallel_torch/csrc/flash_{kind}.cu",
+             replaces=replaces, path="training_pp", shape=row["shape"],
+             launches=pp_launches[f"flash_{kind}_launches"], max_abs_err=row["max_abs_err"],
+             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+             bound_by=row["bound_by"], library_ms=row["library_ms"])
+        for kind, row, replaces in (
+            ("fwd", pp_rows["fwd"], "tpu_parallel/ops/flash_attention.py:240"),
+            ("bwd", pp_rows["bwd"], "tpu_parallel/ops/flash_attention.py:464,563"))
     ]}
     summary = dict(card=smi, forward=fwd, generate=gen, train=train, serve=serve, kv=kv,
                    spec=spec, decode_extras=extras, trainer_shell=shell, data_parallel=dp_report,
                    fsdp=fsdp_report, tensor_parallel=tp_report,
-                   tensor_parallel_kernel_shapes=tp_rows,
+                   tensor_parallel_kernel_shapes=tp_rows, pipeline_parallel=pp_report,
+                   pipeline_parallel_kernel_shapes=pp_rows,
                    inference_flash_fwd_launches=inference_launches,
                    kernel_shapes=kernel_rows, bwd_kernel_shapes=bwd_rows,
                    trainer_shell_kernel_shapes=shell_rows, data_parallel_kernel_shapes=dp_rows)

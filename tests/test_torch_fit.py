@@ -248,6 +248,10 @@ def test_config_matches_jax_and_runs_one_step(name):
     if ours.get("simulate_cpu_devices"):
         d["mesh"] = dict(data=-1)  # one process here; tests/test_torch_dp.py runs its ranks
     overrides = dict(d.pop("model_overrides"))
+    if d["mesh"].get("pipe", 1) > 1:
+        # one process here, one stage: tests/test_torch_pp.py runs the pipe
+        d["mesh"] = dict(data=-1)
+        overrides["pipe_interleave"] = 1
     if overrides.get("seq_len") and overrides["seq_len"] > 128:
         overrides["seq_len"] = 128
         if overrides.get("loss_chunk"):

@@ -290,20 +290,22 @@ def test_fsdp_config_without_mesh_is_replicated():
 
 
 def test_spmd_refuses_what_it_does_not_port():
-    """``build_train_functions`` refuses a schedule-owned ``grad_fn`` (the
-    1F1B pipeline, item 5.4) and a pipe or seq axis above 1 (items
-    5.4-5.5); a model axis above 1 is tensor parallelism
-    (``tests/test_torch_tp.py``)."""
+    """``build_train_functions`` takes a schedule-owned ``grad_fn`` (the
+    1F1B pipeline) but refuses it with ``num_minibatches > 1`` in JAX's
+    words, takes a pipe axis above 1 (``tests/test_torch_pp.py``) and
+    refuses a seq axis above 1 (item 5.5); a model axis above 1 is tensor
+    parallelism (``tests/test_torch_tp.py``)."""
     from tpu_parallel_torch.core.optim import AdamW
     from tpu_parallel_torch.parallel.spmd import make_model_init
 
     model = GPTLM(tiny_test(), device="cpu")
     init = make_model_init(model, AdamW(lambda count: 1e-3))
-    with pytest.raises(NotImplementedError, match="item 5.4"):
-        build_train_functions(init, None, None, grad_fn=lambda *a: None)
-    for sizes, item in ((dict(pipe=2), "5.4"), (dict(seq=2), "5.5")):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            refuse_later_axes(sizes)
+    build_train_functions(init, None, None, grad_fn=lambda *a: None)
+    with pytest.raises(ValueError, match="does not compose with a schedule-owned grad_fn"):
+        build_train_functions(init, None, None, grad_fn=lambda *a: None, num_minibatches=2)
+    refuse_later_axes(dict(pipe=2))
+    with pytest.raises(NotImplementedError, match="item 5.5"):
+        refuse_later_axes(dict(seq=2))
     refuse_later_axes(dict(data=2, model=2))
     funcs = build_train_functions(init, None, None)
     assert funcs.state_specs["lm_head.weight"] == (None, None)

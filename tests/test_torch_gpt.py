@@ -138,6 +138,13 @@ def test_seeded_init_is_deterministic_and_flax_like():
     ("attn_impl", "ring"), ("pipe_size", 2),
 ])
 def test_config_refuses_unported_features(field, value):
+    if field == "pipe_size":
+        # pipeline parallelism is ported: the config is taken, and a model
+        # built without its pipe axis meets JAX's refusal when it decodes
+        model = GPTLM(tiny_test(**{field: value}), device="cpu")
+        with pytest.raises(ValueError, match="mesh axis bound: serve through generate_sharded"):
+            model(torch.zeros(1, 3, dtype=torch.long), decode=True, cache=model.init_cache(1))
+        return
     with pytest.raises(NotImplementedError):
         tiny_test(**{field: value})
 

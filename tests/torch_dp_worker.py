@@ -5,7 +5,7 @@
 
 Starts ``num_ranks`` gloo CPU processes through
 ``tpu_parallel_torch.runtime.spawn_cpu_ranks`` and runs every case of
-``suite`` (``runtime``, ``dp``, ``fsdp`` or ``tp``) in that one group.  Each rank reads the
+``suite`` (``runtime``, ``dp``, ``fsdp``, ``tp`` or ``pp``) in that one group.  Each rank reads the
 inputs the test wrote to ``<outdir>/inputs.npz`` and writes its results to
 ``<outdir>/<suite>_rank<r>.npz``; the test compares them with the JAX
 package in its own process.  Imports torch, numpy and the port only.
@@ -55,9 +55,9 @@ def nested_tree(prefix, flat):
     return tree
 
 
-def run_once(suite, tmp_path_factory, make_inputs):
-    """Run ``suite`` once per pytest run and return its ranks' outputs
-    (a list of dicts, one per rank).  ``make_inputs(outdir)`` returns the
+def run_once(suite, tmp_path_factory, make_inputs, num_ranks=NUM_RANKS):
+    """Run ``suite`` once per pytest run in ``num_ranks`` ranks and return
+    their outputs (a list of dicts, one per rank).  ``make_inputs(outdir)`` returns the
     arrays of ``inputs.npz`` (it may write other files into ``outdir``).
     Under pytest-xdist the workers share one directory and a file lock, so
     the first worker runs the group and the others read its files."""
@@ -75,7 +75,7 @@ def run_once(suite, tmp_path_factory, make_inputs):
                 env = dict(os.environ, PYTHONPATH=REPO)
                 proc = subprocess.run(
                     [sys.executable, os.path.abspath(__file__), suite, str(outdir),
-                     str(NUM_RANKS)], cwd=REPO, env=env, capture_output=True, text=True,
+                     str(num_ranks)], cwd=REPO, env=env, capture_output=True, text=True,
                     timeout=600)
                 done.write_text(json.dumps(dict(returncode=proc.returncode,
                                                 log=(proc.stdout + proc.stderr)[-20000:])))
@@ -83,7 +83,7 @@ def run_once(suite, tmp_path_factory, make_inputs):
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
     assert status["returncode"] == 0, status["log"]
-    return [dict(np.load(outdir / f"{suite}_rank{r}.npz")) for r in range(NUM_RANKS)]
+    return [dict(np.load(outdir / f"{suite}_rank{r}.npz")) for r in range(num_ranks)]
 
 
 # -- the ranks' side ----------------------------------------------------------
@@ -991,7 +991,327 @@ def _tp_cases(inputs, outdir, out):
     out["ckpt_more_losses"] = np.array([r1["loss"], r2["loss"]])
 
 
-SUITES = {"runtime": _runtime_cases, "dp": _dp_cases, "fsdp": _fsdp_cases, "tp": _tp_cases}
+def _pp_stage_modules():
+    """``tests/test_pp.py``'s residual stage blocks (shape-preserving)."""
+    import torch
+    import torch.nn.functional as F
+    from torch import nn
+
+    class Block(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.dense = nn.Linear(16, 16)
+
+        def forward(self, x, train=True, dropout_rng=None):
+            return x + F.silu(self.dense(x))
+
+    class DropoutBlock(Block):
+        def forward(self, x, train=True, dropout_rng=None):
+            h = self.dense(x)
+            if train:
+                keep = torch.rand(h.shape, generator=dropout_rng) >= 0.5
+                h = torch.where(keep, h / 0.5, torch.zeros_like(h))
+            return x + h
+
+    return Block, DropoutBlock
+
+
+def _pp_rows(batch, mesh):
+    """This rank's rows of a global batch: the block at its data coordinate."""
+    d = mesh.get_local_rank("data")
+    n = batch.size // mesh.size(mesh.mesh_dim_names.index("data"))
+    return batch.rows(d * n, (d + 1) * n)
+
+
+def _pp_cases(inputs, outdir, out):
+    import torch
+    import torch.nn.functional as F
+    from torch import nn
+
+    from tpu_parallel_torch.core.accumulate import accumulate_gradients
+    from tpu_parallel_torch.core.metrics import compute, sync_metrics
+    from tpu_parallel_torch.core.optim import AdamW
+    from tpu_parallel_torch.core.state import Batch, TrainState
+    from tpu_parallel_torch.models import GPTLM, tiny_test
+    from tpu_parallel_torch.models.convert import params_from_jax
+    from tpu_parallel_torch.models.generate import export_single_device_params, generate_sharded
+    from tpu_parallel_torch.models.gpt import make_gpt_1f1b_grad_fn, make_gpt_loss
+    from tpu_parallel_torch.parallel import fsdp, pp
+    from tpu_parallel_torch.parallel.spmd import build_train_functions, make_model_init
+    from tpu_parallel_torch.runtime import MeshConfig, make_mesh
+    from tpu_parallel_torch.train_lib import Trainer, TrainerConfig
+
+    Block, DropoutBlock = _pp_stage_modules()
+    p4 = make_mesh(MeshConfig(data=2, pipe=4))
+    m222 = make_mesh(MeshConfig(data=2, model=2, pipe=2))
+    p2d4 = make_mesh(MeshConfig(data=4, pipe=2))
+    out["coords_p4"] = np.array([p4.get_local_rank("pipe"), p4.get_local_rank("data")])
+    out["coords_222"] = np.array([m222.get_local_rank(a) for a in ("pipe", "data", "model")])
+    out["coords_p2d4"] = np.array([p2d4.get_local_rank("pipe"), p2d4.get_local_rank("data")])
+
+    # (1) tests/test_pp.py's generic pipeline on data=2 x pipe=4
+    x = torch.from_numpy(inputs["pp_x"].copy())
+    d = p4.get_local_rank("data")
+    x_local = x[4 * d:4 * d + 4]
+    pm = pp.PipelineModule(Block, 4, mesh=p4, broadcast_outputs=True)
+    with torch.no_grad():
+        out["fwd_out"] = pm(x_local).numpy()
+    out["fwd_w"] = pm.stage.dense.weight.detach().numpy().copy()
+    out["fwd_b"] = pm.stage.dense.bias.detach().numpy().copy()
+    out["fwd_stage_tagged"] = np.array(all(pp.stage_info(p) is not None for p in pm.parameters()))
+    dm = pp.PipelineModule(DropoutBlock, 4, mesh=p4, broadcast_outputs=True)
+    with torch.no_grad():
+        a = dm(x_local, train=False, dropout_rng=torch.Generator().manual_seed(1))
+        b = dm(x_local, train=False, dropout_rng=torch.Generator().manual_seed(2))
+        c = dm(x_local, train=True, dropout_rng=torch.Generator().manual_seed(1))
+    out["kwargs_eval_equal"] = np.array(torch.equal(a, b))
+    out["kwargs_train_differs"] = np.array(not torch.equal(a, c))
+    try:
+        pp.PipelineModule(Block, 3, mesh=p4)(x_local)
+        out["indivisible_error"] = np.array("")
+    except ValueError as exc:
+        out["indivisible_error"] = np.array(str(exc))
+
+    class Classifier(nn.Module):
+        def __init__(self):
+            super().__init__()
+            torch.manual_seed(0)
+            self.embed = nn.Linear(16, 16)
+            self.pipeline = pp.PipelineModule(Block, 4, mesh=p4)
+            self.head = nn.Linear(16, 10)
+
+        def forward(self, inputs):
+            return self.head(self.pipeline(self.embed(inputs)))
+
+    def cls_loss(model, batch, rng=None):
+        logits = model(batch.inputs)
+        ce = F.cross_entropy(logits, batch.labels, reduction="none")
+        mask = pp.last_stage_mask(p4)
+        correct = (logits.argmax(-1) == batch.labels).float()
+        bs = torch.tensor(float(batch.labels.numel()))
+        metrics = {"loss": ((ce * mask).sum().detach(), bs * mask),
+                   "accuracy": ((correct * mask).sum(), bs * mask)}
+        return (ce * mask).mean(), metrics
+
+    cls_batch = Batch(inputs=torch.from_numpy(inputs["cls_inputs"].copy()),
+                      labels=torch.from_numpy(inputs["cls_labels"].copy()).long())
+    cls_local = _pp_rows(cls_batch, p4)
+    clf = Classifier()
+    funcs = build_train_functions(make_model_init(clf, AdamW(lambda count: 1e-3)), cls_loss, p4,
+                                  grad_sync_axes=("data",), grad_psum_axes=("pipe",),
+                                  metric_axes=("data", "pipe"))
+    state = funcs.init_fn(torch.Generator().manual_seed(0))
+    losses = []
+    for step in range(16):
+        state, m = funcs.step_fn(state, None, cls_local)
+        losses.append(compute(m)["loss"])
+        if step == 4:
+            out["cls_embed_after5"] = state.params["embed.weight"].numpy().copy()
+            out["cls_head_after5"] = state.params["head.weight"].numpy().copy()
+    out["cls_losses"] = np.array(losses)
+    out["cls_count"] = np.array(float(m["loss"][1]))
+
+    # (2) the tiny GPT from JAX's GPipe init on data=2 x pipe=4: GPipe and
+    # 1F1B synced gradients, with and without FSDP; collectives per step
+    def load(cfg, mesh, prefix, **kw):
+        tree = nested_tree(prefix, inputs)
+        stage = pp.pipe_axis(mesh)
+        params = params_from_jax(tree, cfg, dtype=torch.float32,
+                                 pipe_rank=None if stage is None else stage[2])
+        model = GPTLM(cfg, device="cpu", mesh=mesh)
+        return TrainState.create(model, AdamW(lambda count: 1e-3),
+                                 torch.Generator().manual_seed(0), params)
+
+    def synced(state, grads, mesh, prefix, replicated_loss_axes=("model",)):
+        fsdp.sync_gradients(state.partitioned(grads), ("data", "model"), ("pipe",),
+                            replicated_loss_axes=replicated_loss_axes, mesh=mesh)
+        _assembled(out, prefix, grads, state.shards)
+
+    gbatch = _text_batch(inputs, "gbatch")
+    for fsdp_on in (False, True):
+        over = dict(fsdp=True, fsdp_min_size=0) if fsdp_on else {}
+        for sched in ("gpipe", "1f1b"):
+            cfg = tiny_test(pipe_size=4, num_microbatches=4, remat=False, pipe_schedule=sched,
+                            **over)
+            st = load(cfg, p4, "g4params")
+            b = _pp_rows(gbatch, p4)
+            before = (pp.pp_send_launches, pp.pp_recv_launches)
+            if sched == "gpipe":
+                grads, met = accumulate_gradients(st, b, st.rng, 1, make_gpt_loss(cfg, mesh=p4))
+                # each microbatch's stage gradients were folded into their
+                # fp32 accumulators as the reverse schedule ran
+                out[f"folded_{fsdp_on}"] = np.array(
+                    all(p.grad is None for p in st.model.blocks.parameters()))
+            else:
+                grads, met = make_gpt_1f1b_grad_fn(cfg, mesh=p4)(st, b, st.rng)
+            tag = f"{sched}{'_fsdp' if fsdp_on else ''}"
+            out[f"p2p_{tag}"] = np.array([pp.pp_send_launches - before[0],
+                                          pp.pp_recv_launches - before[1]])
+            met = sync_metrics(met, ("data", "pipe"), mesh=p4)
+            out[f"loss_{tag}"] = np.array([float(met["loss"][0]), float(met["loss"][1])])
+            synced(st, grads, p4, f"g_{tag}")
+            if not fsdp_on and sched == "gpipe":
+                try:
+                    export_single_device_params(st.partitioned(st.params))
+                    out["export_error"] = np.array("")
+                except ValueError as exc:
+                    out["export_error"] = np.array(str(exc))
+
+    # (3) the deep 1F1B schedule: pipe=4, 12 microbatches; a ring too small
+    # for rank 1's 2n - 4 ticks of lag (planted) must be grossly wrong
+    dbatch = _pp_rows(_text_batch(inputs, "dbatch"), p4)
+    for name in ("gpipe", "1f1b", "1f1b_small_ring"):
+        cfg = tiny_test(pipe_size=4, num_microbatches=12, remat=False)
+        st = load(cfg, p4, "g4params")
+        if name == "gpipe":
+            grads, _ = accumulate_gradients(st, dbatch, st.rng, 1, make_gpt_loss(cfg, mesh=p4))
+        else:
+            real = pp._ring_slots
+            if name == "1f1b_small_ring":
+                pp._ring_slots = lambda n: 2 * n - 4
+            try:
+                grads, _ = make_gpt_1f1b_grad_fn(cfg, mesh=p4)(st, dbatch, st.rng)
+            finally:
+                pp._ring_slots = real
+        synced(st, grads, p4, f"deep_{name}")
+
+    # (4) the interleaved schedule (pipe=2 x 2 virtual stages, data=4) from
+    # JAX's interleaved init: the forward against one process's on the
+    # same weights, and the synced gradients
+    cfg_i = tiny_test(pipe_size=2, pipe_interleave=2, num_microbatches=2, remat=False)
+    st = load(cfg_i, p2d4, "iparams")
+    out["inter_layer_ids"] = np.array(st.model.blocks.layer_ids)
+    b = _pp_rows(gbatch, p2d4)
+    with torch.no_grad():
+        logits = st.model(b.tokens, positions=b.positions)
+    one = GPTLM(tiny_test(remat=False), device="cpu")
+    one.load_state_dict(params_from_jax(nested_tree("iparams", inputs), cfg_i))
+    with torch.no_grad():
+        want = one(b.tokens, positions=b.positions)
+    if st.model.is_last_stage:
+        out["inter_fwd_err"] = np.array(float((logits - want).abs().max()))
+    grads, _ = accumulate_gradients(st, b, st.rng, 1, make_gpt_loss(cfg_i, mesh=p2d4))
+    synced(st, grads, p2d4, "g_inter")
+    for name, value in st.model.state_dict().items():
+        out[f"inter_sd/{name}"] = value.numpy().copy()
+
+    # (5) packed == unpacked at interleave 1 and 2 (data=2 x model=2 x pipe=2);
+    # packed leakage blocked (data=2 x pipe=4)
+    def mean_loss(cfg, mesh, st, batch):
+        with torch.no_grad():
+            _, met = make_gpt_loss(cfg, mesh=mesh)(st.model, _pp_rows(batch, mesh), None)
+        met = sync_metrics(met, ("data", "pipe"), ("model",), mesh=mesh)
+        return float(met["loss"][0]) / float(met["loss"][1])
+
+    packed, unpacked = _text_batch(inputs, "packed"), _text_batch(inputs, "unpacked")
+    for v in (1, 2):
+        cfg = tiny_test(pipe_size=2, pipe_interleave=v, num_microbatches=2, remat=False)
+        model = GPTLM(cfg, device="cpu", seed=5, mesh=m222)
+        st = TrainState.create(model, AdamW(lambda count: 1e-3), torch.Generator())
+        out[f"packed_{v}"] = np.array([mean_loss(cfg, m222, st, packed),
+                                       mean_loss(cfg, m222, st, unpacked)])
+    cfg = tiny_test(pipe_size=4, num_microbatches=2, remat=False)
+    st = TrainState.create(GPTLM(cfg, device="cpu", seed=5, mesh=p4), AdamW(lambda c: 1e-3),
+                           torch.Generator())
+    leak = _text_batch(inputs, "leak")
+    perturbed = _text_batch(inputs, "leak")
+    perturbed.tokens = torch.from_numpy(inputs["leak_perturbed"].copy()).long()
+    out["leak"] = np.array([mean_loss(cfg, p4, st, leak), mean_loss(cfg, p4, st, perturbed)])
+
+    # (6) the gradient scale under TP x PP (data=2 x model=2 x pipe=2): the
+    # synced gradients against one process's dense ones; a planted missing
+    # division by the model axis, and a planted extra one
+    tbatch = _text_batch(inputs, "example_3d")
+    cfg = tiny_test(pipe_size=2, num_microbatches=2, remat=False)
+    for name, axes in (("good", ("model",)), ("no_div", ()), ("extra_div", ("model",))):
+        st = load(cfg, m222, "tparams")
+        grads, _ = accumulate_gradients(st, _pp_rows(tbatch, m222), st.rng, 1,
+                                        make_gpt_loss(cfg, mesh=m222))
+        if name == "extra_div":
+            torch._foreach_div_([grads[n] for n in st.shards], 2.0)
+        synced(st, grads, m222, f"scale_{name}", replicated_loss_axes=axes)
+    dense = GPTLM(tiny_test(remat=False), device="cpu")
+    dense_state = TrainState.create(dense, AdamW(lambda count: 1e-3), torch.Generator(),
+                                    params_from_jax(nested_tree("tparams", inputs),
+                                                    tiny_test(), dtype=torch.float32))
+    grads, _ = accumulate_gradients(dense_state, tbatch, dense_state.rng, 1,
+                                    make_gpt_loss(tiny_test()))
+    for name, value in grads.items():
+        out[f"scale_dense/{name}"] = value.numpy().copy()
+
+    # (7) generate_sharded over data=2 x model=2 x pipe=2 (greedy, ragged;
+    # then sampled), and the decode ring's prefill against the training
+    # forward (data=2 x pipe=4)
+    gcfg = tiny_test(pipe_size=2, remat=False)
+    gen_model = load(gcfg, m222, "tparams").model
+    prompt = torch.from_numpy(inputs["gen_prompt"].copy()).long()
+    mask = torch.from_numpy(inputs["gen_mask"].copy())
+    out["gen_greedy"] = generate_sharded(gen_model, prompt, max_new_tokens=8,
+                                         prompt_mask=mask).numpy()
+    out["gen_sampled"] = generate_sharded(gen_model, prompt, rng=torch.Generator().manual_seed(3),
+                                          max_new_tokens=8, temperature=1.0,
+                                          prompt_mask=mask).numpy()
+    with torch.no_grad():
+        out["full_logits_shape"] = np.array(gen_model(prompt).shape)
+    cfg = tiny_test(pipe_size=4, remat=False)
+    model = load(cfg, p4, "g4params").model
+    toks = _pp_rows(gbatch, p4).tokens[:, :8]
+    positions = torch.arange(8).expand_as(toks)
+    with torch.no_grad():
+        train_logits = model(toks)
+        cache = model.init_cache(toks.shape[0])
+        prefill = model(toks, positions=positions, decode=True, cache=cache)
+    out["prefill_last_stage"] = np.array(model.is_last_stage)
+    out["prefill_err"] = np.array(float((train_logits - prefill).abs().max()))
+    out["prefill_cache_layers"] = np.array(len(cache))
+
+    # (8) tests/test_train_lib.py::test_trainer_tiny_3d: the Trainer over
+    # data=2 x model=2 x pipe=2 from JAX's init, 4 steps on JAX's batch
+    kw = dict(model="tiny", model_overrides=dict(num_microbatches=2),
+              mesh=dict(data=2, model=2, pipe=2), global_batch_size=16, steps=4, log_every=1)
+    t3 = Trainer(TrainerConfig(**kw), device="cpu")
+    out["trainer_pipe_size"] = np.array(t3.model_config.pipe_size)
+    t3.init(params_from_jax(nested_tree("tparams", inputs), t3.model_config, dtype=torch.float32,
+                            pipe_rank=m222.get_local_rank("pipe")))
+    state, losses = t3.state, []
+    before = (pp.pp_send_launches, pp.pp_recv_launches)
+    for _ in range(4):
+        state, m = t3.step_fn(state, None, t3.local_rows(tbatch))
+        losses.append(compute(m)["loss"])
+    out["trainer_losses"] = np.array(losses)
+    out["trainer_p2p_per_step"] = np.array([(pp.pp_send_launches - before[0]) / 4,
+                                            (pp.pp_recv_launches - before[1]) / 4])
+    out["trainer_num_params"] = np.array(t3.num_params)
+
+    # (9) a PP checkpoint: saved after 2 steps, restored bitwise into a
+    # fresh Trainer, 2 more steps on both
+    ck = TrainerConfig(**{**kw, "steps": 2})
+    t1 = Trainer(ck, device="cpu")
+    t1.init()
+    t1.train(steps=2)
+    ckpt_dir = os.path.join(outdir, "pp_ckpt")
+    t1.save_checkpoint(ckpt_dir, step=t1.state.step)
+    t2 = Trainer(ck, device="cpu")
+    restored = t2.restore_checkpoint(ckpt_dir)
+    out["ckpt_step"] = np.array(restored.step)
+    same = [torch.equal(a, b) for a, b in zip(
+        _tensor_leaves(t1.state.state_dict()), _tensor_leaves(restored.state_dict()))]
+    out["ckpt_bitwise"] = np.array(all(same) and len(same) > 0)
+    out["ckpt_keys"] = np.array(sorted(t1.state.params))
+    r1, r2 = t1.train(steps=2), t2.train(steps=2)
+    out["ckpt_more_losses"] = np.array([r1["loss"], r2["loss"]])
+
+    # (10) 1F1B in bf16 through the Trainer (tests/test_pp.py:716)
+    bf = Trainer(TrainerConfig(model="tiny", model_overrides=dict(
+        num_microbatches=4, dtype=torch.bfloat16, remat=False, pipe_schedule="1f1b"),
+        mesh=dict(data=2, model=2, pipe=2), global_batch_size=8, steps=2, log_every=1000),
+        device="cpu")
+    bf.init()
+    out["bf16_1f1b_loss"] = np.array(bf.train(steps=2)["loss"])
+
+
+SUITES = {"runtime": _runtime_cases, "dp": _dp_cases, "fsdp": _fsdp_cases, "tp": _tp_cases,
+          "pp": _pp_cases}
 
 
 def run_suite(suite, outdir):

@@ -14,7 +14,9 @@ a snapshot of every tensor into pinned host memory on the current stream,
 before ``save`` returns; the next step's in-place updates queue behind it on
 that stream.  Only the file write runs in a background thread.
 
-A sharded state (FSDP: ``DTensor`` leaves in its ``state_dict``) is saved
+A sharded state (FSDP or tensor parallelism: ``DTensor`` leaves in its
+``state_dict``; pipeline parallelism: stage-owned leaves, each rank's
+under its own layers' names) is saved
 with ``torch.distributed.checkpoint``, which plays orbax's role: every rank
 writes its own shards into the step directory, and a restore reads into the
 layout of the state it is given (a fresh init's: JAX restores onto
@@ -115,8 +117,13 @@ def _step_dirs(directory: str) -> Dict[int, str]:
 
 
 def _is_sharded(tree) -> bool:
+    """True when a rank holds only part of ``tree``: a ``DTensor`` shard, or
+    a pipeline stage's leaf (each rank checkpoints its own keys)."""
+    from tpu_parallel_torch.parallel.pp import stage_info
+
     found = []
-    map_tensors(lambda t: found.append(hasattr(t, "to_local")), tree)
+    map_tensors(lambda t: found.append(hasattr(t, "to_local") or stage_info(t) is not None),
+                tree)
     return any(found)
 
 

@@ -39,17 +39,24 @@ def global_norm_sharded(tree: Tree) -> torch.Tensor:
     """Global L2 norm (fp32, on the tensors' device) of a gradient tree
     whose leaves may be ``DTensor`` shards: each sharded leaf's local sum
     of squares is all-reduced over exactly the mesh dims it is sharded on
-    (one ``all_reduce`` per such set of dims and dim), and a plain or
+    (one ``all_reduce`` per such set of dims and dim), a stage-owned leaf's
+    (``parallel/pp.py``'s tag) over its pipe axis too, and a plain or
     replicated leaf counts once, so the total is bitwise equal on every
-    rank.  Without shards, no collective runs."""
+    rank.  Without shards or stages, no collective runs."""
+    from tpu_parallel_torch.parallel.pp import stage_info
+
     by_dims: Dict[tuple, list] = {}
     for leaf in tree.values():
-        by_dims.setdefault(_sharded_dims(leaf), []).append(leaf)
+        info = stage_info(leaf)
+        key = (_sharded_dims(leaf), "" if info is None else info.axis)
+        by_dims.setdefault(key, []).append(leaf)
     total = None
-    for dims, leaves in sorted(by_dims.items()):
+    for (dims, stage_axis), leaves in sorted(by_dims.items()):
         sq = torch.stack(torch._foreach_norm([_local(g) for g in leaves])).square().sum()
         for d in dims:
             dist.all_reduce(sq, group=leaves[0].device_mesh.get_group(d))
+        if stage_axis:
+            dist.all_reduce(sq, group=stage_info(leaves[0]).group)
         total = sq if total is None else total + sq
     return total.sqrt()
 

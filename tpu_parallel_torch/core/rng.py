@@ -28,6 +28,15 @@ def _mix(x: int) -> int:
     return x ^ (x >> 31)
 
 
+def fold_seed(seed: int, *values: int) -> int:
+    """``seed`` with each of ``values`` folded in (a golden-ratio step, then
+    :func:`_mix`): a non-negative 63-bit seed that repeats for the same
+    inputs and shares no structure with its neighbours'."""
+    for v in values:
+        seed = _mix((seed + 0x9E3779B97F4A7C15 * (v + 1)) & _MASK)
+    return seed & (2**63 - 1)
+
+
 def fold_rng_over_axis(rng: torch.Generator, axis_names: Union[str, Sequence[str]],
                        mesh=None) -> torch.Generator:
     """A generator unique to this rank's coordinates along ``axis_names``.
@@ -44,9 +53,7 @@ def fold_rng_over_axis(rng: torch.Generator, axis_names: Union[str, Sequence[str
     if not coords:
         return rng
     seed = int(torch.randint(0, 2**63 - 1, (1,), generator=rng).item())
-    for coord in coords:
-        seed = _mix((seed + 0x9E3779B97F4A7C15 * (coord + 1)) & _MASK)
-    return torch.Generator().manual_seed(seed & (2**63 - 1))
+    return torch.Generator().manual_seed(fold_seed(seed, *coords))
 
 
 def split_rng_like(rng: torch.Generator, tree):

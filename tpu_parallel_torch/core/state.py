@@ -14,7 +14,17 @@ and no copy.
 Under FSDP (``parallel/fsdp.py``) a sharded module parameter is this rank's
 slice, and so are its master, accumulator, optimizer moments and EMA
 shadow: every such tensor of the state holds this rank's slice only, and
-:meth:`TrainState.partitioned` views them as ``DTensor`` shards.
+:meth:`TrainState.partitioned` views them as ``DTensor`` shards.  Under
+pipeline parallelism (``parallel/pp.py``) the module holds this rank's
+stage plus the leaves replicated over ``pipe``; the state's tensors for a
+stage-owned parameter carry its ``pp.StageInfo`` tag (``stages``), so the
+gradient sync, the clip and the checkpoints know which axes it lives on.
+
+Every module parameter of a state carries its fp32 accumulator as its
+``main_grad``; :func:`fold_grads` adds a backward's ``.grad`` there.  It is
+the one way gradients reach the accumulators: after each minibatch
+(:meth:`TrainState.accumulate_grads`) and, inside the pipeline schedules,
+after each microbatch's backward.
 """
 
 from __future__ import annotations
@@ -22,7 +32,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Iterator, Optional
+from typing import Any, Callable, Dict, Iterable, Iterator, Optional
 
 import torch
 from torch import nn
@@ -148,6 +158,23 @@ def get_num_params(state_or_model: Any) -> int:
     return total
 
 
+def fold_grads(params: Iterable[torch.Tensor]) -> None:
+    """Add each parameter's ``.grad`` into its fp32 ``main_grad`` (the
+    accumulator :class:`TrainState` gives it) and clear it, so gradients
+    sum over minibatches and microbatches in fp32.  A parameter without
+    a ``.grad`` (an FSDP slice, whose gather's backward adds into the
+    accumulator itself) or without a ``main_grad`` is left as it is."""
+    accs, new = [], []
+    for p in params:
+        acc = getattr(p, "main_grad", None)
+        if acc is not None and p.grad is not None:
+            accs.append(acc)
+            new.append(p.grad)
+            p.grad = None
+    if accs:
+        torch._foreach_add_(accs, new)
+
+
 @dataclasses.dataclass
 class TrainState:
     """A module, its fp32 master weights and gradient accumulators, the
@@ -163,7 +190,8 @@ class TrainState:
     back into the module rounded to its dtype.  fp32 module weights (the
     LayerNorms, or every weight of an fp32 config) are their own masters.
     ``grads`` are views into ``flat_grads``, one fp32 buffer in parameter
-    order, for the replicated parameters.
+    order, for the replicated parameters.  Each module parameter's
+    ``main_grad`` is its accumulator (:func:`fold_grads`).
 
     An FSDP-sharded module parameter (``shards`` maps its name to its
     ``ShardInfo``) holds this rank's slice, and so do its master, its
@@ -183,6 +211,7 @@ class TrainState:
     ema_params: Optional[Dict[str, torch.Tensor]] = None
     flat_grads: Optional[torch.Tensor] = None
     shards: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    stages: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     @classmethod
     def create(cls, model: nn.Module, tx, rng: torch.Generator,
@@ -192,6 +221,7 @@ class TrainState:
         full tensors, sliced here for sharded parameters) or, without them,
         from the module's own values."""
         from tpu_parallel_torch.parallel.fsdp import shard_info
+        from tpu_parallel_torch.parallel.pp import stage_info, tag_stage
 
         masters, shards = {}, {}
         module = dict(model.named_parameters())
@@ -214,23 +244,32 @@ class TrainState:
         flat, grads = _flat_views({n: m for n, m in masters.items() if n not in shards}, device)
         if shards:
             _, sharded = _flat_views({n: masters[n] for n in shards}, device)
-            for name, acc in sharded.items():
-                module[name].main_grad = acc
             grads = {n: grads[n] if n in grads else sharded[n] for n in masters}
+        stages = {n: info for n, p in module.items() if (info := stage_info(p)) is not None}
+        for name, info in stages.items():
+            tag_stage(masters[name], info)
+            tag_stage(grads[name], info)
+        for name, p in module.items():
+            p.main_grad = grads[name]
         return cls(model=model, tx=tx, params=masters, grads=grads,
-                   opt_state=tx.init(masters), rng=rng, flat_grads=flat, shards=shards)
+                   opt_state=tx.init(masters), rng=rng, flat_grads=flat, shards=shards,
+                   stages=stages)
 
     def partitioned(self, tree):
         """``tree`` (a dict by parameter name, or a structure holding such
         dicts, like the optimizer state) with each sharded parameter's
         tensor viewed as a ``DTensor`` shard, the counterpart of
-        ``nn.Partitioned`` (no copy; other values as they are).  Without
-        shards, ``tree`` itself."""
-        if not self.shards:
+        ``nn.Partitioned`` (no copy; other values as they are), and each
+        stage-owned one tagged with its ``pp.StageInfo``.  Without shards
+        or stages, ``tree`` itself."""
+        if not self.shards and not self.stages:
             return tree
         if isinstance(tree, dict):
             if tree.keys() == self.params.keys():
-                return {n: self.shards[n].dtensor(v) if n in self.shards else v
+                from tpu_parallel_torch.parallel.pp import tag_stage
+
+                return {n: tag_stage(self.shards[n].dtensor(v) if n in self.shards else v,
+                                     self.stages.get(n))
                         for n, v in tree.items()}
             return {k: self.partitioned(v) for k, v in tree.items()}
         if isinstance(tree, (list, tuple)):
@@ -242,14 +281,7 @@ class TrainState:
 
     def accumulate_grads(self) -> None:
         """Add each parameter's ``.grad`` into its fp32 accumulator and clear it."""
-        accs, new = [], []
-        for name, p in self.model.named_parameters():
-            if p.grad is not None:
-                accs.append(self.grads[name])
-                new.append(p.grad)
-                p.grad = None
-        if accs:
-            torch._foreach_add_(accs, new)
+        fold_grads(self.model.parameters())
 
     @torch.no_grad()
     def apply_gradients(self, grads: Dict[str, torch.Tensor]) -> None:

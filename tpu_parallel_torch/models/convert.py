@@ -10,7 +10,12 @@ stacked ``[tp, ...]`` (after the ``[n_layers]`` axis when scanned; the
 ``nn.Partitioned`` boxes unwrapped to their global arrays): the function
 returns rank r's slice (``model_rank=r``) or the full weights.  It raises
 on a missing leaf, an extra leaf or a shape that does not match.
-Nothing here imports JAX: leaves are read with
+A tree initialized over a pipe axis holds the blocks under
+``pipeline/stage/sharded/`` (``chunk{j}/`` per virtual stage under
+interleave), stacked ``[pipe, ...]`` (then ``[layers per chunk]`` when
+scanned); rank ``r``'s virtual stage ``j`` is global chunk ``j * pipe + r``.
+``pipe_rank=r`` returns that rank's layers under their global names, the
+default every layer.  Nothing here imports JAX: leaves are read with
 ``numpy.asarray`` (torch leaves, bf16 ones too, through fp32).
 :func:`params_to_jax` is its exact inverse (from one state dict, or from
 every model rank's for the stacked mesh layout), so the port builds the
@@ -26,7 +31,9 @@ and ``head/kernel|bias``) when ``config`` is an ``MLPConfig``.
 
 from __future__ import annotations
 
+import dataclasses
 import math
+import zlib
 from typing import Dict, Iterator, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -65,6 +72,61 @@ _SHARD, _STACKED = "/shard/", "/shard/sharded/"
 # Linear weights split along their input (row-parallel); every other
 # stacked leaf splits its output
 _ROW = ("attn.out.weight", "mlp.down.weight")
+# PipelineModule's scope: a pipe rank's stage, stacked over the pipe axis
+_PIPE = "pipeline/stage/sharded/"
+
+
+def _chunk_layers(config) -> int:
+    return config.n_layers // (config.pipe_size * config.pipe_interleave)
+
+
+def _global_layer(config, rank: int, chunk: int, k: int) -> int:
+    """Rank ``rank``'s virtual stage ``chunk``'s ``k``-th layer: global
+    chunk ``chunk * pipe_size + rank``."""
+    return (chunk * config.pipe_size + rank) * _chunk_layers(config) + k
+
+
+def _unpipe(flat: Dict[str, object], config) -> Dict[str, object]:
+    """A flat pipe-layout tree as the unrolled one-stage layout
+    (``blocks/layer_{i}/...``, the pipe and scan axes taken off).  The pipe
+    degree and the virtual stages are read off the tree, so a one-stage
+    ``config`` takes a pipeline tree's full weights."""
+    piped = {p: v for p, v in flat.items() if p.startswith(_PIPE)}
+    if not piped:
+        return flat
+    chunks = {p[len(_PIPE):].split("/", 1)[0] for p in piped}
+    interleave = len(chunks) if all(c.startswith("chunk") for c in chunks) else 1
+    n = _as_float32(next(iter(piped.values()))).shape[0]
+    if config.pipe_size > 1 and (n, interleave) != (config.pipe_size, config.pipe_interleave):
+        raise ValueError(f"a pipeline tree of {n} stages x {interleave} chunks, the config's "
+                         f"is {config.pipe_size} x {config.pipe_interleave}")
+    if config.n_layers % (n * interleave):
+        raise ValueError(f"n_layers={config.n_layers} not divisible by the tree's "
+                         f"{n} x {interleave} chunks")
+    layout = dataclasses.replace(config, pipe_size=n, pipe_interleave=interleave)
+    per = _chunk_layers(layout)
+    out = {p: v for p, v in flat.items() if p not in piped}
+    for path, leaf in piped.items():
+        rest, chunk = path[len(_PIPE):], 0
+        if interleave > 1:
+            head, rest = rest.split("/", 1)
+            chunk = int(head[len("chunk"):])
+        arr = _as_float32(leaf)
+        if arr.shape[0] != n:
+            raise ValueError(f"{path}: leaf {arr.shape} lacks the [pipe={n}] axis")
+        for r in range(n):
+            if rest.startswith("layers/block/"):
+                if arr.shape[1] != per:
+                    raise ValueError(f"{path}: scanned leaf {arr.shape} lacks the "
+                                     f"[{per} layers] axis")
+                for k in range(per):
+                    out[f"blocks/layer_{_global_layer(layout, r, chunk, k)}/"
+                        f"{rest[len('layers/block/'):]}"] = arr[r, k]
+            else:
+                head, block_path = rest.split("/", 1)
+                k = int(head[len("layer_"):])
+                out[f"blocks/layer_{_global_layer(layout, r, chunk, k)}/{block_path}"] = arr[r]
+    return out
 
 
 def _block_leaves(config) -> Tuple[Tuple[str, str, bool], ...]:
@@ -157,7 +219,8 @@ def _tp_axis(key: str) -> int:
 
 
 def params_from_jax(tree: Mapping, config, dtype=None, *,
-                    model_rank: Optional[int] = None) -> Dict[str, torch.Tensor]:
+                    model_rank: Optional[int] = None,
+                    pipe_rank: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """The port's state dict from a JAX ``GPTLM`` (or ``MLPClassifier``)
     parameter tree.
 
@@ -170,10 +233,12 @@ def params_from_jax(tree: Mapping, config, dtype=None, *,
     (``TrainState.create``).  A tensor-parallel leaf (stacked under
     ``shard/sharded``) gives rank ``model_rank``'s slice, or with
     ``model_rank=None`` the full weight, its ranks' slices side by side.
+    A pipeline tree gives pipe rank ``pipe_rank``'s layers (the replicated
+    leaves with them), or with ``pipe_rank=None`` every layer.
     """
     if _is_mlp(config):
         return _mlp_from_jax(tree, config, dtype)
-    flat = dict(_flatten(tree))
+    flat = _unpipe(dict(_flatten(tree)), config)
     scanned = any(p.startswith(_SCANNED) for p in flat)
     unrolled = any(p.startswith("blocks/layer_") for p in flat)
     if scanned == unrolled:
@@ -227,11 +292,57 @@ def params_from_jax(tree: Mapping, config, dtype=None, *,
         if arr.shape != shape:
             raise ValueError(f"{path}: shape {arr.shape} does not fit {key} {shape}")
         state[key] = torch.tensor(arr, dtype=dtype or module_dtype)
+    if pipe_rank is not None:
+        from tpu_parallel_torch.models.gpt import stage_layers
+
+        if not 0 <= pipe_rank < config.pipe_size:
+            raise ValueError(f"pipe_rank={pipe_rank} of {config.pipe_size} stages")
+        own = {f"blocks.layer_{i}." for i in stage_layers(config, pipe_rank)}
+        state = {k: v for k, v in state.items()
+                 if not k.startswith("blocks.") or k[:k.index(".", 7) + 1] in own}
     return state
 
 
+def _pipe_tree(tree: Dict, config) -> Dict:
+    """An unrolled one-stage tree (``blocks/layer_{i}``) in the pipe
+    layout: each block leaf stacked ``[pipe, ...]`` under
+    ``pipeline/stage/sharded/`` (``chunk{j}/`` under interleave), after
+    ``[layers per chunk]`` under ``layers/block`` when ``scan_layers``."""
+    blocks = tree.pop("blocks")
+    stage: Dict = {}
+    per, n = _chunk_layers(config), config.pipe_size
+    leaf_paths = [p for p, _ in _flatten(blocks["layer_0"])]
+
+    def put(node: Dict, path: str, value: torch.Tensor):
+        *parents, leaf = path.split("/")
+        for name in parents:
+            node = node.setdefault(name, {})
+        node[leaf] = value.contiguous()
+
+    def get(i: int, path: str) -> torch.Tensor:
+        node = blocks[f"layer_{i}"]
+        for name in path.split("/"):
+            node = node[name]
+        return node
+
+    for j in range(config.pipe_interleave):
+        node = stage.setdefault(f"chunk{j}", {}) if config.pipe_interleave > 1 else stage
+        for path in leaf_paths:
+            per_rank = [[get(_global_layer(config, r, j, k), path) for k in range(per)]
+                        for r in range(n)]
+            if config.scan_layers:
+                put(node, f"layers/block/{path}",
+                    torch.stack([torch.stack(layers) for layers in per_rank]))
+            else:
+                for k in range(per):
+                    put(node, f"layer_{k}/{path}", torch.stack([layers[k] for layers in per_rank]))
+    tree["pipeline"] = {"stage": {"sharded": stage}}
+    return tree
+
+
 def params_to_jax(state_dict: Union[Mapping[str, torch.Tensor],
-                                    Sequence[Mapping[str, torch.Tensor]]], config) -> Dict:
+                                    Sequence[Mapping[str, torch.Tensor]]], config, *,
+                  _mesh_layout: bool = False) -> Dict:
     """The JAX ``GPTLM`` parameter tree of a port state dict: the exact
     inverse of :func:`params_from_jax`.  ``Linear`` weights go back to
     flax's ``[in, out]``; ``config.scan_layers`` stacks every block leaf
@@ -241,14 +352,29 @@ def params_to_jax(state_dict: Union[Mapping[str, torch.Tensor],
     ``params_from_jax(..., model_rank=r)``'s inverse), the tree is the
     mesh layout: each tensor-parallel leaf (one whose slices differ in
     shape from the full weight) stacked ``[tp, ...]`` under
-    ``shard/sharded``.  Leaves are new contiguous CPU tensors in the state
-    dict's dtypes.  An ``MLPConfig`` gives the MLP classifier's tree; its
-    state dict must hold exactly its layers."""
+    ``shard/sharded``.  Under ``config.pipe_size`` > 1 the list holds every
+    rank's state dict in (pipe, model) order, pipe-major, and the tree is
+    the pipe layout (``pipeline/stage/sharded/...``, the inverse of
+    :func:`params_from_jax`'s), every tensor-parallel leaf stacked even at
+    one model rank, as JAX's mesh init stacks it.  Leaves are new
+    contiguous CPU tensors in the state dict's dtypes.  An ``MLPConfig``
+    gives the MLP classifier's tree; its state dict must hold exactly its
+    layers."""
     tree: Dict = {}
     ranks = None
     if not isinstance(state_dict, Mapping):
         ranks = list(state_dict)
         state_dict = ranks[0]
+    if getattr(config, "pipe_size", 1) > 1:
+        if ranks is None or len(ranks) % config.pipe_size:
+            raise ValueError(f"a pipeline tree needs every rank's state dict: a list of a "
+                             f"multiple of pipe_size={config.pipe_size}")
+        tp = len(ranks) // config.pipe_size
+        merged = [{k: v for p in range(config.pipe_size) for k, v in ranks[p * tp + m].items()}
+                  for m in range(tp)]
+        flat_config = dataclasses.replace(config, pipe_size=1, pipe_interleave=1,
+                                          scan_layers=False)
+        return _pipe_tree(params_to_jax(merged, flat_config, _mesh_layout=True), config)
     if _is_mlp(config):
         layers = [f"hidden_{i}" for i in range(config.num_hidden_layers)] + ["head"]
         wanted = {f"{name}.{leaf}" for name in layers for leaf in ("weight", "bias")}
@@ -258,6 +384,8 @@ def params_to_jax(state_dict: Union[Mapping[str, torch.Tensor],
                        "bias": state_dict[f"{name}.bias"].detach().cpu().contiguous()}
                 for name in layers}
     shapes = state_shapes(config)
+    # the leaves JAX's ModuleShard stacks over the model axis, by port key
+    split = {k for p, k, _ in _TOP + _block_leaves(config) if _SHARD in p}
 
     def put(path: str, value: torch.Tensor):
         node = tree
@@ -271,7 +399,9 @@ def params_to_jax(state_dict: Union[Mapping[str, torch.Tensor],
         def flax(v):
             v = v.detach().cpu()
             return v.transpose(-1, -2) if transpose else v
-        if ranks is not None and tuple(state_dict[key].shape) != shapes[key][0]:
+        if ranks is not None and (tuple(state_dict[key].shape) != shapes[key][0]
+                                  or (_mesh_layout and (key in split
+                                                        or key.split(".", 2)[-1] in split))):
             return torch.stack([flax(r[key]) for r in ranks]), True
         return flax(state_dict[key]), False
 
@@ -291,25 +421,45 @@ def params_to_jax(state_dict: Union[Mapping[str, torch.Tensor],
     return tree
 
 
+def _trunc_normal_(value: torch.Tensor, std: float, generator: torch.Generator) -> None:
+    """A normal of mean 0 and ``std`` truncated at two ``std``, by the
+    inverse CDF (a uniform draw between the bounds' CDF values through
+    ``erfinv``): one pass over the tensor, where ``nn.init.trunc_normal_``
+    may redraw all of it until no value falls outside."""
+    bound = math.erf(2.0 / math.sqrt(2.0))  # 2 * CDF(2) - 1
+    value.uniform_(-bound, bound, generator=generator)
+    value.erfinv_().mul_(std * math.sqrt(2.0)).clamp_(-2 * std, 2 * std)
+
+
+def _param_generator(seed: int, name: str) -> torch.Generator:
+    """The CPU generator of parameter ``name`` under ``seed``."""
+    from tpu_parallel_torch.core.rng import _mix
+
+    return torch.Generator().manual_seed(
+        _mix((seed * 0x9E3779B97F4A7C15 + zlib.crc32(name.encode())) & ((1 << 64) - 1))
+        & (2**63 - 1))
+
+
 def init_params(model: torch.nn.Module, seed: int = 0) -> Dict[str, torch.Tensor]:
     """Fill ``model``'s weights in place from ``seed``, with flax's defaults:
     Dense kernels lecun-normal (truncated normal, std sqrt(1/fan_in) / .8796,
     cut at two std), biases 0, embeddings normal with std sqrt(1/d_model),
-    LayerNorm scale 1 and bias 0.  Drawn in fp32 on the CPU in parameter
-    order, so a seed gives the same weights on every device.  An
-    FSDP-sharded parameter is drawn at its full shape and takes this rank's
-    slice, so every rank draws the same full weights.  Returns the fp32
-    draws by parameter name, at full shape (the master weights of
-    training)."""
+    LayerNorm scale 1 and bias 0.  Each parameter is drawn in fp32 on the
+    CPU from its own generator, seeded from ``seed`` and the parameter's
+    name, so a seed gives the same weights on every device and in every
+    layout: an FSDP- or TP-sharded parameter is drawn at its full shape and
+    takes this rank's slice, and a pipeline stage draws only its own layers
+    (their names are the one-device model's).  Returns the fp32 draws by
+    parameter name, at full shape (the master weights of training)."""
     from tpu_parallel_torch.parallel.fsdp import shard_info
 
-    gen = torch.Generator(device="cpu").manual_seed(seed)
     draws = {}
     with torch.no_grad():
         for name, param in model.named_parameters():
             info = shard_info(param)
             shape = param.shape if info is None else info.full_shape
             value = torch.empty(shape, dtype=torch.float32)
+            gen = _param_generator(seed, name)
             if name.endswith(".bias"):
                 value.zero_()
             elif ".norm_" in f".{name}":
@@ -318,7 +468,7 @@ def init_params(model: torch.nn.Module, seed: int = 0) -> Dict[str, torch.Tensor
                 value.normal_(0.0, 1.0 / math.sqrt(shape[1]), generator=gen)
             else:
                 std = math.sqrt(1.0 / shape[1]) / 0.87962566103423978
-                torch.nn.init.trunc_normal_(value, 0.0, std, -2 * std, 2 * std, generator=gen)
+                _trunc_normal_(value, std, gen)
             param.copy_(value if info is None else info.local(value))
             draws[name] = value
     return draws

@@ -13,11 +13,25 @@ chunks.  On a mesh whose model axis is above 1 the blocks are
 tensor-parallel and the lm_head is column-parallel over the vocabulary
 (``parallel/tp.py``): ``GPTLM.forward`` gathers the logits, the loss
 does not (``core/losses.py:vocab_parallel_cross_entropy``).
+
+On a mesh whose pipe axis is above 1 (``config.pipe_size``, dictated by
+the mesh) each rank builds only its stage: rank ``r``'s virtual stage
+``j`` holds layers ``[(j n + r) L_c, (j n + r + 1) L_c)`` under their
+one-device names (``blocks.layer_{i}``), tagged stage-owned
+(``parallel/pp.py``).  The embedding, ``norm_final`` and the lm_head are
+held by every rank (replicated over ``pipe``, their gradients summed over
+it), but only rank 0 embeds and only the last rank applies the norm, the
+lm_head and the loss: their gradients are exactly zero elsewhere, as
+JAX's masks make them.  The forward runs the GPipe or the interleaved
+schedule (``pp.execute_interleaved_pipeline``), a decode step the ring
+(``pp.execute_pipeline_decode``), and :func:`make_gpt_1f1b_grad_fn` the
+1F1B schedule.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List, Optional
 
 import torch
@@ -36,22 +50,22 @@ from tpu_parallel_torch.models.layers import (
     TransformerConfig,
     make_norm,
 )
+from tpu_parallel_torch.parallel import pp
 from tpu_parallel_torch.parallel.fsdp import gather_module_params, maybe_shard
 from tpu_parallel_torch.parallel.tp import TPDense, model_axis
 from tpu_parallel_torch.runtime import resolve_device
 
-_PIPELINE_DEFAULTS = (
-    ("pipe_size", 1), ("pipe_interleave", 1), ("pipe_schedule", "gpipe"),
-)
-
 
 @dataclasses.dataclass(frozen=True)
 class GPTConfig(TransformerConfig):
-    """TransformerConfig plus the JAX package's pipeline knobs, which the
-    port does not implement yet (setting one raises, ROADMAP queue A item
-    5), and ``loss_chunk``: > 0 runs the lm_head and cross-entropy
-    ``loss_chunk`` sequence positions at a time, each chunk checkpointed,
-    so the logits exist only as [batch, loss_chunk, vocab]."""
+    """TransformerConfig plus the JAX package's pipeline knobs and
+    ``loss_chunk``.  ``pipe_size``: the number of pipeline stages (the
+    mesh's pipe axis); ``pipe_interleave`` > 1: that many virtual stages per
+    rank (the circular schedule); ``pipe_schedule``: ``"gpipe"`` (gradients
+    through the forward schedule) or ``"1f1b"`` (:func:`make_gpt_1f1b_grad_fn`,
+    checked by the Trainer).  ``loss_chunk`` > 0 runs the lm_head and
+    cross-entropy ``loss_chunk`` sequence positions at a time, each chunk
+    checkpointed, so the logits exist only as [batch, loss_chunk, vocab]."""
 
     pipe_size: int = 1
     pipe_interleave: int = 1
@@ -60,14 +74,32 @@ class GPTConfig(TransformerConfig):
 
     def __post_init__(self):
         super().__post_init__()
-        for field, default in _PIPELINE_DEFAULTS:
-            if getattr(self, field) != default:
-                raise NotImplementedError(
-                    f"{field}={getattr(self, field)!r}: pipeline parallelism is not in "
-                    "the PyTorch port yet (ROADMAP queue A item 5)"
-                )
         if self.loss_chunk < 0:
             raise ValueError(f"loss_chunk={self.loss_chunk} < 0")
+
+
+def _pipe_refusals(cfg: GPTConfig) -> None:
+    """JAX's build-time pipeline errors, in its words."""
+    if cfg.pipe_interleave > 1 and cfg.pipe_size <= 1:
+        raise ValueError(
+            "pipe_interleave > 1 requires pipe_size > 1 (a pipe mesh "
+            "axis); on a pipe=1 mesh the knob would be silently ignored"
+        )
+    if cfg.pipe_size > 1:
+        chunks = cfg.pipe_size * cfg.pipe_interleave
+        if cfg.n_layers % chunks != 0:
+            raise ValueError(
+                f"n_layers={cfg.n_layers} not divisible by pipe_size*"
+                f"pipe_interleave={chunks}"
+            )
+
+
+def stage_layers(cfg: GPTConfig, stage: int) -> List[int]:
+    """The global layer indices pipe rank ``stage`` owns, chunk by chunk:
+    virtual stage ``j`` is global chunk ``j * pipe_size + stage``."""
+    n, v = cfg.pipe_size, cfg.pipe_interleave
+    per = cfg.n_layers // (n * v)
+    return [c * per + k for c in (j * n + stage for j in range(v)) for k in range(per)]
 
 
 class GPTLM(nn.Module):
@@ -94,11 +126,22 @@ class GPTLM(nn.Module):
                 f"fsdp=True with a {config.model_axis} axis of {bound[1]} (FSDP x tensor "
                 "parallelism, a leaf sharded over two axes) is not in the PyTorch port yet; "
                 "it comes with llama_1b_3d's DP x TP x PP mesh (ROADMAP queue A item 6)")
+        _pipe_refusals(config)
+        pipe = pp.pipe_axis(mesh, config.pipe_axis)
+        if pipe is not None and pipe[1] != config.pipe_size:
+            raise ValueError(f"pipe_size={config.pipe_size}, the mesh's {config.pipe_axis!r} "
+                             f"axis has {pipe[1]}")
         dev = resolve_device(device)
         self.config = config
         self.mesh = mesh
+        self.pipe = pipe
         self.embed = maybe_shard(Embedding(config, dev), config, mesh)
-        self.blocks = BlockStack(config, config.n_layers, dev, mesh)
+        if pipe is None:
+            self.blocks = BlockStack(config, config.n_layers, dev, mesh)
+        else:
+            self.blocks = pp.mark_stage(BlockStack(
+                config, config.n_layers, dev, mesh, layer_ids=stage_layers(config, pipe[2]),
+                chunks=config.pipe_interleave), mesh, config.pipe_axis)
         self.norm_final = make_norm(config, dev)
         self.lm_head = maybe_shard(
             TPDense(config.d_model, config.vocab_size, style="column", axis_name=config.model_axis,
@@ -110,13 +153,19 @@ class GPTLM(nn.Module):
         init_params(self, seed)
 
     @property
+    def is_last_stage(self) -> bool:
+        """True off a pipeline and on its last rank: where outputs are real."""
+        return self.pipe is None or self.pipe[2] == self.pipe[1] - 1
+
+    @property
     def device(self) -> torch.device:
         return self.lm_head.weight.device
 
     def init_cache(self, batch: int, beam_width: Optional[int] = None) -> List[KVCache]:
         """An empty decode cache, one :class:`KVCache` of ``seq_len`` slots
-        per layer, for ``batch`` rows (this rank's kv heads); under ``kv_block_tokens`` > 0 one
-        :class:`PagedKVCache` pool per layer instead (row-count free, as
+        per layer of this rank, for ``batch`` rows (this rank's kv heads);
+        under ``kv_block_tokens`` > 0 one :class:`PagedKVCache` pool per
+        layer instead (row-count free, as
         JAX's paged cache: rows address it through block tables).  Under
         ``kv_cache_dtype="int8"`` either layout holds int8 payloads and
         fp32 scale stores.
@@ -136,9 +185,9 @@ class GPTLM(nn.Module):
                     "assumes contiguous per-row caches)"
                 )
             return [PagedKVCache.empty(cfg, self.device, self.local_kv_heads)
-                    for _ in range(cfg.n_layers)]
+                    for _ in range(self.blocks.n_layers)]
         caches = [KVCache.empty(cfg, batch, self.device, self.local_kv_heads)
-                  for _ in range(cfg.n_layers)]
+                  for _ in range(self.blocks.n_layers)]
         if beam_width > 1:
             for c in caches:
                 c.seed_beam_src(beam_width)
@@ -178,18 +227,88 @@ class GPTLM(nn.Module):
                 raise ValueError("train=True with dropout_rate > 0 needs an rng (a CPU "
                                  "torch.Generator)")
             dropout_rng = rng
-        x = self.embed(tokens, positions)
-        x = self.blocks(x, positions, segment_ids, decode, cache if decode else None,
-                        write_index, block_table, dropout_rng)
+        if cfg.pipe_size > 1:
+            x = self._pipeline(tokens, positions, segment_ids, decode, cache, write_index,
+                               block_table, dropout_rng)
+            if not self.is_last_stage and not decode:
+                # outputs are real on the last rank only: skip the norm and
+                # the lm_head here (JAX masks what they would give)
+                if hidden_only:
+                    return x
+                return x.new_zeros(*x.shape[:-1], cfg.vocab_size)
+        else:
+            x = self.embed(tokens, positions)
+            x = self.blocks(x, positions, segment_ids, decode, cache if decode else None,
+                            write_index, block_table, dropout_rng)
         x = self.norm_final(x).to(cfg.dtype)
         if hidden_only:
             return x
         return self.lm_head(x)
 
+    def _pipeline(self, tokens, positions, segment_ids, decode, cache, write_index,
+                  block_table, dropout_rng) -> torch.Tensor:
+        """The block stack over the pipe axis: rank 0 embeds, the schedule
+        runs the stages, and the result is real on the last rank (every
+        rank when decoding)."""
+        cfg = self.config
+        if write_index is not None or block_table is not None:
+            raise NotImplementedError(
+                "slot-indexed cache writes under pipeline parallelism "
+                "(the decode ring's per-stage caches would need the "
+                "write-slot table as a ring extra — serve pipe meshes "
+                "through generate_sharded, not the serving engine)"
+            )
+        if decode and segment_ids is not None:
+            raise NotImplementedError(
+                "incremental decoding with packed sequences (segment_ids)"
+            )
+        if self.pipe is None:
+            if decode:
+                raise ValueError(
+                    f"pipe_size={cfg.pipe_size} decoding needs the "
+                    f"{cfg.pipe_axis!r} mesh axis bound: serve through "
+                    "generate_sharded under the training mesh (plain "
+                    "generate()/generate_beam() run without a mesh)"
+                )
+            raise ValueError(f"pipe_size={cfg.pipe_size} needs the {cfg.pipe_axis!r} mesh axis "
+                             "bound: build the model on the training mesh")
+        shape = (*tokens.shape, cfg.d_model)
+        if self.pipe[2] == 0:
+            x = self.embed(tokens, positions)
+        else:
+            # only rank 0 embeds; the schedule reads no input elsewhere
+            x = torch.empty(shape, dtype=cfg.dtype, device=tokens.device)
+        if decode:
+            if cfg.pipe_interleave > 1:
+                raise NotImplementedError(
+                    "incremental decoding under the interleaved schedule "
+                    "(nn.switch chunks cannot lazily create their KV-cache "
+                    "variables branch-by-branch)"
+                )
+            return pp.execute_pipeline_decode(
+                functools.partial(self.blocks, positions=positions, decode=True, caches=cache),
+                x, mesh=self.mesh, axis_name=cfg.pipe_axis)
+        extras = {}
+        if positions is not None:
+            extras["positions"] = positions
+        if segment_ids is not None:
+            extras["segment_ids"] = segment_ids
+        chunks = [functools.partial(self.blocks, chunk=j) for j in range(cfg.pipe_interleave)]
+        return pp.execute_interleaved_pipeline(
+            chunks, x, num_microbatches=cfg.num_microbatches, mesh=self.mesh,
+            axis_name=cfg.pipe_axis, extras=extras, dropout_rng=dropout_rng)
+
 
 def gpt2_125m(**overrides) -> GPTConfig:
     return GPTConfig(**{
         **dict(vocab_size=50304, d_model=768, n_layers=12, n_heads=12, seq_len=1024),
+        **overrides,
+    })
+
+
+def gpt2_350m(**overrides) -> GPTConfig:
+    return GPTConfig(**{
+        **dict(vocab_size=50304, d_model=1024, n_layers=24, n_heads=16, seq_len=1024),
         **overrides,
     })
 
@@ -261,8 +380,11 @@ def make_gpt_loss(config: GPTConfig, train: bool = True, mesh=None):
     (dropout off).  On ``mesh``'s model axis the cross-entropy runs
     vocab-parallel and the full-vocabulary logits never exist; the
     dropout fold over the model axis is JAX's (its ranks then drop
-    different elements of the replicated residual stream).  Pipeline and
-    MoE raise at the config.
+    different elements of the replicated residual stream).  Under a pipe
+    axis the loss and its counts are the last rank's (JAX's
+    ``last_stage_mask``): elsewhere the loss is a zero joined to the
+    pipeline's output, so its backward still runs the reverse schedule,
+    and no lm_head or cross-entropy runs.  MoE raises at the config.
     """
     ce_fn = make_ce_fn(config, mesh)
     fold_axes = (config.data_axis, config.model_axis, config.pipe_axis, config.seq_axis)
@@ -272,6 +394,10 @@ def make_gpt_loss(config: GPTConfig, train: bool = True, mesh=None):
             rng = fold_rng_over_axis(rng, fold_axes, mesh)
         hidden = model(batch.tokens, positions=batch.positions,
                        segment_ids=batch.segment_ids, hidden_only=True, train=train, rng=rng)
+        if not getattr(model, "is_last_stage", True):
+            zero = hidden.sum() * 0.0
+            none = torch.zeros((), device=hidden.device)
+            return zero, {"loss": (zero.detach(), none), "accuracy": (none, none)}
         mask = (batch.loss_mask if batch.loss_mask is not None
                 else torch.ones(batch.targets.shape, device=hidden.device))
         n_tok = mask.sum()
@@ -280,3 +406,70 @@ def make_gpt_loss(config: GPTConfig, train: bool = True, mesh=None):
         return loss_sum / n_tok.clamp(min=1.0), metrics
 
     return loss_fn
+
+
+def make_gpt_1f1b_grad_fn(config: GPTConfig, train: bool = True, mesh=None):
+    """``grad_fn(state, batch, rng) -> (grads, metrics)`` through the
+    memory-bounded 1F1B schedule (``pp.pipeline_1f1b_grads``), in place of
+    gradients through the GPipe forward when ``config.pipe_schedule ==
+    "1f1b"``: in-flight microbatch inputs are bounded at ``2 * pipe_size -
+    1`` per rank instead of ``num_microbatches``.  The same math as the
+    GPipe step, per microbatch: rank 0 embeds, each rank runs its stage,
+    the last rank applies ``norm_final``, the lm_head and the loss.
+    ``grads`` are the state's fp32 accumulators (zeroed here), divided by
+    the token count summed over the pipe axis; a pipe axis of 1 is the
+    degenerate schedule (each microbatch forwarded, then recomputed and
+    back-propagated).  JAX's refusals: interleaved virtual stages and
+    ``n_layers`` not divisible by ``pipe_size``."""
+    if config.pipe_interleave > 1:
+        raise NotImplementedError(
+            "1F1B with interleaved virtual stages (the circular schedule's "
+            "chunk walk and the 1F1B buffer discipline do not compose yet)"
+        )
+    if config.moe_experts > 0:
+        raise NotImplementedError(
+            "MoE under 1F1B (sown balance losses need per-tick replay "
+            "bookkeeping the schedule does not carry)"
+        )
+    if config.positional == "relative":
+        raise NotImplementedError("relative position bias under pipelines")
+    if config.n_layers % config.pipe_size:
+        raise ValueError(
+            f"n_layers={config.n_layers} not divisible by "
+            f"pipe_size={config.pipe_size}"
+        )
+    ce_fn = make_ce_fn(config, mesh)
+    fold_axes = (config.data_axis, config.model_axis, config.pipe_axis, config.seq_axis)
+    m = config.num_microbatches
+
+    def grad_fn(state, batch, rng=None):
+        model = state.model
+        first = model.pipe is None or model.pipe[2] == 0
+        last = model.is_last_stage
+
+        def fwd_fn(x_in, mb, gen):
+            x = model.embed(mb.tokens, mb.positions) if first else x_in
+            y = model.blocks(x, mb.positions, mb.segment_ids, dropout_rng=gen)
+            if not last:
+                none = torch.zeros((), device=y.device)
+                return y, None, {"loss": (none, none), "accuracy": (none, none)}
+            h = model.norm_final(y).to(config.dtype)
+            mask = (mb.loss_mask if mb.loss_mask is not None
+                    else torch.ones(mb.targets.shape, device=y.device))
+            n_tok = mask.sum()
+            loss_sum, correct = ce_fn(_lm_head_params(config, model), h, mb.targets, mask)
+            return y, loss_sum, {"loss": (loss_sum, n_tok), "accuracy": (correct.float(), n_tok)}
+
+        if train and config.dropout_rate > 0.0 and rng is not None:
+            rng = fold_rng_over_axis(rng, fold_axes, mesh)
+        else:
+            rng = None
+        state.zero_grads()
+        rows, seq = batch.tokens.shape
+        _, metrics = pp.pipeline_1f1b_grads(
+            fwd_fn, list(model.parameters()), batch, rng, num_microbatches=m, mesh=mesh,
+            axis_name=config.pipe_axis, act_shape=(rows // m, seq, config.d_model),
+            act_dtype=config.dtype, device=model.device)
+        return state.grads, metrics
+
+    return grad_fn

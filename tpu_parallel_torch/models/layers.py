@@ -938,32 +938,49 @@ class BlockStack(nn.Module):
     model axis each block is tensor-parallel.  Under
     ``config.fsdp`` each block is sharded over the data axis of ``mesh``;
     its gather runs inside the checkpointed call, so the backward gathers
-    again and no gathered weight is saved."""
+    again and no gathered weight is saved.
 
-    def __init__(self, config: TransformerConfig, n_layers: int, device=None, mesh=None):
+    ``layer_ids`` (a pipeline stage's layers) names the blocks by their
+    GLOBAL indices, ``layer_{id}`` in the given order, so a pipe rank's
+    parameter names are the one-device model's names for the layers it
+    owns; ``chunk=j`` in :meth:`forward` runs only the ``j``-th of
+    ``chunks`` equal runs of them (an interleaved rank's virtual stage).
+    Decode caches are indexed by position in the stack."""
+
+    def __init__(self, config: TransformerConfig, n_layers: int, device=None, mesh=None,
+                 layer_ids: Optional[Sequence[int]] = None, chunks: int = 1):
         super().__init__()
         self.config = config
-        self.n_layers = n_layers
-        for i in range(n_layers):
+        self.layer_ids = list(range(n_layers)) if layer_ids is None else list(layer_ids)
+        self.n_layers = len(self.layer_ids)
+        if self.n_layers % chunks:
+            raise ValueError(f"{self.n_layers} layers not divisible into {chunks} chunks")
+        self.chunks = chunks
+        for i in self.layer_ids:
             self.add_module(f"layer_{i}", maybe_shard(Block(config, device, mesh), config, mesh))
 
     def forward(self, x, positions=None, segment_ids=None, decode: bool = False,
                 caches: Optional[List[KVCache]] = None, write_index=None,
-                block_table=None, dropout_rng: Optional[torch.Generator] = None) -> torch.Tensor:
+                block_table=None, dropout_rng: Optional[torch.Generator] = None,
+                chunk: Optional[int] = None) -> torch.Tensor:
         remat = self.config.remat and not decode and torch.is_grad_enabled()
         kwargs = remat_kwargs_for(self.config) if remat else None
-        seeds = [None] * self.n_layers
+        positions_in_stack = range(self.n_layers)
+        if chunk is not None:
+            per = self.n_layers // self.chunks
+            positions_in_stack = range(chunk * per, (chunk + 1) * per)
+        seeds = [None] * len(positions_in_stack)
         if dropout_rng is not None:
-            seeds = torch.randint(0, 2**62, (self.n_layers,), generator=dropout_rng).tolist()
-        for i in range(self.n_layers):
-            layer = getattr(self, f"layer_{i}")
+            seeds = torch.randint(0, 2**62, (len(seeds),), generator=dropout_rng).tolist()
+        for k, pos in enumerate(positions_in_stack):
+            layer = getattr(self, f"layer_{self.layer_ids[pos]}")
             if remat:
                 x = checkpoint(layer, x, positions, segment_ids, False, None, None, None,
-                               seeds[i], **kwargs)
+                               seeds[k], **kwargs)
             else:
-                cache = caches[i] if caches is not None else None
+                cache = caches[pos] if caches is not None else None
                 x = layer(x, positions, segment_ids, decode, cache, write_index, block_table,
-                          dropout_seed=seeds[i])
+                          dropout_seed=seeds[k])
         return x
 
 

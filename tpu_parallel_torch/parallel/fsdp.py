@@ -364,11 +364,16 @@ def sync_gradients(grads: Dict[str, Any], axis_names: Union[str, Sequence[str]],
     divided by the size of each axis of ``replicated_loss_axes`` that it is
     sharded on and that ``axis_names`` holds (every rank computed the same
     loss there, and the backward summed the ranks' copies of its
-    cotangent: tensor parallelism's model axis).  Leaves that take the
+    cotangent: tensor parallelism's model axis).  A stage-owned leaf
+    (``parallel/pp.py``'s tag) lives on one coordinate of its pipe axis
+    and is reduced over the other axes only.  Leaves that take the
     same reductions take them together:
     views of one flat buffer take one ``all_reduce`` per bound axis
-    (``parallel/dp.py:sync_gradients_dp``).  Unbound axes are skipped."""
-    from tpu_parallel_torch.parallel.dp import sync_gradients_dp
+    (``parallel/dp.py:sync_gradients_dp``), and the sums over an axis of
+    ``psum_axes`` one ``all_reduce`` of their packed values.  Unbound axes
+    are skipped."""
+    from tpu_parallel_torch.parallel.dp import _flat_base, sync_gradients_dp
+    from tpu_parallel_torch.parallel.pp import stage_info
 
     if isinstance(axis_names, str):
         axis_names = (axis_names,)
@@ -380,6 +385,9 @@ def sync_gradients(grads: Dict[str, Any], axis_names: Union[str, Sequence[str]],
     plans: Dict[tuple, Dict[str, torch.Tensor]] = {}
     for name, g in grads.items():
         names = sharded_axes(g)
+        info = stage_info(g)
+        if info is not None:
+            names = names + (info.axis,)
         # a shard's mean skips the size-1 axes: no collective is needed there
         plan = (tuple(a for a in axis_names if a not in names
                       and not (names and sizes.get(a) == 1)),
@@ -391,9 +399,14 @@ def sync_gradients(grads: Dict[str, Any], axis_names: Union[str, Sequence[str]],
             sync_gradients_dp(leaves, mean_axes, mesh)
         for axis in sum_axes:
             bound = axis_group(mesh, axis)
-            if bound is not None:
-                for g in leaves.values():
-                    dist.all_reduce(g, group=bound[0])
+            if bound is not None and bound[1] > 1:
+                tensors = list(leaves.values())
+                flat = _flat_base(leaves)
+                packed = flat if flat is not None else torch.cat([t.reshape(-1) for t in tensors])
+                dist.all_reduce(packed, group=bound[0])
+                if flat is None:
+                    parts = packed.split([t.numel() for t in tensors])
+                    torch._foreach_copy_(tensors, [c.view_as(t) for c, t in zip(parts, tensors)])
         for axis in div_axes:
             bound = axis_group(mesh, axis)
             if bound is not None:

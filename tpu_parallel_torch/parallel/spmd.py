@@ -1,6 +1,6 @@
 """Generic SPMD train functions: the port of ``tpu_parallel/parallel/spmd.py``,
-for meshes whose axes above 1 are data and model (DP, FSDP and tensor
-parallelism).
+for meshes whose axes above 1 are data, model and pipe (DP, FSDP, tensor
+and pipeline parallelism).
 
 JAX traces ``model_init`` abstractly under ``shard_map`` to discover which
 parameters come out ``nn.Partitioned``, then lays out the real init and the
@@ -17,11 +17,14 @@ reduce-scattered, and a division by the axis size for tensor-parallel
 shards, whose backward summed ``tp`` copies of the replicated loss's
 cotangent), apply the optimizer, update the EMA shadow, sync the metrics
 (summed over the axes whose ranks hold disjoint tokens, averaged over the
-replicated-loss axes).
+replicated-loss axes).  Under pipeline parallelism the leaves replicated
+over ``pipe`` (the embedding, ``norm_final``, the lm_head) are summed over
+it (``grad_psum_axes``: one rank holds each one's gradient, the others
+zero), the stage-owned ones are not, and a schedule-owned ``grad_fn`` (the
+1F1B pipeline) may replace the accumulation.
 
-Not in the port yet, each raising ``NotImplementedError``: a bound pipe or
-seq axis above 1 (ROADMAP queue A items 5.4, 5.5) and a schedule-owned
-``grad_fn`` (the 1F1B pipeline, item 5.4).
+Not in the port yet, raising ``NotImplementedError``: a bound seq axis
+above 1 (ROADMAP queue A item 5.5).
 """
 
 from __future__ import annotations
@@ -40,7 +43,6 @@ from tpu_parallel_torch.runtime.mesh import mesh_sizes
 
 # mesh axes build_train_functions cannot partition over yet -> what brings them
 _LATER_AXES = {
-    "pipe": "pipeline parallelism (ROADMAP queue A item 5.4)",
     "seq": "sequence parallelism (ROADMAP queue A item 5.5)",
 }
 
@@ -85,6 +87,7 @@ def build_train_functions(
     mesh,
     *,
     grad_sync_axes: Union[str, Sequence[str]] = ("data",),
+    grad_psum_axes: Union[str, Sequence[str]] = (),
     replicated_loss_axes: Union[str, Sequence[str]] = ("model",),
     metric_axes: Optional[Sequence[str]] = None,
     metric_mean_axes: Optional[Sequence[str]] = None,
@@ -98,7 +101,10 @@ def build_train_functions(
 
     ``model_init`` is :func:`make_model_init`'s (it carries the model).
     ``grad_sync_axes``: axes over which replicated-parameter gradients are
-    averaged (``fsdp.sync_gradients``).  ``replicated_loss_axes``: axes on
+    averaged (``fsdp.sync_gradients``).  ``grad_psum_axes``: axes where
+    ranks hold disjoint gradient contributions that are summed (the pipe
+    axis; a stage-owned leaf is not reduced over its own).
+    ``replicated_loss_axes``: axes on
     which every rank computes the same loss on the same tokens (the
     tensor-parallel axis): gradients partitioned over them are divided by
     their size, and the metric defaults average over them.  The step's
@@ -108,12 +114,16 @@ def build_train_functions(
     times.  The init broadcasts coordinate 0's masters over each axis of
     ``grad_sync_axes`` that a leaf is replicated on and seeds the EMA shadow when
     ``ema_decay`` > 0.  ``loss_fn(model, minibatch, rng)`` gets the state's
-    generator.  ``grad_fn`` (a schedule-owned gradient) is refused.
+    generator.  ``grad_fn(state, batch, rng) -> (grads, metrics)`` (a
+    schedule-owned gradient: the 1F1B pipeline) replaces the accumulation;
+    it consumes the whole batch, so ``num_minibatches`` must be 1.
     """
-    if grad_fn is not None:
-        raise NotImplementedError(
-            "grad_fn (a schedule-owned gradient, the 1F1B pipeline) needs pipeline "
-            "parallelism (ROADMAP queue A item 5.4)")
+    if grad_fn is not None and num_minibatches > 1:
+        raise ValueError(
+            "num_minibatches > 1 does not compose with a schedule-owned "
+            "grad_fn (the 1F1B pipeline consumes the whole batch; split it "
+            "with num_microbatches instead)"
+        )
     refuse_later_axes(mesh_sizes(mesh))
     if isinstance(grad_sync_axes, str):
         grad_sync_axes = (grad_sync_axes,)
@@ -146,9 +156,12 @@ def build_train_functions(
         return state
 
     def step_fn(state: TrainState, metrics: Optional[Metrics], batch):
-        grads, step_metrics = accumulate_gradients(state, batch, state.rng, num_minibatches,
-                                                   loss_fn)
-        fsdp.sync_gradients(state.partitioned(grads), grad_sync_axes,
+        if grad_fn is not None:
+            grads, step_metrics = grad_fn(state, batch, state.rng)
+        else:
+            grads, step_metrics = accumulate_gradients(state, batch, state.rng,
+                                                       num_minibatches, loss_fn)
+        fsdp.sync_gradients(state.partitioned(grads), grad_sync_axes, grad_psum_axes,
                             replicated_loss_axes=replicated_loss_axes, mesh=mesh)
         state.apply_gradients(grads)
         if ema_decay:

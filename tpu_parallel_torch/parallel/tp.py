@@ -325,8 +325,17 @@ def export_single_device_params(params: Dict[str, Any],
     other axis above 1 (tensor or pipeline parallelism) raises JAX's
     ``ValueError``: such weights live divided across ranks by design, and
     serve under the mesh (``models.generate.generate_sharded``)."""
+    from tpu_parallel_torch.parallel.pp import stage_info
+
     by_axis: Dict[str, Dict[str, Any]] = {}
     for name, leaf in params.items():
+        info = stage_info(leaf)
+        if info is not None and info.size > 1:
+            raise ValueError(
+                f"parameter {name} is split over mesh axis {info.axis!r} (size {info.size}); "
+                "export requires tp/pipe degree 1 — run inference under the mesh instead. "
+                f"(If {info.axis!r} is a RENAMED data axis used for FSDP, pass "
+                f"fsdp_axes=({info.axis!r},) to export it.)")
         axes = sharded_axes(leaf)
         mesh = getattr(leaf, "device_mesh", None)
         for axis in axes:

@@ -621,6 +621,13 @@ class ServingEngine:
         spec_check_invariants: bool = False,
     ):
         cfg = model.config
+        if getattr(model, "pipe", None) is not None or getattr(cfg, "pipe_size", 1) > 1:
+            raise NotImplementedError(
+                "slot-indexed cache writes under pipeline parallelism "
+                "(the decode ring's per-stage caches would need the "
+                "write-slot table as a ring extra — serve pipe meshes "
+                "through generate_sharded, not the serving engine)"
+            )
         if mesh is not None and mesh is not getattr(model, "mesh", None):
             raise ValueError("mesh serving needs the mesh the model was built on "
                              "(GPTLM(config, mesh=mesh))")

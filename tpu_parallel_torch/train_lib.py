@@ -25,12 +25,15 @@ embedding and lm_head sharded over the data axis, the state's tensors for
 them this rank's slices) and tensor parallelism (a model axis above 1: the
 blocks' projections and the lm_head split over it, their state this
 rank's slices, gradients synced over ``("data", "model")`` as JAX's
-Trainer syncs them, metrics averaged over the model axis).
+Trainer syncs them, metrics averaged over the model axis) and pipeline
+parallelism (a pipe axis above 1 dictates the model's ``pipe_size``: each
+rank builds its stage, the replicated leaves' gradients are summed over
+``pipe``; ``pipe_schedule`` ``"gpipe"`` or ``"1f1b"``).
 
 Not in the port yet, each raising when asked for: the MLM objective (and
-the seq2seq family; ROADMAP queue A item 6), pipe and seq axes above 1
-(pipeline and sequence parallelism, items 5.4-5.5), and FSDP together
-with a model axis above 1 (item 6, ``llama_1b_3d``).
+the seq2seq family; ROADMAP queue A item 6), a seq axis above 1
+(sequence parallelism, item 5.5), and FSDP together with a model axis
+above 1 (item 6, ``llama_1b_3d``).
 """
 
 from __future__ import annotations
@@ -52,17 +55,20 @@ from tpu_parallel_torch.core.optim import (SGD, AddDecayedWeights, AdamW, Chain,
 from tpu_parallel_torch.core.state import TextBatch, TrainState, get_num_params
 from tpu_parallel_torch.data import lm_batch
 from tpu_parallel_torch.models.convert import init_params
-from tpu_parallel_torch.models.gpt import GPTConfig, GPTLM, gpt2_125m, make_gpt_loss, tiny_test
+from tpu_parallel_torch.models.gpt import (GPTConfig, GPTLM, gpt2_125m, gpt2_350m,
+                                           make_gpt_1f1b_grad_fn, make_gpt_loss, tiny_test)
 from tpu_parallel_torch.obs.registry import MetricRegistry
 from tpu_parallel_torch.obs.tracer import NULL_TRACER, Tracer
 from tpu_parallel_torch.parallel.spmd import (build_train_functions, make_model_init,
                                               refuse_later_axes)
 from tpu_parallel_torch.runtime import MeshConfig, make_mesh, resolve_device
-from tpu_parallel_torch.runtime.mesh import DATA_AXIS, MODEL_AXIS, axis_group, mesh_sizes
+from tpu_parallel_torch.runtime.mesh import (DATA_AXIS, MODEL_AXIS, PIPE_AXIS, axis_group,
+                                             mesh_sizes)
 from tpu_parallel_torch.utils.profiling import mfu
 
 MODEL_REGISTRY: Dict[str, Callable[..., GPTConfig]] = {
     "gpt2_125m": gpt2_125m,
+    "gpt2_350m": gpt2_350m,
     "tiny": tiny_test,
 }
 
@@ -87,8 +93,8 @@ class TrainerConfig:
     ``mesh`` (a dict or an object with the ``MeshConfig`` fields) resolves
     against the process group's ranks (one device without a group); a
     data axis above 1 trains data-parallel, a model axis above 1
-    tensor-parallel, the pipe and seq axes above 1 raise (ROADMAP queue A
-    items 5.4-5.5).  ``donate`` is accepted and changes
+    tensor-parallel, a pipe axis above 1 pipeline-parallel, a seq axis
+    above 1 raises (ROADMAP queue A item 5.5).  ``donate`` is accepted and changes
     nothing: the port's step already updates its buffers in place.  ``mlm_mask_rate`` belongs to the MLM
     objective, which raises (item 6).
     """
@@ -246,7 +252,16 @@ class Trainer:
         self.mesh = mesh
         self.device = resolve_device(device)
         overrides = {k: v for k, v in config.model_overrides.items() if v is not None}
+        # the model's pipeline degree is dictated by the mesh
+        overrides.setdefault("pipe_size", mesh_sizes(mesh)[PIPE_AXIS])
         self.model_config: GPTConfig = MODEL_REGISTRY[config.model](**overrides)
+        schedule = self.model_config.pipe_schedule
+        if schedule not in ("gpipe", "1f1b"):
+            raise ValueError(
+                f"pipe_schedule={schedule!r} (gpipe | 1f1b) — an unknown "
+                "value would silently train with GPipe's m-proportional "
+                "activation memory"
+            )
         if mesh is not None:
             # a typo'd axis name would otherwise fold dropout over nothing
             # (fold_rng_over_axis skips unbound axes): validate it here, once
@@ -268,6 +283,9 @@ class Trainer:
         self.model = GPTLM(self.model_config, device=self.device, seed=config.seed, mesh=mesh)
         self.tx = make_optimizer(config)
         self.loss_fn = make_gpt_loss(self.model_config, mesh=mesh)
+        grad_fn = None
+        if schedule == "1f1b":
+            grad_fn = make_gpt_1f1b_grad_fn(self.model_config, mesh=mesh)
         self.eval_loss_fn = make_gpt_loss(self.model_config, train=False, mesh=mesh)
         self.example_batch: TextBatch = self.local_rows(lm_batch(
             torch.Generator().manual_seed(0), config.global_batch_size,
@@ -277,8 +295,8 @@ class Trainer:
         self.funcs = build_train_functions(
             make_model_init(self.model, self.tx),
             lambda model, batch, rng: self.loss_fn(model, batch, rng),
-            mesh, grad_sync_axes=(DATA_AXIS, MODEL_AXIS),
-            num_minibatches=config.num_minibatches,
+            mesh, grad_sync_axes=(DATA_AXIS, MODEL_AXIS), grad_psum_axes=(PIPE_AXIS,),
+            num_minibatches=config.num_minibatches, grad_fn=grad_fn,
             eval_loss_fn=lambda model, batch, rng: self.eval_loss_fn(model, batch, rng),
             ema_decay=config.ema_decay,
         )
@@ -555,5 +573,10 @@ class Trainer:
 
     @property
     def num_params(self) -> int:
-        """Parameter count (logging and MFU)."""
-        return get_num_params(self.model)
+        """Parameter count (logging and MFU): the whole model's, a pipeline
+        stage's layers counted once per pipe rank (every stage holds as
+        many)."""
+        total = get_num_params(self.model)
+        if self.model.pipe is not None:
+            total += (self.model.pipe[1] - 1) * get_num_params(self.model.blocks)
+        return total
