@@ -4,8 +4,9 @@ continuous-batching serving, with its hierarchical KV memory, speculative
 decoding, the int8 KV cache, beam search and int8 weight export, the
 trainer shell (data loading, checkpointed fit, 8k context), data
 parallelism (a process group, a mesh, synced gradients), FSDP (sharded
-parameters, state and checkpoints), tensor parallelism, and pipeline
-parallelism on GPT-2 350M, at full width.
+parameters, state and checkpoints), tensor parallelism, pipeline
+parallelism on GPT-2 350M, and sequence parallelism (ring and Ulysses
+attention) at 32k context, at full width.
 
     python3 chip_smoke.py
 
@@ -164,8 +165,8 @@ source, all started together).  Phases, in order; any failure raises:
    trace's spans, its metrics' ``train_loss``).
 12. data parallelism on ``gpt2_125m_dp`` ([64, 1024] in one minibatch):
    both kernels at that shape [64, 12, 1024, 64] against the plain
-   versions; then three legs, each a subprocess of this script (``--leg``)
-   printing one JSON line.  (a) An NCCL group of one from torchrun's
+   versions; then three legs, (a) and (b) subprocesses of this script
+   (``--leg``), each printing one JSON line.  (a) An NCCL group of one from torchrun's
    environment: ``Trainer`` over ``make_mesh(MeshConfig(data=-1))``, 3
    steps on a seeded batch with 12 ``flash_fwd``, 12 ``flash_bwd`` and one
    ``dp_allreduce_launches`` per step and a falling loss; step host and
@@ -174,14 +175,14 @@ source, all started together).  Phases, in order; any failure raises:
    card (gloo takes the CUDA tensors, or the leg stages them through
    pinned host copies, and says which), each on rows ``r::2`` of 2 global
    batches: masters and AdamW moments bitwise equal across the ranks after
-   every step; against one process on the same rows (a third subprocess),
+   every step; against one process on the same rows (run in this process),
    losses within ``LOSS_TOL``, step-1 gradients within ``TRAIN_GRAD_TOL``
    per weight, and the final masters' loss on a third batch within
    ``LOSS_TOL``; each rank's all-reduce ms and peak memory.  (c)
    ``python -m torch.distributed.run --standalone --nproc_per_node=1 -m
    tpu_parallel_torch.train --config=gpt2_125m_dp`` for 3 steps on
    ``CLI_ROWS`` rows: exit 0, a topology line with one process and NCCL,
-   ``train_loss`` in its metrics.  It runs beside phases 13-15's CLI
+   ``train_loss`` in its metrics.  It runs beside phases 13-16's CLI
    legs and (b)'s reference, which times nothing; all are collected
    before any later timed leg.
 13. FSDP: ``gpt2_125m_dp`` with ``model_overrides.fsdp=True`` (the blocks,
@@ -219,7 +220,7 @@ source, all started together).  Phases, in order; any failure raises:
    ``--config=gpt2_125m_tp`` on ``CLI_ROWS`` rows (a model axis of 1,
    NCCL; started and collected in phase 12): exit 0, 12/12 launches per
    step, a falling loss, ``train_loss`` in its metrics.  A
-   one-process reference (no group) on 3 seeded batches, then (b) two
+   one-process reference (no group, run in this process) on 3 seeded batches, then (b) two
    gloo ranks sharing the card on a data=1 x model=2 mesh, each on all 32
    rows, both at ``TP_PAIR_LAYERS`` of the 12 layers (legs (b)-(e); the
    run's time limit): 6/6 launches, 31 model-axis all-reduces and one
@@ -249,9 +250,10 @@ source, all started together).  Phases, in order; any failure raises:
    and ``pipe_interleave`` set to 1 and ``pipe_schedule="1f1b"`` on
    ``CLI_ROWS`` rows (NCCL; started and collected in phase 12): exit 0,
    384/192 launches per step, a falling loss.  A one-process
-   reference (no group, the microbatches as minibatches) on 3 seeded
+   reference (no group, run in this process, the microbatches as minibatches) on 3 seeded
    batches, then four gloo ranks sharing the card on a data=1 x pipe=4
-   mesh: (b) GPipe with interleave 2: 48/48 launches and the schedule's
+   mesh, both at ``PP_PAIR_LAYERS`` of the 24 layers (legs (b)-(e); the
+   run's time limit): (b) GPipe with interleave 2: 16/16 launches and the schedule's
    point-to-point ops per step per rank (bubbles send nothing), the
    replicated leaves bitwise equal across the ranks after every step;
    against the reference, losses within ``LOSS_TOL``, each rank's step-1
@@ -266,17 +268,61 @@ source, all started together).  Phases, in order; any failure raises:
    memory beside (b)'s.  (e) ``generate_sharded`` on 4 ragged prompts, 32
    new tokens: fp32 greedy on a 4-layer cut equal to static
    ``generate()`` of one process (top-2 rule) and on every rank; bf16 at
-   full depth on (c)'s module, ms per token; a sampled call equal on
+   ``PP_PAIR_LAYERS`` layers on (c)'s module, ms per token; a sampled call equal on
    every rank.  Each multi-rank leg fails at once when a rank fails, and
    on its timeout.
+16. sequence parallelism on ``gpt2_125m_long`` at ``seq_len`` 32768 (the
+   context ``docs/04_scaling_further.md`` trains; the position table
+   grows to 32768 rows) over a ``seq`` axis of 4 with data 1 (the docs'
+   data=2 would be eight ranks, more than one card holds), ``"proj_attn"``,
+   ``loss_chunk=1024``.  (a) In this process, one [1, 32768] sequence of
+   12 heads of 64 (views of a fused qkv buffer) split into 4 chunks,
+   every (query chunk, key chunk) pair by the ring's rules through
+   ``flash_chunk_attention`` (the diagonal causal, past chunks whole or
+   banded, future chunks skipped) and merged with ``combine_chunks``,
+   plain, under a window of 4096 and packed: out and lse against one flash
+   call over the whole sequence (2e-2, 1e-3, on rows that see a key; out
+   also row by row) and against the plain versions through the same
+   merge; the gradients
+   through the merge (the lse cotangent reaching the backward kernel as
+   dlse) against the plain versions', row by row; 10, 7 and 10 launches of
+   each kernel.  Both kernels at the ring's chunk shapes [1, 8192] x 12
+   heads (a diagonal chunk, a past chunk, a past chunk at offset 8192
+   under the window, SDPA there with an explicit mask) and at Ulysses'
+   inner shape [1, 32768] x 3 heads (the plain versions one head at a
+   time) against the plain versions (out also row by row, and a planted
+   P.V fault that keeps lse rejected), timed in turns with SDPA.  A
+   one-process reference (``attn_impl="flash"``, no group, run in this
+   process) on 3 seeded batches of one row, then four gloo ranks sharing
+   the card on a data=1 x seq=4 mesh, each on its [1, 8192] block: (b) ``attn_impl="ring"`` (the
+   flash-composed ring: K/V rotate through the host, dk/dv travel back
+   with them), (c) ``attn_impl="ulysses"`` (all-to-alls over gloo, 3 heads
+   per rank), each from the reference's init: 3 counted steps (the first
+   a warm-up, its synced gradients within ``TRAIN_GRAD_TOL`` per weight
+   of the reference's) with losses within ``LOSS_TOL``, the masters bitwise equal
+   across the ranks after every step, per step (r + 1) x 12 launches of
+   each kernel on ring rank r and 12 on every Ulysses rank, 84 ring sends
+   and receives or 96 all-to-alls, one gradient all-reduce; step wall
+   against the reference's, state and peak memory, host ms per ring hop
+   and per all-to-all; then in the same ranks the ring op alone,
+   ``ring_flash_attention`` forward and backward on each rank's block of
+   a seeded [1, 32768] x 12 heads sequence, its out, dq, dk and dv row by
+   row against one ``flash_attention`` call over the whole sequence.  (d) ``python -m torch.distributed.run --standalone
+   --nproc_per_node=4`` over the CLI's ``main`` with
+   ``--config=gpt2_125m_long``, the seq axis 4, ring attention, 32768
+   tokens at ``SP_CLI_LAYERS`` layers, one row, ``--device=cuda:0
+   --backend=gloo`` (started and collected in phase 12): exit 0 on every
+   rank, (r + 1) x ``SP_CLI_LAYERS`` launches per step on rank r, a
+   falling loss equal on every rank, ``train_loss`` in its metrics.
 
 Weights and inputs are made from ``SEED``.  The kernel launch counters are
 set to 0 before each main path (phases 3-4: inference; phase 6's steps:
 training; phases 7-10: serving, which must leave them at 0; phase 11's
 packed fit and its 8k steps; phase 12's and phase 13's legs (a), in their
 subprocesses; phase 14's CLI leg and its leg (b)'s steps; phase 15's CLI
-leg and its leg (b)'s steps) and read after it.  The last two lines are the ``kernels`` JSON object and the
-``{"ok": true, ...}`` line.
+leg and its leg (b)'s steps; phase 16's CLI leg and the steps of its
+legs (b) and (c) in every rank) and read after it.  The last two lines
+are the ``kernels`` JSON object and the ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
@@ -297,6 +343,16 @@ PEAK_BYTES_PER_S = 3.35e12
 # another order (out); lse is fp32 throughout
 OUT_TOL = 2e-2
 LSE_TOL = 1e-3
+# and out row by row (one query's out over D), as the backward's rows
+# below: ||got - plain|| <= OUT_ROW_RTOL * ||plain row|| + OUT_ROW_ATOL *
+# (rms row norm).  Where a query sees thousands of keys, |out| is about
+# OUT_TOL itself (near 0.02 at 8192 keys of unit-variance v), so the
+# elementwise rule alone would pass a P.V that is wrong while lse is right;
+# each row held to its own norm fails it (phase 16 plants such a fault).
+# A row's error is two bf16 roundings (P before P.V, out): a few 1e-3 of
+# its norm, so OUT_ROW_RTOL leaves 4x and more
+OUT_ROW_RTOL = 2e-2
+OUT_ROW_ATOL = 1e-3
 # backward kernels vs plain version, row by row (one query's dq, one key's dk
 # or dv, over D): ||got - plain|| <= GRAD_RTOL * ||plain row|| + GRAD_ATOL *
 # (rms row norm of the tensor).  A row's error comes from the bf16 rounding of
@@ -432,25 +488,32 @@ def _inputs(shape, gen, with_do=False, seg=None):
 
 
 def _sdpa_mask(kw, s, seg, dev):
-    """The boolean mask SDPA needs for a shape (None: plain causal)."""
+    """The boolean mask SDPA needs for a shape (None: plain causal, or a
+    fully visible chunk; :func:`_sdpa_causal` says which)."""
     from tpu_parallel_torch.ops import flash_attention as fa
 
-    if not (kw.get("window") or seg is not None or not kw["causal"]):
+    if not (kw.get("window") or seg is not None):
         return None
     mask = fa._band_mask(0, 0, (s, s), s, s, kw["causal"], kw.get("window", 0),
-                         kw.get("q_offset", 0), device=dev)[None, None]
+                         kw.get("q_offset", 0), device=dev)
+    mask = (torch.ones(s, s, dtype=torch.bool, device=dev) if mask is None else mask)[None, None]
     if seg is not None:
         mask = mask & (seg[:, :, None] == seg[:, None, :])[:, None]
     return mask
 
 
-def grad_error_ratio(got, want):
-    """Worst row of ``got`` against ``want``: its L2 error over its limit,
-    GRAD_RTOL * ||row|| + GRAD_ATOL * rms row norm; at most 1 passes."""
+def _sdpa_causal(kw, mask):
+    """SDPA's ``is_causal`` beside :func:`_sdpa_mask`'s mask."""
+    return mask is None and kw["causal"]
+
+
+def row_error_ratio(got, want, rtol=GRAD_RTOL, atol=GRAD_ATOL):
+    """Worst row (last dim) of ``got`` against ``want``: its L2 error over
+    its limit, rtol * ||row|| + atol * rms row norm; at most 1 passes."""
     g, w = got.float().flatten(0, -2), want.float().flatten(0, -2)
     err = (g - w).norm(dim=-1)
     ref = w.norm(dim=-1)
-    limit = GRAD_RTOL * ref + GRAD_ATOL * ref.square().mean().sqrt()
+    limit = rtol * ref + atol * ref.square().mean().sqrt()
     return (err / limit.clamp(min=1e-30)).max().item()
 
 
@@ -496,10 +559,38 @@ def kernel_phase(seed):
             for name, shape in {**SHAPES, "t_train_pass": TRAIN_SHAPE}.items()}
 
 
-def fwd_kernel_row(name, shape, gen, seg=None):
-    """One shape of phase 2 (and of phase 11's training shapes): the
-    forward kernel against its plain version in both layouts, its time and
-    SDPA's in turns, the plain version's time and the bound."""
+def _plain_fwd(q, k, v, seg, kw, split=1):
+    """``flash_fwd_reference`` over ``split`` groups of heads, concatenated:
+    the same result (heads are independent), with [B, H / split, S, S] fp32
+    scores at a time, so that a long sequence's fit on the card."""
+    from tpu_parallel_torch.ops import flash_attention as fa
+
+    hq, hk = q.shape[1] // split, k.shape[1] // split
+    parts = [fa.flash_fwd_reference(q[:, i * hq:(i + 1) * hq], k[:, i * hk:(i + 1) * hk],
+                                    v[:, i * hk:(i + 1) * hk], seg, seg, **kw)
+             for i in range(split)]
+    return tuple(torch.cat(x, 1) for x in zip(*parts))
+
+
+def _plain_bwd(q, k, v, seg, out, lse, do, kw, split=1):
+    """``flash_bwd_reference`` over ``split`` groups of heads (as
+    :func:`_plain_fwd`)."""
+    from tpu_parallel_torch.ops import flash_attention as fa
+
+    hq, hk = q.shape[1] // split, k.shape[1] // split
+    sq, sk = (lambda x, i: x[:, i * hq:(i + 1) * hq]), (lambda x, i: x[:, i * hk:(i + 1) * hk])
+    parts = [fa.flash_bwd_reference(sq(q, i), sk(k, i), sk(v, i), seg, seg, sq(out, i),
+                                    sq(lse, i), sq(do, i), **kw) for i in range(split)]
+    return tuple(torch.cat(x, 1) for x in zip(*parts))
+
+
+def fwd_kernel_row(name, shape, gen, seg=None, plain_split=1, plant=False):
+    """One shape of phase 2 (and of phases 11-16's training shapes): the
+    forward kernel against its plain version in both layouts (out also row
+    by row), its time and SDPA's in turns, the plain version's time and the
+    bound.  The plain version runs over ``plain_split`` groups of heads.
+    ``plant``: also check that the row rule rejects a P.V fault that keeps
+    lse, the kernel run with the second half of the keys' v zeroed."""
     import torch.nn.functional as F
     from tpu_parallel_torch.ops import flash_attention as fa
 
@@ -510,7 +601,7 @@ def fwd_kernel_row(name, shape, gen, seg=None):
     with torch.inference_mode():
         out, lse = fa._flash_fwd(qm, km, vm, seg, seg, **kw)
         out_bhsd, lse_bhsd = fa._flash_fwd(q, k, v, seg, seg, **kw)
-        ref_out, ref_lse = fa.flash_fwd_reference(q, k, v, seg, seg, **kw)
+        ref_out, ref_lse = _plain_fwd(q, k, v, seg, kw, plain_split)
         torch.cuda.synchronize()
         if not out.transpose(1, 2).is_contiguous():
             raise AssertionError(f"{name}: out is not [B, S, H, D] in memory")
@@ -523,18 +614,34 @@ def fwd_kernel_row(name, shape, gen, seg=None):
         torch.testing.assert_close(lse, ref_lse, atol=LSE_TOL, rtol=0)
         if empty_rows:
             assert (out.float()[ref_lse <= fa.NEG_INF / 2] == 0).all()
+        out_ratio = row_error_ratio(out, ref_out, OUT_ROW_RTOL, OUT_ROW_ATOL)
+        out_rms = ref_out.float().square().mean().sqrt().item()
+        if out_ratio > 1:
+            raise AssertionError(f"{name}: a row of out is {out_ratio:.2f}x its limit "
+                                 f"({OUT_ROW_RTOL} * ||row|| + {OUT_ROW_ATOL} * rms row norm)")
+        planted = None
+        if plant:
+            v_fault = v.clone()
+            v_fault[:, :, s // 2:] = 0
+            fault_out, fault_lse = fa._flash_fwd(q, k, v_fault, seg, seg, **kw)
+            planted = dict(worst_row_ratio=row_error_ratio(fault_out, ref_out, OUT_ROW_RTOL,
+                                                           OUT_ROW_ATOL),
+                           max_abs_err=(fault_out.float() - ref_out.float()).abs().max().item())
+            if not torch.equal(fault_lse, lse) or planted["worst_row_ratio"] <= 1:
+                raise AssertionError(f"{name}: the planted P.V fault (lse kept) passes the row "
+                                     f"rule: {planted}")
+            del v_fault, fault_out, fault_lse
 
         mask = _sdpa_mask(kw, s, seg, dev)
         (ms, library_ms), turns = in_turns((
             lambda: fa._flash_fwd(qm, km, vm, seg, seg, **kw),
             lambda: F.scaled_dot_product_attention(qm, km, vm, attn_mask=mask,
-                                                   is_causal=mask is None,
+                                                   is_causal=_sdpa_causal(kw, mask),
                                                    enable_gqa=h != h_kv),
         ), iters)
         ms_bhsd = cuda_ms(lambda: fa._flash_fwd(q, k, v, seg, seg, **kw), iters)
-        plain_ms = cuda_ms(
-            lambda: fa.flash_fwd_reference(q, k, v, seg, seg, **kw), max(2, iters // 10), 1
-        )
+        plain_ms = cuda_ms(lambda: _plain_fwd(q, k, v, seg, kw, plain_split),
+                           max(2, iters // 10), 1)
     pairs = visible_pairs(b, h, s, s, kw["causal"], kw.get("window", 0),
                           kw.get("q_offset", 0), seg, dev)
     flops = 4 * d * pairs  # Q.K^T and P.V, 2*D each per visible pair
@@ -547,15 +654,21 @@ def fwd_kernel_row(name, shape, gen, seg=None):
         layout="views of fused [B, S, H, 3D] qkv" if h == h_kv
         else "q [B, S, H, D], k/v views of fused [B, S, Hkv, 2D] kv",
         max_abs_err=out_err, lse_max_abs_err=lse_err, empty_rows=empty_rows,
+        out_worst_row_ratio=out_ratio, plain_out_rms=out_rms, planted_pv_fault=planted,
         bitwise_equal_across_layouts=True, ms=ms, kernel_turns_ms=turns[0], ms_bhsd=ms_bhsd,
         plain_ms=plain_ms, library_ms=library_ms, sdpa_turns_ms=turns[1], bound_ms=bound_ms,
         bound_by=bound_by, gflop=flops / 1e9, mbytes=nbytes / 1e6,
         share_of_bound=bound_ms / ms, tflops=flops / ms / 1e9,
     )
     log(f"[kernel {name}] {row['shape']}; main-path layout: {row['layout']}")
-    log(f"  out max abs err {out_err:.3e} (atol=rtol={OUT_TOL}), lse max abs err "
-        f"{lse_err:.3e} (atol {LSE_TOL}), empty rows {empty_rows}; out and lse bitwise "
-        f"equal in [B, H, S, D]")
+    log(f"  out max abs err {out_err:.3e} (atol=rtol={OUT_TOL}; plain out rms {out_rms:.3e}), "
+        f"worst row over its limit {out_ratio:.3f} ({OUT_ROW_RTOL} * ||row|| + {OUT_ROW_ATOL} * "
+        f"rms row norm), lse max abs err {lse_err:.3e} (atol {LSE_TOL}), empty rows "
+        f"{empty_rows}; out and lse bitwise equal in [B, H, S, D]")
+    if planted is not None:
+        log(f"  planted P.V fault (v of the second half of the keys zeroed, lse bitwise the "
+            f"kernel's): worst row {planted['worst_row_ratio']:.2f}x its limit (rejected), max "
+            f"abs err {planted['max_abs_err']:.3e}")
     log(f"  kernel {ms:.4f} ms (turns {', '.join(f'{x:.4f}' for x in turns[0])}), SDPA "
         f"{library_ms:.4f} ms (turns {', '.join(f'{x:.4f}' for x in turns[1])}), kernel on "
         f"[B, H, S, D] {ms_bhsd:.4f} ms, plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms by "
@@ -574,12 +687,13 @@ def backward_kernel_phase(seed):
             for name, shape in {**SHAPES, "t_train_pass": TRAIN_SHAPE}.items()}
 
 
-def bwd_kernel_row(name, shape, gen, seg=None, main_path=None):
-    """One shape of phase 2b (and of phase 11's training shapes): the
+def bwd_kernel_row(name, shape, gen, seg=None, main_path=None, plain_split=1):
+    """One shape of phase 2b (and of phases 11-16's training shapes): the
     backward kernel against its plain version row by row, its time and
     SDPA's backward in turns, the plain version's time and the one-pass
     bound; at the training shapes (``main_path``, default: the training
-    pass) also two runs and the main path's layout."""
+    pass) also two runs and the main path's layout.  The plain version runs
+    over ``plain_split`` groups of heads."""
     import statistics
 
     import torch.nn.functional as F
@@ -596,13 +710,13 @@ def bwd_kernel_row(name, shape, gen, seg=None, main_path=None):
     with torch.inference_mode():
         out, lse = fa._flash_fwd(q, k, v, seg, seg, **kw)
         got = kernel()
-        want = fa.flash_bwd_reference(q, k, v, seg, seg, out, lse, do, **kw)
+        want = _plain_bwd(q, k, v, seg, out, lse, do, kw, plain_split)
         torch.cuda.synchronize()
         errs, scales, ratios = {}, {}, {}
         for gname, g, w in zip(("dq", "dk", "dv"), got, want):
             errs[gname] = (g.float() - w.float()).abs().max().item()
             scales[gname] = w.float().abs().max().item()
-            ratios[gname] = grad_error_ratio(g, w)
+            ratios[gname] = row_error_ratio(g, w)
             if ratios[gname] > 1:
                 raise AssertionError(
                     f"{name}: a row of {gname} is {ratios[gname]:.2f}x its limit "
@@ -620,7 +734,7 @@ def bwd_kernel_row(name, shape, gen, seg=None, main_path=None):
                 raise AssertionError("dk / dv differ between two runs on the same inputs")
             row["dkv_bitwise_equal_across_runs"] = True
             row["dq_run_to_run_max_abs"] = (again[0].float() - got[0].float()).abs().max().item()
-            row["dq_run_to_run_worst_row_ratio"] = grad_error_ratio(again[0], got[0])
+            row["dq_run_to_run_worst_row_ratio"] = row_error_ratio(again[0], got[0])
             del again
             # the main path's layout: q, k, v views of the fused qkv buffer,
             # out and do [B, S, H, D] in memory; dq, dk, dv written so
@@ -630,7 +744,7 @@ def bwd_kernel_row(name, shape, gen, seg=None, main_path=None):
             torch.cuda.synchronize()
             if not all(g.transpose(1, 2).is_contiguous() for g in got_m):
                 raise AssertionError("dq, dk, dv are not [B, S, H, D] in memory")
-            ratios_m = {g: grad_error_ratio(x, w)
+            ratios_m = {g: row_error_ratio(x, w)
                         for g, x, w in zip(("dq", "dk", "dv"), got_m, want)}
             if max(ratios_m.values()) > 1:
                 raise AssertionError(f"strided backward: worst rows {ratios_m} over limit")
@@ -641,13 +755,13 @@ def bwd_kernel_row(name, shape, gen, seg=None, main_path=None):
                 ms=cuda_ms(strided, iters))
             del got_m
         del got, want
-        plain_ms = cuda_ms(
-            lambda: fa.flash_bwd_reference(q, k, v, seg, seg, out, lse, do, **kw),
-            max(2, iters // 10), 1)
+        plain_ms = cuda_ms(lambda: _plain_bwd(q, k, v, seg, out, lse, do, kw, plain_split),
+                           max(2, iters // 10), 1)
     # SDPA's backward alone, on a retained graph, timed in turns with the kernel
     mask = _sdpa_mask(kw, s, seg, dev)
     leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-    sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask, is_causal=mask is None,
+    sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                              is_causal=_sdpa_causal(kw, mask),
                                               enable_gqa=h != h_kv)
     sdpa = lambda: torch.autograd.grad(sdpa_out, leaves, do, retain_graph=True)
     turns = {"kernel": [], "sdpa": []}
@@ -727,7 +841,7 @@ def planted_faults(tensors, kw, want):
                           ("dk_without_second_half_keys", dkv_half[0], want[1]),
                           ("dv_without_second_half_keys", dkv_half[1], want[2])):
         w = w.float()
-        faults[fault] = dict(worst_row_ratio=grad_error_ratio(got, w),
+        faults[fault] = dict(worst_row_ratio=row_error_ratio(got, w),
                              max_abs_over_max=((got.float() - w).abs().max() / w.abs().max()).item())
         if faults[fault]["worst_row_ratio"] <= 1:
             raise AssertionError(f"the backward check passes a planted fault: {fault} {faults[fault]}")
@@ -1023,7 +1137,10 @@ CAPTURES = dict(per_step=0, fused_eager=0, fused_graph=1, fused_graph_overlap=1,
 # decodes at another GEMM batch, so its bits may differ)
 BITWISE_RUNS = ("fused_eager", "fused_graph", "fused_graph_overlap", "unified_graph",
                 "paged_unified_graph")
-# runs with a pure-decode stretch
+# runs with a pure-decode stretch, and its decode steps per timed and per
+# profiled window (the profiled window's trace takes most of a stretch's
+# seconds; 32 steps keep the run inside its time limit)
+STRETCH_STEPS = 32
 STRETCH_RUNS = ("per_step", "fused_eager", "fused_graph", "fused_graph_overlap",
                 "paged_unified_graph")
 # an fp32 engine token that differs from static generate() must sit on a
@@ -1333,10 +1450,16 @@ def serve_phase(seed, smi):
     from tpu_parallel_torch.models import GPTLM, gpt2_125m
     from tpu_parallel_torch.ops import flash_attention as fa
 
+    start, parts_s = time.perf_counter(), {}
+
+    def lap(name):
+        parts_s[name] = time.perf_counter() - start - sum(parts_s.values())
+
     cfg = gpt2_125m()
     model = GPTLM(cfg, device="cuda", seed=seed).eval()
     workload = serve_workload(seed, cfg.vocab_size)
     flash_before = [getattr(fa, name) for name in LAUNCH_COUNTERS]
+    lap("model")
     runs = {}
     for name, steps, eager, overlap, kwargs in RUNS:
         eng, outs, wall, peak, blocks = serve_run(model, workload, steps, seed, eager, overlap,
@@ -1395,17 +1518,21 @@ def serve_phase(seed, smi):
     moved = [getattr(fa, name) - n for name, n in zip(LAUNCH_COUNTERS, flash_before)]
     if any(moved):
         raise AssertionError(f"the serving path launched flash kernels: {moved}")
+    lap("runs")
     for name, steps, eager, overlap, kwargs in RUNS:
         if name in STRETCH_RUNS:
-            runs[name]["decode_stretch"] = decode_stretch(model, steps, seed, 64 // steps, eager,
-                                                          overlap, **kwargs)
+            runs[name]["decode_stretch"] = decode_stretch(
+                model, steps, seed, STRETCH_STEPS // steps, eager, overlap, **kwargs)
+    lap("stretches")
     copies = cache_sized_copies(model, seed)
     if copies["contiguous"] or copies["paged"] != {"index_select": 2 * cfg.n_layers}:
         raise AssertionError(f"cache-sized copies of one decode step: {copies}, want none "
                              f"contiguous and {2 * cfg.n_layers} gathers paged")
+    lap("copies")
     del model
     torch.cuda.empty_cache()
     fp32 = fp32_check(seed, workload)
+    lap("fp32")
     for name, r in runs.items():
         log(f"[serve {name}] {r['wall_s']:.3f} s wall, {r['tokens_out']} tokens out "
             f"({r['tokens_per_s']:.1f} tokens/s over the run), {r['ticks']} ticks; TTFT p50 "
@@ -1443,6 +1570,7 @@ def serve_phase(seed, smi):
         f"{same_32}/{len(greedy)} greedy requests equal per_step's; {SERVE_SAMPLED} sampled "
         f"requests in vocabulary; no flash launch; fp32 engine vs generate(): "
         f"{sum(r['equal'] for r in fp32)}/{len(fp32)} equal {fp32}")
+    log("[serve] phase 7's parts, s: " + ", ".join(f"{k} {v:.1f}" for k, v in parts_s.items()))
     log(f"card: {smi}")
     # phase 10 compares its int8 runs' greedy tokens with these runs'
     greedy_tokens = {name: {r: runs[name]["tokens"][r] for r in greedy}
@@ -1909,7 +2037,7 @@ SPEC_DRAFT = 4  # draft tokens: verify blocks of [16 slots, 5]
 SPEC_FUSED_STEPS = 4
 SPEC_BLOCK_TOKENS, SPEC_POOL_BLOCKS = 32, 512
 SPEC_FP32_REQUESTS = 8
-SPEC_STRETCH_STEPS = 32  # decode (verify) steps per measured and per profiled window
+SPEC_STRETCH_STEPS = 16  # decode (verify) steps per measured and per profiled window
 
 
 class OracleDrafter:
@@ -2150,6 +2278,11 @@ def spec_phase(seed, smi):
     from tpu_parallel_torch.models import GPTLM, gpt2_125m
     from tpu_parallel_torch.ops import flash_attention as fa
 
+    start, parts_s = time.perf_counter(), {}
+
+    def lap(name):
+        parts_s[name] = time.perf_counter() - start - sum(parts_s.values())
+
     cfg = gpt2_125m()
     model = GPTLM(cfg, device="cuda", seed=seed).eval()
     workload = spec_workload(seed, cfg.vocab_size)
@@ -2228,6 +2361,7 @@ def spec_phase(seed, smi):
         raise AssertionError(f"the spec path launched flash kernels: {moved}")
     # pure decode at 16 slots: [16, 1] decode steps against [16, 5] verify
     # steps; the plain fused stretch's greedy tokens key the oracle's
+    lap("runs")
     stretch_refs = {}
     stretches = {
         "decode_step": spec_stretch(model, seed, 1, "decode_step"),
@@ -2242,7 +2376,9 @@ def spec_phase(seed, smi):
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    lap("stretches")
     fp32, fp32_accepted = spec_fp32_leg(seed, workload)
+    lap("fp32")
     for name, r in runs.items():
         tpv = r["tokens_per_verify"]
         log(f"[spec {name}] {r['wall_s']:.3f} s wall, {r['tokens_out']} tokens out "
@@ -2273,6 +2409,7 @@ def spec_phase(seed, smi):
         f"decode ticks against the n-gram run's {runs['spec_step_ngram']['decode_ticks']}; no "
         f"flash launch; fp32 spec vs non-spec engine: {sum(r['equal'] for r in fp32)}/"
         f"{len(fp32)} equal ({fp32_accepted} drafts accepted) {fp32}")
+    log("[spec] phase 9's parts, s: " + ", ".join(f"{k} {v:.1f}" for k, v in parts_s.items()))
     log(f"card: {smi}")
     # phase 10 compares its int8 spec run's greedy tokens with run (c)'s
     greedy_tokens = {r: runs["spec_fused_ngram"]["tokens"][r] for r in greedy}
@@ -3752,12 +3889,18 @@ def _run_leg(args, env=None, timeout=DP_LEG_TIMEOUT):
     return json.loads(lines[-1][len(DP_RESULT):])
 
 
-def _run_ranks(leg, work, n, timeout):
-    """Run ``chip_smoke.py --leg <leg> <rank> <rendezvous> <work>`` as ``n``
-    processes (a file rendezvous in ``work``) and return their JSON
-    results.  A rank that exits non-zero fails the leg at once, every other
-    rank killed (its peers would wait on it forever), and so does the
-    timeout; the error holds the ranks' output."""
+# the legs that run as several rank processes; each is started early by
+# _spawn_ranks, imports what the legs use (torch's first selective checkpoint
+# imports torch._dynamo) and waits for _join_ranks to let it run
+RANK_LEGS = ("dp_pair", "fsdp_pair", "tp_pair", "pp_rank", "sp_rank")
+RANK_START_TIMEOUT = 1200
+
+
+def _spawn_ranks(leg, work, n):
+    """Start ``n`` processes of ``chip_smoke.py --leg <leg> <rank>
+    <rendezvous> <work>`` (a file rendezvous in ``work``) now, so that their
+    start-up (interpreter, imports) overlaps the caller's own work; they
+    wait for :func:`_join_ranks` before joining the group."""
     import tempfile
 
     rendezvous = f"file://{Path(work, leg + '_rendezvous')}"
@@ -3766,6 +3909,31 @@ def _run_ranks(leg, work, n, timeout):
         [sys.executable, str(Path(__file__).resolve()), "--leg", leg, str(r), rendezvous, work],
         cwd=Path(__file__).resolve().parent, stdout=out, stderr=err, text=True)
         for r, (out, err) in enumerate(files)]
+    _SPAWNED.extend(procs)
+    return dict(leg=leg, work=work, procs=procs, files=files)
+
+
+def _wait_to_run(leg, work):
+    """A rank of ``leg`` (:data:`RANK_LEGS`): import what the legs use, then
+    wait until :func:`_join_ranks` lets the ranks run."""
+    import torch._dynamo  # noqa: F401
+    import tpu_parallel_torch.train_lib  # noqa: F401
+
+    go = Path(work, leg + "_go")
+    deadline = time.perf_counter() + RANK_START_TIMEOUT
+    while not go.exists():
+        if time.perf_counter() > deadline:
+            raise SystemExit(f"{leg}: never told to run")
+        time.sleep(0.05)
+
+
+def _join_ranks(spawned, timeout):
+    """Let :func:`_spawn_ranks`' processes run and return their JSON
+    results.  A rank that exits non-zero fails the leg at once, every other
+    rank killed (its peers would wait on it forever), and so does the
+    timeout; the error holds the ranks' output."""
+    leg, procs, files = spawned["leg"], spawned["procs"], spawned["files"]
+    Path(spawned["work"], leg + "_go").touch()
     deadline = time.perf_counter() + timeout
     try:
         while any(p.poll() is None for p in procs):
@@ -3793,6 +3961,16 @@ def _run_ranks(leg, work, n, timeout):
                         if line.startswith(DP_RESULT)][-1][len(DP_RESULT):]) for o in outs]
 
 
+def _reference(leg, work):
+    """A one-process reference leg run in this process (no group; it has
+    its own legs' imports and first calls behind it, which a fresh
+    process would pay again), its memory released after."""
+    result = leg(work)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
 def _share_cores(n):
     """One of ``n`` ranks sharing the host: its share of the cores for
     torch's intra-op threads (each rank taking all of them thrashes)."""
@@ -3809,6 +3987,7 @@ CLI_ROWS = 8
 
 
 _LAUNCHED = []  # every _launch'ed process, killed by main's exit if still running
+_SPAWNED = []  # every _spawn_ranks process, killed likewise
 
 
 def _launch(cmd):
@@ -3834,6 +4013,10 @@ def _kill_launched():
     for proc in _LAUNCHED:
         if proc.poll() is None:
             os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    for proc in _SPAWNED:
+        if proc.poll() is None:
+            proc.kill()
             proc.wait()
 
 
@@ -3919,6 +4102,7 @@ def dp_phase(smi, work):
     gc.collect()
     torch.cuda.empty_cache()
     lap("kernels")
+    pair = _spawn_ranks("dp_pair", work, 2)
     env = dict(WORLD_SIZE="1", RANK="0", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
                MASTER_PORT=str(_free_port()))
     nccl = _run_leg(["dp_nccl"], env=env)
@@ -3934,7 +4118,7 @@ def dp_phase(smi, work):
         f"{[round(x, 2) for x in nccl['no_group_step_device_ms']]}; all-reduce of the flat "
         f"fp32 buffer ({nccl['flat_grad_bytes']} bytes) alone {nccl['allreduce_ms']:.4f} device "
         f"ms; max memory allocated {nccl['max_memory_allocated'] / 2**30:.2f} GiB")
-    pair = _run_ranks("dp_pair", work, 2, DP_LEG_TIMEOUT)
+    pair = _join_ranks(pair, DP_LEG_TIMEOUT)
     if pair[0]["digests"] != pair[1]["digests"]:
         raise AssertionError(f"leg (b) replicas differ: {pair[0]['digests']} against "
                              f"{pair[1]['digests']}")
@@ -3944,8 +4128,8 @@ def dp_phase(smi, work):
     # phases 12-15's CLI legs run together with the pair's reference and
     # are all collected before the timed legs of phases 13-15
     clis = dict(dp=dp_cli_leg(work), fsdp=fsdp_cli_leg(work), tp=tp_cli_leg(work),
-                pp=pp_cli_leg(work))
-    ref = _run_leg(["dp_pair_ref", work])
+                pp=pp_cli_leg(work), sp=sp_cli_leg(work))
+    ref = _reference(dp_pair_reference_leg, work)
     lap("pair_reference")
     clis = _collect_clis(clis)
     lap("cli_collect")
@@ -3972,7 +4156,7 @@ def dp_phase(smi, work):
     cli = dp_cli_check(clis.pop("dp"))
     log(f"[dp cli] torchrun --standalone --nproc_per_node=1 -m tpu_parallel_torch.train "
         f"--config=gpt2_125m_dp --config.steps={DP_STEPS} --config.global_batch_size="
-        f"{CLI_ROWS} (beside phases 13-15's CLI legs and the pair's reference): exit 0, "
+        f"{CLI_ROWS} (beside phases 13-16's CLI legs and the pair's reference): exit 0, "
         f"collected {cli['wall_s']:.1f} s after its launch; "
         f"topology {cli['topology']}; metrics have train_loss; {cli['stdout_tail']}")
     phase_s = time.perf_counter() - start
@@ -4397,6 +4581,7 @@ def fsdp_phase(smi, work, dp_report, dp_save, cli_collected):
     def lap(name):
         legs_s[name] = time.perf_counter() - start - sum(legs_s.values())
 
+    pair = _spawn_ranks("fsdp_pair", work, 2)
     env = dict(WORLD_SIZE="1", RANK="0", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
                MASTER_PORT=str(_free_port()))
     nccl = _run_leg(["fsdp_nccl"], env=env)
@@ -4427,7 +4612,7 @@ def fsdp_phase(smi, work, dp_report, dp_save, cli_collected):
     log(f"  state per rank: sharded {gib(nccl['state_bytes']['sharded'])}, replicated "
         f"{gib(nccl['state_bytes']['replicated'])}; max memory allocated "
         f"{gib(nccl['max_memory_allocated'])} (DP {gib(dp['max_memory_allocated'])})")
-    pair = _run_ranks("fsdp_pair", work, 2, DP_LEG_TIMEOUT)
+    pair = _join_ranks(pair, DP_LEG_TIMEOUT)
     lap("pair")
     r0 = pair[0]
     if pair[0]["digests"] != pair[1]["digests"]:
@@ -5003,9 +5188,10 @@ def tp_phase(smi, work, cli_collected):
         f"launches per step "
         f"(flash_fwd, "
         f"flash_bwd) {cli['launches_per_step']}; losses {[round(x, 5) for x in cli['losses']]}")
-    ref = _run_leg(["tp_ref", work])
+    pair = _spawn_ranks("tp_pair", work, 2)
+    ref = _reference(tp_reference_leg, work)
     lap("reference")
-    pair = _run_ranks("tp_pair", work, 2, DP_LEG_TIMEOUT)
+    pair = _join_ranks(pair, DP_LEG_TIMEOUT)
     lap("pair")
     r0 = pair[0]
     layers, mb = TP_PAIR_LAYERS, _tp_config().num_minibatches
@@ -5091,6 +5277,9 @@ PP_SHAPE = (PP_ROWS // PP_MICRO, 16, 16, 1024, 64, dict(causal=True), False, 20)
 PP_PROMPT_LENS = (32, 20, 27, 12)  # leg (e)'s ragged prompts, left-padded to 32
 PP_NEW = 32  # new tokens per prompt in leg (e)
 PP_FP32_LAYERS = 4  # leg (e)'s fp32 cut: one layer per rank
+# legs (b)-(e) and their reference run 8 of the 24 layers at full width (one
+# per virtual stage: pipe 4 x interleave 2), for the run's time limit
+PP_PAIR_LAYERS = 8
 PP_LEG_TIMEOUT = 420
 # leg (b) against one process, per weight, relative L2 (the qkv bias's key
 # slice left out): the masters of non-zero init after each step, and each
@@ -5105,7 +5294,11 @@ PP_UPDATE_MAX_TOL = 3e-1
 
 
 def _pp_config(**changes):
-    config, _ = _shell_config("gpt2_350m_pp", seed=SEED, global_batch_size=PP_ROWS, **changes)
+    """``gpt2_350m_pp`` at PP_PAIR_LAYERS layers (legs (b)-(e) and their
+    reference)."""
+    overrides = dict(n_layers=PP_PAIR_LAYERS, **changes.pop("model_overrides", {}))
+    config, _ = _shell_config("gpt2_350m_pp", seed=SEED, global_batch_size=PP_ROWS,
+                              model_overrides=overrides, **changes)
     return config
 
 
@@ -5452,8 +5645,9 @@ def _pp_generate(trainer, mesh, rank):
     """Leg (e).  fp32 (TF32 off) on a PP_FP32_LAYERS-layer cut of GPT-2
     350M (seeded, one layer per rank): greedy ``generate_sharded`` on the
     ragged prompts against static ``generate()`` of one process on the same
-    weights (top-2 rule, rank 0).  bf16 at full depth on (c)'s trained
-    module: ms per token and tokens/s, and a top-k sampled call."""
+    weights (top-2 rule, rank 0).  bf16 on (c)'s trained module
+    (PP_PAIR_LAYERS layers): ms per token and tokens/s, and a top-k
+    sampled call."""
     import dataclasses
 
     from tpu_parallel_torch.models import GPTLM
@@ -5575,6 +5769,7 @@ def pp_phase(smi, work, cli_collected):
     def lap(name):
         legs_s[name] = time.perf_counter() - start - sum(legs_s.values())
 
+    ranks = _spawn_ranks("pp_rank", work, PP_RANKS)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 85)
     rows = dict(fwd=fwd_kernel_row("t_pp_pass", PP_SHAPE, gen),
                 bwd=bwd_kernel_row("t_pp_pass", PP_SHAPE, gen, main_path=True))
@@ -5589,13 +5784,13 @@ def pp_phase(smi, work, cli_collected):
         f"collected in phase 12): exit 0, collected {cli['wall_s']:.1f} s after its launch; "
         f"topology {cli['topology']}; launches per step (flash_fwd, flash_bwd) "
         f"{cli['launches_per_step']}; losses {[round(x, 5) for x in cli['losses']]}")
-    ref = _run_leg(["pp_ref", work])
+    ref = _reference(pp_reference_leg, work)
     lap("reference")
-    ranks = _run_ranks("pp_rank", work, PP_RANKS, PP_LEG_TIMEOUT)
+    ranks = _join_ranks(ranks, PP_LEG_TIMEOUT)
     lap("ranks")
     r0 = ranks[0]
     n, v, m = PP_RANKS, 2, PP_MICRO
-    per_rank_layers = 24 // n
+    per_rank_layers = PP_PAIR_LAYERS // n
     want_launches = [m * per_rank_layers, m * per_rank_layers]
     for p in ranks:
         r = p["rank"]
@@ -5628,7 +5823,8 @@ def pp_phase(smi, work, cli_collected):
     gib = lambda x: f"{x / 2**30:.3f} GiB"
     bubble = (n - 1) / (m * v + n - 1)
     log(f"[pp ranks] {PP_RANKS} gloo processes on cuda:0 ({r0['process_info']}), mesh data=1 x "
-        f"pipe={n}, gpt2_350m_pp ({m} microbatches of [{PP_ROWS // m}, 1024], interleave {v}: "
+        f"pipe={n}, gpt2_350m_pp at {PP_PAIR_LAYERS} of its 24 layers ({m} microbatches of "
+        f"[{PP_ROWS // m}, 1024], interleave {v}: "
         f"rank r holds layers {[p['layers'] for p in ranks]}); free at the start "
         f"{gib(r0['free_bytes_at_start'])}; activations and gradients cross the ranks "
         f"through host buffers (gloo's point-to-point takes no CUDA tensor)")
@@ -5681,7 +5877,7 @@ def pp_phase(smi, work, cli_collected):
     log(f"[pp generate] fp32 (TF32 off, {PP_FP32_LAYERS} layers, seeded) generate_sharded on "
         f"{len(PP_PROMPT_LENS)} ragged prompts {PP_PROMPT_LENS}, {PP_NEW} new: greedy tokens "
         f"equal on every rank, against static generate() of one process on the same weights "
-        f"{g0['fp32_against_generate']}; bf16 full depth on leg (c)'s module "
+        f"{g0['fp32_against_generate']}; bf16 on leg (c)'s module ({PP_PAIR_LAYERS} layers) "
         f"{[round(g['bf16_ms_per_token'], 2) for g in gens]} ms per token, "
         f"{g0['bf16_tokens_per_s']:.1f} tokens/s, (sends, receives) per call "
         f"{[g['p2p_per_call'] for g in gens]}; top-k sampled tokens equal on every rank "
@@ -5695,34 +5891,661 @@ def pp_phase(smi, work, cli_collected):
 
 
 
+# phase 16: sequence parallelism on the card (``gpt2_125m_long`` at the
+# context docs/04_scaling_further.md trains, 32768, over a seq axis of 4 with
+# data 1: four gloo ranks on the one card, each holding [rows, 8192]
+# tokens).  (a) In this process, the chunk wrapper at full width; the chunk
+# kernels' rows.  A one-process reference, then four rank processes for (b)
+# ring and (c) Ulysses attention; (d) the CLI under torchrun (launched and
+# collected in phase 12).
+SP_RANKS = 4
+SP_SEQ = 32768
+SP_LOCAL = SP_SEQ // SP_RANKS
+SP_ROWS = 1  # global batch: one row of SP_SEQ (the run's time limit)
+SP_MINIBATCHES = 1
+SP_STEPS = 3  # one warm-up step, then the timed ones
+SP_WINDOW = 4096  # (a)'s windowed split: one chunk back at most
+SP_LEG_TIMEOUT = 600
+SP_CLI_LAYERS = 2  # (d) runs 2 of the 12 layers at full width (the run's time limit)
+SP_CLI_STEPS = 3
+# the kernels at the ring's chunk shapes (the diagonal, a past chunk, a
+# past chunk straddling the window's edge) and at Ulysses' inner shape
+SP_DIAG_SHAPE = (1, 12, 12, SP_LOCAL, 64, dict(causal=True), False, 10)
+SP_PAST_SHAPE = (1, 12, 12, SP_LOCAL, 64, dict(causal=False), False, 10)
+SP_BAND_SHAPE = (1, 12, 12, SP_LOCAL, 64, dict(causal=False, q_offset=SP_LOCAL,
+                                              window=SP_WINDOW), False, 10)
+SP_ULYSSES_SHAPE = (1, 3, 3, SP_SEQ, 64, dict(causal=True), False, 5)
+SP_PLAIN_SPLIT = 3  # the plain versions at Ulysses' shape, one head at a time
+
+
+def _sp_chunk_kernels(q, k, v, seg, window):
+    """A [B, S, H, D] sequence as SP_RANKS chunks through
+    ``flash_chunk_attention`` (the kernels), each (query chunk, key chunk)
+    pair by the ring's rules (``_chunk_band``: the diagonal causal, past
+    chunks whole or banded, the rest skipped), merged with
+    ``combine_chunks``: ``(out, lse)`` fp32, differentiable."""
+    from tpu_parallel_torch.ops.flash_attention import flash_chunk_attention
+    from tpu_parallel_torch.ops.ring_attention import NEG_INF, _chunk_band, combine_chunks
+
+    b, s, h, d = q.shape
+    c = s // SP_RANKS
+    outs, lses = [], []
+    for i in range(SP_RANKS):
+        out = torch.zeros(b, c, h, d, device=q.device)
+        lse = torch.full((b, h, c), NEG_INF, device=q.device)
+        for j in range(SP_RANKS):
+            band = _chunk_band(i - j, c, SP_RANKS, True, window)
+            if band is None:
+                continue
+            kw = {} if seg is None else dict(segment_ids_q=seg[:, i * c:(i + 1) * c],
+                                             segment_ids_kv=seg[:, j * c:(j + 1) * c])
+            o, part = flash_chunk_attention(
+                q[:, i * c:(i + 1) * c], k[:, j * c:(j + 1) * c], v[:, j * c:(j + 1) * c],
+                causal=band[0], window=band[1], q_offset=band[2], **kw)
+            out, lse = combine_chunks(out, lse, o.float(), part)
+        outs.append(out)
+        lses.append(lse)
+    return torch.cat(outs, 1), torch.cat(lses, 2)
+
+
+def _sp_chunk_plain(q, k, v, seg, window, do):
+    """:func:`_sp_chunk_kernels` on the plain versions: each pair's forward
+    by ``flash_fwd_reference``, the merge differentiated by autograd, each
+    pair's backward by ``flash_bwd_reference`` on the merge's cotangents
+    (``do_c`` rounded to bf16 as the kernel path's cast does, and
+    ``dlse_c``).  Returns ``(out, lse, dq, dk, dv, max |dlse|)``."""
+    from tpu_parallel_torch.ops import flash_attention as fa
+    from tpu_parallel_torch.ops.ring_attention import NEG_INF, _chunk_band, combine_chunks
+
+    b, s, h, d = q.shape
+    c = s // SP_RANKS
+    blk = lambda x, i: x[:, i * c:(i + 1) * c]  # noqa: E731
+    grads = [torch.zeros(x.shape, device=x.device) for x in (q, k, v)]
+    outs, lses, dlse_max = [], [], 0.0
+    for i in range(SP_RANKS):
+        out = torch.zeros(b, c, h, d, device=q.device)
+        lse = torch.full((b, h, c), NEG_INF, device=q.device)
+        parts = []
+        for j in range(SP_RANKS):
+            band = _chunk_band(i - j, c, SP_RANKS, True, window)
+            if band is None:
+                continue
+            seg_kw = (None, None) if seg is None else (blk(seg, i), blk(seg, j))
+            args = (blk(q, i).transpose(1, 2), blk(k, j).transpose(1, 2),
+                    blk(v, j).transpose(1, 2), *seg_kw)
+            opts = dict(causal=band[0], window=band[1], q_offset=band[2])
+            o, part = fa.flash_fwd_reference(*args, **opts)
+            leaves = (o.transpose(1, 2).float().requires_grad_(), part.clone().requires_grad_())
+            parts.append((j, args, opts, o, part, leaves))
+            out, lse = combine_chunks(out, lse, *leaves)
+        cots = torch.autograd.grad(out, [x for p in parts for x in p[5]], blk(do, i).float())
+        for n, (j, args, opts, o, part, _) in enumerate(parts):
+            do_c, dlse_c = cots[2 * n].to(q.dtype).transpose(1, 2), cots[2 * n + 1]
+            dlse_max = max(dlse_max, dlse_c.abs().max().item())
+            with torch.no_grad():
+                dq, dk, dv = fa.flash_bwd_reference(*args, o, part, do_c, dlse=dlse_c, **opts)
+            grads[0][:, i * c:(i + 1) * c] += dq.transpose(1, 2).float()
+            grads[1][:, j * c:(j + 1) * c] += dk.transpose(1, 2).float()
+            grads[2][:, j * c:(j + 1) * c] += dv.transpose(1, 2).float()
+        outs.append(out.detach())
+        lses.append(lse.detach())
+    return torch.cat(outs, 1), torch.cat(lses, 2), *grads, dlse_max
+
+
+def sp_chunk_leg(seed):
+    """(a): one [1, SP_SEQ] sequence of 12 heads of 64 (q, k, v views of a
+    fused [1, S, 12, 192] buffer, as the model's) split into SP_RANKS
+    chunks through the chunk wrapper, plain, under SP_WINDOW and packed:
+    out and lse against one flash call over the whole sequence and against
+    the plain versions through the same merge; the gradients through the
+    merge (the lse cotangent reaching the backward kernel as dlse) against
+    the plain versions', row by row; the pairs' launches."""
+    from tpu_parallel_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 90)
+    out = {}
+    for name, window, packed in (("plain", 0, False), ("window", SP_WINDOW, False),
+                                 ("packed", 0, True)):
+        qkv = torch.randn(1, SP_SEQ, 12, 192, device="cuda", generator=gen).to(torch.bfloat16)
+        do = torch.randn(1, SP_SEQ, 12, 64, device="cuda", generator=gen).to(torch.bfloat16)
+        seg = _packed(1, SP_SEQ, gen) if packed else None
+        leaf = qkv.detach().requires_grad_()
+        before = _launch_counts()
+        got, got_lse = _sp_chunk_kernels(*leaf.split(64, -1), seg, window)
+        got.backward(do.float())
+        torch.cuda.synchronize()
+        launches = [a - b for a, b in zip(_launch_counts(), before)]
+        dq, dk, dv = leaf.grad.split(64, -1)
+        q, k, v = qkv.split(64, -1)
+        with torch.inference_mode():
+            full, full_lse = fa._flash_fwd(q.transpose(1, 2), k.transpose(1, 2),
+                                           v.transpose(1, 2), seg, seg, window=window)
+        p_out, p_lse, pdq, pdk, pdv, dlse_max = _sp_chunk_plain(q, k, v, seg, window, do)
+        full = full.transpose(1, 2).float()
+        live_rows = (full_lse > fa.NEG_INF / 2).transpose(1, 2)
+        live = live_rows[..., None].expand_as(full)
+        got_out = got.detach()
+        out_rule = dict(rtol=OUT_ROW_RTOL, atol=OUT_ROW_ATOL)
+        row = dict(
+            launches=launches,
+            full_out_max_abs_err=(got_out - full).abs()[live].max().item(),
+            full_out_worst_row_ratio=row_error_ratio(got_out[live_rows], full[live_rows],
+                                                     **out_rule),
+            full_lse_max_abs_err=(got_lse - full_lse).abs().max().item(),
+            plain_out_max_abs_err=(got_out - p_out).abs().max().item(),
+            plain_out_worst_row_ratio=row_error_ratio(got_out, p_out, **out_rule),
+            plain_out_rms=p_out.square().mean().sqrt().item(),
+            plain_lse_max_abs_err=(got_lse - p_lse).abs().max().item(),
+            worst_row_ratio={n: row_error_ratio(g, w)
+                             for n, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), (pdq, pdk, pdv))},
+            plain_dlse_max_abs=dlse_max)
+        torch.testing.assert_close(got_out[live], full[live], atol=OUT_TOL, rtol=OUT_TOL)
+        torch.testing.assert_close(got_lse, full_lse, atol=LSE_TOL, rtol=0)
+        torch.testing.assert_close(got_out, p_out, atol=OUT_TOL, rtol=OUT_TOL)
+        torch.testing.assert_close(got_lse, p_lse, atol=LSE_TOL, rtol=0)
+        pairs = sum(1 for i in range(SP_RANKS) for j in range(SP_RANKS)
+                    if _sp_band(i - j, window) is not None)
+        if launches != [pairs, pairs] or max(row["worst_row_ratio"].values()) > 1 \
+                or row["full_out_worst_row_ratio"] > 1 or row["plain_out_worst_row_ratio"] > 1 \
+                or not dlse_max > 0:
+            raise AssertionError(f"(a) {name}: {row}, want {pairs} launches of each kernel")
+        out[name] = row
+        del qkv, do, leaf, got, got_out, got_lse, full, p_out, pdq, pdk, pdv, dq, dk, dv
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _sp_band(j, window):
+    from tpu_parallel_torch.ops.ring_attention import _chunk_band
+
+    return _chunk_band(j, SP_LOCAL, SP_RANKS, True, window)
+
+
+def _sp_config(impl, **changes):
+    config, _ = _shell_config(
+        "gpt2_125m_long", seed=SEED, global_batch_size=SP_ROWS, num_minibatches=SP_MINIBATCHES,
+        model_overrides=dict(seq_len=SP_SEQ, attn_impl=impl), **changes)
+    return config
+
+
+def _sp_batches(vocab, device):
+    """SP_STEPS seeded global batches of [SP_ROWS, SP_SEQ]."""
+    from tpu_parallel_torch.data import lm_batch
+
+    return [lm_batch(torch.Generator().manual_seed(SEED + 95 + i), SP_ROWS, SP_SEQ, vocab,
+                     device=device) for i in range(SP_STEPS)]
+
+
+def _sp_counts():
+    from tpu_parallel_torch.ops import ring_attention, ulysses
+    from tpu_parallel_torch.parallel import dp
+
+    return [ring_attention.sp_ring_send_launches, ring_attention.sp_ring_recv_launches,
+            ulysses.sp_alltoall_launches, dp.dp_allreduce_launches]
+
+
+def _sp_digest(tree):
+    """sha256 of a dict of tensors, in name order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for name in sorted(tree):
+        h.update(tree[name].detach().cpu().float().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def sp_reference_leg(workdir):
+    """One process, no group: ``gpt2_125m_long`` at SP_SEQ with
+    ``attn_impl="flash"``, SP_STEPS steps, the first step's gradients kept;
+    saves the initial masters' digest, the gradients and the losses for
+    legs (b) and (c), with its step times and peak memory."""
+    from tpu_parallel_torch.core.metrics import compute
+    from tpu_parallel_torch.train_lib import Trainer
+
+    t0 = time.perf_counter()
+    trainer = Trainer(_sp_config("flash", mesh=dict(data=1, model=1, pipe=1, seq=1)),
+                      device="cuda")
+    if trainer.mesh is not None:
+        raise AssertionError("the one-process reference runs on a mesh")
+    state = trainer.init()
+    init_s = time.perf_counter() - t0
+    batches = _sp_batches(trainer.model_config.vocab_size, "cuda")
+    digest = _sp_digest(state.params)
+    grads = _first_synced_grads(state)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = trainer.step_fn(state, None, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(compute(metrics)["loss"])
+    peak = torch.cuda.max_memory_allocated()
+    state_bytes = _state_bytes(state)
+    del trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.save(dict(digest=digest, grads=grads, losses=losses), Path(workdir, "sp_ref.pt"))
+    return dict(losses=losses, step_host_ms=step_ms, max_memory_allocated=peak,
+                state_bytes=state_bytes, init_s=init_s)
+
+
+def _sp_run(impl, mesh, ref, rank):
+    """One of legs (b) and (c) in a rank: ``gpt2_125m_long`` at SP_SEQ with
+    ``attn_impl=impl`` over the data=1 x seq=SP_RANKS mesh, from the
+    reference's init (its digest): SP_STEPS counted steps (the main path:
+    the launch counters set to 0 first) with each step's launches, ring
+    sends and receives, all-to-alls and gradient all-reduces, the masters'
+    digest after each, its wall ms; the first step's synced gradients (as
+    the optimizer receives them) against the reference's; state bytes and
+    peak memory."""
+    from tpu_parallel_torch.core.metrics import compute
+    from tpu_parallel_torch.train_lib import Trainer
+
+    start_s, legs_s = time.perf_counter(), {}
+
+    def lap(name):
+        legs_s[name] = time.perf_counter() - start_s - sum(legs_s.values())
+
+    trainer = Trainer(_sp_config(impl, mesh=dict(data=1, model=1, pipe=1, seq=SP_RANKS)), mesh,
+                      device="cuda:0")
+    state = trainer.init()
+    cfg = trainer.model_config
+    if trainer.batch_spec != ("data", "seq") or _sp_digest(state.params) != ref["digest"]:
+        raise AssertionError(f"{impl} rank {rank}: batch spec {trainer.batch_spec} or the "
+                             "initial masters differ from one process's")
+    batches = [trainer.local_rows(b) for b in _sp_batches(cfg.vocab_size, "cuda:0")]
+    if tuple(batches[0].tokens.shape) != (SP_ROWS, SP_LOCAL):
+        raise AssertionError(f"{impl} rank {rank}: local batch {tuple(batches[0].tokens.shape)}")
+    lap("init")
+    synced = _first_synced_grads(state)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()  # the main path starts here
+    losses, per_step, comm, step_ms, digests = [], [], [], [], []
+    for i, batch in enumerate(batches):
+        before, cbefore = _launch_counts(), _sp_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = trainer.step_fn(state, None, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        per_step.append([a - b for a, b in zip(_launch_counts(), before)])
+        comm.append([a - b for a, b in zip(_sp_counts(), cbefore)])
+        losses.append(compute(metrics)["loss"])
+        digests.append(_sp_digest(state.params))
+        lap(f"step{i + 1}")
+    launches = dict(zip(LAUNCH_COUNTERS, _launch_counts()))
+    grad_rel = _rel_by_weight(cfg, synced, ref["grads"])
+    worst = max(grad_rel.items(), key=lambda kv: kv[1])
+    result = dict(
+        losses=losses, ref_losses=ref["losses"],
+        loss_diffs=[abs(a - b) for a, b in zip(losses, ref["losses"])],
+        launches_per_step=per_step, comm_per_step=comm, launches=launches,
+        step_host_ms=step_ms, digests=digests, step1_grad_rel_max=worst,
+        step1_grad_rel_median=sorted(grad_rel.values())[len(grad_rel) // 2],
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        state_bytes=sum(_state_bytes(state).values()), legs_s=legs_s, n_layers=cfg.n_layers)
+    if max(result["loss_diffs"]) > LOSS_TOL or worst[1] > TRAIN_GRAD_TOL:
+        raise AssertionError(f"{impl} rank {rank} disagrees with one process: "
+                             f"{ {k: v for k, v in result.items() if k != 'digests'} }")
+    del trainer, state, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+def _first_synced_grads(state):
+    """A dict that receives a host copy of the synced gradients of the
+    state's next step, as ``apply_gradients`` receives them (the step-1
+    gradients without a pass of their own)."""
+    snapshot = {}
+    apply = state.apply_gradients
+
+    def apply_and_keep(grads, *args, **kwargs):
+        if not snapshot:
+            snapshot.update(_host(grads))
+        return apply(grads, *args, **kwargs)
+
+    state.apply_gradients = apply_and_keep
+    return snapshot
+
+
+def _sp_exchange_ms(mesh):
+    """Host ms of one ring hop (every rank sends a [2, 1, SP_LOCAL, 12, 64]
+    bf16 K/V buffer to the next and receives one, through the host) and of
+    one Ulysses all-to-all of a [1, SP_LOCAL, 12, 64] bf16 activation,
+    each averaged over 5 after one warm-up, and their bytes per rank."""
+    import torch.distributed as dist
+
+    from tpu_parallel_torch.ops import ring_attention, ulysses
+    from tpu_parallel_torch.runtime.comm import group_name
+
+    group = group_name(mesh.get_group("seq"))
+    kv = torch.randn(2, 1, SP_LOCAL, 12, 64, device="cuda:0").to(torch.bfloat16)
+    x = kv[0]
+    out = {}
+    for name, fn in (("hop", lambda: ring_attention._rotate(group, [kv])),
+                     ("alltoall", lambda: ulysses._all_to_all_op(x, group, True))):
+        dist.barrier()
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        out[f"{name}_host_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+    out.update(hop_bytes=kv.numel() * kv.element_size(), alltoall_bytes=x.numel() * 2)
+    return out
+
+
+def _sp_ring_op(mesh):
+    """The ring op alone on this rank: a seeded [1, SP_SEQ] sequence of 12
+    heads of 64 (q, k, v views of a fused qkv buffer; every rank draws it
+    whole from one seed), this rank's block through ``ring_flash_attention``
+    forward and backward (the backward the model runs: each chunk's kernel
+    on the final out and lse, dk and dv travelling home in bf16), against
+    one ``flash_attention`` call over the whole sequence (its kernels held
+    to the plain versions at Ulysses' [1, SP_SEQ] shape): the block's out,
+    dq, dk and dv by the row rules, the kernels' launches, the ring's sends
+    and receives."""
+    from tpu_parallel_torch.ops import ring_attention
+    from tpu_parallel_torch.ops.flash_attention import flash_attention
+
+    c = mesh.get_local_rank("seq")
+    gen = torch.Generator(device="cuda:0").manual_seed(SEED + 92)
+    qkv = torch.randn(1, SP_SEQ, 12, 192, device="cuda:0", generator=gen).to(torch.bfloat16)
+    do = torch.randn(1, SP_SEQ, 12, 64, device="cuda:0", generator=gen).to(torch.bfloat16)
+    whole = qkv.detach().requires_grad_()
+    want = flash_attention(*whole.split(64, -1))
+    want.backward(do)
+    block = slice(c * SP_LOCAL, (c + 1) * SP_LOCAL)
+    local = qkv[:, block].detach().requires_grad_()
+    before, cbefore = _launch_counts(), _sp_counts()
+    got = ring_attention.ring_flash_attention(*local.split(64, -1), mesh=mesh)
+    got.backward(do[:, block])
+    torch.cuda.synchronize()
+    launches = [a - b for a, b in zip(_launch_counts(), before)]
+    hops = [a - b for a, b in zip(_sp_counts()[:2], cbefore[:2])]
+    ratios = dict(out=row_error_ratio(got, want[:, block], OUT_ROW_RTOL, OUT_ROW_ATOL))
+    ratios.update({n: row_error_ratio(g, w) for n, g, w in zip(
+        ("dq", "dk", "dv"), local.grad.split(64, -1), whole.grad[:, block].split(64, -1))})
+    result = dict(worst_row_ratio=ratios, launches=launches, sends_receives=hops,
+                  out_rms=want[:, block].float().square().mean().sqrt().item())
+    # the diagonal and c past chunks; 3 hops of K/V forward, 3 of K, V, dk,
+    # dv backward and 1 taking dk, dv home
+    if max(ratios.values()) > 1 or launches != [c + 1] * 2 or hops != [7, 7]:
+        raise AssertionError(f"the ring op on seq rank {c} against one flash call: {result}")
+    del qkv, do, whole, want, local, got
+    torch.cuda.empty_cache()
+    return result
+
+
+def sp_rank_leg(rank, rendezvous, workdir):
+    """Legs (b) and (c), one of SP_RANKS gloo ranks on the one card over a
+    data=1 x seq=SP_RANKS mesh: :func:`_sp_run` with ring attention, then
+    with Ulysses in the same process; the exchanges' host ms; the ring op
+    alone against one flash call (:func:`_sp_ring_op`)."""
+    import torch.distributed as dist
+
+    from tpu_parallel_torch.runtime import MeshConfig, initialize, make_mesh, process_info
+
+    initialize(rendezvous, SP_RANKS, rank, backend="gloo", device="cuda:0")
+    _share_cores(SP_RANKS)
+    result = dict(rank=rank, process_info=process_info(),
+                  free_bytes_at_start=torch.cuda.mem_get_info()[0])
+    mesh = make_mesh(MeshConfig(data=1, seq=SP_RANKS))
+    result["seq_coord"] = mesh.get_local_rank("seq")
+    ref = torch.load(Path(workdir, "sp_ref.pt"), weights_only=True, mmap=True)
+    result["ring"] = _sp_run("ring", mesh, ref, rank)
+    result["ulysses"] = _sp_run("ulysses", mesh, ref, rank)
+    result["exchange"] = _sp_exchange_ms(mesh)
+    result["ring_op"] = _sp_ring_op(mesh)
+    del ref
+    dist.barrier()
+    dist.destroy_process_group()
+    return result
+
+
+def sp_cli_rank_leg(metrics):
+    """Leg (d)'s rank, under torchrun (SP_RANKS processes): ``tpu_parallel_torch.
+    train``'s ``main`` on ``--config=gpt2_125m_long`` with a seq axis of
+    SP_RANKS, ring attention, ``seq_len`` SP_SEQ at SP_CLI_LAYERS layers, one
+    row, over gloo on ``cuda:0``, with each step's launches and loss."""
+    from tpu_parallel_torch import train
+    from tpu_parallel_torch.core.metrics import accumulate_metrics, compute
+    from tpu_parallel_torch.train_lib import Trainer
+
+    per_step, losses = [], []
+    real_step = Trainer.step_fn
+
+    def step(self, state, metrics, batch):
+        before = _launch_counts()
+        state, step_metrics = real_step(self, state, None, batch)
+        per_step.append([a - b for a, b in zip(_launch_counts(), before)])
+        losses.append(compute(step_metrics)["loss"])
+        return state, accumulate_metrics(metrics, step_metrics)
+
+    Trainer.step_fn = step
+    _share_cores(SP_RANKS)
+    _reset_launches()  # the main path starts here
+    code = train.main(["--config=gpt2_125m_long", "--config.mesh.data=1",
+                       f"--config.mesh.seq={SP_RANKS}", "--config.model_overrides.attn_impl=ring",
+                       f"--config.model_overrides.seq_len={SP_SEQ}",
+                       f"--config.model_overrides.n_layers={SP_CLI_LAYERS}",
+                       "--config.global_batch_size=1", "--config.num_minibatches=1",
+                       f"--config.steps={SP_CLI_STEPS}", "--config.log_every=1",
+                       f"--metrics-out={metrics}", "--device=cuda:0", "--backend=gloo"])
+    import os
+
+    result = dict(exit=code, rank=int(os.environ["RANK"]), launches_per_step=per_step,
+                  losses=losses, launches=dict(zip(LAUNCH_COUNTERS, _launch_counts())))
+    # the ranks share torchrun's stdout: each writes its result to a file
+    Path(metrics).with_name(f"sp_cli_rank{result['rank']}.json").write_text(json.dumps(result))
+    return result
+
+
+def sp_cli_leg(work):
+    """Leg (d), launched: ``python -m torch.distributed.run --standalone
+    --nproc_per_node=SP_RANKS`` over this script's ``sp_cli_rank`` leg;
+    :func:`sp_cli_check` holds it."""
+    metrics = Path(work, "sp_metrics.prom")
+    cmd = _torchrun(str(Path(__file__).resolve()), "--leg", "sp_cli_rank", str(metrics))
+    cmd[cmd.index("--nproc_per_node=1")] = f"--nproc_per_node={SP_RANKS}"
+    return _launch(cmd), metrics
+
+
+def sp_cli_check(collected):
+    """Leg (d): exit 0 on every rank, one topology line (SP_RANKS processes,
+    gloo); per step, rank r launches each kernel (r + 1) x SP_CLI_LAYERS
+    times (the diagonal and r past chunks per layer, the proj_attn policy
+    keeping the ring's output); a falling loss, equal on every rank;
+    ``train_loss`` in the metrics."""
+    (out, wall), metrics = collected
+    topology = [json.loads(line[len("topology: "):]) for line in out.splitlines()
+                if line.startswith("topology: ")]
+    if len(topology) != 1 or topology[0]["process_count"] != SP_RANKS \
+            or topology[0]["backend"] != "gloo":
+        raise AssertionError(f"CLI topology lines {topology}")
+    ranks = [json.loads(metrics.with_name(f"sp_cli_rank{r}.json").read_text())
+             for r in range(SP_RANKS)]
+    for r in ranks:
+        want = [(r["rank"] + 1) * SP_CLI_LAYERS] * 2
+        if r["exit"] != 0 or r["launches_per_step"] != [want] * SP_CLI_STEPS \
+                or r["losses"] != ranks[0]["losses"]:
+            raise AssertionError(f"leg (d) rank {r['rank']}: {r}, want launches {want}")
+    _falls("leg (d)", ranks[0]["losses"])
+    if "train_loss" not in metrics.read_text():
+        raise AssertionError("CLI metrics without train_loss")
+    return dict(wall_s=wall, topology=topology[0], losses=ranks[0]["losses"],
+                launches_per_step=[r["launches_per_step"][0] for r in ranks])
+
+
+def sp_phase(smi, work, cli_collected):
+    """Phase 16: (a) the chunk wrapper at full width and the chunk kernels'
+    rows, then legs (b)-(d) in the directory ``work``.  Returns the report,
+    the kernels' rows and the launches of the main paths of (b) (by chunk
+    shape, past and diagonal, every rank's summed) and (c) (rank 0's)."""
+    start = time.perf_counter()
+    legs_s = {}
+
+    def lap(name):
+        legs_s[name] = time.perf_counter() - start - sum(legs_s.values())
+
+    ranks = _spawn_ranks("sp_rank", work, SP_RANKS)
+    chunk = sp_chunk_leg(SEED)
+    for name, row in chunk.items():
+        log(f"[sp chunk {name}] [1, {SP_SEQ}] x 12 heads of 64 (views of a fused qkv) as "
+            f"{SP_RANKS} chunks of {SP_LOCAL} by the ring's rules"
+            + (f", window {SP_WINDOW}" if name == "window" else "")
+            + (", packed (3 segments per row)" if name == "packed" else "")
+            + f": (flash_fwd, flash_bwd) launches {row['launches']}; against one flash call: "
+            f"out max abs err {row['full_out_max_abs_err']:.3e} (worst row "
+            f"{row['full_out_worst_row_ratio']:.3f} of its limit), lse "
+            f"{row['full_lse_max_abs_err']:.3e}; against the plain versions through the same "
+            f"merge: out {row['plain_out_max_abs_err']:.3e} (worst row "
+            f"{row['plain_out_worst_row_ratio']:.3f}; plain out rms {row['plain_out_rms']:.3e}), "
+            f"lse {row['plain_lse_max_abs_err']:.3e} (atol {OUT_TOL} / {LSE_TOL}; rows "
+            f"{OUT_ROW_RTOL} * ||row|| + {OUT_ROW_ATOL} * rms row norm); gradients "
+            "through the merge, worst row over its limit "
+            + ", ".join(f"{g} {r:.3f}" for g, r in row["worst_row_ratio"].items())
+            + f" (max |dlse| of a pair {row['plain_dlse_max_abs']:.3e})")
+    lap("chunk_wrapper")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 91)
+    rows = {}
+    for name, shape, split in (("ring_diag", SP_DIAG_SHAPE, 1), ("ring_past", SP_PAST_SHAPE, 1),
+                               ("ring_band", SP_BAND_SHAPE, 1),
+                               ("ulysses", SP_ULYSSES_SHAPE, SP_PLAIN_SPLIT)):
+        rows[f"{name}_fwd"] = fwd_kernel_row(f"t_sp_{name}", shape, gen, plain_split=split,
+                                             plant=True)
+        rows[f"{name}_bwd"] = bwd_kernel_row(f"t_sp_{name}", shape, gen, main_path=True,
+                                             plain_split=split)
+        gc.collect()
+        torch.cuda.empty_cache()
+    lap("kernels")
+    cli = sp_cli_check(cli_collected)
+    log(f"[sp cli] torchrun --standalone --nproc_per_node={SP_RANKS} over -m "
+        f"tpu_parallel_torch.train's main --config=gpt2_125m_long --config.mesh.data=1 "
+        f"--config.mesh.seq={SP_RANKS} --config.model_overrides.attn_impl=ring "
+        f"--config.model_overrides.seq_len={SP_SEQ} --config.model_overrides.n_layers="
+        f"{SP_CLI_LAYERS} --config.global_batch_size=1 --config.num_minibatches=1 "
+        f"--config.steps={SP_CLI_STEPS} --device=cuda:0 --backend=gloo (started and collected "
+        f"in phase 12): exit 0 on every rank, collected {cli['wall_s']:.1f} s after its launch; "
+        f"topology {cli['topology']}; launches per step (flash_fwd, flash_bwd) by rank "
+        f"{cli['launches_per_step']}; losses {[round(x, 5) for x in cli['losses']]}")
+    ref = _reference(sp_reference_leg, work)
+    lap("reference")
+    ranks = _join_ranks(ranks, SP_LEG_TIMEOUT)
+    lap("ranks")
+    layers, m = ranks[0]["ring"]["n_layers"], SP_MINIBATCHES
+    # per layer and minibatch: the ring forward's 3 hops of K and V, the
+    # backward's 3 of K, V and their gradients and 1 of the gradients home
+    # (the proj_attn recompute keeps the ring's output); Ulysses' 4
+    # all-to-alls in the forward and 4 in the backward (kept, likewise)
+    want_comm = dict(ring=[7 * layers * m, 7 * layers * m, 0, 1],
+                     ulysses=[0, 0, 8 * layers * m, 1])
+    for p in ranks:
+        c = p["seq_coord"]
+        for impl, want_launch in (("ring", (c + 1) * layers * m), ("ulysses", layers * m)):
+            run = p[impl]
+            if run["launches_per_step"] != [[want_launch] * 2] * SP_STEPS \
+                    or run["comm_per_step"] != [want_comm[impl]] * SP_STEPS:
+                raise AssertionError(f"({impl}) rank {p['rank']}: launches per step "
+                                     f"{run['launches_per_step']}, (sends, receives, "
+                                     f"all-to-alls, all-reduces) {run['comm_per_step']}, want "
+                                     f"{want_launch} and {want_comm[impl]}")
+    for impl in ("ring", "ulysses"):
+        if any(p[impl]["digests"] != ranks[0][impl]["digests"] for p in ranks):
+            raise AssertionError(f"({impl}): the replicated masters differ across the ranks")
+        if any(p[impl]["losses"] != ranks[0][impl]["losses"] for p in ranks):
+            raise AssertionError(f"({impl}): the ranks' synced losses differ")
+    gib = lambda x: f"{x / 2**30:.3f} GiB"  # noqa: E731
+    r0 = ranks[0]
+    ex = [p["exchange"] for p in ranks]
+    log(f"[sp ranks] {SP_RANKS} gloo processes on cuda:0 ({r0['process_info']}), mesh data=1 x "
+        f"seq={SP_RANKS}, gpt2_125m_long at seq_len {SP_SEQ}: {SP_ROWS} rows in {m} "
+        f"minibatches, each rank [1, {SP_LOCAL}] per minibatch; free at the start "
+        f"{gib(r0['free_bytes_at_start'])}; one process: losses "
+        f"{[round(x, 5) for x in ref['losses']]}, step host ms "
+        f"{[round(x, 1) for x in ref['step_host_ms']]}, state {gib(sum(ref['state_bytes'].values()))}, "
+        f"max memory allocated {gib(ref['max_memory_allocated'])}, init {ref['init_s']:.1f} s")
+    for impl in ("ring", "ulysses"):
+        runs = [p[impl] for p in ranks]
+        medians = [f"{r['step1_grad_rel_median']:.3e}" for r in runs]
+        worsts = [(r["step1_grad_rel_max"][0], f"{r['step1_grad_rel_max'][1]:.3e}") for r in runs]
+        diffs = [f"{x:.2e}" for x in runs[0]["loss_diffs"]]
+        log(f"[sp {impl}] launches per step (flash_fwd, flash_bwd) by rank "
+            f"{[r['launches_per_step'][0] for r in runs]}; (ring sends, receives, all-to-alls, "
+            f"gradient all-reduces) per step {runs[0]['comm_per_step'][0]}; replicated masters "
+            f"bitwise equal across the ranks after every step; losses "
+            f"{[round(x, 5) for x in runs[0]['losses']]} against one process's (|diff| "
+            f"{diffs}, tol {LOSS_TOL}); step-1 synced gradients relative L2 per weight, by "
+            f"rank, median {medians} max {worsts} (tol {TRAIN_GRAD_TOL})")
+        log(f"  step host ms by rank {[[round(x, 1) for x in r['step_host_ms']] for r in runs]} "
+            f"(the first a warm-up) against one process's "
+            f"{[round(x, 1) for x in ref['step_host_ms']]}; state "
+            f"{[gib(r['state_bytes']) for r in runs]}, max memory allocated in a step "
+            f"{[gib(r['max_memory_allocated']) for r in runs]}; legs' seconds "
+            f"{[{k: round(v, 1) for k, v in r['legs_s'].items()} for r in runs]}")
+    log(f"[sp ring op] ring_flash_attention on each rank's [1, {SP_LOCAL}] block of a seeded "
+        f"[1, {SP_SEQ}] x 12 heads sequence, forward and backward, against one flash_attention "
+        f"call over the whole sequence: worst row over its limit by rank "
+        f"{[{k: round(v, 3) for k, v in p['ring_op']['worst_row_ratio'].items()} for p in ranks]} "
+        f"(out {OUT_ROW_RTOL} * ||row|| + {OUT_ROW_ATOL} * rms row norm, gradients {GRAD_RTOL} / "
+        f"{GRAD_ATOL}; out rms {[round(p['ring_op']['out_rms'], 4) for p in ranks]}); "
+        f"(flash_fwd, flash_bwd) launches {[p['ring_op']['launches'] for p in ranks]}, (sends, "
+        f"receives) {[p['ring_op']['sends_receives'] for p in ranks]}")
+    log(f"[sp exchanges] one ring hop (a {ex[0]['hop_bytes']}-byte K/V buffer through the host) "
+        f"{[round(e['hop_host_ms'], 2) for e in ex]} host ms by rank; one all-to-all of "
+        f"{ex[0]['alltoall_bytes']} bytes per rank {[round(e['alltoall_host_ms'], 2) for e in ex]} "
+        f"host ms by rank")
+    phase_s = time.perf_counter() - start
+    log(f"[sp] phase 16 took {phase_s:.1f} s ("
+        + ", ".join(f"{k} {v_:.1f}" for k, v_ in legs_s.items()) + ")")
+    log(f"card: {smi}")
+    # the ring's launches by chunk shape, summed over the ranks: rank r
+    # runs per layer its diagonal chunk and r past ones (its per-step counts
+    # are held to (r + 1) x layers above), so a (r + 1)-th of its launches
+    # are diagonal and the rest past
+    diag = {name: sum(p["ring"]["launches"][name] // (p["seq_coord"] + 1) for p in ranks)
+            for name in LAUNCH_COUNTERS}
+    past = {name: sum(p["ring"]["launches"][name] for p in ranks) - diag[name]
+            for name in LAUNCH_COUNTERS}
+    return (dict(chunk=chunk, cli=cli, reference=ref, ranks=ranks, phase_s=phase_s,
+                 legs_s=legs_s), rows, dict(past=past, diagonal=diag), r0["ulysses"]["launches"])
+
+
 def leg_main(argv):
-    """``chip_smoke.py --leg <name> ...``: one leg of phases 12-15 in
+    """``chip_smoke.py --leg <name> ...``: one leg of phases 12-16 in
     this process; prints its result as one ``dp-leg-result:`` JSON line."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name, rest = argv[0], argv[1:]
+    if name in RANK_LEGS:
+        _wait_to_run(name, rest[2])
     if name == "dp_nccl":
         result = dp_nccl_leg()
     elif name == "dp_pair":
         result = dp_pair_leg(int(rest[0]), rest[1], rest[2])
-    elif name == "dp_pair_ref":
-        result = dp_pair_reference_leg(rest[0])
     elif name == "fsdp_nccl":
         result = fsdp_nccl_leg()
     elif name == "fsdp_pair":
         result = fsdp_pair_leg(int(rest[0]), rest[1], rest[2])
     elif name == "tp_cli_rank":
         result = tp_cli_rank_leg(rest[0])
-    elif name == "tp_ref":
-        result = tp_reference_leg(rest[0])
     elif name == "tp_pair":
         result = tp_pair_leg(int(rest[0]), rest[1], rest[2])
     elif name == "pp_cli_rank":
         result = pp_cli_rank_leg(rest[0])
-    elif name == "pp_ref":
-        result = pp_reference_leg(rest[0])
     elif name == "pp_rank":
         result = pp_rank_leg(int(rest[0]), rest[1], rest[2])
+    elif name == "sp_cli_rank":
+        result = sp_cli_rank_leg(rest[0])
+    elif name == "sp_rank":
+        result = sp_rank_leg(int(rest[0]), rest[1], rest[2])
     else:
         raise SystemExit(f"unknown leg {name!r}")
     print(DP_RESULT + json.dumps(result), flush=True)
@@ -5735,9 +6558,18 @@ def main():
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    clock = [time.perf_counter()]
+
+    def took(phases):
+        """Log the seconds since the last call: the run's time by phase."""
+        now = time.perf_counter()
+        log(f"[time] {phases} took {now - clock[0]:.1f} s")
+        clock[0] = now
+
     smi = setup()
     kernel_rows = kernel_phase(SEED)
     bwd_rows = backward_kernel_phase(SEED)
+    took("phases 1-2b (build, kernels)")
 
     from tpu_parallel_torch.ops import flash_attention as fa
 
@@ -5752,15 +6584,21 @@ def main():
     profile_phase(model, SEED)
     del model
     torch.cuda.empty_cache()
+    took("phases 3-5 (inference, profiles)")
     launches, train = train_phase(SEED, smi.split(",")[0].strip())
     if not all(launches.values()):
         raise AssertionError(f"the training path left a kernel unlaunched: {launches}")
+    took("phase 6 (training)")
     for name in LAUNCH_COUNTERS:  # the serving main path starts here
         setattr(fa, name, 0)
     serve, serve_tokens = serve_phase(SEED, smi)
+    took("phase 7 (serving)")
     kv = hier_phase(SEED, smi)
+    took("phase 8 (KV hierarchy)")
     spec, spec_tokens = spec_phase(SEED, smi)
+    took("phase 9 (speculative decoding)")
     extras = extras_phase(SEED, smi, serve_tokens, spec_tokens)
+    took("phase 10 (decode extras)")
     serve_launches = {name: getattr(fa, name) for name in LAUNCH_COUNTERS}
     if any(serve_launches.values()):
         raise AssertionError(f"the serving path launched flash kernels: {serve_launches}")
@@ -5793,6 +6631,15 @@ def main():
         pp_report, pp_rows, pp_launches = pp_phase(smi, work, clis["pp"])
         if not all(pp_launches.values()):
             raise AssertionError(f"the training_pp path left a kernel unlaunched: {pp_launches}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        sp_report, sp_rows, sp_ring_launches, sp_ulysses_launches = sp_phase(
+            smi, work, clis["sp"])
+        for path, counts in (("training_sp_ring", sp_ring_launches["past"]),
+                             ("training_sp_ring_diagonal", sp_ring_launches["diagonal"]),
+                             ("training_sp_ulysses", sp_ulysses_launches)):
+            if not all(counts.values()):
+                raise AssertionError(f"the {path} path left a kernel unlaunched: {counts}")
     finally:
         _kill_launched()
         shutil.rmtree(work, ignore_errors=True)
@@ -5874,12 +6721,34 @@ def main():
         for kind, row, replaces in (
             ("fwd", pp_rows["fwd"], "tpu_parallel/ops/flash_attention.py:240"),
             ("bwd", pp_rows["bwd"], "tpu_parallel/ops/flash_attention.py:464,563"))
+    ] + [
+        # phase 16: the ring's chunks [1, 8192] x 12 heads (past chunks run
+        # the full kernel, diagonal chunks the causal one: rank r runs the
+        # diagonal and r past chunks per layer; each row's launches those of
+        # its shape, summed over the four ranks of (b)), and Ulysses' inner
+        # call [1, 32768] x 3 heads (rank 0's launches, as every rank's)
+        dict(name=f"flash_{kind}", route="cuda", source=f"tpu_parallel_torch/csrc/flash_{kind}.cu",
+             replaces=replaces, path=path, shape=sp_rows[f"{shape}_{kind}"]["shape"],
+             launches=counts[f"flash_{kind}_launches"],
+             max_abs_err=sp_rows[f"{shape}_{kind}"]["max_abs_err"],
+             ms=sp_rows[f"{shape}_{kind}"]["ms"], plain_ms=sp_rows[f"{shape}_{kind}"]["plain_ms"],
+             bound_ms=sp_rows[f"{shape}_{kind}"]["bound_ms"],
+             bound_by=sp_rows[f"{shape}_{kind}"]["bound_by"],
+             library_ms=sp_rows[f"{shape}_{kind}"]["library_ms"])
+        for path, shape, counts in (("training_sp_ring", "ring_past", sp_ring_launches["past"]),
+                                    ("training_sp_ring_diagonal", "ring_diag",
+                                     sp_ring_launches["diagonal"]),
+                                    ("training_sp_ulysses", "ulysses", sp_ulysses_launches))
+        for kind, replaces in (
+            ("fwd", "tpu_parallel/ops/flash_attention.py:296"),
+            ("bwd", "tpu_parallel/ops/flash_attention.py:512,635"))
     ]}
     summary = dict(card=smi, forward=fwd, generate=gen, train=train, serve=serve, kv=kv,
                    spec=spec, decode_extras=extras, trainer_shell=shell, data_parallel=dp_report,
                    fsdp=fsdp_report, tensor_parallel=tp_report,
                    tensor_parallel_kernel_shapes=tp_rows, pipeline_parallel=pp_report,
-                   pipeline_parallel_kernel_shapes=pp_rows,
+                   pipeline_parallel_kernel_shapes=pp_rows, sequence_parallel=sp_report,
+                   sequence_parallel_kernel_shapes=sp_rows,
                    inference_flash_fwd_launches=inference_launches,
                    kernel_shapes=kernel_rows, bwd_kernel_shapes=bwd_rows,
                    trainer_shell_kernel_shapes=shell_rows, data_parallel_kernel_shapes=dp_rows)

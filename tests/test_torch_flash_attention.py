@@ -9,10 +9,12 @@ another order and block split).
 import importlib
 import warnings
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.utils._python_dispatch
 
 # one torch intra-op thread per test process: under pytest-xdist several
 # processes share the cores, and torch's default (a thread per core in each)
@@ -183,3 +185,103 @@ def test_wrapper_rejects_bad_arguments():
         tfa._flash_fwd(q, k, k, seg, None)
     with pytest.raises(ValueError, match="cuda or cpu"):
         tfa._flash_fwd(q.to("meta"), k.to("meta"), k.to("meta"))
+
+
+# -- the chunk wrapper (ring attention's partials) ------------------------------
+
+
+def _bshd(seed, b, s, h, d):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal((b, s, h, d), dtype=np.float32) for _ in range(3))
+
+
+def test_stream_chunk_attention_combines():
+    """``tests/test_flash_attention.py:467``: flash_chunk_attention with
+    ``stream`` True and False gives one result (one CUDA kernel serves
+    both), and it is JAX's streamed chunk's."""
+    q, k, v = _bshd(21, 1, 128, 2, 32)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    got = [tfa.flash_chunk_attention(tq, tk, tv, causal=False, block_q=64, block_k=64,
+                                     stream=stream) for stream in (False, True)]
+    for a, b in zip(*got):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+    out_j, lse_j = jfa.flash_chunk_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=False, block_q=64, block_k=64,
+        interpret=True, stream=True)
+    np.testing.assert_allclose(got[1][0].numpy(), np.asarray(out_j), **TOL)
+    np.testing.assert_allclose(got[1][1].numpy(), np.asarray(lse_j), **TOL)
+
+
+@pytest.mark.parametrize("q_offset", [32, 100, 140, -32, -100, -140])
+def test_stream_offset_chunk_matches_resident(q_offset):
+    """``tests/test_flash_attention.py:531``: a windowed chunk at a signed
+    ``q_offset`` (the ring's partial chunks), out, lse and the gradients of
+    cotangents (1 on out, 0.1 on lse: the lse cotangent reaches the
+    backward as ``dlse``) against JAX's; rows that see no key (at 140, past
+    local index 26) are empty partials (out 0, lse NEG_INF) with zero
+    gradients."""
+    q, k, v = _bshd(22, 1, 128, 2, 32)
+
+    def jax_f(q, k, v):
+        return jfa.flash_chunk_attention(q, k, v, causal=False, window=40, q_offset=q_offset,
+                                         block_q=32, block_k=32, interpret=True)
+
+    (out_j, lse_j), vjp = jax.vjp(jax_f, *map(jnp.asarray, (q, k, v)))
+    grads_j = vjp((jnp.ones_like(out_j), jnp.ones_like(lse_j) * 0.1))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out, lse = tfa.flash_chunk_attention(tq, tk, tv, causal=False, window=40, q_offset=q_offset,
+                                         block_q=32, block_k=32)
+    torch.autograd.backward((out, lse), (torch.ones_like(out), torch.full_like(lse, 0.1)))
+    _assert_matches_jax(out.detach().transpose(1, 2), lse.detach(),
+                        np.asarray(out_j).transpose(0, 2, 1, 3), lse_j)
+    for got, want, name in zip((tq.grad, tk.grad, tv.grad), grads_j, "qkv"):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL,
+                                   err_msg=f"d{name} (q_offset={q_offset})")
+    empty = lse.detach() <= tfa.NEG_INF / 2
+    if q_offset == 140:
+        assert empty[:, :, 27:].all() and not empty[:, :, :27].any()
+        assert (tq.grad.transpose(1, 2)[empty] == 0).all()
+
+
+class _CountOp(torch.utils._python_dispatch.TorchDispatchMode):
+    def __init__(self, op):
+        super().__init__()
+        self.op, self.calls = op, 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.calls += func is self.op
+        return func(*args, **(kwargs or {}))
+
+
+def test_remat_policy_sees_kernel_outputs():
+    """``tests/test_flash_attention.py:577``: the chunk path's out and lse
+    are the forward op's own outputs, so a checkpoint that keeps "attn"
+    keeps them and the backward runs no forward kernel again (one forward,
+    one backward op), while one that keeps nothing runs the forward twice;
+    the same for the self-attention path.  Gradients equal either way."""
+    from torch.utils.checkpoint import checkpoint
+
+    from tpu_parallel_torch.models import tiny_test
+    from tpu_parallel_torch.models.layers import remat_kwargs_for
+
+    q, k, v = _bshd(23, 1, 64, 1, 16)
+
+    def chunk_block(q, k, v):
+        out, lse = tfa.flash_chunk_attention(q, k, v, causal=True, block_q=32, block_k=32)
+        return (out * 2).sum() + (lse * 0.1).sum()
+
+    def self_block(q, k, v):
+        return (tfa.flash_attention(q, k, v) * 2).sum()
+
+    for name, block in (("chunk", chunk_block), ("self", self_block)):
+        grads = {}
+        for policy, fwd_calls in (("proj_attn", 1), ("full", 2)):
+            kw = remat_kwargs_for(tiny_test(remat_policy=policy))
+            ts = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+            with _CountOp(tfa.FLASH_FWD_OP) as fwd, _CountOp(
+                    torch.ops.tpu_parallel_torch.flash_bwd.default) as bwd:
+                checkpoint(block, *ts, **kw).backward()
+            assert (fwd.calls, bwd.calls) == (fwd_calls, 1), (name, policy)
+            grads[policy] = [t.grad for t in ts]
+        for a, b in zip(grads["proj_attn"], grads["full"]):
+            torch.testing.assert_close(a, b, atol=0, rtol=0)

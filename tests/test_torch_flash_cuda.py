@@ -294,3 +294,75 @@ def test_expanded_cotangent(cuda):
         o, lse = tfa._flash_fwd(q, k, v)
         want = tfa.flash_bwd_reference(q, k, v, None, None, o, lse, torch.ones_like(q))
     _assert_grads_close([x.grad.transpose(1, 2) for x in leaves], want)
+
+
+def _chunked(q, k, v, n, window=0, seg=None):
+    """One sequence [B, S, H, D] as ``n`` chunks through the chunk wrapper,
+    each (query chunk, key chunk) pair by the ring's rules (diagonal
+    causal, past chunks full or banded at their offset, the rest
+    skipped), merged with ``combine_chunks``."""
+    from tpu_parallel_torch.ops.ring_attention import NEG_INF, _chunk_band, combine_chunks
+
+    b, s, h, d = q.shape
+    c = s // n
+    outs, lses = [], []
+    for i in range(n):
+        out = torch.zeros(b, c, h, d, device=q.device)
+        lse = torch.full((b, h, c), NEG_INF, device=q.device)
+        for j in range(n):
+            band = _chunk_band(i - j, c, n, True, window)
+            if band is None:
+                continue
+            kw = {} if seg is None else dict(segment_ids_q=seg[:, i * c:(i + 1) * c],
+                                             segment_ids_kv=seg[:, j * c:(j + 1) * c])
+            o, s_ = tfa.flash_chunk_attention(
+                q[:, i * c:(i + 1) * c], k[:, j * c:(j + 1) * c], v[:, j * c:(j + 1) * c],
+                causal=band[0], window=band[1], q_offset=band[2], **kw)
+            out, lse = combine_chunks(out, lse, o.float(), s_)
+        outs.append(out)
+        lses.append(lse)
+    return torch.cat(outs, 1), torch.cat(lses, 2)
+
+
+@pytest.mark.parametrize("window", [0, 300])
+def test_chunk_wrapper_combines_to_full_attention(cuda, window):
+    """A [2, 1024, 4, 64] sequence as 4 chunks of 256 through the chunk
+    wrapper's kernels, merged: out and lse of one flash call over the whole
+    sequence; gradients through the merge (dlse nonzero) those of the one
+    call, row by row.  Causal, 10 of the 16 pairs run without a window (the
+    rest are future chunks), 9 with a window of 300 (two chunks back at
+    most)."""
+    q, k, v, do = _grad_inputs(cuda, 2, 4, 4, 1024, 64, seed=4)
+    leaves = [x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v)]
+    before = (tfa.flash_fwd_launches, tfa.flash_bwd_launches)
+    out, lse = _chunked(*leaves, 4, window)
+    out.backward(do.transpose(1, 2).float())
+    pairs = 10 if not window else 9
+    assert (tfa.flash_fwd_launches, tfa.flash_bwd_launches) == (before[0] + pairs,
+                                                                before[1] + pairs)
+    with torch.inference_mode():
+        want_out, want_lse = tfa._flash_fwd(q, k, v, window=window)
+        want = tfa._flash_bwd(q, k, v, None, None, want_out, want_lse, do, window=window)
+    torch.testing.assert_close(out.detach().transpose(1, 2), want_out.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(lse.detach(), want_lse, atol=1e-3, rtol=0)
+    _assert_grads_close([x.grad.transpose(1, 2) for x in leaves], want)
+
+
+def test_ring_flash_of_one_rank_is_flash_attention(cuda):
+    """Without a seq axis the flash-composed ring is one diagonal chunk:
+    one forward and one backward launch, flash_attention's result."""
+    from tpu_parallel_torch.ops.ring_attention import ring_flash_attention
+
+    q, k, v, do = _grad_inputs(cuda, 2, 4, 2, 512, 64, seed=5)
+    leaves = [x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v)]
+    before = (tfa.flash_fwd_launches, tfa.flash_bwd_launches)
+    out = ring_flash_attention(*leaves)
+    out.backward(do.transpose(1, 2))
+    assert (tfa.flash_fwd_launches, tfa.flash_bwd_launches) == (before[0] + 1, before[1] + 1)
+    with torch.inference_mode():
+        want_out, want_lse = tfa._flash_fwd(q, k, v)
+        want = tfa._flash_bwd(q, k, v, None, None, want_out, want_lse, do)
+    torch.testing.assert_close(out.detach().transpose(1, 2).float(), want_out.float(),
+                               atol=2e-2, rtol=2e-2)
+    _assert_grads_close([x.grad.transpose(1, 2) for x in leaves], want)

@@ -52,7 +52,7 @@ from tpu_parallel.train_lib import TrainerConfig as JTrainerConfig
 from tpu_parallel_torch.models import GPTLM, tiny_test
 from tpu_parallel_torch.models.convert import _SCANNED, _TOP, _block_leaves, params_from_jax
 from tpu_parallel_torch.parallel import fsdp
-from tpu_parallel_torch.parallel.spmd import build_train_functions, refuse_later_axes
+from tpu_parallel_torch.parallel.spmd import build_train_functions
 from tpu_parallel_torch.train_lib import Trainer, TrainerConfig
 
 # one torch intra-op thread per test process (pytest-xdist shares the cores)
@@ -292,10 +292,14 @@ def test_fsdp_config_without_mesh_is_replicated():
 def test_spmd_refuses_what_it_does_not_port():
     """``build_train_functions`` takes a schedule-owned ``grad_fn`` (the
     1F1B pipeline) but refuses it with ``num_minibatches > 1`` in JAX's
-    words, takes a pipe axis above 1 (``tests/test_torch_pp.py``) and
-    refuses a seq axis above 1 (item 5.5); a model axis above 1 is tensor
-    parallelism (``tests/test_torch_tp.py``)."""
+    words; it takes every mesh axis: a model axis above 1 is tensor
+    parallelism (``tests/test_torch_tp.py``), a pipe axis pipeline
+    parallelism (``tests/test_torch_pp.py``) and a seq axis sequence
+    parallelism, its gradients synced over ``("data", "seq", "model")``
+    (``tests/test_torch_sp.py``); without a mesh those axes are unbound
+    and the sync is the identity."""
     from tpu_parallel_torch.core.optim import AdamW
+    from tpu_parallel_torch.parallel import spmd
     from tpu_parallel_torch.parallel.spmd import make_model_init
 
     model = GPTLM(tiny_test(), device="cpu")
@@ -303,10 +307,8 @@ def test_spmd_refuses_what_it_does_not_port():
     build_train_functions(init, None, None, grad_fn=lambda *a: None)
     with pytest.raises(ValueError, match="does not compose with a schedule-owned grad_fn"):
         build_train_functions(init, None, None, grad_fn=lambda *a: None, num_minibatches=2)
-    refuse_later_axes(dict(pipe=2))
-    with pytest.raises(NotImplementedError, match="item 5.5"):
-        refuse_later_axes(dict(seq=2))
-    refuse_later_axes(dict(data=2, model=2))
+    assert not hasattr(spmd, "refuse_later_axes") and not hasattr(spmd, "_LATER_AXES")
+    build_train_functions(init, None, None, grad_sync_axes=("data", "seq", "model"))
     funcs = build_train_functions(init, None, None)
     assert funcs.state_specs["lm_head.weight"] == (None, None)
     assert funcs.state_shapes["lm_head.weight"] == (256, 32)

@@ -145,6 +145,16 @@ def test_config_refuses_unported_features(field, value):
         with pytest.raises(ValueError, match="mesh axis bound: serve through generate_sharded"):
             model(torch.zeros(1, 3, dtype=torch.long), decode=True, cache=model.init_cache(1))
         return
+    if field == "attn_impl":
+        # sequence parallelism is ported (tests/test_torch_sp.py): the
+        # config is taken, and without a seq axis the ring is a ring of one,
+        # the flash path's attention
+        tokens = torch.from_numpy(np.random.default_rng(3).integers(0, 256, (2, 16)))
+        ring = GPTLM(tiny_test(**{field: value}), device="cpu", seed=4)
+        flash = GPTLM(tiny_test(attn_impl="flash"), device="cpu", seed=4)
+        with torch.no_grad():
+            torch.testing.assert_close(ring(tokens), flash(tokens), atol=1e-5, rtol=1e-5)
+        return
     with pytest.raises(NotImplementedError):
         tiny_test(**{field: value})
 

@@ -322,23 +322,22 @@ def test_trainer_train_reports_throughput_and_masters():
 
 
 def test_trainer_refuses_what_it_does_not_port():
-    """The MLM objective (item 6), a seq axis above 1 (item 5.5) and a
-    config the port cannot run yet raise; a data axis above 1 is data
-    parallelism, a model axis above 1 tensor parallelism and a pipe axis
-    above 1 pipeline parallelism, which without a process group meet JAX's
-    errors for a mesh the devices do not cover (the DP, TP and PP runs are
-    ``tests/test_torch_dp.py``'s, ``tests/test_torch_tp.py``'s and
-    ``tests/test_torch_pp.py``'s); ``gpt2_125m_tp`` loads; a one-device
-    mesh is accepted."""
+    """The MLM objective (item 6) and a config the port cannot run yet
+    raise; a data axis above 1 is data parallelism, a model axis above 1
+    tensor parallelism, a pipe axis above 1 pipeline parallelism and a seq
+    axis above 1 sequence parallelism, which without a process group meet
+    JAX's errors for a mesh the devices do not cover (the DP, TP, PP and SP
+    runs are ``tests/test_torch_dp.py``'s, ``tests/test_torch_tp.py``'s,
+    ``tests/test_torch_pp.py``'s and ``tests/test_torch_sp.py``'s, which
+    also holds JAX's refusal of a seq axis with dense attention);
+    ``gpt2_125m_tp`` loads; a one-device mesh is accepted."""
     from tpu_parallel_torch.configs import get_config
 
     with pytest.raises(NotImplementedError, match="mlm.*item 6"):
         Trainer(TrainerConfig(model="tiny", objective="mlm"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5.5"):
-        Trainer(TrainerConfig(model="tiny", mesh=dict(data=2, seq=2)), device="cpu")
     jax_mesh = functools.partial(make_mesh, devices=jax.devices()[:1])
     for mesh in (dict(data=2), dict(data=4), dict(data=-1, model=2), dict(data=1, model=2),
-                 dict(data=-1, pipe=4)):
+                 dict(data=-1, pipe=4), dict(data=2, seq=2), dict(data=1, seq=4)):
         with pytest.raises(ValueError, match="1 devices") as want:
             jax_mesh(MeshConfig(**mesh))
         with pytest.raises(ValueError, match="1 devices") as got:

@@ -5,7 +5,7 @@
 
 Starts ``num_ranks`` gloo CPU processes through
 ``tpu_parallel_torch.runtime.spawn_cpu_ranks`` and runs every case of
-``suite`` (``runtime``, ``dp``, ``fsdp``, ``tp`` or ``pp``) in that one group.  Each rank reads the
+``suite`` (``runtime``, ``dp``, ``fsdp``, ``tp``, ``pp`` or ``sp``) in that one group.  Each rank reads the
 inputs the test wrote to ``<outdir>/inputs.npz`` and writes its results to
 ``<outdir>/<suite>_rank<r>.npz``; the test compares them with the JAX
 package in its own process.  Imports torch, numpy and the port only.
@@ -1310,8 +1310,259 @@ def _pp_cases(inputs, outdir, out):
     out["bf16_1f1b_loss"] = np.array(bf.train(steps=2)["loss"])
 
 
+# -- sequence parallelism (tests/test_torch_sp.py) ---------------------------
+
+# op cases: name -> (op, (batch, seq, heads, kv heads, head_dim), kwargs,
+# packed segment ids, gradients, mesh (data, seq)); each rank runs its seq
+# block, the test holds it to JAX's op on the same mesh
+SP_OP_CASES = {
+    "ring_plain": ("ring", (2, 128, 2, 2, 32), {}, False, False, (2, 4)),
+    "ring_plain_grad": ("ring", (1, 64, 2, 2, 16), {}, False, True, (2, 4)),
+    "ring_flash": ("ring_flash", (2, 128, 2, 2, 32), {}, False, False, (2, 4)),
+    "ring_flash_grad": ("ring_flash", (1, 64, 2, 2, 16), {}, False, True, (2, 4)),
+    **{f"ring_plain_window{w}": ("ring", (2, 128, 2, 2, 32), dict(window=w), False, False, (2, 4))
+       for w in (16, 32, 100, 1000)},
+    **{f"ring_flash_window{w}": ("ring_flash", (1, 256, 2, 2, 32), dict(window=w), False, False,
+                                 (2, 4)) for w in (24, 100, 1000)},
+    "ring_flash_window_grad": ("ring_flash", (1, 128, 2, 2, 16), dict(window=40), False, True,
+                               (2, 4)),
+    "ring_plain_packed": ("ring", (1, 128, 2, 2, 16), {}, True, True, (2, 4)),
+    "ring_flash_packed": ("ring_flash", (1, 128, 2, 2, 16), {}, True, True, (2, 4)),
+    "ring_plain_gqa": ("ring", (1, 128, 4, 2, 16), {}, False, True, (2, 4)),
+    "ring_flash_gqa": ("ring_flash", (1, 128, 4, 2, 16), {}, False, True, (2, 4)),
+    **{f"ring_plain_bidir_window{w}": ("ring", (2, 128, 2, 2, 32), dict(window=w, causal=False),
+                                       False, False, (2, 4)) for w in (16, 32, 100, 1000)},
+    **{f"ring_flash_bidir_window{w}": ("ring_flash", (1, 256, 2, 2, 32),
+                                       dict(window=w, causal=False), False, False, (2, 4))
+       for w in (24, 100, 1000)},
+    "ring_flash_bidir_window_grad": ("ring_flash", (1, 128, 2, 2, 16),
+                                     dict(window=40, causal=False), False, True, (2, 4)),
+    "ring_flash_bidir_grad": ("ring_flash", (1, 128, 2, 2, 16), dict(causal=False), True, True,
+                              (2, 4)),
+    "ulysses": ("ulysses", (2, 128, 4, 4, 32), {}, False, False, (2, 4)),
+    "ulysses_grad": ("ulysses", (1, 64, 4, 4, 16), {}, False, True, (2, 4)),
+    "ulysses_gqa2": ("ulysses", (1, 128, 8, 2, 16), {}, False, True, (2, 4)),
+    "ulysses_gqa4": ("ulysses", (1, 128, 8, 4, 16), {}, False, True, (2, 4)),
+}
+# model cases trained over a seq mesh: name -> (model overrides, mesh)
+SP_TRAINERS = {
+    "ring": (dict(attn_impl="ring", seq_len=64), dict(data=2, seq=4)),
+    "ulysses": (dict(attn_impl="ulysses", seq_len=64), dict(data=2, seq=4)),
+}
+SP_TRAINER_3D = (dict(attn_impl="ring", seq_len=64), dict(data=2, seq=2, model=2))
+SP_VARIANTS = {
+    "ring_window": (dict(attn_impl="ring", seq_len=64, attn_window=24), dict(data=2, seq=4)),
+    "ring_packed": (dict(attn_impl="ring", seq_len=64), dict(data=2, seq=4)),
+    "ring_gqa": (dict(attn_impl="ring", seq_len=64, n_kv_heads=2), dict(data=2, seq=4)),
+    "ulysses_window": (dict(attn_impl="ulysses", seq_len=64, attn_window=24),
+                       dict(data=4, seq=2)),
+    "ulysses_packed": (dict(attn_impl="ulysses", seq_len=64), dict(data=2, seq=4)),
+    "ulysses_gqa": (dict(attn_impl="ulysses", seq_len=64, n_heads=8, n_kv_heads=4),
+                    dict(data=2, seq=4)),
+}
+SP_VARIANT_STEPS = 6
+
+
+def _sp_counts():
+    from tpu_parallel_torch.ops import ring_attention, ulysses
+    from tpu_parallel_torch.parallel import dp
+
+    return [dp.dp_allreduce_launches, ring_attention.sp_ring_send_launches,
+            ring_attention.sp_ring_recv_launches, ulysses.sp_alltoall_launches]
+
+
+def _sp_cases(inputs, outdir, out):
+    import torch
+
+    from tpu_parallel_torch.core.accumulate import accumulate_gradients
+    from tpu_parallel_torch.core.metrics import compute
+    from tpu_parallel_torch.data import DataLoader, TokenDataset, make_global_batch
+    from tpu_parallel_torch.models import GPTLM, layers, tiny_test
+    from tpu_parallel_torch.models.convert import params_from_jax
+    from tpu_parallel_torch.ops.ring_attention import ring_attention, ring_flash_attention
+    from tpu_parallel_torch.ops.ulysses import ulysses_attention
+    from tpu_parallel_torch.parallel import fsdp
+    from tpu_parallel_torch.runtime import MeshConfig, make_mesh
+    from tpu_parallel_torch.train_lib import Trainer, TrainerConfig
+
+    meshes = {}
+
+    def mesh_of(sizes):
+        key = tuple(sorted(sizes.items()))
+        if key not in meshes:
+            meshes[key] = make_mesh(MeshConfig(**sizes))
+        return meshes[key]
+
+    # (0) the groups an all-reduce over data, seq and model runs on: the
+    # token axes' joint ranks (made with the mesh), then the model axis
+    from tpu_parallel_torch.runtime.mesh import reduction_groups
+
+    for key, sizes in (("token_group_sizes", dict(data=2, seq=4)),
+                       ("token_group_sizes_3d", dict(data=2, seq=2, model=2))):
+        groups = reduction_groups(mesh_of(sizes), ("data", "seq", "model"))
+        out[key] = np.array([size for _, size in groups])
+    ops = dict(ring=ring_attention, ring_flash=ring_flash_attention, ulysses=ulysses_attention)
+    # (1) the ops, each rank on its seq block
+    for name, (op, shape, kw, packed, grad, (data, seq)) in SP_OP_CASES.items():
+        mesh = mesh_of(dict(data=data, seq=seq))
+        c = mesh.get_local_rank("seq")
+        n = shape[1] // seq
+        blk = slice(c * n, (c + 1) * n)
+        q, k, v = (torch.from_numpy(inputs[f"op_{name}/{x}"][:, blk].copy()).requires_grad_(grad)
+                   for x in "qkv")
+        if packed:
+            kw = dict(kw, segment_ids=torch.from_numpy(inputs[f"op_{name}/seg"][:, blk].copy()))
+        got = ops[op](q, k, v, mesh=mesh, **kw)
+        out[f"op_{name}/out"] = got.detach().numpy()
+        if grad:
+            (got.float() ** 2).sum().backward()
+            for x, t in zip("qkv", (q, k, v)):
+                out[f"op_{name}/d{x}"] = t.grad.numpy()
+    out["seq_coord"] = np.array(mesh_of(dict(data=2, seq=4)).get_local_rank("seq"))
+    out["seq_coord_42"] = np.array(mesh_of(dict(data=4, seq=2)).get_local_rank("seq"))
+    try:
+        q = torch.zeros(1, 16, 3, 16)
+        ulysses_attention(q, q, q, mesh=mesh_of(dict(data=2, seq=4)))
+        out["ulysses_indivisible"] = np.array("")
+    except ValueError as exc:
+        out["ulysses_indivisible"] = np.array(str(exc))
+
+    # (2) JAX's Trainer over data=2 x seq=4: 4 steps from JAX's init, the
+    # collectives per step, the final masters; the step-1 synced gradients
+    for name, (overrides, sizes) in SP_TRAINERS.items():
+        mesh = mesh_of(sizes)
+        for policy in ("full", "proj_attn"):
+            trainer = Trainer(TrainerConfig(model="tiny", global_batch_size=8, num_minibatches=2,
+                                            steps=4, warmup_steps=2,
+                                            model_overrides=dict(overrides, remat_policy=policy)),
+                              mesh=mesh, device="cpu")
+            state = trainer.init(params_from_jax(nested_tree(f"tparams_{name}", inputs),
+                                                 trainer.model_config, dtype=torch.float32))
+            batch = trainer.local_rows(_text_batch(inputs, f"example_{name}"))
+            if policy == "full":
+                grads, _ = accumulate_gradients(state, batch, state.rng, 1, trainer.loss_fn)
+                fsdp.sync_gradients(state.partitioned(grads), ("data", "seq", "model"),
+                                    mesh=mesh)
+                for key, value in grads.items():
+                    out[f"trainer_{name}_grads/{key}"] = value.numpy().copy()
+                state.zero_grads()
+            losses, counts = [], []
+            for _ in range(4):
+                before = _sp_counts()
+                state, metrics = trainer.step_fn(state, None, batch)
+                counts.append([a - b for a, b in zip(_sp_counts(), before)])
+                losses.append(compute(metrics)["loss"])
+            out[f"trainer_{name}_{policy}_losses"] = np.array(losses)
+            out[f"trainer_{name}_{policy}_counts"] = np.array(counts)
+            _masters(out, f"trainer_{name}_{policy}", state)
+        out[f"trainer_{name}_batch_spec"] = np.array(trainer.batch_spec)
+
+    # (3) the flash-composed ring inside the model (the dispatch a CUDA
+    # tensor takes), under both policies: losses as the plain ring's, and
+    # its hops per step (the proj_attn recompute neither exchanges nor
+    # launches)
+    plain = layers.ring_attention
+    layers.ring_attention = ring_flash_attention
+    try:
+        overrides, sizes = SP_TRAINERS["ring"]
+        for policy in ("full", "proj_attn"):
+            trainer = Trainer(TrainerConfig(model="tiny", global_batch_size=8, num_minibatches=2,
+                                            steps=4, warmup_steps=2,
+                                            model_overrides=dict(overrides, remat_policy=policy)),
+                              mesh=mesh_of(sizes), device="cpu")
+            state = trainer.init(params_from_jax(nested_tree("tparams_ring", inputs),
+                                                 trainer.model_config, dtype=torch.float32))
+            batch = trainer.local_rows(_text_batch(inputs, "example_ring"))
+            losses, counts = [], []
+            for _ in range(2):
+                before = _sp_counts()
+                state, metrics = trainer.step_fn(state, None, batch)
+                counts.append([a - b for a, b in zip(_sp_counts(), before)])
+                losses.append(compute(metrics)["loss"])
+            out[f"ring_flash_model_{policy}_losses"] = np.array(losses)
+            out[f"ring_flash_model_{policy}_counts"] = np.array(counts)
+    finally:
+        layers.ring_attention = plain
+
+    # (4) tests/test_train_lib.py's Trainer over data=2 x seq=2 x model=2
+    overrides, sizes = SP_TRAINER_3D
+    trainer = Trainer(TrainerConfig(model="tiny", model_overrides=overrides, mesh=sizes,
+                                    global_batch_size=8, steps=6, log_every=6,
+                                    learning_rate=1e-2), device="cpu")
+    state = trainer.init(params_from_jax(nested_tree("tparams_3d", inputs), trainer.model_config,
+                                         dtype=torch.float32))
+    batch = trainer.local_rows(_text_batch(inputs, "example_3d"))
+    losses, counts = [], []
+    for _ in range(6):
+        before = _sp_counts()
+        state, metrics = trainer.step_fn(state, None, batch)
+        counts.append([a - b for a, b in zip(_sp_counts(), before)])
+        losses.append(compute(metrics)["loss"])
+    out["trainer_3d_losses"] = np.array(losses)
+    out["trainer_3d_counts"] = np.array(counts)
+    out["trainer_3d_batch_spec"] = np.array(trainer.batch_spec)
+    out["trainer_3d_num_params"] = np.array(trainer.num_params)
+    result = trainer.train(steps=2)
+    out["trainer_3d_train"] = np.array([result["loss"], result["accuracy"]])
+
+    # (5) tests/test_ring_attention.py's and test_ulysses.py's training
+    # variants: the step-1 loss and synced gradients, then a falling loss
+    for name, (overrides, sizes) in SP_VARIANTS.items():
+        trainer = Trainer(TrainerConfig(model="tiny", model_overrides=overrides, mesh=sizes,
+                                        global_batch_size=8, steps=SP_VARIANT_STEPS,
+                                        warmup_steps=0, lr_schedule="constant",
+                                        learning_rate=3e-3, weight_decay=1e-4),
+                          device="cpu")
+        state = trainer.init(params_from_jax(nested_tree(f"vparams_{name}", inputs),
+                                             trainer.model_config, dtype=torch.float32))
+        batch = trainer.local_rows(_text_batch(inputs, f"vbatch_{name}"))
+        grads, metrics = accumulate_gradients(state, batch, state.rng, 1, trainer.loss_fn)
+        fsdp.sync_gradients(state.partitioned(grads), ("data", "seq", "model"),
+                            mesh=trainer.mesh)
+        for key, value in grads.items():
+            out[f"variant_{name}_grads/{key}"] = value.numpy().copy()
+        state.zero_grads()
+        losses = []
+        for _ in range(SP_VARIANT_STEPS):
+            state, metrics = trainer.step_fn(state, None, batch)
+            losses.append(compute(metrics)["loss"])
+        out[f"variant_{name}_losses"] = np.array(losses)
+        out[f"variant_{name}_tokens"] = np.array(float(metrics["loss"][1]))
+
+    # (6) a bare forward on the seq block (positions offset by the seq
+    # coordinate), JAX's refusals, the loader's token blocks
+    mesh = mesh_of(dict(data=2, seq=4))
+    c = mesh.get_local_rank("seq")
+    model = GPTLM(tiny_test(attn_impl="ring", seq_len=64), device="cpu", mesh=mesh)
+    model.load_state_dict(params_from_jax(nested_tree("vparams_ring_packed", inputs),
+                                          model.config))
+    tokens = torch.from_numpy(inputs["vbatch_ring_packed/tokens"][:, 16 * c:16 * c + 16].copy())
+    with torch.no_grad():
+        out["bare_logits"] = model(tokens.long()).numpy()
+        try:
+            model(tokens.long()[:, :1], decode=True, cache=model.init_cache(8))
+            out["decode_refusal"] = np.array("")
+        except NotImplementedError as exc:
+            out["decode_refusal"] = np.array(str(exc))
+    try:
+        Trainer(TrainerConfig(model="tiny", mesh=dict(data=4, seq=2), global_batch_size=8),
+                device="cpu")
+        out["dense_refusal"] = np.array("")
+    except ValueError as exc:
+        out["dense_refusal"] = np.array(str(exc))
+    ds = TokenDataset(inputs["loader_tokens"], 64)
+    loader = DataLoader(ds, 8, seed=3, device="cpu", process_count=2,
+                        process_index=mesh.get_local_rank("data"), seq_count=4, seq_index=c)
+    for step in range(2):
+        local = loader.batch_at(step)
+        glob = make_global_batch(local, mesh, ("data", "seq"))
+        for field in ("tokens", "targets", "positions"):
+            out[f"loader_{step}_{field}"] = getattr(glob, field).full_tensor().numpy()
+            out[f"loader_{step}_local_{field}"] = getattr(local, field).numpy()
+
+
 SUITES = {"runtime": _runtime_cases, "dp": _dp_cases, "fsdp": _fsdp_cases, "tp": _tp_cases,
-          "pp": _pp_cases}
+          "pp": _pp_cases, "sp": _sp_cases}
 
 
 def run_suite(suite, outdir):

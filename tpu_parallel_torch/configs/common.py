@@ -29,7 +29,8 @@ def model_overrides(**kw) -> Dict[str, Any]:
     """The declared model overrides with the JAX package's defaults
     (behavior-neutral), updated by ``kw``."""
     base = dict(
-        # attention: "xla" | "flash" (ring and ulysses: ROADMAP item 5)
+        # attention: "xla" | "flash" | "ring" | "ulysses" (the last two shard the
+        # sequence over a seq mesh axis)
         attn_impl="xla",
         flash_block_q=512,
         flash_block_k=512,

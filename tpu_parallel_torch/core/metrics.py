@@ -19,7 +19,7 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 import torch
 import torch.distributed as dist
 
-from tpu_parallel_torch.runtime.mesh import axis_group
+from tpu_parallel_torch.runtime.mesh import reduction_groups
 
 Metrics = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
 
@@ -39,20 +39,20 @@ def sync_metrics(metrics: Metrics, axis_names: Union[str, Sequence[str]],
     summed.  ``mean_axes``: axes whose ranks compute *replicated* metrics
     (the tensor-parallel axis) — averaged, so token counts stay exact.
     Every sum and count rides in one fp32 tensor: one ``all_reduce`` per
-    bound axis above size 1.  Unbound axes, and axes of size 1 (where the
+    bound axis above size 1, the data and seq axes in one over their joint
+    ranks (``runtime.mesh.reduction_groups``).  Unbound axes, and axes of size 1 (where the
     sum and the mean are the identity), are skipped (no mesh: a no-op)."""
     if isinstance(axis_names, str):
         axis_names = (axis_names,)
     if isinstance(mean_axes, str):
         mean_axes = (mean_axes,)
-    groups = [(axis_group(mesh, name), False) for name in axis_names]
-    groups += [(axis_group(mesh, name), True) for name in mean_axes]
-    groups = [(bound, mean) for bound, mean in groups if bound is not None and bound[1] > 1]
+    groups = [(g, False) for g in reduction_groups(mesh, axis_names)]
+    groups += [(g, True) for g in reduction_groups(mesh, mean_axes)]
     if not groups:
         return metrics
     keys = sorted(metrics)
     packed = torch.stack([t.float() for k in keys for t in metrics[k]])
-    for (group, size, _), mean in groups:
+    for (group, size), mean in groups:
         dist.all_reduce(packed, group=group)
         if mean:
             packed.div_(size)

@@ -132,6 +132,13 @@ class TextBatch:
         """Rows [start, stop) of every field (views, no copy)."""
         return _rows(self, start, stop)
 
+    def cols(self, start: int, stop: int) -> "TextBatch":
+        """Token positions [start, stop) of every field: a sequence block
+        (views, no copy)."""
+        return TextBatch(**{f.name: None if getattr(self, f.name) is None
+                            else getattr(self, f.name)[:, start:stop]
+                            for f in dataclasses.fields(self)})
+
 
 def _flat_views(tensors: Dict[str, torch.Tensor], device):
     """One zeroed fp32 buffer holding a tensor shaped like each of

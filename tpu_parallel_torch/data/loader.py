@@ -6,10 +6,13 @@
   host tensors, ``non_blocking=True``, int64 token ids): one process feeds
   one device.
 - :func:`make_global_batch` is the global view of the ranks' local batches:
-  a ``DTensor`` sharded over the data axis, stitched with no gather.
+  a ``DTensor`` sharded over the data axis (and the seq axis, by token
+  block), stitched with no gather.
 - :class:`DataLoader` composes them into the iterator the ``Trainer``
-  consumes; ``batch_at(step)`` is a pure function of ``(seed, step)``, and
-  process ``p`` of ``P`` takes rows ``p::P`` of every global batch.
+  consumes; ``batch_at(step)`` is a pure function of ``(seed, step)``,
+  process ``p`` of ``P`` takes rows ``p::P`` of every global batch and,
+  under sequence parallelism, seq rank ``q`` of ``Q`` the ``q``-th block of
+  each row's tokens.
 """
 
 from __future__ import annotations
@@ -102,18 +105,22 @@ def to_device(batch: TextBatch, device) -> TextBatch:
     return TextBatch(**out)
 
 
-def make_global_batch(local_batch: TextBatch, mesh, batch_dim: str = "data") -> TextBatch:
-    """Lift each rank's local rows into one global batch: every field a
-    ``DTensor`` over ``mesh``, sharded on dim 0 along the ``batch_dim``
-    axis and replicated along the others (JAX's ``P("data")``), built with
-    ``DTensor.from_local`` (no gather).  Its global rows are the ranks'
-    local rows in coordinate order, rank 0's first, as JAX's device order.
-    Without a mesh the local batch is the global one."""
+def make_global_batch(local_batch: TextBatch, mesh, batch_spec=("data",)) -> TextBatch:
+    """Lift each rank's local part into one global batch: every field a
+    ``DTensor`` over ``mesh``, dim ``i`` sharded along the axis
+    ``batch_spec[i]`` names and replicated along the others (JAX's
+    ``P("data")``, or ``P("data", "seq")`` under sequence parallelism:
+    ``Trainer.batch_spec``), built with ``DTensor.from_local`` (no
+    gather).  Its global rows (token blocks) are the ranks' in coordinate
+    order, rank 0's first, as JAX's device order.  Without a mesh the
+    local batch is the global one."""
     if mesh is None:
         return local_batch
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
-    placements = [Shard(0) if name == batch_dim else Replicate() for name in mesh.mesh_dim_names]
+    dims = {name: i for i, name in enumerate(batch_spec) if name is not None}
+    placements = [Shard(dims[name]) if name in dims else Replicate()
+                  for name in mesh.mesh_dim_names]
 
     def lift(x):
         return None if x is None else DTensor.from_local(x, mesh, placements, run_check=False)
@@ -130,8 +137,12 @@ class DataLoader:
     RNG seeded by ``(seed, epoch)``; process ``p`` of ``P`` takes rows
     ``p::P`` of every global batch, disjoint coverage with no coordination.
     ``process_count``/``process_index`` default to the process group's
-    world size and rank (1 and 0 without one).  ``device`` defaults to
-    ``"cuda"`` and raises without a GPU.
+    world size and rank (1 and 0 without one).  ``seq_count``/``seq_index``
+    (a seq axis's size and this rank's coordinate: ``Trainer.seq_size`` /
+    ``seq_index``) hand the rank its block of each row's ``seq_len``
+    tokens, as JAX's ``P("data", "seq")`` lays the batch out: tokens,
+    targets, global positions, segment ids and loss mask alike.  ``device``
+    defaults to ``"cuda"`` and raises without a GPU.
     """
 
     dataset: Any
@@ -147,6 +158,8 @@ class DataLoader:
     device: Any = "cuda"
     process_count: Optional[int] = None
     process_index: Optional[int] = None
+    seq_count: int = 1
+    seq_index: int = 0
 
     def __post_init__(self):
         up = dist.is_initialized()
@@ -161,6 +174,11 @@ class DataLoader:
                 f"global batch {self.global_batch_size} not divisible by "
                 f"process count {self.process_count}"
             )
+        if not 0 <= self.seq_index < self.seq_count:
+            raise ValueError(f"seq block {self.seq_index} of {self.seq_count}")
+        if self.dataset.seq_len % self.seq_count:
+            raise ValueError(f"seq_len {self.dataset.seq_len} not divisible by seq count "
+                             f"{self.seq_count}")
         self.device = resolve_device(self.device)
         self.local_batch_size = self.global_batch_size // self.process_count
         if not 0.0 <= self.holdout_fraction < 1.0:
@@ -211,8 +229,11 @@ class DataLoader:
         order = self._epoch_order(epoch)
         rows = order[b * self.global_batch_size : (b + 1) * self.global_batch_size]
         rows = rows + self._window_offset
-        local = rows[self.process_index :: self.process_count]
-        return to_device(self.dataset.batch(local), self.device)
+        local = self.dataset.batch(rows[self.process_index :: self.process_count])
+        if self.seq_count > 1:
+            t = self.dataset.seq_len // self.seq_count
+            local = local.cols(self.seq_index * t, (self.seq_index + 1) * t)
+        return to_device(local, self.device)
 
     def epoch(self, epoch: int) -> Iterator[TextBatch]:
         for b in range(self.batches_per_epoch):

@@ -135,7 +135,7 @@ class GPTLM(nn.Module):
         self.config = config
         self.mesh = mesh
         self.pipe = pipe
-        self.embed = maybe_shard(Embedding(config, dev), config, mesh)
+        self.embed = maybe_shard(Embedding(config, dev, mesh), config, mesh)
         if pipe is None:
             self.blocks = BlockStack(config, config.n_layers, dev, mesh)
         else:

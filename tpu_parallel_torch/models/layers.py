@@ -9,8 +9,11 @@ mesh whose model axis is above 1 the projections are tensor-parallel
 (``parallel/tp.py``): attention's ``qkv`` (or ``q`` and ``kv``) and the
 MLP's ``up`` are column-parallel over ``n_heads // tp`` local heads and
 ``hidden // tp`` local units, ``out`` and ``down`` row-parallel, and the
-KV caches hold the local kv heads.  Pipeline and sequence parallelism are
-not in the port yet.  Linear weights are PyTorch's ``[out, in]``;
+KV caches hold the local kv heads.  On a mesh that binds the seq axis,
+``attn_impl`` ``"ring"`` and ``"ulysses"`` shard the token axis
+(``ops/ring_attention.py``, ``ops/ulysses.py``; :func:`seq_parallel_active`)
+and a bare :class:`Embedding` call looks up the rank's block of the
+position table.  Linear weights are PyTorch's ``[out, in]``;
 ``models/convert.py`` transposes flax's ``[in, out]`` kernels.
 
 Activation checkpointing (``remat``/``remat_policy``) wraps each block in
@@ -47,8 +50,12 @@ from torch.utils.checkpoint import (
 
 from tpu_parallel_torch.models.quantize import absmax_int8
 from tpu_parallel_torch.ops.flash_attention import FLASH_FWD_OP, flash_attention
+from tpu_parallel_torch.ops.ring_attention import (RING_FLASH_FWD_OP, ring_attention,
+                                                   ring_flash_attention)
+from tpu_parallel_torch.ops.ulysses import gather_sequence, ulysses_attention
 from tpu_parallel_torch.parallel.fsdp import maybe_shard
 from tpu_parallel_torch.parallel.tp import TPDense, model_axis
+from tpu_parallel_torch.runtime.mesh import axis_group
 
 # (field, default, what setting it would need) — fields this slice does not
 # implement; a config that sets one raises instead of silently ignoring it
@@ -62,7 +69,10 @@ _UNSUPPORTED = (
 )
 _MLPS = ("gelu", "gelu_exact", "relu")
 _KV_CACHE_DTYPES = ("bf16", "int8")
-_ATTN_IMPLS = ("xla", "flash")
+_ATTN_IMPLS = ("xla", "flash", "ring", "ulysses")
+# ops whose outputs count as "attn" for the remat policies: the flash forward
+# kernel and the flash-composed ring's forward (its exchanges included)
+_ATTN_OPS = (FLASH_FWD_OP, RING_FLASH_FWD_OP)
 # remat_policy -> the checkpoint names whose values the backward keeps
 # ("full": none, so every block recomputes its whole forward; "dots" keeps
 # products by op, not by name)
@@ -190,6 +200,13 @@ class TransformerConfig:
         return self.d_model // self.n_heads
 
 
+def seq_parallel_active(config: TransformerConfig, mesh) -> bool:
+    """True when attention shards the token axis: a seq-parallel impl is
+    selected AND ``mesh`` binds the seq axis (JAX: inside ``shard_map``)."""
+    return config.attn_impl in ("ring", "ulysses") and axis_group(
+        mesh, config.seq_axis) is not None
+
+
 class LayerNorm(nn.LayerNorm):
     """LayerNorm computed in fp32 with fp32 params; returns fp32 (the caller
     casts back to ``config.dtype``, as the JAX blocks do)."""
@@ -230,11 +247,11 @@ def checkpoint_name(name: str):
 
 def _save_only_these_names(*names: str):
     """Selective-checkpoint policy: keep the outputs of the ops tagged with
-    one of ``names`` (views excepted; the flash forward kernel counts as
-    "attn"), recompute every other op."""
+    one of ``names`` (views excepted; the flash forward kernel and the
+    flash ring's forward count as "attn"), recompute every other op."""
 
     def policy(ctx, op, *args, **kwargs):
-        if op is FLASH_FWD_OP:
+        if op in _ATTN_OPS:
             name = "attn"
         else:
             name = None if op.is_view else _active.name
@@ -763,6 +780,7 @@ class Attention(nn.Module):
             )
         self.local_heads = cfg.n_heads // tp
         self.local_kv = self.n_kv // tp
+        self.mesh = mesh
 
         def dense(i, o, style):
             return TPDense(i, o, style=style, axis_name=cfg.model_axis, use_bias=cfg.dense_bias,
@@ -788,6 +806,8 @@ class Attention(nn.Module):
                 q = self.q(x).view(b, t, self.local_heads, dh)
                 k, v = self.kv(x).view(b, t, self.local_kv, 2 * dh).split(dh, dim=-1)
         if decode:
+            if seq_parallel_active(cfg, self.mesh):
+                raise NotImplementedError("incremental decoding under sequence parallelism")
             if segment_ids is not None:
                 raise NotImplementedError(
                     "incremental decoding with packed sequences (segment_ids)"
@@ -861,11 +881,26 @@ class Attention(nn.Module):
 
     def _attend(self, q, k, v, segment_ids):
         cfg = self.config
+        flash = functools.partial(flash_attention, block_q=cfg.flash_block_q,
+                                  block_k=cfg.flash_block_k, window=cfg.attn_window)
+        # the flash, ring and ulysses paths route grouped queries natively
         if cfg.attn_impl == "flash":
-            return flash_attention(
-                q, k, v, segment_ids=segment_ids, block_q=cfg.flash_block_q,
-                block_k=cfg.flash_block_k, window=cfg.attn_window,
-            )
+            return flash(q, k, v, segment_ids=segment_ids)
+        if cfg.attn_impl == "ring":
+            # JAX's rule: the flash-composed ring on the accelerator, the
+            # plain ring elsewhere; segment ids are the local chunk's and
+            # rotate with their K/V
+            ring = ring_flash_attention if q.is_cuda else ring_attention
+            return ring(q, k, v, axis_name=cfg.seq_axis, mesh=self.mesh,
+                        window=cfg.attn_window, segment_ids=segment_ids)
+        if cfg.attn_impl == "ulysses":
+            # the inner attention sees the whole sequence: under "proj_attn"
+            # the all-to-alls' outputs are kept with the kernel's
+            with checkpoint_name("attn"):
+                if segment_ids is not None:
+                    segment_ids = gather_sequence(segment_ids, cfg.seq_axis, self.mesh)
+                return ulysses_attention(q, k, v, axis_name=cfg.seq_axis, mesh=self.mesh,
+                                         attn_fn=flash, segment_ids=segment_ids)
         group = q.shape[2] // k.shape[2]
         if group != 1:  # the dense path has no head routing: expand K/V
             k = k.repeat_interleave(group, dim=2)
@@ -989,10 +1024,15 @@ class Embedding(nn.Module):
 
     Pad positions are -1 in ragged prefill; they are clamped to row 0 (the
     flax lookup wraps them instead).  Their outputs are never read.
+    Without ``positions`` the local positions count from 0, or, under
+    sequence parallelism on ``mesh``, from this rank's seq coordinate
+    times the local length (its block of the table).
     """
 
-    def __init__(self, config: TransformerConfig, device=None):
+    def __init__(self, config: TransformerConfig, device=None, mesh=None):
         super().__init__()
+        self.config = config
+        self.mesh = mesh
         self.tok = nn.Embedding(config.vocab_size, config.d_model,
                                 dtype=config.dtype, device=device)
         self.pos = nn.Embedding(config.seq_len, config.d_model,
@@ -1000,6 +1040,10 @@ class Embedding(nn.Module):
 
     def forward(self, tokens, positions=None) -> torch.Tensor:
         if positions is None:
-            positions = torch.arange(tokens.shape[1], device=tokens.device).expand_as(tokens)
+            positions = torch.arange(tokens.shape[1], device=tokens.device)
+            if seq_parallel_active(self.config, self.mesh):
+                positions = positions + axis_group(self.mesh, self.config.seq_axis)[2] * \
+                    tokens.shape[1]
+            positions = positions.expand_as(tokens)
         return self.tok(tokens) + self.pos(positions.clamp(min=0))
 

@@ -23,15 +23,21 @@ is copied around the kernels.  K/V may carry fewer heads than Q
 Gradients follow the JAX ``_flash_finalize`` pattern: the forward kernel
 runs on detached inputs and :class:`_FlashFinalize`, an identity on its
 output, attaches the backward kernel, one pass that computes dq, dk and dv
-together.  On a CPU tensor the wrappers take the plain versions; on a CUDA
-tensor they launch the kernels or raise.  ``flash_fwd_launches`` and
-``flash_bwd_launches`` count kernel launches.
+together.  :func:`flash_chunk_attention` (ring attention's partials: one
+query chunk against one K/V chunk, causal or not, at a signed
+``q_offset`` under a window, with separate q and kv segment ids) returns
+``(out, lse)``, both differentiable: :class:`_ChunkFinalize` hands the lse
+cotangent to the backward kernel as ``dlse``.  On a CPU tensor the
+wrappers take the plain versions; on a CUDA tensor they launch the
+kernels or raise.  ``flash_fwd_launches`` and ``flash_bwd_launches`` count
+kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import warnings
 from typing import Optional, Tuple
 
 import torch
@@ -487,6 +493,92 @@ def _flash_attention_bhsd(q, k, v, seg, window=0, stream=None):
     if not (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))):
         return out
     return _FlashFinalize.apply(q, k, v, seg, out, lse, window)
+
+
+class _ChunkFinalize(torch.autograd.Function):
+    """Identity on ``(out, lse)`` that attaches the backward kernel (the JAX
+    ``_chunk_finalize``).  As :class:`_FlashFinalize`, the forward kernel
+    runs outside on detached inputs; unlike it, ``lse`` stays a
+    differentiable output: its cotangent reaches the backward kernel as
+    ``dlse`` (ring attention's :func:`combine_chunks` needs it)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seg_q, seg_k, out, lse, causal, window, q_offset):
+        ctx.save_for_backward(q, k, v, seg_q, seg_k, out, lse)
+        ctx.band = (causal, window, q_offset)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, seg_q, seg_k, out, lse = ctx.saved_tensors
+        causal, window, q_offset = ctx.band
+        if _rows_readable(do) is not None:
+            do = do.contiguous()
+        dq, dk, dv = _flash_bwd(q, k, v, seg_q, seg_k, out, lse, do, causal=causal,
+                                window=window, q_offset=q_offset, dlse=dlse)
+        return dq, dk, dv, None, None, None, None, None, None, None
+
+
+def _chunk_attention_bhsd(q, k, v, seg_q, seg_k, causal, window, q_offset):
+    """``(out, lse)`` of one chunk on [B, H, S, D], differentiable in q, k,
+    v through both outputs."""
+    out, lse = _flash_fwd(q.detach(), k.detach(), v.detach(), seg_q, seg_k, causal=causal,
+                          window=window, q_offset=q_offset)
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))):
+        return out, lse
+    return _ChunkFinalize.apply(q, k, v, seg_q, seg_k, out, lse, causal, window, q_offset)
+
+
+def flash_chunk_attention(q, k, v, *, causal: bool, block_q=DEFAULT_BLOCK_Q,
+                          block_k=DEFAULT_BLOCK_K, interpret=None, stream=None, window=0,
+                          q_offset=0, segment_ids_q=None, segment_ids_kv=None):
+    """One flash-attention partial over a K/V chunk, for ring combining.
+
+    ``q`` [batch, seq_q, heads, head_dim], ``k``/``v`` [batch, seq_kv,
+    kv_heads, head_dim].  Returns ``(out, lse)``: ``out`` [batch, seq_q,
+    heads, head_dim] normalized within the chunk, ``lse`` [batch, heads,
+    seq_q] fp32, its log-sum-exp; partials of different chunks merge
+    exactly through ``ops/ring_attention.py:combine_chunks``.
+    Differentiable in both outputs: the lse cotangent folds into the
+    backward kernel's per-row delta.
+
+    ``causal=True`` is the diagonal chunk (q and k index the same
+    positions); ``causal=False`` a fully visible chunk.  ``window`` and
+    ``q_offset`` (query i sits at ``q_offset + i`` against the chunk's
+    keys) add a band: one-sided under ``causal`` (key j visible iff
+    ``q_offset + i - j < window``), symmetric without (``|q_offset + i - j|
+    < window``).  ``segment_ids_q``/``segment_ids_kv`` ([batch, seq_q] /
+    [batch, seq_kv], both or neither) mask packed sequences.  A row that
+    sees no key of the chunk is an empty partial: out 0, lse ``NEG_INF``.
+
+    ``block_q``/``block_k``, ``interpret`` and ``stream`` are the JAX
+    signature's: the tiles are shrunk to exact divisors of the chunk
+    lengths as JAX shrinks them (with its warning), and the CUDA kernels
+    use their own tiles either way.
+    """
+    del interpret
+    if (segment_ids_q is None) != (segment_ids_kv is None):
+        raise ValueError("segment_ids_q and segment_ids_kv must be passed together")
+    if q.shape[2] % k.shape[2] != 0:
+        raise ValueError(f"q heads {q.shape[2]} not a multiple of k/v heads {k.shape[2]}")
+    # exact-divisor tiles, as JAX (its kernels' grids need them)
+    bq = math.gcd(q.shape[1], min(block_q, q.shape[1]))
+    bk = math.gcd(k.shape[1], min(block_k, k.shape[1]))
+    if causal:
+        bk = math.gcd(bq, bk)
+    if bq < min(block_q, q.shape[1]) or bk < min(block_k, k.shape[1]):
+        warnings.warn(
+            f"flash_chunk_attention shrank tiles to {bq}x{bk}: chunk lengths "
+            f"q={q.shape[1]}/kv={k.shape[1]} are not divisible by the "
+            f"requested {block_q}x{block_k}",
+            stacklevel=2,
+        )
+    seg_q = seg_k = None
+    if segment_ids_q is not None:
+        seg_q, seg_k = segment_ids_q.to(torch.int32), segment_ids_kv.to(torch.int32)
+    out, lse = _chunk_attention_bhsd(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                     seg_q, seg_k, causal, window, q_offset)
+    return out.transpose(1, 2), lse
 
 
 def flash_attention(q, k, v, *, segment_ids=None, block_q=DEFAULT_BLOCK_Q,

@@ -26,7 +26,7 @@ import torch.distributed as dist
 from tpu_parallel_torch.core.accumulate import LossFn, accumulate_gradients
 from tpu_parallel_torch.core.metrics import Metrics, accumulate_metrics, sync_metrics
 from tpu_parallel_torch.core.state import TrainState
-from tpu_parallel_torch.runtime.mesh import axis_group
+from tpu_parallel_torch.runtime.mesh import axis_group, reduction_groups
 
 # gradient all-reduces launched by sync_gradients_dp (one per bound axis
 # per call)
@@ -47,9 +47,10 @@ def sync_gradients_dp(grads: Dict[str, torch.Tensor],
                       axis_names: Union[str, Sequence[str]] = "data", mesh=None):
     """Average ``grads`` in place over the mesh axes ``axis_names``
     (``data_paral.py:210-212``'s ``pmean``) and return them.  One
-    ``all_reduce`` per bound axis above size 1 (one on the first bound
-    axis when every bound axis has size 1, so a mesh run always syncs
-    through the collective path) on the flat buffer the gradients view
+    ``all_reduce`` per bound axis above size 1, the data and seq axes
+    together in one over their joint ranks (``runtime.mesh.
+    reduction_groups``; one on the first bound axis when every bound axis
+    has size 1, so a mesh run always syncs through the collective path) on the flat buffer the gradients view
     (or on a flattened copy when they are separate tensors).  Unbound axes
     are skipped: without a mesh nothing happens."""
     global dp_allreduce_launches
@@ -58,12 +59,12 @@ def sync_gradients_dp(grads: Dict[str, torch.Tensor],
     bound = [b for b in (axis_group(mesh, name) for name in axis_names) if b is not None]
     if not bound:
         return grads
-    bound = [b for b in bound if b[1] > 1] or bound[:1]
+    groups = reduction_groups(mesh, axis_names) or [bound[0][:2]]
     flat = _flat_base(grads)
     tensors = list(grads.values())
     staged = flat if flat is not None else torch.cat([t.reshape(-1) for t in tensors])
     size = 1
-    for group, axis_size, _ in bound:
+    for group, axis_size in groups:
         dist.all_reduce(staged, group=group)
         dp_allreduce_launches += 1
         size *= axis_size

@@ -17,7 +17,8 @@ input, and no rank waits on a peer that waits on it.  Each send adds one
 to :data:`pp_send_launches`, each receive one to
 :data:`pp_recv_launches`.  Gloo's point-to-point ops hand the tensor's
 data pointer to the TCP transport, which cannot read device memory, so
-over gloo a CUDA tensor is staged through a host buffer (the transport,
+over gloo a CUDA tensor is staged through a host buffer
+(``runtime/comm.py:post_exchange``; the transport,
 not the compute: the stages run on the device); NCCL takes device
 tensors directly.
 
@@ -63,6 +64,7 @@ from torch import nn
 
 from tpu_parallel_torch.core.rng import fold_seed
 from tpu_parallel_torch.core.state import fold_grads
+from tpu_parallel_torch.runtime.comm import post_exchange
 from tpu_parallel_torch.runtime.mesh import axis_group
 
 # point-to-point operations posted by the schedules (forward, backward and
@@ -123,38 +125,15 @@ def last_stage_mask(mesh=None, axis_name: str = "pipe") -> float:
     return 1.0 if bound is None or bound[2] == bound[1] - 1 else 0.0
 
 
-def _global_rank(group, coord: int) -> int:
-    return dist.get_global_rank(group, coord)
-
-
 def _exchange(group, sends: Sequence[Tuple[torch.Tensor, int]],
               recvs: Sequence[Tuple[torch.Tensor, int]]) -> None:
-    """One tick's point-to-point ops on ``group``: send each ``(tensor,
-    coordinate)`` and receive into each ``(buffer, coordinate)``, posted
-    together (``batch_isend_irecv``) and waited for.  Over gloo a CUDA
-    tensor is staged through a host buffer both ways."""
+    """One tick's point-to-point ops (:func:`post_exchange`), each send
+    counted in :data:`pp_send_launches` and each receive in
+    :data:`pp_recv_launches`."""
     global pp_send_launches, pp_recv_launches
-    if not sends and not recvs:
-        return
-    staged = dist.get_backend(group) == "gloo"
-    ops, back = [], []
-    for t, coord in sends:
-        t = t.detach().contiguous()
-        if staged and t.is_cuda:
-            t = t.to("cpu")
-        ops.append(dist.P2POp(dist.isend, t, _global_rank(group, coord), group))
-        pp_send_launches += 1
-    for buf, coord in recvs:
-        target = buf
-        if staged and buf.is_cuda:
-            target = torch.empty(buf.shape, dtype=buf.dtype)
-            back.append((buf, target))
-        ops.append(dist.P2POp(dist.irecv, target, _global_rank(group, coord), group))
-        pp_recv_launches += 1
-    for work in dist.batch_isend_irecv(ops):
-        work.wait()
-    for buf, host in back:
-        buf.copy_(host)
+    post_exchange(group, sends, recvs)
+    pp_send_launches += len(sends)
+    pp_recv_launches += len(recvs)
 
 
 def _stack_extras(extras: Optional[dict], num_microbatches: int,
@@ -476,7 +455,7 @@ def execute_pipeline_decode(stage: Callable, x: torch.Tensor, *, mesh, axis_name
         _exchange(group, [(out, index + 1)], [])
         out = torch.empty_like(x)
     out = out.contiguous()
-    dist.broadcast(out, src=_global_rank(group, size - 1), group=group)
+    dist.broadcast(out, src=dist.get_global_rank(group, size - 1), group=group)
     return out
 
 

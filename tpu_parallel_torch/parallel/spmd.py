@@ -1,6 +1,6 @@
 """Generic SPMD train functions: the port of ``tpu_parallel/parallel/spmd.py``,
-for meshes whose axes above 1 are data, model and pipe (DP, FSDP, tensor
-and pipeline parallelism).
+for meshes over data, model, pipe and seq (DP, FSDP, tensor, pipeline and
+sequence parallelism).
 
 JAX traces ``model_init`` abstractly under ``shard_map`` to discover which
 parameters come out ``nn.Partitioned``, then lays out the real init and the
@@ -21,10 +21,11 @@ replicated-loss axes).  Under pipeline parallelism the leaves replicated
 over ``pipe`` (the embedding, ``norm_final``, the lm_head) are summed over
 it (``grad_psum_axes``: one rank holds each one's gradient, the others
 zero), the stage-owned ones are not, and a schedule-owned ``grad_fn`` (the
-1F1B pipeline) may replace the accumulation.
-
-Not in the port yet, raising ``NotImplementedError``: a bound seq axis
-above 1 (ROADMAP queue A item 5.5).
+1F1B pipeline) may replace the accumulation.  Under sequence parallelism
+each seq rank's loss is the mean over its own token block: gradients are
+averaged and metrics summed over the seq axis as over the data axis, the
+two together in one all-reduce over their joint ranks
+(``runtime.mesh.reduction_groups``).
 """
 
 from __future__ import annotations
@@ -39,12 +40,6 @@ from tpu_parallel_torch.core.metrics import Metrics, accumulate_metrics, sync_me
 from tpu_parallel_torch.core.state import TrainState
 from tpu_parallel_torch.parallel import fsdp
 from tpu_parallel_torch.parallel.dp import broadcast_state
-from tpu_parallel_torch.runtime.mesh import mesh_sizes
-
-# mesh axes build_train_functions cannot partition over yet -> what brings them
-_LATER_AXES = {
-    "seq": "sequence parallelism (ROADMAP queue A item 5.5)",
-}
 
 
 def make_model_init(model: torch.nn.Module, tx) -> Callable:
@@ -72,13 +67,6 @@ class TrainFunctions:
     state_specs: Dict[str, Tuple[Optional[str], ...]]  # parameter -> axis name per dim
     state_shapes: Dict[str, Tuple[int, ...]]  # parameter -> this rank's shape
     eval_fn: Optional[Callable] = None  # (state, metrics, batch) -> metrics
-
-
-def refuse_later_axes(sizes: Dict[str, int]) -> None:
-    """Raise for a mesh axis above 1 that the port cannot partition over yet."""
-    for axis, what in _LATER_AXES.items():
-        if sizes.get(axis, 1) > 1:
-            raise NotImplementedError(f"mesh {sizes}: a {axis} axis of {sizes[axis]} needs {what}")
 
 
 def build_train_functions(
@@ -124,7 +112,6 @@ def build_train_functions(
             "grad_fn (the 1F1B pipeline consumes the whole batch; split it "
             "with num_microbatches instead)"
         )
-    refuse_later_axes(mesh_sizes(mesh))
     if isinstance(grad_sync_axes, str):
         grad_sync_axes = (grad_sync_axes,)
     if isinstance(replicated_loss_axes, str):

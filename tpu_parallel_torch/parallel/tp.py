@@ -48,6 +48,7 @@ from torch import nn
 from tpu_parallel_torch.core.rng import fold_rng_over_axis
 from tpu_parallel_torch.parallel.fsdp import (ShardInfo, _reduce_scatter, gather_params,
                                               sharded_axes)
+from tpu_parallel_torch.runtime.comm import GROUPS, group_name
 from tpu_parallel_torch.runtime.mesh import axis_group
 
 # collectives launched over the model axis (forward, recompute and
@@ -56,22 +57,14 @@ tp_allreduce_launches = 0
 tp_allgather_launches = 0
 tp_reducescatter_launches = 0
 
-# process groups by name, for the custom ops (their schema takes a string)
-_GROUPS: Dict[str, Any] = {}
 _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
-
-
-def _group_name(group) -> str:
-    name = group.group_name
-    _GROUPS[name] = group
-    return name
 
 
 @torch.library.custom_op("tpu_parallel_torch::tp_all_reduce", mutates_args=())
 def _all_reduce_op(x: torch.Tensor, group: str, op: str) -> torch.Tensor:
     global tp_allreduce_launches
     out = x.contiguous().clone()
-    dist.all_reduce(out, op=_REDUCE_OPS[op], group=_GROUPS[group])
+    dist.all_reduce(out, op=_REDUCE_OPS[op], group=GROUPS[group])
     tp_allreduce_launches += 1
     return out
 
@@ -102,7 +95,7 @@ def _all_gather_op(x: torch.Tensor, group: str, size: int) -> torch.Tensor:
     global tp_allgather_launches
     flat = x.contiguous().reshape(-1)
     out = torch.empty(size * flat.numel(), dtype=x.dtype, device=x.device)
-    dist.all_gather_into_tensor(out, flat, group=_GROUPS[group])
+    dist.all_gather_into_tensor(out, flat, group=GROUPS[group])
     tp_allgather_launches += 1
     n = x.shape[-1]
     return out.view(size, -1, n).movedim(0, 1).reshape(*x.shape[:-1], size * n)
@@ -122,7 +115,7 @@ def _reduce_scatter_op(x: torch.Tensor, group: str, size: int) -> torch.Tensor:
     # [size, rows, n]: block r is what rank r receives
     packed = x.reshape(-1, size, n).movedim(1, 0).contiguous()
     out = torch.empty(packed[0].numel(), dtype=x.dtype, device=x.device)
-    _reduce_scatter(out, packed.view(-1), group=_GROUPS[group])
+    _reduce_scatter(out, packed.view(-1), group=GROUPS[group])
     tp_reducescatter_launches += 1
     return out.view(*x.shape[:-1], n)
 
@@ -166,7 +159,7 @@ def all_reduce(x: torch.Tensor, axis_name: str, mesh, op: str = "sum") -> torch.
     bound = model_axis(mesh, axis_name)
     if bound is None:
         return x
-    return _all_reduce_op(x, _group_name(bound[0]), op)
+    return _all_reduce_op(x, group_name(bound[0]), op)
 
 
 def all_gather(x: torch.Tensor, axis_name: str, mesh) -> torch.Tensor:
@@ -177,7 +170,7 @@ def all_gather(x: torch.Tensor, axis_name: str, mesh) -> torch.Tensor:
     bound = model_axis(mesh, axis_name)
     if bound is None:
         return x
-    return _all_gather_op(x, _group_name(bound[0]), bound[1])
+    return _all_gather_op(x, group_name(bound[0]), bound[1])
 
 
 def split_over_axis(x: torch.Tensor, axis_name: str, axis: int = -1, mesh=None) -> torch.Tensor:

@@ -28,6 +28,9 @@ SEQ_AXIS = "seq"
 
 # Outer-to-inner ordering used when materializing the physical mesh.
 AXIS_ORDER: Tuple[str, ...] = (PIPE_AXIS, DATA_AXIS, SEQ_AXIS, MODEL_AXIS)
+# axes whose ranks hold disjoint tokens of one batch (rows, sequence blocks):
+# a sum or mean over both runs as one all-reduce over their joint ranks
+TOKEN_AXES: Tuple[str, ...] = (DATA_AXIS, SEQ_AXIS)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,8 +98,13 @@ def make_mesh(config: MeshConfig = MeshConfig(), device_type: Optional[str] = No
         device_type = bootstrap._DEVICE.type
     if device_type is None:
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return init_device_mesh(device_type, tuple(sizes[a] for a in AXIS_ORDER),
+    mesh = init_device_mesh(device_type, tuple(sizes[a] for a in AXIS_ORDER),
                             mesh_dim_names=AXIS_ORDER)
+    if all(sizes[a] > 1 for a in TOKEN_AXES):
+        # the token axes' joint ranks, for reduction_groups: a flattened
+        # sub-mesh, made here because every rank makes the mesh together
+        mesh._token_mesh = mesh[TOKEN_AXES]._flatten()
+    return mesh
 
 
 def mesh_from_sizes(data: int = -1, model: int = 1, pipe: int = 1, seq: int = 1,
@@ -120,6 +128,23 @@ def axis_group(mesh, name: str):
     if mesh is None or name not in (mesh.mesh_dim_names or ()):
         return None
     return mesh.get_group(name), mesh.size(mesh.mesh_dim_names.index(name)), mesh.get_local_rank(name)
+
+
+def reduction_groups(mesh, names) -> list:
+    """``[(group, size)]`` that an all-reduce over the mesh axes ``names``
+    runs on, in ``names``' order: one per bound axis above size 1, except
+    that the token axes (data and seq), both above size 1, share the one
+    group of their joint ranks that :func:`make_mesh` made, at the first
+    one's place."""
+    big = [a for a in names if (b := axis_group(mesh, a)) is not None and b[1] > 1]
+    joint = getattr(mesh, "_token_mesh", None) if all(a in big for a in TOKEN_AXES) else None
+    out = []
+    for a in big:
+        if joint is None or a not in TOKEN_AXES:
+            out.append(axis_group(mesh, a)[:2])
+        elif a == next(x for x in big if x in TOKEN_AXES):
+            out.append((joint.get_group(), joint.size()))
+    return out
 
 
 def factor_mesh(

@@ -18,6 +18,10 @@ Data and tensor parallelism run under torchrun, one process per card:
         -m tpu_parallel_torch.train --config=gpt2_125m_dp
     python -m torch.distributed.run --standalone --nproc_per_node=2 \
         -m tpu_parallel_torch.train --config=gpt2_125m_tp
+    python -m torch.distributed.run --standalone --nproc_per_node=4 \
+        -m tpu_parallel_torch.train --config=gpt2_125m_long \
+        --config.mesh.data=1 --config.mesh.seq=4 \
+        --config.model_overrides.attn_impl=ring
 
 The script calls ``runtime.initialize()`` first (a no-op outside torchrun)
 and logs ``process_info()``; the config's mesh then spans the group.  A
@@ -49,6 +53,9 @@ def parse_args(argv):
     parser.add_argument("--metrics-out", "--metrics_out", dest="metrics_out", default="",
                         help="write a Prometheus text snapshot of the registry here")
     parser.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    parser.add_argument("--backend", default=None,
+                        help="process group backend (default: nccl for a card, gloo for "
+                             "the CPU); gloo with --device=cuda:0 puts every rank on one card")
     args, rest = parser.parse_known_args(argv)
     config = get_config(args.config)
     for arg in rest:
@@ -71,7 +78,7 @@ def main(argv=None) -> int:
     from tpu_parallel_torch.runtime import initialize
 
     # the process group first: the trainer's mesh and device come from it
-    initialize(device=args.device)
+    initialize(device=args.device, backend=args.backend)
     try:
         return run(config_dict, args)
     finally:
@@ -136,11 +143,13 @@ def run(config_dict, args) -> int:
             dataset = TokenDataset(paths, trainer.model_config.seq_len)
         else:
             raise ValueError(f"data_format={data_format!r} (flat | packed)")
-        # ranks that differ only along the model axis step on the same rows
+        # ranks that differ only along the model axis step on the same rows;
+        # a seq rank takes its block of each row's tokens
         data_loader = DataLoader(dataset, config.global_batch_size, seed=config.seed,
                                  holdout_fraction=eval_fraction, device=trainer.device,
                                  process_count=trainer.data_size,
-                                 process_index=trainer.data_index)
+                                 process_index=trainer.data_index,
+                                 seq_count=trainer.seq_size, seq_index=trainer.seq_index)
         if eval_steps:
             # fail fast: an eval split smaller than one batch should abort
             # before training, not after it

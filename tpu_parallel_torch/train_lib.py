@@ -25,15 +25,18 @@ embedding and lm_head sharded over the data axis, the state's tensors for
 them this rank's slices) and tensor parallelism (a model axis above 1: the
 blocks' projections and the lm_head split over it, their state this
 rank's slices, gradients synced over ``("data", "model")`` as JAX's
-Trainer syncs them, metrics averaged over the model axis) and pipeline
+Trainer syncs them, metrics averaged over the model axis), pipeline
 parallelism (a pipe axis above 1 dictates the model's ``pipe_size``: each
 rank builds its stage, the replicated leaves' gradients are summed over
-``pipe``; ``pipe_schedule`` ``"gpipe"`` or ``"1f1b"``).
+``pipe``; ``pipe_schedule`` ``"gpipe"`` or ``"1f1b"``) and sequence
+parallelism (a seq axis above 1 with ``attn_impl`` ``"ring"`` or
+``"ulysses"``: each rank steps on its block of every row's tokens,
+``batch_spec`` ``("data", "seq")``, and gradients are synced over
+``("data", "seq", "model")``).
 
 Not in the port yet, each raising when asked for: the MLM objective (and
-the seq2seq family; ROADMAP queue A item 6), a seq axis above 1
-(sequence parallelism, item 5.5), and FSDP together with a model axis
-above 1 (item 6, ``llama_1b_3d``).
+the seq2seq family; ROADMAP queue A item 6) and FSDP together with a
+model axis above 1 (item 6, ``llama_1b_3d``).
 """
 
 from __future__ import annotations
@@ -59,11 +62,10 @@ from tpu_parallel_torch.models.gpt import (GPTConfig, GPTLM, gpt2_125m, gpt2_350
                                            make_gpt_1f1b_grad_fn, make_gpt_loss, tiny_test)
 from tpu_parallel_torch.obs.registry import MetricRegistry
 from tpu_parallel_torch.obs.tracer import NULL_TRACER, Tracer
-from tpu_parallel_torch.parallel.spmd import (build_train_functions, make_model_init,
-                                              refuse_later_axes)
+from tpu_parallel_torch.parallel.spmd import build_train_functions, make_model_init
 from tpu_parallel_torch.runtime import MeshConfig, make_mesh, resolve_device
-from tpu_parallel_torch.runtime.mesh import (DATA_AXIS, MODEL_AXIS, PIPE_AXIS, axis_group,
-                                             mesh_sizes)
+from tpu_parallel_torch.runtime.mesh import (DATA_AXIS, MODEL_AXIS, PIPE_AXIS, SEQ_AXIS,
+                                             axis_group, mesh_sizes)
 from tpu_parallel_torch.utils.profiling import mfu
 
 MODEL_REGISTRY: Dict[str, Callable[..., GPTConfig]] = {
@@ -94,7 +96,8 @@ class TrainerConfig:
     against the process group's ranks (one device without a group); a
     data axis above 1 trains data-parallel, a model axis above 1
     tensor-parallel, a pipe axis above 1 pipeline-parallel, a seq axis
-    above 1 raises (ROADMAP queue A item 5.5).  ``donate`` is accepted and changes
+    above 1 sequence-parallel (``attn_impl`` ``"ring"`` or ``"ulysses"``).
+    ``donate`` is accepted and changes
     nothing: the port's step already updates its buffers in place.  ``mlm_mask_rate`` belongs to the MLM
     objective, which raises (item 6).
     """
@@ -238,10 +241,7 @@ class Trainer:
         if config.objective != "causal":
             raise ValueError(f"objective={config.objective!r} (causal | mlm)")
         if mesh is None:
-            sizes = _mesh_sizes(config.mesh)
-            refuse_later_axes(sizes)
-            mesh = make_mesh(MeshConfig(**sizes))
-        refuse_later_axes(mesh_sizes(mesh))
+            mesh = make_mesh(MeshConfig(**_mesh_sizes(config.mesh)))
         if config.ema_decay and not 0.0 < config.ema_decay < 1.0:
             raise ValueError(f"ema_decay={config.ema_decay} must be in (0, 1)")
         if config.model not in MODEL_REGISTRY:
@@ -274,8 +274,23 @@ class Trainer:
         if config.global_batch_size % data != 0:
             raise ValueError(f"global batch {config.global_batch_size} not divisible by "
                              f"data axis {data}")
+        # sequence parallelism: a seq axis above 1 shards the token axis of
+        # the batch; only ring and ulysses attention can run on a block
+        seq = mesh_sizes(mesh)[SEQ_AXIS]
+        if seq > 1 and self.model_config.attn_impl not in ("ring", "ulysses"):
+            raise ValueError(
+                f"mesh has seq={seq} but attn_impl={self.model_config.attn_impl!r} cannot "
+                "shard the sequence axis — use attn_impl='ring' or 'ulysses'")
+        if self.model_config.seq_len % seq != 0:
+            raise ValueError(f"seq_len {self.model_config.seq_len} not divisible by seq axis "
+                             f"{seq}")
+        # the layout of a step's batch over the mesh, by batch dim (JAX's
+        # P("data", "seq")): rows over data, token blocks over seq
+        self.batch_spec = (DATA_AXIS, SEQ_AXIS) if seq > 1 else (DATA_AXIS,)
         bound = axis_group(mesh, DATA_AXIS)
         self.data_size, self.data_index = (1, 0) if bound is None else bound[1:]
+        bound = axis_group(mesh, SEQ_AXIS)
+        self.seq_size, self.seq_index = (1, 0) if bound is None else bound[1:]
         self.num_devices = 1 if mesh is None else mesh.size()
         # under a mesh, rank 0 of the group writes checkpoints and every
         # rank waits for the write at a barrier
@@ -295,7 +310,7 @@ class Trainer:
         self.funcs = build_train_functions(
             make_model_init(self.model, self.tx),
             lambda model, batch, rng: self.loss_fn(model, batch, rng),
-            mesh, grad_sync_axes=(DATA_AXIS, MODEL_AXIS), grad_psum_axes=(PIPE_AXIS,),
+            mesh, grad_sync_axes=(DATA_AXIS, SEQ_AXIS, MODEL_AXIS), grad_psum_axes=(PIPE_AXIS,),
             num_minibatches=config.num_minibatches, grad_fn=grad_fn,
             eval_loss_fn=lambda model, batch, rng: self.eval_loss_fn(model, batch, rng),
             ema_decay=config.ema_decay,
@@ -303,11 +318,17 @@ class Trainer:
         self.state: Optional[TrainState] = None
 
     def local_rows(self, batch):
-        """This rank's rows of a global batch: the contiguous block of
-        ``size / data`` rows at its data coordinate (the whole batch on one
-        device)."""
+        """This rank's part of a global batch (``batch_spec``): the
+        contiguous block of ``size / data`` rows at its data coordinate
+        and, under sequence parallelism, of each row's tokens (tokens,
+        targets, positions, segment ids, loss mask) the block of ``seq_len
+        / seq`` at its seq coordinate (the whole batch on one device)."""
         n = batch.size // self.data_size
-        return batch.rows(self.data_index * n, (self.data_index + 1) * n)
+        batch = batch.rows(self.data_index * n, (self.data_index + 1) * n)
+        if self.seq_size == 1:
+            return batch
+        t = batch.tokens.shape[1] // self.seq_size
+        return batch.cols(self.seq_index * t, (self.seq_index + 1) * t)
 
     def init(self, params: Optional[Dict[str, torch.Tensor]] = None) -> TrainState:
         """A fresh state: masters from ``params`` (fp32 by parameter name)
@@ -575,7 +596,8 @@ class Trainer:
     def num_params(self) -> int:
         """Parameter count (logging and MFU): the whole model's, a pipeline
         stage's layers counted once per pipe rank (every stage holds as
-        many)."""
+        many).  Read off the parameters: no forward runs, so no ring or
+        all-to-all either (JAX traces a mesh-free twin for it)."""
         total = get_num_params(self.model)
         if self.model.pipe is not None:
             total += (self.model.pipe[1] - 1) * get_num_params(self.model.blocks)
