@@ -5,8 +5,9 @@ decoding, the int8 KV cache, beam search and int8 weight export, the
 trainer shell (data loading, checkpointed fit, 8k context), data
 parallelism (a process group, a mesh, synced gradients), FSDP (sharded
 parameters, state and checkpoints), tensor parallelism, pipeline
-parallelism on GPT-2 350M, and sequence parallelism (ring and Ulysses
-attention) at 32k context, at full width.
+parallelism on GPT-2 350M, sequence parallelism (ring and Ulysses
+attention) at 32k context, and mixture of experts with expert
+parallelism (``gpt2_moe_ep``), at full width.
 
     python3 chip_smoke.py
 
@@ -42,7 +43,7 @@ source, all started together).  Phases, in order; any failure raises:
    at the end of phase 6, after its counted steps;
 6. training: the ``Trainer`` at ``bench.py``'s shape (GPT-2 125M, flash,
    "proj_attn" remat, global batch 256 in 16 minibatches of [16, 1024]):
-   3 warm-up and 6 timed steps, launches per step, step time, tokens/s,
+   3 warm-up and 3 timed steps, launches per step, step time, tokens/s,
    MFU and peak memory; one minibatch's loss and gradients against the
    xla path; a profile of one step;
 7. serve: the continuous-batching ``ServingEngine`` on GPT-2 125M (bf16,
@@ -143,13 +144,13 @@ source, all started together).  Phases, in order; any failure raises:
    Both kernels at the packed training pass [16, 1024] with the segment ids
    of the fit's first minibatch, and at the 8k pass [2, 8192], against the
    plain versions under phase 2's and 2b's rules.  ``Trainer.fit`` on
-   ``gpt2_125m_corpus`` over packed rows (12 steps; checkpoints and
+   ``gpt2_125m_corpus`` over packed rows (8 steps; checkpoints and
    held-out evaluation every 4; the best snapshot): 24 ``flash_fwd`` and 24
    ``flash_bwd`` launches per step, forwards only in evaluation, a falling
-   loss, ``best/`` with ``best_loss.json``; a new Trainer resumes at 12
-   (state restored bitwise) and runs to 16; a third fails once through the
-   step seam at step 14 of a run to 18, rolls back, replays ``batch_at(14)``
-   and ends at 18; save (blocking snapshot, background write), restore and
+   loss, ``best/`` with ``best_loss.json``; a new Trainer resumes at 8
+   (state restored bitwise) and runs to 10; a third fails once through the
+   step seam at step 9 of a run to 12, rolls back, replays ``batch_at(9)``
+   and ends at 12; save (blocking snapshot, background write), restore and
    eval times; packed against flat step time and the kernels' share of a
    step.  ``gpt2_125m_long`` (16 rows of 8192 in 8 minibatches,
    ``loss_chunk=1024``): 96 launches of each kernel per step, step time,
@@ -161,8 +162,10 @@ source, all started together).  Phases, in order; any failure raises:
    "proj_attn", each policy's peak memory and ms.  The final masters as a
    serving weight set (verified; a flipped byte refused) served through
    ``rebind_params`` against static ``generate()`` on the trainer's module.
-   ``python -m tpu_parallel_torch.train`` in a subprocess (exit 0, its
-   trace's spans, its metrics' ``train_loss``).
+   ``python -m tpu_parallel_torch.train`` in a subprocess at
+   ``CLI_LAYERS`` layers, started after the timed legs above and
+   collected at the phase's end (exit 0, its trace's spans, its metrics'
+   ``train_loss``).
 12. data parallelism on ``gpt2_125m_dp`` ([64, 1024] in one minibatch):
    both kernels at that shape [64, 12, 1024, 64] against the plain
    versions; then three legs, (a) and (b) subprocesses of this script
@@ -181,13 +184,15 @@ source, all started together).  Phases, in order; any failure raises:
    ``LOSS_TOL``; each rank's all-reduce ms and peak memory.  (c)
    ``python -m torch.distributed.run --standalone --nproc_per_node=1 -m
    tpu_parallel_torch.train --config=gpt2_125m_dp`` for 3 steps on
-   ``CLI_ROWS`` rows: exit 0, a topology line with one process and NCCL,
+   ``CLI_ROWS`` rows at ``CLI_LAYERS`` layers (as phases 13-15's CLI
+   legs): exit 0, a topology line with one process and NCCL,
    ``train_loss`` in its metrics.  It runs beside phases 13-16's CLI
    legs and (b)'s reference, which times nothing; all are collected
    before any later timed leg.
 13. FSDP: ``gpt2_125m_dp`` with ``model_overrides.fsdp=True`` (the blocks,
    the embedding and the lm_head sharded over the data axis), the same
-   legs.  (a) An NCCL group of one: 3 steps with 12 ``flash_fwd`` and 12
+   legs.  (a) An NCCL group of one (phase 12 (a)'s process and group,
+   after its steps): 3 steps with 12 ``flash_fwd`` and 12
    ``flash_bwd`` launches, 26 gathers, 14 reduce-scatters and one
    all-reduce per step, a falling loss within ``LOSS_TOL`` of phase 12
    (a)'s; step ms beside phase 12 (a)'s, one block's, the embedding's and
@@ -313,7 +318,42 @@ source, all started together).  Phases, in order; any failure raises:
    tokens at ``SP_CLI_LAYERS`` layers, one row, ``--device=cuda:0
    --backend=gloo`` (started and collected in phase 12): exit 0 on every
    rank, (r + 1) x ``SP_CLI_LAYERS`` launches per step on rank r, a
-   falling loss equal on every rank, ``train_loss`` in its metrics.
+   falling loss equal on every rank, ``train_loss`` in its metrics;
+17. mixture of experts: ``gpt2_moe_ep``'s model (GPT-2 125M with 8
+   experts per layer, top-1, capacity 1.25, flash, bf16, "proj_attn";
+   559.9M parameters) at full width and depth, ``MOE_ROWS`` rows of 1024
+   per step (the config has 64).  Both kernels at one EP rank's shape
+   [8, 1024] x 3 heads against the plain versions, timed in turns with
+   SDPA.  (a) one device: a forward on [8, 1024] against the same weights
+   under ``attn_impl="xla"`` on the flash pass's expert choices (routing
+   pinned: bf16 noise flips near-tied choices at random init), the loss
+   and the logits token by token within their limits, at the config's
+   capacity and at ample capacity, greedy ``generate()`` on 4 ragged
+   prompts (decode routes 4 tokens into 1 slot per expert), twice bitwise
+   equal, the serving engine on the same prompts with fused T=4 ticks run
+   eagerly and replayed as a CUDA graph (greedy tokens bitwise equal), and
+   the index dispatch against ``_dispatch_masks`` and the einsums on layer
+   0's input, [2, 128] in fp32, at capacity factors 1.25 and 0.5 (the
+   same slots exactly, outputs within 1e-5).  (b) a one-process reference
+   with every expert (run in this process): 4 steps (the first at
+   learning rate 0), its step-1 synced gradients and every step's expert
+   choices kept, the dropped share of a forward's choices under the dense
+   dispatch and the all-to-all's quota.  Then four gloo ranks sharing the
+   card on a data=1 x model=4 mesh (2 experts and 3 heads per rank): (c)
+   the dense dispatch on (b)'s expert choices, 4 counted steps on one
+   seeded batch with losses within ``LOSS_TOL`` of (b)'s, the step-1
+   synced gradients within ``TRAIN_GRAD_TOL`` per weight of (b)'s,
+   replicated masters bitwise equal across the ranks, 12/12 launches and
+   the collectives derived from the schedule per step (55 model-axis
+   all-reduces, one gradient all-reduce), and in fp32 (xla attention,
+   full depth, 2 rows, routed alike) the synced gradients, expert stacks
+   assembled after the sync, within 1e-4 per weight of one process's;
+   (d) the all-to-all dispatch in the same ranks: the same launches, 67
+   all-reduces, 72 all-to-alls, 12 all-gathers and 12 reduce-scatters per
+   step, finite and falling losses (its per-sender quota drops other
+   choices, so no equality with (c)); state bytes, peak memory, step wall
+   against (b)'s, host ms per 25.2 MB combine all-reduce and per
+   all-to-all.
 
 Weights and inputs are made from ``SEED``.  The kernel launch counters are
 set to 0 before each main path (phases 3-4: inference; phase 6's steps:
@@ -321,12 +361,14 @@ training; phases 7-10: serving, which must leave them at 0; phase 11's
 packed fit and its 8k steps; phase 12's and phase 13's legs (a), in their
 subprocesses; phase 14's CLI leg and its leg (b)'s steps; phase 15's CLI
 leg and its leg (b)'s steps; phase 16's CLI leg and the steps of its
-legs (b) and (c) in every rank) and read after it.  The last two lines
+legs (b) and (c) in every rank; phase 17 (a)'s forward and the steps of
+(c) and (d) in every rank) and read after it.  The last two lines
 are the ``kernels`` JSON object and the ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import subprocess
@@ -1020,8 +1062,8 @@ def train_phase(seed, card_name):
     from tpu_parallel_torch.train_lib import Trainer, TrainerConfig
     from tpu_parallel_torch.utils.profiling import peak_flops, transformer_flops_per_token
 
-    # 6 timed steps (12 until the whole run neared its time limit)
-    warmup, timed = 3, 6
+    # 3 timed steps (12, then 6, until the whole run neared its time limit)
+    warmup, timed = 3, 3
     config = TrainerConfig(
         model="gpt2_125m", global_batch_size=256, num_minibatches=16, steps=warmup + timed,
         seed=seed, model_overrides=dict(dropout_rate=0.0, remat=True, remat_policy="proj_attn",
@@ -1140,7 +1182,7 @@ BITWISE_RUNS = ("fused_eager", "fused_graph", "fused_graph_overlap", "unified_gr
 # runs with a pure-decode stretch, and its decode steps per timed and per
 # profiled window (the profiled window's trace takes most of a stretch's
 # seconds; 32 steps keep the run inside its time limit)
-STRETCH_STEPS = 32
+STRETCH_STEPS = 8
 STRETCH_RUNS = ("per_step", "fused_eager", "fused_graph", "fused_graph_overlap",
                 "paged_unified_graph")
 # an fp32 engine token that differs from static generate() must sit on a
@@ -2037,7 +2079,7 @@ SPEC_DRAFT = 4  # draft tokens: verify blocks of [16 slots, 5]
 SPEC_FUSED_STEPS = 4
 SPEC_BLOCK_TOKENS, SPEC_POOL_BLOCKS = 32, 512
 SPEC_FP32_REQUESTS = 8
-SPEC_STRETCH_STEPS = 16  # decode (verify) steps per measured and per profiled window
+SPEC_STRETCH_STEPS = 8  # decode (verify) steps per measured and per profiled window
 
 
 class OracleDrafter:
@@ -2447,7 +2489,7 @@ INT8_TIE_GAP = 1e-2
 BEAM_PROMPTS, BEAM_PROMPT_LEN, BEAM_WIDTH, BEAM_NEW = 4, 256, 4, 64
 BEAM_PROFILED_NEW = 18  # profiled calls of 18 and 2 new tokens: 16 steps apart
 BEAM_FP32_NEW = 16
-EXTRAS_STRETCH_TICKS = 4  # fused T=8 ticks per timed and per profiled window
+EXTRAS_STRETCH_TICKS = 1  # fused T=8 ticks per timed and per profiled window
 WEIGHT_TOKENS, WEIGHT_GREEDY = (4, 256), 32
 
 
@@ -2825,7 +2867,7 @@ def extras_phase(seed, smi, bf16_tokens, bf16_spec_tokens):
 # corpus made on the card from the repo's and the standard library's sources)
 CORPUS_CAP = 16 * 2**20  # tokens
 EOS_ID = 50256  # GPT-2's <|endoftext|>
-FIT_STEPS, RESUME_STEPS, ROLLBACK_STEPS, FAIL_AT = 12, 16, 18, 14
+FIT_STEPS, RESUME_STEPS, ROLLBACK_STEPS, FAIL_AT = 8, 10, 12, 9
 FIT_EVERY = 4  # checkpoint_every and eval_every of the packed fit
 SHELL_WARMUP = 2  # warmup_steps of phase 11's short runs (the configs' own are 10-100)
 SHELL_STEPS = 4  # steps of the optimizer, EMA and dropout legs
@@ -3069,7 +3111,7 @@ def packed_fit_leg(seed, work, corpus):
                   evals=[(s, m) for s, m in logged if "eval_loss" in m], best=best_loss,
                   launches=launches)
 
-    # resume: a new Trainer on the same directory, restored bitwise, to 16
+    # resume: a new Trainer on the same directory, restored bitwise, to RESUME_STEPS
     ckpt = Checkpointer(run)
     saved = ckpt.load(FIT_STEPS)
     report["checkpoint_bytes"] = ckpt.bytes_on_disk(FIT_STEPS)
@@ -3101,8 +3143,8 @@ def packed_fit_leg(seed, work, corpus):
     del t2
     gc.collect()
 
-    # rollback: checkpoint 12 in a directory of its own; the step seam
-    # fails once at step 14 of a run to 18
+    # rollback: checkpoint FIT_STEPS in a directory of its own; the step
+    # seam fails once at step FAIL_AT of a run to ROLLBACK_STEPS
     run3 = os.path.join(work, "rollback")
     os.makedirs(run3)
     shutil.copytree(os.path.join(run, str(FIT_STEPS)), os.path.join(run3, str(FIT_STEPS)))
@@ -3119,7 +3161,7 @@ def packed_fit_leg(seed, work, corpus):
     def flaky_step(state, metrics, batch):
         if state.step == FAIL_AT and not boom["done"]:
             boom["done"] = True
-            raise RuntimeError("injected failure at step 14")
+            raise RuntimeError(f"injected failure at step {FAIL_AT}")
         return real_step(state, metrics, batch)
 
     t3.step_fn = flaky_step
@@ -3430,32 +3472,35 @@ def serve_weights_leg(seed, work, trained, prompts):
                 requests=results)
 
 
-def cli_leg(work, corpus):
-    """(h): ``python -m tpu_parallel_torch.train`` in a subprocess on the
-    packed corpus with a checkpoint directory, a trace and metrics."""
-    import os
-
-    here = Path(__file__).resolve().parent
+def cli_launch(work, corpus):
+    """(h), launched: ``python -m tpu_parallel_torch.train`` in a subprocess
+    on the packed corpus with a checkpoint directory, a trace and metrics;
+    :func:`cli_check` holds it."""
     trace, metrics = Path(work, "trace.json"), Path(work, "metrics.prom")
     cmd = [sys.executable, "-m", "tpu_parallel_torch.train", "--config=gpt2_125m_corpus",
-           "--config.steps=3", f"--config.data_path={corpus}", "--config.data_format=packed",
+           "--config.steps=3", f"--config.model_overrides.n_layers={CLI_LAYERS}",
+           f"--config.data_path={corpus}", "--config.data_format=packed",
            f"--config.checkpoint_dir={Path(work, 'cli_ckpt')}", f"--trace-out={trace}",
            f"--metrics-out={metrics}"]
-    env = dict(os.environ, PYTHONPATH=str(here))
-    start = time.perf_counter()
-    out = subprocess.run(cmd, cwd=here, env=env, capture_output=True, text=True, timeout=600)
-    wall = time.perf_counter() - start
-    if out.returncode != 0:
-        raise AssertionError(f"the CLI exited {out.returncode}: {out.stderr[-2000:]}")
+    return _launch(cmd), trace, metrics
+
+
+def cli_check(launched):
+    """(h): exit 0, the trace's ``data_wait`` and ``compute`` spans, the
+    metrics' ``train_loss``."""
+    handle, trace, metrics = launched
+    out, wall = _finish(handle, "the CLI")
     names = {e["name"] for e in json.loads(trace.read_text())["traceEvents"]}
     if not {"data_wait", "compute"} <= names or "train_loss" not in metrics.read_text():
         raise AssertionError(f"CLI trace spans {names} or metrics without train_loss")
-    return dict(wall_s=wall, stdout_tail=out.stdout.strip().splitlines()[-3:])
+    return dict(wall_s=wall, stdout_tail=out.strip().splitlines()[-3:])
 
 
 def trainer_phase(seed, smi):
     """Phase 11: the trainer shell on GPT-2 125M (see the module
-    docstring).  Returns the phase's report and the kernels' rows and
+    docstring).  Its CLI leg starts after the timed packed and 8k legs,
+    beside the optimizer, dropout and serving legs, and is collected at
+    the end.  Returns the phase's report and the kernels' rows and
     launches on the packed and the long training paths."""
     import shutil
     import tempfile
@@ -3541,6 +3586,7 @@ def trainer_phase(seed, smi):
             f"{c['peak_memory']['chunked'] / 2**30:.2f} GiB, full "
             f"{c['peak_memory']['full'] / 2**30:.2f} GiB")
 
+        cli_launched = cli_launch(work, corpus)
         eval_batches = [loader.eval_view().batch_at(i) for i in range(2)]
         opt = optimizer_leg(seed, batch, eval_batches)
         lap("optimizers_dropout")
@@ -3573,9 +3619,10 @@ def trainer_phase(seed, smi):
             f"and verified; a flipped byte refused: {serve['refused']}; served through "
             f"rebind_params: {serve['requests']}")
 
-        cli = cli_leg(work, corpus)
+        cli = cli_check(cli_launched)
         lap("cli")
-        log(f"[trainer cli] python -m tpu_parallel_torch.train exited 0 in {cli['wall_s']:.1f} s; "
+        log(f"[trainer cli] python -m tpu_parallel_torch.train exited 0, collected "
+            f"{cli['wall_s']:.1f} s after its launch (beside the legs above); "
             f"trace has data_wait and compute spans, metrics train_loss; {cli['stdout_tail']}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -3667,7 +3714,9 @@ def dp_nccl_leg():
     rank: ``initialize()``, ``Trainer(gpt2_125m_dp)`` over
     ``make_mesh(MeshConfig(data=-1))``, DP_STEPS counted steps on a fixed
     seeded batch, then the timed steps, the all-reduce alone on the flat
-    fp32 gradient buffer, and the same steps with no group."""
+    fp32 gradient buffer; phase 13 (a) in the same group
+    (:func:`fsdp_nccl_part`, under the key ``"fsdp"``: one process start
+    for both); and the DP steps with no group."""
     import torch.distributed as dist
 
     from tpu_parallel_torch.core.metrics import compute
@@ -3716,6 +3765,9 @@ def dp_nccl_leg():
                   max_memory_allocated=peak, mesh_shape=list(mesh.shape),
                   device=str(trainer.device))
     del trainer, state, flat, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    result["fsdp"] = fsdp_nccl_part(info)
     gc.collect()
     torch.cuda.empty_cache()
     dist.destroy_process_group()
@@ -3892,7 +3944,7 @@ def _run_leg(args, env=None, timeout=DP_LEG_TIMEOUT):
 # the legs that run as several rank processes; each is started early by
 # _spawn_ranks, imports what the legs use (torch's first selective checkpoint
 # imports torch._dynamo) and waits for _join_ranks to let it run
-RANK_LEGS = ("dp_pair", "fsdp_pair", "tp_pair", "pp_rank", "sp_rank")
+RANK_LEGS = ("dp_pair", "fsdp_pair", "tp_pair", "pp_rank", "sp_rank", "moe_rank")
 RANK_START_TIMEOUT = 1200
 
 
@@ -3979,11 +4031,16 @@ def _share_cores(n):
     torch.set_num_threads(max(1, (os.cpu_count() or n) // n))
 
 
-# the torchrun CLI legs of phases 12-15 each start a process, build GPT-2
+# the torchrun CLI legs of phases 12-16 each start a process, build GPT-2
 # and run 3 steps: they run together, at CLI_ROWS rows, while phase 12 (b)'s
 # reference (which times nothing) runs, and all are collected before any
-# timed leg that follows
+# timed leg that follows (phase 11's CLI, whose evaluation needs 6 GiB of
+# logits, ran out of memory beside them on a crowded card, so it runs in
+# phase 11)
 CLI_ROWS = 8
+# and at CLI_LAYERS of their models' layers (the run's time limit): they
+# hold the CLI's plumbing, which depth does not change
+CLI_LAYERS = 2
 
 
 _LAUNCHED = []  # every _launch'ed process, killed by main's exit if still running
@@ -4057,6 +4114,7 @@ def dp_cli_leg(work):
     metrics = Path(work, "dp_metrics.prom")
     return _launch(_torchrun("-m", "tpu_parallel_torch.train", "--config=gpt2_125m_dp",
                              f"--config.steps={DP_STEPS}",
+                             f"--config.model_overrides.n_layers={CLI_LAYERS}",
                              f"--config.global_batch_size={CLI_ROWS}",
                              f"--metrics-out={metrics}")), metrics
 
@@ -4086,10 +4144,10 @@ def dp_cli_check(collected):
 def dp_phase(smi, work):
     """Phase 12: the kernels at the DP step's shape against their plain
     versions, then legs (a), (b) and (c), in the directory ``work`` (leg
-    (b)'s ``pair.pt`` stays there for phase 13).  Phases 13-15's CLI
+    (b)'s ``pair.pt`` stays there for phase 13).  Phases 13-16's CLI
     legs start with leg (c), beside leg (b)'s reference.  Returns the
     report, the kernels' rows, leg (a)'s launches and the collected CLI
-    legs of phases 13-15."""
+    legs of phases 13-16."""
     start = time.perf_counter()
     legs_s = {}
 
@@ -4106,6 +4164,7 @@ def dp_phase(smi, work):
     env = dict(WORLD_SIZE="1", RANK="0", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
                MASTER_PORT=str(_free_port()))
     nccl = _run_leg(["dp_nccl"], env=env)
+    nccl_fsdp = nccl.pop("fsdp")  # phase 13 (a), printed there
     lap("nccl")
     log(f"[dp nccl] {nccl['process_info']}; mesh {nccl['mesh_shape']} on {nccl['device']}; "
         f"gpt2_125m_dp [64, 1024] in 1 minibatch, losses "
@@ -4125,8 +4184,8 @@ def dp_phase(smi, work):
     if pair[0]["losses"] != pair[1]["losses"]:
         raise AssertionError(f"leg (b) ranks' synced losses differ: {pair}")
     lap("pair")
-    # phases 12-15's CLI legs run together with the pair's reference and
-    # are all collected before the timed legs of phases 13-15
+    # phases 12-16's CLI legs run together with the pair's reference and
+    # are all collected before the timed legs of phases 13-16
     clis = dict(dp=dp_cli_leg(work), fsdp=fsdp_cli_leg(work), tp=tp_cli_leg(work),
                 pp=pp_cli_leg(work), sp=sp_cli_leg(work))
     ref = _reference(dp_pair_reference_leg, work)
@@ -4155,15 +4214,17 @@ def dp_phase(smi, work):
         + ", ".join(f"{p['max_memory_allocated'] / 2**30:.2f} GiB" for p in pair))
     cli = dp_cli_check(clis.pop("dp"))
     log(f"[dp cli] torchrun --standalone --nproc_per_node=1 -m tpu_parallel_torch.train "
-        f"--config=gpt2_125m_dp --config.steps={DP_STEPS} --config.global_batch_size="
-        f"{CLI_ROWS} (beside phases 13-16's CLI legs and the pair's reference): exit 0, "
+        f"--config=gpt2_125m_dp --config.steps={DP_STEPS} --config.model_overrides.n_layers="
+        f"{CLI_LAYERS} --config.global_batch_size={CLI_ROWS} (beside phases 13-16's CLI legs "
+        f"and the pair's reference): exit 0, "
         f"collected {cli['wall_s']:.1f} s after its launch; "
         f"topology {cli['topology']}; metrics have train_loss; {cli['stdout_tail']}")
     phase_s = time.perf_counter() - start
     log(f"[dp] phase 12 took {phase_s:.1f} s ("
         + ", ".join(f"{k} {v:.1f}" for k, v in legs_s.items()) + ")")
     log(f"card: {smi}")
-    return dict(nccl=nccl, pair=pair, pair_reference=ref, cli=cli, phase_s=phase_s,
+    return dict(nccl=nccl, nccl_fsdp=nccl_fsdp, pair=pair, pair_reference=ref, cli=cli,
+                phase_s=phase_s,
                 legs_s=legs_s), rows, nccl["launches"], clis
 
 # phase 13: FSDP on the card (``gpt2_125m_dp`` with ``model_overrides.fsdp``:
@@ -4262,22 +4323,16 @@ def _unit_collectives(unit, time_fn):
                 reduce_scatter_bytes=numel * 4)
 
 
-def fsdp_nccl_leg():
-    """Leg (a), in its own process under torchrun's environment for one
-    rank: ``Trainer(gpt2_125m_dp, fsdp=True)`` over ``make_mesh(
+def fsdp_nccl_part(info):
+    """Leg (a), in phase 12 (a)'s process and NCCL group of one:
+    ``Trainer(gpt2_125m_dp, fsdp=True)`` over ``make_mesh(
     MeshConfig(data=-1))``, FSDP_STEPS counted steps on the fixed seeded
     batch of phase 12 (a), then the timed steps, one block's and the
     lm_head's gather and reduce-scatter alone, the state's bytes."""
-    import torch.distributed as dist
-
     from tpu_parallel_torch.core.metrics import compute
-    from tpu_parallel_torch.runtime import MeshConfig, initialize, make_mesh, process_info
+    from tpu_parallel_torch.runtime import MeshConfig, make_mesh
     from tpu_parallel_torch.train_lib import Trainer
 
-    initialize()
-    info = process_info()
-    if info["backend"] != "nccl" or info["process_count"] != 1:
-        raise AssertionError(f"leg (a) wants an NCCL group of one: {info}")
     config = _fsdp_config()
     mesh = make_mesh(MeshConfig(data=-1))
     trainer = Trainer(config, mesh, device="cuda")
@@ -4322,7 +4377,7 @@ def fsdp_nccl_leg():
                   n_replicated=len(state.params) - len(state.shards), step_host_ms=host,
                   step_device_ms=device, max_memory_allocated=peak,
                   mesh_shape=list(mesh.shape), device=str(trainer.device))
-    dist.destroy_process_group()
+    del trainer, state, batch
     return result
 
 
@@ -4555,6 +4610,7 @@ def fsdp_cli_leg(work):
     return _launch(_torchrun("-m", "tpu_parallel_torch.train", "--config=gpt2_125m_dp",
                              "--config.model_overrides.fsdp=True",
                              f"--config.steps={FSDP_STEPS}",
+                             f"--config.model_overrides.n_layers={CLI_LAYERS}",
                              f"--config.global_batch_size={CLI_ROWS}",
                              f"--metrics-out={metrics}")), metrics
 
@@ -4582,10 +4638,7 @@ def fsdp_phase(smi, work, dp_report, dp_save, cli_collected):
         legs_s[name] = time.perf_counter() - start - sum(legs_s.values())
 
     pair = _spawn_ranks("fsdp_pair", work, 2)
-    env = dict(WORLD_SIZE="1", RANK="0", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
-               MASTER_PORT=str(_free_port()))
-    nccl = _run_leg(["fsdp_nccl"], env=env)
-    lap("nccl")
+    nccl = dp_report["nccl_fsdp"]  # run in phase 12 (a)'s process
     dp = dp_report["nccl"]
     diffs = [abs(a - b) for a, b in zip(nccl["losses"], dp["losses"])]
     if max(diffs) > LOSS_TOL:
@@ -4670,6 +4723,7 @@ def fsdp_phase(smi, work, dp_report, dp_save, cli_collected):
     cli = fsdp_cli_check(cli_collected)
     log(f"[fsdp cli] torchrun --standalone --nproc_per_node=1 -m tpu_parallel_torch.train "
         f"--config=gpt2_125m_dp --config.model_overrides.fsdp=True --config.steps={FSDP_STEPS} "
+        f"--config.model_overrides.n_layers={CLI_LAYERS} "
         f"--config.global_batch_size={CLI_ROWS} (started and collected in phase 12): exit 0, "
         f"collected {cli['wall_s']:.1f} s after its launch; {cli['stdout_tail']}")
     phase_s = time.perf_counter() - start
@@ -4686,9 +4740,9 @@ def fsdp_phase(smi, work, dp_report, dp_save, cli_collected):
 # data=1 x model=2 mesh: (b) training, (c) a model-sharded checkpoint,
 # (d) ``generate_sharded`` and (e) the engine over the mesh.
 TP_STEPS = 3  # counted steps of legs (a) and (b)
-# legs (b)-(e) and their reference run gpt2_125m_tp at half its 12 layers:
-# the whole run stays inside its time limit with phase 15 (PERF.md)
-TP_PAIR_LAYERS = 6
+# legs (b)-(e) and their reference run gpt2_125m_tp at 2 of its 12 layers:
+# the whole run stays inside its time limit with phases 15-17 (PERF.md)
+TP_PAIR_LAYERS = 2
 TP_SHAPE = (32, 6, 6, 1024, 64, dict(causal=True), False, 10)  # one rank's flash shape
 TP_PROMPT_LENS = (32, 20, 27, 12)  # leg (d)'s ragged prompts, left-padded to 32
 TP_NEW = 32  # new tokens per prompt in legs (d) and (e)
@@ -4719,15 +4773,6 @@ TP_FP32_GRAD_TOL = 1e-4
 def _tp_config(**changes):
     config, _ = _shell_config("gpt2_125m_tp", seed=SEED, **changes)
     return config
-
-
-def _tp_layers():
-    """``gpt2_125m_tp``'s layer count: the kernels' launches per step."""
-    from tpu_parallel_torch.train_lib import MODEL_REGISTRY
-
-    config = _tp_config()
-    return MODEL_REGISTRY[config.model](**{k: v for k, v in config.model_overrides.items()
-                                           if v is not None}).n_layers
 
 
 def _tp_batches(vocab, device):
@@ -5125,6 +5170,7 @@ def tp_cli_rank_leg(metrics):
     Trainer.step_fn = step
     _reset_launches()  # the main path starts here
     code = train.main(["--config=gpt2_125m_tp", f"--config.steps={TP_STEPS}",
+                       f"--config.model_overrides.n_layers={CLI_LAYERS}",
                        f"--config.global_batch_size={CLI_ROWS}", "--config.log_every=1",
                        f"--metrics-out={metrics}"])
     return dict(exit=code, launches_per_step=per_step, losses=losses,
@@ -5141,9 +5187,9 @@ def tp_cli_leg(work):
 
 
 def tp_cli_check(collected):
-    """Leg (a): exit 0, a topology line with one NCCL process, 12 launches
-    of each kernel per step, a falling loss, ``train_loss`` in the
-    metrics."""
+    """Leg (a): exit 0, a topology line with one NCCL process, CLI_LAYERS
+    launches of each kernel per step, a falling loss, ``train_loss`` in
+    the metrics."""
     (out, wall), metrics = collected
     topology = [json.loads(line[len("topology: "):]) for line in out.splitlines()
                 if line.startswith("topology: ")]
@@ -5152,7 +5198,7 @@ def tp_cli_check(collected):
         raise AssertionError(f"CLI topology lines {topology}")
     result = json.loads([line for line in out.splitlines()
                          if line.startswith(DP_RESULT)][-1][len(DP_RESULT):])
-    layers = _tp_layers()
+    layers = CLI_LAYERS
     if result["exit"] != 0 or result["launches_per_step"] != [[layers, layers]] * TP_STEPS:
         raise AssertionError(f"leg (a): exit {result['exit']}, launches per step "
                              f"{result['launches_per_step']}, want {layers} of each")
@@ -5182,8 +5228,8 @@ def tp_phase(smi, work, cli_collected):
     lap("kernels")
     cli = tp_cli_check(cli_collected)
     log(f"[tp cli] torchrun --standalone --nproc_per_node=1 over -m tpu_parallel_torch.train's "
-        f"main --config=gpt2_125m_tp --config.steps={TP_STEPS} --config.global_batch_size="
-        f"{CLI_ROWS} (a model axis of 1; started and collected in phase 12): exit 0, "
+        f"main --config=gpt2_125m_tp --config.steps={TP_STEPS} --config.model_overrides."
+        f"n_layers={CLI_LAYERS} --config.global_batch_size={CLI_ROWS} (a model axis of 1; started and collected in phase 12): exit 0, "
         f"collected {cli['wall_s']:.1f} s after its launch; topology {cli['topology']}; "
         f"launches per step "
         f"(flash_fwd, "
@@ -5719,6 +5765,7 @@ def pp_cli_rank_leg(metrics):
     _reset_launches()  # the main path starts here
     code = train.main(["--config=gpt2_350m_pp", "--config.mesh.pipe=1",
                        "--config.model_overrides.pipe_interleave=1",
+                       f"--config.model_overrides.n_layers={CLI_LAYERS}",
                        f"--config.steps={PP_STEPS}", f"--config.global_batch_size={CLI_ROWS}",
                        "--config.log_every=1", f"--metrics-out={metrics}"])
     return dict(exit=code, launches_per_step=per_step, losses=losses,
@@ -5747,7 +5794,7 @@ def pp_cli_check(collected):
         raise AssertionError(f"CLI topology lines {topology}")
     result = json.loads([line for line in out.splitlines()
                          if line.startswith(DP_RESULT)][-1][len(DP_RESULT):])
-    want = [2 * PP_MICRO * 24, PP_MICRO * 24]
+    want = [2 * PP_MICRO * CLI_LAYERS, PP_MICRO * CLI_LAYERS]
     if result["exit"] != 0 or result["launches_per_step"] != [want] * PP_STEPS:
         raise AssertionError(f"leg (a): exit {result['exit']}, launches per step "
                              f"{result['launches_per_step']}, want {want}")
@@ -5779,7 +5826,8 @@ def pp_phase(smi, work, cli_collected):
     cli = pp_cli_check(cli_collected)
     log(f"[pp cli] torchrun --standalone --nproc_per_node=1 over -m tpu_parallel_torch.train's "
         f"main --config=gpt2_350m_pp --config.mesh.pipe=1 --config.model_overrides."
-        f"pipe_interleave=1 (pipe_schedule='1f1b' added to the loaded config) --config.steps="
+        f"pipe_interleave=1 --config.model_overrides.n_layers={CLI_LAYERS} (pipe_schedule="
+        f"'1f1b' added to the loaded config) --config.steps="
         f"{PP_STEPS} --config.global_batch_size={CLI_ROWS} (NCCL, a group of one; started and "
         f"collected in phase 12): exit 0, collected {cli['wall_s']:.1f} s after its launch; "
         f"topology {cli['topology']}; launches per step (flash_fwd, flash_bwd) "
@@ -6518,20 +6566,754 @@ def sp_phase(smi, work, cli_collected):
                  legs_s=legs_s), rows, dict(past=past, diagonal=diag), r0["ulysses"]["launches"])
 
 
+# phase 17: mixture of experts with expert parallelism: ``gpt2_moe_ep``
+# (GPT-2 125M, 8 experts per layer, top-1, capacity 1.25, flash) at full
+# width and depth, bf16, "proj_attn", MOE_ROWS rows per step (the config has
+# 64: see PERF.md).  (a) one device, the serving path; (b) one process
+# training with every expert, the reference, in this process; (c) four gloo
+# ranks sharing the card on a data=1 x model=4 mesh, dense dispatch; (d) the
+# same ranks with the all-to-all dispatch.
+MOE_RANKS = 4
+MOE_ROWS = 8  # global batch (the config has 64): every rank of the model axis runs all rows
+MOE_STEPS = 4  # step 1's learning rate is 0 (warm-up): the losses cover 2 updates
+MOE_SHAPE = (MOE_ROWS, 3, 3, 1024, 64, dict(causal=True), False, 20)  # one rank's flash shape
+MOE_PROMPT_LENS = (32, 20, 27, 12)  # (a)'s ragged prompts, left-padded to 32
+MOE_NEW = 16  # new tokens per prompt in (a)
+MOE_DISPATCH_SHAPE = (2, 128)  # (a)'s token set for the index dispatch against the masks
+MOE_DISPATCH_TOL = 1e-5
+MOE_LEG_TIMEOUT = 600
+# (c)'s synced step-1 gradients in fp32 (TF32 off, xla attention) at full
+# width and depth on MOE_FP32_ROWS rows, routed alike, where the split changes
+# only fp32 rounding: per weight within MOE_FP32_GRAD_TOL of one process's
+# (phase 14's limit)
+MOE_FP32_ROWS = 2
+MOE_FP32_GRAD_TOL = TP_FP32_GRAD_TOL
+
+
+def _moe_config(**changes):
+    over = dict(remat_policy="proj_attn", **changes.pop("model_overrides", {}))
+    changes = dict(dict(seed=SEED, global_batch_size=MOE_ROWS, warmup_steps=SHELL_WARMUP),
+                   **changes)
+    config, _ = _shell_config("gpt2_moe_ep", model_overrides=over, **changes)
+    return config
+
+
+def _moe_model_config(**changes):
+    """``gpt2_moe_ep``'s model config (with (b)-(d)'s overrides)."""
+    from tpu_parallel_torch.train_lib import MODEL_REGISTRY
+
+    config = _moe_config()
+    kw = {k: v for k, v in config.model_overrides.items() if v is not None}
+    return MODEL_REGISTRY[config.model](**{**kw, **changes})
+
+
+def _moe_batches(vocab, device):
+    """One seeded global batch of [MOE_ROWS, 1024] for each of the MOE_STEPS
+    steps (the same rows: on random tokens a falling loss needs them)."""
+    from tpu_parallel_torch.data import lm_batch
+
+    return [lm_batch(torch.Generator().manual_seed(SEED + 110), MOE_ROWS, SHELL_SEQ, vocab,
+                     device=device)] * MOE_STEPS
+
+
+def _moe_draws():
+    """The seeded fp32 draws of ``gpt2_moe_ep``'s model by name at full
+    shape, from the one-device model built on the meta device (the names
+    and draws of every layout).  (b)-(d) and the fp32 pass take one set per
+    process (the draws are most of a Trainer's init), the ranks' made
+    before they are let run, beside (a) and (b)."""
+    from tpu_parallel_torch.models import GPTLM
+    from tpu_parallel_torch.models.convert import init_params
+
+    return init_params(GPTLM(_moe_model_config(), device="meta"), _moe_config().seed)
+
+
+def _moe_fp32_grads(mesh, device, draws, routes=None):
+    """The synced step-1 gradients of ``gpt2_moe_ep``'s model in fp32 (xla
+    attention) from ``draws`` on MOE_FP32_ROWS seeded rows, assembled on
+    the host (a collective under a mesh), the config, and the expert
+    choices the pass made: pinned to ``routes`` where given
+    (:class:`_PinnedRoutes`)."""
+    from tpu_parallel_torch.data import lm_batch
+    from tpu_parallel_torch.train_lib import Trainer
+
+    model = 1 if mesh is None else MOE_RANKS
+    config = _moe_config(global_batch_size=MOE_FP32_ROWS,
+                         mesh=dict(data=1, model=model, pipe=1, seq=1),
+                         model_overrides=dict(dtype=torch.float32, attn_impl="xla"))
+    trainer = Trainer(config, mesh, device=device)
+    state = trainer.init(draws)
+    batch = lm_batch(torch.Generator().manual_seed(SEED + 115), MOE_FP32_ROWS, SHELL_SEQ,
+                     trainer.model_config.vocab_size, device=device)
+    pins = _PinnedRoutes(trainer.model, routes)
+    try:
+        grads = _tp_assembled(state, _tp_grads(trainer, state, batch, mesh))
+    finally:
+        pins.close()
+    cfg = trainer.model_config
+    del trainer, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return grads, cfg, pins
+
+
+def _moe_counts():
+    """(model-axis all-reduces, all-to-alls, all-gathers, reduce-scatters,
+    gradient all-reduces) launched so far."""
+    from tpu_parallel_torch.models import moe
+    from tpu_parallel_torch.parallel import dp, tp
+
+    return [tp.tp_allreduce_launches, moe.ep_alltoall_launches, tp.tp_allgather_launches,
+            tp.tp_reducescatter_launches, dp.dp_allreduce_launches]
+
+
+def _moe_want_counts(layers, dispatch):
+    """The collectives per step of one minibatch under "proj_attn",
+    derived from the schedule: forward, one all-reduce per layer after
+    attention's row projection (kept by the policy) and the dense
+    dispatch's combine (past the recompute's early stop), the
+    vocab-parallel loss's 5; backward, each of those all-reduces' own and
+    the loss's 2.  The all-to-all dispatch replaces the combine's with a
+    packed balance all-reduce, which the recompute replays, and moves
+    tokens with two all-to-alls per layer forward, two in the recompute
+    and two in the backward, one all-gather per layer and its
+    reduce-scatter; one gradient all-reduce either way."""
+    if dispatch == "dense":
+        return [4 * layers + 7, 0, 0, 0, 1]
+    return [5 * layers + 7, 6 * layers, layers, layers, 1]
+
+
+def _moe_rel(cfg, got, want):
+    """Relative L2 per weight of local tensors (a rank's slices), the key
+    slice of each local qkv bias left out (rounding noise under AdamW)."""
+    dh = cfg.head_dim
+    rel = {}
+    for name, g in got.items():
+        w = want[name]
+        if name.endswith("attn.qkv.bias"):
+            keep = (torch.arange(g.numel()) % (3 * dh)) // dh != 1
+            g, w = g[keep], w[keep]
+        rel[name] = ((g - w).norm() / w.norm().clamp(min=1e-30)).item()
+    return rel
+
+
+def _moe_inputs(model):
+    """Forward pre-hooks that record each MoE layer's input (the normed
+    hidden state): ``(handles, recorded list)``."""
+    recorded = []
+    handles = [block.moe.register_forward_pre_hook(
+        lambda module, args: recorded.append((module, args[0].detach())))
+        for block in model.blocks.children()]
+    return handles, recorded
+
+
+def _moe_dropped(config, x, router_weight, ep=1):
+    """The share of (token, choice) assignments that capacity drops in one
+    top-k MoE layer on its input ``x`` [B, S, d]; ``ep`` > 1 with the
+    all-to-all dispatch counts each sender's quota on its own block of
+    tokens."""
+    from tpu_parallel_torch.models import moe
+
+    xf = x.reshape(-1, x.shape[-1]).float()
+    blocks = xf.chunk(ep) if config.moe_dispatch == "alltoall" and ep > 1 else (xf,)
+    dropped = total = 0
+    for block in blocks:
+        probs = torch.softmax(block @ router_weight.float().t(), dim=-1)
+        experts = moe.topk_choices(probs, config.moe_top_k)[1]
+        cap = moe.capacity_for(config.moe_capacity_factor, config.moe_top_k, block.shape[0],
+                               config.moe_experts)
+        kept = moe.dispatch_slots(experts, config.moe_experts, cap)[1]
+        dropped += int((~kept).sum())
+        total += kept.numel()
+    return dropped / total
+
+
+class _PinnedRoutes:
+    """Pins the top-k expert choices of every MoE layer of ``model``, so two
+    runs that differ in rounding route alike and can be held token by token
+    (bf16 noise flips near-tied choices at random init, and a flipped token
+    takes another expert's output and, under capacity, the slots of later
+    ones).  A forward pre-hook on each ``MoEMLP`` names its layer, and
+    ``moe.topk_choices`` is replaced until :meth:`close` by one that returns
+    the choices recorded for (``step``, layer), recording the call's own on
+    the first visit; the gates are recomputed from the call's own router
+    probabilities, so gradients reach the router as under the module's own
+    routing.  A recompute under remat replays the forward's choices.
+    ``alike`` holds, per (step, layer), which tokens' own choices equal the
+    pinned ones (no host sync; all of them where the call recorded)."""
+
+    def __init__(self, model, routes=None):
+        from tpu_parallel_torch.models import moe
+
+        self.moe, self.own = moe, moe.topk_choices
+        self.routes = {} if routes is None else dict(routes)
+        self.alike, self.step, self.layer = {}, 0, None
+        self.handles = [block.moe.register_forward_pre_hook(self._naming(i))
+                        for i, block in enumerate(model.blocks.children())]
+        moe.topk_choices = self._choices
+
+    def _naming(self, i):
+        def hook(module, args):
+            self.layer = i
+        return hook
+
+    def _choices(self, probs, top_k):
+        # every visit runs the same ops: a selective-checkpoint recompute
+        # must replay the forward's
+        own = self.own(probs, top_k)[1]
+        key = f"{self.step}/{self.layer}"
+        pinned = self.routes.setdefault(key, own.detach()).to(probs.device, torch.long)
+        self.alike.setdefault(key, (own == pinned).all(-1))
+        vals = probs.gather(1, pinned)
+        return (vals if top_k == 1 else vals / vals.sum(-1, keepdim=True)), pinned
+
+    def close(self):
+        self.moe.topk_choices = self.own
+        for h in self.handles:
+            h.remove()
+
+    def host_routes(self):
+        return {k: v.to("cpu", torch.uint8) for k, v in self.routes.items()}
+
+    def alike_share(self):
+        """The share of (step, layer, token) choices that the run's own
+        routing makes alike the pinned ones."""
+        return torch.cat(list(self.alike.values())).float().mean().item()
+
+    def alike_every_layer(self):
+        """[tokens]: routed alike in every layer (one step's pins)."""
+        return torch.stack(list(self.alike.values())).all(0)
+
+
+def moe_serve_leg(seed):
+    """(a): the model on one device.  A forward on [MOE_ROWS, 1024] through
+    the kernel against the same modules under ``attn_impl="xla"`` (one
+    launch per layer) on the flash pass's expert choices
+    (:class:`_PinnedRoutes`), at the config's capacity and at ample
+    capacity (capacity factor = experts: nothing dropped): the loss within
+    LOSS_TOL and the logits within LOGITS_TOL token by token, as phases
+    3-4 hold them; the share of tokens that the xla pass's own routing
+    sends alike in every layer is printed; greedy ``generate()`` on ragged
+    prompts, whose decode steps route 4 tokens into 1 slot per expert
+    (capacity binds), twice, bitwise equal; the index dispatch against
+    ``_dispatch_masks`` and the einsums on layer 0's real input, a
+    [2, 128] token set in fp32, at capacity factors 1.25 and 0.5: the same
+    kept slots exactly, outputs within MOE_DISPATCH_TOL; the serving
+    engine on the same prompts, fused T=4 ticks run eagerly and replayed
+    as one CUDA graph: greedy tokens bitwise equal (the dispatch syncs
+    nothing with the host, so it captures)."""
+    from tpu_parallel_torch.core.losses import token_cross_entropy
+    from tpu_parallel_torch.models import GPTLM, moe
+    from tpu_parallel_torch.models.generate import generate
+    from tpu_parallel_torch.ops import flash_attention as fa
+
+    cfg = _moe_model_config()
+    t0 = time.perf_counter()
+    model = GPTLM(cfg, device="cuda", seed=seed).eval()
+    out = dict(build_s=time.perf_counter() - t0,
+               params=sum(p.numel() for p in model.parameters()))
+    gen = torch.Generator().manual_seed(seed + 110)
+    tokens = torch.randint(0, cfg.vocab_size, (MOE_ROWS, SHELL_SEQ), generator=gen).cuda()
+    targets = tokens.roll(-1, dims=1)
+    xla = dataclasses.replace(cfg, attn_impl="xla")
+    with torch.inference_mode():
+        handles, recorded = _moe_inputs(model)
+        balances = []
+        pins = _PinnedRoutes(model)  # records the flash pass's choices
+        _reset_launches()
+        logits = model(tokens, moe_losses=balances)
+        torch.cuda.synchronize()
+        pins.close()
+        for h in handles:
+            h.remove()
+        launched = fa.flash_fwd_launches
+        if launched != cfg.n_layers or not torch.isfinite(logits).all():
+            raise AssertionError(f"(a): {launched} launches, finite {torch.isfinite(logits).all()}")
+        out.update(launches=launched, balance_per_layer=[round(float(b), 5) for b in balances],
+                   dense_dropped=sum(_moe_dropped(cfg, x, m.router.weight)
+                                     for m, x in recorded) / len(recorded))
+        del recorded
+        ample = dataclasses.replace(cfg, moe_capacity_factor=float(cfg.moe_experts))
+        for name, moe_cfg in (("config", cfg), ("ample", ample)):
+            for block in model.blocks.children():
+                block.moe.config = moe_cfg
+            got = logits
+            if name == "ample":
+                pins = _PinnedRoutes(model)
+                got = model(tokens)
+                pins.close()
+            for block in model.blocks.children():  # the same weights under the xla path
+                block.attn.config = xla
+            replay = _PinnedRoutes(model, pins.routes)  # ... on the flash pass's choices
+            want = model(tokens)
+            replay.close()
+            for block in model.blocks.children():
+                block.attn.config, block.moe.config = cfg, cfg
+            got, want = (t.float().reshape(-1, t.shape[-1]) for t in (got, want))
+            err = (got - want).abs().amax(-1)
+            out[name] = dict(loss=token_cross_entropy(got, targets.reshape(-1)).mean().item(),
+                             xla_loss=token_cross_entropy(want, targets.reshape(-1)).mean().item(),
+                             logits_max_abs_err=err.max().item(),
+                             logits_rel_l2=((got - want).norm() / want.norm()).item(),
+                             own_routed_alike=replay.alike_every_layer().float().mean().item())
+            del got, want
+        if any(abs(v["loss"] - v["xla_loss"]) > LOSS_TOL or v["logits_max_abs_err"] > LOGITS_TOL
+               for v in (out["config"], out["ample"])):
+            raise AssertionError(f"(a): the flash forward disagrees with the xla forward: {out}")
+        out["forward_ms"] = host_ms(lambda: model(tokens), 5)
+        # greedy generation on ragged prompts: decode capacity binds
+        width = max(MOE_PROMPT_LENS)
+        prompt = torch.randint(1, cfg.vocab_size, (len(MOE_PROMPT_LENS), width),
+                               generator=gen).cuda()
+        mask = torch.zeros_like(prompt, dtype=torch.bool)
+        for r, n in enumerate(MOE_PROMPT_LENS):
+            mask[r, width - n:] = True
+        handles, recorded = _moe_inputs(model)
+        greedy = generate(model, prompt, max_new_tokens=MOE_NEW, prompt_mask=mask)
+        for h in handles:
+            h.remove()
+        decode = [(m, x) for m, x in recorded if x.shape[1] == 1]
+        again = generate(model, prompt, max_new_tokens=MOE_NEW, prompt_mask=mask)
+        if greedy.shape != (len(MOE_PROMPT_LENS), MOE_NEW) or not torch.equal(greedy, again) \
+                or greedy.min() < 0 or greedy.max() >= cfg.vocab_size:
+            raise AssertionError(f"(a): greedy tokens {tuple(greedy.shape)} out of range or "
+                                 "not reproducible")
+        out.update(decode_capacity=moe.capacity_for(cfg.moe_capacity_factor, cfg.moe_top_k,
+                                                    len(MOE_PROMPT_LENS), cfg.moe_experts),
+                   decode_dropped=sum(_moe_dropped(cfg, x, m.router.weight)
+                                      for m, x in decode) / len(decode),
+                   greedy_first_row=greedy[0].tolist())
+        out["generate_ms"] = host_ms(lambda: generate(model, prompt, max_new_tokens=MOE_NEW,
+                                                      prompt_mask=mask), 1)
+        # the index dispatch against the masks, on layer 0's real input
+        b, s = MOE_DISPATCH_SHAPE
+        layer0 = model.blocks.layer_0.moe
+        handles, recorded = _moe_inputs(model)
+        model(tokens[:b, :s])
+        for h in handles:
+            h.remove()
+        x = recorded[0][1].float()
+        xf = x.reshape(b * s, -1)
+        checks = {}
+        for cf in (1.25, 0.5):
+            c32 = dataclasses.replace(cfg, dtype=torch.float32, moe_capacity_factor=cf)
+            layer = moe.MoEMLP(c32, device="cuda")
+            layer.load_state_dict({k: v.float() for k, v in layer0.state_dict().items()})
+            got, _ = layer(x)
+            probs = torch.softmax(xf @ layer.router.weight.t(), dim=-1)
+            gates, onehots = moe._topk_gates(probs, cfg.moe_top_k)
+            capacity = moe.capacity_for(cf, cfg.moe_top_k, b * s, cfg.moe_experts)
+            dispatch, combine = moe._dispatch_masks(onehots, gates, cfg.moe_experts, capacity)
+            x_exp = torch.einsum("td,tec->ecd", xf, dispatch)
+            plain = torch.einsum("ecd,tec->td", layer.experts(x_exp), combine)
+            slots, kept = moe.dispatch_slots(moe.topk_choices(probs, cfg.moe_top_k)[1],
+                                             cfg.moe_experts, capacity)
+            mask_of_slots = torch.zeros(b * s, cfg.moe_experts * capacity + 1, device="cuda")
+            mask_of_slots.scatter_(1, slots, 1.0)
+            same = torch.equal(mask_of_slots[:, :-1].view_as(dispatch), dispatch)
+            err_y = (got.reshape(b * s, -1) - plain).abs().max().item()
+            checks[cf] = dict(capacity=capacity, kept=int(kept.sum()), slots_equal=same,
+                              max_abs_err=err_y)
+            if not same or err_y > MOE_DISPATCH_TOL:
+                raise AssertionError(f"(a): the index dispatch against the masks at capacity "
+                                     f"factor {cf}: {checks[cf]}")
+        out["dispatch"] = checks
+    # the engine: fused T=4 ticks run eagerly and replayed as a CUDA graph
+    # (the dispatch syncs nothing with the host), greedy tokens bitwise equal
+    from tpu_parallel_torch.serving import Request, SchedulerConfig, ServingEngine
+
+    runs = []
+    for eager in (True, False):
+        eng = ServingEngine(model, n_slots=len(MOE_PROMPT_LENS), decode_steps_per_tick=4,
+                            scheduler=SchedulerConfig(max_prefills_per_tick=len(MOE_PROMPT_LENS)))
+        if eager:
+            eng._run_fused_eagerly()
+        reqs = [eng.add_request(Request(prompt=prompt[r, width - n:].tolist(),
+                                        max_new_tokens=MOE_NEW + 1))
+                for r, n in enumerate(MOE_PROMPT_LENS)]
+        eng.run()
+        runs.append(([r.tokens for r in reqs], eng.graph_captures))
+        del eng
+    out["engine"] = dict(captures=[n for _, n in runs], equal=runs[0][0] == runs[1][0],
+                         first_row=runs[1][0][0])
+    if runs[0][0] != runs[1][0] or runs[0][1] != 0 or runs[1][1] < 1 \
+            or any(len(t) != MOE_NEW + 1 for t in runs[1][0]):
+        raise AssertionError(f"(a): the engine's captured ticks against eager ones: {runs}")
+    del model, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_reference_leg(workdir):
+    """(b): one process, no group, every expert on the card: MOE_STEPS
+    steps of the dense dispatch on the seeded batch, the step-1 synced
+    gradients kept and every step's expert choices recorded
+    (:class:`_PinnedRoutes`); the dropped share of one forward's choices
+    under the dense dispatch and under the all-to-all's per-sender quota
+    (the same hidden states cut in MOE_RANKS blocks); the fp32 gradients of
+    :func:`_moe_fp32_grads` and their choices.  Saves the gradients, the
+    losses and the choices for (c), which replays the choices: a token
+    whose top-1 expert flips on the two layouts' bf16 rounding (their
+    attention sums its heads' partials in another order) would take its
+    gradient to another expert and, under the config's capacity, move the
+    slots of later tokens.  Returns the losses, step times, state bytes
+    and peak memory."""
+    from tpu_parallel_torch.core.metrics import compute
+    from tpu_parallel_torch.train_lib import Trainer
+
+    t0 = time.perf_counter()
+    trainer = Trainer(_moe_config(mesh=dict(data=1, model=1, pipe=1, seq=1)), device="cuda")
+    if trainer.mesh is not None:
+        raise AssertionError("the one-process reference runs on a mesh")
+    draws = _moe_draws()
+    state = trainer.init(draws)
+    init_s = time.perf_counter() - t0
+    cfg = trainer.model_config
+    batches = _moe_batches(cfg.vocab_size, "cuda")
+    with torch.no_grad():
+        handles, recorded = _moe_inputs(trainer.model)
+        trainer.model(batches[0].tokens, hidden_only=True)
+        for h in handles:
+            h.remove()
+        dropped = {kind: sum(_moe_dropped(
+            dataclasses.replace(cfg, moe_dispatch=kind), x, m.router.weight, MOE_RANKS)
+            for m, x in recorded) / len(recorded) for kind in ("dense", "alltoall")}
+        del recorded
+    grads = _first_synced_grads(state)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    pins = _PinnedRoutes(trainer.model)
+    losses, step_ms, bals = [], [], []
+    for i, batch in enumerate(batches):
+        pins.step = i
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = trainer.step_fn(state, None, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        m = compute(metrics)
+        losses.append(m["loss"])
+        bals.append(m["moe_balance"])
+    pins.close()
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(zip(LAUNCH_COUNTERS, _launch_counts()))
+    state_bytes = _state_bytes(state)
+    del trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fp32_grads, _, fp32_pins = _moe_fp32_grads(None, "cuda", draws)
+    del draws
+    fp32_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    torch.save(dict(grads=grads, losses=losses, routes=pins.host_routes(),
+                    fp32_grads=fp32_grads, fp32_routes=fp32_pins.host_routes()),
+               Path(workdir, "moe_ref.pt"))
+    save_s = time.perf_counter() - t0
+    return dict(losses=losses, balances=bals, step_host_ms=step_ms, max_memory_allocated=peak,
+                state_bytes=state_bytes, init_s=init_s, launches=launches, dropped=dropped,
+                fp32_s=fp32_s, grads_save_s=save_s)
+
+
+def _moe_run(dispatch, mesh, ref, rank, draws):
+    """(c) or (d) in a rank: ``gpt2_moe_ep`` with ``moe_dispatch=dispatch``
+    over the data=1 x model=MOE_RANKS mesh: MOE_STEPS counted steps (the
+    main path: the launch counters set to 0 first) with each step's
+    launches and collectives, the replicated masters' digest after each,
+    its wall ms; state bytes and peak memory.  Under the dense dispatch
+    each step runs on the reference's expert choices (``ref["routes"]``,
+    :class:`_PinnedRoutes`), and the losses are held within LOSS_TOL of the
+    reference's and the step-1 synced gradients (as the optimizer receives
+    them; a rank's slices of the model-split ones, the expert stacks among
+    them) within TRAIN_GRAD_TOL per weight of the reference's; the share
+    of choices that the rank's own routing makes alike is kept."""
+    from tpu_parallel_torch.core.metrics import compute
+    from tpu_parallel_torch.train_lib import Trainer
+
+    start_s, legs_s = time.perf_counter(), {}
+
+    def lap(name):
+        legs_s[name] = time.perf_counter() - start_s - sum(legs_s.values())
+
+    trainer = Trainer(_moe_config(mesh=dict(data=1, model=MOE_RANKS, pipe=1, seq=1),
+                                  model_overrides=dict(moe_dispatch=dispatch)), mesh,
+                      device="cuda:0")
+    state = trainer.init(draws)
+    cfg = trainer.model_config
+    experts = [n for n in state.shards if ".moe.experts." in n]
+    if len(experts) != 4 * cfg.n_layers or any(state.shards[n].dim != 0 for n in experts):
+        raise AssertionError(f"({dispatch}) rank {rank}: expert leaves {len(experts)} not all "
+                             "split at dim 0 over the model axis")
+    batches = _moe_batches(cfg.vocab_size, "cuda:0")
+    lap("init")
+    synced = _first_synced_grads(state)
+    pins = _PinnedRoutes(trainer.model, ref["routes"]) if dispatch == "dense" else None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()  # the main path starts here
+    losses, bals, per_step, comm, step_ms, digests = [], [], [], [], [], []
+    for i, batch in enumerate(batches):
+        if pins is not None:
+            pins.step = i
+        before, cbefore = _launch_counts(), _moe_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = trainer.step_fn(state, None, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        per_step.append([a - b for a, b in zip(_launch_counts(), before)])
+        comm.append([a - b for a, b in zip(_moe_counts(), cbefore)])
+        m = compute(metrics)
+        losses.append(m["loss"])
+        bals.append(m["moe_balance"])
+        digests.append(_replicated_digest(state))
+        lap(f"step{i + 1}")
+    launches = dict(zip(LAUNCH_COUNTERS, _launch_counts()))
+    result = dict(losses=losses, balances=bals, launches_per_step=per_step, comm_per_step=comm,
+                  launches=launches, step_host_ms=step_ms, digests=digests,
+                  max_memory_allocated=torch.cuda.max_memory_allocated(),
+                  state_bytes=_state_bytes(state), n_layers=cfg.n_layers)
+    if not all(map(lambda x: x == x and abs(x) < float("inf"), losses)):
+        raise AssertionError(f"({dispatch}) rank {rank}: losses {losses}")
+    if pins is not None:
+        pins.close()
+        result["own_routed_alike"] = pins.alike_share()
+        want = {n: (state.shards[n].local(g) if n in state.shards else g)
+                for n, g in ((n, ref["grads"][n]) for n in synced)}
+        rel = _moe_rel(cfg, synced, want)
+        worst = max(rel.items(), key=lambda kv: kv[1])
+        experts_worst = max((kv for kv in rel.items() if ".moe.experts." in kv[0]),
+                            key=lambda kv: kv[1])
+        result.update(loss_diffs=[abs(a - b) for a, b in zip(losses, ref["losses"])],
+                      step1_grad_rel_max=worst, step1_expert_grad_rel_max=experts_worst,
+                      step1_grad_rel_median=sorted(rel.values())[len(rel) // 2])
+        if max(result["loss_diffs"]) > LOSS_TOL or worst[1] > TRAIN_GRAD_TOL:
+            raise AssertionError(f"(dense) rank {rank} disagrees with one process: "
+                                 f"{ {k: v for k, v in result.items() if k != 'digests'} }")
+    elif not losses[-1] < losses[0]:
+        raise AssertionError(f"({dispatch}) rank {rank}: the loss does not fall: {losses}")
+    result["legs_s"] = legs_s
+    del trainer, state, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+def _moe_exchange_ms(mesh):
+    """Host ms of one model-axis all-reduce of a [MOE_ROWS, 1024, 768]
+    fp32 combine (the dense dispatch's, through gloo) and of one dispatch
+    all-to-all of an [8, C / 4, 768] bf16 payload, each averaged over 5
+    after one warm-up, and their bytes per rank."""
+    import torch.distributed as dist
+
+    from tpu_parallel_torch.models import moe
+    from tpu_parallel_torch.parallel import tp
+    from tpu_parallel_torch.runtime.comm import group_name
+
+    cfg = _moe_model_config()
+    group = group_name(mesh.get_group("model"))
+    act = torch.randn(MOE_ROWS, SHELL_SEQ, cfg.d_model, device="cuda:0")
+    cap = moe.capacity_for(cfg.moe_capacity_factor, cfg.moe_top_k,
+                           MOE_ROWS * SHELL_SEQ // MOE_RANKS, cfg.moe_experts)
+    send = torch.randn(cfg.moe_experts, cap, cfg.d_model, device="cuda:0").to(torch.bfloat16)
+    out = {}
+    for name, fn in (("allreduce", lambda: tp.all_reduce(act, "model", mesh)),
+                     ("alltoall", lambda: moe._ep_all_to_all_op(send, group, True))):
+        dist.barrier()
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        out[f"{name}_host_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+    out.update(allreduce_bytes=act.numel() * 4, alltoall_bytes=send.numel() * 2)
+    return out
+
+
+def moe_rank_leg(rank, rendezvous, workdir, draws):
+    """(c) and (d), one of MOE_RANKS gloo ranks on the one card over a
+    data=1 x model=MOE_RANKS mesh (2 experts and 3 heads per layer each):
+    :func:`_moe_run` with the dense dispatch, then with the all-to-all in
+    the same process, both from ``draws`` (:func:`_moe_draws`); the
+    exchanges' host ms; the fp32 pass."""
+    import torch.distributed as dist
+
+    from tpu_parallel_torch.runtime import MeshConfig, initialize, make_mesh, process_info
+
+    initialize(rendezvous, MOE_RANKS, rank, backend="gloo", device="cuda:0")
+    _share_cores(MOE_RANKS)
+    result = dict(rank=rank, process_info=process_info(),
+                  free_bytes_at_start=torch.cuda.mem_get_info()[0])
+    mesh = make_mesh(MeshConfig(data=1, model=MOE_RANKS))
+    result["model_coord"] = mesh.get_local_rank("model")
+    ref = torch.load(Path(workdir, "moe_ref.pt"), weights_only=True, mmap=True)
+    result["dense"] = _moe_run("dense", mesh, ref, rank, draws)
+    result["alltoall"] = _moe_run("alltoall", mesh, None, rank, draws)
+    result["exchange"] = _moe_exchange_ms(mesh)
+    t0 = time.perf_counter()
+    fp32, cfg, pins = _moe_fp32_grads(mesh, "cuda:0", draws, ref["fp32_routes"])
+    result["fp32_s"] = time.perf_counter() - t0
+    del draws
+    if rank == 0:
+        rel = _rel_by_weight(cfg, fp32, ref["fp32_grads"])
+        worst = max(rel.items(), key=lambda kv: kv[1])
+        experts = max((kv for kv in rel.items() if ".moe.experts." in kv[0]),
+                      key=lambda kv: kv[1])
+        result["fp32"] = dict(grad_rel_max=worst, expert_grad_rel_max=experts,
+                              grad_rel_median=sorted(rel.values())[len(rel) // 2],
+                              own_routed_alike=pins.alike_share())
+        if worst[1] > MOE_FP32_GRAD_TOL:
+            raise AssertionError(f"(c) fp32: the synced gradients disagree with one "
+                                 f"process's: {result['fp32']}")
+    del ref, fp32
+    dist.barrier()
+    dist.destroy_process_group()
+    return result
+
+
+def moe_phase(smi, work):
+    """Phase 17: the kernels at one EP rank's flash shape against their
+    plain versions, then legs (a)-(d) in the directory ``work``.  Returns
+    the report, the kernels' rows and the launches of (c)'s main path
+    (rank 0's)."""
+    start = time.perf_counter()
+    legs_s = {}
+
+    def lap(name):
+        legs_s[name] = time.perf_counter() - start - sum(legs_s.values())
+
+    ranks = _spawn_ranks("moe_rank", work, MOE_RANKS)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 111)
+    rows = dict(fwd=fwd_kernel_row("t_moe_pass", MOE_SHAPE, gen),
+                bwd=bwd_kernel_row("t_moe_pass", MOE_SHAPE, gen, main_path=True))
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("kernels")
+    serve = moe_serve_leg(SEED)
+    lap("serve")
+    d = serve["dispatch"]
+    log(f"[moe serve] gpt2_moe_ep's model ({serve['params'] / 1e6:.1f}M parameters, 8 experts "
+        f"per layer, top-1, capacity 1.25, flash, bf16; built in {serve['build_s']:.1f} s) on "
+        f"one device: forward [{MOE_ROWS}, {SHELL_SEQ}] {serve['forward_ms']:.2f} ms, "
+        f"{serve['launches']} flash_fwd launches; balance per layer "
+        f"{serve['balance_per_layer']}; dropped share of the forward's choices "
+        f"{serve['dense_dropped']:.4f}; against the xla path on the flash pass's expert "
+        f"choices (loss tol {LOSS_TOL}, logits {LOGITS_TOL}): " + "; ".join(
+            f"{name} capacity loss {v['loss']:.6f} against {v['xla_loss']:.6f}, logits max abs "
+            f"err {v['logits_max_abs_err']:.4f} (relative L2 {v['logits_rel_l2']:.3e}); tokens "
+            f"the xla pass's own routing sends alike in every layer {v['own_routed_alike']:.5f}"
+            for name, v in (("the config's", serve["config"]), ("ample", serve["ample"]))))
+    log(f"  greedy generate() on {len(MOE_PROMPT_LENS)} ragged prompts {MOE_PROMPT_LENS}, "
+        f"{MOE_NEW} new tokens, twice bitwise equal, {serve['generate_ms']:.1f} ms; decode "
+        f"capacity {serve['decode_capacity']} slot per expert, dropped share of decode choices "
+        f"{serve['decode_dropped']:.4f}; first row {serve['greedy_first_row']}")
+    log(f"  the engine, {len(MOE_PROMPT_LENS)} slots, fused T=4 ticks: eager and captured "
+        f"greedy tokens bitwise equal {serve['engine']['equal']}, graph captures "
+        f"{serve['engine']['captures']}; first row {serve['engine']['first_row']}")
+    log(f"  index dispatch against _dispatch_masks and the einsums on layer 0's input "
+        f"{list(MOE_DISPATCH_SHAPE)} in fp32: " + "; ".join(
+            f"capacity factor {cf}: capacity {v['capacity']}, {v['kept']} of "
+            f"{MOE_DISPATCH_SHAPE[0] * MOE_DISPATCH_SHAPE[1]} choices kept, slots equal "
+            f"{v['slots_equal']}, max abs err {v['max_abs_err']:.2e} (tol {MOE_DISPATCH_TOL})"
+            for cf, v in d.items()))
+    ref = _reference(moe_reference_leg, work)
+    lap("reference")
+    ranks = _join_ranks(ranks, MOE_LEG_TIMEOUT)
+    lap("ranks")
+    layers = ranks[0]["dense"]["n_layers"]
+    for p in ranks:
+        for dispatch in ("dense", "alltoall"):
+            run = p[dispatch]
+            want = _moe_want_counts(layers, dispatch)
+            if run["launches_per_step"] != [[layers, layers]] * MOE_STEPS \
+                    or run["comm_per_step"] != [want] * MOE_STEPS:
+                raise AssertionError(f"({dispatch}) rank {p['rank']}: launches per step "
+                                     f"{run['launches_per_step']}, collectives "
+                                     f"{run['comm_per_step']}, want {layers} and {want}")
+    for dispatch in ("dense", "alltoall"):
+        if any(p[dispatch]["digests"] != ranks[0][dispatch]["digests"] for p in ranks):
+            raise AssertionError(f"({dispatch}): the replicated masters differ across the ranks")
+        if any(p[dispatch]["losses"] != ranks[0][dispatch]["losses"] for p in ranks):
+            raise AssertionError(f"({dispatch}): the ranks' synced losses differ")
+    gib = lambda x: f"{x / 2**30:.3f} GiB"  # noqa: E731
+    r0 = ranks[0]
+    log(f"[moe reference] one process, every expert: losses "
+        f"{[round(x, 5) for x in ref['losses']]}, moe_balance "
+        f"{[round(x, 5) for x in ref['balances']]}, step host ms "
+        f"{[round(x, 1) for x in ref['step_host_ms']]}, state "
+        f"{gib(sum(ref['state_bytes'].values()))}, max memory allocated "
+        f"{gib(ref['max_memory_allocated'])}, init {ref['init_s']:.1f} s, launches "
+        f"{ref['launches']}; dropped share of a forward's choices: dense "
+        f"{ref['dropped']['dense']:.4f}, all-to-all quota {ref['dropped']['alltoall']:.4f}")
+    for dispatch in ("dense", "alltoall"):
+        runs = [p[dispatch] for p in ranks]
+        line = (f"[moe {dispatch}] {MOE_RANKS} gloo ranks on cuda:0, data=1 x model="
+                f"{MOE_RANKS} ({r0['process_info']['backend']}): launches per step "
+                f"(flash_fwd, flash_bwd) {runs[0]['launches_per_step'][0]}; (model-axis "
+                f"all-reduces, all-to-alls, all-gathers, reduce-scatters, gradient all-reduces) "
+                f"per step {runs[0]['comm_per_step'][0]} (derived "
+                f"{_moe_want_counts(layers, dispatch)}); replicated masters bitwise equal "
+                f"across the ranks after every step; losses "
+                f"{[round(x, 5) for x in runs[0]['losses']]}, moe_balance "
+                f"{[round(x, 5) for x in runs[0]['balances']]}")
+        if dispatch == "dense":
+            diffs = ["%.2e" % x for x in runs[0]["loss_diffs"]]
+            medians = ["%.3e" % r["step1_grad_rel_median"] for r in runs]
+            worsts = [(r["step1_grad_rel_max"][0], "%.3e" % r["step1_grad_rel_max"][1])
+                      for r in runs]
+            experts = ["%.3e" % r["step1_expert_grad_rel_max"][1] for r in runs]
+            alike = ["%.5f" % r["own_routed_alike"] for r in runs]
+            line += (f"; against one process, on its expert choices (the share of choices the "
+                     f"ranks' own routing makes alike {alike}): |loss diff| {diffs} (tol "
+                     f"{LOSS_TOL}), step-1 synced gradients relative L2 per weight by rank, "
+                     f"median {medians}, max {worsts}, expert leaves' max {experts} (tol "
+                     f"{TRAIN_GRAD_TOL})")
+        log(line)
+        log(f"  step host ms by rank {[[round(x, 1) for x in r['step_host_ms']] for r in runs]} "
+            f"against one process's {[round(x, 1) for x in ref['step_host_ms']]}; state "
+            f"{[gib(sum(r['state_bytes'].values())) for r in runs]}, max memory allocated in a "
+            f"step {[gib(r['max_memory_allocated']) for r in runs]}; legs' seconds "
+            f"{[{k: round(v, 1) for k, v in r['legs_s'].items()} for r in runs]}")
+    ex = [p["exchange"] for p in ranks]
+    fp = r0["fp32"]
+    log(f"[moe fp32] (c)'s synced step-1 gradients in fp32 (xla attention, full width and "
+        f"depth, {MOE_FP32_ROWS} rows; expert stacks assembled from the ranks' slices) against "
+        f"one process's, on its expert choices (the share the ranks' own routing makes alike "
+        f"{fp['own_routed_alike']:.5f}; the pass took {ref['fp32_s']:.1f} s in the reference, "
+        f"{[round(p['fp32_s'], 1) for p in ranks]} s in the ranks): "
+        f"relative L2 per weight median {fp['grad_rel_median']:.3e}, max "
+        f"{fp['grad_rel_max'][0]} {fp['grad_rel_max'][1]:.3e}, expert leaves' max "
+        f"{fp['expert_grad_rel_max'][1]:.3e} (tol {MOE_FP32_GRAD_TOL})")
+    log(f"[moe exchanges] one model-axis all-reduce of the {ex[0]['allreduce_bytes']}-byte fp32 "
+        f"combine {[round(e['allreduce_host_ms'], 2) for e in ex]} host ms by rank; one "
+        f"dispatch all-to-all of {ex[0]['alltoall_bytes']} bytes per rank "
+        f"{[round(e['alltoall_host_ms'], 2) for e in ex]} host ms by rank")
+    phase_s = time.perf_counter() - start
+    log(f"[moe] phase 17 took {phase_s:.1f} s ("
+        + ", ".join(f"{k} {v_:.1f}" for k, v_ in legs_s.items()) + ")")
+    log(f"card: {smi}")
+    return (dict(serve=serve, reference=ref, ranks=ranks, phase_s=phase_s, legs_s=legs_s), rows,
+            r0["dense"]["launches"])
+
+
 def leg_main(argv):
-    """``chip_smoke.py --leg <name> ...``: one leg of phases 12-16 in
+    """``chip_smoke.py --leg <name> ...``: one leg of phases 12-17 in
     this process; prints its result as one ``dp-leg-result:`` JSON line."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name, rest = argv[0], argv[1:]
+    if name == "moe_rank":
+        _share_cores(MOE_RANKS)
+        draws = _moe_draws()
     if name in RANK_LEGS:
         _wait_to_run(name, rest[2])
     if name == "dp_nccl":
         result = dp_nccl_leg()
     elif name == "dp_pair":
         result = dp_pair_leg(int(rest[0]), rest[1], rest[2])
-    elif name == "fsdp_nccl":
-        result = fsdp_nccl_leg()
     elif name == "fsdp_pair":
         result = fsdp_pair_leg(int(rest[0]), rest[1], rest[2])
     elif name == "tp_cli_rank":
@@ -6546,6 +7328,8 @@ def leg_main(argv):
         result = sp_cli_rank_leg(rest[0])
     elif name == "sp_rank":
         result = sp_rank_leg(int(rest[0]), rest[1], rest[2])
+    elif name == "moe_rank":
+        result = moe_rank_leg(int(rest[0]), rest[1], rest[2], draws)
     else:
         raise SystemExit(f"unknown leg {name!r}")
     print(DP_RESULT + json.dumps(result), flush=True)
@@ -6604,33 +7388,38 @@ def main():
         raise AssertionError(f"the serving path launched flash kernels: {serve_launches}")
     gc.collect()
     torch.cuda.empty_cache()
-    shell, shell_rows, shell_launches = trainer_phase(SEED, smi)
-    for path, counts in shell_launches.items():
-        if not all(counts.values()):
-            raise AssertionError(f"the {path} path left a kernel unlaunched: {counts}")
-    gc.collect()
-    torch.cuda.empty_cache()
     import shutil
     import tempfile
 
     work = tempfile.mkdtemp(prefix="dp_legs_")
     try:
+        shell, shell_rows, shell_launches = trainer_phase(SEED, smi)
+        for path, counts in shell_launches.items():
+            if not all(counts.values()):
+                raise AssertionError(f"the {path} path left a kernel unlaunched: {counts}")
+        took("phase 11 (trainer shell)")
+        gc.collect()
+        torch.cuda.empty_cache()
         dp_report, dp_rows, dp_launches, clis = dp_phase(smi, work)
         if not all(dp_launches.values()):
             raise AssertionError(f"the training_dp path left a kernel unlaunched: {dp_launches}")
+        took("phase 12 (data parallelism)")
         fsdp_report, fsdp_launches = fsdp_phase(smi, work, dp_report, shell["fit"]["save"],
                                                 clis["fsdp"])
         if not all(fsdp_launches.values()):
             raise AssertionError(f"the training_fsdp path left a kernel unlaunched: "
                                  f"{fsdp_launches}")
+        took("phase 13 (FSDP)")
         tp_report, tp_rows, tp_launches = tp_phase(smi, work, clis["tp"])
         if not all(tp_launches.values()):
             raise AssertionError(f"the training_tp path left a kernel unlaunched: {tp_launches}")
+        took("phase 14 (tensor parallelism)")
         gc.collect()
         torch.cuda.empty_cache()
         pp_report, pp_rows, pp_launches = pp_phase(smi, work, clis["pp"])
         if not all(pp_launches.values()):
             raise AssertionError(f"the training_pp path left a kernel unlaunched: {pp_launches}")
+        took("phase 15 (pipeline parallelism)")
         gc.collect()
         torch.cuda.empty_cache()
         sp_report, sp_rows, sp_ring_launches, sp_ulysses_launches = sp_phase(
@@ -6640,6 +7429,14 @@ def main():
                              ("training_sp_ulysses", sp_ulysses_launches)):
             if not all(counts.values()):
                 raise AssertionError(f"the {path} path left a kernel unlaunched: {counts}")
+        took("phase 16 (sequence parallelism)")
+        gc.collect()
+        torch.cuda.empty_cache()
+        moe_report, moe_rows, moe_launches = moe_phase(smi, work)
+        if not all(moe_launches.values()):
+            raise AssertionError(f"the training_moe_ep path left a kernel unlaunched: "
+                                 f"{moe_launches}")
+        took("phase 17 (mixture of experts)")
     finally:
         _kill_launched()
         shutil.rmtree(work, ignore_errors=True)
@@ -6742,13 +7539,25 @@ def main():
         for kind, replaces in (
             ("fwd", "tpu_parallel/ops/flash_attention.py:296"),
             ("bwd", "tpu_parallel/ops/flash_attention.py:512,635"))
+    ] + [
+        # phase 17 (c)'s step on rank 0: 3 local heads of 64 (12 over the
+        # model axis of 4), views of its [B, S, 3, 192] qkv buffer
+        dict(name=f"flash_{kind}", route="cuda", source=f"tpu_parallel_torch/csrc/flash_{kind}.cu",
+             replaces=replaces, path="training_moe_ep", shape=row["shape"],
+             launches=moe_launches[f"flash_{kind}_launches"], max_abs_err=row["max_abs_err"],
+             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+             bound_by=row["bound_by"], library_ms=row["library_ms"])
+        for kind, row, replaces in (
+            ("fwd", moe_rows["fwd"], "tpu_parallel/ops/flash_attention.py:240"),
+            ("bwd", moe_rows["bwd"], "tpu_parallel/ops/flash_attention.py:464,563"))
     ]}
     summary = dict(card=smi, forward=fwd, generate=gen, train=train, serve=serve, kv=kv,
                    spec=spec, decode_extras=extras, trainer_shell=shell, data_parallel=dp_report,
                    fsdp=fsdp_report, tensor_parallel=tp_report,
                    tensor_parallel_kernel_shapes=tp_rows, pipeline_parallel=pp_report,
                    pipeline_parallel_kernel_shapes=pp_rows, sequence_parallel=sp_report,
-                   sequence_parallel_kernel_shapes=sp_rows,
+                   sequence_parallel_kernel_shapes=sp_rows, mixture_of_experts=moe_report,
+                   mixture_of_experts_kernel_shapes=moe_rows,
                    inference_flash_fwd_launches=inference_launches,
                    kernel_shapes=kernel_rows, bwd_kernel_shapes=bwd_rows,
                    trainer_shell_kernel_shapes=shell_rows, data_parallel_kernel_shapes=dp_rows)

@@ -252,6 +252,10 @@ def test_config_matches_jax_and_runs_one_step(name):
         # one process here, one stage: tests/test_torch_pp.py runs the pipe
         d["mesh"] = dict(data=-1)
         overrides["pipe_interleave"] = 1
+    if d["mesh"].get("model", 1) > 1:
+        # one process here, every expert on it: tests/test_torch_moe.py runs
+        # the model axis
+        d["mesh"] = dict(data=-1)
     if overrides.get("seq_len") and overrides["seq_len"] > 128:
         overrides["seq_len"] = 128
         if overrides.get("loss_chunk"):

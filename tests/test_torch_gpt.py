@@ -145,6 +145,19 @@ def test_config_refuses_unported_features(field, value):
         with pytest.raises(ValueError, match="mesh axis bound: serve through generate_sharded"):
             model(torch.zeros(1, 3, dtype=torch.long), decode=True, cache=model.init_cache(1))
         return
+    if field == "moe_experts":
+        # mixture of experts is ported (tests/test_torch_moe.py): the config
+        # is taken, and the model's forward is JAX's on bridged weights
+        tokens = np.random.default_rng(3).integers(0, 256, (2, 16)).astype(np.int32)
+        jax_model = jgpt.GPTLM(jgpt.tiny_test(remat=False, **{field: value}))
+        params = jax_model.init(jax.random.PRNGKey(4), jnp.asarray(tokens), train=False)["params"]
+        model = GPTLM(tiny_test(**{field: value}), device="cpu")
+        model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params), model.config))
+        with torch.no_grad():
+            got = model(torch.from_numpy(tokens).long()).numpy()
+        want = np.asarray(jax_model.apply({"params": params}, jnp.asarray(tokens), train=False))
+        np.testing.assert_allclose(got, want, **TOL)
+        return
     if field == "attn_impl":
         # sequence parallelism is ported (tests/test_torch_sp.py): the
         # config is taken, and without a seq axis the ring is a ring of one,

@@ -5,7 +5,7 @@
 
 Starts ``num_ranks`` gloo CPU processes through
 ``tpu_parallel_torch.runtime.spawn_cpu_ranks`` and runs every case of
-``suite`` (``runtime``, ``dp``, ``fsdp``, ``tp``, ``pp`` or ``sp``) in that one group.  Each rank reads the
+``suite`` (``runtime``, ``dp``, ``fsdp``, ``tp``, ``pp``, ``sp`` or ``moe``) in that one group.  Each rank reads the
 inputs the test wrote to ``<outdir>/inputs.npz`` and writes its results to
 ``<outdir>/<suite>_rank<r>.npz``; the test compares them with the JAX
 package in its own process.  Imports torch, numpy and the port only.
@@ -1561,8 +1561,264 @@ def _sp_cases(inputs, outdir, out):
             out[f"loader_{step}_local_{field}"] = getattr(local, field).numpy()
 
 
+def _load_full(model, params):
+    """Copy full-shape ``params`` (by name) into ``model``, each sharded
+    parameter taking this rank's slice."""
+    import torch
+
+    from tpu_parallel_torch.parallel import fsdp
+
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            full = params[name]
+            info = fsdp.shard_info(p)
+            p.copy_(full if info is None else info.local(full))
+
+
+def _moe_state(tree):
+    """A ``MoEMLP``'s full state dict from JAX's one-device ``MoEMLP``
+    params (``router/kernel``, ``experts/{up,down}/{kernel,bias}``)."""
+    import torch
+
+    state = {"router.weight": torch.from_numpy(tree["router"]["kernel"].T.copy())}
+    for name in ("up", "down"):
+        for leaf in ("kernel", "bias"):
+            state[f"experts.{name}.{leaf}"] = torch.from_numpy(
+                tree["experts"][name][leaf].copy())
+    return state
+
+
+# the routing kinds of tests/test_moe.py's EP cases: (config overrides,
+# capacity factor)
+MOE_EP_KINDS = {"top1": dict(moe_capacity_factor=4.0),
+                "top2": dict(moe_top_k=2, moe_capacity_factor=8.0),
+                "ec": dict(moe_router="expert_choice", moe_capacity_factor=2.0)}
+# tests/test_moe.py's training cases: (mesh, model overrides, steps, the
+# inputs' prefix of JAX's init)
+MOE_TRAIN_CASES = {
+    "dp_top1": (dict(data=8), dict(moe_experts=4), 9, "gpt4"),
+    "dp_top2": (dict(data=8), dict(moe_experts=4, moe_top_k=2), 6, "gpt4"),
+    "dp_ec": (dict(data=8), dict(moe_experts=4, moe_router="expert_choice"), 6, "gpt4"),
+    "ep_top1": (dict(data=4, model=2), dict(moe_experts=4), 9, "gpt4ep"),
+}
+
+
+def _moe_cases(inputs, outdir, out):
+    import itertools
+
+    import torch
+    import torch.distributed as dist
+
+    from tpu_parallel_torch.core.accumulate import accumulate_gradients
+    from tpu_parallel_torch.core.metrics import compute
+    from tpu_parallel_torch.core.optim import AdamW
+    from tpu_parallel_torch.core.state import TrainState
+    from tpu_parallel_torch.models import GPTLM, moe as moe_mod, tiny_test
+    from tpu_parallel_torch.models.convert import params_from_jax
+    from tpu_parallel_torch.models.generate import generate_sharded
+    from tpu_parallel_torch.models.gpt import make_gpt_loss
+    from tpu_parallel_torch.models.layers import BlockStack
+    from tpu_parallel_torch.parallel import fsdp, pp, tp
+    from tpu_parallel_torch.parallel.spmd import build_train_functions, make_model_init
+    from tpu_parallel_torch.runtime import MeshConfig, make_mesh
+    from tpu_parallel_torch.train_lib import Trainer, TrainerConfig
+
+    meshes = {}
+
+    def mesh_of(sizes):
+        key = tuple(sorted(sizes.items()))
+        if key not in meshes:
+            meshes[key] = make_mesh(MeshConfig(**sizes))
+        return meshes[key]
+
+    d4m2 = mesh_of(dict(data=4, model=2))
+    out["coords_d4m2"] = np.array([d4m2.get_local_rank("data"), d4m2.get_local_rank("model")])
+
+    # (1) tests/test_moe.py's EP cases: one MoE layer on data=4 x model=2
+    # from JAX's one-device params, every rank the same tokens; the dense
+    # and all-to-all dispatch's outputs, balance and synced gradients
+    x = torch.from_numpy(inputs["moe_x"].copy())
+    w_out = torch.from_numpy(inputs["moe_w"].copy())
+    full = _moe_state(nested_tree("moe_p", inputs))
+
+    def ep_layer(**over):
+        layer = moe_mod.MoEMLP(tiny_test(moe_experts=4, **over), mesh=d4m2)
+        _load_full(layer, full)
+        return layer
+
+    def synced_grads(layer, prefix):
+        params = dict(layer.named_parameters())
+        shards = {n: fsdp.shard_info(p) for n, p in params.items() if fsdp.shard_info(p)}
+        grads = {n: p.grad for n, p in params.items()}
+        fsdp.sync_gradients({n: shards[n].dtensor(g) if n in shards else g
+                             for n, g in grads.items()}, ("model",), mesh=d4m2)
+        _assembled(out, prefix, grads, shards)
+
+    for kind, over in MOE_EP_KINDS.items():
+        layer = ep_layer(**over)
+        with torch.no_grad():
+            out[f"ep_y_{kind}"] = layer(x)[0].numpy()
+        if kind == "top1":
+            layer.zero_grad()
+            (layer(x)[0] * w_out).sum().backward()
+            synced_grads(layer, "ep_g")
+    out["ep_expert_shapes"] = np.array(ep_layer().experts.up.kernel.shape)
+    for k in (1, 2):
+        for dispatch in ("dense", "alltoall"):
+            layer = ep_layer(moe_top_k=k, moe_capacity_factor=4.0, moe_dispatch=dispatch)
+            before = (moe_mod.ep_alltoall_launches, tp.tp_allgather_launches,
+                      tp.tp_allreduce_launches)
+            y, bal = layer(x)
+            ((y * w_out).sum()).backward()
+            out[f"a2a{k}_collectives_{dispatch}"] = np.array([
+                moe_mod.ep_alltoall_launches - before[0], tp.tp_allgather_launches - before[1],
+                tp.tp_allreduce_launches - before[2]])
+            out[f"a2a{k}_y_{dispatch}"] = y.detach().numpy()
+            out[f"a2a{k}_bal_{dispatch}"] = np.array(float(bal))
+            synced_grads(layer, f"a2a{k}_g_{dispatch}")
+    try:
+        ep_layer(moe_router="expert_choice", moe_dispatch="alltoall")
+        out["a2a_ec_error"] = np.array("")
+    except NotImplementedError as exc:
+        out["a2a_ec_error"] = np.array(str(exc))
+    try:
+        ep_layer(moe_dispatch="alltoall")(x[:1, :3])  # 3 tokens over 2 ranks
+        out["a2a_tokens_error"] = np.array("")
+    except ValueError as exc:
+        out["a2a_tokens_error"] = np.array(str(exc))
+    try:
+        moe_mod.MoEMLP(tiny_test(moe_experts=3), mesh=d4m2)
+        out["ep_divide_error"] = np.array("")
+    except ValueError as exc:
+        out["ep_divide_error"] = np.array(str(exc))
+
+    # (2) tests/test_moe.py's training cases from JAX's init: the step
+    # losses and balances, the expert leaves' layout; FSDP on the data mesh
+    batch16 = _text_batch(inputs, "b16")
+    for case, (sizes, over, steps, init) in MOE_TRAIN_CASES.items():
+        for fsdp_on in ((False, True) if case == "dp_top1" else (False,)):
+            mesh = mesh_of(sizes)
+            fkw = dict(fsdp=True, fsdp_min_size=0) if fsdp_on else {}
+            cfg = tiny_test(**over, **fkw)
+            model = GPTLM(cfg, device="cpu", mesh=mesh)
+            loss_fn = make_gpt_loss(cfg, mesh=mesh)
+            funcs = build_train_functions(make_model_init(model, AdamW(lambda count: 3e-3)),
+                                          loss_fn, mesh, grad_sync_axes=("data", "model"))
+            state = funcs.init_fn(None, params_from_jax(nested_tree(init, inputs), cfg,
+                                                        dtype=torch.float32))
+            tag = case + ("_fsdp" if fsdp_on else "")
+            if case == "ep_top1":
+                out["ep_expert_specs"] = np.array(
+                    [str(funcs.state_specs[n]) for n in funcs.state_specs if ".experts." in n])
+            if fsdp_on:
+                info = fsdp.shard_info(model.blocks.layer_0.moe.experts.up.kernel)
+                out["fsdp_expert_dim"] = np.array(-1 if info is None else info.dim)
+                out["fsdp_expert_local"] = np.array(
+                    model.blocks.layer_0.moe.experts.up.kernel.shape)
+            n = batch16.size // mesh.size(mesh.mesh_dim_names.index("data"))
+            d = mesh.get_local_rank("data")
+            local = batch16.rows(d * n, (d + 1) * n)
+            losses, bals = [], []
+            for _ in range(steps):
+                state, m = funcs.step_fn(state, None, local)
+                c = compute(m)
+                losses.append(c["loss"])
+                bals.append(c["moe_balance"])
+            out[f"train_{tag}_losses"] = np.array(losses)
+            out[f"train_{tag}_bal"] = np.array(bals)
+
+    # (3) tests/test_moe.py:106 on data=2 x seq=2 x model=2: ring attention
+    # over seq, experts over model; fsdp=False (FSDP x TP is item 6)
+    mesh = mesh_of(dict(data=2, seq=2, model=2))
+    cfg = tiny_test(moe_experts=2, attn_impl="ring", seq_len=64)
+    model = GPTLM(cfg, device="cpu", mesh=mesh)
+    funcs = build_train_functions(
+        make_model_init(model, AdamW(lambda count: 3e-3)), make_gpt_loss(cfg, mesh=mesh), mesh,
+        grad_sync_axes=("data", "seq", "model"), metric_axes=("data", "seq"),
+        metric_mean_axes=("model",))
+    state = funcs.init_fn(None, params_from_jax(nested_tree("gpt2e64", inputs), cfg,
+                                                dtype=torch.float32))
+    b = _text_batch(inputs, "b8s64")
+    d, c = mesh.get_local_rank("data"), mesh.get_local_rank("seq")
+    local = b.rows(4 * d, 4 * d + 4).cols(32 * c, 32 * c + 32)
+    losses = []
+    for _ in range(9):
+        state, m = funcs.step_fn(state, None, local)
+        losses.append(compute(m)["loss"])
+    out["way4_losses"] = np.array(losses)
+    out["way4_count"] = np.array(float(m["loss"][1]))
+
+    # (4) tests/test_moe.py's all-to-all Trainer on data=4 x model=2
+    trainer = Trainer(TrainerConfig(
+        model="tiny", model_overrides=dict(moe_experts=4, moe_top_k=2, moe_dispatch="alltoall",
+                                           remat=False, dropout_rate=0.0),
+        mesh=dict(data=4, model=2), global_batch_size=8, steps=6, log_every=1000, seed=0),
+        mesh=d4m2, device="cpu")
+    trainer.init(params_from_jax(nested_tree("a2a_params", inputs), trainer.model_config,
+                                 dtype=torch.float32))
+    rows = itertools.repeat(trainer.local_rows(_text_batch(inputs, "a2ab")))
+    before = moe_mod.ep_alltoall_launches
+    first = trainer.train(rows, steps=3)["loss"]
+    out["a2a_trainer_alltoalls"] = np.array(moe_mod.ep_alltoall_launches - before)
+    out["a2a_trainer_losses"] = np.array([first, trainer.train(rows, steps=3)["loss"]])
+
+    # (5) the pipe cases on data=2 x pipe=4: the router gradient at pipe 4
+    # (tests/test_moe.py:263), the per-tick balance table of a one-layer
+    # stage (:390), and the lockstep tick against the schedule
+    p4 = mesh_of(dict(data=2, pipe=4))
+    r = p4.get_local_rank("pipe")
+    out["coords_p4"] = np.array([r, p4.get_local_rank("data")])
+    cfg4 = tiny_test(moe_experts=2, remat=False, num_microbatches=2, moe_balance_weight=1.0,
+                     pipe_size=4)
+    params = params_from_jax(nested_tree("gpt2e", inputs), cfg4, dtype=torch.float32,
+                             pipe_rank=r)
+    st = TrainState.create(GPTLM(cfg4, device="cpu", mesh=p4), AdamW(lambda count: 1e-3),
+                           torch.Generator().manual_seed(0), params)
+    b8 = _pp_rows(_text_batch(inputs, "b8"), p4)
+    grads, _ = accumulate_gradients(st, b8, st.rng, 1, make_gpt_loss(cfg4, train=False,
+                                                                      mesh=p4))
+    fsdp.sync_gradients(st.partitioned(grads), ("data",), ("pipe",), mesh=p4)
+    for leaf in ("moe.router.weight", "attn.qkv.weight"):
+        out[f"pp_g/{leaf}"] = grads[f"blocks.layer_{r}.{leaf}"].numpy().copy()
+
+    cfg1 = tiny_test(moe_experts=2, remat=False, num_microbatches=2)
+    pm = pp.PipelineModule(lambda: BlockStack(cfg1, 1, device="cpu"), 2, mesh=p4,
+                           pass_validity=True)
+    pm.stage.layer_0.load_state_dict({k: torch.from_numpy(inputs[f"bubble/{r}/{k}"].copy())
+                                      for k in pm.stage.layer_0.state_dict()})
+    bx = torch.from_numpy(inputs["bubble_x"].copy())
+    with torch.no_grad():
+        y, table = pm(bx)
+        out["bubble_table"] = table.numpy()
+        carry = torch.zeros(2, *bx.shape[1:])
+        micro = bx.reshape(2, 2, *bx.shape[1:])
+        ticks, collected = [], []
+        for t in range(2 + 4 - 1):
+            carry, got, bal = pp.execute_pipeline_step(
+                pm.stage, carry, micro[min(t, 1)], mesh=p4, tick=t, num_microbatches=2,
+                pass_validity=True)
+            ticks.append(float(bal))
+            collected.append(got)
+        out["step_table"] = np.array(ticks)
+        if r == 3:
+            out["step_out_err"] = np.array(float(
+                (torch.cat(collected[3:5]) - y).abs().max()))
+
+    # (6) greedy generate_sharded over data=4 x model=2 (ragged prompts,
+    # ample capacity) from JAX's one-device init
+    cfg = tiny_test(moe_experts=4, moe_capacity_factor=4.0, remat=False)
+    model = GPTLM(cfg, device="cpu", mesh=d4m2)
+    _load_full(model, params_from_jax(nested_tree("gpt4", inputs), cfg))
+    prompt = torch.from_numpy(inputs["gen_prompt"].copy()).long()
+    mask = torch.from_numpy(inputs["gen_mask"].copy())
+    out["gen_sharded"] = generate_sharded(model, prompt, d4m2, max_new_tokens=8,
+                                          prompt_mask=mask).numpy()
+    dist.barrier()
+
+
 SUITES = {"runtime": _runtime_cases, "dp": _dp_cases, "fsdp": _fsdp_cases, "tp": _tp_cases,
-          "pp": _pp_cases, "sp": _sp_cases}
+          "pp": _pp_cases, "sp": _sp_cases,
+          "moe": _moe_cases}
 
 
 def run_suite(suite, outdir):

@@ -15,7 +15,12 @@ A tree initialized over a pipe axis holds the blocks under
 interleave), stacked ``[pipe, ...]`` (then ``[layers per chunk]`` when
 scanned); rank ``r``'s virtual stage ``j`` is global chunk ``j * pipe + r``.
 ``pipe_rank=r`` returns that rank's layers under their global names, the
-default every layer.  Nothing here imports JAX: leaves are read with
+default every layer.  An MoE block's router and expert stacks come
+across as ``moe.router.weight`` and ``moe.experts.{up,down}.{kernel,bias}``
+(flax's ``[E, in, out]`` layout kept), from the one-device
+``moe/experts/...`` or expert parallelism's ``moe/experts/sharded/...``
+stacked ``[ep, E / ep, ...]`` (``model_rank`` as for tensor-parallel
+leaves).  Nothing here imports JAX: leaves are read with
 ``numpy.asarray`` (torch leaves, bf16 ones too, through fp32).
 :func:`params_to_jax` is its exact inverse (from one state dict, or from
 every model rank's for the stacked mesh layout), so the port builds the
@@ -47,13 +52,28 @@ _GQA = (("attn/q/shard/kernel", "attn.q.weight", True),
         ("attn/q/shard/bias", "attn.q.bias", False),
         ("attn/kv/shard/kernel", "attn.kv.weight", True),
         ("attn/kv/shard/bias", "attn.kv.bias", False))
-_BLOCK_REST = (
+_ATTN_OUT = (
     ("attn/out/shard/kernel", "attn.out.weight", True),
     ("attn/out/bias", "attn.out.bias", False),
+)
+_MLP = (
     ("mlp/up/shard/kernel", "mlp.up.weight", True),
     ("mlp/up/shard/bias", "mlp.up.bias", False),
     ("mlp/down/shard/kernel", "mlp.down.weight", True),
     ("mlp/down/bias", "mlp.down.bias", False),
+)
+# an MoE block's MLP: the fp32 router (a Linear) and the expert stacks,
+# kept in flax's [E, in, out] layout (biases whatever dense_bias says, as
+# JAX's ExpertFFN); under expert parallelism the stacks stand under
+# experts/sharded, [ep, E / ep, ...]
+_MOE = (
+    ("moe/router/kernel", "moe.router.weight", True),
+    ("moe/experts/up/kernel", "moe.experts.up.kernel", False),
+    ("moe/experts/up/bias", "moe.experts.up.bias", False),
+    ("moe/experts/down/kernel", "moe.experts.down.kernel", False),
+    ("moe/experts/down/bias", "moe.experts.down.bias", False),
+)
+_NORMS = (
     ("norm_attn/scale", "norm_attn.weight", False),
     ("norm_attn/bias", "norm_attn.bias", False),
     ("norm_mlp/scale", "norm_mlp.weight", False),
@@ -67,11 +87,22 @@ _TOP = (
     ("lm_head/shard/kernel", "lm_head.weight", True),
 )
 _SCANNED = "blocks/layers/block/"
-# ModuleShard's scope: a tensor-parallel leaf's per-rank stack
+# ModuleShard's scope: a tensor-parallel leaf's per-rank stack, and the
+# expert stacks' under expert parallelism
 _SHARD, _STACKED = "/shard/", "/shard/sharded/"
-# Linear weights split along their input (row-parallel); every other
-# stacked leaf splits its output
+_EXPERTS, _EXPERTS_STACKED = "moe/experts/", "moe/experts/sharded/"
+# stacked leaves split along flax's axis 0: row-parallel Linear weights
+# (their input) and the expert stacks (the experts); every other stacked
+# leaf splits its output
 _ROW = ("attn.out.weight", "mlp.down.weight")
+_AXIS0 = _ROW + tuple(key for _, key, _ in _MOE[1:])
+
+
+def _stacked_path(path: str) -> str:
+    """A leaf's path in the mesh layout (its per-rank stack)."""
+    if _EXPERTS in path:
+        return path.replace(_EXPERTS, _EXPERTS_STACKED)
+    return path.replace(_SHARD, _STACKED)
 # PipelineModule's scope: a pipe rank's stage, stacked over the pipe axis
 _PIPE = "pipeline/stage/sharded/"
 
@@ -131,10 +162,11 @@ def _unpipe(flat: Dict[str, object], config) -> Dict[str, object]:
 
 def _block_leaves(config) -> Tuple[Tuple[str, str, bool], ...]:
     n_kv = config.n_kv_heads or config.n_heads
-    leaves = (_MHA if n_kv == config.n_heads else _GQA) + _BLOCK_REST
+    mlp = _MOE if getattr(config, "moe_experts", 0) > 0 else _MLP
+    leaves = (_MHA if n_kv == config.n_heads else _GQA) + _ATTN_OUT + mlp + _NORMS
     if not config.dense_bias:
         leaves = tuple(leaf for leaf in leaves if leaf[1].endswith(".weight")
-                       or leaf[0].startswith("norm_"))
+                       or leaf[0].startswith(("norm_", "moe/")))
     return leaves
 
 
@@ -154,6 +186,12 @@ def state_shapes(config) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
         "norm_attn.weight": ((d,), f32), "norm_attn.bias": ((d,), f32),
         "norm_mlp.weight": ((d,), f32), "norm_mlp.bias": ((d,), f32),
     }
+    e = getattr(config, "moe_experts", 0)
+    block.update({
+        "moe.router.weight": ((e, d), f32),
+        "moe.experts.up.kernel": ((e, d, hidden), dt), "moe.experts.up.bias": ((e, hidden), dt),
+        "moe.experts.down.kernel": ((e, hidden, d), dt), "moe.experts.down.bias": ((e, d), dt),
+    })
     shapes = {
         "embed.tok.weight": ((config.vocab_size, d), dt),
         "embed.pos.weight": ((config.seq_len, d), dt),
@@ -214,8 +252,9 @@ def _mlp_from_jax(tree: Mapping, config, dtype=None) -> Dict[str, torch.Tensor]:
 
 def _tp_axis(key: str) -> int:
     """The flax axis of a stacked leaf's per-rank slices: the kernel's
-    input (0) for a row-parallel weight, its output (-1) otherwise."""
-    return 0 if key.endswith(_ROW) else -1
+    input (0) for a row-parallel weight, the experts (0) for an expert
+    stack, the output (-1) otherwise."""
+    return 0 if key.endswith(_AXIS0) else -1
 
 
 def params_from_jax(tree: Mapping, config, dtype=None, *,
@@ -255,8 +294,8 @@ def params_from_jax(tree: Mapping, config, dtype=None, *,
             else:
                 wanted.append((f"blocks/layer_{i}/{path}", port_key, t, None))
     # a leaf of the mesh layout stands under ModuleShard's per-rank stack
-    wanted = [(p.replace(_SHARD, _STACKED) if p not in flat and p.replace(_SHARD, _STACKED)
-               in flat else p, k, t, i) for p, k, t, i in wanted]
+    wanted = [(_stacked_path(p) if p not in flat and _stacked_path(p) in flat else p, k, t, i)
+              for p, k, t, i in wanted]
     missing = sorted({p for p, _, _, _ in wanted if p not in flat})
     if missing:
         raise KeyError(f"JAX parameter tree lacks {missing}")
@@ -275,7 +314,7 @@ def params_from_jax(tree: Mapping, config, dtype=None, *,
                 )
             arr = arr[layer]
         shape, module_dtype = shapes[key]
-        if _STACKED in path:
+        if _STACKED in path or _EXPERTS_STACKED in path:
             tp = arr.shape[0]
             axis = _tp_axis(key)
             full = np.concatenate(list(arr), axis=axis)
@@ -385,7 +424,7 @@ def params_to_jax(state_dict: Union[Mapping[str, torch.Tensor],
                 for name in layers}
     shapes = state_shapes(config)
     # the leaves JAX's ModuleShard stacks over the model axis, by port key
-    split = {k for p, k, _ in _TOP + _block_leaves(config) if _SHARD in p}
+    split = {k for p, k, _ in _TOP + _block_leaves(config) if _SHARD in p or _EXPERTS in p}
 
     def put(path: str, value: torch.Tensor):
         node = tree
@@ -407,12 +446,12 @@ def params_to_jax(state_dict: Union[Mapping[str, torch.Tensor],
 
     for path, key, t in _TOP:
         value, stacked = leaf(key, t)
-        put(path.replace(_SHARD, _STACKED) if stacked else path, value)
+        put(_stacked_path(path) if stacked else path, value)
     for path, key, t in _block_leaves(config):
         values = [leaf(f"blocks.layer_{i}.{key}", t) for i in range(config.n_layers)]
         stacked = values[0][1]
         if stacked:
-            path = path.replace(_SHARD, _STACKED)
+            path = _stacked_path(path)
         if config.scan_layers:
             put(_SCANNED + path, torch.stack([v for v, _ in values]))
         else:

@@ -92,6 +92,11 @@ def _pipe_refusals(cfg: GPTConfig) -> None:
                 f"n_layers={cfg.n_layers} not divisible by pipe_size*"
                 f"pipe_interleave={chunks}"
             )
+        if cfg.pipe_interleave > 1 and cfg.moe_experts > 0:
+            raise NotImplementedError(
+                "MoE under the interleaved pipeline schedule (chunk "
+                "branches would sow mismatched loss collections)"
+            )
 
 
 def stage_layers(cfg: GPTConfig, stage: int) -> List[int]:
@@ -196,7 +201,8 @@ class GPTLM(nn.Module):
     def forward(self, tokens, positions=None, segment_ids=None, decode: bool = False,
                 hidden_only: bool = False, cache: Optional[List[KVCache]] = None,
                 write_index=None, block_table=None, train: bool = False,
-                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+                rng: Optional[torch.Generator] = None,
+                moe_losses: Optional[list] = None) -> torch.Tensor:
         """``train=True`` runs dropout when ``dropout_rate`` > 0, with one
         seed per layer drawn from ``rng`` (a CPU generator).  ``decode=True`` appends to ``cache`` (from :meth:`init_cache`) and
         attends the cached prefix; without ``positions`` it continues from
@@ -205,7 +211,10 @@ class GPTLM(nn.Module):
         ``write_index[r] + [0..T)``, dropping targets outside the cache.
         ``block_table`` [batch, seq_len // block_tokens] addresses a
         :class:`PagedKVCache` pool (-1 = unmapped: reads masked out, writes
-        dropped); it needs ``write_index``."""
+        dropped); it needs ``write_index``.  ``moe_losses`` (a list; JAX's
+        mutable ``"losses"`` collection) receives the MoE blocks'
+        load-balance values: one per layer, or under a pipeline one
+        per-tick table of this rank's stage (bubble ticks exactly 0)."""
         cfg = self.config
         if block_table is not None and not decode:
             raise ValueError("block_table needs decode=True")
@@ -229,7 +238,7 @@ class GPTLM(nn.Module):
             dropout_rng = rng
         if cfg.pipe_size > 1:
             x = self._pipeline(tokens, positions, segment_ids, decode, cache, write_index,
-                               block_table, dropout_rng)
+                               block_table, dropout_rng, moe_losses)
             if not self.is_last_stage and not decode:
                 # outputs are real on the last rank only: skip the norm and
                 # the lm_head here (JAX masks what they would give)
@@ -239,14 +248,14 @@ class GPTLM(nn.Module):
         else:
             x = self.embed(tokens, positions)
             x = self.blocks(x, positions, segment_ids, decode, cache if decode else None,
-                            write_index, block_table, dropout_rng)
+                            write_index, block_table, dropout_rng, moe_losses=moe_losses)
         x = self.norm_final(x).to(cfg.dtype)
         if hidden_only:
             return x
         return self.lm_head(x)
 
     def _pipeline(self, tokens, positions, segment_ids, decode, cache, write_index,
-                  block_table, dropout_rng) -> torch.Tensor:
+                  block_table, dropout_rng, moe_losses=None) -> torch.Tensor:
         """The block stack over the pipe axis: rank 0 embeds, the schedule
         runs the stages, and the result is real on the last rank (every
         rank when decoding)."""
@@ -294,9 +303,16 @@ class GPTLM(nn.Module):
         if segment_ids is not None:
             extras["segment_ids"] = segment_ids
         chunks = [functools.partial(self.blocks, chunk=j) for j in range(cfg.pipe_interleave)]
-        return pp.execute_interleaved_pipeline(
+        # MoE: bubble ticks contribute exactly 0 to the balance (pass_validity)
+        moe = cfg.moe_experts > 0
+        out = pp.execute_interleaved_pipeline(
             chunks, x, num_microbatches=cfg.num_microbatches, mesh=self.mesh,
-            axis_name=cfg.pipe_axis, extras=extras, dropout_rng=dropout_rng)
+            axis_name=cfg.pipe_axis, extras=extras, dropout_rng=dropout_rng, pass_validity=moe)
+        if not moe:
+            return out
+        if moe_losses is not None:
+            moe_losses.append(out[1])
+        return out[0]
 
 
 def gpt2_125m(**overrides) -> GPTConfig:
@@ -384,28 +400,65 @@ def make_gpt_loss(config: GPTConfig, train: bool = True, mesh=None):
     axis the loss and its counts are the last rank's (JAX's
     ``last_stage_mask``): elsewhere the loss is a zero joined to the
     pipeline's output, so its backward still runs the reverse schedule,
-    and no lm_head or cross-entropy runs.  MoE raises at the config.
+    and no lm_head or cross-entropy runs.
+
+    Under ``moe_experts`` > 0 the objective adds ``moe_balance_weight``
+    times the blocks' summed load-balance values over ``n_layers`` (over
+    ``n_layers * num_microbatches`` under a pipeline, where each rank's
+    stage adds its own over its real ticks: summed over the ranks, every
+    router's term carries the one-device weight), and the metrics report
+    ``moe_balance``, the per-layer mean (summed over the pipe axis).
     """
     ce_fn = make_ce_fn(config, mesh)
     fold_axes = (config.data_axis, config.model_axis, config.pipe_axis, config.seq_axis)
+    moe = config.moe_experts > 0
+    denom = config.n_layers * (config.num_microbatches if config.pipe_size > 1 else 1)
 
     def loss_fn(model, batch, rng=None):
         if train and config.dropout_rate > 0.0 and rng is not None:
             rng = fold_rng_over_axis(rng, fold_axes, mesh)
+        sown = [] if moe else None
         hidden = model(batch.tokens, positions=batch.positions,
-                       segment_ids=batch.segment_ids, hidden_only=True, train=train, rng=rng)
+                       segment_ids=batch.segment_ids, hidden_only=True, train=train, rng=rng,
+                       moe_losses=sown)
+        aux = None
+        if moe:
+            aux = sum(v.sum() for v in sown) / denom if sown else \
+                torch.zeros((), device=hidden.device)
         if not getattr(model, "is_last_stage", True):
             zero = hidden.sum() * 0.0
             none = torch.zeros((), device=hidden.device)
-            return zero, {"loss": (zero.detach(), none), "accuracy": (none, none)}
+            metrics = {"loss": (zero.detach(), none), "accuracy": (none, none)}
+            if moe:
+                _pipe_sum(aux.detach(), model)
+                metrics["moe_balance"] = (none, none)
+                return zero + config.moe_balance_weight * aux, metrics
+            return zero, metrics
         mask = (batch.loss_mask if batch.loss_mask is not None
                 else torch.ones(batch.targets.shape, device=hidden.device))
         n_tok = mask.sum()
         loss_sum, correct = ce_fn(_lm_head_params(config, model), hidden, batch.targets, mask)
         metrics = {"loss": (loss_sum, n_tok), "accuracy": (correct.float(), n_tok)}
-        return loss_sum / n_tok.clamp(min=1.0), metrics
+        total = loss_sum / n_tok.clamp(min=1.0)
+        if moe:
+            # the full model's per-layer mean: each pipe rank holds its
+            # stage's share
+            metrics["moe_balance"] = (_pipe_sum(aux.detach(), model) * n_tok, n_tok)
+            total = total + config.moe_balance_weight * aux
+        return total, metrics
 
     return loss_fn
+
+
+def _pipe_sum(value: torch.Tensor, model) -> torch.Tensor:
+    """``value`` summed over the model's pipe axis (JAX's ``psum``; every
+    pipe rank calls it), itself without one."""
+    bound = getattr(model, "pipe", None)
+    if bound is None:
+        return value
+    value = value.clone()
+    torch.distributed.all_reduce(value, group=bound[0])
+    return value
 
 
 def make_gpt_1f1b_grad_fn(config: GPTConfig, train: bool = True, mesh=None):

@@ -13,7 +13,9 @@ KV caches hold the local kv heads.  On a mesh that binds the seq axis,
 ``attn_impl`` ``"ring"`` and ``"ulysses"`` shard the token axis
 (``ops/ring_attention.py``, ``ops/ulysses.py``; :func:`seq_parallel_active`)
 and a bare :class:`Embedding` call looks up the rank's block of the
-position table.  Linear weights are PyTorch's ``[out, in]``;
+position table.  Under ``moe_experts`` > 0 each block's MLP is a
+mixture of experts (``models/moe.py``), expert-parallel over the model
+axis.  Linear weights are PyTorch's ``[out, in]``;
 ``models/convert.py`` transposes flax's ``[in, out]`` kernels.
 
 Activation checkpointing (``remat``/``remat_policy``) wraps each block in
@@ -48,6 +50,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from tpu_parallel_torch.models.moe import MoEMLP
 from tpu_parallel_torch.models.quantize import absmax_int8
 from tpu_parallel_torch.ops.flash_attention import FLASH_FWD_OP, flash_attention
 from tpu_parallel_torch.ops.ring_attention import (RING_FLASH_FWD_OP, ring_attention,
@@ -65,8 +68,9 @@ _UNSUPPORTED = (
     ("prenorm", True, "post-norm blocks"),
     ("embed_norm", False, "an embedding LayerNorm"),
     ("bidirectional", False, "bidirectional attention"),
-    ("moe_experts", 0, "mixture of experts"),
 )
+_MOE_ROUTERS = ("topk", "expert_choice")
+_MOE_DISPATCHES = ("dense", "alltoall")
 _MLPS = ("gelu", "gelu_exact", "relu")
 _KV_CACHE_DTYPES = ("bf16", "int8")
 _ATTN_IMPLS = ("xla", "flash", "ring", "ulysses")
@@ -183,6 +187,16 @@ class TransformerConfig:
             raise ValueError(f"n_kv_heads={n_kv} must divide n_heads={self.n_heads}")
         if self.d_model % self.n_heads != 0:
             raise ValueError(f"n_heads={self.n_heads} must divide d_model={self.d_model}")
+        if self.moe_experts > 0:
+            # JAX's errors, raised where the JAX module would meet them
+            if not 1 <= self.moe_top_k <= self.moe_experts:
+                raise ValueError(
+                    f"moe_top_k={self.moe_top_k} must be in [1, moe_experts={self.moe_experts}]"
+                )
+            if self.moe_dispatch not in _MOE_DISPATCHES:
+                raise ValueError(f"moe_dispatch={self.moe_dispatch!r} (dense | alltoall)")
+            if self.moe_router not in _MOE_ROUTERS:
+                raise ValueError(f"moe_router={self.moe_router!r} (topk | expert_choice)")
         if self.kv_block_tokens < 0:
             raise ValueError(f"kv_block_tokens={self.kv_block_tokens} < 0")
         if self.kv_block_tokens and self.seq_len % self.kv_block_tokens:
@@ -940,7 +954,10 @@ class MLP(nn.Module):
 class Block(nn.Module):
     """Pre-norm block: x + attn(norm(x)); x + mlp(norm(x)).  With a
     ``dropout_seed``, dropout runs after both sublayers, its masks drawn in
-    that order from a generator on ``x``'s device seeded with it."""
+    that order from a generator on ``x``'s device seeded with it.  Under
+    ``moe_experts`` > 0 the MLP is a :class:`~tpu_parallel_torch.models.moe.MoEMLP`
+    named ``moe``.  Returns ``(x, balance)``: the MoE layer's load-balance
+    value, None for a dense MLP."""
 
     def __init__(self, config: TransformerConfig, device=None, mesh=None):
         super().__init__()
@@ -948,12 +965,23 @@ class Block(nn.Module):
         self.norm_attn = make_norm(config, device)
         self.attn = Attention(config, device, mesh)
         self.norm_mlp = make_norm(config, device)
-        self.mlp = MLP(config, device, mesh)
+        if config.moe_experts > 0:
+            self.moe = MoEMLP(config, device, mesh)
+        else:
+            self.mlp = MLP(config, device, mesh)
 
     def forward(self, x, positions=None, segment_ids=None, decode: bool = False,
                 cache=None, write_index=None, block_table=None,
-                dropout_seed: Optional[int] = None) -> torch.Tensor:
-        dtype = self.config.dtype
+                dropout_seed: Optional[int] = None):
+        cfg = self.config
+        if decode and cfg.moe_experts > 0 and cfg.moe_router == "expert_choice":
+            # EC routes over the whole token pool; a single-token decode
+            # step degenerates to a dense all-expert mixture
+            raise NotImplementedError(
+                "incremental decoding with expert-choice routing "
+                "(the routing pool collapses to one token per row)"
+            )
+        dtype = cfg.dtype
         gen = None
         if dropout_seed is not None:
             gen = torch.Generator(device=x.device).manual_seed(dropout_seed)
@@ -961,7 +989,10 @@ class Block(nn.Module):
         x = x + self.attn(h, positions, segment_ids, decode, cache, write_index, block_table,
                           dropout_gen=gen)
         h = self.norm_mlp(x).to(dtype)
-        return x + self.mlp(h, dropout_gen=gen)
+        if cfg.moe_experts > 0:
+            y, balance = self.moe(h, dropout_gen=gen)
+            return x + y, balance
+        return x + self.mlp(h, dropout_gen=gen), None
 
 
 class BlockStack(nn.Module):
@@ -980,7 +1011,12 @@ class BlockStack(nn.Module):
     parameter names are the one-device model's names for the layers it
     owns; ``chunk=j`` in :meth:`forward` runs only the ``j``-th of
     ``chunks`` equal runs of them (an interleaved rank's virtual stage).
-    Decode caches are indexed by position in the stack."""
+    Decode caches are indexed by position in the stack.
+
+    MoE blocks return a load-balance value each; ``moe_losses`` (a list)
+    receives them in layer order.  The append happens here, outside the
+    checkpointed call, so a recompute in the backward never records a
+    layer twice."""
 
     def __init__(self, config: TransformerConfig, n_layers: int, device=None, mesh=None,
                  layer_ids: Optional[Sequence[int]] = None, chunks: int = 1):
@@ -997,7 +1033,7 @@ class BlockStack(nn.Module):
     def forward(self, x, positions=None, segment_ids=None, decode: bool = False,
                 caches: Optional[List[KVCache]] = None, write_index=None,
                 block_table=None, dropout_rng: Optional[torch.Generator] = None,
-                chunk: Optional[int] = None) -> torch.Tensor:
+                chunk: Optional[int] = None, moe_losses: Optional[list] = None) -> torch.Tensor:
         remat = self.config.remat and not decode and torch.is_grad_enabled()
         kwargs = remat_kwargs_for(self.config) if remat else None
         positions_in_stack = range(self.n_layers)
@@ -1010,20 +1046,27 @@ class BlockStack(nn.Module):
         for k, pos in enumerate(positions_in_stack):
             layer = getattr(self, f"layer_{self.layer_ids[pos]}")
             if remat:
-                x = checkpoint(layer, x, positions, segment_ids, False, None, None, None,
-                               seeds[k], **kwargs)
+                x, balance = checkpoint(layer, x, positions, segment_ids, False, None, None,
+                                        None, seeds[k], **kwargs)
             else:
                 cache = caches[pos] if caches is not None else None
-                x = layer(x, positions, segment_ids, decode, cache, write_index, block_table,
-                          dropout_seed=seeds[k])
+                x, balance = layer(x, positions, segment_ids, decode, cache, write_index,
+                                   block_table, dropout_seed=seeds[k])
+            if balance is not None and moe_losses is not None:
+                moe_losses.append(balance)
         return x
 
 
 class Embedding(nn.Module):
     """Token plus learned positional embedding, in ``config.dtype``.
 
-    Pad positions are -1 in ragged prefill; they are clamped to row 0 (the
-    flax lookup wraps them instead).  Their outputs are never read.
+    Both lookups are flax's: a negative index ``i`` reads row ``i + rows``
+    (ragged prefill's pad positions, -1, read the table's last row; the
+    engine's parked sentinel token, -2, the vocabulary's next to last).
+    Pads' outputs are never read as results, but under MoE every row
+    claims expert capacity in token order, so a pad's hidden state decides
+    which real tokens keep their slots.  The wrap is a ``where``, no host
+    sync (the engine replays the lookup inside CUDA graphs).
     Without ``positions`` the local positions count from 0, or, under
     sequence parallelism on ``mesh``, from this rank's seq coordinate
     times the local length (its block of the table).
@@ -1045,5 +1088,11 @@ class Embedding(nn.Module):
                 positions = positions + axis_group(self.mesh, self.config.seq_axis)[2] * \
                     tokens.shape[1]
             positions = positions.expand_as(tokens)
-        return self.tok(tokens) + self.pos(positions.clamp(min=0))
+        return self.tok(_wrap(tokens, self.config.vocab_size)) + \
+            self.pos(_wrap(positions, self.config.seq_len))
+
+
+def _wrap(index: torch.Tensor, size: int) -> torch.Tensor:
+    """flax's lookup of a negative index: ``index + size``."""
+    return torch.where(index < 0, index + size, index)
 

@@ -49,8 +49,17 @@ The schedules:
 - Decode (:func:`execute_pipeline_decode`): rank ``r`` runs its stage at
   tick ``r`` and the last rank's output is broadcast over the axis.
 
-``pass_validity`` / ``aux_scale`` serve only MoE's balance loss, which the
-port does not have yet (ROADMAP queue A item 5.6); they are not here.
+``pass_validity`` serves MoE's balance loss.  JAX runs every stage at
+every tick and hands it an ``aux_scale`` of 0.0 on a bubble, so the garbage
+it computes there sows exactly 0.  A rank here runs only its real ticks,
+each with a ``moe_losses`` list, and the schedule returns JAX's per-tick
+table beside its output: one entry per schedule tick, the stage's summed
+balance on a real tick and exactly 0 on a bubble.  The table is
+differentiable: its gradient reaches each tick's routers in the reverse
+walk.  :func:`execute_pipeline_step` is JAX's lockstep tick (every rank at
+every tick, bubbles skipped and zero), kept for callers of JAX's API that
+drive a schedule tick by tick; the model's path is
+:func:`execute_interleaved_pipeline`.
 """
 
 from __future__ import annotations
@@ -222,12 +231,32 @@ def _chunk_params(chunks) -> List[torch.Tensor]:
     return list(seen.values())
 
 
+def _call_stage(stage: Callable, x: torch.Tensor, kwargs: dict, pass_validity: bool):
+    """``(y, balance)``: ``stage(x, **kwargs)``, which must keep ``x``'s
+    shape, and under ``pass_validity`` its summed balance (the stage called
+    with a ``moe_losses`` list); None otherwise."""
+    sown = [] if pass_validity else None
+    if pass_validity:
+        kwargs = dict(kwargs, moe_losses=sown)
+    y = stage(x, **kwargs)
+    if y.shape != x.shape:
+        raise ValueError(
+            f"pipeline stages must preserve activation shape; got "
+            f"{tuple(x.shape)} -> {tuple(y.shape)}"
+        )
+    if sown is None:
+        return y, None
+    return y, (sum(v.sum() for v in sown) if sown else torch.zeros((), device=y.device))
+
+
 class _Run:
     """One pipelined call: the chunks, the schedule, the inputs' split."""
 
     def __init__(self, chunks, x_shape, dtype, device, num_microbatches, interleave,
-                 group, size, index, extras, kwargs, base_seed):
+                 group, size, index, extras, kwargs, base_seed, pass_validity=False):
         self.chunks, self.v = chunks, interleave
+        self.pass_validity = pass_validity
+        self.n_ticks = inject_tick(num_microbatches - 1, size, interleave) + interleave * size
         self.m, self.group, self.n, self.r = num_microbatches, group, size, index
         self.mb_shape = (x_shape[0] // num_microbatches, *x_shape[1:])
         self.x_shape, self.dtype, self.device = tuple(x_shape), dtype, device
@@ -244,18 +273,21 @@ class _Run:
         """The last rank's last virtual stage finishes the item."""
         return self.r == self.n - 1 and j == self.v - 1
 
-    def call(self, j: int, i: int, x: torch.Tensor) -> torch.Tensor:
+    def call(self, j: int, i: int, x: torch.Tensor):
+        """:func:`_call_stage` of chunk ``j`` on microbatch ``i``."""
         kwargs = _index_extras(self.extras, i, self.kwargs)
         gen = _microbatch_rng(self.base_seed, i, j)
         if gen is not None:
             kwargs["dropout_rng"] = gen
-        y = self.chunks[j](x, **kwargs)
-        if y.shape != x.shape:
-            raise ValueError(
-                f"pipeline stages must preserve activation shape; got "
-                f"{tuple(x.shape)} -> {tuple(y.shape)}"
-            )
-        return y
+        return _call_stage(self.chunks[j], x, kwargs, self.pass_validity)
+
+    def table(self, balances: Dict[int, torch.Tensor]) -> torch.Tensor:
+        """The per-tick balance table [n_ticks] (fp32, values only): the
+        stage's balance on its real ticks, exactly 0 on the bubbles."""
+        out = torch.zeros(self.n_ticks, dtype=torch.float32, device=self.device)
+        for t, b in balances.items():
+            out[t] = b.detach()
+        return out
 
     def new_act(self) -> torch.Tensor:
         return torch.empty(self.mb_shape, dtype=self.dtype, device=self.device)
@@ -269,6 +301,7 @@ class _Run:
                        | {t - 1 for t, j, _ in self.steps if not self.fed(j)})
         prev, nxt = (self.r - 1) % self.n, (self.r + 1) % self.n
         saved: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self.balances: Dict[int, torch.Tensor] = {}
         inbox: Dict[int, torch.Tensor] = {}
         for t in ticks:
             y = None
@@ -278,7 +311,9 @@ class _Run:
                 with torch.set_grad_enabled(grad):
                     if grad:
                         x_in = x_in.detach().requires_grad_(True)
-                    y = self.call(j, i, x_in)
+                    y, balance = self.call(j, i, x_in)
+                if balance is not None:
+                    self.balances[t] = balance
                 if grad:
                     saved[t] = (x_in, y)
                 if self.final(j):
@@ -292,11 +327,13 @@ class _Run:
             _exchange(self.group, sends, recvs)
         return out.reshape(self.x_shape), saved
 
-    def backward(self, saved, grad_out: torch.Tensor) -> Optional[torch.Tensor]:
+    def backward(self, saved, grad_out: torch.Tensor,
+                 grad_table: Optional[torch.Tensor] = None) -> Optional[torch.Tensor]:
         """Walk the table in reverse: each step back-propagates its saved
         output with the gradient from rank ``r + 1`` (or the caller's, for
-        a finished item) and sends its input's gradient to rank ``r - 1``.
-        Returns the gradient of the fed microbatches (rank 0)."""
+        a finished item), and its balance with the table's gradient at its
+        tick, and sends its input's gradient to rank ``r - 1``.  Returns
+        the gradient of the fed microbatches (rank 0)."""
         g_out = grad_out.reshape(self.m, *self.mb_shape) if self.r == self.n - 1 else None
         gx = torch.zeros(self.m, *self.mb_shape, dtype=self.dtype, device=self.device) \
             if self.r == 0 else None
@@ -310,7 +347,11 @@ class _Run:
                 j, i = self.by_tick[t]
                 x_in, y = saved.pop(t)
                 g = g_out[i] if self.final(j) else inbox.pop(t)
-                torch.autograd.backward(y, g.to(y.dtype))
+                balance = self.balances.get(t)
+                if grad_table is not None and balance is not None and balance.requires_grad:
+                    torch.autograd.backward([y, balance], [g.to(y.dtype), grad_table[t]])
+                else:
+                    torch.autograd.backward(y, g.to(y.dtype))
                 fold_grads(self.params)
                 g_in = x_in.grad if x_in.grad is not None else torch.zeros_like(x_in)
                 if self.fed(j):
@@ -327,19 +368,23 @@ class _Run:
 
 
 class _PipelineFn(torch.autograd.Function):
-    """The forward schedule as one autograd node: ``apply(run, anchor, x)``.
-    ``anchor`` is a 0-dim tensor that requires grad, so every rank's output
-    joins the loss's graph (ranks past 0 feed no ``x``)."""
+    """The forward schedule as one autograd node: ``apply(run, anchor, x)``
+    -> ``(out, table)``, the per-tick balance table empty without
+    ``pass_validity``.  ``anchor`` is a 0-dim tensor that requires grad, so
+    every rank's output joins the loss's graph (ranks past 0 feed no
+    ``x``)."""
 
     @staticmethod
     def forward(ctx, run: _Run, anchor, x):
         out, saved = run.forward(x, grad=True)
         ctx.run, ctx.saved = run, saved
-        return out
+        table = run.table(run.balances) if run.pass_validity else out.new_zeros(0)
+        return out, table
 
     @staticmethod
-    def backward(ctx, grad_out):
-        gx = ctx.run.backward(ctx.saved, grad_out)
+    def backward(ctx, grad_out, grad_table):
+        gx = ctx.run.backward(ctx.saved, grad_out,
+                              grad_table if ctx.run.pass_validity else None)
         ctx.saved = None
         return None, None, gx
 
@@ -370,8 +415,9 @@ def execute_interleaved_pipeline(
     axis_name: str = "pipe",
     extras: Optional[dict] = None,
     dropout_rng: Optional[torch.Generator] = None,
+    pass_validity: bool = False,
     **kwargs,
-) -> torch.Tensor:
+):
     """Run this rank's ``chunks`` (its virtual stages ``j = 0..v-1``, global
     chunks ``j * n + r``) over the circular schedule.
 
@@ -383,7 +429,12 @@ def execute_interleaved_pipeline(
     segment ids): each rank indexes its microbatch's slice.  With
     ``dropout_rng`` (a CPU generator) each (microbatch, chunk) call gets a
     ``dropout_rng`` keyword of its own.  When gradients are enabled the
-    schedule is differentiable: its backward runs the reverse schedule."""
+    schedule is differentiable: its backward runs the reverse schedule.
+    ``pass_validity`` calls each real tick's chunk with a ``moe_losses``
+    list (``BlockStack`` takes both) and returns
+    ``(out, table)``: ``table`` [ticks] the chunk's summed balance per
+    schedule tick, exactly 0 on this rank's bubbles (JAX's sown
+    collection), differentiable."""
     bound = pipe_axis(mesh, axis_name)
     if bound is None:
         raise ValueError(f"the pipeline needs the {axis_name!r} mesh axis bound above size 1")
@@ -392,10 +443,13 @@ def execute_interleaved_pipeline(
     mb = x.shape[0] // num_microbatches
     run = _Run(list(chunks), x.shape, x.dtype, x.device, num_microbatches, len(chunks),
                group, size, index, _stack_extras(extras, num_microbatches, mb), kwargs,
-               _base_seed(dropout_rng))
+               _base_seed(dropout_rng), pass_validity)
     if torch.is_grad_enabled():
-        return _PipelineFn.apply(run, _anchor(x.device), x)
-    return run.forward(x, grad=False)[0]
+        out, table = _PipelineFn.apply(run, _anchor(x.device), x)
+    else:
+        out = run.forward(x, grad=False)[0]
+        table = run.table(run.balances)
+    return (out, table) if pass_validity else out
 
 
 def execute_pipeline(
@@ -408,22 +462,70 @@ def execute_pipeline(
     broadcast_outputs: bool = False,
     extras: Optional[dict] = None,
     dropout_rng: Optional[torch.Generator] = None,
+    pass_validity: bool = False,
     **kwargs,
-) -> torch.Tensor:
+):
     """Run ``stage`` (this rank's) over the GPipe schedule: ``m + n - 1``
     ticks, rank ``r`` on microbatch ``t - r``
     (:func:`execute_interleaved_pipeline` with one chunk).  Returns the
     last stage's outputs there and zeros elsewhere; ``broadcast_outputs``
     sums them over the axis (one all-reduce whose backward is a sum, JAX's
-    ``psum``), so every rank holds the real output."""
+    ``psum``), so every rank holds the real output.  ``pass_validity``
+    returns ``(out, table)`` as the interleaved schedule does."""
     out = execute_interleaved_pipeline(
         [stage], x, num_microbatches=num_microbatches, mesh=mesh, axis_name=axis_name,
-        extras=extras, dropout_rng=dropout_rng, **kwargs)
+        extras=extras, dropout_rng=dropout_rng, pass_validity=pass_validity, **kwargs)
+    table = None
+    if pass_validity:
+        out, table = out
     if broadcast_outputs:
         from tpu_parallel_torch.parallel.tp import all_reduce
 
         out = all_reduce(out, axis_name, mesh)
-    return out
+    return out if table is None else (out, table)
+
+
+def execute_pipeline_step(stage: Callable, carry: torch.Tensor, microbatch: torch.Tensor, *,
+                          mesh, axis_name: str = "pipe", tick: Optional[int] = None,
+                          num_microbatches: Optional[int] = None, pass_validity: bool = False,
+                          extras: Tuple[Tuple[str, torch.Tensor], ...] = (), **kwargs):
+    """One lockstep GPipe tick (JAX's ``execute_pipeline_step``): every rank
+    of the axis calls it at every tick.  Rank 0 reads ``microbatch``, the
+    others ``carry`` (what the previous rank sent last tick); the stage's
+    output moves one rank along the ring (one send and one receive per
+    rank, the wrap-around edge included, as ``lax.ppermute``).  Returns
+    ``(carry_next, collected)``: the activation received for the next
+    tick, and the stage's output on the last rank (zeros elsewhere).
+
+    ``tick`` and ``num_microbatches`` say which microbatch the rank holds
+    (``tick - rank``; ``extras`` as ``(name, [m, mb, ...])`` pairs are
+    indexed by it).  A rank whose microbatch is out of range holds a
+    bubble: it runs nothing and passes zeros on, where JAX computes on
+    garbage it masks.  ``pass_validity`` runs the stage with a
+    ``moe_losses`` list and returns a third value, the tick's summed
+    balance: exactly 0 on a bubble."""
+    if (pass_validity or extras) and (tick is None or num_microbatches is None):
+        raise ValueError("pass_validity/extras require tick and num_microbatches")
+    bound = pipe_axis(mesh, axis_name)
+    if bound is None:
+        raise ValueError(f"the pipeline needs the {axis_name!r} mesh axis bound above size 1")
+    group, size, index = bound
+    inputs = microbatch if index == 0 else carry
+    mb_index = None if tick is None or num_microbatches is None else tick - index
+    balance = None
+    if mb_index is None or 0 <= mb_index < num_microbatches:
+        outputs, balance = _call_stage(stage, inputs, _index_extras(extras, mb_index, kwargs),
+                                       pass_validity)
+    else:
+        outputs = torch.zeros_like(inputs)
+    collected = outputs if index == size - 1 else torch.zeros_like(outputs)
+    carry_next = torch.empty_like(inputs)
+    _exchange(group, [(outputs, (index + 1) % size)], [(carry_next, (index - 1) % size)])
+    if not pass_validity:
+        return carry_next, collected
+    if balance is None:
+        balance = torch.zeros((), dtype=torch.float32, device=inputs.device)
+    return carry_next, collected, balance
 
 
 def execute_pipeline_decode(stage: Callable, x: torch.Tensor, *, mesh, axis_name: str = "pipe",
@@ -603,11 +705,13 @@ class PipelineModule(nn.Module):
     under interleave) from torch's default generator, seeded here with
     ``seed`` folded with the stage's global chunk index, so the stages draw
     independent weights, as JAX's ``ModuleShard`` folds the init key over
-    the axis."""
+    the axis.  ``pass_validity``: the forward returns ``(out, table)``, the
+    stage's per-tick balance table (:func:`execute_interleaved_pipeline`);
+    the stage takes ``moe_losses`` (``BlockStack``)."""
 
     def __init__(self, stage_fn: Callable[[], nn.Module], num_microbatches: int, *, mesh,
                  axis_name: str = "pipe", broadcast_outputs: bool = False,
-                 interleave: int = 1, seed: int = 0):
+                 interleave: int = 1, seed: int = 0, pass_validity: bool = False):
         super().__init__()
         bound = pipe_axis(mesh, axis_name)
         if bound is None:
@@ -617,6 +721,7 @@ class PipelineModule(nn.Module):
         self.mesh, self.axis_name = mesh, axis_name
         self.num_microbatches, self.interleave = num_microbatches, interleave
         self.broadcast_outputs = broadcast_outputs
+        self.pass_validity = pass_validity
         chunks = []
         for j in range(interleave):
             with torch.random.fork_rng(devices=[]):
@@ -642,8 +747,9 @@ class PipelineModule(nn.Module):
             return execute_interleaved_pipeline(
                 [self.stage.chunk(j) for j in range(self.interleave)], x,
                 num_microbatches=self.num_microbatches, mesh=self.mesh,
-                axis_name=self.axis_name, extras=extras, **kwargs)
+                axis_name=self.axis_name, extras=extras, pass_validity=self.pass_validity,
+                **kwargs)
         return execute_pipeline(self.stage, x, num_microbatches=self.num_microbatches,
                                 mesh=self.mesh, axis_name=self.axis_name,
                                 broadcast_outputs=self.broadcast_outputs, extras=extras,
-                                **kwargs)
+                                pass_validity=self.pass_validity, **kwargs)

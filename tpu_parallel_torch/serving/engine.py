@@ -247,10 +247,10 @@ def _decode_core(model, tok, pos, widx, temperature, top_k, top_p, cache, genera
     reads, through ``table`` when paged: the same math, so greedy output
     is bitwise equal across the layouts), per-slot sampling.  Returns the
     next tokens [n_slots]."""
-    # a parked row may hold the sentinel (-2): clamp so its (unread) lookup
-    # stays in the embedding table
-    hidden, _ = decode_step(model, cache, tok.clamp(min=0), pos, write_index=widx,
-                            block_table=table)
+    # a parked row may hold the sentinel (-2): its lookup wraps to a row of
+    # the table as JAX's does (Embedding), so under MoE the row claims the
+    # same expert capacity in both packages
+    hidden, _ = decode_step(model, cache, tok, pos, write_index=widx, block_table=table)
     logits = _full_last_logits(model, hidden)
     return sample_tokens(logits, generator, temperature, top_k, top_p)
 
@@ -367,9 +367,10 @@ def _verify_core(model, tok, drafts, draft_len, pos, widx, temperature, top_k, t
     offs = torch.arange(k + 1, device=tok.device)[None, :]
     reach = offs <= draft_len[:, None]
     positions = torch.where(reach, pos[:, None] + offs, torch.full_like(offs, -1))
-    # a parked row may hold the sentinel (-2), a drafter any id: clamp the
-    # lookups into the embedding table (JAX clamps its gathers)
-    hidden, _ = verify_step(model, cache, tokens.clamp(0, model.config.vocab_size - 1),
+    # a parked row may hold the sentinel (-2), which wraps as JAX's lookup
+    # does (Embedding); a drafter's id past the vocabulary is clamped into
+    # the table (JAX's lookup reads NaN there)
+    hidden, _ = verify_step(model, cache, tokens.clamp(max=model.config.vocab_size - 1),
                             positions, widx, block_table=table)
     logits = model.lm_head(hidden)
     out_tokens, accepted = verify_tokens(drafts, draft_len, logits, generator, temperature,
