@@ -6,8 +6,10 @@ trainer shell (data loading, checkpointed fit, 8k context), data
 parallelism (a process group, a mesh, synced gradients), FSDP (sharded
 parameters, state and checkpoints), tensor parallelism, pipeline
 parallelism on GPT-2 350M, sequence parallelism (ring and Ulysses
-attention) at 32k context, and mixture of experts with expert
-parallelism (``gpt2_moe_ep``), at full width.
+attention) at 32k context, mixture of experts with expert
+parallelism (``gpt2_moe_ep``), and the Llama family (``llama_1b`` served
+and trained on one device, ``llama_1b_3d``'s FSDP x TP x PP over eight
+ranks), at full width.
 
     python3 chip_smoke.py
 
@@ -48,7 +50,7 @@ source, all started together).  Phases, in order; any failure raises:
    xla path; a profile of one step;
 7. serve: the continuous-batching ``ServingEngine`` on GPT-2 125M (bf16,
    16 slots, auto buckets, prefill batch 4, chunks of 256, a prefix cache
-   of 4) over 48 requests (prompts of 16-768 tokens, 8 behind one shared
+   of 4) over 32 requests (prompts of 16-768 tokens, 8 behind one shared
    128-token prefix, 32-128 new tokens, 8 of them sampled; 16 arrive at
    tick 0, then 4 per tick), run seven times: per-step ticks, fused T=8
    ticks run eagerly, fused T=8 ticks replaying one CUDA graph, and the
@@ -98,7 +100,7 @@ source, all started together).  Phases, in order; any failure raises:
    two engines must continue as the exporter does.  No flash launch.
 9. spec: speculative decoding on GPT-2 125M (bf16, 16 slots, auto
    buckets, prefill batch 4, 4 draft tokens: verify blocks of [16, 5])
-   over 32 requests (prompts of 64-512 tokens, half a 32-token motif
+   over 24 requests (prompts of 64-512 tokens, half a 32-token motif
    repeated, 64-128 new tokens, 4 sampled; 16 at tick 0, then 4 per tick),
    run seven times: (a) the non-spec engine at its defaults; (b) per-step
    verify ticks with the host n-gram drafter; (c) fused ticks of 4 verify
@@ -127,7 +129,7 @@ source, all started together).  Phases, in order; any failure raises:
    per step, tokens/s, idle share, launches per token, the copy, cast and
    gather kernels by name).  Phase 9's run (c) at int8, greedy tokens
    bitwise equal to a per-step int8 spec run.  ``generate_beam`` on 4
-   prompts of 256 tokens, 4 beams, 64 new, lazy and eager (tokens/s,
+   prompts of 256 tokens, 4 beams, 32 new, lazy and eager (tokens/s,
    device ms per beam step, the eager reorder's bytes), the int8 lazy beam,
    and fp32 lazy tokens equal to eager with scores within 1e-4.  The seeded
    weight tree quantized to int8 (bytes against fp32 and bf16, held under
@@ -186,9 +188,9 @@ source, all started together).  Phases, in order; any failure raises:
    tpu_parallel_torch.train --config=gpt2_125m_dp`` for 3 steps on
    ``CLI_ROWS`` rows at ``CLI_LAYERS`` layers (as phases 13-15's CLI
    legs): exit 0, a topology line with one process and NCCL,
-   ``train_loss`` in its metrics.  It runs beside phases 13-16's CLI
-   legs and (b)'s reference, which times nothing; all are collected
-   before any later timed leg.
+   ``train_loss`` in its metrics.  It starts with phases 13-18's CLI
+   legs at phase 9, on all but MAIN_CORES of the host's cores, and all
+   are collected in phase 12, after (b)'s reference.
 13. FSDP: ``gpt2_125m_dp`` with ``model_overrides.fsdp=True`` (the blocks,
    the embedding and the lm_head sharded over the data axis), the same
    legs.  (a) An NCCL group of one (phase 12 (a)'s process and group,
@@ -216,14 +218,14 @@ source, all started together).  Phases, in order; any failure raises:
    another way, and static ``generate()`` gives equal greedy tokens on
    both.  (e) The CLI under torchrun with
    ``--config.model_overrides.fsdp=True`` for 3 steps on ``CLI_ROWS``
-   rows (started and collected in phase 12): exit 0.
+   rows (started at phase 9, collected in phase 12): exit 0.
 14. tensor parallelism on ``gpt2_125m_tp`` ([32, 1024] in one minibatch,
    a ``model`` axis over the ranks): both kernels at one rank's shape
    [32, 6, 1024, 64], q, k and v views of its [B, S, 6, 192] qkv buffer,
    against the plain versions.  (a) ``python -m torch.distributed.run
    --standalone --nproc_per_node=1`` over the CLI's ``main`` with
    ``--config=gpt2_125m_tp`` on ``CLI_ROWS`` rows (a model axis of 1,
-   NCCL; started and collected in phase 12): exit 0, 12/12 launches per
+   NCCL; started at phase 9, collected in phase 12): exit 0, 12/12 launches per
    step, a falling loss, ``train_loss`` in its metrics.  A
    one-process reference (no group, run in this process) on 3 seeded batches, then (b) two
    gloo ranks sharing the card on a data=1 x model=2 mesh, each on all 32
@@ -253,7 +255,7 @@ source, all started together).  Phases, in order; any failure raises:
    (a) ``python -m torch.distributed.run --standalone --nproc_per_node=1``
    over the CLI's ``main`` with ``--config=gpt2_350m_pp``, the mesh's pipe
    and ``pipe_interleave`` set to 1 and ``pipe_schedule="1f1b"`` on
-   ``CLI_ROWS`` rows (NCCL; started and collected in phase 12): exit 0,
+   ``CLI_ROWS`` rows (NCCL; started at phase 9, collected in phase 12): exit 0,
    384/192 launches per step, a falling loss.  A one-process
    reference (no group, run in this process, the microbatches as minibatches) on 3 seeded
    batches, then four gloo ranks sharing the card on a data=1 x pipe=4
@@ -305,9 +307,10 @@ source, all started together).  Phases, in order; any failure raises:
    per rank), each from the reference's init: 3 counted steps (the first
    a warm-up, its synced gradients within ``TRAIN_GRAD_TOL`` per weight
    of the reference's) with losses within ``LOSS_TOL``, the masters bitwise equal
-   across the ranks after every step, per step (r + 1) x 12 launches of
-   each kernel on ring rank r and 12 on every Ulysses rank, 84 ring sends
-   and receives or 96 all-to-alls, one gradient all-reduce; step wall
+   across the ranks after every step, per step (r + 1) x 4 launches of
+   each kernel on ring rank r and 4 on every Ulysses rank (``SP_LAYERS``,
+   4 of the 12 layers), 28 ring sends and receives or 32 all-to-alls, one
+   gradient all-reduce; step wall
    against the reference's, state and peak memory, host ms per ring hop
    and per all-to-all; then in the same ranks the ring op alone,
    ``ring_flash_attention`` forward and backward on each rank's block of
@@ -316,7 +319,7 @@ source, all started together).  Phases, in order; any failure raises:
    --nproc_per_node=4`` over the CLI's ``main`` with
    ``--config=gpt2_125m_long``, the seq axis 4, ring attention, 32768
    tokens at ``SP_CLI_LAYERS`` layers, one row, ``--device=cuda:0
-   --backend=gloo`` (started and collected in phase 12): exit 0 on every
+   --backend=gloo`` (started at phase 9, collected in phase 12): exit 0 on every
    rank, (r + 1) x ``SP_CLI_LAYERS`` launches per step on rank r, a
    falling loss equal on every rank, ``train_loss`` in its metrics;
 17. mixture of experts: ``gpt2_moe_ep``'s model (GPT-2 125M with 8
@@ -335,7 +338,8 @@ source, all started together).  Phases, in order; any failure raises:
    the index dispatch against ``_dispatch_masks`` and the einsums on layer
    0's input, [2, 128] in fp32, at capacity factors 1.25 and 0.5 (the
    same slots exactly, outputs within 1e-5).  (b) a one-process reference
-   with every expert (run in this process): 4 steps (the first at
+   with every expert (run in this process) at ``MOE_STEP_LAYERS`` (4 of
+   the 12 layers; (a) and the fp32 pass below run all 12): 4 steps (the first at
    learning rate 0), its step-1 synced gradients and every step's expert
    choices kept, the dropped share of a forward's choices under the dense
    dispatch and the all-to-all's quota.  Then four gloo ranks sharing the
@@ -343,17 +347,63 @@ source, all started together).  Phases, in order; any failure raises:
    the dense dispatch on (b)'s expert choices, 4 counted steps on one
    seeded batch with losses within ``LOSS_TOL`` of (b)'s, the step-1
    synced gradients within ``TRAIN_GRAD_TOL`` per weight of (b)'s,
-   replicated masters bitwise equal across the ranks, 12/12 launches and
-   the collectives derived from the schedule per step (55 model-axis
+   replicated masters bitwise equal across the ranks, 4/4 launches and
+   the collectives derived from the schedule per step (23 model-axis
    all-reduces, one gradient all-reduce), and in fp32 (xla attention,
    full depth, 2 rows, routed alike) the synced gradients, expert stacks
    assembled after the sync, within 1e-4 per weight of one process's;
-   (d) the all-to-all dispatch in the same ranks: the same launches, 67
-   all-reduces, 72 all-to-alls, 12 all-gathers and 12 reduce-scatters per
+   (d) the all-to-all dispatch in the same ranks: the same launches, 27
+   all-reduces, 24 all-to-alls, 4 all-gathers and 4 reduce-scatters per
    step, finite and falling losses (its per-sender quota drops other
    choices, so no equality with (c)); state bytes, peak memory, step wall
    against (b)'s, host ms per 25.2 MB combine all-reduce and per
-   all-to-all.
+   all-to-all;
+18. the Llama family: ``llama_1b`` (rope, RMSNorm, swiglu; 16 layers, d
+   2048, 16 heads of 128, seq 2048, vocab 32000, bf16, flash,
+   "proj_attn"; 1.205B parameters, seeded).  Both kernels at its D=128
+   shapes, one device's [4, 2048] x 16 heads and a 3-D rank's [1, 2048] x
+   8 heads, against the plain versions, timed in turns with SDPA.  (a) one
+   device at full depth: a forward on [4, 2048], 16 launches, the loss
+   within ``LOSS_TOL`` of the xla path's and the logits token by token
+   within ``LOGITS_TOL`` of the xla path's with its attention in fp32 and
+   by a row rule that scales with them (``LLAMA_LOGITS_ROW_TOL``; V's
+   second half zeroed in every layer's kernel call must fail it, in the
+   last layer's alone is read; the bf16 xla path's own distance printed
+   beside); greedy ``generate()`` on
+   4 ragged prompts against the full forward's argmax; 8 requests through
+   the engine's fused T=8 ticks replayed as CUDA graphs against
+   ``generate()`` at batch 1 (both equal, or first differing where the top-2
+   gap is below twice what the bf16 paths alone move the logits by);
+   forward ms and decode ms per step.  (b) training at full depth, 4 steps
+   of 2 minibatches of [4, 2048] (warm-up 1: steps 2-4 update), step-1
+   gradients flash against xla within ``TRAIN_GRAD_TOL`` per weight, 32
+   launches of each kernel per step, a falling loss; state bytes, peak
+   memory, step ms, tokens/s, MFU with the gated MLP's three products.
+   (c) ``llama_1b_3d`` over eight gloo ranks sharing the card, data 2 x
+   model 2 x pipe 2, ``fsdp=True`` (every tensor-parallel slice split
+   again over data by JAX's rule), 4 layers (cut from 16), 8 rows (cut
+   from 64), 4 microbatches of one row per data rank (cut from the
+   config's 8), GPipe, 3 steps (cut from 100), against one process (run in
+   this process): the
+   init's masters gathered over both axes bitwise equal to the
+   one-process init, each rank's state bytes equal to JAX's rule's, losses
+   within ``LOSS_TOL``, bf16 step-1 gradients within ``TRAIN_GRAD_TOL``
+   per weight (each rank's slices), an fp32 pass at 2 layers within 1e-4,
+   FSDP gathers and reduce-scatters, model-axis all-reduces and pipe
+   sends and receives per step equal to the numbers derived from the
+   schedule and remat (``_llama_want_counts``), a checkpoint at step 2
+   restored bitwise into a fresh init, the export refused as JAX refuses
+   it, and the state gathered over both axes onto one device (by this
+   script's all-gathers: the port, as JAX, has no one-device export of
+   this state) giving 8 greedy tokens equal to the one-process model's
+   (the top-2 rule, with the two weight sets' distance as the noise);
+   step wall against the
+   reference's, state and peak per rank, host ms per all-reduce, hop and
+   gather.  (d) ``python -m torch.distributed.run --nproc_per_node=4`` over
+   the CLI's ``main`` with ``--config=llama_1b_3d`` on data 2 x model 2 x
+   pipe 1 at 2 layers, 8 rows, 2 steps (started with the CLI batch at
+   phase 9, collected in phase 12): exit 0 on every rank, 2 launches of each kernel per
+   step, finite losses equal on every rank.
 
 Weights and inputs are made from ``SEED``.  The kernel launch counters are
 set to 0 before each main path (phases 3-4: inference; phase 6's steps:
@@ -362,13 +412,15 @@ packed fit and its 8k steps; phase 12's and phase 13's legs (a), in their
 subprocesses; phase 14's CLI leg and its leg (b)'s steps; phase 15's CLI
 leg and its leg (b)'s steps; phase 16's CLI leg and the steps of its
 legs (b) and (c) in every rank; phase 17 (a)'s forward and the steps of
-(c) and (d) in every rank) and read after it.  The last two lines
+(c) and (d) in every rank; phase 18 (a)'s forward and ``generate()``, (b)'s
+steps, (c)'s steps in every rank and (d)'s CLI) and read after it.  The last two lines
 are the ``kernels`` JSON object and the ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import json
 import subprocess
@@ -1152,7 +1204,7 @@ def train_phase(seed, card_name):
 
 # phase 7: the serving engine's workload (GPT-2 125M, seeded weights)
 SERVE_SLOTS = 16
-SERVE_REQUESTS = 48
+SERVE_REQUESTS = 32  # 48 until phase 18 needed the run's time
 SERVE_SAMPLED = 8
 SERVE_SHARED_PREFIX = (8, 128)  # 8 prompts share a 128-token prefix
 SERVE_FIRST_TICK, SERVE_PER_TICK = 16, 4
@@ -1191,9 +1243,9 @@ FP32_TIE_GAP = 1e-4
 
 
 def serve_workload(seed, vocab):
-    """48 requests from ``seed`` with numpy: prompt lengths 16-768 (8 of
-    them behind one shared 128-token prefix), 32-128 new tokens, 40
-    greedy and 8 sampled (temperature 0.8, top_p 0.9), in arrival order.
+    """SERVE_REQUESTS requests from ``seed`` with numpy: prompt lengths
+    16-768 (8 of them behind one shared 128-token prefix), 32-128 new
+    tokens, 8 of them sampled (temperature 0.8, top_p 0.9), in arrival order.
     Returns (prompt, max_new_tokens, sampled) triples."""
     import numpy as np
 
@@ -1479,7 +1531,7 @@ def cache_sized_copies(model, seed):
 
 def serve_phase(seed, smi):
     """Phase 7: the continuous-batching engine on GPT-2 125M (bf16, seeded
-    weights) over one 48-request workload, run as ``RUNS`` lists: the
+    weights) over one SERVE_REQUESTS-request workload, run as ``RUNS`` lists: the
     four per-phase runs ((i) per-step ticks, (ii) fused T=8 ticks with the
     body run eagerly, (iii) fused T=8 ticks replaying one CUDA graph, (iv)
     as (iii) under ``run(overlap=True)``), then the unified ragged tick
@@ -2074,7 +2126,8 @@ def hier_phase(seed, smi):
 
 
 # phase 9: speculative decoding (GPT-2 125M, bf16, the seed of phase 7)
-SPEC_REQUESTS, SPEC_SAMPLED, SPEC_MOTIF = 32, 4, 32
+# 24 requests (32 until phase 18 needed the run's time)
+SPEC_REQUESTS, SPEC_SAMPLED, SPEC_MOTIF = 24, 4, 32
 SPEC_DRAFT = 4  # draft tokens: verify blocks of [16 slots, 5]
 SPEC_FUSED_STEPS = 4
 SPEC_BLOCK_TOKENS, SPEC_POOL_BLOCKS = 32, 512
@@ -2139,7 +2192,7 @@ SPEC_GRAPH_KINDS = dict(plain=("fused",), spec_fused_ngram=("spec_fused",),
 
 
 def spec_workload(seed, vocab):
-    """32 requests from ``seed`` with numpy: prompts of 64-512 tokens, half
+    """SPEC_REQUESTS requests from ``seed`` with numpy: prompts of 64-512 tokens, half
     of them a 32-token motif of their own repeated (the traffic of code
     edits and of answers that quote their prompt, where the n-gram drafter
     finds matches), 64-128 new tokens, 28 greedy and 4 sampled
@@ -2485,8 +2538,8 @@ INT8_CAPTURES = dict(int8_fused_graph=1, int8_paged_unified_graph=2)
 # prefilling the context at batch 16 instead of 1 moves its logits by
 # (``_int8_shape_noise``), whichever is larger.
 INT8_TIE_GAP = 1e-2
-# 64 new tokens (128 until the whole run neared its time limit)
-BEAM_PROMPTS, BEAM_PROMPT_LEN, BEAM_WIDTH, BEAM_NEW = 4, 256, 4, 64
+# 32 new tokens (128, then 64, until the whole run neared its time limit)
+BEAM_PROMPTS, BEAM_PROMPT_LEN, BEAM_WIDTH, BEAM_NEW = 4, 256, 4, 32
 BEAM_PROFILED_NEW = 18  # profiled calls of 18 and 2 new tokens: 16 steps apart
 BEAM_FP32_NEW = 16
 EXTRAS_STRETCH_TICKS = 1  # fused T=8 ticks per timed and per profiled window
@@ -2608,7 +2661,7 @@ def _device_ms(fn):
 
 def beam_leg(model, model8, seed):
     """``generate_beam`` on GPT-2 125M: 4 prompts of 256 tokens, 4 beams,
-    64 new tokens, lazy and eager, timed; device ms per beam step from
+    BEAM_NEW new tokens, lazy and eager, timed; device ms per beam step from
     two profiled calls (18 and 2 new tokens: the difference over 16
     steps, so the prefill drops out); the eager form's reorder copies per
     step.  Then the int8 cache's lazy beam (``model8``), and an fp32 leg
@@ -3944,7 +3997,7 @@ def _run_leg(args, env=None, timeout=DP_LEG_TIMEOUT):
 # the legs that run as several rank processes; each is started early by
 # _spawn_ranks, imports what the legs use (torch's first selective checkpoint
 # imports torch._dynamo) and waits for _join_ranks to let it run
-RANK_LEGS = ("dp_pair", "fsdp_pair", "tp_pair", "pp_rank", "sp_rank", "moe_rank")
+RANK_LEGS = ("dp_pair", "fsdp_pair", "tp_pair", "pp_rank", "sp_rank", "moe_rank", "llama_rank")
 RANK_START_TIMEOUT = 1200
 
 
@@ -4024,33 +4077,40 @@ def _reference(leg, work):
 
 
 def _share_cores(n):
-    """One of ``n`` ranks sharing the host: its share of the cores for
-    torch's intra-op threads (each rank taking all of them thrashes)."""
+    """One of ``n`` ranks sharing the host: its share of the cores it may
+    run on for torch's intra-op threads (each rank taking all of them
+    thrashes)."""
     import os
 
-    torch.set_num_threads(max(1, (os.cpu_count() or n) // n))
+    torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // n))
 
 
-# the torchrun CLI legs of phases 12-16 each start a process, build GPT-2
-# and run 3 steps: they run together, at CLI_ROWS rows, while phase 12 (b)'s
-# reference (which times nothing) runs, and all are collected before any
-# timed leg that follows (phase 11's CLI, whose evaluation needs 6 GiB of
-# logits, ran out of memory beside them on a crowded card, so it runs in
-# phase 11)
+# the torchrun CLI legs of phases 12-18 each start their processes, build
+# their model and run 2-3 steps: they run together, at CLI_ROWS rows, from
+# the start of phase 9 (phases 9 and 10 hold under 4 GiB of the card; the
+# batch takes over a minute, most of it its processes' start-up) on all but
+# MAIN_CORES of the host's cores, and all are collected in phase 12 after
+# (b)'s reference (phase 11's CLI, whose evaluation needs 6 GiB of logits,
+# ran out of memory beside them on a crowded card, so it runs in phase 11)
 CLI_ROWS = 8
 # and at CLI_LAYERS of their models' layers (the run's time limit): they
 # hold the CLI's plumbing, which depth does not change
 CLI_LAYERS = 2
+# the host cores left to this process while the CLI batch runs beside
+# phases 9 and 10
+MAIN_CORES = 2
 
 
 _LAUNCHED = []  # every _launch'ed process, killed by main's exit if still running
 _SPAWNED = []  # every _spawn_ranks process, killed likewise
 
 
-def _launch(cmd):
+def _launch(cmd, cores=None):
     """Start ``cmd`` from the script's directory (``PYTHONPATH`` there) in a
     session of its own, its output into temporary files (a pipe nobody
-    reads until :func:`_finish` could fill and stall it)."""
+    reads until :func:`_finish` could fill and stall it); on the host
+    cores ``cores`` (all it inherits when None), which its children
+    inherit."""
     import os
     import tempfile
 
@@ -4058,6 +4118,8 @@ def _launch(cmd):
     out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
     proc = subprocess.Popen(cmd, cwd=here, env=dict(os.environ, PYTHONPATH=str(here)),
                             stdout=out, stderr=err, text=True, start_new_session=True)
+    if cores is not None:  # set before torchrun, still importing, starts its workers
+        os.sched_setaffinity(proc.pid, cores)
     _LAUNCHED.append(proc)
     return proc, out, err, time.perf_counter()
 
@@ -4107,7 +4169,7 @@ def _torchrun(*args):
             *args]
 
 
-def dp_cli_leg(work):
+def dp_cli_leg(work, cores):
     """Leg (c), launched: ``python -m torch.distributed.run --standalone
     --nproc_per_node=1 -m tpu_parallel_torch.train --config=gpt2_125m_dp``
     for DP_STEPS steps on CLI_ROWS rows; :func:`dp_cli_check` holds it."""
@@ -4116,7 +4178,7 @@ def dp_cli_leg(work):
                              f"--config.steps={DP_STEPS}",
                              f"--config.model_overrides.n_layers={CLI_LAYERS}",
                              f"--config.global_batch_size={CLI_ROWS}",
-                             f"--metrics-out={metrics}")), metrics
+                             f"--metrics-out={metrics}"), cores), metrics
 
 
 def _collect_clis(clis):
@@ -4141,13 +4203,28 @@ def dp_cli_check(collected):
     return dict(wall_s=wall, topology=topology[0], stdout_tail=out.strip().splitlines()[-2:])
 
 
-def dp_phase(smi, work):
+def cli_batch(work):
+    """Launch leg (c) and phases 13-18's CLI legs together, in the
+    directory ``work``, on all but the first MAIN_CORES of the host cores
+    this process may run on (all of them on a host with fewer than twice
+    as many): ``{name: (launched, metrics)}`` for :func:`dp_phase`."""
+    import os
+
+    cores = sorted(os.sched_getaffinity(0))
+    cores = set(cores[MAIN_CORES:] if len(cores) >= 2 * MAIN_CORES else cores)
+    return dict(dp=dp_cli_leg(work, cores), fsdp=fsdp_cli_leg(work, cores),
+                tp=tp_cli_leg(work, cores), pp=pp_cli_leg(work, cores),
+                sp=sp_cli_leg(work, cores), llama=llama_cli_leg(work, cores))
+
+
+def dp_phase(smi, work, clis):
     """Phase 12: the kernels at the DP step's shape against their plain
     versions, then legs (a), (b) and (c), in the directory ``work`` (leg
-    (b)'s ``pair.pt`` stays there for phase 13).  Phases 13-16's CLI
-    legs start with leg (c), beside leg (b)'s reference.  Returns the
-    report, the kernels' rows, leg (a)'s launches and the collected CLI
-    legs of phases 13-16."""
+    (b)'s ``pair.pt`` stays there for phase 13).  ``clis`` (from
+    :func:`cli_batch`, launched at phase 9) are collected after leg (b)'s
+    reference.  Returns the report, the kernels' rows, leg (a)'s launches,
+    the collected CLI legs of phases 13-18 and phase 13's pair (started
+    here, waiting to run)."""
     start = time.perf_counter()
     legs_s = {}
 
@@ -4161,6 +4238,8 @@ def dp_phase(smi, work):
     torch.cuda.empty_cache()
     lap("kernels")
     pair = _spawn_ranks("dp_pair", work, 2)
+    # phase 13's pair starts up now too and waits for its turn
+    fsdp_pair = _spawn_ranks("fsdp_pair", work, 2)
     env = dict(WORLD_SIZE="1", RANK="0", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
                MASTER_PORT=str(_free_port()))
     nccl = _run_leg(["dp_nccl"], env=env)
@@ -4184,10 +4263,8 @@ def dp_phase(smi, work):
     if pair[0]["losses"] != pair[1]["losses"]:
         raise AssertionError(f"leg (b) ranks' synced losses differ: {pair}")
     lap("pair")
-    # phases 12-16's CLI legs run together with the pair's reference and
-    # are all collected before the timed legs of phases 13-16
-    clis = dict(dp=dp_cli_leg(work), fsdp=fsdp_cli_leg(work), tp=tp_cli_leg(work),
-                pp=pp_cli_leg(work), sp=sp_cli_leg(work))
+    # phases 12-18's CLI legs, launched at phase 9, are all collected here,
+    # before the timed legs of phases 13-18
     ref = _reference(dp_pair_reference_leg, work)
     lap("pair_reference")
     clis = _collect_clis(clis)
@@ -4215,8 +4292,8 @@ def dp_phase(smi, work):
     cli = dp_cli_check(clis.pop("dp"))
     log(f"[dp cli] torchrun --standalone --nproc_per_node=1 -m tpu_parallel_torch.train "
         f"--config=gpt2_125m_dp --config.steps={DP_STEPS} --config.model_overrides.n_layers="
-        f"{CLI_LAYERS} --config.global_batch_size={CLI_ROWS} (beside phases 13-16's CLI legs "
-        f"and the pair's reference): exit 0, "
+        f"{CLI_LAYERS} --config.global_batch_size={CLI_ROWS} (with phases 13-18's CLI legs "
+        f"from the start of phase 9): exit 0, "
         f"collected {cli['wall_s']:.1f} s after its launch; "
         f"topology {cli['topology']}; metrics have train_loss; {cli['stdout_tail']}")
     phase_s = time.perf_counter() - start
@@ -4225,7 +4302,7 @@ def dp_phase(smi, work):
     log(f"card: {smi}")
     return dict(nccl=nccl, nccl_fsdp=nccl_fsdp, pair=pair, pair_reference=ref, cli=cli,
                 phase_s=phase_s,
-                legs_s=legs_s), rows, nccl["launches"], clis
+                legs_s=legs_s), rows, nccl["launches"], clis, fsdp_pair
 
 # phase 13: FSDP on the card (``gpt2_125m_dp`` with ``model_overrides.fsdp``:
 # ZeRO-3 over the data axis).  The same three-process layout as phase 12:
@@ -4602,7 +4679,7 @@ def _fsdp_export(trainer, rank, workdir):
                 n_params=manifest.n_params, tokens=tokens[0][0].tolist())
 
 
-def fsdp_cli_leg(work):
+def fsdp_cli_leg(work, cores):
     """Leg (e), launched: the CLI under torchrun with
     ``--config.model_overrides.fsdp=True`` for FSDP_STEPS steps on
     CLI_ROWS rows; :func:`fsdp_cli_check` holds it."""
@@ -4612,7 +4689,7 @@ def fsdp_cli_leg(work):
                              f"--config.steps={FSDP_STEPS}",
                              f"--config.model_overrides.n_layers={CLI_LAYERS}",
                              f"--config.global_batch_size={CLI_ROWS}",
-                             f"--metrics-out={metrics}")), metrics
+                             f"--metrics-out={metrics}"), cores), metrics
 
 
 def fsdp_cli_check(collected):
@@ -4627,17 +4704,17 @@ def fsdp_cli_check(collected):
     return dict(wall_s=wall, stdout_tail=out.strip().splitlines()[-2:])
 
 
-def fsdp_phase(smi, work, dp_report, dp_save, cli_collected):
+def fsdp_phase(smi, work, dp_report, dp_save, cli_collected, pair):
     """Phase 13: legs (a)-(e) of FSDP, against phase 12's DP legs in this
-    call (``dp_save``: phase 11's save timing, printed beside leg (c)'s).
-    Returns the report and leg (a)'s launches (its main path)."""
+    call (``dp_save``: phase 11's save timing, printed beside leg (c)'s;
+    ``pair``: leg (b)'s ranks, started in phase 12).  Returns the report
+    and leg (a)'s launches (its main path)."""
     start = time.perf_counter()
     legs_s = {}
 
     def lap(name):
         legs_s[name] = time.perf_counter() - start - sum(legs_s.values())
 
-    pair = _spawn_ranks("fsdp_pair", work, 2)
     nccl = dp_report["nccl_fsdp"]  # run in phase 12 (a)'s process
     dp = dp_report["nccl"]
     diffs = [abs(a - b) for a, b in zip(nccl["losses"], dp["losses"])]
@@ -4724,7 +4801,7 @@ def fsdp_phase(smi, work, dp_report, dp_save, cli_collected):
     log(f"[fsdp cli] torchrun --standalone --nproc_per_node=1 -m tpu_parallel_torch.train "
         f"--config=gpt2_125m_dp --config.model_overrides.fsdp=True --config.steps={FSDP_STEPS} "
         f"--config.model_overrides.n_layers={CLI_LAYERS} "
-        f"--config.global_batch_size={CLI_ROWS} (started and collected in phase 12): exit 0, "
+        f"--config.global_batch_size={CLI_ROWS} (started at phase 9, collected in phase 12): exit 0, "
         f"collected {cli['wall_s']:.1f} s after its launch; {cli['stdout_tail']}")
     phase_s = time.perf_counter() - start
     log(f"[fsdp] phase 13 took {phase_s:.1f} s ("
@@ -5177,13 +5254,13 @@ def tp_cli_rank_leg(metrics):
                 launches=dict(zip(LAUNCH_COUNTERS, _launch_counts())))
 
 
-def tp_cli_leg(work):
+def tp_cli_leg(work, cores):
     """Leg (a), launched: ``python -m torch.distributed.run --standalone
     --nproc_per_node=1`` over this script's ``tp_cli_rank`` leg on CLI_ROWS
     rows; :func:`tp_cli_check` holds it."""
     metrics = Path(work, "tp_metrics.prom")
     return _launch(_torchrun(str(Path(__file__).resolve()), "--leg", "tp_cli_rank",
-                             str(metrics))), metrics
+                             str(metrics)), cores), metrics
 
 
 def tp_cli_check(collected):
@@ -5229,7 +5306,7 @@ def tp_phase(smi, work, cli_collected):
     cli = tp_cli_check(cli_collected)
     log(f"[tp cli] torchrun --standalone --nproc_per_node=1 over -m tpu_parallel_torch.train's "
         f"main --config=gpt2_125m_tp --config.steps={TP_STEPS} --config.model_overrides."
-        f"n_layers={CLI_LAYERS} --config.global_batch_size={CLI_ROWS} (a model axis of 1; started and collected in phase 12): exit 0, "
+        f"n_layers={CLI_LAYERS} --config.global_batch_size={CLI_ROWS} (a model axis of 1; started at phase 9, collected in phase 12): exit 0, "
         f"collected {cli['wall_s']:.1f} s after its launch; topology {cli['topology']}; "
         f"launches per step "
         f"(flash_fwd, "
@@ -5311,7 +5388,7 @@ def tp_phase(smi, work, cli_collected):
 # 24 layers over a pipe axis of 4 with 2 virtual stages per rank, flash
 # attention under the proj_attn policy, 8 microbatches).  The kernels at
 # the PP pass's shape; (a) the CLI under torchrun, a pipe axis of 1 with
-# 1F1B (NCCL, a group of one; started and collected in phase 12); a
+# 1F1B (NCCL, a group of one; started at phase 9, collected in phase 12); a
 # one-process reference; then four gloo ranks sharing the card for (b)
 # GPipe with interleave 2, (c) 1F1B, (d) a checkpoint and (e)
 # ``generate_sharded``.
@@ -5772,13 +5849,13 @@ def pp_cli_rank_leg(metrics):
                 launches=dict(zip(LAUNCH_COUNTERS, _launch_counts())))
 
 
-def pp_cli_leg(work):
+def pp_cli_leg(work, cores):
     """Leg (a), launched: ``python -m torch.distributed.run --standalone
     --nproc_per_node=1`` over this script's ``pp_cli_rank`` leg;
     :func:`pp_cli_check` holds it."""
     metrics = Path(work, "pp_metrics.prom")
     return _launch(_torchrun(str(Path(__file__).resolve()), "--leg", "pp_cli_rank",
-                             str(metrics))), metrics
+                             str(metrics)), cores), metrics
 
 
 def pp_cli_check(collected):
@@ -5955,6 +6032,7 @@ SP_STEPS = 3  # one warm-up step, then the timed ones
 SP_WINDOW = 4096  # (a)'s windowed split: one chunk back at most
 SP_LEG_TIMEOUT = 600
 SP_CLI_LAYERS = 2  # (d) runs 2 of the 12 layers at full width (the run's time limit)
+SP_LAYERS = 4  # (b) and (c) and their reference: 4 of the 12 layers (the run's time limit)
 SP_CLI_STEPS = 3
 # the kernels at the ring's chunk shapes (the diagonal, a past chunk, a
 # past chunk straddling the window's edge) and at Ulysses' inner shape
@@ -6113,7 +6191,7 @@ def _sp_band(j, window):
 def _sp_config(impl, **changes):
     config, _ = _shell_config(
         "gpt2_125m_long", seed=SEED, global_batch_size=SP_ROWS, num_minibatches=SP_MINIBATCHES,
-        model_overrides=dict(seq_len=SP_SEQ, attn_impl=impl), **changes)
+        model_overrides=dict(seq_len=SP_SEQ, attn_impl=impl, n_layers=SP_LAYERS), **changes)
     return config
 
 
@@ -6396,14 +6474,14 @@ def sp_cli_rank_leg(metrics):
     return result
 
 
-def sp_cli_leg(work):
+def sp_cli_leg(work, cores):
     """Leg (d), launched: ``python -m torch.distributed.run --standalone
     --nproc_per_node=SP_RANKS`` over this script's ``sp_cli_rank`` leg;
     :func:`sp_cli_check` holds it."""
     metrics = Path(work, "sp_metrics.prom")
     cmd = _torchrun(str(Path(__file__).resolve()), "--leg", "sp_cli_rank", str(metrics))
     cmd[cmd.index("--nproc_per_node=1")] = f"--nproc_per_node={SP_RANKS}"
-    return _launch(cmd), metrics
+    return _launch(cmd, cores), metrics
 
 
 def sp_cli_check(collected):
@@ -6588,6 +6666,9 @@ MOE_LEG_TIMEOUT = 600
 # (phase 14's limit)
 MOE_FP32_ROWS = 2
 MOE_FP32_GRAD_TOL = TP_FP32_GRAD_TOL
+# (b)-(d)'s bf16 steps at 4 of the 12 layers (the run's time limit); (a) and
+# the fp32 pass keep the full depth
+MOE_STEP_LAYERS = 4
 
 
 def _moe_config(**changes):
@@ -6963,7 +7044,8 @@ def moe_reference_leg(workdir):
     from tpu_parallel_torch.train_lib import Trainer
 
     t0 = time.perf_counter()
-    trainer = Trainer(_moe_config(mesh=dict(data=1, model=1, pipe=1, seq=1)), device="cuda")
+    trainer = Trainer(_moe_config(mesh=dict(data=1, model=1, pipe=1, seq=1),
+                                  model_overrides=dict(n_layers=MOE_STEP_LAYERS)), device="cuda")
     if trainer.mesh is not None:
         raise AssertionError("the one-process reference runs on a mesh")
     draws = _moe_draws()
@@ -7038,7 +7120,8 @@ def _moe_run(dispatch, mesh, ref, rank, draws):
         legs_s[name] = time.perf_counter() - start_s - sum(legs_s.values())
 
     trainer = Trainer(_moe_config(mesh=dict(data=1, model=MOE_RANKS, pipe=1, seq=1),
-                                  model_overrides=dict(moe_dispatch=dispatch)), mesh,
+                                  model_overrides=dict(moe_dispatch=dispatch,
+                                                       n_layers=MOE_STEP_LAYERS)), mesh,
                       device="cuda:0")
     state = trainer.init(draws)
     cfg = trainer.model_config
@@ -7299,6 +7382,1035 @@ def moe_phase(smi, work):
             r0["dense"]["launches"])
 
 
+# phase 18: the Llama family.  llama_1b (rope, RMSNorm, swiglu, 16 heads of
+# 128, vocab 32000, seq 2048; seeded weights) at full width: (a) serving and
+# (b) training on one device at full depth; (c) llama_1b_3d's FSDP x TP x
+# PP over eight gloo ranks at LLAMA_3D_LAYERS layers against one process;
+# (d) its CLI under torchrun (started with the CLI batch at phase 9)
+LLAMA_SIZE = {}  # overrides of llama_1b's widths (none: its own)
+LLAMA_SEQ = 2048  # llama_1b's seq_len
+LLAMA_ROWS = 4  # (a)'s forward and (b)'s minibatches: [4, 2048]
+LLAMA_MINIBATCHES = 2  # (b): 2 minibatches of [4, 2048] per step
+LLAMA_STEPS = 4  # (b)
+LLAMA_WARMUP = 1  # warmup_steps of (b) and (c): step 1's rate is 0
+LLAMA_SHAPE = (LLAMA_ROWS, 16, 16, LLAMA_SEQ, 128, dict(causal=True), False, 10)
+LLAMA_PROMPT_LENS = (64, 37, 50, 21)  # (a)'s ragged prompts, left-padded to 64
+LLAMA_NEW = 16  # new tokens per prompt in (a)
+LLAMA_ENGINE_LENS = (64, 37, 50, 21, 45, 30, 58, 12)  # (a)'s 8 engine requests
+LLAMA_RANKS = 8
+LLAMA_MESH = dict(data=2, model=2, pipe=2, seq=1)  # the smallest mesh with all three axes
+LLAMA_ONE = dict(data=1, model=1, pipe=1, seq=1)
+LLAMA_3D_LAYERS = 4  # (c): cut from 16
+LLAMA_3D_ROWS = 8  # (c): cut from 64 (the run's time limit)
+LLAMA_3D_MICRO = 4  # (c): one row each per data rank, cut from the config's 8 (the time limit)
+LLAMA_3D_STEPS = 3  # (c): cut from 100 (the run's time limit); steps 2-3 update
+LLAMA_3D_SHAPE = (1, 8, 8, LLAMA_SEQ, 128, dict(causal=True), False, 20)  # a rank's microbatch
+LLAMA_3D_FP32_LAYERS = 2
+LLAMA_3D_FP32_MICRO = 2  # (c)'s fp32 pass: 2 microbatches of one row per data rank
+LLAMA_3D_FP32_TOL = TP_FP32_GRAD_TOL  # phase 14's
+LLAMA_3D_NEW = 8  # (c): greedy tokens from the exported state
+LLAMA_LEG_TIMEOUT = 900
+# (a): the forward's logits against the xla path with fp32 attention, token
+# by token (a row: one position's 32000 logits), by the row rule of
+# row_error_ratio: ||err|| <= 5e-2 * ||row|| + 1e-3 * rms row norm.  It
+# scales with the logits, where LOGITS_TOL does not: at 16 layers the
+# kernel's logits read 0.0986 max abs against 0.1, relative L2 1.68e-2, a
+# few times under this rtol; the run prints the worst token's share of the
+# limit and what two planted faults (V's second half zeroed) read
+LLAMA_LOGITS_ROW_TOL = (5e-2, 1e-3)
+LLAMA_CLI_RANKS = 4  # (d): data 2 x model 2 x pipe 1
+LLAMA_CLI_LAYERS = 2
+LLAMA_CLI_STEPS = 2
+
+
+def _llama_model_config(**changes):
+    """``llama_1b`` (flash, ``"proj_attn"``) with ``changes``."""
+    from tpu_parallel_torch.models.gpt import llama_1b
+
+    return llama_1b(**{**dict(attn_impl="flash", remat_policy="proj_attn"), **LLAMA_SIZE,
+                        **changes})
+
+
+def _llama3d_config(**changes):
+    """``llama_1b_3d`` at LLAMA_3D_LAYERS layers on LLAMA_3D_ROWS rows in
+    LLAMA_3D_MICRO microbatches, for
+    (c)'s ranks and their reference (``mesh`` in ``changes``)."""
+    overrides = {**LLAMA_SIZE, "n_layers": LLAMA_3D_LAYERS, "num_microbatches": LLAMA_3D_MICRO,
+                 **changes.pop("model_overrides", {})}
+    changes = {**dict(seed=SEED, global_batch_size=LLAMA_3D_ROWS, warmup_steps=LLAMA_WARMUP,
+                      steps=LLAMA_3D_STEPS), **changes}
+    config, _ = _shell_config("llama_1b_3d", model_overrides=overrides, **changes)
+    return config
+
+
+def _gated_flops_per_token(cfg):
+    """Training FLOPs per token with the gated MLP's three products (and
+    grouped kv heads) counted: 6 per matmul parameter, plus attention's
+    ``12 * L * d * T``.  ``utils/profiling.transformer_flops_per_token``
+    (JAX's accounting, kept as it is) counts two MLP products and MHA."""
+    hidden = cfg.mlp_ratio * cfg.d_model
+    n_kv = cfg.n_kv_heads or cfg.n_heads
+    attn = cfg.d_model * (cfg.n_heads + 2 * n_kv) * cfg.head_dim \
+        + cfg.n_heads * cfg.head_dim * cfg.d_model
+    mlp = (3 if cfg.mlp in ("swiglu", "geglu") else 2) * cfg.d_model * hidden
+    matmul = cfg.vocab_size * cfg.d_model + cfg.n_layers * (attn + mlp)
+    return 6 * matmul + 12 * cfg.n_layers * cfg.d_model * cfg.seq_len
+
+
+def _bf16_tie(model, context, batch):
+    """What the bf16 paths alone move the last position's logits of
+    ``context`` by: the full forward (the flash kernel), the decode path's
+    prefill at batch 1 and at ``batch`` rows; the largest pairwise
+    difference, and the full forward's top-2 gap there."""
+    with torch.inference_mode():
+        ctx = torch.tensor([context], device="cuda")
+        full = model(ctx)[0, -1].float()
+        one = model(ctx, decode=True, cache=model.init_cache(1))[0, -1].float()
+        wide = model(ctx.expand(batch, -1), decode=True,
+                     cache=model.init_cache(batch))[0, -1].float()
+    noise = max((full - one).abs().max().item(), (full - wide).abs().max().item(),
+                (one - wide).abs().max().item())
+    top2 = full.topk(2).values
+    return noise, (top2[0] - top2[1]).item()
+
+
+def _bf16_tie_held(model, prompt, got, want, what, batch):
+    """bf16 greedy tokens ``got`` against the reference's ``want`` after
+    ``prompt`` (lists): equal, or first differing where the top-2 gap is
+    below twice what the paths alone move the logits by (phase 10's rule
+    for the int8 cache, in bf16) and at least FP32_TIE_GAP.  Raises
+    otherwise."""
+    if got == want:
+        return dict(equal=True)
+    step = next(j for j, (a, b) in enumerate(zip(got, want)) if a != b)
+    noise, gap = _bf16_tie(model, prompt + want[:step], batch)
+    limit = max(FP32_TIE_GAP, 2 * noise)
+    if gap >= limit:
+        raise AssertionError(f"{what} differs from the reference at token {step} with top-2 gap "
+                             f"{gap:.3e} >= {limit:.3e} (twice the paths' noise {noise:.3e})")
+    return dict(equal=False, first_diff=step, top2_gap=gap, limit=limit)
+
+
+def llama_serve_leg(seed):
+    """(a): ``llama_1b`` on one device at full depth.  A forward on
+    [LLAMA_ROWS, 2048] through the kernel (16 launches) against the same
+    weights under ``attn_impl="xla"``: the loss within LOSS_TOL, the logits
+    token by token within LOGITS_TOL; greedy ``generate()`` on ragged
+    prompts against the argmax of one full forward over each prompt and
+    its generated tokens (teacher-forced: the rollout while they agree);
+    the engine's fused T=8 ticks replayed as CUDA graphs on 8 requests
+    against ``generate()`` at batch 1 (:func:`_bf16_tie_held` for both).
+    Forward ms, decode ms per step and the launches."""
+    from tpu_parallel_torch.core.losses import token_cross_entropy
+    from tpu_parallel_torch.models import GPTLM, layers
+    from tpu_parallel_torch.models.convert import init_params
+    from tpu_parallel_torch.models.generate import generate
+    from tpu_parallel_torch.ops import flash_attention as fa
+    from tpu_parallel_torch.serving import Request, SchedulerConfig, ServingEngine
+
+    cfg = _llama_model_config()
+    t0 = time.perf_counter()
+    model = GPTLM(cfg, device="cuda", seed=None).eval()
+    draws = init_params(model, seed)  # (b) starts from the same draws
+    torch.cuda.synchronize()
+    out = dict(build_s=time.perf_counter() - t0,
+               params=sum(p.numel() for p in model.parameters()))
+    gen = torch.Generator().manual_seed(seed + 120)
+    tokens = torch.randint(0, cfg.vocab_size, (LLAMA_ROWS, cfg.seq_len), generator=gen).cuda()
+    targets = tokens.roll(-1, dims=1)
+    xla = dataclasses.replace(cfg, attn_impl="xla")
+    with torch.inference_mode():
+        _reset_launches()  # the inference main path starts here
+        logits = model(tokens)
+        torch.cuda.synchronize()
+        if fa.flash_fwd_launches != cfg.n_layers or not torch.isfinite(logits).all():
+            raise AssertionError(f"(a): {fa.flash_fwd_launches} launches, finite "
+                                 f"{torch.isfinite(logits).all()}")
+        for block in model.blocks.children():  # the same weights under the xla path
+            block.attn.config = xla
+        want = model(tokens)
+        # ... and with the xla path's attention computed in fp32 (q, k, v
+        # upcast): the same function, without its bf16 roundings of the
+        # scaled q and the probabilities
+        plain = layers.causal_attention
+        layers.causal_attention = lambda q, k, v, **kw: plain(q.float(), k.float(), v.float(),
+                                                              **kw).to(q.dtype)
+        try:
+            want32 = model(tokens)
+        finally:
+            layers.causal_attention = plain
+            for block in model.blocks.children():
+                block.attn.config = cfg
+        got = logits.float().reshape(-1, logits.shape[-1])
+        flat = targets.reshape(-1)
+        out["loss"] = token_cross_entropy(got, flat).mean().item()
+        for name, ref in (("xla", want), ("xla_fp32_attention", want32)):
+            ref = ref.float().reshape(-1, ref.shape[-1])
+            err = (got - ref).abs().amax(-1)
+            out[name] = dict(loss=token_cross_entropy(ref, flat).mean().item(),
+                             logits_max_abs_err=err.max().item(),
+                             logits_rel_l2=((got - ref).norm() / ref.norm()).item())
+            del ref, err
+        bf16 = want.float().reshape(-1, want.shape[-1])
+        ref = want32.float().reshape(-1, want32.shape[-1])
+        out["xla"]["against_fp32_attention"] = dict(
+            logits_max_abs_err=(bf16 - ref).abs().max().item(),
+            logits_rel_l2=((bf16 - ref).norm() / ref.norm()).item(),
+            worst_row_ratio=row_error_ratio(bf16, ref, *LLAMA_LOGITS_ROW_TOL))
+        out["xla_fp32_attention"]["worst_row_ratio"] = row_error_ratio(
+            got, ref, *LLAMA_LOGITS_ROW_TOL)
+        del bf16, want, want32, logits
+        # planted faults the row rule must reject: V's second half of
+        # head_dim zeroed in every layer's kernel call, and in the last
+        # layer's alone (read, not held); their launches do not count
+        real, saved = layers.flash_attention, fa.flash_fwd_launches
+        planted = {}
+        for fault, hit in (("every_layer", lambda i: True),
+                           ("last_layer", lambda i: i == cfg.n_layers - 1)):
+            calls = []
+
+            def zeroed_v_half(q, k, v, hit=hit, calls=calls, **kw):
+                if hit(len(calls)):
+                    v = v.clone()
+                    v[..., v.shape[-1] // 2:] = 0
+                calls.append(1)
+                return real(q, k, v, **kw)
+
+            layers.flash_attention = zeroed_v_half
+            try:
+                bad = model(tokens).float().reshape(-1, ref.shape[-1])
+            finally:
+                layers.flash_attention = real
+            planted[fault] = row_error_ratio(bad, ref, *LLAMA_LOGITS_ROW_TOL)
+            del bad
+        fa.flash_fwd_launches = saved
+        out["planted_worst_row_ratio"] = planted
+        del got, ref
+        if abs(out["loss"] - out["xla"]["loss"]) > LOSS_TOL \
+                or out["xla_fp32_attention"]["logits_max_abs_err"] > LOGITS_TOL \
+                or out["xla_fp32_attention"]["worst_row_ratio"] > 1:
+            raise AssertionError(f"(a): the flash forward disagrees with the xla forward: {out}")
+        if planted["every_layer"] <= 1:
+            raise AssertionError(f"(a): the logits' row rule passes a planted fault: {planted}")
+        out["forward_ms"] = host_ms(lambda: model(tokens), 2)
+        width = max(LLAMA_PROMPT_LENS)
+        prompt = torch.randint(1, cfg.vocab_size, (len(LLAMA_PROMPT_LENS), width),
+                               generator=gen).cuda()
+        mask = torch.zeros_like(prompt, dtype=torch.bool)
+        for r, n in enumerate(LLAMA_PROMPT_LENS):
+            mask[r, width - n:] = True
+        greedy = generate(model, prompt, max_new_tokens=LLAMA_NEW, prompt_mask=mask)
+        out["inference_launches"] = fa.flash_fwd_launches  # the main path ends here
+        if greedy.shape != (len(LLAMA_PROMPT_LENS), LLAMA_NEW) or greedy.min() < 0 \
+                or greedy.max() >= cfg.vocab_size:
+            raise AssertionError(f"(a): greedy tokens {tuple(greedy.shape)} out of range")
+        rollout = []
+        for r, n in enumerate(LLAMA_PROMPT_LENS):
+            row = prompt[r, width - n:].tolist()
+            got = greedy[r].tolist()
+            seq = torch.tensor([row + got[:-1]], device="cuda")
+            argmax = model(seq)[0, n - 1:].argmax(-1).tolist()
+            rollout.append(_bf16_tie_held(model, row, got, argmax, f"(a) generate() row {r}",
+                                          len(LLAMA_PROMPT_LENS)))
+        out.update(rollout=rollout, greedy_first_row=greedy[0].tolist())
+        prefill_ms = host_ms(lambda: generate(model, prompt, max_new_tokens=1, prompt_mask=mask),
+                             1)
+        total_ms = host_ms(lambda: generate(model, prompt, max_new_tokens=LLAMA_NEW + 1,
+                                            prompt_mask=mask), 1)
+        out.update(prefill_ms=prefill_ms, decode_step_ms=(total_ms - prefill_ms) / LLAMA_NEW)
+    # the engine: 8 requests, fused T=8 ticks replayed as CUDA graphs
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in LLAMA_ENGINE_LENS]
+    eng = ServingEngine(model, n_slots=len(prompts), decode_steps_per_tick=8,
+                        scheduler=SchedulerConfig(max_prefills_per_tick=len(prompts)))
+    reqs = [eng.add_request(Request(prompt=p, max_new_tokens=LLAMA_NEW, request_id=f"r{i}"))
+            for i, p in enumerate(prompts)]
+    t0 = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize()
+    engine_s = time.perf_counter() - t0
+    if eng.graph_captures < 1 or any(len(r.tokens) != LLAMA_NEW for r in reqs):
+        raise AssertionError(f"(a): the engine captured {eng.graph_captures} graphs, tokens "
+                             f"{[len(r.tokens) for r in reqs]}")
+    held = []
+    with torch.inference_mode():
+        for i, (p, r) in enumerate(zip(prompts, reqs)):
+            want = generate(model, torch.tensor([p], device="cuda"),
+                            max_new_tokens=LLAMA_NEW)[0].tolist()
+            held.append(_bf16_tie_held(model, p, r.tokens, want, f"(a) engine request r{i}",
+                                       len(prompts)))
+    out["engine"] = dict(captures=eng.graph_captures, wall_s=engine_s, held=held,
+                         first_row=reqs[0].tokens)
+    del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, draws
+
+
+def llama_train_leg(seed, card_name, draws):
+    """(b): ``llama_1b`` trained on one device at full depth: the step-1
+    gradients of one minibatch, flash against xla on the same weights
+    (phase 6's rule), then LLAMA_STEPS steps of LLAMA_MINIBATCHES
+    minibatches of [LLAMA_ROWS, 2048] on one seeded batch (the launch
+    counters set to 0 first), a falling loss; state bytes, peak memory,
+    step ms (steps 2 on), tokens/s and MFU, the gated MLP's three products
+    counted.  The masters start from ``draws`` ((a)'s seeded draws)."""
+    from tpu_parallel_torch.core.metrics import compute
+    from tpu_parallel_torch.models.gpt import make_gpt_loss
+    from tpu_parallel_torch.train_lib import Trainer, TrainerConfig
+    from tpu_parallel_torch.utils.profiling import peak_flops, transformer_flops_per_token
+
+    from tpu_parallel_torch.train_lib import make_lr_schedule
+
+    rows = LLAMA_ROWS * LLAMA_MINIBATCHES
+    config = TrainerConfig(model="llama_1b", global_batch_size=rows,
+                           num_minibatches=LLAMA_MINIBATCHES, steps=LLAMA_STEPS,
+                           warmup_steps=LLAMA_WARMUP, seed=seed, mesh=LLAMA_ONE,
+                           model_overrides=dict(attn_impl="flash", remat_policy="proj_attn",
+                                                **LLAMA_SIZE))
+    schedule = make_lr_schedule(config)
+    lrs = [schedule(i) for i in range(LLAMA_STEPS)]
+    if sum(lr > 0 for lr in lrs) < 3:
+        raise AssertionError(f"(b): learning rates by step {lrs}: fewer than 3 updates")
+    t0 = time.perf_counter()
+    trainer = Trainer(config, device="cuda")
+    state = trainer.init(draws)
+    del draws
+    torch.cuda.synchronize()
+    out = dict(build_s=time.perf_counter() - t0)
+    cfg = trainer.model_config
+    batch = trainer.example_batch
+    # one minibatch's loss and gradients, flash against xla on the same weights
+    mb = batch.rows(0, LLAMA_ROWS)
+    xla = dataclasses.replace(cfg, attn_impl="xla")
+    grads = {}
+    for name in ("flash", "xla"):
+        for block in trainer.model.blocks.children():
+            block.attn.config = xla if name == "xla" else cfg
+        loss, _ = make_gpt_loss(cfg)(trainer.model, mb)
+        loss.backward()
+        grads[name] = (loss.item(), {n: p.grad for n, p in trainer.model.named_parameters()})
+        trainer.model.zero_grad(set_to_none=True)
+    for block in trainer.model.blocks.children():
+        block.attn.config = cfg
+    rel = {n: ((g.float() - grads["xla"][1][n].float()).norm()
+               / grads["xla"][1][n].float().norm().clamp(min=1e-30)).item()
+           for n, g in grads["flash"][1].items()}
+    worst = max(rel, key=rel.get)
+    out.update(flash_loss=grads["flash"][0], xla_loss=grads["xla"][0],
+               grad_rel_max=(rel[worst], worst), grad_rel_median=sorted(rel.values())[len(rel) // 2])
+    del grads
+    if abs(out["flash_loss"] - out["xla_loss"]) > LOSS_TOL or rel[worst] > TRAIN_GRAD_TOL:
+        raise AssertionError(f"(b): flash training gradients disagree with the xla path: {out}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()  # the training main path starts here
+    per_step, losses, step_ms = [], [], []
+    for _ in range(LLAMA_STEPS):
+        before = _launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = trainer.step_fn(state, None, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        per_step.append([a - b for a, b in zip(_launch_counts(), before)])
+        losses.append(compute(metrics)["loss"])
+    launches = dict(zip(LAUNCH_COUNTERS, _launch_counts()))
+    want = cfg.n_layers * LLAMA_MINIBATCHES
+    if per_step != [[want, want]] * LLAMA_STEPS:
+        raise AssertionError(f"(b): launches per step {per_step}, want {want} of each kernel")
+    _falls("(b)", losses)
+    tokens = rows * cfg.seq_len
+    timed = step_ms[1:]
+    tokens_per_s = tokens / (sum(timed) / len(timed) / 1e3)
+    peak = peak_flops(card_name)
+    out.update(losses=losses, step_ms=step_ms, launches_per_step=per_step[0], launches=launches,
+               tokens_per_s=tokens_per_s, state_bytes=_state_bytes(state),
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               params=trainer.num_params, flops_per_token=_gated_flops_per_token(cfg),
+               profiling_flops_per_token=transformer_flops_per_token(cfg), lr_by_step=lrs)
+    out["mfu"] = tokens_per_s * out["flops_per_token"] / peak if peak else None
+    out["mfu_profiling_flops"] = (tokens_per_s * out["profiling_flops_per_token"] / peak
+                                  if peak else None)
+    del trainer, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _llama3d_batch(vocab, device, rows=LLAMA_3D_ROWS):
+    """(c)'s one seeded global batch of [rows, 2048] (every step's)."""
+    from tpu_parallel_torch.data import lm_batch
+
+    return lm_batch(torch.Generator().manual_seed(SEED + 121), rows, LLAMA_SEQ, vocab,
+                    device=device)
+
+
+def _llama_prompt(vocab):
+    return torch.randint(1, vocab, (1, 32), generator=torch.Generator().manual_seed(SEED + 122))
+
+
+def _tensor_digest(t):
+    import hashlib
+
+    return hashlib.sha256(t.detach().to("cpu", torch.float32).numpy().tobytes()).hexdigest()
+
+
+def _llama_fp32_grads(mesh, device):
+    """The synced gradients of (c)'s model in fp32 (xla attention, TF32
+    off) at LLAMA_3D_FP32_LAYERS layers on 2 x LLAMA_3D_FP32_MICRO seeded
+    rows: this rank's local tensors on the host."""
+    from tpu_parallel_torch.train_lib import Trainer
+
+    rows = 2 * LLAMA_3D_FP32_MICRO
+    config = _llama3d_config(
+        mesh=LLAMA_MESH if mesh is not None else LLAMA_ONE, global_batch_size=rows,
+        model_overrides=dict(n_layers=LLAMA_3D_FP32_LAYERS, dtype=torch.float32,
+                             attn_impl="xla", num_microbatches=LLAMA_3D_FP32_MICRO))
+    trainer = Trainer(config, mesh, device=device)
+    state = trainer.init()
+    batch = _llama3d_batch(trainer.model_config.vocab_size, device, rows)
+    batch = trainer.local_rows(batch)
+    grads = _host(_pp_grads(trainer, state, batch, mesh))
+    cfg, shards = trainer.model_config, dict(state.shards)
+    del trainer, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return grads, cfg, shards
+
+
+def llama_reference_leg(workdir, draws):
+    """(c)'s reference: one process, no group, (c)'s model (LLAMA_3D_LAYERS
+    layers at full width) on the whole batch: its init masters' digests,
+    the step-1 synced gradients, LLAMA_3D_STEPS steps' losses and step ms,
+    state bytes and peak memory, its final bf16 weights and LLAMA_3D_NEW
+    greedy tokens from them, and the fp32 pass's gradients; the gradients,
+    weights and tokens saved for the ranks and the export check.  The
+    masters start from ``draws`` ((a)'s draws of the same parameter names
+    and seed: the ranks' own draws are bitwise the same).  It runs beside
+    the ranks, which read its file only after their steps: its step times
+    share the host with them."""
+    from tpu_parallel_torch.core.metrics import compute
+    from tpu_parallel_torch.models.generate import generate
+    from tpu_parallel_torch.train_lib import Trainer
+
+    t0 = time.perf_counter()
+    trainer = Trainer(_llama3d_config(mesh=LLAMA_ONE), device="cuda")
+    if trainer.mesh is not None:
+        raise AssertionError("the one-process reference runs on a mesh")
+    state = trainer.init(draws)
+    init_s = time.perf_counter() - t0
+    digests = {n: _tensor_digest(p) for n, p in state.params.items()}
+    cfg = trainer.model_config
+    batch = _llama3d_batch(cfg.vocab_size, "cuda")
+    grads = _first_synced_grads(state)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for _ in range(LLAMA_3D_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = trainer.step_fn(state, None, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(compute(metrics)["loss"])
+    peak = torch.cuda.max_memory_allocated()
+    state_bytes = _state_bytes(state)
+    final = {n: p.detach().to("cpu", copy=True) for n, p in trainer.model.state_dict().items()}
+    with torch.inference_mode():
+        tokens = generate(trainer.model, _llama_prompt(cfg.vocab_size).cuda(),
+                          max_new_tokens=LLAMA_3D_NEW)[0].tolist()
+    del trainer, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fp32_grads, _, _ = _llama_fp32_grads(None, "cuda")
+    fp32_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    import os
+
+    # written whole, then renamed: the ranks wait for the name
+    torch.save(dict(final=final, tokens=tokens), Path(workdir, "llama_ref_final.pt"))
+    torch.save(dict(grads=grads, losses=losses, fp32_grads=fp32_grads),
+               Path(workdir, "llama_ref.pt.tmp"))
+    os.replace(Path(workdir, "llama_ref.pt.tmp"), Path(workdir, "llama_ref.pt"))
+    save_s = time.perf_counter() - t0
+    return dict(losses=losses, step_host_ms=step_ms, max_memory_allocated=peak,
+                state_bytes=state_bytes, init_s=init_s, digests=digests, tokens=tokens,
+                fp32_s=fp32_s, save_s=save_s)
+
+
+def _llama_assembled(state, name, value):
+    """The full tensor of one parameter's local ``value`` (a rank's slice
+    under ``state.shards[name]``): all-gathered over each axis of its
+    (nested) split, innermost first; a collective of the data and model
+    ranks."""
+    import torch.distributed as dist
+
+    info = state.shards.get(name)
+    value = value.detach()
+    while info is not None:
+        parts = [torch.empty_like(value) for _ in range(info.size)]
+        dist.all_gather(parts, value.contiguous(), group=info.group)
+        value = torch.cat(parts, dim=info.dim)
+        info = info.outer
+    return value
+
+
+def _jax_local_shape(name, shape, tp, dp, min_size=2**18):
+    """A parameter's local torch shape under JAX's rules, reckoned from its
+    name and global shape without the port's code: ``TPDense`` splits a
+    column layer's output (``qkv``, ``gate``, ``up``, the lm_head, the
+    column bias) and a row layer's input (``out``, ``down``) over the model
+    axis; then FSDP's ``shard_params`` on that local (TP-stacked) leaf
+    splits the largest dim of its flax shape that the data axis divides
+    (the later of two equal ones), when it holds more than ``min_size``
+    elements."""
+    shape = list(shape)
+    linear = name.endswith(".weight") and len(shape) == 2 and not name.startswith("embed.")
+    if any(name.endswith(f"{k}.weight") or name.endswith(f"{k}.bias")
+           for k in ("attn.qkv", "mlp.gate", "mlp.up")) or name == "lm_head.weight":
+        shape[0] //= tp
+    elif name.endswith(("attn.out.weight", "mlp.down.weight")):
+        shape[1] //= tp
+    n = 1
+    for s in shape:
+        n *= s
+    if n <= min_size:
+        return shape
+    flax = list(reversed(shape)) if linear else shape
+    order = sorted(range(len(flax)), key=lambda d: (flax[d], d), reverse=True)
+    for d in order:
+        if flax[d] % dp == 0:
+            flax[d] //= dp
+            break
+    return list(reversed(flax)) if linear else flax
+
+
+def _llama_reckoned_bytes(cfg, names_shapes, tp, dp):
+    """This rank's state bytes from :func:`_jax_local_shape`, counted as
+    :func:`_state_bytes` counts them: the fp32 master, accumulator and two
+    AdamW moments of every parameter, and the module's own weight (a bf16
+    copy, or the fp32 master itself, counted again)."""
+    total = 0
+    for name, (shape, dtype) in names_shapes.items():
+        n = 1
+        for s in _jax_local_shape(name, shape, tp, dp, cfg.fsdp_min_size):
+            n *= s
+        total += n * (16 + (2 if dtype == torch.bfloat16 else 4))
+    return total
+
+
+def _llama_want_counts(cfg, pipe_rank, pipe, micro):
+    """The collectives per step of one GPipe minibatch on pipe rank
+    ``pipe_rank``, derived from the schedule and "proj_attn": each of the
+    stage's layers runs once per microbatch forward and once in its
+    backward's recompute, each run one packed FSDP gather of its bf16
+    slices (the norms and biases, under ``fsdp_min_size``, stay
+    replicated), the forward's gather reduce-scattered once; the first rank
+    gathers the embedding once for the whole batch, the last rank the
+    lm_head once for the loss, each reduce-scattered once.  Tensor
+    parallelism: two row all-reduces per layer forward (kept by the
+    policy, none in the recompute) and their two transposes in the
+    backward, the vocab-parallel loss's 5 and 2 on the last rank.  The
+    pipe: the first rank sends each microbatch's activation and receives
+    its gradient, the last the reverse.  Returns (gathers, reduce-scatters,
+    model-axis all-reduces, sends, receives)."""
+    layers = cfg.n_layers // pipe
+    edge = 1  # the embedding on the first rank, the lm_head on the last
+    last = pipe_rank == pipe - 1
+    return [2 * micro * layers + edge, micro * layers + edge,
+            4 * micro * layers + (7 if last else 0), micro, micro]
+
+
+def _llama_counts():
+    from tpu_parallel_torch.parallel import dp, fsdp, pp, tp
+
+    return [fsdp.fsdp_allgather_launches, fsdp.fsdp_reducescatter_launches,
+            tp.tp_allreduce_launches, pp.pp_send_launches, pp.pp_recv_launches,
+            dp.dp_allreduce_launches]
+
+
+def _llama_exchange_ms(mesh, cfg, state):
+    """Host ms of one model-axis all-reduce of a microbatch's bf16
+    activation [1, 2048, d_model], one pipe hop of it, and one data-axis
+    FSDP gather of a block's bf16 slices (as its unit packs them), each
+    averaged over 5 after one warm-up; their bytes per rank."""
+    import torch.distributed as dist
+
+    from tpu_parallel_torch.parallel import pp, tp
+
+    act = torch.randn(1, LLAMA_SEQ, cfg.d_model, device="cuda:0").to(cfg.dtype)
+    buf = torch.empty_like(act)
+    group, size, index = pp.pipe_axis(mesh)
+    block = next(iter(state.model.blocks.children()))
+    unit = block._fsdp_unit
+    out = {}
+    for name, fn in (
+            ("allreduce", lambda: tp.all_reduce(act, "model", mesh)),
+            ("hop", lambda: pp._exchange(group, [(act, (index + 1) % size)],
+                                         [(buf, (index - 1) % size)])),
+            ("gather", lambda: unit.gather())):
+        dist.barrier()
+        with torch.no_grad():
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+        out[f"{name}_host_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+    out.update(activation_bytes=act.numel() * act.element_size(),
+               gather_bytes=sum(p.numel() * p.element_size() for p in
+                                (owner._parameters[attr] for owner, attr, _ in unit.entries)))
+    return out
+
+
+def llama_rank_leg(rank, rendezvous, workdir):
+    """(c): one of LLAMA_RANKS gloo ranks on the one card over data 2 x
+    model 2 x pipe 2 (``fsdp=True``, GPipe over LLAMA_3D_MICRO
+    microbatches): the init's masters gathered over both axes (sha256 per
+    parameter, on the rank at data and model coordinate 0); the state bytes
+    against :func:`_llama_reckoned_bytes`; LLAMA_3D_STEPS counted steps (the
+    launch counters set to 0 first) with the collectives of each against
+    :func:`_llama_want_counts`, losses within LOSS_TOL of the reference's
+    and the step-1 synced gradients within TRAIN_GRAD_TOL per weight of
+    the reference's (this rank's slices); a checkpoint saved at step 2 and
+    restored into a fresh init bitwise; the exchanges' host ms; the fp32
+    pass within LLAMA_3D_FP32_TOL per weight; the final module weights
+    gathered over both axes and saved by the rank at data and model
+    coordinate 0 of each stage (the export)."""
+    import torch.distributed as dist
+
+    from tpu_parallel_torch.core.metrics import compute
+    from tpu_parallel_torch.runtime import MeshConfig, initialize, make_mesh, process_info
+    from tpu_parallel_torch.train_lib import Trainer
+
+    initialize(rendezvous, LLAMA_RANKS, rank, backend="gloo", device="cuda:0")
+    _share_cores(LLAMA_RANKS)
+    start_s, legs_s = time.perf_counter(), {}
+
+    def lap(name):
+        legs_s[name] = time.perf_counter() - start_s - sum(legs_s.values())
+
+    mesh = make_mesh(MeshConfig(**LLAMA_MESH))
+    coord = {a: mesh.get_local_rank(a) for a in ("data", "model", "pipe")}
+    lead = coord["data"] == 0 and coord["model"] == 0
+    result = dict(rank=rank, coord=coord, process_info=process_info())
+    config = _llama3d_config(mesh=LLAMA_MESH)
+    trainer = Trainer(config, mesh, device="cuda:0")
+    state = trainer.init()
+    cfg = trainer.model_config
+    lap("init")
+    # the masters at step 0, gathered over data and model
+    digests = {}
+    for name, value in state.params.items():
+        full = _llama_assembled(state, name, value)
+        if lead:
+            digests[name] = _tensor_digest(full)
+        del full
+    result["init_digests"] = digests
+    result["nested"] = sum(len(info.axes) == 2 for info in state.shards.values())
+    names_shapes = {n: (tuple(s.global_shape) if (s := state.shards.get(n)) is not None
+                        else tuple(p.shape), p.dtype)
+                    for n, p in trainer.model.named_parameters()}
+    result["state_bytes"] = _state_bytes(state)
+    result["reckoned_bytes"] = _llama_reckoned_bytes(cfg, names_shapes, LLAMA_MESH["model"],
+                                                     LLAMA_MESH["data"])
+    if sum(result["state_bytes"].values()) != result["reckoned_bytes"]:
+        raise AssertionError(f"rank {rank}: state bytes {result['state_bytes']} against "
+                             f"{result['reckoned_bytes']} reckoned from JAX's rule")
+    lap("layout")
+    batch = trainer.local_rows(_llama3d_batch(cfg.vocab_size, "cuda:0"))
+    synced = _first_synced_grads(state)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()  # the main path starts here
+    losses, per_step, comm, step_ms = [], [], [], []
+    for i in range(LLAMA_3D_STEPS):
+        before, cbefore = _launch_counts(), _llama_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = trainer.step_fn(state, None, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        per_step.append([a - b for a, b in zip(_launch_counts(), before)])
+        comm.append([a - b for a, b in zip(_llama_counts(), cbefore)])
+        losses.append(compute(metrics)["loss"])
+        if i == 1:
+            result["checkpoint"] = _llama_checkpoint(trainer, config, mesh, rank, workdir)
+    result.update(losses=losses, launches_per_step=per_step, comm_per_step=comm,
+                  step_host_ms=step_ms, launches=dict(zip(LAUNCH_COUNTERS, _launch_counts())),
+                  max_memory_allocated=torch.cuda.max_memory_allocated())
+    lap("steps")
+    # the reference runs beside the ranks: its file appears when it is done
+    path = Path(workdir, "llama_ref.pt")
+    deadline = time.perf_counter() + LLAMA_LEG_TIMEOUT
+    while not path.exists():
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"rank {rank}: the reference never wrote {path}")
+        time.sleep(0.2)
+    ref = torch.load(path, weights_only=True, mmap=True)
+    lap("reference_wait")
+    want_comm = _llama_want_counts(cfg, coord["pipe"], LLAMA_MESH["pipe"], cfg.num_microbatches)
+    layers = cfg.n_layers // LLAMA_MESH["pipe"] * cfg.num_microbatches
+    if per_step != [[layers, layers]] * LLAMA_3D_STEPS \
+            or any(c[:5] != want_comm for c in comm):
+        raise AssertionError(f"rank {rank}: launches per step {per_step} (want {layers}), "
+                             f"collectives {comm} (want {want_comm} and the gradient sync)")
+    want = {n: (state.shards[n].local(ref["grads"][n]) if n in state.shards
+                else ref["grads"][n]) for n in synced}
+    rel = _moe_rel(cfg, synced, want)
+    worst = max(rel.items(), key=lambda kv: kv[1])
+    result.update(loss_diffs=[abs(a - b) for a, b in zip(losses, ref["losses"])],
+                  step1_grad_rel_max=worst, step1_grad_rel_median=sorted(rel.values())[len(rel) // 2])
+    if max(result["loss_diffs"]) > LOSS_TOL or worst[1] > TRAIN_GRAD_TOL:
+        raise AssertionError(f"rank {rank} disagrees with one process: losses {losses} against "
+                             f"{ref['losses']}, step-1 gradients worst {worst}")
+    result["exchange"] = _llama_exchange_ms(mesh, cfg, state)
+    lap("exchange")
+    # the export: every parameter gathered over data and model
+    t0 = time.perf_counter()
+    exported = {}
+    for name, p in trainer.model.named_parameters():
+        full = _llama_assembled(state, name, p)
+        if lead:
+            exported[name] = full.to("cpu", copy=True)
+    if lead:
+        torch.save(exported, Path(workdir, f"llama_export_p{coord['pipe']}.pt"))
+    result["export_s"] = time.perf_counter() - t0
+    del exported
+    try:
+        from tpu_parallel_torch.parallel.tp import export_single_device_params
+
+        export_single_device_params(state.partitioned(state.params))
+        result["export_error"] = ""
+    except ValueError as exc:
+        result["export_error"] = str(exc)
+    lap("export")
+    del trainer, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    fp32, fcfg, shards = _llama_fp32_grads(mesh, "cuda:0")
+    # this rank's slices of the reference's full gradients
+    fp32_want = {n: (shards[n].local(ref["fp32_grads"][n]) if n in shards
+                     else ref["fp32_grads"][n]) for n in fp32}
+    rel = _moe_rel(fcfg, fp32, fp32_want)
+    worst = max(rel.items(), key=lambda kv: kv[1])
+    result["fp32"] = dict(grad_rel_max=worst, grad_rel_median=sorted(rel.values())[len(rel) // 2])
+    if worst[1] > LLAMA_3D_FP32_TOL:
+        raise AssertionError(f"rank {rank}: fp32 synced gradients disagree with one process's: "
+                             f"{result['fp32']}")
+    lap("fp32")
+    result["legs_s"] = legs_s
+    del ref
+    dist.barrier()
+    dist.destroy_process_group()
+    return result
+
+
+def _llama_checkpoint(trainer, config, mesh, rank, workdir):
+    """(c)'s checkpoint: the state after step 2 saved (every rank its
+    slices and stage, ``torch.distributed.checkpoint``; a nested slice as a
+    ``_StridedShard`` ``DTensor``) and restored into a fresh Trainer's
+    init, in place: every tensor bitwise equal, the module's too."""
+    from tpu_parallel_torch.train_lib import Trainer
+
+    directory = str(Path(workdir, "llama_ckpt"))
+    step = trainer.state.step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.save_checkpoint(directory, step)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    fresh = Trainer(config, mesh, device="cuda:0")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fresh.restore_checkpoint(directory)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    want, got = _local_leaves(trainer.state.state_dict()), _local_leaves(fresh.state.state_dict())
+    module_equal = all(torch.equal(a, b) for a, b in zip(trainer.model.parameters(),
+                                                         fresh.model.parameters()))
+    if got.keys() != want.keys() or not all(torch.equal(got[k], want[k]) for k in want) \
+            or not module_equal or fresh.state.step != step:
+        raise AssertionError(f"rank {rank}: the restored state differs from the saved one")
+    tensors = len(want)
+    del fresh
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(step=step, save_ms=save_ms, restore_ms=restore_ms, local_tensors=tensors)
+
+
+def llama_cli_rank_leg(metrics):
+    """(d)'s rank, under torchrun (LLAMA_CLI_RANKS processes):
+    ``tpu_parallel_torch.train``'s ``main`` on ``--config=llama_1b_3d`` over
+    data 2 x model 2 x pipe 1 at LLAMA_CLI_LAYERS layers, CLI_ROWS rows,
+    LLAMA_CLI_STEPS steps, over gloo on ``cuda:0``, with each step's
+    launches and loss."""
+    from tpu_parallel_torch import train
+    from tpu_parallel_torch.core.metrics import accumulate_metrics, compute
+    from tpu_parallel_torch.train_lib import Trainer
+
+    per_step, losses = [], []
+    real_step = Trainer.step_fn
+
+    def step(self, state, metrics, batch):
+        before = _launch_counts()
+        state, step_metrics = real_step(self, state, None, batch)
+        per_step.append([a - b for a, b in zip(_launch_counts(), before)])
+        losses.append(compute(step_metrics)["loss"])
+        return state, accumulate_metrics(metrics, step_metrics)
+
+    Trainer.step_fn = step
+    _share_cores(LLAMA_CLI_RANKS)
+    _reset_launches()  # the main path starts here
+    code = train.main(["--config=llama_1b_3d", "--config.mesh.data=2", "--config.mesh.model=2",
+                       "--config.mesh.pipe=1",
+                       *(f"--config.model_overrides.{k}={v}" for k, v in LLAMA_SIZE.items()),
+                       f"--config.model_overrides.n_layers={LLAMA_CLI_LAYERS}",
+                       f"--config.global_batch_size={CLI_ROWS}",
+                       f"--config.steps={LLAMA_CLI_STEPS}", "--config.log_every=1",
+                       f"--metrics-out={metrics}", "--device=cuda:0", "--backend=gloo"])
+    import os
+
+    result = dict(exit=code, rank=int(os.environ["RANK"]), launches_per_step=per_step,
+                  losses=losses, launches=dict(zip(LAUNCH_COUNTERS, _launch_counts())))
+    # the ranks share torchrun's stdout: each writes its result to a file
+    Path(metrics).with_name(f"llama_cli_rank{result['rank']}.json").write_text(json.dumps(result))
+    return result
+
+
+def llama_cli_leg(work, cores):
+    """(d), launched: ``python -m torch.distributed.run --standalone
+    --nproc_per_node=LLAMA_CLI_RANKS`` over this script's ``llama_cli_rank``
+    leg; :func:`llama_cli_check` holds it."""
+    metrics = Path(work, "llama_metrics.prom")
+    cmd = _torchrun(str(Path(__file__).resolve()), "--leg", "llama_cli_rank", str(metrics))
+    cmd[cmd.index("--nproc_per_node=1")] = f"--nproc_per_node={LLAMA_CLI_RANKS}"
+    return _launch(cmd, cores), metrics
+
+
+def llama_cli_check(collected):
+    """(d): exit 0 on every rank, one topology line (LLAMA_CLI_RANKS
+    processes, gloo); LLAMA_CLI_LAYERS launches of each kernel per step;
+    finite losses, equal on every rank; ``train_loss`` in the metrics."""
+    import math
+
+    (out, wall), metrics = collected
+    topology = [json.loads(line[len("topology: "):]) for line in out.splitlines()
+                if line.startswith("topology: ")]
+    if len(topology) != 1 or topology[0]["process_count"] != LLAMA_CLI_RANKS \
+            or topology[0]["backend"] != "gloo":
+        raise AssertionError(f"CLI topology lines {topology}")
+    ranks = [json.loads(metrics.with_name(f"llama_cli_rank{r}.json").read_text())
+             for r in range(LLAMA_CLI_RANKS)]
+    want = [LLAMA_CLI_LAYERS] * 2
+    for r in ranks:
+        if r["exit"] != 0 or r["launches_per_step"] != [want] * LLAMA_CLI_STEPS \
+                or r["losses"] != ranks[0]["losses"] \
+                or not all(math.isfinite(x) for x in r["losses"]):
+            raise AssertionError(f"(d) rank {r['rank']}: {r}, want launches {want}")
+    if "train_loss" not in metrics.read_text():
+        raise AssertionError("CLI metrics without train_loss")
+    return dict(wall_s=wall, topology=topology[0], losses=ranks[0]["losses"],
+                launches_per_step=ranks[0]["launches_per_step"][0])
+
+
+def _llama_export_check(work, ref):
+    """(c)'s export on one device: the ranks' gathered final weights (the
+    stages' files) loaded into a ``GPTLM`` of (c)'s model, LLAMA_3D_NEW
+    greedy tokens from it against the reference's final weights' tokens:
+    equal, or first differing where the reference's top-2 gap is below
+    twice what the two weight sets move those logits by."""
+    from tpu_parallel_torch.models import GPTLM
+    from tpu_parallel_torch.models.generate import generate
+
+    saved = torch.load(Path(work, "llama_ref_final.pt"), weights_only=True)
+    exported = {}
+    for p in range(LLAMA_MESH["pipe"]):
+        exported.update(torch.load(Path(work, f"llama_export_p{p}.pt"), weights_only=True))
+    model = GPTLM(_llama_model_config(n_layers=LLAMA_3D_LAYERS), device="cuda",
+                  seed=None).eval()
+    if sorted(exported) != sorted(saved["final"]):
+        raise AssertionError(f"the export's parameters {sorted(exported)[:4]}... differ from the "
+                             "one-process model's")
+    prompt = _llama_prompt(model.config.vocab_size).cuda()
+    model.load_state_dict(exported)
+    with torch.inference_mode():
+        got = generate(model, prompt, max_new_tokens=LLAMA_3D_NEW)[0].tolist()
+    want = saved["tokens"]
+    out = dict(tokens=got, reference_tokens=want, equal=got == want)
+    if got != want:
+        step = next(j for j, (a, b) in enumerate(zip(got, want)) if a != b)
+        ctx = torch.cat([prompt, torch.tensor([want[:step]], dtype=torch.long, device="cuda")],
+                        1)
+        with torch.inference_mode():
+            mine = model(ctx)[0, -1].float()
+            model.load_state_dict(saved["final"])
+            theirs = model(ctx)[0, -1].float()
+        top2 = theirs.topk(2).values
+        gap, noise = (top2[0] - top2[1]).item(), (mine - theirs).abs().max().item()
+        out.update(first_diff=step, top2_gap=gap, weights_noise=noise)
+        if gap >= max(FP32_TIE_GAP, 2 * noise):
+            raise AssertionError(f"(c): the export's greedy tokens differ from the one-process "
+                                 f"model's at token {step}: {out}")
+    del model, saved, exported
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def llama_phase(smi, work, cli_collected):
+    """Phase 18: the kernels at ``llama_1b``'s D=128 shapes (one device's
+    minibatch, a 3-D rank's microbatch) against their plain versions, then
+    (a) and (b) on one device, (c)'s reference and ranks, the export check
+    and (d)'s CLI, in the directory ``work``.  Returns the report, the
+    kernels' rows and the main paths' launches ((a)'s inference, (b)'s
+    training, (c)'s rank 0)."""
+    start = time.perf_counter()
+    legs_s = {}
+
+    def lap(name):
+        legs_s[name] = time.perf_counter() - start - sum(legs_s.values())
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 123)
+    rows = dict(fwd=fwd_kernel_row("t_llama_pass", LLAMA_SHAPE, gen),
+                bwd=bwd_kernel_row("t_llama_pass", LLAMA_SHAPE, gen, main_path=True),
+                fwd3d=fwd_kernel_row("t_llama3d_pass", LLAMA_3D_SHAPE, gen),
+                bwd3d=bwd_kernel_row("t_llama3d_pass", LLAMA_3D_SHAPE, gen, main_path=True))
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("kernels")
+    # started after the kernels' turns (their imports crowd the host), they
+    # start up beside (a) and (b)
+    ranks = _spawn_ranks("llama_rank", work, LLAMA_RANKS)
+    serve, draws = llama_serve_leg(SEED)
+    lap("serve")
+    log(f"[llama serve] llama_1b ({serve['params'] / 1e6:.1f}M parameters: 16 layers, d 2048, "
+        f"16 heads of 128, rope, RMSNorm, swiglu, vocab 32000, bf16, flash; built in "
+        f"{serve['build_s']:.1f} s, the draws shared with (b)) on one device: forward "
+        f"[{LLAMA_ROWS}, 2048] "
+        f"{serve['forward_ms']:.2f} ms; loss {serve['loss']:.6f} against the xla path's "
+        f"{serve['xla']['loss']:.6f} (tol {LOSS_TOL}); logits max abs err against the xla "
+        f"path with its attention in fp32 {serve['xla_fp32_attention']['logits_max_abs_err']:.4f} "
+        f"(tol {LOGITS_TOL}; relative L2 {serve['xla_fp32_attention']['logits_rel_l2']:.3e}; "
+        f"worst token's row {serve['xla_fp32_attention']['worst_row_ratio']:.4f} of the row "
+        f"rule's limit {LLAMA_LOGITS_ROW_TOL}, planted faults (V's second half zeroed) "
+        f"{serve['planted_worst_row_ratio']} of it), "
+        f"against the bf16 xla path {serve['xla']['logits_max_abs_err']:.4f} (relative L2 "
+        f"{serve['xla']['logits_rel_l2']:.3e}; that path's own against fp32 attention "
+        f"{serve['xla']['against_fp32_attention']}); flash_fwd launches over the forward and "
+        f"generate() {serve['inference_launches']}")
+    log(f"  greedy generate() on {len(LLAMA_PROMPT_LENS)} ragged prompts {LLAMA_PROMPT_LENS}, "
+        f"{LLAMA_NEW} new tokens, against the full forward's argmax: {serve['rollout']}; "
+        f"prefill + first token {serve['prefill_ms']:.2f} ms, decode "
+        f"{serve['decode_step_ms']:.3f} ms per step at batch {len(LLAMA_PROMPT_LENS)}; first row "
+        f"{serve['greedy_first_row']}")
+    eng = serve["engine"]
+    log(f"  the engine, {len(LLAMA_ENGINE_LENS)} requests of {LLAMA_NEW} tokens, fused T=8 ticks "
+        f"({eng['captures']} CUDA graphs captured), {eng['wall_s']:.2f} s: against generate() at "
+        f"batch 1 {eng['held']}; first row {eng['first_row']}")
+    ref_draws = {n: v for n, v in draws.items()
+                 if not n.startswith("blocks.") or int(n.split(".")[1][6:]) < LLAMA_3D_LAYERS}
+    train = llama_train_leg(SEED, smi.split(",")[0].strip(), draws)
+    del draws
+    lap("train")
+    gib = lambda x: f"{x / 2**30:.3f} GiB"  # noqa: E731
+    log(f"[llama train] llama_1b ({train['params'] / 1e6:.1f}M parameters; Trainer built and "
+        f"initialized from (a)'s draws in {train['build_s']:.1f} s), {LLAMA_MINIBATCHES} "
+        f"minibatches of "
+        f"[{LLAMA_ROWS}, 2048] per step, flash, proj_attn, AdamW, warmup {LLAMA_WARMUP} "
+        f"(learning rates {train['lr_by_step']}): step-1 minibatch loss flash "
+        f"{train['flash_loss']:.6f} xla {train['xla_loss']:.6f} (tol {LOSS_TOL}); gradients "
+        f"relative L2 median {train['grad_rel_median']:.3e}, max {train['grad_rel_max'][0]:.3e} "
+        f"({train['grad_rel_max'][1]}), tol {TRAIN_GRAD_TOL}")
+    log(f"  losses {[round(x, 5) for x in train['losses']]}; launches per step (flash_fwd, "
+        f"flash_bwd) {train['launches_per_step']}; step ms "
+        f"{[round(x, 1) for x in train['step_ms']]}; {train['tokens_per_s']:.0f} tokens/s; MFU "
+        f"{train['mfu']} with the "
+        f"gated MLP's three products ({train['flops_per_token'] / 1e9:.3f} GFLOP per token; "
+        f"{train['mfu_profiling_flops']} by profiling.transformer_flops_per_token's "
+        f"{train['profiling_flops_per_token'] / 1e9:.3f}); state "
+        f"{gib(sum(train['state_bytes'].values()))}, max memory allocated "
+        f"{gib(train['max_memory_allocated'])}")
+    Path(work, "llama_rank_go").touch()  # the ranks run beside the reference
+    ref = _reference(functools.partial(llama_reference_leg, draws=ref_draws), work)
+    del ref_draws
+    lap("reference")
+    ranks = _join_ranks(ranks, LLAMA_LEG_TIMEOUT)
+    lap("ranks")
+    export = _llama_export_check(work, ref)
+    lap("export")
+    cli = llama_cli_check(cli_collected)
+    for p in ranks:
+        for name, digest in p["init_digests"].items():
+            if digest != ref["digests"][name]:
+                raise AssertionError(f"(c) rank {p['rank']}: the gathered init master {name} "
+                                     "differs from the one-process init")
+        if p["losses"] != ranks[0]["losses"]:
+            raise AssertionError("(c): the ranks' synced losses differ")
+        if "split over mesh axis" not in p["export_error"]:
+            raise AssertionError(f"(c) rank {p['rank']}: export_single_device_params took a "
+                                 f"state split over the model axis: {p['export_error']!r}")
+    checked = sum(len(p["init_digests"]) for p in ranks)
+    r0 = ranks[0]
+    comm = {tuple(p["coord"].values()): p["comm_per_step"][0] for p in ranks}
+    log(f"[llama reference] one process, {LLAMA_3D_LAYERS} layers at full width, "
+        f"[{LLAMA_3D_ROWS}, 2048] per step: losses {[round(x, 5) for x in ref['losses']]}, step "
+        f"host ms {[round(x, 1) for x in ref['step_host_ms']]}, state "
+        f"{gib(sum(ref['state_bytes'].values()))}, max memory allocated "
+        f"{gib(ref['max_memory_allocated'])}, init {ref['init_s']:.1f} s, fp32 pass "
+        f"{ref['fp32_s']:.1f} s")
+    log(f"[llama 3d] {LLAMA_RANKS} gloo ranks on cuda:0, data 2 x model 2 x pipe 2, fsdp=True, "
+        f"GPipe over {LLAMA_3D_MICRO} microbatches of one row per data rank "
+        f"({r0['process_info']['backend']}): init masters gathered over both axes bitwise equal "
+        f"to the one-process init ({checked} parameters checked); {r0['nested']} parameters "
+        f"split over model and data on rank 0; state bytes by rank "
+        f"{[sum(p['state_bytes'].values()) for p in ranks]} equal to JAX's rule's "
+        f"{[p['reckoned_bytes'] for p in ranks]}; launches per step {r0['launches_per_step'][0]}; "
+        f"(gathers, reduce-scatters, model-axis all-reduces, sends, receives, gradient "
+        f"all-reduces) per step by (data, model, pipe) {comm}")
+    log(f"  losses {[round(x, 5) for x in r0['losses']]} (|diff| against one process "
+        f"{['%.2e' % x for x in r0['loss_diffs']]}, tol {LOSS_TOL}); step-1 synced gradients "
+        f"relative L2 per weight by rank, median "
+        f"{['%.3e' % p['step1_grad_rel_median'] for p in ranks]}, max "
+        f"{[(p['step1_grad_rel_max'][0], '%.3e' % p['step1_grad_rel_max'][1]) for p in ranks]} "
+        f"(tol {TRAIN_GRAD_TOL}); fp32 at {LLAMA_3D_FP32_LAYERS} layers: max "
+        f"{[('%.3e' % p['fp32']['grad_rel_max'][1]) for p in ranks]} (tol {LLAMA_3D_FP32_TOL})")
+    log(f"  step host ms by rank {[[round(x, 1) for x in p['step_host_ms']] for p in ranks]} "
+        f"against one process's {[round(x, 1) for x in ref['step_host_ms']]}; state "
+        f"{[gib(sum(p['state_bytes'].values())) for p in ranks]}, max memory allocated in a step "
+        f"{[gib(p['max_memory_allocated']) for p in ranks]}")
+    ex = [p["exchange"] for p in ranks]
+    log(f"  host ms by rank: model-axis all-reduce of {ex[0]['activation_bytes']} bytes "
+        f"{[round(e['allreduce_host_ms'], 2) for e in ex]}, pipe hop "
+        f"{[round(e['hop_host_ms'], 2) for e in ex]}, a block's FSDP gather of "
+        f"{ex[0]['gather_bytes']} bytes per rank {[round(e['gather_host_ms'], 2) for e in ex]}")
+    ck = r0["checkpoint"]
+    log(f"  checkpoint at step {ck['step']} restored bitwise into a fresh init on every rank "
+        f"({ck['local_tensors']} local tensors on rank 0; save {ck['save_ms']:.1f} ms, restore "
+        f"{ck['restore_ms']:.1f} ms); export_single_device_params refuses the state as JAX's "
+        f"does ({r0['export_error'][:60]}...); the state gathered over both axes by this "
+        f"script's all-gathers, not by an entry point of the port ({r0['export_s']:.1f} s), "
+        f"on one device: greedy tokens {export}")
+    log(f"  legs' seconds by rank {[{k: round(v, 1) for k, v in p['legs_s'].items()} for p in ranks]}")
+    log(f"[llama cli] torchrun --nproc_per_node={LLAMA_CLI_RANKS} -m tpu_parallel_torch.train "
+        f"--config=llama_1b_3d (data 2 x model 2 x pipe 1, {LLAMA_CLI_LAYERS} layers, "
+        f"{CLI_ROWS} rows, {LLAMA_CLI_STEPS} steps; started with the CLI batch at phase 9): exit 0, "
+        f"collected {cli['wall_s']:.1f} s after its launch; topology {cli['topology']}; losses "
+        f"{cli['losses']}; launches per step {cli['launches_per_step']}")
+    phase_s = time.perf_counter() - start
+    log(f"[llama] phase 18 took {phase_s:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in legs_s.items()) + ")")
+    log(f"card: {smi}")
+    launches = dict(inference=dict(flash_fwd_launches=serve["inference_launches"],
+                                   flash_bwd_launches=0),
+                    training=train["launches"], ranks=r0["launches"])
+    return (dict(serve=serve, train=train, reference=ref, ranks=ranks, export=export, cli=cli,
+                 phase_s=phase_s, legs_s=legs_s), rows, launches)
+
+
 def leg_main(argv):
     """``chip_smoke.py --leg <name> ...``: one leg of phases 12-17 in
     this process; prints its result as one ``dp-leg-result:`` JSON line."""
@@ -7330,6 +8442,10 @@ def leg_main(argv):
         result = sp_rank_leg(int(rest[0]), rest[1], rest[2])
     elif name == "moe_rank":
         result = moe_rank_leg(int(rest[0]), rest[1], rest[2], draws)
+    elif name == "llama_cli_rank":
+        result = llama_cli_rank_leg(rest[0])
+    elif name == "llama_rank":
+        result = llama_rank_leg(int(rest[0]), rest[1], rest[2])
     else:
         raise SystemExit(f"unknown leg {name!r}")
     print(DP_RESULT + json.dumps(result), flush=True)
@@ -7379,20 +8495,23 @@ def main():
     took("phase 7 (serving)")
     kv = hier_phase(SEED, smi)
     took("phase 8 (KV hierarchy)")
-    spec, spec_tokens = spec_phase(SEED, smi)
-    took("phase 9 (speculative decoding)")
-    extras = extras_phase(SEED, smi, serve_tokens, spec_tokens)
-    took("phase 10 (decode extras)")
-    serve_launches = {name: getattr(fa, name) for name in LAUNCH_COUNTERS}
-    if any(serve_launches.values()):
-        raise AssertionError(f"the serving path launched flash kernels: {serve_launches}")
-    gc.collect()
-    torch.cuda.empty_cache()
     import shutil
     import tempfile
 
     work = tempfile.mkdtemp(prefix="dp_legs_")
     try:
+        # phases 12-18's CLI legs run beside phases 9 and 10 (and 11 if
+        # they outlast them), collected in phase 12
+        clis = cli_batch(work)
+        spec, spec_tokens = spec_phase(SEED, smi)
+        took("phase 9 (speculative decoding)")
+        extras = extras_phase(SEED, smi, serve_tokens, spec_tokens)
+        took("phase 10 (decode extras)")
+        serve_launches = {name: getattr(fa, name) for name in LAUNCH_COUNTERS}
+        if any(serve_launches.values()):
+            raise AssertionError(f"the serving path launched flash kernels: {serve_launches}")
+        gc.collect()
+        torch.cuda.empty_cache()
         shell, shell_rows, shell_launches = trainer_phase(SEED, smi)
         for path, counts in shell_launches.items():
             if not all(counts.values()):
@@ -7400,12 +8519,12 @@ def main():
         took("phase 11 (trainer shell)")
         gc.collect()
         torch.cuda.empty_cache()
-        dp_report, dp_rows, dp_launches, clis = dp_phase(smi, work)
+        dp_report, dp_rows, dp_launches, clis, fsdp_pair = dp_phase(smi, work, clis)
         if not all(dp_launches.values()):
             raise AssertionError(f"the training_dp path left a kernel unlaunched: {dp_launches}")
         took("phase 12 (data parallelism)")
         fsdp_report, fsdp_launches = fsdp_phase(smi, work, dp_report, shell["fit"]["save"],
-                                                clis["fsdp"])
+                                                clis["fsdp"], fsdp_pair)
         if not all(fsdp_launches.values()):
             raise AssertionError(f"the training_fsdp path left a kernel unlaunched: "
                                  f"{fsdp_launches}")
@@ -7437,6 +8556,15 @@ def main():
             raise AssertionError(f"the training_moe_ep path left a kernel unlaunched: "
                                  f"{moe_launches}")
         took("phase 17 (mixture of experts)")
+        gc.collect()
+        torch.cuda.empty_cache()
+        llama_report, llama_rows, llama_launches = llama_phase(smi, work, clis["llama"])
+        for path, counts in llama_launches.items():
+            if not all(counts.values()) and path != "inference":
+                raise AssertionError(f"the llama {path} path left a kernel unlaunched: {counts}")
+        if not llama_launches["inference"]["flash_fwd_launches"]:
+            raise AssertionError("the llama inference path never launched flash_fwd")
+        took("phase 18 (the Llama family)")
     finally:
         _kill_launched()
         shutil.rmtree(work, ignore_errors=True)
@@ -7550,6 +8678,23 @@ def main():
         for kind, row, replaces in (
             ("fwd", moe_rows["fwd"], "tpu_parallel/ops/flash_attention.py:240"),
             ("bwd", moe_rows["bwd"], "tpu_parallel/ops/flash_attention.py:464,563"))
+    ] + [
+        # phase 18: llama_1b's 16 heads of 128 at [4, 2048] ((a)'s forward,
+        # (b)'s minibatches; a forward-only row for (a)'s inference path) and
+        # a 3-D rank's microbatch [1, 2048] x 8 heads ((c)'s rank 0)
+        dict(name=f"flash_{kind}", route="cuda", source=f"tpu_parallel_torch/csrc/flash_{kind}.cu",
+             replaces=replaces, path=path, shape=llama_rows[key]["shape"],
+             launches=llama_launches[launches][f"flash_{kind}_launches"],
+             max_abs_err=llama_rows[key]["max_abs_err"], ms=llama_rows[key]["ms"],
+             plain_ms=llama_rows[key]["plain_ms"], bound_ms=llama_rows[key]["bound_ms"],
+             bound_by=llama_rows[key]["bound_by"], library_ms=llama_rows[key]["library_ms"])
+        for path, kind, key, launches, replaces in (
+            ("llama_inference", "fwd", "fwd", "inference", "tpu_parallel/ops/flash_attention.py:240"),
+            ("llama_training", "fwd", "fwd", "training", "tpu_parallel/ops/flash_attention.py:240"),
+            ("llama_training", "bwd", "bwd", "training",
+             "tpu_parallel/ops/flash_attention.py:464,563"),
+            ("llama_3d", "fwd", "fwd3d", "ranks", "tpu_parallel/ops/flash_attention.py:240"),
+            ("llama_3d", "bwd", "bwd3d", "ranks", "tpu_parallel/ops/flash_attention.py:464,563"))
     ]}
     summary = dict(card=smi, forward=fwd, generate=gen, train=train, serve=serve, kv=kv,
                    spec=spec, decode_extras=extras, trainer_shell=shell, data_parallel=dp_report,
@@ -7557,7 +8702,8 @@ def main():
                    tensor_parallel_kernel_shapes=tp_rows, pipeline_parallel=pp_report,
                    pipeline_parallel_kernel_shapes=pp_rows, sequence_parallel=sp_report,
                    sequence_parallel_kernel_shapes=sp_rows, mixture_of_experts=moe_report,
-                   mixture_of_experts_kernel_shapes=moe_rows,
+                   mixture_of_experts_kernel_shapes=moe_rows, llama=llama_report,
+                   llama_kernel_shapes=llama_rows,
                    inference_flash_fwd_launches=inference_launches,
                    kernel_shapes=kernel_rows, bwd_kernel_shapes=bwd_rows,
                    trainer_shell_kernel_shapes=shell_rows, data_parallel_kernel_shapes=dp_rows)

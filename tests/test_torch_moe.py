@@ -10,9 +10,8 @@ suite ``moe``, spawned once for the file) on the same mesh shapes:
 data=8, data=4 x model=2, data=2 x pipe=4 and data=2 x seq=2 x model=2;
 JAX runs the same cases on the suite's simulated devices, from the same
 inits and batches.  The data=2 x seq=2 x model=2 case runs with ring
-attention and ``fsdp=False`` on the port (FSDP x TP, a leaf sharded over
-two axes, comes with ROADMAP item 6), against JAX's ``fsdp=True`` run,
-which computes the same function.
+attention and ``fsdp=True`` on both sides (FSDP x TP: the expert stacks'
+model slices split again over data).
 
 Tolerances (fp32): one MoE layer's outputs rtol 2e-4, atol 2e-4 and
 gradients rtol 1e-4, atol 1e-5, the balance rtol 1e-5 (as
@@ -473,11 +472,12 @@ def test_moe_expert_parallel_layout(ranks):
 
 
 def test_moe_4way_mesh_dp_sp_ep(ranks):
-    """tests/test_moe.py:106 on data=2 x seq=2 x model=2 with ring attention:
-    the port (fsdp=False) against JAX's run (fsdp=True, the same function),
-    the global token count intact."""
+    """tests/test_moe.py:106 on data=2 x seq=2 x model=2 with ring attention
+    and ``fsdp=True`` on both sides (the expert stacks' model slices split
+    again over data): JAX's losses, the global token count intact."""
     _, _, want, count = _jax_way4()
     for rank in ranks:
+        assert int(rank["way4_nested"]) > 0
         np.testing.assert_allclose(rank["way4_losses"], want, rtol=1e-4)
         assert float(rank["way4_count"]) == count == 8 * 64
     assert want[-1] < want[0]
@@ -833,10 +833,37 @@ def test_bridge_round_trips_expert_layouts(scan):
         params_from_jax(one, cfg)
 
 
+@pytest.mark.parametrize("scan", [True, False])
+def test_swiglu_experts_match_jax(scan):
+    """JAX's ``ExpertFFN`` swiglu branch (bias-free gate and up, down with
+    its bias) on bridged weights: the model's logits at 1e-5 and the
+    bridge's round trip exactly."""
+    over = dict(moe_experts=4, mlp="swiglu", positional="rope", norm="rmsnorm",
+                scan_layers=scan)
+    tokens = np.random.default_rng(3).integers(0, 256, (2, 16)).astype(np.int32)
+    jm = JGPTLM(jax_tiny(remat=False, dtype=jnp.float32, **over))
+    params = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(4), jnp.asarray(tokens),
+                                              train=False)["params"])
+    cfg = tiny_test(**over)
+    model = GPTLM(cfg, device="cpu")
+    state = params_from_jax(params, cfg)
+    assert "blocks.layer_0.moe.experts.gate.kernel" in state
+    assert "blocks.layer_0.moe.experts.up.bias" not in state
+    model.load_state_dict(state)
+    with torch.no_grad():
+        got = model(torch.from_numpy(tokens).long()).numpy()
+    want = np.asarray(jm.apply({"params": params}, jnp.asarray(tokens), train=False))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    back = params_to_jax(model.state_dict(), cfg)
+    assert jax.tree.structure(back) == jax.tree.structure(params)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(params)):
+        np.testing.assert_array_equal(np.asarray(a), b)
+
+
 def test_moe_config_errors_are_jax_errors():
     """JAX's refusals in its words: top-k outside [1, E], an unknown router
     or dispatch, expert-choice decoding, MoE under interleave and under
-    1F1B; swiglu experts stay refused with the rest of swiglu."""
+    1F1B."""
     from tpu_parallel_torch.models.generate import generate
     from tpu_parallel_torch.models.gpt import make_gpt_1f1b_grad_fn
 
@@ -847,8 +874,6 @@ def test_moe_config_errors_are_jax_errors():
         tiny_test(moe_experts=4, moe_router="switch")
     with pytest.raises(ValueError, match="moe_dispatch='ring'"):
         tiny_test(moe_experts=4, moe_dispatch="ring")
-    with pytest.raises(NotImplementedError, match="swiglu"):
-        tiny_test(moe_experts=4, mlp="swiglu")
     ec = GPTLM(tiny_test(moe_experts=4, moe_router="expert_choice"), device="cpu")
     with pytest.raises(NotImplementedError, match="expert-choice routing"):
         generate(ec, torch.zeros(1, 3, dtype=torch.long), max_new_tokens=2)

@@ -410,8 +410,14 @@ def test_chunked_loss_matches_unchunked(ranks):
 
 
 def test_fsdp_with_tp_and_head_divisibility_refused(ranks):
+    """FSDP x TP is ported: the mha_xla Trainer with ``fsdp=True`` (every
+    tensor-parallel slice split again over data) gives JAX's TP losses
+    from the same init; head counts the model axis does not divide stay
+    refused."""
+    _, _, losses, _ = _jax_trainer("mha_xla")
     for out in ranks:
-        assert "llama_1b_3d" in str(out["fsdp_tp_error"])
+        assert int(out["fsdp_tp_nested"]) > 0
+        np.testing.assert_allclose(out["fsdp_tp_losses"], losses, rtol=1e-5)
         assert "n_heads=1 not divisible by tp=2" in str(out["divisible_error_heads"])
         assert "n_kv_heads=1 must divide n_heads=4 and be divisible by tp=2" in str(
             out["divisible_error_kv"])

@@ -5,7 +5,8 @@
 
 Starts ``num_ranks`` gloo CPU processes through
 ``tpu_parallel_torch.runtime.spawn_cpu_ranks`` and runs every case of
-``suite`` (``runtime``, ``dp``, ``fsdp``, ``tp``, ``pp``, ``sp`` or ``moe``) in that one group.  Each rank reads the
+``suite`` (``runtime``, ``dp``, ``fsdp``, ``tp``, ``pp``, ``sp``, ``moe`` or
+``llama``) in that one group.  Each rank reads the
 inputs the test wrote to ``<outdir>/inputs.npz`` and writes its results to
 ``<outdir>/<suite>_rank<r>.npz``; the test compares them with the JAX
 package in its own process.  Imports torch, numpy and the port only.
@@ -891,11 +892,22 @@ def _tp_cases(inputs, outdir, out):
     batch = chunk.local_rows(_text_batch(inputs, "example_mha_xla"))
     out["chunk_losses"] = np.array([compute(chunk.step_fn(cstate, None, batch)[1])["loss"]
                                     for _ in range(2)])
-    try:
-        GPTLM(tiny_test(fsdp=True, fsdp_min_size=0), device="cpu", mesh=mesh)
-        out["fsdp_tp_error"] = np.array("")
-    except NotImplementedError as exc:
-        out["fsdp_tp_error"] = np.array(str(exc))
+    # FSDP x TP: the (5) Trainer's mha_xla run with fsdp=True, each TP
+    # slice split again over data: JAX's TP trajectory from the same init
+    trainer = Trainer(TrainerConfig(model="tiny", global_batch_size=8, num_minibatches=2,
+                                    steps=4, warmup_steps=2, ema_decay=0.9,
+                                    model_overrides=dict(fsdp=True, fsdp_min_size=0)),
+                      mesh=mesh, device="cpu")
+    tstate = trainer.init(params_from_jax(nested_tree("tparams_mha_xla", inputs),
+                                          trainer.model_config, dtype=torch.float32))
+    batch = trainer.local_rows(_text_batch(inputs, "example_mha_xla"))
+    losses = []
+    for _ in range(4):
+        tstate, metrics = trainer.step_fn(tstate, None, batch)
+        losses.append(compute(metrics)["loss"])
+    out["fsdp_tp_losses"] = np.array(losses)
+    out["fsdp_tp_nested"] = np.array(sum(
+        len(info.axes) == 2 for info in tstate.shards.values()))
     for name, kw in (("heads", dict(n_heads=1, d_model=32)), ("kv", dict(n_kv_heads=1))):
         try:
             GPTLM(tiny_test(**kw), device="cpu", mesh=mesh)
@@ -1728,9 +1740,10 @@ def _moe_cases(inputs, outdir, out):
             out[f"train_{tag}_bal"] = np.array(bals)
 
     # (3) tests/test_moe.py:106 on data=2 x seq=2 x model=2: ring attention
-    # over seq, experts over model; fsdp=False (FSDP x TP is item 6)
+    # over seq, experts over model, fsdp=True as JAX's run (each expert
+    # stack's model slice split again over data)
     mesh = mesh_of(dict(data=2, seq=2, model=2))
-    cfg = tiny_test(moe_experts=2, attn_impl="ring", seq_len=64)
+    cfg = tiny_test(moe_experts=2, attn_impl="ring", seq_len=64, fsdp=True, fsdp_min_size=0)
     model = GPTLM(cfg, device="cpu", mesh=mesh)
     funcs = build_train_functions(
         make_model_init(model, AdamW(lambda count: 3e-3)), make_gpt_loss(cfg, mesh=mesh), mesh,
@@ -1747,6 +1760,7 @@ def _moe_cases(inputs, outdir, out):
         losses.append(compute(m)["loss"])
     out["way4_losses"] = np.array(losses)
     out["way4_count"] = np.array(float(m["loss"][1]))
+    out["way4_nested"] = np.array(sum(len(i.axes) == 2 for i in state.shards.values()))
 
     # (4) tests/test_moe.py's all-to-all Trainer on data=4 x model=2
     trainer = Trainer(TrainerConfig(
@@ -1816,9 +1830,154 @@ def _moe_cases(inputs, outdir, out):
     dist.barrier()
 
 
+# the Llama family's tiny overrides (tests/test_gpt.py's llama variant)
+LLAMA = dict(positional="rope", norm="rmsnorm", mlp="swiglu")
+# seq-parallel rope cases: name -> (model overrides, mesh)
+LLAMA_SP = {
+    "ring_rope": (dict(LLAMA, attn_impl="ring", seq_len=64), dict(data=2, seq=4)),
+    "ulysses_rope": (dict(LLAMA, attn_impl="ulysses", seq_len=64), dict(data=2, seq=4)),
+}
+LLAMA_3D_STEPS = 4
+# rope through generate_sharded: name -> (model overrides, mesh)
+LLAMA_GEN = {
+    "tp": (LLAMA, dict(data=4, model=2)),
+    "pp": (dict(LLAMA, pipe_size=2, num_microbatches=2), dict(data=2, model=2, pipe=2)),
+}
+
+
+def _assembled_nested(out, prefix, tree, shards):
+    """As :func:`_assembled`, each slice gathered over every axis of its
+    (possibly nested) split, innermost first."""
+    import torch
+    import torch.distributed as dist
+
+    for name, value in tree.items():
+        value = value.to_local() if hasattr(value, "to_local") else value
+        info = shards.get(name)
+        while info is not None:
+            parts = [torch.empty_like(value) for _ in range(info.size)]
+            dist.all_gather(parts, value.contiguous(), group=info.group)
+            value = torch.cat(parts, dim=info.dim)
+            info = info.outer
+        out[f"{prefix}/{name}"] = value.detach().float().numpy().copy()
+
+
+def _llama_cases(inputs, outdir, out):
+    import torch
+    import torch.distributed as dist
+
+    from tpu_parallel_torch.core.accumulate import accumulate_gradients
+    from tpu_parallel_torch.core.metrics import compute
+    from tpu_parallel_torch.core.optim import AdamW
+    from tpu_parallel_torch.models import GPTLM, tiny_test
+    from tpu_parallel_torch.models.convert import params_from_jax
+    from tpu_parallel_torch.core.state import TrainState
+    from tpu_parallel_torch.models.generate import generate_sharded
+    from tpu_parallel_torch.models.gpt import make_gpt_loss
+    from tpu_parallel_torch.parallel import fsdp, pp
+    from tpu_parallel_torch.parallel.spmd import build_train_functions, make_model_init
+    from tpu_parallel_torch.parallel.tp import export_single_device_params
+    from tpu_parallel_torch.runtime import MeshConfig, make_mesh
+    from tpu_parallel_torch.train_lib import Trainer, TrainerConfig
+
+    # (1) ring and Ulysses with rope over data=2 x seq=4: the step's synced
+    # gradients and loss from the one-device JAX init
+    for name, (overrides, sizes) in LLAMA_SP.items():
+        trainer = Trainer(TrainerConfig(model="tiny", model_overrides=overrides, mesh=sizes,
+                                        global_batch_size=8, steps=1), device="cpu")
+        state = trainer.init(params_from_jax(nested_tree(f"sp_params_{name}", inputs),
+                                             trainer.model_config, dtype=torch.float32))
+        batch = trainer.local_rows(_text_batch(inputs, f"sp_batch_{name}"))
+        grads, metrics = accumulate_gradients(state, batch, state.rng, 1, trainer.loss_fn)
+        fsdp.sync_gradients(state.partitioned(grads), ("data", "seq", "model"),
+                            mesh=trainer.mesh)
+        for key, value in grads.items():
+            out[f"sp_{name}_grads/{key}"] = value.numpy().copy()
+        loss = torch.tensor([float(metrics["loss"][0]), float(metrics["loss"][1])])
+        dist.all_reduce(loss)
+        out[f"sp_{name}_loss"] = np.array(float(loss[0] / loss[1]))
+
+    # (2) tests/test_gpt.py:150 with fsdp=True: data=2 x model=2 x pipe=2,
+    # from JAX's init; each rank's slices, the step-1 synced gradients,
+    # LLAMA_3D_STEPS steps' losses and the final masters
+    mesh = make_mesh(MeshConfig(data=2, model=2, pipe=2))
+    for axis in ("data", "model", "pipe"):
+        out[f"coord_{axis}"] = np.array(mesh.get_local_rank(axis))
+    cfg = tiny_test(pipe_size=2, num_microbatches=2, n_layers=4, fsdp=True, fsdp_min_size=0,
+                    **LLAMA)
+    model = GPTLM(cfg, device="cpu", mesh=mesh)
+    loss_fn = make_gpt_loss(cfg, mesh=mesh)
+    funcs = build_train_functions(
+        make_model_init(model, AdamW(lambda count: 3e-3)), loss_fn, mesh,
+        grad_sync_axes=("data", "model"), grad_psum_axes=("pipe",),
+        metric_axes=("data", "pipe"), metric_mean_axes=("model",))
+    params = params_from_jax(nested_tree("params_3d", inputs), cfg, dtype=torch.float32,
+                             pipe_rank=mesh.get_local_rank("pipe"))
+    state = funcs.init_fn(None, params)
+    for name, value in state.params.items():
+        out[f"slices/{name}"] = value.numpy().copy()
+        out[f"spec/{name}"] = np.array(str(funcs.state_specs[name]))
+    batch = _pp_rows(_text_batch(inputs, "batch_3d"), mesh)
+    grads, _ = accumulate_gradients(state, batch, state.rng, 1, loss_fn)
+    fsdp.sync_gradients(state.partitioned(grads), ("data", "model"), ("pipe",), mesh=mesh)
+    _assembled_nested(out, "grads", grads, state.shards)
+    state.zero_grads()
+    losses = []
+    for _ in range(LLAMA_3D_STEPS):
+        state, metrics = funcs.step_fn(state, None, batch)
+        losses.append(compute(metrics)["loss"])
+    out["losses_3d"] = np.array(losses)
+    _assembled_nested(out, "final", state.params, state.shards)
+    try:
+        export_single_device_params(state.partitioned(state.params))
+        out["export_error"] = np.array("")
+    except ValueError as exc:
+        out["export_error"] = np.array(str(exc))
+
+    # (3) the Trainer over the same mesh: a checkpoint after 2 steps,
+    # restored bitwise into a fresh init, one more step on both
+    kw = dict(model="tiny", model_overrides=dict(LLAMA, num_microbatches=2, n_layers=4,
+                                                 fsdp=True, fsdp_min_size=0),
+              mesh=dict(data=2, model=2, pipe=2), global_batch_size=16, steps=2, log_every=1)
+    t1 = Trainer(TrainerConfig(**kw), device="cpu")
+    t1.init()
+    t1.train(steps=2)
+    ckpt_dir = os.path.join(outdir, "llama_ckpt")
+    t1.save_checkpoint(ckpt_dir, step=t1.state.step)
+    t2 = Trainer(TrainerConfig(**kw), device="cpu")
+    t2.init()
+    restored = t2.restore_checkpoint(ckpt_dir)
+    out["ckpt_step"] = np.array(restored.step)
+    same = [torch.equal(a, b) for a, b in zip(
+        _tensor_leaves(t1.state.state_dict()), _tensor_leaves(restored.state_dict()))]
+    out["ckpt_bitwise"] = np.array(all(same) and len(same) > 0)
+    nxt = t1.local_rows(t1.example_batch)
+    out["ckpt_next_loss"] = np.array([compute(t.step_fn(t.state, None, nxt)[1])["loss"]
+                                      for t in (t1, t2)])
+
+    # (4) greedy generate_sharded with rope from JAX's init on 4 ragged
+    # prompts: over data=4 x model=2, and through the pipelined decode
+    # ring on data=2 x model=2 x pipe=2
+    prompt = torch.from_numpy(inputs["gen_prompt"].copy()).long()
+    mask = torch.from_numpy(inputs["gen_mask"].copy())
+    for name, (overrides, sizes) in LLAMA_GEN.items():
+        gmesh = make_mesh(MeshConfig(**sizes))
+        gcfg = tiny_test(**dict(overrides, remat=False))
+        stage = pp.pipe_axis(gmesh)
+        params = params_from_jax(nested_tree(f"gen_params_{name}", inputs), gcfg,
+                                 dtype=torch.float32,
+                                 pipe_rank=None if stage is None else stage[2])
+        gmodel = TrainState.create(GPTLM(gcfg, device="cpu", mesh=gmesh),
+                                   AdamW(lambda count: 1e-3), torch.Generator().manual_seed(0),
+                                   params).model
+        out[f"gen_{name}"] = generate_sharded(gmodel, prompt, max_new_tokens=8,
+                                              prompt_mask=mask).numpy()
+    dist.barrier()
+
+
 SUITES = {"runtime": _runtime_cases, "dp": _dp_cases, "fsdp": _fsdp_cases, "tp": _tp_cases,
           "pp": _pp_cases, "sp": _sp_cases,
-          "moe": _moe_cases}
+          "moe": _moe_cases, "llama": _llama_cases}
 
 
 def run_suite(suite, outdir):

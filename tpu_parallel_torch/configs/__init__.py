@@ -19,11 +19,10 @@ from typing import Any, Dict
 from tpu_parallel_torch.configs.common import PLACEHOLDER_TYPES
 
 CONFIGS = ("gpt2_125m_dp", "gpt2_125m_tp", "gpt2_125m_corpus", "gpt2_125m_long",
-           "gpt2_350m_pp", "gpt2_moe_ep", "mlp_dp_cpu", "tiny_3d_cpu")
+           "gpt2_350m_pp", "gpt2_moe_ep", "llama_1b_3d", "mlp_dp_cpu", "tiny_3d_cpu")
 
 # the repo's other configs -> what the port lacks to run them
 UNPORTED = {
-    "llama_1b_3d": "the Llama family and FSDP x TP (ROADMAP queue A item 6)",
     "bert_base_mlm": "the bidirectional encoder and the MLM objective (ROADMAP queue A item 6)",
     "t5_small_s2s": "the encoder-decoder family (ROADMAP queue A item 6)",
 }

@@ -25,10 +25,12 @@ Tree = Dict[str, torch.Tensor]
 def _sharded_dims(leaf):
     """The mesh dims a ``DTensor`` leaf is sharded over (() for a plain
     tensor or a replicated ``DTensor``)."""
+    from tpu_parallel_torch.parallel.fsdp import is_shard_placement
+
     placements = getattr(leaf, "placements", None)
     if placements is None:
         return ()
-    return tuple(i for i, p in enumerate(placements) if p.is_shard())
+    return tuple(i for i, p in enumerate(placements) if is_shard_placement(p))
 
 
 def _local(leaf) -> torch.Tensor:

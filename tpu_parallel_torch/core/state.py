@@ -161,7 +161,7 @@ def get_num_params(state_or_model: Any) -> int:
     total = 0
     for p in model.parameters():
         info = shard_info(p)
-        total += p.numel() if info is None else math.prod(info.full_shape)
+        total += p.numel() if info is None else math.prod(info.global_shape)
     return total
 
 

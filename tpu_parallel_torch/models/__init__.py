@@ -1,7 +1,7 @@
 """Model family of the port (GPT decoder, KV-cache generation, int8 weight
 export)."""
 
-from tpu_parallel_torch.models.gpt import GPTLM, GPTConfig, gpt2_125m, tiny_test
+from tpu_parallel_torch.models.gpt import GPTLM, GPTConfig, gpt2_125m, llama_1b, tiny_test
 from tpu_parallel_torch.models.layers import TransformerConfig
 from tpu_parallel_torch.models.quantize import (
     QuantizedTensor,
@@ -11,4 +11,4 @@ from tpu_parallel_torch.models.quantize import (
 )
 
 __all__ = ["GPTLM", "GPTConfig", "QuantizedTensor", "TransformerConfig", "dequantize_params",
-           "gpt2_125m", "quantize_params", "quantized_nbytes", "tiny_test"]
+           "gpt2_125m", "llama_1b", "quantize_params", "quantized_nbytes", "tiny_test"]

@@ -20,8 +20,12 @@ across as ``moe.router.weight`` and ``moe.experts.{up,down}.{kernel,bias}``
 (flax's ``[E, in, out]`` layout kept), from the one-device
 ``moe/experts/...`` or expert parallelism's ``moe/experts/sharded/...``
 stacked ``[ep, E / ep, ...]`` (``model_rank`` as for tensor-parallel
-leaves).  Nothing here imports JAX: leaves are read with
-``numpy.asarray`` (torch leaves, bf16 ones too, through fp32).
+leaves).  The Llama family's trees come across as JAX holds them: an
+RMSNorm's ``scale`` without a bias, the gated MLP's bias-free
+``mlp/{gate,up,down}`` (swiglu experts: ``moe/experts/{gate,up}``
+without biases), and no ``embed/pos`` under rope.  Nothing here imports
+JAX: leaves are read with ``numpy.asarray`` (torch leaves, bf16 ones
+too, through fp32).
 :func:`params_to_jax` is its exact inverse (from one state dict, or from
 every model rank's for the stacked mesh layout), so the port builds the
 JAX layout's tree (for ``models/quantize.py`` and its ``.npz`` files)
@@ -62,6 +66,12 @@ _MLP = (
     ("mlp/down/shard/kernel", "mlp.down.weight", True),
     ("mlp/down/bias", "mlp.down.bias", False),
 )
+# the gated MLP (swiglu, geglu): three bias-free products
+_GATED_MLP = (
+    ("mlp/gate/shard/kernel", "mlp.gate.weight", True),
+    ("mlp/up/shard/kernel", "mlp.up.weight", True),
+    ("mlp/down/shard/kernel", "mlp.down.weight", True),
+)
 # an MoE block's MLP: the fp32 router (a Linear) and the expert stacks,
 # kept in flax's [E, in, out] layout (biases whatever dense_bias says, as
 # JAX's ExpertFFN); under expert parallelism the stacks stand under
@@ -70,6 +80,14 @@ _MOE = (
     ("moe/router/kernel", "moe.router.weight", True),
     ("moe/experts/up/kernel", "moe.experts.up.kernel", False),
     ("moe/experts/up/bias", "moe.experts.up.bias", False),
+    ("moe/experts/down/kernel", "moe.experts.down.kernel", False),
+    ("moe/experts/down/bias", "moe.experts.down.bias", False),
+)
+# swiglu experts: bias-free gate and up, down with its bias (JAX's ExpertFFN)
+_SWIGLU_MOE = (
+    ("moe/router/kernel", "moe.router.weight", True),
+    ("moe/experts/gate/kernel", "moe.experts.gate.kernel", False),
+    ("moe/experts/up/kernel", "moe.experts.up.kernel", False),
     ("moe/experts/down/kernel", "moe.experts.down.kernel", False),
     ("moe/experts/down/bias", "moe.experts.down.bias", False),
 )
@@ -95,7 +113,7 @@ _EXPERTS, _EXPERTS_STACKED = "moe/experts/", "moe/experts/sharded/"
 # (their input) and the expert stacks (the experts); every other stacked
 # leaf splits its output
 _ROW = ("attn.out.weight", "mlp.down.weight")
-_AXIS0 = _ROW + tuple(key for _, key, _ in _MOE[1:])
+_AXIS0 = _ROW + tuple(key for _, key, _ in _MOE[1:]) + ("moe.experts.gate.kernel",)
 
 
 def _stacked_path(path: str) -> str:
@@ -160,10 +178,28 @@ def _unpipe(flat: Dict[str, object], config) -> Dict[str, object]:
     return out
 
 
+def _rmsnorm(config) -> bool:
+    return getattr(config, "norm", "layernorm") == "rmsnorm"
+
+
+def _top_leaves(config) -> Tuple[Tuple[str, str, bool], ...]:
+    """The leaves outside the blocks: no ``pos`` table unless the positions
+    are learned, no norm bias under RMSNorm."""
+    return tuple(leaf for leaf in _TOP
+                 if not (leaf[1] == "embed.pos.weight"
+                         and getattr(config, "positional", "learned") != "learned")
+                 and not (leaf[1] == "norm_final.bias" and _rmsnorm(config)))
+
+
 def _block_leaves(config) -> Tuple[Tuple[str, str, bool], ...]:
     n_kv = config.n_kv_heads or config.n_heads
-    mlp = _MOE if getattr(config, "moe_experts", 0) > 0 else _MLP
-    leaves = (_MHA if n_kv == config.n_heads else _GQA) + _ATTN_OUT + mlp + _NORMS
+    swiglu = config.mlp == "swiglu"
+    if getattr(config, "moe_experts", 0) > 0:
+        mlp = _SWIGLU_MOE if swiglu else _MOE
+    else:
+        mlp = _GATED_MLP if config.mlp in ("swiglu", "geglu") else _MLP
+    norms = tuple(leaf for leaf in _NORMS if not (_rmsnorm(config) and leaf[1].endswith(".bias")))
+    leaves = (_MHA if n_kv == config.n_heads else _GQA) + _ATTN_OUT + mlp + norms
     if not config.dense_bias:
         leaves = tuple(leaf for leaf in leaves if leaf[1].endswith(".weight")
                        or leaf[0].startswith(("norm_", "moe/")))
@@ -181,6 +217,7 @@ def state_shapes(config) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
         "attn.q.weight": ((h * dh, d), dt), "attn.q.bias": ((h * dh,), dt),
         "attn.kv.weight": ((2 * n_kv * dh, d), dt), "attn.kv.bias": ((2 * n_kv * dh,), dt),
         "attn.out.weight": ((d, h * dh), dt), "attn.out.bias": ((d,), dt),
+        "mlp.gate.weight": ((hidden, d), dt),
         "mlp.up.weight": ((hidden, d), dt), "mlp.up.bias": ((hidden,), dt),
         "mlp.down.weight": ((d, hidden), dt), "mlp.down.bias": ((d,), dt),
         "norm_attn.weight": ((d,), f32), "norm_attn.bias": ((d,), f32),
@@ -189,19 +226,23 @@ def state_shapes(config) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
     e = getattr(config, "moe_experts", 0)
     block.update({
         "moe.router.weight": ((e, d), f32),
+        "moe.experts.gate.kernel": ((e, d, hidden), dt),
         "moe.experts.up.kernel": ((e, d, hidden), dt), "moe.experts.up.bias": ((e, hidden), dt),
         "moe.experts.down.kernel": ((e, hidden, d), dt), "moe.experts.down.bias": ((e, d), dt),
     })
-    shapes = {
+    top = {
         "embed.tok.weight": ((config.vocab_size, d), dt),
         "embed.pos.weight": ((config.seq_len, d), dt),
+        "norm_final.weight": ((d,), f32),
+        "norm_final.bias": ((d,), f32),
+        "lm_head.weight": ((config.vocab_size, d), dt),
     }
+    kept = {key for _, key, _ in _top_leaves(config)}
+    shapes = {k: v for k, v in top.items() if k.startswith("embed.") and k in kept}
     for i in range(config.n_layers):
         for _, key, _ in _block_leaves(config):
             shapes[f"blocks.layer_{i}.{key}"] = block[key]
-    shapes["norm_final.weight"] = ((d,), f32)
-    shapes["norm_final.bias"] = ((d,), f32)
-    shapes["lm_head.weight"] = ((config.vocab_size, d), dt)
+    shapes.update({k: v for k, v in top.items() if not k.startswith("embed.") and k in kept})
     return shapes
 
 
@@ -285,7 +326,7 @@ def params_from_jax(tree: Mapping, config, dtype=None, *,
             "expected exactly one JAX layer layout, scanned 'blocks/layers/block/...' "
             "or unrolled 'blocks/layer_{i}/...'"
         )
-    wanted = [(path, key, t, None) for path, key, t in _TOP]
+    wanted = [(path, key, t, None) for path, key, t in _top_leaves(config)]
     for i in range(config.n_layers):
         for path, key, t in _block_leaves(config):
             port_key = f"blocks.layer_{i}.{key}"
@@ -424,7 +465,8 @@ def params_to_jax(state_dict: Union[Mapping[str, torch.Tensor],
                 for name in layers}
     shapes = state_shapes(config)
     # the leaves JAX's ModuleShard stacks over the model axis, by port key
-    split = {k for p, k, _ in _TOP + _block_leaves(config) if _SHARD in p or _EXPERTS in p}
+    split = {k for p, k, _ in _top_leaves(config) + _block_leaves(config)
+             if _SHARD in p or _EXPERTS in p}
 
     def put(path: str, value: torch.Tensor):
         node = tree
@@ -444,7 +486,7 @@ def params_to_jax(state_dict: Union[Mapping[str, torch.Tensor],
             return torch.stack([flax(r[key]) for r in ranks]), True
         return flax(state_dict[key]), False
 
-    for path, key, t in _TOP:
+    for path, key, t in _top_leaves(config):
         value, stacked = leaf(key, t)
         put(_stacked_path(path) if stacked else path, value)
     for path, key, t in _block_leaves(config):
@@ -488,26 +530,39 @@ def init_params(model: torch.nn.Module, seed: int = 0) -> Dict[str, torch.Tensor
     name, so a seed gives the same weights on every device and in every
     layout: an FSDP- or TP-sharded parameter is drawn at its full shape and
     takes this rank's slice, and a pipeline stage draws only its own layers
-    (their names are the one-device model's).  Returns the fp32 draws by
-    parameter name, at full shape (the master weights of training)."""
+    (their names are the one-device model's).  The draws run on as many
+    threads as torch's intra-op setting (each from its own generator: the
+    same values as in turn).  Returns the fp32 draws by parameter name, at
+    full shape (the master weights of training)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from tpu_parallel_torch.parallel.fsdp import shard_info
 
+    params = list(model.named_parameters())
+
+    def draw(item) -> torch.Tensor:
+        name, param = item
+        info = shard_info(param)
+        shape = param.shape if info is None else info.global_shape
+        value = torch.empty(shape, dtype=torch.float32)
+        gen = _param_generator(seed, name)
+        if name.endswith(".bias"):
+            value.zero_()
+        elif ".norm_" in f".{name}":
+            value.fill_(1.0)
+        elif name.startswith("embed."):
+            value.normal_(0.0, 1.0 / math.sqrt(shape[1]), generator=gen)
+        else:
+            std = math.sqrt(1.0 / shape[1]) / 0.87962566103423978
+            _trunc_normal_(value, std, gen)
+        return value
+
+    with ThreadPoolExecutor(max(1, torch.get_num_threads())) as pool:
+        values = list(pool.map(draw, params))
     draws = {}
     with torch.no_grad():
-        for name, param in model.named_parameters():
+        for (name, param), value in zip(params, values):
             info = shard_info(param)
-            shape = param.shape if info is None else info.full_shape
-            value = torch.empty(shape, dtype=torch.float32)
-            gen = _param_generator(seed, name)
-            if name.endswith(".bias"):
-                value.zero_()
-            elif ".norm_" in f".{name}":
-                value.fill_(1.0)
-            elif name.startswith("embed."):
-                value.normal_(0.0, 1.0 / math.sqrt(shape[1]), generator=gen)
-            else:
-                std = math.sqrt(1.0 / shape[1]) / 0.87962566103423978
-                _trunc_normal_(value, std, gen)
             param.copy_(value if info is None else info.local(value))
             draws[name] = value
     return draws

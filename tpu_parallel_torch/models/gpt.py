@@ -112,25 +112,24 @@ class GPTLM(nn.Module):
 
     ``device`` defaults to ``"cuda"`` and raises without a GPU; the weights
     are drawn from ``seed`` with a CPU ``torch.Generator`` (the same weights
-    on every device, and every rank's slice of the same full weights).
+    on every device, and every rank's slice of the same full weights);
+    ``seed=None`` leaves the modules' own initial values, for a caller that
+    loads or draws the weights itself (the ``Trainer``'s ``init``: the
+    host's draws are most of a large model's build).
     The lm_head is untied from the token embedding.  ``mesh``
     (``runtime.make_mesh``) binds the data axis that ``config.fsdp``
     shards over and the model axis that tensor parallelism splits: there
     the lm_head is column-parallel over the vocabulary and the forward
     all-gathers its logits.  Without a mesh an FSDP config holds full
     weights, as JAX's wrap is the identity on an unbound axis.  FSDP
-    together with a model axis above 1 (a leaf sharded over two axes,
-    ``llama_1b_3d``'s mesh) is refused.
+    together with a model axis above 1 (``llama_1b_3d``'s mesh) splits
+    each tensor-parallel slice again over the data axis, by JAX's rule on
+    the slice's shape (``fsdp.shard_dim``; a nested ``ShardInfo``).
     """
 
-    def __init__(self, config: GPTConfig, *, device="cuda", seed: int = 0, mesh=None):
+    def __init__(self, config: GPTConfig, *, device="cuda", seed: Optional[int] = 0, mesh=None):
         super().__init__()
         bound = model_axis(mesh, config.model_axis)
-        if config.fsdp and bound is not None:
-            raise NotImplementedError(
-                f"fsdp=True with a {config.model_axis} axis of {bound[1]} (FSDP x tensor "
-                "parallelism, a leaf sharded over two axes) is not in the PyTorch port yet; "
-                "it comes with llama_1b_3d's DP x TP x PP mesh (ROADMAP queue A item 6)")
         _pipe_refusals(config)
         pipe = pp.pipe_axis(mesh, config.pipe_axis)
         if pipe is not None and pipe[1] != config.pipe_size:
@@ -155,7 +154,8 @@ class GPTLM(nn.Module):
         # the kv heads this rank's caches hold
         self.local_kv_heads = (config.n_kv_heads or config.n_heads) // (
             1 if bound is None else bound[1])
-        init_params(self, seed)
+        if seed is not None:
+            init_params(self, seed)
 
     @property
     def is_last_stage(self) -> bool:
@@ -325,6 +325,14 @@ def gpt2_125m(**overrides) -> GPTConfig:
 def gpt2_350m(**overrides) -> GPTConfig:
     return GPTConfig(**{
         **dict(vocab_size=50304, d_model=1024, n_layers=24, n_heads=16, seq_len=1024),
+        **overrides,
+    })
+
+
+def llama_1b(**overrides) -> GPTConfig:
+    return GPTConfig(**{
+        **dict(vocab_size=32000, d_model=2048, n_layers=16, n_heads=16, seq_len=2048,
+               positional="rope", norm="rmsnorm", mlp="swiglu"),
         **overrides,
     })
 

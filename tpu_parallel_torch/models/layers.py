@@ -2,8 +2,12 @@
 
 Single-device PyTorch modules with the JAX package's names and math:
 matmul weights, biases and embeddings are held in ``config.dtype`` (what the
-flax modules cast their fp32 params to at every use), LayerNorm computes and
-holds its params in fp32, softmax runs in fp32.  Under ``fsdp`` and a mesh,
+flax modules cast their fp32 params to at every use), LayerNorm and RMSNorm
+compute and hold their params in fp32, softmax runs in fp32.  The Llama
+family's pieces are JAX's too: ``positional="rope"`` rotates q and k in
+:class:`Attention` (:func:`apply_rope`, interleaved pairs) and drops the
+position table, ``norm="rmsnorm"`` and the gated MLPs (``swiglu``,
+``geglu``: bias-free ``gate``, ``up`` and ``down``).  Under ``fsdp`` and a mesh,
 each block is FSDP-sharded over the data axis (``parallel/fsdp.py``).  On a
 mesh whose model axis is above 1 the projections are tensor-parallel
 (``parallel/tp.py``): attention's ``qkv`` (or ``q`` and ``kv``) and the
@@ -39,7 +43,7 @@ import contextlib
 import dataclasses
 import functools
 import threading
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -63,15 +67,16 @@ from tpu_parallel_torch.runtime.mesh import axis_group
 # (field, default, what setting it would need) — fields this slice does not
 # implement; a config that sets one raises instead of silently ignoring it
 _UNSUPPORTED = (
-    ("positional", "learned", "rope / relative positions"),
-    ("norm", "layernorm", "RMSNorm"),
     ("prenorm", True, "post-norm blocks"),
     ("embed_norm", False, "an embedding LayerNorm"),
     ("bidirectional", False, "bidirectional attention"),
 )
 _MOE_ROUTERS = ("topk", "expert_choice")
 _MOE_DISPATCHES = ("dense", "alltoall")
-_MLPS = ("gelu", "gelu_exact", "relu")
+_MLPS = ("gelu", "gelu_exact", "relu", "swiglu", "geglu")
+_GATED = ("swiglu", "geglu")
+_POSITIONALS = ("learned", "rope")
+_NORMS = ("layernorm", "rmsnorm")
 _KV_CACHE_DTYPES = ("bf16", "int8")
 _ATTN_IMPLS = ("xla", "flash", "ring", "ulysses")
 # ops whose outputs count as "attn" for the remat policies: the flash forward
@@ -174,6 +179,14 @@ class TransformerConfig:
                     f"{field}={getattr(self, field)!r} needs {needs}, which the "
                     "PyTorch port does not have yet"
                 )
+        if self.positional == "relative":
+            raise NotImplementedError(
+                "positional='relative' needs the T5 relative position bias, which the "
+                "PyTorch port does not have yet (ROADMAP queue A item 6, the seq2seq family)")
+        if self.positional not in _POSITIONALS:
+            raise ValueError(f"unknown positional {self.positional!r}")
+        if self.norm not in _NORMS:
+            raise ValueError(f"unknown norm {self.norm!r}")
         if self.kv_cache_dtype not in _KV_CACHE_DTYPES:
             raise ValueError(f"kv_cache_dtype={self.kv_cache_dtype!r} (bf16 | int8)")
         if self.mlp not in _MLPS:
@@ -231,11 +244,49 @@ class LayerNorm(nn.LayerNorm):
         )
 
 
-def make_norm(config: TransformerConfig, device=None) -> LayerNorm:
-    """fp32 LayerNorm of width ``d_model`` with ``config.norm_eps``."""
-    return LayerNorm(
-        config.d_model, eps=config.norm_eps, dtype=torch.float32, device=device
-    )
+class RMSNorm(nn.RMSNorm):
+    """flax's ``nn.RMSNorm`` computed in fp32 with an fp32 ``scale``
+    (``weight`` here) and no bias; returns fp32."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.rms_norm(x.float(), self.normalized_shape, self.weight, self.eps)
+
+
+def make_norm(config: TransformerConfig, device=None) -> nn.Module:
+    """fp32 norm of width ``d_model`` with ``config.norm_eps``: RMSNorm
+    under ``norm="rmsnorm"``, LayerNorm otherwise."""
+    cls = RMSNorm if config.norm == "rmsnorm" else LayerNorm
+    return cls(config.d_model, eps=config.norm_eps, dtype=torch.float32, device=device)
+
+
+def rope_tables(positions: torch.Tensor, head_dim: int,
+                theta: float = 10000.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp32 ``(cos, sin)`` [batch, seq, 1, head_dim // 2] of the angles
+    ``positions * inv_freq``, ``inv_freq = 1 / theta ** (arange(0, D, 2) /
+    D)``: one set for every tensor rotated at ``positions`` [batch, seq]."""
+    exponents = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                             device=positions.device) / head_dim
+    angles = (positions[..., None].float() * (1.0 / (theta ** exponents)))[:, :, None, :]
+    return angles.cos(), angles.sin()
+
+
+def rotate_pairs(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """``x`` [batch, seq, heads, head_dim] with its interleaved pairs
+    ``(x[..., ::2], x[..., 1::2])`` rotated by :func:`rope_tables`' angles
+    and restacked in place (not the rotate-half layout).  The products run
+    in fp32 (JAX promotes a bf16 ``x`` against fp32 cos/sin) and round to
+    ``x.dtype`` once."""
+    x1, x2 = x[..., ::2].float(), x[..., 1::2].float()
+    rotated = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return rotated.reshape(x.shape).to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:
+    """Rotary position embedding over the last (head_dim) axis, JAX's
+    ``apply_rope``: :func:`rotate_pairs` by :func:`rope_tables`.  ``x``
+    [batch, seq, heads, head_dim], ``positions`` [batch, seq].  No host
+    sync: the engine replays it inside CUDA graphs."""
+    return rotate_pairs(x, *rope_tables(positions, x.shape[-1], theta))
 
 
 class _ActiveName(threading.local):
@@ -776,7 +827,13 @@ class Attention(nn.Module):
     column-parallel and ``out`` row-parallel: each rank runs
     ``n_heads // tp`` local heads (and ``n_kv // tp`` kv heads), whose rows
     of the dense weights are a contiguous block, the layout being per
-    head."""
+    head.
+
+    Under ``positional="rope"`` q and k are rotated after the projection
+    and before the cache write and the attention (a cached K holds rope at
+    its absolute position, as JAX's), at ``positions``: by default
+    ``arange(S)``, offset by the seq coordinate times the local length under
+    sequence parallelism, or in decode the cache index plus ``arange(t)``."""
 
     def __init__(self, config: TransformerConfig, device=None, mesh=None):
         super().__init__()
@@ -819,6 +876,20 @@ class Attention(nn.Module):
             else:
                 q = self.q(x).view(b, t, self.local_heads, dh)
                 k, v = self.kv(x).view(b, t, self.local_kv, 2 * dh).split(dh, dim=-1)
+        if decode and positions is None and cache is not None:
+            positions = (cache.index + torch.arange(t, device=x.device)).expand(b, t)
+        if cfg.positional == "rope":
+            if positions is None:
+                positions = torch.arange(t, device=x.device)
+                if seq_parallel_active(cfg, self.mesh):
+                    # seq-sharded: this rank's block of global positions
+                    positions = positions + axis_group(self.mesh, cfg.seq_axis)[2] * t
+                positions = positions.expand(b, t)
+            # new contiguous q and k (v stays a view of the projection),
+            # outside any checkpoint name, so the remat policies recompute
+            # them; one set of tables for both
+            cos, sin = rope_tables(positions, dh, cfg.rope_theta)
+            q, k = rotate_pairs(q, cos, sin), rotate_pairs(k, cos, sin)
         if decode:
             if seq_parallel_active(cfg, self.mesh):
                 raise NotImplementedError("incremental decoding under sequence parallelism")
@@ -829,8 +900,6 @@ class Attention(nn.Module):
             if cache is None:
                 raise ValueError("decode=True needs this layer's KVCache")
             idx = cache.index
-            if positions is None:
-                positions = (idx + torch.arange(t, device=x.device)).expand(b, t)
             if cache.beam_src is not None and (write_index is not None
                                                or block_table is not None):
                 raise NotImplementedError(
@@ -924,26 +993,39 @@ class Attention(nn.Module):
 
 class MLP(nn.Module):
     """``down(act(up(x)))`` with act gelu (tanh form), gelu_exact or relu;
-    on ``mesh``'s model axis a column ``up`` and a row ``down`` (one
-    forward all-reduce)."""
+    or, gated, ``down(act(gate(x)) * up(x))`` with act silu (``swiglu``,
+    Llama) or tanh-gelu (``geglu``), ``gate``, ``up`` and ``down``
+    bias-free.  On ``mesh``'s model axis ``up`` (and ``gate``) are column
+    layers and ``down`` a row layer (one forward all-reduce)."""
 
     def __init__(self, config: TransformerConfig, device=None, mesh=None):
         super().__init__()
         self.config = config
+        self.gated = config.mlp in _GATED
         hidden = config.mlp_ratio * config.d_model
-        kw = dict(axis_name=config.model_axis, use_bias=config.dense_bias, dtype=config.dtype,
-                  device=device, mesh=mesh)
+        kw = dict(axis_name=config.model_axis, use_bias=config.dense_bias and not self.gated,
+                  dtype=config.dtype, device=device, mesh=mesh)
+        if self.gated:
+            self.gate = TPDense(config.d_model, hidden, style="column", **kw)
         self.up = TPDense(config.d_model, hidden, style="column", **kw)
         self.down = TPDense(hidden, config.d_model, style="row", **kw)
 
     def forward(self, x: torch.Tensor,
                 dropout_gen: Optional[torch.Generator] = None) -> torch.Tensor:
-        with checkpoint_name("proj"):
-            h = self.up(x)
-        if self.config.mlp == "relu":
-            h = F.relu(h)
+        mlp = self.config.mlp
+        if self.gated:
+            with checkpoint_name("proj"):
+                gate = self.gate(x)
+                up = self.up(x)
+            act = F.silu(gate) if mlp == "swiglu" else F.gelu(gate, approximate="tanh")
+            h = act * up
         else:
-            h = F.gelu(h, approximate="tanh" if self.config.mlp == "gelu" else "none")
+            with checkpoint_name("proj"):
+                h = self.up(x)
+            if mlp == "relu":
+                h = F.relu(h)
+            else:
+                h = F.gelu(h, approximate="tanh" if mlp == "gelu" else "none")
         with checkpoint_name("proj"):
             y = self.down(h)
         if dropout_gen is not None:
@@ -1058,7 +1140,9 @@ class BlockStack(nn.Module):
 
 
 class Embedding(nn.Module):
-    """Token plus learned positional embedding, in ``config.dtype``.
+    """Token plus learned positional embedding, in ``config.dtype``; the
+    token embedding alone unless ``positional="learned"`` (rope rotates q
+    and k inside :class:`Attention`, and there is no ``pos`` table).
 
     Both lookups are flax's: a negative index ``i`` reads row ``i + rows``
     (ragged prefill's pad positions, -1, read the table's last row; the
@@ -1078,18 +1162,21 @@ class Embedding(nn.Module):
         self.mesh = mesh
         self.tok = nn.Embedding(config.vocab_size, config.d_model,
                                 dtype=config.dtype, device=device)
-        self.pos = nn.Embedding(config.seq_len, config.d_model,
-                                dtype=config.dtype, device=device)
+        if config.positional == "learned":
+            self.pos = nn.Embedding(config.seq_len, config.d_model,
+                                    dtype=config.dtype, device=device)
 
     def forward(self, tokens, positions=None) -> torch.Tensor:
+        emb = self.tok(_wrap(tokens, self.config.vocab_size))
+        if self.config.positional != "learned":
+            return emb
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device)
             if seq_parallel_active(self.config, self.mesh):
                 positions = positions + axis_group(self.mesh, self.config.seq_axis)[2] * \
                     tokens.shape[1]
             positions = positions.expand_as(tokens)
-        return self.tok(_wrap(tokens, self.config.vocab_size)) + \
-            self.pos(_wrap(positions, self.config.seq_len))
+        return emb + self.pos(_wrap(positions, self.config.seq_len))
 
 
 def _wrap(index: torch.Tensor, size: int) -> torch.Tensor:

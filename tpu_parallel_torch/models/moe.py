@@ -203,36 +203,54 @@ def _gather_tokens(y_slots: torch.Tensor, slots: torch.Tensor,
 
 class _ExpertDense(nn.Module):
     """``n`` stacked dense layers: ``kernel`` [n, in, out] (flax's layout,
-    one ``baddbmm`` per call) and ``bias`` [n, out], in ``dtype``."""
+    one ``baddbmm`` per call, or ``bmm`` without a bias) and ``bias`` [n,
+    out], in ``dtype``."""
 
-    def __init__(self, n: int, in_features: int, out_features: int, dtype, device):
+    def __init__(self, n: int, in_features: int, out_features: int, dtype, device,
+                 bias: bool = True):
         super().__init__()
         self.kernel = nn.Parameter(torch.empty(n, in_features, out_features, dtype=dtype,
                                                device=device))
-        self.bias = nn.Parameter(torch.zeros(n, out_features, dtype=dtype, device=device))
+        self.bias = nn.Parameter(torch.zeros(n, out_features, dtype=dtype, device=device)) \
+            if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.bias is None:
+            return torch.bmm(x, self.kernel)
         return torch.baddbmm(self.bias[:, None, :], x, self.kernel)
 
 
 class ExpertFFN(nn.Module):
     """``E_local`` experts, each the transformer FFN ``down(gelu(up(x)))``
-    (gelu's tanh form, as JAX's ``ExpertFFN`` whatever ``config.mlp``), on
-    ``[E_local, C, d]``.  Both products run inside the ``"proj"`` scope,
+    (gelu's tanh form), or under ``mlp="swiglu"`` ``down(silu(gate(x)) *
+    up(x))`` with bias-free ``gate`` and ``up``, as JAX's ``ExpertFFN``
+    (every other ``config.mlp`` takes the gelu form there too), on
+    ``[E_local, C, d]``.  The products run inside the ``"proj"`` scope,
     so ``"proj"`` and ``"proj_attn"`` keep them as the dense MLP's."""
 
     def __init__(self, config, n_experts: int, device=None):
         super().__init__()
         hidden = config.mlp_ratio * config.d_model
-        self.up = _ExpertDense(n_experts, config.d_model, hidden, config.dtype, device)
+        self.swiglu = config.mlp == "swiglu"
+        if self.swiglu:
+            self.gate = _ExpertDense(n_experts, config.d_model, hidden, config.dtype, device,
+                                     bias=False)
+        self.up = _ExpertDense(n_experts, config.d_model, hidden, config.dtype, device,
+                               bias=not self.swiglu)
         self.down = _ExpertDense(n_experts, hidden, config.d_model, config.dtype, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         from tpu_parallel_torch.models.layers import checkpoint_name  # layers imports this module
 
-        with checkpoint_name("proj"):
-            h = self.up(x)
-        h = F.gelu(h, approximate="tanh")
+        if self.swiglu:
+            with checkpoint_name("proj"):
+                gate = self.gate(x)
+                up = self.up(x)
+            h = F.silu(gate) * up
+        else:
+            with checkpoint_name("proj"):
+                h = self.up(x)
+            h = F.gelu(h, approximate="tanh")
         with checkpoint_name("proj"):
             return self.down(h)
 
@@ -266,8 +284,9 @@ class MoEMLP(nn.Module):
         self.router = nn.Linear(config.d_model, n_experts, bias=False, dtype=torch.float32,
                                 device=device)
         self.experts = ExpertFFN(config, self.local_experts, device)
-        for dense in (self.experts.up, self.experts.down):
-            shard_module(dense, {"kernel": 0, "bias": 0}, config.model_axis, mesh)
+        for dense in self.experts.children():
+            shard_module(dense, {n: 0 for n in ("kernel", "bias") if getattr(dense, n) is not None},
+                         config.model_axis, mesh)
 
     def forward(self, x: torch.Tensor, dropout_gen: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:

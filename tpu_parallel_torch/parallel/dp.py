@@ -107,7 +107,7 @@ def broadcast_state(state: TrainState, *, data_axis: str = "data", mesh=None) ->
     left as they are.  Nothing to do on an axis of size 1."""
     bound = axis_group(mesh, data_axis)
     names = [n for n in state.params
-             if n not in state.shards or state.shards[n].axis != data_axis]
+             if n not in state.shards or data_axis not in state.shards[n].axes]
     if bound is None or bound[1] == 1 or not names:
         return state
     group = bound[0]

@@ -26,6 +26,20 @@ on the mesh's axis (:meth:`ShardInfo.dtensor`), which
 ``core/optim.py:global_norm_sharded`` and ``torch.distributed.checkpoint``
 read.  An unbound axis (no mesh) is the identity: an FSDP config on one
 device runs on plain tensors.
+
+Over a mesh with a model axis above 1 (``llama_1b_3d``'s data x model x
+pipe), a tensor-parallel parameter is already this rank's model slice
+(``parallel/tp.py`` tags it with a model-axis ``ShardInfo``).  FSDP splits
+that slice again, by JAX's rule applied to the slice's own shape (JAX runs
+``shard_params`` on the local, TP-stacked leaf), so the data split can land
+on the dim that the model axis already split: a data rank then holds a
+sub-block of its model rank's block, at global offset ``model_idx * n / tp
++ data_idx * n / (tp * dp)``.  The parameter's tag is then a nested
+``ShardInfo`` (the data split, with the model split as its ``outer``); its
+``DTensor`` is placed ``Shard`` on both axes, or, where both split the same
+dim, ``_StridedShard`` on the data axis (a model-major nesting).  The
+gather and its reduce-scatter run over the data axis only, between the
+data slice and the model slice.
 """
 
 from __future__ import annotations
@@ -62,7 +76,10 @@ _reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_sc
 class ShardInfo:
     """Where a sharded parameter's slices live: torch dim ``dim`` of
     ``full_shape`` split evenly over mesh axis ``axis`` (``size`` ranks,
-    this one at ``index``, its ``group``)."""
+    this one at ``index``, its ``group``).  A nested split (FSDP over a
+    tensor-parallel slice) has the split it refines as ``outer``:
+    ``full_shape`` is then ``outer``'s local shape, and
+    :attr:`global_shape` the full weight's."""
 
     mesh: Any
     axis: str
@@ -71,6 +88,7 @@ class ShardInfo:
     size: int
     index: int
     group: Any
+    outer: Optional["ShardInfo"] = None
 
     @property
     def local_shape(self) -> Tuple[int, ...]:
@@ -78,37 +96,87 @@ class ShardInfo:
         shape[self.dim] //= self.size
         return tuple(shape)
 
-    def local(self, full: torch.Tensor) -> torch.Tensor:
-        """This rank's slice of a full tensor (a view)."""
+    @property
+    def global_shape(self) -> Tuple[int, ...]:
+        """The full weight's shape (before every split)."""
+        return self.full_shape if self.outer is None else self.outer.global_shape
+
+    @property
+    def axes(self) -> Tuple[str, ...]:
+        """The mesh axes the parameter is split over, outermost first."""
+        return (self.axis,) if self.outer is None else self.outer.axes + (self.axis,)
+
+    def narrow(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of ``full`` at :attr:`full_shape` (a view)."""
         if tuple(full.shape) != self.full_shape:
             raise ValueError(f"shape {tuple(full.shape)}, the sharded parameter's is "
                              f"{self.full_shape}")
         n = self.full_shape[self.dim] // self.size
         return full.narrow(self.dim, self.index * n, n)
 
+    def local(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of the full weight (at :attr:`global_shape`;
+        a view), through every split."""
+        return self.narrow(full if self.outer is None else self.outer.local(full))
+
+    def placements(self) -> list:
+        """The ``DTensor`` placements, one per mesh dim: ``Shard`` on each
+        split axis, ``_StridedShard`` on this one when it refines the same
+        dim as ``outer`` and stands before ``outer``'s axis in the mesh
+        (``DTensor`` splits in mesh order, the model-major nesting needs the
+        stride), ``Replicate`` elsewhere."""
+        from torch.distributed.tensor import Replicate, Shard
+
+        names = list(self.mesh.mesh_dim_names)
+        out = [Replicate() for _ in names]
+        info = self
+        while info is not None:
+            outer = info.outer
+            if (outer is not None and outer.dim == info.dim
+                    and names.index(info.axis) < names.index(outer.axis)):
+                from torch.distributed.tensor.placement_types import _StridedShard
+
+                out[names.index(info.axis)] = _StridedShard(info.dim, split_factor=outer.size)
+            else:
+                out[names.index(info.axis)] = Shard(info.dim)
+            info = outer
+        return out
+
     def dtensor(self, local: torch.Tensor):
-        """``local`` as a ``DTensor`` placed ``Shard(dim)`` on the axis and
-        replicated on the mesh's other axes (no copy: a tensor on another
-        device type than the mesh's raises, as ``from_local`` would move
-        it and in-place updates through the view would be lost)."""
-        from torch.distributed.tensor import DTensor, Replicate, Shard
+        """``local`` as a ``DTensor`` placed by :meth:`placements` (no copy:
+        a tensor on another device type than the mesh's raises, as
+        ``from_local`` would move it and in-place updates through the view
+        would be lost)."""
+        from torch.distributed.tensor import DTensor
 
         if local.device.type != self.mesh.device_type:
             raise ValueError(f"a {local.device.type} shard on a {self.mesh.device_type} mesh: "
                              "make the mesh on the parameters' device type")
-        placements = [Shard(self.dim) if name == self.axis else Replicate()
-                      for name in self.mesh.mesh_dim_names]
-        return DTensor.from_local(local, self.mesh, placements, run_check=False)
+        return DTensor.from_local(local, self.mesh, self.placements(), run_check=False)
 
-    def spec(self) -> Tuple[Optional[str], ...]:
-        """The partition spec in torch's dims: the axis name at ``dim``."""
-        return tuple(self.axis if d == self.dim else None for d in range(len(self.full_shape)))
+    def spec(self) -> Tuple[Any, ...]:
+        """The partition spec in torch's dims: the axis name at each split
+        dim, a tuple of names (outermost first) where two split one dim."""
+        spec: List[Any] = [None] * len(self.full_shape)
+        for axis, dim in zip(self.axes, self._dims()):
+            spec[dim] = axis if spec[dim] is None else (spec[dim], axis)
+        return tuple(spec)
+
+    def _dims(self) -> Tuple[int, ...]:
+        return (self.dim,) if self.outer is None else self.outer._dims() + (self.dim,)
 
 
 def shard_info(param: torch.Tensor) -> Optional[ShardInfo]:
     """The :class:`ShardInfo` of a sharded module parameter (None when it
     is replicated)."""
     return getattr(param, "_fsdp_shard", None)
+
+
+def is_shard_placement(placement) -> bool:
+    """True for a ``DTensor`` placement that splits a dim: ``Shard``, and
+    the nested ``_StridedShard`` (which some torch versions do not count
+    as a ``Shard``)."""
+    return placement.is_shard() or type(placement).__name__ == "_StridedShard"
 
 
 def sharded_axes(leaf) -> Tuple[str, ...]:
@@ -118,7 +186,7 @@ def sharded_axes(leaf) -> Tuple[str, ...]:
     if placements is None:
         return ()
     names = leaf.device_mesh.mesh_dim_names
-    return tuple(names[i] for i, p in enumerate(placements) if p.is_shard())
+    return tuple(names[i] for i, p in enumerate(placements) if is_shard_placement(p))
 
 
 def _local(leaf) -> torch.Tensor:
@@ -240,11 +308,15 @@ def shard_params(params: Dict[str, torch.Tensor], axis_name: str,
 
 
 def _info_of_dtensor(leaf, axis_name: str) -> ShardInfo:
+    """The split of ``leaf`` (a ``DTensor``) over ``axis_name`` alone: its
+    local tensor's shape times the axis size at the split dim."""
     mesh = leaf.device_mesh
     names = mesh.mesh_dim_names
     dim = leaf.placements[names.index(axis_name)].dim
     group, size, index = axis_group(mesh, axis_name)
-    return ShardInfo(mesh, axis_name, dim, tuple(leaf.shape), size, index, group)
+    shape = list(leaf.to_local().shape)
+    shape[dim] *= size
+    return ShardInfo(mesh, axis_name, dim, tuple(shape), size, index, group)
 
 
 def gather_params(params: Dict[str, Any], axis_name: str) -> Dict[str, Any]:
@@ -262,24 +334,29 @@ def gather_params(params: Dict[str, Any], axis_name: str) -> Dict[str, Any]:
 
 class _FSDPUnit:
     """One wrapped module: its sharded parameters (owner module, attribute,
-    info) and the hooks that gather them around the module's forward."""
+    info) and the hooks that gather them around the module's forward.  A
+    parameter already split over another axis (a tensor-parallel slice) is
+    split again by JAX's rule on its local shape, the tag nesting the two
+    (the gather then restores the tensor-parallel slice)."""
 
     def __init__(self, module: nn.Module, axis_name: str, min_weight_size: int, mesh, bound):
         group, size, index = bound
         self.entries: List[Tuple[nn.Module, str, ShardInfo]] = []
         for owner_name, owner in module.named_modules():
             for attr, p in list(owner.named_parameters(recurse=False)):
-                if shard_info(p) is not None:
-                    logger.warning("parameter %s.%s already partitioned; skipping",
-                                   owner_name, attr)
+                outer = shard_info(p)
+                if outer is not None and axis_name in outer.axes:
+                    logger.warning("parameter %s.%s already partitioned on %s; skipping",
+                                   owner_name, attr, axis_name)
                     continue
                 transposed = isinstance(owner, nn.Linear) and attr == "weight"
                 dim = shard_dim(p.shape, size, min_weight_size, transposed)
                 if dim is None:
                     continue
-                info = ShardInfo(mesh, axis_name, dim, tuple(p.shape), size, index, group)
+                info = ShardInfo(mesh, axis_name, dim, tuple(p.shape), size, index, group,
+                                 outer=outer)
                 with torch.no_grad():
-                    local = nn.Parameter(info.local(p.detach()).clone(),
+                    local = nn.Parameter(info.narrow(p.detach()).clone(),
                                          requires_grad=p.requires_grad)
                 local._fsdp_shard = info
                 owner._parameters[attr] = local

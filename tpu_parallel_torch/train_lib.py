@@ -34,9 +34,10 @@ parallelism (a seq axis above 1 with ``attn_impl`` ``"ring"`` or
 ``batch_spec`` ``("data", "seq")``, and gradients are synced over
 ``("data", "seq", "model")``).
 
-Not in the port yet, each raising when asked for: the MLM objective (and
-the seq2seq family; ROADMAP queue A item 6) and FSDP together with a
-model axis above 1 (item 6, ``llama_1b_3d``).
+FSDP together with a model axis above 1 (``llama_1b_3d``) splits each
+tensor-parallel slice again over the data axis.  Not in the port yet,
+raising when asked for: the MLM objective (and the seq2seq family;
+ROADMAP queue A item 6).
 """
 
 from __future__ import annotations
@@ -58,7 +59,7 @@ from tpu_parallel_torch.core.optim import (SGD, AddDecayedWeights, AdamW, Chain,
 from tpu_parallel_torch.core.state import TextBatch, TrainState, get_num_params
 from tpu_parallel_torch.data import lm_batch
 from tpu_parallel_torch.models.convert import init_params
-from tpu_parallel_torch.models.gpt import (GPTConfig, GPTLM, gpt2_125m, gpt2_350m,
+from tpu_parallel_torch.models.gpt import (GPTConfig, GPTLM, gpt2_125m, gpt2_350m, llama_1b,
                                            make_gpt_1f1b_grad_fn, make_gpt_loss, tiny_test)
 from tpu_parallel_torch.obs.registry import MetricRegistry
 from tpu_parallel_torch.obs.tracer import NULL_TRACER, Tracer
@@ -71,6 +72,7 @@ from tpu_parallel_torch.utils.profiling import mfu
 MODEL_REGISTRY: Dict[str, Callable[..., GPTConfig]] = {
     "gpt2_125m": gpt2_125m,
     "gpt2_350m": gpt2_350m,
+    "llama_1b": llama_1b,
     "tiny": tiny_test,
 }
 
@@ -295,7 +297,9 @@ class Trainer:
         # under a mesh, rank 0 of the group writes checkpoints and every
         # rank waits for the write at a barrier
         self._group = dist.group.WORLD if mesh is not None else None
-        self.model = GPTLM(self.model_config, device=self.device, seed=config.seed, mesh=mesh)
+        # the seeded weights are drawn once, by init (or restored): the
+        # model starts with its modules' own values
+        self.model = GPTLM(self.model_config, device=self.device, seed=None, mesh=mesh)
         self.tx = make_optimizer(config)
         self.loss_fn = make_gpt_loss(self.model_config, mesh=mesh)
         grad_fn = None
