@@ -7,9 +7,11 @@ parallelism (a process group, a mesh, synced gradients), FSDP (sharded
 parameters, state and checkpoints), tensor parallelism, pipeline
 parallelism on GPT-2 350M, sequence parallelism (ring and Ulysses
 attention) at 32k context, mixture of experts with expert
-parallelism (``gpt2_moe_ep``), and the Llama family (``llama_1b`` served
+parallelism (``gpt2_moe_ep``), the Llama family (``llama_1b`` served
 and trained on one device, ``llama_1b_3d``'s FSDP x TP x PP over eight
-ranks), at full width.
+ranks), and the bidirectional encoder (``bert_base`` served, trained on
+the masked-LM objective and fine-tuned as a classifier, with the
+HuggingFace interop of ``models/hf.py``), at full width.
 
     python3 chip_smoke.py
 
@@ -18,8 +20,10 @@ are built from ``tpu_parallel_torch/csrc`` at first use, one ``nvcc`` per
 source, all started together).  Phases, in order; any failure raises:
 
 1. setup: card name and power limit, versions, kernel builds and ``ptxas``;
-2. ``flash_fwd`` kernel against ``flash_fwd_reference`` at shapes (a)-(g)
-   and the training pass's shape, in both layouts: the main path's (q, k, v
+2. ``flash_fwd`` kernel against ``flash_fwd_reference`` at shapes (a)-(g),
+   the training pass's shape and (h) ``bert_base``'s 32 padded requests
+   [32, 512] x 12 heads, non-causal over padding segments (lengths 64-512
+   from the seed; with the planted P.V fault), in both layouts: the main path's (q, k, v
    views of a fused [B, S, H, 3D] qkv buffer, or q and views of a
    [B, S, H_KV, 2D] kv buffer under GQA; out written [B, S, H, D]) and the
    JAX layout [B, H, S, D], whose outputs must be bitwise equal; the
@@ -27,7 +31,7 @@ source, all started together).  Phases, in order; any failure raises:
    turns (kernel, SDPA, SDPA, kernel; medians), the [B, H, S, D] layout's
    and the plain version's times, and the bound;
 2b. ``flash_bwd`` (one pass for dq, dk and dv) against
-   ``flash_bwd_reference`` at shapes (a)-(g) and the training pass's shape,
+   ``flash_bwd_reference`` at shapes (a)-(h) and the training pass's shape,
    row by row, dq exactly 0 on empty rows; the kernel's time and SDPA's
    backward time taken in turns (kernel, SDPA, SDPA, kernel; medians), the
    plain version's time and the one-pass bound; at (a), planted faults that
@@ -339,12 +343,12 @@ source, all started together).  Phases, in order; any failure raises:
    0's input, [2, 128] in fp32, at capacity factors 1.25 and 0.5 (the
    same slots exactly, outputs within 1e-5).  (b) a one-process reference
    with every expert (run in this process) at ``MOE_STEP_LAYERS`` (4 of
-   the 12 layers; (a) and the fp32 pass below run all 12): 4 steps (the first at
+   the 12 layers; (a) and the fp32 pass below run all 12): 3 steps (the first at
    learning rate 0), its step-1 synced gradients and every step's expert
    choices kept, the dropped share of a forward's choices under the dense
    dispatch and the all-to-all's quota.  Then four gloo ranks sharing the
    card on a data=1 x model=4 mesh (2 experts and 3 heads per rank): (c)
-   the dense dispatch on (b)'s expert choices, 4 counted steps on one
+   the dense dispatch on (b)'s expert choices, 3 counted steps on one
    seeded batch with losses within ``LOSS_TOL`` of (b)'s, the step-1
    synced gradients within ``TRAIN_GRAD_TOL`` per weight of (b)'s,
    replicated masters bitwise equal across the ranks, 4/4 launches and
@@ -404,6 +408,33 @@ source, all started together).  Phases, in order; any failure raises:
    pipe 1 at 2 layers, 8 rows, 2 steps (started with the CLI batch at
    phase 9, collected in phase 12): exit 0 on every rank, 2 launches of each kernel per
    step, finite losses equal on every rank.
+19. the bidirectional encoder: ``bert_base`` (12 layers, d 768, 12 heads
+   of 64, seq 512, vocab 30592, bf16, flash through the non-causal chunk
+   form; seeded).  Both kernels at (b)'s training shape [64, 512] x 12
+   heads against the plain versions, timed in turns with SDPA (phase 2's
+   row (h) is (a)'s).  (a) serving: a forward over 32 padded requests of
+   512 tokens with an MLM mask, 12 ``flash_fwd`` launches, the MLM loss
+   within ``LOSS_TOL`` of the xla path's, the logits token by token by the
+   row rule (``LLAMA_LOGITS_ROW_TOL``) and within ``LOGITS_TOL`` against the
+   xla path with fp32 attention (V's second half zeroed in every layer's
+   kernel call must fail the rule), the pads' tokens changed leaving the
+   real positions' logits bitwise as they were; forward ms and tokens/s.
+   (b) training: the ``Trainer`` on ``bert_base_mlm`` at its 64 x 512 in
+   one minibatch, 4 steps (warm-up 1), step-1 gradients flash against xla
+   on one mask within ``TRAIN_GRAD_TOL`` per weight, 12/12 launches per
+   step, a falling loss; state bytes, peak memory, step ms, tokens/s, MFU.
+   (c) ``bert_base_hf`` (post-norm, the embedding LayerNorm) under
+   ``EncoderClassifier``: seeded weights through ``to_hf_bert`` then
+   ``from_hf_bert`` bitwise, 32 padded requests classified (pools "first"
+   and "mean") against the xla path, 4 fine-tune steps of
+   ``make_classification_loss`` with a falling loss.  (d) ``models/hf.py``:
+   GPT-2 125M through ``to_hf_gpt2`` then ``from_hf_gpt2`` bitwise, greedy
+   ``generate()`` on 4 prompts equal to the original weights' tokens;
+   ``llama_1b``'s width at 2 layers through the Llama pair, bitwise.  (e)
+   ``tpu_parallel_torch.train``'s ``main`` on ``--config=bert_base_mlm`` at
+   2 layers, 8 rows, 2 steps (started with the CLI batch at phase 9,
+   collected in phase 12): exit 0, 2 launches of each kernel per step,
+   finite losses.
 
 Weights and inputs are made from ``SEED``.  The kernel launch counters are
 set to 0 before each main path (phases 3-4: inference; phase 6's steps:
@@ -413,7 +444,8 @@ subprocesses; phase 14's CLI leg and its leg (b)'s steps; phase 15's CLI
 leg and its leg (b)'s steps; phase 16's CLI leg and the steps of its
 legs (b) and (c) in every rank; phase 17 (a)'s forward and the steps of
 (c) and (d) in every rank; phase 18 (a)'s forward and ``generate()``, (b)'s
-steps, (c)'s steps in every rank and (d)'s CLI) and read after it.  The last two lines
+steps, (c)'s steps in every rank and (d)'s CLI; phase 19 (a)'s forward, (b)'s
+steps and (e)'s CLI) and read after it.  The last two lines
 are the ``kernels`` JSON object and the ``{"ok": true, ...}`` line.
 """
 
@@ -649,8 +681,14 @@ def kernel_phase(seed):
     """Phase 2: the kernel against its plain version at shapes (a)-(g), in
     the main path's layout and in [B, H, S, D]."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    return {name: fwd_kernel_row(name, shape, gen)
+    rows = {name: fwd_kernel_row(name, shape, gen)
             for name, shape in {**SHAPES, "t_train_pass": TRAIN_SHAPE}.items()}
+    # bert_base's padded requests (phase 19 (a)): non-causal over padding
+    # segments, with the planted P.V fault
+    rows["h_bert_padded"] = fwd_kernel_row(
+        "h_bert_padded", BERT_SHAPE, gen, plant=True,
+        seg=_bert_padding(BERT_ROWS, torch.Generator().manual_seed(seed + 197)))
+    return rows
 
 
 def _plain_fwd(q, k, v, seg, kw, split=1):
@@ -777,8 +815,12 @@ def backward_kernel_phase(seed):
     """Phase 2b: the backward kernel against its plain version at shapes
     (a)-(g) and the training pass's shape."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 10)
-    return {name: bwd_kernel_row(name, shape, gen)
+    rows = {name: bwd_kernel_row(name, shape, gen)
             for name, shape in {**SHAPES, "t_train_pass": TRAIN_SHAPE}.items()}
+    rows["h_bert_padded"] = bwd_kernel_row(
+        "h_bert_padded", BERT_SHAPE, gen, main_path=True,
+        seg=_bert_padding(BERT_ROWS, torch.Generator().manual_seed(seed + 197)))
+    return rows
 
 
 def bwd_kernel_row(name, shape, gen, seg=None, main_path=None, plain_split=1):
@@ -2923,7 +2965,7 @@ EOS_ID = 50256  # GPT-2's <|endoftext|>
 FIT_STEPS, RESUME_STEPS, ROLLBACK_STEPS, FAIL_AT = 8, 10, 12, 9
 FIT_EVERY = 4  # checkpoint_every and eval_every of the packed fit
 SHELL_WARMUP = 2  # warmup_steps of phase 11's short runs (the configs' own are 10-100)
-SHELL_STEPS = 4  # steps of the optimizer, EMA and dropout legs
+SHELL_STEPS = 3  # steps of the optimizer, EMA and dropout legs (4 until phase 19)
 TIMED_STEPS = 4  # timed steps, packed against flat and at 8k
 # lion's and sgd's learning rates on the corpus config: lion's sign steps
 # move every weight by the whole rate (its authors take 3-10x below AdamW's;
@@ -3073,6 +3115,22 @@ def _step_profile(fn):
                 kernel_share=(fwd + bwd) / busy if busy else None)
 
 
+def _rel_by_name(got, want, cfg):
+    """Relative L2 error per weight of two gradient dicts (the key slice of
+    the qkv bias left out: zero in exact arithmetic); (worst, name),
+    median."""
+    dh = cfg.head_dim
+    not_key = (torch.arange(3 * cfg.d_model, device="cuda") % (3 * dh)) // dh != 1
+    rel = {}
+    for n, w in want.items():
+        g, w = got[n].float(), w.float()
+        if n.endswith("attn.qkv.bias"):
+            g, w = g[not_key], w[not_key]
+        rel[n] = ((g - w).norm() / w.norm().clamp(min=1e-30)).item()
+    worst = max(rel, key=rel.get)
+    return (rel[worst], worst), sorted(rel.values())[len(rel) // 2]
+
+
 def _grad_rel(model_a, model_b, loss_a, loss_b, batch, gen_a=None, gen_b=None):
     """Loss difference and the worst per-weight relative L2 gradient error
     of two models (the same weights) on one minibatch; the key slice of the
@@ -3083,17 +3141,8 @@ def _grad_rel(model_a, model_b, loss_a, loss_b, batch, gen_a=None, gen_b=None):
         loss.backward()
         grads.append((loss.item(), {n: p.grad.float() for n, p in model.named_parameters()}))
         model.zero_grad(set_to_none=True)
-    cfg = model_a.config
-    dh = cfg.head_dim
-    not_key = (torch.arange(3 * cfg.d_model, device="cuda") % (3 * dh)) // dh != 1
-    rel = {}
-    for n, g_b in grads[1][1].items():
-        g_a = grads[0][1][n]
-        if n.endswith("attn.qkv.bias"):
-            g_a, g_b = g_a[not_key], g_b[not_key]
-        rel[n] = ((g_a - g_b).norm() / g_b.norm().clamp(min=1e-30)).item()
-    worst = max(rel, key=rel.get)
-    return abs(grads[0][0] - grads[1][0]), rel[worst], worst
+    (worst, name), _ = _rel_by_name(grads[0][1], grads[1][1], model_a.config)
+    return abs(grads[0][0] - grads[1][0]), worst, name
 
 
 def _same_weights(model, config):
@@ -3337,7 +3386,7 @@ def long_leg(seed, corpus):
 
 
 def optimizer_leg(seed, batch, eval_batches):
-    """(e) and (f): lion, sgd, an EMA shadow and dropout, 4 steps each on
+    """(e) and (f): lion, sgd, an EMA shadow and dropout, SHELL_STEPS steps each on
     one packed batch; EMA evaluation against a plain forward on the EMA
     weights; dropout's mask reproduced under remat and "dots" against
     "proj_attn", with each policy's peak memory and ms."""
@@ -3372,7 +3421,7 @@ def optimizer_leg(seed, batch, eval_batches):
     state = trainer.state
     drift = max((state.ema_params[n] - p).abs().max().item() for n, p in state.params.items())
     if drift == 0:
-        raise AssertionError("the EMA shadow equals the masters after 4 steps")
+        raise AssertionError(f"the EMA shadow equals the masters after {SHELL_STEPS} steps")
     before = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
     got = trainer.evaluate(batch_iter=iter(eval_batches), steps=len(eval_batches))
     if not all(torch.equal(p, before[n]) for n, p in trainer.model.named_parameters()):
@@ -4204,7 +4253,7 @@ def dp_cli_check(collected):
 
 
 def cli_batch(work):
-    """Launch leg (c) and phases 13-18's CLI legs together, in the
+    """Launch leg (c) and phases 13-19's CLI legs together, in the
     directory ``work``, on all but the first MAIN_CORES of the host cores
     this process may run on (all of them on a host with fewer than twice
     as many): ``{name: (launched, metrics)}`` for :func:`dp_phase`."""
@@ -4214,7 +4263,8 @@ def cli_batch(work):
     cores = set(cores[MAIN_CORES:] if len(cores) >= 2 * MAIN_CORES else cores)
     return dict(dp=dp_cli_leg(work, cores), fsdp=fsdp_cli_leg(work, cores),
                 tp=tp_cli_leg(work, cores), pp=pp_cli_leg(work, cores),
-                sp=sp_cli_leg(work, cores), llama=llama_cli_leg(work, cores))
+                sp=sp_cli_leg(work, cores), llama=llama_cli_leg(work, cores),
+                bert=bert_cli_leg(work, cores))
 
 
 def dp_phase(smi, work, clis):
@@ -6653,7 +6703,9 @@ def sp_phase(smi, work, cli_collected):
 # same ranks with the all-to-all dispatch.
 MOE_RANKS = 4
 MOE_ROWS = 8  # global batch (the config has 64): every rank of the model axis runs all rows
-MOE_STEPS = 4  # step 1's learning rate is 0 (warm-up): the losses cover 2 updates
+# step 1's learning rate is 0 (warm-up): the losses cover 1 update (4 steps
+# and 2 updates until phase 19 needed the run's time)
+MOE_STEPS = 3
 MOE_SHAPE = (MOE_ROWS, 3, 3, 1024, 64, dict(causal=True), False, 20)  # one rank's flash shape
 MOE_PROMPT_LENS = (32, 20, 27, 12)  # (a)'s ragged prompts, left-padded to 32
 MOE_NEW = 16  # new tokens per prompt in (a)
@@ -8411,6 +8463,487 @@ def llama_phase(smi, work, cli_collected):
                  phase_s=phase_s, legs_s=legs_s), rows, launches)
 
 
+BERT_ROWS = 32  # (a)'s padded requests and (c)'s
+BERT_SEQ = 512  # bert_base's seq_len
+BERT_MIN_LEN = 64  # real tokens per padded request: 64-512, drawn from the seed
+# the kernels at bert_base's shapes, non-causal: (a)'s padded requests and
+# (b)'s training minibatch of bert_base_mlm's 64 rows
+BERT_SHAPE = (BERT_ROWS, 12, 12, BERT_SEQ, 64, dict(causal=False), False, 20)
+BERT_TRAIN_SHAPE = (64, 12, 12, BERT_SEQ, 64, dict(causal=False), False, 20)
+BERT_STEPS = 4  # (b)
+BERT_WARMUP = 1  # (b): step 1's rate is 0, steps 2-4 update
+BERT_CLASSES = 2  # (c)
+BERT_CLS_STEPS = 4  # (c)
+BERT_CLS_LR = 1e-4  # (c): constant
+BERT_PROMPTS = (32, 20, 27, 12)  # (d)'s ragged GPT-2 prompts, left-padded to 32
+BERT_NEW = 16  # (d): new tokens per prompt
+BERT_LLAMA_LAYERS = 2  # (d): llama_1b's width at 2 layers
+BERT_CLI_LAYERS = 2  # (e)
+BERT_CLI_STEPS = 2  # (e)
+
+
+def _bert_padding(rows, gen):
+    """Padding segment ids [rows, BERT_SEQ] int32 on the card: each row's
+    first n tokens real (segment 0), the rest pads (segment 1), n drawn in
+    BERT_MIN_LEN..BERT_SEQ from ``gen`` (a CPU generator)."""
+    lengths = torch.randint(BERT_MIN_LEN, BERT_SEQ + 1, (rows, 1), generator=gen)
+    return (torch.arange(BERT_SEQ)[None] >= lengths).to(torch.int32).cuda()
+
+
+def _attn_impl(model, config):
+    """Every block's attention of ``model`` runs ``config`` (its
+    ``attn_impl``): the same weights through another path."""
+    for block in model.blocks.children():
+        block.attn.config = config
+
+
+def bert_serve_leg(seed):
+    """(a): ``bert_base`` (bf16, flash) at full width and depth serving
+    BERT_ROWS padded requests of BERT_SEQ tokens with an MLM mask: the
+    forward (12 ``flash_fwd`` launches, the non-causal kernel over padding
+    segments) against the same weights under ``attn_impl="xla"``: the MLM
+    loss within LOSS_TOL, the logits token by token by the row rule against
+    the xla path with fp32 attention (V's second half zeroed in every
+    layer's kernel call must fail it); the pads' tokens changed, the real
+    positions' logits bitwise unchanged.  Forward ms and tokens/s.
+    Returns the report and the seeded draws (for (b))."""
+    from tpu_parallel_torch.core.losses import token_cross_entropy
+    from tpu_parallel_torch.models import GPTLM, layers
+    from tpu_parallel_torch.models.convert import init_params
+    from tpu_parallel_torch.models.gpt import bert_base, mlm_mask
+    from tpu_parallel_torch.ops import flash_attention as fa
+
+    cfg = bert_base(attn_impl="flash")
+    t0 = time.perf_counter()
+    model = GPTLM(cfg, device="cuda", seed=None).eval()
+    draws = init_params(model, seed)
+    torch.cuda.synchronize()
+    out = dict(build_s=time.perf_counter() - t0,
+               params=sum(p.numel() for p in model.parameters()))
+    gen = torch.Generator().manual_seed(seed + 190)
+    tokens = torch.randint(0, cfg.vocab_size - 1, (BERT_ROWS, BERT_SEQ), generator=gen).cuda()
+    seg = _bert_padding(BERT_ROWS, gen)
+    real = seg == 0
+    masked = mlm_mask(cfg, tokens, gen) & real
+    corrupted = torch.where(masked, cfg.vocab_size - 1, tokens)
+    xla = dataclasses.replace(cfg, attn_impl="xla")
+    with torch.inference_mode():
+        _reset_launches()  # the inference main path starts here
+        logits = model(corrupted, segment_ids=seg)
+        torch.cuda.synchronize()
+        out["inference_launches"] = fa.flash_fwd_launches  # and ends here
+        if out["inference_launches"] != cfg.n_layers or not torch.isfinite(logits).all():
+            raise AssertionError(f"(a): {out['inference_launches']} launches, finite "
+                                 f"{torch.isfinite(logits).all()}")
+        _attn_impl(model, xla)
+        want = model(corrupted, segment_ids=seg)
+        plain = layers.causal_attention
+        layers.causal_attention = lambda q, k, v, **kw: plain(q.float(), k.float(), v.float(),
+                                                              **kw).to(q.dtype)
+        try:
+            want32 = model(corrupted, segment_ids=seg)
+        finally:
+            layers.causal_attention = plain
+            _attn_impl(model, cfg)
+        got = logits.float().reshape(-1, logits.shape[-1])
+        ref = want32.float().reshape(-1, want32.shape[-1])
+        pick, flat = masked.reshape(-1), tokens.reshape(-1)
+        out["masked_tokens"] = int(pick.sum())
+        out["loss"] = token_cross_entropy(got[pick], flat[pick]).mean().item()
+        out["xla_loss"] = token_cross_entropy(want.float().reshape(-1, want.shape[-1])[pick],
+                                              flat[pick]).mean().item()
+        out["logits_max_abs_err"] = (got - ref).abs().max().item()
+        out["logits_rel_l2"] = ((got - ref).norm() / ref.norm()).item()
+        out["worst_row_ratio"] = row_error_ratio(got, ref, *LLAMA_LOGITS_ROW_TOL)
+        bf16 = want.float().reshape(-1, want.shape[-1])
+        out["xla_bf16_worst_row_ratio"] = row_error_ratio(bf16, ref, *LLAMA_LOGITS_ROW_TOL)
+        del want, want32, bf16
+        # the planted fault: V's second half of head_dim zeroed in every
+        # layer's kernel call; its launches do not count
+        real_fn, saved = layers.bidirectional_flash_attention, fa.flash_fwd_launches
+
+        def zeroed_v_half(q, k, v, *args, **kw):
+            v = v.clone()
+            v[..., v.shape[-1] // 2:] = 0
+            return real_fn(q, k, v, *args, **kw)
+
+        layers.bidirectional_flash_attention = zeroed_v_half
+        try:
+            bad = model(corrupted, segment_ids=seg).float().reshape(-1, ref.shape[-1])
+        finally:
+            layers.bidirectional_flash_attention = real_fn
+        out["planted_worst_row_ratio"] = row_error_ratio(bad, ref, *LLAMA_LOGITS_ROW_TOL)
+        del bad, ref
+        # other pad tokens: the real positions' logits must not move
+        other = torch.where(real, corrupted, torch.randint_like(corrupted, cfg.vocab_size - 1))
+        moved = model(other, segment_ids=seg)
+        fa.flash_fwd_launches = saved
+        out["pad_change_max_abs"] = (moved.float()[real] - logits.float()[real]).abs().max().item()
+        del moved, logits
+        if abs(out["loss"] - out["xla_loss"]) > LOSS_TOL or out["worst_row_ratio"] > 1 \
+                or out["logits_max_abs_err"] > LOGITS_TOL:
+            raise AssertionError(f"(a): the flash forward disagrees with the xla forward: {out}")
+        if out["planted_worst_row_ratio"] <= 1:
+            raise AssertionError(f"(a): the logits' row rule passes a planted fault: {out}")
+        if out["pad_change_max_abs"] != 0:
+            raise AssertionError(f"(a): changing pad tokens moved real positions' logits: {out}")
+        ms = host_ms(lambda: model(corrupted, segment_ids=seg), 3)
+        fa.flash_fwd_launches = saved
+    out.update(forward_ms=ms, tokens_per_s=BERT_ROWS * BERT_SEQ / (ms / 1e3),
+               real_tokens=int(real.sum()))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, draws
+
+
+def bert_train_leg(seed, card_name, draws):
+    """(b): the ``Trainer`` on ``bert_base_mlm`` (its global batch of 64 x
+    512 in one minibatch, flash, "proj_attn", AdamW, MLM at 15%) from (a)'s
+    seeded draws: one minibatch's loss and gradients flash against xla on
+    the same weights and the same mask (phase 6's rule), then BERT_STEPS
+    steps (warm-up BERT_WARMUP) on one seeded batch, each corrupting anew:
+    12 launches of each kernel per step, a falling loss; state bytes, peak
+    memory, step ms (steps 2 on), tokens/s and MFU."""
+    from tpu_parallel_torch.configs import get_config
+    from tpu_parallel_torch.core.metrics import compute
+    from tpu_parallel_torch.models.gpt import make_mlm_loss, mlm_mask
+    from tpu_parallel_torch.train_lib import Trainer, TrainerConfig, make_lr_schedule
+    from tpu_parallel_torch.utils.profiling import peak_flops, transformer_flops_per_token
+
+    d = get_config("bert_base_mlm")
+    config = TrainerConfig(model=d["model"], model_overrides=d["model_overrides"],
+                           objective=d["objective"], mlm_mask_rate=d["mlm_mask_rate"],
+                           global_batch_size=d["global_batch_size"],
+                           num_minibatches=d["num_minibatches"], steps=BERT_STEPS,
+                           warmup_steps=BERT_WARMUP, learning_rate=d["learning_rate"],
+                           weight_decay=d["weight_decay"], seed=seed, mesh=LLAMA_ONE)
+    lrs = [make_lr_schedule(config)(i) for i in range(BERT_STEPS)]
+    t0 = time.perf_counter()
+    trainer = Trainer(config, device="cuda")
+    state = trainer.init(draws)
+    torch.cuda.synchronize()
+    out = dict(build_s=time.perf_counter() - t0, lr_by_step=lrs)
+    cfg = trainer.model_config
+    batch = trainer.example_batch
+    mask = mlm_mask(cfg, batch.tokens, torch.Generator().manual_seed(seed + 191))
+    loss_fn = make_mlm_loss(cfg, mask_rate=config.mlm_mask_rate)
+    grads = {}
+    for name in ("flash", "xla"):
+        _attn_impl(trainer.model, dataclasses.replace(cfg, attn_impl=name))
+        loss, _ = loss_fn(trainer.model, batch, None, masked=mask)
+        loss.backward()
+        grads[name] = (loss.item(), {n: p.grad for n, p in trainer.model.named_parameters()})
+        trainer.model.zero_grad(set_to_none=True)
+    _attn_impl(trainer.model, cfg)
+    worst, median = _rel_by_name(grads["flash"][1], grads["xla"][1], cfg)
+    out.update(flash_loss=grads["flash"][0], xla_loss=grads["xla"][0], grad_rel_max=worst,
+               grad_rel_median=median)
+    del grads
+    if abs(out["flash_loss"] - out["xla_loss"]) > LOSS_TOL or worst[0] > TRAIN_GRAD_TOL:
+        raise AssertionError(f"(b): flash training gradients disagree with the xla path: {out}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()  # the training main path starts here
+    per_step, losses, step_ms = [], [], []
+    for _ in range(BERT_STEPS):
+        before = _launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = trainer.step_fn(state, None, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        per_step.append([a - b for a, b in zip(_launch_counts(), before)])
+        losses.append(compute(metrics)["loss"])
+    launches = dict(zip(LAUNCH_COUNTERS, _launch_counts()))
+    if per_step != [[cfg.n_layers] * 2] * BERT_STEPS:
+        raise AssertionError(f"(b): launches per step {per_step}, want {cfg.n_layers} of each")
+    _falls("(b)", losses)
+    timed = step_ms[1:]
+    tokens_per_s = config.global_batch_size * cfg.seq_len / (sum(timed) / len(timed) / 1e3)
+    peak = peak_flops(card_name)
+    flops = transformer_flops_per_token(cfg)
+    out.update(losses=losses, step_ms=step_ms, launches_per_step=per_step[0], launches=launches,
+               tokens_per_s=tokens_per_s, state_bytes=_state_bytes(state),
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               params=trainer.num_params, flops_per_token=flops,
+               mfu=tokens_per_s * flops / peak if peak else None)
+    del trainer, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def bert_classify_leg(seed):
+    """(c): ``bert_base_hf`` (post-norm, the embedding LayerNorm, erf gelu,
+    eps 1e-12) under ``EncoderClassifier``, seeded: its weights through
+    ``to_hf_bert`` then ``from_hf_bert`` bitwise equal; BERT_ROWS padded
+    requests classified with pool "first" and "mean", flash against xla
+    (the row rule and LOGITS_TOL); BERT_CLS_STEPS fine-tune steps of
+    ``make_classification_loss`` on them, a falling loss, the kernels'
+    launches per step."""
+    from tpu_parallel_torch.core.losses import make_classification_loss
+    from tpu_parallel_torch.core.metrics import compute
+    from tpu_parallel_torch.core.optim import AdamW
+    from tpu_parallel_torch.core.state import Batch
+    from tpu_parallel_torch.models.convert import init_params
+    from tpu_parallel_torch.models.gpt import EncoderClassifier, bert_base_hf
+    from tpu_parallel_torch.models.hf import from_hf_bert, to_hf_bert
+    from tpu_parallel_torch.parallel.spmd import build_train_functions, make_model_init
+
+    cfg = bert_base_hf(attn_impl="flash", remat_policy="proj_attn")
+    clf = EncoderClassifier(cfg, BERT_CLASSES, device="cuda", seed=None)
+    draws = init_params(clf, seed + 192)
+    t0 = time.perf_counter()
+    hf = to_hf_bert(clf, cfg)
+    params, pooler = from_hf_bert(hf, cfg)
+    out = dict(round_trip_s=time.perf_counter() - t0, hf_tensors=len(hf))
+    back = {**{f"encoder.{k}": v for k, v in params.items() if k != "lm_head.weight"}, **pooler}
+    mine = {k: v for k, v in clf.state_dict().items() if not k.startswith("classifier.")}
+    _bitwise("(c) bert_base_hf", mine, back)
+    out["round_trip_bitwise"] = len(back)
+    del hf, params, pooler, back
+    gen = torch.Generator().manual_seed(seed + 193)
+    tokens = torch.randint(0, cfg.vocab_size, (BERT_ROWS, BERT_SEQ), generator=gen).cuda()
+    seg = _bert_padding(BERT_ROWS, gen)
+    labels = torch.randint(0, BERT_CLASSES, (BERT_ROWS,), generator=gen).cuda()
+    xla = dataclasses.replace(cfg, attn_impl="xla")
+    pools = {}
+    with torch.inference_mode():
+        for pool in ("first", "mean"):
+            clf.pool = pool
+            got = clf(tokens, segment_ids=seg).float()
+            _attn_impl(clf.encoder, xla)
+            want = clf(tokens, segment_ids=seg).float()
+            _attn_impl(clf.encoder, cfg)
+            pools[pool] = dict(max_abs_err=(got - want).abs().max().item(),
+                               worst_row_ratio=row_error_ratio(got, want, *LLAMA_LOGITS_ROW_TOL),
+                               finite=bool(torch.isfinite(got).all()))
+        clf.pool = "first"
+    out["pools"] = pools
+    if any(p["max_abs_err"] > LOGITS_TOL or p["worst_row_ratio"] > 1 or not p["finite"]
+           for p in pools.values()):
+        raise AssertionError(f"(c): the classifier's flash logits disagree with xla: {pools}")
+    funcs = build_train_functions(make_model_init(clf, AdamW(lambda count: BERT_CLS_LR)),
+                                  make_classification_loss("data"), None)
+    state = funcs.init_fn(None, draws)
+    del draws
+    batch = Batch(inputs=tokens, labels=labels)
+    losses, per_step = [], []
+    for _ in range(BERT_CLS_STEPS):
+        before = _launch_counts()
+        state, metrics = funcs.step_fn(state, None, batch)
+        per_step.append([a - b for a, b in zip(_launch_counts(), before)])
+        losses.append(compute(metrics)["loss"])
+    _falls("(c)", losses)
+    if per_step != [[cfg.n_layers] * 2] * BERT_CLS_STEPS:
+        raise AssertionError(f"(c): launches per step {per_step}, want {cfg.n_layers} of each")
+    out.update(losses=losses, launches_per_step=per_step[0])
+    del clf, state, funcs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def bert_hf_leg(seed):
+    """(d): ``models/hf.py`` on the card's host.  GPT-2 125M (seeded, its
+    lm_head tied to the token table as GPT-2's format needs) through
+    ``to_hf_gpt2`` then ``from_hf_gpt2``: bitwise equal, and greedy
+    ``generate()`` on 4 ragged prompts from the round trip's weights equal
+    to the original's tokens; ``llama_1b``'s width at BERT_LLAMA_LAYERS
+    layers through ``to_hf_llama`` then ``from_hf_llama``: bitwise equal."""
+    from tpu_parallel_torch.models import GPTLM, gpt2_125m, llama_1b
+    from tpu_parallel_torch.models.generate import generate
+    from tpu_parallel_torch.models.hf import from_hf_gpt2, from_hf_llama, to_hf_gpt2, to_hf_llama
+
+    out = {}
+    cfg = gpt2_125m(attn_impl="flash", scan_layers=False)
+    model = GPTLM(cfg, device="cuda", seed=seed + 194).eval()
+    with torch.no_grad():
+        model.lm_head.weight.copy_(model.embed.tok.weight)
+    t0 = time.perf_counter()
+    back = from_hf_gpt2(to_hf_gpt2(model, cfg), cfg)
+    out["gpt2_round_trip_s"] = time.perf_counter() - t0
+    _bitwise("(d) GPT-2", model.state_dict(), back)
+    again = GPTLM(cfg, device="cuda", seed=None).eval()
+    again.load_state_dict(back)
+    gen = torch.Generator().manual_seed(seed + 195)
+    width = max(BERT_PROMPTS)
+    prompt = torch.randint(1, cfg.vocab_size, (len(BERT_PROMPTS), width), generator=gen).cuda()
+    mask = torch.zeros_like(prompt, dtype=torch.bool)
+    for r, n in enumerate(BERT_PROMPTS):
+        mask[r, width - n:] = True
+    with torch.inference_mode():
+        want = generate(model, prompt, max_new_tokens=BERT_NEW, prompt_mask=mask)
+        got = generate(again, prompt, max_new_tokens=BERT_NEW, prompt_mask=mask)
+    if not torch.equal(got, want):
+        raise AssertionError("(d): greedy tokens from the round-tripped GPT-2 differ")
+    out["gpt2_tokens_equal"] = [len(BERT_PROMPTS), BERT_NEW]
+    del model, again, back
+    cfg = llama_1b(n_layers=BERT_LLAMA_LAYERS, scan_layers=False)
+    model = GPTLM(cfg, device="cuda", seed=seed + 196)
+    t0 = time.perf_counter()
+    back = from_hf_llama(to_hf_llama(model, cfg), cfg)
+    out["llama_round_trip_s"] = time.perf_counter() - t0
+    _bitwise("(d) llama_1b", model.state_dict(), back)
+    out["llama_params"] = sum(v.numel() for v in back.values())
+    del model, back
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _bitwise(what, mine, back):
+    if sorted(mine) != sorted(back):
+        raise AssertionError(f"{what}: keys differ after the round trip")
+    for key, value in back.items():
+        if value.dtype != mine[key].dtype or not torch.equal(value, mine[key].cpu()):
+            raise AssertionError(f"{what}: {key} differs after the round trip")
+
+
+def bert_cli_leg(work, cores):
+    """(e), launched: this script's ``bert_cli`` leg, which runs
+    ``tpu_parallel_torch.train``'s ``main`` (``python -m
+    tpu_parallel_torch.train``) on ``--config=bert_base_mlm``;
+    :func:`bert_cli_check` holds it."""
+    metrics = Path(work, "bert_metrics.prom")
+    return _launch([sys.executable, str(Path(__file__).resolve()), "--leg", "bert_cli",
+                    str(metrics)], cores), metrics
+
+
+def bert_cli_run_leg(metrics):
+    """(e)'s process: ``tpu_parallel_torch.train``'s ``main`` on
+    ``--config=bert_base_mlm`` at BERT_CLI_LAYERS layers, CLI_ROWS rows,
+    BERT_CLI_STEPS steps, with each step's launches and loss."""
+    from tpu_parallel_torch import train
+    from tpu_parallel_torch.core.metrics import accumulate_metrics, compute
+    from tpu_parallel_torch.train_lib import Trainer
+
+    per_step, losses = [], []
+    real_step = Trainer.step_fn
+
+    def step(self, state, metrics, batch):
+        before = _launch_counts()
+        state, step_metrics = real_step(self, state, None, batch)
+        per_step.append([a - b for a, b in zip(_launch_counts(), before)])
+        losses.append(compute(step_metrics)["loss"])
+        return state, accumulate_metrics(metrics, step_metrics)
+
+    Trainer.step_fn = step
+    _reset_launches()  # the main path starts here
+    code = train.main(["--config=bert_base_mlm",
+                       f"--config.model_overrides.n_layers={BERT_CLI_LAYERS}",
+                       f"--config.global_batch_size={CLI_ROWS}",
+                       f"--config.steps={BERT_CLI_STEPS}", "--config.log_every=1",
+                       f"--metrics-out={metrics}"])
+    return dict(exit=code, launches_per_step=per_step, losses=losses,
+                launches=dict(zip(LAUNCH_COUNTERS, _launch_counts())))
+
+
+def bert_cli_check(collected):
+    """(e): exit 0, BERT_CLI_LAYERS launches of each kernel per step, finite
+    losses, ``train_loss`` in the metrics."""
+    import math
+
+    (out, wall), metrics = collected
+    lines = [line for line in out.splitlines() if line.startswith(DP_RESULT)]
+    if len(lines) != 1:
+        raise AssertionError(f"(e): no result line: {out[-2000:]}")
+    r = json.loads(lines[0][len(DP_RESULT):])
+    if r["exit"] != 0 or r["launches_per_step"] != [[BERT_CLI_LAYERS] * 2] * BERT_CLI_STEPS \
+            or not all(math.isfinite(x) for x in r["losses"]):
+        raise AssertionError(f"(e): {r}")
+    if "train_loss" not in metrics.read_text():
+        raise AssertionError("(e): CLI metrics without train_loss")
+    return dict(wall_s=wall, losses=r["losses"], launches_per_step=r["launches_per_step"][0])
+
+
+def bert_phase(smi, cli_collected):
+    """Phase 19: the bidirectional encoder, ``bert_base`` and
+    ``bert_base_hf`` at full width and depth: both kernels at (b)'s
+    training shape [64, 512] x 12 heads (non-causal) against their plain
+    versions, then (a) serving, (b) training, (c) classification, (d)
+    ``models/hf.py``, (e) the CLI (launched with the CLI batch at phase 9,
+    collected in phase 12).  Returns the report, the kernels' rows and
+    the main paths' launches ((a)'s inference, (b)'s training)."""
+    start = time.perf_counter()
+    legs_s = {}
+
+    def lap(name):
+        legs_s[name] = time.perf_counter() - start - sum(legs_s.values())
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 198)
+    rows = dict(fwd=fwd_kernel_row("t_bert_train", BERT_TRAIN_SHAPE, gen),
+                bwd=bwd_kernel_row("t_bert_train", BERT_TRAIN_SHAPE, gen, main_path=True))
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("kernels")
+    serve, draws = bert_serve_leg(SEED)
+    lap("serve")
+    log(f"[bert serve] bert_base ({serve['params'] / 1e6:.1f}M parameters: 12 layers, d 768, "
+        f"12 heads of 64, seq 512, vocab 30592, bf16, flash, bidirectional; built in "
+        f"{serve['build_s']:.1f} s) on {BERT_ROWS} padded requests of {BERT_SEQ} tokens "
+        f"({serve['real_tokens']} real, lengths {BERT_MIN_LEN}-{BERT_SEQ}): flash_fwd launches "
+        f"{serve['inference_launches']}; MLM loss over {serve['masked_tokens']} masked tokens "
+        f"{serve['loss']:.6f} against the xla path's {serve['xla_loss']:.6f} (tol {LOSS_TOL}); "
+        f"logits against the xla path with fp32 attention: max abs err "
+        f"{serve['logits_max_abs_err']:.4f} (tol {LOGITS_TOL}), relative L2 "
+        f"{serve['logits_rel_l2']:.3e}, worst token's row {serve['worst_row_ratio']:.4f} of the "
+        f"row rule's limit {LLAMA_LOGITS_ROW_TOL} (the bf16 xla path's "
+        f"{serve['xla_bf16_worst_row_ratio']:.4f}; V's second half zeroed in every layer "
+        f"{serve['planted_worst_row_ratio']:.2f} of it, rejected); pad tokens changed: real "
+        f"positions' logits moved by {serve['pad_change_max_abs']} (max abs); forward "
+        f"{serve['forward_ms']:.2f} ms, {serve['tokens_per_s']:.0f} tokens/s")
+    train = bert_train_leg(SEED, smi.split(",")[0].strip(), draws)
+    del draws
+    lap("train")
+    gib = lambda x: f"{x / 2**30:.3f} GiB"  # noqa: E731
+    log(f"[bert train] Trainer on bert_base_mlm ({train['params'] / 1e6:.1f}M parameters; "
+        f"built from (a)'s draws in {train['build_s']:.1f} s), [64, 512] in one minibatch, MLM "
+        f"15%, flash, proj_attn, AdamW, warmup {BERT_WARMUP} (learning rates "
+        f"{train['lr_by_step']}): step-1 loss on one mask flash {train['flash_loss']:.6f} xla "
+        f"{train['xla_loss']:.6f} (tol {LOSS_TOL}); gradients relative L2 median "
+        f"{train['grad_rel_median']:.3e}, max {train['grad_rel_max'][0]:.3e} "
+        f"({train['grad_rel_max'][1]}), tol {TRAIN_GRAD_TOL}")
+    log(f"  losses {[round(x, 5) for x in train['losses']]}; launches per step (flash_fwd, "
+        f"flash_bwd) {train['launches_per_step']}; step ms {[round(x, 1) for x in train['step_ms']]}"
+        f"; {train['tokens_per_s']:.0f} tokens/s; MFU {train['mfu']} "
+        f"({train['flops_per_token'] / 1e9:.3f} GFLOP per token); state "
+        f"{gib(sum(train['state_bytes'].values()))}, max memory allocated "
+        f"{gib(train['max_memory_allocated'])}")
+    classify = bert_classify_leg(SEED)
+    lap("classify")
+    log(f"[bert classify] bert_base_hf (post-norm, embedding LayerNorm, erf gelu, eps 1e-12) "
+        f"under EncoderClassifier ({BERT_CLASSES} classes): to_hf_bert -> from_hf_bert "
+        f"bitwise on {classify['round_trip_bitwise']} tensors ({classify['hf_tensors']} HF "
+        f"tensors, {classify['round_trip_s']:.1f} s); {BERT_ROWS} padded requests, flash "
+        f"against xla by pool {classify['pools']}; {BERT_CLS_STEPS} fine-tune steps at lr "
+        f"{BERT_CLS_LR}: losses {[round(x, 5) for x in classify['losses']]}, launches per step "
+        f"{classify['launches_per_step']}")
+    hf = bert_hf_leg(SEED)
+    lap("hf")
+    log(f"[bert hf] GPT-2 125M (lm_head tied) to_hf_gpt2 -> from_hf_gpt2 bitwise "
+        f"({hf['gpt2_round_trip_s']:.1f} s), greedy generate() on {hf['gpt2_tokens_equal'][0]} "
+        f"ragged prompts x {hf['gpt2_tokens_equal'][1]} tokens equal to the original's; "
+        f"llama_1b's width at {BERT_LLAMA_LAYERS} layers ({hf['llama_params'] / 1e6:.1f}M "
+        f"parameters) to_hf_llama -> from_hf_llama bitwise ({hf['llama_round_trip_s']:.1f} s)")
+    cli = bert_cli_check(cli_collected)
+    log(f"[bert cli] python -m tpu_parallel_torch.train --config=bert_base_mlm "
+        f"({BERT_CLI_LAYERS} layers, {CLI_ROWS} rows, {BERT_CLI_STEPS} steps; started with the "
+        f"CLI batch at phase 9): exit 0, collected {cli['wall_s']:.1f} s after its launch; "
+        f"losses {cli['losses']}; launches per step {cli['launches_per_step']}")
+    phase_s = time.perf_counter() - start
+    log(f"[bert] phase 19 took {phase_s:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in legs_s.items()) + ")")
+    log(f"card: {smi}")
+    launches = dict(inference=dict(flash_fwd_launches=serve["inference_launches"],
+                                   flash_bwd_launches=0),
+                    training=train["launches"])
+    return (dict(serve=serve, train=train, classify=classify, hf=hf, cli=cli, phase_s=phase_s,
+                 legs_s=legs_s), rows, launches)
+
+
 def leg_main(argv):
     """``chip_smoke.py --leg <name> ...``: one leg of phases 12-17 in
     this process; prints its result as one ``dp-leg-result:`` JSON line."""
@@ -8446,6 +8979,8 @@ def leg_main(argv):
         result = llama_cli_rank_leg(rest[0])
     elif name == "llama_rank":
         result = llama_rank_leg(int(rest[0]), rest[1], rest[2])
+    elif name == "bert_cli":
+        result = bert_cli_run_leg(rest[0])
     else:
         raise SystemExit(f"unknown leg {name!r}")
     print(DP_RESULT + json.dumps(result), flush=True)
@@ -8565,6 +9100,13 @@ def main():
         if not llama_launches["inference"]["flash_fwd_launches"]:
             raise AssertionError("the llama inference path never launched flash_fwd")
         took("phase 18 (the Llama family)")
+        gc.collect()
+        torch.cuda.empty_cache()
+        bert_report, bert_rows, bert_launches = bert_phase(smi, clis["bert"])
+        if not all(bert_launches["training"].values()) \
+                or not bert_launches["inference"]["flash_fwd_launches"]:
+            raise AssertionError(f"the bert paths left a kernel unlaunched: {bert_launches}")
+        took("phase 19 (the bidirectional encoder)")
     finally:
         _kill_launched()
         shutil.rmtree(work, ignore_errors=True)
@@ -8695,6 +9237,22 @@ def main():
              "tpu_parallel/ops/flash_attention.py:464,563"),
             ("llama_3d", "fwd", "fwd3d", "ranks", "tpu_parallel/ops/flash_attention.py:240"),
             ("llama_3d", "bwd", "bwd3d", "ranks", "tpu_parallel/ops/flash_attention.py:464,563"))
+    ] + [
+        # phase 19: bert_base's 12 heads of 64, non-causal: (a)'s 32 padded
+        # requests [32, 512] (phase 2's row, padding segments) and (b)'s
+        # training minibatch [64, 512]
+        dict(name=f"flash_{kind}", route="cuda", source=f"tpu_parallel_torch/csrc/flash_{kind}.cu",
+             replaces=replaces, path=path, shape=row["shape"],
+             launches=bert_launches[launches][f"flash_{kind}_launches"],
+             max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
+             bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"])
+        for path, kind, row, launches, replaces in (
+            ("bert_inference", "fwd", kernel_rows["h_bert_padded"], "inference",
+             "tpu_parallel/ops/flash_attention.py:240"),
+            ("bert_training", "fwd", bert_rows["fwd"], "training",
+             "tpu_parallel/ops/flash_attention.py:240"),
+            ("bert_training", "bwd", bert_rows["bwd"], "training",
+             "tpu_parallel/ops/flash_attention.py:464,563"))
     ]}
     summary = dict(card=smi, forward=fwd, generate=gen, train=train, serve=serve, kv=kv,
                    spec=spec, decode_extras=extras, trainer_shell=shell, data_parallel=dp_report,
@@ -8703,7 +9261,7 @@ def main():
                    pipeline_parallel_kernel_shapes=pp_rows, sequence_parallel=sp_report,
                    sequence_parallel_kernel_shapes=sp_rows, mixture_of_experts=moe_report,
                    mixture_of_experts_kernel_shapes=moe_rows, llama=llama_report,
-                   llama_kernel_shapes=llama_rows,
+                   llama_kernel_shapes=llama_rows, bert=bert_report, bert_kernel_shapes=bert_rows,
                    inference_flash_fwd_launches=inference_launches,
                    kernel_shapes=kernel_rows, bwd_kernel_shapes=bwd_rows,
                    trainer_shell_kernel_shapes=shell_rows, data_parallel_kernel_shapes=dp_rows)

@@ -145,10 +145,12 @@ def test_config_refuses_unported_features(field, value):
         with pytest.raises(ValueError, match="mesh axis bound: serve through generate_sharded"):
             model(torch.zeros(1, 3, dtype=torch.long), decode=True, cache=model.init_cache(1))
         return
-    if field in ("moe_experts", "positional", "norm", "mlp"):
+    if field in ("moe_experts", "positional", "norm", "mlp", "prenorm", "bidirectional"):
         # mixture of experts (tests/test_torch_moe.py), rope, RMSNorm and
-        # swiglu (tests/test_torch_llama.py) are ported: the config is
-        # taken, and the model's forward is JAX's on bridged weights
+        # swiglu (tests/test_torch_llama.py), post-norm blocks and
+        # bidirectional attention (tests/test_torch_encoder.py) are ported:
+        # the config is taken, and the model's forward is JAX's on bridged
+        # weights
         tokens = np.random.default_rng(3).integers(0, 256, (2, 16)).astype(np.int32)
         jax_model = jgpt.GPTLM(jgpt.tiny_test(remat=False, **{field: value}))
         params = jax_model.init(jax.random.PRNGKey(4), jnp.asarray(tokens), train=False)["params"]

@@ -24,7 +24,7 @@ torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "tpu_parallel", "ml_dtypes", "orbax",
-             "ml_collections", "absl"}
+             "ml_collections", "absl", "transformers", "safetensors"}
 PORT_FILES = sorted((REPO / "tpu_parallel_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "tests" / "torch_dp_worker.py"]
 

@@ -322,8 +322,9 @@ def test_trainer_train_reports_throughput_and_masters():
 
 
 def test_trainer_refuses_what_it_does_not_port():
-    """The MLM objective (item 6) and a config the port cannot run yet
-    raise; a data axis above 1 is data parallelism, a model axis above 1
+    """JAX's refusal of the causal objective on a bidirectional model, in
+    its words (the MLM objective itself trains: ``tests/test_torch_encoder.py``;
+    here one step, and its refusal under 1F1B); a data axis above 1 is data parallelism, a model axis above 1
     tensor parallelism, a pipe axis above 1 pipeline parallelism and a seq
     axis above 1 sequence parallelism, which without a process group meet
     JAX's errors for a mesh the devices do not cover (the DP, TP, PP and SP
@@ -333,8 +334,19 @@ def test_trainer_refuses_what_it_does_not_port():
     ``gpt2_125m_tp`` loads; a one-device mesh is accepted."""
     from tpu_parallel_torch.configs import get_config
 
-    with pytest.raises(NotImplementedError, match="mlm.*item 6"):
-        Trainer(TrainerConfig(model="tiny", objective="mlm"), device="cpu")
+    one = dict(mesh=MeshConfig(data=1), model_overrides=dict(bidirectional=True))
+    with pytest.raises(ValueError, match="objective='causal'") as want:
+        JTrainer(JTrainerConfig(model="tiny", **one),
+                 mesh=make_mesh(MeshConfig(data=1), devices=jax.devices()[:1]))
+    with pytest.raises(ValueError, match="objective='causal'") as got:
+        Trainer(TrainerConfig(model="tiny", **one), device="cpu")
+    assert str(got.value) == str(want.value)
+    mlm = Trainer(TrainerConfig(model="tiny", objective="mlm", global_batch_size=2, steps=1,
+                                model_overrides=dict(bidirectional=True)), device="cpu")
+    assert np.isfinite(mlm.train()["loss"])
+    with pytest.raises(NotImplementedError, match="objective='mlm' under pipe_schedule='1f1b'"):
+        Trainer(TrainerConfig(model="tiny", objective="mlm",
+                              model_overrides=dict(pipe_schedule="1f1b")), device="cpu")
     jax_mesh = functools.partial(make_mesh, devices=jax.devices()[:1])
     for mesh in (dict(data=2), dict(data=4), dict(data=-1, model=2), dict(data=1, model=2),
                  dict(data=-1, pipe=4), dict(data=2, seq=2), dict(data=1, seq=4)):

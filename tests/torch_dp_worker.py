@@ -5,8 +5,8 @@
 
 Starts ``num_ranks`` gloo CPU processes through
 ``tpu_parallel_torch.runtime.spawn_cpu_ranks`` and runs every case of
-``suite`` (``runtime``, ``dp``, ``fsdp``, ``tp``, ``pp``, ``sp``, ``moe`` or
-``llama``) in that one group.  Each rank reads the
+``suite`` (``runtime``, ``dp``, ``fsdp``, ``tp``, ``pp``, ``sp``, ``moe``,
+``llama`` or ``encoder``) in that one group.  Each rank reads the
 inputs the test wrote to ``<outdir>/inputs.npz`` and writes its results to
 ``<outdir>/<suite>_rank<r>.npz``; the test compares them with the JAX
 package in its own process.  Imports torch, numpy and the port only.
@@ -19,6 +19,7 @@ tests over several workers.
 from __future__ import annotations
 
 import fcntl
+import functools
 import json
 import math
 import os
@@ -1975,9 +1976,129 @@ def _llama_cases(inputs, outdir, out):
     dist.barrier()
 
 
+# encoder MLM cases: name -> (model overrides, mesh, global rows); each
+# mirrors a mesh case of tests/test_encoder.py
+ENC = dict(bidirectional=True)
+POSTNORM = dict(prenorm=False, embed_norm=True, mlp="gelu_exact")
+ENCODER_MLM = {
+    "dp": (dict(ENC, seq_len=32), dict(data=8), 8),
+    "tp": (dict(ENC, seq_len=32), dict(data=4, model=2), 8),
+    "pp": (dict(ENC, **POSTNORM, seq_len=32, num_microbatches=2), dict(data=2, model=2, pipe=2), 8),
+    "ring": (dict(ENC, attn_impl="ring", seq_len=64), dict(data=2, seq=4), 8),
+    "ulysses": (dict(ENC, attn_impl="ulysses", seq_len=64), dict(data=2, seq=4), 8),
+    "ring_window": (dict(ENC, attn_impl="ring", attn_window=24, seq_len=64), dict(data=2, seq=4),
+                    8),
+    "postnorm": (dict(ENC, **POSTNORM, seq_len=32), dict(data=8), 8),
+}
+ENCODER_STEPS = 5
+ENCODER_LR = 3e-3
+ENCODER_CLASSES = 4
+ENCODER_CLS_STEPS = 25
+
+
+def _encoder_cases(inputs, outdir, out):
+    import torch
+    import torch.distributed as dist
+
+    from tpu_parallel_torch.core.accumulate import accumulate_gradients
+    from tpu_parallel_torch.core.losses import make_classification_loss
+    from tpu_parallel_torch.core.metrics import compute
+    from tpu_parallel_torch.core.optim import AdamW
+    from tpu_parallel_torch.core.state import Batch, TextBatch
+    from tpu_parallel_torch.models import layers
+    from tpu_parallel_torch.models.convert import params_from_jax
+    from tpu_parallel_torch.models.gpt import EncoderClassifier, mlm_mask, tiny_test
+    from tpu_parallel_torch.ops.ring_attention import ring_attention, ring_flash_attention
+    from tpu_parallel_torch.ops.ulysses import ulysses_attention
+    from tpu_parallel_torch.parallel import fsdp
+    from tpu_parallel_torch.parallel.spmd import build_train_functions, make_model_init
+    from tpu_parallel_torch.runtime import MeshConfig, make_mesh
+    from tpu_parallel_torch.runtime.mesh import axis_group
+    from tpu_parallel_torch.train_lib import Trainer, TrainerConfig
+
+    # (1) the MLM step over each mesh: the synced gradients on the test's
+    # mask (JAX's draw), then ENCODER_STEPS steps on the port's own masks
+    for name, (overrides, sizes, rows) in ENCODER_MLM.items():
+        trainer = Trainer(TrainerConfig(
+            model="tiny", objective="mlm", model_overrides=overrides, mesh=sizes,
+            global_batch_size=rows, steps=ENCODER_STEPS, learning_rate=ENCODER_LR,
+            warmup_steps=1, lr_schedule="constant"), device="cpu")
+        out[f"{name}_coord"] = np.array([axis_group(trainer.mesh, a)[2]
+                                         if axis_group(trainer.mesh, a) else 0
+                                         for a in ("data", "model", "pipe", "seq")])
+        state = trainer.init(params_from_jax(nested_tree(f"{name}_params", inputs),
+                                             trainer.model_config, dtype=torch.float32))
+        batch = trainer.local_rows(_text_batch(inputs, f"{name}_batch"))
+        mask = torch.from_numpy(inputs[f"{name}_mask"].copy()).long()
+        masked = trainer.local_rows(TextBatch(tokens=mask, targets=mask)).tokens.bool()
+        grads, _ = accumulate_gradients(
+            state, batch, state.rng, 1,
+            lambda model, b, rng: trainer.loss_fn(model, b, rng, masked=masked))
+        fsdp.sync_gradients(state.partitioned(grads), ("data", "seq", "model"), ("pipe",),
+                            mesh=trainer.mesh)
+        _assembled_nested(out, f"{name}_grads", grads, state.shards)
+        state.zero_grads()
+        losses = []
+        for _ in range(ENCODER_STEPS):
+            state, metrics = trainer.step_fn(state, None, batch)
+            losses.append(compute(metrics)["loss"])
+        out[f"{name}_losses"] = np.array(losses)
+        out[f"{name}_params"] = np.array(sorted(state.params))
+
+    # (2) the MLM corruption pattern over data 2 x model 2 x seq 2
+    mesh = make_mesh(MeshConfig(data=2, model=2, seq=2))
+    out["mask_coord"] = np.array([mesh.get_local_rank(a) for a in ("data", "model", "seq")])
+    out["mask"] = mlm_mask(tiny_test(), torch.zeros(4, 16, dtype=torch.long),
+                           torch.Generator().manual_seed(5), 0.3, mesh).numpy()
+
+    # (3) EncoderClassifier over data=8: the synced step-1 gradients, then
+    # ENCODER_CLS_STEPS steps of the classification loss
+    mesh = make_mesh(MeshConfig(data=8))
+    cfg = tiny_test(bidirectional=True, seq_len=16, scan_layers=False)
+    model = EncoderClassifier(cfg, ENCODER_CLASSES, device="cpu", seed=None, mesh=mesh)
+    loss_fn = make_classification_loss("data", mesh)
+    funcs = build_train_functions(make_model_init(model, AdamW(lambda count: 1e-2)), loss_fn,
+                                  mesh)
+    state = funcs.init_fn(None, params_from_jax(nested_tree("cls_params", inputs), cfg,
+                                                dtype=torch.float32))
+    rank = mesh.get_local_rank("data")
+    per = inputs["cls_tokens"].shape[0] // 8
+    local = Batch(inputs=torch.from_numpy(inputs["cls_tokens"][rank * per:(rank + 1) * per]).long(),
+                  labels=torch.from_numpy(inputs["cls_labels"][rank * per:(rank + 1) * per]).long())
+    grads, _ = accumulate_gradients(state, local, state.rng, 1, loss_fn)
+    fsdp.sync_gradients(state.partitioned(grads), ("data",), mesh=mesh)
+    _assembled_nested(out, "cls_grads", grads, state.shards)
+    state.zero_grads()
+    history = []
+    for _ in range(ENCODER_CLS_STEPS + 1):
+        state, metrics = funcs.step_fn(state, None, local)
+        history.append([compute(metrics)["loss"], compute(metrics)["accuracy"]])
+    out["cls_history"] = np.array(history)
+
+    # (4) the bidirectional ring (plain and flash-composed) and Ulysses with
+    # the bidirectional flash inner attention over data 2 x seq 4, each on
+    # this rank's block
+    mesh = make_mesh(MeshConfig(data=2, seq=4))
+    q, k, v = (torch.from_numpy(inputs[f"op_{n}"].copy()) for n in "qkv")
+    seg = torch.from_numpy(inputs["op_seg"].copy()).int()
+    s = q.shape[1] // 4
+    j = mesh.get_local_rank("seq")
+    block = lambda x: x[:, j * s:(j + 1) * s]  # noqa: E731
+    for impl, fn in (("ring_plain", ring_attention), ("ring_flash", ring_flash_attention)):
+        out[f"op_{impl}"] = fn(block(q), block(k), block(v), axis_name="seq", mesh=mesh,
+                               segment_ids=block(seg), causal=False).numpy()
+    window = int(inputs["op_window"])
+    inner = functools.partial(layers.bidirectional_flash_attention, block_q=32, block_k=32,
+                              window=window)
+    out["op_ulysses_window"] = ulysses_attention(block(q), block(k), block(v), axis_name="seq",
+                                                 mesh=mesh, attn_fn=inner).numpy()
+    out["op_seq"] = np.array(j)
+    dist.barrier()
+
+
 SUITES = {"runtime": _runtime_cases, "dp": _dp_cases, "fsdp": _fsdp_cases, "tp": _tp_cases,
           "pp": _pp_cases, "sp": _sp_cases,
-          "moe": _moe_cases, "llama": _llama_cases}
+          "moe": _moe_cases, "llama": _llama_cases, "encoder": _encoder_cases}
 
 
 def run_suite(suite, outdir):

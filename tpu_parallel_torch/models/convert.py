@@ -23,7 +23,10 @@ stacked ``[ep, E / ep, ...]`` (``model_rank`` as for tensor-parallel
 leaves).  The Llama family's trees come across as JAX holds them: an
 RMSNorm's ``scale`` without a bias, the gated MLP's bias-free
 ``mlp/{gate,up,down}`` (swiglu experts: ``moe/experts/{gate,up}``
-without biases), and no ``embed/pos`` under rope.  Nothing here imports
+without biases), and no ``embed/pos`` under rope.  The encoder family's
+too: ``embed/norm`` under ``embed_norm``, no ``norm_final`` in a post-norm
+stack, and ``EncoderClassifier``'s tree (``encoder/...`` without an
+lm_head, ``pooler``, ``classifier``).  Nothing here imports
 JAX: leaves are read with ``numpy.asarray`` (torch leaves, bf16 ones
 too, through fp32).
 :func:`params_to_jax` is its exact inverse (from one state dict, or from
@@ -100,11 +103,22 @@ _NORMS = (
 _TOP = (
     ("embed/tok/embedding", "embed.tok.weight", False),
     ("embed/pos/embedding", "embed.pos.weight", False),
+    ("embed/norm/scale", "embed.norm.weight", False),
+    ("embed/norm/bias", "embed.norm.bias", False),
     ("norm_final/scale", "norm_final.weight", False),
     ("norm_final/bias", "norm_final.bias", False),
     ("lm_head/shard/kernel", "lm_head.weight", True),
 )
 _SCANNED = "blocks/layers/block/"
+# an EncoderClassifier: its trunk's keys under "encoder." (JAX's
+# "encoder/" subtree, a GPTLM without an lm_head), then its own leaves
+_ENCODER = "encoder."
+_CLASSIFIER = (
+    ("pooler/kernel", "pooler.weight", True),
+    ("pooler/bias", "pooler.bias", False),
+    ("classifier/kernel", "classifier.weight", True),
+    ("classifier/bias", "classifier.bias", False),
+)
 # ModuleShard's scope: a tensor-parallel leaf's per-rank stack, and the
 # expert stacks' under expert parallelism
 _SHARD, _STACKED = "/shard/", "/shard/sharded/"
@@ -182,13 +196,23 @@ def _rmsnorm(config) -> bool:
     return getattr(config, "norm", "layernorm") == "rmsnorm"
 
 
-def _top_leaves(config) -> Tuple[Tuple[str, str, bool], ...]:
+def _top_leaves(config, head: bool = True) -> Tuple[Tuple[str, str, bool], ...]:
     """The leaves outside the blocks: no ``pos`` table unless the positions
-    are learned, no norm bias under RMSNorm."""
-    return tuple(leaf for leaf in _TOP
-                 if not (leaf[1] == "embed.pos.weight"
-                         and getattr(config, "positional", "learned") != "learned")
-                 and not (leaf[1] == "norm_final.bias" and _rmsnorm(config)))
+    are learned, an embedding norm only under ``embed_norm``, no
+    ``norm_final`` in a post-norm stack, no norm bias under RMSNorm, no
+    lm_head in an ``EncoderClassifier``'s trunk (``head=False``)."""
+    def kept(key):
+        if key == "embed.pos.weight":
+            return getattr(config, "positional", "learned") == "learned"
+        if key.startswith("embed.norm."):
+            return getattr(config, "embed_norm", False) and not (
+                key.endswith(".bias") and _rmsnorm(config))
+        if key.startswith("norm_final."):
+            return getattr(config, "prenorm", True) and not (
+                key.endswith(".bias") and _rmsnorm(config))
+        return head or key != "lm_head.weight"
+
+    return tuple(leaf for leaf in _TOP if kept(leaf[1]))
 
 
 def _block_leaves(config) -> Tuple[Tuple[str, str, bool], ...]:
@@ -206,8 +230,9 @@ def _block_leaves(config) -> Tuple[Tuple[str, str, bool], ...]:
     return leaves
 
 
-def state_shapes(config) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
-    """``{port key: (shape, dtype)}`` of the port's GPTLM state dict."""
+def state_shapes(config, head: bool = True) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """``{port key: (shape, dtype)}`` of the port's GPTLM state dict
+    (``head=False``: without the lm_head)."""
     d, dh, h = config.d_model, config.head_dim, config.n_heads
     n_kv = config.n_kv_heads or h
     hidden = config.mlp_ratio * d
@@ -233,11 +258,13 @@ def state_shapes(config) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
     top = {
         "embed.tok.weight": ((config.vocab_size, d), dt),
         "embed.pos.weight": ((config.seq_len, d), dt),
+        "embed.norm.weight": ((d,), f32),
+        "embed.norm.bias": ((d,), f32),
         "norm_final.weight": ((d,), f32),
         "norm_final.bias": ((d,), f32),
         "lm_head.weight": ((config.vocab_size, d), dt),
     }
-    kept = {key for _, key, _ in _top_leaves(config)}
+    kept = {key for _, key, _ in _top_leaves(config, head)}
     shapes = {k: v for k, v in top.items() if k.startswith("embed.") and k in kept}
     for i in range(config.n_layers):
         for _, key, _ in _block_leaves(config):
@@ -298,9 +325,38 @@ def _tp_axis(key: str) -> int:
     return 0 if key.endswith(_AXIS0) else -1
 
 
+def _classifier_from_jax(tree: Mapping, config, dtype, **ranks) -> Dict[str, torch.Tensor]:
+    """The ``EncoderClassifier`` state dict from JAX's tree: the trunk under
+    ``encoder/`` (no lm_head), the pooler (``config.dtype``) and the fp32
+    classifier, whose class count is read from its kernel."""
+    flat = dict(_flatten({k: v for k, v in tree.items() if k != "encoder"}))
+    wanted = [path for path, _, _ in _CLASSIFIER]
+    missing = sorted(set(wanted) - set(flat))
+    if missing:
+        raise KeyError(f"JAX parameter tree lacks {missing}")
+    extra = sorted(set(flat) - set(wanted))
+    if extra:
+        raise ValueError(f"JAX parameter tree has leaves the port does not: {extra}")
+    state = {_ENCODER + k: v for k, v in
+             params_from_jax(tree["encoder"], config, dtype, head=False, **ranks).items()}
+    d, classes = config.d_model, _as_float32(flat["classifier/kernel"]).shape[-1]
+    shapes = {"pooler.weight": ((d, d), config.dtype), "pooler.bias": ((d,), config.dtype),
+              "classifier.weight": ((classes, d), torch.float32),
+              "classifier.bias": ((classes,), torch.float32)}
+    for path, key, transpose in _CLASSIFIER:
+        arr = _as_float32(flat[path])
+        arr = arr.T if transpose else arr
+        shape, module_dtype = shapes[key]
+        if arr.shape != shape:
+            raise ValueError(f"{path}: shape {arr.shape} does not fit {key} {shape}")
+        state[key] = torch.tensor(arr, dtype=dtype or module_dtype)
+    return state
+
+
 def params_from_jax(tree: Mapping, config, dtype=None, *,
                     model_rank: Optional[int] = None,
-                    pipe_rank: Optional[int] = None) -> Dict[str, torch.Tensor]:
+                    pipe_rank: Optional[int] = None,
+                    head: bool = True) -> Dict[str, torch.Tensor]:
     """The port's state dict from a JAX ``GPTLM`` (or ``MLPClassifier``)
     parameter tree.
 
@@ -314,10 +370,18 @@ def params_from_jax(tree: Mapping, config, dtype=None, *,
     ``shard/sharded``) gives rank ``model_rank``'s slice, or with
     ``model_rank=None`` the full weight, its ranks' slices side by side.
     A pipeline tree gives pipe rank ``pipe_rank``'s layers (the replicated
-    leaves with them), or with ``pipe_rank=None`` every layer.
+    leaves with them), or with ``pipe_rank=None`` every layer.  A tree
+    without an lm_head (``head=False``) is a trunk's.  An
+    ``EncoderClassifier``'s tree (``encoder/...``, ``pooler``,
+    ``classifier``) gives its state dict, the trunk's keys under
+    ``encoder.``.  A post-norm tree has no ``norm_final``; ``embed_norm``
+    adds ``embed/norm``.
     """
     if _is_mlp(config):
         return _mlp_from_jax(tree, config, dtype)
+    if "encoder" in tree:
+        return _classifier_from_jax(tree, config, dtype, model_rank=model_rank,
+                                    pipe_rank=pipe_rank)
     flat = _unpipe(dict(_flatten(tree)), config)
     scanned = any(p.startswith(_SCANNED) for p in flat)
     unrolled = any(p.startswith("blocks/layer_") for p in flat)
@@ -326,7 +390,7 @@ def params_from_jax(tree: Mapping, config, dtype=None, *,
             "expected exactly one JAX layer layout, scanned 'blocks/layers/block/...' "
             "or unrolled 'blocks/layer_{i}/...'"
         )
-    wanted = [(path, key, t, None) for path, key, t in _top_leaves(config)]
+    wanted = [(path, key, t, None) for path, key, t in _top_leaves(config, head)]
     for i in range(config.n_layers):
         for path, key, t in _block_leaves(config):
             port_key = f"blocks.layer_{i}.{key}"
@@ -343,7 +407,7 @@ def params_from_jax(tree: Mapping, config, dtype=None, *,
     extra = sorted(set(flat) - {p for p, _, _, _ in wanted})
     if extra:
         raise ValueError(f"JAX parameter tree has leaves the port does not: {extra}")
-    shapes = state_shapes(config)
+    shapes = state_shapes(config, head)
     state = {}
     for path, key, transpose, layer in wanted:
         arr = _as_float32(flat[path])
@@ -422,7 +486,7 @@ def _pipe_tree(tree: Dict, config) -> Dict:
 
 def params_to_jax(state_dict: Union[Mapping[str, torch.Tensor],
                                     Sequence[Mapping[str, torch.Tensor]]], config, *,
-                  _mesh_layout: bool = False) -> Dict:
+                  head: bool = True, _mesh_layout: bool = False) -> Dict:
     """The JAX ``GPTLM`` parameter tree of a port state dict: the exact
     inverse of :func:`params_from_jax`.  ``Linear`` weights go back to
     flax's ``[in, out]``; ``config.scan_layers`` stacks every block leaf
@@ -439,7 +503,21 @@ def params_to_jax(state_dict: Union[Mapping[str, torch.Tensor],
     one model rank, as JAX's mesh init stacks it.  Leaves are new
     contiguous CPU tensors in the state dict's dtypes.  An ``MLPConfig``
     gives the MLP classifier's tree; its state dict must hold exactly its
-    layers."""
+    layers.  ``head=False``: a trunk without an lm_head.  An
+    ``EncoderClassifier``'s state dict (one, keys under ``encoder.``) gives
+    JAX's ``encoder`` / ``pooler`` / ``classifier`` tree."""
+    if isinstance(state_dict, Mapping) and any(k.startswith(_ENCODER) for k in state_dict):
+        own = {key for _, key, _ in _CLASSIFIER}
+        extra = sorted(k for k in state_dict if not k.startswith(_ENCODER) and k not in own)
+        if extra:
+            raise ValueError(f"EncoderClassifier state dict has keys the tree does not: {extra}")
+        tree = {"encoder": params_to_jax({k[len(_ENCODER):]: v for k, v in state_dict.items()
+                                          if k.startswith(_ENCODER)}, config, head=False)}
+        for path, key, transpose in _CLASSIFIER:
+            value = state_dict[key].detach().cpu()
+            name, leaf = path.split("/")
+            tree.setdefault(name, {})[leaf] = (value.T if transpose else value).contiguous()
+        return tree
     tree: Dict = {}
     ranks = None
     if not isinstance(state_dict, Mapping):
@@ -463,9 +541,9 @@ def params_to_jax(state_dict: Union[Mapping[str, torch.Tensor],
         return {name: {"kernel": state_dict[f"{name}.weight"].detach().cpu().T.contiguous(),
                        "bias": state_dict[f"{name}.bias"].detach().cpu().contiguous()}
                 for name in layers}
-    shapes = state_shapes(config)
+    shapes = state_shapes(config, head)
     # the leaves JAX's ModuleShard stacks over the model axis, by port key
-    split = {k for p, k, _ in _top_leaves(config) + _block_leaves(config)
+    split = {k for p, k, _ in _top_leaves(config, head) + _block_leaves(config)
              if _SHARD in p or _EXPERTS in p}
 
     def put(path: str, value: torch.Tensor):
@@ -486,7 +564,7 @@ def params_to_jax(state_dict: Union[Mapping[str, torch.Tensor],
             return torch.stack([flax(r[key]) for r in ranks]), True
         return flax(state_dict[key]), False
 
-    for path, key, t in _top_leaves(config):
+    for path, key, t in _top_leaves(config, head):
         value, stacked = leaf(key, t)
         put(_stacked_path(path) if stacked else path, value)
     for path, key, t in _block_leaves(config):
@@ -533,7 +611,9 @@ def init_params(model: torch.nn.Module, seed: int = 0) -> Dict[str, torch.Tensor
     (their names are the one-device model's).  The draws run on as many
     threads as torch's intra-op setting (each from its own generator: the
     same values as in turn).  Returns the fp32 draws by parameter name, at
-    full shape (the master weights of training)."""
+    full shape (the master weights of training).  An ``EncoderClassifier``'s
+    trunk (``encoder.*``) is drawn by the same rules, its pooler and
+    classifier as Dense layers."""
     from concurrent.futures import ThreadPoolExecutor
 
     from tpu_parallel_torch.parallel.fsdp import shard_info
@@ -546,11 +626,13 @@ def init_params(model: torch.nn.Module, seed: int = 0) -> Dict[str, torch.Tensor
         shape = param.shape if info is None else info.global_shape
         value = torch.empty(shape, dtype=torch.float32)
         gen = _param_generator(seed, name)
+        # an EncoderClassifier's trunk: the LM's names under "encoder."
+        local = name[len(_ENCODER):] if name.startswith(_ENCODER) else name
         if name.endswith(".bias"):
             value.zero_()
-        elif ".norm_" in f".{name}":
+        elif ".norm_" in f".{local}" or local.startswith("embed.norm."):
             value.fill_(1.0)
-        elif name.startswith("embed."):
+        elif local.startswith("embed."):
             value.normal_(0.0, 1.0 / math.sqrt(shape[1]), generator=gen)
         else:
             std = math.sqrt(1.0 / shape[1]) / 0.87962566103423978

@@ -1,4 +1,5 @@
-"""Decoder-only transformer LM: the port of ``tpu_parallel/models/gpt.py``.
+"""Transformer LM (decoder, or with ``bidirectional`` the encoder): the
+port of ``tpu_parallel/models/gpt.py``.
 
 ``GPTLM`` holds its weights (made from a seed, or loaded
 from a JAX parameter tree through ``models/convert.py``) and keeps the
@@ -26,6 +27,12 @@ JAX's masks make them.  The forward runs the GPipe or the interleaved
 schedule (``pp.execute_interleaved_pipeline``), a decode step the ring
 (``pp.execute_pipeline_decode``), and :func:`make_gpt_1f1b_grad_fn` the
 1F1B schedule.
+
+The encoder family: :class:`EncoderClassifier` (the trunk's hidden states
+pooled and classified), :func:`make_mlm_loss` (the masked-LM objective,
+its corruption drawn by :func:`mlm_mask`), ``bert_base`` and
+``bert_base_hf`` (post-norm, the embedding LayerNorm: the layout
+``models/hf.py`` imports BERT checkpoints into).
 """
 
 from __future__ import annotations
@@ -40,7 +47,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from tpu_parallel_torch.core.losses import token_cross_entropy, vocab_parallel_cross_entropy
-from tpu_parallel_torch.core.rng import fold_rng_over_axis
+from tpu_parallel_torch.core.rng import fold_rng_over_axis, fold_seed
+from tpu_parallel_torch.core.state import TextBatch
 from tpu_parallel_torch.models.convert import init_params
 from tpu_parallel_torch.models.layers import (
     BlockStack,
@@ -48,6 +56,7 @@ from tpu_parallel_torch.models.layers import (
     KVCache,
     PagedKVCache,
     TransformerConfig,
+    dropout,
     make_norm,
 )
 from tpu_parallel_torch.parallel import pp
@@ -120,14 +129,18 @@ class GPTLM(nn.Module):
     (``runtime.make_mesh``) binds the data axis that ``config.fsdp``
     shards over and the model axis that tensor parallelism splits: there
     the lm_head is column-parallel over the vocabulary and the forward
-    all-gathers its logits.  Without a mesh an FSDP config holds full
+    all-gathers its logits.  ``head=False`` builds no lm_head (the trunk of
+    :class:`EncoderClassifier`, whose JAX tree has none): only
+    ``hidden_only`` calls.  A post-norm config (``prenorm=False``) has no
+    ``norm_final``.  Without a mesh an FSDP config holds full
     weights, as JAX's wrap is the identity on an unbound axis.  FSDP
     together with a model axis above 1 (``llama_1b_3d``'s mesh) splits
     each tensor-parallel slice again over the data axis, by JAX's rule on
     the slice's shape (``fsdp.shard_dim``; a nested ``ShardInfo``).
     """
 
-    def __init__(self, config: GPTConfig, *, device="cuda", seed: Optional[int] = 0, mesh=None):
+    def __init__(self, config: GPTConfig, *, device="cuda", seed: Optional[int] = 0, mesh=None,
+                 head: bool = True):
         super().__init__()
         bound = model_axis(mesh, config.model_axis)
         _pipe_refusals(config)
@@ -146,11 +159,16 @@ class GPTLM(nn.Module):
             self.blocks = pp.mark_stage(BlockStack(
                 config, config.n_layers, dev, mesh, layer_ids=stage_layers(config, pipe[2]),
                 chunks=config.pipe_interleave), mesh, config.pipe_axis)
-        self.norm_final = make_norm(config, dev)
-        self.lm_head = maybe_shard(
-            TPDense(config.d_model, config.vocab_size, style="column", axis_name=config.model_axis,
-                    use_bias=False, gather_output=True, dtype=config.dtype, device=dev, mesh=mesh),
-            config, mesh)
+        # post-norm stacks (BERT) end normalized by their last block's
+        # norm_mlp: no final norm, as JAX's tree has none
+        self.norm_final = make_norm(config, dev) if config.prenorm else None
+        self.lm_head = None
+        if head:
+            self.lm_head = maybe_shard(
+                TPDense(config.d_model, config.vocab_size, style="column",
+                        axis_name=config.model_axis, use_bias=False, gather_output=True,
+                        dtype=config.dtype, device=dev, mesh=mesh),
+                config, mesh)
         # the kv heads this rank's caches hold
         self.local_kv_heads = (config.n_kv_heads or config.n_heads) // (
             1 if bound is None else bound[1])
@@ -164,7 +182,7 @@ class GPTLM(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.lm_head.weight.device
+        return self.embed.tok.weight.device
 
     def init_cache(self, batch: int, beam_width: Optional[int] = None) -> List[KVCache]:
         """An empty decode cache, one :class:`KVCache` of ``seq_len`` slots
@@ -249,9 +267,13 @@ class GPTLM(nn.Module):
             x = self.embed(tokens, positions)
             x = self.blocks(x, positions, segment_ids, decode, cache if decode else None,
                             write_index, block_table, dropout_rng, moe_losses=moe_losses)
-        x = self.norm_final(x).to(cfg.dtype)
+        if self.norm_final is not None:
+            x = self.norm_final(x).to(cfg.dtype)
         if hidden_only:
             return x
+        if self.lm_head is None:
+            raise ValueError("a GPTLM built with head=False gives hidden states only "
+                             "(hidden_only=True)")
         return self.lm_head(x)
 
     def _pipeline(self, tokens, positions, segment_ids, decode, cache, write_index,
@@ -315,6 +337,128 @@ class GPTLM(nn.Module):
         return out[0]
 
 
+class EncoderClassifier(nn.Module):
+    """Sequence classification over the bidirectional trunk, JAX's
+    ``EncoderClassifier``: the encoder's hidden states (a :class:`GPTLM`
+    named ``encoder``, built without an lm_head) pooled (``"first"``: the
+    first token, CLS-style; ``"mean"``: the mean over the row's first
+    segment when ``segment_ids`` are given, padding and packed neighbours
+    left out, else over every position), a tanh ``pooler`` (a Linear in
+    ``config.dtype``), dropout when training, and an fp32 ``classifier`` ->
+    ``[batch, num_classes]`` fp32 logits.  The trunk composes with FSDP and
+    tensor parallelism as the LM does (``mesh``); the pooler and the
+    classifier are replicated, as in JAX's tree.  ``device`` and ``seed`` as
+    :class:`GPTLM`'s (``convert.init_params``: flax's Dense defaults for
+    the pooler and the classifier).  A causal config raises JAX's
+    ``ValueError``: under a causal mask the pooled position cannot see the
+    sequence."""
+
+    def __init__(self, config: GPTConfig, num_classes: int, pool: str = "first", *,
+                 device="cuda", seed: Optional[int] = 0, mesh=None):
+        super().__init__()
+        if not config.bidirectional:
+            raise ValueError(
+                "EncoderClassifier requires bidirectional=True — under a "
+                "causal mask the pooled position cannot see the sequence"
+            )
+        if pool not in ("first", "mean"):
+            raise ValueError(f"pool={pool!r} (first | mean)")
+        dev = resolve_device(device)
+        self.config = config
+        self.num_classes = num_classes
+        self.pool = pool
+        self.encoder = GPTLM(config, device=dev, seed=None, mesh=mesh, head=False)
+        self.pooler = nn.Linear(config.d_model, config.d_model, dtype=config.dtype, device=dev)
+        self.classifier = nn.Linear(config.d_model, num_classes, dtype=torch.float32,
+                                    device=dev)
+        if seed is not None:
+            init_params(self, seed)
+
+    @property
+    def device(self) -> torch.device:
+        return self.classifier.weight.device
+
+    def forward(self, tokens, positions=None, segment_ids=None, train: bool = False,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``train=True`` runs dropout (``dropout_rate`` > 0) in the trunk and
+        on the pooled vector, seeded from ``rng`` (a CPU generator)."""
+        cfg = self.config
+        h = self.encoder(tokens, positions=positions, segment_ids=segment_ids,
+                         hidden_only=True, train=train, rng=rng)
+        if self.pool == "mean":
+            if segment_ids is not None:
+                # the row's first segment only: pads and packed neighbours
+                # must not move the pooled vector
+                w = (segment_ids == segment_ids[:, :1]).to(h.dtype)[..., None]
+                pooled = (h * w).sum(dim=1) / w.sum(dim=1).clamp(min=1.0)
+            else:
+                pooled = h.mean(dim=1)
+        else:
+            pooled = h[:, 0]
+        pooled = torch.tanh(self.pooler(pooled))
+        if train and cfg.dropout_rate > 0.0:
+            seed = int(torch.randint(0, 2**62, (1,), generator=rng))
+            pooled = dropout(pooled, cfg.dropout_rate,
+                             torch.Generator(device=pooled.device).manual_seed(seed))
+        # fp32 class logits: a tiny tensor, and the CE's upcast costs nothing
+        return self.classifier(pooled.float())
+
+
+def mlm_mask(config: GPTConfig, tokens: torch.Tensor, rng: torch.Generator,
+             mask_rate: float = 0.15, mesh=None) -> torch.Tensor:
+    """The masked-LM corruption pattern of one batch: a bool tensor shaped
+    like ``tokens``, each position True with probability ``mask_rate``,
+    drawn on ``tokens``' device from one seed that ``rng`` (a CPU
+    generator, advanced by one draw) gives, folded over the config's data
+    and seq axes of ``mesh`` only (JAX's rule: model and pipe ranks hold the
+    same tokens and must corrupt them alike; data and seq shards draw
+    their own)."""
+    seed = fold_seed(int(torch.randint(0, 2**63 - 1, (1,), generator=rng)), 17)
+    gen = fold_rng_over_axis(torch.Generator().manual_seed(seed),
+                             (config.data_axis, config.seq_axis), mesh)
+    draw = int(torch.randint(0, 2**63 - 1, (1,), generator=gen))
+    device_gen = torch.Generator(device=tokens.device).manual_seed(draw)
+    return torch.rand(tokens.shape, generator=device_gen, device=tokens.device) < mask_rate
+
+
+def make_mlm_loss(config: GPTConfig, mask_rate: float = 0.15,
+                  mask_token_id: Optional[int] = None, train: bool = True, mesh=None):
+    """Masked-LM objective for bidirectional (encoder) configs, JAX's
+    ``make_mlm_loss``: ``loss_fn(model, batch, rng, masked=None)``.  Each
+    call corrupts the positions of :func:`mlm_mask` (``mask_rate`` of the
+    tokens) to ``mask_token_id`` (default the last vocabulary id, [MASK]
+    by convention) and scores the model on recovering the originals at
+    exactly those positions (times ``batch.loss_mask``), through
+    :func:`make_gpt_loss`'s machinery (vocab-parallel on a model axis,
+    chunked under ``loss_chunk``, the last pipe rank's).  ``masked`` (a bool
+    tensor like ``batch.tokens``) replaces the draw: the loss on a given
+    mask.  The training loss draws from ``rng`` (advancing it, so every
+    minibatch and step corrupts anew); the evaluation variant
+    (``train=False``) draws from a copy and leaves ``rng`` as it was.
+    Dropout keeps its own fold over every axis inside the inner loss."""
+    inner = make_gpt_loss(config, train=train, mesh=mesh)
+    mask_id = mask_token_id if mask_token_id is not None else config.vocab_size - 1
+
+    def loss_fn(model, batch, rng=None, masked=None):
+        if masked is None:
+            if rng is None:
+                raise ValueError("the MLM loss draws its mask from rng (a CPU torch.Generator)")
+            source = rng
+            if not train:
+                source = torch.Generator()
+                source.set_state(rng.get_state())
+            masked = mlm_mask(config, batch.tokens, source, mask_rate, mesh)
+        loss_mask = masked.float()
+        if batch.loss_mask is not None:
+            loss_mask = loss_mask * batch.loss_mask
+        mlm_batch = TextBatch(tokens=torch.where(masked, mask_id, batch.tokens),
+                              targets=batch.tokens, loss_mask=loss_mask,
+                              positions=batch.positions, segment_ids=batch.segment_ids)
+        return inner(model, mlm_batch, rng)
+
+    return loss_fn
+
+
 def gpt2_125m(**overrides) -> GPTConfig:
     return GPTConfig(**{
         **dict(vocab_size=50304, d_model=768, n_layers=12, n_heads=12, seq_len=1024),
@@ -333,6 +477,30 @@ def llama_1b(**overrides) -> GPTConfig:
     return GPTConfig(**{
         **dict(vocab_size=32000, d_model=2048, n_layers=16, n_heads=16, seq_len=2048,
                positional="rope", norm="rmsnorm", mlp="swiglu"),
+        **overrides,
+    })
+
+
+def bert_base(**overrides) -> GPTConfig:
+    """BERT-base-shaped bidirectional encoder (MLM via :func:`make_mlm_loss`):
+    vocab 30522 padded to 30592 (a multiple of 128; the last id doubles as
+    [MASK] by :func:`make_mlm_loss`'s default)."""
+    return GPTConfig(**{
+        **dict(vocab_size=30592, d_model=768, n_layers=12, n_heads=12, seq_len=512,
+               bidirectional=True),
+        **overrides,
+    })
+
+
+def bert_base_hf(**overrides) -> GPTConfig:
+    """BERT-base in its original (HF-checkpoint-faithful) form: post-norm
+    residuals, the embedding LayerNorm, erf gelu, vocab 30522 unpadded and
+    BERT's LayerNorm epsilon 1e-12: the config
+    :func:`~tpu_parallel_torch.models.hf.from_hf_bert` imports into."""
+    return GPTConfig(**{
+        **dict(vocab_size=30522, d_model=768, n_layers=12, n_heads=12, seq_len=512,
+               bidirectional=True, prenorm=False, embed_norm=True, mlp="gelu_exact",
+               scan_layers=False, norm_eps=1e-12),
         **overrides,
     })
 
@@ -514,7 +682,7 @@ def make_gpt_1f1b_grad_fn(config: GPTConfig, train: bool = True, mesh=None):
             if not last:
                 none = torch.zeros((), device=y.device)
                 return y, None, {"loss": (none, none), "accuracy": (none, none)}
-            h = model.norm_final(y).to(config.dtype)
+            h = y if model.norm_final is None else model.norm_final(y).to(config.dtype)
             mask = (mb.loss_mask if mb.loss_mask is not None
                     else torch.ones(mb.targets.shape, device=y.device))
             n_tok = mask.sum()

@@ -7,7 +7,11 @@ compute and hold their params in fp32, softmax runs in fp32.  The Llama
 family's pieces are JAX's too: ``positional="rope"`` rotates q and k in
 :class:`Attention` (:func:`apply_rope`, interleaved pairs) and drops the
 position table, ``norm="rmsnorm"`` and the gated MLPs (``swiglu``,
-``geglu``: bias-free ``gate``, ``up`` and ``down``).  Under ``fsdp`` and a mesh,
+``geglu``: bias-free ``gate``, ``up`` and ``down``).  The encoder family's
+are too: ``bidirectional`` attention (no causal mask; the flash path one
+non-causal :func:`flash_chunk_attention` over the sequence, and no
+decoding), post-norm blocks (``prenorm=False``) and the embedding
+LayerNorm (``embed_norm``).  Under ``fsdp`` and a mesh,
 each block is FSDP-sharded over the data axis (``parallel/fsdp.py``).  On a
 mesh whose model axis is above 1 the projections are tensor-parallel
 (``parallel/tp.py``): attention's ``qkv`` (or ``q`` and ``kv``) and the
@@ -56,7 +60,8 @@ from torch.utils.checkpoint import (
 
 from tpu_parallel_torch.models.moe import MoEMLP
 from tpu_parallel_torch.models.quantize import absmax_int8
-from tpu_parallel_torch.ops.flash_attention import FLASH_FWD_OP, flash_attention
+from tpu_parallel_torch.ops.flash_attention import (FLASH_FWD_OP, flash_attention,
+                                                    flash_chunk_attention)
 from tpu_parallel_torch.ops.ring_attention import (RING_FLASH_FWD_OP, ring_attention,
                                                    ring_flash_attention)
 from tpu_parallel_torch.ops.ulysses import gather_sequence, ulysses_attention
@@ -64,13 +69,6 @@ from tpu_parallel_torch.parallel.fsdp import maybe_shard
 from tpu_parallel_torch.parallel.tp import TPDense, model_axis
 from tpu_parallel_torch.runtime.mesh import axis_group
 
-# (field, default, what setting it would need) — fields this slice does not
-# implement; a config that sets one raises instead of silently ignoring it
-_UNSUPPORTED = (
-    ("prenorm", True, "post-norm blocks"),
-    ("embed_norm", False, "an embedding LayerNorm"),
-    ("bidirectional", False, "bidirectional attention"),
-)
 _MOE_ROUTERS = ("topk", "expert_choice")
 _MOE_DISPATCHES = ("dense", "alltoall")
 _MLPS = ("gelu", "gelu_exact", "relu", "swiglu", "geglu")
@@ -95,8 +93,11 @@ _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 class TransformerConfig:
     """Architecture knobs, field for field as in the JAX package.
 
-    ``dtype`` is a torch dtype.  Fields this slice does not implement raise
-    when set to anything but their default.  ``remat`` checkpoints each block
+    ``dtype`` is a torch dtype.  ``positional="relative"`` (the T5 bias)
+    raises: the port does not have it yet.  ``bidirectional`` drops the
+    causal mask (the encoder family: no decoding), ``prenorm=False`` makes
+    the blocks post-norm and ``embed_norm`` normalizes the summed
+    embedding (BERT's layout).  ``remat`` checkpoints each block
     when gradients are taken; ``remat_policy`` chooses what the backward
     keeps: ``"full"`` nothing (the block's forward is recomputed), ``"proj"``
     the qkv/out/up/down projection outputs, ``"proj_attn"`` those and the
@@ -173,12 +174,6 @@ class TransformerConfig:
     moe_dispatch: str = "dense"
 
     def __post_init__(self):
-        for field, default, needs in _UNSUPPORTED:
-            if getattr(self, field) != default:
-                raise NotImplementedError(
-                    f"{field}={getattr(self, field)!r} needs {needs}, which the "
-                    "PyTorch port does not have yet"
-                )
         if self.positional == "relative":
             raise NotImplementedError(
                 "positional='relative' needs the T5 relative position bias, which the "
@@ -389,6 +384,20 @@ def causal_attention(q, k, v, *, segment_ids=None, window: int = 0,
     # the "proj_attn" policy keeps this context (an O(seq) residual)
     with checkpoint_name("attn"):
         return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def bidirectional_flash_attention(q, k, v, segment_ids=None, *, block_q: int = 512,
+                                  block_k: int = 512, window: int = 0) -> torch.Tensor:
+    """Full-visibility flash attention, JAX's: ONE non-causal
+    :func:`flash_chunk_attention` over the whole sequence (grouped queries
+    routed natively, ``segment_ids`` masking padding or packed sequences),
+    its lse discarded (a zero lse cotangent in the backward).  ``window``
+    restricts it to the symmetric band |q - k| < window.  The encoder's
+    flash path and its Ulysses inner attention."""
+    out, _ = flash_chunk_attention(q, k, v, causal=False, block_q=block_q, block_k=block_k,
+                                   window=window, segment_ids_q=segment_ids,
+                                   segment_ids_kv=segment_ids)
+    return out
 
 
 def decode_attention(q, k_heads, v_heads, positions, window: int = 0,
@@ -815,10 +824,12 @@ class PagedKVCache(_KVStores):
 
 
 class Attention(nn.Module):
-    """Causal self-attention.  MHA uses one fused QKV projection whose output
+    """Self-attention, causal unless ``bidirectional`` (then decoding
+    raises JAX's error).  MHA uses one fused QKV projection whose output
     holds ``[q | k | v]`` per head; GQA uses separate ``q`` and ``kv``
-    projections.  The non-decode forward runs ``flash_attention`` or
-    ``causal_attention`` by ``attn_impl``; ``decode=True`` writes K/V into
+    projections.  The non-decode forward runs ``flash_attention`` (the
+    bidirectional form: :func:`bidirectional_flash_attention`), ring or
+    Ulysses attention, or ``causal_attention`` by ``attn_impl``; ``decode=True`` writes K/V into
     the layer's :class:`KVCache` (or, with ``block_table``, its
     :class:`PagedKVCache`) and reads the whole cache through
     ``decode_attention``.
@@ -868,6 +879,11 @@ class Attention(nn.Module):
                 cache=None, write_index=None, block_table=None,
                 dropout_gen: Optional[torch.Generator] = None) -> torch.Tensor:
         cfg = self.config
+        if decode and cfg.bidirectional:
+            raise NotImplementedError(
+                "incremental decoding with bidirectional attention "
+                "(encoders do not autoregress)"
+            )
         b, t = x.shape[:2]
         dh = cfg.head_dim
         with checkpoint_name("proj"):
@@ -964,8 +980,10 @@ class Attention(nn.Module):
 
     def _attend(self, q, k, v, segment_ids):
         cfg = self.config
-        flash = functools.partial(flash_attention, block_q=cfg.flash_block_q,
-                                  block_k=cfg.flash_block_k, window=cfg.attn_window)
+        # the encoder's flash path is one non-causal chunk over the sequence
+        flash = functools.partial(
+            bidirectional_flash_attention if cfg.bidirectional else flash_attention,
+            block_q=cfg.flash_block_q, block_k=cfg.flash_block_k, window=cfg.attn_window)
         # the flash, ring and ulysses paths route grouped queries natively
         if cfg.attn_impl == "flash":
             return flash(q, k, v, segment_ids=segment_ids)
@@ -975,7 +993,8 @@ class Attention(nn.Module):
             # rotate with their K/V
             ring = ring_flash_attention if q.is_cuda else ring_attention
             return ring(q, k, v, axis_name=cfg.seq_axis, mesh=self.mesh,
-                        window=cfg.attn_window, segment_ids=segment_ids)
+                        window=cfg.attn_window, segment_ids=segment_ids,
+                        causal=not cfg.bidirectional)
         if cfg.attn_impl == "ulysses":
             # the inner attention sees the whole sequence: under "proj_attn"
             # the all-to-alls' outputs are kept with the kernel's
@@ -988,7 +1007,8 @@ class Attention(nn.Module):
         if group != 1:  # the dense path has no head routing: expand K/V
             k = k.repeat_interleave(group, dim=2)
             v = v.repeat_interleave(group, dim=2)
-        return causal_attention(q, k, v, segment_ids=segment_ids, window=cfg.attn_window)
+        return causal_attention(q, k, v, segment_ids=segment_ids, window=cfg.attn_window,
+                                causal=not cfg.bidirectional)
 
 
 class MLP(nn.Module):
@@ -1034,7 +1054,9 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-norm block: x + attn(norm(x)); x + mlp(norm(x)).  With a
+    """Pre-norm block: x + attn(norm(x)); x + mlp(norm(x)); under
+    ``prenorm=False`` post-norm (original BERT): norm(x + attn(x));
+    norm(x + mlp(x)), each norm over the residual sum.  With a
     ``dropout_seed``, dropout runs after both sublayers, its masks drawn in
     that order from a generator on ``x``'s device seeded with it.  Under
     ``moe_experts`` > 0 the MLP is a :class:`~tpu_parallel_torch.models.moe.MoEMLP`
@@ -1067,14 +1089,20 @@ class Block(nn.Module):
         gen = None
         if dropout_seed is not None:
             gen = torch.Generator(device=x.device).manual_seed(dropout_seed)
-        h = self.norm_attn(x).to(dtype)
-        x = x + self.attn(h, positions, segment_ids, decode, cache, write_index, block_table,
-                          dropout_gen=gen)
-        h = self.norm_mlp(x).to(dtype)
-        if cfg.moe_experts > 0:
-            y, balance = self.moe(h, dropout_gen=gen)
-            return x + y, balance
-        return x + self.mlp(h, dropout_gen=gen), None
+        attn_args = (positions, segment_ids, decode, cache, write_index, block_table)
+        if not cfg.prenorm:
+            x = self.norm_attn(x + self.attn(x, *attn_args, dropout_gen=gen)).to(dtype)
+            y, balance = self._mlp(x, gen)
+            return self.norm_mlp(x + y).to(dtype), balance
+        x = x + self.attn(self.norm_attn(x).to(dtype), *attn_args, dropout_gen=gen)
+        y, balance = self._mlp(self.norm_mlp(x).to(dtype), gen)
+        return x + y, balance
+
+    def _mlp(self, h, gen):
+        """(the MLP's output, the MoE balance or None)."""
+        if self.config.moe_experts > 0:
+            return self.moe(h, dropout_gen=gen)
+        return self.mlp(h, dropout_gen=gen), None
 
 
 class BlockStack(nn.Module):
@@ -1142,7 +1170,9 @@ class BlockStack(nn.Module):
 class Embedding(nn.Module):
     """Token plus learned positional embedding, in ``config.dtype``; the
     token embedding alone unless ``positional="learned"`` (rope rotates q
-    and k inside :class:`Attention`, and there is no ``pos`` table).
+    and k inside :class:`Attention`, and there is no ``pos`` table).  Under
+    ``embed_norm`` (BERT's embeddings.LayerNorm) the summed embedding goes
+    through the fp32 norm ``norm`` and back to ``config.dtype``.
 
     Both lookups are flax's: a negative index ``i`` reads row ``i + rows``
     (ragged prefill's pad positions, -1, read the table's last row; the
@@ -1165,18 +1195,23 @@ class Embedding(nn.Module):
         if config.positional == "learned":
             self.pos = nn.Embedding(config.seq_len, config.d_model,
                                     dtype=config.dtype, device=device)
+        if config.embed_norm:
+            self.norm = make_norm(config, device)
 
     def forward(self, tokens, positions=None) -> torch.Tensor:
-        emb = self.tok(_wrap(tokens, self.config.vocab_size))
-        if self.config.positional != "learned":
-            return emb
-        if positions is None:
-            positions = torch.arange(tokens.shape[1], device=tokens.device)
-            if seq_parallel_active(self.config, self.mesh):
-                positions = positions + axis_group(self.mesh, self.config.seq_axis)[2] * \
-                    tokens.shape[1]
-            positions = positions.expand_as(tokens)
-        return emb + self.pos(_wrap(positions, self.config.seq_len))
+        cfg = self.config
+        emb = self.tok(_wrap(tokens, cfg.vocab_size))
+        if cfg.positional == "learned":
+            if positions is None:
+                positions = torch.arange(tokens.shape[1], device=tokens.device)
+                if seq_parallel_active(cfg, self.mesh):
+                    positions = positions + axis_group(self.mesh, cfg.seq_axis)[2] * \
+                        tokens.shape[1]
+                positions = positions.expand_as(tokens)
+            emb = emb + self.pos(_wrap(positions, cfg.seq_len))
+        if cfg.embed_norm:
+            emb = self.norm(emb).to(cfg.dtype)
+        return emb
 
 
 def _wrap(index: torch.Tensor, size: int) -> torch.Tensor:

@@ -35,14 +35,16 @@ parallelism (a seq axis above 1 with ``attn_impl`` ``"ring"`` or
 ``("data", "seq", "model")``).
 
 FSDP together with a model axis above 1 (``llama_1b_3d``) splits each
-tensor-parallel slice again over the data axis.  Not in the port yet,
-raising when asked for: the MLM objective (and the seq2seq family;
-ROADMAP queue A item 6).
+tensor-parallel slice again over the data axis.  ``objective="mlm"`` trains
+a bidirectional encoder (``bert_base``) on the masked-LM loss
+(``models/gpt.py:make_mlm_loss``); a bidirectional model refuses the causal
+objective, in JAX's words.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -59,8 +61,9 @@ from tpu_parallel_torch.core.optim import (SGD, AddDecayedWeights, AdamW, Chain,
 from tpu_parallel_torch.core.state import TextBatch, TrainState, get_num_params
 from tpu_parallel_torch.data import lm_batch
 from tpu_parallel_torch.models.convert import init_params
-from tpu_parallel_torch.models.gpt import (GPTConfig, GPTLM, gpt2_125m, gpt2_350m, llama_1b,
-                                           make_gpt_1f1b_grad_fn, make_gpt_loss, tiny_test)
+from tpu_parallel_torch.models.gpt import (GPTConfig, GPTLM, bert_base, gpt2_125m, gpt2_350m,
+                                           llama_1b, make_gpt_1f1b_grad_fn, make_gpt_loss,
+                                           make_mlm_loss, tiny_test)
 from tpu_parallel_torch.obs.registry import MetricRegistry
 from tpu_parallel_torch.obs.tracer import NULL_TRACER, Tracer
 from tpu_parallel_torch.parallel.spmd import build_train_functions, make_model_init
@@ -73,6 +76,7 @@ MODEL_REGISTRY: Dict[str, Callable[..., GPTConfig]] = {
     "gpt2_125m": gpt2_125m,
     "gpt2_350m": gpt2_350m,
     "llama_1b": llama_1b,
+    "bert_base": bert_base,
     "tiny": tiny_test,
 }
 
@@ -100,8 +104,9 @@ class TrainerConfig:
     tensor-parallel, a pipe axis above 1 pipeline-parallel, a seq axis
     above 1 sequence-parallel (``attn_impl`` ``"ring"`` or ``"ulysses"``).
     ``donate`` is accepted and changes
-    nothing: the port's step already updates its buffers in place.  ``mlm_mask_rate`` belongs to the MLM
-    objective, which raises (item 6).
+    nothing: the port's step already updates its buffers in place.  ``objective``:
+    ``"causal"`` (next-token LM) or ``"mlm"`` (the masked-LM loss of encoder
+    configs, corrupting ``mlm_mask_rate`` of the tokens).
     """
 
     model: str = "gpt2_125m"
@@ -113,7 +118,7 @@ class TrainerConfig:
     steps: int = 20
     # "adamw" | "lion" | "sgd"
     optimizer: str = "adamw"
-    # "causal" (next-token LM); "mlm" is refused (item 6)
+    # "causal" (next-token LM) | "mlm" (masked LM for bidirectional configs)
     objective: str = "causal"
     mlm_mask_rate: float = 0.15
     # "cosine" (decay to 10% of peak) | "linear" (decay to 0) | "constant";
@@ -235,12 +240,7 @@ class Trainer:
 
     def __init__(self, config: TrainerConfig, mesh=None, *, device="cuda",
                  tracer: Optional[Tracer] = None, registry: Optional[MetricRegistry] = None):
-        if config.objective == "mlm":
-            raise NotImplementedError(
-                "objective='mlm' (the masked-LM loss of encoder configs) is not in the port "
-                "yet (ROADMAP queue A item 6)"
-            )
-        if config.objective != "causal":
+        if config.objective not in ("causal", "mlm"):
             raise ValueError(f"objective={config.objective!r} (causal | mlm)")
         if mesh is None:
             mesh = make_mesh(MeshConfig(**_mesh_sizes(config.mesh)))
@@ -257,7 +257,18 @@ class Trainer:
         # the model's pipeline degree is dictated by the mesh
         overrides.setdefault("pipe_size", mesh_sizes(mesh)[PIPE_AXIS])
         self.model_config: GPTConfig = MODEL_REGISTRY[config.model](**overrides)
+        if self.model_config.bidirectional and config.objective == "causal":
+            # next-token CE on a bidirectional model: attention sees the target
+            raise ValueError(
+                "bidirectional models cannot train with objective='causal' "
+                "(attention sees the next-token target); use objective='mlm'"
+            )
         schedule = self.model_config.pipe_schedule
+        if schedule == "1f1b" and config.objective == "mlm":
+            # the 1F1B schedule computes the causal loss itself
+            raise NotImplementedError(
+                "objective='mlm' under pipe_schedule='1f1b' (the schedule's per-microbatch "
+                "loss is the causal one); use pipe_schedule='gpipe'")
         if schedule not in ("gpipe", "1f1b"):
             raise ValueError(
                 f"pipe_schedule={schedule!r} (gpipe | 1f1b) — an unknown "
@@ -301,11 +312,15 @@ class Trainer:
         # model starts with its modules' own values
         self.model = GPTLM(self.model_config, device=self.device, seed=None, mesh=mesh)
         self.tx = make_optimizer(config)
-        self.loss_fn = make_gpt_loss(self.model_config, mesh=mesh)
+        if config.objective == "mlm":
+            make_loss = functools.partial(make_mlm_loss, mask_rate=config.mlm_mask_rate)
+        else:
+            make_loss = make_gpt_loss
+        self.loss_fn = make_loss(self.model_config, mesh=mesh)
         grad_fn = None
         if schedule == "1f1b":
             grad_fn = make_gpt_1f1b_grad_fn(self.model_config, mesh=mesh)
-        self.eval_loss_fn = make_gpt_loss(self.model_config, train=False, mesh=mesh)
+        self.eval_loss_fn = make_loss(self.model_config, train=False, mesh=mesh)
         self.example_batch: TextBatch = self.local_rows(lm_batch(
             torch.Generator().manual_seed(0), config.global_batch_size,
             self.model_config.seq_len, self.model_config.vocab_size, device=self.device,
