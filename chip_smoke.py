@@ -9,9 +9,11 @@ parallelism on GPT-2 350M, sequence parallelism (ring and Ulysses
 attention) at 32k context, mixture of experts with expert
 parallelism (``gpt2_moe_ep``), the Llama family (``llama_1b`` served
 and trained on one device, ``llama_1b_3d``'s FSDP x TP x PP over eight
-ranks), and the bidirectional encoder (``bert_base`` served, trained on
+ranks), the bidirectional encoder (``bert_base`` served, trained on
 the masked-LM objective and fine-tuned as a classifier, with the
-HuggingFace interop of ``models/hf.py``), at full width.
+HuggingFace interop of ``models/hf.py``) and the encoder-decoder
+(``t5_small`` served and trained, ``t5_small_hf`` through the T5
+interop), at full width.
 
     python3 chip_smoke.py
 
@@ -21,9 +23,11 @@ source, all started together).  Phases, in order; any failure raises:
 
 1. setup: card name and power limit, versions, kernel builds and ``ptxas``;
 2. ``flash_fwd`` kernel against ``flash_fwd_reference`` at shapes (a)-(g),
-   the training pass's shape and (h) ``bert_base``'s 32 padded requests
+   the training pass's shape, (h) ``bert_base``'s 32 padded requests
    [32, 512] x 12 heads, non-causal over padding segments (lengths 64-512
-   from the seed; with the planted P.V fault), in both layouts: the main path's (q, k, v
+   from the seed; with the planted P.V fault) and (i) ``t5_small``'s
+   encoder over 16 padded sources [16, 512] x 8 heads (lengths 64-512),
+   in both layouts: the main path's (q, k, v
    views of a fused [B, S, H, 3D] qkv buffer, or q and views of a
    [B, S, H_KV, 2D] kv buffer under GQA; out written [B, S, H, D]) and the
    JAX layout [B, H, S, D], whose outputs must be bitwise equal; the
@@ -31,7 +35,7 @@ source, all started together).  Phases, in order; any failure raises:
    turns (kernel, SDPA, SDPA, kernel; medians), the [B, H, S, D] layout's
    and the plain version's times, and the bound;
 2b. ``flash_bwd`` (one pass for dq, dk and dv) against
-   ``flash_bwd_reference`` at shapes (a)-(h) and the training pass's shape,
+   ``flash_bwd_reference`` at shapes (a)-(i) and the training pass's shape,
    row by row, dq exactly 0 on empty rows; the kernel's time and SDPA's
    backward time taken in turns (kernel, SDPA, SDPA, kernel; medians), the
    plain version's time and the one-pass bound; at (a), planted faults that
@@ -435,6 +439,40 @@ source, all started together).  Phases, in order; any failure raises:
    2 layers, 8 rows, 2 steps (started with the CLI batch at phase 9,
    collected in phase 12): exit 0, 2 launches of each kernel per step,
    finite losses.
+20. the encoder-decoder: ``t5_small`` (6+6 layers, d 512, 8 heads of 64,
+   source and target 512, vocab 32128, bf16, flash; seeded).  Both
+   kernels at (c)'s shapes, the encoder non-causal over its all-ones mask
+   and the decoder causal, [16, 512] x 8 heads, against the plain versions,
+   timed in turns with SDPA, beside the encoder's shape without segments
+   (phase 2's row (i) is (a)'s encoder).  (a) the forward over 16 padded
+   sources (lengths 64-512 from the seed) and 16 targets of 512: 12
+   ``flash_fwd`` launches (6 non-causal, 6 causal, counted by stack), the
+   loss within ``LOSS_TOL`` of the xla path's, the logits token by token
+   by the row rule and within ``LOGITS_TOL`` against the xla path with
+   fp32 attention (V's second half zeroed in every layer's kernel call
+   must fail the rule), other pad tokens leaving every logit bitwise as
+   it was; forward and encode ms.  (b) greedy ``seq2seq_generate`` of 64
+   tokens for those sources against the teacher-forced argmax of its own
+   output (equal, or first differing on a top-2 gap below twice the bf16
+   paths' own distance), a top-p call, ``seq2seq_generate_beam`` with 4
+   beams on 4 sources, lazy tokens equal to eager's, the cross caches
+   replicated once per layer and moved by no step (cache-sized copies
+   counted per call: lazy only the expansion's, eager the expansion's
+   and the self caches' reorders); ms per decode step and per beam step,
+   tokens/s.  (c) the ``Trainer`` on ``t5_small_s2s`` at its 16 rows in
+   one minibatch, 4 steps (warm-up 1): step-1 gradients flash against xla
+   within ``TRAIN_GRAD_TOL`` per weight (the key slices of the qkv and the
+   cross kv biases left out), 12/12 launches per step (6/6 per stack), a
+   falling loss; state bytes, peak memory, step ms, tokens/s, MFU by
+   :func:`_t5_flops_per_step` (both stacks, the cross-attention, the
+   lm_head); a profile of one step and of (a)'s forward (wall, device busy
+   and idle share, the kernels' ms).  (d) ``t5_small_hf`` and its geglu variant through
+   ``to_hf_t5`` then ``from_hf_t5`` bitwise, the xla forward with the
+   relative bias finite with equal losses and greedy tokens before and
+   after.  (e) ``tpu_parallel_torch.train``'s ``main`` on
+   ``--config=t5_small_s2s`` at 2+2 layers, 2 steps (started with the CLI
+   batch at phase 9, collected in phase 12): exit 0, 4 launches of each
+   kernel per step (2 per stack), finite losses.
 
 Weights and inputs are made from ``SEED``.  The kernel launch counters are
 set to 0 before each main path (phases 3-4: inference; phase 6's steps:
@@ -445,7 +483,8 @@ leg and its leg (b)'s steps; phase 16's CLI leg and the steps of its
 legs (b) and (c) in every rank; phase 17 (a)'s forward and the steps of
 (c) and (d) in every rank; phase 18 (a)'s forward and ``generate()``, (b)'s
 steps, (c)'s steps in every rank and (d)'s CLI; phase 19 (a)'s forward, (b)'s
-steps and (e)'s CLI) and read after it.  The last two lines
+steps and (e)'s CLI; phase 20 (a)'s forward, (c)'s steps and (e)'s CLI)
+and read after it.  The last two lines
 are the ``kernels`` JSON object and the ``{"ok": true, ...}`` line.
 """
 
@@ -688,6 +727,11 @@ def kernel_phase(seed):
     rows["h_bert_padded"] = fwd_kernel_row(
         "h_bert_padded", BERT_SHAPE, gen, plant=True,
         seg=_bert_padding(BERT_ROWS, torch.Generator().manual_seed(seed + 197)))
+    # t5_small's encoder over padded sources (phase 20 (a)): non-causal, the
+    # model's segment ids (real tokens 1, pads 0)
+    rows["i_t5_enc_padded"] = fwd_kernel_row(
+        "i_t5_enc_padded", T5_ENC_SHAPE, gen,
+        seg=_t5_src_mask(T5_ROWS, torch.Generator().manual_seed(seed + 205)).to(torch.int32))
     return rows
 
 
@@ -820,6 +864,9 @@ def backward_kernel_phase(seed):
     rows["h_bert_padded"] = bwd_kernel_row(
         "h_bert_padded", BERT_SHAPE, gen, main_path=True,
         seg=_bert_padding(BERT_ROWS, torch.Generator().manual_seed(seed + 197)))
+    rows["i_t5_enc_padded"] = bwd_kernel_row(
+        "i_t5_enc_padded", T5_ENC_SHAPE, gen, main_path=True,
+        seg=_t5_src_mask(T5_ROWS, torch.Generator().manual_seed(seed + 205)).to(torch.int32))
     return rows
 
 
@@ -4264,7 +4311,7 @@ def cli_batch(work):
     return dict(dp=dp_cli_leg(work, cores), fsdp=fsdp_cli_leg(work, cores),
                 tp=tp_cli_leg(work, cores), pp=pp_cli_leg(work, cores),
                 sp=sp_cli_leg(work, cores), llama=llama_cli_leg(work, cores),
-                bert=bert_cli_leg(work, cores))
+                bert=bert_cli_leg(work, cores), t5=t5_cli_leg(work, cores))
 
 
 def dp_phase(smi, work, clis):
@@ -8944,6 +8991,673 @@ def bert_phase(smi, cli_collected):
                  legs_s=legs_s), rows, launches)
 
 
+T5_ROWS = 16  # t5_small_s2s's global batch: (a)'s requests and (c)'s minibatch
+T5_SEQ = 512  # t5_small's source and target length
+T5_MIN_LEN = 64  # real source tokens per padded request: 64-512, drawn from the seed
+# the kernels at t5_small's shapes, 8 heads of 64: the encoder non-causal
+# (over padding segments in (a), over its all-ones mask in (c)) and the
+# decoder causal
+T5_ENC_SHAPE = (T5_ROWS, 8, 8, T5_SEQ, 64, dict(causal=False), False, 20)
+T5_DEC_SHAPE = (T5_ROWS, 8, 8, T5_SEQ, 64, dict(causal=True), False, 20)
+T5_NEW = 64  # (b): greedy new tokens per source
+T5_SAMPLED_NEW = 16  # (b): the top-p call's
+T5_BEAM_ROWS = 4  # (b)
+T5_BEAMS = 4  # (b)
+T5_BEAM_NEW = 32  # (b)
+T5_STEPS = 4  # (c)
+T5_WARMUP = 1  # (c): step 1's rate is 0, steps 2-4 update
+T5_CLI_LAYERS = 2  # (e): 2 encoder and 2 decoder layers
+T5_CLI_STEPS = 2  # (e)
+
+
+def _t5_src_mask(rows, gen):
+    """The source mask [rows, T5_SEQ] bool on the card: each row's first n
+    tokens real, n drawn in T5_MIN_LEN..T5_SEQ from ``gen`` (a CPU
+    generator)."""
+    lengths = torch.randint(T5_MIN_LEN, T5_SEQ + 1, (rows, 1), generator=gen)
+    return (torch.arange(T5_SEQ)[None] < lengths).cuda()
+
+
+def _t5_attn_impl(model, impl):
+    """Every self-attention of both stacks of ``model`` runs ``impl``: the
+    same weights through another path (cross-attention is one path)."""
+    for block in model.encoder.children():
+        block.attn.config = dataclasses.replace(block.attn.config, attn_impl=impl)
+    for block in model.decoder.children():
+        block.self_attn.config = dataclasses.replace(block.self_attn.config, attn_impl=impl)
+
+
+class _StackCalls:
+    """Counts each stack's kernel launches while in force: ``fwd`` the
+    ``flash_fwd`` launches made inside the encoder's self-attention calls
+    (``bidirectional_flash_attention``) and the decoder's
+    (``flash_attention``), a remat recompute that keeps the kernel's
+    outputs launching none; with ``model``, ``bwd`` the ``flash_bwd``
+    launches before the memory's gradient is complete (the decoder's: every
+    decoder layer reads the memory, so all of its backward runs first) and
+    after it (the encoder's)."""
+
+    def __init__(self, model=None):
+        self.model = model
+
+    def __enter__(self):
+        from tpu_parallel_torch.models import layers
+        from tpu_parallel_torch.ops import flash_attention as fa
+
+        self.layers, self.fa = layers, fa
+        self.fwd = dict(encoder=0, decoder=0)
+        self.bwd_start, self.bwd_split = fa.flash_bwd_launches, None
+        self.saved = (layers.bidirectional_flash_attention, layers.flash_attention)
+
+        def counted(stack, fn):
+            def call(*args, **kw):
+                before = fa.flash_fwd_launches
+                out = fn(*args, **kw)
+                self.fwd[stack] += fa.flash_fwd_launches - before
+                return out
+            return call
+
+        layers.bidirectional_flash_attention = counted("encoder", self.saved[0])
+        layers.flash_attention = counted("decoder", self.saved[1])
+        if self.model is not None:
+            real_encode = type(self.model).encode
+
+            def encode(*args, **kw):
+                memory = real_encode(self.model, *args, **kw)
+                if memory.requires_grad:
+                    memory.register_hook(self._split)
+                return memory
+
+            self.model.encode = encode
+        return self
+
+    def _split(self, grad):
+        self.bwd_split = self.fa.flash_bwd_launches
+        return grad
+
+    @property
+    def bwd(self):
+        if self.bwd_split is None:
+            return dict(encoder=0, decoder=0)
+        return dict(decoder=self.bwd_split - self.bwd_start,
+                    encoder=self.fa.flash_bwd_launches - self.bwd_split)
+
+    def __exit__(self, *exc):
+        self.layers.bidirectional_flash_attention, self.layers.flash_attention = self.saved
+        if self.model is not None:
+            del self.model.encode
+
+
+def _t5_flops_per_step(cfg, rows, s_src, s_dst):
+    """Training FLOPs of one step of the encoder-decoder: 6 per matmul
+    parameter per token it sees (the encoder's blocks per source token; the
+    decoder's self-attention, cross q and out, MLP and the lm_head per
+    target token, cross k and v per source token, in every decoder layer)
+    and 12 * d per attended (query, key) pair (the encoder's S_src^2, the
+    decoder's causal S_dst (S_dst + 1) / 2 and cross S_dst * S_src).  The
+    accounting of ``utils/profiling`` models a decoder-only stack."""
+    d = cfg.d_model
+    mlp = (3 if cfg.mlp in ("swiglu", "geglu") else 2) * d * cfg.mlp_ratio * d
+    enc = cfg.encoder_layers * (4 * d * d + mlp) * s_src
+    dec = cfg.n_layers * ((6 * d * d + mlp) * s_dst + 2 * d * d * s_src)
+    head = cfg.vocab_size * d * s_dst
+    pairs = cfg.encoder_layers * s_src * s_src + cfg.n_layers * (
+        s_dst * (s_dst + 1) // 2 + s_dst * s_src)
+    return rows * (6 * (enc + dec + head) + 12 * d * pairs)
+
+
+def t5_serve_leg(seed):
+    """(a) and (b): ``t5_small`` (bf16, flash) at full width and depth.
+    (a) the forward over T5_ROWS padded sources and T5_ROWS targets of
+    T5_SEQ tokens: 12 ``flash_fwd`` launches (6 non-causal, 6 causal), the
+    loss within LOSS_TOL of the xla path's, the logits token by token by
+    the row rule against the xla path with fp32 attention (V's second half
+    zeroed in every layer's kernel call must fail it), other pad tokens
+    leaving every logit bitwise as it was; forward ms.  (b) greedy
+    ``seq2seq_generate`` of T5_NEW tokens against the teacher-forced argmax
+    of its own output (phase 18's rule where they differ), a top-p call,
+    lazy and eager beam search (tokens equal; the cross caches replicated
+    once and never copied by a step); encode ms, ms per decode step,
+    tokens/s.  Returns the report and the seeded draws (for (c))."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from tpu_parallel_torch.core.losses import token_cross_entropy
+    from tpu_parallel_torch.models import layers
+    from tpu_parallel_torch.models import seq2seq as s2s
+    from tpu_parallel_torch.models.convert import init_params
+    from tpu_parallel_torch.ops import flash_attention as fa
+
+    cfg = s2s.t5_small(attn_impl="flash")
+    t0 = time.perf_counter()
+    model = s2s.EncoderDecoder(cfg, device="cuda", seed=None).eval()
+    draws = init_params(model, seed)
+    torch.cuda.synchronize()
+    out = dict(build_s=time.perf_counter() - t0,
+               params=sum(p.numel() for p in model.parameters()))
+    gen = torch.Generator().manual_seed(seed + 200)
+    src = torch.randint(2, cfg.vocab_size, (T5_ROWS, T5_SEQ), generator=gen).cuda()
+    dst = torch.randint(2, cfg.vocab_size, (T5_ROWS, T5_SEQ), generator=gen).cuda()
+    targets = torch.randint(2, cfg.vocab_size, (T5_ROWS, T5_SEQ), generator=gen).cuda()
+    mask = _t5_src_mask(T5_ROWS, gen)
+    with torch.inference_mode():
+        _reset_launches()  # the inference main path starts here
+        with _StackCalls() as calls:
+            logits = model(src, dst, mask)
+        torch.cuda.synchronize()
+        out["inference_launches"] = fa.flash_fwd_launches  # and ends here
+        out["stack_launches"] = dict(calls.fwd)
+        if out["inference_launches"] != cfg.encoder_layers + cfg.n_layers \
+                or calls.fwd != dict(encoder=cfg.encoder_layers, decoder=cfg.n_layers) \
+                or not torch.isfinite(logits).all():
+            raise AssertionError(f"(a): {out['inference_launches']} launches, by stack "
+                                 f"{calls.fwd}, finite {torch.isfinite(logits).all()}")
+        _t5_attn_impl(model, "xla")
+        want = model(src, dst, mask)
+        plain = layers.causal_attention
+        layers.causal_attention = lambda q, k, v, **kw: plain(q.float(), k.float(), v.float(),
+                                                              **kw).to(q.dtype)
+        try:
+            want32 = model(src, dst, mask)
+        finally:
+            layers.causal_attention = plain
+            _t5_attn_impl(model, "flash")
+        got = logits.float().reshape(-1, logits.shape[-1])
+        ref = want32.float().reshape(-1, want32.shape[-1])
+        flat = targets.reshape(-1)
+        out["loss"] = token_cross_entropy(got, flat).mean().item()
+        out["xla_loss"] = token_cross_entropy(want.float().reshape(-1, want.shape[-1]),
+                                              flat).mean().item()
+        out["logits_max_abs_err"] = (got - ref).abs().max().item()
+        out["logits_rel_l2"] = ((got - ref).norm() / ref.norm()).item()
+        out["worst_row_ratio"] = row_error_ratio(got, ref, *LLAMA_LOGITS_ROW_TOL)
+        out["xla_bf16_worst_row_ratio"] = row_error_ratio(
+            want.float().reshape(-1, want.shape[-1]), ref, *LLAMA_LOGITS_ROW_TOL)
+        del want, want32, got
+        # the planted fault: V's second half of head_dim zeroed in every
+        # layer's kernel call, both stacks; its launches do not count
+        saved = fa.flash_fwd_launches
+        real_fns = (layers.bidirectional_flash_attention, layers.flash_attention)
+
+        def zeroed(fn):
+            def call(q, k, v, *args, **kw):
+                v = v.clone()
+                v[..., v.shape[-1] // 2:] = 0
+                return fn(q, k, v, *args, **kw)
+            return call
+
+        layers.bidirectional_flash_attention, layers.flash_attention = map(zeroed, real_fns)
+        try:
+            bad = model(src, dst, mask).float().reshape(-1, ref.shape[-1])
+        finally:
+            layers.bidirectional_flash_attention, layers.flash_attention = real_fns
+        out["planted_worst_row_ratio"] = row_error_ratio(bad, ref, *LLAMA_LOGITS_ROW_TOL)
+        del bad, ref
+        # other pad tokens: no logit may move
+        other = torch.where(mask, src, torch.randint_like(src, 2, cfg.vocab_size))
+        moved = model(other, dst, mask)
+        out["pad_change_max_abs"] = (moved.float() - logits.float()).abs().max().item()
+        del moved, logits
+        if abs(out["loss"] - out["xla_loss"]) > LOSS_TOL or out["worst_row_ratio"] > 1 \
+                or out["logits_max_abs_err"] > LOGITS_TOL:
+            raise AssertionError(f"(a): the flash forward disagrees with the xla forward: {out}")
+        if out["planted_worst_row_ratio"] <= 1:
+            raise AssertionError(f"(a): the logits' row rule passes a planted fault: {out}")
+        if out["pad_change_max_abs"] != 0:
+            raise AssertionError(f"(a): changing pad tokens moved the logits: {out}")
+        out["forward_ms"] = host_ms(lambda: model(src, dst, mask), 3)
+        out["encode_ms"] = host_ms(lambda: model.encode(src, mask), 3)
+        out["forward_profile"] = _step_profile(lambda: model(src, dst, mask))
+        fa.flash_fwd_launches = saved
+    out.update(real_source_tokens=int(mask.sum()),
+               forward_tokens_per_s=T5_ROWS * 2 * T5_SEQ / (out["forward_ms"] / 1e3))
+
+    # (b) greedy decoding against its own teacher forcing
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = s2s.seq2seq_generate(model, src, mask, max_new_tokens=T5_NEW, bos_id=0)
+        torch.cuda.synchronize()
+        out["generate_s"] = time.perf_counter() - t0
+        forced = torch.cat([torch.zeros_like(toks[:, :1]), toks[:, :-1]], dim=1)
+        tf = model(src, forced, mask).float()
+        argmax = tf.argmax(-1)
+        held = []
+        for r in range(T5_ROWS):
+            if torch.equal(argmax[r], toks[r]):
+                continue
+            j = int((argmax[r] != toks[r]).nonzero()[0])
+            # the decode path's logits there: the same context replayed
+            cache = model.init_cache(T5_ROWS)
+            memory = model.encode(src, mask)
+            h = model.decode(forced[:, :1], memory, mask, decode=True, cache=cache,
+                             hidden_only=True)
+            for t in range(1, j + 1):
+                h = model.decode(forced[:, t:t + 1], None, decode=True, cache=cache,
+                                 hidden_only=True)
+            dec = model.lm_head(h[:, -1]).float()[r]
+            noise = (dec - tf[r, j]).abs().max().item()
+            top2 = tf[r, j].topk(2).values
+            gap, limit = (top2[0] - top2[1]).item(), max(FP32_TIE_GAP, 2 * noise)
+            if gap >= limit:
+                raise AssertionError(f"(b): row {r}'s greedy token {j} differs from its teacher "
+                                     f"forcing with top-2 gap {gap:.3e} >= {limit:.3e}")
+            held.append(dict(row=r, step=j, top2_gap=gap, limit=limit))
+        out["greedy_vs_forced"] = dict(rows_equal=T5_ROWS - len(held), held=held)
+        del tf, argmax
+        # ms per decode step: a prefill, then T5_NEW - 1 timed steps
+        cache = model.init_cache(T5_ROWS)
+        memory = model.encode(src, mask)
+        tok = toks[:, :1]
+        model.decode(torch.zeros_like(tok), memory, mask, decode=True, cache=cache,
+                     hidden_only=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(T5_NEW - 1):
+            model.lm_head(model.decode(toks[:, t:t + 1], None, decode=True, cache=cache,
+                                       hidden_only=True)[:, -1])
+        torch.cuda.synchronize()
+        out["decode_step_ms"] = (time.perf_counter() - t0) * 1e3 / (T5_NEW - 1)
+        out["generate_tokens_per_s"] = T5_ROWS * T5_NEW / out["generate_s"]
+        sampled = s2s.seq2seq_generate(
+            model, src, mask, torch.Generator(device="cuda").manual_seed(seed + 201),
+            max_new_tokens=T5_SAMPLED_NEW, temperature=1.0, top_p=0.9, bos_id=0)
+        if sampled.shape != (T5_ROWS, T5_SAMPLED_NEW) or int(sampled.min()) < 0 \
+                or int(sampled.max()) >= cfg.vocab_size:
+            raise AssertionError(f"(b): sampled tokens {sampled.shape}")
+        out["sampled_distinct_tokens"] = int(sampled.unique().numel())
+
+        # beam search: the cross caches are replicated once, at the
+        # expansion, and no step copies them (nor, lazily, the self caches)
+        expansions, steps = [], []
+        real_take, real_decode = s2s.CrossKVCache.take_rows, model.decode
+        cache_numel = cfg.n_heads * T5_BEAM_ROWS * T5_BEAMS * T5_SEQ * cfg.head_dim
+        names = ("copy_", "clone", "_to_copy", "index_select", "contiguous", "cat", "index",
+                 "gather", "_reshape_copy")
+
+        class Count(TorchDispatchMode):
+            def __init__(self):
+                super().__init__()
+                self.seen = {}
+
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                result = func(*args, **(kwargs or {}))
+                name = func.overloadpacket.__name__
+                if name in names and isinstance(result, torch.Tensor) \
+                        and result.numel() >= cache_numel:
+                    self.seen[name] = self.seen.get(name, 0) + 1
+                return result
+
+        def decode_counted(dst_, memory_, *args, cache=None, **kw):
+            if memory_ is None:
+                steps.append([(c.key_heads.data_ptr(), c.value_heads.data_ptr())
+                              for c in cache.cross])
+            return real_decode(dst_, memory_, *args, cache=cache, **kw)
+
+        s2s.CrossKVCache.take_rows = lambda self, rows: expansions.append(1) or \
+            real_take(self, rows)
+        model.decode = decode_counted
+        beams = {}
+        try:
+            for lazy in (True, False):
+                expansions.clear()
+                steps.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tk, sc = s2s.seq2seq_generate_beam(
+                    model, src[:T5_BEAM_ROWS], mask[:T5_BEAM_ROWS], bos_id=0,
+                    max_new_tokens=T5_BEAM_NEW, num_beams=T5_BEAMS, lazy=lazy)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                moved = sum(p != steps[0] for p in steps[1:])
+                counter = Count()
+                with counter:  # the same call, its cache-sized copies counted
+                    s2s.seq2seq_generate_beam(
+                        model, src[:T5_BEAM_ROWS], mask[:T5_BEAM_ROWS], bos_id=0,
+                        max_new_tokens=T5_BEAM_NEW, num_beams=T5_BEAMS, lazy=lazy)
+                copies = sum(counter.seen.values())
+                # the expansion copies each layer's self K and V and cross K
+                # and V once; eager steps reorder the self K and V only
+                want = 4 * cfg.n_layers + (0 if lazy else
+                                           2 * cfg.n_layers * (T5_BEAM_NEW - 1))
+                beams["lazy" if lazy else "eager"] = dict(
+                    tokens=tk, scores=sc, ms=ms, expansions=len(expansions) // 2,
+                    cross_moved_steps=moved, cache_sized_copies=counter.seen,
+                    ms_per_step=ms / T5_BEAM_NEW)
+                if len(expansions) != 2 * cfg.n_layers or moved or copies != want:
+                    raise AssertionError(
+                        f"(b): cross caches copied {len(expansions) // 2} times per layer, "
+                        f"moved in {moved} steps; {copies} cache-sized copies "
+                        f"({counter.seen}), want {want}")
+        finally:
+            s2s.CrossKVCache.take_rows = real_take
+            del model.decode
+        if not torch.equal(beams["lazy"]["tokens"], beams["eager"]["tokens"]):
+            raise AssertionError("(b): lazy beam tokens differ from eager's")
+        out["beam"] = {k: dict(v, tokens=None, scores=v["scores"].tolist())
+                       for k, v in beams.items()}
+        out["beam_score_diff"] = (beams["lazy"]["scores"] - beams["eager"]["scores"]
+                                  ).abs().max().item()
+    del model, memory, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, draws
+
+
+def _t5_rel_by_name(got, want, cfg):
+    """:func:`_rel_by_name`, the key slice of the cross-attention's kv bias
+    left out too (zero in exact arithmetic, as the self key bias's)."""
+    dh = cfg.head_dim
+    not_key = (torch.arange(2 * cfg.d_model, device="cuda") % (2 * dh)) >= dh
+    got, want = dict(got), dict(want)
+    for n in [n for n in want if n.endswith("cross_attn.kv.bias")]:
+        got[n], want[n] = got[n][not_key], want[n][not_key]
+    return _rel_by_name(got, want, cfg)
+
+
+def t5_train_leg(seed, card_name, draws):
+    """(c): the ``Trainer`` on ``t5_small_s2s`` (its global batch of 16 x
+    512 / 512 in one minibatch, flash, "proj_attn", AdamW) from (a)'s
+    seeded draws: one minibatch's loss and gradients flash against xla on
+    the same weights (phase 6's rule), then T5_STEPS steps (warm-up
+    T5_WARMUP) on the Trainer's batch (its all-True source mask): 12 launches
+    of each kernel per step (6 per stack), a falling loss; state bytes,
+    peak memory, step ms (steps 2 on), tokens/s and MFU by
+    :func:`_t5_flops_per_step`; then a profile of one more step."""
+    from tpu_parallel_torch.configs import get_config
+    from tpu_parallel_torch.core.metrics import compute
+    from tpu_parallel_torch.train_lib import Trainer, TrainerConfig, make_lr_schedule
+    from tpu_parallel_torch.utils.profiling import peak_flops
+
+    d = get_config("t5_small_s2s")
+    config = TrainerConfig(model=d["model"], model_overrides=d["model_overrides"],
+                           objective=d["objective"], global_batch_size=d["global_batch_size"],
+                           num_minibatches=d["num_minibatches"], steps=T5_STEPS,
+                           warmup_steps=T5_WARMUP, learning_rate=d["learning_rate"],
+                           weight_decay=d["weight_decay"], seed=seed, mesh=LLAMA_ONE)
+    lrs = [make_lr_schedule(config)(i) for i in range(T5_STEPS)]
+    t0 = time.perf_counter()
+    trainer = Trainer(config, device="cuda")
+    state = trainer.init(draws)
+    torch.cuda.synchronize()
+    out = dict(build_s=time.perf_counter() - t0, lr_by_step=lrs)
+    cfg = trainer.model_config
+    batch = trainer.example_batch
+    grads = {}
+    for name in ("flash", "xla"):
+        _t5_attn_impl(trainer.model, name)
+        loss, _ = trainer.loss_fn(trainer.model, batch, None)
+        loss.backward()
+        grads[name] = (loss.item(), {n: p.grad for n, p in trainer.model.named_parameters()})
+        trainer.model.zero_grad(set_to_none=True)
+    _t5_attn_impl(trainer.model, "flash")
+    worst, median = _t5_rel_by_name(grads["flash"][1], grads["xla"][1], cfg)
+    out.update(flash_loss=grads["flash"][0], xla_loss=grads["xla"][0], grad_rel_max=worst,
+               grad_rel_median=median)
+    del grads
+    if abs(out["flash_loss"] - out["xla_loss"]) > LOSS_TOL or worst[0] > TRAIN_GRAD_TOL:
+        raise AssertionError(f"(c): flash training gradients disagree with the xla path: {out}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()  # the training main path starts here
+    per_step, losses, step_ms, stacks = [], [], [], []
+    for _ in range(T5_STEPS):
+        before = _launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _StackCalls(trainer.model) as calls:
+            state, metrics = trainer.step_fn(state, None, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        per_step.append([a - b for a, b in zip(_launch_counts(), before)])
+        stacks.append(dict(fwd=dict(calls.fwd), bwd=calls.bwd))
+        losses.append(compute(metrics)["loss"])
+    launches = dict(zip(LAUNCH_COUNTERS, _launch_counts()))
+    # where a step's time goes: the device's busy ms against the wall
+    out["step_profile"] = _step_profile(lambda: trainer.step_fn(state, None, batch))
+    layers_ = cfg.encoder_layers + cfg.n_layers
+    by_stack = dict(encoder=cfg.encoder_layers, decoder=cfg.n_layers)
+    if per_step != [[layers_] * 2] * T5_STEPS \
+            or stacks != [dict(fwd=by_stack, bwd=by_stack)] * T5_STEPS:
+        raise AssertionError(f"(c): launches per step {per_step}, by stack {stacks}; "
+                             f"want {layers_} of each kernel, {by_stack} by stack")
+    _falls("(c)", losses)
+    timed = step_ms[1:]
+    step_s = sum(timed) / len(timed) / 1e3
+    tokens_per_s = config.global_batch_size * cfg.seq_len / step_s
+    peak = peak_flops(card_name)
+    flops = _t5_flops_per_step(cfg, config.global_batch_size, cfg.source_len, cfg.seq_len)
+    out.update(losses=losses, step_ms=step_ms, launches_per_step=per_step[0], launches=launches,
+               stack_launches_per_step=stacks[0], tokens_per_s=tokens_per_s,
+               state_bytes=_state_bytes(state),
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               params=trainer.num_params, flops_per_step=flops,
+               mfu=flops / step_s / peak if peak else None)
+    del trainer, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def t5_hf_leg(seed):
+    """(d): ``t5_small_hf`` (relu) and its geglu variant, seeded on the card,
+    through ``to_hf_t5`` then ``from_hf_t5``: bitwise (head_dim 64 makes the
+    attention-scale fold exact); the xla forward with the relative bias
+    finite, its loss equal on the round-tripped weights, and greedy tokens
+    equal before and after the round trip."""
+    import math
+
+    from tpu_parallel_torch.core.losses import token_cross_entropy
+    from tpu_parallel_torch.models import seq2seq as s2s
+    from tpu_parallel_torch.models.hf import from_hf_t5, to_hf_t5
+
+    out = {}
+    gen = torch.Generator().manual_seed(seed + 202)
+    vocab = s2s.t5_small_hf().vocab_size
+    src = torch.randint(2, vocab, (T5_BEAM_ROWS, T5_SEQ), generator=gen).cuda()
+    dst = torch.randint(2, vocab, (T5_BEAM_ROWS, T5_SEQ), generator=gen).cuda()
+    mask = _t5_src_mask(T5_BEAM_ROWS, gen)
+    for mlp in ("relu", "geglu"):
+        cfg = s2s.t5_small_hf(mlp=mlp)
+        model = s2s.EncoderDecoder(cfg, device="cuda", seed=seed + 203).eval()
+        t0 = time.perf_counter()
+        sd = to_hf_t5(model, cfg)
+        back = from_hf_t5(sd, cfg)
+        round_trip_s = time.perf_counter() - t0
+        _bitwise(f"(d) t5_small_hf {mlp}", model.state_dict(), back)
+        again = s2s.EncoderDecoder(cfg, device="cuda", seed=None).eval()
+        again.load_state_dict(back)
+        with torch.inference_mode():
+            losses = []
+            for m in (model, again):
+                logits = m(src, dst, mask).float()
+                if not torch.isfinite(logits).all():
+                    raise AssertionError(f"(d) {mlp}: non-finite logits")
+                losses.append(token_cross_entropy(logits[:, :-1].reshape(-1, logits.shape[-1]),
+                                                  dst[:, 1:].reshape(-1)).mean().item())
+            toks = [s2s.seq2seq_generate(m, src, mask, max_new_tokens=16, bos_id=0)
+                    for m in (model, again)]
+        if losses[0] != losses[1] or not math.isfinite(losses[0]) \
+                or not torch.equal(toks[0], toks[1]):
+            raise AssertionError(f"(d) {mlp}: the round trip changed the loss {losses} or the "
+                                 "greedy tokens")
+        out[mlp] = dict(round_trip_s=round_trip_s, hf_tensors=len(sd), tensors=len(back),
+                        loss=losses[0], params=sum(v.numel() for v in back.values()))
+        del model, again, back, sd
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def t5_cli_leg(work, cores):
+    """(e), launched: this script's ``t5_cli`` leg, which runs
+    ``tpu_parallel_torch.train``'s ``main`` on ``--config=t5_small_s2s``;
+    :func:`t5_cli_check` holds it."""
+    metrics = Path(work, "t5_metrics.prom")
+    return _launch([sys.executable, str(Path(__file__).resolve()), "--leg", "t5_cli",
+                    str(metrics)], cores), metrics
+
+
+def t5_cli_run_leg(metrics):
+    """(e)'s process: ``tpu_parallel_torch.train``'s ``main`` on
+    ``--config=t5_small_s2s`` at T5_CLI_LAYERS + T5_CLI_LAYERS layers,
+    T5_CLI_STEPS steps, with each step's launches and loss."""
+    from tpu_parallel_torch import train
+    from tpu_parallel_torch.core.metrics import accumulate_metrics, compute
+    from tpu_parallel_torch.train_lib import Trainer
+
+    per_step, losses = [], []
+    real_step = Trainer.step_fn
+
+    def step(self, state, metrics, batch):
+        before = _launch_counts()
+        state, step_metrics = real_step(self, state, None, batch)
+        per_step.append([a - b for a, b in zip(_launch_counts(), before)])
+        losses.append(compute(step_metrics)["loss"])
+        return state, accumulate_metrics(metrics, step_metrics)
+
+    Trainer.step_fn = step
+    _reset_launches()  # the main path starts here
+    code = train.main(["--config=t5_small_s2s",
+                       f"--config.model_overrides.n_layers={T5_CLI_LAYERS}",
+                       f"--config.model_overrides.enc_layers={T5_CLI_LAYERS}",
+                       f"--config.steps={T5_CLI_STEPS}", "--config.log_every=1",
+                       f"--metrics-out={metrics}"])
+    return dict(exit=code, launches_per_step=per_step, losses=losses,
+                launches=dict(zip(LAUNCH_COUNTERS, _launch_counts())))
+
+
+def t5_cli_check(collected):
+    """(e): exit 0, one launch of each kernel per layer of each stack per
+    step, finite losses, ``train_loss`` in the metrics."""
+    import math
+
+    (out, wall), metrics = collected
+    lines = [line for line in out.splitlines() if line.startswith(DP_RESULT)]
+    if len(lines) != 1:
+        raise AssertionError(f"(e): no result line: {out[-2000:]}")
+    r = json.loads(lines[0][len(DP_RESULT):])
+    if r["exit"] != 0 or r["launches_per_step"] != [[2 * T5_CLI_LAYERS] * 2] * T5_CLI_STEPS \
+            or not all(math.isfinite(x) for x in r["losses"]):
+        raise AssertionError(f"(e): {r}")
+    if "train_loss" not in metrics.read_text():
+        raise AssertionError("(e): CLI metrics without train_loss")
+    return dict(wall_s=wall, losses=r["losses"], launches_per_step=r["launches_per_step"][0])
+
+
+def t5_phase(smi, cli_collected):
+    """Phase 20: the encoder-decoder, ``t5_small`` and ``t5_small_hf`` at
+    full width and depth: both kernels at the encoder's all-ones mask and
+    the decoder's causal shape, [16, 512] x 8 heads of 64, against their
+    plain versions (phase 2's row (i) is the padded encoder's), and the
+    encoder's shape without segments beside the all-ones mask, then (a)
+    the forward, (b) decoding, (c) training, (d) the T5 interop, (e) the
+    CLI (launched with the CLI batch at phase 9, collected in phase 12).
+    Returns the report, the kernels' rows and the main paths' launches by
+    stack."""
+    start = time.perf_counter()
+    legs_s = {}
+
+    def lap(name):
+        legs_s[name] = time.perf_counter() - start - sum(legs_s.values())
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 204)
+    ones = torch.ones(T5_ROWS, T5_SEQ, dtype=torch.int32, device="cuda")
+    rows = dict(enc_fwd=fwd_kernel_row("t5_enc_all_ones", T5_ENC_SHAPE, gen, seg=ones),
+                enc_bwd=bwd_kernel_row("t5_enc_all_ones", T5_ENC_SHAPE, gen, seg=ones,
+                                       main_path=True),
+                dec_fwd=fwd_kernel_row("t5_dec_causal", T5_DEC_SHAPE, gen),
+                dec_bwd=bwd_kernel_row("t5_dec_causal", T5_DEC_SHAPE, gen, main_path=True),
+                # what the all-ones mask costs: the same pass without segments
+                enc_no_seg_fwd=fwd_kernel_row("t5_enc_no_segments", T5_ENC_SHAPE, gen),
+                enc_no_seg_bwd=bwd_kernel_row("t5_enc_no_segments", T5_ENC_SHAPE, gen))
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[t5 kernels] the encoder's all-ones mask against no segments at [16, 512] x 8 "
+        f"heads: forward {rows['enc_fwd']['ms']:.4f} / {rows['enc_no_seg_fwd']['ms']:.4f} ms "
+        f"({rows['enc_fwd']['ms'] / rows['enc_no_seg_fwd']['ms']:.3f}x), backward "
+        f"{rows['enc_bwd']['ms']:.4f} / {rows['enc_no_seg_bwd']['ms']:.4f} ms "
+        f"({rows['enc_bwd']['ms'] / rows['enc_no_seg_bwd']['ms']:.3f}x)")
+    lap("kernels")
+    serve, draws = t5_serve_leg(SEED)
+    lap("serve")
+    log(f"[t5 serve] t5_small ({serve['params'] / 1e6:.1f}M parameters: 6+6 layers, d 512, "
+        f"8 heads of 64, source and target 512, vocab 32128, bf16, flash; built in "
+        f"{serve['build_s']:.1f} s) on {T5_ROWS} padded sources ({serve['real_source_tokens']} "
+        f"real tokens, lengths {T5_MIN_LEN}-{T5_SEQ}) and {T5_ROWS} targets of {T5_SEQ}: "
+        f"flash_fwd launches {serve['inference_launches']} (by stack "
+        f"{serve['stack_launches']}); loss {serve['loss']:.6f} against the xla path's "
+        f"{serve['xla_loss']:.6f} (tol {LOSS_TOL}); logits against the xla path with fp32 "
+        f"attention: max abs err {serve['logits_max_abs_err']:.4f} (tol {LOGITS_TOL}), relative "
+        f"L2 {serve['logits_rel_l2']:.3e}, worst token's row {serve['worst_row_ratio']:.4f} of "
+        f"the row rule's limit {LLAMA_LOGITS_ROW_TOL} (the bf16 xla path's "
+        f"{serve['xla_bf16_worst_row_ratio']:.4f}; V's second half zeroed in every layer "
+        f"{serve['planted_worst_row_ratio']:.2f} of it, rejected); pad tokens changed: logits "
+        f"moved by {serve['pad_change_max_abs']}; forward {serve['forward_ms']:.2f} ms "
+        f"({serve['forward_tokens_per_s']:.0f} source+target tokens/s), encode "
+        f"{serve['encode_ms']:.2f} ms")
+    beam = serve["beam"]
+    log(f"[t5 generate] greedy {T5_NEW} tokens x {T5_ROWS} sources in "
+        f"{serve['generate_s']:.3f} s ({serve['generate_tokens_per_s']:.0f} tokens/s; "
+        f"{serve['decode_step_ms']:.3f} ms per decode step at batch {T5_ROWS}); against its own "
+        f"teacher forcing {serve['greedy_vs_forced']}; top-p 0.9 call: "
+        f"{serve['sampled_distinct_tokens']} distinct tokens; beam {T5_BEAMS} x "
+        f"{T5_BEAM_ROWS} sources x {T5_BEAM_NEW}: lazy {beam['lazy']['ms_per_step']:.3f} ms per "
+        f"step, eager {beam['eager']['ms_per_step']:.3f}, tokens equal, scores within "
+        f"{serve['beam_score_diff']:.2e}; cross caches replicated once per layer "
+        f"({beam['lazy']['expansions']} copy per layer per call), moved by no step; "
+        f"cache-sized copies per call lazy {beam['lazy']['cache_sized_copies']}, eager "
+        f"{beam['eager']['cache_sized_copies']}")
+    train = t5_train_leg(SEED, smi.split(",")[0].strip(), draws)
+    del draws
+    lap("train")
+    gib = lambda x: f"{x / 2**30:.3f} GiB"  # noqa: E731
+    log(f"[t5 train] Trainer on t5_small_s2s ({train['params'] / 1e6:.1f}M parameters; built "
+        f"from (a)'s draws in {train['build_s']:.1f} s), [16, 512/512] in one minibatch, flash, "
+        f"proj_attn, AdamW, warmup {T5_WARMUP} (learning rates {train['lr_by_step']}): step-1 "
+        f"loss flash {train['flash_loss']:.6f} xla {train['xla_loss']:.6f} (tol {LOSS_TOL}); "
+        f"gradients relative L2 median {train['grad_rel_median']:.3e}, max "
+        f"{train['grad_rel_max'][0]:.3e} ({train['grad_rel_max'][1]}), tol {TRAIN_GRAD_TOL}")
+    log(f"  losses {[round(x, 5) for x in train['losses']]}; launches per step (flash_fwd, "
+        f"flash_bwd) {train['launches_per_step']}, by stack "
+        f"{train['stack_launches_per_step']}; step ms {[round(x, 1) for x in train['step_ms']]}; "
+        f"{train['tokens_per_s']:.0f} target tokens/s; MFU {train['mfu']} "
+        f"({train['flops_per_step'] / 1e12:.3f} TFLOP per step: both stacks, the cross-"
+        f"attention and the lm_head); state {gib(sum(train['state_bytes'].values()))}, max "
+        f"memory allocated {gib(train['max_memory_allocated'])}")
+    for what, prof in (("a step", train["step_profile"]),
+                       ("(a)'s forward", serve["forward_profile"])):
+        log(f"  profile of {what}: wall {prof['wall_ms']:.1f} ms, device busy "
+            f"{prof['busy_ms']:.1f} ms (idle share {1 - prof['busy_ms'] / prof['wall_ms']:.3f}), "
+            f"flash_fwd {prof['flash_fwd_ms']:.2f} ms, flash_bwd {prof['flash_bwd_ms']:.2f} ms, "
+            f"kernel share {prof['kernel_share']}")
+    hf = t5_hf_leg(SEED)
+    lap("hf")
+    log(f"[t5 hf] t5_small_hf to_hf_t5 -> from_hf_t5 bitwise: " + "; ".join(
+        f"{mlp} {v['tensors']} tensors ({v['hf_tensors']} HF, {v['params'] / 1e6:.1f}M, "
+        f"{v['round_trip_s']:.1f} s), xla loss with the relative bias {v['loss']:.6f} on both, "
+        f"greedy tokens equal" for mlp, v in hf.items()))
+    cli = t5_cli_check(cli_collected)
+    log(f"[t5 cli] python -m tpu_parallel_torch.train --config=t5_small_s2s ({T5_CLI_LAYERS}+"
+        f"{T5_CLI_LAYERS} layers, {T5_CLI_STEPS} steps; started with the CLI batch at phase "
+        f"9): exit 0, collected {cli['wall_s']:.1f} s after its launch; losses {cli['losses']}; "
+        f"launches per step {cli['launches_per_step']}")
+    phase_s = time.perf_counter() - start
+    log(f"[t5] phase 20 took {phase_s:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in legs_s.items()) + ")")
+    log(f"card: {smi}")
+    per = train["stack_launches_per_step"]
+    launches = dict(
+        inference_encoder=dict(flash_fwd_launches=serve["stack_launches"]["encoder"]),
+        inference_decoder=dict(flash_fwd_launches=serve["stack_launches"]["decoder"]),
+        training=train["launches"], **{
+            f"training_{stack}": dict(flash_fwd_launches=T5_STEPS * per["fwd"][stack],
+                                      flash_bwd_launches=T5_STEPS * per["bwd"][stack])
+            for stack in ("encoder", "decoder")})
+    return (dict(serve=serve, train=train, hf=hf, cli=cli, phase_s=phase_s, legs_s=legs_s),
+            rows, launches)
+
+
 def leg_main(argv):
     """``chip_smoke.py --leg <name> ...``: one leg of phases 12-17 in
     this process; prints its result as one ``dp-leg-result:`` JSON line."""
@@ -8981,6 +9695,8 @@ def leg_main(argv):
         result = llama_rank_leg(int(rest[0]), rest[1], rest[2])
     elif name == "bert_cli":
         result = bert_cli_run_leg(rest[0])
+    elif name == "t5_cli":
+        result = t5_cli_run_leg(rest[0])
     else:
         raise SystemExit(f"unknown leg {name!r}")
     print(DP_RESULT + json.dumps(result), flush=True)
@@ -9107,6 +9823,13 @@ def main():
                 or not bert_launches["inference"]["flash_fwd_launches"]:
             raise AssertionError(f"the bert paths left a kernel unlaunched: {bert_launches}")
         took("phase 19 (the bidirectional encoder)")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t5_report, t5_rows, t5_launches = t5_phase(smi, clis["t5"])
+        for path, counts in t5_launches.items():
+            if not all(counts.values()):
+                raise AssertionError(f"the t5 {path} path left a kernel unlaunched: {counts}")
+        took("phase 20 (the encoder-decoder)")
     finally:
         _kill_launched()
         shutil.rmtree(work, ignore_errors=True)
@@ -9253,6 +9976,29 @@ def main():
              "tpu_parallel/ops/flash_attention.py:240"),
             ("bert_training", "bwd", bert_rows["bwd"], "training",
              "tpu_parallel/ops/flash_attention.py:464,563"))
+    ] + [
+        # phase 20: t5_small's 8 heads of 64 at [16, 512]: (a)'s encoder
+        # over padded sources (phase 2's row) and decoder, causal; (c)'s
+        # encoder over the Trainer's all-ones mask and decoder; launches by
+        # stack
+        dict(name=f"flash_{kind}", route="cuda", source=f"tpu_parallel_torch/csrc/flash_{kind}.cu",
+             replaces=replaces, path=path, shape=row["shape"],
+             launches=t5_launches[launches][f"flash_{kind}_launches"],
+             max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
+             bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"])
+        for path, kind, row, launches, replaces in (
+            ("t5_inference_encoder", "fwd", kernel_rows["i_t5_enc_padded"], "inference_encoder",
+             "tpu_parallel/ops/flash_attention.py:240"),
+            ("t5_inference_decoder", "fwd", t5_rows["dec_fwd"], "inference_decoder",
+             "tpu_parallel/ops/flash_attention.py:240"),
+            ("t5_training_encoder", "fwd", t5_rows["enc_fwd"], "training_encoder",
+             "tpu_parallel/ops/flash_attention.py:240"),
+            ("t5_training_encoder", "bwd", t5_rows["enc_bwd"], "training_encoder",
+             "tpu_parallel/ops/flash_attention.py:464,563"),
+            ("t5_training_decoder", "fwd", t5_rows["dec_fwd"], "training_decoder",
+             "tpu_parallel/ops/flash_attention.py:240"),
+            ("t5_training_decoder", "bwd", t5_rows["dec_bwd"], "training_decoder",
+             "tpu_parallel/ops/flash_attention.py:464,563"))
     ]}
     summary = dict(card=smi, forward=fwd, generate=gen, train=train, serve=serve, kv=kv,
                    spec=spec, decode_extras=extras, trainer_shell=shell, data_parallel=dp_report,
@@ -9262,6 +10008,7 @@ def main():
                    sequence_parallel_kernel_shapes=sp_rows, mixture_of_experts=moe_report,
                    mixture_of_experts_kernel_shapes=moe_rows, llama=llama_report,
                    llama_kernel_shapes=llama_rows, bert=bert_report, bert_kernel_shapes=bert_rows,
+                   t5=t5_report, t5_kernel_shapes=t5_rows,
                    inference_flash_fwd_launches=inference_launches,
                    kernel_shapes=kernel_rows, bwd_kernel_shapes=bwd_rows,
                    trainer_shell_kernel_shapes=shell_rows, data_parallel_kernel_shapes=dp_rows)

@@ -1,8 +1,8 @@
-"""Port parity: ``tpu_parallel_torch/models/hf.py`` (GPT-2, Llama and
-BERT) and ``tpu_parallel_torch/convert_hf.py`` against the JAX package's
+"""Port parity: ``tpu_parallel_torch/models/hf.py`` (GPT-2, Llama, BERT
+and T5) and ``tpu_parallel_torch/convert_hf.py`` against the JAX package's
 ``models/hf.py`` and ``scripts/convert_hf.py``.
 
-Mirrors ``tests/test_hf.py``'s GPT-2, Llama and BERT cases on the same
+Mirrors ``tests/test_hf.py``'s GPT-2, Llama, BERT and T5 cases on the same
 random-init HF models (built locally with ``transformers``; nothing is
 downloaded): the port's import reproduces the HF model's logits or hidden
 states (2e-4, JAX's tolerance against torch), its export loads into a
@@ -11,8 +11,11 @@ for each family, the port's ``from_hf_*`` is bitwise ``params_from_jax``
 of JAX's and its ``to_hf_*`` bitwise JAX's on the bridged tree; and
 ``python -m tpu_parallel_torch.convert_hf`` on a ``save_pretrained``
 directory writes parameters equal to the import and an int8 ``.npz`` whose
-bytes are the JAX script's.  ``transformers`` and JAX are imported inside
-the fixtures only.
+bytes are the JAX script's.  T5 covers the original (relu) and v1.1
+(gated-gelu) checkpoints, a tied checkpoint without ``lm_head.weight``,
+and greedy decoding on the imported weights against HF's ``generate`` and
+JAX's tokens.  ``transformers`` and JAX are imported inside the fixtures
+only.
 """
 
 import dataclasses
@@ -486,3 +489,174 @@ def test_convert_hf_matches_jax_script(tf, jx, tmp_path, monkeypatch, family):
     port = (tmp_path / "port" / "params_int8.npz").read_bytes()
     assert port == (tmp_path / "jax" / "params_int8.npz").read_bytes()
     assert os.path.getsize(tmp_path / "port" / "params_int8.npz") > 0
+
+
+# --- T5 ------------------------------------------------------------------------
+
+
+def _hf_t5(tf, act="relu"):
+    cfg = tf.T5Config(vocab_size=VOCAB, d_model=D, d_kv=D // HEADS, d_ff=4 * D,
+                      num_layers=LAYERS, num_decoder_layers=LAYERS, num_heads=HEADS,
+                      relative_attention_num_buckets=8, relative_attention_max_distance=16,
+                      dropout_rate=0.0, feed_forward_proj=act, tie_word_embeddings=True)
+    torch.manual_seed(0)
+    return tf.T5ForConditionalGeneration(cfg).eval()
+
+
+def _t5_config(**kw):
+    from tpu_parallel_torch.models.seq2seq import t5_small_hf
+
+    return t5_small_hf(**{**dict(vocab_size=VOCAB, d_model=D, n_heads=HEADS, n_layers=LAYERS,
+                                 enc_layers=LAYERS, seq_len=SEQ, src_seq_len=SEQ,
+                                 rel_num_buckets=8, rel_max_distance=16, dtype=torch.float32,
+                                 remat=False, dropout_rate=0.0), **kw})
+
+
+def _jax_t5_config(jx, port_config):
+    from tpu_parallel.models.seq2seq import Seq2SeqConfig
+
+    fields = {f.name: getattr(port_config, f.name) for f in dataclasses.fields(port_config)}
+    fields["dtype"] = jx.jnp.float32
+    return Seq2SeqConfig(**fields)
+
+
+def _t5_model(cfg, params):
+    from tpu_parallel_torch.models.seq2seq import EncoderDecoder
+
+    model = EncoderDecoder(cfg, device="cpu", seed=None)
+    model.load_state_dict(params)
+    return model.eval()
+
+
+def _t5_logits(model, src, dst):
+    with torch.no_grad():
+        return model(torch.from_numpy(src).long(), torch.from_numpy(dst).long()).numpy()
+
+
+def _t5_inputs():
+    rng = np.random.default_rng(3)
+    return rng.integers(0, VOCAB, (2, 24)), rng.integers(0, VOCAB, (2, 12))
+
+
+@pytest.mark.parametrize("act", ["relu", "gated-gelu"], ids=["t5", "t5v11"])
+def test_from_hf_t5_logits_match(tf, jx, act):
+    """``:369``: the import is bitwise ``params_from_jax`` of JAX's, and
+    reproduces HF's seq2seq logits (the relative buckets shared per stack,
+    the unscaled-attention fold, RMS norms, relu / geglu, the cross k|v
+    interleave, the tied-head rescale)."""
+    model_hf = _hf_t5(tf, act)
+    cfg = _t5_config(mlp="geglu" if act == "gated-gelu" else "relu")
+    params = hf.from_hf_t5(model_hf, cfg)
+    _assert_state_equal(params, params_from_jax(
+        _np(jx.hf.from_hf_t5(model_hf, _jax_t5_config(jx, cfg))), cfg))
+    src, dst = _t5_inputs()
+    with torch.no_grad():
+        want = model_hf(input_ids=torch.from_numpy(src),
+                        decoder_input_ids=torch.from_numpy(dst)).logits.numpy()
+    np.testing.assert_allclose(_t5_logits(_t5_model(cfg, params), src, dst), want, **HF_TOL)
+
+
+def test_from_hf_t5_tied_checkpoint_without_head(tf, jx):
+    """A tied checkpoint whose state dict has no ``lm_head.weight``: the head
+    is ``shared.T * d_model**-0.5``, bitwise JAX's, with HF's logits."""
+    model_hf = _hf_t5(tf)
+    sd = {k: v for k, v in model_hf.state_dict().items() if k != "lm_head.weight"}
+    cfg = _t5_config()
+    params = hf.from_hf_t5(sd, cfg)
+    _assert_state_equal(params, params_from_jax(
+        _np(jx.hf.from_hf_t5(sd, _jax_t5_config(jx, cfg))), cfg))
+    src, dst = _t5_inputs()
+    with torch.no_grad():
+        want = model_hf(input_ids=torch.from_numpy(src),
+                        decoder_input_ids=torch.from_numpy(dst)).logits.numpy()
+    np.testing.assert_allclose(_t5_logits(_t5_model(cfg, params), src, dst), want, **HF_TOL)
+
+
+def test_from_hf_t5_rejects_mismatch(tf, jx):
+    """``:400``: JAX's refusals, in its words."""
+    model_hf = _hf_t5(tf)
+
+    def fn(side):
+        return jx.hf.from_hf_t5 if side == "jax" else hf.from_hf_t5
+
+    def args(**kw):
+        cfg = _t5_config(**kw)
+        return lambda side: (model_hf, _jax_t5_config(jx, cfg) if side == "jax" else cfg)
+
+    _refusals(fn, (args(positional="learned"), "relative"),
+              (args(enc_layers=LAYERS + 1), "num_layers"), (args(dense_bias=True), "dense_bias"),
+              (args(n_kv_heads=2), "GQA"), (args(scan_layers=True), "unrolled"),
+              (args(norm_eps=1e-5), "layer_norm_epsilon"))
+
+
+def test_from_hf_t5_greedy_decode_matches_torch(tf, jx):
+    """``:412``: greedy decoding on the imported weights (the per-step
+    relative bias against every cache slot, the cached cross-attention)
+    equals HF's ``generate`` and JAX's tokens."""
+    from tpu_parallel.models.seq2seq import EncoderDecoder as JEncoderDecoder
+    from tpu_parallel.models.seq2seq import seq2seq_generate as jax_generate
+    from tpu_parallel_torch.models.seq2seq import seq2seq_generate
+
+    model_hf = _hf_t5(tf)
+    cfg = _t5_config()
+    params = hf.from_hf_t5(model_hf, cfg)
+    src, _ = _t5_inputs()
+    n_new = 8
+    with torch.no_grad():
+        want = model_hf.generate(input_ids=torch.from_numpy(src), max_new_tokens=n_new,
+                                 min_new_tokens=n_new, do_sample=False, decoder_start_token_id=0,
+                                 eos_token_id=None).numpy()[:, 1:n_new + 1]
+    got = seq2seq_generate(_t5_model(cfg, params), torch.from_numpy(src).long(), bos_id=0,
+                           max_new_tokens=n_new).numpy()
+    np.testing.assert_array_equal(got, want)
+    jcfg = _jax_t5_config(jx, cfg)
+    jtoks = jax_generate(JEncoderDecoder(jcfg), jx.hf.from_hf_t5(model_hf, jcfg),
+                         jx.jnp.asarray(src), bos_id=0, max_new_tokens=n_new)
+    np.testing.assert_array_equal(got, np.asarray(jtoks))
+
+
+@pytest.mark.parametrize("act", ["relu", "gated-gelu"], ids=["t5", "t5v11"])
+def test_to_hf_t5_roundtrip_loads_into_torch(tf, jx, act):
+    """``:584``: the export is bitwise JAX's on the bridged tree and loads
+    into a fresh untied HF T5 whose logits are the port's."""
+    model_hf = _hf_t5(tf, act)
+    cfg = _t5_config(mlp="geglu" if act == "gated-gelu" else "relu")
+    params = hf.from_hf_t5(model_hf, cfg)
+    sd = hf.to_hf_t5(params, cfg)
+    jcfg = _jax_t5_config(jx, cfg)
+    _assert_hf_equal(sd, jx.hf.to_hf_t5(jx.hf.from_hf_t5(model_hf, jcfg), jcfg))
+    untied = tf.T5Config(**{**model_hf.config.to_dict(), "tie_word_embeddings": False})
+    fresh = tf.T5ForConditionalGeneration(untied).eval()
+    missing, unexpected = fresh.load_state_dict(sd, strict=False)
+    assert not unexpected and not missing, (missing, unexpected)
+    src, dst = _t5_inputs()
+    with torch.no_grad():
+        want = fresh(input_ids=torch.from_numpy(src),
+                     decoder_input_ids=torch.from_numpy(dst)).logits.numpy()
+    np.testing.assert_allclose(_t5_logits(_t5_model(cfg, params), src, dst), want, **HF_TOL)
+
+
+def test_to_hf_t5_refuses_non_t5_architecture(jx):
+    """``:625``: JAX's refusals, in its words."""
+    def fn(side):
+        return jx.hf.to_hf_t5 if side == "jax" else hf.to_hf_t5
+
+    def args(**kw):
+        cfg = _t5_config(**kw)
+        return lambda side: ({}, _jax_t5_config(jx, cfg) if side == "jax" else cfg)
+
+    _refusals(fn, (args(positional="learned"), "relative"), (args(dense_bias=True), "dense_bias"),
+              (args(scan_layers=True), "unrolled"))
+
+
+@pytest.mark.parametrize("mlp", ["relu", "geglu"])
+def test_t5_round_trip_is_bitwise(mlp):
+    """``to_hf_t5`` then ``from_hf_t5`` gives the port's weights back
+    bitwise where the attention-scale fold is exact (``head_dim`` a power
+    of 4, as ``t5_small_hf``'s 64): seeded weights, relu and geglu."""
+    from tpu_parallel_torch.models.seq2seq import EncoderDecoder
+
+    cfg = _t5_config(n_heads=2, mlp=mlp)
+    assert cfg.head_dim == 16
+    model = EncoderDecoder(cfg, device="cpu", seed=5)
+    _assert_state_equal(hf.from_hf_t5(hf.to_hf_t5(model, cfg), cfg), model.state_dict())

@@ -197,8 +197,27 @@ def test_bridge_llama_leaves_round_trip_and_refuse_a_pos_table():
 
 
 def test_relative_positions_stay_refused():
-    with pytest.raises(NotImplementedError, match="seq2seq"):
-        tiny_test(positional="relative")
+    """The T5 relative bias is ported: a JAX-initialized relative model's
+    logits and greedy tokens are JAX's (``tests/test_torch_seq2seq.py``
+    holds its loss and gradients); what stays refused is what JAX refuses,
+    in its words: the bias on the flash path and under a pipeline."""
+    jm, params, model, prompt = _bridged(dict(positional="relative", scan_layers=False))
+    assert "pos" not in params["embed"] and "rel_embedding" in params["rel_bias"]
+    with torch.no_grad():
+        got = model(torch.from_numpy(prompt).long()).numpy()
+    np.testing.assert_allclose(got, np.asarray(jm.apply({"params": params}, prompt, train=False)),
+                               **TOL)
+    toks = generate(model, torch.from_numpy(prompt).long(), max_new_tokens=6).numpy()
+    np.testing.assert_array_equal(
+        toks, np.asarray(jax_generate(jm, params, jnp.asarray(prompt), max_new_tokens=6)))
+    for over in (dict(attn_impl="flash"), dict(pipe_size=2)):
+        over = dict(positional="relative", **over)
+        with pytest.raises(NotImplementedError, match="relative position bias") as want:
+            JGPTLM(jgpt.tiny_test(dtype=jnp.float32, **over)).init(
+                jax.random.PRNGKey(0), jnp.asarray(prompt), train=False)
+        with pytest.raises(NotImplementedError, match="relative position bias") as got:
+            GPTLM(tiny_test(**over), device="cpu")
+        assert str(got.value) == str(want.value)
 
 
 # -- generation and serving ---------------------------------------------------

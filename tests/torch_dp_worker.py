@@ -6,7 +6,7 @@
 Starts ``num_ranks`` gloo CPU processes through
 ``tpu_parallel_torch.runtime.spawn_cpu_ranks`` and runs every case of
 ``suite`` (``runtime``, ``dp``, ``fsdp``, ``tp``, ``pp``, ``sp``, ``moe``,
-``llama`` or ``encoder``) in that one group.  Each rank reads the
+``llama``, ``encoder`` or ``seq2seq``) in that one group.  Each rank reads the
 inputs the test wrote to ``<outdir>/inputs.npz`` and writes its results to
 ``<outdir>/<suite>_rank<r>.npz``; the test compares them with the JAX
 package in its own process.  Imports torch, numpy and the port only.
@@ -2096,9 +2096,198 @@ def _encoder_cases(inputs, outdir, out):
     dist.barrier()
 
 
+# seq2seq training cases: name -> (model overrides, mesh, global rows); each
+# mirrors a mesh case of tests/test_seq2seq.py
+S2S_TRAIN = {
+    "dp": (dict(), dict(data=8), 16),
+    "tp": (dict(), dict(data=4, model=2), 16),
+    # the T5 bias under TP: each rank slices its heads off the full bias
+    "tp_relative": (dict(positional="relative", norm="rmsnorm"), dict(data=4, model=2), 16),
+    "fsdp": (dict(fsdp=True, fsdp_min_size=0), dict(data=8), 16),
+    "moe": (dict(moe_experts=4, moe_top_k=1), dict(data=4, model=2), 16),
+    "ring": (dict(attn_impl="ring", seq_len=64, src_seq_len=64), dict(data=2, seq=4), 8),
+    "ulysses": (dict(attn_impl="ulysses", seq_len=64, src_seq_len=64), dict(data=2, seq=4), 8),
+    "pp": (dict(enc_layers=4, n_layers=4, num_microbatches=4), dict(data=2, pipe=4), 16),
+}
+S2S_STEPS = 4
+S2S_LR = 3e-3
+S2S_GEN = dict(rows=8, new=5, bos=1)
+
+
+def _s2s_batch(inputs, prefix):
+    import torch
+
+    from tpu_parallel_torch.models.seq2seq import Seq2SeqBatch
+
+    def get(name):
+        return torch.from_numpy(inputs[f"{prefix}/{name}"].copy())
+
+    return Seq2SeqBatch(src_tokens=get("src_tokens").long(), tokens=get("tokens").long(),
+                        targets=get("targets").long(), src_mask=get("src_mask").bool())
+
+
+def _error(fn):
+    """``str`` of the NotImplementedError or ValueError ``fn`` raises ("" if
+    none)."""
+    try:
+        fn()
+    except (NotImplementedError, ValueError) as exc:
+        return np.array(str(exc))
+    return np.array("")
+
+
+def _seq2seq_cases(inputs, outdir, out):
+    import torch
+    import torch.distributed as dist
+
+    from tpu_parallel_torch.core.accumulate import accumulate_gradients
+    from tpu_parallel_torch.core.losses import token_cross_entropy
+    from tpu_parallel_torch.core.metrics import compute
+    from tpu_parallel_torch.core.optim import AdamW
+    from tpu_parallel_torch.core.state import TrainState
+    from tpu_parallel_torch.models import GPTLM, tiny_test
+    from tpu_parallel_torch.models.convert import params_from_jax
+    from tpu_parallel_torch.models.generate import generate, generate_sharded
+    from tpu_parallel_torch.models.gpt import _lm_head_params, make_ce_fn
+    from tpu_parallel_torch.models.seq2seq import (EncoderDecoder, make_seq2seq_loss,
+                                                   seq2seq_generate, seq2seq_generate_sharded,
+                                                   tiny_seq2seq)
+    from tpu_parallel_torch.parallel import fsdp
+    from tpu_parallel_torch.parallel.tp import export_single_device_params
+    from tpu_parallel_torch.runtime import MeshConfig, make_mesh
+    from tpu_parallel_torch.runtime.mesh import axis_group
+    from tpu_parallel_torch.train_lib import Trainer, TrainerConfig
+
+    src = torch.from_numpy(inputs["gen_src"].copy()).long()
+    # (1) the Trainer over each mesh from JAX's weights: the step-1 synced
+    # gradients (assembled over the model and data splits), then S2S_STEPS
+    # steps' losses; the generation and CE legs of tests/test_seq2seq.py on
+    # the trained states
+    for name, (overrides, sizes, rows) in S2S_TRAIN.items():
+        trainer = Trainer(TrainerConfig(
+            model="tiny_seq2seq", model_overrides=overrides, mesh=sizes, global_batch_size=rows,
+            steps=S2S_STEPS, learning_rate=S2S_LR, warmup_steps=1, lr_schedule="constant",
+            objective="seq2seq"), device="cpu")
+        mesh, cfg = trainer.mesh, trainer.model_config
+        state = trainer.init(params_from_jax(nested_tree(f"{name}_params", inputs), cfg,
+                                             dtype=torch.float32))
+        batch = trainer.local_rows(_s2s_batch(inputs, f"{name}_batch"))
+        grads, _ = accumulate_gradients(state, batch, state.rng, 1, trainer.loss_fn)
+        fsdp.sync_gradients(state.partitioned(grads), ("data", "seq", "model"), ("pipe",),
+                            mesh=mesh)
+        _assembled_nested(out, f"{name}_grads", grads, state.shards)
+        state.zero_grads()
+        losses = []
+        for _ in range(S2S_STEPS):
+            state, metrics = trainer.step_fn(state, None, batch)
+            losses.append(compute(metrics)["loss"])
+        out[f"{name}_losses"] = np.array(losses)
+        out[f"{name}_specs"] = np.array(sorted(f"{n}={trainer.funcs.state_specs[n]}"
+                                               for n in state.params))
+        model = trainer.model.eval()
+        if name == "dp":
+            # tests/test_seq2seq.py:252: sharded decoding == plain decoding
+            # on the exported one-device weights
+            full = export_single_device_params(state.partitioned(state.params))
+            plain = EncoderDecoder(tiny_seq2seq(), device="cpu", seed=None)
+            plain.load_state_dict({k: v.to(torch.float32) for k, v in full.items()})
+            out["exported_plain"] = seq2seq_generate(
+                plain.eval(), src, max_new_tokens=S2S_GEN["new"], bos_id=S2S_GEN["bos"]).numpy()
+            out["exported_sharded"] = seq2seq_generate_sharded(
+                model, src, max_new_tokens=S2S_GEN["new"], bos_id=S2S_GEN["bos"]).numpy()
+            for key, value in full.items():
+                out[f"exported/{key}"] = value.float().numpy().copy()
+        if name == "tp":
+            # :195: the vocab-parallel CE equals the full CE of the gathered
+            # logits; :275: TP greedy decoding equals the teacher-forced
+            # argmax of the same state's forward under the mesh
+            with torch.no_grad():
+                hidden = model(batch.src_tokens, batch.tokens, src_mask=batch.src_mask,
+                               hidden_only=True)
+                mask = torch.ones(batch.targets.shape)
+                vp, _ = make_ce_fn(cfg, mesh)(_lm_head_params(cfg, model), hidden,
+                                              batch.targets, mask)
+                logits = model(batch.src_tokens, batch.tokens, src_mask=batch.src_mask)
+                full_ce = (token_cross_entropy(logits, batch.targets) * mask).sum()
+            out["tp_ce"] = np.array([float(vp), float(full_ce)])
+            toks = seq2seq_generate_sharded(model, src[:4], max_new_tokens=S2S_GEN["new"],
+                                            bos_id=S2S_GEN["bos"])
+            forced = torch.cat([torch.full((4, 1), S2S_GEN["bos"]), toks[:, :-1]], dim=1)
+            with torch.no_grad():
+                ref = model(src[:4], forced).float().argmax(-1)
+            out["tp_gen"], out["tp_gen_forced"] = toks.numpy(), ref.numpy()
+            _assembled_nested(out, "tp_final", state.params, state.shards)
+        if name == "moe":
+            out["moe_balance"] = np.array(compute(metrics)["moe_balance"])
+        if name == "pp":
+            out["pp_coord"] = np.array(mesh.get_local_rank("pipe"))
+        if name in ("ring", "ulysses"):
+            # :360: the SP model's global-mean eval loss over the seq-sharded
+            # batch equals the dense (xla) model's on the whole rows, one
+            # set of weights
+            weights = params_from_jax(nested_tree(f"{name}_params", inputs), cfg,
+                                      dtype=torch.float32)
+            TrainState.create(model, AdamW(lambda count: 0.0), torch.Generator(), weights)
+            with torch.no_grad():
+                _, m = make_seq2seq_loss(cfg, train=False, mesh=mesh)(model, batch)
+                total = torch.stack([m["loss"][0], m["loss"][1]])
+                dist.all_reduce(total, group=axis_group(mesh, "data")[0])
+                dist.all_reduce(total, group=axis_group(mesh, "seq")[0])
+                dense_cfg = tiny_seq2seq(**dict(overrides, attn_impl="xla"))
+                dense = EncoderDecoder(dense_cfg, device="cpu", seed=None)
+                dense.load_state_dict(weights)
+                _, dm = make_seq2seq_loss(dense_cfg, train=False)(
+                    dense, _s2s_batch(inputs, f"{name}_batch"))
+            out[f"{name}_sp_vs_dense"] = np.array([float(total[0] / total[1]),
+                                                   float(dm["loss"][0] / dm["loss"][1])])
+
+    # (2) tests/test_train_lib.py:168: the seq2seq Trainer over data 4 x
+    # model 2 on its own batches: train and evaluate below the first loss
+    trainer = Trainer(TrainerConfig(model="tiny_seq2seq", mesh=dict(data=4, model=2),
+                                    global_batch_size=16, steps=6, log_every=100,
+                                    objective="seq2seq"), device="cpu")
+    trainer.init()
+    first = trainer.evaluate(steps=1)["loss"]
+    m = trainer.train()
+    ev = trainer.evaluate(steps=2)
+    out["trainer_family"] = np.array([first, m["loss"], ev["loss"],
+                                      float("tokens_per_sec" in m)])
+
+    # (3) the mesh-bound refusals (:528, :579): the relative bias under a
+    # pipeline, decoding on a pipe mesh and under sequence parallelism
+    mesh = make_mesh(MeshConfig(data=2, pipe=4))
+    out["refuse_rel_pp"] = _error(lambda: EncoderDecoder(tiny_seq2seq(
+        pipe_size=4, enc_layers=4, n_layers=4, positional="relative", norm="rmsnorm"),
+        device="cpu", mesh=mesh))
+    model_pp = EncoderDecoder(tiny_seq2seq(pipe_size=4, enc_layers=4, n_layers=4),
+                              device="cpu", mesh=mesh)
+    z = torch.zeros(4, 8, dtype=torch.long)
+    out["refuse_pp_decode"] = _error(lambda: model_pp(z, z, decode=True))
+    mesh = make_mesh(MeshConfig(data=2, seq=4))
+    model_sp = EncoderDecoder(tiny_seq2seq(attn_impl="ring", seq_len=64, src_seq_len=64),
+                              device="cpu", mesh=mesh)
+    z = torch.zeros(4, 16, dtype=torch.long)
+    out["refuse_sp_decode"] = _error(lambda: model_sp(z, z, decode=True))
+
+    # (4) tests/test_generate.py:711: a relative-bias GPTLM decodes on the
+    # sharded path without a mask, over data=8, as one process does
+    mesh = make_mesh(MeshConfig(data=8))
+    rcfg = tiny_test(positional="relative", norm="rmsnorm", dense_bias=False)
+    weights = params_from_jax(nested_tree("rel_params", inputs), rcfg, dtype=torch.float32)
+    rmodel = TrainState.create(GPTLM(rcfg, device="cpu", seed=None, mesh=mesh),
+                               AdamW(lambda count: 0.0), torch.Generator(), weights).model
+    prompt = torch.from_numpy(inputs["rel_prompt"].copy()).long()
+    out["rel_sharded"] = generate_sharded(rmodel, prompt, max_new_tokens=4).numpy()
+    single = GPTLM(rcfg, device="cpu", seed=None)
+    single.load_state_dict(weights)
+    out["rel_single"] = generate(single, prompt, max_new_tokens=4).numpy()
+    dist.barrier()
+
+
 SUITES = {"runtime": _runtime_cases, "dp": _dp_cases, "fsdp": _fsdp_cases, "tp": _tp_cases,
           "pp": _pp_cases, "sp": _sp_cases,
-          "moe": _moe_cases, "llama": _llama_cases, "encoder": _encoder_cases}
+          "moe": _moe_cases, "llama": _llama_cases, "encoder": _encoder_cases,
+          "seq2seq": _seq2seq_cases}
 
 
 def run_suite(suite, outdir):

@@ -4,9 +4,9 @@
 whose file name is one (``configs/gpt2_125m_corpus.py``) and returns a
 plain dict with the JAX config's keys and values.  :func:`override` applies
 one ``--config.<dotted key>=<value>`` on a declared key, typed from the
-declared default as ``ml_collections`` does.  The configs the port cannot
-run yet raise ``NotImplementedError`` naming the ROADMAP item that brings
-them.
+declared default as ``ml_collections`` does.  A config the port could
+not run would raise ``NotImplementedError`` naming the ROADMAP item that
+brings it (``UNPORTED``; every shipped config runs).
 """
 
 from __future__ import annotations
@@ -16,16 +16,14 @@ import importlib
 import os
 from typing import Any, Dict
 
-from tpu_parallel_torch.configs.common import PLACEHOLDER_TYPES
+from tpu_parallel_torch.configs.common import PLACEHOLDER_TYPES, SEQ2SEQ_PLACEHOLDER_TYPES
 
 CONFIGS = ("bert_base_mlm", "gpt2_125m_dp", "gpt2_125m_tp", "gpt2_125m_corpus",
            "gpt2_125m_long", "gpt2_350m_pp", "gpt2_moe_ep", "llama_1b_3d", "mlp_dp_cpu",
-           "tiny_3d_cpu")
+           "t5_small_s2s", "tiny_3d_cpu")
 
-# the repo's other configs -> what the port lacks to run them
-UNPORTED = {
-    "t5_small_s2s": "the encoder-decoder family (ROADMAP queue A item 6)",
-}
+# the repo's other configs -> what the port lacks to run them (none)
+UNPORTED: Dict[str, str] = {}
 
 
 def get_config(name_or_path: str) -> Dict[str, Any]:
@@ -86,9 +84,10 @@ def override(config: Dict[str, Any], dotted: str, text: str) -> None:
         raise KeyError(f"--config.{dotted}: not a declared field")
     current = node[leaf]
     if current is None:
-        if parents != ["model_overrides"] or leaf not in PLACEHOLDER_TYPES:
+        types = dict(PLACEHOLDER_TYPES, **SEQ2SEQ_PLACEHOLDER_TYPES)
+        if parents != ["model_overrides"] or leaf not in types:
             raise KeyError(f"--config.{dotted}: a None field without a declared type")
-        kind = PLACEHOLDER_TYPES[leaf]
+        kind = types[leaf]
     else:
         kind = type(current)
     node[leaf] = _parse(text, kind, dotted)

@@ -25,6 +25,13 @@ PLACEHOLDER_TYPES = dict(
 )
 
 
+# the encoder-decoder's placeholders, declared by its config alone
+SEQ2SEQ_PLACEHOLDER_TYPES = dict(
+    enc_layers=int,
+    src_seq_len=int,
+)
+
+
 def model_overrides(**kw) -> Dict[str, Any]:
     """The declared model overrides with the JAX package's defaults
     (behavior-neutral), updated by ``kw``."""

@@ -26,7 +26,16 @@ RMSNorm's ``scale`` without a bias, the gated MLP's bias-free
 without biases), and no ``embed/pos`` under rope.  The encoder family's
 too: ``embed/norm`` under ``embed_norm``, no ``norm_final`` in a post-norm
 stack, and ``EncoderClassifier``'s tree (``encoder/...`` without an
-lm_head, ``pooler``, ``classifier``).  Nothing here imports
+lm_head, ``pooler``, ``classifier``).  A ``GPTLM`` with the relative bias
+has ``rel_bias/rel_embedding``.  An ``EncoderDecoder``'s tree (a
+``Seq2SeqConfig``) has ``embed``, the two stacks ``encoder/`` (blocks as
+the LM's) and ``decoder/`` (``self_attn``, ``cross_attn`` with its
+``q`` and per-head interleaved ``kv``, ``norm_self``, ``norm_cross``,
+``norm_mlp``, the MLP or the experts), ``enc_norm``, ``dec_norm``, the
+lm_head and, under the relative bias, ``enc_rel_bias`` / ``dec_rel_bias``;
+each stack scanned or unrolled, its mesh layout stacked as the LM's and
+its pipe layout under ``encoder/stage/sharded/`` and
+``decoder/stage/sharded/``.  Nothing here imports
 JAX: leaves are read with ``numpy.asarray`` (torch leaves, bf16 ones
 too, through fp32).
 :func:`params_to_jax` is its exact inverse (from one state dict, or from
@@ -105,10 +114,12 @@ _TOP = (
     ("embed/pos/embedding", "embed.pos.weight", False),
     ("embed/norm/scale", "embed.norm.weight", False),
     ("embed/norm/bias", "embed.norm.bias", False),
+    ("rel_bias/rel_embedding", "rel_bias.rel_embedding", False),
     ("norm_final/scale", "norm_final.weight", False),
     ("norm_final/bias", "norm_final.bias", False),
     ("lm_head/shard/kernel", "lm_head.weight", True),
 )
+# a scanned GPTLM's block leaves (a _Stack's jax prefix + "layers/block/")
 _SCANNED = "blocks/layers/block/"
 # an EncoderClassifier: its trunk's keys under "encoder." (JAX's
 # "encoder/" subtree, a GPTLM without an lm_head), then its own leaves
@@ -149,15 +160,17 @@ def _global_layer(config, rank: int, chunk: int, k: int) -> int:
     return (chunk * config.pipe_size + rank) * _chunk_layers(config) + k
 
 
-def _unpipe(flat: Dict[str, object], config) -> Dict[str, object]:
+def _unpipe(flat: Dict[str, object], config, pipe_prefix: str = _PIPE,
+            out_prefix: str = "blocks/") -> Dict[str, object]:
     """A flat pipe-layout tree as the unrolled one-stage layout
-    (``blocks/layer_{i}/...``, the pipe and scan axes taken off).  The pipe
-    degree and the virtual stages are read off the tree, so a one-stage
-    ``config`` takes a pipeline tree's full weights."""
-    piped = {p: v for p, v in flat.items() if p.startswith(_PIPE)}
+    (``out_prefix + layer_{i}/...``, the pipe and scan axes taken off) for
+    the stack under ``pipe_prefix`` of ``config.n_layers`` layers.  The
+    pipe degree and the virtual stages are read off the tree, so a
+    one-stage ``config`` takes a pipeline tree's full weights."""
+    piped = {p: v for p, v in flat.items() if p.startswith(pipe_prefix)}
     if not piped:
         return flat
-    chunks = {p[len(_PIPE):].split("/", 1)[0] for p in piped}
+    chunks = {p[len(pipe_prefix):].split("/", 1)[0] for p in piped}
     interleave = len(chunks) if all(c.startswith("chunk") for c in chunks) else 1
     n = _as_float32(next(iter(piped.values()))).shape[0]
     if config.pipe_size > 1 and (n, interleave) != (config.pipe_size, config.pipe_interleave):
@@ -170,7 +183,7 @@ def _unpipe(flat: Dict[str, object], config) -> Dict[str, object]:
     per = _chunk_layers(layout)
     out = {p: v for p, v in flat.items() if p not in piped}
     for path, leaf in piped.items():
-        rest, chunk = path[len(_PIPE):], 0
+        rest, chunk = path[len(pipe_prefix):], 0
         if interleave > 1:
             head, rest = rest.split("/", 1)
             chunk = int(head[len("chunk"):])
@@ -183,12 +196,13 @@ def _unpipe(flat: Dict[str, object], config) -> Dict[str, object]:
                     raise ValueError(f"{path}: scanned leaf {arr.shape} lacks the "
                                      f"[{per} layers] axis")
                 for k in range(per):
-                    out[f"blocks/layer_{_global_layer(layout, r, chunk, k)}/"
+                    out[f"{out_prefix}layer_{_global_layer(layout, r, chunk, k)}/"
                         f"{rest[len('layers/block/'):]}"] = arr[r, k]
             else:
                 head, block_path = rest.split("/", 1)
                 k = int(head[len("layer_"):])
-                out[f"blocks/layer_{_global_layer(layout, r, chunk, k)}/{block_path}"] = arr[r]
+                out[f"{out_prefix}layer_{_global_layer(layout, r, chunk, k)}/{block_path}"] = \
+                    arr[r]
     return out
 
 
@@ -204,6 +218,8 @@ def _top_leaves(config, head: bool = True) -> Tuple[Tuple[str, str, bool], ...]:
     def kept(key):
         if key == "embed.pos.weight":
             return getattr(config, "positional", "learned") == "learned"
+        if key == "rel_bias.rel_embedding":
+            return getattr(config, "positional", "learned") == "relative"
         if key.startswith("embed.norm."):
             return getattr(config, "embed_norm", False) and not (
                 key.endswith(".bias") and _rmsnorm(config))
@@ -230,24 +246,115 @@ def _block_leaves(config) -> Tuple[Tuple[str, str, bool], ...]:
     return leaves
 
 
-def state_shapes(config, head: bool = True) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
-    """``{port key: (shape, dtype)}`` of the port's GPTLM state dict
-    (``head=False``: without the lm_head)."""
+# the encoder-decoder's leaves outside its stacks
+_S2S_TOP = (
+    ("embed/tok/embedding", "embed.tok.weight", False),
+    ("embed/pos/embedding", "embed.pos.weight", False),
+    ("enc_rel_bias/rel_embedding", "enc_rel_bias.rel_embedding", False),
+    ("dec_rel_bias/rel_embedding", "dec_rel_bias.rel_embedding", False),
+    ("enc_norm/scale", "enc_norm.weight", False),
+    ("enc_norm/bias", "enc_norm.bias", False),
+    ("dec_norm/scale", "dec_norm.weight", False),
+    ("dec_norm/bias", "dec_norm.bias", False),
+    ("lm_head/shard/kernel", "lm_head.weight", True),
+)
+# a decoder block's cross-attention and its norm
+_CROSS = (
+    ("cross_attn/q/shard/kernel", "cross_attn.q.weight", True),
+    ("cross_attn/q/shard/bias", "cross_attn.q.bias", False),
+    ("cross_attn/kv/shard/kernel", "cross_attn.kv.weight", True),
+    ("cross_attn/kv/shard/bias", "cross_attn.kv.bias", False),
+    ("cross_attn/out/shard/kernel", "cross_attn.out.weight", True),
+    ("cross_attn/out/bias", "cross_attn.out.bias", False),
+    ("norm_cross/scale", "norm_cross.weight", False),
+    ("norm_cross/bias", "norm_cross.bias", False),
+)
+
+
+def _is_seq2seq(config) -> bool:
+    return hasattr(config, "encoder_layers")
+
+
+def _s2s_top_leaves(config) -> Tuple[Tuple[str, str, bool], ...]:
+    """The encoder-decoder's leaves outside its stacks: the position table
+    under learned positions, the two bias tables under relative ones, no
+    norm bias under RMSNorm."""
+    positional = config.positional
+
+    def kept(key):
+        if key == "embed.pos.weight":
+            return positional == "learned"
+        if key.endswith("rel_embedding"):
+            return positional == "relative"
+        return not (key.endswith("norm.bias") and _rmsnorm(config))
+
+    return tuple(leaf for leaf in _S2S_TOP if kept(leaf[1]))
+
+
+def _decoder_leaves(config) -> Tuple[Tuple[str, str, bool], ...]:
+    """A decoder block's leaves: the encoder block's with ``attn`` named
+    ``self_attn`` and ``norm_attn`` named ``norm_self``, then the
+    cross-attention's and ``norm_cross``."""
+    def rename(path, key):
+        if path.startswith("attn/"):
+            return "self_" + path, "self_" + key
+        if path.startswith("norm_attn/"):
+            return path.replace("norm_attn", "norm_self"), key.replace("norm_attn", "norm_self")
+        return path, key
+
+    cross = tuple(leaf for leaf in _CROSS
+                  if not (_rmsnorm(config) and leaf[0].startswith("norm_")
+                          and leaf[1].endswith(".bias"))
+                  and (config.dense_bias or leaf[1].endswith(".weight")
+                       or leaf[0].startswith("norm_")))
+    return tuple((*rename(p, k), t) for p, k, t in _block_leaves(config)) + cross
+
+
+@dataclasses.dataclass(frozen=True)
+class _Stack:
+    """One stack of a model's tree: its JAX prefix (``blocks/``,
+    ``encoder/``), its pipe-layout prefix, its port prefix, its block
+    leaves and the config whose ``n_layers`` is its depth."""
+
+    jax: str
+    pipe: str
+    port: str
+    leaves: Tuple[Tuple[str, str, bool], ...]
+    config: object
+
+
+def _stacks(config) -> Tuple[_Stack, ...]:
+    if not _is_seq2seq(config):
+        return (_Stack("blocks/", _PIPE, "blocks.", _block_leaves(config), config),)
+    enc = dataclasses.replace(config, n_layers=config.encoder_layers)
+    return (_Stack("encoder/", "encoder/stage/sharded/", "encoder.", _block_leaves(enc), enc),
+            _Stack("decoder/", "decoder/stage/sharded/", "decoder.", _decoder_leaves(config),
+                   config))
+
+
+def _block_shapes(config) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """``{key inside a block: (shape, dtype)}`` of every leaf a block may
+    hold (an encoder-decoder's decoder blocks' too)."""
     d, dh, h = config.d_model, config.head_dim, config.n_heads
     n_kv = config.n_kv_heads or h
     hidden = config.mlp_ratio * d
     dt, f32 = config.dtype, torch.float32
-    block = {
+    attn = {
         "attn.qkv.weight": ((3 * d, d), dt), "attn.qkv.bias": ((3 * d,), dt),
         "attn.q.weight": ((h * dh, d), dt), "attn.q.bias": ((h * dh,), dt),
         "attn.kv.weight": ((2 * n_kv * dh, d), dt), "attn.kv.bias": ((2 * n_kv * dh,), dt),
         "attn.out.weight": ((d, h * dh), dt), "attn.out.bias": ((d,), dt),
+    }
+    block = dict(attn)
+    block.update({"self_" + k: v for k, v in attn.items()})
+    block.update({"cross_" + k: v for k, v in attn.items()})
+    block.update({
         "mlp.gate.weight": ((hidden, d), dt),
         "mlp.up.weight": ((hidden, d), dt), "mlp.up.bias": ((hidden,), dt),
         "mlp.down.weight": ((d, hidden), dt), "mlp.down.bias": ((d,), dt),
-        "norm_attn.weight": ((d,), f32), "norm_attn.bias": ((d,), f32),
-        "norm_mlp.weight": ((d,), f32), "norm_mlp.bias": ((d,), f32),
-    }
+    })
+    for norm in ("norm_attn", "norm_mlp", "norm_self", "norm_cross"):
+        block.update({f"{norm}.weight": ((d,), f32), f"{norm}.bias": ((d,), f32)})
     e = getattr(config, "moe_experts", 0)
     block.update({
         "moe.router.weight": ((e, d), f32),
@@ -255,21 +362,37 @@ def state_shapes(config, head: bool = True) -> Dict[str, Tuple[Tuple[int, ...], 
         "moe.experts.up.kernel": ((e, d, hidden), dt), "moe.experts.up.bias": ((e, hidden), dt),
         "moe.experts.down.kernel": ((e, hidden, d), dt), "moe.experts.down.bias": ((e, d), dt),
     })
+    return block
+
+
+def state_shapes(config, head: bool = True) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """``{port key: (shape, dtype)}`` of the port's GPTLM (or
+    ``EncoderDecoder``) state dict (``head=False``: without the lm_head)."""
+    d, dt, f32 = config.d_model, config.dtype, torch.float32
+    rows = config.seq_len
+    if _is_seq2seq(config):
+        rows = max(config.seq_len, config.source_len)
     top = {
         "embed.tok.weight": ((config.vocab_size, d), dt),
-        "embed.pos.weight": ((config.seq_len, d), dt),
+        "embed.pos.weight": ((rows, d), dt),
         "embed.norm.weight": ((d,), f32),
         "embed.norm.bias": ((d,), f32),
-        "norm_final.weight": ((d,), f32),
-        "norm_final.bias": ((d,), f32),
         "lm_head.weight": ((config.vocab_size, d), dt),
     }
-    kept = {key for _, key, _ in _top_leaves(config, head)}
-    shapes = {k: v for k, v in top.items() if k.startswith("embed.") and k in kept}
-    for i in range(config.n_layers):
-        for _, key, _ in _block_leaves(config):
-            shapes[f"blocks.layer_{i}.{key}"] = block[key]
-    shapes.update({k: v for k, v in top.items() if not k.startswith("embed.") and k in kept})
+    for name in ("rel_bias", "enc_rel_bias", "dec_rel_bias"):
+        top[f"{name}.rel_embedding"] = ((config.rel_num_buckets, config.n_heads), f32)
+    for name in ("norm_final", "enc_norm", "dec_norm"):
+        top.update({f"{name}.weight": ((d,), f32), f"{name}.bias": ((d,), f32)})
+    leaves = _s2s_top_leaves(config) if _is_seq2seq(config) else _top_leaves(config, head)
+    kept = [key for _, key, _ in leaves]
+    shapes = {k: top[k] for k in kept if k.startswith(("embed.", "rel_bias.", "enc_rel_bias.",
+                                                         "dec_rel_bias."))}
+    block = _block_shapes(config)
+    for stack in _stacks(config):
+        for i in range(stack.config.n_layers):
+            for _, key, _ in stack.leaves:
+                shapes[f"{stack.port}layer_{i}.{key}"] = block[key]
+    shapes.update({k: top[k] for k in kept if k not in shapes})
     return shapes
 
 
@@ -379,43 +502,49 @@ def params_from_jax(tree: Mapping, config, dtype=None, *,
     """
     if _is_mlp(config):
         return _mlp_from_jax(tree, config, dtype)
-    if "encoder" in tree:
+    seq2seq = _is_seq2seq(config)
+    if "encoder" in tree and not seq2seq:
         return _classifier_from_jax(tree, config, dtype, model_rank=model_rank,
                                     pipe_rank=pipe_rank)
-    flat = _unpipe(dict(_flatten(tree)), config)
-    scanned = any(p.startswith(_SCANNED) for p in flat)
-    unrolled = any(p.startswith("blocks/layer_") for p in flat)
-    if scanned == unrolled:
-        raise ValueError(
-            "expected exactly one JAX layer layout, scanned 'blocks/layers/block/...' "
-            "or unrolled 'blocks/layer_{i}/...'"
-        )
-    wanted = [(path, key, t, None) for path, key, t in _top_leaves(config, head)]
-    for i in range(config.n_layers):
-        for path, key, t in _block_leaves(config):
-            port_key = f"blocks.layer_{i}.{key}"
-            if scanned:
-                wanted.append((_SCANNED + path, port_key, t, i))
-            else:
-                wanted.append((f"blocks/layer_{i}/{path}", port_key, t, None))
+    flat = dict(_flatten(tree))
+    stacks = _stacks(config)
+    wanted = [(path, key, t, None, 0) for path, key, t in
+              (_s2s_top_leaves(config) if seq2seq else _top_leaves(config, head))]
+    for stack in stacks:
+        flat = _unpipe(flat, stack.config, stack.pipe, stack.jax)
+        scanned = any(p.startswith(stack.jax + "layers/block/") for p in flat)
+        unrolled = any(p.startswith(stack.jax + "layer_") for p in flat)
+        if scanned == unrolled:
+            raise ValueError(
+                f"expected exactly one JAX layer layout, scanned '{stack.jax}layers/block/...' "
+                f"or unrolled '{stack.jax}layer_{{i}}/...'"
+            )
+        n = stack.config.n_layers
+        for i in range(n):
+            for path, key, t in stack.leaves:
+                port_key = f"{stack.port}layer_{i}.{key}"
+                if scanned:
+                    wanted.append((f"{stack.jax}layers/block/{path}", port_key, t, i, n))
+                else:
+                    wanted.append((f"{stack.jax}layer_{i}/{path}", port_key, t, None, n))
     # a leaf of the mesh layout stands under ModuleShard's per-rank stack
-    wanted = [(_stacked_path(p) if p not in flat and _stacked_path(p) in flat else p, k, t, i)
-              for p, k, t, i in wanted]
-    missing = sorted({p for p, _, _, _ in wanted if p not in flat})
+    wanted = [(_stacked_path(p) if p not in flat and _stacked_path(p) in flat else p, k, t, i, n)
+              for p, k, t, i, n in wanted]
+    missing = sorted({p for p, *_ in wanted if p not in flat})
     if missing:
         raise KeyError(f"JAX parameter tree lacks {missing}")
-    extra = sorted(set(flat) - {p for p, _, _, _ in wanted})
+    extra = sorted(set(flat) - {p for p, *_ in wanted})
     if extra:
         raise ValueError(f"JAX parameter tree has leaves the port does not: {extra}")
     shapes = state_shapes(config, head)
     state = {}
-    for path, key, transpose, layer in wanted:
+    for path, key, transpose, layer, n_layers in wanted:
         arr = _as_float32(flat[path])
         if layer is not None:
-            if arr.ndim == 0 or arr.shape[0] != config.n_layers:
+            if arr.ndim == 0 or arr.shape[0] != n_layers:
                 raise ValueError(
                     f"{path}: scanned leaf {arr.shape} lacks the [n_layers="
-                    f"{config.n_layers}] axis"
+                    f"{n_layers}] axis"
                 )
             arr = arr[layer]
         shape, module_dtype = shapes[key]
@@ -441,18 +570,23 @@ def params_from_jax(tree: Mapping, config, dtype=None, *,
 
         if not 0 <= pipe_rank < config.pipe_size:
             raise ValueError(f"pipe_rank={pipe_rank} of {config.pipe_size} stages")
-        own = {f"blocks.layer_{i}." for i in stage_layers(config, pipe_rank)}
+        own = {f"{stack.port}layer_{i}." for stack in stacks
+               for i in stage_layers(stack.config, pipe_rank)}
+        ports = tuple(stack.port for stack in stacks)
         state = {k: v for k, v in state.items()
-                 if not k.startswith("blocks.") or k[:k.index(".", 7) + 1] in own}
+                 if not k.startswith(ports) or k[:k.index(".", k.index(".") + 1) + 1] in own}
     return state
 
 
-def _pipe_tree(tree: Dict, config) -> Dict:
-    """An unrolled one-stage tree (``blocks/layer_{i}``) in the pipe
-    layout: each block leaf stacked ``[pipe, ...]`` under
-    ``pipeline/stage/sharded/`` (``chunk{j}/`` under interleave), after
-    ``[layers per chunk]`` under ``layers/block`` when ``scan_layers``."""
-    blocks = tree.pop("blocks")
+def _pipe_tree(tree: Dict, config, stack: Optional[_Stack] = None) -> Dict:
+    """An unrolled one-stage tree's stack (``blocks/layer_{i}``, or the
+    given stack's) in the pipe layout: each block leaf stacked
+    ``[pipe, ...]`` under its pipe prefix (``pipeline/stage/sharded/``;
+    ``chunk{j}/`` per virtual stage under interleave), after ``[layers per
+    chunk]`` under ``layers/block`` when ``scan_layers``.  ``config``'s
+    ``n_layers`` is the stack's depth."""
+    stack = stack or _stacks(config)[0]
+    blocks = tree.pop(stack.jax[:-1])
     stage: Dict = {}
     per, n = _chunk_layers(config), config.pipe_size
     leaf_paths = [p for p, _ in _flatten(blocks["layer_0"])]
@@ -480,7 +614,10 @@ def _pipe_tree(tree: Dict, config) -> Dict:
             else:
                 for k in range(per):
                     put(node, f"layer_{k}/{path}", torch.stack([layers[k] for layers in per_rank]))
-    tree["pipeline"] = {"stage": {"sharded": stage}}
+    node = tree
+    for name in stack.pipe.split("/")[:-3]:
+        node = node.setdefault(name, {})
+    node["stage"] = {"sharded": stage}
     return tree
 
 
@@ -506,7 +643,9 @@ def params_to_jax(state_dict: Union[Mapping[str, torch.Tensor],
     layers.  ``head=False``: a trunk without an lm_head.  An
     ``EncoderClassifier``'s state dict (one, keys under ``encoder.``) gives
     JAX's ``encoder`` / ``pooler`` / ``classifier`` tree."""
-    if isinstance(state_dict, Mapping) and any(k.startswith(_ENCODER) for k in state_dict):
+    seq2seq = _is_seq2seq(config)
+    if isinstance(state_dict, Mapping) and not seq2seq and any(
+            k.startswith(_ENCODER) for k in state_dict):
         own = {key for _, key, _ in _CLASSIFIER}
         extra = sorted(k for k in state_dict if not k.startswith(_ENCODER) and k not in own)
         if extra:
@@ -532,7 +671,10 @@ def params_to_jax(state_dict: Union[Mapping[str, torch.Tensor],
                   for m in range(tp)]
         flat_config = dataclasses.replace(config, pipe_size=1, pipe_interleave=1,
                                           scan_layers=False)
-        return _pipe_tree(params_to_jax(merged, flat_config, _mesh_layout=True), config)
+        tree = params_to_jax(merged, flat_config, _mesh_layout=True)
+        for stack in _stacks(config):
+            tree = _pipe_tree(tree, stack.config, stack)
+        return tree
     if _is_mlp(config):
         layers = [f"hidden_{i}" for i in range(config.num_hidden_layers)] + ["head"]
         wanted = {f"{name}.{leaf}" for name in layers for leaf in ("weight", "bias")}
@@ -542,8 +684,10 @@ def params_to_jax(state_dict: Union[Mapping[str, torch.Tensor],
                        "bias": state_dict[f"{name}.bias"].detach().cpu().contiguous()}
                 for name in layers}
     shapes = state_shapes(config, head)
+    top = _s2s_top_leaves(config) if seq2seq else _top_leaves(config, head)
+    stacks = _stacks(config)
     # the leaves JAX's ModuleShard stacks over the model axis, by port key
-    split = {k for p, k, _ in _top_leaves(config, head) + _block_leaves(config)
+    split = {k for p, k, _ in top + tuple(leaf for st in stacks for leaf in st.leaves)
              if _SHARD in p or _EXPERTS in p}
 
     def put(path: str, value: torch.Tensor):
@@ -564,19 +708,21 @@ def params_to_jax(state_dict: Union[Mapping[str, torch.Tensor],
             return torch.stack([flax(r[key]) for r in ranks]), True
         return flax(state_dict[key]), False
 
-    for path, key, t in _top_leaves(config, head):
+    for path, key, t in top:
         value, stacked = leaf(key, t)
         put(_stacked_path(path) if stacked else path, value)
-    for path, key, t in _block_leaves(config):
-        values = [leaf(f"blocks.layer_{i}.{key}", t) for i in range(config.n_layers)]
-        stacked = values[0][1]
-        if stacked:
-            path = _stacked_path(path)
-        if config.scan_layers:
-            put(_SCANNED + path, torch.stack([v for v, _ in values]))
-        else:
-            for i, (value, _) in enumerate(values):
-                put(f"blocks/layer_{i}/{path}", value)
+    for stack in stacks:
+        for path, key, t in stack.leaves:
+            values = [leaf(f"{stack.port}layer_{i}.{key}", t)
+                      for i in range(stack.config.n_layers)]
+            stacked = values[0][1]
+            if stacked:
+                path = _stacked_path(path)
+            if config.scan_layers:
+                put(f"{stack.jax}layers/block/{path}", torch.stack([v for v, _ in values]))
+            else:
+                for i, (value, _) in enumerate(values):
+                    put(f"{stack.jax}layer_{i}/{path}", value)
     return tree
 
 
@@ -630,7 +776,11 @@ def init_params(model: torch.nn.Module, seed: int = 0) -> Dict[str, torch.Tensor
         local = name[len(_ENCODER):] if name.startswith(_ENCODER) else name
         if name.endswith(".bias"):
             value.zero_()
-        elif ".norm_" in f".{local}" or local.startswith("embed.norm."):
+        elif name.endswith("rel_embedding"):
+            # the T5 bias table: flax's normal(stddev=1)
+            value.normal_(0.0, 1.0, generator=gen)
+        elif ".norm_" in f".{local}" or local.startswith(("embed.norm.", "enc_norm.",
+                                                          "dec_norm.")):
             value.fill_(1.0)
         elif local.startswith("embed."):
             value.normal_(0.0, 1.0 / math.sqrt(shape[1]), generator=gen)

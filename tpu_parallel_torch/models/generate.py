@@ -208,6 +208,11 @@ def _generate_core(model: GPTLM, prompt, generator, max_new_tokens: int,
             f"prompt ({prompt_len}) + max_new_tokens ({max_new_tokens}) "
             f"exceeds seq_len ({cfg.seq_len})"
         )
+    if prompt_mask is not None and cfg.positional == "relative":
+        raise NotImplementedError(
+            "ragged prompts with relative position bias (the shared bias "
+            "table assumes row-uniform query positions)"
+        )
 
     mesh = getattr(model, "mesh", None)
     if tp.model_axis(mesh, cfg.model_axis) is not None:

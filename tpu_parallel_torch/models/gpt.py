@@ -28,6 +28,10 @@ schedule (``pp.execute_interleaved_pipeline``), a decode step the ring
 (``pp.execute_pipeline_decode``), and :func:`make_gpt_1f1b_grad_fn` the
 1F1B schedule.
 
+``positional="relative"`` gives the model one T5 bias table (``rel_bias``)
+above the stack, on the xla path.  The encoder-decoder family lives in
+``models/seq2seq.py``.
+
 The encoder family: :class:`EncoderClassifier` (the trunk's hidden states
 pooled and classified), :func:`make_mlm_loss` (the masked-LM objective,
 its corruption drawn by :func:`mlm_mask`), ``bert_base`` and
@@ -55,6 +59,7 @@ from tpu_parallel_torch.models.layers import (
     Embedding,
     KVCache,
     PagedKVCache,
+    RelativePositionBias,
     TransformerConfig,
     dropout,
     make_norm,
@@ -108,6 +113,20 @@ def _pipe_refusals(cfg: GPTConfig) -> None:
             )
 
 
+def _relative_refusals(cfg: GPTConfig) -> None:
+    """JAX's build-time errors of the relative bias on ``GPTLM``, in its
+    words: one table above the stack, so no pipeline, and the xla path."""
+    if cfg.positional != "relative":
+        return
+    if cfg.pipe_size > 1:
+        raise NotImplementedError("relative position bias under pipeline parallelism")
+    if cfg.attn_impl != "xla":
+        raise NotImplementedError(
+            "relative position bias needs attn_impl='xla' (the "
+            "flash/ring/ulysses kernels take no additive score bias)"
+        )
+
+
 def stage_layers(cfg: GPTConfig, stage: int) -> List[int]:
     """The global layer indices pipe rank ``stage`` owns, chunk by chunk:
     virtual stage ``j`` is global chunk ``j * pipe_size + stage``."""
@@ -137,6 +156,10 @@ class GPTLM(nn.Module):
     together with a model axis above 1 (``llama_1b_3d``'s mesh) splits
     each tensor-parallel slice again over the data axis, by JAX's rule on
     the slice's shape (``fsdp.shard_dim``; a nested ``ShardInfo``).
+    Under ``positional="relative"`` one :class:`RelativePositionBias`,
+    ``rel_bias``, above the stack gives every layer the same T5 score bias
+    (JAX's refusals: no pipeline, the xla path only, no packed
+    ``segment_ids``, no slot-indexed ``write_index``).
     """
 
     def __init__(self, config: GPTConfig, *, device="cuda", seed: Optional[int] = 0, mesh=None,
@@ -144,6 +167,7 @@ class GPTLM(nn.Module):
         super().__init__()
         bound = model_axis(mesh, config.model_axis)
         _pipe_refusals(config)
+        _relative_refusals(config)
         pipe = pp.pipe_axis(mesh, config.pipe_axis)
         if pipe is not None and pipe[1] != config.pipe_size:
             raise ValueError(f"pipe_size={config.pipe_size}, the mesh's {config.pipe_axis!r} "
@@ -153,6 +177,9 @@ class GPTLM(nn.Module):
         self.mesh = mesh
         self.pipe = pipe
         self.embed = maybe_shard(Embedding(config, dev, mesh), config, mesh)
+        self.rel_bias = None
+        if config.positional == "relative":
+            self.rel_bias = RelativePositionBias(config, config.bidirectional, dev)
         if pipe is None:
             self.blocks = BlockStack(config, config.n_layers, dev, mesh)
         else:
@@ -238,6 +265,14 @@ class GPTLM(nn.Module):
             raise ValueError("block_table needs decode=True")
         if write_index is not None and not decode:
             raise ValueError("write_index needs decode=True")
+        if write_index is not None and cfg.positional == "relative":
+            # the shared bias table is computed from row 0's positions; a
+            # slot pool's rows sit at different depths
+            raise NotImplementedError(
+                "slot-indexed cache writes with relative position bias "
+                "(the shared bias table assumes row-uniform positions; "
+                "slot-pool rows sit at different depths)"
+            )
         if decode:
             if cache is None:
                 raise ValueError("decode=True needs a cache (GPTLM.init_cache)")
@@ -265,8 +300,17 @@ class GPTLM(nn.Module):
                 return x.new_zeros(*x.shape[:-1], cfg.vocab_size)
         else:
             x = self.embed(tokens, positions)
+            attn_bias = None
+            if self.rel_bias is not None:
+                # one bucketed score bias for every layer, computed above
+                # the stack
+                if segment_ids is not None:
+                    raise NotImplementedError("relative position bias with packed sequences")
+                attn_bias = self.rel_bias.for_step(positions, tokens.shape[1], cfg.seq_len,
+                                                   decode)
             x = self.blocks(x, positions, segment_ids, decode, cache if decode else None,
-                            write_index, block_table, dropout_rng, moe_losses=moe_losses)
+                            write_index, block_table, dropout_rng, moe_losses=moe_losses,
+                            attn_bias=attn_bias)
         if self.norm_final is not None:
             x = self.norm_final(x).to(cfg.dtype)
         if hidden_only:

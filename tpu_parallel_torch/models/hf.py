@@ -1,5 +1,5 @@
 """HuggingFace weight interop: the port of ``tpu_parallel/models/hf.py``
-for the GPT-2, Llama and BERT families.
+for the GPT-2, Llama, BERT and T5 families.
 
 ``from_hf_*`` take a ``transformers`` model or its state dict (anything
 with ``state_dict()``, or a mapping of names to tensors or arrays) and
@@ -26,8 +26,11 @@ Layout notes (as JAX's):
   non-zero ones.
 - BERT: token-type row 0 is folded into the position table (exact for
   ``token_type_ids == 0``); the pooler comes back beside the trunk;
-  ``norm_eps`` must be the checkpoint's (BERT's 1e-12).  The T5 half of
-  the JAX module waits for the encoder-decoder family.
+  ``norm_eps`` must be the checkpoint's (BERT's 1e-12).
+- T5 (``EncoderDecoder`` of ``t5_small_hf``): T5's unscaled attention is
+  folded into the q weights (times ``sqrt(head_dim)``), cross-attention's
+  k|v interleave per head, one relative table per stack comes from block
+  0, and a tied head takes T5's ``d_model**-0.5`` rescale.
 """
 
 from __future__ import annotations
@@ -599,4 +602,235 @@ def to_hf_bert(params, config, pooler: Optional[Mapping[str, torch.Tensor]] = No
     if pooler is not None:
         sd["pooler.dense.weight"] = _to_np(pooler["pooler.weight"]).astype(np.float32)
         sd["pooler.dense.bias"] = _to_np(pooler["pooler.bias"]).astype(np.float32)
+    return _hf(sd)
+
+
+# --- T5 ------------------------------------------------------------------------
+
+
+def _check_t5(config, direction: str) -> None:
+    """JAX's structural refusals of the T5 interop, in its words."""
+    if config.positional != "relative" or config.norm != "rmsnorm":
+        raise ValueError(
+            "T5 interop needs positional='relative', norm='rmsnorm' "
+            "(see t5_small_hf)"
+        )
+    if config.dense_bias or config.mlp not in ("relu", "geglu"):
+        raise ValueError(
+            "T5 interop needs dense_bias=False and mlp='relu' (original) "
+            "or 'geglu' (v1.1)" if direction == "from" else
+            "T5 interop needs dense_bias=False and mlp='relu' or 'geglu'"
+        )
+    if (config.n_kv_heads or config.n_heads) != config.n_heads:
+        raise ValueError("T5 has no GQA: n_kv_heads must be None/n_heads")
+    if config.scan_layers:
+        raise ValueError(
+            "from_hf_t5 emits the unrolled layout; build the config with "
+            "scan_layers=False" if direction == "from" else
+            "to_hf_t5 reads the unrolled layout; build the config with "
+            "scan_layers=False"
+        )
+
+
+def from_hf_t5(hf_model_or_dict, config, dtype=None) -> Dict[str, torch.Tensor]:
+    """HF T5 weights -> the port's state dict for ``EncoderDecoder(config)``
+    of the T5-faithful variant (``t5_small_hf``: the relative bias, RMSNorm
+    at the checkpoint's epsilon, bias-free projections, ``mlp="relu"`` or
+    v1.1's ``"geglu"`` from ``wi_0``/``wi_1``), as JAX's ``from_hf_t5``:
+
+    - the attention-scale fold: T5's scores are unscaled, the model scales q
+      by ``1 / sqrt(head_dim)``, so the imported q weights (self and cross)
+      are multiplied by ``sqrt(head_dim)``;
+    - self-attention's q|k|v fused to the per-head layout, cross-attention's
+      k|v interleaved per head (``CrossAttention.kv``);
+    - one relative table per stack, read from block 0;
+    - a tied checkpoint (no ``lm_head.weight``, or one equal to ``shared``,
+      or ``tie_word_embeddings``): the head is ``shared.T * d_model**-0.5``,
+      T5's tied-head rescale folded into the weight.
+
+    The checks on the checkpoint's config are JAX's, in its words."""
+    _check_t5(config, "from")
+    sd = _state_dict(hf_model_or_dict)
+    hf_config = getattr(hf_model_or_dict, "config", None)
+    if hf_config is not None:
+        for hf_name, ours in (
+            ("num_heads", config.n_heads),
+            ("num_layers", config.encoder_layers),
+            ("num_decoder_layers", config.n_layers),
+            ("relative_attention_num_buckets", config.rel_num_buckets),
+            ("relative_attention_max_distance", config.rel_max_distance),
+            # head_dim is d_model // n_heads here; T5 decouples d_kv
+            ("d_kv", config.head_dim),
+            ("d_ff", config.mlp_ratio * config.d_model),
+        ):
+            have = getattr(hf_config, hf_name, None)
+            if have is not None and have != ours:
+                raise ValueError(f"checkpoint {hf_name}={have} != config's {ours}")
+        eps = getattr(hf_config, "layer_norm_epsilon", None)
+        if eps is not None and abs(eps - config.norm_eps) > 1e-12:
+            raise ValueError(
+                f"checkpoint layer_norm_epsilon={eps}, config.norm_eps="
+                f"{config.norm_eps} (t5_small_hf sets 1e-6)"
+            )
+    shared = sd["shared.weight"]
+    if shared.shape != (config.vocab_size, config.d_model):
+        raise ValueError(
+            f"shared embedding {shared.shape} != (vocab={config.vocab_size},"
+            f" d={config.d_model})"
+        )
+    f32 = lambda x: np.asarray(x, np.float32)  # noqa: E731
+    d, h, dh = config.d_model, config.n_heads, config.head_dim
+    qscale = np.sqrt(dh).astype(np.float32)
+
+    def rms(key):
+        return {"scale": f32(sd[key])}
+
+    def self_attn(p):
+        qkv = np.concatenate([sd[f"{p}.q.weight"].T * qscale, sd[f"{p}.k.weight"].T,
+                              sd[f"{p}.v.weight"].T], axis=1)
+        return {"qkv": {"shard": {"kernel": f32(_qkv_to_ours(qkv, h))}},
+                "out": {"shard": {"kernel": f32(sd[f"{p}.o.weight"].T)}}}
+
+    def cross_attn(p):
+        # k|v interleaved per head: [d, H, 2 dh] -> [d, 2 H dh]
+        k = sd[f"{p}.k.weight"].T.reshape(d, h, dh)
+        v = sd[f"{p}.v.weight"].T.reshape(d, h, dh)
+        kv = np.concatenate([k, v], axis=-1).reshape(d, 2 * h * dh)
+        return {"q": {"shard": {"kernel": f32(sd[f"{p}.q.weight"].T * qscale)}},
+                "kv": {"shard": {"kernel": f32(kv)}},
+                "out": {"shard": {"kernel": f32(sd[f"{p}.o.weight"].T)}}}
+
+    def mlp(p):
+        if config.mlp == "geglu":
+            return {"gate": {"shard": {"kernel": f32(sd[f"{p}.wi_0.weight"].T)}},
+                    "up": {"shard": {"kernel": f32(sd[f"{p}.wi_1.weight"].T)}},
+                    "down": {"shard": {"kernel": f32(sd[f"{p}.wo.weight"].T)}}}
+        return {"up": {"shard": {"kernel": f32(sd[f"{p}.wi.weight"].T)}},
+                "down": {"shard": {"kernel": f32(sd[f"{p}.wo.weight"].T)}}}
+
+    # T5 rescales the decoder output by d_model**-0.5 iff the head is tied (a
+    # forward-pass behavior): folded into the head's weight
+    tied = getattr(hf_config, "tie_word_embeddings", None)
+    if "lm_head.weight" in sd:
+        head = sd["lm_head.weight"].T
+        if tied is None:
+            tied = np.array_equal(sd["lm_head.weight"], shared)
+        if tied:
+            head = head * (config.d_model ** -0.5)
+    else:
+        head = shared.T * (config.d_model ** -0.5)
+    bias = "layer.0.SelfAttention.relative_attention_bias.weight"
+    tree: Tree = {
+        "embed": {"tok": {"embedding": f32(shared)}},
+        "enc_rel_bias": {"rel_embedding": f32(sd[f"encoder.block.0.{bias}"])},
+        "dec_rel_bias": {"rel_embedding": f32(sd[f"decoder.block.0.{bias}"])},
+        "enc_norm": rms("encoder.final_layer_norm.weight"),
+        "dec_norm": rms("decoder.final_layer_norm.weight"),
+        "lm_head": {"shard": {"kernel": f32(head)}},
+        "encoder": {},
+        "decoder": {},
+    }
+    for i in range(config.encoder_layers):
+        p = f"encoder.block.{i}"
+        tree["encoder"][f"layer_{i}"] = {
+            "norm_attn": rms(f"{p}.layer.0.layer_norm.weight"),
+            "norm_mlp": rms(f"{p}.layer.1.layer_norm.weight"),
+            "attn": self_attn(f"{p}.layer.0.SelfAttention"),
+            "mlp": mlp(f"{p}.layer.1.DenseReluDense"),
+        }
+    for i in range(config.n_layers):
+        p = f"decoder.block.{i}"
+        tree["decoder"][f"layer_{i}"] = {
+            "norm_self": rms(f"{p}.layer.0.layer_norm.weight"),
+            "norm_cross": rms(f"{p}.layer.1.layer_norm.weight"),
+            "norm_mlp": rms(f"{p}.layer.2.layer_norm.weight"),
+            "self_attn": self_attn(f"{p}.layer.0.SelfAttention"),
+            "cross_attn": cross_attn(f"{p}.layer.1.EncDecAttention"),
+            "mlp": mlp(f"{p}.layer.2.DenseReluDense"),
+        }
+    return _port_params(tree, config, dtype)
+
+
+def to_hf_t5(params, config) -> Dict[str, torch.Tensor]:
+    """The port's T5-faithful ``EncoderDecoder`` state dict (or module) -> an
+    HF T5 state dict, the inverse of :func:`from_hf_t5`: the
+    ``sqrt(head_dim)`` fold comes off the q weights, and the lm_head
+    exports untied as it is (load it with ``tie_word_embeddings=False``, or
+    compare against a tied model through the shared embedding).  Emits
+    ``shared``, the per-stack ``embed_tokens`` aliases, the relative tables
+    on block 0 and every block's self- and cross-attention, norms and MLP."""
+    _check_t5(config, "to")
+    tree = _port_tree(params, config, head=True)
+    d, h, dh = config.d_model, config.n_heads, config.head_dim
+    qscale = np.float32(1.0 / np.sqrt(dh))
+    g = lambda *path: np.asarray(_dig(tree, path), np.float32)  # noqa: E731
+    shared = g("embed", "tok", "embedding")
+    bias = "layer.0.SelfAttention.relative_attention_bias.weight"
+    sd: Dict[str, np.ndarray] = {
+        "shared.weight": shared,
+        "encoder.embed_tokens.weight": shared,
+        "decoder.embed_tokens.weight": shared,
+        f"encoder.block.0.{bias}": g("enc_rel_bias", "rel_embedding"),
+        f"decoder.block.0.{bias}": g("dec_rel_bias", "rel_embedding"),
+        "encoder.final_layer_norm.weight": g("enc_norm", "scale"),
+        "decoder.final_layer_norm.weight": g("dec_norm", "scale"),
+        "lm_head.weight": g("lm_head", "shard", "kernel").T,
+    }
+
+    def sub(node):
+        return lambda *path: np.asarray(_dig(node, path), np.float32)
+
+    def split_self(attn):
+        qkv = _qkv_to_hf(sub(attn)("qkv", "shard", "kernel"), h)
+        q, k, v = (qkv[:, j * d:(j + 1) * d] for j in range(3))
+        return (q * qscale).T, k.T, v.T
+
+    def split_cross(attn):
+        q = sub(attn)("q", "shard", "kernel")
+        kvw = sub(attn)("kv", "shard", "kernel").reshape(d, h, 2 * dh)
+        k, v = kvw[..., :dh].reshape(d, h * dh), kvw[..., dh:].reshape(d, h * dh)
+        return (q * qscale).T, k.T, v.T
+
+    def mlp_keys(node, p):
+        gm = sub(node)
+        out = {}
+        if config.mlp == "geglu":
+            out[f"{p}.wi_0.weight"] = gm("gate", "shard", "kernel").T
+            out[f"{p}.wi_1.weight"] = gm("up", "shard", "kernel").T
+        else:
+            out[f"{p}.wi.weight"] = gm("up", "shard", "kernel").T
+        out[f"{p}.wo.weight"] = gm("down", "shard", "kernel").T
+        return out
+
+    for i in range(config.encoder_layers):
+        ours = tree["encoder"][f"layer_{i}"]
+        p = f"encoder.block.{i}"
+        q, k, v = split_self(ours["attn"])
+        go = sub(ours)
+        sd.update({f"{p}.layer.0.SelfAttention.q.weight": q,
+                   f"{p}.layer.0.SelfAttention.k.weight": k,
+                   f"{p}.layer.0.SelfAttention.v.weight": v,
+                   f"{p}.layer.0.SelfAttention.o.weight": go("attn", "out", "shard", "kernel").T,
+                   f"{p}.layer.0.layer_norm.weight": go("norm_attn", "scale"),
+                   f"{p}.layer.1.layer_norm.weight": go("norm_mlp", "scale")})
+        sd.update(mlp_keys(ours["mlp"], f"{p}.layer.1.DenseReluDense"))
+    for i in range(config.n_layers):
+        ours = tree["decoder"][f"layer_{i}"]
+        p = f"decoder.block.{i}"
+        q, k, v = split_self(ours["self_attn"])
+        cq, ck, cv = split_cross(ours["cross_attn"])
+        go = sub(ours)
+        sd.update({f"{p}.layer.0.SelfAttention.q.weight": q,
+                   f"{p}.layer.0.SelfAttention.k.weight": k,
+                   f"{p}.layer.0.SelfAttention.v.weight": v,
+                   f"{p}.layer.0.SelfAttention.o.weight":
+                       go("self_attn", "out", "shard", "kernel").T,
+                   f"{p}.layer.1.EncDecAttention.q.weight": cq,
+                   f"{p}.layer.1.EncDecAttention.k.weight": ck,
+                   f"{p}.layer.1.EncDecAttention.v.weight": cv,
+                   f"{p}.layer.1.EncDecAttention.o.weight":
+                       go("cross_attn", "out", "shard", "kernel").T})
+        for j, name in ((0, "norm_self"), (1, "norm_cross"), (2, "norm_mlp")):
+            sd[f"{p}.layer.{j}.layer_norm.weight"] = go(name, "scale")
+        sd.update(mlp_keys(ours["mlp"], f"{p}.layer.2.DenseReluDense"))
     return _hf(sd)

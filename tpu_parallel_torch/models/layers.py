@@ -11,7 +11,11 @@ position table, ``norm="rmsnorm"`` and the gated MLPs (``swiglu``,
 are too: ``bidirectional`` attention (no causal mask; the flash path one
 non-causal :func:`flash_chunk_attention` over the sequence, and no
 decoding), post-norm blocks (``prenorm=False``) and the embedding
-LayerNorm (``embed_norm``).  Under ``fsdp`` and a mesh,
+LayerNorm (``embed_norm``).  The T5 family's relative position bias
+(``positional="relative"``: :func:`t5_relative_bucket`,
+:class:`RelativePositionBias`) is an additive score bias that the xla
+and decode attention paths take (``attn_bias``), one table per stack
+above its blocks.  Under ``fsdp`` and a mesh,
 each block is FSDP-sharded over the data axis (``parallel/fsdp.py``).  On a
 mesh whose model axis is above 1 the projections are tensor-parallel
 (``parallel/tp.py``): attention's ``qkv`` (or ``q`` and ``kv``) and the
@@ -73,7 +77,7 @@ _MOE_ROUTERS = ("topk", "expert_choice")
 _MOE_DISPATCHES = ("dense", "alltoall")
 _MLPS = ("gelu", "gelu_exact", "relu", "swiglu", "geglu")
 _GATED = ("swiglu", "geglu")
-_POSITIONALS = ("learned", "rope")
+_POSITIONALS = ("learned", "rope", "relative")
 _NORMS = ("layernorm", "rmsnorm")
 _KV_CACHE_DTYPES = ("bf16", "int8")
 _ATTN_IMPLS = ("xla", "flash", "ring", "ulysses")
@@ -93,8 +97,10 @@ _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 class TransformerConfig:
     """Architecture knobs, field for field as in the JAX package.
 
-    ``dtype`` is a torch dtype.  ``positional="relative"`` (the T5 bias)
-    raises: the port does not have it yet.  ``bidirectional`` drops the
+    ``dtype`` is a torch dtype.  ``positional="relative"`` is T5's bucketed
+    per-head score bias (:class:`RelativePositionBias`, ``rel_num_buckets``
+    and ``rel_max_distance``; no position table, xla attention only).
+    ``bidirectional`` drops the
     causal mask (the encoder family: no decoding), ``prenorm=False`` makes
     the blocks post-norm and ``embed_norm`` normalizes the summed
     embedding (BERT's layout).  ``remat`` checkpoints each block
@@ -174,10 +180,6 @@ class TransformerConfig:
     moe_dispatch: str = "dense"
 
     def __post_init__(self):
-        if self.positional == "relative":
-            raise NotImplementedError(
-                "positional='relative' needs the T5 relative position bias, which the "
-                "PyTorch port does not have yet (ROADMAP queue A item 6, the seq2seq family)")
         if self.positional not in _POSITIONALS:
             raise ValueError(f"unknown positional {self.positional!r}")
         if self.norm not in _NORMS:
@@ -360,13 +362,16 @@ def _inv_sqrt_head_dim(head_dim: int, dtype: torch.dtype) -> float:
 
 
 def causal_attention(q, k, v, *, segment_ids=None, window: int = 0,
-                     causal: bool = True) -> torch.Tensor:
+                     causal: bool = True, bias=None) -> torch.Tensor:
     """Reference attention on [batch, seq, heads, head_dim]: O(seq^2) scores
     in fp32, matmuls in the input dtype (the ``attn_impl="xla"`` path).
     ``causal=False`` is the bidirectional form; with ``window`` the band is
-    then symmetric, |q - k| < window."""
+    then symmetric, |q - k| < window.  ``bias`` [1 | batch, heads, q, k]
+    (T5's relative bias) is added to the fp32 scores before the mask."""
     scale = _inv_sqrt_head_dim(q.shape[-1], q.dtype)
     scores = torch.einsum("bqhd,bkhd->bhqk", q * scale, k).float()
+    if bias is not None:
+        scores = scores + bias.float()
     q_pos = torch.arange(q.shape[1], device=q.device)[:, None]
     k_pos = torch.arange(k.shape[1], device=q.device)[None, :]
     mask = q_pos >= k_pos if causal else None
@@ -400,8 +405,15 @@ def bidirectional_flash_attention(q, k, v, segment_ids=None, *, block_q: int = 5
     return out
 
 
+def _grouped_bias(bias: torch.Tensor, h_kv: int) -> torch.Tensor:
+    """A score bias [1 | rows, heads, q, k] as [kv_heads, 1 | rows, group,
+    q, k], fp32: the grouped layout the decode products' scores take."""
+    rows, h = bias.shape[:2]
+    return bias.float().view(rows, h_kv, h // h_kv, *bias.shape[2:]).transpose(0, 1)
+
+
 def decode_attention(q, k_heads, v_heads, positions, window: int = 0,
-                     k_positions=None, k_scale=None, v_scale=None) -> torch.Tensor:
+                     k_positions=None, k_scale=None, v_scale=None, bias=None) -> torch.Tensor:
     """New queries against a whole KV cache, GQA-native.
 
     ``q`` [batch, new_len, heads, head_dim] at global ``positions``
@@ -438,6 +450,8 @@ def decode_attention(q, k_heads, v_heads, positions, window: int = 0,
     scores = torch.bmm(qh, k.transpose(1, 2)).float().view(h_kv, b, group, nq, cache_len)
     if k_scale is not None:
         scores = scores * k_scale.view(h_kv, b, 1, 1, cache_len)
+    if bias is not None:
+        scores = scores + _grouped_bias(bias, h_kv)
     if k_positions is None:
         k_positions = torch.arange(cache_len, device=q.device).expand(b, -1)
     kp = k_positions[None, :, None, None, :]
@@ -457,7 +471,7 @@ def decode_attention(q, k_heads, v_heads, positions, window: int = 0,
 
 
 def beam_decode_attention(q, k_heads, v_heads, positions, beam_src, num_beams: int,
-                          window: int = 0, k_positions=None) -> torch.Tensor:
+                          window: int = 0, k_positions=None, bias=None) -> torch.Tensor:
     """Decode attention against an UN-reordered beam-search KV cache.
 
     Rows are beam-major: beam j of prompt i is row ``i * num_beams + j``.
@@ -468,8 +482,9 @@ def beam_decode_attention(q, k_heads, v_heads, positions, beam_src, num_beams: i
     the value side each row's probabilities are bucketed by source beam
     (a one-hot over it) and contracted all-pairs.  The cache is read once
     and never gathered.  Shapes as :func:`decode_attention` (``k_heads``/
-    ``v_heads`` [kv_heads, rows, cache_len, head_dim]); the math is JAX's
-    ``beam_decode_attention``.
+    ``v_heads`` [kv_heads, rows, cache_len, head_dim]; ``bias`` [1 | rows,
+    heads, new_len, cache_len] added to the selected fp32 scores); the math
+    is JAX's ``beam_decode_attention``.
     """
     rows, nq, h, head_dim = q.shape
     kb = num_beams
@@ -490,6 +505,10 @@ def beam_decode_attention(q, k_heads, v_heads, positions, beam_src, num_beams: i
     src = (beam_src.reshape(b, kb, cache_len) % kb).long()  # [b, j, slot]
     idx = src[None, :, :, None, None, None, :].expand(h_kv, b, kb, group, nq, 1, cache_len)
     sel = scores.gather(5, idx).squeeze(5)  # [kv_heads, b, j, group, q, slot]
+    if bias is not None:
+        bb = _grouped_bias(bias, h_kv)  # [kv_heads, 1 | rows, group, q, slot]
+        sel = sel + bb.reshape(h_kv, -1, kb, group, nq, cache_len) if bb.shape[1] > 1 \
+            else sel + bb[:, :, None]
     if k_positions is None:
         k_positions = torch.arange(cache_len, device=q.device).expand(rows, -1)
     kp = k_positions.reshape(b, kb, cache_len)[None, :, :, None, None, :]
@@ -505,6 +524,87 @@ def beam_decode_attention(q, k_heads, v_heads, positions, beam_src, num_beams: i
                     v_heads.reshape(h_kv * b, kb * cache_len, head_dim))
     return out.view(h_kv, b, kb, group, nq, head_dim).permute(1, 2, 4, 0, 3, 5).reshape(
         rows, nq, h, head_dim)
+
+
+def t5_relative_bucket(relative_position: torch.Tensor, bidirectional: bool, num_buckets: int,
+                       max_distance: int) -> torch.Tensor:
+    """T5's relative-position bucketing, JAX's ``t5_relative_bucket``:
+    ``relative_position`` (``k_pos - q_pos``, integers) -> int32 buckets,
+    exact below ``max_exact`` and log-spaced beyond it, computed in fp32 as
+    JAX and the canonical implementation compute it (the truncation of
+    ``log(rp / max_exact) / log(max_distance / max_exact) * ...``).
+    Bidirectional stacks split the buckets between past and future; causal
+    stacks bucket only the past (future positions land in bucket 0)."""
+    rp = relative_position.to(torch.int32)
+    bucket = torch.zeros_like(rp)
+    if bidirectional:
+        num_buckets = num_buckets // 2
+        bucket = bucket + (rp > 0).to(torch.int32) * num_buckets
+        rp = rp.abs()
+    else:
+        rp = -rp.clamp(max=0)
+    max_exact = num_buckets // 2
+    is_small = rp < max_exact
+    log_ratio = torch.log(torch.tensor(max_distance / max_exact, dtype=torch.float32))
+    scaled = max_exact + (torch.log(rp.clamp(min=1).float() / max_exact) / log_ratio.to(rp.device)
+                          * (num_buckets - max_exact)).to(torch.int32)
+    scaled = scaled.clamp(max=num_buckets - 1)
+    return bucket + torch.where(is_small, rp, scaled)
+
+
+@functools.lru_cache(maxsize=None)
+def _bucket_table(bidirectional: bool, num_buckets: int, max_distance: int) -> torch.Tensor:
+    """:func:`t5_relative_bucket` of every relative position in
+    ``[-max_distance, max_distance]``, computed on the host (int64 CPU):
+    beyond ``max_distance`` every bucket is the saturated one, so the table
+    indexed by the clamped position is the function everywhere, and a
+    device's own ``log`` never decides a bucket boundary."""
+    rel = torch.arange(-max_distance, max_distance + 1)
+    return t5_relative_bucket(rel, bidirectional, num_buckets, max_distance).long()
+
+
+class RelativePositionBias(nn.Module):
+    """T5-style bucketed per-head position bias, shared across a stack (JAX's
+    ``RelativePositionBias``): ``(q_positions [Q], k_positions [K]) -> bias
+    [1, n_heads, Q, K]`` fp32, from one fp32 table ``rel_embedding``
+    [rel_num_buckets, n_heads].  The buckets come from the host-computed
+    :func:`_bucket_table` (one index per pair, no host sync), so they are
+    the same on every device.  Under tensor parallelism each
+    :class:`Attention` slices its local heads off the full-width bias."""
+
+    def __init__(self, config: TransformerConfig, bidirectional: bool, device=None):
+        super().__init__()
+        self.config = config
+        self.bidirectional = bidirectional
+        self.rel_embedding = nn.Parameter(torch.empty(
+            config.rel_num_buckets, config.n_heads, dtype=torch.float32, device=device))
+        self._tables = {}
+
+    def _table(self, device) -> torch.Tensor:
+        if device not in self._tables:
+            cfg = self.config
+            self._tables[device] = _bucket_table(self.bidirectional, cfg.rel_num_buckets,
+                                                 cfg.rel_max_distance).to(device)
+        return self._tables[device]
+
+    def forward(self, q_positions: torch.Tensor, k_positions: torch.Tensor) -> torch.Tensor:
+        md = self.config.rel_max_distance
+        rel = (k_positions[None, :] - q_positions[:, None]).long().clamp(-md, md)
+        bucket = self._table(rel.device)[rel + md]  # [Q, K]
+        return self.rel_embedding[bucket].permute(2, 0, 1)[None]  # [1, H, Q, K]
+
+    def for_step(self, positions: Optional[torch.Tensor], q_len: int, cache_len: int,
+                 decode: bool) -> torch.Tensor:
+        """JAX's recipe shared by ``GPTLM`` and the seq2seq decoder: queries
+        at ``positions`` (row 0: callers broadcast uniform positions; packed
+        and ragged rows are refused upstream) against themselves, or in
+        ``decode`` against every cache slot ``arange(cache_len)`` (the
+        slots :func:`decode_attention` reads; the cache's scratch row is
+        not one of them)."""
+        device = self.rel_embedding.device
+        q_pos = positions[0] if positions is not None else torch.arange(q_len, device=device)
+        k_pos = torch.arange(cache_len, device=q_pos.device) if decode else q_pos
+        return self(q_pos, k_pos)
 
 
 def _kv_entries(quantized: bool, k, v):
@@ -844,7 +944,12 @@ class Attention(nn.Module):
     and before the cache write and the attention (a cached K holds rope at
     its absolute position, as JAX's), at ``positions``: by default
     ``arange(S)``, offset by the seq coordinate times the local length under
-    sequence parallelism, or in decode the cache index plus ``arange(t)``."""
+    sequence parallelism, or in decode the cache index plus ``arange(t)``.
+
+    ``attn_bias`` [1, n_heads, q, k] (T5's relative bias, computed once above
+    the stack) is added to the scores of the xla and decode paths; on a
+    model axis each rank takes its local heads' slice.  The flash, ring and
+    Ulysses paths refuse it, in JAX's words."""
 
     def __init__(self, config: TransformerConfig, device=None, mesh=None):
         super().__init__()
@@ -877,13 +982,17 @@ class Attention(nn.Module):
 
     def forward(self, x, positions=None, segment_ids=None, decode: bool = False,
                 cache=None, write_index=None, block_table=None,
-                dropout_gen: Optional[torch.Generator] = None) -> torch.Tensor:
+                dropout_gen: Optional[torch.Generator] = None, attn_bias=None) -> torch.Tensor:
         cfg = self.config
         if decode and cfg.bidirectional:
             raise NotImplementedError(
                 "incremental decoding with bidirectional attention "
                 "(encoders do not autoregress)"
             )
+        if attn_bias is not None and self.local_heads != cfg.n_heads:
+            # the model-level bias covers all heads; keep this rank's slice
+            r = model_axis(self.mesh, cfg.model_axis)[2]
+            attn_bias = attn_bias[:, r * self.local_heads:(r + 1) * self.local_heads]
         b, t = x.shape[:2]
         dh = cfg.head_dim
         with checkpoint_name("proj"):
@@ -963,23 +1072,29 @@ class Attention(nn.Module):
                     v_heads = (v_heads.float() * v_scale).to(cfg.dtype)
                 out = beam_decode_attention(
                     q, k_heads, v_heads, positions, cache.beam_src, cache.num_beams,
-                    window=cfg.attn_window, k_positions=k_pos,
+                    window=cfg.attn_window, k_positions=k_pos, bias=attn_bias,
                 )
             else:
                 out = decode_attention(
                     q, k_heads, v_heads, positions, window=cfg.attn_window, k_positions=k_pos,
-                    k_scale=k_scale, v_scale=v_scale,
+                    k_scale=k_scale, v_scale=v_scale, bias=attn_bias,
                 )
         else:
-            out = self._attend(q, k, v, segment_ids)
+            out = self._attend(q, k, v, segment_ids, attn_bias)
         with checkpoint_name("proj"):
             out = self.out(out.reshape(b, t, self.local_heads * dh))
         if dropout_gen is not None:
             out = dropout(out, cfg.dropout_rate, dropout_gen)
         return out
 
-    def _attend(self, q, k, v, segment_ids):
+    def _attend(self, q, k, v, segment_ids, attn_bias=None):
         cfg = self.config
+        if attn_bias is not None and cfg.attn_impl != "xla":
+            # the flash, ring and ulysses kernels take no additive score bias
+            raise NotImplementedError(
+                f"attention score bias (positional='relative') under "
+                f"attn_impl={cfg.attn_impl!r} — use attn_impl='xla'"
+            )
         # the encoder's flash path is one non-causal chunk over the sequence
         flash = functools.partial(
             bidirectional_flash_attention if cfg.bidirectional else flash_attention,
@@ -1008,7 +1123,7 @@ class Attention(nn.Module):
             k = k.repeat_interleave(group, dim=2)
             v = v.repeat_interleave(group, dim=2)
         return causal_attention(q, k, v, segment_ids=segment_ids, window=cfg.attn_window,
-                                causal=not cfg.bidirectional)
+                                causal=not cfg.bidirectional, bias=attn_bias)
 
 
 class MLP(nn.Module):
@@ -1076,7 +1191,7 @@ class Block(nn.Module):
 
     def forward(self, x, positions=None, segment_ids=None, decode: bool = False,
                 cache=None, write_index=None, block_table=None,
-                dropout_seed: Optional[int] = None):
+                dropout_seed: Optional[int] = None, attn_bias=None):
         cfg = self.config
         if decode and cfg.moe_experts > 0 and cfg.moe_router == "expert_choice":
             # EC routes over the whole token pool; a single-token decode
@@ -1091,10 +1206,12 @@ class Block(nn.Module):
             gen = torch.Generator(device=x.device).manual_seed(dropout_seed)
         attn_args = (positions, segment_ids, decode, cache, write_index, block_table)
         if not cfg.prenorm:
-            x = self.norm_attn(x + self.attn(x, *attn_args, dropout_gen=gen)).to(dtype)
+            x = self.norm_attn(x + self.attn(x, *attn_args, dropout_gen=gen,
+                                             attn_bias=attn_bias)).to(dtype)
             y, balance = self._mlp(x, gen)
             return self.norm_mlp(x + y).to(dtype), balance
-        x = x + self.attn(self.norm_attn(x).to(dtype), *attn_args, dropout_gen=gen)
+        x = x + self.attn(self.norm_attn(x).to(dtype), *attn_args, dropout_gen=gen,
+                          attn_bias=attn_bias)
         y, balance = self._mlp(self.norm_mlp(x).to(dtype), gen)
         return x + y, balance
 
@@ -1123,8 +1240,9 @@ class BlockStack(nn.Module):
     ``chunks`` equal runs of them (an interleaved rank's virtual stage).
     Decode caches are indexed by position in the stack.
 
-    MoE blocks return a load-balance value each; ``moe_losses`` (a list)
-    receives them in layer order.  The append happens here, outside the
+    ``attn_bias`` (T5's relative bias, one for the whole stack) reaches
+    every block's attention.  MoE blocks return a load-balance value each;
+    ``moe_losses`` (a list) receives them in layer order.  The append happens here, outside the
     checkpointed call, so a recompute in the backward never records a
     layer twice."""
 
@@ -1143,7 +1261,8 @@ class BlockStack(nn.Module):
     def forward(self, x, positions=None, segment_ids=None, decode: bool = False,
                 caches: Optional[List[KVCache]] = None, write_index=None,
                 block_table=None, dropout_rng: Optional[torch.Generator] = None,
-                chunk: Optional[int] = None, moe_losses: Optional[list] = None) -> torch.Tensor:
+                chunk: Optional[int] = None, moe_losses: Optional[list] = None,
+                attn_bias=None) -> torch.Tensor:
         remat = self.config.remat and not decode and torch.is_grad_enabled()
         kwargs = remat_kwargs_for(self.config) if remat else None
         positions_in_stack = range(self.n_layers)
@@ -1157,11 +1276,11 @@ class BlockStack(nn.Module):
             layer = getattr(self, f"layer_{self.layer_ids[pos]}")
             if remat:
                 x, balance = checkpoint(layer, x, positions, segment_ids, False, None, None,
-                                        None, seeds[k], **kwargs)
+                                        None, seeds[k], attn_bias, **kwargs)
             else:
                 cache = caches[pos] if caches is not None else None
                 x, balance = layer(x, positions, segment_ids, decode, cache, write_index,
-                                   block_table, dropout_seed=seeds[k])
+                                   block_table, dropout_seed=seeds[k], attn_bias=attn_bias)
             if balance is not None and moe_losses is not None:
                 moe_losses.append(balance)
         return x

@@ -368,14 +368,16 @@ class _Run:
 
 
 class _PipelineFn(torch.autograd.Function):
-    """The forward schedule as one autograd node: ``apply(run, anchor, x)``
-    -> ``(out, table)``, the per-tick balance table empty without
+    """The forward schedule as one autograd node: ``apply(run, anchor, x,
+    *extras)`` -> ``(out, table)``, the per-tick balance table empty without
     ``pass_validity``.  ``anchor`` is a 0-dim tensor that requires grad, so
     every rank's output joins the loss's graph (ranks past 0 feed no
-    ``x``)."""
+    ``x``).  ``extras`` are the differentiable extras, which the schedule
+    reads through ``run.extra_leaves``: the backward returns the gradient
+    the reverse schedule accumulated into each."""
 
     @staticmethod
-    def forward(ctx, run: _Run, anchor, x):
+    def forward(ctx, run: _Run, anchor, x, *extras):
         out, saved = run.forward(x, grad=True)
         ctx.run, ctx.saved = run, saved
         table = run.table(run.balances) if run.pass_validity else out.new_zeros(0)
@@ -386,7 +388,9 @@ class _PipelineFn(torch.autograd.Function):
         gx = ctx.run.backward(ctx.saved, grad_out,
                               grad_table if ctx.run.pass_validity else None)
         ctx.saved = None
-        return None, None, gx
+        extra = [leaf.grad if leaf.grad is not None else torch.zeros_like(leaf)
+                 for leaf in ctx.run.extra_leaves]
+        return (None, None, gx, *extra)
 
 
 _ANCHOR: Dict[Any, torch.Tensor] = {}
@@ -426,7 +430,9 @@ def execute_interleaved_pipeline(
     split into ``num_microbatches``.  Returns the pipeline's output on the
     last rank and zeros elsewhere (JAX's masked collection).  ``extras``
     maps stage keywords to per-token tensors ``[batch, ...]`` (positions,
-    segment ids): each rank indexes its microbatch's slice.  With
+    segment ids, an encoder's memory): each rank indexes its microbatch's
+    slice, and an extra that requires grad gets the gradient the stages
+    take through it.  With
     ``dropout_rng`` (a CPU generator) each (microbatch, chunk) call gets a
     ``dropout_rng`` keyword of its own.  When gradients are enabled the
     schedule is differentiable: its backward runs the reverse schedule.
@@ -441,11 +447,18 @@ def execute_interleaved_pipeline(
     group, size, index = bound
     _check_batch(x.shape[0], num_microbatches)
     mb = x.shape[0] // num_microbatches
+    grad = torch.is_grad_enabled()
+    # extras that carry gradients (the decoder pipeline's memory) enter the
+    # schedule as leaves; their gradients leave it through the node below
+    diff = {k: v for k, v in (extras or {}).items() if grad and v.requires_grad}
+    leaves = {k: v.detach().requires_grad_() for k, v in diff.items()}
     run = _Run(list(chunks), x.shape, x.dtype, x.device, num_microbatches, len(chunks),
-               group, size, index, _stack_extras(extras, num_microbatches, mb), kwargs,
+               group, size, index, _stack_extras(dict(extras or {}, **leaves), num_microbatches,
+                                                 mb), kwargs,
                _base_seed(dropout_rng), pass_validity)
-    if torch.is_grad_enabled():
-        out, table = _PipelineFn.apply(run, _anchor(x.device), x)
+    run.extra_leaves = list(leaves.values())
+    if grad:
+        out, table = _PipelineFn.apply(run, _anchor(x.device), x, *diff.values())
     else:
         out = run.forward(x, grad=False)[0]
         table = run.table(run.balances)

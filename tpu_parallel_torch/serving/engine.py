@@ -629,6 +629,14 @@ class ServingEngine:
                 "write-slot table as a ring extra — serve pipe meshes "
                 "through generate_sharded, not the serving engine)"
             )
+        if cfg.positional == "relative":
+            # the shared T5 bias table assumes row-uniform positions; a slot
+            # pool's rows sit at different depths
+            raise NotImplementedError(
+                "the serving engine does not run positional='relative' "
+                "models (per-row slot depths break the shared bias "
+                "table) — serve those through generate()"
+            )
         if mesh is not None and mesh is not getattr(model, "mesh", None):
             raise ValueError("mesh serving needs the mesh the model was built on "
                              "(GPTLM(config, mesh=mesh))")

@@ -38,7 +38,12 @@ FSDP together with a model axis above 1 (``llama_1b_3d``) splits each
 tensor-parallel slice again over the data axis.  ``objective="mlm"`` trains
 a bidirectional encoder (``bert_base``) on the masked-LM loss
 (``models/gpt.py:make_mlm_loss``); a bidirectional model refuses the causal
-objective, in JAX's words.
+objective, in JAX's words.  A model whose registry entry gives a
+``Seq2SeqConfig`` (``t5_small``, ``t5_small_hf``, ``tiny_seq2seq``) trains
+the ``EncoderDecoder`` on the teacher-forced loss
+(``models/seq2seq.py:make_seq2seq_loss``) over ``Seq2SeqBatch`` rows
+(``objective`` ``"causal"``, the default, or ``"seq2seq"``; ``"mlm"`` is
+refused in JAX's words).
 """
 
 from __future__ import annotations
@@ -58,12 +63,15 @@ from tpu_parallel_torch.core.metrics import Metrics
 from tpu_parallel_torch.core.metrics import compute as compute_metrics
 from tpu_parallel_torch.core.optim import (SGD, AddDecayedWeights, AdamW, Chain,
                                            ClipByGlobalNormSharded, Lion)
-from tpu_parallel_torch.core.state import TextBatch, TrainState, get_num_params
-from tpu_parallel_torch.data import lm_batch
+from tpu_parallel_torch.core.state import TrainState, get_num_params
+from tpu_parallel_torch.data import lm_batch, seq2seq_batch
 from tpu_parallel_torch.models.convert import init_params
 from tpu_parallel_torch.models.gpt import (GPTConfig, GPTLM, bert_base, gpt2_125m, gpt2_350m,
                                            llama_1b, make_gpt_1f1b_grad_fn, make_gpt_loss,
                                            make_mlm_loss, tiny_test)
+from tpu_parallel_torch.models.seq2seq import (EncoderDecoder, Seq2SeqConfig,
+                                               make_seq2seq_loss, t5_small, t5_small_hf,
+                                               tiny_seq2seq)
 from tpu_parallel_torch.obs.registry import MetricRegistry
 from tpu_parallel_torch.obs.tracer import NULL_TRACER, Tracer
 from tpu_parallel_torch.parallel.spmd import build_train_functions, make_model_init
@@ -78,6 +86,11 @@ MODEL_REGISTRY: Dict[str, Callable[..., GPTConfig]] = {
     "llama_1b": llama_1b,
     "bert_base": bert_base,
     "tiny": tiny_test,
+    # the encoder-decoder family: Seq2SeqConfig factories dispatch the
+    # Trainer to EncoderDecoder, make_seq2seq_loss and seq2seq batches
+    "t5_small": t5_small,
+    "t5_small_hf": t5_small_hf,
+    "tiny_seq2seq": tiny_seq2seq,
 }
 
 MESH_AXES = ("data", "model", "pipe", "seq")
@@ -106,7 +119,9 @@ class TrainerConfig:
     ``donate`` is accepted and changes
     nothing: the port's step already updates its buffers in place.  ``objective``:
     ``"causal"`` (next-token LM) or ``"mlm"`` (the masked-LM loss of encoder
-    configs, corrupting ``mlm_mask_rate`` of the tokens).
+    configs, corrupting ``mlm_mask_rate`` of the tokens); an
+    encoder-decoder model trains teacher-forced under ``"causal"`` or
+    ``"seq2seq"``.
     """
 
     model: str = "gpt2_125m"
@@ -240,8 +255,6 @@ class Trainer:
 
     def __init__(self, config: TrainerConfig, mesh=None, *, device="cuda",
                  tracer: Optional[Tracer] = None, registry: Optional[MetricRegistry] = None):
-        if config.objective not in ("causal", "mlm"):
-            raise ValueError(f"objective={config.objective!r} (causal | mlm)")
         if mesh is None:
             mesh = make_mesh(MeshConfig(**_mesh_sizes(config.mesh)))
         if config.ema_decay and not 0.0 < config.ema_decay < 1.0:
@@ -257,13 +270,29 @@ class Trainer:
         # the model's pipeline degree is dictated by the mesh
         overrides.setdefault("pipe_size", mesh_sizes(mesh)[PIPE_AXIS])
         self.model_config: GPTConfig = MODEL_REGISTRY[config.model](**overrides)
-        if self.model_config.bidirectional and config.objective == "causal":
+        self.is_seq2seq = isinstance(self.model_config, Seq2SeqConfig)
+        if self.is_seq2seq:
+            if config.objective not in ("causal", "seq2seq"):
+                # "causal", the default, counts as the family's own objective
+                raise ValueError(
+                    f"objective={config.objective!r} is a single-stack "
+                    "objective; encoder-decoder models train teacher-forced"
+                )
+        elif config.objective not in ("causal", "mlm"):
+            raise ValueError(f"objective={config.objective!r} (causal | mlm)")
+        if self.model_config.bidirectional and config.objective == "causal" \
+                and not self.is_seq2seq:
             # next-token CE on a bidirectional model: attention sees the target
             raise ValueError(
                 "bidirectional models cannot train with objective='causal' "
                 "(attention sees the next-token target); use objective='mlm'"
             )
         schedule = self.model_config.pipe_schedule
+        if schedule == "1f1b" and self.is_seq2seq:
+            raise NotImplementedError(
+                "pipe_schedule='1f1b' for the encoder-decoder family "
+                "(two sequential pipelines need their own buffer walk)"
+            )
         if schedule == "1f1b" and config.objective == "mlm":
             # the 1F1B schedule computes the causal loss itself
             raise NotImplementedError(
@@ -294,9 +323,12 @@ class Trainer:
             raise ValueError(
                 f"mesh has seq={seq} but attn_impl={self.model_config.attn_impl!r} cannot "
                 "shard the sequence axis — use attn_impl='ring' or 'ulysses'")
-        if self.model_config.seq_len % seq != 0:
-            raise ValueError(f"seq_len {self.model_config.seq_len} not divisible by seq axis "
-                             f"{seq}")
+        lengths = [self.model_config.seq_len]
+        if self.is_seq2seq:
+            lengths.append(self.model_config.source_len)
+        for length in lengths:
+            if length % seq != 0:
+                raise ValueError(f"seq_len {length} not divisible by seq axis {seq}")
         # the layout of a step's batch over the mesh, by batch dim (JAX's
         # P("data", "seq")): rows over data, token blocks over seq
         self.batch_spec = (DATA_AXIS, SEQ_AXIS) if seq > 1 else (DATA_AXIS,)
@@ -310,21 +342,27 @@ class Trainer:
         self._group = dist.group.WORLD if mesh is not None else None
         # the seeded weights are drawn once, by init (or restored): the
         # model starts with its modules' own values
-        self.model = GPTLM(self.model_config, device=self.device, seed=None, mesh=mesh)
-        self.tx = make_optimizer(config)
-        if config.objective == "mlm":
-            make_loss = functools.partial(make_mlm_loss, mask_rate=config.mlm_mask_rate)
+        cfgm = self.model_config
+        if self.is_seq2seq:
+            self.model = EncoderDecoder(cfgm, device=self.device, seed=None, mesh=mesh)
+            make_loss = make_seq2seq_loss
+            example = seq2seq_batch(torch.Generator().manual_seed(0), config.global_batch_size,
+                                    cfgm.source_len, cfgm.seq_len, cfgm.vocab_size,
+                                    device=self.device)
         else:
+            self.model = GPTLM(cfgm, device=self.device, seed=None, mesh=mesh)
             make_loss = make_gpt_loss
-        self.loss_fn = make_loss(self.model_config, mesh=mesh)
+            if config.objective == "mlm":
+                make_loss = functools.partial(make_mlm_loss, mask_rate=config.mlm_mask_rate)
+            example = lm_batch(torch.Generator().manual_seed(0), config.global_batch_size,
+                               cfgm.seq_len, cfgm.vocab_size, device=self.device)
+        self.tx = make_optimizer(config)
+        self.loss_fn = make_loss(cfgm, mesh=mesh)
         grad_fn = None
         if schedule == "1f1b":
-            grad_fn = make_gpt_1f1b_grad_fn(self.model_config, mesh=mesh)
-        self.eval_loss_fn = make_loss(self.model_config, train=False, mesh=mesh)
-        self.example_batch: TextBatch = self.local_rows(lm_batch(
-            torch.Generator().manual_seed(0), config.global_batch_size,
-            self.model_config.seq_len, self.model_config.vocab_size, device=self.device,
-        ))
+            grad_fn = make_gpt_1f1b_grad_fn(cfgm, mesh=mesh)
+        self.eval_loss_fn = make_loss(cfgm, train=False, mesh=mesh)
+        self.example_batch = self.local_rows(example)
         # the losses are read at each call: a caller may replace them
         self.funcs = build_train_functions(
             make_model_init(self.model, self.tx),
@@ -346,6 +384,8 @@ class Trainer:
         batch = batch.rows(self.data_index * n, (self.data_index + 1) * n)
         if self.seq_size == 1:
             return batch
+        if hasattr(batch, "seq_block"):  # a Seq2SeqBatch: source and target
+            return batch.seq_block(self.seq_index, self.seq_size)
         t = batch.tokens.shape[1] // self.seq_size
         return batch.cols(self.seq_index * t, (self.seq_index + 1) * t)
 
@@ -359,8 +399,7 @@ class Trainer:
         self.state = self.funcs.init_fn(rng, params)
         return self.state
 
-    def step_fn(self, state: TrainState, metrics: Optional[Metrics],
-                batch: TextBatch) -> tuple:
+    def step_fn(self, state: TrainState, metrics: Optional[Metrics], batch) -> tuple:
         """One optimizer step on this rank's rows ``batch`` -> ``(state,
         metrics)``, with the step's metrics, summed over the data axis,
         added to ``metrics`` (``funcs.step_fn``)."""
@@ -373,7 +412,7 @@ class Trainer:
             if isinstance(value, (int, float)):
                 self.registry.gauge(f"train_{key}").set(value)
 
-    def _next_batch(self, batch_iter) -> TextBatch:
+    def _next_batch(self, batch_iter):
         return next(batch_iter) if batch_iter is not None else self.example_batch
 
     def train(self, batch_iter=None, steps: Optional[int] = None,
@@ -395,12 +434,22 @@ class Trainer:
             if tr.enabled:
                 with tr.span("data_wait", track="trainer", step=step):
                     batch = self._next_batch(batch_iter)
+            else:
+                batch = self._next_batch(batch_iter)
+            if step == 1 and self.is_seq2seq and not hasattr(batch, "src_tokens"):
+                # the token-stream DataLoader yields TextBatch
+                raise ValueError(
+                    "seq2seq models need Seq2SeqBatch batches (src_tokens + "
+                    "teacher-forced tokens/targets); the token-stream "
+                    f"DataLoader yields {type(batch).__name__} — provide a "
+                    "paired-data iterator"
+                )
+            if tr.enabled:
                 # the synchronize pins the span to the step's device time
                 with tr.span("compute", track="trainer", step=step):
                     state, metrics = self.step_fn(state, metrics, batch)
                     _sync(self.device)
             else:
-                batch = self._next_batch(batch_iter)
                 state, metrics = self.step_fn(state, metrics, batch)
             if step == 1:
                 _sync(self.device)
@@ -417,9 +466,10 @@ class Trainer:
                     last["tokens_per_sec"] = tokens_per_step * step / max(
                         time.perf_counter() - t_start, 1e-9)
                 # per device: tokens_per_step counts every rank's rows,
-                # which the model axis splits again
-                util = mfu(last["tokens_per_sec"] / self.num_devices, self.model_config,
-                           self.device)
+                # which the model axis splits again; the FLOP model is the
+                # decoder-only transformer's, so an encoder-decoder gets none
+                util = None if self.is_seq2seq else mfu(
+                    last["tokens_per_sec"] / self.num_devices, self.model_config, self.device)
                 if util is not None:
                     last["mfu"] = util
                 self._publish_gauges(last)
@@ -619,5 +669,7 @@ class Trainer:
         all-to-all either (JAX traces a mesh-free twin for it)."""
         total = get_num_params(self.model)
         if self.model.pipe is not None:
-            total += (self.model.pipe[1] - 1) * get_num_params(self.model.blocks)
+            stages = [self.model.encoder, self.model.decoder] if self.is_seq2seq \
+                else [self.model.blocks]
+            total += (self.model.pipe[1] - 1) * sum(get_num_params(m) for m in stages)
         return total
