@@ -13,7 +13,9 @@ ranks), the bidirectional encoder (``bert_base`` served, trained on
 the masked-LM objective and fine-tuned as a classifier, with the
 HuggingFace interop of ``models/hf.py``) and the encoder-decoder
 (``t5_small`` served and trained, ``t5_small_hf`` through the T5
-interop), at full width.
+interop) and the serving shell (a cluster frontend over two replicas,
+crash replay, rolling swaps, the journaled daemon over HTTP, its
+process killed and recovered), at full width.
 
     python3 chip_smoke.py
 
@@ -473,6 +475,37 @@ source, all started together).  Phases, in order; any failure raises:
    ``--config=t5_small_s2s`` at 2+2 layers, 2 steps (started with the CLI
    batch at phase 9, collected in phase 12): exit 0, 4 launches of each
    kernel per step (2 per stack), finite losses.
+21. the serving shell on GPT-2 125M (seeded; two replicas, each over its
+   own model, 16 slots, phase 7's engine knobs with the unified tick's
+   captured graphs, router ``least``).  (a) phase 7's 32-request mix
+   through ``Frontend.submit`` / ``step`` (bf16): every request at its
+   budget, both replicas' slots and queues empty; wall, tokens/s, TTFT
+   and ITL p50/p95 (from each token's delivery), ms per cluster tick and
+   the frontend's own host ms per tick (the tick less its engines'
+   steps), beside one bare 16-slot engine on the same mix.  (d) the
+   ``ServingDaemon`` over (a)'s frontend with its HTTP server in this
+   process: a request queued before the pump starts and cancelled over
+   HTTP, 16 requests submitted and streamed by SSE at once (tokens equal
+   to their results), ``/healthz``, ``/statez``, ``/metricsz``, a drain
+   to exit 0 and a journal whose last record is a clean shutdown;
+   submit-to-first-SSE-token p50/p95, journal fsyncs per tick and ms per
+   fsync.  (b) the mix over two fp32 replicas, replica 0 crashed by a
+   ``FaultPlan`` at a seeded tick and restarted through its
+   ``engine_factory``: every request at its budget, up to 6 replayed
+   greedy requests equal to static ``generate()`` (or first differing on
+   a top-2 gap below ``FP32_TIE_GAP``), ``memory_allocated`` after the
+   restart within one engine's KV pool of before.  (c) over (b)'s fleet,
+   a rolling swap to a second seed's weights (canary, spot check,
+   promote), then one to a third set whose canary load comes out with
+   ``SHELL_SCALED`` scaled 4x: the spot check rolls it back, both
+   replicas then serve the second set bitwise and 4 probes' greedy tokens
+   equal those before the rollout.  (e) ``python -m
+   tpu_parallel_torch.daemon.serve --serve --model gpt2_125m`` (fp32, one
+   replica of 8 slots) as a subprocess: 6 requests of 128 tokens, SIGKILL
+   at the first token the first one streams, a restart on the same journal,
+   the client's retries deduped, every request finished with exactly one
+   terminal record and its tokens held to static ``generate()`` by the
+   top-2 rule, SIGTERM to exit 0.  No flash kernel launches (a-d).
 
 Weights and inputs are made from ``SEED``.  The kernel launch counters are
 set to 0 before each main path (phases 3-4: inference; phase 6's steps:
@@ -483,8 +516,8 @@ leg and its leg (b)'s steps; phase 16's CLI leg and the steps of its
 legs (b) and (c) in every rank; phase 17 (a)'s forward and the steps of
 (c) and (d) in every rank; phase 18 (a)'s forward and ``generate()``, (b)'s
 steps, (c)'s steps in every rank and (d)'s CLI; phase 19 (a)'s forward, (b)'s
-steps and (e)'s CLI; phase 20 (a)'s forward, (c)'s steps and (e)'s CLI)
-and read after it.  The last two lines
+steps and (e)'s CLI; phase 20 (a)'s forward, (c)'s steps and (e)'s CLI;
+phase 21 (a)-(d), which must leave them at 0) and read after it.  The last two lines
 are the ``kernels`` JSON object and the ``{"ok": true, ...}`` line.
 """
 
@@ -9658,6 +9691,623 @@ def t5_phase(smi, cli_collected):
             rows, launches)
 
 
+SHELL_REPLICAS = 2
+SHELL_PROBES = 4  # (c): greedy probe requests before and after the rollback
+SHELL_PROBE_NEW = 32
+SHELL_SWAP_NEW = 16  # (c): new tokens of the traffic that auditions the canaries
+SHELL_FP32_CHECKED = 6  # (b): replayed greedy requests held to generate(), at most
+SHELL_HTTP_REQUESTS = 16  # (d)
+SHELL_HTTP_NEW = 32
+SHELL_CHILD_REQUESTS = 6  # (e)
+SHELL_CHILD_PROMPT = 128  # (e): prompt tokens, cut from the workload's
+SHELL_CHILD_NEW = 128
+SHELL_CHILD_SLOTS = 8
+SHELL_SCALED = "blocks.layer_0.mlp.down.weight"  # (c): the tensor a corrupted canary load scales
+
+
+def _pcts(xs):
+    """(p50, p95) of ``xs`` in ms, None when empty."""
+    import numpy as np
+
+    if not xs:
+        return None, None
+    a = np.asarray(xs, dtype=float) * 1e3
+    return float(np.percentile(a, 50)), float(np.percentile(a, 95))
+
+
+def _shell_drive(workload, submit, step):
+    """Phase 7's arrival pattern through ``submit`` and ``step`` (an
+    engine's or a frontend's): 16 requests at tick 0, then 4 per tick,
+    then ticks until every request is terminal.  Per request the submit
+    time and each token's delivery time (``on_token``), per tick its
+    wall.  Returns (outputs, wall s, TTFT list, ITL list, tick walls)."""
+    stamps, sent = {}, {}
+
+    def on_token(rid):
+        stamps[rid] = []
+
+        def hook(ev):
+            if ev.token >= 0:
+                stamps[rid].append(time.perf_counter())
+        return hook
+
+    from tpu_parallel_torch.serving import Request, SamplingParams
+
+    requests = [Request(prompt=p, max_new_tokens=n, request_id=f"r{i}", on_token=on_token(f"r{i}"),
+                        sampling=SamplingParams(temperature=0.8, top_p=0.9) if hot
+                        else SamplingParams())
+                for i, (p, n, hot) in enumerate(workload)]
+    outs, ticks = [], []
+
+    def admit(batch):
+        for r in batch:
+            sent[r.request_id] = time.perf_counter()
+            outs.append(submit(r))
+
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    admit(requests[:SERVE_FIRST_TICK])
+    while len(outs) < len(requests) or not all(o.done for o in outs):
+        t0 = time.perf_counter()
+        step()
+        ticks.append(time.perf_counter() - t0)
+        if len(outs) < len(requests):
+            admit(requests[len(outs):len(outs) + SERVE_PER_TICK])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    ttft = [stamps[rid][0] - sent[rid] for rid in sent if stamps[rid]]
+    itl = [b - a for rid in sent for a, b in zip(stamps[rid], stamps[rid][1:])]
+    return outs, wall, ttft, itl, ticks
+
+
+def _at_budget(name, outs, vocab):
+    bad = [o.request.request_id for o in outs
+           if o.status != "finished" or len(o.tokens) != o.request.max_new_tokens]
+    if bad:
+        raise AssertionError(f"[shell {name}] requests not finished at their budget: {bad}")
+    for o in outs:
+        if min(o.tokens) < 0 or max(o.tokens) >= vocab:
+            raise AssertionError(f"[shell {name}] {o.request.request_id} tokens out of range")
+
+
+def _replica_models(cfg, seed, n):
+    """``n`` models with the weights drawn once from ``seed``: one per
+    replica, so a rebind on one never reaches another."""
+    from tpu_parallel_torch.models import GPTLM
+
+    first = GPTLM(cfg, device="cuda", seed=seed).eval()
+    models = [first]
+    for _ in range(n - 1):
+        model = GPTLM(cfg, device="cuda", seed=None).eval()
+        model.load_state_dict(first.state_dict())
+        models.append(model)
+    return models
+
+
+def _timed_engine_steps(frontend):
+    """Wrap each replica engine's ``step`` to add its wall to a list the
+    caller resets per cluster tick: the frontend's own host time is the
+    tick's wall less its engines'."""
+    spent = [0.0]
+    for h in frontend.replicas:
+        inner = h.engine.step
+
+        def timed(inner=inner):
+            t0 = time.perf_counter()
+            try:
+                return inner()
+            finally:
+                spent[0] += time.perf_counter() - t0
+        h.engine.step = timed
+    return spent
+
+
+def shell_frontend_leg(seed, models, workload):
+    """(a): the 32-request mix through ``Frontend.submit`` / ``step`` over
+    two bf16 replicas, beside one bare engine on the same mix."""
+    from tpu_parallel_torch.cluster import Frontend
+
+    vocab = models[0].config.vocab_size
+    bare = serve_engine(models[0], 8, seed)
+    b_outs, b_wall, b_ttft, b_itl, b_ticks = _shell_drive(workload, bare.add_request, bare.step)
+    _at_budget("bare engine", b_outs, vocab)
+    bare_tokens = {o.request.request_id: o.tokens for o in b_outs}
+    bare_summary = bare.metrics.summary()
+    del bare, b_outs
+    gc.collect()
+
+    fe = Frontend([serve_engine(m, 8, seed) for m in models], router="least")
+    spent = _timed_engine_steps(fe)
+    frontend_host = []
+
+    def step():
+        spent[0] = 0.0
+        t0 = time.perf_counter()
+        fe.step()
+        frontend_host.append(time.perf_counter() - t0 - spent[0])
+
+    outs, wall, ttft, itl, ticks = _shell_drive(workload, fe.submit, step)
+    _at_budget("frontend", outs, vocab)
+    for h in fe.replicas:
+        if h.engine.in_flight or h.engine.scheduler.depth:
+            raise AssertionError(f"[shell frontend] replica {h.replica_id} not empty: "
+                                 f"{h.engine.in_flight} slots, {h.engine.scheduler.depth} queued")
+    summary = fe.summary()
+    if summary["inflight_tokens"] or summary["failed"] or summary["retries"]:
+        raise AssertionError(f"[shell frontend] {summary}")
+    greedy = [f"r{i}" for i, (_, _, hot) in enumerate(workload) if not hot]
+    tokens = {o.request.request_id: o.tokens for o in outs}
+    n_tokens = sum(len(o.tokens) for o in outs)
+    report = dict(
+        replicas=len(models), slots_per_replica=SERVE_SLOTS, router="least",
+        requests=len(outs), tokens_out=n_tokens, wall_s=wall, tokens_per_s=n_tokens / wall,
+        ttft_ms_p50_p95=_pcts(ttft), itl_ms_p50_p95=_pcts(itl), cluster_ticks=len(ticks),
+        cluster_tick_ms_p50_p95=_pcts(ticks), frontend_host_ms_per_tick_p50_p95=_pcts(
+            frontend_host),
+        per_replica_ticks=[h.ticks for h in fe.replicas],
+        graph_captures=[h.engine.graph_captures for h in fe.replicas],
+        greedy_equal_to_bare_engine=sum(tokens[r] == bare_tokens[r] for r in greedy),
+        greedy=len(greedy),
+        bare_engine=dict(wall_s=b_wall, tokens_per_s=sum(map(len, bare_tokens.values())) / b_wall,
+                         ttft_ms_p50_p95=_pcts(b_ttft), itl_ms_p50_p95=_pcts(b_itl),
+                         tick_ms_p50_p95=_pcts(b_ticks), ticks=len(b_ticks),
+                         host_ms_per_tick_p50=bare_summary["host_ms_per_tick_p50"]),
+    )
+    for h in fe.replicas:  # the daemon leg ticks the engines unwrapped
+        del h.engine.step
+    return fe, report
+
+
+def _journal_fsync_timer():
+    """Time every fsync the journal issues (through ``iofaults``): a list
+    of seconds, and the function that restores the shim."""
+    from tpu_parallel_torch.daemon import iofaults
+
+    seconds, inner = [], iofaults.fsync_file
+
+    def timed(fh):
+        t0 = time.perf_counter()
+        try:
+            return inner(fh)
+        finally:
+            seconds.append(time.perf_counter() - t0)
+
+    iofaults.fsync_file = timed
+    return seconds, lambda: setattr(iofaults, "fsync_file", inner)
+
+
+def _http(port, method, path, body=None, timeout=120):
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data, method=method)
+    if data is not None:
+        req.add_header("Content-Type", "application/json")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.read()
+
+
+def shell_daemon_leg(fe, workload, work):
+    """(d): the daemon over (a)'s frontend with its HTTP server, in this
+    process: a cancel of a request queued before the pump starts, 16
+    requests submitted over HTTP and streamed by SSE at once, the health,
+    state and metrics endpoints, then a drain to exit 0."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tpu_parallel_torch.daemon import (EXIT_CLEAN, REC_SHUTDOWN, DaemonConfig,
+                                           DaemonHTTPServer, ServingDaemon, read_journal)
+
+    journal = str(Path(work) / "shell_daemon.jsonl")
+    fsyncs, restore = _journal_fsync_timer()
+    daemon = ServingDaemon(lambda clock: fe, journal,
+                           config=DaemonConfig(fsync_batch=8, grace_seconds=60.0))
+    server = DaemonHTTPServer(daemon).start()
+    port = server.port
+    pump, rc = None, []
+    try:
+        code, body = _http(port, "GET", "/healthz")
+        if code != 200 or not json.loads(body)["ok"]:
+            raise AssertionError(f"[shell daemon] /healthz {code} {body[:200]}")
+        code, body = _http(port, "POST", "/v1/submit", {
+            "prompt": workload[0][0], "max_new_tokens": 64, "dedupe_token": "cancelled"})
+        doomed = json.loads(body)["request_id"]
+        code, _ = _http(port, "POST", f"/v1/cancel/{doomed}")  # queued: the pump is not up
+        if code != 200:
+            raise AssertionError(f"[shell daemon] cancel of a queued request: {code}")
+        pump = threading.Thread(target=lambda: rc.append(daemon.run()), daemon=True)
+        pump.start()
+        picked = [(i, p) for i, (p, _, hot) in enumerate(workload) if not hot]
+        picked = picked[:SHELL_HTTP_REQUESTS]
+
+        def client(item):
+            i, prompt = item
+            t0 = time.perf_counter()
+            code, body = _http(port, "POST", "/v1/submit", {
+                "prompt": prompt, "max_new_tokens": SHELL_HTTP_NEW, "dedupe_token": f"h{i}"})
+            if code != 200:
+                raise AssertionError(f"[shell daemon] submit {code}: {body[:200]}")
+            rid = json.loads(body)["request_id"]
+            import urllib.request
+
+            first, tokens, last = None, [], None
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/v1/stream/{rid}",
+                                        timeout=120) as resp:
+                for raw in resp:
+                    if not raw.startswith(b"data: "):
+                        continue
+                    ev = json.loads(raw[len(b"data: "):])
+                    if "token" in ev:
+                        first = first or time.perf_counter() - t0
+                        tokens.append(ev["token"])
+                    if ev.get("finished"):
+                        last = ev
+                        break
+            return rid, first, tokens, last
+
+        with ThreadPoolExecutor(len(picked)) as pool:
+            streamed = list(pool.map(client, picked))
+        for rid, _, tokens, last in streamed:
+            code, body = _http(port, "GET", f"/v1/result/{rid}")
+            rec = json.loads(body)
+            if (last is None or last.get("finish_reason") != "length" or rec["tokens"] != tokens
+                    or len(tokens) != SHELL_HTTP_NEW or rec["status"] != "finished"):
+                raise AssertionError(f"[shell daemon] {rid}: SSE {len(tokens)} tokens, tail "
+                                     f"{last}, result {rec['status']}")
+        code, body = _http(port, "GET", f"/v1/result/{doomed}")
+        rec = json.loads(body)
+        if rec["status"] != "cancelled" or rec["tokens"]:
+            raise AssertionError(f"[shell daemon] the cancelled request: {rec}")
+        code, body = _http(port, "GET", "/statez")
+        state = json.loads(body)
+        if code != 200 or state["cluster"]["inflight_tokens"]:
+            raise AssertionError(f"[shell daemon] /statez {code}: {state.get('cluster')}")
+        code, metrics = _http(port, "GET", "/metricsz")
+        for series in (b"daemon_journal_records_total", b"cluster_submitted_total",
+                       b"daemon_journal_fsyncs_total"):
+            if code != 200 or series not in metrics:
+                raise AssertionError(f"[shell daemon] /metricsz {code} lacks {series}")
+        daemon.request_drain()
+        pump.join(timeout=120)
+        code, _ = _http(port, "GET", "/healthz")
+    finally:
+        if pump is not None and pump.is_alive():
+            daemon.request_drain()
+            daemon.request_drain()
+            pump.join(timeout=60)
+        server.stop()
+        restore()
+    if rc != [EXIT_CLEAN] or code != 503:
+        raise AssertionError(f"[shell daemon] drain exit {rc}, /healthz after it {code}")
+    records, torn = read_journal(journal)
+    if torn or records[-1]["record"] != REC_SHUTDOWN or not records[-1]["clean"]:
+        raise AssertionError(f"[shell daemon] journal tail {records[-1]}, {torn} torn")
+    ticks = int(daemon.registry.counter("daemon_ticks_total").value)
+    n_fsync = int(daemon.registry.counter("daemon_journal_fsyncs_total").value)
+    return dict(requests=len(streamed), new_tokens=SHELL_HTTP_NEW,
+                submit_to_first_sse_token_ms_p50_p95=_pcts([s[1] for s in streamed]),
+                ticks=ticks, fsyncs=n_fsync, fsyncs_per_tick=n_fsync / max(ticks, 1),
+                ms_per_fsync=1e3 * sum(fsyncs) / max(len(fsyncs), 1),
+                journal_records=len(records), cancel="queued before the pump: cancelled")
+
+
+def _greedy_held(model, prompt, got, new, what):
+    """``got`` against static ``generate()`` on ``model`` under the top-2
+    rule (``_top2_held``)."""
+    from tpu_parallel_torch.models.generate import generate
+
+    with torch.inference_mode():
+        want = generate(model, torch.tensor([prompt], device="cuda"), max_new_tokens=new)[0]
+    return _top2_held(model, list(prompt), list(got), want.tolist(), what)
+
+
+def shell_failover_leg(seed, workload, cfg32):
+    """(b): the mix over two fp32 replicas, replica 0 crashed by a
+    ``FaultPlan`` at a seeded tick and restarted through its
+    ``engine_factory``; the replayed greedy requests against static
+    ``generate()``, the memory after the restart against before."""
+    import numpy as np
+
+    from tpu_parallel_torch.cluster import (FaultPlan, Frontend, FrontendConfig, ReplicaHandle,
+                                            RestartPolicy)
+    from tpu_parallel_torch.models import GPTLM
+
+    models = _replica_models(cfg32, seed, SHELL_REPLICAS)
+    fleet_weights = {k: v.to("cpu", copy=True) for k, v in models[0].state_dict().items()}
+
+    def factory():
+        model = GPTLM(cfg32, device="cuda", seed=None).eval()
+        model.load_state_dict(fleet_weights)
+        return serve_engine(model, 8, seed)
+
+    crash_at = int(np.random.default_rng(seed).integers(3, 8))
+    h0 = ReplicaHandle(0, serve_engine(models[0], 8, seed),
+                       fault_plan=FaultPlan(crash_at_tick=crash_at), engine_factory=factory)
+    h1 = ReplicaHandle(1, serve_engine(models[1], 8, seed), engine_factory=factory)
+    del models
+    fe = Frontend([h0, h1], router="least", config=FrontendConfig(restart=RestartPolicy(
+        backoff_seconds=0.0, probation_ticks=2, probation_requests=2)))
+    pool_bytes = pool_kv_bytes(h0.engine.pool.cache)[0]
+    memory = {}
+    inner = h0.step
+
+    def step_noting_memory():
+        if h0.ticks == crash_at and "before" not in memory:
+            torch.cuda.synchronize()
+            memory["before"] = torch.cuda.memory_allocated()
+        return inner()
+
+    h0.step = step_noting_memory
+    outs, wall, _, _, _ = _shell_drive(workload, fe.submit, fe.step)
+    del h0.step
+    _at_budget("failover", outs, cfg32.vocab_size)
+    summary = fe.summary()
+    if summary["replica_deaths"] != 1 or summary["restarts"] != 1:
+        raise AssertionError(f"[shell failover] deaths/restarts: {summary}")
+    gc.collect()
+    torch.cuda.synchronize()
+    memory["after"] = torch.cuda.memory_allocated()
+    if abs(memory["after"] - memory["before"]) > pool_bytes:
+        raise AssertionError(f"[shell failover] memory {memory} moved by more than one pool "
+                             f"({pool_bytes} bytes) across the restart")
+    replayed = [o for o in outs if o.retries and o.request.sampling.temperature == 0.0]
+    if not replayed:
+        raise AssertionError("[shell failover] the crash replayed no greedy request")
+    ref = GPTLM(cfg32, device="cuda", seed=seed).eval()
+    held = [_greedy_held(ref, o.request.prompt, o.tokens, o.request.max_new_tokens,
+                         f"replayed {o.request.request_id}")
+            for o in replayed[:SHELL_FP32_CHECKED]]
+    report = dict(crash_at_tick=crash_at, wall_s=wall, retries=summary["retries"],
+                  replayed=sum(1 for o in outs if o.retries), replayed_greedy=len(replayed),
+                  checked=len(held), equal=sum(h["equal"] for h in held),
+                  near_ties=[h for h in held if not h["equal"]], restarts=summary["restarts"],
+                  health=[h.health for h in fe.replicas], memory_allocated_before=memory["before"],
+                  memory_allocated_after=memory["after"], one_pool_bytes=pool_bytes)
+    return fe, ref, report
+
+
+def shell_swap_leg(fe, ref, cfg32, seed):
+    """(c): roll (b)'s fleet to a second seed's weights (canary, spot
+    check, promote), then to a third set whose canary load comes out with
+    one tensor scaled: the spot check must roll it back, and the fleet
+    then serves the second set bitwise, with the probes' tokens as before."""
+    from tpu_parallel_torch.cluster import ROLLBACK_SPOT_CHECK, SwapPolicy
+    from tpu_parallel_torch.models import GPTLM
+    from tpu_parallel_torch.serving import Request
+
+    v2 = {k: v.to("cpu", copy=True) for k, v in
+          GPTLM(cfg32, device="cuda", seed=seed + 1).state_dict().items()}
+    gc.collect()
+    rs = torch.Generator().manual_seed(seed + 2)
+    probes = [torch.randint(0, cfg32.vocab_size, (64,), generator=rs).tolist()
+              for _ in range(SHELL_PROBES)]
+    policy = SwapPolicy(drain_ticks=64, canary_ticks=2, canary_seconds=0.0, canary_requests=1,
+                        ttft_factor=1e6, e2e_factor=1e6, spot_check=True)
+
+    def roll(params, version):
+        status = fe.begin_swap(params=params, version=version, policy=policy)
+        if status["state"] != "rolling":
+            raise AssertionError(f"[shell swap] begin_swap({version}): {status}")
+        n = 0
+        while fe.swap_status()["state"] in ("rolling", "rolling_back") or fe.has_work():
+            if fe.swap_status()["state"] == "rolling" and n % 2 == 0:
+                # two at a time: on an idle fleet one lands on the canary
+                for j in range(2):
+                    fe.submit(Request(prompt=probes[(n + j) % SHELL_PROBES],
+                                      max_new_tokens=SHELL_SWAP_NEW,
+                                      request_id=f"{version}-{n}-{j}"))
+            fe.step()
+            n += 1
+            if n > 4000:
+                raise AssertionError(f"[shell swap] {version} never resolved: {fe.swap_status()}")
+        return fe.swap_status(), n
+
+    def probe(tag):
+        outs = [fe.submit(Request(prompt=p, max_new_tokens=SHELL_PROBE_NEW,
+                                  request_id=f"{tag}-{i}")) for i, p in enumerate(probes)]
+        fe.run()
+        _at_budget(f"swap probes {tag}", outs, cfg32.vocab_size)
+        return [o.tokens for o in outs]
+
+    t0 = time.perf_counter()
+    first, ticks1 = roll(v2, "v2")
+    if first["state"] != "completed" or sorted(first["replica_versions"].values()) != ["v2"] * 2:
+        raise AssertionError(f"[shell swap] the first rollout: {first}")
+    for h in fe.replicas:
+        if not all(torch.equal(t.cpu(), v2[k]) for k, t in h.engine.params.items()):
+            raise AssertionError(f"[shell swap] replica {h.replica_id} does not serve v2")
+    promoted = probe("v2")
+    # the third set is the first seed's weights; the canary's load of it
+    # comes out with one tensor scaled (a corrupted load)
+    v3 = {k: v.detach().to("cpu", copy=True) for k, v in ref.state_dict().items()}
+    canary = fe.replicas[0].engine
+    rebind = canary.rebind_params
+
+    def corrupted_rebind(params, version=None):
+        rebind(params, version=version)
+        if version == "v3":
+            with torch.no_grad():
+                canary.params[SHELL_SCALED].mul_(4.0)
+
+    canary.rebind_params = corrupted_rebind
+    second, ticks2 = roll(v3, "v3")
+    del canary.rebind_params
+    if second["state"] != "rolled_back" or second["verdict"] != ROLLBACK_SPOT_CHECK:
+        raise AssertionError(f"[shell swap] the corrupted rollout: {second}")
+    for h in fe.replicas:
+        if h.weights_version != "v2" or not all(
+                torch.equal(t.cpu(), v2[k]) for k, t in h.engine.params.items()):
+            raise AssertionError(f"[shell swap] replica {h.replica_id} after the rollback "
+                                 f"({h.weights_version}) does not serve v2 bitwise")
+    after = probe("rolled-back")
+    if after != promoted:
+        raise AssertionError("[shell swap] greedy tokens after the rollback differ from before")
+    summary = fe.summary()
+    return dict(first=dict(state=first["state"], ticks=ticks1),
+                second=dict(state=second["state"], verdict=second["verdict"], ticks=ticks2,
+                            scaled=SHELL_SCALED),
+                swaps=summary["swaps"], rollbacks=summary["swap_rollbacks"],
+                probes_equal_after_rollback=True, wall_s=time.perf_counter() - t0)
+
+
+def shell_child_leg(workload, work):
+    """(e): ``python -m tpu_parallel_torch.daemon.serve --serve`` on
+    GPT-2 125M fp32 as a subprocess, SIGKILLed mid-stream and restarted on
+    the same journal; every accepted request finishes once, its tokens
+    held to static ``generate()`` under the top-2 rule."""
+    import signal
+
+    from tpu_parallel_torch.daemon import REC_TERMINAL, load_state, read_journal
+    from tpu_parallel_torch.daemon import serve as child
+
+    import argparse
+
+    args = argparse.Namespace(replicas=1, slots=SHELL_CHILD_SLOTS, grace=60.0, fsync_batch=8,
+                              model="gpt2_125m", device="cuda")
+    journal = str(Path(work) / "child.jsonl")
+    ready = str(Path(work) / "child_ready.json")
+    picked = [p[:SHELL_CHILD_PROMPT] for p, _, hot in workload if not hot][:SHELL_CHILD_REQUESTS]
+    schedule = [dict(dedupe_token=f"child-{i}", prompt=p, max_new_tokens=SHELL_CHILD_NEW)
+                for i, p in enumerate(picked)]
+    t0 = time.perf_counter()
+    proc = child.spawn_daemon(args, journal, ready)
+    procs = [proc]
+    try:
+        # the references, while the child starts: the child's weights are
+        # drawn from its own seed, WEIGHTS_SEED
+        (model,) = child.build_models("gpt2_125m", "cuda", 1)
+        from tpu_parallel_torch.models.generate import generate
+
+        with torch.inference_mode():
+            refs = [generate(model, torch.tensor([e["prompt"]], device="cuda"),
+                             max_new_tokens=SHELL_CHILD_NEW)[0].tolist() for e in schedule]
+        port = child.wait_ready(ready, proc)["port"]
+        ready_s = time.perf_counter() - t0
+        accepted = {}
+        for e in schedule:
+            code, rec = child.http_json("POST", f"http://127.0.0.1:{port}/v1/submit", e)
+            if code != 200:
+                raise AssertionError(f"[shell child] submit {code}: {rec}")
+            accepted[e["dedupe_token"]] = rec["request_id"]
+        first = next(iter(accepted.values()))
+        import urllib.request
+
+        # kill at the first token the first request streams (SSE pushes
+        # each tick's tokens as they are delivered)
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/v1/stream/{first}",
+                                    timeout=120) as resp:
+            for raw in resp:
+                if raw.startswith(b"data: ") and b'"token"' in raw:
+                    break
+            proc.send_signal(signal.SIGKILL)
+        proc.wait(timeout=30)
+        durable = load_state(journal)
+        if not durable.unfinished:
+            raise AssertionError("[shell child] the kill landed after every request finished")
+        t1 = time.perf_counter()
+        proc = child.spawn_daemon(args, journal, ready)
+        procs.append(proc)
+        port = child.wait_ready(ready, proc)["port"]
+        restart_s = time.perf_counter() - t1
+        for e in schedule:  # the client's idempotent retries
+            code, rec = child.http_json("POST", f"http://127.0.0.1:{port}/v1/submit", e)
+            if code != 200 or rec["request_id"] != accepted[e["dedupe_token"]]:
+                raise AssertionError(f"[shell child] retry of {e['dedupe_token']}: {code} {rec}")
+        done, pending = child.wait_terminal(port, accepted, timeout=120)
+        if pending:
+            raise AssertionError(f"[shell child] never terminal: {pending}")
+        problems = []
+        child.state_leak_check(port, problems, "child")
+        child.stop_gracefully(proc, args.grace, problems, "child")
+        child.journal_invariants(journal, problems)
+        if problems:
+            raise AssertionError(f"[shell child] {problems}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    records, _ = read_journal(journal)
+    terminals = {}
+    for r in records:
+        if r["record"] == REC_TERMINAL:
+            terminals[r["request_id"]] = terminals.get(r["request_id"], 0) + 1
+    if sorted(terminals) != sorted(accepted.values()) or set(terminals.values()) != {1}:
+        raise AssertionError(f"[shell child] terminal records per request: {terminals}")
+    held = []
+    for e, want in zip(schedule, refs):
+        rec = done[e["dedupe_token"]]
+        if rec["status"] != "finished":
+            raise AssertionError(f"[shell child] {e['dedupe_token']}: {rec['status']}")
+        if rec["tokens"] == want:
+            held.append(dict(equal=True))
+        else:
+            held.append(_top2_held(model, e["prompt"], rec["tokens"], want,
+                                   f"child {e['dedupe_token']}"))
+    return dict(requests=len(schedule), new_tokens=SHELL_CHILD_NEW,
+                unfinished_at_kill=len(durable.unfinished), recoveries=load_state(
+                    journal).recoveries, equal=sum(h["equal"] for h in held),
+                near_ties=[h for h in held if not h["equal"]], ready_s=ready_s,
+                restart_ready_s=restart_s, wall_s=time.perf_counter() - t0)
+
+
+def shell_phase(seed, smi, work):
+    """Phase 21: the serving shell on GPT-2 125M at full width.  (a) the
+    32-request mix through a ``Frontend`` over two bf16 replicas (16 slots
+    each, the unified tick's captured graphs, router ``least``) beside one
+    bare engine; (d) the daemon over that frontend with its HTTP server;
+    (b) the mix over two fp32 replicas with replica 0 crashed at a seeded
+    tick and restarted; (c) rolling swaps over (b)'s fleet, one promoted
+    and one rolled back by the spot check; (e) the daemon as a process,
+    killed and restarted on its journal."""
+    from tpu_parallel_torch.models import gpt2_125m
+    from tpu_parallel_torch.ops import flash_attention as fa
+
+    laps, start = {}, time.perf_counter()
+
+    def lap(name):
+        laps[name] = time.perf_counter() - start - sum(laps.values())
+
+    for name in LAUNCH_COUNTERS:
+        setattr(fa, name, 0)
+    cfg = gpt2_125m()
+    workload = serve_workload(seed, cfg.vocab_size)
+    models = _replica_models(cfg, seed, SHELL_REPLICAS)
+    fe, frontend = shell_frontend_leg(seed, models, workload)
+    log("[shell frontend] " + json.dumps(frontend))
+    lap("a_frontend")
+    daemon = shell_daemon_leg(fe, workload, work)
+    log("[shell daemon] " + json.dumps(daemon))
+    del fe, models
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("d_daemon")
+    cfg32 = gpt2_125m(dtype=torch.float32)
+    fe32, ref, failover = shell_failover_leg(seed, workload, cfg32)
+    log("[shell failover] " + json.dumps(failover))
+    lap("b_failover")
+    swap = shell_swap_leg(fe32, ref, cfg32, seed)
+    log("[shell swap] " + json.dumps(swap))
+    del fe32, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("c_swap")
+    launches = {name: getattr(fa, name) for name in LAUNCH_COUNTERS}
+    if any(launches.values()):
+        raise AssertionError(f"the serving shell launched flash kernels: {launches}")
+    child = shell_child_leg(workload, work)
+    log("[shell child] " + json.dumps(child))
+    lap("e_child")
+    report = dict(card=smi, frontend=frontend, failover=failover, swap=swap, daemon=daemon,
+                  child=child, flash_launches=launches, seconds=laps)
+    log(f"[shell] seconds by leg {json.dumps(laps)}; card: {smi}")
+    return report
+
+
 def leg_main(argv):
     """``chip_smoke.py --leg <name> ...``: one leg of phases 12-17 in
     this process; prints its result as one ``dp-leg-result:`` JSON line."""
@@ -9830,6 +10480,10 @@ def main():
             if not all(counts.values()):
                 raise AssertionError(f"the t5 {path} path left a kernel unlaunched: {counts}")
         took("phase 20 (the encoder-decoder)")
+        gc.collect()
+        torch.cuda.empty_cache()
+        shell = shell_phase(SEED, smi, work)
+        took("phase 21 (the serving shell)")
     finally:
         _kill_launched()
         shutil.rmtree(work, ignore_errors=True)
@@ -10008,7 +10662,7 @@ def main():
                    sequence_parallel_kernel_shapes=sp_rows, mixture_of_experts=moe_report,
                    mixture_of_experts_kernel_shapes=moe_rows, llama=llama_report,
                    llama_kernel_shapes=llama_rows, bert=bert_report, bert_kernel_shapes=bert_rows,
-                   t5=t5_report, t5_kernel_shapes=t5_rows,
+                   t5=t5_report, t5_kernel_shapes=t5_rows, serving_shell=shell,
                    inference_flash_fwd_launches=inference_launches,
                    kernel_shapes=kernel_rows, bwd_kernel_shapes=bwd_rows,
                    trainer_shell_kernel_shapes=shell_rows, data_parallel_kernel_shapes=dp_rows)

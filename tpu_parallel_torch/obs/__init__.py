@@ -1,7 +1,7 @@
 """Telemetry of the port: the metric registry, the request-lifecycle span
-tracer and the Chrome-trace / Prometheus exporters, copied from
-``tpu_parallel/obs`` (plain Python).  The span spool and trace stitching
-are not in the port yet."""
+tracer, the Chrome-trace / Prometheus exporters and the per-process span
+spool, copied from ``tpu_parallel/obs`` (plain Python).  Trace stitching
+is not in the port yet."""
 
 from tpu_parallel_torch.obs.exporters import (
     chrome_trace_events,
@@ -19,6 +19,7 @@ from tpu_parallel_torch.obs.registry import (
     PercentileWindow,
     validate_snapshot,
 )
+from tpu_parallel_torch.obs.spool import SpanSpool, read_span_log
 from tpu_parallel_torch.obs.tracer import NULL_TRACER, Span, TraceContext, Tracer
 
 __all__ = [
@@ -34,8 +35,10 @@ __all__ = [
     "MetricRegistry",
     "NULL_TRACER",
     "PercentileWindow",
+    "SpanSpool",
     "Span",
     "TraceContext",
     "Tracer",
+    "read_span_log",
     "validate_snapshot",
 ]

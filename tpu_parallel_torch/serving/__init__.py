@@ -26,6 +26,7 @@ from tpu_parallel_torch.serving.engine import (
     ServingEngine,
     default_prefill_buckets,
     sample_tokens,
+    validate_same_shapes,
 )
 from tpu_parallel_torch.serving.kv_hierarchy import (
     MIGRATION_STATUSES,
@@ -94,6 +95,7 @@ __all__ = [
     "copy_prefix_rows",
     "ServingEngine",
     "default_prefill_buckets",
+    "validate_same_shapes",
     "sample_tokens",
     "ServingMetrics",
     "percentile",

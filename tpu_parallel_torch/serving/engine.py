@@ -479,6 +479,27 @@ def _unified_spec_core(model, steps, k, max_ngram, min_ngram, adaptive, sampled,
     return act_emit, blocks, counts, drafted, accepted, state
 
 
+def validate_same_shapes(old, new) -> None:
+    """Raise ``ValueError`` unless the state dict ``new`` matches ``old``
+    name for name in shape and dtype: the precondition for a rebind that
+    keeps every address (and captured graph) valid.  THE one check both
+    :meth:`ServingEngine.rebind_params` and the cluster's ``begin_swap``
+    typed up-front refusal run, so they can never drift apart."""
+    if set(old) != set(new):
+        diff = sorted(set(old) ^ set(new))
+        raise ValueError(f"weight tree structure differs: names {diff[:3]}")
+    for name, a in old.items():
+        b = new[name]
+        if (
+            tuple(getattr(a, "shape", ())) != tuple(getattr(b, "shape", ()))
+            or getattr(a, "dtype", None) != getattr(b, "dtype", None)
+        ):
+            raise ValueError(
+                f"leaf {name}: {tuple(getattr(b, 'shape', ()))}/{getattr(b, 'dtype', None)}"
+                f" != served {tuple(a.shape)}/{a.dtype}"
+            )
+
+
 def default_prefill_buckets(seq_len: int, start: int = 32) -> Tuple[int, ...]:
     """Geometric bucket set ``(32, 64, ..., seq_len)``; ``seq_len`` is always
     the last bucket so every admissible prompt fits one."""
@@ -1234,31 +1255,44 @@ class ServingEngine:
             self.metrics.seed_block_pool(self.pool)
         return self.metrics
 
+    @property
+    def params(self) -> Dict[str, torch.Tensor]:
+        """The weights this engine serves, as the model's own state dict:
+        the tensors ALIAS the model's (``rebind_params`` writes into them),
+        so a caller that keeps them across a rebind copies them."""
+        return self.model.state_dict()
+
     @torch.no_grad()
     def rebind_params(self, state_dict, version: Optional[str] = None) -> None:
         """Swap the served weights IN PLACE: ``copy_`` each tensor of
         ``state_dict`` into the model's parameter of the same name, so every
-        address (and a captured CUDA graph) stays valid.  Names, shapes and
-        dtypes must match the model's exactly (``ValueError`` names the
-        first mismatch); work in flight raises ``RuntimeError``."""
+        address (and a captured CUDA graph) stays valid, and drop every
+        cached prefix.  Names, shapes and dtypes must match the model's
+        exactly (:func:`validate_same_shapes`, the one check ``begin_swap``
+        also runs; ``ValueError`` names the first mismatch); work in flight
+        raises ``RuntimeError``."""
         if self.has_work():
             raise RuntimeError(
                 f"rebind_params with work in flight ({self.in_flight} slots, "
                 f"{self.scheduler.depth} queued) — drain or relocate before swapping weights"
             )
-        current = self.model.state_dict()
-        if set(current) != set(state_dict):
-            missing = sorted(set(current) ^ set(state_dict))
-            raise ValueError(f"rebind_params: names differ ({missing[:3]}) — same-shape swaps only")
-        for name, old in current.items():
-            new = state_dict[name]
-            if tuple(new.shape) != tuple(old.shape) or new.dtype != old.dtype:
-                raise ValueError(
-                    f"rebind_params: {name}: {tuple(new.shape)}/{new.dtype} != served "
-                    f"{tuple(old.shape)}/{old.dtype} — same-shape swaps only"
-                )
+        current = self.params
+        try:
+            validate_same_shapes(current, state_dict)
+        except ValueError as exc:
+            raise ValueError(
+                f"rebind_params: {exc} — same-shape swaps only (a reshape needs a new engine)"
+            ) from None
         for name, old in current.items():
             old.copy_(state_dict[name])
+        # cached K/V is a function of the weights: a prefix the old weights
+        # wrote must never be hit again (the JAX engine keeps its caches
+        # across a rebind and serves such hits)
+        if self._radix is not None:
+            self._radix.clear()
+        elif self._prefix is not None:
+            while self._prefix.pop_lru():
+                pass
         if version is not None:
             self.weights_version = version
             if self._radix is not None:

@@ -493,6 +493,19 @@ class RadixPrefixCache:
         True when a device reference was actually dropped."""
         return self._evict_one(protect=frozenset())
 
+    def clear(self) -> None:
+        """Drop every chain on every tier (device blocks back to the pool,
+        host copies and disk blobs discarded): cached K/V is a function of
+        the weights, so a weight rebind leaves nothing to hit."""
+        for node in list(self._walk()):
+            if node.block is not None:
+                self.pool.free_stored((node.block,))
+                node.block = None
+                self.device_blocks -= 1
+                self.evictions += 1
+        for child in list(self._root.children.values()):
+            self._drop_subtree(child)
+
     # -- stats -------------------------------------------------------------
 
     @property
